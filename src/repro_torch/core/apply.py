@@ -1,0 +1,49 @@
+"""End-to-end LExI pipeline: profile -> search -> plan."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.plan import LexiPlan
+from repro_torch.core.search import SearchResult, dp_optimal, \
+    evolutionary_search
+from repro_torch.core.sensitivity import SensitivityTable, \
+    profile_sensitivity
+
+
+def optimize(
+    params: Dict,
+    cfg: ModelConfig,
+    budget: int,
+    *,
+    method: str = "evolutionary",
+    n_iter: int = 16,
+    profile_batch: int = 4,
+    profile_seq: int = 64,
+    k_min: int = 1,
+    seed: int = 0,
+    table: Optional[SensitivityTable] = None,
+    device=None,
+    use_kernel: bool = True,
+    **search_kw,
+) -> LexiPlan:
+    """Run the full LExI pipeline and return a deployable plan.
+
+    ``budget`` is the total number of active experts across all MoE layers
+    (paper's B).  Stage 1 profiles on ``device`` (the card unless the
+    caller asks for the CPU); pass a precomputed ``table`` to skip it.
+    """
+    if table is None:
+        table = profile_sensitivity(
+            params, cfg, n_iter=n_iter, batch=profile_batch, seq=profile_seq,
+            seed=seed, device=device, use_kernel=use_kernel)
+    if method == "evolutionary":
+        res: SearchResult = evolutionary_search(table, budget, k_min=k_min,
+                                                seed=seed, **search_kw)
+    elif method == "dp":
+        res = dp_optimal(table, budget, k_min=k_min, **search_kw)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return LexiPlan(arch=cfg.name, budget=budget, plan=res.plan,
+                    fitness=res.fitness, method=method, k_base=cfg.moe_top_k)

@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels and their plain PyTorch versions.
+
+Each wrapper runs its plain version for a tensor that lies on the CPU and
+launches its CUDA kernel for a tensor on the card (or raises); there is no
+fallback between the two.  Each wrapper counts its kernel launches in a
+plain integer attribute, ``<wrapper>.launches``.
+"""
+
+from repro_torch.kernels.flash_decode_paged import flash_decode_paged
+from repro_torch.kernels.moe_decode import moe_decode
+from repro_torch.kernels.moe_gmm import moe_gmm
+
+WRAPPERS = {"moe_gmm": moe_gmm, "moe_decode": moe_decode,
+            "flash_decode_paged": flash_decode_paged}
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0

@@ -1,0 +1,64 @@
+"""Ragged grouped SwiGLU over the sorted, tile-aligned MoE buffer.
+
+Kernel: ``csrc/moe_gmm.cu`` (replaces ``repro/kernels/moe_gmm.py::
+moe_gmm_pallas``).  xs [M, D] (M = n_tiles * block_m) sorted by expert,
+w1 [E, D, 2F] (gate = first F columns, up = next F), w2 [E, F, D],
+tile_expert / tile_valid [n_tiles] int32 -> [M, D]; tiles with
+``tile_valid == 0`` come out zero.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F_
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._checks import expect, on_card
+
+
+def moe_gmm_plain(xs, w1, w2, tile_expert, tile_valid, block_m: int):
+    """The kernel's function in plain PyTorch: per-tile gathered weights,
+    f32 products, ``h`` rounded to the input dtype before the down
+    projection (as the kernel does), dead tiles zeroed."""
+    m, d = xs.shape
+    f = w2.shape[1]
+    te = tile_expert.long()
+    xt = xs.reshape(-1, block_m, d).float()
+    hg = torch.bmm(xt, w1[te].float())                       # [n_tiles, bm, 2F]
+    h = (F_.silu(hg[..., :f]) * hg[..., f:]).to(xs.dtype).float()
+    yt = torch.bmm(h, w2[te].float())
+    yt = torch.where(tile_valid.bool()[:, None, None], yt, 0.0)
+    return yt.reshape(m, d).to(xs.dtype)
+
+
+def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    if not on_card("moe_gmm", xs, w1, w2, tile_expert, tile_valid):
+        return moe_gmm_plain(xs, w1, w2, tile_expert, tile_valid, block_m)
+    m, d = xs.shape
+    e, f = w2.shape[0], w2.shape[1]
+    bf16 = torch.bfloat16
+    expect("moe_gmm", xs, "xs", bf16)
+    expect("moe_gmm", w1, "w1", bf16, (e, d, 2 * f))
+    expect("moe_gmm", w2, "w2", bf16, (e, f, d))
+    if d % 64 or f % 64:
+        raise ValueError(f"moe_gmm: D={d} and F={f} must be multiples of 64")
+    if block_m % 8 or not 8 <= block_m <= 128 or m % block_m:
+        raise ValueError(f"moe_gmm: block_m={block_m} must be a multiple of "
+                         f"8 in [8, 128] dividing M={m}")
+    n_tiles = m // block_m
+    expect("moe_gmm", tile_expert, "tile_expert", torch.int32, (n_tiles,))
+    expect("moe_gmm", tile_valid, "tile_valid", torch.int32, (n_tiles,))
+    h = torch.empty((m, f), dtype=bf16, device=xs.device)
+    out = torch.empty((m, d), dtype=bf16, device=xs.device)
+    fn = _build.function("moe_gmm", "moe_gmm_launch", 7, 4)
+    err = fn(xs.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+             tile_expert.data_ptr(), tile_valid.data_ptr(), h.data_ptr(),
+             out.data_ptr(), m, d, f, block_m,
+             torch.cuda.current_stream(xs.device).cuda_stream)
+    _build.check("moe_gmm", err)
+    moe_gmm.launches += 1
+    return out
+
+
+moe_gmm.launches = 0

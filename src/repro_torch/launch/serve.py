@@ -1,0 +1,185 @@
+"""Serving launcher: batched generation, then the same wave under a LExI
+plan searched (or loaded) for the model -- on the card by default.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --requests 8 --max-new 32 --max-len 512 --max-batch 8 \
+        --use-kernel --use-moe-decode --use-moe-kernel \
+        --lexi-budget-frac 0.5
+
+    # the plain PyTorch path on the CPU, at test size
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --reduced --device cpu --requests 4 --max-new 8 --max-len 96 \
+        --lexi-budget-frac 0.5
+
+Flag names follow ``repro.launch.serve`` for the features the port has.
+The MoE layers always run the dropless ``gmm`` dispatch (the only one the
+port serves); baseline and plan are served from one engine and one set of
+weights, drawn on the device from ``--seed``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from repro_torch import models
+from repro_torch.configs import get_config
+from repro_torch.serving import Engine, Request
+
+
+def synth_requests(n: int, vocab: int, *, lo: int = 8, hi: int = 48,
+                   max_new: int = 32, seed: int = 0, temperature: float = 0.0,
+                   top_k: int = 0):
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i,
+                    prompt=rng.integers(0, vocab, rng.integers(lo, hi)).astype(np.int32),
+                    max_new_tokens=max_new, temperature=temperature,
+                    top_k=top_k)
+            for i in range(n)]
+
+
+def _report(tag: str, eng: Engine) -> float:
+    tput = eng.throughput()
+    s = eng.stats
+    pre = (f"preempt={s['preemptions']} recompute={s['recompute_tokens']} "
+           if s.get("preemptions") else "")
+    print(f"{tag}: {tput:,.1f} tok/s  "
+          f"(prefill={s['prefill_tokens']} decode={s['decode_tokens']} "
+          f"steps={s['steps']} {pre}"
+          f"ttft_p50={s.get('ttft_p50_s', float('nan')) * 1e3:.0f}ms "
+          f"ttft_p95={s.get('ttft_p95_s', float('nan')) * 1e3:.0f}ms "
+          f"decode_tps_p50={s.get('decode_tps_p50', float('nan')):.1f})")
+    return tput
+
+
+def _profiled(fn, enabled: bool):
+    """Run ``fn`` under ``torch.profiler`` when enabled -> (result, prof)."""
+    if not enabled:
+        return fn(), None
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        out = fn()
+    return out, prof
+
+
+def _device_breakdown(tag: str, prof, wall_s: float, top: int = 10) -> None:
+    """Print one JSON line: device time by kernel (self time, summed over
+    the serve) and the device's busy and idle share of the wall time."""
+    rows = []
+    for e in prof.key_averages():
+        t = (getattr(e, "self_device_time_total", 0)
+             or getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            rows.append((e.key, t / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    wall = wall_s * 1e3
+    print(json.dumps({"profile": tag, "wall_ms": wall, "device_busy_ms": busy,
+                      "idle_share": 1.0 - busy / wall if wall else None,
+                      "top": [{"name": n[:90], "ms": t, "calls": c}
+                              for n, t, c in rows[:top]]}))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "plain PyTorch path)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--prompt-lo", type=int, default=8)
+    ap.add_argument("--prompt-hi", type=int, default=48)
+    ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="KV pool size in pages (default: worst-case "
+                         "max_batch x max_len)")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="paged decode attends pages in-kernel "
+                         "(flash_decode_paged) instead of gathering")
+    ap.add_argument("--use-moe-decode", action="store_true",
+                    help="decode steps run MoE through the fused "
+                         "routed-expert path instead of the gmm dispatch")
+    ap.add_argument("--use-moe-kernel", action="store_true",
+                    help="expert FFNs run the moe_gmm / moe_decode kernels")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--lexi-budget-frac", type=float, default=None,
+                    help="search a plan inline at this active-expert budget")
+    ap.add_argument("--plan", default=None,
+                    help="path to a saved LexiPlan JSON to serve")
+    ap.add_argument("--save-plan", default=None)
+    ap.add_argument("--profile", action="store_true",
+                    help="trace each serve with torch.profiler and print "
+                         "device time by kernel and the device's idle share")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = cfg.with_(moe_impl="gmm")
+    params = models.init_params(cfg, args.seed, device=args.device)
+    opts = models.ModelOpts(use_moe_kernel=args.use_moe_kernel)
+    req_kw = dict(lo=args.prompt_lo, hi=args.prompt_hi, max_new=args.max_new,
+                  seed=args.seed, temperature=args.temperature,
+                  top_k=args.top_k)
+    eng = Engine(cfg, params, max_batch=args.max_batch, max_len=args.max_len,
+                 prefill_chunk=args.prefill_chunk, num_pages=args.num_pages,
+                 use_kernel=args.use_kernel or None,
+                 use_moe_decode=args.use_moe_decode or None,
+                 opts=opts, seed=args.seed,
+                 device=args.device)
+    print(f"arch={cfg.name} baseline top-k={cfg.moe_top_k or 'n/a'} "
+          f"device={eng.device} chunk={eng.prefill_chunk}")
+    if args.profile:                    # first calls build and warm up
+        eng.serve(synth_requests(2, cfg.vocab_size, **dict(req_kw,
+                                                            max_new=2)))
+    _, prof = _profiled(lambda: eng.serve(
+        synth_requests(args.requests, cfg.vocab_size, **req_kw)),
+        args.profile)
+    tput = _report("baseline", eng)
+    if prof is not None:
+        _device_breakdown("baseline", prof, eng.stats["wall_s"])
+
+    plan = None
+    if args.plan is not None:
+        from repro_torch.core import LexiPlan
+        plan = LexiPlan.load(args.plan)
+    elif (args.lexi_budget_frac is not None and cfg.is_moe
+          and cfg.moe_top_k > 1):
+        from repro_torch.core import optimize
+        n = cfg.num_moe_layers
+        budget = max(n, int(round(args.lexi_budget_frac * n * cfg.moe_top_k)))
+        plan = optimize(params, cfg, budget, method="dp", n_iter=4,
+                        profile_batch=2, profile_seq=32, seed=args.seed,
+                        device=args.device, use_kernel=args.use_moe_kernel)
+        if args.save_plan:
+            plan.save(args.save_plan)
+            print(f"saved plan -> {args.save_plan}")
+
+    if plan is not None:
+        eng.add_plan("lexi", plan)      # same runner, same weights
+        print(f"LExI plan (B={plan.budget}): {plan.plan}")
+        _, prof = _profiled(lambda: eng.serve(
+            synth_requests(args.requests, cfg.vocab_size, **req_kw),
+            plan="lexi"), args.profile)
+        tput2 = _report("LExI", eng)
+        if prof is not None:
+            _device_breakdown("lexi", prof, eng.stats["wall_s"])
+        print(f"speedup: {tput2 / tput:.2f}x at "
+              f"{plan.active_fraction():.0%} active experts")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

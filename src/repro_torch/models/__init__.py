@@ -1,0 +1,7 @@
+from repro_torch.models.model import (  # noqa: F401
+    chunk_prefill_fn,
+    decode_fn,
+    init_caches,
+    init_params,
+)
+from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts  # noqa: F401

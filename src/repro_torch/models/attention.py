@@ -1,0 +1,235 @@
+"""GQA attention (qk-norm, sliding window) over the paged KV cache.
+
+Paged (block-table) layout, per layer, as in ``repro.models.attention``::
+
+    {"kp": [N, P, Hkv, hd], "vp": [N, P, Hkv, hd], "posp": [N, P]}
+
+N pages of P positions.  ``block_tables [B, n_blk]`` maps logical block j
+of sequence b to a physical page; page 0 is the reserved trash page
+(``posp`` stays -1) that unmapped entries point at.  ``posp`` holds the
+absolute position in each slot (-1 = empty) and every mask is derived from
+it.  Writes with a position < 0 write nothing.  Unlike the reference, the
+port updates the cache tensors in place (no functional copy of the pool
+per step).
+
+Modes: ``"train"`` (whole sequence, no cache -- for logits parity),
+``"chunk"`` (chunked prefill: attend the pre-write cache plus the chunk,
+then commit the chunk) and ``"decode"`` (one token per row; the gather
+path or, under ``use_paged_kernel``, the ``flash_decode_paged`` kernel
+walking the first ``kernel_blocks`` table columns).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import activation_dtype, apply_rope, \
+    dense_init, param_dtype, rms_norm_headwise
+
+NEG_INF = -1e30
+TRASH_PAGE = 0  # reserved page unmapped block-table entries point at
+
+
+# --------------------------------------------------------------------------- #
+# Init
+# --------------------------------------------------------------------------- #
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    if cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"{cfg.attention!r} attention is not ported yet (ROADMAP.md A11)")
+    dt = param_dtype(cfg)
+    d, hd = cfg.d_model, cfg.head_dim_
+    p = {
+        "wq": dense_init(gen, (d, cfg.num_heads * hd), dt, device),
+        "wk": dense_init(gen, (d, cfg.num_kv_heads * hd), dt, device),
+        "wv": dense_init(gen, (d, cfg.num_kv_heads * hd), dt, device),
+        "wo": dense_init(gen, (cfg.num_heads * hd, d), dt, device,
+                         in_axis_size=cfg.num_heads * hd),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.ones(hd, dtype=dt, device=device)}
+        p["k_norm"] = {"scale": torch.ones(hd, dtype=dt, device=device)}
+    return p
+
+
+# --------------------------------------------------------------------------- #
+# Paged (block-table) cache
+# --------------------------------------------------------------------------- #
+
+
+def cache_buf_len(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.sliding_window:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     device) -> Dict:
+    """Single-layer paged pool: ``num_pages`` pages of ``page_size`` slots."""
+    dt = activation_dtype(cfg)
+    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim_)
+    return {
+        "kp": torch.zeros(shape, dtype=dt, device=device),
+        "vp": torch.zeros(shape, dtype=dt, device=device),
+        "posp": torch.full((num_pages, page_size), -1, dtype=torch.int32,
+                           device=device),
+    }
+
+
+def _paged_write(pages: torch.Tensor, values: torch.Tensor,
+                 positions: torch.Tensor, block_tables: torch.Tensor) -> None:
+    """Scatter [B, S, ...] values into a page pool through the block table,
+    in place.  Positions < 0 write nothing: they are aimed at slot 0 of the
+    trash page -- never a valid target -- and write back what it holds
+    (a mask instead of boolean indexing, which would stall the host on a
+    device sync every call).  Ring semantics (slot = pos % S_buf) fall out
+    of S_buf = n_blk * P."""
+    p = pages.shape[1]
+    s_buf = block_tables.shape[1] * p
+    valid = positions >= 0
+    slot = torch.where(valid, positions, 0).long() % s_buf        # [B, S]
+    page = torch.gather(block_tables.long(), 1, slot // p)
+    page = torch.where(valid, page, TRASH_PAGE)
+    off = torch.where(valid, slot % p, 0)
+    keep = valid.reshape(valid.shape + (1,) * (values.dim() - valid.dim()))
+    pages[page, off] = torch.where(keep, values.to(pages.dtype),
+                                   pages[page, off])
+
+
+def _paged_read(pages: torch.Tensor, block_tables: torch.Tensor):
+    """Gather a sequence view [B, n_blk * P, ...] from the pool."""
+    g = pages[block_tables.long()]                     # [B, n_blk, P, ...]
+    return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
+
+
+# --------------------------------------------------------------------------- #
+# Masking + core attention math
+# --------------------------------------------------------------------------- #
+
+
+def _mask_bias(q_pos, kv_pos, window: Optional[int], causal: bool):
+    """Additive bias [B, 1, Sq, Sk] from absolute positions."""
+    q = q_pos[:, None, :, None].int()
+    k = kv_pos[:, None, None, :].int()
+    valid = k >= 0
+    if causal:
+        valid = valid & (k <= q)
+    if window is not None:
+        valid = valid & (k > q - window)
+    return torch.where(valid, 0.0, NEG_INF).float()
+
+
+def _sdpa(q, k, v, bias, scale: float, compute_dtype: str = "f32"):
+    """Grouped-query attention: q [B,Sq,Hq,d], k/v [B,Sk,Hkv,d]."""
+    b, sq, hq, dq = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    # standard GQA head mapping: q head h uses kv head h // g (kv-major)
+    qg = q.reshape(b, sq, hkv, g, dq)
+    if compute_dtype == "bf16_accum32":
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(qg.dtype)).float()
+    else:
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = scores * scale + bias[:, None]              # [B,Hkv,g,Sq,Sk]
+    probs = torch.softmax(scores, dim=-1)
+    if compute_dtype == "bf16_accum32":
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v).float()
+    else:
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# GQA forward
+# --------------------------------------------------------------------------- #
+
+
+def gqa_attention(
+    params: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    mode: str = "train",
+    cache: Optional[Dict] = None,
+    compute_dtype: str = "f32",
+    block_tables=None,
+    use_paged_kernel: bool = False,
+    kernel_blocks: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x [B,S,D]; positions [B,S] (train/chunk) or [B] (decode).
+
+    Returns (output [B,S,D], the cache -- updated in place -- or None).
+    """
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    scale = 1.0 / hd ** 0.5
+    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = (x @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
+    v = (x @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, params["q_norm"]["scale"])
+        k = rms_norm_headwise(k, params["k_norm"]["scale"])
+
+    if mode == "decode":
+        pos_s = positions[:, None]                        # [B, 1]
+        q = apply_rope(q, pos_s, cfg.rope_theta)
+        k = apply_rope(k, pos_s, cfg.rope_theta)
+        _paged_write(cache["kp"], k, pos_s, block_tables)
+        _paged_write(cache["vp"], v, pos_s, block_tables)
+        _paged_write(cache["posp"], pos_s, pos_s, block_tables)
+        if use_paged_kernel:
+            # block-table-native: attend the pages in place, walking only
+            # the live-page prefix when the caller bounded it
+            from repro_torch.kernels import flash_decode_paged
+            bt = (block_tables if kernel_blocks is None
+                  else block_tables[:, :kernel_blocks])
+            out = flash_decode_paged(
+                q[:, 0], cache["kp"], cache["vp"], cache["posp"], bt,
+                positions.int(), window=cfg.sliding_window)[:, None]
+        else:
+            k_all = _paged_read(cache["kp"], block_tables)
+            v_all = _paged_read(cache["vp"], block_tables)
+            kv_pos = _paged_read(cache["posp"], block_tables)
+            bias = _mask_bias(pos_s, kv_pos, cfg.sliding_window, True)
+            out = _sdpa(q, k_all, v_all, bias, scale, compute_dtype)
+    elif mode == "chunk":
+        # attend against the PRE-write cache plus the in-chunk keys, then
+        # commit the chunk (the reference's order: right under a
+        # sliding-window ring, and exact against whole-prompt prefill)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        k_old = _paged_read(cache["kp"], block_tables)
+        v_old = _paged_read(cache["vp"], block_tables)
+        pos_old = _paged_read(cache["posp"], block_tables)
+        k_all = torch.cat([k_old, k.to(k_old.dtype)], dim=1)
+        v_all = torch.cat([v_old, v.to(v_old.dtype)], dim=1)
+        kv_pos = torch.cat([pos_old, positions.to(pos_old.dtype)], dim=1)
+        bias = _mask_bias(positions, kv_pos, cfg.sliding_window, True)
+        out = _sdpa(q, k_all, v_all, bias, scale, compute_dtype)
+        _paged_write(cache["kp"], k, positions, block_tables)
+        _paged_write(cache["vp"], v, positions, block_tables)
+        _paged_write(cache["posp"], positions, positions, block_tables)
+    elif mode == "train":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        bias = _mask_bias(positions, positions, cfg.sliding_window, True)
+        out = _sdpa(q, k, v, bias, scale, compute_dtype)
+        cache = None
+    else:
+        raise ValueError(f"attention mode {mode!r}: the port serves "
+                         "'train', 'chunk' and 'decode'")
+    out = out.reshape(b, s, cfg.num_heads * hd) @ params["wo"]
+    return out, cache
+
+
+def attention(params, cfg: ModelConfig, x, positions, **kw):
+    if cfg.attention != "gqa":
+        raise NotImplementedError(
+            f"{cfg.attention!r} attention is not ported yet (ROADMAP.md A11)")
+    return gqa_attention(params, cfg, x, positions, **kw)

@@ -1,0 +1,125 @@
+"""Layer blocks and the layer stack.
+
+The reference scans groups of identical layers over stacked parameters
+(``lax.scan``); the port keeps one parameter dict per layer and runs the
+stack as a Python loop.  ``group_pattern`` stays: ``convert.py`` needs it
+to split the reference's stacked groups.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import apply_norm, init_norm
+from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
+
+_PORTED_KINDS = ("attn_moe", "attn_mlp")
+
+
+@dataclass(frozen=True)
+class Group:
+    spec: BlockSpec
+    count: int
+    start: int   # first layer index
+
+
+def group_pattern(pattern: Tuple[BlockSpec, ...]) -> List[Group]:
+    """Runs of consecutive identical specs (the reference's scan groups)."""
+    groups: List[Group] = []
+    i = 0
+    while i < len(pattern):
+        j = i
+        while j < len(pattern) and pattern[j] == pattern[i]:
+            j += 1
+        groups.append(Group(pattern[i], j - i, i))
+        i = j
+    return groups
+
+
+def _check_kind(spec: BlockSpec) -> None:
+    if spec.kind not in _PORTED_KINDS:
+        raise NotImplementedError(
+            f"{spec.kind!r} blocks are not ported yet (ROADMAP.md A15)")
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
+               device) -> Dict:
+    _check_kind(spec)
+    p = {
+        "norm1": init_norm(cfg, device),
+        "attn": attn_mod.init_attention(gen, cfg, device),
+        "norm2": init_norm(cfg, device),
+    }
+    if spec.kind == "attn_moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, device)
+    return p
+
+
+def apply_block(
+    params: Dict,
+    cfg: ModelConfig,
+    spec: BlockSpec,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    mode: str,
+    cache: Optional[Dict],
+    opts: ModelOpts = DEFAULT_OPTS,
+    block_tables=None,
+    kernel_blocks: Optional[int] = None,
+):
+    """Returns (x, cache, aux_loss)."""
+    _check_kind(spec)
+    h, cache = attn_mod.attention(
+        params["attn"], cfg, apply_norm(params["norm1"], cfg, x), positions,
+        mode=mode, cache=cache, compute_dtype=opts.attn_compute_dtype,
+        block_tables=block_tables, use_paged_kernel=opts.use_paged_kernel,
+        kernel_blocks=kernel_blocks)
+    x = x + h
+    h2 = apply_norm(params["norm2"], cfg, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind == "attn_moe":
+        y, aux = moe_mod.moe(
+            params["moe"], cfg, h2, spec.moe_top_k,
+            impl=opts.moe_impl or cfg.moe_impl,
+            use_kernel=opts.use_moe_kernel,
+            decode_kernel=opts.use_moe_decode_kernel and mode == "decode")
+        x = x + y
+    else:
+        x = x + mlp(params["mlp"], h2)
+    return x, cache, aux
+
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig, device) -> List[Dict]:
+    """One parameter dict per layer."""
+    return [init_block(gen, cfg, spec, device) for spec in cfg.pattern()]
+
+
+def init_stack_cache(cfg: ModelConfig, *, page_size: int, num_pages: int,
+                     device) -> List[Dict]:
+    """One paged pool per layer."""
+    return [attn_mod.init_paged_cache(cfg, num_pages, page_size, device)
+            for _ in cfg.pattern()]
+
+
+def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
+                mode: str, caches=None, opts: ModelOpts = DEFAULT_OPTS,
+                block_tables=None, kernel_blocks: Optional[int] = None):
+    """Run every layer.  Returns (x, caches, total_aux)."""
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li, spec in enumerate(cfg.pattern()):
+        x, _, aux = apply_block(
+            layers[li], cfg, spec, x, positions, mode=mode,
+            cache=caches[li] if caches is not None else None, opts=opts,
+            block_tables=block_tables, kernel_blocks=kernel_blocks)
+        total_aux = total_aux + aux
+    return x, caches, total_aux

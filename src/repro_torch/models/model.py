@@ -1,0 +1,45 @@
+"""Model facade: the functions the serving stack and launchers call."""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tf_mod
+from repro_torch.models.common import resolve_device
+from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict:
+    """Random weights drawn on ``device`` (the card unless the caller asks
+    for the CPU) from a generator seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return tf_mod.init_lm(gen, cfg, dev)
+
+
+def init_caches(cfg: ModelConfig, *, page_size: int = 16, num_pages: int,
+                device=None):
+    """Paged KV pools, one per layer (the serving layout)."""
+    return tf_mod.init_caches(cfg, page_size=page_size, num_pages=num_pages,
+                              device=resolve_device(device))
+
+
+def chunk_prefill_fn(params, cfg: ModelConfig, tokens, positions, caches, *,
+                     last_index=None, block_tables=None,
+                     opts: ModelOpts = DEFAULT_OPTS):
+    """One fixed-width chunked-prefill step (decoder-only LMs)."""
+    return tf_mod.chunk_prefill(params, cfg, tokens, caches,
+                                positions=positions, last_index=last_index,
+                                block_tables=block_tables, opts=opts)
+
+
+def decode_fn(params, cfg: ModelConfig, tokens, pos, caches, *,
+              opts: ModelOpts = DEFAULT_OPTS, block_tables=None,
+              kernel_blocks=None):
+    return tf_mod.decode_step(params, cfg, tokens, pos, caches, opts=opts,
+                              block_tables=block_tables,
+                              kernel_blocks=kernel_blocks)

@@ -1,0 +1,21 @@
+"""Mixture-of-Experts layer with per-layer (LExI) top-k:
+``Router -> Dispatch -> Compute -> Combine``, as ``repro.models.moe``."""
+
+from repro_torch.models.moe.compute import add_shared, grouped_ffn, \
+    routed_ffn  # noqa: F401
+from repro_torch.models.moe.decode import moe_decode  # noqa: F401
+from repro_torch.models.moe.dispatch import (  # noqa: F401
+    SortPlan,
+    default_block_m,
+    make_sort_plan,
+    sort_combine,
+    sort_dispatch,
+)
+from repro_torch.models.moe.gmm import moe_gmm  # noqa: F401
+from repro_torch.models.moe.params import init_moe  # noqa: F401
+from repro_torch.models.moe.registry import (  # noqa: F401
+    DECODE_TOKEN_THRESHOLD,
+    moe,
+    resolve_impl,
+)
+from repro_torch.models.moe.router import route  # noqa: F401

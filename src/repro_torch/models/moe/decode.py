@@ -1,0 +1,26 @@
+"""``decode`` impl: fused routed-expert path for decode-shaped batches.
+
+No sort plan and no packed buffer: the router's top-k ids go straight to
+the compute stage (the ``moe_decode`` kernel on the card), which reads
+only the k routed experts per token.  Per-layer k sets the issued work
+directly.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.moe.compute import add_shared, routed_ffn
+from repro_torch.models.moe.router import route
+
+
+def moe_decode(params: Dict, cfg: ModelConfig, x2d: torch.Tensor, top_k: int,
+               use_kernel: bool = False, *, k_budget=None,
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2d [T, D] -> (y2d [T, D], aux_loss).  Dropless; decode-shaped T."""
+    weights, idx, aux = route(params, cfg, x2d, top_k, k_budget=k_budget)
+    y = routed_ffn(params["w1"], params["w2"], x2d, idx, weights, use_kernel)
+    return add_shared(params, cfg, x2d, y.to(x2d.dtype)), aux

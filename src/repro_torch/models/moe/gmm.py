@@ -1,0 +1,34 @@
+"""``gmm`` impl: sort-based dropless dispatch + ragged grouped SwiGLU.
+
+The production path at prefill scale: argsort token copies by expert id,
+run the grouped SwiGLU over the tile-aligned groups (the ``moe_gmm``
+kernel on the card), unsort and combine.  Work scales with the occupied
+tiles, so a LExI plan's smaller per-layer k runs fewer of them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.moe.compute import add_shared, grouped_ffn
+from repro_torch.models.moe.dispatch import default_block_m, \
+    make_sort_plan, sort_combine, sort_dispatch
+from repro_torch.models.moe.router import route
+
+
+def moe_gmm(params: Dict, cfg: ModelConfig, x2d: torch.Tensor, top_k: int,
+            use_kernel: bool = False, block_m: Optional[int] = None, *,
+            k_budget=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x2d [T, D] -> (y2d [T, D], aux_loss).  Dropless for any T, k."""
+    t, _ = x2d.shape
+    weights, idx, aux = route(params, cfg, x2d, top_k, k_budget=k_budget)
+    # the kernel takes row tiles of 8 rows or more
+    bm = block_m or default_block_m(t * top_k, floor=8 if use_kernel else 1)
+    plan = make_sort_plan(idx, cfg.num_experts, bm)
+    xs = sort_dispatch(x2d, plan, top_k)                          # [M, D]
+    ys = grouped_ffn(params["w1"], params["w2"], xs, plan, use_kernel)
+    y = sort_combine(ys, weights, plan).to(x2d.dtype)
+    return add_shared(params, cfg, x2d, y), aux

@@ -1,0 +1,64 @@
+"""Dispatch-strategy registry and the public ``moe()`` entry point.
+
+The port serves the two production inference impls of the reference:
+
+  ``gmm``     sort-based dropless dispatch + ragged grouped SwiGLU
+              (``moe_gmm`` kernel); the prefill-scale path.
+  ``decode``  fused routed-expert path (``moe_decode`` kernel); the
+              decode-shaped path, reached from ``gmm`` through
+              ``resolve_impl``.
+
+``dense`` (the capacity-buffer oracle) and the expert-parallel impls
+``ep_a2a`` / ``ep_psum`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.moe.decode import moe_decode
+from repro_torch.models.moe.gmm import moe_gmm
+
+#: decode-regime auto-switch bound: ``gmm`` calls with at most this many
+#: tokens reroute to the fused ``decode`` impl when the caller opts in
+DECODE_TOKEN_THRESHOLD = 16
+
+_NOT_PORTED = {
+    "dense": "ROADMAP.md A3 (capacity-buffer oracle, kernel B9)",
+    "ep_a2a": "ROADMAP.md A16 (expert parallelism)",
+    "ep_psum": "ROADMAP.md A16 (expert parallelism)",
+}
+
+
+def resolve_impl(impl: str, n_tokens: int, decode_kernel: bool = False) -> str:
+    """Apply the decode-regime auto-switch: only ``gmm`` reroutes (both
+    paths are exactly dropless)."""
+    if (decode_kernel and impl == "gmm"
+            and n_tokens <= DECODE_TOKEN_THRESHOLD):
+        return "decode"
+    return impl
+
+
+_IMPLS: Dict[str, Callable] = {"gmm": moe_gmm, "decode": moe_decode}
+
+
+def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
+        impl: Optional[str] = None, use_kernel: bool = False,
+        decode_kernel: bool = False):
+    """x [B, S, D] -> (y [B, S, D], aux_loss scalar).
+
+    ``impl`` overrides ``cfg.moe_impl``; ``decode_kernel=True`` opts
+    decode-shaped gmm calls into the fused routed-expert path.
+    """
+    b, s, d = x.shape
+    impl = resolve_impl(impl or cfg.moe_impl, b * s, decode_kernel)
+    if impl in _NOT_PORTED:
+        raise NotImplementedError(
+            f"moe impl {impl!r} is not ported yet: {_NOT_PORTED[impl]}; "
+            "serve with moe_impl='gmm'")
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown moe impl {impl!r}; have {sorted(_IMPLS)}")
+    y2d, aux = _IMPLS[impl](params, cfg, x.reshape(b * s, d), top_k,
+                            use_kernel)
+    return y2d.reshape(b, s, d), aux

@@ -1,0 +1,33 @@
+"""Runtime model options (orthogonal to ModelConfig: how, not what).
+
+Only the fields the port's serving slice reads are carried over from
+``repro.models.opts``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class ModelOpts:
+    #: MoE dispatch implementation override (None -> cfg.moe_impl):
+    #: gmm | decode (models/moe/registry.py)
+    moe_impl: Optional[str] = None
+    #: run expert FFNs through the hand-written kernels (moe_gmm on the
+    #: sorted dropless layout, moe_decode on the routed decode layout)
+    use_moe_kernel: bool = False
+    #: paged decode attends pages in-kernel (flash_decode_paged) instead
+    #: of gathering the pool into a contiguous [B, n_blk*P] view first
+    use_paged_kernel: bool = False
+    #: decode-regime MoE: reroute decode-step gmm dispatch for
+    #: decode-shaped batches (T <= registry.DECODE_TOKEN_THRESHOLD)
+    #: through the fused routed-expert path (models/moe/decode.py)
+    use_moe_decode_kernel: bool = False
+    #: attention score math: "f32" casts K/V to f32; "bf16_accum32" keeps
+    #: the storage dtype for the products
+    attn_compute_dtype: str = "f32"
+
+
+DEFAULT_OPTS = ModelOpts()

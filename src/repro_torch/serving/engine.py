@@ -1,0 +1,419 @@
+"""Serving engine facade: Scheduler -> KVCache -> ModelRunner composition.
+
+The port of ``repro.serving.engine`` on its default path: the paged
+block-table KV pool, fixed-width chunked prefill, and per iteration
+
+    admit -> one [B, chunk] chunked-prefill step -> one [B] decode step
+
+so every prompt runs through one prefill shape, concurrent prefills batch
+together, and decode advances all live slots at once.
+
+Pages are reserved on demand: admission takes only the pages the prefill
+writes (gated to leave one free page per decoding slot, the reference's
+``headroom`` policy), decode grows a slot page by page, and a dry pool
+preempts the last-admitted live request: its pages are released and it
+re-queues PREEMPTED, to be re-prefilled (prompt + generated-so-far) and
+resumed token-exactly when pages free up.
+
+``submit`` enqueues a request, ``step`` advances every live slot one
+iteration, ``drain`` steps until the system is empty and ``serve`` wraps
+them for a closed-loop workload.  ``serve(reqs, plan=name)`` after
+``add_plan`` serves a LExI plan from the same runner and weights; one wave
+serves one plan.  Not ported yet (ROADMAP.md A8): mixed-plan steps, the
+prefix cache, the plan-degradation ladder, the other admission policies
+and whole-lifetime reservation, the sjf scheduler policy, quantized
+experts, router lookahead, the contiguous layout and open-loop arrival
+times.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import cache_buf_len
+from repro_torch.models.common import resolve_device
+from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
+from repro_torch.serving.clock import Clock, WallClock
+from repro_torch.serving.kv_cache import KVCache
+from repro_torch.serving.request import Request, Result
+from repro_torch.serving.runner import BASE_PLAN, ModelRunner
+from repro_torch.serving.sampling import sample_per_slot
+from repro_torch.serving.scheduler import DECODE, DONE, PREFILL, Scheduler, \
+    Tracked, duplicate_uid_error
+
+_CHUNKABLE_KINDS = ("attn_mlp", "attn_moe")
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
+                 max_len: int = 512, prefill_pad: int = 64,
+                 prefill_chunk: Optional[int] = None,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 use_kernel: Optional[bool] = None,
+                 use_moe_decode: Optional[bool] = None,
+                 eos_id: Optional[int] = None, opts: ModelOpts = DEFAULT_OPTS,
+                 clock: Optional[Clock] = None, seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine runs on {self.device}")
+        if any(b.kind not in _CHUNKABLE_KINDS for b in cfg.pattern()):
+            raise NotImplementedError(
+                f"{cfg.name}: the port serves attention + MoE/MLP stacks "
+                "through the paged layout only (ROADMAP.md A15)")
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+        self.clock = clock if clock is not None else WallClock()
+        # cap at the ring size: a chunk wider than the window would scatter
+        # two positions into one ring slot within a single write
+        self.prefill_chunk = min(prefill_chunk or prefill_pad,
+                                 cache_buf_len(cfg, max_len))
+        # in-kernel paged decode and the fused decode-regime MoE path; the
+        # gather / gmm paths stay the equivalence oracles when False
+        self.use_kernel = (opts.use_paged_kernel if use_kernel is None
+                           else bool(use_kernel))
+        self.use_moe_decode = (opts.use_moe_decode_kernel
+                               if use_moe_decode is None
+                               else bool(use_moe_decode))
+        opts = replace(opts, use_paged_kernel=self.use_kernel,
+                       use_moe_decode_kernel=self.use_moe_decode)
+        self.runner = ModelRunner(cfg, params, opts=opts)
+        self.plan_name = BASE_PLAN
+        self.kv = KVCache(self.cfg, max_batch, max_len, page_size=page_size,
+                          num_pages=num_pages, device=self.device)
+        self.sched = Scheduler(max_batch, clock=self.clock)
+        self.slot_pos = np.full(max_batch, -1, np.int32)    # next write pos
+        self.slot_last = np.zeros(max_batch, np.int32)      # last sampled tok
+        self.slot_budget = np.zeros(max_batch, np.int32)
+        self.slot_temp = np.zeros(max_batch, np.float32)
+        self.slot_topk = np.zeros(max_batch, np.int32)      # 0 = no top-k cap
+        self.stats: Dict[str, float] = self._fresh_stats()
+
+    @staticmethod
+    def _fresh_stats() -> Dict[str, float]:
+        # prefill_tokens counts each prompt position once (useful work);
+        # positions re-prefilled when a preempted request resumes land in
+        # recompute_tokens, so throughput() reflects useful tokens
+        return {"prefill_tokens": 0, "decode_tokens": 0,
+                "recompute_tokens": 0, "steps": 0, "preemptions": 0,
+                "live_peak": 0}
+
+    # ------------------------------------------------------------------ #
+    # Plans
+    # ------------------------------------------------------------------ #
+    @property
+    def cfg(self) -> ModelConfig:
+        return self.runner.cfg_for(self.plan_name)
+
+    def add_plan(self, name: str, plan) -> ModelConfig:
+        """Register a LExI plan; weights stay shared with the base config."""
+        return self.runner.add_plan(name, plan)
+
+    def set_plan(self, name: str) -> None:
+        """Switch the serving plan (between workloads only)."""
+        if name != self.plan_name and not self.idle():
+            raise RuntimeError("cannot switch plans with requests in flight")
+        if name not in self.runner.plans:
+            raise ValueError(f"unknown plan {name!r}; have "
+                             f"{sorted(self.runner.plans)}")
+        self.plan_name = name
+
+    # ------------------------------------------------------------------ #
+    # Submission
+    # ------------------------------------------------------------------ #
+    def submit(self, req: Request) -> Tracked:
+        """Enqueue a request now.  Validation (prompt length, KV capacity,
+        plan name) produces a rejected ``Result`` rather than an
+        exception."""
+        t = self.sched.submit(req)
+        t.plan = t.served_plan = (req.plan if req.plan is not None
+                                  else self.plan_name)
+        t.result.plan = t.result.served_plan = t.plan
+        limit = self.max_len - 1
+        if t.prompt_len == 0:
+            self.sched.reject(t, "rejected_empty_prompt")
+        elif t.prompt_len > limit:
+            self.sched.reject(t, "rejected_prompt_too_long")
+        if t.state != DONE and t.plan not in self.runner.plans:
+            self.sched.reject(t, "rejected_unknown_plan")
+        if (t.state != DONE
+                and not self.kv.fits_ever(t.prompt_len
+                                          + t.req.max_new_tokens)):
+            self.sched.reject(t, "rejected_kv_capacity")
+        return t
+
+    # ------------------------------------------------------------------ #
+    # Step phases
+    # ------------------------------------------------------------------ #
+    def _admit(self) -> None:
+        def can_allocate(slot: int, t: Tracked) -> bool:
+            # reserve only what this admission's prefill writes: the
+            # prompt, plus generated-so-far minus the pending token on
+            # resume; leave one free page per decoding slot (each may
+            # cross a page boundary within page_size steps)
+            n = t.prompt_len + max(len(t.result.tokens) - 1, 0)
+            headroom = len(self.sched.in_state(DECODE))
+            if self.kv.free_pages() < self.kv.pages_needed(n) + headroom:
+                return False
+            return self.kv.allocate(slot, n)
+
+        for t in self.sched.admit(can_allocate):
+            self.slot_temp[t.slot] = t.req.temperature
+            self.slot_topk[t.slot] = (t.req.top_k
+                                      if t.req.temperature > 0 else 0)
+            gen = t.result.tokens
+            if gen:     # resume: re-prefill prompt + all but the pending tok
+                t.fill = np.concatenate(
+                    [t.prompt, np.asarray(gen[:-1], np.int32)])
+            else:
+                t.fill = t.prompt
+            self.slot_budget[t.slot] = t.req.max_new_tokens - len(gen)
+            self.slot_pos[t.slot] = -1
+
+    def _eos_of(self, t: Tracked) -> Optional[int]:
+        return t.req.eos_id if t.req.eos_id is not None else self.eos_id
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        topks = (torch.from_numpy(self.slot_topk)
+                 if self.slot_topk.any() else None)
+        return sample_per_slot(logits, self.gen,
+                               torch.from_numpy(self.slot_temp),
+                               topks).cpu().numpy()
+
+    def _first_token(self, t: Tracked, tok: int) -> None:
+        """Account the prefill-sampled token; it may already terminate."""
+        if t.req.max_new_tokens <= 0:
+            self._finish(t, "length")
+            return
+        self.sched.record_token(t, tok)
+        self.slot_budget[t.slot] -= 1
+        eos = self._eos_of(t)
+        done_eos = eos is not None and tok == eos
+        if done_eos or self.slot_budget[t.slot] <= 0:
+            self._finish(t, "eos" if done_eos else "length")
+        else:
+            t.state = DECODE
+            self.slot_pos[t.slot] = t.prompt_len
+            self.slot_last[t.slot] = tok
+
+    def _finish(self, t: Tracked, reason: str) -> None:
+        slot = t.slot
+        self.sched.finish(t, reason)
+        self.kv.release(slot)
+        self.slot_pos[slot] = -1
+        self.slot_topk[slot] = 0
+        k = f"plan_requests:{t.served_plan}"
+        self.stats[k] = self.stats.get(k, 0) + 1
+
+    def _plan_of(self, live: List[Tracked]) -> str:
+        names = {t.served_plan for t in live}
+        if len(names) != 1:
+            raise NotImplementedError(
+                f"a step mixing plans {sorted(names)} needs the bucketed-k "
+                "path, not ported yet (ROADMAP.md A8); serve one plan a wave")
+        return names.pop()
+
+    def _chunk_prefill_step(self, prefilling: List[Tracked]) -> None:
+        """Advance every prefilling slot by one fixed-width chunk; fresh and
+        resuming requests ride the same step (resume is recompute)."""
+        c = self.prefill_chunk
+        tokens = np.zeros((self.max_batch, c), np.int32)
+        positions = np.full((self.max_batch, c), -1, np.int32)
+        last_idx = np.zeros(self.max_batch, np.int32)
+        sampling: List[Tracked] = []
+        for t in prefilling:
+            n = min(c, t.fill_len - t.consumed)
+            tokens[t.slot, :n] = t.fill[t.consumed:t.consumed + n]
+            positions[t.slot, :n] = np.arange(t.consumed, t.consumed + n)
+            t.consumed += n
+            if t.resuming:
+                self.stats["recompute_tokens"] += n
+                t.result.recompute_tokens += n
+            else:
+                # a victim evicted mid-prefill re-runs positions already
+                # charged as useful work: only the advance past its
+                # prefill high-water mark counts as fresh
+                fresh = min(n, max(0, t.consumed - t.prefill_done))
+                self.stats["prefill_tokens"] += fresh
+                self.stats["recompute_tokens"] += n - fresh
+                t.result.recompute_tokens += n - fresh
+                t.prefill_done = max(t.prefill_done, t.consumed)
+            if t.consumed == t.fill_len:
+                if t.resuming:
+                    t.state = DECODE
+                    self.slot_pos[t.slot] = t.fill_len
+                    self.slot_last[t.slot] = t.result.tokens[-1]
+                else:
+                    last_idx[t.slot] = n - 1
+                    sampling.append(t)
+        dev = self.device
+        logits, self.kv.caches = self.runner.chunk_prefill(
+            torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(positions).to(dev),
+            torch.from_numpy(last_idx).to(dev), self.kv.caches,
+            self.kv.block_tables(), plan=self._plan_of(prefilling))
+        if sampling:
+            nxt = self._sample(logits)
+            for t in sampling:
+                self._first_token(t, int(nxt[t.slot]))
+
+    def _preempt(self, t: Tracked) -> None:
+        """Evict a live request: pages back to the pool, request re-queued
+        PREEMPTED (its generated tokens are kept for the resume prefill)."""
+        slot = t.slot
+        self.sched.preempt(t)
+        self.kv.release(slot)
+        self.slot_pos[slot] = -1
+        self.slot_budget[slot] = 0
+        self.slot_temp[slot] = 0.0
+        self.slot_topk[slot] = 0
+        self.stats["preemptions"] += 1
+
+    def _grow_or_preempt(self, decoding: List[Tracked]) -> List[Tracked]:
+        """Every decoding slot gets the page its next position needs; a
+        shortfall preempts victims last-admitted-first until it fits
+        (earliest-admitted slots grow first, so the earliest live request
+        is never evicted by a later one and always completes)."""
+        for t in sorted(decoding, key=lambda t: t.admit_seq):
+            if t.state != DECODE:           # evicted as a victim below
+                continue
+            while not self.kv.allocate_append(t.slot,
+                                              int(self.slot_pos[t.slot]) + 1):
+                live = [v for v in self.sched.slots if v is not None]
+                victim = max(live, key=lambda v: v.admit_seq)
+                self._preempt(victim)
+                if victim is t:
+                    break
+        return self.sched.in_state(DECODE)
+
+    def _decode_step(self, decoding: List[Tracked]) -> None:
+        decoding = self._grow_or_preempt(decoding)
+        if not decoding:
+            return
+        tokens = np.zeros(self.max_batch, np.int32)
+        pos = np.full(self.max_batch, -1, np.int32)
+        for t in decoding:
+            tokens[t.slot] = self.slot_last[t.slot]
+            pos[t.slot] = self.slot_pos[t.slot]
+        kernel_blocks = self.kv.live_blocks(pos) if self.use_kernel else None
+        dev = self.device
+        logits, self.kv.caches = self.runner.decode(
+            torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
+            self.kv.caches, self.kv.block_tables(),
+            plan=self._plan_of(decoding), kernel_blocks=kernel_blocks)
+        nxt = self._sample(logits)
+        self.stats["steps"] += 1
+        for t in decoding:
+            self.slot_pos[t.slot] += 1
+            tok = int(nxt[t.slot])
+            self.sched.record_token(t, tok)
+            self.slot_last[t.slot] = tok
+            self.slot_budget[t.slot] -= 1
+            self.stats["decode_tokens"] += 1
+            k = f"plan_decode_tokens:{t.served_plan}"
+            self.stats[k] = self.stats.get(k, 0) + 1
+            eos = self._eos_of(t)
+            done_eos = eos is not None and tok == eos
+            done_len = (self.slot_budget[t.slot] <= 0
+                        or self.slot_pos[t.slot] >= self.max_len - 1)
+            if done_eos or done_len:
+                self._finish(t, "eos" if done_eos else "length")
+
+    def _abort(self, reason: str) -> None:
+        """Drain every live and queued request so a failed drain cannot
+        wedge the engine."""
+        for t in [x for x in self.sched.slots if x is not None]:
+            self._finish(t, reason)
+        for t in list(self.sched.waiting):
+            self.sched.reject(t, reason)
+
+    # ------------------------------------------------------------------ #
+    # Public API
+    # ------------------------------------------------------------------ #
+    def idle(self) -> bool:
+        """Nothing live or queued."""
+        return self.sched.done()
+
+    def reset_stats(self) -> None:
+        """Start a fresh workload: zero the counters and drop the previous
+        workload's finished records (releasing their uid claims)."""
+        if not self.idle():
+            raise RuntimeError("cannot reset stats with requests in flight")
+        self.stats = self._fresh_stats()
+        self.sched.clear_finished()
+
+    def step(self) -> List[Result]:
+        """One engine iteration: admit, one chunked-prefill step, one
+        decode step.  Returns the requests that completed this step."""
+        n0 = len(self.sched.finished)
+        self._admit()
+        live = sum(t is not None for t in self.sched.slots)
+        self.stats["live_peak"] = max(self.stats["live_peak"], live)
+        prefilling = self.sched.in_state(PREFILL)
+        if prefilling:
+            self._chunk_prefill_step(prefilling)
+        decoding = self.sched.in_state(DECODE)
+        if decoding:
+            self._decode_step(decoding)
+        self.clock.on_step()
+        return [t.result for t in self.sched.finished[n0:]]
+
+    def drain(self, *, max_steps: Optional[int] = None) -> List[Result]:
+        """Step until the system is empty; ``max_steps`` bounds the loop
+        (exceeding it aborts everything in flight and raises)."""
+        out: List[Result] = []
+        n_steps = 0
+        while not self.idle():
+            if max_steps is not None and n_steps >= max_steps:
+                self._abort("aborted_max_steps")
+                raise RuntimeError(f"drain() exceeded max_steps={max_steps}")
+            out.extend(self.step())
+            n_steps += 1
+        return out
+
+    def serve(self, requests: Sequence[Request], *,
+              plan: Optional[str] = None,
+              max_steps: Optional[int] = None) -> List[Result]:
+        """Run a closed-loop workload with continuous batching; returns all
+        results sorted by uid.  ``plan=`` serves the wave under a
+        registered plan (omitted: the base config)."""
+        self.set_plan(plan if plan is not None else BASE_PLAN)
+        uids = [r.uid for r in requests]
+        if len(set(uids)) != len(uids):
+            seen: set = set()
+            raise duplicate_uid_error(
+                next(u for u in uids if u in seen or seen.add(u)))
+        self.reset_stats()
+        t0 = self.clock.now()
+        for r in requests:
+            self.submit(r)
+        self.drain(max_steps=max_steps)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stats["wall_s"] = max(self.clock.now() - t0, 0.0)
+        self.stats.update(self.sched.percentiles())
+        return self.sched.results()
+
+    def plan_stats(self) -> Dict[str, Dict[str, float]]:
+        """Per-plan view of the last serve's counters."""
+        out: Dict[str, Dict[str, float]] = {}
+        for k, v in self.stats.items():
+            if k.startswith(("plan_requests:", "plan_decode_tokens:")):
+                stat, name = k.split(":", 1)
+                out.setdefault(name, {})[stat] = v
+        return out
+
+    def throughput(self) -> float:
+        """Useful tokens (prompt + generated) per second over the last
+        serve(); recompute after preemption is not counted."""
+        wall = self.stats.get("wall_s", 0.0)
+        tok = self.stats["prefill_tokens"] + self.stats["decode_tokens"]
+        return tok / wall if wall > 0 else 0.0

@@ -1,0 +1,260 @@
+"""Parity of the PyTorch port's MoE stage with the JAX reference (CPU).
+
+Same inputs, drawn with numpy from a seed, go through the reference
+function and its port: ``route`` (with ``k_budget``), the sort plan and
+dispatch, the plain versions of the ``moe_gmm`` and ``moe_decode`` kernels
+(against the Pallas kernels in interpret mode and the reference's oracles),
+and the ``moe`` layer under ``gmm`` and ``decode``.  The CUDA kernels
+themselves are held against their plain versions by the card-only tests
+at the end (and by ``chip_smoke.py``).
+
+Tolerance: f32 throughout; products are summed in a different order by
+XLA and by PyTorch, so outputs of O(1) agree to ``rtol=atol=1e-5`` unless a
+test states otherwise.  Index outputs (top-k ids, sort plans) are equal.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _cfgs(**kw):
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+    base = dict(moe_impl="gmm", **kw)
+    return (jget("olmoe-1b-7b").reduced().with_(**base),
+            tget("olmoe-1b-7b").reduced().with_(**base))
+
+
+def _moe_params(cfg_j, seed=0):
+    """The reference's MoE layer init -> (jax params, torch params)."""
+    import jax
+    from repro.models.moe import init_moe
+    pj = init_moe(jax.random.PRNGKey(seed), cfg_j)
+    pt = {k: torch.from_numpy(np.array(v)) for k, v in pj.items()}
+    return pj, pt
+
+
+def _x(t, d, seed=0):
+    return np.random.default_rng(seed).normal(size=(t, d)).astype(np.float32)
+
+
+# --------------------------------------------------------------------------- #
+# Router
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("router,norm,tau,budget", [
+    ("softmax", False, 0.0, False),
+    ("softmax", True, 0.0, True),       # k_budget zeroes before renorm
+    ("sigmoid", True, 0.0, False),
+    ("softmax", False, 0.3, True),      # NAEE dynamic skipping
+])
+def test_route_matches_reference(router, norm, tau, budget):
+    import jax.numpy as jnp
+    from repro.models.moe import route as jroute
+    from repro_torch.models.moe import route as troute
+    cfg_j, cfg_t = _cfgs(router_type=router, norm_topk_prob=norm,
+                         dynamic_skip_tau=tau, moe_top_k=4)
+    pj, pt = _moe_params(cfg_j)
+    x = _x(32, cfg_j.d_model)
+    kb = (np.random.default_rng(1).integers(1, 5, 32).astype(np.int32)
+          if budget else None)
+    wj, ij, aj = jroute(pj, cfg_j, jnp.asarray(x), 4,
+                        k_budget=None if kb is None else jnp.asarray(kb))
+    wt, it, at = troute(pt, cfg_t, torch.from_numpy(x), 4,
+                        k_budget=None if kb is None else torch.from_numpy(kb))
+    np.testing.assert_array_equal(np.asarray(ij), it.numpy())
+    np.testing.assert_allclose(np.asarray(wj), wt.numpy(), **TOL)
+    np.testing.assert_allclose(float(aj), float(at), **TOL)
+    if kb is not None:      # surplus slots carry exactly zero weight
+        slot = np.arange(4)[None]
+        assert (wt.numpy()[slot >= kb[:, None]] == 0.0).all()
+
+
+# --------------------------------------------------------------------------- #
+# Sort plan + dispatch
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("t,k,e,bm", [(1, 2, 8, 8), (5, 2, 8, 1),
+                                      (64, 4, 8, 16), (33, 3, 6, 8)])
+def test_sort_plan_and_dispatch_match_reference(t, k, e, bm):
+    import jax.numpy as jnp
+    from repro.models.moe import make_sort_plan as jplan, \
+        sort_combine as jcomb, sort_dispatch as jdisp
+    from repro_torch.models.moe import make_sort_plan as tplan, \
+        sort_combine as tcomb, sort_dispatch as tdisp
+    rng = np.random.default_rng(t * 7 + k)
+    # expert 0 is never routed: an empty group at the start
+    idx = np.stack([rng.permutation(np.arange(1, e))[:k]
+                    for _ in range(t)]).astype(np.int32)
+    pj = jplan(jnp.asarray(idx), e, bm)
+    pt = tplan(torch.from_numpy(idx), e, bm)
+    for name in ("dest", "group_sizes", "padded_group_sizes",
+                 "tile_expert", "tile_valid"):
+        np.testing.assert_array_equal(np.asarray(getattr(pj, name)),
+                                      getattr(pt, name).numpy(), err_msg=name)
+    assert (pj.block_m, pj.num_rows) == (pt.block_m, pt.num_rows)
+    x = _x(t, 16)
+    xs_j = jdisp(jnp.asarray(x), pj, k)
+    xs_t = tdisp(torch.from_numpy(x), pt, k)
+    np.testing.assert_array_equal(np.asarray(xs_j), xs_t.numpy())
+    w = rng.random((t, k)).astype(np.float32)
+    np.testing.assert_allclose(np.asarray(jcomb(xs_j, jnp.asarray(w), pj)),
+                               tcomb(xs_t, torch.from_numpy(w), pt).numpy(),
+                               **TOL)
+
+
+@pytest.mark.parametrize("n,floor", [(1, 1), (3, 1), (5, 8), (9, 8),
+                                     (4096, 8)])
+def test_default_block_m_matches_reference(n, floor):
+    from repro.models.moe import default_block_m as jbm
+    from repro_torch.models.moe import default_block_m as tbm
+    assert jbm(n, floor=floor) == tbm(n, floor=floor)
+
+
+# --------------------------------------------------------------------------- #
+# Plain kernel versions vs the Pallas kernels (interpret mode) and oracles
+# --------------------------------------------------------------------------- #
+
+
+def _gmm_case(t, k, e, d, f, bm, seed):
+    from repro_torch.models.moe import make_sort_plan, sort_dispatch
+    rng = np.random.default_rng(seed)
+    # the last expert is never routed: an empty group
+    idx = np.stack([rng.permutation(e - 1)[:k] for _ in range(t)]).astype(np.int32)
+    plan = make_sort_plan(torch.from_numpy(idx), e, bm)
+    xs = sort_dispatch(torch.from_numpy(_x(t, d, seed)), plan, k)
+    w1 = (rng.normal(size=(e, d, 2 * f)) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=(e, f, d)) * 0.1).astype(np.float32)
+    return plan, xs, w1, w2
+
+
+@pytest.mark.parametrize("t,k,e,bm", [(1, 2, 8, 8), (12, 2, 8, 8),
+                                      (40, 3, 6, 16)])
+def test_moe_gmm_plain_matches_pallas_and_ref(t, k, e, bm):
+    import jax.numpy as jnp
+    from repro.kernels import ref
+    from repro.kernels.moe_gmm import moe_gmm_pallas
+    from repro_torch.kernels import moe_gmm
+    d, f = 32, 24
+    plan, xs, w1, w2 = _gmm_case(t, k, e, d, f, bm, seed=t + e)
+    got = moe_gmm(xs, torch.from_numpy(w1), torch.from_numpy(w2),
+                  plan.tile_expert, plan.tile_valid, block_m=bm).numpy()
+    want = moe_gmm_pallas(jnp.asarray(xs.numpy()), jnp.asarray(w1),
+                          jnp.asarray(w2), jnp.asarray(plan.tile_expert.numpy()),
+                          jnp.asarray(plan.tile_valid.numpy()), block_m=bm,
+                          block_f=8, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    # the oracle takes group sizes over the *padded* layout: one group per
+    # expert, covering its padded rows (padding rows are zero either way)
+    oracle = ref.moe_gmm_ref(jnp.asarray(xs.numpy()), jnp.asarray(w1),
+                             jnp.asarray(w2),
+                             jnp.asarray(plan.padded_group_sizes.numpy()))
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("b,k,e", [(1, 2, 8), (8, 4, 8), (5, 1, 3)])
+def test_moe_decode_plain_matches_pallas(b, k, e):
+    import jax.numpy as jnp
+    from repro.kernels import ref
+    from repro.kernels.moe_decode import moe_decode_pallas
+    from repro_torch.kernels import moe_decode
+    d, f = 32, 48
+    rng = np.random.default_rng(b * 13 + k)
+    x = _x(b, d, b)
+    w1 = (rng.normal(size=(e, d, 2 * f)) * 0.05).astype(np.float32)
+    w2 = (rng.normal(size=(e, f, d)) * 0.05).astype(np.float32)
+    idx = rng.integers(0, e, size=(b, k)).astype(np.int32)
+    w = rng.random((b, k)).astype(np.float32)
+    w[0, -1] = 0.0                      # a zero weight adds exactly nothing
+    got = moe_decode(*map(torch.from_numpy, (x, w1, w2, idx, w))).numpy()
+    want = moe_decode_pallas(*map(jnp.asarray, (x, w1, w2, idx, w)),
+                             block_f=16, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    np.testing.assert_allclose(got, ref.moe_decode_ref(x, w1, w2, idx, w),
+                               **TOL)
+
+
+# --------------------------------------------------------------------------- #
+# The MoE layer
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("impl,t,use_kernel", [("gmm", 24, False),
+                                               ("gmm", 24, True),
+                                               ("decode", 4, True),
+                                               ("decode", 4, False)])
+def test_moe_layer_matches_reference(impl, t, use_kernel):
+    import jax.numpy as jnp
+    from repro.models.moe import moe as jmoe
+    from repro_torch.models.moe import moe as tmoe
+    cfg_j, cfg_t = _cfgs()
+    pj, pt = _moe_params(cfg_j, seed=3)
+    x = _x(t, cfg_j.d_model, 5).reshape(2, t // 2, -1)
+    yj, aj = jmoe(pj, cfg_j, jnp.asarray(x), 2, impl=impl)
+    yt, at = tmoe(pt, cfg_t, torch.from_numpy(x), 2, impl=impl,
+                  use_kernel=use_kernel)
+    np.testing.assert_allclose(np.asarray(yj), yt.numpy(), **TOL)
+    np.testing.assert_allclose(float(aj), float(at), **TOL)
+
+
+def test_decode_reroute_and_unported_impls():
+    from repro_torch.models.moe import DECODE_TOKEN_THRESHOLD, moe, \
+        resolve_impl
+    assert resolve_impl("gmm", DECODE_TOKEN_THRESHOLD, True) == "decode"
+    assert resolve_impl("gmm", DECODE_TOKEN_THRESHOLD + 1, True) == "gmm"
+    assert resolve_impl("gmm", 1, False) == "gmm"
+    cfg_j, cfg_t = _cfgs()
+    _, pt = _moe_params(cfg_j)
+    x = torch.zeros(1, 2, cfg_t.d_model)
+    for impl in ("dense", "ep_a2a", "ep_psum"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            moe(pt, cfg_t, x, 2, impl=impl)
+
+
+# --------------------------------------------------------------------------- #
+# CUDA kernels vs their plain versions (need the card)
+# --------------------------------------------------------------------------- #
+
+cuda = pytest.mark.skipif(not torch.cuda.is_available(),
+                          reason="the CUDA kernels run only on a GPU")
+BF16_TOL = 2e-2     # of max |plain|: f32 sums in another order, bf16 output
+
+
+def _close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BF16_TOL * want.float().abs().max().item()
+
+
+@cuda
+@pytest.mark.parametrize("t,k,bm", [(1, 2, 8), (37, 4, 40), (512, 8, 128)])
+def test_moe_gmm_kernel_matches_plain_on_card(t, k, bm):
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    plan, xs, w1, w2 = _gmm_case(t, k, 16, 128, 128, bm, seed=t)
+    args = [a.cuda() for a in (xs.bfloat16(), torch.from_numpy(w1).bfloat16(),
+                               torch.from_numpy(w2).bfloat16(),
+                               plan.tile_expert, plan.tile_valid)]
+    before = moe_gmm.launches
+    _close(moe_gmm(*args, block_m=bm), moe_gmm_plain(*args, bm))
+    assert moe_gmm.launches == before + 1
+
+
+@cuda
+@pytest.mark.parametrize("b,k", [(1, 1), (8, 8), (3, 2)])
+def test_moe_decode_kernel_matches_plain_on_card(b, k):
+    from repro_torch.kernels import moe_decode
+    from repro_torch.kernels.moe_decode import moe_decode_plain
+    e, d, f = 16, 128, 192
+    g = torch.Generator(device="cuda").manual_seed(b + k)
+    x = torch.randn(b, d, generator=g, device="cuda").bfloat16()
+    w1 = (torch.randn(e, d, 2 * f, generator=g, device="cuda") * 0.1).bfloat16()
+    w2 = (torch.randn(e, f, d, generator=g, device="cuda") * 0.1).bfloat16()
+    idx = torch.randint(0, e, (b, k), generator=g, device="cuda").int()
+    w = torch.rand(b, k, generator=g, device="cuda")
+    _close(moe_decode(x, w1, w2, idx, w), moe_decode_plain(x, w1, w2, idx, w))

@@ -8,22 +8,36 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 1. build   -- compile every CUDA kernel of ``src/repro_torch/csrc`` (one
               ``nvcc`` per source, all started together) into ``build/``.
 2. kernels -- hold each kernel against its plain PyTorch version in bf16 at
-              the shapes the serving path gives it, and time both with CUDA
-              events (per-call medians of device time, L2 flushed before
-              every call, kernel and plain interleaved).
+              the shapes the main paths give it (``flash_attention`` and
+              ``flash_decode`` also at one GQA shape with a sliding window),
+              and time both with CUDA events (per-call medians of device
+              time, L2 flushed before every call, kernel, plain and -- where
+              one PyTorch call computes the same function -- that call
+              interleaved).
 3. serve   -- OLMoE-1B-7B at full width and depth (16 layers, d 2048, 64
               experts, top-8), bf16, random weights drawn on the card from a
-              seed: serve 8 requests, search a LExI plan on the card
-              (Alg. 1 through the ``moe_gmm`` kernel, then the DP search),
-              register it and serve again.  Every kernel's launch counter is
-              zeroed just before and read just after each of the three
-              steps; each step must launch the kernels it runs.  A small
-              reference check holds the kernel path's logits against the
-              plain path's on the same inputs.
+              seed: serve 8 requests on the paged pool with chunked
+              prefill, search a LExI plan on the card (Alg. 1 through the
+              ``moe_gmm`` kernel, then the DP search), register it and serve
+              again.
+4. forward -- the paper's Fig. 4 comparison at full width: ``loss_fn``
+              through ``flash_attention`` and ``moe_gmm`` on 4 x 512 tokens
+              for the baseline, the LExI plan (``apply_plan_params``), and
+              the ``inter_prune`` / ``intra_prune`` baselines at 0.25 (each
+              pruned copy freed before the next is built); median forward
+              ms over interleaved repeats, and the cross-entropy of each.
+5. serve_contiguous -- the same 8 requests, baseline and LExI plan, through
+              the contiguous layout with whole-prompt prefill
+              (``flash_attention``, ``moe_gmm``) and decode
+              (``flash_decode``, ``moe_decode``).
 
-Then it prints the ``kernels`` summary line, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  Without a
-CUDA device it exits 1 and prints no result.
+Every kernel's launch counter is zeroed just before and read just after
+each step of phases 3-5; each step must launch the kernels it runs.  A
+small reference check holds the kernel paths' logits and loss against the
+plain paths' on the same inputs.  Then it prints the ``kernels`` summary
+line (launches summed over every step), the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
+device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -77,18 +91,19 @@ def _time_once(fn, flush) -> float:
     return start.elapsed_time(end)
 
 
-def time_pair(kernel, plain, flush, reps: int = 15):
-    """Median per-call device ms of kernel and plain, interleaved
-    (kernel, plain, plain, kernel, ...) after one warm-up of each; the L2
-    is flushed before every call."""
-    kernel(); plain(); torch.cuda.synchronize()
-    tk, tp = [], []
+def time_calls(fns, flush, reps: int = 15):
+    """Median per-call device ms of each of ``fns``, interleaved (the order
+    rotates every repeat) after one warm-up of each; the L2 is flushed
+    before every call."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
     for r in range(reps):
-        order = ((kernel, tk), (plain, tp)) if r % 2 == 0 else \
-            ((plain, tp), (kernel, tk))
-        for fn, acc in order:
-            acc.append(_time_once(fn, flush))
-    return statistics.median(tk), statistics.median(tp)
+        for i in range(len(fns)):
+            j = (i + r) % len(fns)
+            times[j].append(_time_once(fns[j], flush))
+    return [statistics.median(t) for t in times]
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, **extra):
@@ -128,9 +143,9 @@ def check_moe_gmm(layer, cfg, x, flush):
     err = compare("moe_gmm", got, want, tokens=x.shape[0], k=k,
                   block_m=plan.block_m, tiles=len(plan.tile_valid),
                   valid_tiles=valid, experts=experts)
-    ms, plain_ms = time_pair(lambda: moe_gmm(*args, block_m=plan.block_m),
-                             lambda: moe_gmm_plain(*args, plan.block_m),
-                             flush)
+    ms, plain_ms = time_calls((lambda: moe_gmm(*args, block_m=plan.block_m),
+                               lambda: moe_gmm_plain(*args, plan.block_m)),
+                              flush)
     d, f = cfg.d_model, cfg.moe_d_ff
     rows = x.shape[0] * k                      # real token copies
     nbytes = (2 * rows * d * 2                  # real rows in, out
@@ -153,8 +168,8 @@ def check_moe_decode(layer, cfg, x, flush):
                           moe_decode_plain(*args), batch=x.shape[0], k=k,
                           experts=experts), args, experts)
     err, args, experts = out[cfg.moe_top_k]
-    ms, plain_ms = time_pair(lambda: moe_decode(*args),
-                             lambda: moe_decode_plain(*args), flush)
+    ms, plain_ms = time_calls((lambda: moe_decode(*args),
+                               lambda: moe_decode_plain(*args)), flush)
     d, f = cfg.d_model, cfg.moe_d_ff
     b, k = args[3].shape
     nbytes = experts * 3 * d * f * 2 + 2 * b * d * 2 + b * k * 8
@@ -197,8 +212,9 @@ def check_flash_decode_paged(cfg, flush, device):
     err = compare("flash_decode_paged", flash_decode_paged(*args),
                   flash_decode_paged_plain(*args), batch=b, heads=hq,
                   live_positions=sum(lens), table_cols=live)
-    ms, plain_ms = time_pair(lambda: flash_decode_paged(*args),
-                             lambda: flash_decode_paged_plain(*args), flush)
+    ms, plain_ms = time_calls((lambda: flash_decode_paged(*args),
+                               lambda: flash_decode_paged_plain(*args)),
+                              flush)
     pages = int((bt != 0).sum())
     nbytes = (pages * p * hkv * hd * 2 * 2 + pages * p * 4
               + 2 * b * hq * hd * 2 + b * live * 4)
@@ -206,14 +222,114 @@ def check_flash_decode_paged(cfg, flush, device):
     return err, ms, plain_ms, nbytes, flops
 
 
-def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops):
+def _causal_pairs(s: int, window) -> int:
+    """(query, key) pairs a causal (windowed) mask leaves visible."""
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def check_flash_attention(cfg, flush, device):
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    gen = torch.Generator(device=device)
+    gen.manual_seed(4)
+    hq, hd = cfg.num_heads, cfg.head_dim_
+
+    def qkv(b, hkv, s):
+        return [torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.bfloat16)
+                for shape in ((b, hq, s, hd), (b, hkv, s, hd),
+                              (b, hkv, s, hd))]
+
+    # the forward's shape, a ragged whole-prompt prefill, and GQA g=4 with
+    # a sliding window (OLMoE is MHA without one)
+    shapes = {"forward": (4, cfg.num_kv_heads, 512, None),
+              "prefill_ragged": (1, cfg.num_kv_heads, 200, None),
+              "gqa_window": (2, hq // 4, 384, 100)}
+    errs = []
+    for tag, (b, hkv, s, window) in shapes.items():
+        args = qkv(b, hkv, s)
+        errs.append(compare(f"flash_attention_{tag}",
+                            flash_attention(*args, window=window),
+                            flash_attention_plain(*args, window=window),
+                            shape=[b, hq, hkv, s, hd], window=window))
+    b, hkv, s, _ = shapes["forward"]
+    q, k, v = qkv(b, hkv, s)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms, plain_ms, lib_ms = time_calls(
+        (lambda: flash_attention(q, k, v),
+         lambda: flash_attention_plain(q, k, v),
+         lambda: sdpa(q, k, v, is_causal=True)), flush)
+    nbytes = (2 * b * hq * s * hd + 2 * b * hkv * s * hd) * 2
+    flops = 4 * b * hq * hd * _causal_pairs(s, None)
+    return max(errs), ms, plain_ms, nbytes, flops, lib_ms
+
+
+def _decode_cache(gen, device, lens, s_buf, hkv, hd):
+    """k, v [B, S_buf, Hkv, hd] and pos [B, S_buf] as the engine leaves
+    them: row b holds positions 0..lens[b]-1 at slot pos % S_buf."""
+    b = len(lens)
+    k, v = (torch.randn((b, s_buf, hkv, hd), generator=gen, device=device,
+                        dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.full((b, s_buf), -1, dtype=torch.int32)
+    for r, ln in enumerate(lens):
+        p = torch.arange(max(ln - s_buf, 0), ln, dtype=torch.int32)
+        pos[r, p % s_buf] = p
+    cur = torch.tensor([ln - 1 for ln in lens], dtype=torch.int32)
+    return k, v, pos.to(device), cur.to(device)
+
+
+def check_flash_decode(cfg, flush, device):
+    from repro_torch.kernels import flash_decode
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    hq, hd, b = cfg.num_heads, cfg.head_dim_, 8
+
+    def q():
+        return torch.randn((b, hq, hd), generator=gen, device=device,
+                           dtype=torch.bfloat16)
+
+    lens = [512, 511, 480, 300, 129, 64, 16, 0]         # row 7 is idle
+    k, v, pos, cur = _decode_cache(gen, device, lens, 512,
+                                   cfg.num_kv_heads, hd)
+    main = (q(), k, v, pos, cur)
+    err = compare("flash_decode", flash_decode(*main),
+                  flash_decode_plain(*main), batch=b, heads=hq, slots=512,
+                  live_positions=sum(lens))
+    # GQA g=4 over a 200-slot ring that has wrapped, under a 150 window
+    wlens = [700, 333, 200, 199, 57, 1, 0, 450]
+    gqa = (q(),) + _decode_cache(gen, device, wlens, 200, hq // 4, hd)
+    err = max(err, compare("flash_decode_gqa_window",
+                           flash_decode(*gqa, window=150),
+                           flash_decode_plain(*gqa, window=150),
+                           batch=b, heads=[hq, hq // 4], slots=200,
+                           window=150))
+    # the library's call: attention with a boolean mask built from pos
+    qm = main[0][:, :, None]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms, plain_ms, lib_ms = time_calls(
+        (lambda: flash_decode(*main), lambda: flash_decode_plain(*main),
+         lambda: sdpa(qm, kt, vt, attn_mask=mask)), flush)
+    live = sum(lens)                  # the walk stops at cur_pos + 1 slots
+    hkv = cfg.num_kv_heads
+    nbytes = live * hkv * hd * 2 * 2 + live * 4 + 2 * b * hq * hd * 2 + b * 4
+    flops = 4 * live * hq * hd
+    return err, ms, plain_ms, nbytes, flops, lib_ms
+
+
+def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
+               library_ms=None):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 # --------------------------------------------------------------------------- #
@@ -251,14 +367,17 @@ def check_results(tag, results, cfg, max_new):
 
 
 def reference_check(params, cfg, device):
-    """Kernel path vs plain path on one small input and the same weights:
-    two rows, one 64-token chunk of prefill, then one decode step on the
-    same fixed tokens, through the model cut to its first layer.  Logits
-    must point the same way (cosine >= 0.99 per row).  bf16 rounds at other
-    places on the two paths; in a random-weight model such a difference
-    flips a routing decision now and then, and 16 layers amplify a flip
-    into unrelated logits (cosine 0.84 at full depth in a chip run), so
-    the check holds one layer, where routing sees identical inputs."""
+    """Kernel paths vs plain paths on small inputs and the same weights,
+    through the model cut to its first layer: two rows of 64 prompt tokens
+    prefilled (a chunk on the paged pool; a whole prompt on the contiguous
+    cache), then one decode step on the same fixed tokens -- logits must
+    point the same way (cosine >= 0.99 per row) -- and ``loss_fn`` on the
+    same tokens, whose cross-entropy must agree within 1 %.  bf16 rounds at
+    other places on the two paths; in a random-weight model such a
+    difference flips a routing decision now and then, and 16 layers
+    amplify a flip into unrelated logits (cosine 0.84 at full depth in a
+    chip run), so the check holds one layer, where routing sees identical
+    inputs."""
     from repro_torch import models
     cfg = cfg.with_(num_layers=1)
     params = dict(params, layers=params["layers"][:1])
@@ -269,33 +388,87 @@ def reference_check(params, cfg, device):
     nxt = torch.randint(0, cfg.vocab_size, (b,), generator=gen).int()
     positions = torch.arange(c).repeat(b, 1).int()
     bt = torch.arange(1, 1 + b * 8, dtype=torch.int32).reshape(b, 8)
-    kern = models.ModelOpts(use_moe_kernel=True, use_paged_kernel=True,
-                            use_moe_decode_kernel=True)
-    plain = models.ModelOpts(use_moe_decode_kernel=True)
-    logits = {}
-    for tag, opts in (("kernel", kern), ("plain", plain)):
+    dev = {n: t.to(device) for n, t in (("tokens", tokens), ("nxt", nxt),
+                                        ("positions", positions), ("bt", bt))}
+    pos_c = torch.full((b,), c, dtype=torch.int32, device=device)
+
+    def paged(opts):
         caches = models.init_caches(cfg, page_size=p, num_pages=b * 8 + 1,
                                     device=device)
         lg1, caches = models.chunk_prefill_fn(
-            params, cfg, tokens.to(device), positions.to(device), caches,
-            block_tables=bt.to(device), opts=opts)
-        lg2, _ = models.decode_fn(
-            params, cfg, nxt.to(device),
-            torch.full((b,), c, dtype=torch.int32, device=device), caches,
-            block_tables=bt.to(device), opts=opts, kernel_blocks=8)
-        logits[tag] = (lg1.float(), lg2.float())
-    rec = {"check": "reference_logits", "tol": 0.99}
-    for i, step in enumerate(("prefill", "decode")):
-        got, want = logits["kernel"][i], logits["plain"][i]
-        rec[f"{step}_min_cosine"] = torch.nn.functional.cosine_similarity(
-            got, want, dim=-1).min().item()
-        rec[f"{step}_max_abs_diff"] = (got - want).abs().max().item()
-        rec[f"{step}_argmax_equal"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-        rec[f"{step}_finite"] = bool(torch.isfinite(got).all())
-    emit(rec)
-    if not all(rec[f"{s}_finite"] and rec[f"{s}_min_cosine"] >= 0.99
-               for s in ("prefill", "decode")):
-        raise AssertionError(f"reference check failed: {rec}")
+            params, cfg, dev["tokens"], dev["positions"], caches,
+            block_tables=dev["bt"], opts=opts)
+        lg2, _ = models.decode_fn(params, cfg, dev["nxt"], pos_c, caches,
+                                  block_tables=dev["bt"], opts=opts,
+                                  kernel_blocks=8)
+        return lg1.float(), lg2.float()
+
+    def contiguous(opts):
+        caches = models.init_caches(cfg, b, 2 * c, layout="contiguous",
+                                    device=device)
+        lg1, caches = models.prefill_fn(params, cfg, {"tokens": dev["tokens"]},
+                                        caches, opts=opts)
+        lg2, _ = models.decode_fn(params, cfg, dev["nxt"], pos_c, caches,
+                                  opts=opts)
+        return lg1.float(), lg2.float()
+
+    plain = models.ModelOpts(use_moe_decode_kernel=True)
+    paths = {
+        "reference_logits": (paged, models.ModelOpts(
+            use_moe_kernel=True, use_paged_kernel=True,
+            use_moe_decode_kernel=True)),
+        "reference_logits_contiguous": (contiguous, models.ModelOpts(
+            use_flash=True, use_flash_decode=True, use_moe_kernel=True,
+            use_moe_decode_kernel=True)),
+    }
+    for check, (run, kern) in paths.items():
+        got_all, want_all = run(kern), run(plain)
+        rec = {"check": check, "tol": 0.99}
+        for i, step in enumerate(("prefill", "decode")):
+            got, want = got_all[i], want_all[i]
+            rec[f"{step}_min_cosine"] = torch.nn.functional.cosine_similarity(
+                got, want, dim=-1).min().item()
+            rec[f"{step}_max_abs_diff"] = (got - want).abs().max().item()
+            rec[f"{step}_argmax_equal"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+            rec[f"{step}_finite"] = bool(torch.isfinite(got).all())
+        emit(rec)
+        if not all(rec[f"{s}_finite"] and rec[f"{s}_min_cosine"] >= 0.99
+                   for s in ("prefill", "decode")):
+            raise AssertionError(f"reference check failed: {rec}")
+
+    batch = {"tokens": dev["tokens"], "targets": dev["tokens"].roll(-1, 1),
+             "mask": torch.ones((b, c), device=device)}
+    xent = {tag: models.loss_fn(params, cfg, batch, opts=o)[1]["xent"].item()
+            for tag, o in (("kernel", models.ModelOpts(use_flash=True,
+                                                       use_moe_kernel=True)),
+                           ("plain", models.ModelOpts()))}
+    rel = abs(xent["kernel"] - xent["plain"]) / abs(xent["plain"])
+    emit({"check": "reference_xent", "kernel": xent["kernel"],
+          "plain": xent["plain"], "rel_diff": rel, "tol": 1e-2})
+    if not (np.isfinite(xent["kernel"]) and rel <= 1e-2):
+        raise AssertionError(f"reference xent check failed: {xent}")
+
+
+# --------------------------------------------------------------------------- #
+# phase 4: the paper's forward comparison
+# --------------------------------------------------------------------------- #
+
+
+def forward_phase(params, cfg, plan, device):
+    """``launch.forward.compare`` on 4 x 512 tokens: ``loss_fn`` through
+    the kernels for the baseline, the LExI plan and the two pruning
+    baselines at 0.25; returns (record, launch counts)."""
+    from repro_torch import kernels
+    from repro_torch.launch.forward import compare, make_batch
+    batch = make_batch(cfg, 4, 512, seed=4, device=device)
+    kernels.reset_launch_counts()
+    out = compare(params, cfg, plan, batch, prune_frac=0.25, reps=5)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name, rec in out.items():
+        if not np.isfinite(rec["xent"]):
+            raise AssertionError(f"forward {name}: xent {rec['xent']}")
+    return {"phase": "forward", "batch": [4, 512], "models": out}, counts
 
 
 def main() -> int:
@@ -356,11 +529,21 @@ def main() -> int:
             "flash_decode_paged", "src/repro_torch/csrc/flash_decode_paged.cu",
             "src/repro/kernels/flash_decode_paged.py:107",
             *check_flash_decode_paged(cfg, flush, device)),
+        "flash_attention": kernel_row(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:74",
+            *check_flash_attention(cfg, flush, device)),
+        "flash_decode": kernel_row(
+            "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+            "src/repro/kernels/flash_decode.py:73",
+            *check_flash_decode(cfg, flush, device)),
     }
     del flush
     emit({"phase": "kernels", "ok": True,
           "timing": {n: {"ms": r["ms"], "plain_ms": r["plain_ms"],
-                         "bound_ms": r["bound_ms"]} for n, r in rows.items()}})
+                         "bound_ms": r["bound_ms"],
+                         "library_ms": r["library_ms"]}
+                     for n, r in rows.items()}})
 
     # ---- phase 3: serve baseline, search a plan, serve the plan ---------
     reference_check(params, cfg, device)
@@ -385,17 +568,10 @@ def main() -> int:
         lambda: eng.serve(requests(cfg, seed=0), plan="lexi"))
     check_results("lexi", res, cfg, max_new)
     lexi_tps = eng.throughput()
-    need = {"baseline": (base_counts, ("moe_gmm", "moe_decode",
-                                       "flash_decode_paged")),
+    paged_kernels = ("moe_gmm", "moe_decode", "flash_decode_paged")
+    need = {"baseline": (base_counts, paged_kernels),
             "optimize": (opt_counts, ("moe_gmm",)),
-            "lexi": (lexi_counts, ("moe_gmm", "moe_decode",
-                                   "flash_decode_paged"))}
-    for step, (counts, names) in need.items():
-        for n in names:
-            if counts[n] <= 0:
-                raise AssertionError(f"{step}: kernel {n} was never launched")
-    for n, r in rows.items():
-        r["launches"] = sum(c[n] for c, _ in need.values())
+            "lexi": (lexi_counts, paged_kernels)}
     emit({"phase": "serve", "baseline_tok_s": base_tps,
           "lexi_tok_s": lexi_tps, "plan": list(plan.plan),
           "budget": budget, "optimize_s": opt_s,
@@ -408,7 +584,42 @@ def main() -> int:
           "launches": {"baseline": base_counts, "optimize": opt_counts,
                        "lexi": lexi_counts},
           "seconds_total": time.perf_counter() - t_start})
+    del eng
 
+    # ---- phase 4: the paper's forward comparison ------------------------
+    rec, fwd_counts = forward_phase(params, cfg, plan, device)
+    need["forward"] = (fwd_counts, ("moe_gmm", "flash_attention"))
+    emit(dict(rec, launches=fwd_counts,
+              seconds_total=time.perf_counter() - t_start))
+
+    # ---- phase 5: contiguous layout, whole-prompt prefill ---------------
+    eng = Engine(cfg, params, max_batch=8, max_len=512,
+                 cache_layout="contiguous", prefill_chunk=0,
+                 use_moe_decode=True, opts=models.ModelOpts(
+                     use_flash=True, use_flash_decode=True,
+                     use_moe_kernel=True), device=device)
+    eng.serve(requests(cfg, seed=0, n=2, max_new=4))      # warm-up wave
+    eng.add_plan("lexi", plan)
+    contiguous_kernels = ("moe_gmm", "moe_decode", "flash_attention",
+                          "flash_decode")
+    rec = {"phase": "serve_contiguous"}
+    for tag, plan_name in (("baseline", None), ("lexi", "lexi")):
+        res, counts = counted(
+            lambda: eng.serve(requests(cfg, seed=0), plan=plan_name))
+        check_results(f"contiguous {tag}", res, cfg, max_new)
+        need[f"contiguous_{tag}"] = (counts, contiguous_kernels)
+        rec[f"{tag}_tok_s"] = eng.throughput()
+        rec[f"{tag}_stats"] = {k: eng.stats[k] for k in (
+            "prefill_tokens", "decode_tokens", "steps", "wall_s")}
+        rec.setdefault("launches", {})[tag] = counts
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+
+    for step, (counts, names) in need.items():
+        for n in names:
+            if counts[n] <= 0:
+                raise AssertionError(f"{step}: kernel {n} was never launched")
+    for n, r in rows.items():
+        r["launches"] = sum(c[n] for c, _ in need.values())
     emit({"kernels": list(rows.values())})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,11 +1,11 @@
-"""End-to-end LExI pipeline: profile -> search -> plan."""
+"""End-to-end LExI pipeline: profile -> search -> plan -> config."""
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.plan import LexiPlan
+from repro_torch.core.plan import LexiPlan, apply_plan
 from repro_torch.core.search import SearchResult, dp_optimal, \
     evolutionary_search
 from repro_torch.core.sensitivity import SensitivityTable, \
@@ -47,3 +47,10 @@ def optimize(
         raise ValueError(f"unknown method {method!r}")
     return LexiPlan(arch=cfg.name, budget=budget, plan=res.plan,
                     fitness=res.fitness, method=method, k_base=cfg.moe_top_k)
+
+
+def apply_plan_params(params: Dict, cfg: ModelConfig, plan: LexiPlan):
+    """Apply a plan to config and params -> (cfg_with_plan, params).  The
+    reference regroups its stacked layer params to the plan's runs of equal
+    k; the port keeps one dict per layer, so the params pass unchanged."""
+    return apply_plan(cfg, plan), params

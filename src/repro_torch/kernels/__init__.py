@@ -6,12 +6,15 @@ fallback between the two.  Each wrapper counts its kernel launches in a
 plain integer attribute, ``<wrapper>.launches``.
 """
 
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode_paged import flash_decode_paged
 from repro_torch.kernels.moe_decode import moe_decode
 from repro_torch.kernels.moe_gmm import moe_gmm
 
 WRAPPERS = {"moe_gmm": moe_gmm, "moe_decode": moe_decode,
-            "flash_decode_paged": flash_decode_paged}
+            "flash_decode_paged": flash_decode_paged,
+            "flash_attention": flash_attention, "flash_decode": flash_decode}
 
 
 def launch_counts():

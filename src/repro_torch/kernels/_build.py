@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface, loaded through ``ctypes``.  The build happens at first
 use, into ``build/kernels/`` at the root of the checkout, from the repo's
-sources and nothing else; a library is named by its source's content hash,
-so an edited source rebuilds and an unchanged one is reused.
+sources and nothing else; a library is named by the content hash of its
+source and of the shared headers (``csrc/*.cuh``), so an edited source or
+header rebuilds and an unchanged one is reused.
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all.
 """
 
@@ -21,7 +22,8 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("moe_gmm", "moe_decode", "flash_decode_paged")
+SOURCES = ("moe_gmm", "moe_decode", "flash_decode_paged", "flash_attention",
+           "flash_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,8 +45,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -17,32 +17,19 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, on_card
-
-NEG_INF = -1e30
+from repro_torch.kernels.flash_decode import flash_decode_plain
 
 
 def flash_decode_paged_plain(q, kp, vp, posp, block_tables, cur_pos, *,
                              window: Optional[int] = None):
-    """The kernel's function in plain PyTorch: gather the walked pages,
-    mask by position, softmax in f32; rows with no valid slot are zero."""
-    b, hq, hd = q.shape
-    n_blk = block_tables.shape[1]
-    p, hkv = kp.shape[1], kp.shape[2]
-    g = hq // hkv
+    """The kernel's function in plain PyTorch: gather the walked pages into
+    a contiguous view, then the contiguous-cache plain version."""
+    b, n_blk = block_tables.shape
     bt = block_tables.long()
-    k = kp[bt].reshape(b, n_blk * p, hkv, hd).float()
-    v = vp[bt].reshape(b, n_blk * p, hkv, hd).float()
-    pos = posp[bt].reshape(b, n_blk * p)
-    cur = cur_pos[:, None]
-    valid = (pos >= 0) & (pos <= cur)
-    if window is not None:
-        valid &= pos > cur - window
-    qg = q.reshape(b, hkv, g, hd).float()
-    s = torch.einsum("bhgd,bkhd->bhgk", qg, k) / hd ** 0.5
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    probs = torch.softmax(s, dim=-1) * valid.any(-1)[:, None, None, None]
-    out = torch.einsum("bhgk,bkhd->bhgd", probs, v)
-    return out.reshape(b, hq, hd).to(q.dtype)
+    k = kp[bt].reshape(b, n_blk * kp.shape[1], *kp.shape[2:])
+    v = vp[bt].reshape(b, n_blk * vp.shape[1], *vp.shape[2:])
+    pos = posp[bt].reshape(b, -1)
+    return flash_decode_plain(q, k, v, pos, cur_pos, window=window)
 
 
 def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,

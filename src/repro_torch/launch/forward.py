@@ -1,0 +1,157 @@
+"""The paper's Fig. 4 comparison on the card: the full-model forward
+(``loss_fn``) of the baseline, a LExI plan and the inter / intra pruning
+baselines -- median forward ms over interleaved repeats, and the
+cross-entropy of each.  The throughput side of
+``benchmarks/bench_lexi_vs_pruning.py``; its quality side needs the
+model's real weights (random weights, drawn from ``--seed``, only show the
+path ran).
+
+    PYTHONPATH=src python -m repro_torch.launch.forward --arch olmoe-1b-7b \
+        --batch 4 --seq 512 --lexi-budget-frac 0.5 --prune-frac 0.25
+
+    # the plain PyTorch path on the CPU, at test size
+    PYTHONPATH=src python -m repro_torch.launch.forward --arch olmoe-1b-7b \
+        --reduced --device cpu --batch 2 --seq 64 --lexi-budget-frac 0.5
+
+The forward runs ``flash_attention`` and ``moe_gmm``.  Each pruned copy of
+the experts is built, timed in turns with the baseline and the plan, and
+freed before the next.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch import models
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import apply_plan_params, inter_prune, intra_prune
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int,
+               device) -> Dict[str, torch.Tensor]:
+    """Tokens and targets drawn with numpy from ``seed``; every position
+    counts in the loss."""
+    rng = np.random.default_rng(seed)
+    out = {n: torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))
+                               .astype(np.int32)).to(device)
+           for n in ("tokens", "targets")}
+    out["mask"] = torch.ones((batch, seq), device=device)
+    return out
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def compare(params, cfg: ModelConfig, plan, batch, *,
+            prune_frac: float = 0.25, reps: int = 5,
+            opts: models.ModelOpts = models.ModelOpts(
+                use_flash=True, use_moe_kernel=True)) -> Dict[str, Dict]:
+    """Forward ms (each call ended by a device sync) and cross-entropy of
+    the baseline, ``plan`` and both pruning baselines at ``prune_frac``:
+    per model the median, every timed call, and the MoE shape it ran."""
+    device = batch["tokens"].device
+    cfg_l, params_l = apply_plan_params(params, cfg, plan)
+    live = {"baseline": (params, cfg), "lexi": (params_l, cfg_l)}
+    times: Dict[str, list] = {}
+    out: Dict[str, Dict] = {}
+
+    def run(name: str, timed: bool = True) -> None:
+        p, c = live[name]
+        _sync(device)
+        t0 = time.perf_counter()
+        xent = models.loss_fn(p, c, batch, opts=opts)[1]["xent"]
+        _sync(device)
+        if timed:
+            times.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        out[name] = {"xent": xent.item(), "experts": c.num_experts,
+                     "moe_d_ff": c.moe_d_ff,
+                     "mean_top_k": float(np.mean([s.moe_top_k
+                                                  for s in c.pattern()]))}
+
+    for name, prune in ((f"inter_prune_{prune_frac:g}", inter_prune),
+                        (f"intra_prune_{prune_frac:g}", intra_prune)):
+        live[name] = prune(params, cfg, prune_frac)
+        names = ["baseline", "lexi", name]
+        for n in names:                                 # warm-up
+            run(n, timed=False)
+        for r in range(reps):
+            for n in (names if r % 2 == 0 else names[::-1]):
+                run(n)
+        del live[name]
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    for name, rec in out.items():
+        rec["ms_median"] = statistics.median(times[name])
+        rec["ms"] = times[name]
+    return out
+
+
+def main(argv=None) -> int:
+    from repro_torch.launch.serve import _device_breakdown, _profiled
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' runs the "
+                         "plain PyTorch path)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--lexi-budget-frac", type=float, default=0.5,
+                    help="active-expert budget of the plan searched inline")
+    ap.add_argument("--prune-frac", type=float, default=0.25)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--profile", action="store_true",
+                    help="then trace one forward of each model with "
+                         "torch.profiler and print device time by kernel")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    from repro_torch.core import optimize
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = cfg.with_(moe_impl="gmm")
+    params = models.init_params(cfg, args.seed, device=args.device)
+    device = params["embed"].device
+    opts = models.ModelOpts(use_flash=True, use_moe_kernel=True)
+    n = cfg.num_moe_layers
+    budget = max(n, int(round(args.lexi_budget_frac * n * cfg.moe_top_k)))
+    plan = optimize(params, cfg, budget, method="dp", n_iter=4,
+                    profile_batch=2, profile_seq=32, seed=args.seed,
+                    device=device, use_kernel=True)
+    batch = make_batch(cfg, args.batch, args.seq, args.seed, device)
+    res = compare(params, cfg, plan, batch, prune_frac=args.prune_frac,
+                  reps=args.reps, opts=opts)
+    print(json.dumps({"arch": cfg.name, "device": str(device),
+                      "batch": [args.batch, args.seq], "plan": plan.plan,
+                      "budget": budget, "models": res}))
+    if args.profile:
+        variants = {"baseline": (params, cfg),
+                    "lexi": apply_plan_params(params, cfg, plan)[::-1]}
+        for name, (p, c) in variants.items():
+            wall = {}
+
+            def traced(p=p, c=c):
+                t0 = time.perf_counter()
+                models.loss_fn(p, c, batch, opts=opts)
+                _sync(device)
+                wall["s"] = time.perf_counter() - t0
+
+            _, prof = _profiled(traced, True)
+            _device_breakdown(f"forward_{name}", prof, wall["s"])
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -11,6 +11,14 @@ plan searched (or loaded) for the model -- on the card by default.
         --reduced --device cpu --requests 4 --max-new 8 --max-len 96 \
         --lexi-budget-frac 0.5
 
+    # the contiguous layout with whole-prompt prefill (flash_attention in
+    # prefill, flash_decode in decode)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --reduced --device cpu --requests 4 --max-new 8 --max-len 96 \
+        --cache-layout contiguous --prefill-chunk 0 --use-flash \
+        --use-flash-decode --use-moe-decode --use-moe-kernel \
+        --lexi-budget-frac 0.5
+
 Flag names follow ``repro.launch.serve`` for the features the port has.
 The MoE layers always run the dropless ``gmm`` dispatch (the only one the
 port serves); baseline and plan are served from one engine and one set of
@@ -69,13 +77,16 @@ def _profiled(fn, enabled: bool):
 
 
 def _device_breakdown(tag: str, prof, wall_s: float, top: int = 10) -> None:
-    """Print one JSON line: device time by kernel (self time, summed over
-    the serve) and the device's busy and idle share of the wall time."""
+    """Print one JSON line: device time by kernel (summed over the traced
+    run) and the device's busy and idle share of the wall time.  Only the
+    device's own events count: a host op's device time is its kernels'
+    time again."""
+    from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
         t = (getattr(e, "self_device_time_total", 0)
              or getattr(e, "self_cuda_time_total", 0))
-        if t > 0:
+        if t > 0 and e.device_type != DeviceType.CPU:
             rows.append((e.key, t / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
@@ -99,7 +110,11 @@ def main(argv=None) -> int:
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--prompt-lo", type=int, default=8)
     ap.add_argument("--prompt-hi", type=int, default=48)
-    ap.add_argument("--prefill-chunk", type=int, default=None)
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="chunked-prefill width (0: whole-prompt prefill, "
+                         "contiguous layout only)")
+    ap.add_argument("--cache-layout", choices=("paged", "contiguous"),
+                    default=None, help="KV layout (default: paged)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="KV pool size in pages (default: worst-case "
                          "max_batch x max_len)")
@@ -111,6 +126,12 @@ def main(argv=None) -> int:
                          "routed-expert path instead of the gmm dispatch")
     ap.add_argument("--use-moe-kernel", action="store_true",
                     help="expert FFNs run the moe_gmm / moe_decode kernels")
+    ap.add_argument("--use-flash", action="store_true",
+                    help="whole-prompt prefill attention through the "
+                         "flash_attention kernel")
+    ap.add_argument("--use-flash-decode", action="store_true",
+                    help="decode attention over a contiguous view through "
+                         "the flash_decode kernel")
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--lexi-budget-frac", type=float, default=None,
@@ -129,18 +150,22 @@ def main(argv=None) -> int:
         cfg = cfg.reduced()
     cfg = cfg.with_(moe_impl="gmm")
     params = models.init_params(cfg, args.seed, device=args.device)
-    opts = models.ModelOpts(use_moe_kernel=args.use_moe_kernel)
+    opts = models.ModelOpts(use_moe_kernel=args.use_moe_kernel,
+                            use_flash=args.use_flash,
+                            use_flash_decode=args.use_flash_decode)
     req_kw = dict(lo=args.prompt_lo, hi=args.prompt_hi, max_new=args.max_new,
                   seed=args.seed, temperature=args.temperature,
                   top_k=args.top_k)
     eng = Engine(cfg, params, max_batch=args.max_batch, max_len=args.max_len,
-                 prefill_chunk=args.prefill_chunk, num_pages=args.num_pages,
+                 prefill_chunk=args.prefill_chunk,
+                 cache_layout=args.cache_layout, num_pages=args.num_pages,
                  use_kernel=args.use_kernel or None,
                  use_moe_decode=args.use_moe_decode or None,
                  opts=opts, seed=args.seed,
                  device=args.device)
     print(f"arch={cfg.name} baseline top-k={cfg.moe_top_k or 'n/a'} "
-          f"device={eng.device} chunk={eng.prefill_chunk}")
+          f"device={eng.device} layout={eng.kv.layout} "
+          f"chunk={eng.prefill_chunk}")
     if args.profile:                    # first calls build and warm up
         eng.serve(synth_requests(2, cfg.vocab_size, **dict(req_kw,
                                                             max_new=2)))

@@ -3,5 +3,7 @@ from repro_torch.models.model import (  # noqa: F401
     decode_fn,
     init_caches,
     init_params,
+    loss_fn,
+    prefill_fn,
 )
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts  # noqa: F401

@@ -82,8 +82,9 @@ def apply_block(
     h, cache = attn_mod.attention(
         params["attn"], cfg, apply_norm(params["norm1"], cfg, x), positions,
         mode=mode, cache=cache, compute_dtype=opts.attn_compute_dtype,
-        block_tables=block_tables, use_paged_kernel=opts.use_paged_kernel,
-        kernel_blocks=kernel_blocks)
+        block_tables=block_tables, use_flash=opts.use_flash,
+        use_flash_decode=opts.use_flash_decode,
+        use_paged_kernel=opts.use_paged_kernel, kernel_blocks=kernel_blocks)
     x = x + h
     h2 = apply_norm(params["norm2"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -104,11 +105,18 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig, device) -> List[Dict]:
     return [init_block(gen, cfg, spec, device) for spec in cfg.pattern()]
 
 
-def init_stack_cache(cfg: ModelConfig, *, page_size: int, num_pages: int,
-                     device) -> List[Dict]:
-    """One paged pool per layer."""
-    return [attn_mod.init_paged_cache(cfg, num_pages, page_size, device)
-            for _ in cfg.pattern()]
+def init_stack_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
+                     layout: str = "paged", page_size: int = 16,
+                     num_pages: int = 0, device) -> List[Dict]:
+    """One cache per layer: a paged pool of ``num_pages`` x ``page_size``
+    positions, or ``batch`` contiguous rows for ``max_len`` positions."""
+    if layout == "paged":
+        return [attn_mod.init_paged_cache(cfg, num_pages, page_size, device)
+                for _ in cfg.pattern()]
+    if layout == "contiguous":
+        return [attn_mod.init_cache(cfg, batch, max_len, device)
+                for _ in cfg.pattern()]
+    raise ValueError(f"unknown cache layout {layout!r}")
 
 
 def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,

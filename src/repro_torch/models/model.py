@@ -21,11 +21,29 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict:
     return tf_mod.init_lm(gen, cfg, dev)
 
 
-def init_caches(cfg: ModelConfig, *, page_size: int = 16, num_pages: int,
-                device=None):
-    """Paged KV pools, one per layer (the serving layout)."""
-    return tf_mod.init_caches(cfg, page_size=page_size, num_pages=num_pages,
+def loss_fn(params, cfg: ModelConfig, batch, *,
+            opts: ModelOpts = DEFAULT_OPTS):
+    """batch: tokens, targets, mask [B,S] -> (loss, {"xent", "aux"})."""
+    return tf_mod.lm_loss(params, cfg, batch, opts=opts)
+
+
+def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
+                layout: str = "paged", page_size: int = 16,
+                num_pages: int = 0, device=None):
+    """KV caches, one per layer: ``layout="paged"`` (the serving pool) is
+    ``num_pages`` pages of ``page_size`` positions; ``"contiguous"`` is
+    ``batch`` rows for ``max_len`` positions."""
+    return tf_mod.init_caches(cfg, batch, max_len, layout=layout,
+                              page_size=page_size, num_pages=num_pages,
                               device=resolve_device(device))
+
+
+def prefill_fn(params, cfg: ModelConfig, batch, caches, *,
+               opts: ModelOpts = DEFAULT_OPTS):
+    """batch: {"tokens": [B,S], optional "positions": [B,S]} -> (last
+    logits [B,V], contiguous caches)."""
+    return tf_mod.prefill(params, cfg, batch["tokens"], caches,
+                          positions=batch.get("positions"), opts=opts)
 
 
 def chunk_prefill_fn(params, cfg: ModelConfig, tokens, positions, caches, *,

@@ -12,6 +12,9 @@ from typing import Optional
 
 @dataclass(frozen=True)
 class ModelOpts:
+    #: train / prefill attention through the flash_attention kernel
+    #: instead of the masked softmax (causal, no pads: it masks by index)
+    use_flash: bool = False
     #: MoE dispatch implementation override (None -> cfg.moe_impl):
     #: gmm | decode (models/moe/registry.py)
     moe_impl: Optional[str] = None
@@ -21,6 +24,10 @@ class ModelOpts:
     #: paged decode attends pages in-kernel (flash_decode_paged) instead
     #: of gathering the pool into a contiguous [B, n_blk*P] view first
     use_paged_kernel: bool = False
+    #: decode attention over a contiguous view (the contiguous cache, or
+    #: the gathered pages) through the flash_decode kernel instead of the
+    #: masked softmax
+    use_flash_decode: bool = False
     #: decode-regime MoE: reroute decode-step gmm dispatch for
     #: decode-shaped batches (T <= registry.DECODE_TOKEN_THRESHOLD)
     #: through the fused routed-expert path (models/moe/decode.py)

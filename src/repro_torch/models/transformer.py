@@ -1,4 +1,5 @@
-"""Decoder-only LM: embeddings, layer stack, head, and the serving steps."""
+"""Decoder-only LM: embeddings, layer stack, head, the loss and the
+serving steps."""
 
 from __future__ import annotations
 
@@ -51,9 +52,60 @@ def forward(params: Dict, cfg: ModelConfig, tokens, positions, *,
         opts=opts, block_tables=block_tables, kernel_blocks=kernel_blocks)
 
 
-def init_caches(cfg: ModelConfig, *, page_size: int, num_pages: int, device):
-    return blocks_mod.init_stack_cache(cfg, page_size=page_size,
+# --------------------------------------------------------------------------- #
+# Loss
+# --------------------------------------------------------------------------- #
+
+
+def softmax_xent(logits, targets, mask):
+    """logits [B,S,V] f32, targets [B,S] int, mask [B,S] {0,1} f32."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp(min=1.0)
+
+
+def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, *,
+            opts: ModelOpts = DEFAULT_OPTS, aux_coef: float = 0.01):
+    """batch: tokens [B,S], targets [B,S], mask [B,S] -> (loss, {"xent",
+    "aux"})."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    hidden, _, aux = forward(params, cfg, tokens, positions, mode="train",
+                             opts=opts)
+    logits = lm_logits(params, cfg, hidden)
+    xent = softmax_xent(logits, batch["targets"], batch["mask"].float())
+    return xent + aux_coef * aux, {"xent": xent, "aux": aux}
+
+
+# --------------------------------------------------------------------------- #
+# Inference steps
+# --------------------------------------------------------------------------- #
+
+
+def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
+                layout: str = "paged", page_size: int = 16,
+                num_pages: int = 0, device):
+    return blocks_mod.init_stack_cache(cfg, batch, max_len, layout=layout,
+                                       page_size=page_size,
                                        num_pages=num_pages, device=device)
+
+
+@torch.no_grad()
+def prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
+            positions=None, opts: ModelOpts = DEFAULT_OPTS):
+    """Write a whole prompt into contiguous caches -> (last_logits [B,V],
+    caches).  Under ``opts.use_flash`` positions must be 0..S-1 (the
+    kernel masks by index)."""
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+    hidden, caches, _ = forward(params, cfg, tokens, positions,
+                                mode="prefill", caches=caches, opts=opts)
+    return lm_logits(params, cfg, hidden[:, -1:])[:, 0], caches
 
 
 @torch.no_grad()

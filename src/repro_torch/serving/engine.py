@@ -1,29 +1,37 @@
 """Serving engine facade: Scheduler -> KVCache -> ModelRunner composition.
 
-The port of ``repro.serving.engine`` on its default path: the paged
-block-table KV pool, fixed-width chunked prefill, and per iteration
+The port of ``repro.serving.engine`` on two paths.  The default is the
+paged block-table KV pool with fixed-width chunked prefill, and per
+iteration
 
     admit -> one [B, chunk] chunked-prefill step -> one [B] decode step
 
 so every prompt runs through one prefill shape, concurrent prefills batch
-together, and decode advances all live slots at once.
+together, and decode advances all live slots at once.  The other is
+``cache_layout="contiguous", prefill_chunk=0``: one cache row per slot,
+reserved for the request's whole lifetime, and each admitted prompt
+prefilled whole, ``[1, L]`` at its own length (no padding: eager PyTorch
+needs no graph per padded length, and the ``flash_attention`` kernel masks
+by index, so it must never see a pad), then
 
-Pages are reserved on demand: admission takes only the pages the prefill
-writes (gated to leave one free page per decoding slot, the reference's
-``headroom`` policy), decode grows a slot page by page, and a dry pool
-preempts the last-admitted live request: its pages are released and it
-re-queues PREEMPTED, to be re-prefilled (prompt + generated-so-far) and
-resumed token-exactly when pages free up.
+    admit + whole prefill of each admitted prompt -> one [B] decode step
+
+On the paged path pages are reserved on demand: admission takes only the
+pages the prefill writes (gated to leave one free page per decoding slot,
+the reference's ``headroom`` policy), decode grows a slot page by page, and
+a dry pool preempts the last-admitted live request: its pages are released
+and it re-queues PREEMPTED, to be re-prefilled (prompt + generated-so-far)
+and resumed token-exactly when pages free up.
 
 ``submit`` enqueues a request, ``step`` advances every live slot one
 iteration, ``drain`` steps until the system is empty and ``serve`` wraps
 them for a closed-loop workload.  ``serve(reqs, plan=name)`` after
 ``add_plan`` serves a LExI plan from the same runner and weights; one wave
 serves one plan.  Not ported yet (ROADMAP.md A8): mixed-plan steps, the
-prefix cache, the plan-degradation ladder, the other admission policies
-and whole-lifetime reservation, the sjf scheduler policy, quantized
-experts, router lookahead, the contiguous layout and open-loop arrival
-times.
+prefix cache, the plan-degradation ladder, the other admission policies,
+whole-lifetime reservation on the paged pool, chunked prefill on the
+contiguous layout, the sjf scheduler policy, quantized experts, router
+lookahead and open-loop arrival times.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import models
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import cache_buf_len
 from repro_torch.models.common import resolve_device
@@ -53,6 +62,7 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  max_len: int = 512, prefill_pad: int = 64,
                  prefill_chunk: Optional[int] = None,
+                 cache_layout: Optional[str] = None,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  use_kernel: Optional[bool] = None,
                  use_moe_decode: Optional[bool] = None,
@@ -65,21 +75,42 @@ class Engine:
         if any(b.kind not in _CHUNKABLE_KINDS for b in cfg.pattern()):
             raise NotImplementedError(
                 f"{cfg.name}: the port serves attention + MoE/MLP stacks "
-                "through the paged layout only (ROADMAP.md A15)")
+                "only (ROADMAP.md A15)")
         self.max_batch = max_batch
         self.max_len = max_len
         self.eos_id = eos_id
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.clock = clock if clock is not None else WallClock()
+        if cache_layout is None:
+            cache_layout = "paged"
+        if cache_layout not in ("paged", "contiguous"):
+            raise ValueError(f"unknown cache layout {cache_layout!r}")
+        # prefill_chunk=0: whole-prompt [1, L] prefill (contiguous only)
+        self.chunked = prefill_chunk != 0
+        if cache_layout == "paged" and not self.chunked:
+            raise ValueError("whole-prompt prefill (prefill_chunk=0) writes "
+                             "through slot scatter; use cache_layout="
+                             "'contiguous'")
+        if cache_layout == "contiguous" and self.chunked:
+            raise NotImplementedError(
+                "chunked prefill on the contiguous layout is not ported yet "
+                "(ROADMAP.md); pass prefill_chunk=0")
+        # on-demand pages + preemption on the paged pool; a contiguous row
+        # is reserved for its request's whole lifetime
+        self.ondemand = cache_layout == "paged"
         # cap at the ring size: a chunk wider than the window would scatter
         # two positions into one ring slot within a single write
-        self.prefill_chunk = min(prefill_chunk or prefill_pad,
-                                 cache_buf_len(cfg, max_len))
+        self.prefill_chunk = (min(prefill_chunk or prefill_pad,
+                                  cache_buf_len(cfg, max_len))
+                              if self.chunked else 0)
         # in-kernel paged decode and the fused decode-regime MoE path; the
         # gather / gmm paths stay the equivalence oracles when False
         self.use_kernel = (opts.use_paged_kernel if use_kernel is None
                            else bool(use_kernel))
+        if self.use_kernel and cache_layout != "paged":
+            raise ValueError("use_kernel=True walks block tables; it needs "
+                             "cache_layout='paged'")
         self.use_moe_decode = (opts.use_moe_decode_kernel
                                if use_moe_decode is None
                                else bool(use_moe_decode))
@@ -87,8 +118,9 @@ class Engine:
                        use_moe_decode_kernel=self.use_moe_decode)
         self.runner = ModelRunner(cfg, params, opts=opts)
         self.plan_name = BASE_PLAN
-        self.kv = KVCache(self.cfg, max_batch, max_len, page_size=page_size,
-                          num_pages=num_pages, device=self.device)
+        self.kv = KVCache(self.cfg, max_batch, max_len, layout=cache_layout,
+                          page_size=page_size, num_pages=num_pages,
+                          device=self.device)
         self.sched = Scheduler(max_batch, clock=self.clock)
         self.slot_pos = np.full(max_batch, -1, np.int32)    # next write pos
         self.slot_last = np.zeros(max_batch, np.int32)      # last sampled tok
@@ -155,6 +187,9 @@ class Engine:
     # ------------------------------------------------------------------ #
     def _admit(self) -> None:
         def can_allocate(slot: int, t: Tracked) -> bool:
+            if not self.ondemand:
+                return self.kv.allocate(slot, t.prompt_len
+                                        + t.req.max_new_tokens)
             # reserve only what this admission's prefill writes: the
             # prompt, plus generated-so-far minus the pending token on
             # resume; leave one free page per decoding slot (each may
@@ -177,6 +212,8 @@ class Engine:
                 t.fill = t.prompt
             self.slot_budget[t.slot] = t.req.max_new_tokens - len(gen)
             self.slot_pos[t.slot] = -1
+            if not self.chunked:
+                self._whole_prefill(t)
 
     def _eos_of(self, t: Tracked) -> Optional[int]:
         return t.req.eos_id if t.req.eos_id is not None else self.eos_id
@@ -265,6 +302,27 @@ class Engine:
             for t in sampling:
                 self._first_token(t, int(nxt[t.slot]))
 
+    def _whole_prefill(self, t: Tracked) -> None:
+        """One prompt at its own length, ``[1, L]``, into a fresh 1-row
+        cache scattered into the request's slot row; samples its first
+        token."""
+        dev = self.device
+        plen = t.prompt_len
+        tokens = torch.from_numpy(np.ascontiguousarray(t.prompt)[None]).to(dev)
+        positions = torch.arange(plen, dtype=torch.int32, device=dev)[None]
+        one = models.init_caches(self.cfg, 1, self.max_len,
+                                 layout="contiguous", device=dev)
+        logits, one = self.runner.whole_prefill(tokens, positions, one,
+                                                plan=t.served_plan)
+        self.kv.scatter_slot(one, t.slot)
+        self.stats["prefill_tokens"] += plen
+        t.consumed = plen
+        topk = (torch.tensor([t.req.top_k], dtype=torch.int32)
+                if t.req.top_k and t.req.temperature > 0 else None)
+        nxt = sample_per_slot(logits, self.gen,
+                              torch.tensor([t.req.temperature]), topk)
+        self._first_token(t, int(nxt[0]))
+
     def _preempt(self, t: Tracked) -> None:
         """Evict a live request: pages back to the pool, request re-queued
         PREEMPTED (its generated tokens are kept for the resume prefill)."""
@@ -295,9 +353,10 @@ class Engine:
         return self.sched.in_state(DECODE)
 
     def _decode_step(self, decoding: List[Tracked]) -> None:
-        decoding = self._grow_or_preempt(decoding)
-        if not decoding:
-            return
+        if self.ondemand:
+            decoding = self._grow_or_preempt(decoding)
+            if not decoding:
+                return
         tokens = np.zeros(self.max_batch, np.int32)
         pos = np.full(self.max_batch, -1, np.int32)
         for t in decoding:

@@ -1,15 +1,22 @@
-"""KV cache manager: the paged block-table pool.
+"""KV cache manager: the paged block-table pool, or contiguous slot rows.
 
-The manager owns the device-side per-layer page pools plus the host-side
-block accounting, as ``repro.serving.kv_cache`` does for its paged layout.
-A slot's logical block j maps to a physical page through
-``table[slot, j]``; pages are handed out at admission (``allocate``),
-grown page by page as decode crosses page boundaries
-(``allocate_append``), and recycled on ``release`` with their ``posp``
-entries reset to -1, so a recycled page can never leak a previous
-request's positions past the mask.  Both allocations are all or nothing:
-a shortfall leaves the pool exactly as found.  The manager is
-policy-free; the engine decides whom to preempt.
+The manager owns the device-side per-layer caches plus the host-side
+accounting, as ``repro.serving.kv_cache`` does.  Two layouts:
+
+``paged``
+    A slot's logical block j maps to a physical page through
+    ``table[slot, j]``; pages are handed out at admission (``allocate``),
+    grown page by page as decode crosses page boundaries
+    (``allocate_append``), and recycled on ``release`` with their ``posp``
+    entries reset to -1, so a recycled page can never leak a previous
+    request's positions past the mask.  Both allocations are all or
+    nothing: a shortfall leaves the pool exactly as found.  The manager is
+    policy-free; the engine decides whom to preempt.
+``contiguous``
+    One ``[max_len]`` row per slot, reserved for a request's whole
+    lifetime: ``allocate`` and ``release`` only reset the row's ``pos`` to
+    -1 (the k / v bytes left behind are masked by it), and a whole-prompt
+    prefill lands in its row through ``scatter_slot``.
 """
 
 from __future__ import annotations
@@ -28,13 +35,22 @@ class KVCache:
     """Owns the page pools + block tables for up to ``max_batch`` slots."""
 
     def __init__(self, cfg: ModelConfig, max_batch: int, max_len: int, *,
-                 page_size: int = 16, num_pages: Optional[int] = None,
-                 device):
+                 layout: str = "paged", page_size: int = 16,
+                 num_pages: Optional[int] = None, device):
+        if layout not in ("paged", "contiguous"):
+            raise ValueError(f"unknown cache layout {layout!r}")
         self.cfg = cfg
+        self.layout = layout
         self.max_batch = max_batch
         self.max_len = max_len
         self.device = device
         self.s_buf = cache_buf_len(cfg, max_len)
+        if layout == "contiguous":
+            self.caches = models.init_caches(cfg, max_batch, max_len,
+                                             layout="contiguous",
+                                             device=device)
+            self.stats = {}
+            return
         self.page_size = page_size
         self.blocks_per_slot = -(-self.s_buf // page_size)
         full = max_batch * self.blocks_per_slot
@@ -57,14 +73,20 @@ class KVCache:
     # ------------------------------------------------------------------ #
     def pages_needed(self, total_tokens: int) -> int:
         """Pages for a request touching ``total_tokens`` positions (ring
-        semantics cap it at one full buffer)."""
+        semantics cap it at one full buffer); none for a slot row."""
+        if self.layout != "paged":
+            return 0
         return -(-min(total_tokens, self.s_buf) // self.page_size)
 
     def free_pages(self) -> int:
+        if self.layout != "paged":
+            return 1 << 30
         return len(self._free)
 
     def fits_ever(self, total_tokens: int) -> bool:
         """Could this request ever be admitted (even on an empty pool)?"""
+        if self.layout != "paged":
+            return True
         return self.pages_needed(total_tokens) <= self.num_pages - 1
 
     def live_blocks(self, slot_pos) -> int:
@@ -85,7 +107,11 @@ class KVCache:
     # ------------------------------------------------------------------ #
     def allocate(self, slot: int, total_tokens: int) -> bool:
         """Reserve pages covering positions [0, total_tokens); False (pool
-        untouched) if the pool cannot."""
+        untouched) if the pool cannot.  A contiguous slot row is always
+        free for its whole lifetime: its positions are cleared."""
+        if self.layout != "paged":
+            self._clear_slot(slot)
+            return True
         assert not self._owned[slot], f"slot {slot} already allocated"
         return self._take(slot, self.pages_needed(total_tokens))
 
@@ -117,7 +143,11 @@ class KVCache:
         return True
 
     def release(self, slot: int) -> None:
-        """Return a slot's pages to the pool, their ``posp`` reset."""
+        """Return a slot's pages to the pool, their ``posp`` reset (paged),
+        or clear the slot row's positions (contiguous)."""
+        if self.layout != "paged":
+            self._clear_slot(slot)
+            return
         pages = self._owned[slot]
         if not pages:
             return
@@ -132,9 +162,12 @@ class KVCache:
         """The physical pages backing ``slot``, in block order."""
         return self._owned[slot]
 
-    def block_tables(self) -> torch.Tensor:
-        """Device block-table array, cached between allocations so
-        steady-state decode steps pay no host-to-device copy."""
+    def block_tables(self) -> Optional[torch.Tensor]:
+        """Device block-table array (None for the contiguous layout),
+        cached between allocations so steady-state decode steps pay no
+        host-to-device copy."""
+        if self.layout != "paged":
+            return None
         if self._table_dev is None:
             self._table_dev = torch.from_numpy(self.table.copy()).to(
                 self.device)
@@ -145,3 +178,16 @@ class KVCache:
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         for layer in self.caches:
             layer["posp"][idx] = -1
+
+    def _clear_slot(self, slot: int) -> None:
+        """pos = -1 on a slot row (the k / v bytes are masked by it)."""
+        for layer in self.caches:
+            layer["pos"][slot] = -1
+
+    def scatter_slot(self, one_cache, slot: int) -> None:
+        """Copy a 1-row contiguous cache (a whole-prompt prefill) into row
+        ``slot``."""
+        assert self.layout == "contiguous", "scatter is a contiguous-only path"
+        for full, one in zip(self.caches, one_cache):
+            for name, t in full.items():
+                t[slot:slot + 1].copy_(one[name])

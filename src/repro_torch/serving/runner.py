@@ -110,3 +110,13 @@ class ModelRunner:
             self.params, self.plans[plan], tokens, positions, caches,
             last_index=last_index, block_tables=block_tables,
             opts=self.opts)
+
+    def whole_prefill(self, tokens, positions, caches, *,
+                      plan: str = BASE_PLAN):
+        """One request's whole prompt ``[1, L]`` into a fresh 1-row
+        contiguous cache -> (logits [1,V], caches); the caller scatters the
+        cache into the request's slot."""
+        return models.prefill_fn(
+            self.params, self.plans[plan],
+            {"tokens": tokens, "positions": positions}, caches,
+            opts=self.opts)

@@ -6,10 +6,18 @@
 * The sensitivity table from the port's per-draw function fed the
   reference's own X draws, against ``profile_sensitivity``.
 * ``optimize`` returns the same plan as the reference for the same table.
+* ``loss_fn`` with ``use_flash`` (the ``flash_attention`` kernel's plain
+  version on the CPU) against the reference's ``loss_fn`` with
+  ``use_flash`` (its Pallas kernel in interpret mode), for the base model,
+  a LExI plan (``apply_plan_params``), and the ``inter_prune`` /
+  ``intra_prune`` baselines at 0.25 -- whose pruned experts must be the
+  reference's own (the same kept indices), compared on the reference's
+  pruned params converted.
 
-Tolerance: f32 logits through 4 layers, ``rtol=atol=1e-4`` (products summed
-in another order at every layer; the observed gap is ~5e-6).  Sensitivity
-values are norms of output differences: ``rtol=1e-4``.
+Tolerance: f32 logits and losses through 4 layers, ``rtol=atol=1e-4``
+(products summed in another order at every layer; the observed gap is
+~5e-6).  Sensitivity values are norms of output differences:
+``rtol=1e-4``.
 """
 
 import numpy as np
@@ -129,3 +137,75 @@ def test_profile_sensitivity_runs_on_cpu_generator(setup):
     assert t.values.shape == (cfg_t.num_moe_layers, cfg_t.moe_top_k)
     # k == k_base reproduces the baseline exactly
     assert np.all(t.values[:, -1] == 0.0) and np.all(t.values[:, 0] > 0)
+
+
+@pytest.mark.parametrize("variant", ["base", "lexi", "inter_prune",
+                                     "intra_prune"])
+def test_loss_fn_with_flash_matches_reference(setup, variant):
+    import jax
+    import jax.numpy as jnp
+    from repro import core as jcore, models as jm
+    from repro_torch import core as tcore, models as tm
+    from repro_torch.convert import convert_params
+    cfg_j, cfg_t, pj, pt = setup
+    if variant == "lexi":
+        plan_j = jcore.LexiPlan(arch=cfg_j.name, budget=6, plan=(2, 1, 1, 2),
+                                fitness=0.0, method="dp", k_base=2)
+        plan_t = tcore.LexiPlan(arch=cfg_t.name, budget=6, plan=(2, 1, 1, 2),
+                                fitness=0.0, method="dp", k_base=2)
+        cfg_j, pj = jcore.apply_plan_params(pj, cfg_j, plan_j)
+        cfg_t, pt = tcore.apply_plan_params(pt, cfg_t, plan_t)
+    elif variant != "base":
+        pj, cfg_j = getattr(jcore, variant)(pj, cfg_j, 0.25)
+        pt, cfg_t = getattr(tcore, variant)(pt, cfg_t, 0.25)
+        assert (cfg_t.num_experts, cfg_t.moe_d_ff) == (cfg_j.num_experts,
+                                                       cfg_j.moe_d_ff)
+        want = convert_params(jax.tree.map(np.asarray, pj), cfg_t,
+                              device="cpu")
+        for lt, lw in zip(pt["layers"], want["layers"]):
+            for name in ("router", "w1", "w2"):      # same kept indices
+                assert torch.equal(lt["moe"][name], lw["moe"][name]), name
+    rng = np.random.default_rng(4)
+    b, s = 2, 24
+    batch = {"tokens": rng.integers(0, cfg_j.vocab_size, (b, s)),
+             "targets": rng.integers(0, cfg_j.vocab_size, (b, s)),
+             "mask": (rng.random((b, s)) > 0.2).astype(np.int32)}
+    batch = {k: v.astype(np.int32) for k, v in batch.items()}
+    jloss = jax.jit(lambda p_, b_: jm.loss_fn(
+        p_, cfg_j, b_, opts=jm.ModelOpts(use_flash=True)))
+    lj, mj = jloss(pj, {k: jnp.asarray(v) for k, v in batch.items()})
+    lt, mt = tm.loss_fn(pt, cfg_t, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()},
+                        opts=tm.ModelOpts(use_flash=True,
+                                          use_moe_kernel=True))
+    np.testing.assert_allclose(lt.item(), float(lj), **TOL)
+    np.testing.assert_allclose(mt["xent"].item(), float(mj["xent"]), **TOL)
+    np.testing.assert_allclose(mt["aux"].item(), float(mj["aux"]), **TOL)
+
+
+def test_router_mc_pruning_keeps_the_most_routed_experts(setup):
+    from repro_torch.core import inter_prune
+    from repro_torch.core.pruning import _expert_scores_router_mc
+    _, cfg_t, _, pt = setup
+    p2, cfg2 = inter_prune(pt, cfg_t, 0.25, method="router_mc")
+    assert cfg2.num_experts == 6
+    for lp, lp2 in zip(pt["layers"], p2["layers"]):
+        mass = _expert_scores_router_mc(lp["moe"], cfg_t)
+        # top-k probabilities of 4096 draws: each draw adds at most 1
+        assert 0 < mass.sum().item() <= 4096 * (1 + 1e-5)
+        keep = torch.topk(mass, 6).indices.sort().values
+        assert torch.equal(lp2["moe"]["w1"], lp["moe"]["w1"][keep])
+        assert lp2["attn"] is lp["attn"]        # shared, not copied
+
+
+def test_forward_launcher_runs_on_cpu(capsys):
+    import json
+    from repro_torch.launch.forward import main
+    assert main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+                 "--batch", "1", "--seq", "16", "--reps", "1"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(rec["models"]) == {"baseline", "lexi", "inter_prune_0.25",
+                                  "intra_prune_0.25"}
+    assert rec["models"]["inter_prune_0.25"]["experts"] == 6
+    assert rec["models"]["intra_prune_0.25"]["moe_d_ff"] == 48
+    assert all(np.isfinite(m["xent"]) for m in rec["models"].values())

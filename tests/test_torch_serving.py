@@ -4,6 +4,15 @@ kernel and the fused decode MoE path on both sides (their plain versions
 run on the CPU).  Tokens must be equal -- for the base config, for a LExI
 plan registered on the same engine, and under a half-size KV pool where
 both engines preempt (the same number of times) and recompute.
+
+The contiguous layout with whole-prompt prefill is held to the reference's
+``Engine(cache_layout="contiguous", prefill_chunk=0)`` the same way, base
+and LExI plan.  The port runs it with ``use_flash`` and
+``use_flash_decode``; the reference runs ``use_flash_decode`` only: its
+whole prefill right-aligns each prompt in a padded window, and its
+``flash_attention`` masks by index, so under ``use_flash`` real queries
+would attend the pad keys (the port prefills at the prompt's own length,
+so its kernel never sees a pad).
 """
 
 import numpy as np
@@ -103,3 +112,73 @@ def test_sample_per_slot_greedy_rows_exact_and_topk_cap():
     out = sample_per_slot(logits, g, temps, torch.tensor([0, 1, 0, 0]))
     assert out[0] == best[0] and out[2] == best[2] and out[1] == best[1]
     assert 0 <= int(out[3]) < 50
+
+
+def _contiguous_engines(setup, **kw):
+    from repro import models as jm
+    from repro.serving import Engine as JEngine
+    from repro_torch.models import ModelOpts
+    from repro_torch.serving import Engine as TEngine
+    cfg_j, cfg_t, pj, pt = setup
+    common = dict(max_len=64, cache_layout="contiguous", prefill_chunk=0,
+                  use_moe_decode=True, **kw)
+    return (JEngine(cfg_j, pj, opts=jm.ModelOpts(use_flash_decode=True),
+                    **common),
+            TEngine(cfg_t, pt, opts=ModelOpts(use_flash=True,
+                                              use_flash_decode=True,
+                                              use_moe_kernel=True),
+                    device="cpu", **common))
+
+
+def test_contiguous_whole_prefill_greedy_tokens_match_reference(setup):
+    ej, et = _contiguous_engines(setup, max_batch=3)
+    _serve_both(ej, et, 4, 5, 30, 8)
+    plan = (2, 1, 1, 2)
+    ej.add_plan("lexi", plan)
+    et.add_plan("lexi", plan)
+    _serve_both(ej, et, 4, 5, 30, 8, plan="lexi")
+    assert et.stats["prefill_tokens"] == ej.stats["prefill_tokens"]
+    assert et.stats["steps"] == ej.stats["steps"]
+    assert all((layer["pos"] == -1).all() for layer in et.kv.caches)
+
+
+def test_contiguous_whole_prefill_matches_reference_on_a_window_ring(setup):
+    # a 16-slot sliding-window ring that prompts of up to 29 tokens and
+    # their decode wrap; the same weights (a window adds no parameters)
+    cfg_j, cfg_t, pj, pt = setup
+    win = (cfg_j.with_(sliding_window=16), cfg_t.with_(sliding_window=16),
+           pj, pt)
+    ej, et = _contiguous_engines(win, max_batch=2)
+    assert et.kv.caches[0]["k"].shape[1] == 16
+    _serve_both(ej, et, 3, 10, 30, 8)
+
+
+def test_cache_layout_options_are_checked(setup):
+    from repro_torch.serving import Engine
+    _, cfg_t, _, pt = setup
+    with pytest.raises(ValueError, match="contiguous"):
+        Engine(cfg_t, pt, prefill_chunk=0, device="cpu")
+    with pytest.raises(ValueError, match="paged"):
+        Engine(cfg_t, pt, cache_layout="contiguous", prefill_chunk=0,
+               use_kernel=True, device="cpu")
+    with pytest.raises(ValueError, match="layout"):
+        Engine(cfg_t, pt, cache_layout="ring", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(cfg_t, pt, cache_layout="contiguous", prefill_chunk=16,
+               device="cpu")
+
+
+@pytest.mark.parametrize("layout_args", [
+    ["--prefill-chunk", "16", "--use-kernel"],
+    ["--cache-layout", "contiguous", "--prefill-chunk", "0", "--use-flash",
+     "--use-flash-decode"],
+])
+def test_serve_launcher_runs_each_layout_on_cpu(layout_args, capsys):
+    from repro_torch.launch.serve import main
+    assert main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+                 "--requests", "3", "--max-new", "4", "--max-len", "64",
+                 "--max-batch", "2", "--use-moe-decode", "--use-moe-kernel",
+                 "--lexi-budget-frac", "0.5", *layout_args]) == 0
+    out = capsys.readouterr().out
+    assert "baseline:" in out and "LExI:" in out
+    assert ("layout=contiguous" in out) == ("contiguous" in layout_args)

@@ -9,7 +9,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               ``nvcc`` per source, all started together) into ``build/``.
 2. kernels -- hold each kernel against its plain PyTorch version in bf16 at
               the shapes the main paths give it (``flash_attention`` and
-              ``flash_decode`` also at one GQA shape with a sliding window),
+              ``flash_decode`` also at one GQA shape with a sliding window;
+              the attention kernels row by row, to ROW_TOL),
               and time both with CUDA events (per-call medians of device
               time, L2 flushed before every call, kernel, plain and -- where
               one PyTorch call computes the same function -- that call
@@ -33,8 +34,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 Every kernel's launch counter is zeroed just before and read just after
 each step of phases 3-5; each step must launch the kernels it runs.  A
-small reference check holds the kernel paths' logits and loss against the
-plain paths' on the same inputs.  Then it prints the ``kernels`` summary
+small reference check holds the kernel paths' logits against the plain
+paths' on the same inputs, row by row.  Then it prints the ``kernels`` summary
 line (launches summed over every step), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits 1 and prints no result.
@@ -57,10 +58,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
-#: a kernel passes when max |kernel - plain| <= TOL * max |plain|: both
-#: accumulate in f32 in different orders and round the output to bf16
+#: an expert kernel passes when max |kernel - plain| <= TOL * max |plain|:
+#: both accumulate in f32 in different orders and round the output to bf16
 #: (relative step 2^-8), and moe_gmm also rounds its hidden to bf16
 TOL = 2e-2
+#: an attention kernel passes when every output row (one query head's hd
+#: values) has ||kernel - plain|| <= ROW_TOL * ||plain||.  Rows differ in
+#: scale by the number of keys they see (a row over n random keys has
+#: norm ~ 1/sqrt(n) of one over a single key), so a bound on the largest
+#: value would let the long rows be wrong; bf16 rounding of P and of the
+#: output leaves about 3e-3 per row, while one key too many or too few in
+#: a row over n keys moves it by about 1/sqrt(n) (0.04 at n = 512)
+ROW_TOL = 1e-2
+#: the model's logits on the kernel and the plain paths: the same per-row
+#: relative error (one row = one token's logits)
+LOGITS_TOL = 3e-2
 FLUSH_BYTES = 128 << 20           # > the 50 MB L2
 
 
@@ -118,6 +130,34 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, **extra):
     if err > TOL * scale:
         raise AssertionError(f"{name}: max abs err {err} > {TOL} x {scale}")
     return err
+
+
+def row_rel_err(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """||got - want|| / ||want|| of each row along the last dim; a zero
+    row of ``want`` must come out exactly zero (else the error is inf)."""
+    got, want = got.float(), want.float()
+    e = (got - want).norm(dim=-1).flatten()
+    w = want.norm(dim=-1).flatten()
+    return torch.where(w > 0, e / w.clamp(min=1e-30),
+                       torch.where(e > 0, float("inf"), 0.0))
+
+
+def compare_rows(name: str, got: torch.Tensor, want: torch.Tensor, **extra):
+    """Hold an attention kernel's output to ROW_TOL row by row; returns
+    the largest absolute difference for the ``kernels`` line."""
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    rel = row_rel_err(got, want)
+    rec = {"check": name,
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "max_row_rel_err": rel.max().item(),
+           "median_row_rel_err": rel.median().item(), "tol": ROW_TOL,
+           **extra}
+    emit(rec)
+    if rec["max_row_rel_err"] > ROW_TOL:
+        raise AssertionError(f"{name}: a row's relative error "
+                             f"{rec['max_row_rel_err']} > {ROW_TOL}")
+    return rec["max_abs_err"]
 
 
 # --------------------------------------------------------------------------- #
@@ -209,7 +249,7 @@ def check_flash_decode_paged(cfg, flush, device):
     live = 32                                   # KVCache.live_blocks bucket
     bt = table[:, :live]                        # truncated strided view
     args = (q, kp, vp, posp, bt, cur)
-    err = compare("flash_decode_paged", flash_decode_paged(*args),
+    err = compare_rows("flash_decode_paged", flash_decode_paged(*args),
                   flash_decode_paged_plain(*args), batch=b, heads=hq,
                   live_positions=sum(lens), table_cols=live)
     ms, plain_ms = time_calls((lambda: flash_decode_paged(*args),
@@ -250,7 +290,7 @@ def check_flash_attention(cfg, flush, device):
     errs = []
     for tag, (b, hkv, s, window) in shapes.items():
         args = qkv(b, hkv, s)
-        errs.append(compare(f"flash_attention_{tag}",
+        errs.append(compare_rows(f"flash_attention_{tag}",
                             flash_attention(*args, window=window),
                             flash_attention_plain(*args, window=window),
                             shape=[b, hq, hkv, s, hd], window=window))
@@ -295,13 +335,13 @@ def check_flash_decode(cfg, flush, device):
     k, v, pos, cur = _decode_cache(gen, device, lens, 512,
                                    cfg.num_kv_heads, hd)
     main = (q(), k, v, pos, cur)
-    err = compare("flash_decode", flash_decode(*main),
+    err = compare_rows("flash_decode", flash_decode(*main),
                   flash_decode_plain(*main), batch=b, heads=hq, slots=512,
                   live_positions=sum(lens))
     # GQA g=4 over a 200-slot ring that has wrapped, under a 150 window
     wlens = [700, 333, 200, 199, 57, 1, 0, 450]
     gqa = (q(),) + _decode_cache(gen, device, wlens, 200, hq // 4, hd)
-    err = max(err, compare("flash_decode_gqa_window",
+    err = max(err, compare_rows("flash_decode_gqa_window",
                            flash_decode(*gqa, window=150),
                            flash_decode_plain(*gqa, window=150),
                            batch=b, heads=[hq, hq // 4], slots=200,
@@ -370,14 +410,17 @@ def reference_check(params, cfg, device):
     """Kernel paths vs plain paths on small inputs and the same weights,
     through the model cut to its first layer: two rows of 64 prompt tokens
     prefilled (a chunk on the paged pool; a whole prompt on the contiguous
-    cache), then one decode step on the same fixed tokens -- logits must
-    point the same way (cosine >= 0.99 per row) -- and ``loss_fn`` on the
-    same tokens, whose cross-entropy must agree within 1 %.  bf16 rounds at
-    other places on the two paths; in a random-weight model such a
-    difference flips a routing decision now and then, and 16 layers
-    amplify a flip into unrelated logits (cosine 0.84 at full depth in a
-    chip run), so the check holds one layer, where routing sees identical
-    inputs."""
+    cache, the forward ``loss_fn`` runs), then one decode step on the same
+    fixed tokens; the logits of each prompt's last token and of each
+    decoded token must agree within LOGITS_TOL (relative L2 error per
+    row).  Then the whole forward's logits, every token's, with only
+    ``moe_gmm`` on the kernel side: the attention is the same plain code on
+    both sides, so the router sees identical inputs.  With the attention
+    kernels on too, their bf16 rounding reaches the router, and a token
+    whose 8th and 9th expert scores nearly tie gets another top-8 set: in a
+    chip run 6 of the 128 tokens did, and exactly those rows were off (by
+    0.18-0.31; every other row within 0.0096).  At full depth 16 layers
+    amplify such flips into unrelated logits (cosine 0.84)."""
     from repro_torch import models
     cfg = cfg.with_(num_layers=1)
     params = dict(params, layers=params["layers"][:1])
@@ -423,30 +466,32 @@ def reference_check(params, cfg, device):
     }
     for check, (run, kern) in paths.items():
         got_all, want_all = run(kern), run(plain)
-        rec = {"check": check, "tol": 0.99}
+        rec = {"check": check, "tol": LOGITS_TOL}
         for i, step in enumerate(("prefill", "decode")):
             got, want = got_all[i], want_all[i]
-            rec[f"{step}_min_cosine"] = torch.nn.functional.cosine_similarity(
-                got, want, dim=-1).min().item()
+            rec[f"{step}_max_row_rel_err"] = row_rel_err(got, want).max().item()
             rec[f"{step}_max_abs_diff"] = (got - want).abs().max().item()
             rec[f"{step}_argmax_equal"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
             rec[f"{step}_finite"] = bool(torch.isfinite(got).all())
         emit(rec)
-        if not all(rec[f"{s}_finite"] and rec[f"{s}_min_cosine"] >= 0.99
+        if not all(rec[f"{s}_finite"]
+                   and rec[f"{s}_max_row_rel_err"] <= LOGITS_TOL
                    for s in ("prefill", "decode")):
             raise AssertionError(f"reference check failed: {rec}")
 
-    batch = {"tokens": dev["tokens"], "targets": dev["tokens"].roll(-1, 1),
-             "mask": torch.ones((b, c), device=device)}
-    xent = {tag: models.loss_fn(params, cfg, batch, opts=o)[1]["xent"].item()
-            for tag, o in (("kernel", models.ModelOpts(use_flash=True,
-                                                       use_moe_kernel=True)),
-                           ("plain", models.ModelOpts()))}
-    rel = abs(xent["kernel"] - xent["plain"]) / abs(xent["plain"])
-    emit({"check": "reference_xent", "kernel": xent["kernel"],
-          "plain": xent["plain"], "rel_diff": rel, "tol": 1e-2})
-    if not (np.isfinite(xent["kernel"]) and rel <= 1e-2):
-        raise AssertionError(f"reference xent check failed: {xent}")
+    from repro_torch.models.transformer import forward, lm_logits
+    lg = [lm_logits(params, cfg, forward(params, cfg, dev["tokens"],
+                                         dev["positions"], opts=o)[0])
+          for o in (models.ModelOpts(use_moe_kernel=True),
+                    models.ModelOpts())]
+    rec = {"check": "reference_forward_logits", "tol": LOGITS_TOL,
+           "rows": b * c,
+           "max_row_rel_err": row_rel_err(*lg).max().item(),
+           "argmax_equal": (lg[0].argmax(-1) == lg[1].argmax(-1)).float().mean().item(),
+           "finite": bool(torch.isfinite(lg[0]).all())}
+    emit(rec)
+    if not (rec["finite"] and rec["max_row_rel_err"] <= LOGITS_TOL):
+        raise AssertionError(f"reference forward check failed: {rec}")
 
 
 # --------------------------------------------------------------------------- #

@@ -3,7 +3,10 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_pallas.  Contract: q [B, Hq, S, hd], k, v [B, Hkv, S, hd]
-// bf16, contiguous -> out [B, Hq, S, hd] bf16.  q head h reads kv head
+// bf16 -> out [B, Hq, S, hd] bf16, each addressed through its own (batch,
+// head, row) element strides with unit stride along hd, so the model's
+// [B, S, H, hd] activations are read and written in place, without
+// transposed copies; k and v share strides.  q head h reads kv head
 // h / (Hq / Hkv).  Masking is by index: key j is visible to query i iff
 // j <= i (and j > i - window when a window is set).  Softmax and the
 // output accumulate in f32; the output is rounded to bf16 once.
@@ -63,18 +66,19 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// rows [row0, row0 + 64) of a [S, HD] matrix into shared memory with row
-// pitch HD + PAD, rows past S zero-filled; 16-byte loads
+// rows [row0, row0 + 64) of an [S, HD] matrix whose rows lie ``ld``
+// elements apart into shared memory with row pitch HD + PAD, rows past S
+// zero-filled; 16-byte loads
 template <int HD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int S) {
+                                          int row0, int S, int ld) {
   constexpr int VEC = 8;
   constexpr int PER_ROW = HD / VEC;
   for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += NT) {
     const int r = idx / PER_ROW, c = (idx % PER_ROW) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * HD + c);
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c);
     *reinterpret_cast<uint4*>(dst + r * (HD + PAD) + c) = val;
   }
 }
@@ -83,7 +87,9 @@ template <int HD>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
-                       int Hq, int Hkv, int S, int window, float scale) {
+                       int Hq, int Hkv, int S, int window, float scale,
+                       int qsb, int qsh, int qss, int ksb, int ksh, int kss,
+                       int osb, int osh, int oss) {
   constexpr int LDS = HD + PAD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
@@ -97,10 +103,10 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;        // mma fragment coordinates
   const int q0 = qt * BQ;
-  const size_t q_base = ((size_t)b * Hq + h) * (size_t)S * HD;
-  const size_t kv_base = ((size_t)b * Hkv + hk) * (size_t)S * HD;
+  const size_t q_base = (size_t)b * qsb + (size_t)h * qsh;
+  const size_t kv_base = (size_t)b * ksb + (size_t)hk * ksh;
 
-  load_tile<HD>(sq, q + q_base, q0, S);
+  load_tile<HD>(sq, q + q_base, q0, S, qss);
   __syncthreads();
   const int r0 = warp * 16 + g;                 // this thread's rows r0, r0+8
   uint32_t qa[HD / 16][4];
@@ -127,8 +133,8 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = n_lo; j < n_hi; ++j) {
     const int k0 = j * BK;
     __syncthreads();                            // every warp is done with the last tile
-    load_tile<HD>(sk, k + kv_base, k0, S);
-    load_tile<HD>(sv, v + kv_base, k0, S);
+    load_tile<HD>(sk, k + kv_base, k0, S, kss);
+    load_tile<HD>(sv, v + kv_base, k0, S, kss);
     __syncthreads();
 
     // S = Q K^T: 8 column blocks of 8 keys
@@ -203,7 +209,7 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  bf16* ob = out + q_base;
+  bf16* ob = out + (size_t)b * osb + (size_t)h * osh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -212,7 +218,7 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (qi[r] < S) {
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)qi[r] * HD + n * 8 + 2 * t) =
+        *reinterpret_cast<uint32_t*>(ob + (size_t)qi[r] * oss + n * 8 + 2 * t) =
             pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
     }
   }
@@ -221,7 +227,7 @@ flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 static int launch(const void* q, const void* k, const void* v, void* out,
                   int B, int Hq, int Hkv, int S, int window,
-                  cudaStream_t stream) {
+                  const int (&st)[9], cudaStream_t stream) {
   const int smem = (BQ + 2 * BK) * (HD + PAD) * (int)sizeof(bf16);
   cudaError_t e = cudaFuncSetAttribute(
       flash_attention_kernel<HD>,
@@ -231,22 +237,32 @@ static int launch(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<HD><<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Hq, Hkv, S,
-      window, 1.0f / sqrtf((float)HD));
+      window, 1.0f / sqrtf((float)HD), st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8]);
   return (int)cudaGetLastError();
 }
 
 // Returns cudaGetLastError() after launch (cudaErrorInvalidValue for a
-// head size other than 64 or 128).  window <= 0: none.
+// head size other than 64 or 128, or a row stride that breaks 16-byte
+// loads).  window <= 0: none.  (qsb, qsh, qss), (ksb, ksh, kss) and (osb,
+// osh, oss) are the batch, head and row strides of q, of k and v, and of
+// out, in elements; the caller also keeps the base pointers 16-byte
+// aligned.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Hq,
                                       int Hkv, int S, int hd, int window,
-                                      void* stream) {
+                                      int qsb, int qsh, int qss, int ksb,
+                                      int ksh, int kss, int osb, int osh,
+                                      int oss, void* stream) {
+  const int st[9] = {qsb, qsh, qss, ksb, ksh, kss, osb, osh, oss};
   if (Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || B <= 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 9; ++i)
+    if (st[i] < 0 || st[i] % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch<64>(q, k, v, out, B, Hq, Hkv, S, window, s);
-    case 128: return launch<128>(q, k, v, out, B, Hq, Hkv, S, window, s);
+    case 64: return launch<64>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
+    case 128: return launch<128>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -20,11 +20,17 @@ def on_card(name: str, *tensors: torch.Tensor) -> bool:
 
 
 def expect(name: str, t: torch.Tensor, arg: str, dtype: torch.dtype,
-           shape=None) -> None:
+           shape=None, *, strided: bool = False) -> None:
+    """dtype and shape as given; contiguous, or with ``strided`` a unit
+    stride along the last dim and a 16-byte aligned base."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                          f"want {tuple(shape)}")
-    if not t.is_contiguous():
+    if strided:
+        if t.stride(-1) != 1 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} needs a unit last stride and "
+                             "a 16-byte aligned base")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: {arg} must be contiguous")

@@ -4,7 +4,11 @@ Kernel: ``csrc/flash_attention.cu`` (replaces ``repro/kernels/
 flash_attention.py::flash_attention_pallas``).  q [B, Hq, S, hd], k / v
 [B, Hkv, S, hd] -> [B, Hq, S, hd] in q's dtype; q head h reads kv head
 h // (Hq / Hkv); key j is visible to query i iff j <= i (and
-j > i - window with a window).  Online softmax, f32 accumulation.  On the
+j > i - window with a window).  Online softmax, f32 accumulation.  The
+kernel takes any strides with a unit stride along hd and 16-byte rows
+(k and v sharing theirs), and the output takes q's layout: the model
+passes its [B, S, H, hd] activations as transposed views and gets its
+output back in that layout, with no copy either way.  On the
 H100 at the forward's shapes (4 x 16 heads x 512 x 128) bytes (q, k, v,
 out once: 0.010 ms) and the causal half of the two products (0.004 ms)
 bound it about equally.
@@ -47,9 +51,12 @@ def flash_attention(q, k, v, *, window: Optional[int] = None):
     b, hq, s, hd = q.shape
     hkv = k.shape[1]
     bf16 = torch.bfloat16
-    expect(name, q, "q", bf16)
-    expect(name, k, "k", bf16, (b, hkv, s, hd))
-    expect(name, v, "v", bf16, (b, hkv, s, hd))
+    expect(name, q, "q", bf16, strided=True)
+    expect(name, k, "k", bf16, (b, hkv, s, hd), strided=True)
+    expect(name, v, "v", bf16, (b, hkv, s, hd), strided=True)
+    if k.stride() != v.stride():
+        raise ValueError(f"{name}: k and v must share strides, got "
+                         f"{k.stride()} and {v.stride()}")
     if (hd not in HEAD_DIMS or hkv == 0 or hq % hkv or s == 0
             or not 0 < b <= 65535):
         raise ValueError(f"{name}: no kernel for B={b}, Hq={hq}, Hkv={hkv}, "
@@ -57,10 +64,11 @@ def flash_attention(q, k, v, *, window: Optional[int] = None):
                          "dividing Hq, S > 0, 0 < B <= 65535)")
     if window is not None and window <= 0:
         raise ValueError(f"{name}: window={window} must be positive")
-    out = torch.empty_like(q)
-    fn = _build.function(name, "flash_attention_launch", 4, 6)
+    out = torch.empty_like(q)          # q's layout where q is dense
+    strides = [st for t in (q, k, out) for st in _row_strides(name, t)]
+    fn = _build.function(name, "flash_attention_launch", 4, 15)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, hq, hkv, s, hd, window or 0,
+             b, hq, hkv, s, hd, window or 0, *strides,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(name, err)
     flash_attention.launches += 1
@@ -68,3 +76,13 @@ def flash_attention(q, k, v, *, window: Optional[int] = None):
 
 
 flash_attention.launches = 0
+
+
+def _row_strides(name: str, t: torch.Tensor):
+    """(batch, head, row) element strides of a [B, H, S, hd] tensor, 0
+    along a dim of size 1; each must keep 16-byte loads aligned."""
+    out = [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
+    if any(st % 8 for st in out) or max(out) >= 1 << 31:
+        raise ValueError(f"{name}: strides {t.stride()} break the kernel's "
+                         "16-byte rows")
+    return out

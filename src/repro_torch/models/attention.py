@@ -296,11 +296,12 @@ def gqa_attention(
         k = apply_rope(k, positions, cfg.rope_theta)
         if use_flash:
             # masks by index, as the reference kernel: positions must be
-            # 0..S-1 in every row (no pads)
+            # 0..S-1 in every row (no pads).  The kernel reads the [B,S,H,hd]
+            # activations through their strides and writes its output in
+            # q's layout, so neither transpose copies
             from repro_torch.kernels import flash_attention
             out = flash_attention(
-                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(),
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 window=cfg.sliding_window).transpose(1, 2)
         else:
             bias = _mask_bias(positions, positions, cfg.sliding_window, True)

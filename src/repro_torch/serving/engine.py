@@ -42,7 +42,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import models
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import cache_buf_len
 from repro_torch.models.common import resolve_device
@@ -86,24 +85,22 @@ class Engine:
             cache_layout = "paged"
         if cache_layout not in ("paged", "contiguous"):
             raise ValueError(f"unknown cache layout {cache_layout!r}")
-        # prefill_chunk=0: whole-prompt [1, L] prefill (contiguous only)
-        self.chunked = prefill_chunk != 0
-        if cache_layout == "paged" and not self.chunked:
+        # paged: chunked prefill, on-demand pages and preemption;
+        # contiguous: whole-prompt [1, L] prefill (prefill_chunk=0) into a
+        # row reserved for the request's whole lifetime
+        self.contiguous = cache_layout == "contiguous"
+        if not self.contiguous and prefill_chunk == 0:
             raise ValueError("whole-prompt prefill (prefill_chunk=0) writes "
-                             "through slot scatter; use cache_layout="
-                             "'contiguous'")
-        if cache_layout == "contiguous" and self.chunked:
+                             "a slot row; use cache_layout='contiguous'")
+        if self.contiguous and prefill_chunk != 0:
             raise NotImplementedError(
                 "chunked prefill on the contiguous layout is not ported yet "
                 "(ROADMAP.md); pass prefill_chunk=0")
-        # on-demand pages + preemption on the paged pool; a contiguous row
-        # is reserved for its request's whole lifetime
-        self.ondemand = cache_layout == "paged"
         # cap at the ring size: a chunk wider than the window would scatter
         # two positions into one ring slot within a single write
-        self.prefill_chunk = (min(prefill_chunk or prefill_pad,
-                                  cache_buf_len(cfg, max_len))
-                              if self.chunked else 0)
+        self.prefill_chunk = (0 if self.contiguous else
+                              min(prefill_chunk or prefill_pad,
+                                  cache_buf_len(cfg, max_len)))
         # in-kernel paged decode and the fused decode-regime MoE path; the
         # gather / gmm paths stay the equivalence oracles when False
         self.use_kernel = (opts.use_paged_kernel if use_kernel is None
@@ -176,7 +173,7 @@ class Engine:
             self.sched.reject(t, "rejected_prompt_too_long")
         if t.state != DONE and t.plan not in self.runner.plans:
             self.sched.reject(t, "rejected_unknown_plan")
-        if (t.state != DONE
+        if (t.state != DONE and not self.contiguous
                 and not self.kv.fits_ever(t.prompt_len
                                           + t.req.max_new_tokens)):
             self.sched.reject(t, "rejected_kv_capacity")
@@ -187,9 +184,8 @@ class Engine:
     # ------------------------------------------------------------------ #
     def _admit(self) -> None:
         def can_allocate(slot: int, t: Tracked) -> bool:
-            if not self.ondemand:
-                return self.kv.allocate(slot, t.prompt_len
-                                        + t.req.max_new_tokens)
+            if self.contiguous:             # the whole row, for life
+                return self.kv.allocate(slot)
             # reserve only what this admission's prefill writes: the
             # prompt, plus generated-so-far minus the pending token on
             # resume; leave one free page per decoding slot (each may
@@ -212,7 +208,7 @@ class Engine:
                 t.fill = t.prompt
             self.slot_budget[t.slot] = t.req.max_new_tokens - len(gen)
             self.slot_pos[t.slot] = -1
-            if not self.chunked:
+            if self.contiguous:
                 self._whole_prefill(t)
 
     def _eos_of(self, t: Tracked) -> Optional[int]:
@@ -303,18 +299,17 @@ class Engine:
                 self._first_token(t, int(nxt[t.slot]))
 
     def _whole_prefill(self, t: Tracked) -> None:
-        """One prompt at its own length, ``[1, L]``, into a fresh 1-row
-        cache scattered into the request's slot row; samples its first
-        token."""
+        """One prompt at its own length, ``[1, L]``, written in place into
+        the request's slot row (``[1, ...]`` views of the caches); samples
+        its first token."""
         dev = self.device
         plen = t.prompt_len
         tokens = torch.from_numpy(np.ascontiguousarray(t.prompt)[None]).to(dev)
         positions = torch.arange(plen, dtype=torch.int32, device=dev)[None]
-        one = models.init_caches(self.cfg, 1, self.max_len,
-                                 layout="contiguous", device=dev)
-        logits, one = self.runner.whole_prefill(tokens, positions, one,
-                                                plan=t.served_plan)
-        self.kv.scatter_slot(one, t.slot)
+        row = [{n: c[t.slot:t.slot + 1] for n, c in layer.items()}
+               for layer in self.kv.caches]
+        logits, _ = self.runner.whole_prefill(tokens, positions, row,
+                                              plan=t.served_plan)
         self.stats["prefill_tokens"] += plen
         t.consumed = plen
         topk = (torch.tensor([t.req.top_k], dtype=torch.int32)
@@ -353,7 +348,7 @@ class Engine:
         return self.sched.in_state(DECODE)
 
     def _decode_step(self, decoding: List[Tracked]) -> None:
-        if self.ondemand:
+        if not self.contiguous:
             decoding = self._grow_or_preempt(decoding)
             if not decoding:
                 return
@@ -366,7 +361,8 @@ class Engine:
         dev = self.device
         logits, self.kv.caches = self.runner.decode(
             torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
-            self.kv.caches, self.kv.block_tables(),
+            self.kv.caches,
+            None if self.contiguous else self.kv.block_tables(),
             plan=self._plan_of(decoding), kernel_blocks=kernel_blocks)
         nxt = self._sample(logits)
         self.stats["steps"] += 1

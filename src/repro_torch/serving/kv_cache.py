@@ -16,7 +16,9 @@ accounting, as ``repro.serving.kv_cache`` does.  Two layouts:
     One ``[max_len]`` row per slot, reserved for a request's whole
     lifetime: ``allocate`` and ``release`` only reset the row's ``pos`` to
     -1 (the k / v bytes left behind are masked by it), and a whole-prompt
-    prefill lands in its row through ``scatter_slot``.
+    prefill writes into ``[1, ...]`` views of its row.  The page accounting
+    (``pages_needed``, ``free_pages``, ``fits_ever``, ``live_blocks``,
+    ``block_tables``) belongs to the paged layout only.
 """
 
 from __future__ import annotations
@@ -73,20 +75,14 @@ class KVCache:
     # ------------------------------------------------------------------ #
     def pages_needed(self, total_tokens: int) -> int:
         """Pages for a request touching ``total_tokens`` positions (ring
-        semantics cap it at one full buffer); none for a slot row."""
-        if self.layout != "paged":
-            return 0
+        semantics cap it at one full buffer)."""
         return -(-min(total_tokens, self.s_buf) // self.page_size)
 
     def free_pages(self) -> int:
-        if self.layout != "paged":
-            return 1 << 30
         return len(self._free)
 
     def fits_ever(self, total_tokens: int) -> bool:
         """Could this request ever be admitted (even on an empty pool)?"""
-        if self.layout != "paged":
-            return True
         return self.pages_needed(total_tokens) <= self.num_pages - 1
 
     def live_blocks(self, slot_pos) -> int:
@@ -105,7 +101,7 @@ class KVCache:
     # ------------------------------------------------------------------ #
     # Slot lifecycle
     # ------------------------------------------------------------------ #
-    def allocate(self, slot: int, total_tokens: int) -> bool:
+    def allocate(self, slot: int, total_tokens: int = 0) -> bool:
         """Reserve pages covering positions [0, total_tokens); False (pool
         untouched) if the pool cannot.  A contiguous slot row is always
         free for its whole lifetime: its positions are cleared."""
@@ -162,12 +158,9 @@ class KVCache:
         """The physical pages backing ``slot``, in block order."""
         return self._owned[slot]
 
-    def block_tables(self) -> Optional[torch.Tensor]:
-        """Device block-table array (None for the contiguous layout),
-        cached between allocations so steady-state decode steps pay no
-        host-to-device copy."""
-        if self.layout != "paged":
-            return None
+    def block_tables(self) -> torch.Tensor:
+        """Device block-table array, cached between allocations so
+        steady-state decode steps pay no host-to-device copy."""
         if self._table_dev is None:
             self._table_dev = torch.from_numpy(self.table.copy()).to(
                 self.device)
@@ -183,11 +176,3 @@ class KVCache:
         """pos = -1 on a slot row (the k / v bytes are masked by it)."""
         for layer in self.caches:
             layer["pos"][slot] = -1
-
-    def scatter_slot(self, one_cache, slot: int) -> None:
-        """Copy a 1-row contiguous cache (a whole-prompt prefill) into row
-        ``slot``."""
-        assert self.layout == "contiguous", "scatter is a contiguous-only path"
-        for full, one in zip(self.caches, one_cache):
-            for name, t in full.items():
-                t[slot:slot + 1].copy_(one[name])

@@ -113,9 +113,9 @@ class ModelRunner:
 
     def whole_prefill(self, tokens, positions, caches, *,
                       plan: str = BASE_PLAN):
-        """One request's whole prompt ``[1, L]`` into a fresh 1-row
-        contiguous cache -> (logits [1,V], caches); the caller scatters the
-        cache into the request's slot."""
+        """One request's whole prompt ``[1, L]`` into a 1-row contiguous
+        cache -- the engine passes views of the request's slot row, written
+        in place -> (logits [1,V], caches)."""
         return models.prefill_fn(
             self.params, self.plans[plan],
             {"tokens": tokens, "positions": positions}, caches,

@@ -17,8 +17,11 @@ with the JAX reference.
 
 Tolerance: f32, ``rtol=atol=2e-5`` (same math, another summation order).
 The card-only tests hold each CUDA kernel against its plain version in
-bf16, within 2e-2 of the largest output (f32 sums in another order, bf16
-probabilities in the P V product, bf16 output).
+bf16, row by row: each output row (one query head's hd values) within
+1e-2 of its own norm (f32 sums in another order, bf16 probabilities in
+the P V product, bf16 output).  A row over n keys has norm ~ 1/sqrt(n) of
+one over a single key, so a bound on the largest output would miss a
+long row that sees one key too many or too few.
 """
 
 import numpy as np
@@ -27,7 +30,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-BF16_TOL = 2e-2
+ROW_TOL = 1e-2
 
 
 def _qkv(rng, b, hq, hkv, s, hd):
@@ -171,13 +174,12 @@ cuda = pytest.mark.skipif(not torch.cuda.is_available(),
                           reason="the CUDA kernels run only on a GPU")
 
 
-def _close(got, want, live=None):
+def _close(got, want):
     got, want = got.float(), want.float()
-    if live is not None:
-        got, want = got[live], want[live]
-    err = (got - want).abs().max().item()
     assert torch.isfinite(got).all()
-    assert err <= BF16_TOL * want.abs().max().item(), err
+    err = (got - want).norm(dim=-1)
+    ref = want.norm(dim=-1)
+    assert (err <= ROW_TOL * ref).all(), (err / ref).max().item()
 
 
 @cuda
@@ -197,6 +199,20 @@ def test_flash_attention_kernel_matches_plain_on_card(b, hq, hkv, s, hd,
     _close(flash_attention(q, k, v, window=window),
            flash_attention_plain(q, k, v, window=window))
     assert flash_attention.launches == before + 1
+
+
+@cuda
+def test_flash_attention_kernel_reads_strided_views_on_card():
+    """The model passes [B, S, H, hd] activations as transposed views; the
+    output comes back in q's layout."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    q, k, v = (torch.from_numpy(a).cuda().bfloat16().transpose(1, 2)
+               .contiguous().transpose(1, 2) for a in
+               _qkv(np.random.default_rng(3), 2, 16, 4, 130, 128))
+    got = flash_attention(q, k, v, window=50)
+    assert got.stride() == q.stride()
+    _close(got, flash_attention_plain(q, k, v, window=50))
 
 
 @cuda

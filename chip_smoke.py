@@ -10,7 +10,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 2. kernels -- hold each kernel against its plain PyTorch version in bf16 at
               the shapes the main paths give it (``flash_attention`` and
               ``flash_decode`` also at one GQA shape with a sliding window;
-              the attention kernels row by row, to ROW_TOL),
+              the attention kernels and the quantized expert kernels, in
+              int8 and int4, row by row, to ROW_TOL),
               and time both with CUDA events (per-call medians of device
               time, L2 flushed before every call, kernel, plain and -- where
               one PyTorch call computes the same function -- that call
@@ -31,11 +32,17 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               the contiguous layout with whole-prompt prefill
               (``flash_attention``, ``moe_gmm``) and decode
               (``flash_decode``, ``moe_decode``).
+6. serve_quant -- the same 8 requests on the paged pool with the routed
+              experts quantized at load, ``Engine(expert_dtype="int8")``
+              and then ``"int4"``, baseline and LExI plan each: every step
+              must launch ``moe_gmm_quant``, ``moe_decode_quant`` and
+              ``flash_decode_paged``, and neither bf16 expert kernel.
 
 Every kernel's launch counter is zeroed just before and read just after
-each step of phases 3-5; each step must launch the kernels it runs.  A
+each step of phases 3-6; each step must launch the kernels it runs.  A
 small reference check holds the kernel paths' logits against the plain
-paths' on the same inputs, row by row.  Then it prints the ``kernels`` summary
+paths' on the same inputs, row by row, with bf16 experts and with int8
+and int4 experts.  Then it prints the ``kernels`` summary
 line (launches summed over every step), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device it exits 1 and prints no result.
@@ -49,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -62,7 +70,8 @@ BF16_FLOPS = 989e12
 #: both accumulate in f32 in different orders and round the output to bf16
 #: (relative step 2^-8), and moe_gmm also rounds its hidden to bf16
 TOL = 2e-2
-#: an attention kernel passes when every output row (one query head's hd
+#: an attention kernel, or a quantized expert kernel, passes when every
+#: output row (one query head's hd
 #: values) has ||kernel - plain|| <= ROW_TOL * ||plain||.  Rows differ in
 #: scale by the number of keys they see (a row over n random keys has
 #: norm ~ 1/sqrt(n) of one over a single key), so a bound on the largest
@@ -215,6 +224,108 @@ def check_moe_decode(layer, cfg, x, flush):
     nbytes = experts * 3 * d * f * 2 + 2 * b * d * 2 + b * k * 8
     flops = b * k * 6 * d * f
     return max(e for e, _, _ in out.values()), ms, plain_ms, nbytes, flops
+
+
+def _quant_bytes(experts, d, f, dtype):
+    """Bytes of ``experts`` quantized experts: int8 (int4: two a byte)
+    weights plus their f32 scale rows (s1 [2, F], s2 [F])."""
+    per = 3 * d * f if dtype == "int8" else 3 * d * f // 2
+    return experts * (per + 3 * f * 4)
+
+
+def varied_experts(layer, seed: int = 6):
+    """``layer`` with its experts' channels scaled apart (w1 per column, w2
+    per f-row, by factors e^N(0, 1/4)), so that their quantization scales
+    differ.  ``dense_init`` clamps every weight at two standard deviations,
+    so each channel's absmax is the clamp and all scales of the model's
+    own layers come out equal: a scale row read for the wrong channel, or
+    s2 applied at the wrong place, would not show on them."""
+    w1, w2 = layer["w1"], layer["w2"]
+    g = torch.Generator(device=w1.device)
+    g.manual_seed(seed)
+    e, _, twof = w1.shape
+    f = w2.shape[1]
+    c1 = torch.exp(0.5 * torch.randn((e, 1, twof), generator=g,
+                                     device=w1.device))
+    c2 = torch.exp(0.5 * torch.randn((e, f, 1), generator=g,
+                                     device=w1.device))
+    return dict(layer, w1=(w1.float() * c1).to(w1.dtype),
+                w2=(w2.float() * c2).to(w2.dtype))
+
+
+def check_moe_gmm_quant(layer, cfg, x, flush):
+    """B6 in int8 and int4 on layer 0's experts (channels scaled apart,
+    ``varied_experts``) quantized on the card, at the prefill shape (512
+    tokens x top-k); returns a kernels-line row's numbers per dtype."""
+    from repro_torch.kernels import moe_gmm_quant
+    from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
+    from repro_torch.models.moe import QUANT_DTYPES, default_block_m, \
+        make_sort_plan, quantize_moe_layer, route, sort_dispatch
+    k = cfg.moe_top_k
+    _, idx, _ = route(layer, cfg, x, k)
+    plan = make_sort_plan(idx, cfg.num_experts,
+                          default_block_m(x.shape[0] * k, floor=8))
+    xs = sort_dispatch(x, plan, k)
+    live = plan.tile_expert[plan.tile_valid.bool()]
+    experts = int(torch.unique(live).numel())
+    d, f = cfg.d_model, cfg.moe_d_ff
+    rows = x.shape[0] * k
+    varied = varied_experts(layer)
+    out = {}
+    for dt in QUANT_DTYPES:
+        q = quantize_moe_layer(varied, dt)
+        args = (xs, q["w1"], q["w2"], q["w1_scale"], q["w2_scale"],
+                plan.tile_expert, plan.tile_valid)
+        err = compare_rows(f"moe_gmm_quant_{dt}",
+                           moe_gmm_quant(*args, dtype=dt,
+                                         block_m=plan.block_m),
+                           moe_gmm_quant_plain(*args, plan.block_m, dtype=dt),
+                           tokens=x.shape[0], k=k, block_m=plan.block_m,
+                           tiles=len(plan.tile_valid), experts=experts)
+        ms, plain_ms = time_calls(
+            (lambda: moe_gmm_quant(*args, dtype=dt, block_m=plan.block_m),
+             lambda: moe_gmm_quant_plain(*args, plan.block_m, dtype=dt)),
+            flush)
+        nbytes = (2 * rows * d * 2 + _quant_bytes(experts, d, f, dt)
+                  + 2 * 4 * len(plan.tile_valid))
+        out[dt] = (err, ms, plain_ms, nbytes, rows * 6 * d * f)
+        del q, args
+    return out
+
+
+def check_moe_decode_quant(layer, cfg, x, flush):
+    """B5 in int8 and int4 at the decode shape (8 tokens, top-k) on the
+    same varied experts, one router weight set to zero (route()'s k_budget
+    relies on a zero-weight slot adding exactly nothing)."""
+    from repro_torch.kernels import moe_decode_quant
+    from repro_torch.kernels.moe_decode import moe_decode_quant_plain
+    from repro_torch.models.moe import QUANT_DTYPES, quantize_moe_layer, \
+        route
+    k = cfg.moe_top_k
+    weights, idx, _ = route(layer, cfg, x, k)
+    weights = weights.clone()
+    weights[0, -1] = 0.0
+    experts = int(torch.unique(idx).numel())
+    d, f = cfg.d_model, cfg.moe_d_ff
+    b = x.shape[0]
+    varied = varied_experts(layer)
+    out = {}
+    for dt in QUANT_DTYPES:
+        q = quantize_moe_layer(varied, dt)
+        args = (x, q["w1"], q["w2"], q["w1_scale"], q["w2_scale"], idx,
+                weights)
+        err = compare_rows(f"moe_decode_quant_{dt}",
+                           moe_decode_quant(*args, dtype=dt),
+                           moe_decode_quant_plain(*args, dtype=dt),
+                           batch=b, k=k, experts=experts)
+        ms, plain_ms = time_calls(
+            (lambda: moe_decode_quant(*args, dtype=dt),
+             lambda: moe_decode_quant_plain(*args, dtype=dt)), flush)
+        nbytes = (_quant_bytes(experts, d, f, dt) + 2 * b * d * 2
+                  + b * k * 8)
+        out[dt] = (err, ms, plain_ms, nbytes, b * k * 6 * d * f)
+        del q, args
+    return out
 
 
 def check_flash_decode_paged(cfg, flush, device):
@@ -372,6 +483,21 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
             "library_ms": library_ms}
 
 
+def quant_row(name, source, replaces, per_dtype):
+    """A quantized kernel's row: the int8 numbers at the top level (the
+    row's keys), each dtype's under ``dtypes``; ``max_abs_err`` is the
+    larger of the two; no single PyTorch call computes dequant plus the
+    grouped SwiGLU, so ``library_ms`` is null."""
+    rows = {dt: kernel_row(name, source, replaces, *v)
+            for dt, v in per_dtype.items()}
+    row = dict(rows["int8"])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    row["dtypes"] = {dt: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                            "bound_ms", "bound_by")}
+                     for dt, r in rows.items()}
+    return row
+
+
 # --------------------------------------------------------------------------- #
 # phase 3: serving
 # --------------------------------------------------------------------------- #
@@ -420,8 +546,17 @@ def reference_check(params, cfg, device):
     whose 8th and 9th expert scores nearly tie gets another top-8 set: in a
     chip run 6 of the 128 tokens did, and exactly those rows were off (by
     0.18-0.31; every other row within 0.0096).  At full depth 16 layers
-    amplify such flips into unrelated logits (cosine 0.84)."""
+    amplify such flips into unrelated logits (cosine 0.84).
+
+    The paged check runs again with the layer's experts quantized to int8
+    and to int4 (``moe_gmm_quant`` in the chunk, ``moe_decode_quant`` in
+    the decode step, against their plain versions), gated the same way;
+    the layer's experts are first scaled apart per channel
+    (``varied_experts``); each quantized model's error against the bf16
+    model's logits (on the same scaled weights) is printed, not gated: on
+    random weights it is a sanity reading, not a quality claim."""
     from repro_torch import models
+    from repro_torch.models.moe import QUANT_DTYPES, quantize_expert_params
     cfg = cfg.with_(num_layers=1)
     params = dict(params, layers=params["layers"][:1])
     gen = torch.Generator(device="cpu")
@@ -435,13 +570,13 @@ def reference_check(params, cfg, device):
                                         ("positions", positions), ("bt", bt))}
     pos_c = torch.full((b,), c, dtype=torch.int32, device=device)
 
-    def paged(opts):
+    def paged(opts, prm=params):
         caches = models.init_caches(cfg, page_size=p, num_pages=b * 8 + 1,
                                     device=device)
         lg1, caches = models.chunk_prefill_fn(
-            params, cfg, dev["tokens"], dev["positions"], caches,
+            prm, cfg, dev["tokens"], dev["positions"], caches,
             block_tables=dev["bt"], opts=opts)
-        lg2, _ = models.decode_fn(params, cfg, dev["nxt"], pos_c, caches,
+        lg2, _ = models.decode_fn(prm, cfg, dev["nxt"], pos_c, caches,
                                   block_tables=dev["bt"], opts=opts,
                                   kernel_blocks=8)
         return lg1.float(), lg2.float()
@@ -464,8 +599,20 @@ def reference_check(params, cfg, device):
             use_flash=True, use_flash_decode=True, use_moe_kernel=True,
             use_moe_decode_kernel=True)),
     }
+    # the quantized checks run on the layer's experts scaled apart per
+    # channel (varied_experts), so that their scales differ
+    layer0 = params["layers"][0]
+    vp = dict(params, layers=[dict(layer0,
+                                   moe=varied_experts(layer0["moe"]))])
+    bf16_plain = paged(plain, vp)
+    for dt in QUANT_DTYPES:
+        qp = quantize_expert_params(vp, cfg, dt)
+        paths[f"reference_logits_{dt}"] = (
+            lambda opts, qp=qp: paged(opts, qp),
+            replace(paths["reference_logits"][1], expert_dtype=dt))
     for check, (run, kern) in paths.items():
-        got_all, want_all = run(kern), run(plain)
+        got_all = run(kern)
+        want_all = run(replace(plain, expert_dtype=kern.expert_dtype))
         rec = {"check": check, "tol": LOGITS_TOL}
         for i, step in enumerate(("prefill", "decode")):
             got, want = got_all[i], want_all[i]
@@ -473,6 +620,9 @@ def reference_check(params, cfg, device):
             rec[f"{step}_max_abs_diff"] = (got - want).abs().max().item()
             rec[f"{step}_argmax_equal"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
             rec[f"{step}_finite"] = bool(torch.isfinite(got).all())
+            if kern.expert_dtype != "bf16":     # printed, not gated
+                rec[f"{step}_vs_bf16_max_row_rel_err"] = row_rel_err(
+                    want, bf16_plain[i]).max().item()
         emit(rec)
         if not all(rec[f"{s}_finite"]
                    and rec[f"{s}_max_row_rel_err"] <= LOGITS_TOL
@@ -582,12 +732,21 @@ def main() -> int:
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
             "src/repro/kernels/flash_decode.py:73",
             *check_flash_decode(cfg, flush, device)),
+        "moe_gmm_quant": quant_row(
+            "moe_gmm_quant", "src/repro_torch/csrc/moe_gmm_quant.cu",
+            "src/repro/kernels/moe_gmm.py:190",
+            check_moe_gmm_quant(layer, cfg, x512, flush)),
+        "moe_decode_quant": quant_row(
+            "moe_decode_quant", "src/repro_torch/csrc/moe_decode_quant.cu",
+            "src/repro/kernels/moe_decode.py:257",
+            check_moe_decode_quant(layer, cfg, x512[:8].contiguous(), flush)),
     }
     del flush
     emit({"phase": "kernels", "ok": True,
           "timing": {n: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"],
-                         "library_ms": r["library_ms"]}
+                         "library_ms": r["library_ms"],
+                         **({"dtypes": r["dtypes"]} if "dtypes" in r else {})}
                      for n, r in rows.items()}})
 
     # ---- phase 3: serve baseline, search a plan, serve the plan ---------
@@ -658,6 +817,47 @@ def main() -> int:
             "prefill_tokens", "decode_tokens", "steps", "wall_s")}
         rec.setdefault("launches", {})[tag] = counts
     emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: quantized experts on the paged pool -------------------
+    from repro_torch.models.moe import QUANT_DTYPES
+    quant_kernels = ("moe_gmm_quant", "moe_decode_quant",
+                     "flash_decode_paged")
+    for dt in QUANT_DTYPES:
+        eng = Engine(cfg, params, max_batch=8, max_len=512, prefill_chunk=64,
+                     use_kernel=True, use_moe_decode=True, expert_dtype=dt,
+                     opts=models.ModelOpts(use_moe_kernel=True),
+                     device=device)
+        eng.serve(requests(cfg, seed=0, n=2, max_new=4))  # warm-up wave
+        eng.add_plan("lexi", plan)
+        moe = [lp["moe"] for lp in eng.runner.params["layers"]]
+        rec = {"phase": "serve_quant", "expert_dtype": dt,
+               "expert_gb": sum(m[w].numel() * m[w].element_size()
+                                for m in moe for w in ("w1", "w2")) / 1e9,
+               "scale_mb": sum(m[w].numel() * m[w].element_size()
+                               for m in moe
+                               for w in ("w1_scale", "w2_scale")) / 1e6,
+               "bf16_expert_gb": sum(
+                   lp["moe"][w].numel() * lp["moe"][w].element_size()
+                   for lp in params["layers"] for w in ("w1", "w2")) / 1e9}
+        for tag, plan_name in (("baseline", None), ("lexi", "lexi")):
+            res, counts = counted(
+                lambda: eng.serve(requests(cfg, seed=0), plan=plan_name))
+            check_results(f"{dt} {tag}", res, cfg, max_new)
+            for n in ("moe_gmm", "moe_decode"):      # no bf16 expert path
+                if counts[n]:
+                    raise AssertionError(f"{dt} {tag}: the bf16 kernel {n} "
+                                         f"ran {counts[n]} times")
+            need[f"{dt}_{tag}"] = (counts, quant_kernels)
+            rec[f"{tag}_tok_s"] = eng.throughput()
+            rec[f"{tag}_stats"] = {k: eng.stats[k] for k in (
+                "prefill_tokens", "decode_tokens", "steps", "preemptions",
+                "wall_s")}
+            rec.setdefault("launches", {})[tag] = counts
+        emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+        del eng, moe
+        torch.cuda.empty_cache()
 
     for step, (counts, names) in need.items():
         for n in names:

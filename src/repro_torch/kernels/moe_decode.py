@@ -4,6 +4,12 @@ Kernel: ``csrc/moe_decode.cu`` (replaces ``repro/kernels/moe_decode.py::
 moe_decode_pallas``).  x [B, D], w1 [E, D, 2F], w2 [E, F, D], idx [B, k]
 int32, weights [B, k] f32 -> y [B, D]: y[b] = sum_j weights[b, j] *
 SwiGLU(x[b]; expert idx[b, j]) in f32, only the routed experts read.
+
+Quantized experts: ``csrc/moe_decode_quant.cu`` (replaces ``moe_decode_
+quant_pallas``) computes the same on int8 w1q / w2q (int4: two values a
+byte, blocked halves along D; ``models/moe/params.py``) with f32 scales
+s1 [E, 2, F] applied after the first product and s2 [E, F] folded into
+the hidden before the second.
 """
 
 from __future__ import annotations
@@ -12,7 +18,8 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import expect, on_card
+from repro_torch.kernels._checks import expect, expect_quant, on_card
+from repro_torch.models.moe.params import QUANT_DTYPES, unpack_int4
 
 
 def moe_decode_plain(x, w1, w2, idx, weights):
@@ -53,3 +60,49 @@ def moe_decode(x, w1, w2, idx, weights):
 
 
 moe_decode.launches = 0
+
+
+def moe_decode_quant_plain(x, w1q, w2q, s1, s2, idx, weights, *, dtype: str):
+    """The quantized kernel's function in plain PyTorch (the reference's
+    ``moe_decode_routed_quant_jnp``): gather the routed experts' int8
+    weights and scale rows, dequantize where the kernel does -- s1 after
+    the first product, s2 folded into ``h`` -- and contract in f32."""
+    b = x.shape[0]
+    f = w2q.shape[1]
+    ix = idx.long()
+    w1g, w2g = w1q[ix], w2q[ix]             # [B, k, D(p), 2F], [B, k, F, D(p)]
+    if dtype == "int4":
+        w1g, w2g = unpack_int4(w1g, 2), unpack_int4(w2g, 3)
+    hg = torch.einsum("bd,bkdf->bkf", x.float(), w1g.float())
+    hg = hg.reshape(b, -1, 2, f) * s1[ix]                     # [B, k, 2, F]
+    h = F_.silu(hg[:, :, 0]) * hg[:, :, 1] * s2[ix]           # [B, k, F]
+    y = torch.einsum("bkf,bkfd,bk->bd", h, w2g.float(), weights.float())
+    return y.to(x.dtype)
+
+
+def moe_decode_quant(x, w1q, w2q, s1, s2, idx, weights, *, dtype: str):
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    if dtype not in QUANT_DTYPES:
+        raise ValueError(f"moe_decode_quant: expert dtype {dtype!r} not in "
+                         f"{QUANT_DTYPES}")
+    args = (x, w1q, w2q, s1, s2, idx, weights)
+    if not on_card("moe_decode_quant", *args):
+        return moe_decode_quant_plain(*args, dtype=dtype)
+    b, d = x.shape
+    f = w2q.shape[1]
+    k = idx.shape[1]
+    expect_quant("moe_decode_quant", x, w1q, w2q, s1, s2, dtype)
+    expect("moe_decode_quant", idx, "idx", torch.int32, (b, k))
+    expect("moe_decode_quant", weights, "weights", torch.float32, (b, k))
+    h = torch.empty((b, k, f), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, d), dtype=torch.bfloat16, device=x.device)
+    fn = _build.function("moe_decode_quant", "moe_decode_quant_launch", 9, 5)
+    err = fn(*(t.data_ptr() for t in args), h.data_ptr(), y.data_ptr(),
+             b, d, f, k, int(dtype == "int4"),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("moe_decode_quant", err)
+    moe_decode_quant.launches += 1
+    return y
+
+
+moe_decode_quant.launches = 0

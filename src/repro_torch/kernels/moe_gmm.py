@@ -5,6 +5,12 @@ moe_gmm_pallas``).  xs [M, D] (M = n_tiles * block_m) sorted by expert,
 w1 [E, D, 2F] (gate = first F columns, up = next F), w2 [E, F, D],
 tile_expert / tile_valid [n_tiles] int32 -> [M, D]; tiles with
 ``tile_valid == 0`` come out zero.
+
+Quantized experts: ``csrc/moe_gmm_quant.cu`` (replaces ``moe_gmm_quant_
+pallas``) computes the same on int8 w1q / w2q (int4: two values a byte,
+blocked halves along D; ``models/moe/params.py``) with f32 scales s1
+[E, 2, F] applied after the first product and s2 [E, F] folded into the
+hidden before the second.
 """
 
 from __future__ import annotations
@@ -13,7 +19,8 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import expect, on_card
+from repro_torch.kernels._checks import expect, expect_quant, on_card
+from repro_torch.models.moe.params import QUANT_DTYPES, unpack_int4
 
 
 def moe_gmm_plain(xs, w1, w2, tile_expert, tile_valid, block_m: int):
@@ -62,3 +69,60 @@ def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
 
 
 moe_gmm.launches = 0
+
+
+def moe_gmm_quant_plain(xs, w1q, w2q, s1, s2, tile_expert, tile_valid,
+                        block_m: int, *, dtype: str):
+    """The quantized kernel's function in plain PyTorch: per-tile gathered
+    int8 weights and scale rows, int4 unpacked, f32 products on the integer
+    values; s1 after the first product, s2 folded into ``h``, which is
+    rounded to the input dtype before the down product (as the kernel
+    does); dead tiles zeroed."""
+    m, d = xs.shape
+    f = w2q.shape[1]
+    te = tile_expert.long()
+    w1g, w2g = w1q[te], w2q[te]       # [tiles, D(p), 2F], [tiles, F, D(p)]
+    if dtype == "int4":
+        w1g, w2g = unpack_int4(w1g, 1), unpack_int4(w2g, 2)
+    xt = xs.reshape(-1, block_m, d).float()
+    hg = torch.bmm(xt, w1g.float()).reshape(-1, block_m, 2, f) \
+        * s1[te][:, None]
+    h = F_.silu(hg[:, :, 0]) * hg[:, :, 1] * s2[te][:, None]
+    h = h.to(xs.dtype).float()
+    yt = torch.bmm(h, w2g.float())
+    yt = torch.where(tile_valid.bool()[:, None, None], yt, 0.0)
+    return yt.reshape(m, d).to(xs.dtype)
+
+
+def moe_gmm_quant(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, *,
+                  dtype: str, block_m: int):
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    if dtype not in QUANT_DTYPES:
+        raise ValueError(f"moe_gmm_quant: expert dtype {dtype!r} not in "
+                         f"{QUANT_DTYPES}")
+    args = (xs, w1q, w2q, s1, s2, tile_expert, tile_valid)
+    if not on_card("moe_gmm_quant", *args):
+        return moe_gmm_quant_plain(*args, block_m, dtype=dtype)
+    m, d = xs.shape
+    f = w2q.shape[1]
+    expect_quant("moe_gmm_quant", xs, w1q, w2q, s1, s2, dtype)
+    if block_m % 8 or not 8 <= block_m <= 128 or m % block_m:
+        raise ValueError(f"moe_gmm_quant: block_m={block_m} must be a "
+                         f"multiple of 8 in [8, 128] dividing M={m}")
+    n_tiles = m // block_m
+    expect("moe_gmm_quant", tile_expert, "tile_expert", torch.int32,
+           (n_tiles,))
+    expect("moe_gmm_quant", tile_valid, "tile_valid", torch.int32,
+           (n_tiles,))
+    h = torch.empty((m, f), dtype=torch.bfloat16, device=xs.device)
+    out = torch.empty((m, d), dtype=torch.bfloat16, device=xs.device)
+    fn = _build.function("moe_gmm_quant", "moe_gmm_quant_launch", 9, 5)
+    err = fn(*(t.data_ptr() for t in args), h.data_ptr(), out.data_ptr(),
+             m, d, f, block_m, int(dtype == "int4"),
+             torch.cuda.current_stream(xs.device).cuda_stream)
+    _build.check("moe_gmm_quant", err)
+    moe_gmm_quant.launches += 1
+    return out
+
+
+moe_gmm_quant.launches = 0

@@ -11,6 +11,13 @@ plan searched (or loaded) for the model -- on the card by default.
         --reduced --device cpu --requests 4 --max-new 8 --max-len 96 \
         --lexi-budget-frac 0.5
 
+    # int8 experts, quantized at load (moe_gmm_quant in prefill,
+    # moe_decode_quant in decode; --expert-dtype int4 packs two a byte)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --reduced --device cpu --requests 4 --max-new 8 --max-len 96 \
+        --lexi-budget-frac 0.5 --use-kernel --use-moe-decode \
+        --use-moe-kernel --expert-dtype int8
+
     # the contiguous layout with whole-prompt prefill (flash_attention in
     # prefill, flash_decode in decode)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
@@ -126,6 +133,11 @@ def main(argv=None) -> int:
                          "routed-expert path instead of the gmm dispatch")
     ap.add_argument("--use-moe-kernel", action="store_true",
                     help="expert FFNs run the moe_gmm / moe_decode kernels")
+    ap.add_argument("--expert-dtype", choices=["bf16", "int8", "int4"],
+                    default="bf16",
+                    help="storage dtype for routed expert tiles; int8/int4 "
+                         "quantize at load and dequantize in-kernel "
+                         "(moe_gmm_quant / moe_decode_quant)")
     ap.add_argument("--use-flash", action="store_true",
                     help="whole-prompt prefill attention through the "
                          "flash_attention kernel")
@@ -161,11 +173,11 @@ def main(argv=None) -> int:
                  cache_layout=args.cache_layout, num_pages=args.num_pages,
                  use_kernel=args.use_kernel or None,
                  use_moe_decode=args.use_moe_decode or None,
-                 opts=opts, seed=args.seed,
+                 expert_dtype=args.expert_dtype, opts=opts, seed=args.seed,
                  device=args.device)
     print(f"arch={cfg.name} baseline top-k={cfg.moe_top_k or 'n/a'} "
           f"device={eng.device} layout={eng.kv.layout} "
-          f"chunk={eng.prefill_chunk}")
+          f"chunk={eng.prefill_chunk} experts={args.expert_dtype}")
     if args.profile:                    # first calls build and warm up
         eng.serve(synth_requests(2, cfg.vocab_size, **dict(req_kw,
                                                             max_new=2)))

@@ -93,7 +93,8 @@ def apply_block(
             params["moe"], cfg, h2, spec.moe_top_k,
             impl=opts.moe_impl or cfg.moe_impl,
             use_kernel=opts.use_moe_kernel,
-            decode_kernel=opts.use_moe_decode_kernel and mode == "decode")
+            decode_kernel=opts.use_moe_decode_kernel and mode == "decode",
+            expert_dtype=opts.expert_dtype)
         x = x + y
     else:
         x = x + mlp(params["mlp"], h2)

@@ -9,7 +9,10 @@ The port serves the two production inference impls of the reference:
               ``resolve_impl``.
 
 ``dense`` (the capacity-buffer oracle) and the expert-parallel impls
-``ep_a2a`` / ``ep_psum`` are not ported yet and raise.
+``ep_a2a`` / ``ep_psum`` are not ported yet and raise.  Quantized expert
+tiles (``expert_dtype`` in ``params.QUANT_DTYPES``) are served by ``gmm``
+and ``decode`` only: any other impl raises rather than read int8 tiles as
+weights.
 """
 
 from __future__ import annotations
@@ -31,6 +34,13 @@ _NOT_PORTED = {
 }
 
 
+def _require_bf16(impl: str, expert_dtype: str):
+    if expert_dtype != "bf16":
+        raise ValueError(
+            f"moe impl {impl!r} serves bf16 expert weights only; "
+            f"expert_dtype={expert_dtype!r} requires 'gmm' or 'decode'")
+
+
 def resolve_impl(impl: str, n_tokens: int, decode_kernel: bool = False) -> str:
     """Apply the decode-regime auto-switch: only ``gmm`` reroutes (both
     paths are exactly dropless)."""
@@ -45,20 +55,23 @@ _IMPLS: Dict[str, Callable] = {"gmm": moe_gmm, "decode": moe_decode}
 
 def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
         impl: Optional[str] = None, use_kernel: bool = False,
-        decode_kernel: bool = False):
+        decode_kernel: bool = False, expert_dtype: str = "bf16"):
     """x [B, S, D] -> (y [B, S, D], aux_loss scalar).
 
     ``impl`` overrides ``cfg.moe_impl``; ``decode_kernel=True`` opts
     decode-shaped gmm calls into the fused routed-expert path.
+    ``expert_dtype`` != "bf16" expects params quantized at load
+    (``quantize_expert_params``) and is served by gmm/decode only.
     """
     b, s, d = x.shape
     impl = resolve_impl(impl or cfg.moe_impl, b * s, decode_kernel)
     if impl in _NOT_PORTED:
+        _require_bf16(impl, expert_dtype)
         raise NotImplementedError(
             f"moe impl {impl!r} is not ported yet: {_NOT_PORTED[impl]}; "
             "serve with moe_impl='gmm'")
     if impl not in _IMPLS:
         raise ValueError(f"unknown moe impl {impl!r}; have {sorted(_IMPLS)}")
     y2d, aux = _IMPLS[impl](params, cfg, x.reshape(b * s, d), top_k,
-                            use_kernel)
+                            use_kernel, expert_dtype=expert_dtype)
     return y2d.reshape(b, s, d), aux

@@ -32,6 +32,10 @@ class ModelOpts:
     #: decode-shaped batches (T <= registry.DECODE_TOKEN_THRESHOLD)
     #: through the fused routed-expert path (models/moe/decode.py)
     use_moe_decode_kernel: bool = False
+    #: routed expert storage: "bf16" (native: whatever the params store)
+    #: or "int8" / "int4", quantized at load (Engine(expert_dtype=)) and
+    #: dequantized in the moe_gmm_quant / moe_decode_quant kernels
+    expert_dtype: str = "bf16"
     #: attention score math: "f32" casts K/V to f32; "bf16_accum32" keeps
     #: the storage dtype for the products
     attn_compute_dtype: str = "f32"

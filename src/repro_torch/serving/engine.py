@@ -30,8 +30,14 @@ them for a closed-loop workload.  ``serve(reqs, plan=name)`` after
 serves one plan.  Not ported yet (ROADMAP.md A8): mixed-plan steps, the
 prefix cache, the plan-degradation ladder, the other admission policies,
 whole-lifetime reservation on the paged pool, chunked prefill on the
-contiguous layout, the sjf scheduler policy, quantized experts, router
-lookahead and open-loop arrival times.
+contiguous layout, the sjf scheduler policy, router lookahead and
+open-loop arrival times.
+
+``Engine(expert_dtype="int8" | "int4")`` quantizes the routed experts at
+load (``quantize_expert_params``) and serves them through the
+``moe_gmm_quant`` / ``moe_decode_quant`` kernels; plans registered with
+``add_plan`` change only the per-layer k and serve from the same
+quantized weights.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ class Engine:
                  page_size: int = 16, num_pages: Optional[int] = None,
                  use_kernel: Optional[bool] = None,
                  use_moe_decode: Optional[bool] = None,
+                 expert_dtype: Optional[str] = None,
                  eos_id: Optional[int] = None, opts: ModelOpts = DEFAULT_OPTS,
                  clock: Optional[Clock] = None, seed: int = 0, device=None):
         self.device = resolve_device(device)
@@ -111,8 +118,26 @@ class Engine:
         self.use_moe_decode = (opts.use_moe_decode_kernel
                                if use_moe_decode is None
                                else bool(use_moe_decode))
+        # quantized expert tiles: quantize at load, so the engine never
+        # holds both weight copies (every non-expert tensor is shared with
+        # the caller's params)
+        from repro_torch.models.moe import QUANT_DTYPES, \
+            quantize_expert_params
+        ed = opts.expert_dtype if expert_dtype is None else expert_dtype
+        if ed not in ("bf16",) + QUANT_DTYPES:
+            raise ValueError(f"expert_dtype={ed!r}; want 'bf16' or one of "
+                             f"{QUANT_DTYPES}")
+        if ed != "bf16":
+            impl = opts.moe_impl or cfg.moe_impl
+            if not cfg.is_moe or impl not in ("gmm", "decode"):
+                raise ValueError(
+                    f"expert_dtype={ed!r} is served by the gmm/decode MoE "
+                    f"impls only (cfg {cfg.name!r} resolves to {impl!r})")
+            params = quantize_expert_params(params, cfg, ed)
+        self.expert_dtype = ed
         opts = replace(opts, use_paged_kernel=self.use_kernel,
-                       use_moe_decode_kernel=self.use_moe_decode)
+                       use_moe_decode_kernel=self.use_moe_decode,
+                       expert_dtype=ed)
         self.runner = ModelRunner(cfg, params, opts=opts)
         self.plan_name = BASE_PLAN
         self.kv = KVCache(self.cfg, max_batch, max_len, layout=cache_layout,

@@ -1,0 +1,356 @@
+"""Parity of the PyTorch port's quantized experts with the JAX reference
+(CPU): the int8 / int4 storage format (bit-equal quantization), the plain
+versions of the ``moe_gmm_quant`` and ``moe_decode_quant`` kernels against
+the Pallas kernels in interpret mode, the reference's jnp paths and its
+numpy oracle, and the MoE layer under ``gmm`` and ``decode`` with
+``expert_dtype``.  The CUDA kernels themselves are held against their
+plain versions by the card-only tests at the end (and by
+``chip_smoke.py``).
+
+Inputs are drawn with numpy from a seed.  Quantized bytes and scales are
+equal, not close.  Outputs are f32 and agree to ``TOL`` (as in
+``test_torch_moe.py``): products over the same integer values and scales,
+summed in another order.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+DTYPES = ("int8", "int4")
+
+
+def _w(seed, lead, e, d, f, scale=0.1):
+    rng = np.random.default_rng(seed)
+    w1 = (rng.normal(size=(*lead, e, d, 2 * f)) * scale).astype(np.float32)
+    w2 = (rng.normal(size=(*lead, e, f, d)) * scale).astype(np.float32)
+    return w1, w2
+
+
+def _quant_both(w1, w2, dtype):
+    """The reference's and the port's quantization of the same weights."""
+    import jax.numpy as jnp
+    from repro.models.moe import quantize_experts as jq
+    from repro_torch.models.moe import quantize_experts as tq
+    qj = [np.asarray(a) for a in jq(jnp.asarray(w1), jnp.asarray(w2), dtype)]
+    qt = tq(torch.from_numpy(w1), torch.from_numpy(w2), dtype)
+    return qj, qt
+
+
+def _equal_bytes(a: np.ndarray, b: torch.Tensor) -> bool:
+    b = b.numpy()
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
+
+
+# --------------------------------------------------------------------------- #
+# (a) the storage format
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantize_experts_bit_equal_to_reference(dtype):
+    from repro.models.moe import dequantize_experts as jdq
+    from repro_torch.models.moe import dequantize_experts as tdq
+    w1, w2 = _w(0, (3,), 4, 32, 24)          # a leading [L] layer dim
+    w1[1, 2, :, 5] = 0.0                     # an all-zero gate channel
+    w2[2, 0, 7, :] = 0.0                     # an all-zero down row
+    qj, qt = _quant_both(w1, w2, dtype)
+    for name, a, b in zip(("w1q", "w2q", "s1", "s2"), qj, qt):
+        assert _equal_bytes(a, b), name
+    dp = 16 if dtype == "int4" else 32
+    assert tuple(qt[0].shape) == (3, 4, dp, 48)
+    assert tuple(qt[1].shape) == (3, 4, 24, dp)
+    assert float(qt[2][1, 2, 0, 5]) == pytest.approx(1e-12 / (
+        127 if dtype == "int8" else 7))      # the eps guard, no 0/0
+    dj = jdq(*map(__import__("jax").numpy.asarray, qj), dtype)
+    dt = tdq(*qt, dtype)
+    for a, b in zip(dj, dt):
+        assert _equal_bytes(np.asarray(a), b)
+
+
+def test_int4_pack_unpack_round_trip_blocked_halves():
+    from repro_torch.models.moe import unpack_int4
+    from repro_torch.models.moe.params import _pack_int4
+    rng = np.random.default_rng(1)
+    q = torch.from_numpy(rng.integers(-8, 8, size=(3, 10, 6))).int()
+    for dim in range(3):
+        if q.shape[dim] % 2:
+            continue
+        p = _pack_int4(q, dim)
+        assert p.dtype == torch.int8
+        assert torch.equal(unpack_int4(p, dim), q)
+    # blocked halves: byte i = element i (low) | element i + n/2 (high)
+    p = _pack_int4(torch.tensor([1, -2, -8, 7]), 0)
+    assert p.tolist() == [(-8 << 4) | 1, (7 << 4) | (-2 & 0xF)]
+
+
+# --------------------------------------------------------------------------- #
+# (b) moe_gmm_quant: plain version vs Pallas (interpret) and the jnp path
+# --------------------------------------------------------------------------- #
+
+
+def _gmm_quant_case(t, k, e, d, f, bm, dtype, seed):
+    from repro_torch.models.moe import make_sort_plan, quantize_experts, \
+        sort_dispatch
+    rng = np.random.default_rng(seed)
+    # the last expert is never routed: an empty group
+    idx = np.stack([rng.permutation(e - 1)[:k]
+                    for _ in range(t)]).astype(np.int32)
+    plan = make_sort_plan(torch.from_numpy(idx), e, bm)
+    x = rng.normal(size=(t, d)).astype(np.float32)
+    xs = sort_dispatch(torch.from_numpy(x), plan, k)
+    w1, w2 = _w(seed + 1, (), e, d, f)
+    return plan, xs, quantize_experts(torch.from_numpy(w1),
+                                      torch.from_numpy(w2), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,k,e,bm", [(1, 2, 8, 8), (12, 2, 8, 8),
+                                      (40, 3, 6, 16)])
+def test_moe_gmm_quant_plain_matches_pallas_and_jnp(dtype, t, k, e, bm):
+    import jax.numpy as jnp
+    from repro.kernels.moe_gmm import moe_gmm_quant_pallas
+    from repro.models.moe import SortPlan as JPlan, grouped_ffn_quant
+    from repro_torch.kernels import moe_gmm_quant
+    d, f = 32, 24
+    plan, xs, q = _gmm_quant_case(t, k, e, d, f, bm, dtype, seed=t + e)
+    assert int(plan.tile_valid.sum()) < len(plan.tile_valid)   # dead tiles
+    got = moe_gmm_quant(xs, *q, plan.tile_expert, plan.tile_valid,
+                        dtype=dtype, block_m=bm).numpy()
+    jq = [jnp.asarray(a.numpy()) for a in q]
+    te, tv = (jnp.asarray(a.numpy()) for a in (plan.tile_expert,
+                                               plan.tile_valid))
+    want = moe_gmm_quant_pallas(jnp.asarray(xs.numpy()), *jq, te, tv,
+                                dtype=dtype, block_m=bm, block_f=8,
+                                interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    jplan = JPlan(*(jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor)
+                    else v for v in plan))
+    layer = dict(zip(("w1", "w2", "w1_scale", "w2_scale"), jq))
+    jnp_path = grouped_ffn_quant(layer, jnp.asarray(xs.numpy()), jplan,
+                                 expert_dtype=dtype)
+    np.testing.assert_allclose(got, np.asarray(jnp_path), **TOL)
+    dead = ~plan.tile_valid.bool().repeat_interleave(bm)
+    assert (got[dead.numpy()] == 0).all()
+
+
+# --------------------------------------------------------------------------- #
+# (c) moe_decode_quant: plain version vs Pallas, jnp path and oracle
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,k,e", [(1, 2, 8), (6, 4, 8), (5, 3, 3)])
+def test_moe_decode_quant_plain_matches_pallas_jnp_and_oracle(dtype, b, k, e):
+    import jax.numpy as jnp
+    from repro.kernels import ref
+    from repro.kernels.moe_decode import moe_decode_quant_pallas, \
+        moe_decode_routed_quant_jnp
+    from repro_torch.kernels import moe_decode_quant
+    from repro_torch.models.moe import quantize_experts
+    d, f = 32, 48
+    rng = np.random.default_rng(b * 13 + k)
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    w1, w2 = _w(b + k, (), e, d, f, scale=0.05)
+    idx = rng.integers(0, e, size=(b, k)).astype(np.int32)
+    idx[0, 1] = idx[0, 0]                    # the same expert in two slots
+    w = rng.random((b, k)).astype(np.float32)
+    w[-1, -1] = 0.0                          # a zero weight adds nothing
+    q = quantize_experts(torch.from_numpy(w1), torch.from_numpy(w2), dtype)
+    got = moe_decode_quant(torch.from_numpy(x), *q, torch.from_numpy(idx),
+                           torch.from_numpy(w), dtype=dtype).numpy()
+    jargs = [jnp.asarray(a) for a in (x, *(t.numpy() for t in q), idx, w)]
+    want = moe_decode_quant_pallas(*jargs, dtype=dtype, block_f=16,
+                                   interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(moe_decode_routed_quant_jnp(*jargs, dtype=dtype)),
+        **TOL)
+    oracle = ref.moe_decode_quant_ref(x, *(t.numpy() for t in q), idx, w,
+                                      dtype=dtype)
+    np.testing.assert_allclose(got, oracle, **TOL)
+    # the zero-weight slot is exactly absent
+    w_drop = w.copy()
+    idx_drop = idx.copy()
+    idx_drop[-1, -1] = (idx[-1, -1] + 1) % e
+    again = moe_decode_quant(torch.from_numpy(x), *q,
+                             torch.from_numpy(idx_drop),
+                             torch.from_numpy(w_drop), dtype=dtype).numpy()
+    np.testing.assert_array_equal(again[-1], got[-1])
+
+
+# --------------------------------------------------------------------------- #
+# (d) the MoE layer with expert_dtype, (e) errors, (f) quantize-at-load
+# --------------------------------------------------------------------------- #
+
+
+def _cfgs():
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+    return (jget("olmoe-1b-7b").reduced().with_(moe_impl="gmm"),
+            tget("olmoe-1b-7b").reduced().with_(moe_impl="gmm"))
+
+
+def _quant_layers(cfg_j, dtype, seed=3):
+    """The reference's MoE layer, quantized by the reference -> (jax
+    layer, the same layer as torch tensors)."""
+    import jax
+    from repro.models.moe import init_moe, quantize_moe_layer
+    pj = quantize_moe_layer(init_moe(jax.random.PRNGKey(seed), cfg_j), dtype)
+    pt = {k: torch.from_numpy(np.array(v)) for k, v in pj.items()}
+    return pj, pt
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("impl,t,use_kernel", [("gmm", 24, False),
+                                               ("gmm", 24, True),
+                                               ("decode", 4, True),
+                                               ("decode", 4, False)])
+def test_moe_layer_quant_matches_reference(dtype, impl, t, use_kernel):
+    import jax.numpy as jnp
+    from repro.models.moe import moe as jmoe
+    from repro_torch.models.moe import moe as tmoe
+    cfg_j, cfg_t = _cfgs()
+    pj, pt = _quant_layers(cfg_j, dtype)
+    x = np.random.default_rng(5).normal(
+        size=(2, t // 2, cfg_j.d_model)).astype(np.float32)
+    yj, aj = jmoe(pj, cfg_j, jnp.asarray(x), 2, impl=impl,
+                  expert_dtype=dtype)
+    yt, at = tmoe(pt, cfg_t, torch.from_numpy(x), 2, impl=impl,
+                  use_kernel=use_kernel, expert_dtype=dtype)
+    np.testing.assert_allclose(np.asarray(yj), yt.numpy(), **TOL)
+    np.testing.assert_allclose(float(aj), float(at), **TOL)
+
+
+def test_quant_errors():
+    from repro_torch.models.moe import moe, quantize_moe_layer
+    from repro_torch.models.moe.registry import _require_bf16
+    cfg_j, cfg_t = _cfgs()
+    _, pt = _quant_layers(cfg_j, "int8")
+    raw = {k: v for k, v in pt.items() if not k.endswith("_scale")}
+    x = torch.zeros(1, 2, cfg_t.d_model)
+    for impl in ("gmm", "decode"):           # never quantized: a clear error
+        with pytest.raises(ValueError, match="quantize_expert_params"):
+            moe(raw, cfg_t, x, 2, impl=impl, expert_dtype="int8")
+    for impl in ("dense", "ep_a2a", "ep_psum"):
+        with pytest.raises(ValueError, match="bf16 expert weights only"):
+            moe(pt, cfg_t, x, 2, impl=impl, expert_dtype="int4")
+    with pytest.raises(ValueError, match="requires 'gmm' or 'decode'"):
+        _require_bf16("dense", "int8")
+    _require_bf16("dense", "bf16")
+    with pytest.raises(ValueError, match="already quantized"):
+        quantize_moe_layer(pt, "int8")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantize_expert_params_matches_reference_and_shares(dtype):
+    """Both routes across: the port's quantization of the converted
+    params equals the converted reference-quantized params, bit for bit,
+    and every non-expert tensor is the input's own."""
+    import jax
+    from repro import models as jm
+    from repro.models.moe import quantize_expert_params as jqp
+    from repro_torch.convert import convert_params
+    from repro_torch.models.moe import quantize_expert_params as tqp
+    cfg_j, cfg_t = _cfgs()
+    pj = jm.init_params(jax.random.PRNGKey(2), cfg_j)
+    pt = convert_params(jax.tree.map(np.asarray, pj), cfg_t, device="cpu")
+    qt = tqp(pt, cfg_t, dtype)
+    qj = convert_params(jax.tree.map(np.asarray, jqp(pj, cfg_j, dtype)),
+                        cfg_t, device="cpu")
+    assert qt["embed"] is pt["embed"]
+    for li, (lq, lp, lj) in enumerate(zip(qt["layers"], pt["layers"],
+                                          qj["layers"])):
+        assert lq["attn"] is lp["attn"] and lq["norm1"] is lp["norm1"]
+        assert lq["moe"]["router"] is lp["moe"]["router"]
+        assert lp["moe"]["w1"].dtype == torch.float32   # input untouched
+        assert set(lq["moe"]) == set(lj["moe"])
+        for key in ("w1", "w2", "w1_scale", "w2_scale", "router"):
+            assert _equal_bytes(lj["moe"][key].numpy(), lq["moe"][key]), \
+                (li, key)
+
+
+# --------------------------------------------------------------------------- #
+# CUDA kernels vs their plain versions (need the card)
+# --------------------------------------------------------------------------- #
+
+cuda = pytest.mark.skipif(not torch.cuda.is_available(),
+                          reason="the CUDA kernels run only on a GPU")
+ROW_TOL = 1e-2      # per row, of its own norm: f32 sums in another order,
+#                     bf16 output (and moe_gmm_quant's bf16 hidden)
+
+
+def _close_rows(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).norm(dim=-1)
+    ref = want.norm(dim=-1)
+    assert (err <= ROW_TOL * ref).all() and (err[ref == 0] == 0).all(), \
+        (err / ref.clamp(min=1e-30)).max().item()
+
+
+def _card_weights(e, d, f, dtype, seed):
+    from repro_torch.models.moe import quantize_experts
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w1 = (torch.randn(e, d, 2 * f, generator=g, device="cuda") * 0.1).bfloat16()
+    w2 = (torch.randn(e, f, d, generator=g, device="cuda") * 0.1).bfloat16()
+    return g, quantize_experts(w1, w2, dtype)
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,k,bm", [(1, 2, 8), (37, 4, 40), (512, 8, 128)])
+def test_moe_gmm_quant_kernel_matches_plain_on_card(dtype, t, k, bm):
+    from repro_torch.kernels import moe_gmm_quant
+    from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
+    from repro_torch.models.moe import make_sort_plan, sort_dispatch
+    e, d, f = 16, 256, 128
+    g, q = _card_weights(e, d, f, dtype, t)
+    idx = torch.stack([torch.randperm(e - 1, generator=g, device="cuda")[:k]
+                       for _ in range(t)]).int()
+    plan = make_sort_plan(idx, e, bm)
+    x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+    xs = sort_dispatch(x, plan, k)
+    args = (xs, *q, plan.tile_expert, plan.tile_valid)
+    before = moe_gmm_quant.launches
+    got = moe_gmm_quant(*args, dtype=dtype, block_m=bm)
+    assert moe_gmm_quant.launches == before + 1
+    _close_rows(got, moe_gmm_quant_plain(*args, bm, dtype=dtype))
+
+
+@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,k", [(1, 1), (8, 8), (3, 2)])
+def test_moe_decode_quant_kernel_matches_plain_on_card(dtype, b, k):
+    from repro_torch.kernels import moe_decode_quant
+    from repro_torch.kernels.moe_decode import moe_decode_quant_plain
+    e, d, f = 16, 256, 192
+    g, q = _card_weights(e, d, f, dtype, b + k)
+    x = torch.randn(b, d, generator=g, device="cuda").bfloat16()
+    idx = torch.randint(0, e, (b, k), generator=g, device="cuda").int()
+    w = torch.rand(b, k, generator=g, device="cuda")
+    w[0, -1] = 0.0
+    before = moe_decode_quant.launches
+    got = moe_decode_quant(x, *q, idx, w, dtype=dtype)
+    assert moe_decode_quant.launches == before + 1
+    _close_rows(got, moe_decode_quant_plain(x, *q, idx, w, dtype=dtype))
+
+
+@cuda
+def test_quant_kernels_refuse_what_they_do_not_take_on_card():
+    from repro_torch.kernels import moe_decode_quant
+    e, d, f = 4, 64, 64
+    _, q = _card_weights(e, d, f, "int4", 0)        # D/2 = 32: not a x64
+    x = torch.zeros(2, d, device="cuda", dtype=torch.bfloat16)
+    idx = torch.zeros(2, 1, device="cuda", dtype=torch.int32)
+    w = torch.ones(2, 1, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 64"):
+        moe_decode_quant(x, *q, idx, w, dtype="int4")
+    _, q = _card_weights(e, d, f, "int8", 0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        moe_decode_quant(x.float(), *q, idx, w, dtype="int8")
+    with pytest.raises(TypeError, match="int8"):
+        moe_decode_quant(x, q[0].bfloat16(), *q[1:], idx, w, dtype="int8")

@@ -5,6 +5,10 @@ run on the CPU).  Tokens must be equal -- for the base config, for a LExI
 plan registered on the same engine, and under a half-size KV pool where
 both engines preempt (the same number of times) and recompute.
 
+Quantized experts (``expert_dtype="int8"`` and ``"int4"``, quantized at
+load by each engine from the same weights) are held to the reference's
+quantized engine the same way.
+
 The contiguous layout with whole-prompt prefill is held to the reference's
 ``Engine(cache_layout="contiguous", prefill_chunk=0)`` the same way, base
 and LExI plan.  The port runs it with ``use_flash`` and
@@ -86,6 +90,46 @@ def test_greedy_tokens_match_reference_under_preemption(setup):
     assert et.stats["preemptions"] == ej.stats["preemptions"]
     assert et.stats["recompute_tokens"] == ej.stats["recompute_tokens"]
     assert et.kv.free_pages() == et.kv.num_pages - 1   # every page returned
+
+
+def test_quant_greedy_tokens_match_reference_int8_base_and_lexi_plan(setup):
+    ej, et = _engines(setup, max_batch=3, expert_dtype="int8")
+    assert et.runner.params["layers"][0]["moe"]["w1"].dtype == torch.int8
+    _serve_both(ej, et, 4, 5, 30, 8)
+    plan = (2, 1, 1, 2)
+    ej.add_plan("lexi", plan)
+    et.add_plan("lexi", plan)
+    _serve_both(ej, et, 4, 5, 30, 8, plan="lexi")
+    assert et.stats["decode_tokens"] == ej.stats["decode_tokens"]
+
+
+def test_quant_greedy_tokens_match_reference_int4(setup):
+    ej, et = _engines(setup, max_batch=3, expert_dtype="int4")
+    d = setup[1].d_model
+    assert et.runner.params["layers"][0]["moe"]["w2"].shape[-1] == d // 2
+    _serve_both(ej, et, 4, 5, 30, 8)
+
+
+def test_quant_engine_options_are_checked(setup):
+    from repro_torch.models import ModelOpts, init_params
+    from repro_torch.serving import Engine
+    _, cfg_t, _, pt = setup
+    with pytest.raises(ValueError, match="want 'bf16'"):
+        Engine(cfg_t, pt, expert_dtype="fp8", device="cpu")
+    with pytest.raises(ValueError, match="gmm/decode"):
+        Engine(cfg_t, pt, expert_dtype="int8",
+               opts=ModelOpts(moe_impl="dense"), device="cpu")
+    dense_cfg = cfg_t.with_(num_experts=0, moe_top_k=0, d_ff=256)
+    assert {b.kind for b in dense_cfg.pattern()} == {"attn_mlp"}
+    with pytest.raises(ValueError, match="gmm/decode"):
+        Engine(dense_cfg, init_params(dense_cfg, 0, device="cpu"),
+               expert_dtype="int4", device="cpu")
+    # quantize-at-load leaves the caller's params as they were
+    eng = Engine(cfg_t, pt, expert_dtype="int8", device="cpu")
+    assert pt["layers"][0]["moe"]["w1"].dtype == torch.float32
+    assert eng.runner.params["embed"] is pt["embed"]
+    assert eng.expert_dtype == "int8"
+    assert eng.runner.opts.expert_dtype == "int8"
 
 
 def test_mixed_plan_step_raises(setup):
@@ -182,3 +226,15 @@ def test_serve_launcher_runs_each_layout_on_cpu(layout_args, capsys):
     out = capsys.readouterr().out
     assert "baseline:" in out and "LExI:" in out
     assert ("layout=contiguous" in out) == ("contiguous" in layout_args)
+
+
+def test_serve_launcher_runs_int8_experts_on_cpu(capsys):
+    from repro_torch.launch.serve import main
+    assert main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+                 "--requests", "3", "--max-new", "4", "--max-len", "64",
+                 "--max-batch", "2", "--prefill-chunk", "16", "--use-kernel",
+                 "--use-moe-decode", "--use-moe-kernel",
+                 "--lexi-budget-frac", "0.5", "--expert-dtype", "int8"]) == 0
+    out = capsys.readouterr().out
+    assert "experts=int8" in out
+    assert "baseline:" in out and "LExI:" in out

@@ -37,15 +37,30 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               and then ``"int4"``, baseline and LExI plan each: every step
               must launch ``moe_gmm_quant``, ``moe_decode_quant`` and
               ``flash_decode_paged``, and neither bf16 expert kernel.
+7. serve_mla -- the OLMoE weights freed, DeepSeek-V2-Lite at full width and
+              depth (27 layers, MLA with kv_lora_rank 512, a dense first
+              layer, 64 experts top-6 plus 2 shared), bf16, random weights
+              drawn on the card: ``moe_gmm`` and ``moe_decode`` held against
+              their plain versions at its expert shapes, the kernel paths'
+              logits against the plain paths', then the same 8 requests on
+              the paged pool (``flash_decode_paged_mla``, 27 launches a
+              decode step, ``moe_gmm``, ``moe_decode``; no GQA attention
+              kernel), a LExI plan searched on the card at budget
+              0.5 x 26 x 6 and served, and the baseline again on the
+              contiguous layout with whole-prompt prefill (``moe_gmm``,
+              ``moe_decode``; no attention kernel: MLA's contiguous decode
+              is plain PyTorch, as in the reference).
+8. forward_mla -- phase 4 on DeepSeek-V2-Lite (``moe_gmm``; MLA's train
+              mode attends through the plain masked softmax).
 
 Every kernel's launch counter is zeroed just before and read just after
-each step of phases 3-6; each step must launch the kernels it runs.  A
+each step of phases 3-8; each step must launch the kernels it runs.  A
 small reference check holds the kernel paths' logits against the plain
 paths' on the same inputs, row by row, with bf16 experts and with int8
-and int4 experts.  Then it prints the ``kernels`` summary
-line (launches summed over every step), the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``.  Without a CUDA
-device it exits 1 and prints no result.
+and int4 experts, and on DeepSeek-V2-Lite.  Then it prints the
+``kernels`` summary line (launches summed over every step), the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.  Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -63,9 +78,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
+#: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
+#: FLOP/s on the tensor cores, f32 FLOP/s outside them
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 #: an expert kernel passes when max |kernel - plain| <= TOL * max |plain|:
 #: both accumulate in f32 in different orders and round the output to bf16
 #: (relative step 2^-8), and moe_gmm also rounds its hidden to bf16
@@ -174,7 +191,7 @@ def compare_rows(name: str, got: torch.Tensor, want: torch.Tensor, **extra):
 # --------------------------------------------------------------------------- #
 
 
-def check_moe_gmm(layer, cfg, x, flush):
+def check_moe_gmm(layer, cfg, x, flush, tag: str = ""):
     from repro_torch.kernels import moe_gmm
     from repro_torch.kernels.moe_gmm import moe_gmm_plain
     from repro_torch.models.moe import default_block_m, make_sort_plan, \
@@ -189,7 +206,8 @@ def check_moe_gmm(layer, cfg, x, flush):
     want = moe_gmm_plain(*args, plan.block_m)
     valid = int(plan.tile_valid.sum())
     experts = int(torch.unique(plan.tile_expert[plan.tile_valid.bool()]).numel())
-    err = compare("moe_gmm", got, want, tokens=x.shape[0], k=k,
+    err = compare(f"moe_gmm{tag}", got, want, tokens=x.shape[0], k=k,
+                  f=cfg.moe_d_ff,
                   block_m=plan.block_m, tiles=len(plan.tile_valid),
                   valid_tiles=valid, experts=experts)
     ms, plain_ms = time_calls((lambda: moe_gmm(*args, block_m=plan.block_m),
@@ -204,7 +222,7 @@ def check_moe_gmm(layer, cfg, x, flush):
     return err, ms, plain_ms, nbytes, flops
 
 
-def check_moe_decode(layer, cfg, x, flush):
+def check_moe_decode(layer, cfg, x, flush, tag: str = ""):
     from repro_torch.kernels import moe_decode
     from repro_torch.kernels.moe_decode import moe_decode_plain
     from repro_torch.models.moe import route
@@ -213,7 +231,7 @@ def check_moe_decode(layer, cfg, x, flush):
         weights, idx, _ = route(layer, cfg, x, k)
         args = (x, layer["w1"], layer["w2"], idx, weights)
         experts = int(torch.unique(idx).numel())
-        out[k] = (compare(f"moe_decode_k{k}", moe_decode(*args),
+        out[k] = (compare(f"moe_decode{tag}_k{k}", moe_decode(*args),
                           moe_decode_plain(*args), batch=x.shape[0], k=k,
                           experts=experts), args, experts)
     err, args, experts = out[cfg.moe_top_k]
@@ -328,6 +346,23 @@ def check_moe_decode_quant(layer, cfg, x, flush):
     return out
 
 
+def paged_positions(lens, n, p, n_blk, device):
+    """posp [n, p], block table [B, n_blk] and cur_pos [B] as the engine
+    leaves them: row r holds positions 0..lens[r]-1 in its first pages,
+    unmapped table entries point at trash page 0 (posp -1)."""
+    posp = torch.full((n, p), -1, dtype=torch.int32)
+    table = torch.zeros((len(lens), n_blk), dtype=torch.int32)
+    nxt = 1
+    for r, ln in enumerate(lens):
+        for j in range(-(-ln // p)):
+            table[r, j] = nxt
+            hi = min(p, ln - j * p)
+            posp[nxt, :hi] = torch.arange(j * p, j * p + hi)
+            nxt += 1
+    cur = torch.tensor([ln - 1 for ln in lens], dtype=torch.int32)
+    return posp.to(device), table.to(device), cur.to(device)
+
+
 def check_flash_decode_paged(cfg, flush, device):
     from repro_torch.kernels import flash_decode_paged
     from repro_torch.kernels.flash_decode_paged import \
@@ -345,18 +380,7 @@ def check_flash_decode_paged(cfg, flush, device):
                      dtype=torch.bfloat16)
     q = torch.randn((b, hq, hd), generator=gen, device=device,
                     dtype=torch.bfloat16)
-    posp = torch.full((n, p), -1, dtype=torch.int32)
-    table = torch.zeros((b, n_blk), dtype=torch.int32)   # trash page 0
-    nxt = 1
-    for r, ln in enumerate(lens):
-        for j in range(-(-ln // p)):
-            table[r, j] = nxt
-            hi = min(p, ln - j * p)
-            posp[nxt, :hi] = torch.arange(j * p, j * p + hi)
-            nxt += 1
-    posp, table = posp.to(device), table.to(device)
-    cur = torch.tensor([ln - 1 for ln in lens], dtype=torch.int32,
-                       device=device)
+    posp, table, cur = paged_positions(lens, n, p, n_blk, device)
     live = 32                                   # KVCache.live_blocks bucket
     bt = table[:, :live]                        # truncated strided view
     args = (q, kp, vp, posp, bt, cur)
@@ -370,6 +394,44 @@ def check_flash_decode_paged(cfg, flush, device):
     nbytes = (pages * p * hkv * hd * 2 * 2 + pages * p * 4
               + 2 * b * hq * hd * 2 + b * live * 4)
     flops = 4 * sum(lens) * hq * hd
+    return err, ms, plain_ms, nbytes, flops
+
+
+def check_flash_decode_paged_mla(cfg, flush, device):
+    """B7 at DeepSeek-V2-Lite's widths (16 heads, r 512, dr 64) on B4's
+    check pool: lens [512 .. 0] over pages of 16, a 64-column table walked
+    through a 32-column view; each (row, head) latent of 512 held to
+    ROW_TOL.  The work is f32 FMAs on bf16 latents: the bound takes the f32
+    rate.  No single PyTorch call takes a block table: library_ms null."""
+    from repro_torch.kernels import flash_decode_paged_mla
+    from repro_torch.kernels.flash_decode_paged import \
+        flash_decode_paged_mla_plain
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    b, h, p = 8, cfg.num_heads, 16
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    scale = 1.0 / (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** 0.5
+    lens = [512, 511, 480, 300, 129, 64, 16, 0]     # row 7 is idle
+    n_blk, n = 64, b * 32 + 1
+    ckvp, kropep = (torch.randn((n, p, w), generator=gen, device=device,
+                                dtype=torch.bfloat16) for w in (r, dr))
+    q_lat, q_rope = (torch.randn((b, h, w), generator=gen, device=device)
+                     for w in (r, dr))
+    posp, table, cur = paged_positions(lens, n, p, n_blk, device)
+    live = 32                                   # KVCache.live_blocks bucket
+    args = (q_lat, q_rope, ckvp, kropep, posp, table[:, :live], cur)
+    err = compare_rows("flash_decode_paged_mla",
+                       flash_decode_paged_mla(*args, scale=scale),
+                       flash_decode_paged_mla_plain(*args, scale=scale),
+                       batch=b, heads=h, latent=[r, dr],
+                       live_positions=sum(lens), table_cols=live)
+    ms, plain_ms = time_calls(
+        (lambda: flash_decode_paged_mla(*args, scale=scale),
+         lambda: flash_decode_paged_mla_plain(*args, scale=scale)), flush)
+    pages = int((table[:, :live] != 0).sum())
+    nbytes = (pages * p * (r + dr) * 2 + pages * p * 4
+              + b * h * (r + dr) * 4 + b * h * r * 4 + b * live * 4 + b * 4)
+    flops = sum(lens) * h * (2 * (r + dr) + 2 * r)
     return err, ms, plain_ms, nbytes, flops
 
 
@@ -473,9 +535,9 @@ def check_flash_decode(cfg, flush, device):
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
-               library_ms=None):
+               library_ms=None, flop_rate=BF16_FLOPS):
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / flop_rate * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -532,6 +594,56 @@ def check_results(tag, results, cfg, max_new):
             raise AssertionError(f"{tag}: request {r.uid} token out of range")
 
 
+def ref_inputs(cfg, device, b: int = 2, c: int = 64):
+    """The reference checks' fixed inputs: ``b`` rows of ``c`` prompt
+    tokens, one next token each, and a block table of 8 pages a row."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (b, c), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (b,), generator=gen).int()
+    positions = torch.arange(c).repeat(b, 1).int()
+    bt = torch.arange(1, 1 + b * 8, dtype=torch.int32).reshape(b, 8)
+    dev = {n: t.to(device) for n, t in (("tokens", tokens), ("nxt", nxt),
+                                        ("positions", positions), ("bt", bt))}
+    dev["pos_c"] = torch.full((b,), c, dtype=torch.int32, device=device)
+    return dev
+
+
+def paged_logits(params, cfg, opts, dev, page_size: int = 16):
+    """Logits of one chunk prefill of ``dev``'s prompts on a fresh paged
+    pool, then of one decode step (the table walked 8 columns wide)."""
+    from repro_torch import models
+    b = dev["tokens"].shape[0]
+    caches = models.init_caches(cfg, page_size=page_size,
+                                num_pages=b * 8 + 1,
+                                device=dev["tokens"].device)
+    lg1, caches = models.chunk_prefill_fn(
+        params, cfg, dev["tokens"], dev["positions"], caches,
+        block_tables=dev["bt"], opts=opts)
+    lg2, _ = models.decode_fn(params, cfg, dev["nxt"], dev["pos_c"], caches,
+                              block_tables=dev["bt"], opts=opts,
+                              kernel_blocks=8)
+    return lg1.float(), lg2.float()
+
+
+def gate_logits(check, got_all, want_all, **extra):
+    """Print the (prefill, decode) logits' agreement and fail unless every
+    row is finite and within LOGITS_TOL."""
+    rec = {"check": check, "tol": LOGITS_TOL}
+    for i, step in enumerate(("prefill", "decode")):
+        got, want = got_all[i], want_all[i]
+        rec[f"{step}_max_row_rel_err"] = row_rel_err(got, want).max().item()
+        rec[f"{step}_max_abs_diff"] = (got - want).abs().max().item()
+        rec[f"{step}_argmax_equal"] = (
+            got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        rec[f"{step}_finite"] = bool(torch.isfinite(got).all())
+    rec.update(extra)
+    emit(rec)
+    if not all(rec[f"{s}_finite"] and rec[f"{s}_max_row_rel_err"] <= LOGITS_TOL
+               for s in ("prefill", "decode")):
+        raise AssertionError(f"reference check failed: {rec}")
+
+
 def reference_check(params, cfg, device):
     """Kernel paths vs plain paths on small inputs and the same weights,
     through the model cut to its first layer: two rows of 64 prompt tokens
@@ -559,27 +671,12 @@ def reference_check(params, cfg, device):
     from repro_torch.models.moe import QUANT_DTYPES, quantize_expert_params
     cfg = cfg.with_(num_layers=1)
     params = dict(params, layers=params["layers"][:1])
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(2)
-    b, c, p = 2, 64, 16
-    tokens = torch.randint(0, cfg.vocab_size, (b, c), generator=gen)
-    nxt = torch.randint(0, cfg.vocab_size, (b,), generator=gen).int()
-    positions = torch.arange(c).repeat(b, 1).int()
-    bt = torch.arange(1, 1 + b * 8, dtype=torch.int32).reshape(b, 8)
-    dev = {n: t.to(device) for n, t in (("tokens", tokens), ("nxt", nxt),
-                                        ("positions", positions), ("bt", bt))}
-    pos_c = torch.full((b,), c, dtype=torch.int32, device=device)
+    dev = ref_inputs(cfg, device)
+    b, c = dev["tokens"].shape
+    pos_c = dev["pos_c"]
 
     def paged(opts, prm=params):
-        caches = models.init_caches(cfg, page_size=p, num_pages=b * 8 + 1,
-                                    device=device)
-        lg1, caches = models.chunk_prefill_fn(
-            prm, cfg, dev["tokens"], dev["positions"], caches,
-            block_tables=dev["bt"], opts=opts)
-        lg2, _ = models.decode_fn(prm, cfg, dev["nxt"], pos_c, caches,
-                                  block_tables=dev["bt"], opts=opts,
-                                  kernel_blocks=8)
-        return lg1.float(), lg2.float()
+        return paged_logits(prm, cfg, opts, dev)
 
     def contiguous(opts):
         caches = models.init_caches(cfg, b, 2 * c, layout="contiguous",
@@ -611,23 +708,13 @@ def reference_check(params, cfg, device):
             lambda opts, qp=qp: paged(opts, qp),
             replace(paths["reference_logits"][1], expert_dtype=dt))
     for check, (run, kern) in paths.items():
-        got_all = run(kern)
         want_all = run(replace(plain, expert_dtype=kern.expert_dtype))
-        rec = {"check": check, "tol": LOGITS_TOL}
-        for i, step in enumerate(("prefill", "decode")):
-            got, want = got_all[i], want_all[i]
-            rec[f"{step}_max_row_rel_err"] = row_rel_err(got, want).max().item()
-            rec[f"{step}_max_abs_diff"] = (got - want).abs().max().item()
-            rec[f"{step}_argmax_equal"] = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-            rec[f"{step}_finite"] = bool(torch.isfinite(got).all())
-            if kern.expert_dtype != "bf16":     # printed, not gated
-                rec[f"{step}_vs_bf16_max_row_rel_err"] = row_rel_err(
-                    want, bf16_plain[i]).max().item()
-        emit(rec)
-        if not all(rec[f"{s}_finite"]
-                   and rec[f"{s}_max_row_rel_err"] <= LOGITS_TOL
-                   for s in ("prefill", "decode")):
-            raise AssertionError(f"reference check failed: {rec}")
+        extra = {}
+        if kern.expert_dtype != "bf16":         # printed, not gated
+            extra = {f"{step}_vs_bf16_max_row_rel_err": row_rel_err(
+                want_all[i], bf16_plain[i]).max().item()
+                for i, step in enumerate(("prefill", "decode"))}
+        gate_logits(check, run(kern), want_all, **extra)
 
     from repro_torch.models.transformer import forward, lm_logits
     lg = [lm_logits(params, cfg, forward(params, cfg, dev["tokens"],
@@ -666,6 +753,122 @@ def forward_phase(params, cfg, plan, device):
     return {"phase": "forward", "batch": [4, 512], "models": out}, counts
 
 
+# --------------------------------------------------------------------------- #
+# phases 7-8: DeepSeek-V2-Lite (MLA)
+# --------------------------------------------------------------------------- #
+
+#: attention kernels an MLA model never launches: the reference drops
+#: use_flash and use_flash_decode for MLA, and its paged kernel is B7
+GQA_ATTENTION = ("flash_attention", "flash_decode", "flash_decode_paged")
+
+
+def mla_checks(params, cfg, device):
+    """``moe_gmm`` and ``moe_decode`` at DeepSeek-V2-Lite's expert shapes
+    (F 1408, top-6; ``moe_gmm`` also on an intra-pruned layer, F 1056, as
+    forward_mla runs it) against their plain versions; then the kernel
+    paths' logits against the plain paths' through the model cut to its
+    dense layer and its first MoE layer -- a chunk prefill and a decode
+    step on the paged pool, row by row to LOGITS_TOL.  The kernel side
+    must launch ``flash_decode_paged_mla`` once per layer in the decode
+    step and no GQA attention kernel."""
+    from repro_torch import models
+    from repro_torch.core import intra_prune
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    x = torch.randn((512, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    cfg2 = cfg.with_(num_layers=2)
+    params2 = dict(params, layers=params["layers"][:2])
+    layer = params2["layers"][1]["moe"]
+    pruned, cfg_p = intra_prune(params2, cfg2, 0.25)
+    timing = {}
+    for name, check, lay, c, xx in (
+            ("moe_gmm", check_moe_gmm, layer, cfg, x),
+            ("moe_gmm", check_moe_gmm, pruned["layers"][1]["moe"], cfg_p, x),
+            ("moe_decode", check_moe_decode, layer, cfg, x[:8].contiguous())):
+        tag = f"_f{c.moe_d_ff}"
+        _, ms, plain_ms, _, _ = check(lay, c, xx, flush, tag=tag)
+        timing[name + tag] = {"ms": ms, "plain_ms": plain_ms}
+    emit({"check": "deepseek_expert_kernels", "timing": timing})
+    del pruned, flush
+
+    dev = ref_inputs(cfg2, device)
+    kern = models.ModelOpts(use_moe_kernel=True, use_paged_kernel=True,
+                            use_moe_decode_kernel=True)
+    got, counts = counted(lambda: paged_logits(params2, cfg2, kern, dev))
+    want = paged_logits(params2, cfg2,
+                        models.ModelOpts(use_moe_decode_kernel=True), dev)
+    gate_logits("reference_logits_mla", got, want, launches={
+        n: counts[n] for n in ("flash_decode_paged_mla", "moe_gmm",
+                               "moe_decode") + GQA_ATTENTION})
+    if (counts["flash_decode_paged_mla"] != cfg2.num_layers
+            or any(counts[n] for n in GQA_ATTENTION)):
+        raise AssertionError(f"MLA reference check launched {counts}")
+
+
+def serve_mla(params, cfg, device, t_start):
+    """Phase 7: the 8 requests on the paged pool, a LExI plan searched on
+    the card and served, the baseline on the contiguous layout.  Returns
+    (the plan, {step: (launch counts, kernels the step must launch)})."""
+    from repro_torch import models
+    from repro_torch.core import optimize
+    from repro_torch.serving import Engine
+    max_new = 32
+    opts = models.ModelOpts(use_moe_kernel=True)
+    paged_kernels = ("flash_decode_paged_mla", "moe_gmm", "moe_decode")
+    stat_keys = ("prefill_tokens", "decode_tokens", "steps", "preemptions",
+                 "wall_s")
+    need, rec = {}, {"phase": "serve_mla"}
+
+    def serve(eng, tag, names, plan_name=None):
+        res, counts = counted(
+            lambda: eng.serve(requests(cfg, seed=0), plan=plan_name))
+        check_results(f"mla {tag}", res, cfg, max_new)
+        need[f"mla_{tag}"] = (counts, names)
+        rec[f"{tag}_tok_s"] = eng.throughput()
+        rec[f"{tag}_stats"] = {k: eng.stats[k] for k in stat_keys}
+
+    eng = Engine(cfg, params, max_batch=8, max_len=512, prefill_chunk=64,
+                 use_kernel=True, use_moe_decode=True, opts=opts,
+                 device=device)
+    eng.serve(requests(cfg, seed=0, n=2, max_new=4))      # warm-up wave
+    serve(eng, "baseline", paged_kernels)
+    budget = int(0.5 * cfg.num_moe_layers * cfg.moe_top_k)
+    t0 = time.perf_counter()
+    plan, counts = counted(lambda: optimize(
+        params, cfg, budget, method="dp", n_iter=4, profile_batch=2,
+        profile_seq=32, seed=0, device=device, use_kernel=True))
+    rec.update(plan=list(plan.plan), budget=budget,
+               optimize_s=time.perf_counter() - t0)
+    need["mla_optimize"] = (counts, ("moe_gmm",))
+    eng.add_plan("lexi", plan)
+    serve(eng, "lexi", paged_kernels, "lexi")
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = Engine(cfg, params, max_batch=8, max_len=512,
+                 cache_layout="contiguous", prefill_chunk=0,
+                 use_moe_decode=True, opts=opts, device=device)
+    eng.serve(requests(cfg, seed=0, n=2, max_new=4))      # warm-up wave
+    serve(eng, "contiguous_baseline", ("moe_gmm", "moe_decode"))
+    del eng
+    torch.cuda.empty_cache()
+
+    for step in ("mla_baseline", "mla_lexi"):
+        c = need[step][0]
+        if (any(c[n] for n in GQA_ATTENTION)
+                or c["flash_decode_paged_mla"] % cfg.num_layers):
+            raise AssertionError(f"{step}: attention launches {c}")
+    c = need["mla_contiguous_baseline"][0]
+    if any(c[n] for n in GQA_ATTENTION + ("flash_decode_paged_mla",)):
+        raise AssertionError(f"mla_contiguous_baseline: an attention "
+                             f"kernel ran: {c}")
+    rec["launches"] = {step[4:]: c for step, (c, _) in need.items()}
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return plan, need
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -694,6 +897,7 @@ def main() -> int:
 
     # ---- model weights (full width and depth, bf16, drawn on the card) --
     cfg = get_config("olmoe-1b-7b").with_(moe_impl="gmm")
+    cfg_mla = get_config("deepseek-v2-lite").with_(moe_impl="gmm")
     t0 = time.perf_counter()
     params = models.init_params(cfg, seed=0, device=device)
     torch.cuda.synchronize()
@@ -740,6 +944,12 @@ def main() -> int:
             "moe_decode_quant", "src/repro_torch/csrc/moe_decode_quant.cu",
             "src/repro/kernels/moe_decode.py:257",
             check_moe_decode_quant(layer, cfg, x512[:8].contiguous(), flush)),
+        "flash_decode_paged_mla": kernel_row(
+            "flash_decode_paged_mla",
+            "src/repro_torch/csrc/flash_decode_paged_mla.cu",
+            "src/repro/kernels/flash_decode_paged.py:199",
+            *check_flash_decode_paged_mla(cfg_mla, flush, device),
+            flop_rate=F32_FLOPS),
     }
     del flush
     emit({"phase": "kernels", "ok": True,
@@ -859,6 +1069,34 @@ def main() -> int:
         del eng, moe
         torch.cuda.empty_cache()
 
+    # ---- phases 7-8: DeepSeek-V2-Lite (MLA), the OLMoE weights freed -----
+    del params, layer, x512
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = models.init_params(cfg_mla, seed=0, device=device)
+    torch.cuda.synchronize()
+    emit({"phase": "init_mla", "seconds": time.perf_counter() - t0,
+          "layers": cfg_mla.num_layers, "d_model": cfg_mla.d_model,
+          "kinds": [s.kind for s in cfg_mla.pattern()[:2]],
+          "experts": cfg_mla.num_experts, "top_k": cfg_mla.moe_top_k,
+          "params_gb": sum(t.numel() * t.element_size()
+                           for t in _leaves(params)) / 1e9,
+          "kv_bytes_per_token": cfg_mla.num_layers * 2 * (
+              cfg_mla.kv_lora_rank + cfg_mla.qk_rope_head_dim),
+          "olmoe_kv_bytes_per_token": cfg.num_layers * 2 * 2 * (
+              cfg.num_kv_heads * cfg.head_dim_)})
+    mla_checks(params, cfg_mla, device)
+    plan, mla_need = serve_mla(params, cfg_mla, device, t_start)
+    need.update(mla_need)
+    rec, fwd_counts = forward_phase(params, cfg_mla, plan, device)
+    if any(fwd_counts[n] for n in GQA_ATTENTION):
+        raise AssertionError(f"forward_mla: attention kernels {fwd_counts}")
+    need["forward_mla"] = (fwd_counts, ("moe_gmm",))
+    emit(dict(rec, phase="forward_mla", launches=fwd_counts,
+              seconds_total=time.perf_counter() - t_start))
+    del params
+    torch.cuda.empty_cache()
+
     for step, (counts, names) in need.items():
         for n in names:
             if counts[n] <= 0:
@@ -879,7 +1117,9 @@ def main() -> int:
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

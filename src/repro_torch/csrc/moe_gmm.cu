@@ -28,7 +28,9 @@
 // 16-byte vectors into shared memory and synchronises once per 32-deep
 // step: no double buffering, no TMA, no wgmma yet -- that is later work.
 // block_m may be any multiple of 8 up to 128: rows past the tile's end are
-// zero-filled on load and never stored.
+// zero-filled on load and never stored.  F may be any multiple of 32 (an
+// intra-pruned DeepSeek-V2-Lite expert has F = 1056): pass 1's last column
+// block loads zeros past F and stores only the columns below it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -60,13 +62,17 @@ __device__ __forceinline__ void load_a(bf16* sA, const bf16* src, int ld,
 }
 
 // Load rows [k0, k0 + BK) x cols [c0, c0 + BN) of a row-major bf16 matrix
-// (row pitch ld) into sB [BK][LDB].
+// (row pitch ld) into sB [BK][LDB]; columns from c0 + ncols on (ncols a
+// multiple of 8) are 0.
 __device__ __forceinline__ void load_b(bf16* sB, const bf16* src, int ld,
-                                       int k0, int c0) {
+                                       int k0, int c0, int ncols = BN) {
   for (int v = threadIdx.x; v < BK * BN / 8; v += NT) {
     const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-    *reinterpret_cast<uint4*>(sB + r * LDB + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)(k0 + r) * ld + c0 + c);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (c < ncols)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(k0 + r) * ld +
+                                            c0 + c);
+    *reinterpret_cast<uint4*>(sB + r * LDB + c) = val;
   }
 }
 
@@ -82,6 +88,7 @@ gmm_up_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w1,
   const int row0 = tile * block_m + chunk * BM;
   const int nrows = min(BM, block_m - chunk * BM);
   const int f0 = blockIdx.y * BN;
+  const int fcols = min(BN, F - f0);           // < BN in a ragged last block
   const int warp = threadIdx.x / 32;
   const bool active = warp * 16 < nrows;
   const bf16* W = w1 + (size_t)e * D * 2 * F;
@@ -100,8 +107,8 @@ gmm_up_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w1,
   const bf16* xrow = xs + (size_t)row0 * D;
   for (int k0 = 0; k0 < D; k0 += BK) {
     load_a(sA, xrow, D, nrows, k0);
-    load_b(sG, W, 2 * F, k0, f0);
-    load_b(sU, W, 2 * F, k0, F + f0);
+    load_b(sG, W, 2 * F, k0, f0, fcols);
+    load_b(sU, W, 2 * F, k0, F + f0, fcols);
     __syncthreads();
     if (active) {
 #pragma unroll
@@ -132,6 +139,7 @@ gmm_up_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w1,
   __syncthreads();
   for (int i = threadIdx.x; i < nrows * BN; i += NT) {
     const int r = i / BN, c = i % BN;
+    if (c >= fcols) continue;
     const float g = cG[r * LDC + c], u = cU[r * LDC + c];
     h[(size_t)(row0 + r) * F + f0 + c] = __float2bfloat16(g / (1.0f + __expf(-g)) * u);
   }
@@ -199,7 +207,7 @@ gmm_down_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w2,
 
 // xs [M, D], w1 [E, D, 2F], w2 [E, F, D], out [M, D] bf16; tile_expert,
 // tile_valid [M / block_m] int32; h [M, F] bf16 scratch.  Needs D % 64 == 0,
-// F % 64 == 0, block_m % 8 == 0.  Returns cudaGetLastError() after launch.
+// F % 32 == 0, block_m % 8 == 0.  Returns cudaGetLastError() after launch.
 extern "C" int moe_gmm_launch(const void* xs, const void* w1, const void* w2,
                               const void* tile_expert, const void* tile_valid,
                               void* h, void* out, int M, int D, int F,
@@ -207,7 +215,7 @@ extern "C" int moe_gmm_launch(const void* xs, const void* w1, const void* w2,
   const int n_tiles = M / block_m;
   const int chunks = (block_m + BM - 1) / BM;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  dim3 g1(n_tiles * chunks, F / BN);
+  dim3 g1(n_tiles * chunks, (F + BN - 1) / BN);
   gmm_up_kernel<<<g1, NT, 0, s>>>(
       static_cast<const bf16*>(xs), static_cast<const bf16*>(w1),
       static_cast<const int*>(tile_expert), static_cast<const int*>(tile_valid),

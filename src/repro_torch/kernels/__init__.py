@@ -8,7 +8,8 @@ plain integer attribute, ``<wrapper>.launches``.
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
-from repro_torch.kernels.flash_decode_paged import flash_decode_paged
+from repro_torch.kernels.flash_decode_paged import flash_decode_paged, \
+    flash_decode_paged_mla
 from repro_torch.kernels.moe_decode import moe_decode, moe_decode_quant
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_quant
 
@@ -16,7 +17,8 @@ WRAPPERS = {"moe_gmm": moe_gmm, "moe_decode": moe_decode,
             "flash_decode_paged": flash_decode_paged,
             "flash_attention": flash_attention, "flash_decode": flash_decode,
             "moe_gmm_quant": moe_gmm_quant,
-            "moe_decode_quant": moe_decode_quant}
+            "moe_decode_quant": moe_decode_quant,
+            "flash_decode_paged_mla": flash_decode_paged_mla}
 
 
 def launch_counts():

@@ -23,7 +23,8 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("moe_gmm", "moe_decode", "flash_decode_paged", "flash_attention",
-           "flash_decode", "moe_gmm_quant", "moe_decode_quant")
+           "flash_decode", "moe_gmm_quant", "moe_decode_quant",
+           "flash_decode_paged_mla")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -98,14 +99,16 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def function(name: str, fn: str, n_ptrs: int, n_ints: int):
-    """C function ``int fn(void* x n_ptrs, int x n_ints, void* stream)`` of
-    ``csrc/<name>.cu``, declared once (every pointer and the stream as
-    ``c_void_p``, so ctypes never truncates them to 32 bits)."""
+def function(name: str, fn: str, n_ptrs: int, n_ints: int,
+             n_floats: int = 0):
+    """C function ``int fn(void* x n_ptrs, int x n_ints, float x n_floats,
+    void* stream)`` of ``csrc/<name>.cu``, declared once (every pointer and
+    the stream as ``c_void_p``, so ctypes never truncates them to 32
+    bits)."""
     if fn not in _FNS:
         f = getattr(load(name), fn)
         f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                      + [ctypes.c_void_p])
+                      + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         f.restype = ctypes.c_int
         _FNS[fn] = f
     return _FNS[fn]

@@ -1,4 +1,5 @@
-"""Paged GQA decode attention over the block table.
+"""Paged decode attention over the block table: GQA, and MLA's
+weight-absorbed latent decode (``flash_decode_paged_mla``, below).
 
 Kernel: ``csrc/flash_decode_paged.cu`` (replaces ``repro/kernels/
 flash_decode_paged.py::flash_decode_paged_pallas``).  q [B, Hq, hd];
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, on_card
-from repro_torch.kernels.flash_decode import flash_decode_plain
+from repro_torch.kernels.flash_decode import NEG_INF, flash_decode_plain
 
 
 def flash_decode_paged_plain(q, kp, vp, posp, block_tables, cur_pos, *,
@@ -73,3 +74,98 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
 
 
 flash_decode_paged.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# MLA: weight-absorbed latent decode
+# --------------------------------------------------------------------------- #
+
+#: blocks the MLA kernel aims for across the batch (two per SM of the
+#: H100's 132): the pages of a row are split between up to this many / B
+#: blocks, each holding a partial softmax state that a second pass merges
+MLA_TARGET_BLOCKS = 264
+
+
+def flash_decode_paged_mla_plain(q_lat, q_rope, ckvp, kropep, posp,
+                                 block_tables, cur_pos, *, scale: float):
+    """The kernel's function in plain PyTorch (the gather form of the
+    reference's ``flash_decode_paged_mla_ref``); rows with no valid slot
+    are zero."""
+    b = block_tables.shape[0]
+    bt = block_tables.long()
+    ckv = ckvp[bt].reshape(b, -1, ckvp.shape[-1]).float()
+    kr = kropep[bt].reshape(b, -1, kropep.shape[-1]).float()
+    pos = posp[bt].reshape(b, -1)
+    s = (torch.einsum("bhr,bkr->bhk", q_lat.float(), ckv)
+         + torch.einsum("bhd,bkd->bhk", q_rope.float(), kr)) * scale
+    valid = (pos >= 0) & (pos <= cur_pos[:, None])
+    s = torch.where(valid[:, None, :], s, NEG_INF)
+    probs = torch.softmax(s, dim=-1) * valid.any(-1)[:, None, None]
+    return torch.einsum("bhk,bkr->bhr", probs, ckv)
+
+
+def mla_splits(b: int, n_blk: int):
+    """(blocks per row, table columns per block) of the MLA kernel's first
+    pass: at least two columns a block where the table has them, and about
+    ``MLA_TARGET_BLOCKS`` blocks in all."""
+    splits = max(1, min(-(-n_blk // 2), -(-MLA_TARGET_BLOCKS // b)))
+    per = -(-n_blk // splits)
+    return -(-n_blk // per), per
+
+
+def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
+                           cur_pos, *, scale: float):
+    """Weight-absorbed MLA decode over the latent pages: q_lat [B, H, r]
+    f32 (q_nope through W_kv_b(k)); q_rope [B, H, dr] f32; ckvp [N, P, r]
+    and kropep [N, P, dr] bf16; posp [N, P] int32; block_tables
+    [B, n_blk] int32 (may be a column slice of the full table); cur_pos [B]
+    int32 -> the latent output [B, H, r] f32 (the caller folds W_kv_b(v)
+    in).  ``scale`` is the model's 1/sqrt(dn + dr).  Replaces
+    ``repro/kernels/flash_decode_paged.py::flash_decode_paged_mla_pallas``
+    (kernel: ``csrc/flash_decode_paged_mla.cu``).  Plain version for CPU
+    tensors; the CUDA kernel for CUDA tensors."""
+    name = "flash_decode_paged_mla"
+    if not on_card(name, q_lat, q_rope, ckvp, kropep, posp, block_tables,
+                   cur_pos):
+        return flash_decode_paged_mla_plain(q_lat, q_rope, ckvp, kropep,
+                                            posp, block_tables, cur_pos,
+                                            scale=scale)
+    b, h, r = q_lat.shape
+    n, p, dr = kropep.shape
+    n_blk = block_tables.shape[1]
+    f32, bf16 = torch.float32, torch.bfloat16
+    expect(name, q_lat, "q_lat", f32)
+    expect(name, q_rope, "q_rope", f32, (b, h, dr))
+    expect(name, ckvp, "ckvp", bf16, (n, p, r))
+    expect(name, kropep, "kropep", bf16, (n, p, dr))
+    expect(name, posp, "posp", torch.int32, (n, p))
+    expect(name, cur_pos, "cur_pos", torch.int32, (b,))
+    if r != 512 or dr != 64 or not 1 <= h <= 16:
+        raise ValueError(f"{name}: no kernel for H={h}, r={r}, dr={dr} "
+                         "(needs r 512, dr 64, H <= 16)")
+    if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
+            or block_tables.shape[0] != b or block_tables.stride(1) != 1):
+        raise ValueError(f"{name}: block_tables must be int32 [B, n_blk] "
+                         "with unit column stride")
+    for arg, t in (("q_lat", q_lat), ("q_rope", q_rope), ("ckvp", ckvp),
+                   ("kropep", kropep)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
+    splits, per = mla_splits(b, n_blk)
+    # scratch: the splits' accumulators [B, splits, H, r], then their
+    # (max, sum) pairs [B, splits, H, 2]
+    part = torch.empty(b * splits * h * (r + 2), dtype=f32,
+                       device=q_lat.device)
+    out = torch.empty((b, h, r), dtype=f32, device=q_lat.device)
+    fn = _build.function(name, "flash_decode_paged_mla_launch", 9, 7, 1)
+    err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckvp.data_ptr(),
+             kropep.data_ptr(), posp.data_ptr(), block_tables.data_ptr(),
+             cur_pos.data_ptr(), part.data_ptr(), out.data_ptr(),
+             b, h, p, n_blk, block_tables.stride(0), splits, per, scale,
+             torch.cuda.current_stream(q_lat.device).cuda_stream)
+    _build.check(name, err)
+    flash_decode_paged_mla.launches += 1
+    return out
+
+
+flash_decode_paged_mla.launches = 0

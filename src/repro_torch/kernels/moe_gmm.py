@@ -48,8 +48,9 @@ def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
     expect("moe_gmm", xs, "xs", bf16)
     expect("moe_gmm", w1, "w1", bf16, (e, d, 2 * f))
     expect("moe_gmm", w2, "w2", bf16, (e, f, d))
-    if d % 64 or f % 64:
-        raise ValueError(f"moe_gmm: D={d} and F={f} must be multiples of 64")
+    if d % 64 or f % 32:
+        raise ValueError(f"moe_gmm: D={d} must be a multiple of 64 and "
+                         f"F={f} of 32")
     if block_m % 8 or not 8 <= block_m <= 128 or m % block_m:
         raise ValueError(f"moe_gmm: block_m={block_m} must be a multiple of "
                          f"8 in [8, 128] dividing M={m}")

@@ -13,9 +13,15 @@ path ran).
     PYTHONPATH=src python -m repro_torch.launch.forward --arch olmoe-1b-7b \
         --reduced --device cpu --batch 2 --seq 64 --lexi-budget-frac 0.5
 
-The forward runs ``flash_attention`` and ``moe_gmm``.  Each pruned copy of
-the experts is built, timed in turns with the baseline and the plan, and
-freed before the next.
+    # DeepSeek-V2-Lite (MLA, a dense first layer, shared experts)
+    PYTHONPATH=src python -m repro_torch.launch.forward \
+        --arch deepseek-v2-lite --reduced --device cpu --batch 2 --seq 64
+
+The forward runs ``moe_gmm``, and ``flash_attention`` on a GQA model (an
+MLA model, ``--arch deepseek-v2-lite``, attends through the plain masked
+softmax in train mode, as the reference).  Each pruned copy of the experts
+is built, timed in turns with the baseline and the plan, and freed before
+the next.
 """
 
 from __future__ import annotations
@@ -76,8 +82,9 @@ def compare(params, cfg: ModelConfig, plan, batch, *,
                 (time.perf_counter() - t0) * 1e3)
         out[name] = {"xent": xent.item(), "experts": c.num_experts,
                      "moe_d_ff": c.moe_d_ff,
-                     "mean_top_k": float(np.mean([s.moe_top_k
-                                                  for s in c.pattern()]))}
+                     "mean_top_k": float(np.mean([
+                         s.moe_top_k for s in c.pattern()
+                         if s.kind == "attn_moe"]))}
 
     for name, prune in ((f"inter_prune_{prune_frac:g}", inter_prune),
                         (f"intra_prune_{prune_frac:g}", intra_prune)):

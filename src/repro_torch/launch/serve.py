@@ -26,6 +26,13 @@ plan searched (or loaded) for the model -- on the card by default.
         --use-flash-decode --use-moe-decode --use-moe-kernel \
         --lexi-budget-frac 0.5
 
+    # DeepSeek-V2-Lite: MLA attention (flash_decode_paged_mla in paged
+    # decode under --use-kernel), a dense first layer, shared experts
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite --reduced --device cpu --requests 4 \
+        --max-new 8 --max-len 96 --lexi-budget-frac 0.5 --use-kernel \
+        --use-moe-decode --use-moe-kernel
+
 Flag names follow ``repro.launch.serve`` for the features the port has.
 The MoE layers always run the dropless ``gmm`` dispatch (the only one the
 port serves); baseline and plan are served from one engine and one set of
@@ -127,7 +134,8 @@ def main(argv=None) -> int:
                          "max_batch x max_len)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="paged decode attends pages in-kernel "
-                         "(flash_decode_paged) instead of gathering")
+                         "(flash_decode_paged, or flash_decode_paged_mla "
+                         "on an MLA model) instead of gathering")
     ap.add_argument("--use-moe-decode", action="store_true",
                     help="decode steps run MoE through the fused "
                          "routed-expert path instead of the gmm dispatch")

@@ -1,11 +1,15 @@
-"""GQA attention (qk-norm, sliding window) over the contiguous or the paged
-KV cache.
+"""Attention layers: GQA (qk-norm, sliding window) and MLA (Multi-head
+Latent Attention), over the contiguous or the paged KV cache.
 
 The two layouts, per layer, as in ``repro.models.attention``::
 
-    contiguous  {"k": [B, S_buf, Hkv, hd], "v": [B, S_buf, Hkv, hd],
-                 "pos": [B, S_buf]}
-    paged       {"kp": [N, P, Hkv, hd], "vp": [N, P, Hkv, hd], "posp": [N, P]}
+    contiguous  GQA {"k": [B, S_buf, Hkv, hd], "v": [B, S_buf, Hkv, hd],
+                     "pos": [B, S_buf]}
+                MLA {"ckv": [B, S_buf, r], "krope": [B, S_buf, dr],
+                     "pos": [B, S_buf]}
+    paged       GQA {"kp": [N, P, Hkv, hd], "vp": [N, P, Hkv, hd],
+                     "posp": [N, P]}
+                MLA {"ckvp": [N, P, r], "kropep": [N, P, dr], "posp": [N, P]}
 
 A contiguous row is a ring of S_buf slots (slot = pos % S_buf); a paged
 pool holds N pages of P positions.  ``block_tables [B, n_blk]`` maps
@@ -25,6 +29,14 @@ pages in place through ``flash_decode_paged`` under ``use_paged_kernel``
 (walking the first ``kernel_blocks`` table columns), else reads a
 contiguous view -- the cache itself, or the pages gathered -- through the
 ``flash_decode`` kernel under ``use_flash_decode`` or the masked softmax.
+
+MLA caches one latent row per position (``r = kv_lora_rank`` values plus a
+single ``dr``-wide rope key shared by every head).  Train and prefill
+materialize k and v per token; chunk and decode write the new latents
+first and then attend the whole cache, either absorbed (``W_kv_b(k)``
+folded into the query, ``W_kv_b(v)`` into the output: work scales with
+``r``) or materialized.  Paged absorbed decode under ``use_paged_kernel``
+runs the ``flash_decode_paged_mla`` kernel over the latent pages in place.
 """
 
 from __future__ import annotations
@@ -46,12 +58,38 @@ TRASH_PAGE = 0  # reserved page unmapped block-table entries point at
 # --------------------------------------------------------------------------- #
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
-    if cfg.attention != "gqa":
+def _check_attention(cfg: ModelConfig) -> None:
+    if cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.attention!r} attention is not ported yet (ROADMAP.md A11)")
+            f"{cfg.attention!r} attention is not ported (ROADMAP.md A15)")
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
+    _check_attention(cfg)
     dt = param_dtype(cfg)
-    d, hd = cfg.d_model, cfg.head_dim_
+    d = cfg.d_model
+    if cfg.attention == "mla":
+        hd_q = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        h, r = cfg.num_heads, cfg.kv_lora_rank
+        p: Dict = {}
+        if cfg.q_lora_rank:
+            p["wq_a"] = dense_init(gen, (d, cfg.q_lora_rank), dt, device)
+            p["q_norm"] = {"scale": torch.ones(cfg.q_lora_rank, dtype=dt,
+                                               device=device)}
+            p["wq_b"] = dense_init(gen, (cfg.q_lora_rank, h * hd_q), dt,
+                                   device, in_axis_size=cfg.q_lora_rank)
+        else:
+            p["wq"] = dense_init(gen, (d, h * hd_q), dt, device)
+        p["wkv_a"] = dense_init(gen, (d, r + cfg.qk_rope_head_dim), dt,
+                                device)
+        p["kv_norm"] = {"scale": torch.ones(r, dtype=dt, device=device)}
+        p["wkv_b"] = dense_init(
+            gen, (r, h * (cfg.qk_nope_head_dim + cfg.v_head_dim)), dt,
+            device, in_axis_size=r)
+        p["wo"] = dense_init(gen, (h * cfg.v_head_dim, d), dt, device,
+                             in_axis_size=h * cfg.v_head_dim)
+        return p
+    hd = cfg.head_dim_
     p = {
         "wq": dense_init(gen, (d, cfg.num_heads * hd), dt, device),
         "wk": dense_init(gen, (d, cfg.num_kv_heads * hd), dt, device),
@@ -80,6 +118,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
     """Single-layer contiguous cache: ``batch`` rows of ``S_buf`` slots."""
     dt = activation_dtype(cfg)
     s = cache_buf_len(cfg, max_len)
+    if cfg.attention == "mla":
+        return {
+            "ckv": torch.zeros((batch, s, cfg.kv_lora_rank), dtype=dt,
+                               device=device),
+            "krope": torch.zeros((batch, s, cfg.qk_rope_head_dim), dtype=dt,
+                                 device=device),
+            "pos": torch.full((batch, s), -1, dtype=torch.int32,
+                              device=device),
+        }
     shape = (batch, s, cfg.num_kv_heads, cfg.head_dim_)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
@@ -129,12 +176,20 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device) -> Dict:
     """Single-layer paged pool: ``num_pages`` pages of ``page_size`` slots."""
     dt = activation_dtype(cfg)
-    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim_)
+    n, p = num_pages, page_size
+    if cfg.attention == "mla":
+        return {
+            "ckvp": torch.zeros((n, p, cfg.kv_lora_rank), dtype=dt,
+                                device=device),
+            "kropep": torch.zeros((n, p, cfg.qk_rope_head_dim), dtype=dt,
+                                  device=device),
+            "posp": torch.full((n, p), -1, dtype=torch.int32, device=device),
+        }
+    shape = (n, p, cfg.num_kv_heads, cfg.head_dim_)
     return {
         "kp": torch.zeros(shape, dtype=dt, device=device),
         "vp": torch.zeros(shape, dtype=dt, device=device),
-        "posp": torch.full((num_pages, page_size), -1, dtype=torch.int32,
-                           device=device),
+        "posp": torch.full((n, p), -1, dtype=torch.int32, device=device),
     }
 
 
@@ -319,8 +374,154 @@ def gqa_attention(
     return out, cache
 
 
+# --------------------------------------------------------------------------- #
+# MLA forward
+# --------------------------------------------------------------------------- #
+
+
+def _mla_q(params, cfg: ModelConfig, x):
+    """x [B,S,D] -> (q_nope [B,S,H,dn], q_rope [B,S,H,dr]).  The q and kv
+    norms are RMSNorms with ``cfg.norm_eps`` whatever ``cfg.norm_type`` is
+    (``rms_norm_headwise`` over the last dim is that norm)."""
+    b, s, _ = x.shape
+    hd_q = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        cq = rms_norm_headwise(x @ params["wq_a"],
+                               params["q_norm"]["scale"], cfg.norm_eps)
+        q = (cq @ params["wq_b"]).reshape(b, s, cfg.num_heads, hd_q)
+    else:
+        q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd_q)
+    return q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
+
+
+def _mla_latents(params, cfg: ModelConfig, x, positions):
+    """x [B,S,D] -> (ckv [B,S,r] RMS-normed, krope [B,S,dr] rotated)."""
+    ckv, krope = (x @ params["wkv_a"]).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_head_dim], dim=-1)
+    ckv = rms_norm_headwise(ckv, params["kv_norm"]["scale"], cfg.norm_eps)
+    krope = apply_rope(krope[:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0, :]
+    return ckv, krope
+
+
+def _wkv_b_split(params, cfg: ModelConfig):
+    """W_kv_b [r, H*(dn+dv)] -> (wk_b [r, H, dn], wv_b [r, H, dv])."""
+    wkv_b = params["wkv_b"].reshape(
+        cfg.kv_lora_rank, cfg.num_heads, cfg.qk_nope_head_dim + cfg.v_head_dim)
+    return (wkv_b[..., :cfg.qk_nope_head_dim],
+            wkv_b[..., cfg.qk_nope_head_dim:])
+
+
+def mla_attention(
+    params: Dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    mode: str = "train",
+    cache: Optional[Dict] = None,
+    absorb: bool = True,
+    block_tables=None,
+    use_paged_kernel: bool = False,
+    kernel_blocks: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Multi-head Latent Attention (DeepSeek-V2).  x [B,S,D]; positions
+    [B,S] (train/prefill/chunk) or [B] (decode).
+
+    ``use_paged_kernel`` (paged cache, decode, absorbed path only) attends
+    the latent pages ``ckvp`` / ``kropep`` in place through the
+    ``flash_decode_paged_mla`` kernel; every other mode and the
+    materialized path gather.  Returns (output [B,S,D], the cache --
+    updated in place -- or None)."""
+    b, s, _ = x.shape
+    h, dv = cfg.num_heads, cfg.v_head_dim
+    scale = 1.0 / ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** 0.5)
+
+    if mode in ("decode", "chunk"):
+        # decode is the S=1 case of chunked prefill: write the new latents
+        # first, then attend everything the cache holds (the reference's
+        # MLA order, unlike the GQA chunk path)
+        q_pos = positions[:, None] if mode == "decode" else positions
+        q_nope, q_rope = _mla_q(params, cfg, x)
+        q_rope = apply_rope(q_rope, q_pos, cfg.rope_theta)
+        ckv_t, krope_t = _mla_latents(params, cfg, x, q_pos)
+        wk_b, wv_b = _wkv_b_split(params, cfg)
+        if "ckvp" in cache:
+            _paged_write(cache["ckvp"], ckv_t, q_pos, block_tables)
+            _paged_write(cache["kropep"], krope_t, q_pos, block_tables)
+            _paged_write(cache["posp"], q_pos, q_pos, block_tables)
+            if use_paged_kernel and absorb and mode == "decode":
+                from repro_torch.kernels import flash_decode_paged_mla
+                q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(),
+                                     wk_b.float())
+                bt = (block_tables if kernel_blocks is None
+                      else block_tables[:, :kernel_blocks])
+                o_lat = flash_decode_paged_mla(
+                    q_lat[:, 0].contiguous(),
+                    q_rope[:, 0].float().contiguous(), cache["ckvp"],
+                    cache["kropep"], cache["posp"], bt, positions.int(),
+                    scale=scale)                           # [B, H, r] f32
+                out = torch.einsum("bhr,rhv->bhv", o_lat, wv_b.float())
+                out = out.to(x.dtype).reshape(b, s, h * dv)
+                return out @ params["wo"], cache
+            ckv = _paged_read(cache["ckvp"], block_tables)
+            krope = _paged_read(cache["kropep"], block_tables)
+            kv_pos = _paged_read(cache["posp"], block_tables)
+        else:
+            _write_seq(cache["ckv"], ckv_t, q_pos)
+            _write_seq(cache["krope"], krope_t, q_pos)
+            _write_seq(cache["pos"], q_pos, q_pos)
+            ckv, krope, kv_pos = cache["ckv"], cache["krope"], cache["pos"]
+        bias = _mask_bias(q_pos, kv_pos, None, True)       # [B,1,Sq,Sk]
+        ckv = ckv.float()
+        s_rope = torch.einsum("bshd,bkd->bhsk", q_rope.float(),
+                              krope.float())
+        if absorb:
+            # fold W_kv_b(k) into q and W_kv_b(v) into the output
+            q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(),
+                                 wk_b.float())
+            s_nope = torch.einsum("bshr,bkr->bhsk", q_lat, ckv)
+            probs = torch.softmax((s_nope + s_rope) * scale + bias, dim=-1)
+            o_lat = torch.einsum("bhsk,bkr->bshr", probs, ckv)
+            out = torch.einsum("bshr,rhv->bshv", o_lat, wv_b.float())
+        else:
+            kn = torch.einsum("bkr,rhn->bkhn", ckv, wk_b.float())
+            vv = torch.einsum("bkr,rhv->bkhv", ckv, wv_b.float())
+            s_nope = torch.einsum("bshn,bkhn->bhsk", q_nope.float(), kn)
+            probs = torch.softmax((s_nope + s_rope) * scale + bias, dim=-1)
+            out = torch.einsum("bhsk,bkhv->bshv", probs, vv)
+        out = out.to(x.dtype).reshape(b, s, h * dv)
+        return out @ params["wo"], cache
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"attention mode {mode!r}: the port serves "
+                         "'train', 'prefill', 'chunk' and 'decode'")
+
+    # train / prefill: materialize k and v per token (q, k 192 wide, v 128)
+    q_nope, q_rope = _mla_q(params, cfg, x)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv, krope = _mla_latents(params, cfg, x, positions)
+    wk_b, wv_b = _wkv_b_split(params, cfg)
+    kn = torch.einsum("bkr,rhn->bkhn", ckv, wk_b)
+    vv = torch.einsum("bkr,rhv->bkhv", ckv, wv_b)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([kn, krope[:, :, None, :].expand(
+        b, s, h, krope.shape[-1]).to(kn.dtype)], dim=-1)
+    bias = _mask_bias(positions, positions, None, True)
+    out = _sdpa(q, k, vv.to(q.dtype), bias, scale).reshape(b, s, h * dv)
+    if mode == "prefill":
+        _write_seq(cache["ckv"], ckv, positions)
+        _write_seq(cache["krope"], krope, positions)
+        _write_seq(cache["pos"], positions, positions)
+    else:
+        cache = None
+    return out @ params["wo"], cache
+
+
 def attention(params, cfg: ModelConfig, x, positions, **kw):
-    if cfg.attention != "gqa":
-        raise NotImplementedError(
-            f"{cfg.attention!r} attention is not ported yet (ROADMAP.md A11)")
+    """Dispatch on ``cfg.attention``; MLA takes the block table, the paged
+    kernel switch, ``kernel_blocks`` and ``absorb``, and no other option
+    (no flash_attention or flash_decode kernel runs on an MLA model)."""
+    _check_attention(cfg)
+    if cfg.attention == "mla":
+        return mla_attention(params, cfg, x, positions, **kw)
     return gqa_attention(params, cfg, x, positions, **kw)

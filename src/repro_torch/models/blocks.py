@@ -79,12 +79,18 @@ def apply_block(
 ):
     """Returns (x, cache, aux_loss)."""
     _check_kind(spec)
+    attn_kw = {"block_tables": block_tables,
+               "use_paged_kernel": opts.use_paged_kernel,
+               "kernel_blocks": kernel_blocks}
+    if cfg.attention == "mla":
+        attn_kw["absorb"] = opts.mla_absorb
+    else:
+        attn_kw.update(use_flash=opts.use_flash,
+                       compute_dtype=opts.attn_compute_dtype,
+                       use_flash_decode=opts.use_flash_decode)
     h, cache = attn_mod.attention(
         params["attn"], cfg, apply_norm(params["norm1"], cfg, x), positions,
-        mode=mode, cache=cache, compute_dtype=opts.attn_compute_dtype,
-        block_tables=block_tables, use_flash=opts.use_flash,
-        use_flash_decode=opts.use_flash_decode,
-        use_paged_kernel=opts.use_paged_kernel, kernel_blocks=kernel_blocks)
+        mode=mode, cache=cache, **attn_kw)
     x = x + h
     h2 = apply_norm(params["norm2"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -36,6 +36,10 @@ class ModelOpts:
     #: or "int8" / "int4", quantized at load (Engine(expert_dtype=)) and
     #: dequantized in the moe_gmm_quant / moe_decode_quant kernels
     expert_dtype: str = "bf16"
+    #: MLA chunk and decode with W_kv_b absorbed into the query and output
+    #: projections (work scales with the latent rank; paged decode then runs
+    #: the flash_decode_paged_mla kernel) instead of materialized k / v
+    mla_absorb: bool = True
     #: attention score math: "f32" casts K/V to f32; "bf16_accum32" keeps
     #: the storage dtype for the products
     attn_compute_dtype: str = "f32"

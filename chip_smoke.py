@@ -10,8 +10,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 2. kernels -- hold each kernel against its plain PyTorch version in bf16 at
               the shapes the main paths give it (``flash_attention`` and
               ``flash_decode`` also at one GQA shape with a sliding window;
-              the attention kernels and the quantized expert kernels, in
-              int8 and int4, row by row, to ROW_TOL),
+              the attention kernels, ``moe_ffn`` and the quantized expert
+              kernels, in int8 and int4, row by row, to ROW_TOL;
+              ``moe_ffn`` on capacity buffers dispatched by the model's
+              router at the forward, chunk and decode shapes),
               and time both with CUDA events (per-call medians of device
               time, L2 flushed before every call, kernel, plain and -- where
               one PyTorch call computes the same function -- that call
@@ -23,11 +25,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               ``moe_gmm`` kernel, then the DP search), register it and serve
               again.
 4. forward -- the paper's Fig. 4 comparison at full width: ``loss_fn``
-              through ``flash_attention`` and ``moe_gmm`` on 4 x 512 tokens
-              for the baseline, the LExI plan (``apply_plan_params``), and
-              the ``inter_prune`` / ``intra_prune`` baselines at 0.25 (each
-              pruned copy freed before the next is built); median forward
-              ms over interleaved repeats, and the cross-entropy of each.
+              through ``flash_attention`` and the config's own ``dense``
+              MoE (``moe_ffn``) on 4 x 512 tokens for the baseline, the
+              LExI plan (``apply_plan_params``), and the ``inter_prune`` /
+              ``intra_prune`` baselines at 0.25 (each pruned copy freed
+              before the next is built), and the baseline and the plan on
+              ``gmm`` (``moe_gmm``) too; median forward ms over interleaved
+              repeats, and the cross-entropy of each.
 5. serve_contiguous -- the same 8 requests, baseline and LExI plan, through
               the contiguous layout with whole-prompt prefill
               (``flash_attention``, ``moe_gmm``) and decode
@@ -37,12 +41,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               and then ``"int4"``, baseline and LExI plan each: every step
               must launch ``moe_gmm_quant``, ``moe_decode_quant`` and
               ``flash_decode_paged``, and neither bf16 expert kernel.
-7. serve_mla -- the OLMoE weights freed, DeepSeek-V2-Lite at full width and
+7. serve_dense -- the same 8 requests on the paged pool through the
+              config's own ``dense`` impl (``moe_ffn``, 16 launches a chunk
+              and a decode step; ``flash_decode_paged``), baseline and LExI
+              plan: no ``moe_gmm`` and no ``moe_decode`` may launch; the
+              copies the capacity buffers dropped are counted.
+8. serve_mla -- the OLMoE weights freed, DeepSeek-V2-Lite at full width and
               depth (27 layers, MLA with kv_lora_rank 512, a dense first
               layer, 64 experts top-6 plus 2 shared), bf16, random weights
-              drawn on the card: ``moe_gmm`` and ``moe_decode`` held against
-              their plain versions at its expert shapes, the kernel paths'
-              logits against the plain paths', then the same 8 requests on
+              drawn on the card: ``moe_gmm``, ``moe_decode`` and ``moe_ffn``
+              held against their plain versions at its expert shapes (and
+              the intra-pruned F 1056, with the quantized kernels), the
+              kernel paths' logits against the plain paths' (``gmm`` and
+              ``dense``), then the same 8 requests on
               the paged pool (``flash_decode_paged_mla``, 27 launches a
               decode step, ``moe_gmm``, ``moe_decode``; no GQA attention
               kernel), a LExI plan searched on the card at budget
@@ -50,14 +61,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               contiguous layout with whole-prompt prefill (``moe_gmm``,
               ``moe_decode``; no attention kernel: MLA's contiguous decode
               is plain PyTorch, as in the reference).
-8. forward_mla -- phase 4 on DeepSeek-V2-Lite (``moe_gmm``; MLA's train
-              mode attends through the plain masked softmax).
+9. forward_mla -- phase 4 on DeepSeek-V2-Lite (``moe_ffn`` and
+              ``moe_gmm``; MLA's train mode attends through the plain
+              masked softmax).
 
 Every kernel's launch counter is zeroed just before and read just after
-each step of phases 3-8; each step must launch the kernels it runs.  A
+each step of phases 3-9; each step must launch the kernels it runs.  A
 small reference check holds the kernel paths' logits against the plain
-paths' on the same inputs, row by row, with bf16 experts and with int8
-and int4 experts, and on DeepSeek-V2-Lite.  Then it prints the
+paths' on the same inputs, row by row, with bf16 experts on ``gmm`` and
+on ``dense``, with int8 and int4 experts, and on DeepSeek-V2-Lite.  Then
+it prints the
 ``kernels`` summary line (launches summed over every step), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
@@ -271,7 +284,7 @@ def varied_experts(layer, seed: int = 6):
                 w2=(w2.float() * c2).to(w2.dtype))
 
 
-def check_moe_gmm_quant(layer, cfg, x, flush):
+def check_moe_gmm_quant(layer, cfg, x, flush, tag: str = ""):
     """B6 in int8 and int4 on layer 0's experts (channels scaled apart,
     ``varied_experts``) quantized on the card, at the prefill shape (512
     tokens x top-k); returns a kernels-line row's numbers per dtype."""
@@ -294,7 +307,7 @@ def check_moe_gmm_quant(layer, cfg, x, flush):
         q = quantize_moe_layer(varied, dt)
         args = (xs, q["w1"], q["w2"], q["w1_scale"], q["w2_scale"],
                 plan.tile_expert, plan.tile_valid)
-        err = compare_rows(f"moe_gmm_quant_{dt}",
+        err = compare_rows(f"moe_gmm_quant{tag}_{dt}",
                            moe_gmm_quant(*args, dtype=dt,
                                          block_m=plan.block_m),
                            moe_gmm_quant_plain(*args, plan.block_m, dtype=dt),
@@ -311,7 +324,7 @@ def check_moe_gmm_quant(layer, cfg, x, flush):
     return out
 
 
-def check_moe_decode_quant(layer, cfg, x, flush):
+def check_moe_decode_quant(layer, cfg, x, flush, tag: str = ""):
     """B5 in int8 and int4 at the decode shape (8 tokens, top-k) on the
     same varied experts, one router weight set to zero (route()'s k_budget
     relies on a zero-weight slot adding exactly nothing)."""
@@ -332,7 +345,7 @@ def check_moe_decode_quant(layer, cfg, x, flush):
         q = quantize_moe_layer(varied, dt)
         args = (x, q["w1"], q["w2"], q["w1_scale"], q["w2_scale"], idx,
                 weights)
-        err = compare_rows(f"moe_decode_quant_{dt}",
+        err = compare_rows(f"moe_decode_quant{tag}_{dt}",
                            moe_decode_quant(*args, dtype=dt),
                            moe_decode_quant_plain(*args, dtype=dt),
                            batch=b, k=k, experts=experts)
@@ -344,6 +357,50 @@ def check_moe_decode_quant(layer, cfg, x, flush):
         out[dt] = (err, ms, plain_ms, nbytes, b * k * 6 * d * f)
         del q, args
     return out
+
+
+def capacity_buffers(layer, cfg, x):
+    """xe [E, C, D]: ``x``'s token copies dispatched by the layer's own
+    router into capacity buffers, as ``moe_dense`` builds them."""
+    from repro_torch.models.moe import capacity, route
+    from repro_torch.models.moe.dispatch import _scatter, _slot_positions
+    k, e = cfg.moe_top_k, cfg.num_experts
+    _, idx, _ = route(layer, cfg, x, k)
+    cap = capacity(x.shape[0], k, e, cfg.moe_capacity_factor)
+    pos, keep = _slot_positions(idx, e, cap)
+    return _scatter(x, idx, pos, keep, e, cap), int((~keep).sum())
+
+
+def check_moe_ffn(layer, cfg, x, flush, tag: str):
+    """B9 on ``x``'s capacity buffers (``capacity_buffers``) and the
+    layer's experts scaled apart per channel (``varied_experts``), held row
+    by row; timed against the plain version and the library's bf16
+    ``bmm`` -> SwiGLU -> ``bmm`` (two cuBLAS calls and the elementwise
+    ops between them, not one call).  Every expert's weights and every
+    buffer row are read, whatever the routing."""
+    import torch.nn.functional as F_
+    from repro_torch.kernels import moe_ffn
+    from repro_torch.kernels.moe_ffn import moe_ffn_plain
+    xe, dropped = capacity_buffers(layer, cfg, x)
+    varied = varied_experts(layer)
+    w1, w2 = varied["w1"], varied["w2"]
+    e, c, d = xe.shape
+    f = w2.shape[1]
+    err = compare_rows(f"moe_ffn_{tag}", moe_ffn(xe, w1, w2),
+                       moe_ffn_plain(xe, w1, w2), tokens=x.shape[0],
+                       k=cfg.moe_top_k, capacity=c, f=f,
+                       dropped_copies=dropped)
+
+    def library():
+        h = torch.bmm(xe, w1)
+        return torch.bmm(F_.silu(h[..., :f]) * h[..., f:], w2)
+
+    ms, plain_ms, lib_ms = time_calls(
+        (lambda: moe_ffn(xe, w1, w2), lambda: moe_ffn_plain(xe, w1, w2),
+         library), flush)
+    nbytes = e * 3 * d * f * 2 + 2 * e * c * d * 2
+    flops = e * c * 6 * d * f
+    return err, ms, plain_ms, nbytes, flops, lib_ms
 
 
 def paged_positions(lens, n, p, n_blk, device):
@@ -545,18 +602,21 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
             "library_ms": library_ms}
 
 
-def quant_row(name, source, replaces, per_dtype):
-    """A quantized kernel's row: the int8 numbers at the top level (the
-    row's keys), each dtype's under ``dtypes``; ``max_abs_err`` is the
-    larger of the two; no single PyTorch call computes dequant plus the
-    grouped SwiGLU, so ``library_ms`` is null."""
-    rows = {dt: kernel_row(name, source, replaces, *v)
-            for dt, v in per_dtype.items()}
-    row = dict(rows["int8"])
+#: the numbers a row keeps for each of its dtypes or shapes
+NESTED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
+def nested_row(name, source, replaces, per, nest):
+    """A kernel's row over several dtypes or shapes (``nest``: "dtypes"
+    or "shapes"): the first one's numbers at the top level (the row's
+    keys), each one's under ``nest``; ``max_abs_err`` is the largest."""
+    rows = {key: kernel_row(name, source, replaces, *v)
+            for key, v in per.items()}
+    row = dict(next(iter(rows.values())))
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
-    row["dtypes"] = {dt: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                            "bound_ms", "bound_by")}
-                     for dt, r in rows.items()}
+    row[nest] = {key: {k: r[k] for k in NESTED_KEYS}
+                 for key, r in rows.items()}
     return row
 
 
@@ -716,6 +776,19 @@ def reference_check(params, cfg, device):
                 for i, step in enumerate(("prefill", "decode"))}
         gate_logits(check, run(kern), want_all, **extra)
 
+    # the config's own dense impl: moe_ffn in the chunk and in the decode
+    # step (dense is never rerouted to moe_decode) against its bf16 plain
+    # path, the reference's jnp form
+    dense = cfg.with_(moe_impl="dense")
+    got, counts = counted(lambda: paged_logits(
+        params, dense, paths["reference_logits"][1], dev))
+    gate_logits("reference_logits_dense", got,
+                paged_logits(params, dense, models.ModelOpts(), dev),
+                launches={n: counts[n] for n in ("moe_ffn", "moe_gmm",
+                                                 "moe_decode")})
+    if counts["moe_ffn"] != 2 or counts["moe_gmm"] or counts["moe_decode"]:
+        raise AssertionError(f"dense reference check launched {counts}")
+
     from repro_torch.models.transformer import forward, lm_logits
     lg = [lm_logits(params, cfg, forward(params, cfg, dev["tokens"],
                                          dev["positions"], opts=o)[0])
@@ -754,7 +827,81 @@ def forward_phase(params, cfg, plan, device):
 
 
 # --------------------------------------------------------------------------- #
-# phases 7-8: DeepSeek-V2-Lite (MLA)
+# phase 7: the config's own dense impl on the paged pool
+# --------------------------------------------------------------------------- #
+
+
+def serve_dense(params, cfg, plan, device, t_start):
+    """The 8 requests on the paged pool through ``cfg``'s ``dense`` impl,
+    baseline and ``plan``: ``moe_ffn`` must launch once a layer in every
+    chunk and every decode step, ``flash_decode_paged`` once a layer in
+    every decode step, ``moe_gmm`` and ``moe_decode`` never (dense is not
+    rerouted, ``use_moe_decode`` notwithstanding).  The token copies the
+    capacity buffers dropped are summed on the card (one reduction a
+    layer) and read after each serve.  Returns {step: (counts, kernels
+    the step must launch)}."""
+    from repro_torch import models
+    from repro_torch.models.moe import dense as dense_mod
+    from repro_torch.serving import Engine
+    assert cfg.moe_impl == "dense"
+    eng = Engine(cfg, params, max_batch=8, max_len=512, prefill_chunk=64,
+                 use_kernel=True, use_moe_decode=True,
+                 opts=models.ModelOpts(use_moe_kernel=True), device=device)
+    eng.serve(requests(cfg, seed=0, n=2, max_new=4))      # warm-up wave
+    eng.add_plan("lexi", plan)
+    calls = {"chunk": 0, "decode": 0, "dropped": None, "copies": 0}
+    for name in ("chunk", "decode"):
+        fn = getattr(eng.runner, "chunk_prefill" if name == "chunk"
+                     else "decode")
+
+        def step(*a, fn=fn, name=name, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        setattr(eng.runner, "chunk_prefill" if name == "chunk" else "decode",
+                step)
+    slot_positions = dense_mod._slot_positions
+
+    def counting(idx, e, cap):
+        pos, keep = slot_positions(idx, e, cap)
+        calls["dropped"] += (~keep).sum()
+        calls["copies"] += keep.numel()
+        return pos, keep
+
+    rec, need = {"phase": "serve_dense", "impl": cfg.moe_impl}, {}
+    dense_mod._slot_positions = counting
+    try:
+        for tag, plan_name in (("baseline", None), ("lexi", "lexi")):
+            calls.update(chunk=0, decode=0, copies=0, dropped=torch.zeros(
+                (), dtype=torch.long, device=device))
+            res, counts = counted(
+                lambda: eng.serve(requests(cfg, seed=0), plan=plan_name))
+            check_results(f"dense {tag}", res, cfg, max_new=32)
+            n = cfg.num_layers
+            if (counts["moe_gmm"] or counts["moe_decode"]
+                    or counts["moe_ffn"] != n * (calls["chunk"]
+                                                 + calls["decode"])
+                    or counts["flash_decode_paged"] != n * calls["decode"]):
+                raise AssertionError(f"dense {tag}: launches {counts} for "
+                                     f"{calls['chunk']} chunk and "
+                                     f"{calls['decode']} decode steps")
+            need[f"dense_{tag}"] = (counts, ("moe_ffn", "flash_decode_paged"))
+            rec[f"{tag}_tok_s"] = eng.throughput()
+            rec[f"{tag}_stats"] = {k: eng.stats[k] for k in (
+                "prefill_tokens", "decode_tokens", "steps", "preemptions",
+                "wall_s")}
+            rec[f"{tag}_model_steps"] = {k: calls[k] for k in ("chunk",
+                                                                "decode")}
+            rec[f"{tag}_copies"] = calls["copies"]
+            rec[f"{tag}_dropped_copies"] = int(calls["dropped"])
+            rec.setdefault("launches", {})[tag] = counts
+    finally:
+        dense_mod._slot_positions = slot_positions
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return need
+
+
+# --------------------------------------------------------------------------- #
+# phases 8-9: DeepSeek-V2-Lite (MLA)
 # --------------------------------------------------------------------------- #
 
 #: attention kernels an MLA model never launches: the reference drops
@@ -763,14 +910,18 @@ GQA_ATTENTION = ("flash_attention", "flash_decode", "flash_decode_paged")
 
 
 def mla_checks(params, cfg, device):
-    """``moe_gmm`` and ``moe_decode`` at DeepSeek-V2-Lite's expert shapes
-    (F 1408, top-6; ``moe_gmm`` also on an intra-pruned layer, F 1056, as
-    forward_mla runs it) against their plain versions; then the kernel
-    paths' logits against the plain paths' through the model cut to its
-    dense layer and its first MoE layer -- a chunk prefill and a decode
-    step on the paged pool, row by row to LOGITS_TOL.  The kernel side
-    must launch ``flash_decode_paged_mla`` once per layer in the decode
-    step and no GQA attention kernel."""
+    """``moe_gmm``, ``moe_decode`` and ``moe_ffn`` (on decode-shaped
+    capacity buffers, C 4) at DeepSeek-V2-Lite's expert shapes (F 1408,
+    top-6) and on an intra-pruned layer (F 1056, as forward_mla runs it),
+    with ``moe_decode_quant`` and ``moe_gmm_quant`` in int8 and int4 there
+    too, against their plain versions; then the kernel paths' logits
+    against the plain paths' through the model cut to its dense layer and
+    its first MoE layer -- a chunk prefill and a decode step on the paged
+    pool, row by row to LOGITS_TOL, on ``gmm`` and on ``dense``.  The
+    ``gmm`` kernel side must launch ``flash_decode_paged_mla`` once per
+    layer in the decode step and no GQA attention kernel; the ``dense``
+    one ``moe_ffn`` once a step and neither ``moe_gmm`` nor ``moe_decode``.
+    Returns {kernel: {shape: numbers}} for the kernels line."""
     from repro_torch import models
     from repro_torch.core import intra_prune
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
@@ -778,20 +929,36 @@ def mla_checks(params, cfg, device):
     gen.manual_seed(8)
     x = torch.randn((512, cfg.d_model), generator=gen, device=device,
                     dtype=torch.bfloat16)
+    x8 = x[:8].contiguous()
     cfg2 = cfg.with_(num_layers=2)
     params2 = dict(params, layers=params["layers"][:2])
     layer = params2["layers"][1]["moe"]
     pruned, cfg_p = intra_prune(params2, cfg2, 0.25)
-    timing = {}
+    lay_p = pruned["layers"][1]["moe"]
+    timing, shapes = {}, {}
     for name, check, lay, c, xx in (
             ("moe_gmm", check_moe_gmm, layer, cfg, x),
-            ("moe_gmm", check_moe_gmm, pruned["layers"][1]["moe"], cfg_p, x),
-            ("moe_decode", check_moe_decode, layer, cfg, x[:8].contiguous())):
+            ("moe_gmm", check_moe_gmm, lay_p, cfg_p, x),
+            ("moe_decode", check_moe_decode, layer, cfg, x8),
+            ("moe_decode", check_moe_decode, lay_p, cfg_p, x8)):
         tag = f"_f{c.moe_d_ff}"
         _, ms, plain_ms, _, _ = check(lay, c, xx, flush, tag=tag)
         timing[name + tag] = {"ms": ms, "plain_ms": plain_ms}
-    emit({"check": "deepseek_expert_kernels", "timing": timing})
-    del pruned, flush
+    for lay, c in ((layer, cfg), (lay_p, cfg_p)):
+        sh = f"deepseek_decode_f{c.moe_d_ff}_c4"
+        shapes.setdefault("moe_ffn", {})[sh] = kernel_row(
+            "moe_ffn", "", "", *check_moe_ffn(lay, c, x8, flush, sh))
+    for name, check, xx in (("moe_decode_quant", check_moe_decode_quant, x8),
+                            ("moe_gmm_quant", check_moe_gmm_quant, x)):
+        f = cfg_p.moe_d_ff
+        for dt, v in check(lay_p, cfg_p, xx, flush, f"_f{f}").items():
+            shapes.setdefault(name, {})[f"f{f}_{dt}"] = kernel_row(
+                name, "", "", *v)
+    shapes = {n: {sh: {k: r[k] for k in NESTED_KEYS} for sh, r in rs.items()}
+              for n, rs in shapes.items()}
+    emit({"check": "deepseek_expert_kernels", "timing": timing,
+          "shapes": shapes})
+    del pruned, lay_p, flush
 
     dev = ref_inputs(cfg2, device)
     kern = models.ModelOpts(use_moe_kernel=True, use_paged_kernel=True,
@@ -805,10 +972,19 @@ def mla_checks(params, cfg, device):
     if (counts["flash_decode_paged_mla"] != cfg2.num_layers
             or any(counts[n] for n in GQA_ATTENTION)):
         raise AssertionError(f"MLA reference check launched {counts}")
+    dense = cfg2.with_(moe_impl="dense")
+    got, counts = counted(lambda: paged_logits(params2, dense, kern, dev))
+    gate_logits("reference_logits_mla_dense", got,
+                paged_logits(params2, dense, models.ModelOpts(), dev),
+                launches={n: counts[n] for n in ("moe_ffn", "moe_gmm",
+                                                 "moe_decode")})
+    if counts["moe_ffn"] != 2 or counts["moe_gmm"] or counts["moe_decode"]:
+        raise AssertionError(f"MLA dense reference check launched {counts}")
+    return shapes
 
 
 def serve_mla(params, cfg, device, t_start):
-    """Phase 7: the 8 requests on the paged pool, a LExI plan searched on
+    """Phase 8: the 8 requests on the paged pool, a LExI plan searched on
     the card and served, the baseline on the contiguous layout.  Returns
     (the plan, {step: (launch counts, kernels the step must launch)})."""
     from repro_torch import models
@@ -896,8 +1072,12 @@ def main() -> int:
           "kernels": list(_build.SOURCES)})
 
     # ---- model weights (full width and depth, bf16, drawn on the card) --
-    cfg = get_config("olmoe-1b-7b").with_(moe_impl="gmm")
-    cfg_mla = get_config("deepseek-v2-lite").with_(moe_impl="gmm")
+    # each config's own MoE impl is dense; the phases that serve the
+    # sorted dropless dispatch run a gmm copy of it
+    cfg = get_config("olmoe-1b-7b")
+    cfg_mla = get_config("deepseek-v2-lite")
+    assert cfg.moe_impl == cfg_mla.moe_impl == "dense"
+    cfg_gmm = cfg.with_(moe_impl="gmm")
     t0 = time.perf_counter()
     params = models.init_params(cfg, seed=0, device=device)
     torch.cuda.synchronize()
@@ -915,6 +1095,8 @@ def main() -> int:
     gen.manual_seed(3)
     x512 = torch.randn((512, cfg.d_model), generator=gen, device=device,
                        dtype=torch.bfloat16)
+    x2048 = torch.randn((2048, cfg.d_model), generator=gen, device=device,
+                        dtype=torch.bfloat16)
     rows = {
         "moe_gmm": kernel_row(
             "moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
@@ -936,33 +1118,45 @@ def main() -> int:
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
             "src/repro/kernels/flash_decode.py:73",
             *check_flash_decode(cfg, flush, device)),
-        "moe_gmm_quant": quant_row(
+        # int8 first; no single PyTorch call dequantizes and runs the
+        # SwiGLU, so library_ms is null
+        "moe_gmm_quant": nested_row(
             "moe_gmm_quant", "src/repro_torch/csrc/moe_gmm_quant.cu",
             "src/repro/kernels/moe_gmm.py:190",
-            check_moe_gmm_quant(layer, cfg, x512, flush)),
-        "moe_decode_quant": quant_row(
+            check_moe_gmm_quant(layer, cfg, x512, flush), "dtypes"),
+        "moe_decode_quant": nested_row(
             "moe_decode_quant", "src/repro_torch/csrc/moe_decode_quant.cu",
             "src/repro/kernels/moe_decode.py:257",
-            check_moe_decode_quant(layer, cfg, x512[:8].contiguous(), flush)),
+            check_moe_decode_quant(layer, cfg, x512[:8].contiguous(), flush),
+            "dtypes"),
         "flash_decode_paged_mla": kernel_row(
             "flash_decode_paged_mla",
             "src/repro_torch/csrc/flash_decode_paged_mla.cu",
             "src/repro/kernels/flash_decode_paged.py:199",
             *check_flash_decode_paged_mla(cfg_mla, flush, device),
             flop_rate=F32_FLOPS),
+        # the forward's 4 x 512 tokens, a serve chunk's 8 x 64, a decode
+        # step's 8 slots, each at top-8 and capacity factor 1.25
+        "moe_ffn": nested_row(
+            "moe_ffn", "src/repro_torch/csrc/moe_ffn.cu",
+            "src/repro/kernels/moe_ffn.py:63",
+            {sh: check_moe_ffn(layer, cfg, xx, flush, sh) for sh, xx in (
+                ("olmoe_forward_c320", x2048),
+                ("olmoe_chunk_c80", x2048[:512]),
+                ("olmoe_decode_c4", x2048[:8]))}, "shapes"),
     }
     del flush
     emit({"phase": "kernels", "ok": True,
           "timing": {n: {"ms": r["ms"], "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"],
                          "library_ms": r["library_ms"],
-                         **({"dtypes": r["dtypes"]} if "dtypes" in r else {})}
+                         **{k: r[k] for k in ("dtypes", "shapes") if k in r}}
                      for n, r in rows.items()}})
 
     # ---- phase 3: serve baseline, search a plan, serve the plan ---------
-    reference_check(params, cfg, device)
+    reference_check(params, cfg_gmm, device)
     max_new = 32
-    eng = Engine(cfg, params, max_batch=8, max_len=512, prefill_chunk=64,
+    eng = Engine(cfg_gmm, params, max_batch=8, max_len=512, prefill_chunk=64,
                  use_kernel=True, use_moe_decode=True,
                  opts=models.ModelOpts(use_moe_kernel=True), device=device)
     eng.serve(requests(cfg, seed=0, n=2, max_new=4))      # warm-up wave
@@ -974,7 +1168,7 @@ def main() -> int:
     budget = int(0.5 * cfg.num_moe_layers * cfg.moe_top_k)
     t0 = time.perf_counter()
     plan, opt_counts = counted(lambda: optimize(
-        params, cfg, budget, method="dp", n_iter=4, profile_batch=2,
+        params, cfg_gmm, budget, method="dp", n_iter=4, profile_batch=2,
         profile_seq=32, seed=0, device=device, use_kernel=True))
     opt_s = time.perf_counter() - t0
     eng.add_plan("lexi", plan)
@@ -1002,12 +1196,12 @@ def main() -> int:
 
     # ---- phase 4: the paper's forward comparison ------------------------
     rec, fwd_counts = forward_phase(params, cfg, plan, device)
-    need["forward"] = (fwd_counts, ("moe_gmm", "flash_attention"))
+    need["forward"] = (fwd_counts, ("moe_ffn", "moe_gmm", "flash_attention"))
     emit(dict(rec, launches=fwd_counts,
               seconds_total=time.perf_counter() - t_start))
 
     # ---- phase 5: contiguous layout, whole-prompt prefill ---------------
-    eng = Engine(cfg, params, max_batch=8, max_len=512,
+    eng = Engine(cfg_gmm, params, max_batch=8, max_len=512,
                  cache_layout="contiguous", prefill_chunk=0,
                  use_moe_decode=True, opts=models.ModelOpts(
                      use_flash=True, use_flash_decode=True,
@@ -1035,8 +1229,9 @@ def main() -> int:
     quant_kernels = ("moe_gmm_quant", "moe_decode_quant",
                      "flash_decode_paged")
     for dt in QUANT_DTYPES:
-        eng = Engine(cfg, params, max_batch=8, max_len=512, prefill_chunk=64,
-                     use_kernel=True, use_moe_decode=True, expert_dtype=dt,
+        eng = Engine(cfg_gmm, params, max_batch=8, max_len=512,
+                     prefill_chunk=64, use_kernel=True, use_moe_decode=True,
+                     expert_dtype=dt,
                      opts=models.ModelOpts(use_moe_kernel=True),
                      device=device)
         eng.serve(requests(cfg, seed=0, n=2, max_new=4))  # warm-up wave
@@ -1069,8 +1264,12 @@ def main() -> int:
         del eng, moe
         torch.cuda.empty_cache()
 
-    # ---- phases 7-8: DeepSeek-V2-Lite (MLA), the OLMoE weights freed -----
-    del params, layer, x512
+    # ---- phase 7: the config's own dense impl on the paged pool ---------
+    need.update(serve_dense(params, cfg, plan, device, t_start))
+    torch.cuda.empty_cache()
+
+    # ---- phases 8-9: DeepSeek-V2-Lite (MLA), the OLMoE weights freed -----
+    del params, layer, x512, x2048
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = models.init_params(cfg_mla, seed=0, device=device)
@@ -1085,13 +1284,15 @@ def main() -> int:
               cfg_mla.kv_lora_rank + cfg_mla.qk_rope_head_dim),
           "olmoe_kv_bytes_per_token": cfg.num_layers * 2 * 2 * (
               cfg.num_kv_heads * cfg.head_dim_)})
-    mla_checks(params, cfg_mla, device)
-    plan, mla_need = serve_mla(params, cfg_mla, device, t_start)
+    mla_gmm = cfg_mla.with_(moe_impl="gmm")
+    for name, per_shape in mla_checks(params, mla_gmm, device).items():
+        rows[name].setdefault("shapes", {}).update(per_shape)
+    plan, mla_need = serve_mla(params, mla_gmm, device, t_start)
     need.update(mla_need)
     rec, fwd_counts = forward_phase(params, cfg_mla, plan, device)
     if any(fwd_counts[n] for n in GQA_ATTENTION):
         raise AssertionError(f"forward_mla: attention kernels {fwd_counts}")
-    need["forward_mla"] = (fwd_counts, ("moe_gmm",))
+    need["forward_mla"] = (fwd_counts, ("moe_ffn", "moe_gmm"))
     emit(dict(rec, phase="forward_mla", launches=fwd_counts,
               seconds_total=time.perf_counter() - t_start))
     del params

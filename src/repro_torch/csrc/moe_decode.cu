@@ -16,11 +16,13 @@
 // Design.  The TPU grid (B, k, F/bf) runs in order and carries one
 // accumulator per token across slots and F steps.  CUDA blocks run in
 // parallel, so each block owns its output instead, in two passes:
-//   pass 1 (decode_up), grid (B*k, F/64): h[b, j, f0:f0+64] =
+//   pass 1 (decode_up), grid (B*k, ceil(F/64)): h[b, j, f0:f0+64] =
 //     silu(x[b] . w1[e][:, f]) * (x[b] . w1[e][:, F + f]) in f32; the 8 warps
 //     split D, each lane reads two adjacent gate and up columns (bf16x2), so
 //     a warp reads 128 contiguous bytes per row; partial sums meet in
-//     shared memory.
+//     shared memory.  F may be any multiple of 32 (an intra-pruned
+//     DeepSeek-V2-Lite expert has F = 1056): in a ragged last block the
+//     lanes past F load nothing and store nothing.
 //   pass 2 (decode_down), grid (B, D/64): y[b, d0:d0+64] = sum over slots j
 //     of weights[b, j] * (h[b, j] . w2[e_j][:, d]); the block loops over
 //     the k slots itself, so the combine needs no atomics and is
@@ -56,8 +58,9 @@ decode_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   __syncthreads();
   const bf16* W = w1 + (size_t)e * D * 2 * F + f0 + 2 * lane;
   float g0 = 0.f, g1 = 0.f, u0 = 0.f, u1 = 0.f;
+  const bool live = f0 + 2 * lane < F;     // F even: both columns or none
 #pragma unroll 4
-  for (int d = warp; d < D; d += NW) {
+  for (int d = live ? warp : D; d < D; d += NW) {
     const bf16* row = W + (size_t)d * 2 * F;
     const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row));
     const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + F));
@@ -69,7 +72,7 @@ decode_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   r[2 * lane] = g0; r[2 * lane + 1] = g1;
   r[FT + 2 * lane] = u0; r[FT + 2 * lane + 1] = u1;
   __syncthreads();
-  if (threadIdx.x < FT) {
+  if (threadIdx.x < FT && f0 + threadIdx.x < F) {
     float g = 0.f, u = 0.f;
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
@@ -120,7 +123,7 @@ decode_down_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
 
 // x [B, D], w1 [E, D, 2F], w2 [E, F, D], y [B, D] bf16; idx [B, k] int32;
 // weights [B, k] f32; h [B, k, F] f32 scratch.  Needs D % 64 == 0 and
-// F % 64 == 0.  Returns cudaGetLastError() after launch.
+// F % 32 == 0.  Returns cudaGetLastError() after launch.
 extern "C" int moe_decode_launch(const void* x, const void* w1, const void* w2,
                                  const void* idx, const void* weights, void* h,
                                  void* y, int B, int D, int F, int k,
@@ -138,7 +141,7 @@ extern "C" int moe_decode_launch(const void* x, const void* w1, const void* w2,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_up_kernel<<<dim3(B * k, F / FT), NT, smem1, s>>>(
+  decode_up_kernel<<<dim3(B * k, (F + FT - 1) / FT), NT, smem1, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const int*>(idx), static_cast<float*>(h), D, F, k);
   cudaError_t err = cudaGetLastError();

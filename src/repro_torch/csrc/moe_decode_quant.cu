@@ -24,13 +24,14 @@
 //
 // Design: B3's (moe_decode.cu) two passes, with the weights read as int8
 // words and the products in f32 CUDA-core FMAs on the integer values:
-//   pass 1 (up), grid (B*k, F/64): h[b, j, f0:f0+64] in f32, scales
+//   pass 1 (up), grid (B*k, ceil(F/64)): h[b, j, f0:f0+64] in f32, scales
 //     applied.  The 8 warps split the stored rows of w1q[e]; half a warp
 //     reads one row, each lane 4 adjacent gate and 4 up columns as one
 //     32-bit word each, so a warp reads two rows at a time.  An int4 byte
 //     gives two contraction rows: x[r] times its low nibble, x[r + D/2]
 //     times its high one.  Partial sums meet by shuffle and in shared
-//     memory.
+//     memory.  F may be any multiple of 32: in a ragged last block the
+//     lanes past F load nothing and store nothing.
 //   pass 2 (down), grid (B, D/64 stored columns): y[b, cols] = sum over
 //     slots j of weights[b, j] * (h[b, j] @ w2q[e_j][:, cols]); the block
 //     loops over the k slots itself, so the combine needs no atomics and
@@ -73,8 +74,9 @@ decodeq_up_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w1q,
   __syncthreads();
   const int8_t* W = w1q + (size_t)e * Dp * 2 * F + f0 + c4;
   float g[4] = {0.f, 0.f, 0.f, 0.f}, u[4] = {0.f, 0.f, 0.f, 0.f};
+  const bool live = f0 + c4 < F;           // F % 4 == 0: all 4 or none
 #pragma unroll 4
-  for (int r = 2 * warp + half; r < Dp; r += 2 * NW) {
+  for (int r = live ? 2 * warp + half : Dp; r < Dp; r += 2 * NW) {
     const int8_t* row = W + (size_t)r * 2 * F;
     const uint32_t gw = *reinterpret_cast<const uint32_t*>(row);
     const uint32_t uw = *reinterpret_cast<const uint32_t*>(row + F);
@@ -107,7 +109,7 @@ decodeq_up_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w1q,
     }
   }
   __syncthreads();
-  if (threadIdx.x < FT) {
+  if (threadIdx.x < FT && f0 + threadIdx.x < F) {
     const int t = threadIdx.x;
     float gs = 0.f, us = 0.f;
 #pragma unroll
@@ -207,7 +209,7 @@ static int launch(const void* x, const void* w1q, const void* w2q,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
     if (e != cudaSuccess) return (int)e;
   }
-  decodeq_up_kernel<PACKED><<<dim3(B * k, F / FT), NT, smem1, s>>>(
+  decodeq_up_kernel<PACKED><<<dim3(B * k, (F + FT - 1) / FT), NT, smem1, s>>>(
       static_cast<const bf16*>(x), static_cast<const int8_t*>(w1q),
       static_cast<const float*>(s1), static_cast<const float*>(s2),
       static_cast<const int*>(idx), static_cast<float*>(h), D, F, k);
@@ -223,7 +225,7 @@ static int launch(const void* x, const void* w1q, const void* w2q,
 // x [B, D] bf16, w1q / w2q int8 as above (packed != 0: int4), s1 [E, 2, F]
 // and s2 [E, F] f32, idx [B, k] int32, weights [B, k] f32, y [B, D] bf16;
 // h [B, k, F] f32 scratch.  Needs D % 64 == 0 (int4: (D / 2) % 64 == 0)
-// and F % 64 == 0.  Returns cudaGetLastError() after launch.
+// and F % 32 == 0.  Returns cudaGetLastError() after launch.
 extern "C" int moe_decode_quant_launch(const void* x, const void* w1q,
                                        const void* w2q, const void* s1,
                                        const void* s2, const void* idx,

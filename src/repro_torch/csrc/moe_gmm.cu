@@ -30,51 +30,11 @@
 // block_m may be any multiple of 8 up to 128: rows past the tile's end are
 // zero-filled on load and never stored.  F may be any multiple of 32 (an
 // intra-pruned DeepSeek-V2-Lite expert has F = 1056): pass 1's last column
-// block loads zeros past F and stores only the columns below it.
+// block loads zeros past F and stores only the columns below it.  The
+// tile loads and both passes' block bodies are wmma_tiles.cuh's, shared
+// with moe_ffn.cu.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-#define BM 64            // rows per CUDA block
-#define BN 64            // output columns per CUDA block
-#define BK 32            // contraction step
-#define NT 128           // 4 warps; warp w owns rows [16w, 16w + 16)
-#define LDA (BK + 8)     // shared-memory row pitch of the A tile (bf16)
-#define LDB (BN + 8)     // shared-memory row pitch of the B tiles (bf16)
-#define LDC (BN + 4)     // shared-memory row pitch of the f32 results
-
-// Load rows [0, nrows) x cols [k0, k0 + BK) of a row-major bf16 matrix
-// (row pitch ld, first row at src) into sA [BM][LDA]; rows >= nrows are 0.
-__device__ __forceinline__ void load_a(bf16* sA, const bf16* src, int ld,
-                                       int nrows, int k0) {
-  for (int v = threadIdx.x; v < BM * BK / 8; v += NT) {
-    const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + k0 + c);
-    *reinterpret_cast<uint4*>(sA + r * LDA + c) = val;
-  }
-}
-
-// Load rows [k0, k0 + BK) x cols [c0, c0 + BN) of a row-major bf16 matrix
-// (row pitch ld) into sB [BK][LDB]; columns from c0 + ncols on (ncols a
-// multiple of 8) are 0.
-__device__ __forceinline__ void load_b(bf16* sB, const bf16* src, int ld,
-                                       int k0, int c0, int ncols = BN) {
-  for (int v = threadIdx.x; v < BK * BN / 8; v += NT) {
-    const int r = v / (BN / 8), c = (v % (BN / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (c < ncols)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(k0 + r) * ld +
-                                            c0 + c);
-    *reinterpret_cast<uint4*>(sB + r * LDB + c) = val;
-  }
-}
+#include "wmma_tiles.cuh"
 
 __global__ void __launch_bounds__(NT)
 gmm_up_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w1,
@@ -84,65 +44,10 @@ gmm_up_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w1,
   const int tile = blockIdx.x / chunks;
   if (!tile_valid[tile]) return;               // pass 2 writes the zeros
   const int chunk = blockIdx.x % chunks;
-  const int e = tile_expert[tile];
   const int row0 = tile * block_m + chunk * BM;
-  const int nrows = min(BM, block_m - chunk * BM);
-  const int f0 = blockIdx.y * BN;
-  const int fcols = min(BN, F - f0);           // < BN in a ragged last block
-  const int warp = threadIdx.x / 32;
-  const bool active = warp * 16 < nrows;
-  const bf16* W = w1 + (size_t)e * D * 2 * F;
-
-  __shared__ __align__(128) unsigned char smem[2 * BM * LDC * sizeof(float)];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sG = sA + BM * LDA;
-  bf16* sU = sG + BK * LDB;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accG[BN / 16], accU[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) {
-    wmma::fill_fragment(accG[j], 0.0f);
-    wmma::fill_fragment(accU[j], 0.0f);
-  }
-  const bf16* xrow = xs + (size_t)row0 * D;
-  for (int k0 = 0; k0 < D; k0 += BK) {
-    load_a(sA, xrow, D, nrows, k0);
-    load_b(sG, W, 2 * F, k0, f0, fcols);
-    load_b(sU, W, 2 * F, k0, F + f0, fcols);
-    __syncthreads();
-    if (active) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sA + warp * 16 * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < BN / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, sG + kk * LDB + j * 16, LDB);
-          wmma::mma_sync(accG[j], a, b, accG[j]);
-          wmma::load_matrix_sync(b, sU + kk * LDB + j * 16, LDB);
-          wmma::mma_sync(accU[j], a, b, accU[j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  float* cG = reinterpret_cast<float*>(smem);
-  float* cU = cG + BM * LDC;
-  if (active) {
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::store_matrix_sync(cG + warp * 16 * LDC + j * 16, accG[j], LDC, wmma::mem_row_major);
-      wmma::store_matrix_sync(cU + warp * 16 * LDC + j * 16, accU[j], LDC, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * BN; i += NT) {
-    const int r = i / BN, c = i % BN;
-    if (c >= fcols) continue;
-    const float g = cG[r * LDC + c], u = cU[r * LDC + c];
-    h[(size_t)(row0 + r) * F + f0 + c] = __float2bfloat16(g / (1.0f + __expf(-g)) * u);
-  }
+  up_block(xs + (size_t)row0 * D, w1 + (size_t)tile_expert[tile] * D * 2 * F,
+           h + (size_t)row0 * F, min(BM, block_m - chunk * BM), D, F,
+           blockIdx.y * BN);
 }
 
 __global__ void __launch_bounds__(NT)
@@ -160,49 +65,8 @@ gmm_down_kernel(const bf16* __restrict__ h, const bf16* __restrict__ w2,
       out[(size_t)(row0 + i / BN) * D + d0 + i % BN] = __float2bfloat16(0.0f);
     return;
   }
-  const int e = tile_expert[tile];
-  const int warp = threadIdx.x / 32;
-  const bool active = warp * 16 < nrows;
-  const bf16* W = w2 + (size_t)e * F * D;
-
-  __shared__ __align__(128) unsigned char smem[BM * LDC * sizeof(float)];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + BM * LDA;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  const bf16* hrow = h + (size_t)row0 * F;
-  for (int k0 = 0; k0 < F; k0 += BK) {
-    load_a(sA, hrow, F, nrows, k0);
-    load_b(sB, W, D, k0, d0);
-    __syncthreads();
-    if (active) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sA + warp * 16 * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < BN / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, sB + kk * LDB + j * 16, LDB);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  float* cO = reinterpret_cast<float*>(smem);
-  if (active) {
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j)
-      wmma::store_matrix_sync(cO + warp * 16 * LDC + j * 16, acc[j], LDC, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * BN; i += NT) {
-    const int r = i / BN, c = i % BN;
-    out[(size_t)(row0 + r) * D + d0 + c] = __float2bfloat16(cO[r * LDC + c]);
-  }
+  down_block(h + (size_t)row0 * F, w2 + (size_t)tile_expert[tile] * F * D,
+             out + (size_t)row0 * D, nrows, D, F, d0);
 }
 
 // xs [M, D], w1 [E, D, 2F], w2 [E, F, D], out [M, D] bf16; tile_expert,

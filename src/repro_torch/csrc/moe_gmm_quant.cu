@@ -37,54 +37,27 @@
 // x[:, D/2 + r] times the high ones); pass 2 turns a 64-column packed
 // block into output columns c and D/2 + c with two accumulator sets.
 // Synchronous loads, one barrier per step: no double buffering, no TMA,
-// no wgmma yet -- that is later work.
-
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <stdint.h>
+// no wgmma yet -- that is later work.  F may be any multiple of 32, as in
+// B1: pass 1's ragged last column block, launched apart so that the full
+// blocks carry no masks, loads zeros past F and stores only the columns
+// below it.  The bf16 tile loads and the WMMA step are wmma_tiles.cuh's.
 
 #include "quant_common.cuh"
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-#define BM 64            // rows per CUDA block
-#define BN 64            // output (or packed) columns per CUDA block
-#define BK 32            // contraction step (packed rows for int4 w1q)
-#define NT 128           // 4 warps; warp w owns rows [16w, 16w + 16)
-#define LDA (BK + 8)     // shared-memory row pitch of the A tiles (bf16)
-#define LDB (BN + 8)     // shared-memory row pitch of the B tiles (bf16)
-#define LDC (BN + 4)     // shared-memory row pitch of the f32 results
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-
-// Load rows [0, nrows) x cols [k0, k0 + BK) of a row-major bf16 matrix
-// (row pitch ld, first row at src) into sA [BM][LDA]; rows >= nrows are 0.
-__device__ __forceinline__ void load_a(bf16* sA, const bf16* src, int ld,
-                                       int nrows, int k0) {
-  for (int v = threadIdx.x; v < BM * BK / 8; v += NT) {
-    const int r = v / (BK / 8), c = (v % (BK / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + k0 + c);
-    *reinterpret_cast<uint4*>(sA + r * LDA + c) = val;
-  }
-}
+#include "wmma_tiles.cuh"
 
 // Rows [r0, r0 + BK) x bytes [c0, c0 + BN) of a row-major int8 matrix (row
 // pitch ld bytes) as integer-valued bf16: int8 (PACKED false) into
 // sB [BK][LDB]; int4 (PACKED true) the low nibbles into sB and the high
-// nibbles into sB2.
+// nibbles into sB2.  Bytes from c0 + ncols on (ncols a multiple of 16)
+// are 0.
 template <bool PACKED>
 __device__ __forceinline__ void load_q(bf16* sB, bf16* sB2, const int8_t* src,
-                                       int ld, int r0, int c0) {
+                                       int ld, int r0, int c0, int ncols = BN) {
   for (int v = threadIdx.x; v < BK * BN / 16; v += NT) {
     const int r = v / (BN / 16), c = (v % (BN / 16)) * 16;
-    const uint4 val =
-        *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c0 + c);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (c < ncols)
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c0 + c);
     const uint32_t w[4] = {val.x, val.y, val.z, val.w};
     __align__(16) __nv_bfloat162 lo[8];
     __align__(16) __nv_bfloat162 hi[8];
@@ -110,36 +83,25 @@ __device__ __forceinline__ void load_q(bf16* sB, bf16* sB2, const int8_t* src,
   }
 }
 
-// acc[j] += A (16 rows of sA, from row warp*16) @ B (sB, all BN columns)
-__device__ __forceinline__ void mma_step(Acc* acc, const bf16* sA,
-                                         const bf16* sB, int warp) {
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, sA + warp * 16 * LDA + kk, LDA);
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      FragB b;
-      wmma::load_matrix_sync(b, sB + kk * LDB + j * 16, LDB);
-      wmma::mma_sync(acc[j], a, b, acc[j]);
-    }
-  }
-}
-
-template <bool PACKED>
+// Pass 1.  RAGGED: the launch of F's ragged last column block, the only
+// one that masks columns (launched apart from the full blocks: a mask in
+// every block, or both bodies in one kernel, cost 6-21 % at F 1024 on an
+// H100); fblock0 is the launch's first column block.
+template <bool PACKED, bool RAGGED>
 __global__ void __launch_bounds__(NT)
 gmmq_up_kernel(const bf16* __restrict__ xs, const int8_t* __restrict__ w1q,
                const float* __restrict__ s1, const float* __restrict__ s2,
                const int* __restrict__ tile_expert,
                const int* __restrict__ tile_valid, bf16* __restrict__ h,
-               int D, int F, int block_m, int chunks) {
+               int D, int F, int block_m, int chunks, int fblock0) {
   const int tile = blockIdx.x / chunks;
   if (!tile_valid[tile]) return;               // pass 2 writes the zeros
   const int chunk = blockIdx.x % chunks;
   const int e = tile_expert[tile];
   const int row0 = tile * block_m + chunk * BM;
   const int nrows = min(BM, block_m - chunk * BM);
-  const int f0 = blockIdx.y * BN;
+  const int f0 = (fblock0 + blockIdx.y) * BN;
+  const int fcols = RAGGED ? F - f0 : BN;
   const int warp = threadIdx.x / 32;
   const bool active = warp * 16 < nrows;
   const int Dp = PACKED ? D / 2 : D;           // stored rows of w1q[e]
@@ -165,8 +127,8 @@ gmmq_up_kernel(const bf16* __restrict__ xs, const int8_t* __restrict__ w1q,
   for (int r0 = 0; r0 < Dp; r0 += BK) {
     load_a(sA, xrow, D, nrows, r0);
     if constexpr (PACKED) load_a(sA2, xrow, D, nrows, D / 2 + r0);
-    load_q<PACKED>(sG, sGh, W, 2 * F, r0, f0);
-    load_q<PACKED>(sU, sUh, W, 2 * F, r0, F + f0);
+    load_q<PACKED>(sG, sGh, W, 2 * F, r0, f0, fcols);
+    load_q<PACKED>(sU, sUh, W, 2 * F, r0, F + f0, fcols);
     __syncthreads();
     if (active) {
       mma_step(accG, sA, sG, warp);
@@ -193,6 +155,7 @@ gmmq_up_kernel(const bf16* __restrict__ xs, const int8_t* __restrict__ w1q,
   const float* sd = s2 + (size_t)e * F + f0;          // down (f-row) scales
   for (int i = threadIdx.x; i < nrows * BN; i += NT) {
     const int r = i / BN, c = i % BN;
+    if (RAGGED && c >= fcols) continue;
     const float g = cG[r * LDC + c] * sg[c], u = cU[r * LDC + c] * su[c];
     h[(size_t)(row0 + r) * F + f0 + c] =
         __float2bfloat16(g / (1.0f + __expf(-g)) * u * sd[c]);
@@ -273,14 +236,28 @@ static int launch(const void* xs, const void* w1q, const void* w2q,
   const int n_tiles = M / block_m;
   const int chunks = (block_m + BM - 1) / BM;
   const int Dp = PACKED ? D / 2 : D;
-  dim3 g1(n_tiles * chunks, F / BN);
-  gmmq_up_kernel<PACKED><<<g1, NT, 0, s>>>(
-      static_cast<const bf16*>(xs), static_cast<const int8_t*>(w1q),
-      static_cast<const float*>(s1), static_cast<const float*>(s2),
-      static_cast<const int*>(tile_expert), static_cast<const int*>(tile_valid),
-      static_cast<bf16*>(h), D, F, block_m, chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int full = F / BN;                     // column blocks without masks
+  cudaError_t err = cudaSuccess;
+  if (full > 0) {
+    gmmq_up_kernel<PACKED, false><<<dim3(n_tiles * chunks, full), NT, 0, s>>>(
+        static_cast<const bf16*>(xs), static_cast<const int8_t*>(w1q),
+        static_cast<const float*>(s1), static_cast<const float*>(s2),
+        static_cast<const int*>(tile_expert),
+        static_cast<const int*>(tile_valid), static_cast<bf16*>(h), D, F,
+        block_m, chunks, 0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (F % BN) {
+    gmmq_up_kernel<PACKED, true><<<dim3(n_tiles * chunks, 1), NT, 0, s>>>(
+        static_cast<const bf16*>(xs), static_cast<const int8_t*>(w1q),
+        static_cast<const float*>(s1), static_cast<const float*>(s2),
+        static_cast<const int*>(tile_expert),
+        static_cast<const int*>(tile_valid), static_cast<bf16*>(h), D, F,
+        block_m, chunks, full);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 g2(n_tiles * chunks, Dp / BN);
   gmmq_down_kernel<PACKED><<<g2, NT, 0, s>>>(
       static_cast<const bf16*>(h), static_cast<const int8_t*>(w2q),
@@ -292,7 +269,7 @@ static int launch(const void* xs, const void* w1q, const void* w2q,
 // xs [M, D] bf16, w1q / w2q int8 as above (packed != 0: int4), s1 [E, 2, F]
 // and s2 [E, F] f32, out [M, D] bf16; tile_expert, tile_valid
 // [M / block_m] int32; h [M, F] bf16 scratch.  Needs D % 64 == 0 (int4:
-// (D / 2) % 64 == 0), F % 64 == 0, block_m % 8 == 0, 16-byte aligned
+// (D / 2) % 64 == 0), F % 32 == 0, block_m % 8 == 0, 16-byte aligned
 // bases.  Returns cudaGetLastError() after launch.
 extern "C" int moe_gmm_quant_launch(const void* xs, const void* w1q,
                                     const void* w2q, const void* s1,

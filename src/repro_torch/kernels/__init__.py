@@ -11,6 +11,7 @@ from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.flash_decode_paged import flash_decode_paged, \
     flash_decode_paged_mla
 from repro_torch.kernels.moe_decode import moe_decode, moe_decode_quant
+from repro_torch.kernels.moe_ffn import moe_ffn
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_quant
 
 WRAPPERS = {"moe_gmm": moe_gmm, "moe_decode": moe_decode,
@@ -18,7 +19,8 @@ WRAPPERS = {"moe_gmm": moe_gmm, "moe_decode": moe_decode,
             "flash_attention": flash_attention, "flash_decode": flash_decode,
             "moe_gmm_quant": moe_gmm_quant,
             "moe_decode_quant": moe_decode_quant,
-            "flash_decode_paged_mla": flash_decode_paged_mla}
+            "flash_decode_paged_mla": flash_decode_paged_mla,
+            "moe_ffn": moe_ffn}
 
 
 def launch_counts():

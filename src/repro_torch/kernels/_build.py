@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("moe_gmm", "moe_decode", "flash_decode_paged", "flash_attention",
            "flash_decode", "moe_gmm_quant", "moe_decode_quant",
-           "flash_decode_paged_mla")
+           "flash_decode_paged_mla", "moe_ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

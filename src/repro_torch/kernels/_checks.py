@@ -42,8 +42,9 @@ def expect_quant(name: str, x: torch.Tensor, w1q: torch.Tensor,
     """The quantized expert kernels' operands: x [.., D] bf16, w1q int8
     [E, D(p), 2F], w2q int8 [E, F, D(p)] (D(p) = D/2 for int4), s1 f32
     [E, 2, F], s2 f32 [E, F]; all contiguous with 16-byte aligned bases
-    (a thread loads 16 int8 or 32 int4 values at once), D and F multiples
-    of 64, and for int4 D/2 too.  The weights are never widened to bf16."""
+    (a thread loads 16 int8 or 32 int4 values at once), D a multiple of
+    64, and for int4 D/2 too, and F a multiple of 32.  The weights are
+    never widened to bf16."""
     d = x.shape[-1]
     e, f = w2q.shape[0], w2q.shape[1]
     dp = d // 2 if dtype == "int4" else d
@@ -52,9 +53,11 @@ def expect_quant(name: str, x: torch.Tensor, w1q: torch.Tensor,
     expect(name, w2q, "w2q", torch.int8, (e, f, dp))
     expect(name, s1, "s1", torch.float32, (e, 2, f))
     expect(name, s2, "s2", torch.float32, (e, f))
-    if d % 64 or f % 64 or dp % 64:
-        raise ValueError(f"{name}: D={d}, F={f} and the stored D={dp} "
+    if d % 64 or dp % 64:
+        raise ValueError(f"{name}: D={d} and the stored D={dp} "
                          "must be multiples of 64")
+    if f % 32:
+        raise ValueError(f"{name}: F={f} must be a multiple of 32")
     for arg, t in (("x", x), ("w1q", w1q), ("w2q", w2q), ("s1", s1),
                    ("s2", s2)):
         if t.data_ptr() % 16:

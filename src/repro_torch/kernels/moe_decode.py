@@ -46,8 +46,10 @@ def moe_decode(x, w1, w2, idx, weights):
     expect("moe_decode", w2, "w2", bf16, (e, f, d))
     expect("moe_decode", idx, "idx", torch.int32, (b, k))
     expect("moe_decode", weights, "weights", torch.float32, (b, k))
-    if d % 64 or f % 64:
-        raise ValueError(f"moe_decode: D={d} and F={f} must be multiples of 64")
+    if d % 64:
+        raise ValueError(f"moe_decode: D={d} must be a multiple of 64")
+    if f % 32:
+        raise ValueError(f"moe_decode: F={f} must be a multiple of 32")
     h = torch.empty((b, k, f), dtype=torch.float32, device=x.device)
     y = torch.empty((b, d), dtype=bf16, device=x.device)
     fn = _build.function("moe_decode", "moe_decode_launch", 7, 4)

@@ -1,0 +1,52 @@
+"""Per-expert SwiGLU over capacity buffers (the ``dense`` MoE path).
+
+Kernel: ``csrc/moe_ffn.cu`` (replaces ``repro/kernels/moe_ffn.py::
+moe_ffn_pallas``).  xe [E, C, D], w1 [E, D, 2F] (gate = first F columns,
+up = next F), w2 [E, F, D] -> [E, C, D] in xe's dtype: every expert and
+every capacity row, empty or not (a zero row comes out zero).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F_
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._checks import expect, on_card
+
+
+def moe_ffn_plain(xe, w1, w2):
+    """The kernel's function in plain PyTorch (the reference's
+    ``moe_ffn_ref``): f32 products, output in xe's dtype."""
+    f = w2.shape[1]
+    h = torch.bmm(xe.float(), w1.float())                    # [E, C, 2F]
+    h = F_.silu(h[..., :f]) * h[..., f:]
+    return torch.bmm(h, w2.float()).to(xe.dtype)
+
+
+def moe_ffn(xe, w1, w2):
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    if not on_card("moe_ffn", xe, w1, w2):
+        return moe_ffn_plain(xe, w1, w2)
+    e, c, d = xe.shape
+    f = w2.shape[1]
+    bf16 = torch.bfloat16
+    expect("moe_ffn", xe, "xe", bf16)
+    expect("moe_ffn", w1, "w1", bf16, (e, d, 2 * f))
+    expect("moe_ffn", w2, "w2", bf16, (e, f, d))
+    if d % 64:
+        raise ValueError(f"moe_ffn: D={d} must be a multiple of 64")
+    if f % 32:
+        raise ValueError(f"moe_ffn: F={f} must be a multiple of 32")
+    h = torch.empty((e, c, f), dtype=bf16, device=xe.device)
+    out = torch.empty((e, c, d), dtype=bf16, device=xe.device)
+    fn = _build.function("moe_ffn", "moe_ffn_launch", 5, 4)
+    err = fn(xe.data_ptr(), w1.data_ptr(), w2.data_ptr(), h.data_ptr(),
+             out.data_ptr(), e, c, d, f,
+             torch.cuda.current_stream(xe.device).cuda_stream)
+    _build.check("moe_ffn", err)
+    moe_ffn.launches += 1
+    return out
+
+
+moe_ffn.launches = 0

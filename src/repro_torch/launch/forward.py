@@ -17,11 +17,15 @@ path ran).
     PYTHONPATH=src python -m repro_torch.launch.forward \
         --arch deepseek-v2-lite --reduced --device cpu --batch 2 --seq 64
 
-The forward runs ``moe_gmm``, and ``flash_attention`` on a GQA model (an
-MLA model, ``--arch deepseek-v2-lite``, attends through the plain masked
-softmax in train mode, as the reference).  Each pruned copy of the experts
-is built, timed in turns with the baseline and the plan, and freed before
-the next.
+Every model runs the config's own MoE dispatch, the capacity-buffer
+``dense`` impl (``moe_ffn``); the baseline and the plan run again on the
+dropless ``gmm`` dispatch (``moe_gmm``), as the reference benchmark's
+``fig4/<name>~gmm`` rows: capacity drops change the dense numbers of a
+reduced-k plan.  Attention runs ``flash_attention`` on a GQA model (an MLA
+model, ``--arch deepseek-v2-lite``, attends through the plain masked
+softmax in train mode, as the reference).  The plan is profiled on
+``gmm``, as the reference's Alg. 1.  Each pruned copy of the experts is
+built, timed in turns with the others, and freed before the next.
 """
 
 from __future__ import annotations
@@ -63,11 +67,17 @@ def compare(params, cfg: ModelConfig, plan, batch, *,
             opts: models.ModelOpts = models.ModelOpts(
                 use_flash=True, use_moe_kernel=True)) -> Dict[str, Dict]:
     """Forward ms (each call ended by a device sync) and cross-entropy of
-    the baseline, ``plan`` and both pruning baselines at ``prune_frac``:
-    per model the median, every timed call, and the MoE shape it ran."""
+    the baseline, ``plan`` and both pruning baselines at ``prune_frac`` on
+    ``cfg.moe_impl``, and -- unless that is ``gmm`` -- of the baseline and
+    ``plan`` on ``gmm`` too (``baseline~gmm``, ``lexi~gmm``): per model the
+    median, every timed call, and the MoE shape and impl it ran."""
     device = batch["tokens"].device
     cfg_l, params_l = apply_plan_params(params, cfg, plan)
     live = {"baseline": (params, cfg), "lexi": (params_l, cfg_l)}
+    if cfg.moe_impl != "gmm":
+        live["baseline~gmm"] = (params, cfg.with_(moe_impl="gmm"))
+        live["lexi~gmm"] = (params_l, cfg_l.with_(moe_impl="gmm"))
+    every = list(live)
     times: Dict[str, list] = {}
     out: Dict[str, Dict] = {}
 
@@ -80,7 +90,8 @@ def compare(params, cfg: ModelConfig, plan, batch, *,
         if timed:
             times.setdefault(name, []).append(
                 (time.perf_counter() - t0) * 1e3)
-        out[name] = {"xent": xent.item(), "experts": c.num_experts,
+        out[name] = {"xent": xent.item(), "moe_impl": c.moe_impl,
+                     "experts": c.num_experts,
                      "moe_d_ff": c.moe_d_ff,
                      "mean_top_k": float(np.mean([
                          s.moe_top_k for s in c.pattern()
@@ -89,7 +100,7 @@ def compare(params, cfg: ModelConfig, plan, batch, *,
     for name, prune in ((f"inter_prune_{prune_frac:g}", inter_prune),
                         (f"intra_prune_{prune_frac:g}", intra_prune)):
         live[name] = prune(params, cfg, prune_frac)
-        names = ["baseline", "lexi", name]
+        names = every + [name]
         for n in names:                                 # warm-up
             run(n, timed=False)
         for r in range(reps):
@@ -128,7 +139,6 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = cfg.with_(moe_impl="gmm")
     params = models.init_params(cfg, args.seed, device=args.device)
     device = params["embed"].device
     opts = models.ModelOpts(use_flash=True, use_moe_kernel=True)

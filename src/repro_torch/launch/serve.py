@@ -12,7 +12,8 @@ plan searched (or loaded) for the model -- on the card by default.
         --lexi-budget-frac 0.5
 
     # int8 experts, quantized at load (moe_gmm_quant in prefill,
-    # moe_decode_quant in decode; --expert-dtype int4 packs two a byte)
+    # moe_decode_quant in decode; --expert-dtype int4 packs two a byte;
+    # quantized experts are served on the gmm dispatch)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --reduced --device cpu --requests 4 --max-new 8 --max-len 96 \
         --lexi-budget-frac 0.5 --use-kernel --use-moe-decode \
@@ -34,9 +35,13 @@ plan searched (or loaded) for the model -- on the card by default.
         --use-moe-decode --use-moe-kernel
 
 Flag names follow ``repro.launch.serve`` for the features the port has.
-The MoE layers always run the dropless ``gmm`` dispatch (the only one the
-port serves); baseline and plan are served from one engine and one set of
-weights, drawn on the device from ``--seed``.
+The MoE layers run the config's own dispatch, as the reference launcher
+does: the capacity-buffer ``dense`` impl (``moe_ffn`` under
+``--use-moe-kernel``) for both models; ``--moe-impl gmm`` serves the
+dropless sorted dispatch instead, which quantized experts
+(``--expert-dtype int8|int4``) always take.  Baseline and plan are served
+from one engine and one set of weights, drawn on the device from
+``--seed``.
 """
 
 from __future__ import annotations
@@ -136,16 +141,23 @@ def main(argv=None) -> int:
                     help="paged decode attends pages in-kernel "
                          "(flash_decode_paged, or flash_decode_paged_mla "
                          "on an MLA model) instead of gathering")
+    ap.add_argument("--moe-impl", choices=("dense", "gmm"), default=None,
+                    help="MoE dispatch (default: the config's own, dense; "
+                         "gmm with --expert-dtype int8/int4)")
     ap.add_argument("--use-moe-decode", action="store_true",
                     help="decode steps run MoE through the fused "
-                         "routed-expert path instead of the gmm dispatch")
+                         "routed-expert path instead of the gmm dispatch "
+                         "(no effect under dense, which is never rerouted)")
     ap.add_argument("--use-moe-kernel", action="store_true",
-                    help="expert FFNs run the moe_gmm / moe_decode kernels")
+                    help="expert FFNs run the moe_ffn (dense) or moe_gmm / "
+                         "moe_decode (gmm) kernels")
     ap.add_argument("--expert-dtype", choices=["bf16", "int8", "int4"],
                     default="bf16",
                     help="storage dtype for routed expert tiles; int8/int4 "
                          "quantize at load and dequantize in-kernel "
-                         "(moe_gmm_quant / moe_decode_quant)")
+                         "(moe_gmm_quant / moe_decode_quant); the engine "
+                         "serves them on the gmm dispatch only, so these "
+                         "switch the MoE layers to gmm")
     ap.add_argument("--use-flash", action="store_true",
                     help="whole-prompt prefill attention through the "
                          "flash_attention kernel")
@@ -168,7 +180,9 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = cfg.with_(moe_impl="gmm")
+    impl = args.moe_impl or ("gmm" if args.expert_dtype != "bf16" else None)
+    if impl is not None:
+        cfg = cfg.with_(moe_impl=impl)
     params = models.init_params(cfg, args.seed, device=args.device)
     opts = models.ModelOpts(use_moe_kernel=args.use_moe_kernel,
                             use_flash=args.use_flash,
@@ -185,7 +199,8 @@ def main(argv=None) -> int:
                  device=args.device)
     print(f"arch={cfg.name} baseline top-k={cfg.moe_top_k or 'n/a'} "
           f"device={eng.device} layout={eng.kv.layout} "
-          f"chunk={eng.prefill_chunk} experts={args.expert_dtype}")
+          f"chunk={eng.prefill_chunk} moe={cfg.moe_impl} "
+          f"experts={args.expert_dtype}")
     if args.profile:                    # first calls build and warm up
         eng.serve(synth_requests(2, cfg.vocab_size, **dict(req_kw,
                                                             max_new=2)))

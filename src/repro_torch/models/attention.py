@@ -61,7 +61,7 @@ TRASH_PAGE = 0  # reserved page unmapped block-table entries point at
 def _check_attention(cfg: ModelConfig) -> None:
     if cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.attention!r} attention is not ported (ROADMAP.md A15)")
+            f"{cfg.attention!r} attention is not ported (ROADMAP.md A13)")
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
@@ -329,7 +329,7 @@ def gqa_attention(
         if "kp" not in cache:
             raise NotImplementedError(
                 "chunked prefill on the contiguous cache is not ported yet "
-                "(ROADMAP.md); use whole-prompt prefill (mode='prefill')")
+                "(ROADMAP.md A7); use whole-prompt prefill (mode='prefill')")
         # attend against the PRE-write cache plus the in-chunk keys, then
         # commit the chunk (the reference's order: right under a
         # sliding-window ring, and exact against whole-prompt prefill)

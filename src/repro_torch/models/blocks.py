@@ -46,7 +46,7 @@ def group_pattern(pattern: Tuple[BlockSpec, ...]) -> List[Group]:
 def _check_kind(spec: BlockSpec) -> None:
     if spec.kind not in _PORTED_KINDS:
         raise NotImplementedError(
-            f"{spec.kind!r} blocks are not ported yet (ROADMAP.md A15)")
+            f"{spec.kind!r} blocks are not ported yet (ROADMAP.md A13)")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,

@@ -68,7 +68,7 @@ def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
 def _check_norm(cfg: ModelConfig) -> None:
     if cfg.norm_type != "rmsnorm":
         raise NotImplementedError(
-            f"norm_type={cfg.norm_type!r} is not ported yet (ROADMAP.md A2); "
+            f"norm_type={cfg.norm_type!r} is not ported yet (ROADMAP.md A13); "
             "the MoE configs the port serves use rmsnorm")
 
 

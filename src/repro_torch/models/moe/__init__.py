@@ -3,6 +3,7 @@
 
 from repro_torch.models.moe.compute import (  # noqa: F401
     add_shared,
+    expert_ffn,
     grouped_ffn,
     grouped_ffn_quant,
     quant_leaves,
@@ -10,6 +11,7 @@ from repro_torch.models.moe.compute import (  # noqa: F401
     routed_ffn_quant,
 )
 from repro_torch.models.moe.decode import moe_decode  # noqa: F401
+from repro_torch.models.moe.dense import moe_dense  # noqa: F401
 from repro_torch.models.moe.dispatch import (  # noqa: F401
     SortPlan,
     default_block_m,
@@ -32,4 +34,4 @@ from repro_torch.models.moe.registry import (  # noqa: F401
     moe,
     resolve_impl,
 )
-from repro_torch.models.moe.router import route  # noqa: F401
+from repro_torch.models.moe.router import capacity, route  # noqa: F401

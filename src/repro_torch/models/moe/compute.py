@@ -1,4 +1,5 @@
-"""Compute stage: expert SwiGLU over the sorted and the routed layouts.
+"""Compute stage: expert SwiGLU over the capacity, the sorted and the
+routed layouts.
 
 Each has a plain path (``use_kernel=False``, the reference's jnp path)
 and a kernel path through ``repro_torch.kernels`` (whose wrappers run the
@@ -15,6 +16,17 @@ import torch.nn.functional as F_
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.mlp import mlp
 from repro_torch.models.moe.dispatch import SortPlan
+
+
+def expert_ffn(w1, w2, xe, use_kernel: bool = False):
+    """xe [E, C, D] -> [E, C, D] (SwiGLU per expert, capacity layout)."""
+    if use_kernel:
+        from repro_torch.kernels import moe_ffn
+        return moe_ffn(xe, w1, w2)
+    f = w2.shape[1]
+    h = torch.bmm(xe, w1)
+    h = F_.silu(h[..., :f]) * h[..., f:]
+    return torch.bmm(h, w2)
 
 
 def grouped_ffn(w1, w2, xs, plan: SortPlan, use_kernel: bool = False):

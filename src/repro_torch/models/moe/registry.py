@@ -1,18 +1,19 @@
 """Dispatch-strategy registry and the public ``moe()`` entry point.
 
-The port serves the two production inference impls of the reference:
+The port serves the reference's single-device impls:
 
+  ``dense``   capacity-buffer dispatch + per-expert SwiGLU over every
+              expert (``moe_ffn`` kernel); every config's default.
   ``gmm``     sort-based dropless dispatch + ragged grouped SwiGLU
               (``moe_gmm`` kernel); the prefill-scale path.
   ``decode``  fused routed-expert path (``moe_decode`` kernel); the
               decode-shaped path, reached from ``gmm`` through
               ``resolve_impl``.
 
-``dense`` (the capacity-buffer oracle) and the expert-parallel impls
-``ep_a2a`` / ``ep_psum`` are not ported yet and raise.  Quantized expert
-tiles (``expert_dtype`` in ``params.QUANT_DTYPES``) are served by ``gmm``
-and ``decode`` only: any other impl raises rather than read int8 tiles as
-weights.
+The expert-parallel impls ``ep_a2a`` / ``ep_psum`` are not ported yet and
+raise.  Quantized expert tiles (``expert_dtype`` in
+``params.QUANT_DTYPES``) are served by ``gmm`` and ``decode`` only: any
+other impl raises rather than read int8 tiles as weights.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Callable, Dict, Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.moe.decode import moe_decode
+from repro_torch.models.moe.dense import moe_dense
 from repro_torch.models.moe.gmm import moe_gmm
 
 #: decode-regime auto-switch bound: ``gmm`` calls with at most this many
@@ -28,9 +30,8 @@ from repro_torch.models.moe.gmm import moe_gmm
 DECODE_TOKEN_THRESHOLD = 16
 
 _NOT_PORTED = {
-    "dense": "ROADMAP.md A3 (capacity-buffer oracle, kernel B9)",
-    "ep_a2a": "ROADMAP.md A16 (expert parallelism)",
-    "ep_psum": "ROADMAP.md A16 (expert parallelism)",
+    "ep_a2a": "ROADMAP.md A14 (expert parallelism)",
+    "ep_psum": "ROADMAP.md A14 (expert parallelism)",
 }
 
 
@@ -43,14 +44,22 @@ def _require_bf16(impl: str, expert_dtype: str):
 
 def resolve_impl(impl: str, n_tokens: int, decode_kernel: bool = False) -> str:
     """Apply the decode-regime auto-switch: only ``gmm`` reroutes (both
-    paths are exactly dropless)."""
+    paths are exactly dropless; ``dense`` can drop copies past capacity,
+    so it stays as selected)."""
     if (decode_kernel and impl == "gmm"
             and n_tokens <= DECODE_TOKEN_THRESHOLD):
         return "decode"
     return impl
 
 
-_IMPLS: Dict[str, Callable] = {"gmm": moe_gmm, "decode": moe_decode}
+def _dense(params, cfg, x2d, top_k, use_kernel=False, *,
+           expert_dtype="bf16"):
+    _require_bf16("dense", expert_dtype)
+    return moe_dense(params, cfg, x2d, top_k, use_kernel)
+
+
+_IMPLS: Dict[str, Callable] = {"dense": _dense, "gmm": moe_gmm,
+                               "decode": moe_decode}
 
 
 def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
@@ -69,7 +78,7 @@ def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
         _require_bf16(impl, expert_dtype)
         raise NotImplementedError(
             f"moe impl {impl!r} is not ported yet: {_NOT_PORTED[impl]}; "
-            "serve with moe_impl='gmm'")
+            "serve with moe_impl='dense' or 'gmm'")
     if impl not in _IMPLS:
         raise ValueError(f"unknown moe impl {impl!r}; have {sorted(_IMPLS)}")
     y2d, aux = _IMPLS[impl](params, cfg, x.reshape(b * s, d), top_k,

@@ -1,4 +1,5 @@
-"""Router stage: expert scoring, top-k selection, the aux loss.
+"""Router stage: expert scoring, top-k selection, the aux loss, capacity
+sizing.
 
 ``route`` is the single source of truth for scores, the NAEE
 dynamic-skipping baseline and the load-balancing loss, so the dispatch
@@ -7,6 +8,7 @@ impls stay numerically interchangeable (as in ``repro.models.moe.router``).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -50,3 +52,10 @@ def route(params: Dict, cfg: ModelConfig, x2d: torch.Tensor, top_k: int,
     ce = torch.softmax(logits, dim=-1).mean(0)
     aux = e * (me * ce).sum()
     return weights, idx.to(torch.int32), aux
+
+
+def capacity(t: int, top_k: int, num_experts: int, factor: float) -> int:
+    """Per-expert buffer rows for the capacity-buffer dispatch: at least 4,
+    padded to a multiple of 4."""
+    c = int(math.ceil(t * top_k / num_experts * factor))
+    return max(4, ((c + 3) // 4) * 4)

@@ -16,10 +16,11 @@ class ModelOpts:
     #: instead of the masked softmax (causal, no pads: it masks by index)
     use_flash: bool = False
     #: MoE dispatch implementation override (None -> cfg.moe_impl):
-    #: gmm | decode (models/moe/registry.py)
+    #: dense | gmm | decode (models/moe/registry.py)
     moe_impl: Optional[str] = None
-    #: run expert FFNs through the hand-written kernels (moe_gmm on the
-    #: sorted dropless layout, moe_decode on the routed decode layout)
+    #: run expert FFNs through the hand-written kernels (moe_ffn on the
+    #: capacity buffers, moe_gmm on the sorted dropless layout, moe_decode
+    #: on the routed decode layout)
     use_moe_kernel: bool = False
     #: paged decode attends pages in-kernel (flash_decode_paged) instead
     #: of gathering the pool into a contiguous [B, n_blk*P] view first
@@ -30,7 +31,8 @@ class ModelOpts:
     use_flash_decode: bool = False
     #: decode-regime MoE: reroute decode-step gmm dispatch for
     #: decode-shaped batches (T <= registry.DECODE_TOKEN_THRESHOLD)
-    #: through the fused routed-expert path (models/moe/decode.py)
+    #: through the fused routed-expert path (models/moe/decode.py); no
+    #: effect under dense, which can drop copies and is never rerouted
     use_moe_decode_kernel: bool = False
     #: routed expert storage: "bf16" (native: whatever the params store)
     #: or "int8" / "int4", quantized at load (Engine(expert_dtype=)) and

@@ -18,7 +18,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
     if cfg.prefix_embed_len or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: VLM / encoder-decoder stacks are not ported yet "
-            "(ROADMAP.md A15)")
+            "(ROADMAP.md A13)")
     dt = param_dtype(cfg)
     p: Dict = {
         "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dt, device),

@@ -27,11 +27,11 @@ and resumed token-exactly when pages free up.
 iteration, ``drain`` steps until the system is empty and ``serve`` wraps
 them for a closed-loop workload.  ``serve(reqs, plan=name)`` after
 ``add_plan`` serves a LExI plan from the same runner and weights; one wave
-serves one plan.  Not ported yet (ROADMAP.md A8): mixed-plan steps, the
-prefix cache, the plan-degradation ladder, the other admission policies,
-whole-lifetime reservation on the paged pool, chunked prefill on the
-contiguous layout, the sjf scheduler policy, router lookahead and
-open-loop arrival times.
+serves one plan.  Not ported yet (ROADMAP.md): mixed-plan steps (A3), the
+prefix cache and the plan-degradation ladder (A5), the other admission
+policies, whole-lifetime reservation on the paged pool, the sjf scheduler
+policy and open-loop arrival times (A6), chunked prefill on the
+contiguous layout (A7) and router lookahead (A8).
 
 ``Engine(expert_dtype="int8" | "int4")`` quantizes the routed experts at
 load (``quantize_expert_params``) and serves them through the
@@ -81,7 +81,7 @@ class Engine:
         if any(b.kind not in _CHUNKABLE_KINDS for b in cfg.pattern()):
             raise NotImplementedError(
                 f"{cfg.name}: the port serves attention + MoE/MLP stacks "
-                "only (ROADMAP.md A15)")
+                "only (ROADMAP.md A13)")
         self.max_batch = max_batch
         self.max_len = max_len
         self.eos_id = eos_id
@@ -102,7 +102,7 @@ class Engine:
         if self.contiguous and prefill_chunk != 0:
             raise NotImplementedError(
                 "chunked prefill on the contiguous layout is not ported yet "
-                "(ROADMAP.md); pass prefill_chunk=0")
+                "(ROADMAP.md A7); pass prefill_chunk=0")
         # cap at the ring size: a chunk wider than the window would scatter
         # two positions into one ring slot within a single write
         self.prefill_chunk = (0 if self.contiguous else
@@ -276,7 +276,7 @@ class Engine:
         if len(names) != 1:
             raise NotImplementedError(
                 f"a step mixing plans {sorted(names)} needs the bucketed-k "
-                "path, not ported yet (ROADMAP.md A8); serve one plan a wave")
+                "path, not ported yet (ROADMAP.md A3); serve one plan a wave")
         return names.pop()
 
     def _chunk_prefill_step(self, prefilling: List[Tracked]) -> None:

@@ -300,7 +300,8 @@ def _requests(mod, n, lo, hi, max_new, seed=0):
         max_new_tokens=max_new) for i in range(n)]
 
 
-@pytest.mark.parametrize("layout", ["paged", "paged_lexi", "contiguous"])
+@pytest.mark.parametrize("layout", ["paged", "paged_lexi", "contiguous",
+                                    "paged_lexi_int8", "paged_int4"])
 def test_greedy_serving_matches_reference(model, layout):
     from repro import serving as js
     from repro.serving import Engine as JEngine
@@ -312,13 +313,16 @@ def test_greedy_serving_matches_reference(model, layout):
         kw = dict(max_batch=3, max_len=64, cache_layout="contiguous",
                   prefill_chunk=0, use_moe_decode=True)
     else:
+        # quantized experts: each engine quantizes the same weights at load
         kw = dict(max_batch=3, max_len=64, prefill_chunk=16, page_size=16,
-                  use_kernel=True, use_moe_decode=True)
+                  use_kernel=True, use_moe_decode=True,
+                  expert_dtype=layout.split("_")[-1]
+                  if "int" in layout else "bf16")
     ej = JEngine(cfg_j, pj, **kw)
     et = TEngine(cfg_t, pt, opts=ModelOpts(use_moe_kernel=True),
                  device="cpu", **kw)
     plan = None
-    if layout == "paged_lexi":
+    if "lexi" in layout:
         plan = "lexi"
         for eng in (ej, et):                # one k per MoE layer
             eng.add_plan(plan, (1, 2))

@@ -204,8 +204,10 @@ def test_forward_launcher_runs_on_cpu(capsys):
     assert main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
                  "--batch", "1", "--seq", "16", "--reps", "1"]) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    # the config's own dense impl, and the baseline and plan on gmm too
     assert set(rec["models"]) == {"baseline", "lexi", "inter_prune_0.25",
-                                  "intra_prune_0.25"}
+                                  "intra_prune_0.25", "baseline~gmm",
+                                  "lexi~gmm"}
     assert rec["models"]["inter_prune_0.25"]["experts"] == 6
     assert rec["models"]["intra_prune_0.25"]["moe_d_ff"] == 48
     assert all(np.isfinite(m["xent"]) for m in rec["models"].values())

@@ -180,6 +180,28 @@ def test_moe_decode_plain_matches_pallas(b, k, e):
                                **TOL)
 
 
+def test_moe_decode_plain_matches_pallas_at_ragged_f():
+    """F 96: the Pallas kernel halves block_f 64 to 32 to divide it; the
+    CUDA kernel masks its last 64-column block (on-card tests below)."""
+    import jax.numpy as jnp
+    from repro.kernels import ref
+    from repro.kernels.moe_decode import moe_decode_pallas
+    from repro_torch.kernels import moe_decode
+    b, k, e, d, f = 4, 3, 6, 64, 96
+    rng = np.random.default_rng(96)
+    x = _x(b, d, 9)
+    w1 = (rng.normal(size=(e, d, 2 * f)) * 0.05).astype(np.float32)
+    w2 = (rng.normal(size=(e, f, d)) * 0.05).astype(np.float32)
+    idx = rng.integers(0, e, size=(b, k)).astype(np.int32)
+    w = rng.random((b, k)).astype(np.float32)
+    got = moe_decode(*map(torch.from_numpy, (x, w1, w2, idx, w))).numpy()
+    want = moe_decode_pallas(*map(jnp.asarray, (x, w1, w2, idx, w)),
+                             block_f=64, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    np.testing.assert_allclose(got, ref.moe_decode_ref(x, w1, w2, idx, w),
+                               **TOL)
+
+
 # --------------------------------------------------------------------------- #
 # The MoE layer
 # --------------------------------------------------------------------------- #
@@ -205,15 +227,20 @@ def test_moe_layer_matches_reference(impl, t, use_kernel):
 
 def test_decode_reroute_and_unported_impls():
     from repro_torch.models.moe import DECODE_TOKEN_THRESHOLD, moe, \
-        resolve_impl
+        moe_dense, resolve_impl
     assert resolve_impl("gmm", DECODE_TOKEN_THRESHOLD, True) == "decode"
     assert resolve_impl("gmm", DECODE_TOKEN_THRESHOLD + 1, True) == "gmm"
     assert resolve_impl("gmm", 1, False) == "gmm"
+    # dense can drop copies past capacity: never rerouted
+    assert resolve_impl("dense", 1, True) == "dense"
     cfg_j, cfg_t = _cfgs()
     _, pt = _moe_params(cfg_j)
-    x = torch.zeros(1, 2, cfg_t.d_model)
-    for impl in ("dense", "ep_a2a", "ep_psum"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    x = torch.from_numpy(_x(4, cfg_t.d_model)).reshape(1, 4, -1)
+    y, aux = moe(pt, cfg_t, x, 2, impl="dense", decode_kernel=True)
+    y2, aux2 = moe_dense(pt, cfg_t, x[0], 2)
+    assert torch.equal(y[0], y2) and torch.equal(aux, aux2)
+    for impl in ("ep_a2a", "ep_psum"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
             moe(pt, cfg_t, x, 2, impl=impl)
 
 
@@ -232,11 +259,13 @@ def _close(got, want):
 
 
 @cuda
-@pytest.mark.parametrize("t,k,bm", [(1, 2, 8), (37, 4, 40), (512, 8, 128)])
-def test_moe_gmm_kernel_matches_plain_on_card(t, k, bm):
+@pytest.mark.parametrize("t,k,bm,f", [(1, 2, 8, 128), (37, 4, 40, 128),
+                                      (512, 8, 128, 128), (37, 4, 40, 96),
+                                      (64, 6, 64, 1056)])
+def test_moe_gmm_kernel_matches_plain_on_card(t, k, bm, f):
     from repro_torch.kernels import moe_gmm
     from repro_torch.kernels.moe_gmm import moe_gmm_plain
-    plan, xs, w1, w2 = _gmm_case(t, k, 16, 128, 128, bm, seed=t)
+    plan, xs, w1, w2 = _gmm_case(t, k, 16, 128, f, bm, seed=t)
     args = [a.cuda() for a in (xs.bfloat16(), torch.from_numpy(w1).bfloat16(),
                                torch.from_numpy(w2).bfloat16(),
                                plan.tile_expert, plan.tile_valid)]
@@ -246,11 +275,12 @@ def test_moe_gmm_kernel_matches_plain_on_card(t, k, bm):
 
 
 @cuda
-@pytest.mark.parametrize("b,k", [(1, 1), (8, 8), (3, 2)])
-def test_moe_decode_kernel_matches_plain_on_card(b, k):
+@pytest.mark.parametrize("b,k,f", [(1, 1, 192), (8, 8, 192), (3, 2, 192),
+                                   (8, 8, 96), (8, 6, 1056)])
+def test_moe_decode_kernel_matches_plain_on_card(b, k, f):
     from repro_torch.kernels import moe_decode
     from repro_torch.kernels.moe_decode import moe_decode_plain
-    e, d, f = 16, 128, 192
+    e, d = 16, 128
     g = torch.Generator(device="cuda").manual_seed(b + k)
     x = torch.randn(b, d, generator=g, device="cuda").bfloat16()
     w1 = (torch.randn(e, d, 2 * f, generator=g, device="cuda") * 0.1).bfloat16()

@@ -182,6 +182,42 @@ def test_moe_decode_quant_plain_matches_pallas_jnp_and_oracle(dtype, b, k, e):
     np.testing.assert_array_equal(again[-1], got[-1])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kernel", ["moe_gmm_quant", "moe_decode_quant"])
+def test_quant_plain_versions_match_pallas_at_ragged_f(kernel, dtype):
+    """F 96: the Pallas kernels halve block_f 64 to 32 to divide it; the
+    CUDA kernels mask their last 64-column block (on-card tests below)."""
+    import jax.numpy as jnp
+    from repro.kernels.moe_decode import moe_decode_quant_pallas
+    from repro.kernels.moe_gmm import moe_gmm_quant_pallas
+    from repro_torch.kernels import moe_decode_quant, moe_gmm_quant
+    d, f = 64, 96
+    if kernel == "moe_gmm_quant":
+        plan, xs, q = _gmm_quant_case(20, 2, 6, d, f, 8, dtype, seed=96)
+        got = moe_gmm_quant(xs, *q, plan.tile_expert, plan.tile_valid,
+                            dtype=dtype, block_m=8).numpy()
+        want = moe_gmm_quant_pallas(
+            *(jnp.asarray(a.numpy()) for a in (xs, *q, plan.tile_expert,
+                                               plan.tile_valid)),
+            dtype=dtype, block_m=8, block_f=64, interpret=True)
+    else:
+        from repro_torch.models.moe import quantize_experts
+        rng = np.random.default_rng(97)
+        x = rng.normal(size=(4, d)).astype(np.float32)
+        w1, w2 = _w(98, (), 6, d, f, scale=0.05)
+        idx = rng.integers(0, 6, size=(4, 3)).astype(np.int32)
+        w = rng.random((4, 3)).astype(np.float32)
+        q = quantize_experts(torch.from_numpy(w1), torch.from_numpy(w2),
+                             dtype)
+        got = moe_decode_quant(torch.from_numpy(x), *q,
+                               torch.from_numpy(idx), torch.from_numpy(w),
+                               dtype=dtype).numpy()
+        want = moe_decode_quant_pallas(
+            *(jnp.asarray(a) for a in (x, *(t.numpy() for t in q), idx, w)),
+            dtype=dtype, block_f=64, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
 # --------------------------------------------------------------------------- #
 # (d) the MoE layer with expert_dtype, (e) errors, (f) quantize-at-load
 # --------------------------------------------------------------------------- #
@@ -302,12 +338,14 @@ def _card_weights(e, d, f, dtype, seed):
 
 @cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("t,k,bm", [(1, 2, 8), (37, 4, 40), (512, 8, 128)])
-def test_moe_gmm_quant_kernel_matches_plain_on_card(dtype, t, k, bm):
+@pytest.mark.parametrize("t,k,bm,f", [(1, 2, 8, 128), (37, 4, 40, 128),
+                                      (512, 8, 128, 128), (37, 4, 40, 96),
+                                      (64, 6, 64, 1056)])
+def test_moe_gmm_quant_kernel_matches_plain_on_card(dtype, t, k, bm, f):
     from repro_torch.kernels import moe_gmm_quant
     from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
     from repro_torch.models.moe import make_sort_plan, sort_dispatch
-    e, d, f = 16, 256, 128
+    e, d = 16, 256
     g, q = _card_weights(e, d, f, dtype, t)
     idx = torch.stack([torch.randperm(e - 1, generator=g, device="cuda")[:k]
                        for _ in range(t)]).int()
@@ -323,11 +361,12 @@ def test_moe_gmm_quant_kernel_matches_plain_on_card(dtype, t, k, bm):
 
 @cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("b,k", [(1, 1), (8, 8), (3, 2)])
-def test_moe_decode_quant_kernel_matches_plain_on_card(dtype, b, k):
+@pytest.mark.parametrize("b,k,f", [(1, 1, 192), (8, 8, 192), (3, 2, 192),
+                                   (8, 8, 96), (8, 6, 1056)])
+def test_moe_decode_quant_kernel_matches_plain_on_card(dtype, b, k, f):
     from repro_torch.kernels import moe_decode_quant
     from repro_torch.kernels.moe_decode import moe_decode_quant_plain
-    e, d, f = 16, 256, 192
+    e, d = 16, 256
     g, q = _card_weights(e, d, f, dtype, b + k)
     x = torch.randn(b, d, generator=g, device="cuda").bfloat16()
     idx = torch.randint(0, e, (b, k), generator=g, device="cuda").int()
@@ -349,6 +388,9 @@ def test_quant_kernels_refuse_what_they_do_not_take_on_card():
     w = torch.ones(2, 1, device="cuda")
     with pytest.raises(ValueError, match="multiples of 64"):
         moe_decode_quant(x, *q, idx, w, dtype="int4")
+    _, q = _card_weights(e, d, 48, "int8", 0)      # F 48: not a x32
+    with pytest.raises(ValueError, match="multiple of 32"):
+        moe_decode_quant(x, *q, idx, w, dtype="int8")
     _, q = _card_weights(e, d, f, "int8", 0)
     with pytest.raises(TypeError, match="bfloat16"):
         moe_decode_quant(x.float(), *q, idx, w, dtype="int8")

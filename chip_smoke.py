@@ -6,9 +6,16 @@
 Phases, each printing one JSON line (any failure raises and exits non-zero):
 
 1. build   -- compile every CUDA kernel of ``src/repro_torch/csrc`` (one
-              ``nvcc`` per source, all started together) into ``build/``.
+              ``nvcc`` per source, all started together) into ``build/``;
+              the build line carries ptxas's registers / spills report of
+              every kernel.
 2. kernels -- hold each kernel against its plain PyTorch version in bf16 at
-              the shapes the main paths give it (``flash_attention`` and
+              the shapes the main paths give it (``moe_gmm`` also at the
+              edges of its tiling -- row tiles of 8, 40 and 128 rows, F
+              1056, dead tiles, an expert with no rows -- with its host
+              microseconds a call; ``flash_attention`` also at hd 64, a
+              ragged S of 37 and 200 and strided [B, S, H, hd] views;
+              ``flash_attention`` and
               ``flash_decode`` also at one GQA shape with a sliding window;
               the attention kernels, ``moe_ffn`` and the quantized expert
               kernels, in int8 and int4, row by row, to ROW_TOL;
@@ -226,6 +233,9 @@ def check_moe_gmm(layer, cfg, x, flush, tag: str = ""):
     ms, plain_ms = time_calls((lambda: moe_gmm(*args, block_m=plan.block_m),
                                lambda: moe_gmm_plain(*args, plan.block_m)),
                               flush)
+    emit({"check": f"moe_gmm{tag}_host", "ms": ms,
+          "host_us_per_call": host_us(
+              lambda: moe_gmm(*args, block_m=plan.block_m))})
     d, f = cfg.d_model, cfg.moe_d_ff
     rows = x.shape[0] * k                      # real token copies
     nbytes = (2 * rows * d * 2                  # real rows in, out
@@ -233,6 +243,69 @@ def check_moe_gmm(layer, cfg, x, flush, tag: str = ""):
               + 2 * 4 * len(plan.tile_valid))
     flops = rows * 6 * d * f
     return err, ms, plain_ms, nbytes, flops
+
+
+def check_moe_gmm_edges(layer, cfg, x):
+    """B1 at the edges of its tiling, at the model's width (D 2048): row
+    tiles of 8 and 40 rows (one warpgroup, most of its rows past the tile)
+    and of 128 (two), each plan with dead tiles and an expert that gets no
+    row (its copies sent to the next expert), and F 1056 (a part-filled
+    last column box) on random experts; held to TOL, dead tiles exactly
+    zero.  Returns the largest error."""
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    from repro_torch.models.moe import make_sort_plan, route, sort_dispatch
+    k, e, d = cfg.moe_top_k, cfg.num_experts, cfg.d_model
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(9)
+    w1056 = [(torch.randn(shape, generator=gen, device=x.device) * 0.02)
+             .to(torch.bfloat16) for shape in ((16, d, 2 * 1056),
+                                               (16, 1056, d))]
+    err = 0.0
+    for tokens, bm, f in ((5, 8, 1024), (37, 40, 1024), (512, 128, 1024),
+                          (37, 40, 1056), (200, 128, 1056)):
+        xx = x[:tokens].contiguous()
+        if f == 1024:
+            w1, w2 = layer["w1"], layer["w2"]
+            _, idx, _ = route(layer, cfg, xx, k)
+        else:
+            w1, w2 = w1056
+            idx = torch.randint(0, 16, (tokens, k), generator=gen,
+                                device=x.device)
+        n_e = w1.shape[0]
+        empty = int(idx[0, 0])                  # routed, then emptied
+        idx = torch.where(idx == empty, (empty + 1) % n_e, idx).int()
+        plan = make_sort_plan(idx, n_e, bm)
+        args = (sort_dispatch(xx, plan, k), w1, w2, plan.tile_expert,
+                plan.tile_valid)
+        got = moe_gmm(*args, block_m=bm)
+        dead = ~plan.tile_valid.bool()
+        if not dead.any() or (plan.tile_expert[plan.tile_valid.bool()]
+                              == empty).any():
+            raise AssertionError(f"moe_gmm edge plan bm {bm}: no dead tile "
+                                 "or the emptied expert has rows")
+        if (got.reshape(-1, bm, d)[dead] != 0).any():
+            raise AssertionError(f"moe_gmm edge bm {bm}: a dead tile is "
+                                 "not zero")
+        err = max(err, compare(
+            f"moe_gmm_edge_bm{bm}_f{f}", got,
+            moe_gmm_plain(*args, bm), tokens=tokens, k=k, experts=n_e,
+            tiles=len(plan.tile_valid), dead_tiles=int(dead.sum()),
+            empty_expert=empty))
+    return err
+
+
+def host_us(fn, n: int = 50) -> float:
+    """Median host microseconds of one call of ``fn`` (wrapper checks,
+    tensor maps, launch), the device left to run behind it."""
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def check_moe_decode(layer, cfg, x, flush, tag: str = ""):
@@ -506,26 +579,39 @@ def check_flash_attention(cfg, flush, device):
     gen.manual_seed(4)
     hq, hd = cfg.num_heads, cfg.head_dim_
 
-    def qkv(b, hkv, s):
+    def qkv(b, hkv, s, hd, strided):
+        if strided:                      # the model's [B, S, H, hd] views
+            return [torch.randn((b, s, h, hd), generator=gen, device=device,
+                                dtype=torch.bfloat16).transpose(1, 2)
+                    for h in (hq, hkv, hkv)]
         return [torch.randn(shape, generator=gen, device=device,
                             dtype=torch.bfloat16)
                 for shape in ((b, hq, s, hd), (b, hkv, s, hd),
                               (b, hkv, s, hd))]
 
-    # the forward's shape, a ragged whole-prompt prefill, and GQA g=4 with
-    # a sliding window (OLMoE is MHA without one)
-    shapes = {"forward": (4, cfg.num_kv_heads, 512, None),
-              "prefill_ragged": (1, cfg.num_kv_heads, 200, None),
-              "gqa_window": (2, hq // 4, 384, 100)}
+    # the forward's shape, a ragged whole-prompt prefill, GQA g=4 with a
+    # sliding window (OLMoE is MHA without one), and the edges of the
+    # tiling: hd 64, a ragged S inside one tile and across several, and
+    # strided views of [B, S, H, hd] activations
+    shapes = {"forward": (4, cfg.num_kv_heads, 512, None, hd, False),
+              "prefill_ragged": (1, cfg.num_kv_heads, 200, None, hd, False),
+              "gqa_window": (2, hq // 4, 384, 100, hd, False),
+              "hd64_forward": (4, cfg.num_kv_heads, 512, None, 64, False),
+              "hd64_s37_gqa_window": (1, hq // 4, 37, 16, 64, False),
+              "strided_s200_gqa_window": (2, hq // 4, 200, 100, hd, True)}
     errs = []
-    for tag, (b, hkv, s, window) in shapes.items():
-        args = qkv(b, hkv, s)
-        errs.append(compare_rows(f"flash_attention_{tag}",
-                            flash_attention(*args, window=window),
-                            flash_attention_plain(*args, window=window),
-                            shape=[b, hq, hkv, s, hd], window=window))
-    b, hkv, s, _ = shapes["forward"]
-    q, k, v = qkv(b, hkv, s)
+    for tag, (b, hkv, s, window, hd, strided) in shapes.items():
+        args = qkv(b, hkv, s, hd, strided)
+        got = flash_attention(*args, window=window)
+        if got.stride() != args[0].stride():
+            raise AssertionError(f"flash_attention_{tag}: output strides "
+                                 f"{got.stride()} != q's {args[0].stride()}")
+        errs.append(compare_rows(f"flash_attention_{tag}", got,
+                                 flash_attention_plain(*args, window=window),
+                                 shape=[b, hq, hkv, s, hd], window=window,
+                                 strided=strided))
+    b, hkv, s, _, hd, _ = shapes["forward"]
+    q, k, v = qkv(b, hkv, s, hd, False)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ms, plain_ms, lib_ms = time_calls(
         (lambda: flash_attention(q, k, v),
@@ -1064,12 +1150,11 @@ def main() -> int:
 
     # ---- phase 1: build -------------------------------------------------
     secs = _build.build_all()
-    for name, log in _build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}", file=sys.stderr)
+    ptxas = {name: [line.strip() for line in log.splitlines()
+                    if "registers" in line or "spill" in line]
+             for name, log in _build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": secs,
-          "kernels": list(_build.SOURCES)})
+          "kernels": list(_build.SOURCES), "ptxas": ptxas})
 
     # ---- model weights (full width and depth, bf16, drawn on the card) --
     # each config's own MoE impl is dense; the phases that serve the
@@ -1097,11 +1182,13 @@ def main() -> int:
                        dtype=torch.bfloat16)
     x2048 = torch.randn((2048, cfg.d_model), generator=gen, device=device,
                         dtype=torch.bfloat16)
+    gmm_row = kernel_row("moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
+                         "src/repro/kernels/moe_gmm.py:84",
+                         *check_moe_gmm(layer, cfg, x512, flush))
+    gmm_row["max_abs_err"] = max(gmm_row["max_abs_err"],
+                                 check_moe_gmm_edges(layer, cfg, x512))
     rows = {
-        "moe_gmm": kernel_row(
-            "moe_gmm", "src/repro_torch/csrc/moe_gmm.cu",
-            "src/repro/kernels/moe_gmm.py:84",
-            *check_moe_gmm(layer, cfg, x512, flush)),
+        "moe_gmm": gmm_row,
         "moe_decode": kernel_row(
             "moe_decode", "src/repro_torch/csrc/moe_decode.cu",
             "src/repro/kernels/moe_decode.py:82",

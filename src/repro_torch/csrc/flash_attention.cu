@@ -9,30 +9,44 @@
 // transposed copies; k and v share strides.  q head h reads kv head
 // h / (Hq / Hkv).  Masking is by index: key j is visible to query i iff
 // j <= i (and j > i - window when a window is set).  Softmax and the
-// output accumulate in f32; the output is rounded to bf16 once.
+// output accumulate in f32; P is rounded to bf16 for the P V product and
+// the output to bf16 once.
 //
 // What bounds it on the H100: at the forward's shapes (B 4, 16 heads,
 // S 512, hd 128) bytes and operations are close: 33.6 MB of q, k, v and
 // out (0.010 ms at 3.35 TB/s) against 4.3 GFLOP of the causal half of the
-// two products (0.004 ms at 989 TFLOP/s).
+// two products (0.004 ms at 989 TFLOP/s).  Below those, what limits a
+// tile loop is the traffic it makes in the L2 and in shared memory: every
+// q tile re-reads its K/V tiles, and every mma reads its B fragment from
+// shared memory.
 //
-// Design.  One CUDA block of 4 warps per (64-row q tile, q head, batch
-// row), as the TPU grid (B, Hq, Sq/bq); the tiles nearest the end of the
-// sequence, which see the most keys, are scheduled first.  The block loops
-// over the 64-row kv tiles in [lo, hi) that causality and the window leave
-// visible (the TPU kernel's n_lo / n_hi), staging each K and V tile in
-// shared memory (rows padded by 8 elements, so the fragment loads below
-// hit 32 distinct banks).  Each warp owns 16 q rows and keeps everything
-// else in registers, as FlashAttention-2 does: its Q fragments, the scores
-// S = Q K^T of the current tile (mma.sync m16n8k16, bf16 in, f32
-// accumulate), the online-softmax state of its rows -- a thread holds two
-// rows, and the quad of threads sharing them reduces by shuffles -- and the
-// f32 output accumulator O, rescaled in place by e^(m_old - m_new).  The
-// score accumulator's layout is the A-operand layout of the next product,
-// so P (rounded to bf16) feeds O += P V without leaving the registers.  A
-// ragged last q or kv tile is zero-filled on load and masked, so any S
-// runs with 64-row tiles (the TPU wrapper instead halves its tile until it
-// divides S).  hd is a template parameter, 64 or 128.
+// Design (FlashAttention-2's register layout, pipelined for sm_90a).  One
+// block of NWARP warps per (BQ-row q tile, q head, batch row); each warp
+// owns MW 16-row slices of the tile, so a K or V fragment read from shared
+// memory feeds MW mma.sync m16n8k16 (bf16 in, f32 accumulate), and a K/V
+// tile read from the L2 serves BQ query rows.  The grid puts the q tile
+// slowest and walks it from the end of the sequence, so the tiles that
+// see the most keys start first.  The block loops over the BK-row kv tiles
+// in [lo, hi) that causality and the window leave visible (the TPU
+// kernel's n_lo / n_hi); K and V tiles live in a two-stage ring in shared
+// memory, filled by 16-byte cp.async, so tile j + 1 is in flight during
+// tile j's two products and softmax (K and V in separate commit groups:
+// S = Q K^T starts once K has landed).  The Q tile stays in shared memory
+// and its A fragments are re-read each tile, which keeps registers for the
+// accumulators.  Every fragment comes from one ldmatrix.x4 (K's B
+// fragments plain, V's with .trans); rows are padded by 8 elements, so the
+// eight 16-byte rows of each 8x8 matrix fall in distinct banks.  Scores,
+// the online-softmax state (base 2, a quad of threads per row reducing by
+// shuffles) and the f32 output accumulator stay in registers, and P feeds
+// O += P V in the score accumulator's layout, which is the A-operand
+// layout.  Only the tiles that cross the diagonal, the window's edge or
+// the sequence's end evaluate the mask.  A ragged last q or kv tile is
+// zero-filled on load and masked, so any S runs.  The output is staged in
+// the Q tile's rows (each warp its own) and stored as 16-byte rows.  hd is
+// a template parameter, 64 or 128.  The tile shape, BQ 64 on 4 warps with
+// 64-row kv tiles and two blocks an SM, measured fastest at the forward's
+// shape among eight tried (PERF.md: 128-row tiles on 8 warps spill at the
+// two-block register cap; two slices a warp need 255 registers).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -40,11 +54,46 @@
 
 typedef __nv_bfloat16 bf16;
 
-#define BQ 64            // q rows per block
-#define BK 64            // kv rows per tile
-#define NWARP 4          // 16 q rows per warp
-#define NT (NWARP * 32)
-#define PAD 8            // elements of padding per shared-memory row
+namespace fa {
+
+constexpr int MW = 1;          // 16-row slices per warp
+constexpr int NWARP = 4;       // warps per block
+constexpr int BK = 64;         // kv rows per tile
+constexpr int MIN_BLOCKS = 2;  // the launch bound caps registers so two fit
+constexpr int PAD = 8;         // elements of padding per shared-memory row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
 
 // d += a (16x16, row major) * b (16x8, col major), bf16 in, f32 out
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
@@ -62,185 +111,263 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows [row0, row0 + 64) of an [S, HD] matrix whose rows lie ``ld``
+// rows [row0, row0 + ROWS) of an [S, HD] matrix whose rows lie ``ld``
 // elements apart into shared memory with row pitch HD + PAD, rows past S
-// zero-filled; 16-byte loads
-template <int HD>
+// zero-filled; cp.async of 16 bytes a thread, not committed
+template <int HD, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           int row0, int S, int ld) {
-  constexpr int VEC = 8;
-  constexpr int PER_ROW = HD / VEC;
-  for (int idx = threadIdx.x; idx < 64 * PER_ROW; idx += NT) {
-    const int r = idx / PER_ROW, c = (idx % PER_ROW) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * (HD + PAD) + c) = val;
+  constexpr int PER_ROW = HD / 8;
+  static_assert(ROWS * PER_ROW % NT == 0, "tile loads split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * PER_ROW / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * (HD + PAD) + c,
+               src + (ok ? (size_t)(row0 + r) * ld + c : 0), ok);
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NT)
+struct Tile {
+  static constexpr int BQ = 16 * MW * NWARP;     // q rows per block
+  static constexpr int NT = 32 * NWARP;
+  static constexpr int LDS = HD + PAD;
+  static constexpr int SMEM = (BQ + 4 * BK) * LDS * (int)sizeof(bf16);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Tile<HD>::NT, MIN_BLOCKS)
 flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ out,
-                       int Hq, int Hkv, int S, int window, float scale,
+                       int Hq, int Hkv, int S, int window, float scale_log2,
                        int qsb, int qsh, int qss, int ksb, int ksh, int kss,
                        int osb, int osh, int oss) {
-  constexpr int LDS = HD + PAD;
+  using T = Tile<HD>;
+  constexpr int BQ = T::BQ, NT = T::NT, LDS = T::LDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sq = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sk = sq + BQ * LDS;
-  bf16* sv = sk + BK * LDS;
-  const uint16_t* sv16 = reinterpret_cast<const uint16_t*>(sv);
+  bf16* skv = sq + BQ * LDS;          // stage s: K at 2s, V at 2s + 1
 
-  const int qt = gridDim.x - 1 - blockIdx.x;    // longest kv walks first
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;    // longest kv walks first
   const int hk = h / (Hq / Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;        // mma fragment coordinates
   const int q0 = qt * BQ;
-  const size_t q_base = (size_t)b * qsb + (size_t)h * qsh;
-  const size_t kv_base = (size_t)b * ksb + (size_t)hk * ksh;
-
-  load_tile<HD>(sq, q + q_base, q0, S, qss);
-  __syncthreads();
-  const int r0 = warp * 16 + g;                 // this thread's rows r0, r0+8
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const bf16* p = sq + r0 * LDS + kk * 16 + 2 * t;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * LDS);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * LDS + 8);
-  }
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  const int qi[2] = {q0 + r0, q0 + r0 + 8};     // global query rows
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};                      // this thread's partial sums
+  const int wr0 = warp * 16 * MW;               // this warp's first row
+  const bf16* kb = k + (size_t)b * ksb + (size_t)hk * ksh;
+  const bf16* vb = v + (size_t)b * ksb + (size_t)hk * ksh;
 
   const int hi = min(q0 + BQ, S);
   const int n_hi = (hi + BK - 1) / BK;
   const int n_lo = window > 0 ? max(q0 - (window - 1), 0) / BK : 0;
+
+  // groups in flight: Q, K(lo), V(lo)
+  load_tile<HD, BQ, NT>(sq, q + (size_t)b * qsb + (size_t)h * qsh, q0, S, qss);
+  cp_async_commit();
+  load_tile<HD, BK, NT>(skv, kb, n_lo * BK, S, kss);
+  cp_async_commit();
+  load_tile<HD, BK, NT>(skv + BK * LDS, vb, n_lo * BK, S, kss);
+  cp_async_commit();
+
+  float o[MW][HD / 8][4];
+#pragma unroll
+  for (int m = 0; m < MW; ++m)
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      o[m][n][0] = o[m][n][1] = o[m][n][2] = o[m][n][3] = 0.f;
+  float mx[MW][2], l[MW][2];                    // per row: max, partial sum
+#pragma unroll
+  for (int m = 0; m < MW; ++m)
+    mx[m][0] = mx[m][1] = -INFINITY, l[m][0] = l[m][1] = 0.f;
+
   for (int j = n_lo; j < n_hi; ++j) {
     const int k0 = j * BK;
-    __syncthreads();                            // every warp is done with the last tile
-    load_tile<HD>(sk, k + kv_base, k0, S, kss);
-    load_tile<HD>(sv, v + kv_base, k0, S, kss);
+    const bf16* sk = skv + ((j - n_lo) & 1) * 2 * BK * LDS;
+    const bf16* sv = sk + BK * LDS;
+    __syncthreads();                 // every warp is done with the other stage
+    if (j + 1 < n_hi) {
+      bf16* nk = skv + ((j + 1 - n_lo) & 1) * 2 * BK * LDS;
+      load_tile<HD, BK, NT>(nk, kb, k0 + BK, S, kss);
+      cp_async_commit();
+      load_tile<HD, BK, NT>(nk + BK * LDS, vb, k0 + BK, S, kss);
+      cp_async_commit();
+    } else {
+      cp_async_commit();             // empty groups keep the count uniform
+      cp_async_commit();
+    }
+    cp_async_wait<3>();              // K(j) (and Q) landed
     __syncthreads();
 
-    // S = Q K^T: 8 column blocks of 8 keys
-    float s[BK / 8][4];
+    // S = Q K^T
+    float s[MW][BK / 8][4];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int m = 0; m < MW; ++m)
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const bf16* p = sk + (n * 8 + g) * LDS + kk * 16 + 2 * t;
-        mma16816(s[n], qa[kk], ld32(p), ld32(p + 8));
+      for (int n = 0; n < BK / 8; ++n)
+        s[m][n][0] = s[m][n][1] = s[m][n][2] = s[m][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t qa[MW][4];
+#pragma unroll
+      for (int m = 0; m < MW; ++m)
+        ldsm_x4(qa[m], sq + (wr0 + m * 16 + (lane & 15)) * LDS + kk * 16 +
+                           (lane >> 4) * 8);
+#pragma unroll
+      for (int n = 0; n < BK / 8; n += 2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, sk + ((n + (lane >> 4)) * 8 + (lane & 7)) * LDS +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int m = 0; m < MW; ++m) {
+          mma16816(s[m][n], qa[m], kf[0], kf[1]);
+          mma16816(s[m][n + 1], qa[m], kf[2], kf[3]);
+        }
       }
     }
 
-    // mask, then the online softmax of rows qi[0] (s[.][0..1]) and
-    // qi[1] (s[.][2..3]); the quad sharing a row reduces by shuffles
-    float mx[2] = {-INFINITY, -INFINITY};
+    // scale to base 2; mask by index only on tiles that need it
+    const bool full = k0 + BK - 1 <= q0 &&
+                      (window <= 0 || k0 > q0 + BQ - 1 - window);
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+    for (int m = 0; m < MW; ++m) {
+      const int i0 = q0 + wr0 + m * 16 + g;     // rows i0 (e < 2), i0 + 8
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = qi[e >> 1], jj = k0 + n * 8 + 2 * t + (e & 1);
-        const bool ok = i < S && jj <= i && (window <= 0 || jj > i - window);
-        s[n][e] = ok ? s[n][e] * scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[m][n][e] * scale_log2;
+          if (!full) {
+            const int i = i0 + (e >> 1) * 8, jj = k0 + n * 8 + 2 * t + (e & 1);
+            const bool ok = jj <= i && jj < S && (window <= 0 || jj > i - window);
+            x = ok ? x : -INFINITY;
+          }
+          s[m][n][e] = x;
+        }
+    }
+
+    // the online softmax of each row; the quad sharing a row reduces by
+    // shuffles
+#pragma unroll
+    for (int m = 0; m < MW; ++m) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float tm = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+          tm = fmaxf(tm, fmaxf(s[m][n][2 * r], s[m][n][2 * r + 1]));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
+        const float m_new = fmaxf(mx[m][r], tm);
+        // no visible key yet: l and O are 0, any finite factor will do
+        const float alpha = mx[m][r] == -INFINITY ? 1.f : ex2(mx[m][r] - m_new);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        mx[m][r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n) {
+          s[m][n][2 * r] = ex2(s[m][n][2 * r] - m_use);
+          s[m][n][2 * r + 1] = ex2(s[m][n][2 * r + 1] - m_use);
+          sum += s[m][n][2 * r] + s[m][n][2 * r + 1];
+        }
+        l[m][r] = l[m][r] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[m][n][2 * r] *= alpha;
+          o[m][n][2 * r + 1] *= alpha;
+        }
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      // no visible key yet: l and O are 0, any finite factor will do
-      alpha[r] = m[r] == -INFINITY ? 1.f : __expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        s[n][e] = s[n][e] == -INFINITY ? 0.f : __expf(s[n][e] - m[r]);
-        l[r] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-    }
+
+    cp_async_wait<2>();              // V(j) landed
+    __syncthreads();
 
     // O += P V: P's accumulator layout is the A-operand layout
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int kv = kk * 16 + 2 * t;
+      uint32_t pa[MW][4];
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const int d = n * 8 + g;
-        const uint32_t b0 = (uint32_t)sv16[kv * LDS + d] |
-                            ((uint32_t)sv16[(kv + 1) * LDS + d] << 16);
-        const uint32_t b1 = (uint32_t)sv16[(kv + 8) * LDS + d] |
-                            ((uint32_t)sv16[(kv + 9) * LDS + d] << 16);
-        mma16816(o[n], pa, b0, b1);
+      for (int m = 0; m < MW; ++m) {
+        pa[m][0] = pack_bf16(s[m][2 * kk][0], s[m][2 * kk][1]);
+        pa[m][1] = pack_bf16(s[m][2 * kk][2], s[m][2 * kk][3]);
+        pa[m][2] = pack_bf16(s[m][2 * kk + 1][0], s[m][2 * kk + 1][1]);
+        pa[m][3] = pack_bf16(s[m][2 * kk + 1][2], s[m][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < HD / 8; n += 2) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, sv + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                          (n + (lane >> 4)) * 8);
+#pragma unroll
+        for (int m = 0; m < MW; ++m) {
+          mma16816(o[m][n], pa[m], vf[0], vf[1]);
+          mma16816(o[m][n + 1], pa[m], vf[2], vf[3]);
+        }
       }
     }
   }
 
-  bf16* ob = out + (size_t)b * osb + (size_t)h * osh;
+  // normalise, stage this warp's rows in its own rows of the Q tile, and
+  // store them as 16-byte vectors
+  __syncwarp();
+  bf16* so = sq + wr0 * LDS;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    if (qi[r] < S) {
+  for (int m = 0; m < MW; ++m) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[m][r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float inv = 1.f / fmaxf(sum, 1e-30f);
+      bf16* row = so + (m * 16 + r * 8 + g) * LDS + 2 * t;
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)qi[r] * oss + n * 8 + 2 * t) =
-            pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+        *reinterpret_cast<uint32_t*>(row + n * 8) =
+            pack_bf16(o[m][n][2 * r] * inv, o[m][n][2 * r + 1] * inv);
     }
+  }
+  __syncwarp();
+  bf16* ob = out + (size_t)b * osb + (size_t)h * osh;
+  constexpr int PER_ROW = HD / 8;
+#pragma unroll
+  for (int idx = lane; idx < 16 * MW * PER_ROW; idx += 32) {
+    const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
+    const int i = q0 + wr0 + r;
+    if (i < S)
+      *reinterpret_cast<uint4*>(ob + (size_t)i * oss + c) =
+          *reinterpret_cast<const uint4*>(so + r * LDS + c);
   }
 }
 
 template <int HD>
-static int launch(const void* q, const void* k, const void* v, void* out,
-                  int B, int Hq, int Hkv, int S, int window,
-                  const int (&st)[9], cudaStream_t stream) {
-  const int smem = (BQ + 2 * BK) * (HD + PAD) * (int)sizeof(bf16);
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Hq, int Hkv, int S, int window, const int (&st)[9],
+           cudaStream_t stream) {
+  using T = Tile<HD>;
+  auto kernel = flash_attention_kernel<HD>;
+  const int n_q = (S + T::BQ - 1) / T::BQ;
+  if (B > 65535 || n_q > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_attention_kernel<HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  flash_attention_kernel<HD><<<grid, NT, smem, stream>>>(
+  const dim3 grid(Hq, B, n_q);
+  kernel<<<grid, T::NT, T::SMEM, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), Hq, Hkv, S,
-      window, 1.0f / sqrtf((float)HD), st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8]);
+      window, 1.4426950408889634f / sqrtf((float)HD), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8]);
   return (int)cudaGetLastError();
 }
+
+}  // namespace fa
 
 // Returns cudaGetLastError() after launch (cudaErrorInvalidValue for a
 // head size other than 64 or 128, or a row stride that breaks 16-byte
@@ -255,14 +382,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int ksh, int kss, int osb, int osh,
                                       int oss, void* stream) {
   const int st[9] = {qsb, qsh, qss, ksb, ksh, kss, osb, osh, oss};
-  if (Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || B <= 0 || B > 65535)
+  if (Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 9; ++i)
     if (st[i] < 0 || st[i] % 8 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return launch<64>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
-    case 128: return launch<128>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
+    case 64: return fa::launch<64>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
+    case 128: return fa::launch<128>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

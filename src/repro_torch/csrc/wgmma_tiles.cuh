@@ -1,0 +1,332 @@
+// Device and host code for Hopper expert kernels built on TMA and wgmma
+// (moe_gmm.cu): a block owns up to ROWS rows of one expert's row tile by
+// BN output columns.  Two consumer warpgroups hold 64 rows each, and one
+// producer warpgroup feeds them.  Its single elected thread keeps TMA loads
+// (cp.async.bulk.tensor, 128-byte swizzle) in flight through a ring of
+// stages in shared memory, with completion on mbarriers.  The consumers
+// run wgmma.mma_async m64n128k16 (bf16 in, f32 accumulate in registers) on
+// each stage that has landed and release it to the producer.  Every weight
+// tile is read once per row tile, whatever its height.
+//
+// Operands.  A (activation rows, K-major): boxes of 64 rows x 64 k, one
+// per consumer warpgroup.  B (weights, [K, N] row major as stored, so
+// MN-major): boxes of 64 k x 64 n, two side by side per 128-column B
+// operand.  A stage holds CONSUMERS A boxes, then the stage's B operands
+// (2 boxes each).  Out-of-bounds box elements (rows past M, columns past
+// F, k past F) are zero-filled by TMA, so the main loop carries no masks;
+// the epilogue stores only rows below the tile's height and columns below
+// the matrix's width.
+//
+// Tensor maps are encoded on the host through the driver's
+// cuTensorMapEncodeTiled, looked up once with cudaGetDriverEntryPoint*
+// (no -lcuda at link time); maps of weights are cached by (pointer, shape).
+// Names live in namespace wgt, so this header can sit beside
+// wmma_tiles.cuh's macros.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+#include <string.h>
+#include <mutex>
+
+namespace wgt {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int WG_ROWS = 64;                  // rows of one consumer warpgroup
+constexpr int CONSUMERS = 2;                 // consumer warpgroups
+constexpr int ROWS = WG_ROWS * CONSUMERS;    // rows a block owns
+constexpr int BN = 128;                      // columns of one B operand
+constexpr int BK = 64;                       // contraction step
+constexpr int BOX = 64;                      // TMA box edge, elements
+constexpr int BOX_BYTES = BOX * BOX * 2;     // 8 KB
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int PRODUCER = 128 * CONSUMERS;    // the producer's elected thread
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+__host__ __device__ constexpr int stage_bytes(int n_b) {        // A boxes, then n_b B operands
+  return (CONSUMERS + 2 * n_b) * BOX_BYTES;
+}
+__host__ __device__ constexpr int smem_bytes(int stages, int n_b) {   // + 1 KB to align the ring
+  return stages * stage_bytes(n_b) + 1024;
+}
+
+// ---------------------------------------------------------------- device
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// arrive once and expect ``bytes`` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the phase of parity ``parity`` has completed; a wait that
+// outlasts any load by far (a broken pipeline) traps, so the launch fails
+// with an error instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  for (uint32_t spins = 0;; ++spins) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) asm volatile("trap;");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ uint64_t desc_field(uint32_t bytes) {
+  return (uint64_t)((bytes & 0x3FFFF) >> 4);
+}
+
+// wgmma descriptor of a K-major operand with 128-byte swizzle: rows of 64
+// bf16 (128 bytes), 8-row groups 1024 bytes apart; a k16 slice starts 32
+// bytes further along the row
+__device__ __forceinline__ uint64_t desc_k(const void* p) {
+  return desc_field(smem_u32(p)) | desc_field(16) << 16 |
+         desc_field(1024) << 32 | 1ull << 62;
+}
+
+// wgmma descriptor of an MN-major operand with 128-byte swizzle: k-rows of
+// 64 bf16, 8-row groups 1024 bytes apart (stride offset), 64-column boxes
+// BOX_BYTES apart (leading offset); a k16 slice starts 2048 bytes further
+__device__ __forceinline__ uint64_t desc_mn(const void* p) {
+  return desc_field(smem_u32(p)) | desc_field(BOX_BYTES) << 16 |
+         desc_field(1024) << 32 | 1ull << 62;
+}
+
+// d[64] += A (64 x 16, K-major) * B (16 x 128, MN-major), bf16 in, f32
+// accumulate; thread t of the warpgroup holds d[i] at row
+// 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (t % 4) + i % 2
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The block's ring: the dynamic shared memory rounded up to 1024 bytes (the
+// 128-byte swizzle repeats every 8 rows); full[s] completes when stage s
+// has landed, empty[s] when every active consumer warp has released it.
+__device__ __forceinline__ uint8_t* ring_base(uint8_t* dyn) {
+  return dyn + ((1024 - (smem_u32(dyn) & 1023)) & 1023);
+}
+
+template <int STAGES>
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty,
+                                          int active_wg) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * active_wg);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer's elected thread: for each of nk steps, wait for the stage
+// to be free, expect ``bytes``, and let ``load(i, stage, bar)`` issue its
+// TMA loads.
+template <int STAGES, int STAGE_BYTES, class Load>
+__device__ __forceinline__ void produce(uint8_t* ring, uint64_t* full,
+                                        uint64_t* empty, int nk,
+                                        uint32_t bytes, Load load) {
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);   // round 0 passes
+    mbar_expect_tx(&full[s], bytes);
+    load(i, ring + s * STAGE_BYTES, &full[s]);
+  }
+}
+
+// A consumer warpgroup ``wg``: acc[b] = sum over the nk stages of its A
+// box times B operand b.  A stage is released once the wgmma group that
+// read it has completed (one group stays in flight).
+template <int STAGES, int NB>
+__device__ __forceinline__ void consume(float (&acc)[NB][64], uint8_t* ring,
+                                        uint64_t* full, uint64_t* empty,
+                                        int nk, int wg) {
+  constexpr int STAGE_BYTES = stage_bytes(NB);
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[b][i] = 0.f;
+  const bool signal = threadIdx.x % 32 == 0;
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint8_t* st = ring + s * STAGE_BYTES;
+    const uint8_t* sa = st + wg * BOX_BYTES;
+    const uint8_t* sb = st + CONSUMERS * BOX_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t da = desc_k(sa + kk * 32);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        wgmma_m64n128k16(acc[b], da,
+                         desc_mn(sb + b * 2 * BOX_BYTES + kk * 2048));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (i > 0 && signal) mbar_arrive(&empty[(i - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+}
+
+// ------------------------------------------------------------------ host
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encoder() {
+  static EncodeTiledFn fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  });
+  return fn;
+}
+
+// A bf16 tensor map of ``rank`` (2 or 3) dims, innermost first, with byte
+// strides of dims 1.., a box of ``box`` elements, 128-byte swizzle and zero
+// fill out of bounds.  ``cache``: reuse the map made before for the same
+// pointer and shape (weights); returns 0 or a cudaError_t.
+inline int make_map(CUtensorMap* map, const void* ptr, int rank,
+                    const uint64_t* dims, const uint64_t* strides,
+                    const uint32_t* box, bool cache) {
+  constexpr int N = 128;
+  static std::mutex mu;
+  static uint64_t keys[N][10];
+  static CUtensorMap maps[N];
+  static int used = 0, next = 0;
+  uint64_t key[10] = {reinterpret_cast<uint64_t>(ptr), (uint64_t)rank};
+  for (int i = 0; i < rank; ++i) {
+    key[2 + i] = dims[i];
+    key[7 + i] = box[i];
+  }
+  for (int i = 0; i + 1 < rank; ++i) key[5 + i] = strides[i];
+  std::lock_guard<std::mutex> lock(mu);
+  if (cache)
+    for (int i = 0; i < used; ++i)
+      if (!memcmp(keys[i], key, sizeof key)) {
+        *map = maps[i];
+        return 0;
+      }
+  EncodeTiledFn fn = encoder();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const cuuint32_t estride[3] = {1, 1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                  const_cast<void*>(ptr), dims, strides, box, estride,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  if (cache) {
+    memcpy(keys[next], key, sizeof key);
+    maps[next] = *map;
+    next = (next + 1) % N;
+    used = used < N ? used + 1 : N;
+  }
+  return 0;
+}
+
+}  // namespace wgt

@@ -4,7 +4,9 @@ Kernel: ``csrc/moe_gmm.cu`` (replaces ``repro/kernels/moe_gmm.py::
 moe_gmm_pallas``).  xs [M, D] (M = n_tiles * block_m) sorted by expert,
 w1 [E, D, 2F] (gate = first F columns, up = next F), w2 [E, F, D],
 tile_expert / tile_valid [n_tiles] int32 -> [M, D]; tiles with
-``tile_valid == 0`` come out zero.
+``tile_valid == 0`` come out zero.  The kernel reads its operands through
+TMA tensor maps (encoded per call for xs and h, cached per weight tensor
+in the library) and runs wgmma on them.
 
 Quantized experts: ``csrc/moe_gmm_quant.cu`` (replaces ``moe_gmm_quant_
 pallas``) computes the same on int8 w1q / w2q (int4: two values a byte,
@@ -59,10 +61,13 @@ def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
     expect("moe_gmm", tile_valid, "tile_valid", torch.int32, (n_tiles,))
     h = torch.empty((m, f), dtype=bf16, device=xs.device)
     out = torch.empty((m, d), dtype=bf16, device=xs.device)
-    fn = _build.function("moe_gmm", "moe_gmm_launch", 7, 4)
+    for arg, t in (("xs", xs), ("w1", w1), ("w2", w2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"moe_gmm: {arg} needs a 16-byte aligned base")
+    fn = _build.function("moe_gmm", "moe_gmm_launch", 7, 5)
     err = fn(xs.data_ptr(), w1.data_ptr(), w2.data_ptr(),
              tile_expert.data_ptr(), tile_valid.data_ptr(), h.data_ptr(),
-             out.data_ptr(), m, d, f, block_m,
+             out.data_ptr(), m, d, f, block_m, e,
              torch.cuda.current_stream(xs.device).cuda_stream)
     _build.check("moe_gmm", err)
     moe_gmm.launches += 1

@@ -17,6 +17,11 @@ path ran).
     PYTHONPATH=src python -m repro_torch.launch.forward \
         --arch deepseek-v2-lite --reduced --device cpu --batch 2 --seq 64
 
+    # then trace one forward of each model: baseline and plan on the
+    # config's own impl and on gmm
+    PYTHONPATH=src python -m repro_torch.launch.forward --arch olmoe-1b-7b \
+        --profile
+
 Every model runs the config's own MoE dispatch, the capacity-buffer
 ``dense`` impl (``moe_ffn``); the baseline and the plan run again on the
 dropless ``gmm`` dispatch (``moe_gmm``), as the reference benchmark's
@@ -130,7 +135,8 @@ def main(argv=None) -> int:
     ap.add_argument("--prune-frac", type=float, default=0.25)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profile", action="store_true",
-                    help="then trace one forward of each model with "
+                    help="then trace one forward of the baseline and the "
+                         "plan, on the config's own impl and on gmm, with "
                          "torch.profiler and print device time by kernel")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -154,8 +160,11 @@ def main(argv=None) -> int:
                       "batch": [args.batch, args.seq], "plan": plan.plan,
                       "budget": budget, "models": res}))
     if args.profile:
-        variants = {"baseline": (params, cfg),
-                    "lexi": apply_plan_params(params, cfg, plan)[::-1]}
+        cfg_l, params_l = apply_plan_params(params, cfg, plan)
+        variants = {"baseline": (params, cfg), "lexi": (params_l, cfg_l)}
+        if cfg.moe_impl != "gmm":
+            variants["baseline~gmm"] = (params, cfg.with_(moe_impl="gmm"))
+            variants["lexi~gmm"] = (params_l, cfg_l.with_(moe_impl="gmm"))
         for name, (p, c) in variants.items():
             wall = {}
 

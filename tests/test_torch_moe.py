@@ -248,9 +248,15 @@ def test_decode_reroute_and_unported_impls():
 # CUDA kernels vs their plain versions (need the card)
 # --------------------------------------------------------------------------- #
 
-cuda = pytest.mark.skipif(not torch.cuda.is_available(),
-                          reason="the CUDA kernels run only on a GPU")
 BF16_TOL = 2e-2     # of max |plain|: f32 sums in another order, bf16 output
+
+
+@pytest.fixture
+def card():
+    """Skips the test unless a CUDA device is present, decided when the
+    test runs (never while the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a GPU")
 
 
 def _close(got, want):
@@ -258,14 +264,16 @@ def _close(got, want):
     assert err <= BF16_TOL * want.float().abs().max().item()
 
 
-@cuda
-@pytest.mark.parametrize("t,k,bm,f", [(1, 2, 8, 128), (37, 4, 40, 128),
-                                      (512, 8, 128, 128), (37, 4, 40, 96),
-                                      (64, 6, 64, 1056)])
-def test_moe_gmm_kernel_matches_plain_on_card(t, k, bm, f):
+@pytest.mark.parametrize("t,k,bm,f,d", [(1, 2, 8, 128, 128),
+                                        (37, 4, 40, 128, 128),
+                                        (512, 8, 128, 128, 128),
+                                        (37, 4, 40, 96, 128),
+                                        (64, 6, 64, 1056, 128),
+                                        (37, 4, 40, 96, 192)])  # D % 128
+def test_moe_gmm_kernel_matches_plain_on_card(card, t, k, bm, f, d):
     from repro_torch.kernels import moe_gmm
     from repro_torch.kernels.moe_gmm import moe_gmm_plain
-    plan, xs, w1, w2 = _gmm_case(t, k, 16, 128, f, bm, seed=t)
+    plan, xs, w1, w2 = _gmm_case(t, k, 16, d, f, bm, seed=t)
     args = [a.cuda() for a in (xs.bfloat16(), torch.from_numpy(w1).bfloat16(),
                                torch.from_numpy(w2).bfloat16(),
                                plan.tile_expert, plan.tile_valid)]
@@ -274,10 +282,37 @@ def test_moe_gmm_kernel_matches_plain_on_card(t, k, bm, f):
     assert moe_gmm.launches == before + 1
 
 
-@cuda
+@pytest.mark.parametrize("t,k,bm,f", [(5, 2, 8, 1024), (37, 4, 40, 1024),
+                                      (512, 8, 128, 1024),
+                                      (200, 6, 128, 1056)])
+def test_moe_gmm_kernel_full_width_on_card(card, t, k, bm, f):
+    """At the served width (D 2048): one weight tile feeds both 64-row
+    halves of a row tile, tiles shorter than 64 rows leave a warpgroup
+    idle, F 1056 ends in a part-filled box; expert 7 gets no rows and the
+    buffer ends in dead tiles, which must come out zero."""
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    from repro_torch.models.moe import make_sort_plan, sort_dispatch
+    e, d = 16, 2048
+    g = torch.Generator(device="cuda").manual_seed(t + bm)
+    idx = torch.randint(0, e - 1, (t, k), generator=g, device="cuda")
+    idx = torch.where(idx == 7, e - 1, idx).int()
+    plan = make_sort_plan(idx, e, bm)
+    x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+    w1 = (torch.randn(e, d, 2 * f, generator=g, device="cuda") * 0.02).bfloat16()
+    w2 = (torch.randn(e, f, d, generator=g, device="cuda") * 0.02).bfloat16()
+    args = (sort_dispatch(x, plan, k), w1, w2, plan.tile_expert,
+            plan.tile_valid)
+    got = moe_gmm(*args, block_m=bm)
+    _close(got, moe_gmm_plain(*args, bm))
+    dead = ~plan.tile_valid.bool()
+    assert dead.any()
+    assert (got.reshape(-1, bm, d)[dead] == 0).all()
+
+
 @pytest.mark.parametrize("b,k,f", [(1, 1, 192), (8, 8, 192), (3, 2, 192),
                                    (8, 8, 96), (8, 6, 1056)])
-def test_moe_decode_kernel_matches_plain_on_card(b, k, f):
+def test_moe_decode_kernel_matches_plain_on_card(card, b, k, f):
     from repro_torch.kernels import moe_decode
     from repro_torch.kernels.moe_decode import moe_decode_plain
     e, d = 16, 128

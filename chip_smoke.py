@@ -17,10 +17,13 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               ragged S of 37 and 200 and strided [B, S, H, hd] views;
               ``flash_attention`` and
               ``flash_decode`` also at one GQA shape with a sliding window;
-              the attention kernels, ``moe_ffn`` and the quantized expert
-              kernels, in int8 and int4, row by row, to ROW_TOL;
+              the attention kernels, ``moe_ffn``, ``moe_decode`` and the
+              quantized expert kernels, in int8 and int4, row by row, to
+              ROW_TOL;
               ``moe_ffn`` on capacity buffers dispatched by the model's
-              router at the forward, chunk and decode shapes),
+              router at the forward, chunk and decode shapes;
+              ``moe_decode`` on 8 tokens at top-k and at k 2, each shape
+              with its distinct routed experts and the bytes they make),
               and time both with CUDA events (per-call medians of device
               time, L2 flushed before every call, kernel, plain and -- where
               one PyTorch call computes the same function -- that call
@@ -107,9 +110,10 @@ F32_FLOPS = 67e12
 #: both accumulate in f32 in different orders and round the output to bf16
 #: (relative step 2^-8), and moe_gmm also rounds its hidden to bf16
 TOL = 2e-2
-#: an attention kernel, or a quantized expert kernel, passes when every
-#: output row (one query head's hd
-#: values) has ||kernel - plain|| <= ROW_TOL * ||plain||.  Rows differ in
+#: an attention kernel, or an expert kernel held row by row (moe_ffn,
+#: moe_decode, the quantized ones), passes when every output row (one
+#: query head's hd values, one token's output) has ||kernel - plain|| <=
+#: ROW_TOL * ||plain||.  Rows differ in
 #: scale by the number of keys they see (a row over n random keys has
 #: norm ~ 1/sqrt(n) of one over a single key), so a bound on the largest
 #: value would let the long rows be wrong; bf16 rounding of P and of the
@@ -309,25 +313,31 @@ def host_us(fn, n: int = 50) -> float:
 
 
 def check_moe_decode(layer, cfg, x, flush, tag: str = ""):
+    """B3 on ``x``'s routing by the layer's router at top-k and at k 2,
+    each held row by row (one token's output a row) to ROW_TOL and timed
+    against the plain version.  Returns
+    {"k<k>": (err, ms, plain_ms, nbytes, flops, None, extra)}: the bytes
+    count each distinct routed expert once, as the kernel reads it; extra
+    holds that count and those bytes."""
     from repro_torch.kernels import moe_decode
     from repro_torch.kernels.moe_decode import moe_decode_plain
     from repro_torch.models.moe import route
+    d, f = cfg.d_model, cfg.moe_d_ff
     out = {}
     for k in (cfg.moe_top_k, 2):
         weights, idx, _ = route(layer, cfg, x, k)
         args = (x, layer["w1"], layer["w2"], idx, weights)
         experts = int(torch.unique(idx).numel())
-        out[k] = (compare(f"moe_decode{tag}_k{k}", moe_decode(*args),
-                          moe_decode_plain(*args), batch=x.shape[0], k=k,
-                          experts=experts), args, experts)
-    err, args, experts = out[cfg.moe_top_k]
-    ms, plain_ms = time_calls((lambda: moe_decode(*args),
-                               lambda: moe_decode_plain(*args)), flush)
-    d, f = cfg.d_model, cfg.moe_d_ff
-    b, k = args[3].shape
-    nbytes = experts * 3 * d * f * 2 + 2 * b * d * 2 + b * k * 8
-    flops = b * k * 6 * d * f
-    return max(e for e, _, _ in out.values()), ms, plain_ms, nbytes, flops
+        err = compare_rows(f"moe_decode{tag}_k{k}", moe_decode(*args),
+                           moe_decode_plain(*args), batch=x.shape[0], k=k,
+                           experts=experts)
+        ms, plain_ms = time_calls((lambda: moe_decode(*args),
+                                   lambda: moe_decode_plain(*args)), flush)
+        b = x.shape[0]
+        nbytes = experts * 3 * d * f * 2 + 2 * b * d * 2 + b * k * 8
+        out[f"k{k}"] = (err, ms, plain_ms, nbytes, b * k * 6 * d * f, None,
+                        {"experts": experts, "bytes": nbytes})
+    return out
 
 
 def _quant_bytes(experts, d, f, dtype):
@@ -678,19 +688,21 @@ def check_flash_decode(cfg, flush, device):
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
-               library_ms=None, flop_rate=BF16_FLOPS):
+               library_ms=None, extra=None, flop_rate=BF16_FLOPS):
+    """A kernel's numbers; ``extra`` adds keys of its own (moe_decode: the
+    distinct routed experts and the bytes they make)."""
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = flops / flop_rate * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms}
+            "library_ms": library_ms, **(extra or {})}
 
 
 #: the numbers a row keeps for each of its dtypes or shapes
 NESTED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms")
+               "library_ms", "experts", "bytes")
 
 
 def nested_row(name, source, replaces, per, nest):
@@ -701,7 +713,7 @@ def nested_row(name, source, replaces, per, nest):
             for key, v in per.items()}
     row = dict(next(iter(rows.values())))
     row["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
-    row[nest] = {key: {k: r[k] for k in NESTED_KEYS}
+    row[nest] = {key: {k: r[k] for k in NESTED_KEYS if k in r}
                  for key, r in rows.items()}
     return row
 
@@ -1022,15 +1034,14 @@ def mla_checks(params, cfg, device):
     pruned, cfg_p = intra_prune(params2, cfg2, 0.25)
     lay_p = pruned["layers"][1]["moe"]
     timing, shapes = {}, {}
-    for name, check, lay, c, xx in (
-            ("moe_gmm", check_moe_gmm, layer, cfg, x),
-            ("moe_gmm", check_moe_gmm, lay_p, cfg_p, x),
-            ("moe_decode", check_moe_decode, layer, cfg, x8),
-            ("moe_decode", check_moe_decode, lay_p, cfg_p, x8)):
-        tag = f"_f{c.moe_d_ff}"
-        _, ms, plain_ms, _, _ = check(lay, c, xx, flush, tag=tag)
-        timing[name + tag] = {"ms": ms, "plain_ms": plain_ms}
     for lay, c in ((layer, cfg), (lay_p, cfg_p)):
+        tag = f"_f{c.moe_d_ff}"
+        _, ms, plain_ms, _, _ = check_moe_gmm(lay, c, x, flush, tag=tag)
+        timing["moe_gmm" + tag] = {"ms": ms, "plain_ms": plain_ms}
+        for key, v in check_moe_decode(lay, c, x8, flush, tag).items():
+            shapes.setdefault("moe_decode", {})[
+                f"deepseek_f{c.moe_d_ff}_{key}"] = kernel_row(
+                    "moe_decode", "", "", *v)
         sh = f"deepseek_decode_f{c.moe_d_ff}_c4"
         shapes.setdefault("moe_ffn", {})[sh] = kernel_row(
             "moe_ffn", "", "", *check_moe_ffn(lay, c, x8, flush, sh))
@@ -1040,8 +1051,8 @@ def mla_checks(params, cfg, device):
         for dt, v in check(lay_p, cfg_p, xx, flush, f"_f{f}").items():
             shapes.setdefault(name, {})[f"f{f}_{dt}"] = kernel_row(
                 name, "", "", *v)
-    shapes = {n: {sh: {k: r[k] for k in NESTED_KEYS} for sh, r in rs.items()}
-              for n, rs in shapes.items()}
+    shapes = {n: {sh: {k: r[k] for k in NESTED_KEYS if k in r}
+                  for sh, r in rs.items()} for n, rs in shapes.items()}
     emit({"check": "deepseek_expert_kernels", "timing": timing,
           "shapes": shapes})
     del pruned, lay_p, flush
@@ -1189,10 +1200,14 @@ def main() -> int:
                                  check_moe_gmm_edges(layer, cfg, x512))
     rows = {
         "moe_gmm": gmm_row,
-        "moe_decode": kernel_row(
+        # 8 tokens at top-8 first, then at k 2; each shape carries its
+        # distinct routed experts and the bytes they make
+        "moe_decode": nested_row(
             "moe_decode", "src/repro_torch/csrc/moe_decode.cu",
             "src/repro/kernels/moe_decode.py:82",
-            *check_moe_decode(layer, cfg, x512[:8].contiguous(), flush)),
+            {f"olmoe_{key}": v for key, v in check_moe_decode(
+                layer, cfg, x512[:8].contiguous(), flush).items()},
+            "shapes"),
         "flash_decode_paged": kernel_row(
             "flash_decode_paged", "src/repro_torch/csrc/flash_decode_paged.cu",
             "src/repro/kernels/flash_decode_paged.py:107",

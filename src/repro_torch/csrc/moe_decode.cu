@@ -9,27 +9,43 @@
 // what route()'s k_budget relies on.
 //
 // What bounds it on the H100: bytes.  At B 8, k 8, D 2048, F 1024 the work
-// is 0.2 GFLOP against 12.6 MB of weights per routed (token, slot); even the
-// least traffic -- each distinct routed expert read once, about 41 of 64
-// experts, 0.5 GB -- takes about 0.15 ms at 3.35 TB/s.
+// is 0.2 GFLOP against 12.6 MB of weights per routed expert; the 64 slots
+// route to about 44 distinct experts, 0.55 GB, 0.165 ms at 3.35 TB/s.
 //
 // Design.  The TPU grid (B, k, F/bf) runs in order and carries one
 // accumulator per token across slots and F steps.  CUDA blocks run in
-// parallel, so each block owns its output instead, in two passes:
-//   pass 1 (decode_up), grid (B*k, ceil(F/64)): h[b, j, f0:f0+64] =
-//     silu(x[b] . w1[e][:, f]) * (x[b] . w1[e][:, F + f]) in f32; the 8 warps
-//     split D, each lane reads two adjacent gate and up columns (bf16x2), so
-//     a warp reads 128 contiguous bytes per row; partial sums meet in
-//     shared memory.  F may be any multiple of 32 (an intra-pruned
-//     DeepSeek-V2-Lite expert has F = 1056): in a ragged last block the
-//     lanes past F load nothing and store nothing.
-//   pass 2 (decode_down), grid (B, D/64): y[b, d0:d0+64] = sum over slots j
-//     of weights[b, j] * (h[b, j] . w2[e_j][:, d]); the block loops over
-//     the k slots itself, so the combine needs no atomics and is
-//     deterministic.  k is a runtime argument.
-// This simple design reads each routed expert once per (token, slot) that
-// routed to it (64 x 12.6 MB at B 8, k 8), not once per distinct expert:
-// grouping the slots of one expert is later work.
+// parallel, so each block owns its output instead, and the blocks of one
+// expert serve every slot routed to it, so each routed expert is read once
+// a call, whatever its number of slots.  Three passes:
+//   pass 1 (decode_up), grid (ceil(F/64), E): the block of expert e finds
+//     the slots routed to e (idx scanned by one warp with a ballot, in slot
+//     order); none: it exits at once.  Else it stages those slots' x rows
+//     in shared memory and streams its 64 gate and 64 up columns of w1[e]
+//     once for all of them: 16 threads cover a 256-byte weight row in
+//     16-byte loads, 16 row groups split D, eight loads a thread in flight
+//     (four past 4 slots); each thread keeps one f32 sum per (slot,
+//     column) in registers.  The row groups' sums meet in a fixed order
+//     (the two of a warp by a shuffle, then the warps in shared memory)
+//     and h[slot, f] = silu(gate) * up is stored in f32.
+//   pass 2 (decode_down), grid (ceil(D/128), E): the same grouping; the
+//     block streams its 128 columns of w2[e] once and stores each slot's
+//     f32 partial[slot, d] = h[slot] . w2[e][:, d].
+//   pass 3 (decode_combine), grid (B, ceil(D/256)):
+//     y[b, d] = sum_j weights[b, j] * partial[b * k + j, d], in slot order.
+// Passes 2 and 3 are launched as programmatic dependents of the pass
+// before: their blocks start while its last blocks run, find their slots
+// and wait for its results (griddepcontrol), so the launch gaps and the
+// earlier pass's last wave overlap.  The slot groups are found on the device, inside the launch: no
+// host sync and no sort, so the decode step can be captured in a CUDA
+// graph.  The
+// sums of one slot are taken in the same order whatever other slots share
+// its expert or its batch, so each row's output is bitwise the same alone
+// or in a batch, and no float atomics are used.  Up to 8 slots of an
+// expert are served by one pass over its weights (the sums are specialised
+// to the count); an expert with more slots is streamed once per 8 of them,
+// the later passes mostly from the L2.  F may be any multiple of 32 (an
+// intra-pruned DeepSeek-V2-Lite expert has F = 1056): in a ragged last
+// column block the lanes past F load nothing and store nothing.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -37,118 +53,330 @@
 
 typedef __nv_bfloat16 bf16;
 
-#define NT 256          // 8 warps
-#define NW (NT / 32)
-#define FT 64           // f columns per pass-1 block
-#define DT 64           // d columns per pass-2 block
+constexpr int NT = 256;           // 8 warps
+constexpr int NW = NT / 32;
+constexpr int GROUPS = NT / 16;   // row groups of 16 threads
+constexpr int R = 8;              // slots served by one pass over the weights
+constexpr int FT = 64;            // gate (and up) columns of a pass-1 block
+constexpr int DT = 128;           // output columns of a pass-2 block
+// weight loads a thread keeps in flight, fewer when it keeps sums of more
+// than 4 slots; blocks an SM (the launch bound); tools/
+// expert_kernel_variants.py times other values
+constexpr int UNROLL_FEW = 8;
+constexpr int UNROLL_MANY = 4;
+constexpr int MIN_BLOCKS = 2;
+// passes 2 and 3 launched as programmatic dependents of the pass before:
+// their blocks start as the earlier pass's last blocks run, find their
+// slots and wait for its results there
+constexpr bool DEPENDENT_LAUNCH = true;
+__host__ __device__ constexpr int unroll(int m) {
+  return m <= 4 ? UNROLL_FEW : UNROLL_MANY;
+}
 
-__global__ void __launch_bounds__(NT)
+// The slots (indices into idx [n_slots]) routed to expert e, in order,
+// into slots[]; returns their count to every thread.
+__device__ __forceinline__ int find_slots(const int* __restrict__ idx,
+                                          int n_slots, int e, int* slots,
+                                          int* count) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int base = 0; base < n_slots; base += 32) {
+      const int i = base + lane;
+      const bool hit = i < n_slots && idx[i] == e;
+      const unsigned m = __ballot_sync(0xffffffffu, hit);
+      if (hit) slots[n + __popc(m & ((1u << lane) - 1))] = i;
+      n += __popc(m);
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
+// let the next kernel's blocks start; wait for the previous kernel's
+// results (both nothing unless the launch made the kernels dependent)
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void wait_for_previous() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+// acc[r][c] += a[r][row] * W[row][c] over rows g, g + GROUPS, ... < n_rows
+// of a 16-byte column group at W (row stride ld elements); a[r] of row
+// ``row`` is read by ``operand(row, a)`` (M values); then the two row
+// groups of each warp are summed by a shuffle.
+template <int M, class Operand>
+__device__ __forceinline__ void stream_rows(float (&acc)[M][8],
+                                            const bf16* __restrict__ W,
+                                            size_t ld, int n_rows, bool live,
+                                            Operand operand) {
+  constexpr int UNROLL = unroll(M);
+  const int g = threadIdx.x / 16;
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+  if (live) {
+    for (int row0 = g; row0 < n_rows; row0 += GROUPS * UNROLL) {
+      uint4 w[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int row = row0 + u * GROUPS;
+        w[u] = row < n_rows
+                   ? __ldg(reinterpret_cast<const uint4*>(W + row * ld))
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int row = row0 + u * GROUPS;
+        if (row < n_rows) {
+          float wf[8], a[M];
+          unpack8(w[u], wf);
+          operand(row, a);
+#pragma unroll
+          for (int r = 0; r < M; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              acc[r][c] = fmaf(a[r], wf[c], acc[r][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 16);
+}
+
+// Lanes 0-15 of each warp write their sums to red[warp][r][q * 8 + c].
+template <int M>
+__device__ __forceinline__ void to_red(const float (&acc)[M][8], float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane < 16) {
+#pragma unroll
+    for (int r = 0; r < M; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        red[(warp * R + r) * 128 + lane * 8 + c] = acc[r][c];
+  }
+}
+
+// Pass 1 over M (1..R) slots staged in xs [D][R] bf16: gate and up sums of
+// 64 columns each into red.  Thread q = t % 16 reads gate columns
+// f0 + 8q.. (q < 8) or up columns f0 + 8(q - 8).. (q >= 8).
+template <int M>
+__device__ void up_rows(const bf16* __restrict__ w1e, const bf16* xs,
+                        float* red, int D, int F, int f0) {
+  const int q = threadIdx.x % 16;
+  const int col = f0 + 8 * (q % 8);
+  float acc[M][8];
+  stream_rows<M>(acc, w1e + (q < 8 ? 0 : F) + col, 2 * (size_t)F, D,
+                 col < F, [&](int d, float (&a)[M]) {
+                   float xf[8];
+                   unpack8(*reinterpret_cast<const uint4*>(xs + d * R), xf);
+#pragma unroll
+                   for (int r = 0; r < M; ++r) a[r] = xf[r];
+                 });
+  to_red<M>(acc, red);
+}
+
+// Pass 2 over M slots staged in hs [F][R] f32: 128 columns from d0.
+template <int M>
+__device__ void down_rows(const bf16* __restrict__ w2e, const float* hs,
+                          float* red, int D, int F, int d0) {
+  const int q = threadIdx.x % 16;
+  const int col = d0 + 8 * q;
+  float acc[M][8];
+  stream_rows<M>(acc, w2e + col, (size_t)D, F, col < D,
+                 [&](int f, float (&a)[M]) {
+#pragma unroll
+                   for (int r = 0; r < M; ++r) a[r] = hs[f * R + r];
+                 });
+  to_red<M>(acc, red);
+}
+
+// Shared memory of a pass: slots [n_slots] int, then red [NW][R][128] f32,
+// then the staged operand.
+__host__ __device__ constexpr size_t red_offset(int n_slots) {
+  return ((size_t)n_slots * 4 + 15) / 16 * 16;
+}
+__host__ __device__ constexpr size_t operand_offset(int n_slots) {
+  return red_offset(n_slots) + (size_t)NW * R * 128 * 4;
+}
+
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 decode_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                  const int* __restrict__ idx, float* __restrict__ h,
-                 int D, int F, int k) {
-  extern __shared__ float sm[];
-  float* sx = sm;                 // [D]
-  float* red = sm + D;            // [NW][2 * FT]
-  const int bj = blockIdx.x;
-  const int b = bj / k;
-  const int e = idx[bj];
-  const int f0 = blockIdx.y * FT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int d = threadIdx.x; d < D; d += NT) sx[d] = __bfloat162float(x[(size_t)b * D + d]);
-  __syncthreads();
-  const bf16* W = w1 + (size_t)e * D * 2 * F + f0 + 2 * lane;
-  float g0 = 0.f, g1 = 0.f, u0 = 0.f, u1 = 0.f;
-  const bool live = f0 + 2 * lane < F;     // F even: both columns or none
-#pragma unroll 4
-  for (int d = live ? warp : D; d < D; d += NW) {
-    const bf16* row = W + (size_t)d * 2 * F;
-    const float2 g = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row));
-    const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + F));
-    const float xv = sx[d];
-    g0 += xv * g.x; g1 += xv * g.y;
-    u0 += xv * u.x; u1 += xv * u.y;
-  }
-  float* r = red + warp * 2 * FT;
-  r[2 * lane] = g0; r[2 * lane + 1] = g1;
-  r[FT + 2 * lane] = u0; r[FT + 2 * lane + 1] = u1;
-  __syncthreads();
-  if (threadIdx.x < FT && f0 + threadIdx.x < F) {
-    float g = 0.f, u = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      g += red[w * 2 * FT + threadIdx.x];
-      u += red[w * 2 * FT + FT + threadIdx.x];
+                 int D, int F, int k, int n_slots) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  __shared__ int count;
+  int* slots = reinterpret_cast<int*>(sm);
+  float* red = reinterpret_cast<float*>(sm + red_offset(n_slots));
+  bf16* xs = reinterpret_cast<bf16*>(sm + operand_offset(n_slots));
+  const int e = blockIdx.y, f0 = blockIdx.x * FT;
+  launch_dependents();
+  const int n = find_slots(idx, n_slots, e, slots, &count);
+  if (n == 0) return;
+  const bf16* w1e = w1 + (size_t)e * D * 2 * F;
+  for (int s0 = 0; s0 < n; s0 += R) {
+    const int m = min(R, n - s0);
+    for (int i = threadIdx.x; i < m * D; i += NT) {
+      const int r = i / D, d = i % D;
+      xs[d * R + r] = x[(size_t)(slots[s0 + r] / k) * D + d];
     }
-    h[(size_t)bj * F + f0 + threadIdx.x] = g / (1.0f + __expf(-g)) * u;
+    __syncthreads();
+    switch (m) {
+      case 1: up_rows<1>(w1e, xs, red, D, F, f0); break;
+      case 2: up_rows<2>(w1e, xs, red, D, F, f0); break;
+      case 3: up_rows<3>(w1e, xs, red, D, F, f0); break;
+      case 4: up_rows<4>(w1e, xs, red, D, F, f0); break;
+      case 5: up_rows<5>(w1e, xs, red, D, F, f0); break;
+      case 6: up_rows<6>(w1e, xs, red, D, F, f0); break;
+      case 7: up_rows<7>(w1e, xs, red, D, F, f0); break;
+      default: up_rows<8>(w1e, xs, red, D, F, f0); break;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < m * FT; i += NT) {
+      const int r = i / FT, c = i % FT;
+      if (f0 + c < F) {
+        float g = 0.f, u = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          g += red[(w * R + r) * 128 + c];
+          u += red[(w * R + r) * 128 + FT + c];
+        }
+        h[(size_t)slots[s0 + r] * F + f0 + c] = g / (1.0f + __expf(-g)) * u;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
+decode_down_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
+                   const int* __restrict__ idx, float* __restrict__ partial,
+                   int D, int F, int n_slots) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  __shared__ int count;
+  int* slots = reinterpret_cast<int*>(sm);
+  float* red = reinterpret_cast<float*>(sm + red_offset(n_slots));
+  float* hs = reinterpret_cast<float*>(sm + operand_offset(n_slots));
+  const int e = blockIdx.y, d0 = blockIdx.x * DT;
+  launch_dependents();
+  const int n = find_slots(idx, n_slots, e, slots, &count);
+  if (n == 0) return;
+  const bf16* w2e = w2 + (size_t)e * F * D;
+  wait_for_previous();                  // h of pass 1
+  for (int s0 = 0; s0 < n; s0 += R) {
+    const int m = min(R, n - s0);
+    for (int i = threadIdx.x; i < m * F; i += NT) {
+      const int r = i / F, f = i % F;
+      hs[f * R + r] = h[(size_t)slots[s0 + r] * F + f];
+    }
+    __syncthreads();
+    switch (m) {
+      case 1: down_rows<1>(w2e, hs, red, D, F, d0); break;
+      case 2: down_rows<2>(w2e, hs, red, D, F, d0); break;
+      case 3: down_rows<3>(w2e, hs, red, D, F, d0); break;
+      case 4: down_rows<4>(w2e, hs, red, D, F, d0); break;
+      case 5: down_rows<5>(w2e, hs, red, D, F, d0); break;
+      case 6: down_rows<6>(w2e, hs, red, D, F, d0); break;
+      case 7: down_rows<7>(w2e, hs, red, D, F, d0); break;
+      default: down_rows<8>(w2e, hs, red, D, F, d0); break;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < m * DT; i += NT) {
+      const int r = i / DT, c = i % DT;
+      if (d0 + c < D) {
+        float p = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) p += red[(w * R + r) * 128 + c];
+        partial[(size_t)slots[s0 + r] * D + d0 + c] = p;
+      }
+    }
+    __syncthreads();
   }
 }
 
 __global__ void __launch_bounds__(NT)
-decode_down_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
-                   const int* __restrict__ idx,
-                   const float* __restrict__ weights, bf16* __restrict__ y,
-                   int D, int F, int k) {
-  extern __shared__ float sm[];
-  float* sh = sm;                 // [F]
-  float* red = sm + F;            // [NW][DT]
-  const int b = blockIdx.x;
-  const int d0 = blockIdx.y * DT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float acc = 0.f;                // threads < DT own column d0 + threadIdx.x
-  for (int j = 0; j < k; ++j) {
-    const int bj = b * k + j;
-    for (int f = threadIdx.x; f < F; f += NT) sh[f] = h[(size_t)bj * F + f];
-    __syncthreads();
-    const bf16* W = w2 + (size_t)idx[bj] * F * D + d0 + 2 * lane;
-    float p0 = 0.f, p1 = 0.f;
-#pragma unroll 4
-    for (int f = warp; f < F; f += NW) {
-      const float2 w = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(W + (size_t)f * D));
-      p0 += sh[f] * w.x;
-      p1 += sh[f] * w.y;
-    }
-    red[warp * DT + 2 * lane] = p0;
-    red[warp * DT + 2 * lane + 1] = p1;
-    __syncthreads();
-    if (threadIdx.x < DT) {
-      float p = 0.f;
-#pragma unroll
-      for (int w = 0; w < NW; ++w) p += red[w * DT + threadIdx.x];
-      acc += weights[bj] * p;
-    }
-  }
-  if (threadIdx.x < DT) y[(size_t)b * D + d0 + threadIdx.x] = __float2bfloat16(acc);
+decode_combine_kernel(const float* __restrict__ partial,
+                      const float* __restrict__ weights, bf16* __restrict__ y,
+                      int D, int k) {
+  const int b = blockIdx.x, d = blockIdx.y * NT + threadIdx.x;
+  wait_for_previous();                  // partial of pass 2
+  if (d >= D) return;
+  float acc = 0.f;
+  for (int j = 0; j < k; ++j)
+    acc += weights[b * k + j] * partial[(size_t)(b * k + j) * D + d];
+  y[(size_t)b * D + d] = __float2bfloat16(acc);
+}
+
+// Launch a pass as a programmatic dependent of the one before it.
+template <class Kernel, class... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
+                   Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = DEPENDENT_LAUNCH;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 // x [B, D], w1 [E, D, 2F], w2 [E, F, D], y [B, D] bf16; idx [B, k] int32;
-// weights [B, k] f32; h [B, k, F] f32 scratch.  Needs D % 64 == 0 and
-// F % 32 == 0.  Returns cudaGetLastError() after launch.
+// weights [B, k] f32; h [B, k, F] and partial [B, k, D] f32 scratch.  Needs
+// D % 64 == 0, F % 32 == 0 and 16-byte aligned bases.  Returns
+// cudaGetLastError() after launch.
 extern "C" int moe_decode_launch(const void* x, const void* w1, const void* w2,
                                  const void* idx, const void* weights, void* h,
-                                 void* y, int B, int D, int F, int k,
-                                 void* stream) {
+                                 void* partial, void* y, int B, int D, int F,
+                                 int k, int E, void* stream) {
+  if (D % 64 || F % 32 || B <= 0 || k <= 0 || E <= 0 || E > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const size_t smem1 = (size_t)(D + NW * 2 * FT) * sizeof(float);
-  const size_t smem2 = (size_t)(F + NW * DT) * sizeof(float);
-  if (smem1 > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_up_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (smem2 > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_down_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem2);
-    if (e != cudaSuccess) return (int)e;
-  }
-  decode_up_kernel<<<dim3(B * k, (F + FT - 1) / FT), NT, smem1, s>>>(
+  const int n_slots = B * k;
+  const size_t smem1 = operand_offset(n_slots) + (size_t)D * R * 2;
+  const size_t smem2 = operand_offset(n_slots) + (size_t)F * R * 4;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(decode_up_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem1)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(decode_down_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)smem2)) != cudaSuccess)
+    return (int)err;
+  decode_up_kernel<<<dim3((F + FT - 1) / FT, E), NT, smem1, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const int*>(idx), static_cast<float*>(h), D, F, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  decode_down_kernel<<<dim3(B, D / DT), NT, smem2, s>>>(
-      static_cast<const float*>(h), static_cast<const bf16*>(w2),
-      static_cast<const int*>(idx), static_cast<const float*>(weights),
-      static_cast<bf16*>(y), D, F, k);
-  return (int)cudaGetLastError();
+      static_cast<const int*>(idx), static_cast<float*>(h), D, F, k, n_slots);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = launch(decode_down_kernel, dim3((D + DT - 1) / DT, E), smem2, s,
+                    static_cast<const float*>(h),
+                    static_cast<const bf16*>(w2), static_cast<const int*>(idx),
+                    static_cast<float*>(partial), D, F, n_slots)) !=
+      cudaSuccess)
+    return (int)err;
+  err = launch(decode_combine_kernel, dim3(B, (D + NT - 1) / NT), 0, s,
+               static_cast<const float*>(partial),
+               static_cast<const float*>(weights), static_cast<bf16*>(y), D,
+               k);
+  return (int)err;
 }

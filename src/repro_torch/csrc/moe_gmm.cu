@@ -28,20 +28,21 @@
 // the grid's fastest index: the blocks in flight together cover whole
 // weight rows of one expert (full DRAM pages, one x tile in the L2)
 // rather than the same 256-byte strip of many experts.  The loads and the
-// products are wgmma_tiles.cuh's: a producer thread keeps TMA loads of
-// 64-deep steps in flight through a ring of stages (pass 1: the rows'
-// x box and the gate and up columns, 48 KB a stage, 4 stages; pass 2: the
-// rows' h box and the w2 columns, 32 KB, 6 stages), and the consumers run
-// wgmma m64n128k16 on each stage as it lands.  Pass 1 keeps gate and up
-// side by side in registers and applies SwiGLU there; h is rounded to bf16
-// between the passes, as the tensor cores take it.  Ragged edges cost no
-// masks in the main loop: w1 is described as [E * D, 2, F] and w2 as
-// [E, F, D], so a box past F (F any multiple of 32: an intra-pruned
-// DeepSeek-V2-Lite expert has F = 1056) reads zeros and not the up
-// columns or the next expert's rows; rows past the tile's end (block_m
-// any multiple of 8 up to 128) are computed from the next tile's rows or
-// zeros and never stored.  A warpgroup with no rows of the tile (block_m
-// <= 64) sits out.
+// products are wgmma_tiles.cuh's row-tile bodies (up_tile, down_tile): a
+// producer thread keeps TMA loads of 64-deep steps in flight through a
+// ring of stages (pass 1: the rows' x box and the gate and up columns, 48
+// KB a stage, 4 stages; pass 2: the rows' h box and the w2 columns, 32 KB,
+// 6 stages), and the consumers run wgmma m64n128k16 on each stage as it
+// lands.  Pass 1 keeps gate and up side by side in registers and applies
+// SwiGLU there; h is rounded to bf16 between the passes, as the tensor
+// cores take it.  Ragged edges cost no masks in the main loop: xs and h
+// are one plane of a 3-D map ([1, M, D], [1, M, F]), w1 is described as
+// [E * D, 2, F] and w2 as [E, F, D], so a box past F (F any multiple of
+// 32: an intra-pruned DeepSeek-V2-Lite expert has F = 1056) reads zeros
+// and not the up columns or the next expert's rows; rows past the tile's
+// end (block_m any multiple of 8 up to 128) are computed from the next
+// tile's rows or zeros and never stored.  A warpgroup with no rows of the
+// tile (block_m <= 64) sits out.
 
 #include "wgmma_tiles.cuh"
 
@@ -49,6 +50,7 @@ using namespace wgt;
 
 constexpr int UP_STAGES = 4;      // x box(es) + gate and up columns
 constexpr int DOWN_STAGES = 6;    // h box(es) + w2 columns
+constexpr int DOWN_NB = 1;        // 128 output columns a block
 
 __global__ void __launch_bounds__(THREADS, 1)
 gmm_up_kernel(const __grid_constant__ CUtensorMap tm_x,
@@ -58,52 +60,10 @@ gmm_up_kernel(const __grid_constant__ CUtensorMap tm_x,
               int D, int F, int block_m) {
   const int tile = blockIdx.y;
   if (!tile_valid[tile]) return;                // pass 2 writes the zeros
-  const int e = tile_expert[tile];
-  const int f0 = blockIdx.x * BN, row0 = tile * block_m;
-  const int n_wg = (block_m + WG_ROWS - 1) / WG_ROWS;
   extern __shared__ uint8_t dyn_smem[];
-  __shared__ uint64_t full[UP_STAGES], empty[UP_STAGES];
-  uint8_t* ring = ring_base(dyn_smem);
-  ring_init<UP_STAGES>(full, empty, n_wg);
-
-  if (threadIdx.x >= PRODUCER) {
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == PRODUCER) {
-      const CUtensorMap* mx = &tm_x;
-      const CUtensorMap* mw = &tm_w1;
-      produce<UP_STAGES, stage_bytes(2)>(
-          ring, full, empty, D / BK, (n_wg + 4) * BOX_BYTES,
-          [=](int i, uint8_t* st, uint64_t* bar) {
-            const int k0 = i * BK;
-            for (int a = 0; a < n_wg; ++a)
-              tma_load_2d(st + a * BOX_BYTES, mx, bar, k0, row0 + a * WG_ROWS);
-            uint8_t* sb = st + CONSUMERS * BOX_BYTES;
-            for (int half = 0; half < 2; ++half)         // gate, up
-              for (int c = 0; c < 2; ++c)
-                tma_load_3d(sb + (2 * half + c) * BOX_BYTES, mw, bar,
-                            f0 + c * BOX, half, e * D + k0);
-          });
-    }
-  } else {
-    setmaxnreg_inc<CONSUMER_REGS>();
-    const int wg = threadIdx.x / 128;
-    if (wg < n_wg) {
-      float acc[2][64];                          // gate, up
-      consume<UP_STAGES, 2>(acc, ring, full, empty, D / BK, wg);
-      const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-#pragma unroll
-      for (int i = 0; i < 64; i += 2) {
-        const int r = wg * WG_ROWS + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-        const int c = f0 + 8 * (i / 4) + 2 * (lane % 4);
-        if (r < block_m && c < F) {
-          const float g0 = acc[0][i], g1 = acc[0][i + 1];
-          *reinterpret_cast<__nv_bfloat162*>(h + (size_t)(row0 + r) * F + c) =
-              __floats2bfloat162_rn(g0 / (1.0f + __expf(-g0)) * acc[1][i],
-                                    g1 / (1.0f + __expf(-g1)) * acc[1][i + 1]);
-        }
-      }
-    }
-  }
+  const int row0 = tile * block_m;
+  up_tile<UP_STAGES>(dyn_smem, &tm_x, &tm_w1, tile_expert[tile], 0, row0,
+                     block_m, h + (size_t)row0 * F, D, F, blockIdx.x * BN);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -113,55 +73,18 @@ gmm_down_kernel(const __grid_constant__ CUtensorMap tm_h,
                 const int* __restrict__ tile_valid, bf16* __restrict__ out,
                 int D, int F, int block_m) {
   const int tile = blockIdx.y;
-  const int d0 = blockIdx.x * BN, row0 = tile * block_m;
+  const int d0 = blockIdx.x * BN * DOWN_NB, row0 = tile * block_m;
   if (!tile_valid[tile]) {                      // dead tile: zeros, no math
-    const int vecs = min(BN, D - d0) / 8;       // D % 64 == 0
+    const int vecs = min(BN * DOWN_NB, D - d0) / 8;   // D % 64 == 0
     for (int i = threadIdx.x; i < block_m * vecs; i += THREADS)
       *reinterpret_cast<uint4*>(out + (size_t)(row0 + i / vecs) * D + d0 +
                                 (i % vecs) * 8) = make_uint4(0u, 0u, 0u, 0u);
     return;
   }
-  const int e = tile_expert[tile];
-  const int n_wg = (block_m + WG_ROWS - 1) / WG_ROWS;
-  const int nk = (F + BK - 1) / BK;
   extern __shared__ uint8_t dyn_smem[];
-  __shared__ uint64_t full[DOWN_STAGES], empty[DOWN_STAGES];
-  uint8_t* ring = ring_base(dyn_smem);
-  ring_init<DOWN_STAGES>(full, empty, n_wg);
-
-  if (threadIdx.x >= PRODUCER) {
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == PRODUCER) {
-      const CUtensorMap* mh = &tm_h;
-      const CUtensorMap* mw = &tm_w2;
-      produce<DOWN_STAGES, stage_bytes(1)>(
-          ring, full, empty, nk, (n_wg + 2) * BOX_BYTES,
-          [=](int i, uint8_t* st, uint64_t* bar) {
-            const int k0 = i * BK;
-            for (int a = 0; a < n_wg; ++a)
-              tma_load_2d(st + a * BOX_BYTES, mh, bar, k0, row0 + a * WG_ROWS);
-            uint8_t* sb = st + CONSUMERS * BOX_BYTES;
-            for (int c = 0; c < 2; ++c)
-              tma_load_3d(sb + c * BOX_BYTES, mw, bar, d0 + c * BOX, k0, e);
-          });
-    }
-  } else {
-    setmaxnreg_inc<CONSUMER_REGS>();
-    const int wg = threadIdx.x / 128;
-    if (wg < n_wg) {
-      float acc[1][64];
-      consume<DOWN_STAGES, 1>(acc, ring, full, empty, nk, wg);
-      const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
-#pragma unroll
-      for (int i = 0; i < 64; i += 2) {
-        const int r = wg * WG_ROWS + warp * 16 + lane / 4 + 8 * ((i / 2) % 2);
-        const int c = d0 + 8 * (i / 4) + 2 * (lane % 4);
-        if (r < block_m && c < D)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row0 + r) * D + c) =
-              __floats2bfloat162_rn(acc[0][i], acc[0][i + 1]);
-      }
-    }
-  }
+  down_tile<DOWN_STAGES, DOWN_NB>(dyn_smem, &tm_h, &tm_w2, tile_expert[tile],
+                                  0, row0, block_m,
+                                  out + (size_t)row0 * D, D, F, d0);
 }
 
 // xs [M, D], w1 [E, D, 2F], w2 [E, F, D], out [M, D] bf16; tile_expert,
@@ -176,30 +99,17 @@ extern "C" int moe_gmm_launch(const void* xs, const void* w1, const void* w2,
   if (D % 64 || F % 32 || block_m % 8 || block_m > ROWS || block_m <= 0 ||
       M % block_m)
     return (int)cudaErrorInvalidValue;
-  const uint64_t m = M, d = D, f = F, ne = E;
   CUtensorMap tx, tw1, th, tw2;
-  const uint32_t box_a[2] = {BOX, BOX}, box_w1[3] = {BOX, 1, BOX},
-                 box_w2[3] = {BOX, BOX, 1};
-  const uint64_t dx[2] = {d, m}, sx[1] = {2 * d};
-  const uint64_t dw1[3] = {f, 2, ne * d}, sw1[2] = {2 * f, 4 * f};
-  const uint64_t dh[2] = {f, m}, sh[1] = {2 * f};
-  const uint64_t dw2[3] = {d, f, ne}, sw2[2] = {2 * d, 2 * f * d};
   int err;
-  if ((err = make_map(&tx, xs, 2, dx, sx, box_a, false)) ||
-      (err = make_map(&tw1, w1, 3, dw1, sw1, box_w1, true)) ||
-      (err = make_map(&th, h, 2, dh, sh, box_a, false)) ||
-      (err = make_map(&tw2, w2, 3, dw2, sw2, box_w2, true)))
+  if ((err = activation_map(&tx, xs, 1, M, D)) ||
+      (err = activation_map(&th, h, 1, M, F)) ||
+      (err = weight_maps(&tw1, &tw2, w1, w2, E, D, F)))
     return err;
   constexpr int smem_up = smem_bytes(UP_STAGES, 2);
-  constexpr int smem_down = smem_bytes(DOWN_STAGES, 1);
-  cudaError_t e;
-  if ((e = cudaFuncSetAttribute(gmm_up_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem_up)) != cudaSuccess ||
-      (e = cudaFuncSetAttribute(gmm_down_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                smem_down)) != cudaSuccess)
-    return (int)e;
+  constexpr int smem_down = smem_bytes(DOWN_STAGES, DOWN_NB);
+  if ((err = allow_smem(gmm_up_kernel, smem_up)) ||
+      (err = allow_smem(gmm_down_kernel, smem_down)))
+    return err;
   const int n_tiles = M / block_m;
   if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
@@ -207,8 +117,10 @@ extern "C" int moe_gmm_launch(const void* xs, const void* w1, const void* w2,
       tx, tw1, static_cast<const int*>(tile_expert),
       static_cast<const int*>(tile_valid), static_cast<bf16*>(h), D, F,
       block_m);
+  cudaError_t e;
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  gmm_down_kernel<<<dim3((D + BN - 1) / BN, n_tiles), THREADS, smem_down, s>>>(
+  gmm_down_kernel<<<dim3((D + BN * DOWN_NB - 1) / (BN * DOWN_NB), n_tiles),
+                    THREADS, smem_down, s>>>(
       th, tw2, static_cast<const int*>(tile_expert),
       static_cast<const int*>(tile_valid), static_cast<bf16*>(out), D, F,
       block_m);

@@ -1,27 +1,43 @@
 // Device and host code for Hopper expert kernels built on TMA and wgmma
-// (moe_gmm.cu): a block owns up to ROWS rows of one expert's row tile by
-// BN output columns.  Two consumer warpgroups hold 64 rows each, and one
-// producer warpgroup feeds them.  Its single elected thread keeps TMA loads
-// (cp.async.bulk.tensor, 128-byte swizzle) in flight through a ring of
-// stages in shared memory, with completion on mbarriers.  The consumers
-// run wgmma.mma_async m64n128k16 (bf16 in, f32 accumulate in registers) on
-// each stage that has landed and release it to the producer.  Every weight
-// tile is read once per row tile, whatever its height.
+// (moe_gmm.cu, moe_ffn.cu): a block owns up to ROWS rows of one expert's
+// row tile by one block of output columns.  Two consumer warpgroups hold
+// 64 rows each, and one producer warpgroup feeds them.  Its single elected
+// thread keeps TMA loads (cp.async.bulk.tensor, 128-byte swizzle) in
+// flight through a ring of stages in shared memory, with completion on
+// mbarriers.  The consumers run wgmma.mma_async m64n128k16 (bf16 in, f32
+// accumulate in registers) on each stage that has landed and release it
+// to the producer.  Every weight tile is read once per row tile, whatever
+// its height.
 //
 // Operands.  A (activation rows, K-major): boxes of 64 rows x 64 k, one
 // per consumer warpgroup.  B (weights, [K, N] row major as stored, so
 // MN-major): boxes of 64 k x 64 n, two side by side per 128-column B
 // operand.  A stage holds CONSUMERS A boxes, then the stage's B operands
-// (2 boxes each).  Out-of-bounds box elements (rows past M, columns past
-// F, k past F) are zero-filled by TMA, so the main loop carries no masks;
-// the epilogue stores only rows below the tile's height and columns below
-// the matrix's width.
+// (2 boxes each).  Out-of-bounds box elements (rows past the plane, columns
+// past F, k past F) are zero-filled by TMA, so the main loop carries no
+// masks; the epilogue stores only rows below the tile's height and columns
+// below the matrix's width.
+//
+// The row-tile bodies, shared by the two kernels (up_tile, down_tile).
+// Both take the block's expert ``e`` and its rows: ``rows`` (1..ROWS) rows
+// from row ``row0`` of plane ``plane`` of a 3-D activation map [planes,
+// M, K] (innermost last), and ``dst``, the tile's first output row
+// (row r at dst + r * width).  moe_gmm.cu describes its sorted buffer as
+// one plane ([1, M, D]; a tile's rows are block_m apart, the rows past a
+// tile are the next tile's and are never stored); moe_ffn.cu describes
+// its capacity buffers as one plane an expert ([E, C, D]; a box past C is
+// zero-filled and never reads the next expert's rows).
+//   up_tile:   dst[r, f0 + c] = silu(x @ w1[e] gate) * (x @ w1[e] up) for
+//              128 columns from f0; w1 described as [E * D, 2, F] so a box
+//              past F reads zeros, not the up columns or the next expert.
+//   down_tile: dst[r, d0 + c] = h @ w2[e] for NB * 128 columns from d0;
+//              w2 described as [E, F, D].
+// h is rounded to bf16 between the two, as the tensor cores take it.
 //
 // Tensor maps are encoded on the host through the driver's
 // cuTensorMapEncodeTiled, looked up once with cudaGetDriverEntryPoint*
 // (no -lcuda at link time); maps of weights are cached by (pointer, shape).
-// Names live in namespace wgt, so this header can sit beside
-// wmma_tiles.cuh's macros.
+// Names live in namespace wgt.
 
 #pragma once
 
@@ -92,16 +108,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (spins == (1u << 26)) asm volatile("trap;");
   }
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
@@ -192,6 +198,11 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
+// consumer warpgroups of a tile of ``rows`` rows
+__host__ __device__ constexpr int tile_wgs(int rows) {
+  return (rows + WG_ROWS - 1) / WG_ROWS;
+}
+
 // The block's ring: the dynamic shared memory rounded up to 1024 bytes (the
 // 128-byte swizzle repeats every 8 rows); full[s] completes when stage s
 // has landed, empty[s] when every active consumer warp has released it.
@@ -263,6 +274,111 @@ __device__ __forceinline__ void consume(float (&acc)[NB][64], uint8_t* ring,
   wgmma_wait<0>();
 }
 
+// ------------------------------------------------------ row-tile bodies
+
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  return g / (1.0f + __expf(-g)) * u;
+}
+
+// Row and column (from the block's first) of register pair i of a
+// consumer warpgroup's m64n128 accumulator (layout at wgmma_m64n128k16).
+__device__ __forceinline__ int acc_row(int wg, int i) {
+  const int t = threadIdx.x % 128;
+  return wg * WG_ROWS + 16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int i) {
+  return 8 * (i / 4) + 2 * (threadIdx.x % 4);
+}
+
+// Pass 1 on one row tile: 128 columns of SwiGLU(x; w1[e]) from f0.  Needs
+// the block's dynamic shared memory ``dyn`` of smem_bytes(STAGES, 2).
+template <int STAGES>
+__device__ __forceinline__ void up_tile(uint8_t* dyn, const CUtensorMap* mx,
+                                        const CUtensorMap* mw, int e,
+                                        int plane, int row0, int rows,
+                                        bf16* dst, int D, int F, int f0) {
+  const int n_wg = tile_wgs(rows);
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  uint8_t* ring = ring_base(dyn);
+  ring_init<STAGES>(full, empty, n_wg);
+  if (threadIdx.x >= PRODUCER) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == PRODUCER)
+      produce<STAGES, stage_bytes(2)>(
+          ring, full, empty, D / BK, (n_wg + 4) * BOX_BYTES,
+          [=](int i, uint8_t* st, uint64_t* bar) {
+            const int k0 = i * BK;
+            for (int a = 0; a < n_wg; ++a)
+              tma_load_3d(st + a * BOX_BYTES, mx, bar, k0,
+                          row0 + a * WG_ROWS, plane);
+            uint8_t* sb = st + CONSUMERS * BOX_BYTES;
+            for (int b = 0; b < 4; ++b)         // gate, gate, up, up
+              tma_load_3d(sb + b * BOX_BYTES, mw, bar, f0 + (b % 2) * BOX,
+                          b / 2, e * D + k0);
+          });
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128;
+    if (wg < n_wg) {
+      float acc[2][64];                          // gate, up
+      consume<STAGES, 2>(acc, ring, full, empty, D / BK, wg);
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int r = acc_row(wg, i), c = f0 + acc_col(i);
+        if (r < rows && c < F)
+          *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * F + c) =
+              __floats2bfloat162_rn(silu_mul(acc[0][i], acc[1][i]),
+                                    silu_mul(acc[0][i + 1], acc[1][i + 1]));
+      }
+    }
+  }
+}
+
+// Pass 2 on one row tile: NB * 128 columns of h @ w2[e] from d0.  Needs
+// the block's dynamic shared memory ``dyn`` of smem_bytes(STAGES, NB).
+template <int STAGES, int NB>
+__device__ __forceinline__ void down_tile(uint8_t* dyn, const CUtensorMap* mh,
+                                          const CUtensorMap* mw, int e,
+                                          int plane, int row0, int rows,
+                                          bf16* dst, int D, int F, int d0) {
+  const int n_wg = tile_wgs(rows);
+  const int nk = (F + BK - 1) / BK;
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  uint8_t* ring = ring_base(dyn);
+  ring_init<STAGES>(full, empty, n_wg);
+  if (threadIdx.x >= PRODUCER) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == PRODUCER)
+      produce<STAGES, stage_bytes(NB)>(
+          ring, full, empty, nk, (n_wg + 2 * NB) * BOX_BYTES,
+          [=](int i, uint8_t* st, uint64_t* bar) {
+            const int k0 = i * BK;
+            for (int a = 0; a < n_wg; ++a)
+              tma_load_3d(st + a * BOX_BYTES, mh, bar, k0,
+                          row0 + a * WG_ROWS, plane);
+            uint8_t* sb = st + CONSUMERS * BOX_BYTES;
+            for (int b = 0; b < 2 * NB; ++b)
+              tma_load_3d(sb + b * BOX_BYTES, mw, bar, d0 + b * BOX, k0, e);
+          });
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128;
+    if (wg < n_wg) {
+      float acc[NB][64];
+      consume<STAGES, NB>(acc, ring, full, empty, nk, wg);
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int i = 0; i < 64; i += 2) {
+          const int r = acc_row(wg, i), c = d0 + b * BN + acc_col(i);
+          if (r < rows && c < D)
+            *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * D + c) =
+                __floats2bfloat162_rn(acc[b][i], acc[b][i + 1]);
+        }
+    }
+  }
+}
+
 // ------------------------------------------------------------------ host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -327,6 +443,34 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rank,
     used = used < N ? used + 1 : N;
   }
   return 0;
+}
+
+// The 3-D map of a row-major [planes, rows, width] bf16 activation (x or
+// h) in 64 x 64 boxes, encoded per call.
+inline int activation_map(CUtensorMap* map, const void* ptr, uint64_t planes,
+                          uint64_t rows, uint64_t width) {
+  const uint64_t dims[3] = {width, rows, planes};
+  const uint64_t strides[2] = {2 * width, 2 * width * rows};
+  const uint32_t box[3] = {BOX, BOX, 1};
+  return make_map(map, ptr, 3, dims, strides, box, false);
+}
+
+// The cached maps of one layer's experts: w1 [E, D, 2F] as [E * D, 2, F]
+// in 64 x 1 x 64 boxes (gate and up apart), w2 [E, F, D] in 64 x 64 x 1.
+inline int weight_maps(CUtensorMap* tw1, CUtensorMap* tw2, const void* w1,
+                       const void* w2, uint64_t E, uint64_t D, uint64_t F) {
+  const uint64_t dw1[3] = {F, 2, E * D}, sw1[2] = {2 * F, 4 * F};
+  const uint64_t dw2[3] = {D, F, E}, sw2[2] = {2 * D, 2 * F * D};
+  const uint32_t box_w1[3] = {BOX, 1, BOX}, box_w2[3] = {BOX, BOX, 1};
+  int err = make_map(tw1, w1, 3, dw1, sw1, box_w1, true);
+  return err ? err : make_map(tw2, w2, 3, dw2, sw2, box_w2, true);
+}
+
+// Let ``kernel`` use ``bytes`` of dynamic shared memory.
+template <class Kernel>
+inline int allow_smem(Kernel kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace wgt

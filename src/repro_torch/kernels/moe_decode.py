@@ -3,7 +3,10 @@
 Kernel: ``csrc/moe_decode.cu`` (replaces ``repro/kernels/moe_decode.py::
 moe_decode_pallas``).  x [B, D], w1 [E, D, 2F], w2 [E, F, D], idx [B, k]
 int32, weights [B, k] f32 -> y [B, D]: y[b] = sum_j weights[b, j] *
-SwiGLU(x[b]; expert idx[b, j]) in f32, only the routed experts read.
+SwiGLU(x[b]; expert idx[b, j]) in f32, only the routed experts read, each
+once a call: the kernel groups the slots of an expert on the device, inside
+the launch (no host sync), and combines the slots' f32 partials in slot
+order, so a row's output is bitwise the same alone or in a batch.
 
 Quantized experts: ``csrc/moe_decode_quant.cu`` (replaces ``moe_decode_
 quant_pallas``) computes the same on int8 w1q / w2q (int4: two values a
@@ -50,11 +53,16 @@ def moe_decode(x, w1, w2, idx, weights):
         raise ValueError(f"moe_decode: D={d} must be a multiple of 64")
     if f % 32:
         raise ValueError(f"moe_decode: F={f} must be a multiple of 32")
+    for arg, t in (("w1", w1), ("w2", w2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"moe_decode: {arg} needs a 16-byte aligned base")
     h = torch.empty((b, k, f), dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
     y = torch.empty((b, d), dtype=bf16, device=x.device)
-    fn = _build.function("moe_decode", "moe_decode_launch", 7, 4)
+    fn = _build.function("moe_decode", "moe_decode_launch", 8, 5)
     err = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), idx.data_ptr(),
-             weights.data_ptr(), h.data_ptr(), y.data_ptr(), b, d, f, k,
+             weights.data_ptr(), h.data_ptr(), partial.data_ptr(),
+             y.data_ptr(), b, d, f, k, e,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("moe_decode", err)
     moe_decode.launches += 1

@@ -3,7 +3,10 @@
 Kernel: ``csrc/moe_ffn.cu`` (replaces ``repro/kernels/moe_ffn.py::
 moe_ffn_pallas``).  xe [E, C, D], w1 [E, D, 2F] (gate = first F columns,
 up = next F), w2 [E, F, D] -> [E, C, D] in xe's dtype: every expert and
-every capacity row, empty or not (a zero row comes out zero).
+every capacity row, empty or not (a zero row comes out zero).  The kernel
+reads its operands through TMA tensor maps (xe and h as 3-D [E, C, .]
+maps, encoded per call; the weights' cached per tensor in the library) and
+runs wgmma on them.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ def moe_ffn(xe, w1, w2):
         raise ValueError(f"moe_ffn: D={d} must be a multiple of 64")
     if f % 32:
         raise ValueError(f"moe_ffn: F={f} must be a multiple of 32")
+    for arg, t in (("xe", xe), ("w1", w1), ("w2", w2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"moe_ffn: {arg} needs a 16-byte aligned base")
     h = torch.empty((e, c, f), dtype=bf16, device=xe.device)
     out = torch.empty((e, c, d), dtype=bf16, device=xe.device)
     fn = _build.function("moe_ffn", "moe_ffn_launch", 5, 4)

@@ -345,26 +345,34 @@ def test_launcher_serves_quantized_experts_on_gmm(capsys):
 # the CUDA kernel vs its plain version (needs the card)
 # --------------------------------------------------------------------------- #
 
-cuda = pytest.mark.skipif(not torch.cuda.is_available(),
-                          reason="the CUDA kernels run only on a GPU")
 ROW_TOL = 1e-2      # per row, of its own norm: f32 sums in another order,
 #                     the kernel's bf16 hidden, bf16 output
 
 
-@cuda
-@pytest.mark.parametrize("c", [4, 12, 320])
-@pytest.mark.parametrize("f", [96, 1056])
-def test_moe_ffn_kernel_matches_plain_on_card(c, f):
-    from repro_torch.kernels import moe_ffn
-    from repro_torch.kernels.moe_ffn import moe_ffn_plain
-    e, d = 8, 256
-    g = torch.Generator(device="cuda").manual_seed(c + f)
+@pytest.fixture
+def card():
+    """Skips the test unless a CUDA device is present, decided when the
+    test runs (never while the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a GPU")
+
+
+def _ffn_case(e, c, d, f, seed, scale):
+    """Capacity buffers with an empty expert (3) and an expert (5) whose
+    rows past C/2 no copy filled, and random experts, on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     xe = torch.randn(e, c, d, generator=g, device="cuda").bfloat16()
     xe[3] = 0                           # an empty expert
     xe[5, c // 2:] = 0                  # rows no copy filled
     w1 = (torch.randn(e, d, 2 * f, generator=g, device="cuda")
-          * 0.1).bfloat16()
-    w2 = (torch.randn(e, f, d, generator=g, device="cuda") * 0.1).bfloat16()
+          * scale).bfloat16()
+    w2 = (torch.randn(e, f, d, generator=g, device="cuda") * scale).bfloat16()
+    return xe, w1, w2
+
+
+def _check_ffn(xe, w1, w2):
+    from repro_torch.kernels import moe_ffn
+    from repro_torch.kernels.moe_ffn import moe_ffn_plain
     before = moe_ffn.launches
     got = moe_ffn(xe, w1, w2)
     assert moe_ffn.launches == before + 1
@@ -374,11 +382,28 @@ def test_moe_ffn_kernel_matches_plain_on_card(c, f):
     ref = want.float().norm(dim=-1)
     assert (err <= ROW_TOL * ref).all(), (err / ref.clamp(min=1e-30)).max()
     zero = xe.float().abs().sum(-1) == 0
+    assert zero[3].all() and zero[5].any()
     assert (got[zero] == 0).all()       # exact zeros where no copy landed
 
 
-@cuda
-def test_moe_ffn_refuses_what_it_does_not_take_on_card():
+@pytest.mark.parametrize("c", [4, 12, 320])
+@pytest.mark.parametrize("f", [96, 1056])
+def test_moe_ffn_kernel_matches_plain_on_card(card, c, f):
+    _check_ffn(*_ffn_case(8, c, 256, f, seed=c + f, scale=0.1))
+
+
+@pytest.mark.parametrize("c", [4, 12, 80, 240, 320])
+@pytest.mark.parametrize("f", [1024, 1056, 1408])
+def test_moe_ffn_kernel_full_width_on_card(card, c, f):
+    """At the served width (D 2048): C of one row tile in one warpgroup
+    (4, 12), in two (80), and of three (240: 128, 112; 320: 128, 128,
+    64), each ending past C in a box TMA zero-fills; F 1056 ends in a
+    part-filled box; the empty expert and the unfilled rows come out
+    exactly zero."""
+    _check_ffn(*_ffn_case(8, c, 2048, f, seed=c * f, scale=0.02))
+
+
+def test_moe_ffn_refuses_what_it_does_not_take_on_card(card):
     from repro_torch.kernels import moe_ffn
     e, c, d, f = 2, 4, 64, 48           # F not a multiple of 32
     xe = torch.zeros(e, c, d, device="cuda", dtype=torch.bfloat16)

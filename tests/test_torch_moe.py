@@ -323,3 +323,67 @@ def test_moe_decode_kernel_matches_plain_on_card(card, b, k, f):
     idx = torch.randint(0, e, (b, k), generator=g, device="cuda").int()
     w = torch.rand(b, k, generator=g, device="cuda")
     _close(moe_decode(x, w1, w2, idx, w), moe_decode_plain(x, w1, w2, idx, w))
+
+
+def _decode_routing(kind, b, k, e, g):
+    """idx [b, k]: "random" (repeats within and across tokens), "repeat"
+    (k distinct experts a token from 2k, so experts repeat across tokens),
+    "one" (every token's first slot on expert 0, the rest distinct) or
+    "same" (every slot of every token on expert 5: more than the 8 slots a
+    pass over the weights serves)."""
+    if kind == "random":
+        return torch.randint(0, e, (b, k), generator=g, device="cuda").int()
+    if kind == "same":
+        return torch.full((b, k), 5, device="cuda", dtype=torch.int32)
+    lo = 1 if kind == "one" else 0
+    pool = min(e - lo, 2 * k)
+    idx = torch.stack([lo + torch.randperm(pool, generator=g, device="cuda")[:k]
+                       for _ in range(b)])
+    if kind == "one":
+        idx[:, 0] = 0
+    return idx.int()
+
+
+@pytest.mark.parametrize("b,k,f,e,kind", [(8, 8, 1024, 16, "repeat"),
+                                          (16, 8, 1024, 16, "repeat"),
+                                          (16, 8, 1056, 16, "one"),
+                                          (3, 6, 1056, 16, "repeat"),
+                                          (16, 2, 1024, 16, "one"),
+                                          (2, 8, 1024, 16, "same"),
+                                          (1, 8, 1408, 16, "repeat"),
+                                          (5, 8, 1024, 40, "random")])
+def test_moe_decode_kernel_groups_slots_on_card(card, b, k, f, e, kind):
+    """At the served width (D 2048), the slots of one expert served
+    together: experts repeated across tokens, every token on one expert,
+    every slot on one expert (more than one pass of 8), fewer slots than
+    experts, 40 experts, B up to 16, F 1056 and 1408.
+    Held to the plain version; each row's output bitwise the same
+    computed alone; a slot whose weight is 0 adds exactly nothing,
+    whichever expert it names; no host sync in the call."""
+    from repro_torch.kernels import moe_decode
+    from repro_torch.kernels.moe_decode import moe_decode_plain
+    d = 2048
+    g = torch.Generator(device="cuda").manual_seed(b * k + f)
+    x = torch.randn(b, d, generator=g, device="cuda").bfloat16()
+    w1 = (torch.randn(e, d, 2 * f, generator=g, device="cuda")
+          * 0.02).bfloat16()
+    w2 = (torch.randn(e, f, d, generator=g, device="cuda") * 0.02).bfloat16()
+    idx = _decode_routing(kind, b, k, e, g)
+    w = torch.rand(b, k, generator=g, device="cuda")
+    w[:, -1] = 0                        # a k_budget-masked slot
+    moe_decode(x, w1, w2, idx, w)       # builds the library
+    torch.cuda.synchronize()
+    before = moe_decode.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe_decode(x, w1, w2, idx, w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert moe_decode.launches == before + 1
+    _close(got, moe_decode_plain(x, w1, w2, idx, w))
+    for i in range(b):                  # batch invariance
+        alone = moe_decode(x[i:i + 1], w1, w2, idx[i:i + 1], w[i:i + 1])
+        assert torch.equal(alone[0], got[i]), i
+    moved = idx.clone()
+    moved[:, -1] = (idx[:, -1] + 7) % e     # the zero-weight slot elsewhere
+    assert torch.equal(moe_decode(x, w1, w2, moved, w), got)

@@ -370,8 +370,11 @@ def varied_experts(layer, seed: int = 6):
 def check_moe_gmm_quant(layer, cfg, x, flush, tag: str = ""):
     """B6 in int8 and int4 on layer 0's experts (channels scaled apart,
     ``varied_experts``) quantized on the card, at the prefill shape (512
-    tokens x top-k); returns a kernels-line row's numbers per dtype."""
-    from repro_torch.kernels import moe_gmm_quant
+    tokens x top-k); returns a kernels-line row's numbers per dtype, with
+    B1 (``moe_gmm``, bf16) on the same routing and the same scaled experts
+    timed in the same turns as its yardstick (``sibling_ms``): the same
+    products on 2x (int8) or 4x (int4) the weight bytes."""
+    from repro_torch.kernels import moe_gmm, moe_gmm_quant
     from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
     from repro_torch.models.moe import QUANT_DTYPES, default_block_m, \
         make_sort_plan, quantize_moe_layer, route, sort_dispatch
@@ -385,6 +388,8 @@ def check_moe_gmm_quant(layer, cfg, x, flush, tag: str = ""):
     d, f = cfg.d_model, cfg.moe_d_ff
     rows = x.shape[0] * k
     varied = varied_experts(layer)
+    bf16_args = (xs, varied["w1"], varied["w2"], plan.tile_expert,
+                 plan.tile_valid)
     out = {}
     for dt in QUANT_DTYPES:
         q = quantize_moe_layer(varied, dt)
@@ -395,50 +400,61 @@ def check_moe_gmm_quant(layer, cfg, x, flush, tag: str = ""):
                                          block_m=plan.block_m),
                            moe_gmm_quant_plain(*args, plan.block_m, dtype=dt),
                            tokens=x.shape[0], k=k, block_m=plan.block_m,
-                           tiles=len(plan.tile_valid), experts=experts)
-        ms, plain_ms = time_calls(
+                           tiles=len(plan.tile_valid),
+                           live_tiles=int(plan.tile_valid.sum()),
+                           experts=experts)
+        ms, plain_ms, sib_ms = time_calls(
             (lambda: moe_gmm_quant(*args, dtype=dt, block_m=plan.block_m),
-             lambda: moe_gmm_quant_plain(*args, plan.block_m, dtype=dt)),
-            flush)
+             lambda: moe_gmm_quant_plain(*args, plan.block_m, dtype=dt),
+             lambda: moe_gmm(*bf16_args, block_m=plan.block_m)), flush)
         nbytes = (2 * rows * d * 2 + _quant_bytes(experts, d, f, dt)
                   + 2 * 4 * len(plan.tile_valid))
-        out[dt] = (err, ms, plain_ms, nbytes, rows * 6 * d * f)
+        out[dt] = (err, ms, plain_ms, nbytes, rows * 6 * d * f, None,
+                   {"sibling_ms": sib_ms})
         del q, args
     return out
 
 
-def check_moe_decode_quant(layer, cfg, x, flush, tag: str = ""):
-    """B5 in int8 and int4 at the decode shape (8 tokens, top-k) on the
+def check_moe_decode_quant(layer, cfg, x, flush, tag: str = "", ks=None):
+    """B5 in int8 and int4 at the decode shape (``x``'s tokens routed by
+    the layer's router at each k of ``ks``, default top-k alone) on the
     same varied experts, one router weight set to zero (route()'s k_budget
-    relies on a zero-weight slot adding exactly nothing)."""
-    from repro_torch.kernels import moe_decode_quant
+    relies on a zero-weight slot adding exactly nothing); B3
+    (``moe_decode``, bf16) on the same routing timed in the same turns as
+    its yardstick (``sibling_ms``).  Keys: the dtype at top-k, else
+    ``<dtype>_k<k>``; the bytes count each distinct routed expert once."""
+    from repro_torch.kernels import moe_decode, moe_decode_quant
     from repro_torch.kernels.moe_decode import moe_decode_quant_plain
     from repro_torch.models.moe import QUANT_DTYPES, quantize_moe_layer, \
         route
-    k = cfg.moe_top_k
-    weights, idx, _ = route(layer, cfg, x, k)
-    weights = weights.clone()
-    weights[0, -1] = 0.0
-    experts = int(torch.unique(idx).numel())
     d, f = cfg.d_model, cfg.moe_d_ff
     b = x.shape[0]
     varied = varied_experts(layer)
+    qs = {dt: quantize_moe_layer(varied, dt) for dt in QUANT_DTYPES}
     out = {}
-    for dt in QUANT_DTYPES:
-        q = quantize_moe_layer(varied, dt)
-        args = (x, q["w1"], q["w2"], q["w1_scale"], q["w2_scale"], idx,
-                weights)
-        err = compare_rows(f"moe_decode_quant{tag}_{dt}",
-                           moe_decode_quant(*args, dtype=dt),
-                           moe_decode_quant_plain(*args, dtype=dt),
-                           batch=b, k=k, experts=experts)
-        ms, plain_ms = time_calls(
-            (lambda: moe_decode_quant(*args, dtype=dt),
-             lambda: moe_decode_quant_plain(*args, dtype=dt)), flush)
-        nbytes = (_quant_bytes(experts, d, f, dt) + 2 * b * d * 2
-                  + b * k * 8)
-        out[dt] = (err, ms, plain_ms, nbytes, b * k * 6 * d * f)
-        del q, args
+    for k in ks or (cfg.moe_top_k,):
+        weights, idx, _ = route(layer, cfg, x, k)
+        weights = weights.clone()
+        weights[0, -1] = 0.0
+        experts = int(torch.unique(idx).numel())
+        bf16_args = (x, varied["w1"], varied["w2"], idx, weights)
+        for dt, q in qs.items():
+            key = dt if k == cfg.moe_top_k else f"{dt}_k{k}"
+            args = (x, q["w1"], q["w2"], q["w1_scale"], q["w2_scale"], idx,
+                    weights)
+            err = compare_rows(f"moe_decode_quant{tag}_{key}",
+                               moe_decode_quant(*args, dtype=dt),
+                               moe_decode_quant_plain(*args, dtype=dt),
+                               batch=b, k=k, experts=experts)
+            ms, plain_ms, sib_ms = time_calls(
+                (lambda: moe_decode_quant(*args, dtype=dt),
+                 lambda: moe_decode_quant_plain(*args, dtype=dt),
+                 lambda: moe_decode(*bf16_args)), flush)
+            nbytes = (_quant_bytes(experts, d, f, dt) + 2 * b * d * 2
+                      + b * k * 8)
+            out[key] = (err, ms, plain_ms, nbytes, b * k * 6 * d * f, None,
+                        {"sibling_ms": sib_ms, "experts": experts,
+                         "bytes": nbytes})
     return out
 
 
@@ -702,7 +718,7 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
 
 #: the numbers a row keeps for each of its dtypes or shapes
 NESTED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms", "experts", "bytes")
+               "library_ms", "sibling_ms", "experts", "bytes")
 
 
 def nested_row(name, source, replaces, per, nest):
@@ -1162,7 +1178,8 @@ def main() -> int:
     # ---- phase 1: build -------------------------------------------------
     secs = _build.build_all()
     ptxas = {name: [line.strip() for line in log.splitlines()
-                    if "registers" in line or "spill" in line]
+                    if "registers" in line or "spill" in line
+                    or "wgmma" in line]
              for name, log in _build.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": secs,
           "kernels": list(_build.SOURCES), "ptxas": ptxas})
@@ -1221,7 +1238,8 @@ def main() -> int:
             "src/repro/kernels/flash_decode.py:73",
             *check_flash_decode(cfg, flush, device)),
         # int8 first; no single PyTorch call dequantizes and runs the
-        # SwiGLU, so library_ms is null
+        # SwiGLU, so library_ms is null: sibling_ms is the bf16 kernel (B1,
+        # B3) on the same routing, timed in the same turns
         "moe_gmm_quant": nested_row(
             "moe_gmm_quant", "src/repro_torch/csrc/moe_gmm_quant.cu",
             "src/repro/kernels/moe_gmm.py:190",

@@ -32,24 +32,20 @@
 //     f32 partial[slot, d] = h[slot] . w2[e][:, d].
 //   pass 3 (decode_combine), grid (B, ceil(D/256)):
 //     y[b, d] = sum_j weights[b, j] * partial[b * k + j, d], in slot order.
-// Passes 2 and 3 are launched as programmatic dependents of the pass
-// before: their blocks start while its last blocks run, find their slots
-// and wait for its results (griddepcontrol), so the launch gaps and the
-// earlier pass's last wave overlap.  The slot groups are found on the device, inside the launch: no
-// host sync and no sort, so the decode step can be captured in a CUDA
-// graph.  The
-// sums of one slot are taken in the same order whatever other slots share
-// its expert or its batch, so each row's output is bitwise the same alone
-// or in a batch, and no float atomics are used.  Up to 8 slots of an
+// The grouping, the combine pass and the dependent launches of passes 2
+// and 3 are decode_slots.cuh's, shared with moe_decode_quant.cu.  The slot
+// groups are found on the device, inside the launch: no host sync and no
+// sort, so the decode step can be captured in a CUDA graph.  The sums of
+// one slot are taken in the same order whatever other slots share its
+// expert or its batch, so each row's output is bitwise the same alone or
+// in a batch, and no float atomics are used.  Up to 8 slots of an
 // expert are served by one pass over its weights (the sums are specialised
 // to the count); an expert with more slots is streamed once per 8 of them,
 // the later passes mostly from the L2.  F may be any multiple of 32 (an
 // intra-pruned DeepSeek-V2-Lite expert has F = 1056): in a ragged last
 // column block the lanes past F load nothing and store nothing.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "decode_slots.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -71,46 +67,6 @@ constexpr int MIN_BLOCKS = 2;
 constexpr bool DEPENDENT_LAUNCH = true;
 __host__ __device__ constexpr int unroll(int m) {
   return m <= 4 ? UNROLL_FEW : UNROLL_MANY;
-}
-
-// The slots (indices into idx [n_slots]) routed to expert e, in order,
-// into slots[]; returns their count to every thread.
-__device__ __forceinline__ int find_slots(const int* __restrict__ idx,
-                                          int n_slots, int e, int* slots,
-                                          int* count) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int n = 0;
-    for (int base = 0; base < n_slots; base += 32) {
-      const int i = base + lane;
-      const bool hit = i < n_slots && idx[i] == e;
-      const unsigned m = __ballot_sync(0xffffffffu, hit);
-      if (hit) slots[n + __popc(m & ((1u << lane) - 1))] = i;
-      n += __popc(m);
-    }
-    if (lane == 0) *count = n;
-  }
-  __syncthreads();
-  return *count;
-}
-
-// let the next kernel's blocks start; wait for the previous kernel's
-// results (both nothing unless the launch made the kernels dependent)
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void wait_for_previous() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(p[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
 }
 
 // acc[r][c] += a[r][row] * W[row][c] over rows g, g + GROUPS, ... < n_rows
@@ -208,14 +164,8 @@ __device__ void down_rows(const bf16* __restrict__ w2e, const float* hs,
   to_red<M>(acc, red);
 }
 
-// Shared memory of a pass: slots [n_slots] int, then red [NW][R][128] f32,
-// then the staged operand.
-__host__ __device__ constexpr size_t red_offset(int n_slots) {
-  return ((size_t)n_slots * 4 + 15) / 16 * 16;
-}
-__host__ __device__ constexpr size_t operand_offset(int n_slots) {
-  return red_offset(n_slots) + (size_t)NW * R * 128 * 4;
-}
+// the warps' sums, red [NW][R][128] f32, in shared memory
+constexpr size_t RED_BYTES = (size_t)NW * R * 128 * 4;
 
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 decode_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
@@ -225,7 +175,8 @@ decode_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   __shared__ int count;
   int* slots = reinterpret_cast<int*>(sm);
   float* red = reinterpret_cast<float*>(sm + red_offset(n_slots));
-  bf16* xs = reinterpret_cast<bf16*>(sm + operand_offset(n_slots));
+  bf16* xs =
+      reinterpret_cast<bf16*>(sm + operand_offset(n_slots, RED_BYTES));
   const int e = blockIdx.y, f0 = blockIdx.x * FT;
   launch_dependents();
   const int n = find_slots(idx, n_slots, e, slots, &count);
@@ -273,7 +224,8 @@ decode_down_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
   __shared__ int count;
   int* slots = reinterpret_cast<int*>(sm);
   float* red = reinterpret_cast<float*>(sm + red_offset(n_slots));
-  float* hs = reinterpret_cast<float*>(sm + operand_offset(n_slots));
+  float* hs =
+      reinterpret_cast<float*>(sm + operand_offset(n_slots, RED_BYTES));
   const int e = blockIdx.y, d0 = blockIdx.x * DT;
   launch_dependents();
   const int n = find_slots(idx, n_slots, e, slots, &count);
@@ -311,37 +263,6 @@ decode_down_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
   }
 }
 
-__global__ void __launch_bounds__(NT)
-decode_combine_kernel(const float* __restrict__ partial,
-                      const float* __restrict__ weights, bf16* __restrict__ y,
-                      int D, int k) {
-  const int b = blockIdx.x, d = blockIdx.y * NT + threadIdx.x;
-  wait_for_previous();                  // partial of pass 2
-  if (d >= D) return;
-  float acc = 0.f;
-  for (int j = 0; j < k; ++j)
-    acc += weights[b * k + j] * partial[(size_t)(b * k + j) * D + d];
-  y[(size_t)b * D + d] = __float2bfloat16(acc);
-}
-
-// Launch a pass as a programmatic dependent of the one before it.
-template <class Kernel, class... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
-                   Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = DEPENDENT_LAUNCH;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
 // x [B, D], w1 [E, D, 2F], w2 [E, F, D], y [B, D] bf16; idx [B, k] int32;
 // weights [B, k] f32; h [B, k, F] and partial [B, k, D] f32 scratch.  Needs
 // D % 64 == 0, F % 32 == 0 and 16-byte aligned bases.  Returns
@@ -354,8 +275,8 @@ extern "C" int moe_decode_launch(const void* x, const void* w1, const void* w2,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int n_slots = B * k;
-  const size_t smem1 = operand_offset(n_slots) + (size_t)D * R * 2;
-  const size_t smem2 = operand_offset(n_slots) + (size_t)F * R * 4;
+  const size_t smem1 = operand_offset(n_slots, RED_BYTES) + (size_t)D * R * 2;
+  const size_t smem2 = operand_offset(n_slots, RED_BYTES) + (size_t)F * R * 4;
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(decode_up_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -368,15 +289,16 @@ extern "C" int moe_decode_launch(const void* x, const void* w1, const void* w2,
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const int*>(idx), static_cast<float*>(h), D, F, k, n_slots);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = launch(decode_down_kernel, dim3((D + DT - 1) / DT, E), smem2, s,
-                    static_cast<const float*>(h),
-                    static_cast<const bf16*>(w2), static_cast<const int*>(idx),
-                    static_cast<float*>(partial), D, F, n_slots)) !=
+  if ((err = launch_pass(decode_down_kernel, dim3((D + DT - 1) / DT, E), NT,
+                         smem2, s, DEPENDENT_LAUNCH,
+                         static_cast<const float*>(h),
+                         static_cast<const bf16*>(w2),
+                         static_cast<const int*>(idx),
+                         static_cast<float*>(partial), D, F, n_slots)) !=
       cudaSuccess)
     return (int)err;
-  err = launch(decode_combine_kernel, dim3(B, (D + NT - 1) / NT), 0, s,
-               static_cast<const float*>(partial),
-               static_cast<const float*>(weights), static_cast<bf16*>(y), D,
-               k);
-  return (int)err;
+  return (int)launch_combine(static_cast<const float*>(partial),
+                             static_cast<const float*>(weights),
+                             static_cast<bf16*>(y), B, D, k, s,
+                             DEPENDENT_LAUNCH);
 }

@@ -1,5 +1,5 @@
 // moe_gmm_quant: ragged grouped SwiGLU over the sorted, tile-aligned MoE
-// buffer, on int8- or int4-stored expert weights with in-kernel dequant.
+// buffer, on int8- or int4-stored expert weights widened on chip.
 //
 // Replaces the TPU kernel src/repro/kernels/moe_gmm.py::moe_gmm_quant_pallas.
 // Contract (identical): xs [M, D] bf16 rows sorted by expert, each row tile
@@ -19,268 +19,370 @@
 // What bounds it on the H100: at the serving shapes (D 2048, F 1024, 64
 // experts, 512 tokens x top-8) every expert is routed, so one call must
 // stream all 64 experts' weights: 403 MB in int8, 201 MB in int4, against
-// B1's 805 MB of bf16 -- about 0.13 / 0.07 ms at 3.35 TB/s.  Bound by
-// bytes; the tensor-core work on the real rows is about 0.05 ms.
+// B1's 805 MB of bf16 -- about 0.13 / 0.07 ms at 3.35 TB/s.  The tensor
+// cores run every row of every live tile (there about 70 tiles of 128
+// rows: 113 GFLOP, 0.11 ms at 989 TFLOP/s), so int4 is held by its
+// products, not by its bytes.
 //
-// Design: B1's (moe_gmm.cu), with the weight tiles dequantized on load.
-// Two passes over a [M, F] bf16 scratch buffer h:
-//   pass 1 (up):   h = silu(gate * s1g) * (up * s1u) * s2, rounded to bf16
-//   pass 2 (down): out = h @ w2q[e]
-// Each CUDA block reads its own tile_expert / tile_valid entries and owns
-// a 64-row by 64-column output block.  A thread loads 16 bytes of weights
-// (16 int8 values, or 32 int4 values) and writes them to shared memory as
-// integer-valued bf16, exact; products run on the tensor cores through
-// WMMA (bf16 in, f32 accumulate), so they equal the TPU kernel's f32 dots
-// up to summation order.  The scales are applied in f32 in the pass-1
-// epilogue.  int4 reads each packed byte once: pass 1 takes a 32-row
-// packed step as two contraction steps (x[:, r] times the low nibbles and
-// x[:, D/2 + r] times the high ones); pass 2 turns a 64-column packed
-// block into output columns c and D/2 + c with two accumulator sets.
-// Synchronous loads, one barrier per step: no double buffering, no TMA,
-// no wgmma yet -- that is later work.  F may be any multiple of 32, as in
-// B1: pass 1's ragged last column block, launched apart so that the full
-// blocks carry no masks, loads zeros past F and stores only the columns
-// below it.  The bf16 tile loads and the WMMA step are wmma_tiles.cuh's.
+// Design: B1's machinery (wgmma_tiles.cuh: a producer thread's TMA ring
+// of 128-byte-swizzled boxes, two consumer warpgroups on wgmma, 3-D maps
+// that zero-fill past F), on the transposed products
+//   pass 1 (up):   h^T = silu(s1g * W1g^T x^T) * (s1u * W1u^T x^T) * s2,
+//                  rounded to bf16, for 128 f columns a block;
+//   pass 2 (down): out^T = W2^T h^T, for 256 output columns a block,
+// so that the weights are wgmma's A operand, taken from registers, and the
+// activation rows its B operand, K-major in shared memory as TMA lands
+// them (N = the tile's rows, 64 or 128).  The weights travel as int8: a
+// box of 64 k rows x 128 bytes is 128 int8 columns, or 128 packed int4
+// columns of two values.  Each consumer warp reads its 16 columns of a
+// k16 slice with one ldmatrix .trans (the 128-byte swizzle undone in the
+// address): lane l gets the bytes of k rows 2q, 2q + 1 at columns 2g,
+// 2g + 1 (g = l / 4, q = l % 4), which is mma's A fragment once the
+// warp's 16 rows of A are ordered columns 0, 2, .., 14, 1, 3, .., 15.
+// The bytes are widened in registers to exact bf16 pairs, a word at a
+// time (quant_common.cuh), and the weights never make a second trip
+// through shared memory.  Warpgroup w owns A rows (weight columns) 64w..
+// of each operand: in pass 1 the gate and the up columns of the same f,
+// so SwiGLU and the per-column s1 and s2 apply in its registers; in pass
+// 2 two sets of output columns (int8: the block's two 128-column boxes;
+// int4: the low and the high nibbles of one packed box, columns c and
+// D/2 + c).  int4 in pass 1: one packed box feeds two contractions, its
+// low nibbles against the x box at k0 and its high ones against the x box
+// at D/2 + k0.  The products on the integer values are exact in the f32
+// accumulators up to summation order, so they are the plain version's.
+// h is stored in bf16 between the passes, as the plain version rounds it.
+// The producer is one warp (no setmaxnreg: a block of 9 warps keeps 168
+// registers a thread, as B1's 12 do).  Ragged F (any multiple of 32): TMA
+// zero-fills the boxes past F in both passes, and pass 1 stores only the
+// columns below F.  block_m is any multiple of 8 up to 128: N is 64 up to
+// 64 rows, else 128, and the rows past a tile are computed from the next
+// tile's rows (or zeros) and never stored.
 
 #include "quant_common.cuh"
-#include "wmma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
-// Rows [r0, r0 + BK) x bytes [c0, c0 + BN) of a row-major int8 matrix (row
-// pitch ld bytes) as integer-valued bf16: int8 (PACKED false) into
-// sB [BK][LDB]; int4 (PACKED true) the low nibbles into sB and the high
-// nibbles into sB2.  Bytes from c0 + ncols on (ncols a multiple of 16)
-// are 0.
-template <bool PACKED>
-__device__ __forceinline__ void load_q(bf16* sB, bf16* sB2, const int8_t* src,
-                                       int ld, int r0, int c0, int ncols = BN) {
-  for (int v = threadIdx.x; v < BK * BN / 16; v += NT) {
-    const int r = v / (BN / 16), c = (v % (BN / 16)) * 16;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (c < ncols)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c0 + c);
-    const uint32_t w[4] = {val.x, val.y, val.z, val.w};
-    __align__(16) __nv_bfloat162 lo[8];
-    __align__(16) __nv_bfloat162 hi[8];
+using namespace wgt;
+
+constexpr int RING_BYTES = 192 * 1024;   // a pass's ring, at most
+constexpr int MAX_STAGES = 8;
+constexpr int UP_COLS = 128;             // f columns of a pass-1 block
+// two consumer warpgroups and one producer warp
+constexpr int Q_THREADS = 128 * CONSUMERS + 32;
+
+// Boxes of a stage: the activation rows (N / 64 boxes; int4 pass 1: twice,
+// at k0 and at D/2 + k0), then the weights (pass 1: gate and up; pass 2:
+// two boxes of int8, one of packed int4).
+__host__ __device__ constexpr int x_boxes(bool up, bool packed, int n) {
+  return (up && packed ? 2 : 1) * (n / 64);
+}
+__host__ __device__ constexpr int w_boxes(bool up, bool packed) {
+  return up || !packed ? 2 : 1;
+}
+__host__ __device__ constexpr int q_stage_bytes(bool up, bool packed, int n) {
+  return (x_boxes(up, packed, n) + w_boxes(up, packed)) * BOX_BYTES;
+}
+__host__ __device__ constexpr int q_stages(bool up, bool packed, int n) {
+  return RING_BYTES / q_stage_bytes(up, packed, n) < MAX_STAGES
+             ? RING_BYTES / q_stage_bytes(up, packed, n)
+             : MAX_STAGES;
+}
+__host__ __device__ constexpr int down_cols(bool packed) {   // stored columns
+  return packed ? 128 : 256;
+}
+
+// The A operands of one k16 slice for a warp: the bytes of its 16 weight
+// columns of NF k16 x 16 fragments (r[2f], r[2f + 1]: fragment f's k rows
+// 0-7 and 8-15), widened into a[f] (int4: the low nibbles into a[f], the
+// high ones into a[NF + f]).
+template <bool PACKED, int NF>
+__device__ __forceinline__ void widen_slice(
+    const uint32_t (&r)[4], uint32_t (&a)[PACKED ? 2 * NF : NF][4]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int b0 = q_byte(w[i / 2], 2 * (i % 2));
-      const int b1 = q_byte(w[i / 2], 2 * (i % 2) + 1);
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {           // k rows 0-7, then 8-15
+      const uint32_t w = r[2 * f + h];
       if constexpr (PACKED) {
-        lo[i] = __floats2bfloat162_rn((float)q_lo(b0), (float)q_lo(b1));
-        hi[i] = __floats2bfloat162_rn((float)q_hi(b0), (float)q_hi(b1));
+        uint32_t lo[2], hi[2];
+        widen_i4(w, lo, hi);
+        a[f][2 * h] = lo[0];
+        a[f][2 * h + 1] = lo[1];
+        a[NF + f][2 * h] = hi[0];
+        a[NF + f][2 * h + 1] = hi[1];
       } else {
-        lo[i] = __floats2bfloat162_rn((float)b0, (float)b1);
+        widen_i8(w, a[f][2 * h], a[f][2 * h + 1]);
       }
     }
-    uint4* d = reinterpret_cast<uint4*>(sB + r * LDB + c);
-    d[0] = reinterpret_cast<const uint4*>(lo)[0];
-    d[1] = reinterpret_cast<const uint4*>(lo)[1];
-    if constexpr (PACKED) {
-      uint4* d2 = reinterpret_cast<uint4*>(sB2 + r * LDB + c);
-      d2[0] = reinterpret_cast<const uint4*>(hi)[0];
-      d2[1] = reinterpret_cast<const uint4*>(hi)[1];
+}
+
+// A consumer warpgroup ``wg`` over the nk stages: acc[t] (t = 0, 1) +=
+// A_t B, A_t (64 weight columns, as rows) of operand t and B the stage's
+// activation rows.  Pass 1: operands gate and up; int4 adds their high
+// nibbles times the second x box set (k + D/2).  Pass 2: int8, the two
+// boxes' columns; int4, the low and the high nibbles of one box.  For each
+// k16 slice the warpgroup widens its operands, issues their wgmmas as one
+// group and waits for it, while the other warpgroup's group runs: ptxas
+// serialises a warpgroup's wgmmas if their register operands are written
+// while a group of it is in flight, and widening a whole stage first
+// needs registers the 128 accumulators leave no room for.  A stage goes
+// back to the producer after its last slice.
+template <bool UP, bool PACKED, int N, int STAGES>
+__device__ __forceinline__ void consume_q(float (&acc)[2][N / 2],
+                                          uint8_t* ring, uint64_t* full,
+                                          uint64_t* empty, int nk, int wg) {
+  constexpr int SB = q_stage_bytes(UP, PACKED, N);
+  constexpr int XB = (N / 64) * BOX_BYTES;
+  constexpr int W0 = x_boxes(UP, PACKED, N) * BOX_BYTES;
+  constexpr int NF = w_boxes(UP, PACKED);       // fragments a slice
+  constexpr int NA = PACKED ? 2 * NF : NF;      // A operands a slice
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[t][i] = 0.f;
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+  const int chunk = 4 * wg + warp;     // the warp's 16-byte column chunk
+  const int row = lane % 16;           // the k row a lane addresses
+  const int box = NF == 2 ? lane / 16 : 0;   // .x4: lanes 16-31, box 1
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint8_t* st = ring + s * SB;
+    const uint32_t wrow = smem_u32(st + W0 + box * BOX_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const int r = kk * 16 + row;
+      const uint32_t addr = wrow + r * 128 + ((chunk ^ (r & 7)) << 4);
+      uint32_t m[4] = {0u, 0u, 0u, 0u}, a[NA][4];
+      if constexpr (NF == 2) {
+        ldsm_x4_trans(m, addr);
+      } else {
+        uint32_t m2[2];
+        ldsm_x2_trans(m2, addr);
+        m[0] = m2[0];
+        m[1] = m2[1];
+      }
+      widen_slice<PACKED, NF>(m, a);
+      wgmma_fence();
+      const uint64_t b0 = desc_k(st + kk * 32);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) wgmma_rs<N>(acc[t], a[t], b0);
+      if constexpr (UP && PACKED) {
+        const uint64_t b1 = desc_k(st + XB + kk * 32);
+#pragma unroll
+        for (int t = 0; t < 2; ++t) wgmma_rs<N>(acc[t], a[2 + t], b1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
     }
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
 }
 
-// Pass 1.  RAGGED: the launch of F's ragged last column block, the only
-// one that masks columns (launched apart from the full blocks: a mask in
-// every block, or both bodies in one kernel, cost 6-21 % at F 1024 on an
-// H100); fblock0 is the launch's first column block.
-template <bool PACKED, bool RAGGED>
-__global__ void __launch_bounds__(NT)
-gmmq_up_kernel(const bf16* __restrict__ xs, const int8_t* __restrict__ w1q,
+// This thread's first weight column of its warpgroup's 64 (then + 1):
+// A row g of the warp is column 2g, row g + 8 column 2g + 1.
+__device__ __forceinline__ int q_col(int wg) {
+  return 64 * wg + 16 * ((threadIdx.x / 32) % 4) + 2 * ((threadIdx.x % 32) / 4);
+}
+
+template <bool PACKED, int N>
+__global__ void __launch_bounds__(Q_THREADS, 1)
+gmmq_up_kernel(const __grid_constant__ CUtensorMap tm_x,
+               const __grid_constant__ CUtensorMap tm_w1,
                const float* __restrict__ s1, const float* __restrict__ s2,
                const int* __restrict__ tile_expert,
                const int* __restrict__ tile_valid, bf16* __restrict__ h,
-               int D, int F, int block_m, int chunks, int fblock0) {
-  const int tile = blockIdx.x / chunks;
-  if (!tile_valid[tile]) return;               // pass 2 writes the zeros
-  const int chunk = blockIdx.x % chunks;
-  const int e = tile_expert[tile];
-  const int row0 = tile * block_m + chunk * BM;
-  const int nrows = min(BM, block_m - chunk * BM);
-  const int f0 = (fblock0 + blockIdx.y) * BN;
-  const int fcols = RAGGED ? F - f0 : BN;
-  const int warp = threadIdx.x / 32;
-  const bool active = warp * 16 < nrows;
-  const int Dp = PACKED ? D / 2 : D;           // stored rows of w1q[e]
-  const int8_t* W = w1q + (size_t)e * Dp * 2 * F;
-
-  // A tiles (x rows; int4: also x[:, D/2 + r]), then the gate and up
-  // tiles (int4: low and high nibbles of each); the epilogue reuses it all
-  __shared__ __align__(128) unsigned char smem[2 * BM * LDC * sizeof(float)];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sA2 = sA + BM * LDA;
-  bf16* sG = sA2 + (PACKED ? BM * LDA : 0);
-  bf16* sU = sG + BK * LDB;
-  bf16* sGh = sU + BK * LDB;
-  bf16* sUh = sGh + BK * LDB;
-
-  Acc accG[BN / 16], accU[BN / 16];
+               int D, int F, int block_m) {
+  constexpr int STAGES = q_stages(true, PACKED, N);
+  constexpr int SB = q_stage_bytes(true, PACKED, N);
+  constexpr int XB = (N / 64) * BOX_BYTES;
+  const int tile = blockIdx.y;
+  if (!tile_valid[tile]) return;                // pass 2 writes the zeros
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  uint8_t* ring = ring_base(dyn_smem);
+  ring_init<STAGES>(full, empty, CONSUMERS);
+  const int e = tile_expert[tile], row0 = tile * block_m;
+  const int f0 = blockIdx.x * UP_COLS;
+  const int Dp = PACKED ? D / 2 : D;            // stored rows of w1q[e]
+  const CUtensorMap* mx = &tm_x;
+  const CUtensorMap* mw = &tm_w1;
+  if (threadIdx.x >= PRODUCER) {
+    if (threadIdx.x == PRODUCER)
+      produce<STAGES, SB>(
+          ring, full, empty, Dp / BK, SB,
+          [=](int i, uint8_t* st, uint64_t* bar) {
+            const int k0 = i * BK;
+            for (int a = 0; a < N / 64; ++a) {
+              tma_load_3d(st + a * BOX_BYTES, mx, bar, k0, row0 + 64 * a, 0);
+              if (PACKED)
+                tma_load_3d(st + XB + a * BOX_BYTES, mx, bar, D / 2 + k0,
+                            row0 + 64 * a, 0);
+            }
+            uint8_t* sw = st + x_boxes(true, PACKED, N) * BOX_BYTES;
+            tma_load_3d(sw, mw, bar, f0, 0, e * Dp + k0);        // gate
+            tma_load_3d(sw + BOX_BYTES, mw, bar, f0, 1, e * Dp + k0);
+          });
+  } else {
+    const int wg = threadIdx.x / 128;
+    float acc[2][N / 2];                        // gate, up
+    consume_q<true, PACKED, N, STAGES>(acc, ring, full, empty, Dp / BK, wg);
+    const int f = f0 + q_col(wg), q = threadIdx.x % 4;
+    if (f < F) {                                // F % 32 == 0: f + 1 < F too
+      const float* sg = s1 + (size_t)e * 2 * F + f;
+      const float* sd = s2 + (size_t)e * F + f;
+      const float g_s[2] = {sg[0], sg[1]}, u_s[2] = {sg[F], sg[F + 1]};
+      const float d_s[2] = {sd[0], sd[1]};
 #pragma unroll
-  for (int j = 0; j < BN / 16; ++j) {
-    wmma::fill_fragment(accG[j], 0.0f);
-    wmma::fill_fragment(accU[j], 0.0f);
-  }
-  const bf16* xrow = xs + (size_t)row0 * D;
-  for (int r0 = 0; r0 < Dp; r0 += BK) {
-    load_a(sA, xrow, D, nrows, r0);
-    if constexpr (PACKED) load_a(sA2, xrow, D, nrows, D / 2 + r0);
-    load_q<PACKED>(sG, sGh, W, 2 * F, r0, f0, fcols);
-    load_q<PACKED>(sU, sUh, W, 2 * F, r0, F + f0, fcols);
-    __syncthreads();
-    if (active) {
-      mma_step(accG, sA, sG, warp);
-      mma_step(accU, sA, sU, warp);
-      if constexpr (PACKED) {
-        mma_step(accG, sA2, sGh, warp);
-        mma_step(accU, sA2, sUh, warp);
-      }
-    }
-    __syncthreads();
-  }
-  float* cG = reinterpret_cast<float*>(smem);
-  float* cU = cG + BM * LDC;
-  if (active) {
+      for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::store_matrix_sync(cG + warp * 16 * LDC + j * 16, accG[j], LDC, wmma::mem_row_major);
-      wmma::store_matrix_sync(cU + warp * 16 * LDC + j * 16, accU[j], LDC, wmma::mem_row_major);
+        for (int c = 0; c < 2; ++c) {
+          const int n = 8 * j + 2 * q + c;      // the tile's row
+          float v[2];
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {      // columns f, f + 1
+            const float g = acc[0][4 * j + 2 * hf + c] * g_s[hf];
+            const float u = acc[1][4 * j + 2 * hf + c] * u_s[hf];
+            v[hf] = g / (1.0f + __expf(-g)) * u * d_s[hf];
+          }
+          if (n < block_m)
+            *reinterpret_cast<__nv_bfloat162*>(
+                h + (size_t)(row0 + n) * F + f) = __floats2bfloat162_rn(v[0], v[1]);
+        }
     }
-  }
-  __syncthreads();
-  const float* sg = s1 + (size_t)e * 2 * F + f0;      // gate scales
-  const float* su = sg + F;                           // up scales
-  const float* sd = s2 + (size_t)e * F + f0;          // down (f-row) scales
-  for (int i = threadIdx.x; i < nrows * BN; i += NT) {
-    const int r = i / BN, c = i % BN;
-    if (RAGGED && c >= fcols) continue;
-    const float g = cG[r * LDC + c] * sg[c], u = cU[r * LDC + c] * su[c];
-    h[(size_t)(row0 + r) * F + f0 + c] =
-        __float2bfloat16(g / (1.0f + __expf(-g)) * u * sd[c]);
   }
 }
 
-template <bool PACKED>
-__global__ void __launch_bounds__(NT)
-gmmq_down_kernel(const bf16* __restrict__ h, const int8_t* __restrict__ w2q,
+template <bool PACKED, int N>
+__global__ void __launch_bounds__(Q_THREADS, 1)
+gmmq_down_kernel(const __grid_constant__ CUtensorMap tm_h,
+                 const __grid_constant__ CUtensorMap tm_w2,
                  const int* __restrict__ tile_expert,
                  const int* __restrict__ tile_valid, bf16* __restrict__ out,
-                 int D, int F, int block_m, int chunks) {
-  const int tile = blockIdx.x / chunks;
-  const int chunk = blockIdx.x % chunks;
-  const int row0 = tile * block_m + chunk * BM;
-  const int nrows = min(BM, block_m - chunk * BM);
-  const int c0 = blockIdx.y * BN;              // stored column block
-  const int Dp = PACKED ? D / 2 : D;           // stored columns of w2q[e]
+                 int D, int F, int block_m) {
+  constexpr int STAGES = q_stages(false, PACKED, N);
+  constexpr int SB = q_stage_bytes(false, PACKED, N);
+  constexpr int COLS = down_cols(PACKED);
+  const int tile = blockIdx.y, row0 = tile * block_m;
+  const int Dp = PACKED ? D / 2 : D;            // stored columns of w2q[e]
+  const int c0 = blockIdx.x * COLS;             // stored column block
   if (!tile_valid[tile]) {                      // dead tile: zeros, no math
-    for (int i = threadIdx.x; i < nrows * BN; i += NT) {
-      bf16* o = out + (size_t)(row0 + i / BN) * D + c0 + i % BN;
-      o[0] = __float2bfloat16(0.0f);
-      if constexpr (PACKED) o[D / 2] = __float2bfloat16(0.0f);
+    const int vecs = min(COLS, Dp - c0) / 8;    // Dp % 64 == 0
+    for (int i = threadIdx.x; i < block_m * vecs; i += Q_THREADS) {
+      bf16* o = out + (size_t)(row0 + i / vecs) * D + c0 + (i % vecs) * 8;
+      *reinterpret_cast<uint4*>(o) = make_uint4(0u, 0u, 0u, 0u);
+      if (PACKED)
+        *reinterpret_cast<uint4*>(o + D / 2) = make_uint4(0u, 0u, 0u, 0u);
     }
     return;
   }
+  extern __shared__ uint8_t dyn_smem[];
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  uint8_t* ring = ring_base(dyn_smem);
+  ring_init<STAGES>(full, empty, CONSUMERS);
   const int e = tile_expert[tile];
-  const int warp = threadIdx.x / 32;
-  const bool active = warp * 16 < nrows;
-  const int8_t* W = w2q + (size_t)e * F * Dp;
-
-  __shared__ __align__(128) unsigned char smem[(PACKED ? 2 : 1) * BM * LDC * sizeof(float)];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + BM * LDA;
-  bf16* sB2 = sB + BK * LDB;
-
-  Acc acc[BN / 16], acc2[PACKED ? BN / 16 : 1];
+  const int nk = (F + BK - 1) / BK;
+  const CUtensorMap* mh = &tm_h;
+  const CUtensorMap* mw = &tm_w2;
+  if (threadIdx.x >= PRODUCER) {
+    if (threadIdx.x == PRODUCER)
+      produce<STAGES, SB>(
+          ring, full, empty, nk, SB, [=](int i, uint8_t* st, uint64_t* bar) {
+            const int k0 = i * BK;
+            for (int a = 0; a < N / 64; ++a)
+              tma_load_3d(st + a * BOX_BYTES, mh, bar, k0, row0 + 64 * a, 0);
+            uint8_t* sw = st + x_boxes(false, PACKED, N) * BOX_BYTES;
+            for (int b = 0; b < w_boxes(false, PACKED); ++b)
+              tma_load_3d(sw + b * BOX_BYTES, mw, bar, c0 + 128 * b, k0, e);
+          });
+  } else {
+    const int wg = threadIdx.x / 128;
+    float acc[2][N / 2];
+    consume_q<false, PACKED, N, STAGES>(acc, ring, full, empty, nk, wg);
+    const int c = c0 + q_col(wg), q = threadIdx.x % 4;
 #pragma unroll
-  for (int j = 0; j < BN / 16; ++j) {
-    wmma::fill_fragment(acc[j], 0.0f);
-    if constexpr (PACKED) wmma::fill_fragment(acc2[j], 0.0f);
-  }
-  const bf16* hrow = h + (size_t)row0 * F;
-  for (int k0 = 0; k0 < F; k0 += BK) {
-    load_a(sA, hrow, F, nrows, k0);
-    load_q<PACKED>(sB, sB2, W, Dp, k0, c0);
-    __syncthreads();
-    if (active) {
-      mma_step(acc, sA, sB, warp);
-      if constexpr (PACKED) mma_step(acc2, sA, sB2, warp);
-    }
-    __syncthreads();
-  }
-  float* cO = reinterpret_cast<float*>(smem);
-  float* cO2 = cO + BM * LDC;
-  if (active) {
+    for (int t = 0; t < 2; ++t) {
+      // int8: columns c + 128 t; int4: c (low nibbles), D/2 + c (high)
+      const int d = PACKED ? c + t * (D / 2) : c + 128 * t;
+      const bool live = (PACKED ? c : c + 128 * t) < Dp;
 #pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::store_matrix_sync(cO + warp * 16 * LDC + j * 16, acc[j], LDC, wmma::mem_row_major);
-      if constexpr (PACKED)
-        wmma::store_matrix_sync(cO2 + warp * 16 * LDC + j * 16, acc2[j], LDC, wmma::mem_row_major);
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int cc = 0; cc < 2; ++cc) {
+          const int n = 8 * j + 2 * q + cc;
+          if (live && n < block_m)
+            *reinterpret_cast<__nv_bfloat162*>(
+                out + (size_t)(row0 + n) * D + d) =
+                __floats2bfloat162_rn(acc[t][4 * j + cc], acc[t][4 * j + 2 + cc]);
+        }
     }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nrows * BN; i += NT) {
-    const int r = i / BN, c = i % BN;
-    bf16* o = out + (size_t)(row0 + r) * D + c0 + c;
-    o[0] = __float2bfloat16(cO[r * LDC + c]);
-    if constexpr (PACKED) o[D / 2] = __float2bfloat16(cO2[r * LDC + c]);
   }
 }
 
-template <bool PACKED>
-static int launch(const void* xs, const void* w1q, const void* w2q,
+template <bool PACKED, int N>
+static int launch(const CUtensorMap& tx, const CUtensorMap& tw1,
+                  const CUtensorMap& th, const CUtensorMap& tw2,
                   const void* s1, const void* s2, const void* tile_expert,
-                  const void* tile_valid, void* h, void* out, int M, int D,
-                  int F, int block_m, cudaStream_t s) {
-  const int n_tiles = M / block_m;
-  const int chunks = (block_m + BM - 1) / BM;
+                  const void* tile_valid, void* h, void* out, int D, int F,
+                  int block_m, int n_tiles, cudaStream_t s) {
+  constexpr int smem_up = q_stages(true, PACKED, N) *
+                              q_stage_bytes(true, PACKED, N) + 1024;
+  constexpr int smem_down = q_stages(false, PACKED, N) *
+                                q_stage_bytes(false, PACKED, N) + 1024;
+  int err;
+  if ((err = allow_smem(gmmq_up_kernel<PACKED, N>, smem_up)) ||
+      (err = allow_smem(gmmq_down_kernel<PACKED, N>, smem_down)))
+    return err;
   const int Dp = PACKED ? D / 2 : D;
-  const int full = F / BN;                     // column blocks without masks
-  cudaError_t err = cudaSuccess;
-  if (full > 0) {
-    gmmq_up_kernel<PACKED, false><<<dim3(n_tiles * chunks, full), NT, 0, s>>>(
-        static_cast<const bf16*>(xs), static_cast<const int8_t*>(w1q),
-        static_cast<const float*>(s1), static_cast<const float*>(s2),
-        static_cast<const int*>(tile_expert),
-        static_cast<const int*>(tile_valid), static_cast<bf16*>(h), D, F,
-        block_m, chunks, 0);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (F % BN) {
-    gmmq_up_kernel<PACKED, true><<<dim3(n_tiles * chunks, 1), NT, 0, s>>>(
-        static_cast<const bf16*>(xs), static_cast<const int8_t*>(w1q),
-        static_cast<const float*>(s1), static_cast<const float*>(s2),
-        static_cast<const int*>(tile_expert),
-        static_cast<const int*>(tile_valid), static_cast<bf16*>(h), D, F,
-        block_m, chunks, full);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 g2(n_tiles * chunks, Dp / BN);
-  gmmq_down_kernel<PACKED><<<g2, NT, 0, s>>>(
-      static_cast<const bf16*>(h), static_cast<const int8_t*>(w2q),
-      static_cast<const int*>(tile_expert), static_cast<const int*>(tile_valid),
-      static_cast<bf16*>(out), D, F, block_m, chunks);
+  const int* te = static_cast<const int*>(tile_expert);
+  const int* tv = static_cast<const int*>(tile_valid);
+  gmmq_up_kernel<PACKED, N>
+      <<<dim3((F + UP_COLS - 1) / UP_COLS, n_tiles), Q_THREADS, smem_up, s>>>(
+          tx, tw1, static_cast<const float*>(s1), static_cast<const float*>(s2),
+          te, tv, static_cast<bf16*>(h), D, F, block_m);
+  cudaError_t e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  constexpr int COLS = down_cols(PACKED);
+  gmmq_down_kernel<PACKED, N>
+      <<<dim3((Dp + COLS - 1) / COLS, n_tiles), Q_THREADS, smem_down, s>>>(
+          th, tw2, te, tv, static_cast<bf16*>(out), D, F, block_m);
   return (int)cudaGetLastError();
 }
 
 // xs [M, D] bf16, w1q / w2q int8 as above (packed != 0: int4), s1 [E, 2, F]
 // and s2 [E, F] f32, out [M, D] bf16; tile_expert, tile_valid
 // [M / block_m] int32; h [M, F] bf16 scratch.  Needs D % 64 == 0 (int4:
-// (D / 2) % 64 == 0), F % 32 == 0, block_m % 8 == 0, 16-byte aligned
-// bases.  Returns cudaGetLastError() after launch.
+// (D / 2) % 64 == 0), F % 32 == 0, block_m % 8 == 0 and <= 128, 16-byte
+// aligned bases.  Returns cudaGetLastError() after launch, or the error
+// of encoding a tensor map.
 extern "C" int moe_gmm_quant_launch(const void* xs, const void* w1q,
                                     const void* w2q, const void* s1,
                                     const void* s2, const void* tile_expert,
                                     const void* tile_valid, void* h, void* out,
-                                    int M, int D, int F, int block_m,
+                                    int M, int D, int F, int block_m, int E,
                                     int packed, void* stream) {
+  const int Dp = packed ? D / 2 : D;
+  if (D % 64 || Dp % 64 || F % 32 || block_m % 8 || block_m > ROWS ||
+      block_m <= 0 || M % block_m || E <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = M / block_m;
+  if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx, tw1, th, tw2;
+  int err;
+  if ((err = activation_map(&tx, xs, 1, M, D)) ||
+      (err = activation_map(&th, h, 1, M, F)) ||
+      (err = weight_maps(&tw1, &tw2, w1q, w2q, E, Dp, F,
+                         CU_TENSOR_MAP_DATA_TYPE_UINT8)))
+    return err;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (packed)
-    return launch<true>(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, h,
-                        out, M, D, F, block_m, s);
-  return launch<false>(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, h, out,
-                       M, D, F, block_m, s);
+    return block_m <= 64
+               ? launch<true, 64>(tx, tw1, th, tw2, s1, s2, tile_expert,
+                                  tile_valid, h, out, D, F, block_m, n_tiles, s)
+               : launch<true, 128>(tx, tw1, th, tw2, s1, s2, tile_expert,
+                                   tile_valid, h, out, D, F, block_m, n_tiles, s);
+  return block_m <= 64
+             ? launch<false, 64>(tx, tw1, th, tw2, s1, s2, tile_expert,
+                                 tile_valid, h, out, D, F, block_m, n_tiles, s)
+             : launch<false, 128>(tx, tw1, th, tw2, s1, s2, tile_expert,
+                                  tile_valid, h, out, D, F, block_m, n_tiles, s);
 }

@@ -1,9 +1,11 @@
 // Device and host code for Hopper expert kernels built on TMA and wgmma
-// (moe_gmm.cu, moe_ffn.cu): a block owns up to ROWS rows of one expert's
-// row tile by one block of output columns.  Two consumer warpgroups hold
-// 64 rows each, and one producer warpgroup feeds them.  Its single elected
-// thread keeps TMA loads (cp.async.bulk.tensor, 128-byte swizzle) in
-// flight through a ring of stages in shared memory, with completion on
+// (moe_gmm.cu, moe_ffn.cu; moe_gmm_quant.cu takes the ring, the register-A
+// wgmma_rs and the maps, with tile bodies of its own): a block owns up to
+// ROWS rows of one expert's row tile by one block of output columns.  Two
+// consumer warpgroups hold 64 rows each, and one producer warpgroup feeds
+// them.  Its single elected thread keeps TMA loads (cp.async.bulk.tensor,
+// 128-byte swizzle) in flight through a ring of stages in shared memory,
+// with completion on
 // mbarriers.  The consumers run wgmma.mma_async m64n128k16 (bf16 in, f32
 // accumulate in registers) on each stage that has landed and release it
 // to the producer.  Every weight tile is read once per row tile, whatever
@@ -36,7 +38,8 @@
 //
 // Tensor maps are encoded on the host through the driver's
 // cuTensorMapEncodeTiled, looked up once with cudaGetDriverEntryPoint*
-// (no -lcuda at link time); maps of weights are cached by (pointer, shape).
+// (no -lcuda at link time); maps of weights are cached by (pointer,
+// element type, shape).
 // Names live in namespace wgt.
 
 #pragma once
@@ -196,6 +199,74 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d[N / 2] += A (64 x 16, bf16 in registers) * B (16 x N, K-major in
+// shared memory), f32 accumulate.  Warp w of the warpgroup holds A rows
+// 16w..16w+15 as mma.m16n8k16 holds its A: a[0] rows g, k 2q..2q+1; a[1]
+// rows g + 8, the same k; a[2], a[3] the same at k + 8 (g = lane / 4, q =
+// lane % 4; low half first).  d as in wgmma_m64n128k16, N columns.  The
+// registers of a are read after the call returns: they must keep their
+// values until the wgmma_wait that retires the group.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // consumer warpgroups of a tile of ``rows`` rows
@@ -402,24 +473,28 @@ inline EncodeTiledFn encoder() {
   return fn;
 }
 
-// A bf16 tensor map of ``rank`` (2 or 3) dims, innermost first, with byte
-// strides of dims 1.., a box of ``box`` elements, 128-byte swizzle and zero
-// fill out of bounds.  ``cache``: reuse the map made before for the same
-// pointer and shape (weights); returns 0 or a cudaError_t.
-inline int make_map(CUtensorMap* map, const void* ptr, int rank,
-                    const uint64_t* dims, const uint64_t* strides,
-                    const uint32_t* box, bool cache) {
+// A tensor map of elements of ``type`` over ``rank`` (2 or 3) dims,
+// innermost first, with byte strides of dims 1.., a box of ``box``
+// elements, 128-byte swizzle and zero fill out of bounds.  ``cache``:
+// reuse the map made before for the same pointer, element type and shape
+// (weights: an int8 and a bf16 map of one pointer and shape are two
+// maps); returns 0 or a cudaError_t.
+inline int make_map(CUtensorMap* map, const void* ptr,
+                    CUtensorMapDataType type, int rank, const uint64_t* dims,
+                    const uint64_t* strides, const uint32_t* box, bool cache) {
   constexpr int N = 128;
+  constexpr int K = 11;
   static std::mutex mu;
-  static uint64_t keys[N][10];
+  static uint64_t keys[N][K];
   static CUtensorMap maps[N];
   static int used = 0, next = 0;
-  uint64_t key[10] = {reinterpret_cast<uint64_t>(ptr), (uint64_t)rank};
+  uint64_t key[K] = {reinterpret_cast<uint64_t>(ptr), (uint64_t)rank,
+                     (uint64_t)type};
   for (int i = 0; i < rank; ++i) {
-    key[2 + i] = dims[i];
-    key[7 + i] = box[i];
+    key[3 + i] = dims[i];
+    key[8 + i] = box[i];
   }
-  for (int i = 0; i + 1 < rank; ++i) key[5 + i] = strides[i];
+  for (int i = 0; i + 1 < rank; ++i) key[6 + i] = strides[i];
   std::lock_guard<std::mutex> lock(mu);
   if (cache)
     for (int i = 0; i < used; ++i)
@@ -430,9 +505,9 @@ inline int make_map(CUtensorMap* map, const void* ptr, int rank,
   EncodeTiledFn fn = encoder();
   if (!fn) return (int)cudaErrorNotSupported;
   const cuuint32_t estride[3] = {1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                  const_cast<void*>(ptr), dims, strides, box, estride,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+                  estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
@@ -452,18 +527,26 @@ inline int activation_map(CUtensorMap* map, const void* ptr, uint64_t planes,
   const uint64_t dims[3] = {width, rows, planes};
   const uint64_t strides[2] = {2 * width, 2 * width * rows};
   const uint32_t box[3] = {BOX, BOX, 1};
-  return make_map(map, ptr, 3, dims, strides, box, false);
+  return make_map(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, dims,
+                  strides, box, false);
 }
 
-// The cached maps of one layer's experts: w1 [E, D, 2F] as [E * D, 2, F]
-// in 64 x 1 x 64 boxes (gate and up apart), w2 [E, F, D] in 64 x 64 x 1.
+// The cached maps of one layer's experts w1 [E, Dp, 2F] and w2 [E, F, Dp]
+// of ``type``: bf16 (Dp = D), or int8 (Dp = D, or D / 2 for int4 packed
+// two a byte).  w1 as [E * Dp, 2, F] in boxes of 128 bytes x 1 x 64 rows
+// (gate and up apart), w2 in 128 bytes x 64 x 1: 64 x 64 bf16 or 64 x 128
+// int8, 8 KB either way.
 inline int weight_maps(CUtensorMap* tw1, CUtensorMap* tw2, const void* w1,
-                       const void* w2, uint64_t E, uint64_t D, uint64_t F) {
-  const uint64_t dw1[3] = {F, 2, E * D}, sw1[2] = {2 * F, 4 * F};
-  const uint64_t dw2[3] = {D, F, E}, sw2[2] = {2 * D, 2 * F * D};
-  const uint32_t box_w1[3] = {BOX, 1, BOX}, box_w2[3] = {BOX, BOX, 1};
-  int err = make_map(tw1, w1, 3, dw1, sw1, box_w1, true);
-  return err ? err : make_map(tw2, w2, 3, dw2, sw2, box_w2, true);
+                       const void* w2, uint64_t E, uint64_t Dp, uint64_t F,
+                       CUtensorMapDataType type =
+                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const uint64_t es = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 1;
+  const uint32_t inner = 128 / es;
+  const uint64_t dw1[3] = {F, 2, E * Dp}, sw1[2] = {es * F, 2 * es * F};
+  const uint64_t dw2[3] = {Dp, F, E}, sw2[2] = {es * Dp, es * F * Dp};
+  const uint32_t box_w1[3] = {inner, 1, BOX}, box_w2[3] = {inner, BOX, 1};
+  int err = make_map(tw1, w1, type, 3, dw1, sw1, box_w1, true);
+  return err ? err : make_map(tw2, w2, type, 3, dw2, sw2, box_w2, true);
 }
 
 // Let ``kernel`` use ``bytes`` of dynamic shared memory.

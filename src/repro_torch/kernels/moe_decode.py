@@ -12,7 +12,8 @@ Quantized experts: ``csrc/moe_decode_quant.cu`` (replaces ``moe_decode_
 quant_pallas``) computes the same on int8 w1q / w2q (int4: two values a
 byte, blocked halves along D; ``models/moe/params.py``) with f32 scales
 s1 [E, 2, F] applied after the first product and s2 [E, F] folded into
-the hidden before the second.
+the hidden before the second; it groups the slots of an expert as the
+bf16 kernel does, so each routed expert is read once a call.
 """
 
 from __future__ import annotations
@@ -105,10 +106,11 @@ def moe_decode_quant(x, w1q, w2q, s1, s2, idx, weights, *, dtype: str):
     expect("moe_decode_quant", idx, "idx", torch.int32, (b, k))
     expect("moe_decode_quant", weights, "weights", torch.float32, (b, k))
     h = torch.empty((b, k, f), dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
     y = torch.empty((b, d), dtype=torch.bfloat16, device=x.device)
-    fn = _build.function("moe_decode_quant", "moe_decode_quant_launch", 9, 5)
-    err = fn(*(t.data_ptr() for t in args), h.data_ptr(), y.data_ptr(),
-             b, d, f, k, int(dtype == "int4"),
+    fn = _build.function("moe_decode_quant", "moe_decode_quant_launch", 10, 6)
+    err = fn(*(t.data_ptr() for t in args), h.data_ptr(), partial.data_ptr(),
+             y.data_ptr(), b, d, f, k, w2q.shape[0], int(dtype == "int4"),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("moe_decode_quant", err)
     moe_decode_quant.launches += 1

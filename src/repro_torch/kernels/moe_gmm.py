@@ -12,7 +12,9 @@ Quantized experts: ``csrc/moe_gmm_quant.cu`` (replaces ``moe_gmm_quant_
 pallas``) computes the same on int8 w1q / w2q (int4: two values a byte,
 blocked halves along D; ``models/moe/params.py``) with f32 scales s1
 [E, 2, F] applied after the first product and s2 [E, F] folded into the
-hidden before the second.
+hidden before the second.  Its weights travel through TMA as int8 and are
+widened to bf16 in registers (tensor maps cached per weight tensor and
+element type).
 """
 
 from __future__ import annotations
@@ -122,9 +124,9 @@ def moe_gmm_quant(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, *,
            (n_tiles,))
     h = torch.empty((m, f), dtype=torch.bfloat16, device=xs.device)
     out = torch.empty((m, d), dtype=torch.bfloat16, device=xs.device)
-    fn = _build.function("moe_gmm_quant", "moe_gmm_quant_launch", 9, 5)
+    fn = _build.function("moe_gmm_quant", "moe_gmm_quant_launch", 9, 6)
     err = fn(*(t.data_ptr() for t in args), h.data_ptr(), out.data_ptr(),
-             m, d, f, block_m, int(dtype == "int4"),
+             m, d, f, block_m, w2q.shape[0], int(dtype == "int4"),
              torch.cuda.current_stream(xs.device).cuda_stream)
     _build.check("moe_gmm_quant", err)
     moe_gmm_quant.launches += 1

@@ -313,10 +313,16 @@ def test_quantize_expert_params_matches_reference_and_shares(dtype):
 # CUDA kernels vs their plain versions (need the card)
 # --------------------------------------------------------------------------- #
 
-cuda = pytest.mark.skipif(not torch.cuda.is_available(),
-                          reason="the CUDA kernels run only on a GPU")
 ROW_TOL = 1e-2      # per row, of its own norm: f32 sums in another order,
 #                     bf16 output (and moe_gmm_quant's bf16 hidden)
+
+
+@pytest.fixture
+def card():
+    """Skips the test unless a CUDA device is present, decided when the
+    test runs (never while the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a GPU")
 
 
 def _close_rows(got, want):
@@ -328,20 +334,24 @@ def _close_rows(got, want):
         (err / ref.clamp(min=1e-30)).max().item()
 
 
-def _card_weights(e, d, f, dtype, seed):
+def _card_weights(e, d, f, dtype, seed, scale=0.1):
     from repro_torch.models.moe import quantize_experts
     g = torch.Generator(device="cuda").manual_seed(seed)
-    w1 = (torch.randn(e, d, 2 * f, generator=g, device="cuda") * 0.1).bfloat16()
-    w2 = (torch.randn(e, f, d, generator=g, device="cuda") * 0.1).bfloat16()
+    w1 = (torch.randn(e, d, 2 * f, generator=g, device="cuda") * scale).bfloat16()
+    w2 = (torch.randn(e, f, d, generator=g, device="cuda") * scale).bfloat16()
+    # channels scaled apart, so that each has a scale of its own
+    w1 = w1 * torch.exp(0.5 * torch.randn(e, 1, 2 * f, generator=g,
+                                          device="cuda")).bfloat16()
+    w2 = w2 * torch.exp(0.5 * torch.randn(e, f, 1, generator=g,
+                                          device="cuda")).bfloat16()
     return g, quantize_experts(w1, w2, dtype)
 
 
-@cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,k,bm,f", [(1, 2, 8, 128), (37, 4, 40, 128),
                                       (512, 8, 128, 128), (37, 4, 40, 96),
                                       (64, 6, 64, 1056)])
-def test_moe_gmm_quant_kernel_matches_plain_on_card(dtype, t, k, bm, f):
+def test_moe_gmm_quant_kernel_matches_plain_on_card(card, dtype, t, k, bm, f):
     from repro_torch.kernels import moe_gmm_quant
     from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
     from repro_torch.models.moe import make_sort_plan, sort_dispatch
@@ -359,11 +369,44 @@ def test_moe_gmm_quant_kernel_matches_plain_on_card(dtype, t, k, bm, f):
     _close_rows(got, moe_gmm_quant_plain(*args, bm, dtype=dtype))
 
 
-@cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t,k,e,bm,f", [(512, 8, 64, 128, 1024),
+                                        (200, 6, 16, 128, 1056),
+                                        (100, 4, 16, 40, 1024)])
+def test_moe_gmm_quant_kernel_full_width_on_card(card, dtype, t, k, e, bm, f):
+    """At the served width (D 2048; 64 experts, 512 tokens x top-8 is the
+    prefill check's shape): every token's first slot on expert 3, so that
+    expert spans several row tiles; expert 7 gets no rows; two live tiles
+    made dead between live ones, and the buffer's own dead tiles at its
+    end -- all must come out zero; F 1056 ends in a part-filled box."""
+    from repro_torch.kernels import moe_gmm_quant
+    from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
+    from repro_torch.models.moe import make_sort_plan, sort_dispatch
+    d = 2048
+    g, q = _card_weights(e, d, f, dtype, t + bm, scale=0.02)
+    idx = torch.stack([torch.randperm(e - 4, generator=g, device="cuda")[:k]
+                       for _ in range(t)]) + 4
+    idx[:, 0] = 3
+    idx = torch.where(idx == 7, 1, idx).int()
+    plan = make_sort_plan(idx, e, bm)
+    tv = plan.tile_valid.clone()
+    live = tv.nonzero().flatten()
+    assert (plan.tile_expert[live] == 3).sum() >= 2     # several tiles
+    tv[live[1]] = 0
+    tv[live[len(live) // 2]] = 0
+    x = torch.randn(t, d, generator=g, device="cuda").bfloat16()
+    args = (sort_dispatch(x, plan, k), *q, plan.tile_expert, tv)
+    got = moe_gmm_quant(*args, dtype=dtype, block_m=bm)
+    _close_rows(got, moe_gmm_quant_plain(*args, bm, dtype=dtype))
+    dead = ~tv.bool()
+    assert (got.reshape(-1, bm, d)[dead] == 0).all()
+    assert not (got.reshape(-1, bm, d)[tv.bool()] == 0).all()
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,k,f", [(1, 1, 192), (8, 8, 192), (3, 2, 192),
                                    (8, 8, 96), (8, 6, 1056)])
-def test_moe_decode_quant_kernel_matches_plain_on_card(dtype, b, k, f):
+def test_moe_decode_quant_kernel_matches_plain_on_card(card, dtype, b, k, f):
     from repro_torch.kernels import moe_decode_quant
     from repro_torch.kernels.moe_decode import moe_decode_quant_plain
     e, d = 16, 256
@@ -378,8 +421,51 @@ def test_moe_decode_quant_kernel_matches_plain_on_card(dtype, b, k, f):
     _close_rows(got, moe_decode_quant_plain(x, *q, idx, w, dtype=dtype))
 
 
-@cuda
-def test_quant_kernels_refuse_what_they_do_not_take_on_card():
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,k,f,e,kind", [(8, 8, 1024, 64, "random"),
+                                          (16, 2, 1024, 16, "two"),
+                                          (16, 8, 1056, 16, "random"),
+                                          (1, 8, 1024, 64, "random"),
+                                          (3, 6, 1056, 16, "random")])
+def test_moe_decode_quant_kernel_groups_slots_on_card(card, dtype, b, k, f,
+                                                      e, kind):
+    """At the served width (D 2048), the slots of one expert served
+    together: "two" routes all 16 tokens to experts 2 and 9 (16 slots on
+    each, more than the 8 one pass over the weights serves).  Held to the
+    plain version; each row's output bitwise the same computed alone; a
+    slot whose weight is 0 adds exactly nothing, whichever expert it
+    names; no host sync in the call."""
+    from repro_torch.kernels import moe_decode_quant
+    from repro_torch.kernels.moe_decode import moe_decode_quant_plain
+    d = 2048
+    g, q = _card_weights(e, d, f, dtype, b * k + f, scale=0.02)
+    x = torch.randn(b, d, generator=g, device="cuda").bfloat16()
+    if kind == "two":
+        idx = torch.tensor([2, 9], device="cuda").repeat(b, 1).int()
+    else:
+        idx = torch.randint(0, e, (b, k), generator=g, device="cuda").int()
+    w = torch.rand(b, k, generator=g, device="cuda")
+    w[:, -1] = 0                        # a k_budget-masked slot
+    moe_decode_quant(x, *q, idx, w, dtype=dtype)     # builds the library
+    torch.cuda.synchronize()
+    before = moe_decode_quant.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = moe_decode_quant(x, *q, idx, w, dtype=dtype)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert moe_decode_quant.launches == before + 1
+    _close_rows(got, moe_decode_quant_plain(x, *q, idx, w, dtype=dtype))
+    for i in range(b):                  # batch invariance
+        alone = moe_decode_quant(x[i:i + 1], *q, idx[i:i + 1], w[i:i + 1],
+                                 dtype=dtype)
+        assert torch.equal(alone[0], got[i]), i
+    moved = idx.clone()
+    moved[:, -1] = (idx[:, -1] + 5) % e     # the zero-weight slot elsewhere
+    assert torch.equal(moe_decode_quant(x, *q, moved, w, dtype=dtype), got)
+
+
+def test_quant_kernels_refuse_what_they_do_not_take_on_card(card):
     from repro_torch.kernels import moe_decode_quant
     e, d, f = 4, 64, 64
     _, q = _card_weights(e, d, f, "int4", 0)        # D/2 = 32: not a x64

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the expert kernels moe_ffn (B9) and moe_decode (B3) of one checkout
-at the shapes the main paths give them, on one NVIDIA GPU.
+"""Time the expert kernels moe_ffn (B9), moe_decode (B3), moe_gmm_quant
+(B6) and moe_decode_quant (B5) of one checkout at the shapes the main
+paths give them, on one NVIDIA GPU.
 
     python3 tools/expert_kernel_times.py [--root DIR] [--tag NAME]
 
@@ -15,9 +16,17 @@ forward's 4 x 512 tokens, a serve chunk's 8 x 64, a decode step's 8 slots)
 and on DeepSeek-V2-Lite's at C 4 (F 1408 and the intra-pruned 1056), each
 with the bf16 ``bmm`` pair as ``library_ms``; moe_decode on 8 tokens
 routed by each model's router at its top-k and at k 2 (and OLMoE's on one
-token).  Each timing is
-held to the plain version first.  Prints one JSON line, then the card's
-name and power limit.
+token).  The quantized kernels in int8 and int4, each with its bf16
+sibling (B1 / B3) on the same routing timed in the same turns
+(``sibling_ms``): moe_gmm_quant at the prefill check's 512 tokens x top-8
+and a serve chunk's 64 x top-8 (OLMoE) and at 512 tokens on DeepSeek's
+intra-pruned F 1056; moe_decode_quant on 8 tokens at k 8 and k 2, on one
+token at k 8 and k 2 (OLMoE), and on 8 tokens at DeepSeek's F 1056, k 6.
+Each timing is held to the plain version first.  ``passes`` gives the
+quantized kernels' device time by CUDA kernel (torch.profiler, five calls)
+at the prefill check's and the 8-token decode shape: a programmatic
+dependent's time counts its wait for the pass before it.  Prints one JSON
+line, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -29,6 +38,45 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def quant_passes(layer, cfg, x512, x8):
+    """{kernel: {dtype: {CUDA kernel: ms a call}}}: moe_gmm_quant on
+    ``x512``'s routing (top-k), moe_decode_quant on ``x8``'s."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as cs
+    from repro_torch.kernels import moe_decode_quant, moe_gmm_quant
+    from repro_torch.models.moe import QUANT_DTYPES, default_block_m, \
+        make_sort_plan, quantize_moe_layer, route, sort_dispatch
+
+    def by_kernel(call, n=5):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        return {e.key.split("(")[0]: e.device_time_total / n / 1e3
+                for e in prof.key_averages() if e.device_time_total > 0}
+
+    k = cfg.moe_top_k
+    _, idx, _ = route(layer, cfg, x512, k)
+    plan = make_sort_plan(idx, cfg.num_experts,
+                          default_block_m(x512.shape[0] * k, floor=8))
+    xs = sort_dispatch(x512, plan, k)
+    weights, idx8, _ = route(layer, cfg, x8, k)
+    varied = cs.varied_experts(layer)
+    out = {"moe_gmm_quant": {}, "moe_decode_quant": {}}
+    for dt in QUANT_DTYPES:
+        q = quantize_moe_layer(varied, dt)
+        w = (q["w1"], q["w2"], q["w1_scale"], q["w2_scale"])
+        out["moe_gmm_quant"][dt] = by_kernel(lambda: moe_gmm_quant(
+            xs, *w, plan.tile_expert, plan.tile_valid, dtype=dt,
+            block_m=plan.block_m))
+        out["moe_decode_quant"][dt] = by_kernel(lambda: moe_decode_quant(
+            x8, *w, idx8, weights, dtype=dt))
+    return out
 
 
 def main() -> int:
@@ -55,7 +103,8 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     rec = {"tag": args.tag, "root": os.path.abspath(args.root),
-           "build_s": secs, "moe_ffn": {}, "moe_decode": {}}
+           "build_s": secs, "moe_ffn": {}, "moe_decode": {},
+           "moe_gmm_quant": {}, "moe_decode_quant": {}}
 
     def ffn(layer, cfg, x, name):
         err, ms, plain_ms, nbytes, flops, lib_ms = cs.check_moe_ffn(
@@ -69,6 +118,10 @@ def main() -> int:
             rec["moe_decode"][f"{name}_{key}"] = cs.kernel_row(
                 "moe_decode", "", "", *v)
 
+    def quant(name, per, shape):
+        for key, v in per.items():
+            rec[name][f"{shape}_{key}"] = cs.kernel_row(name, "", "", *v)
+
     cfg = get_config("olmoe-1b-7b")
     params = models.init_params(cfg.with_(num_layers=1), seed=0, device=dev)
     layer = params["layers"][0]["moe"]
@@ -79,6 +132,15 @@ def main() -> int:
         ffn(layer, cfg, xx, name)
     decode(layer, cfg, x[:8].contiguous(), "olmoe")
     decode(layer, cfg, x[:1].contiguous(), "olmoe_b1")
+    for name, xx in (("olmoe_prefill_t512", x[:512]),
+                     ("olmoe_chunk_t64", x[:64])):
+        quant("moe_gmm_quant", cs.check_moe_gmm_quant(
+            layer, cfg, xx, flush, "_" + name), name)
+    for name, xx in (("olmoe_b8", x[:8]), ("olmoe_b1", x[:1])):
+        quant("moe_decode_quant", cs.check_moe_decode_quant(
+            layer, cfg, xx.contiguous(), flush, "_" + name,
+            ks=(cfg.moe_top_k, 2)), name)
+    rec["passes"] = quant_passes(layer, cfg, x[:512], x[:8].contiguous())
     del params, layer
 
     cfg = get_config("deepseek-v2-lite").with_(num_layers=2)
@@ -90,6 +152,12 @@ def main() -> int:
         f = c.moe_d_ff
         ffn(lay, c, x8, f"deepseek_decode_f{f}_c4")
         decode(lay, c, x8, f"deepseek_f{f}")
+    quant("moe_gmm_quant", cs.check_moe_gmm_quant(
+        pruned["layers"][1]["moe"], cfg_p, x[:512], flush, "_deepseek_f1056"),
+        "deepseek_f1056_t512")
+    quant("moe_decode_quant", cs.check_moe_decode_quant(
+        pruned["layers"][1]["moe"], cfg_p, x8, flush, "_deepseek_f1056"),
+        "deepseek_f1056_b8")
     print(json.dumps(rec), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,23 +1,34 @@
 #!/usr/bin/env python3
-"""Time launch shapes of the expert kernels moe_ffn (B9) and moe_decode
-(B3) on the card.
+"""Time launch shapes of the expert kernels moe_ffn (B9), moe_decode (B3),
+moe_gmm_quant (B6) and moe_decode_quant (B5) on the card.
 
-    python3 tools/expert_kernel_variants.py [--reps 15]
+    python3 tools/expert_kernel_variants.py [--reps 15] [--kernels a,b]
 
 Each kernel fixes its launch shape in constants of its source:
 ``csrc/moe_ffn.cu`` the stages of each pass's ring and pass 2's B operands
 a block; ``csrc/moe_decode.cu`` the weight loads a thread keeps in flight
 (for up to 4 slots of an expert, and for more), the launch bound's
 blocks an SM, and whether passes 2 and 3 launch as programmatic
-dependents.  For each variant in VARIANTS this writes a copy of the source
-with those constants replaced into ``build/kernels/variants/`` and builds
-it (one ``nvcc`` each, all started together), holds it against the
-plain version, and times the variants in turns (L2 flushed before every
-call) at OLMoE-1B-7B's shapes: moe_ffn on capacity buffers of C 320, 80
-and 4 rows, moe_decode on 8 tokens at k 8 and k 2, each routed by the
-layer's router.  The first variant of each kernel is the source as
-committed.  One JSON line per (kernel, variant, shape) with the median
-device ms; the card's name and power limit first.  Needs a CUDA device.
+dependents; ``csrc/moe_gmm_quant.cu`` the stages of its ring (and
+another design of it, ``tools/variants/moe_gmm_quant_widen_in_smem.cu``:
+the int8 weights widened into a bf16 stage in shared memory for B1's SS
+wgmma, in place of register-A wgmma);
+``csrc/moe_decode_quant.cu`` the columns a thread sums (16-byte or
+8-byte loads), the stored bytes of a row a block reads, the threads of
+a block, the loads of a batch (for up to 2, 4 and 8 slots) and the
+blocks an SM.  For each variant in VARIANTS this writes a
+copy of the source with those constants replaced into
+``build/kernels/variants/`` and builds it (one ``nvcc`` each, all started
+together), holds it against the plain version, and times the variants in
+turns (L2 flushed before every call) at OLMoE-1B-7B's shapes: moe_ffn on
+capacity buffers of C 320, 80 and 4 rows, moe_decode on 8 tokens at k 8
+and k 2, moe_gmm_quant on the prefill check's 512 tokens x top-8 in int8
+and int4, moe_decode_quant on 8 tokens at k 8 and k 2 in int8 and int4,
+each routed by the layer's router (the quantized kernels on its experts
+scaled apart per channel, as chip_smoke.py checks them).  The first
+variant of each kernel is the source as committed.  One JSON line per
+(kernel, variant, shape) with the median device ms; the card's name and
+power limit first.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,13 +61,34 @@ VARIANTS = {
         {"UNROLL_FEW": 16},
         {"UNROLL_FEW": 4, "UNROLL_MANY": 2, "MIN_BLOCKS": 3},
     ],
+    "moe_gmm_quant": [
+        {},
+        {"MAX_STAGES": 3},
+        {"source": "tools/variants/moe_gmm_quant_widen_in_smem.cu"},
+    ],
+    "moe_decode_quant": [
+        {},
+        {"C": 16, "MIN_BLOCKS": 1, "UNROLL_TWO": 16, "UNROLL_FOUR": 8,
+         "UNROLL_MANY": 4},
+        {"C": 8, "MIN_BLOCKS": 2, "UNROLL_TWO": 8, "UNROLL_FOUR": 8,
+         "UNROLL_MANY": 4},
+        {"CB": 64},
+        {"CB": 256},
+        {"NT": 128, "MIN_BLOCKS": 4},
+        {"NT": 512, "MIN_BLOCKS": 1},
+    ],
 }
 #: ctypes argument counts of each launch function: pointers, ints
-ARGS = {"moe_ffn": (5, 4), "moe_decode": (8, 5)}
+ARGS = {"moe_ffn": (5, 4), "moe_decode": (8, 5), "moe_gmm_quant": (9, 6),
+        "moe_decode_quant": (10, 6)}
 
 
 def _source(kernel: str, consts: dict) -> str:
-    src = (_build.CSRC / f"{kernel}.cu").read_text()
+    """The kernel's source (or a variant's own, ``source``: a path from the
+    root of the checkout) with the variant's constants replaced."""
+    consts = dict(consts)
+    path = consts.pop("source", None)
+    src = (ROOT / path if path else _build.CSRC / f"{kernel}.cu").read_text()
     for name, val in consts.items():
         src, n = re.subn(rf"constexpr (int|bool) {name} = \w+;",
                          rf"constexpr \1 {name} = {val};", src)
@@ -65,11 +97,11 @@ def _source(kernel: str, consts: dict) -> str:
     return src
 
 
-def _build_variants():
+def _build_variants(kernels):
     out = _build.BUILD_DIR / "variants"
     procs = {}
-    for kernel, variants in VARIANTS.items():
-        for i, consts in enumerate(variants):
+    for kernel in kernels:
+        for i, consts in enumerate(VARIANTS[kernel]):
             d = out / f"{kernel}_{i}"
             if d.exists():
                 shutil.rmtree(d)
@@ -95,7 +127,8 @@ def _build_variants():
         print(json.dumps({"kernel": kernel, "variant": i,
                           "consts": VARIANTS[kernel][i], "ptxas": [
                               ln.strip() for ln in log.splitlines()
-                              if "registers" in ln or "spill" in ln]}),
+                              if "registers" in ln or "spill" in ln
+                              or "wgmma" in ln]}),
               flush=True)
     return fns
 
@@ -105,14 +138,17 @@ def _check(err: int) -> None:
         raise RuntimeError(f"CUDA error {err} at launch")
 
 
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
 def _ffn(fn, xe, w1, w2):
     e, c, d = xe.shape
     f = w2.shape[1]
     h = torch.empty((e, c, f), dtype=xe.dtype, device=xe.device)
     out = torch.empty_like(xe)
     _check(fn(xe.data_ptr(), w1.data_ptr(), w2.data_ptr(), h.data_ptr(),
-              out.data_ptr(), e, c, d, f,
-              torch.cuda.current_stream().cuda_stream))
+              out.data_ptr(), e, c, d, f, _stream()))
     return out
 
 
@@ -125,15 +161,93 @@ def _decode(fn, x, w1, w2, idx, weights):
     y = torch.empty_like(x)
     _check(fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), idx.data_ptr(),
               weights.data_ptr(), h.data_ptr(), partial.data_ptr(),
-              y.data_ptr(), b, d, f, k, e,
-              torch.cuda.current_stream().cuda_stream))
+              y.data_ptr(), b, d, f, k, e, _stream()))
     return y
+
+
+def _gmm_quant(fn, xs, w1q, w2q, s1, s2, te, tv, block_m, packed):
+    m, d = xs.shape
+    e, f = w2q.shape[0], w2q.shape[1]
+    h = torch.empty((m, f), dtype=xs.dtype, device=xs.device)
+    out = torch.empty_like(xs)
+    _check(fn(*(t.data_ptr() for t in (xs, w1q, w2q, s1, s2, te, tv, h,
+                                       out)),
+              m, d, f, block_m, e, packed, _stream()))
+    return out
+
+
+def _decode_quant(fn, x, w1q, w2q, s1, s2, idx, weights, packed):
+    b, d = x.shape
+    e, f = w2q.shape[0], w2q.shape[1]
+    k = idx.shape[1]
+    h = torch.empty((b, k, f), dtype=torch.float32, device=x.device)
+    partial = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    _check(fn(*(t.data_ptr() for t in (x, w1q, w2q, s1, s2, idx, weights,
+                                       h, partial, y)),
+              b, d, f, k, e, packed, _stream()))
+    return y
+
+
+def _cases(kernels, layer, cfg, x):
+    """(kernel, shape, call, plain, inputs, extra args) for each timed
+    shape of the chosen kernels."""
+    from repro_torch.kernels.moe_decode import moe_decode_plain, \
+        moe_decode_quant_plain
+    from repro_torch.kernels.moe_ffn import moe_ffn_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
+    from repro_torch.models.moe import QUANT_DTYPES, default_block_m, \
+        make_sort_plan, quantize_moe_layer, route, sort_dispatch
+    cases = []
+    x8 = x[:8].contiguous()
+    if "moe_ffn" in kernels:
+        for c, xx in ((320, x), (80, x[:512]), (4, x[:8])):
+            xe, _ = cs.capacity_buffers(layer, cfg, xx)
+            cases.append(("moe_ffn", f"c{c}", _ffn, moe_ffn_plain,
+                          (xe, layer["w1"], layer["w2"]), ()))
+    if "moe_decode" in kernels:
+        for k in (cfg.moe_top_k, 2):
+            weights, idx, _ = route(layer, cfg, x8, k)
+            cases.append(("moe_decode", f"k{k}", _decode, moe_decode_plain,
+                          (x8, layer["w1"], layer["w2"], idx, weights), ()))
+    quant = [n for n in ("moe_gmm_quant", "moe_decode_quant") if n in kernels]
+    if quant:
+        varied = cs.varied_experts(layer)
+        qs = {dt: quantize_moe_layer(varied, dt) for dt in QUANT_DTYPES}
+    if "moe_gmm_quant" in kernels:
+        k = cfg.moe_top_k
+        xx = x[:512]
+        _, idx, _ = route(layer, cfg, xx, k)
+        plan = make_sort_plan(idx, cfg.num_experts,
+                              default_block_m(xx.shape[0] * k, floor=8))
+        xs = sort_dispatch(xx, plan, k)
+        for dt, q in qs.items():
+            args = (xs, q["w1"], q["w2"], q["w1_scale"], q["w2_scale"],
+                    plan.tile_expert, plan.tile_valid)
+            cases.append((
+                "moe_gmm_quant", f"t512_{dt}", _gmm_quant,
+                lambda *a, dt=dt, bm=plan.block_m: moe_gmm_quant_plain(
+                    *a, bm, dtype=dt),
+                args, (plan.block_m, int(dt == "int4"))))
+    if "moe_decode_quant" in kernels:
+        for k in (cfg.moe_top_k, 2):
+            weights, idx, _ = route(layer, cfg, x8, k)
+            for dt, q in qs.items():
+                args = (x8, q["w1"], q["w2"], q["w1_scale"], q["w2_scale"],
+                        idx, weights)
+                cases.append((
+                    "moe_decode_quant", f"k{k}_{dt}", _decode_quant,
+                    lambda *a, dt=dt: moe_decode_quant_plain(*a, dtype=dt),
+                    args, (int(dt == "int4"),)))
+    return cases
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=15)
+    ap.add_argument("--kernels", default=",".join(VARIANTS))
     args = ap.parse_args()
+    kernels = args.kernels.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("expert_kernel_variants: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -141,12 +255,9 @@ def main() -> None:
                          text=True)
     print(smi.stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns = _build_variants()
+    fns = _build_variants(kernels)
     from repro_torch import models
     from repro_torch.configs import get_config
-    from repro_torch.kernels.moe_decode import moe_decode_plain
-    from repro_torch.kernels.moe_ffn import moe_ffn_plain
-    from repro_torch.models.moe import route
     dev = torch.device("cuda")
     cfg = get_config("olmoe-1b-7b")
     layer = models.init_params(cfg.with_(num_layers=1), seed=0,
@@ -156,36 +267,22 @@ def main() -> None:
     x = torch.randn((2048, cfg.d_model), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     flush = torch.empty(cs.FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    cases = []
-    for c, xx in ((320, x), (80, x[:512]), (4, x[:8])):
-        xe, _ = cs.capacity_buffers(layer, cfg, xx)
-        cases.append(("moe_ffn", f"c{c}", _ffn, moe_ffn_plain,
-                      (xe, layer["w1"], layer["w2"])))
-    for k in (cfg.moe_top_k, 2):
-        weights, idx, _ = route(layer, cfg, x[:8].contiguous(), k)
-        cases.append(("moe_decode", f"k{k}", _decode, moe_decode_plain,
-                      (x[:8].contiguous(), layer["w1"], layer["w2"], idx,
-                       weights)))
-    for kernel, shape, call, plain, inputs in cases:
+    for kernel, shape, call, plain, inputs, extra in _cases(
+            kernels, layer, cfg, x):
         want = plain(*inputs).float()
         keys = [key for key in fns if key[0] == kernel]
         errs = {}
         for key in keys:
-            got = call(fns[key], *inputs).float()
-            errs[key] = (cs.row_rel_err(got, want).max().item()
-                         if kernel == "moe_ffn" else
-                         (got - want).abs().max().item()
-                         / want.abs().max().item())
-        ms = cs.time_calls([lambda key=key: call(fns[key], *inputs)
+            got = call(fns[key], *inputs, *extra).float()
+            errs[key] = cs.row_rel_err(got, want).max().item()
+        ms = cs.time_calls([lambda key=key: call(fns[key], *inputs, *extra)
                             for key in keys], flush, args.reps)
         for key, t in zip(keys, ms):
             print(json.dumps({"kernel": kernel, "shape": shape,
                               "variant": key[1],
                               "consts": VARIANTS[kernel][key[1]], "ms": t,
-                              "err": errs[key],
-                              "ok": errs[key] <= (cs.ROW_TOL
-                                                  if kernel == "moe_ffn"
-                                                  else cs.TOL)}),
+                              "max_row_rel_err": errs[key],
+                              "ok": errs[key] <= cs.ROW_TOL}),
                   flush=True)
 
 

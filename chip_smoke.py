@@ -17,6 +17,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               ragged S of 37 and 200 and strided [B, S, H, hd] views;
               ``flash_attention`` and
               ``flash_decode`` also at one GQA shape with a sliding window;
+              ``flash_decode_paged`` also at GQA g=4 under a window, on one
+              row of 512 positions and on rows ending one page past a
+              chunk boundary, ``flash_decode_paged_mla`` also on one row
+              of 512 positions, each held bit for bit row by row: a row
+              alone at its own live-page width against the batch at a
+              64-column table view;
               the attention kernels, ``moe_ffn``, ``moe_decode`` and the
               quantized expert kernels, in int8 and int4, row by row, to
               ROW_TOL;
@@ -519,76 +525,150 @@ def paged_positions(lens, n, p, n_blk, device):
     return posp.to(device), table.to(device), cur.to(device)
 
 
+def live_work(posp, table, cur, window=None):
+    """(pages, valid slots) this table's data needs: a page counts when it
+    holds a valid slot (a window can leave a row's early pages empty)."""
+    pos = posp.cpu()[table.cpu().long()]                  # [B, n_blk, P]
+    c = cur.cpu()[:, None, None]
+    ok = (pos >= 0) & (pos <= c)
+    if window is not None:
+        ok &= pos > c - window
+    ok &= table.cpu()[:, :, None] != 0
+    return int(ok.any(-1).sum()), int(ok.sum())
+
+
+def _live_blocks(ln: int, p: int = 16) -> int:
+    """KVCache.live_blocks for one row: its pages, rounded up to a power
+    of two."""
+    return 1 << (max(1, -(-ln // p)) - 1).bit_length()
+
+
+def bitwise_rows(name, call, lens, args_of_row, batch_out):
+    """Each row alone, at its own live-page width, must give the bits it
+    gives in the batch (at a wider table view)."""
+    for r, ln in enumerate(lens):
+        alone = call(*args_of_row(r, _live_blocks(ln)))
+        if not torch.equal(alone[0], batch_out[r]):
+            raise AssertionError(f"{name}: row {r} alone differs from the "
+                                 "same row in the batch")
+    emit({"check": name, "bitwise_rows": len(lens), "ok": True})
+
+
+#: B4's shapes (lens, kv heads, window, table view): the OLMoE check (MHA,
+#: 16 heads), GQA g=4 under a window over pages, one row of 512 positions,
+#: and rows whose live pages end one page past a chunk boundary (chunks
+#: are 2 columns: 5, 3 and 17 pages)
+FDP_SHAPES = {
+    "olmoe_b8": ([512, 511, 480, 300, 129, 64, 16, 0], 16, None, 32),
+    "gqa_window": ([512, 333, 200, 199, 57, 1, 0, 450], 4, 150, 32),
+    "one_row_512": ([512], 16, None, 32),
+    "past_chunk_boundary": ([80, 33, 272, 17], 16, None, 32),
+}
+
+
 def check_flash_decode_paged(cfg, flush, device):
+    """B4 at OLMoE's widths (16 query heads of 128, pages of 16) on each of
+    FDP_SHAPES, a 64-column table walked through a narrower view, each
+    (row, head) held to ROW_TOL; then each row of the check and the GQA
+    shape alone at its own live-page width against the batch at the full
+    64 columns, bit for bit.  No single PyTorch call takes a block table:
+    library_ms null."""
     from repro_torch.kernels import flash_decode_paged
     from repro_torch.kernels.flash_decode_paged import \
         flash_decode_paged_plain
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    b, hkv, hd, p = 8, cfg.num_kv_heads, cfg.head_dim_, 16
-    hq = cfg.num_heads
-    lens = [512, 511, 480, 300, 129, 64, 16, 0]     # row 7 is idle
-    n_blk = 64                                      # full table: 1024 pos
-    n = b * 32 + 1
-    kp = torch.randn((n, p, hkv, hd), generator=gen, device=device,
-                     dtype=torch.bfloat16)
-    vp = torch.randn((n, p, hkv, hd), generator=gen, device=device,
-                     dtype=torch.bfloat16)
-    q = torch.randn((b, hq, hd), generator=gen, device=device,
-                    dtype=torch.bfloat16)
-    posp, table, cur = paged_positions(lens, n, p, n_blk, device)
-    live = 32                                   # KVCache.live_blocks bucket
-    bt = table[:, :live]                        # truncated strided view
-    args = (q, kp, vp, posp, bt, cur)
-    err = compare_rows("flash_decode_paged", flash_decode_paged(*args),
-                  flash_decode_paged_plain(*args), batch=b, heads=hq,
-                  live_positions=sum(lens), table_cols=live)
-    ms, plain_ms = time_calls((lambda: flash_decode_paged(*args),
-                               lambda: flash_decode_paged_plain(*args)),
-                              flush)
-    pages = int((bt != 0).sum())
-    nbytes = (pages * p * hkv * hd * 2 * 2 + pages * p * 4
-              + 2 * b * hq * hd * 2 + b * live * 4)
-    flops = 4 * sum(lens) * hq * hd
-    return err, ms, plain_ms, nbytes, flops
+    hd, p, hq, n_blk = cfg.head_dim_, 16, cfg.num_heads, 64
+    per = {}
+    for tag, (lens, hkv, window, live) in FDP_SHAPES.items():
+        b = len(lens)
+        n = b * 32 + 1
+        kp, vp = (torch.randn((n, p, hkv, hd), generator=gen, device=device,
+                              dtype=torch.bfloat16) for _ in range(2))
+        q = torch.randn((b, hq, hd), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        posp, table, cur = paged_positions(lens, n, p, n_blk, device)
+        bt = table[:, :live]                    # truncated strided view
+        args = (q, kp, vp, posp, bt, cur)
+        got = flash_decode_paged(*args, window=window)
+        err = compare_rows(f"flash_decode_paged_{tag}", got,
+                           flash_decode_paged_plain(*args, window=window),
+                           batch=b, heads=[hq, hkv], window=window,
+                           live_positions=sum(lens), table_cols=live)
+        if tag in ("olmoe_b8", "gqa_window"):
+            bitwise_rows(
+                f"flash_decode_paged_{tag}_rows",
+                lambda *a: flash_decode_paged(*a, window=window), lens,
+                lambda r, w: (q[r:r + 1], kp, vp, posp, table[r:r + 1, :w],
+                              cur[r:r + 1]),
+                flash_decode_paged(q, kp, vp, posp, table, cur,
+                                   window=window))
+        ms, plain_ms = time_calls(
+            (lambda: flash_decode_paged(*args, window=window),
+             lambda: flash_decode_paged_plain(*args, window=window)), flush)
+        pages, slots = live_work(posp, bt, cur, window)
+        nbytes = (pages * p * hkv * hd * 2 * 2 + pages * p * 4
+                  + 2 * b * hq * hd * 2 + b * live * 4)
+        per[tag] = (err, ms, plain_ms, nbytes, 4 * slots * hq * hd)
+    return per
+
+
+#: B7's shapes (lens, table view): the DeepSeek check, one row of 512
+FDPM_SHAPES = {
+    "deepseek_b8": ([512, 511, 480, 300, 129, 64, 16, 0], 32),
+    "one_row_512": ([512], 32),
+}
 
 
 def check_flash_decode_paged_mla(cfg, flush, device):
-    """B7 at DeepSeek-V2-Lite's widths (16 heads, r 512, dr 64) on B4's
-    check pool: lens [512 .. 0] over pages of 16, a 64-column table walked
-    through a 32-column view; each (row, head) latent of 512 held to
-    ROW_TOL.  The work is f32 FMAs on bf16 latents: the bound takes the f32
-    rate.  No single PyTorch call takes a block table: library_ms null."""
+    """B7 at DeepSeek-V2-Lite's widths (16 heads, r 512, dr 64) on each of
+    FDPM_SHAPES, pages of 16, a 64-column table walked through a 32-column
+    view; each (row, head) latent of 512 held to ROW_TOL; then each row of
+    the check alone at its own live-page width against the batch at the
+    full 64 columns, bit for bit.  The work is the TPU kernel's f32 dots on
+    bf16 latents: the bound takes the f32 rate whatever the kernel runs
+    on.  No single PyTorch call takes a block table: library_ms null."""
     from repro_torch.kernels import flash_decode_paged_mla
     from repro_torch.kernels.flash_decode_paged import \
         flash_decode_paged_mla_plain
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
-    b, h, p = 8, cfg.num_heads, 16
+    h, p, n_blk = cfg.num_heads, 16, 64
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
     scale = 1.0 / (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** 0.5
-    lens = [512, 511, 480, 300, 129, 64, 16, 0]     # row 7 is idle
-    n_blk, n = 64, b * 32 + 1
-    ckvp, kropep = (torch.randn((n, p, w), generator=gen, device=device,
-                                dtype=torch.bfloat16) for w in (r, dr))
-    q_lat, q_rope = (torch.randn((b, h, w), generator=gen, device=device)
-                     for w in (r, dr))
-    posp, table, cur = paged_positions(lens, n, p, n_blk, device)
-    live = 32                                   # KVCache.live_blocks bucket
-    args = (q_lat, q_rope, ckvp, kropep, posp, table[:, :live], cur)
-    err = compare_rows("flash_decode_paged_mla",
-                       flash_decode_paged_mla(*args, scale=scale),
-                       flash_decode_paged_mla_plain(*args, scale=scale),
-                       batch=b, heads=h, latent=[r, dr],
-                       live_positions=sum(lens), table_cols=live)
-    ms, plain_ms = time_calls(
-        (lambda: flash_decode_paged_mla(*args, scale=scale),
-         lambda: flash_decode_paged_mla_plain(*args, scale=scale)), flush)
-    pages = int((table[:, :live] != 0).sum())
-    nbytes = (pages * p * (r + dr) * 2 + pages * p * 4
-              + b * h * (r + dr) * 4 + b * h * r * 4 + b * live * 4 + b * 4)
-    flops = sum(lens) * h * (2 * (r + dr) + 2 * r)
-    return err, ms, plain_ms, nbytes, flops
+    per = {}
+    for tag, (lens, live) in FDPM_SHAPES.items():
+        b = len(lens)
+        n = b * 32 + 1
+        ckvp, kropep = (torch.randn((n, p, w), generator=gen, device=device,
+                                    dtype=torch.bfloat16) for w in (r, dr))
+        q_lat, q_rope = (torch.randn((b, h, w), generator=gen, device=device)
+                         for w in (r, dr))
+        posp, table, cur = paged_positions(lens, n, p, n_blk, device)
+        args = (q_lat, q_rope, ckvp, kropep, posp, table[:, :live], cur)
+        err = compare_rows(f"flash_decode_paged_mla_{tag}",
+                           flash_decode_paged_mla(*args, scale=scale),
+                           flash_decode_paged_mla_plain(*args, scale=scale),
+                           batch=b, heads=h, latent=[r, dr],
+                           live_positions=sum(lens), table_cols=live)
+        if tag == "deepseek_b8":
+            bitwise_rows(
+                f"flash_decode_paged_mla_{tag}_rows",
+                lambda *a: flash_decode_paged_mla(*a, scale=scale), lens,
+                lambda i, w: (q_lat[i:i + 1], q_rope[i:i + 1], ckvp, kropep,
+                              posp, table[i:i + 1, :w], cur[i:i + 1]),
+                flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp,
+                                       table, cur, scale=scale))
+        ms, plain_ms = time_calls(
+            (lambda: flash_decode_paged_mla(*args, scale=scale),
+             lambda: flash_decode_paged_mla_plain(*args, scale=scale)), flush)
+        pages, slots = live_work(posp, table[:, :live], cur)
+        nbytes = (pages * p * (r + dr) * 2 + pages * p * 4
+                  + b * h * (r + dr) * 4 + b * h * r * 4 + b * live * 4
+                  + b * 4)
+        flops = slots * h * (2 * (r + dr) + 2 * r)
+        per[tag] = (err, ms, plain_ms, nbytes, flops, None, None, F32_FLOPS)
+    return per
 
 
 def _causal_pairs(s: int, window) -> int:
@@ -1225,10 +1305,12 @@ def main() -> int:
             {f"olmoe_{key}": v for key, v in check_moe_decode(
                 layer, cfg, x512[:8].contiguous(), flush).items()},
             "shapes"),
-        "flash_decode_paged": kernel_row(
+        # the OLMoE check first, then GQA under a window, one row of 512
+        # positions, rows ending one page past a chunk boundary
+        "flash_decode_paged": nested_row(
             "flash_decode_paged", "src/repro_torch/csrc/flash_decode_paged.cu",
             "src/repro/kernels/flash_decode_paged.py:107",
-            *check_flash_decode_paged(cfg, flush, device)),
+            check_flash_decode_paged(cfg, flush, device), "shapes"),
         "flash_attention": kernel_row(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:74",
@@ -1249,12 +1331,12 @@ def main() -> int:
             "src/repro/kernels/moe_decode.py:257",
             check_moe_decode_quant(layer, cfg, x512[:8].contiguous(), flush),
             "dtypes"),
-        "flash_decode_paged_mla": kernel_row(
+        # the DeepSeek check first, then one row of 512 positions
+        "flash_decode_paged_mla": nested_row(
             "flash_decode_paged_mla",
             "src/repro_torch/csrc/flash_decode_paged_mla.cu",
             "src/repro/kernels/flash_decode_paged.py:199",
-            *check_flash_decode_paged_mla(cfg_mla, flush, device),
-            flop_rate=F32_FLOPS),
+            check_flash_decode_paged_mla(cfg_mla, flush, device), "shapes"),
         # the forward's 4 x 512 tokens, a serve chunk's 8 x 64, a decode
         # step's 8 slots, each at top-8 and capacity factor 1.25
         "moe_ffn": nested_row(

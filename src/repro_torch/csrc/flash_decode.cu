@@ -13,11 +13,12 @@
 // head; at B 8, 16 kv heads, hd 128 and 512 live slots a call reads
 // 33.6 MB of K and V, about 0.01 ms at 3.35 TB/s.
 //
-// Design.  The paged kernel (flash_decode_paged.cu) with a direct address
-// in place of the table walk: one CUDA block per (batch row, kv head); the
-// block's 8 warps take runs of 4 slots in turn (warp w reads slots
-// 4w .. 4w + 3, then 4w + 32 ...), each keeping its own online-softmax
-// state in registers, and merge once at the end (flash_decode_common.cuh).
+// Design.  One CUDA block per (batch row, kv head), addressing the slots
+// directly (the paged kernel, flash_decode_paged.cu, splits a row's pages
+// over blocks instead); the block's 8 warps take runs of 4 slots in turn
+// (warp w reads slots 4w .. 4w + 3, then 4w + 32 ...), each keeping its
+// own online-softmax state in registers, and merge once at the end
+// (flash_decode_common.cuh).
 // Without a window a slot's index is pos % S with every pos < S, so no
 // slot past cur_pos can hold a valid position and the walk stops at
 // cur_pos + 1 slots; with a window the ring may have wrapped and the walk

@@ -1,17 +1,17 @@
-// Device code shared by the one-token decode attention kernels
-// (flash_decode.cu over a contiguous cache, flash_decode_paged.cu over a
-// paged pool).
+// Device code of the one-token decode attention kernel over a contiguous
+// cache (flash_decode.cu); the paged kernel (flash_decode_paged.cu) shares
+// only fd_dispatch and the bf16 type.
 //
-// Both run one CUDA block of FD_NT threads per (batch row, kv head).  The
-// block's warps split the cached slots between them; each warp keeps its
-// own online-softmax state (m, l, acc) in registers -- lane i holds head
-// dimensions i, i + 32, ... for every query head of the group -- and folds
-// in the slots it reads with no barrier.  At the end the warps' partial
-// states meet in shared memory and are merged with the usual rescaling
-// (m* = max m_w, l* = sum l_w e^(m_w - m*), acc* likewise).  Masked slots
-// are never folded in, so a query with no valid slot keeps l = 0, acc = 0
-// and returns 0.  G (query heads per kv head) and DPL = hd / 32 are
-// template parameters, G * DPL <= 16.
+// flash_decode runs one CUDA block of FD_NT threads per (batch row, kv
+// head).  The block's warps split the cached slots between them; each warp
+// keeps its own online-softmax state (m, l, acc) in registers -- lane i
+// holds head dimensions i, i + 32, ... for every query head of the group --
+// and folds in the slots it reads with no barrier.  At the end the warps'
+// partial states meet in shared memory and are merged with the usual
+// rescaling (m* = max m_w, l* = sum l_w e^(m_w - m*), acc* likewise).
+// Masked slots are never folded in, so a query with no valid slot keeps
+// l = 0, acc = 0 and returns 0.  G (query heads per kv head) and DPL =
+// hd / 32 are template parameters, G * DPL <= 16.
 
 #pragma once
 

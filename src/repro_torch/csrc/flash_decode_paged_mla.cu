@@ -12,316 +12,400 @@
 // slots with 0 <= posp <= cur_pos, softmax, out = p . ckv.  Table entries
 // equal to the trash page 0 are skipped; a row with no valid slot (an idle
 // batch row) gets zeros.  R = 512, DR = 64, H <= 16 (DeepSeek-V2-Lite:
-// kv_lora_rank 512, qk_rope_head_dim 64, 16 heads).
+// kv_lora_rank 512, qk_rope_head_dim 64, 16 heads).  A row's output is
+// bitwise the same whatever the other rows of the batch are and whatever
+// the table view's width n_blk.
 //
 // What bounds it on the H100.  Every head reads the same latent row (MQA
 // over the latents): per live slot 576 bf16 values are read once for all
-// heads, and each head does 2 * (R + DR) + 2 * R f32 operations on them.
-// At B 8 with 2012 live positions on 127 pages of 16 the latents are
-// 2.34 MB (0.70 us at 3.35 TB/s; about 2.9 MB and 0.87 us with q, out and
-// posp) and the work 70 MFLOP of f32 FMAs (1.04 us at the 67 TFLOP/s f32
-// rate): operations, narrowly.
+// heads, and each head does 2 * (R + DR) + 2 * R operations on them.  At
+// B 8 with 2012 live positions on 127 pages of 16 the latents are 2.34 MB
+// (0.70 us at 3.35 TB/s) and the work 70 MFLOP: 1.04 us at the 67 TFLOP/s
+// f32 rate the TPU kernel's f32 dots would run at, which stays the
+// yardstick.
 //
-// Design.  The TPU kernel walks a row's table in order on one core,
-// carrying the softmax state (m, l and a [H, R] f32 accumulator) across
-// grid steps.  Here the accumulator of one row is 16 x 512 f32 = 32 KB, too
-// big to copy per warp as the GQA kernel does, so one block of 256 threads
-// holds it: warp w owns heads 2w and 2w + 1, and lane i owns latent
-// columns 8i .. 8i + 7 and 256 + 8i .. 256 + 8i + 7 of both (32 values),
-// with the same query columns (and rope columns 2i, 2i + 1), scaled as the
-// TPU kernel scales them, in registers.  Pass 1 splits a row's table
-// columns between `splits` blocks (`per` columns each, grid (splits, B)),
-// so that about two blocks per SM are in flight.  A block stages one tile
-// of 16 slots of a page at a time in shared memory (18 KB, read from device
-// memory once for all 16 heads: MQA over the latents).  Each lane forms
-// its partial dot products for the warp's 2 heads x 16 slots from its own
-// columns; a butterfly reduce-scatter over the warp (31 shuffles) leaves
-// lane i with the full score of (head 2w + i / 16, slot i % 16); the
-// per-head max and sum are reduced over the head's 16 lanes; the
-// probabilities and the rescale factors reach the accumulator lanes by
-// shuffles, so a tile needs no barrier past its load, and every latent
-// value read from shared memory feeds 2 heads.  Masked slots get
-// probability 0 exactly (the TPU kernel gives them exp(0) while a row has
-// seen no valid slot, which only matters for a row with none).  Each block
-// writes its partial state (acc, m, l); pass 2 (one block per (head,
-// row), 4 columns a thread) merges the splits with the usual rescaling,
-// skipping splits that saw no valid slot.  f32 FMAs on bf16-loaded
-// latents, as the TPU kernel's f32 dots.  On the H100 at the check shape
-// (B 8, 127 pages) this runs 0.025 ms against a first design's 0.031 (one
-// score per thread against the query held in shared memory, reread for
-// every slot); both are latency-bound, far from the bound (PERF.md).
+// Design.  One launch: a thread-block cluster of CL blocks per batch row;
+// block rank r walks the row's table columns r, r + CL, r + 2 CL, ... (the
+// rank stride is a constant, so a row's split never depends on B or n_blk),
+// with the block's page list read ahead of the walk and trash pages left
+// out.  Each block streams its pages as tiles of 16 slots (18 KB of latents,
+// one row a slot) through a four-stage cp.async ring (all four of a rank's
+// tiles at the check's longest row in flight at once), so later tiles'
+// loads overlap this tile's work.  Both products run on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 accumulate) with the f32 operands split
+// into bf16 hi + lo parts, the latents being exact in bf16: the scores
+// [16 heads x 16 slots] = q_hi . k + q_lo . k over 576 (8 warps: two slot
+// halves x four k-quarters, the quarters summed in a fixed order), then per
+// head one max, one sum and one rescale a tile, and acc [16 x 512] +=
+// p_hi . ckv + p_lo . ckv (a warp owns 64 latent columns; acc stays in
+// registers).  The error is that of a 16-bit mantissa on q and p, far
+// inside the f32 reference's tolerance.  At the end each block leaves
+// (m, l, acc) in its shared memory, and rank r merges latent columns
+// [64 r, 64 r + 64) of every head over the cluster's blocks in rank order
+// through distributed shared memory (every rank's state loaded at once,
+// then folded in order), skipping a block with no valid slot exactly.  No
+// scratch in device memory, no second launch.  On the H100 at the check
+// (8 rows, 127 pages) a call takes about 0.016 ms against the two-pass
+// design's 0.025; each tile a rank walks adds about 1.3 us, and the
+// cluster merge holds much of the rest (PERF.md).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
 
-#define TRASH_PAGE 0
+#include "paged_decode.cuh"
+
+namespace cg = cooperative_groups;
+
 #define MLA_NT 256
-#define MLA_HMAX 16
-#define MLA_TILE 16             // slots of a page staged at once
-#define MLA_NEG_INF -1e30f
+#define MLA_CL 8               // blocks a row (cluster size, rank stride)
+#define MLA_H 16               // heads a block holds (rows of the mma tiles)
+#define MLA_TILE 16            // slots a tile
+#define MLA_R 512
+#define MLA_DR 64
+#define MLA_K (MLA_R + MLA_DR)
+#define MLA_ROW (MLA_K + 8)    // bf16 a shared row (1168 B: ldmatrix rows
+                               // land on distinct banks)
+#define MLA_PROW 24            // bf16 a probability row (48 B)
+#define MLA_STAGES 4           // tiles in flight (a block's four pages at
+                               // the check's longest row)
+#define MLA_QN (MLA_H * (MLA_K / 4) / MLA_NT)   // q float4s a thread
 
-// 8 bf16 packed in a uint4 -> 8 floats
-__device__ __forceinline__ void unpack8(const uint4 u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+// shared memory (bytes): q hi, q lo, the latent stages, then small arrays
+#define MLA_Q_BYTES (MLA_H * MLA_ROW * 2)
+#define MLA_T_BYTES (MLA_TILE * MLA_ROW * 2)
+#define MLA_FIXED_BYTES                                                   \
+  (2 * MLA_Q_BYTES + MLA_STAGES * MLA_T_BYTES + MLA_STAGES * MLA_TILE * 4 + \
+   4 * MLA_H * MLA_TILE * 4 + 2 * MLA_H * MLA_PROW * 2 + MLA_H * 4 +      \
+   2 * MLA_H * 4 + 16)
+#define MLA_SMEM_MAX (200 * 1024)
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(pd_smem_u32(p)));
 }
 
-// One butterfly step of a warp's reduce-scatter of v[0 .. 2O): afterwards
-// v[0 .. O) holds the sums over the lane pair (lane, lane ^ O) of the half
-// that the lane's bit O selects, so after the steps 16, 8, 4, 2, 1 lane i
-// holds the warp's sum of v[i].
-template <int O>
-__device__ __forceinline__ void reduce_scatter_step(float (&v)[32],
-                                                    int lane) {
-  const bool up = lane & O;
-#pragma unroll
-  for (int i = 0; i < O; ++i) {
-    const float send = up ? v[i] : v[i + O];
-    const float keep = up ? v[i + O] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-  }
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(pd_smem_u32(p)));
 }
 
-template <int R, int DR>
-__global__ void __launch_bounds__(MLA_NT)
-mla_partial_kernel(const float* __restrict__ q_lat,
-                   const float* __restrict__ q_rope,
-                   const __nv_bfloat16* __restrict__ ckvp,
-                   const __nv_bfloat16* __restrict__ kropep,
-                   const int* __restrict__ posp,
-                   const int* __restrict__ bt, int bt_stride,
-                   const int* __restrict__ cur_pos,
-                   float* __restrict__ part_acc, float* __restrict__ part_ml,
-                   int H, int P, int n_blk, int splits, int per, float scale) {
-  static_assert(R % 256 == 0 && DR == 64, "the lanes' column layout");
-  constexpr int NCH = R / 256;            // 8-column chunks a lane owns
-  constexpr int CPR = R / 8;              // 16-byte chunks per latent row
-  __shared__ __align__(16) __nv_bfloat16 ck[MLA_TILE * R];
-  __shared__ __align__(16) __nv_bfloat16 kr[MLA_TILE * DR];
-  const int split = blockIdx.x, b = blockIdx.y;
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(pd_smem_u32(p)));
+}
+
+// d += a (16x16, row major) * b (16x8, col major), bf16 in, f32 out
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo + (a rest below 2^-16 |x|), both bf16
+__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi,
+                                           __nv_bfloat16& lo) {
+  hi = __float2bfloat16(x);
+  lo = __float2bfloat16(x - __bfloat162float(hi));
+}
+
+__global__ void __cluster_dims__(MLA_CL, 1, 1) __launch_bounds__(MLA_NT, 1)
+mla_decode_kernel(const float* __restrict__ q_lat,
+                  const float* __restrict__ q_rope,
+                  const __nv_bfloat16* __restrict__ ckvp,
+                  const __nv_bfloat16* __restrict__ kropep,
+                  const int* __restrict__ posp, const int* __restrict__ bt,
+                  int bt_stride, const int* __restrict__ cur_pos,
+                  float* __restrict__ out, int H, int P, int n_blk,
+                  float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qhi = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* qlo = qhi + MLA_H * MLA_ROW;
+  __nv_bfloat16* tiles = qlo + MLA_H * MLA_ROW;   // [STAGES][TILE][ROW]
+  int* pos_s = reinterpret_cast<int*>(tiles + MLA_STAGES * MLA_TILE * MLA_ROW);
+  float* sc = reinterpret_cast<float*>(pos_s + MLA_STAGES * MLA_TILE);
+                                                  // [4][H][TILE]
+  __nv_bfloat16* phi =
+      reinterpret_cast<__nv_bfloat16*>(sc + 4 * MLA_H * MLA_TILE);
+  __nv_bfloat16* plo = phi + MLA_H * MLA_PROW;
+  float* alpha_s = reinterpret_cast<float*>(plo + MLA_H * MLA_PROW);
+  float* ml = alpha_s + MLA_H;                    // [H][2]: m, l
+  int* n_pages_s = reinterpret_cast<int*>(ml + 2 * MLA_H);
+  int* list = reinterpret_cast<int*>(smem + MLA_FIXED_BYTES);
+  float* acc_s = reinterpret_cast<float*>(smem);  // [H][R], over q at the end
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), b = blockIdx.y;
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int h0 = 2 * warp;                // the warp's heads h0, h0 + 1
   const int cur = cur_pos[b];
+  const int tpp = (P + MLA_TILE - 1) / MLA_TILE;  // tiles a page
 
-  // this lane's query columns of both heads, scaled; heads >= H are zero
-  float qn[2][NCH][8], qr[2][2];
+  // q first (it needs no table entry): float4 k of this thread holds
+  // head idx / (K / 4), columns 4 (idx % (K / 4)) .. + 3, idx = t + k NT
+  float4 qr[MLA_QN];
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int h = h0 + hh;
-    const float* ql = q_lat + ((size_t)b * H + h) * R + 8 * lane;
-#pragma unroll
-    for (int i = 0; i < NCH; ++i) {
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
-      if (h < H) {
-        a = reinterpret_cast<const float4*>(ql + 256 * i)[0];
-        c = reinterpret_cast<const float4*>(ql + 256 * i)[1];
-      }
-      const float v[8] = {a.x, a.y, a.z, a.w, c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) qn[hh][i][e] = v[e] * scale;
-    }
-    float2 r = make_float2(0.f, 0.f);
+  for (int k = 0; k < MLA_QN; ++k) {
+    const int idx = t + k * MLA_NT;
+    const int h = idx / (MLA_K / 4), c = 4 * (idx % (MLA_K / 4));
+    qr[k] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (h < H)
-      r = reinterpret_cast<const float2*>(
-          q_rope + ((size_t)b * H + h) * DR)[lane];
-    qr[hh][0] = r.x * scale;
-    qr[hh][1] = r.y * scale;
+      qr[k] = c < MLA_R
+                  ? *reinterpret_cast<const float4*>(
+                        q_lat + ((size_t)b * H + h) * MLA_R + c)
+                  : *reinterpret_cast<const float4*>(
+                        q_rope + ((size_t)b * H + h) * MLA_DR + c - MLA_R);
   }
 
-  float m = MLA_NEG_INF, l = 0.f;         // head h0 + lane / 16's state
-  float acc[2][NCH][8];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-    for (int i = 0; i < NCH; ++i)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[hh][i][e] = 0.f;
+  // the block's pages: columns rank, rank + CL, ...; trash left out
+  if (warp == 0) {
+    const int* row_bt = bt + (size_t)b * bt_stride;
+    const int n_cols = n_blk > rank ? (n_blk - rank + MLA_CL - 1) / MLA_CL : 0;
+    int n = 0;
+    for (int base = 0; base < n_cols; base += 32) {
+      const int i = base + lane;
+      const int page = i < n_cols ? row_bt[rank + MLA_CL * i] : TRASH_PAGE;
+      const unsigned live = __ballot_sync(0xffffffffu, page != TRASH_PAGE);
+      if (page != TRASH_PAGE)
+        list[n + __popc(live & ((1u << lane) - 1u))] = page;
+      n += __popc(live);
+    }
+    if (lane == 0) *n_pages_s = n;
+  }
+  __syncthreads();
+  const int n_tiles = *n_pages_s * tpp;
 
-  const int j0 = split * per, j1 = min(n_blk, j0 + per);
-  for (int j = j0; j < j1; ++j) {
-    const int page = bt[(size_t)b * bt_stride + j];
-    if (page == TRASH_PAGE) continue;                 // uniform in the block
-    for (int p0 = 0; p0 < P; p0 += MLA_TILE) {
-      const int ns = min(MLA_TILE, P - p0);
-      const size_t row0 = (size_t)page * P + p0;
-      __syncthreads();                    // the previous tile is consumed
-      for (int c = t; c < MLA_TILE * CPR; c += MLA_NT) {
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);     // rows past the page: 0
-        if (c / CPR < ns)
-          v = reinterpret_cast<const uint4*>(ckvp + row0 * R)[c];
-        reinterpret_cast<uint4*>(ck)[c] = v;
-      }
-      for (int c = t; c < MLA_TILE * DR / 8; c += MLA_NT) {
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (c / (DR / 8) < ns)
-          v = reinterpret_cast<const uint4*>(kropep + row0 * DR)[c];
-        reinterpret_cast<uint4*>(kr)[c] = v;
-      }
-      __syncthreads();
+  // tile it -> stage st: 16 latent rows (ckv then krope, one shared row a
+  // slot), rows past the page zero-filled; the slots' positions beside
+  auto load_tile = [&](int it, int st) {
+    const int page = list[it / tpp], p0 = (it % tpp) * MLA_TILE;
+    const int ns = min(MLA_TILE, P - p0);
+    const size_t row0 = (size_t)page * P + p0;
+    __nv_bfloat16* dst = tiles + st * MLA_TILE * MLA_ROW;
+    for (int idx = t; idx < MLA_TILE * (MLA_K / 8); idx += MLA_NT) {
+      const int r = idx / (MLA_K / 8), c = idx % (MLA_K / 8);
+      const bool ok = r < ns;
+      const __nv_bfloat16* src =
+          c < MLA_R / 8 ? ckvp + (row0 + r) * MLA_R + 8 * c
+                        : kropep + (row0 + r) * MLA_DR + 8 * (c - MLA_R / 8);
+      pd_cp_async16(dst + r * MLA_ROW + 8 * c, ok ? src : ckvp, ok);
+    }
+    if (t < MLA_TILE)
+      pd_cp_async4(pos_s + st * MLA_TILE + t,
+                   t < ns ? posp + row0 + t : posp, t < ns);
+  };
+  // the first STAGES - 1 tiles in flight, one commit group each
+#pragma unroll
+  for (int k = 0; k < MLA_STAGES - 1; ++k) {
+    if (k < n_tiles) load_tile(k, k);
+    pd_cp_async_commit();
+  }
 
-      // this lane's partial scores: part[16 * hh + s]
-      float part[32];
+  // q, scaled to base 2, split into bf16 hi + lo rows; heads >= H are zero
 #pragma unroll
-      for (int s = 0; s < MLA_TILE; ++s) {
-        float d0 = 0.f, d1 = 0.f;
+  for (int k = 0; k < MLA_QN; ++k) {
+    const int idx = t + k * MLA_NT;
+    const int h = idx / (MLA_K / 4), c = 4 * (idx % (MLA_K / 4));
+    const float x[4] = {qr[k].x, qr[k].y, qr[k].z, qr[k].w};
 #pragma unroll
-        for (int i = 0; i < NCH; ++i) {
-          float f[8];
-          unpack8(*reinterpret_cast<const uint4*>(
-                      ck + s * R + 256 * i + 8 * lane), f);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            d0 += qn[0][i][e] * f[e];
-            d1 += qn[1][i][e] * f[e];
-          }
-        }
-        const uint32_t w =
-            *reinterpret_cast<const uint32_t*>(kr + s * DR + 2 * lane);
-        const float r0 = __uint_as_float(w << 16);
-        const float r1 = __uint_as_float(w & 0xffff0000u);
-        part[s] = d0 + qr[0][0] * r0 + qr[0][1] * r1;
-        part[16 + s] = d1 + qr[1][0] * r0 + qr[1][1] * r1;
-      }
-      reduce_scatter_step<16>(part, lane);
-      reduce_scatter_step<8>(part, lane);
-      reduce_scatter_step<4>(part, lane);
-      reduce_scatter_step<2>(part, lane);
-      reduce_scatter_step<1>(part, lane);
+    for (int e = 0; e < 4; ++e)
+      split_bf16(x[e] * scale_log2, qhi[h * MLA_ROW + c + e],
+                 qlo[h * MLA_ROW + c + e]);
+  }
 
-      // lane: (head h0 + lane / 16, slot lane % 16)
-      const int sl = lane % 16;
-      bool valid = false;
-      if (sl < ns) {
-        const int pos = posp[row0 + sl];
-        valid = pos >= 0 && pos <= cur;
+  // softmax state of head t / 16 (its 16 threads hold copies); acc: this
+  // warp's latent columns 64 warp + 8 n + (2 (lane % 4), + 1), heads
+  // lane / 4 (acc[n][0..1]) and lane / 4 + 8 (acc[n][2..3])
+  float m = PD_NEG_INF, l = 0.f;
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int g = lane / 4, tq = lane % 4;
+  // ldmatrix addressing: A (row major, 16 x 16) and B (8 slots x 16)
+  const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
+  const int nh = warp & 1, kq = warp >> 1;   // score warp: slot half, k-quarter
+  const int b_row = 8 * nh + (lane & 7), b_col = 8 * ((lane >> 3) & 1);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % MLA_STAGES;
+    const int nx = it + MLA_STAGES - 1;   // its stage held tile it - 1
+    if (nx < n_tiles) load_tile(nx, nx % MLA_STAGES);
+    pd_cp_async_commit();
+    pd_cp_async_wait<MLA_STAGES - 1>();   // tile it landed
+    __syncthreads();
+    const __nv_bfloat16* tile = tiles + st * MLA_TILE * MLA_ROW;
+
+    // partial scores of (16 heads, slot half nh) over k-quarter kq
+    {
+      // four accumulator chains (hi / lo, even / odd k-steps), summed in
+      // a fixed order
+      float sa[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[j][e] = 0.f;
+#pragma unroll
+      for (int i = 0; i < MLA_K / 16 / 4; ++i) {
+        const int k0 = 16 * (kq * (MLA_K / 16 / 4) + i);
+        uint32_t ah[4], al[4], kb[2];
+        ldsm_x4(ah, qhi + a_row * MLA_ROW + k0 + a_col);
+        ldsm_x4(al, qlo + a_row * MLA_ROW + k0 + a_col);
+        ldsm_x2(kb, tile + b_row * MLA_ROW + k0 + b_col);
+        mma16816(sa[2 * (i & 1)], ah, kb[0], kb[1]);
+        mma16816(sa[2 * (i & 1) + 1], al, kb[0], kb[1]);
       }
-      const float sc = valid ? part[0] : MLA_NEG_INF;
-      float tmax = sc;
+      float* s = sc + kq * MLA_H * MLA_TILE;
+      const int col = 8 * nh + 2 * tq;
+      const int o[4] = {g * MLA_TILE + col, g * MLA_TILE + col + 1,
+                        (g + 8) * MLA_TILE + col, (g + 8) * MLA_TILE + col + 1};
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)     // the head's 16 lanes
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      const float m_new = fmaxf(m, tmax);
-      const float pv = valid ? __expf(sc - m_new) : 0.f;
-      const float alpha = __expf(m - m_new);
-      float psum = pv;
+      for (int e = 0; e < 4; ++e)
+        s[o[e]] = (sa[0][e] + sa[2][e]) + (sa[1][e] + sa[3][e]);
+    }
+    __syncthreads();
+
+    // one max, one sum and one rescale a head: thread (head t/16, slot t%16)
+    {
+      const int hh = t / MLA_TILE, sl = t % MLA_TILE;
+      const int o = hh * MLA_TILE + sl;
+      const float s = ((sc[o] + sc[MLA_H * MLA_TILE + o]) +
+                       sc[2 * MLA_H * MLA_TILE + o]) +
+                      sc[3 * MLA_H * MLA_TILE + o];
+      const int pos = pos_s[st * MLA_TILE + sl];
+      const int p0 = (it % tpp) * MLA_TILE;
+      const bool valid = p0 + sl < P && pos >= 0 && pos <= cur;
+      float mx = valid ? s : PD_NEG_INF;
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      l = l * alpha + psum;
+      for (int d = 8; d > 0; d >>= 1)           // the head's 16 lanes
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+      const float m_new = fmaxf(m, mx);
+      const float p = valid ? pd_ex2(s - m_new) : 0.f;
+      float ps = p;
+#pragma unroll
+      for (int d = 8; d > 0; d >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, d);
+      const float a = pd_ex2(m - m_new);
+      l = l * a + ps;
       m = m_new;
+      split_bf16(p, phi[hh * MLA_PROW + sl], plo[hh * MLA_PROW + sl]);
+      if (sl == 0) alpha_s[hh] = a;
+    }
+    __syncthreads();
 
-      // acc[hh] = acc[hh] * alpha + sum_s p[hh][s] * ckv[s][lane's columns]
-      const float a0 = __shfl_sync(0xffffffffu, alpha, 0);
-      const float a1 = __shfl_sync(0xffffffffu, alpha, 16);
+    // acc = acc * alpha + p_hi . ckv + p_lo . ckv over the warp's columns
+    {
+      const float a0 = alpha_s[g], a1 = alpha_s[g + 8];
 #pragma unroll
-      for (int i = 0; i < NCH; ++i)
+      for (int n = 0; n < 8; ++n) {
+        acc[n][0] *= a0; acc[n][1] *= a0;
+        acc[n][2] *= a1; acc[n][3] *= a1;
+      }
+      uint32_t ph[4], pl[4];
+      ldsm_x4(ph, phi + a_row * MLA_PROW + a_col);
+      ldsm_x4(pl, plo + a_row * MLA_PROW + a_col);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          acc[0][i][e] *= a0;
-          acc[1][i][e] *= a1;
-        }
-      for (int s = 0; s < ns; ++s) {
-        const float p0 = __shfl_sync(0xffffffffu, pv, s);
-        const float p1 = __shfl_sync(0xffffffffu, pv, 16 + s);
-#pragma unroll
-        for (int i = 0; i < NCH; ++i) {
-          float f[8];
-          unpack8(*reinterpret_cast<const uint4*>(
-                      ck + s * R + 256 * i + 8 * lane), f);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            acc[0][i][e] += p0 * f[e];
-            acc[1][i][e] += p1 * f[e];
-          }
-        }
+      for (int j = 0; j < 4; ++j) {
+        const int d0 = 64 * warp + 16 * j;
+        uint32_t vb[4];
+        ldsm_x4_t(vb, tile + a_row * MLA_ROW + d0 + a_col);
+        mma16816(acc[2 * j], ph, vb[0], vb[1]);
+        mma16816(acc[2 * j + 1], ph, vb[2], vb[3]);
+        mma16816(acc[2 * j], pl, vb[0], vb[1]);
+        mma16816(acc[2 * j + 1], pl, vb[2], vb[3]);
       }
     }
+    __syncthreads();                  // stage st is consumed
   }
+  pd_cp_async_wait<0>();
+  __syncthreads();                    // q is no longer read (or written)
 
+  // this block's state into its shared memory (acc over the q rows)
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int h = h0 + hh;
-    const float mh = __shfl_sync(0xffffffffu, m, 16 * hh);
-    const float lh = __shfl_sync(0xffffffffu, l, 16 * hh);
-    if (h >= H) continue;
-    const size_t unit = ((size_t)b * splits + split) * H + h;
-    if (lane == 0) {
-      part_ml[unit * 2] = mh;
-      part_ml[unit * 2 + 1] = lh;
+  for (int n = 0; n < 8; ++n) {
+    const int col = 64 * warp + 8 * n + 2 * tq;
+    *reinterpret_cast<float2*>(acc_s + g * MLA_R + col) =
+        make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(acc_s + (g + 8) * MLA_R + col) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+  if (t % MLA_TILE == 0) {
+    ml[2 * (t / MLA_TILE)] = m;
+    ml[2 * (t / MLA_TILE) + 1] = l;
+  }
+  cluster.sync();
+
+  // rank r: columns [64 r, 64 r + 64) of every head, over the ranks in
+  // order; thread (head t / 16, 4 columns, one 16-byte load a rank).
+  // Every rank's (m, l) and columns are loaded together, then folded in
+  // rank order.
+  {
+    static_assert(MLA_R == 64 * MLA_CL, "4 columns a thread");
+    const int hh = t / 16, c0 = 64 * rank + 4 * (t % 16);
+    float mr[MLA_CL], lr[MLA_CL];
+    float4 vr[MLA_CL];
+#pragma unroll
+    for (int r = 0; r < MLA_CL; ++r) {
+      const float* rml = cluster.map_shared_rank(ml, r);
+      mr[r] = rml[2 * hh];
+      lr[r] = rml[2 * hh + 1];
+      vr[r] = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(acc_s, r) + hh * MLA_R + c0);
     }
-    if (lh > 0.f) {                       // pass 2 skips a split with l = 0
+    float mx = PD_NEG_INF;
 #pragma unroll
-      for (int i = 0; i < NCH; ++i) {
-        float4* dst = reinterpret_cast<float4*>(part_acc + unit * R +
-                                                256 * i + 8 * lane);
-        dst[0] = make_float4(acc[hh][i][0], acc[hh][i][1], acc[hh][i][2],
-                             acc[hh][i][3]);
-        dst[1] = make_float4(acc[hh][i][4], acc[hh][i][5], acc[hh][i][6],
-                             acc[hh][i][7]);
-      }
+    for (int r = 0; r < MLA_CL; ++r)
+      if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
+    float L = 0.f;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < MLA_CL; ++r) {
+      if (!(lr[r] > 0.f)) continue;     // no valid slot: counts for nothing
+      const float w = pd_ex2(mr[r] - mx);
+      L += lr[r] * w;
+      A.x += w * vr[r].x; A.y += w * vr[r].y;
+      A.z += w * vr[r].z; A.w += w * vr[r].w;
+    }
+    if (hh < H) {
+      const float inv = 1.f / fmaxf(L, 1e-30f);
+      *reinterpret_cast<float4*>(out + ((size_t)b * H + hh) * MLA_R + c0) =
+          make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
     }
   }
+  cluster.sync();                     // the others have read this block
 }
 
-// Pass 2: merge the splits of (row b, head h); thread t owns columns
-// 4t .. 4t + 3.
-template <int R>
-__global__ void __launch_bounds__(R / 4)
-mla_merge_kernel(const float* __restrict__ part_acc,
-                 const float* __restrict__ part_ml, float* __restrict__ out,
-                 int H, int splits) {
-  const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
-  const size_t unit0 = (size_t)b * splits * H + h;   // split s: + s * H
-  float mx = MLA_NEG_INF;
-  for (int s = 0; s < splits; ++s) {
-    const size_t u = unit0 + (size_t)s * H;
-    if (part_ml[u * 2 + 1] > 0.f) mx = fmaxf(mx, part_ml[u * 2]);
-  }
-  float L = 0.f;
-  float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < splits; ++s) {
-    const size_t u = unit0 + (size_t)s * H;
-    const float ls = part_ml[u * 2 + 1];
-    if (!(ls > 0.f)) continue;
-    const float w = __expf(part_ml[u * 2] - mx);
-    const float4 v = reinterpret_cast<const float4*>(part_acc + u * R)[t];
-    L += ls * w;
-    A.x += w * v.x; A.y += w * v.y; A.z += w * v.z; A.w += w * v.w;
-  }
-  const float inv = 1.f / fmaxf(L, 1e-30f);
-  reinterpret_cast<float4*>(out + ((size_t)b * H + h) * R)[t] =
-      make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
-}
-
-// part: B * splits * H * (R + 2) floats of scratch (the accumulators, then
-// (m, l) pairs).  Returns cudaGetLastError() after the launches
-// (cudaErrorInvalidValue for a shape without an instantiation).
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// a shape without an instantiation, or a table too wide for the page
+// list).  One launch; no scratch.
 extern "C" int flash_decode_paged_mla_launch(
     const void* q_lat, const void* q_rope, const void* ckvp,
     const void* kropep, const void* posp, const void* bt, const void* cur_pos,
-    void* part, void* out, int B, int H, int P, int n_blk, int bt_stride,
-    int splits, int per, float scale, void* stream) {
-  constexpr int R = 512, DR = 64;
-  if (H < 1 || H > MLA_HMAX || P < 1 || splits < 1 || per < 1)
+    void* out, int B, int H, int P, int n_blk, int bt_stride, float scale,
+    void* stream) {
+  if (H < 1 || H > MLA_H || P < 1 || n_blk < 0 || B < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  float* acc = static_cast<float*>(part);
-  float* ml = acc + (size_t)B * splits * H * R;
-  mla_partial_kernel<R, DR><<<dim3(splits, B), MLA_NT, 0, s>>>(
+  const size_t list_bytes = 4 * (size_t)((n_blk + MLA_CL - 1) / MLA_CL + 1);
+  const size_t smem = MLA_FIXED_BYTES + list_bytes;
+  if (smem > MLA_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mla_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MLA_SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  mla_decode_kernel<<<dim3(MLA_CL, B), MLA_NT, smem,
+                      reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q_lat), static_cast<const float*>(q_rope),
       static_cast<const __nv_bfloat16*>(ckvp),
       static_cast<const __nv_bfloat16*>(kropep),
       static_cast<const int*>(posp), static_cast<const int*>(bt), bt_stride,
-      static_cast<const int*>(cur_pos), acc, ml, H, P, n_blk, splits, per,
-      scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mla_merge_kernel<R><<<dim3(H, B), R / 4, 0, s>>>(
-      acc, ml, static_cast<float*>(out), H, splits);
+      static_cast<const int*>(cur_pos), static_cast<float*>(out), H, P, n_blk,
+      PD_LOG2E * scale);
   return (int)cudaGetLastError();
 }

@@ -8,17 +8,50 @@ kp / vp [N, P, Hkv, hd]; posp [N, P] int32; block_tables [B, n_blk] int32
 [B] int32 -> [B, Hq, hd].  A slot counts iff ``0 <= posp <= cur_pos``
 (and ``posp > cur_pos - window`` with a window); trash-page entries count
 for nothing.  A query with no valid slot gets zeros.
+
+Both kernels split a row's table columns by constants -- GQA into chunks
+of ``CHUNK_PAGES`` columns, MLA over a cluster of 8 blocks at that rank
+stride -- and merge the pieces in a fixed order inside the one launch, so a
+row's output is bitwise the same whatever the batch around it and whatever
+the table view's width.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, on_card
 from repro_torch.kernels.flash_decode import NEG_INF, flash_decode_plain
+
+
+#: table columns a GQA chunk takes (``CHUNK_PAGES`` in the kernel source);
+#: a row's split depends on this constant alone, never on B or n_blk
+CHUNK_PAGES = 2
+
+
+def n_chunks(n_blk: int) -> int:
+    """Chunks in the GQA kernel's grid for a table of ``n_blk`` columns:
+    chunk c holds columns [c * CHUNK_PAGES, (c + 1) * CHUNK_PAGES); at least
+    one, so an empty table still writes its zeros."""
+    return max(1, -(-n_blk // CHUNK_PAGES))
+
+
+#: per (device, stream): the GQA kernel's arrival counters, one int32 per
+#: (batch row, kv head), zero between calls (the last block of each row and
+#: head resets its own), so no call pays a launch to clear them
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def flash_decode_paged_plain(q, kp, vp, posp, block_tables, cur_pos, *,
@@ -62,12 +95,22 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
                          "with unit column stride")
     if window is not None and window <= 0:
         raise ValueError(f"{name}: window={window} must be positive")
+    for arg, t in (("kp", kp), ("vp", vp)):      # 16-byte async copies
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
     out = torch.empty((b, hq, hd), dtype=bf16, device=q.device)
-    fn = _build.function(name, "flash_decode_paged_launch", 7, 8)
+    nc = n_chunks(n_blk)
+    # scratch for rows that span several chunks: each chunk's acc
+    # [B, Hkv, nc, G, hd], then its (max, sum) [.., G, 2]
+    part = torch.empty(b * hkv * nc * g * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counters(q.device, stream, b * hkv)
+    fn = _build.function(name, "flash_decode_paged_launch", 9, 9)
     err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), posp.data_ptr(),
              block_tables.data_ptr(), cur_pos.data_ptr(), out.data_ptr(),
-             b, hq, hkv, hd, p, n_blk, block_tables.stride(0),
-             window or 0, torch.cuda.current_stream(q.device).cuda_stream)
+             part.data_ptr(), counters.data_ptr(), b, hq, hkv, hd, p, n_blk,
+             block_tables.stride(0), window or 0, nc, stream)
     _build.check(name, err)
     flash_decode_paged.launches += 1
     return out
@@ -79,12 +122,6 @@ flash_decode_paged.launches = 0
 # --------------------------------------------------------------------------- #
 # MLA: weight-absorbed latent decode
 # --------------------------------------------------------------------------- #
-
-#: blocks the MLA kernel aims for across the batch (two per SM of the
-#: H100's 132): the pages of a row are split between up to this many / B
-#: blocks, each holding a partial softmax state that a second pass merges
-MLA_TARGET_BLOCKS = 264
-
 
 def flash_decode_paged_mla_plain(q_lat, q_rope, ckvp, kropep, posp,
                                  block_tables, cur_pos, *, scale: float):
@@ -102,15 +139,6 @@ def flash_decode_paged_mla_plain(q_lat, q_rope, ckvp, kropep, posp,
     s = torch.where(valid[:, None, :], s, NEG_INF)
     probs = torch.softmax(s, dim=-1) * valid.any(-1)[:, None, None]
     return torch.einsum("bhk,bkr->bhr", probs, ckv)
-
-
-def mla_splits(b: int, n_blk: int):
-    """(blocks per row, table columns per block) of the MLA kernel's first
-    pass: at least two columns a block where the table has them, and about
-    ``MLA_TARGET_BLOCKS`` blocks in all."""
-    splits = max(1, min(-(-n_blk // 2), -(-MLA_TARGET_BLOCKS // b)))
-    per = -(-n_blk // splits)
-    return -(-n_blk // per), per
 
 
 def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
@@ -151,17 +179,12 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
                    ("kropep", kropep)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
-    splits, per = mla_splits(b, n_blk)
-    # scratch: the splits' accumulators [B, splits, H, r], then their
-    # (max, sum) pairs [B, splits, H, 2]
-    part = torch.empty(b * splits * h * (r + 2), dtype=f32,
-                       device=q_lat.device)
     out = torch.empty((b, h, r), dtype=f32, device=q_lat.device)
-    fn = _build.function(name, "flash_decode_paged_mla_launch", 9, 7, 1)
+    fn = _build.function(name, "flash_decode_paged_mla_launch", 8, 5, 1)
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckvp.data_ptr(),
              kropep.data_ptr(), posp.data_ptr(), block_tables.data_ptr(),
-             cur_pos.data_ptr(), part.data_ptr(), out.data_ptr(),
-             b, h, p, n_blk, block_tables.stride(0), splits, per, scale,
+             cur_pos.data_ptr(), out.data_ptr(), b, h, p, n_blk,
+             block_tables.stride(0), scale,
              torch.cuda.current_stream(q_lat.device).cuda_stream)
     _build.check(name, err)
     flash_decode_paged_mla.launches += 1

@@ -8,8 +8,15 @@
   kernel path) and ``"train"`` modes against the reference function, on the
   same paged pool; the pool each side writes must be identical too.
 
+* The edges the kernel's split of a row into chunks of table columns
+  creates (a row straddling chunk boundaries, a chunk of trash columns
+  only, a window that empties the early chunks, G 8, an idle row), plain
+  against Pallas; the chunks cover every column the same way at any
+  table width.
+
 Tolerance: f32, ``rtol=atol=1e-5`` (same math, another summation order).
-The card-only test holds the CUDA kernel against its plain version.
+The card-only tests hold the CUDA kernel against its plain version, and a
+row's output bitwise alone and in a batch at a wider table view.
 """
 
 import numpy as np
@@ -66,6 +73,77 @@ def test_plain_paged_decode_matches_pallas(lens, n_blk, live, window, hq, hkv):
         torch.from_numpy(table)[:, :live], torch.from_numpy(cur),
         window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _holes(table, holes):
+    """Point the given (row, column) entries at trash page 0."""
+    table = table.copy()
+    for r, j in holes:
+        table[r, j] = 0
+    return table
+
+
+# (lens, n_blk, live, window, hq, hkv, holes): chunks are 2 table columns
+SPLIT_EDGES = {
+    # row 0 spans chunks 0-3 and ends one page past a chunk boundary
+    "straddle": ([57, 9, 17], 8, 8, None, 4, 2, ()),
+    # chunk 1 of row 0 holds only trash columns, row 1 has a hole too
+    "trash_chunk": ([60, 40], 8, 8, None, 2, 2, ((0, 2), (0, 3), (1, 1))),
+    # the ring has wrapped and the window leaves only the last pages valid
+    "window_empties_early": ([100, 63, 30], 8, 8, 12, 4, 4, ()),
+    # G 8 (one kv head for eight query heads) over several chunks
+    "g8": ([41, 23], 6, 6, None, 8, 1, ()),
+    # an idle row between live ones, on a truncated view
+    "idle_row": ([33, 0, 12], 8, 5, None, 4, 2, ()),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_EDGES))
+def test_plain_paged_decode_split_edges_match_pallas(case):
+    import jax.numpy as jnp
+    from repro.kernels.flash_decode_paged import flash_decode_paged_pallas
+    from repro_torch.kernels import flash_decode_paged
+    lens, n_blk, live, window, hq, hkv, holes = SPLIT_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    hd, p = 16, 8
+    kp, vp, posp, table = build_pool(rng, lens, page_size=p, n_blk=n_blk,
+                                     hkv=hkv, hd=hd)
+    table = _holes(table, holes)
+    q = rng.normal(size=(len(lens), hq, hd)).astype(np.float32)
+    cur = np.array([ln - 1 for ln in lens], np.int32)
+    bt = table[:, :live]
+    want = flash_decode_paged_pallas(
+        *map(jnp.asarray, (q, kp, vp, posp, bt, cur)), window=window,
+        interpret=True)
+    got = flash_decode_paged(
+        *map(torch.from_numpy, (q, kp, vp, posp)),
+        torch.from_numpy(table)[:, :live], torch.from_numpy(cur),
+        window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for r, ln in enumerate(lens):
+        if ln == 0:
+            assert (got[r] == 0).all()
+
+
+@pytest.mark.parametrize("n_blk", [0, 1, 2, 5, 32, 64])
+def test_split_plans_cover_every_column_alike_at_any_width(n_blk):
+    """The kernel's chunks: column j lies in chunk j // CHUNK_PAGES whatever
+    the table's width, the grid's chunks cover every column and none past
+    them, and the wrapper's constant is the kernel source's."""
+    import importlib
+    import pathlib
+    import re
+    # the module (the package re-exports the wrapper under its name)
+    fdp = importlib.import_module("repro_torch.kernels.flash_decode_paged")
+    src = (pathlib.Path(fdp.__file__).parents[1] / "csrc"
+           / "flash_decode_paged.cu").read_text()
+    assert int(re.search(r"#define CHUNK_PAGES (\d+)", src).group(1)) \
+        == fdp.CHUNK_PAGES
+    nc = fdp.n_chunks(n_blk)
+    chunks = {j // fdp.CHUNK_PAGES for j in range(n_blk)}
+    assert nc >= 1 and chunks == set(range(nc if n_blk else 0))
+    for wider in (n_blk + 1, n_blk + 64):       # a wider view adds chunks
+        assert fdp.n_chunks(wider) >= nc        # at the end only
 
 
 def test_plain_paged_decode_idle_row_is_zero():
@@ -155,10 +233,16 @@ def test_gqa_train_mode_and_negative_positions_write_nothing():
     assert pages.sum().item() == 7 and pages[1, 1] == 7
 
 
-@pytest.mark.skipif(not torch.cuda.is_available(),
-                    reason="the CUDA kernels run only on a GPU")
+@pytest.fixture
+def card():
+    """Skips the test unless a CUDA device is present, decided when the
+    test runs (never while the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a GPU")
+
+
 @pytest.mark.parametrize("window,live", [(None, 4), (24, 3)])
-def test_flash_decode_paged_kernel_matches_plain_on_card(window, live):
+def test_flash_decode_paged_kernel_matches_plain_on_card(card, window, live):
     from repro_torch.kernels import flash_decode_paged
     from repro_torch.kernels.flash_decode_paged import \
         flash_decode_paged_plain
@@ -176,3 +260,69 @@ def test_flash_decode_paged_kernel_matches_plain_on_card(window, live):
     want = flash_decode_paged_plain(*args, window=window).float()
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+
+
+def _card_pool(lens, *, n_blk, hkv, hd, hq, seed, holes=()):
+    rng = np.random.default_rng(seed)
+    kp, vp, posp, table = build_pool(rng, lens, page_size=16, n_blk=n_blk,
+                                     hkv=hkv, hd=hd)
+    table = _holes(table, holes)
+    q = rng.normal(size=(len(lens), hq, hd)).astype(np.float32)
+    dev = torch.device("cuda")
+    return ([torch.from_numpy(a).to(dev, torch.bfloat16) for a in (q, kp, vp)]
+            + [torch.from_numpy(a).to(dev) for a in (posp, table)]
+            + [torch.tensor([ln - 1 for ln in lens], dtype=torch.int32,
+                            device=dev)])
+
+
+def _row_close(got, want):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    err = (got - want).norm(dim=-1)
+    ref = want.norm(dim=-1)
+    assert (err <= 1e-2 * ref).all(), (err / ref.clamp(min=1e-30)).max()
+
+
+# (lens, n_blk, hq, hkv, window, holes) at OLMoE's hd 128
+CARD_SPLITS = {
+    # one row of 512 positions: 32 pages, 16 chunks a kv head
+    "one_row_512": ([512], 32, 16, 16, None, ()),
+    # live pages ending one page past a chunk boundary, a trash chunk
+    "past_boundary_trash_chunk": ([16 * 5, 16 * 9, 3], 16, 16, 16, None,
+                                  ((1, 2), (1, 3))),
+    # GQA g=4 with a sliding window over pages
+    "gqa_window": ([500, 300, 17, 0], 32, 16, 4, 100, ()),
+}
+
+
+@pytest.mark.parametrize("case", list(CARD_SPLITS))
+def test_flash_decode_paged_kernel_splits_on_card(card, case):
+    from repro_torch.kernels import flash_decode_paged
+    from repro_torch.kernels.flash_decode_paged import \
+        flash_decode_paged_plain
+    lens, n_blk, hq, hkv, window, holes = CARD_SPLITS[case]
+    args = _card_pool(lens, n_blk=n_blk, hkv=hkv, hd=128, hq=hq, seed=5,
+                      holes=holes)
+    got = flash_decode_paged(*args, window=window)
+    _row_close(got, flash_decode_paged_plain(*args, window=window))
+    for r, ln in enumerate(lens):
+        if ln == 0:
+            assert (got[r] == 0).all()
+
+
+@pytest.mark.parametrize("hq,hkv,window", [(16, 16, None), (16, 4, 100)])
+def test_flash_decode_paged_kernel_rows_are_batch_invariant_on_card(
+        card, hq, hkv, window):
+    """Each row alone at its own live-page width gives the bits it gives in
+    the batch at a 64-column table view."""
+    from repro_torch.kernels import flash_decode_paged
+    lens = [512, 511, 480, 300, 129, 64, 16, 0]
+    q, kp, vp, posp, table, cur = _card_pool(
+        lens, n_blk=64, hkv=hkv, hd=128, hq=hq, seed=9)
+    batch = flash_decode_paged(q, kp, vp, posp, table, cur, window=window)
+    for r, ln in enumerate(lens):
+        live = 1 << (max(1, -(-ln // 16)) - 1).bit_length()  # live_blocks
+        alone = flash_decode_paged(q[r:r + 1], kp, vp, posp,
+                                   table[r:r + 1, :live], cur[r:r + 1],
+                                   window=window)
+        assert torch.equal(alone[0], batch[r]), r

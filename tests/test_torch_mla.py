@@ -5,7 +5,9 @@ JAX reference.
   Pallas kernel in interpret mode and against the reference's gather-form
   oracle, on latent pools the way the engine leaves them: ragged lengths
   crossing pages, trash page 0 in unmapped table entries, an idle row
-  (``cur_pos`` -1, no pages) and a truncated table view.
+  (``cur_pos`` -1, no pages) and a truncated table view; and at the edges
+  of the kernel's split of a row over a cluster's ranks (a row whose
+  columns wrap past the rank stride, trash columns inside a row).
 * ``mla_attention`` against the reference function in train mode, prefill
   into the contiguous cache, chunk on the paged pool, decode on the paged
   pool (the kernel path and the gather path) and decode on the contiguous
@@ -23,8 +25,9 @@ JAX reference.
 
 Tolerance: f32, ``rtol=atol=1e-5`` for the kernel (the same sums in
 another order), ``1e-4`` through attention and the model (products summed
-in another order at every layer).  The card-only test holds the CUDA
-kernel against its plain version in bf16.
+in another order at every layer).  The card-only tests hold the CUDA
+kernel against its plain version in bf16, and a row's output bitwise alone
+and in a batch at a wider table view.
 """
 
 import numpy as np
@@ -87,6 +90,45 @@ def test_plain_mla_decode_matches_pallas_and_ref(lens, n_blk, live):
         scale=scale).numpy()
     np.testing.assert_allclose(got, want, **KTOL)
     np.testing.assert_allclose(got, ref, **KTOL)
+    assert all((got[i] == 0).all() for i, ln in enumerate(lens) if ln == 0)
+
+
+# (lens, n_blk, live, holes): the kernel gives rank r of a row's cluster of
+# 8 the table columns r, r + 8, ...
+MLA_SPLIT_EDGES = {
+    # 19 pages: ranks 0-2 take three columns, the rest two
+    "wraps_rank_stride": ([150, 20], 20, 20, ()),
+    # trash columns inside the rows, one rank with no page at all
+    "trash_columns": ([100, 60], 16, 16, ((0, 1), (0, 9), (0, 4), (1, 2))),
+    # an idle row between live ones, on a truncated view
+    "idle_row": ([70, 0, 9], 12, 10, ()),
+}
+
+
+@pytest.mark.parametrize("case", list(MLA_SPLIT_EDGES))
+def test_plain_mla_decode_split_edges_match_pallas(case):
+    import jax.numpy as jnp
+    from repro.kernels.flash_decode_paged import flash_decode_paged_mla_pallas
+    from repro_torch.kernels import flash_decode_paged_mla
+    lens, n_blk, live, holes = MLA_SPLIT_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    h, r, dr, p, scale = 4, 32, 16, 8, 0.17
+    ckvp, kropep, posp, table = latent_pool(rng, lens, page_size=p,
+                                            n_blk=n_blk, r=r, dr=dr)
+    for row, j in holes:
+        table[row, j] = 0
+    q_lat = rng.normal(size=(len(lens), h, r)).astype(np.float32)
+    q_rope = rng.normal(size=(len(lens), h, dr)).astype(np.float32)
+    cur = np.array([ln - 1 for ln in lens], np.int32)
+    bt = table[:, :live]
+    want = np.asarray(flash_decode_paged_mla_pallas(
+        *[jnp.asarray(a) for a in (q_lat, q_rope, ckvp, kropep, posp, bt,
+                                   cur)], scale=scale, interpret=True))
+    got = flash_decode_paged_mla(
+        *map(torch.from_numpy, (q_lat, q_rope, ckvp, kropep, posp)),
+        torch.from_numpy(table)[:, :live], torch.from_numpy(cur),
+        scale=scale).numpy()
+    np.testing.assert_allclose(got, want, **KTOL)
     assert all((got[i] == 0).all() for i, ln in enumerate(lens) if ln == 0)
 
 
@@ -376,3 +418,50 @@ def test_mla_decode_kernel_matches_plain_on_card(heads):
     assert torch.isfinite(got).all() and (got[2] == 0).all()
     err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp(min=1e-30)
     assert err[[0, 1, 3]].max() <= 1e-3
+
+
+def _mla_card_args(lens, n_blk, heads, seed):
+    rng = np.random.default_rng(seed)
+    ckvp, kropep, posp, table = latent_pool(rng, lens, page_size=16,
+                                            n_blk=n_blk, r=512, dr=64)
+    dev = torch.device("cuda")
+    f32 = [torch.from_numpy(rng.normal(size=(len(lens), heads, w))
+                            .astype(np.float32)).to(dev) for w in (512, 64)]
+    return f32 + [torch.from_numpy(a).to(dev, torch.bfloat16)
+                  for a in (ckvp, kropep)] + [
+        torch.from_numpy(a).to(dev) for a in (posp, table)] + [
+        torch.tensor([ln - 1 for ln in lens], dtype=torch.int32, device=dev)]
+
+
+def test_mla_decode_kernel_one_long_row_on_card():
+    """One row of 512 positions over 32 pages (four a rank), full width."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a GPU")
+    from repro_torch.kernels import flash_decode_paged_mla
+    from repro_torch.kernels.flash_decode_paged import \
+        flash_decode_paged_mla_plain
+    args = _mla_card_args([512], 32, 16, seed=4)
+    got = flash_decode_paged_mla(*args, scale=0.07)
+    want = flash_decode_paged_mla_plain(*args, scale=0.07)
+    assert torch.isfinite(got).all()
+    err = (got - want).norm(dim=-1) / want.norm(dim=-1).clamp(min=1e-30)
+    assert err.max() <= 1e-3
+
+
+def test_mla_decode_kernel_rows_are_batch_invariant_on_card():
+    """Each row alone at its own live-page width gives the bits it gives in
+    the batch at a 64-column table view."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a GPU")
+    from repro_torch.kernels import flash_decode_paged_mla
+    lens = [512, 511, 480, 300, 129, 64, 16, 0]
+    q_lat, q_rope, ckvp, kropep, posp, table, cur = _mla_card_args(
+        lens, 64, 16, seed=8)
+    batch = flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, table,
+                                   cur, scale=0.07)
+    for r, ln in enumerate(lens):
+        live = 1 << (max(1, -(-ln // 16)) - 1).bit_length()  # live_blocks
+        alone = flash_decode_paged_mla(
+            q_lat[r:r + 1], q_rope[r:r + 1], ckvp, kropep, posp,
+            table[r:r + 1, :live], cur[r:r + 1], scale=0.07)
+        assert torch.equal(alone[0], batch[r]), r

@@ -13,10 +13,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               the shapes the main paths give it (``moe_gmm`` also at the
               edges of its tiling -- row tiles of 8, 40 and 128 rows, F
               1056, dead tiles, an expert with no rows -- with its host
-              microseconds a call; ``flash_attention`` also at hd 64, a
-              ragged S of 37 and 200 and strided [B, S, H, hd] views;
-              ``flash_attention`` and
-              ``flash_decode`` also at one GQA shape with a sliding window;
+              microseconds a call, and timed beside the library's grouped
+              GEMM, SwiGLU, grouped GEMM; ``flash_attention`` also at hd
+              64, a ragged S of 37 and 200 and strided [B, S, H, hd]
+              views, and at one GQA shape with a sliding window;
+              ``flash_decode`` also at GQA g=4 under a window over a
+              wrapped ring, on one row of 512 positions and on rows at the
+              edges of its 32-slot chunks, each row of the check and the
+              GQA shape held bit for bit alone against the batch;
               ``flash_decode_paged`` also at GQA g=4 under a window, on one
               row of 512 positions and on rows ending one page past a
               chunk boundary, ``flash_decode_paged_mla`` also on one row
@@ -222,6 +226,15 @@ def compare_rows(name: str, got: torch.Tensor, want: torch.Tensor, **extra):
 
 
 def check_moe_gmm(layer, cfg, x, flush, tag: str = ""):
+    """B1 on the model's routing of ``x``, held to TOL; timed against its
+    plain version and, where the card's torch computes it, the library's
+    form of B1's function (library_ms): the rows of the plan's valid tiles,
+    grouped by expert (offsets from ``tile_expert`` / ``tile_valid``),
+    through ``torch._grouped_mm`` (up, [E, D, 2F]), SwiGLU, then
+    ``torch._grouped_mm`` (down), held row by row to ROW_TOL first (the
+    rows past them are dead tiles, which B1 writes as zeros); else
+    library_ms is null and the row says why."""
+    import torch.nn.functional as F_
     from repro_torch.kernels import moe_gmm
     from repro_torch.kernels.moe_gmm import moe_gmm_plain
     from repro_torch.models.moe import default_block_m, make_sort_plan, \
@@ -240,9 +253,28 @@ def check_moe_gmm(layer, cfg, x, flush, tag: str = ""):
                   f=cfg.moe_d_ff,
                   block_m=plan.block_m, tiles=len(plan.tile_valid),
                   valid_tiles=valid, experts=experts)
-    ms, plain_ms = time_calls((lambda: moe_gmm(*args, block_m=plan.block_m),
-                               lambda: moe_gmm_plain(*args, plan.block_m)),
-                              flush)
+    fns = [lambda: moe_gmm(*args, block_m=plan.block_m),
+           lambda: moe_gmm_plain(*args, plan.block_m)]
+    extra = {"library": "torch._grouped_mm, SwiGLU, torch._grouped_mm"}
+    w1, w2, f = layer["w1"], layer["w2"], cfg.moe_d_ff
+    valid_e = plan.tile_expert[plan.tile_valid.bool()].long()
+    offs = torch.cumsum(torch.bincount(valid_e, minlength=cfg.num_experts)
+                        * plan.block_m, 0).to(torch.int32)
+    live = int(offs[-1])
+
+    def library():
+        h = torch._grouped_mm(xs[:live], w1, offs=offs)
+        return torch._grouped_mm(F_.silu(h[:, :f]) * h[:, f:], w2, offs=offs)
+
+    try:
+        compare_rows(f"moe_gmm{tag}_grouped_mm", library(), want[:live],
+                     rows=live)
+        fns.append(library)
+    except (AttributeError, RuntimeError, AssertionError, ValueError) as e:
+        extra["library_error"] = f"{type(e).__name__}: {e}"[:300]
+        emit({"check": f"moe_gmm{tag}_grouped_mm",
+              "error": extra["library_error"]})
+    ms, plain_ms, *lib = time_calls(fns, flush)
     emit({"check": f"moe_gmm{tag}_host", "ms": ms,
           "host_us_per_call": host_us(
               lambda: moe_gmm(*args, block_m=plan.block_m))})
@@ -252,7 +284,8 @@ def check_moe_gmm(layer, cfg, x, flush, tag: str = ""):
               + experts * 3 * d * f * 2         # routed experts' weights
               + 2 * 4 * len(plan.tile_valid))
     flops = rows * 6 * d * f
-    return err, ms, plain_ms, nbytes, flops
+    return (err, ms, plain_ms, nbytes, flops, lib[0] if lib else None,
+            extra)
 
 
 def check_moe_gmm_edges(layer, cfg, x):
@@ -544,8 +577,10 @@ def _live_blocks(ln: int, p: int = 16) -> int:
 
 
 def bitwise_rows(name, call, lens, args_of_row, batch_out):
-    """Each row alone, at its own live-page width, must give the bits it
-    gives in the batch (at a wider table view)."""
+    """Each row alone must give the bits it gives in the batch
+    (``args_of_row(r, width)``: row r's arguments; the paged kernels take
+    the row at its own live-page width, against the batch at a wider table
+    view)."""
     for r, ln in enumerate(lens):
         alone = call(*args_of_row(r, _live_blocks(ln)))
         if not torch.equal(alone[0], batch_out[r]):
@@ -742,45 +777,63 @@ def _decode_cache(gen, device, lens, s_buf, hkv, hd):
     return k, v, pos.to(device), cur.to(device)
 
 
+#: B8's shapes (lens, cache slots, query heads a kv head, window): the
+#: OLMoE check (MHA), GQA g=4 over a 200-slot ring that has wrapped under a
+#: 150 window, one row of 512 positions, and rows at the edges of the
+#: 32-slot chunks (1, 31, 32, 33, 64, 65 and 97 slots, an idle row)
+FD_SHAPES = {
+    "olmoe_b8": ([512, 511, 480, 300, 129, 64, 16, 0], 512, 1, None),
+    "gqa_window": ([700, 333, 200, 199, 57, 1, 0, 450], 200, 4, 150),
+    "one_row_512": ([512], 512, 1, None),
+    "chunk_edges": ([1, 31, 32, 33, 64, 65, 97, 0], 512, 1, None),
+}
+
+
 def check_flash_decode(cfg, flush, device):
+    """B8 at OLMoE's widths (16 query heads of 128) on each of FD_SHAPES,
+    each (row, head) held to ROW_TOL; then each row of the check and of the
+    GQA shape alone against the same row in the batch, bit for bit.  Timed
+    against the plain version and, on the MHA shapes, the library's
+    attention with a boolean mask built from pos (library_ms)."""
     from repro_torch.kernels import flash_decode
     from repro_torch.kernels.flash_decode import flash_decode_plain
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
-    hq, hd, b = cfg.num_heads, cfg.head_dim_, 8
-
-    def q():
-        return torch.randn((b, hq, hd), generator=gen, device=device,
-                           dtype=torch.bfloat16)
-
-    lens = [512, 511, 480, 300, 129, 64, 16, 0]         # row 7 is idle
-    k, v, pos, cur = _decode_cache(gen, device, lens, 512,
-                                   cfg.num_kv_heads, hd)
-    main = (q(), k, v, pos, cur)
-    err = compare_rows("flash_decode", flash_decode(*main),
-                  flash_decode_plain(*main), batch=b, heads=hq, slots=512,
-                  live_positions=sum(lens))
-    # GQA g=4 over a 200-slot ring that has wrapped, under a 150 window
-    wlens = [700, 333, 200, 199, 57, 1, 0, 450]
-    gqa = (q(),) + _decode_cache(gen, device, wlens, 200, hq // 4, hd)
-    err = max(err, compare_rows("flash_decode_gqa_window",
-                           flash_decode(*gqa, window=150),
-                           flash_decode_plain(*gqa, window=150),
-                           batch=b, heads=[hq, hq // 4], slots=200,
-                           window=150))
-    # the library's call: attention with a boolean mask built from pos
-    qm = main[0][:, :, None]
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
+    hq, hd = cfg.num_heads, cfg.head_dim_
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms, plain_ms, lib_ms = time_calls(
-        (lambda: flash_decode(*main), lambda: flash_decode_plain(*main),
-         lambda: sdpa(qm, kt, vt, attn_mask=mask)), flush)
-    live = sum(lens)                  # the walk stops at cur_pos + 1 slots
-    hkv = cfg.num_kv_heads
-    nbytes = live * hkv * hd * 2 * 2 + live * 4 + 2 * b * hq * hd * 2 + b * 4
-    flops = 4 * live * hq * hd
-    return err, ms, plain_ms, nbytes, flops, lib_ms
+    per = {}
+    for tag, (lens, s_buf, group, window) in FD_SHAPES.items():
+        b, hkv = len(lens), hq // group
+        q = torch.randn((b, hq, hd), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        k, v, pos, cur = _decode_cache(gen, device, lens, s_buf, hkv, hd)
+        args = (q, k, v, pos, cur)
+        got = flash_decode(*args, window=window)
+        err = compare_rows(f"flash_decode_{tag}", got,
+                           flash_decode_plain(*args, window=window),
+                           batch=b, heads=[hq, hkv], slots=s_buf,
+                           window=window, live_positions=sum(lens))
+        if tag in ("olmoe_b8", "gqa_window"):
+            bitwise_rows(
+                f"flash_decode_{tag}_rows",
+                lambda *a: flash_decode(*a, window=window), lens,
+                lambda r, _: tuple(t[r:r + 1] for t in args), got)
+        valid = (pos >= 0) & (pos <= cur[:, None])
+        if window is not None:
+            valid &= pos > cur[:, None] - window
+        fns = [lambda: flash_decode(*args, window=window),
+               lambda: flash_decode_plain(*args, window=window)]
+        if hkv == hq:
+            qm, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+            mask = valid[:, None, None, :]
+            fns.append(lambda: sdpa(qm, kt, vt, attn_mask=mask))
+        ms, plain_ms, *lib = time_calls(fns, flush)
+        live = int(valid.sum())           # the slots the function must read
+        nbytes = (live * hkv * hd * 2 * 2 + live * 4 + 2 * b * hq * hd * 2
+                  + b * 4)
+        per[tag] = (err, ms, plain_ms, nbytes, 4 * live * hq * hd,
+                    lib[0] if lib else None)
+    return per
 
 
 def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
@@ -1132,8 +1185,10 @@ def mla_checks(params, cfg, device):
     timing, shapes = {}, {}
     for lay, c in ((layer, cfg), (lay_p, cfg_p)):
         tag = f"_f{c.moe_d_ff}"
-        _, ms, plain_ms, _, _ = check_moe_gmm(lay, c, x, flush, tag=tag)
-        timing["moe_gmm" + tag] = {"ms": ms, "plain_ms": plain_ms}
+        _, ms, plain_ms, _, _, lib_ms, _ = check_moe_gmm(lay, c, x, flush,
+                                                         tag=tag)
+        timing["moe_gmm" + tag] = {"ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": lib_ms}
         for key, v in check_moe_decode(lay, c, x8, flush, tag).items():
             shapes.setdefault("moe_decode", {})[
                 f"deepseek_f{c.moe_d_ff}_{key}"] = kernel_row(
@@ -1315,10 +1370,12 @@ def main() -> int:
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:74",
             *check_flash_attention(cfg, flush, device)),
-        "flash_decode": kernel_row(
+        # the OLMoE check first, then GQA under a window, one row of 512
+        # positions, rows at the edges of the 32-slot chunks
+        "flash_decode": nested_row(
             "flash_decode", "src/repro_torch/csrc/flash_decode.cu",
             "src/repro/kernels/flash_decode.py:73",
-            *check_flash_decode(cfg, flush, device)),
+            check_flash_decode(cfg, flush, device), "shapes"),
         # int8 first; no single PyTorch call dequantizes and runs the
         # SwiGLU, so library_ms is null: sibling_ms is the bf16 kernel (B1,
         # B3) on the same routing, timed in the same turns

@@ -8,69 +8,120 @@
 // pos > cur_pos - window when a window is set).  A query with no valid slot
 // (an idle batch row) gets zeros; the TPU kernel returns the mean of V
 // there (a uniform softmax over -1e30 scores).  Neither value is ever read.
+// One more promise: a row's output is bitwise the same whatever the other
+// rows of the batch are.
 //
 // What bounds it on the H100: bytes.  Two dot products per cached slot and
-// head; at B 8, 16 kv heads, hd 128 and 512 live slots a call reads
-// 33.6 MB of K and V, about 0.01 ms at 3.35 TB/s.
+// head; at chip_smoke's check (8 rows over 512 slots holding 2012 live
+// positions, 16 kv heads of 128) a call reads 16.5 MB of K and V, 0.0049
+// ms at 3.35 TB/s.
 //
-// Design.  One CUDA block per (batch row, kv head), addressing the slots
-// directly (the paged kernel, flash_decode_paged.cu, splits a row's pages
-// over blocks instead); the block's 8 warps take runs of 4 slots in turn
-// (warp w reads slots 4w .. 4w + 3, then 4w + 32 ...), each keeping its
-// own online-softmax state in registers, and merge once at the end
-// (flash_decode_common.cuh).
-// Without a window a slot's index is pos % S with every pos < S, so no
-// slot past cur_pos can hold a valid position and the walk stops at
-// cur_pos + 1 slots; with a window the ring may have wrapped and the walk
-// covers all S slots.
+// Design (split slots, "flash-decoding"), B4's (flash_decode_paged.cu)
+// over a contiguous row.  The TPU walks a row's slots in order on one
+// core.  Here the grid is (kv head, chunk, batch row), a chunk being
+// CHUNK_SLOTS slots fixed by a constant.  A row walks n slots: none when
+// cur_pos < 0, all S under a window (the ring may have wrapped), else
+// min(S, cur_pos + 1) (position p lives at slot p % S, so no later slot
+// holds a valid one).  Its live chunks are the first max(1, ceil(n /
+// CHUNK_SLOTS)): a count that follows from cur_pos and S alone, never from
+// B.  A block past them exits after its one load, cur_pos; chunk 0 of a
+// row with n = 0 writes the row's zeros.  A live block issues q, every K
+// and V row of its chunk (16 bytes a thread by cp.async, at
+// ((b * S + slot) * Hkv + h) * hd: no table) and the chunk's positions
+// before it waits on any, then runs the block body it shares with B4
+// (split_decode.cuh): one max, sum and rescale per tile, in base 2; a row
+// with one live chunk has that block write the output, otherwise the last
+// of its blocks to arrive merges the chunks' (m, l, acc) in chunk order,
+// skipping a chunk with no valid slot exactly.  Each step's order is fixed
+// by the chunk index and the thread.  The arrival counters are the
+// buffer B4 uses (kernels/flash_decode.py::_counters): kernels on one
+// stream run one after another and each leaves every counter at zero.
+//
+// On the H100 (NVIDIA H100 80GB HBM3, 700 W; tools/decode_attention_times
+// .py, PERF.md §6), each time with the timer's 0.0054 ms floor: 0.0181 ms
+// at the check against the one-block-a-row design's 0.0316 and SDPA's
+// 0.0334; 0.0122 at one row of 512 positions against 0.0303.  Rows of at
+// most 64 positions pay the merge: 0.0099 against 0.0094 at one row of
+// 64, 0.0112 against 0.0100 at 8 rows up to 64.  What holds it: the same
+// dependent loads and merge as B4, less its table read.
 
-#include "flash_decode_common.cuh"
+#include "split_decode.cuh"
 
-template <int G, int DPL>
-__global__ void __launch_bounds__(FD_NT)
+#define CHUNK_SLOTS 32               // slots a block takes (one tile)
+
+static_assert(CHUNK_SLOTS % SD_TILE == 0, "a chunk is whole tiles");
+
+// a chunk's slots, addressed directly (split_decode.cuh)
+template <int HD>
+struct ContiguousChunk {
+  static constexpr int PER_MASK = 16;  // chunks a merge mask covers
+  static constexpr int BIT = 1;
+  const int* __restrict__ pos_c;       // the position of the chunk's slot 0
+  size_t row0;                         // its K / V row for this kv head
+  int n_here;                          // the chunk's walked slots
+  int Hkv, nlive;
+
+  __device__ __forceinline__ int n_slots() const { return CHUNK_SLOTS; }
+  __device__ __forceinline__ size_t row(int s, bool& ok) const {
+    ok = s < n_here;
+    return ok ? row0 + (size_t)s * Hkv * HD : 0;
+  }
+  __device__ __forceinline__ int pos(int s) const {
+    return s < n_here ? pos_c[s] : -1;
+  }
+  __device__ __forceinline__ int n_units() const { return nlive; }
+  // the row's live chunks are its first nlive (c0 < nlive)
+  __device__ __forceinline__ unsigned live_mask(int c0, int) const {
+    const int k = nlive - c0;
+    return k >= PER_MASK ? (1u << PER_MASK) - 1u : (1u << k) - 1u;
+  }
+};
+
+template <int G, int HD>
+__global__ void __launch_bounds__(SD_NT, 8)
 flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ pos,
                     const int* __restrict__ cur_pos, bf16* __restrict__ out,
-                    int Hkv, int S, int window, float scale) {
-  constexpr int HD = 32 * DPL;
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t q_off = ((size_t)b * Hkv * G + (size_t)h * G) * HD;
+                    float* __restrict__ part, int* __restrict__ counters,
+                    int Hkv, int S, int window, float scale_log2) {
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int t = threadIdx.x;
   const int cur = cur_pos[b];
-  const int n = window > 0 ? S : min(S, cur + 1);   // cur < 0: no walk
-
-  WarpSoftmax<G, DPL> st;
-  st.init(q + q_off, lane, scale);
-  for (int s0 = warp * FD_SLOTS; s0 < n; s0 += FD_NW * FD_SLOTS) {
-    bool valid[FD_SLOTS];
-    size_t row[FD_SLOTS];
-#pragma unroll
-    for (int s = 0; s < FD_SLOTS; ++s) {
-      const int slot = s0 + s;
-      valid[s] = false;
-      if (slot < n) {
-        const int p = pos[(size_t)b * S + slot];
-        valid[s] = p >= 0 && p <= cur && (window <= 0 || p > cur - window);
-      }
-      row[s] = (((size_t)b * S + min(slot, n - 1)) * Hkv + h) * HD;
-    }
-    st.add_rows(k, v, row, valid, lane);
+  const int n = cur < 0 ? 0 : window > 0 ? S : min(S, cur + 1);
+  const int nlive = max(1, (n + CHUNK_SLOTS - 1) / CHUNK_SLOTS);
+  if (c >= nlive) return;            // past the row's walk
+  const size_t o_off = ((size_t)b * Hkv + h) * G * HD;
+  if (n == 0) {                      // no valid slot: chunk 0 writes zeros
+    sd_zeros<G, HD>(out + o_off, t);
+    return;
   }
-  st.merge_store(out + q_off, warp, lane);
+  bf16 qv[SdShape<G, HD>::QPT];
+  sd_load_q<G, HD>(q + o_off, qv, t);
+  const int s0 = c * CHUNK_SLOTS;
+  ContiguousChunk<HD> ch;
+  ch.pos_c = pos + (size_t)b * S + s0;
+  ch.row0 = (((size_t)b * S + s0) * Hkv + h) * HD;
+  ch.n_here = min(CHUNK_SLOTS, n - s0);
+  ch.Hkv = Hkv;
+  ch.nlive = nlive;
+  sd_chunk<G, HD>(ch, qv, k, v, cur, window, scale_log2, nlive,
+                  out + o_off, part, counters);
 }
 
 template <int G, int DPL>
 struct Launch {
   static int run(dim3 grid, cudaStream_t s, const void* q, const void* k,
                  const void* v, const void* pos, const void* cur_pos,
-                 void* out, int Hkv, int S, int window, float scale) {
+                 void* out, void* part, void* counters, int Hkv, int S,
+                 int window, float scale_log2) {
     // registers and the static shared memory hold G * DPL <= 16
     if constexpr (G * DPL <= 16) {
-      flash_decode_kernel<G, DPL><<<grid, FD_NT, 0, s>>>(
+      flash_decode_kernel<G, 32 * DPL><<<grid, SD_NT, 0, s>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const int*>(pos),
-          static_cast<const int*>(cur_pos), static_cast<bf16*>(out), Hkv, S,
-          window, scale);
+          static_cast<const int*>(cur_pos), static_cast<bf16*>(out),
+          static_cast<float*>(part), static_cast<int*>(counters), Hkv, S,
+          window, scale_log2);
       return 0;
     } else {
       return (int)cudaErrorInvalidValue;
@@ -78,19 +129,26 @@ struct Launch {
   }
 };
 
-// Returns cudaGetLastError() after launch (cudaErrorInvalidValue for a
-// head group or head size without an instantiation).  window <= 0: none.
+// part: scratch of B * Hkv * n_chunks * (Hq / Hkv) * (hd + 2) floats;
+// counters: B * Hkv int32, zero before the first call (each call leaves
+// them zero); n_chunks = ceil(S / CHUNK_SLOTS).  Returns
+// cudaGetLastError() after launch (cudaErrorInvalidValue for a head group
+// or head size without an instantiation, or another n_chunks).
+// window <= 0: none.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* pos,
-                                   const void* cur_pos, void* out, int B,
-                                   int Hq, int Hkv, int hd, int S, int window,
-                                   void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || hd % 32 != 0 || S <= 0)
+                                   const void* cur_pos, void* out,
+                                   void* part, void* counters, int B, int Hq,
+                                   int Hkv, int hd, int S, int window,
+                                   int n_chunks, void* stream) {
+  if (Hkv <= 0 || Hq % Hkv != 0 || hd % 32 != 0 || S <= 0 ||
+      n_chunks != (S + CHUNK_SLOTS - 1) / CHUNK_SLOTS)
     return (int)cudaErrorInvalidValue;
-  const float scale = 1.0f / sqrtf((float)hd);
+  const float scale_log2 = PD_LOG2E / sqrtf((float)hd);
   const int err = fd_dispatch<Launch>(
-      Hq / Hkv, hd / 32, dim3(B, Hkv), reinterpret_cast<cudaStream_t>(stream),
-      q, k, v, pos, cur_pos, out, Hkv, S, window, scale);
+      Hq / Hkv, hd / 32, dim3(Hkv, n_chunks, B),
+      reinterpret_cast<cudaStream_t>(stream), q, k, v, pos, cur_pos, out,
+      part, counters, Hkv, S, window, scale_log2);
   if (err) return err;
   return (int)cudaGetLastError();
 }

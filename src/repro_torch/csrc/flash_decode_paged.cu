@@ -24,20 +24,17 @@
 // the check, 16 at one row of 512 positions) and a row's split never
 // depends on B or n_blk.  A block reads the row's table once (one load a
 // lane), counting the row's live chunks; a block whose columns are all
-// trash exits there.  A live block issues every K and V row of its chunk
-// (TILE slots, 16 bytes a thread by cp.async) and the slots' positions
-// before it uses any, then: partial scores with one lane a slot and one
-// warp a quarter of hd, summed over the quarters in a fixed order; one max,
-// one sum and one rescale per tile; P.V with one thread a pair of head
-// dims.  A row whose live pages lie in one chunk has that block write the
-// output.  Otherwise each live block stores its (m, l, acc) in scratch,
-// and the last of the row's live blocks to arrive (an atomic count in a
-// persistent buffer, reset to 0 by that block) merges the live chunks in
-// chunk order, MG chunks' partials loaded at once, skipping a chunk with
-// no valid slot exactly.  Each step's order is fixed by the chunk index
-// and the thread, so the output depends only on the row's own table
-// columns.  G (query heads per kv head) in {1, 2, 4, 8} and hd in
-// {32, 64, 128, 256} are template parameters, G * hd / 32 <= 16.
+// trash exits there.  A live block walks its chunk and merges through
+// the block body it shares with flash_decode.cu (split_decode.cuh): every
+// K and V row of the chunk and the slots' positions in flight before any
+// is used, one max, sum and rescale per tile, and, for a row with several
+// live chunks, a merge of their (m, l, acc) in chunk order by the last of
+// its blocks to arrive (an arrival counter in a persistent buffer, reset
+// by that block), skipping a chunk with no valid slot exactly.  Each
+// step's order is fixed by the chunk index and the thread, so the output
+// depends only on the row's own table columns.  G (query heads per kv
+// head) in {1, 2, 4, 8} and hd in {32, 64, 128, 256} are template
+// parameters, G * hd / 32 <= 16.
 //
 // On the H100 at the check (8 rows, 127 pages) a call takes about 0.019 ms
 // against the one-block-a-row design's 0.033, and 0.012 at one row of 512
@@ -48,14 +45,9 @@
 // units with the next unit's loads in flight, and clusters merging
 // through distributed shared memory, were slower (PERF.md).
 
-#include "flash_decode_common.cuh"
-#include "paged_decode.cuh"
+#include "split_decode.cuh"
 
-#define FDP_NT 128                   // threads a block
-#define FDP_NW (FDP_NT / 32)
 #define CHUNK_PAGES 2                // table columns a block takes (divides 32)
-#define FDP_TILE 32                  // slots a tile: one lane each for scores
-#define FDP_PAD 8                    // bf16 of padding a shared-memory row
 
 // bit i of the result (i a multiple of CHUNK_PAGES): the chunk that starts
 // at column base + i holds a page, given bit j of m = column base + j does
@@ -78,8 +70,45 @@ __device__ __forceinline__ unsigned live_chunks(const int* __restrict__ row_bt,
   return chunk_bits(__ballot_sync(0xffffffffu, live));
 }
 
+// a chunk's slots through its CHUNK_PAGES table pages (split_decode.cuh)
+template <int HD>
+struct PagedChunk {
+  static constexpr int PER_MASK = 32 / CHUNK_PAGES;   // a ballot's chunks
+  static constexpr int BIT = CHUNK_PAGES;
+  int pages[CHUNK_PAGES];
+  const int* __restrict__ posp;
+  const int* __restrict__ row_bt;
+  int P, Hkv, h, n_blk;
+
+  __device__ __forceinline__ int n_slots() const { return CHUNK_PAGES * P; }
+  __device__ __forceinline__ int page_of(int slot) const {
+    const int col = slot / P;
+    int page = TRASH_PAGE;
+#pragma unroll
+    for (int k = 0; k < CHUNK_PAGES; ++k)
+      if (col == k) page = pages[k];
+    return page;
+  }
+  __device__ __forceinline__ size_t row(int slot, bool& ok) const {
+    const int page = page_of(slot);
+    ok = slot < n_slots() && page != TRASH_PAGE;
+    return ok ? (((size_t)page * P + slot % P) * Hkv + h) * HD : 0;
+  }
+  __device__ __forceinline__ int pos(int slot) const {
+    const int page = page_of(slot);
+    const bool ok = slot < n_slots() && page != TRASH_PAGE;
+    return ok ? posp[(size_t)page * P + slot % P] : -1;
+  }
+  __device__ __forceinline__ int n_units() const {
+    return (n_blk + CHUNK_PAGES - 1) / CHUNK_PAGES;
+  }
+  __device__ __forceinline__ unsigned live_mask(int c0, int lane) const {
+    return live_chunks(row_bt, c0 * CHUNK_PAGES, n_blk, lane);
+  }
+};
+
 template <int G, int HD>
-__global__ void __launch_bounds__(FDP_NT, 8)
+__global__ void __launch_bounds__(SD_NT, 8)
 flash_decode_paged_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ kp,
                           const bf16* __restrict__ vp,
@@ -89,267 +118,48 @@ flash_decode_paged_kernel(const bf16* __restrict__ q,
                           bf16* __restrict__ out, float* __restrict__ part,
                           int* __restrict__ counters, int Hkv, int P,
                           int n_blk, int window, float scale_log2) {
-  constexpr int ROW = HD + FDP_PAD;
-  constexpr int CPR = HD / 8;        // 16-byte pieces of a K or V row
-  constexpr int NSG = 256 / HD;      // slot groups of the P.V pass
-  constexpr int QD = HD / FDP_NW;    // head dims of a score warp
-  __shared__ __align__(16) bf16 ks[FDP_TILE * ROW];
-  __shared__ __align__(16) bf16 vs[FDP_TILE * ROW];
-  __shared__ __align__(16) float qs[G * HD];
-  __shared__ float sp[FDP_NW][G][FDP_TILE];  // partial scores by quarter
-  __shared__ float pr[G][FDP_TILE];          // probabilities
-  __shared__ int valid_s[FDP_TILE];
-  __shared__ float alpha_s[G], m_s[G], l_s[G];
-  __shared__ float red[NSG][G][HD];          // the slot groups' acc
-  __shared__ int last_s;
-
   const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int* row_bt = bt + (size_t)b * bt_stride;
+  const int t = threadIdx.x, lane = t % 32;
   const size_t o_off = ((size_t)b * Hkv + h) * G * HD;
 
   // loads that need no table entry go first, to overlap the table's
-  constexpr int QPT = (G * HD + FDP_NT - 1) / FDP_NT;  // q values a thread
   const int cur = cur_pos[b];
-  bf16 qv[QPT];
-#pragma unroll
-  for (int k = 0; k < QPT; ++k)
-    if (t + k * FDP_NT < G * HD) qv[k] = q[o_off + t + k * FDP_NT];
+  bf16 qv[SdShape<G, HD>::QPT];
+  sd_load_q<G, HD>(q + o_off, qv, t);
 
   // the row's table, 32 columns a pass (one load a lane): the block's own
   // pages, and how many chunks of the row hold a page (every warp alike)
-  int pages[CHUNK_PAGES];
+  PagedChunk<HD> ch;
+  ch.posp = posp;
+  ch.row_bt = bt + (size_t)b * bt_stride;
+  ch.P = P;
+  ch.Hkv = Hkv;
+  ch.h = h;
+  ch.n_blk = n_blk;
 #pragma unroll
-  for (int i = 0; i < CHUNK_PAGES; ++i) pages[i] = TRASH_PAGE;
+  for (int i = 0; i < CHUNK_PAGES; ++i) ch.pages[i] = TRASH_PAGE;
   int nlive = 0;
   for (int base = 0; base < n_blk; base += 32) {
     const int j = base + lane;
-    const int page = j < n_blk ? row_bt[j] : TRASH_PAGE;
+    const int page = j < n_blk ? ch.row_bt[j] : TRASH_PAGE;
     nlive += __popc(chunk_bits(__ballot_sync(0xffffffffu, page != TRASH_PAGE)));
 #pragma unroll
     for (int i = 0; i < CHUNK_PAGES; ++i) {
       const int col = c * CHUNK_PAGES + i - base;   // the same in every lane
       const int got = __shfl_sync(0xffffffffu, page, col & 31);
-      if (col >= 0 && col < 32) pages[i] = got;
+      if (col >= 0 && col < 32) ch.pages[i] = got;
     }
   }
   bool any = false;
 #pragma unroll
-  for (int i = 0; i < CHUNK_PAGES; ++i) any |= pages[i] != TRASH_PAGE;
+  for (int i = 0; i < CHUNK_PAGES; ++i) any |= ch.pages[i] != TRASH_PAGE;
   if (!any) {                        // a dead chunk; chunk 0 of an idle
     if (nlive == 0 && c == 0)        // row writes its zeros
-      for (int i = t; i < G * HD; i += FDP_NT)
-        out[o_off + i] = __float2bfloat16(0.f);
+      sd_zeros<G, HD>(out + o_off, t);
     return;
   }
-
-#pragma unroll
-  for (int k = 0; k < QPT; ++k)
-    if (t + k * FDP_NT < G * HD)
-      qs[t + k * FDP_NT] = __bfloat162float(qv[k]) * scale_log2;
-  if (t < G) { m_s[t] = PD_NEG_INF; l_s[t] = 0.f; }
-
-  float acc[G][2];
-#pragma unroll
-  for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
-  const int dp = t % (HD / 2), sg = t / (HD / 2);
-  const int n_slots = CHUNK_PAGES * P;
-
-  for (int s0 = 0; s0 < n_slots; s0 += FDP_TILE) {
-    __syncthreads();                 // the previous tile is consumed
-    // every K and V row of the tile in flight at once, then the positions
-#pragma unroll
-    for (int i = 0; i < FDP_TILE * CPR / FDP_NT; ++i) {
-      const int idx = t + i * FDP_NT;
-      const int s = idx / CPR, ch = (idx % CPR) * 8;
-      const int slot = s0 + s, col = slot / P;
-      int page = TRASH_PAGE;
-#pragma unroll
-      for (int k = 0; k < CHUNK_PAGES; ++k)
-        if (col == k) page = pages[k];
-      const bool ok = slot < n_slots && page != TRASH_PAGE;
-      const size_t off =
-          ok ? (((size_t)page * P + slot % P) * Hkv + h) * HD + ch : 0;
-      pd_cp_async16(ks + s * ROW + ch, kp + off, ok);
-      pd_cp_async16(vs + s * ROW + ch, vp + off, ok);
-    }
-    pd_cp_async_commit();
-    if (t < FDP_TILE) {
-      const int slot = s0 + t, col = slot / P;
-      int page = TRASH_PAGE;
-#pragma unroll
-      for (int k = 0; k < CHUNK_PAGES; ++k)
-        if (col == k) page = pages[k];
-      const bool ok = slot < n_slots && page != TRASH_PAGE;
-      const int pos = ok ? posp[(size_t)page * P + slot % P] : -1;
-      valid_s[t] = pos >= 0 && pos <= cur &&
-                   (window <= 0 || pos > cur - window);
-    }
-    pd_cp_async_wait<0>();
-    __syncthreads();
-
-    // partial scores: lane = slot, warp = a quarter of the head dims
-    {
-      float sc[G];
-#pragma unroll
-      for (int g = 0; g < G; ++g) sc[g] = 0.f;
-      const bf16* kr = ks + lane * ROW + warp * QD;
-#pragma unroll
-      for (int u = 0; u < QD / 8; ++u) {
-        float f[8];
-        pd_unpack8(*reinterpret_cast<const uint4*>(kr + 8 * u), f);
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          const float4* qq = reinterpret_cast<const float4*>(
-              qs + g * HD + warp * QD + 8 * u);
-          const float4 a = qq[0], e = qq[1];
-          sc[g] += a.x * f[0] + a.y * f[1] + a.z * f[2] + a.w * f[3] +
-                   e.x * f[4] + e.y * f[5] + e.z * f[6] + e.w * f[7];
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) sp[warp][g][lane] = sc[g];
-    }
-    __syncthreads();
-
-    // one max, one sum and one rescale factor per head for the tile
-    for (int g = warp; g < G; g += FDP_NW) {
-      float s = sp[0][g][lane];
-#pragma unroll
-      for (int w = 1; w < FDP_NW; ++w) s += sp[w][g][lane];
-      const bool valid = valid_s[lane];
-      float mx = valid ? s : PD_NEG_INF;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[g], m_new = fmaxf(m_old, mx);
-      const float p = valid ? pd_ex2(s - m_new) : 0.f;
-      float ps = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, o);
-      pr[g][lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float a = pd_ex2(m_old - m_new);
-        alpha_s[g] = a;
-        l_s[g] = l_s[g] * a + ps;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P.V: thread (slot group sg, dims 2 dp, 2 dp + 1)
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float a = alpha_s[g];
-      acc[g][0] *= a;
-      acc[g][1] *= a;
-    }
-#pragma unroll
-    for (int s = sg; s < FDP_TILE; s += NSG) {
-      uint32_t w = *reinterpret_cast<const uint32_t*>(vs + s * ROW + 2 * dp);
-      if (!valid_s[s]) w = 0u;       // an invalid slot's V may hold anything
-      const float v0 = __uint_as_float(w << 16);
-      const float v1 = __uint_as_float(w & 0xffff0000u);
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float p = pr[g][s];
-        acc[g][0] += p * v0;
-        acc[g][1] += p * v1;
-      }
-    }
-  }
-
-  // the chunk's acc: the slot groups summed in order
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    red[sg][g][2 * dp] = acc[g][0];
-    red[sg][g][2 * dp + 1] = acc[g][1];
-  }
-  __syncthreads();
-  if (nlive == 1) {                  // the row's only live chunk: write out
-    for (int i = t; i < G * HD; i += FDP_NT) {
-      const int g = i / HD, d = i % HD;
-      float A = red[0][g][d];
-#pragma unroll
-      for (int k = 1; k < NSG; ++k) A += red[k][g][d];
-      out[o_off + i] = __float2bfloat16(A / fmaxf(l_s[g], 1e-30f));
-    }
-    return;
-  }
-
-  // scratch: acc [B, Hkv, NC, G, HD], then (m, l) [B, Hkv, NC, G, 2]
-  const int NC = gridDim.y;
-  const size_t head0 = ((size_t)b * Hkv + h) * NC;      // chunk 0's unit
-  float* part_acc = part;
-  float* part_ml = part + (size_t)gridDim.z * Hkv * NC * G * HD;
-  for (int i = t; i < G * HD; i += FDP_NT) {
-    const int g = i / HD, d = i % HD;
-    float A = red[0][g][d];
-#pragma unroll
-    for (int k = 1; k < NSG; ++k) A += red[k][g][d];
-    part_acc[((head0 + c) * G + g) * HD + d] = A;
-  }
-  if (t < G) {
-    part_ml[((head0 + c) * G + t) * 2] = m_s[t];
-    part_ml[((head0 + c) * G + t) * 2 + 1] = l_s[t];
-  }
-  __threadfence();                   // the partial is visible before the count
-  __syncthreads();
-  if (t == 0) {
-    int* cnt = counters + (size_t)b * Hkv + h;
-    const bool last = atomicAdd(cnt, 1) == nlive - 1;
-    if (last) *cnt = 0;              // ready for the next call
-    last_s = last;
-  }
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-
-  // the last block: merge the live chunks in chunk order, MG at a time
-  // (their loads in flight together; the groups are fixed by the column
-  // index, so any table width folds a row's chunks alike); G * HD is a
-  // multiple of 32, so a warp is either all in the loop or all out
-  constexpr int PER_BALLOT = 32 / CHUNK_PAGES;    // chunks of 32 columns
-  constexpr int MG = PER_BALLOT < 8 ? PER_BALLOT : 8;
-  for (int i = t; i < G * HD; i += FDP_NT) {
-    const int g = i / HD, d = i % HD;
-    float m = PD_NEG_INF, L = 0.f, A = 0.f;
-    for (int base = 0; base < n_blk; base += 32) {
-      const unsigned cm = live_chunks(row_bt, base, n_blk, lane);
-      if (cm == 0u) continue;                     // uniform in the warp
-#pragma unroll
-      for (int g0 = 0; g0 < PER_BALLOT; g0 += MG) {
-        float mc[MG], lc[MG], ac[MG];
-#pragma unroll
-        for (int k = 0; k < MG; ++k) {
-          const bool live = (cm >> ((g0 + k) * CHUNK_PAGES)) & 1u;
-          const size_t u = (head0 + base / CHUNK_PAGES + g0 + k) * G + g;
-          mc[k] = live ? __ldcg(part_ml + 2 * u) : PD_NEG_INF;
-          lc[k] = live ? __ldcg(part_ml + 2 * u + 1) : 0.f;
-          ac[k] = live ? __ldcg(part_acc + u * HD + d) : 0.f;
-        }
-        float gm = PD_NEG_INF;
-#pragma unroll
-        for (int k = 0; k < MG; ++k)
-          if (lc[k] > 0.f) gm = fmaxf(gm, mc[k]);
-        const float m_new = fmaxf(m, gm);
-        const float a = pd_ex2(m - m_new);
-        L *= a;
-        A *= a;
-#pragma unroll
-        for (int k = 0; k < MG; ++k) {
-          if (!(lc[k] > 0.f)) continue;   // no valid slot: counts for nothing
-          const float w = pd_ex2(mc[k] - m_new);
-          L += lc[k] * w;
-          A += ac[k] * w;
-        }
-        m = m_new;
-      }
-    }
-    out[o_off + i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
-  }
+  sd_chunk<G, HD>(ch, qv, kp, vp, cur, window, scale_log2, nlive,
+                  out + o_off, part, counters);
 }
 
 template <int G, int DPL>
@@ -360,7 +170,7 @@ struct Launch {
                  void* counters, int Hkv, int P, int n_blk, int window,
                  float scale_log2) {
     if constexpr (G * DPL <= 16) {
-      flash_decode_paged_kernel<G, 32 * DPL><<<grid, FDP_NT, 0, s>>>(
+      flash_decode_paged_kernel<G, 32 * DPL><<<grid, SD_NT, 0, s>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
           static_cast<const bf16*>(vp), static_cast<const int*>(posp),
           static_cast<const int*>(bt), bt_stride,

@@ -5,14 +5,19 @@ flash_decode_pallas``).  q [B, Hq, hd]; k / v [B, S, Hkv, hd]; pos [B, S]
 int32 (-1 = empty slot); cur_pos [B] int32 -> [B, Hq, hd].  A slot counts
 iff ``0 <= pos <= cur_pos`` (and ``pos > cur_pos - window`` with a
 window).  A query with no valid slot gets zeros (the TPU kernel returns
-the mean of V there; the row is never read).  On the H100 it is bound by
-the bytes of K and V: 33.6 MB at B 8, 16 kv heads, hd 128 and 512 live
-slots, 0.010 ms.
+the mean of V there; the row is never read).
+
+The kernel splits a row's slots into chunks of ``CHUNK_SLOTS`` and merges
+them inside the one launch in chunk order (the block body it shares with
+``flash_decode_paged``), so a row's output is bitwise the same whatever
+the batch around it.  On the H100 it is bound by the bytes of K and V:
+16.5 MB at chip_smoke's check (8 rows, 2012 live positions, 16 kv heads
+of 128), 0.0049 ms.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,6 +25,34 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, on_card
 
 NEG_INF = -1e30
+
+#: slots a chunk takes (``CHUNK_SLOTS`` in the kernel source); a row walks
+#: its first max(1, ceil(n / CHUNK_SLOTS)) chunks, n following from its
+#: cur_pos and S alone
+CHUNK_SLOTS = 32
+
+
+def n_chunks(s: int) -> int:
+    """Chunks in the kernel's grid for a cache of ``s`` slots: chunk c
+    holds slots [c * CHUNK_SLOTS, (c + 1) * CHUNK_SLOTS)."""
+    return -(-s // CHUNK_SLOTS)
+
+
+#: per (device, stream): the split decode kernels' arrival counters, one
+#: int32 per (batch row, kv head), zero between calls (the last block of
+#: each row and head resets its own), so no call pays a launch to clear
+#: them; flash_decode and flash_decode_paged share them, since kernels on
+#: one stream run one after another
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def flash_decode_plain(q, k, v, pos, cur_pos, *,
@@ -61,11 +94,21 @@ def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
                          "Hq/Hkv * hd/32 <= 16, S > 0)")
     if window is not None and window <= 0:
         raise ValueError(f"{name}: window={window} must be positive")
+    for arg, t in (("k", k), ("v", v)):          # 16-byte async copies
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
     out = torch.empty((b, hq, hd), dtype=bf16, device=q.device)
-    fn = _build.function(name, "flash_decode_launch", 6, 6)
+    nc = n_chunks(s)
+    # scratch for rows that span several chunks: each chunk's acc
+    # [B, Hkv, nc, G, hd], then its (max, sum) [.., G, 2]
+    part = torch.empty(b * hkv * nc * g * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counters(q.device, stream, b * hkv)
+    fn = _build.function(name, "flash_decode_launch", 8, 7)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-             cur_pos.data_ptr(), out.data_ptr(), b, hq, hkv, hd, s,
-             window or 0, torch.cuda.current_stream(q.device).cuda_stream)
+             cur_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+             counters.data_ptr(), b, hq, hkv, hd, s, window or 0, nc, stream)
     _build.check(name, err)
     flash_decode.launches += 1
     return out

@@ -18,13 +18,14 @@ the table view's width.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, on_card
-from repro_torch.kernels.flash_decode import NEG_INF, flash_decode_plain
+from repro_torch.kernels.flash_decode import NEG_INF, _counters, \
+    flash_decode_plain
 
 
 #: table columns a GQA chunk takes (``CHUNK_PAGES`` in the kernel source);
@@ -37,21 +38,6 @@ def n_chunks(n_blk: int) -> int:
     chunk c holds columns [c * CHUNK_PAGES, (c + 1) * CHUNK_PAGES); at least
     one, so an empty table still writes its zeros."""
     return max(1, -(-n_blk // CHUNK_PAGES))
-
-
-#: per (device, stream): the GQA kernel's arrival counters, one int32 per
-#: (batch row, kv head), zero between calls (the last block of each row and
-#: head resets its own), so no call pays a launch to clear them
-_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    key = (device.index, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
-    return buf
 
 
 def flash_decode_paged_plain(q, kp, vp, posp, block_tables, cur_pos, *,

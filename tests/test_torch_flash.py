@@ -7,9 +7,12 @@ with the JAX reference.
 * The plain version of the ``flash_decode`` kernel against
   ``flash_decode_pallas`` in interpret mode on caches the way the engine
   leaves them (empty ``pos = -1`` tails, a sliding-window ring that has
-  wrapped, an idle row), compared on live rows: a row with no valid slot
-  gets zeros in the port and the mean of V in the reference, and is never
-  read.
+  wrapped, an idle row; rows at the edges of the kernel's 32-slot chunks,
+  window spans across a chunk boundary), compared on live rows: a row
+  with no valid slot gets zeros in the port and the mean of V in the
+  reference, and is never read.  The kernel's split: every slot in one
+  chunk, and every valid slot inside the chunks its row walks, a count
+  that follows from cur_pos and S alone.
 * ``gqa_attention`` in ``"prefill"`` mode (through ``flash_attention``) and
   ``"decode"`` mode over the contiguous cache (through ``flash_decode``)
   against the reference function; the cache each side writes must be
@@ -89,6 +92,78 @@ def test_plain_flash_decode_matches_pallas_on_live_rows(lens, window, hq,
     live = cur >= 0
     np.testing.assert_allclose(got[live], want[live], **TOL)
     assert (got[~live] == 0).all()
+
+
+#: lens, cache slots, window, query heads, kv heads: rows ending at the
+#: edges of the kernel's 32-slot chunks (and an idle row); windows whose
+#: valid span crosses a chunk boundary, inside the ring and wrapped
+CHUNK_EDGES = {
+    "chunk_edges": ([1, 31, 32, 33, 64, 65, 512, 0], 512, None, 4, 2),
+    "window_across_chunk": ([100, 90, 40, 0], 64, 20, 8, 2),
+    "wrapped_window_across_chunk": ([130, 64, 33, 0], 64, 48, 4, 4),
+}
+
+
+@pytest.mark.parametrize("case", list(CHUNK_EDGES))
+def test_plain_flash_decode_chunk_edges_match_pallas(case):
+    import jax.numpy as jnp
+    from repro.kernels.flash_decode import flash_decode_pallas
+    from repro_torch.kernels import flash_decode
+    lens, s_buf, window, hq, hkv = CHUNK_EDGES[case]
+    rng = np.random.default_rng(len(case))
+    hd = 32
+    k, v, pos = build_cache(rng, lens, s_buf=s_buf, hkv=hkv, hd=hd)
+    q = rng.normal(size=(len(lens), hq, hd)).astype(np.float32)
+    cur = np.array([ln - 1 for ln in lens], np.int32)
+    want = np.asarray(flash_decode_pallas(
+        *map(jnp.asarray, (q, k, v, pos, cur)), window=window,
+        interpret=True))
+    got = flash_decode(*map(torch.from_numpy, (q, k, v, pos, cur)),
+                       window=window).numpy()
+    live = cur >= 0
+    np.testing.assert_allclose(got[live], want[live], **TOL)
+    assert (got[~live] == 0).all()
+
+
+def _row_chunks(cur: int, s: int, window) -> int:
+    """The chunks a row walks, by the kernel's rule: n slots (none when
+    cur < 0, all S under a window, else min(S, cur + 1)), then
+    max(1, ceil(n / CHUNK_SLOTS))."""
+    from repro_torch.kernels.flash_decode import CHUNK_SLOTS
+    n = 0 if cur < 0 else s if window is not None else min(s, cur + 1)
+    return max(1, -(-n // CHUNK_SLOTS))
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 512])
+def test_flash_decode_chunks_cover_every_slot_by_cur_pos_and_s(s):
+    """The kernel's chunks: slot j lies in chunk j // CHUNK_SLOTS, the grid's
+    chunks cover every slot and none past them, the wrapper's constant is
+    the kernel source's, and a row's walked chunks -- a count from its
+    cur_pos and S alone -- hold every slot the engine can leave valid."""
+    import importlib
+    import pathlib
+    import re
+    fd = importlib.import_module("repro_torch.kernels.flash_decode")
+    src = (pathlib.Path(fd.__file__).parents[1] / "csrc"
+           / "flash_decode.cu").read_text()
+    assert int(re.search(r"#define CHUNK_SLOTS (\d+)", src).group(1)) \
+        == fd.CHUNK_SLOTS
+    nc = fd.n_chunks(s)
+    assert {j // fd.CHUNK_SLOTS for j in range(s)} == set(range(nc))
+    for window in (None, 5):
+        for ln in range(0, 2 * s + 2):
+            cur = ln - 1
+            walked = _row_chunks(cur, s, window)
+            assert 1 <= walked <= nc
+            # the engine's layout: position p at slot p % S, later wins
+            slot_pos = np.full(s, -1)
+            for p in range(ln):
+                slot_pos[p % s] = p
+            ok = (slot_pos >= 0) & (slot_pos <= cur)
+            if window is not None:
+                ok &= slot_pos > cur - window
+            assert all(j // fd.CHUNK_SLOTS < walked
+                       for j in np.flatnonzero(ok))
 
 
 # --------------------------------------------------------------------------- #
@@ -222,6 +297,10 @@ def test_flash_attention_kernel_reads_strided_views_on_card(card):
 @pytest.mark.parametrize("lens,window,hq,hkv,s_buf", [
     ([40, 7, 0, 64], None, 8, 8, 64),
     ([300, 31, 0, 129], 80, 16, 4, 100),      # wrapped ring, g=4
+    # rows at the edges of the 32-slot chunks; windows across a boundary
+    ([1, 31, 0, 32, 33, 64, 65, 512], None, 16, 16, 512),
+    ([100, 90, 0, 40, 130], 20, 16, 4, 64),
+    ([130, 64, 0, 33], 48, 8, 8, 64),
 ])
 def test_flash_decode_kernel_matches_plain_on_card(card, lens, window, hq,
                                                    hkv, s_buf):
@@ -238,3 +317,24 @@ def test_flash_decode_kernel_matches_plain_on_card(card, lens, window, hq,
     want = flash_decode_plain(*args, window=window)
     _close(got, want)
     assert (got[2] == 0).all()                  # the idle row
+
+
+@pytest.mark.parametrize("hq,hkv,window,lens,s_buf", [
+    (16, 16, None, [512, 511, 480, 300, 129, 64, 16, 0], 512),
+    (16, 4, 150, [700, 333, 200, 199, 57, 1, 0, 450], 200),
+])
+def test_flash_decode_kernel_rows_are_batch_invariant_on_card(
+        card, hq, hkv, window, lens, s_buf):
+    """Each row alone gives the bits it gives in the batch."""
+    from repro_torch.kernels import flash_decode
+    rng = np.random.default_rng(9)
+    k, v, pos = build_cache(rng, lens, s_buf=s_buf, hkv=hkv, hd=128)
+    q = rng.normal(size=(len(lens), hq, 128)).astype(np.float32)
+    args = [torch.from_numpy(a).cuda().bfloat16() for a in (q, k, v)]
+    args += [torch.from_numpy(pos).cuda(),
+             torch.tensor([ln - 1 for ln in lens], dtype=torch.int32,
+                          device="cuda")]
+    batch = flash_decode(*args, window=window)
+    for r in range(len(lens)):
+        alone = flash_decode(*(a[r:r + 1] for a in args), window=window)
+        assert torch.equal(alone[0], batch[r]), r

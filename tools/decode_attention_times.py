@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the paged decode attention kernels flash_decode_paged (B4) and
-flash_decode_paged_mla (B7) of one checkout at serve's decode shapes, with
-flash_decode (B8) as a control, on one NVIDIA GPU.
+"""Time the decode attention kernels flash_decode (B8, contiguous cache),
+flash_decode_paged (B4) and flash_decode_paged_mla (B7) of one checkout at
+serve's decode shapes and at chip_smoke's check shapes, on one NVIDIA GPU,
+with a digest of every output.
 
     python3 tools/decode_attention_times.py [--root DIR] [--tag NAME]
 
@@ -9,27 +10,32 @@ flash_decode (B8) as a control, on one NVIDIA GPU.
 its kernels are built there; the inputs, checks and timers are this
 checkout's ``chip_smoke.py``'s.  Run it in turns with the root of another
 checkout (an older commit unpacked by ``git archive``) in one call on one
-card -- other, this, this, other -- to compare two versions of a kernel.
+card -- other, this, this, other -- to compare two versions of a kernel:
+the inputs are the same in every turn, so equal digests mean equal bits.
 
-Shapes: B4 at OLMoE-1B-7B's widths (16 query and kv heads of 128) and B7
-at DeepSeek-V2-Lite's (16 heads, r 512, dr 64), pages of 16 slots, at a
-batch of 1 and of 8 rows with a table view of 4, 8, 16 and 32 columns
-(``KVCache.live_blocks``): the longest row fills the view, as in a serve,
-and the other rows of 8 hold 7/8, 6/8, ... 1/8 of it.  Each call is held
-to the plain version row by row (ROW_TOL) before it is timed (median of
-CUDA-event times, L2 flushed before every call).  B8 runs chip_smoke's
-check (8 rows over a 512-slot cache, 16 heads), a kernel neither version
-touches.  ``check`` holds chip_smoke's own B4 and B7 checks, every shape
-(timed only: chip_smoke holds the bits of a row alone against the batch,
-which the older designs do not promise).  ``empty_ms`` is the same
-timer around a one-element add: the
-launch, the events and a cold L2 that every time above includes.  Prints
-one JSON line, then the card's name and power limit.
+Shapes: B8 at OLMoE-1B-7B's widths (16 query and kv heads of 128) over a
+512-slot cache, at a batch of 1 and of 8 rows whose longest row holds 64,
+128, 256 and 512 positions (the other rows of 8 hold 7/8, 6/8, ... 1/8 of
+it); B4 at the same widths and B7 at DeepSeek-V2-Lite's (16 heads, r 512,
+dr 64), pages of 16 slots, at a batch of 1 and of 8 rows with a table view
+of 4, 8, 16 and 32 columns (``KVCache.live_blocks``): the longest row fills
+the view, as in a serve, and the other rows of 8 hold 7/8, 6/8, ... 1/8 of
+it.  Each call is held to the plain version row by row (ROW_TOL) before it
+is timed (median of CUDA-event times, L2 flushed before every call; B8
+beside the library's attention with a boolean mask).  ``check`` runs
+chip_smoke's own B8, B4 and B7 checks, every shape (timed only: the bits
+of a row alone against the batch are chip_smoke's to hold).  ``digests``
+holds a sha256 (16 hex digits) of each kernel output held to its plain
+version, by check name.  ``empty_ms`` is the same timer around a
+one-element add: the launch, the events and a cold L2 that every time
+above includes.  Prints one JSON line, then the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -52,8 +58,9 @@ def main() -> int:
         return 1
     import chip_smoke as cs
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, flash_decode_paged, \
-        flash_decode_paged_mla
+    from repro_torch.kernels import _build, flash_decode, \
+        flash_decode_paged, flash_decode_paged_mla
+    from repro_torch.kernels.flash_decode import flash_decode_plain
     from repro_torch.kernels.flash_decode_paged import \
         flash_decode_paged_mla_plain, flash_decode_paged_plain
 
@@ -64,8 +71,17 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     rec = {"tag": args.tag, "root": os.path.abspath(args.root),
-           "build_s": secs, "flash_decode_paged": {},
-           "flash_decode_paged_mla": {}}
+           "build_s": secs, "flash_decode": {}, "flash_decode_paged": {},
+           "flash_decode_paged_mla": {}, "digests": {}}
+    compare_rows = cs.compare_rows
+
+    def digested(name, got, want, **extra):
+        rec["digests"][name] = hashlib.sha256(
+            got.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+            .tobytes()).hexdigest()[:16]
+        return compare_rows(name, got, want, **extra)
+
+    cs.compare_rows = digested
     cfg, cfgm = get_config("olmoe-1b-7b"), get_config("deepseek-v2-lite")
     hq, hd = cfg.num_heads, cfg.head_dim_
     hkv = cfg.num_kv_heads
@@ -77,6 +93,29 @@ def main() -> int:
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b in (1, 8):
+        for longest in (64, 128, 256, 512):
+            tag = f"b{b}_len{longest}"
+            lens = [longest * (b - i) // b for i in range(b)]
+            k, v, pos, cur = cs._decode_cache(gen, dev, lens, 512, hkv, hd)
+            args = (randn(b, hq, hd), k, v, pos, cur)
+            err = cs.compare_rows(f"flash_decode_{tag}", flash_decode(*args),
+                                  flash_decode_plain(*args))
+            qm, kt, vt = args[0][:, :, None], k.transpose(1, 2), \
+                v.transpose(1, 2)
+            mask = ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :]
+            ms, plain_ms, lib_ms = cs.time_calls(
+                (lambda: flash_decode(*args),
+                 lambda: flash_decode_plain(*args),
+                 lambda: sdpa(qm, kt, vt, attn_mask=mask)), flush)
+            live = sum(lens)
+            nbytes = (live * hkv * hd * 4 + live * 4 + 4 * b * hq * hd
+                      + 4 * b)
+            rec["flash_decode"][tag] = cs.kernel_row(
+                "flash_decode", "", "", err, ms, plain_ms, nbytes,
+                4 * live * hq * hd, lib_ms)
 
     for b in (1, 8):
         for live in (4, 8, 16, 32):
@@ -119,11 +158,10 @@ def main() -> int:
         name: {tag: cs.kernel_row(name, "", "", *v)
                for tag, v in fn(c, flush, dev).items()}
         for name, fn, c in (
+            ("flash_decode", cs.check_flash_decode, cfg),
             ("flash_decode_paged", cs.check_flash_decode_paged, cfg),
             ("flash_decode_paged_mla", cs.check_flash_decode_paged_mla,
              cfgm))}
-    rec["flash_decode"] = cs.kernel_row(
-        "flash_decode", "", "", *cs.check_flash_decode(cfg, flush, dev))
     print(json.dumps(rec), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

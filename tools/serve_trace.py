@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Trace a serve of one checkout with torch.profiler and sum the paged
-decode attention kernels' device time, on one NVIDIA GPU.
+"""Trace a serve of one checkout with torch.profiler and sum the decode
+attention kernels' device time, on one NVIDIA GPU.
 
     python3 tools/serve_trace.py [--root DIR] [--tag NAME] -- SERVE_ARGS
 
@@ -8,10 +8,13 @@ Runs ``repro_torch.launch.serve`` of ``DIR/src`` (default: this checkout)
 with ``SERVE_ARGS`` and ``--profile``: the launcher prints its own lines
 (report, device busy and idle share, top kernels), and this tool adds one
 JSON line per traced serve with every CUDA kernel's device time and call
-count whose name starts with one of ATTENTION (the paged GQA kernel, and
-the MLA kernels of either design: one launch or a partial and a merge
-pass) and their sum.  Run it on two checkouts in one call on one card to
-compare their serves, e.g. the paged OLMoE bf16 serve of PERF.md §5:
+count whose name starts with one of ATTENTION (the contiguous and the
+paged GQA kernels, and the MLA kernels of either design: one launch or a
+partial and a merge pass) and their sum.  Run it on two checkouts in one
+call on one card to compare their serves, e.g. the paged OLMoE bf16 serve
+of PERF.md §5 (``--cache-layout contiguous --prefill-chunk 0 --use-flash
+--use-flash-decode`` in place of ``--prefill-chunk 64 --use-kernel`` for
+the contiguous one):
 
     python3 tools/serve_trace.py -- --arch olmoe-1b-7b --requests 8 \\
         --max-new 32 --max-batch 8 --max-len 512 --prompt-lo 32 \\
@@ -27,9 +30,9 @@ import os
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: kernel name prefixes summed (B4; B7 as one kernel or two passes)
-ATTENTION = ("flash_decode_paged_kernel", "mla_decode_kernel",
-             "mla_partial_kernel", "mla_merge_kernel")
+#: kernel name prefixes summed (B8; B4; B7 as one kernel or two passes)
+ATTENTION = ("flash_decode_kernel", "flash_decode_paged_kernel",
+             "mla_decode_kernel", "mla_partial_kernel", "mla_merge_kernel")
 
 
 def main() -> int:

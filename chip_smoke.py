@@ -41,9 +41,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 3. serve   -- OLMoE-1B-7B at full width and depth (16 layers, d 2048, 64
               experts, top-8), bf16, random weights drawn on the card from a
               seed: serve 8 requests on the paged pool with chunked
-              prefill, search a LExI plan on the card (Alg. 1 through the
-              ``moe_gmm`` kernel, then the DP search), register it and serve
-              again.
+              prefill (a warm-up wave of the same requests first, so the
+              measured serve replays a graph for every step), search a
+              LExI plan on the card (Alg. 1 through the ``moe_gmm`` kernel,
+              then the DP search), register it and serve again (after a
+              wave that captures the plan's keys); each serve again on an
+              eager engine (equal greedy tokens, equal launch counts);
+              then ``serve_mixed``: the same 8 requests, alternating base
+              and the plan, in one wave through the bucketed-k mixed-plan
+              steps, twice (the first captures the bucket keys) -- each
+              request's tokens equal its single-plan serve's.
 4. forward -- the paper's Fig. 4 comparison at full width: ``loss_fn``
               through ``flash_attention`` and the config's own ``dense``
               MoE (``moe_ffn``) on 4 x 512 tokens for the baseline, the
@@ -51,7 +58,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               ``intra_prune`` baselines at 0.25 (each pruned copy freed
               before the next is built), and the baseline and the plan on
               ``gmm`` (``moe_gmm``) too; median forward ms over interleaved
-              repeats, and the cross-entropy of each.
+              repeats, and the cross-entropy of each; each forward a CUDA
+              graph, then the same forwards eagerly (their medians beside).
 5. serve_contiguous -- the same 8 requests, baseline and LExI plan, through
               the contiguous layout with whole-prompt prefill
               (``flash_attention``, ``moe_gmm``) and decode
@@ -65,7 +73,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               config's own ``dense`` impl (``moe_ffn``, 16 launches a chunk
               and a decode step; ``flash_decode_paged``), baseline and LExI
               plan: no ``moe_gmm`` and no ``moe_decode`` may launch; the
-              copies the capacity buffers dropped are counted.
+              copies the capacity buffers dropped are counted on the card
+              (in counters every graph adds to at each replay).
 8. serve_mla -- the OLMoE weights freed, DeepSeek-V2-Lite at full width and
               depth (27 layers, MLA with kv_lora_rank 512, a dense first
               layer, 64 experts top-6 plus 2 shared), bf16, random weights
@@ -84,6 +93,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 9. forward_mla -- phase 4 on DeepSeek-V2-Lite (``moe_ffn`` and
               ``moe_gmm``; MLA's train mode attends through the plain
               masked softmax).
+
+Every serve and forward runs its steps as CUDA graphs, captured for each
+specialization key of the runner (``serving/runner.py``) or each forward
+(``launch/forward.py``) and replayed; a replay adds the launches its
+capture recorded to the wrappers' counts, so the counts are the launches
+the card ran.  The paged baseline and plan serves, the contiguous, dense
+and MLA paged baselines run once more on an eager engine, the oracle:
+greedy tokens and launch counts must be equal.  Each serve's line carries
+wall time, tok/s, the wall and host time of a decode step, and the graphs
+held, captured (with their host seconds) and replayed.
 
 Every kernel's launch counter is zeroed just before and read just after
 each step of phases 3-9; each step must launch the kernels it runs.  A
@@ -873,12 +892,59 @@ def nested_row(name, source, replaces, per, nest):
 
 
 def requests(cfg, seed: int, n: int = 8, lo: int = 32, hi: int = 257,
-             max_new: int = 32):
+             max_new: int = 32, plans=None):
     from repro_torch.serving import Request
     rng = np.random.default_rng(seed)
     return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
                                                rng.integers(lo, hi)).astype(np.int32),
-                    max_new_tokens=max_new) for i in range(n)]
+                    max_new_tokens=max_new,
+                    plan=plans[i] if plans else None) for i in range(n)]
+
+
+def serve_record(eng) -> dict:
+    """The last serve's numbers: its stats, the wall time a decode step
+    took and the host's part of it (up to the step's return, before
+    sampling waits for the card), and the runner's CUDA graphs (held, and
+    captured and replayed in this serve, with the host seconds the
+    captures took: each key's eager first step and its capture)."""
+    s = eng.stats
+    steps = max(s["steps"], 1)
+    rec = {k: s[k] for k in ("prefill_tokens", "decode_tokens", "steps",
+                             "preemptions", "mixed_plan_steps", "wall_s",
+                             "graphs_captured", "capture_s",
+                             "graph_replays")}
+    rec.update(tok_s=eng.throughput(),
+               decode_step_ms=s["decode_s"] / steps * 1e3,
+               decode_host_ms=s["decode_host_s"] / steps * 1e3,
+               graphs=eng.runner.stats["graphs"], eager=not eng.runner.graphs)
+    return rec
+
+
+def same_tokens(tag, got, want) -> None:
+    """Greedy tokens of two serves of the same requests must be equal."""
+    for a, b in zip(got, want):
+        if a.uid != b.uid or a.tokens != b.tokens:
+            raise AssertionError(f"{tag}: request {b.uid} served "
+                                 f"{a.tokens} against {b.tokens}")
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} results against "
+                             f"{len(want)}")
+
+
+def eager_twin(tag, make_engine, reqs, want, counts, plan=None):
+    """Serve ``reqs`` on an engine whose steps run eagerly (the oracle
+    the graphs are held to): its greedy tokens must equal the graphed
+    serve's ``want`` and its launch counts the graphed serve's
+    ``counts``.  Returns (its record, its counts)."""
+    eng = make_engine(graphs=False)
+    res, c = counted(lambda: eng.serve(reqs, plan=plan))
+    same_tokens(f"{tag} graphed vs eager", want, res)
+    if c != counts:
+        raise AssertionError(f"{tag}: eager launches {c} against the "
+                             f"graphed serve's {counts}")
+    rec = serve_record(eng)
+    del eng
+    return rec, c
 
 
 def counted(step):
@@ -1056,10 +1122,13 @@ def reference_check(params, cfg, device):
 # --------------------------------------------------------------------------- #
 
 
-def forward_phase(params, cfg, plan, device):
+def forward_phase(params, cfg, plan, device, eager_too: bool = False):
     """``launch.forward.compare`` on 4 x 512 tokens: ``loss_fn`` through
-    the kernels for the baseline, the LExI plan and the two pruning
-    baselines at 0.25; returns (record, launch counts)."""
+    the kernels, each model's forward a CUDA graph, for the baseline, the
+    LExI plan and the two pruning baselines at 0.25; with ``eager_too`` the
+    same forwards eagerly after that (fewer repeats), each cross-entropy
+    within 1e-3 of the graphed one's.  Returns (record, launch counts of
+    the graphed forwards)."""
     from repro_torch import kernels
     from repro_torch.launch.forward import compare, make_batch
     batch = make_batch(cfg, 4, 512, seed=4, device=device)
@@ -1068,9 +1137,20 @@ def forward_phase(params, cfg, plan, device):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     for name, rec in out.items():
-        if not np.isfinite(rec["xent"]):
-            raise AssertionError(f"forward {name}: xent {rec['xent']}")
-    return {"phase": "forward", "batch": [4, 512], "models": out}, counts
+        if not np.isfinite(rec["xent"]) or not rec["graphed"]:
+            raise AssertionError(f"forward {name}: xent {rec['xent']}, "
+                                 f"graphed {rec['graphed']}")
+    rec = {"phase": "forward", "batch": [4, 512], "models": out}
+    if eager_too:
+        eager = compare(params, cfg, plan, batch, prune_frac=0.25, reps=3,
+                        graphs=False)
+        for name, e in eager.items():
+            if abs(e["xent"] - out[name]["xent"]) > 1e-3 * abs(e["xent"]):
+                raise AssertionError(f"forward {name}: eager xent "
+                                     f"{e['xent']} against graphed "
+                                     f"{out[name]['xent']}")
+        rec["eager_ms_median"] = {n: e["ms_median"] for n, e in eager.items()}
+    return rec, counts
 
 
 # --------------------------------------------------------------------------- #
@@ -1080,50 +1160,71 @@ def forward_phase(params, cfg, plan, device):
 
 def serve_dense(params, cfg, plan, device, t_start):
     """The 8 requests on the paged pool through ``cfg``'s ``dense`` impl,
-    baseline and ``plan``: ``moe_ffn`` must launch once a layer in every
-    chunk and every decode step, ``flash_decode_paged`` once a layer in
-    every decode step, ``moe_gmm`` and ``moe_decode`` never (dense is not
-    rerouted, ``use_moe_decode`` notwithstanding).  The token copies the
-    capacity buffers dropped are summed on the card (one reduction a
-    layer) and read after each serve.  Returns {step: (counts, kernels
-    the step must launch)}."""
+    baseline and ``plan``, and the baseline again on an eager engine
+    (equal tokens, equal launches, equal drops): ``moe_ffn`` must launch
+    once a layer in every chunk and every decode step,
+    ``flash_decode_paged`` once a layer in every decode step, ``moe_gmm``
+    and ``moe_decode`` never (dense is not rerouted, ``use_moe_decode``
+    notwithstanding).  The token copies the capacity buffers dropped are
+    summed on the card into two persistent counters, zeroed in place
+    before each serve: the counting is hooked in before the first step,
+    so every captured graph adds to the same counters at each replay.
+    Returns {step: (counts, kernels the step must launch)}."""
     from repro_torch import models
     from repro_torch.models.moe import dense as dense_mod
     from repro_torch.serving import Engine
     assert cfg.moe_impl == "dense"
-    eng = Engine(cfg, params, max_batch=8, max_len=512, prefill_chunk=64,
-                 use_kernel=True, use_moe_decode=True,
-                 opts=models.ModelOpts(use_moe_kernel=True), device=device)
-    eng.serve(requests(cfg, seed=0, n=2, max_new=4))      # warm-up wave
-    eng.add_plan("lexi", plan)
-    calls = {"chunk": 0, "decode": 0, "dropped": None, "copies": 0}
-    for name in ("chunk", "decode"):
-        fn = getattr(eng.runner, "chunk_prefill" if name == "chunk"
-                     else "decode")
-
-        def step(*a, fn=fn, name=name, **kw):
-            calls[name] += 1
-            return fn(*a, **kw)
-        setattr(eng.runner, "chunk_prefill" if name == "chunk" else "decode",
-                step)
     slot_positions = dense_mod._slot_positions
+    drops = {n: torch.zeros((), dtype=torch.long, device=device)
+             for n in ("dropped", "copies")}
 
     def counting(idx, e, cap):
         pos, keep = slot_positions(idx, e, cap)
-        calls["dropped"] += (~keep).sum()
-        calls["copies"] += keep.numel()
+        drops["dropped"] += (~keep).sum()
+        drops["copies"] += keep.numel()
         return pos, keep
 
+    def make(graphs=True):
+        eng = Engine(cfg, params, max_batch=8, max_len=512,
+                     prefill_chunk=64, use_kernel=True, use_moe_decode=True,
+                     opts=models.ModelOpts(use_moe_kernel=True),
+                     device=device, graphs=graphs)
+        eng.add_plan("lexi", plan)
+        calls = {"chunk": 0, "decode": 0}
+        for name in calls:
+            attr = "chunk_prefill" if name == "chunk" else "decode"
+            fn = getattr(eng.runner, attr)
+
+            def step(*a, fn=fn, name=name, **kw):
+                calls[name] += 1
+                return fn(*a, **kw)
+            setattr(eng.runner, attr, step)
+        return eng, calls
+
     rec, need = {"phase": "serve_dense", "impl": cfg.moe_impl}, {}
+    n = cfg.num_layers
     dense_mod._slot_positions = counting
     try:
-        for tag, plan_name in (("baseline", None), ("lexi", "lexi")):
-            calls.update(chunk=0, decode=0, copies=0, dropped=torch.zeros(
-                (), dtype=torch.long, device=device))
+        # the warm-up wave is the measured workload, so that the baseline
+        # replays a graph captured for every key it steps through
+        eng, calls = make()
+        eng.serve(requests(cfg, seed=0))
+        for tag, plan_name, graphs in (("baseline", None, True),
+                                       ("lexi", "lexi", True),
+                                       ("baseline_eager", None, False)):
+            if not graphs:
+                # the same warm-up wave: a pad query (position -1) attends
+                # the stale bytes of its row's recycled pages, so its
+                # routing, and the copies it drops, follow the pool's past
+                del eng
+                eng, calls = make(graphs=False)
+                eng.serve(requests(cfg, seed=0))
+            calls.update(chunk=0, decode=0)
+            for t in drops.values():
+                t.zero_()
             res, counts = counted(
                 lambda: eng.serve(requests(cfg, seed=0), plan=plan_name))
             check_results(f"dense {tag}", res, cfg, max_new=32)
-            n = cfg.num_layers
             if (counts["moe_gmm"] or counts["moe_decode"]
                     or counts["moe_ffn"] != n * (calls["chunk"]
                                                  + calls["decode"])
@@ -1133,14 +1234,21 @@ def serve_dense(params, cfg, plan, device, t_start):
                                      f"{calls['decode']} decode steps")
             need[f"dense_{tag}"] = (counts, ("moe_ffn", "flash_decode_paged"))
             rec[f"{tag}_tok_s"] = eng.throughput()
-            rec[f"{tag}_stats"] = {k: eng.stats[k] for k in (
-                "prefill_tokens", "decode_tokens", "steps", "preemptions",
-                "wall_s")}
-            rec[f"{tag}_model_steps"] = {k: calls[k] for k in ("chunk",
-                                                                "decode")}
-            rec[f"{tag}_copies"] = calls["copies"]
-            rec[f"{tag}_dropped_copies"] = int(calls["dropped"])
+            rec[f"{tag}_stats"] = serve_record(eng)
+            rec[f"{tag}_model_steps"] = dict(calls)
+            rec[f"{tag}_copies"] = int(drops["copies"])
+            rec[f"{tag}_dropped_copies"] = int(drops["dropped"])
             rec.setdefault("launches", {})[tag] = counts
+            if tag == "baseline":
+                base_res = res
+            elif tag == "baseline_eager":
+                same_tokens("dense baseline graphed vs eager", base_res, res)
+                for k in ("copies", "dropped_copies"):
+                    if rec[f"baseline_eager_{k}"] != rec[f"baseline_{k}"]:
+                        raise AssertionError(f"dense baseline: {k} eager "
+                                             f"{rec[f'baseline_eager_{k}']}"
+                                             f" graphed {rec[f'baseline_{k}']}")
+        del eng
     finally:
         dense_mod._slot_positions = slot_positions
     emit(dict(rec, seconds_total=time.perf_counter() - t_start))
@@ -1241,8 +1349,6 @@ def serve_mla(params, cfg, device, t_start):
     max_new = 32
     opts = models.ModelOpts(use_moe_kernel=True)
     paged_kernels = ("flash_decode_paged_mla", "moe_gmm", "moe_decode")
-    stat_keys = ("prefill_tokens", "decode_tokens", "steps", "preemptions",
-                 "wall_s")
     need, rec = {}, {"phase": "serve_mla"}
 
     def serve(eng, tag, names, plan_name=None):
@@ -1251,13 +1357,19 @@ def serve_mla(params, cfg, device, t_start):
         check_results(f"mla {tag}", res, cfg, max_new)
         need[f"mla_{tag}"] = (counts, names)
         rec[f"{tag}_tok_s"] = eng.throughput()
-        rec[f"{tag}_stats"] = {k: eng.stats[k] for k in stat_keys}
+        rec[f"{tag}_stats"] = serve_record(eng)
+        return res, counts
 
-    eng = Engine(cfg, params, max_batch=8, max_len=512, prefill_chunk=64,
-                 use_kernel=True, use_moe_decode=True, opts=opts,
-                 device=device)
-    eng.serve(requests(cfg, seed=0, n=2, max_new=4))      # warm-up wave
-    serve(eng, "baseline", paged_kernels)
+    def paged(graphs=True):
+        return Engine(cfg, params, max_batch=8, max_len=512,
+                      prefill_chunk=64, use_kernel=True, use_moe_decode=True,
+                      opts=opts, device=device, graphs=graphs)
+    eng = paged()
+    eng.serve(requests(cfg, seed=0))    # warm-up: every key of the serve
+    res, counts = serve(eng, "baseline", paged_kernels)
+    rec["baseline_eager_stats"], c = eager_twin(
+        "mla baseline", paged, requests(cfg, seed=0), res, counts)
+    need["mla_baseline_eager"] = (c, paged_kernels)
     budget = int(0.5 * cfg.num_moe_layers * cfg.moe_top_k)
     t0 = time.perf_counter()
     plan, counts = counted(lambda: optimize(
@@ -1279,7 +1391,7 @@ def serve_mla(params, cfg, device, t_start):
     del eng
     torch.cuda.empty_cache()
 
-    for step in ("mla_baseline", "mla_lexi"):
+    for step in ("mla_baseline", "mla_baseline_eager", "mla_lexi"):
         c = need[step][0]
         if (any(c[n] for n in GQA_ATTENTION)
                 or c["flash_decode_paged_mla"] % cfg.num_layers):
@@ -1289,6 +1401,7 @@ def serve_mla(params, cfg, device, t_start):
         raise AssertionError(f"mla_contiguous_baseline: an attention "
                              f"kernel ran: {c}")
     rec["launches"] = {step[4:]: c for step, (c, _) in need.items()}
+    rec["tokens_equal_graphed_vs_eager"] = True
     emit(dict(rec, seconds_total=time.perf_counter() - t_start))
     return plan, need
 
@@ -1415,14 +1528,23 @@ def main() -> int:
     # ---- phase 3: serve baseline, search a plan, serve the plan ---------
     reference_check(params, cfg_gmm, device)
     max_new = 32
-    eng = Engine(cfg_gmm, params, max_batch=8, max_len=512, prefill_chunk=64,
-                 use_kernel=True, use_moe_decode=True,
-                 opts=models.ModelOpts(use_moe_kernel=True), device=device)
-    eng.serve(requests(cfg, seed=0, n=2, max_new=4))      # warm-up wave
-    res, base_counts = counted(lambda: eng.serve(requests(cfg, seed=0)))
-    check_results("baseline", res, cfg, max_new)
-    base_tps = eng.throughput()
-    base_stats = dict(eng.stats)
+
+    def paged_engine(graphs=True):
+        return Engine(cfg_gmm, params, max_batch=8, max_len=512,
+                      prefill_chunk=64, use_kernel=True, use_moe_decode=True,
+                      opts=models.ModelOpts(use_moe_kernel=True),
+                      device=device, graphs=graphs)
+    eng = paged_engine()
+    # the warm-up wave is the measured workload, so that the measured
+    # serve replays a graph captured for every key it steps through
+    eng.serve(requests(cfg, seed=0))
+    warm = serve_record(eng)
+    res_base, base_counts = counted(lambda: eng.serve(requests(cfg, seed=0)))
+    check_results("baseline", res_base, cfg, max_new)
+    base_rec = serve_record(eng)
+    eager_base, eager_base_counts = eager_twin(
+        "baseline", paged_engine, requests(cfg, seed=0), res_base,
+        base_counts)
 
     budget = int(0.5 * cfg.num_moe_layers * cfg.moe_top_k)
     t0 = time.perf_counter()
@@ -1431,40 +1553,79 @@ def main() -> int:
         profile_seq=32, seed=0, device=device, use_kernel=True))
     opt_s = time.perf_counter() - t0
     eng.add_plan("lexi", plan)
-    res, lexi_counts = counted(
+    eng.serve(requests(cfg, seed=0), plan="lexi")     # captures its keys
+    lexi_warm = serve_record(eng)
+    res_lexi, lexi_counts = counted(
         lambda: eng.serve(requests(cfg, seed=0), plan="lexi"))
-    check_results("lexi", res, cfg, max_new)
-    lexi_tps = eng.throughput()
+    check_results("lexi", res_lexi, cfg, max_new)
+    lexi_rec = serve_record(eng)
+
+    def paged_lexi_engine(graphs=True):
+        e = paged_engine(graphs)
+        e.add_plan("lexi", plan)
+        return e
+    eager_lexi, eager_lexi_counts = eager_twin(
+        "lexi", paged_lexi_engine, requests(cfg, seed=0), res_lexi,
+        lexi_counts, plan="lexi")
+
+    # the same 8 requests, alternating base and the plan, in one wave:
+    # every mixed step runs the bucketed-k graph; each request's tokens
+    # must equal its single-plan serve's
+    mix = ["base" if i % 2 == 0 else "lexi" for i in range(8)]
+    single = [(res_base if p == "base" else res_lexi)[i]
+              for i, p in enumerate(mix)]
+    same_tokens("serve_mixed warm-up",               # captures the buckets
+                eng.serve(requests(cfg, seed=0, plans=mix)), single)
+    mix_warm = serve_record(eng)
+    res_mix, mix_counts = counted(
+        lambda: eng.serve(requests(cfg, seed=0, plans=mix)))
+    same_tokens("serve_mixed", res_mix, single)
+    mix_rec = serve_record(eng)
+    buckets = [k for k in eng.runner.compiled_specializations()
+               if isinstance(k[0], tuple) and k[0][0] == "bucket"]
+    if mix_rec["mixed_plan_steps"] <= 0 or not buckets:
+        raise AssertionError(f"serve_mixed: {mix_rec['mixed_plan_steps']} "
+                             f"mixed steps, bucket keys {buckets}")
     paged_kernels = ("moe_gmm", "moe_decode", "flash_decode_paged")
     need = {"baseline": (base_counts, paged_kernels),
+            "baseline_eager": (eager_base_counts, paged_kernels),
             "optimize": (opt_counts, ("moe_gmm",)),
-            "lexi": (lexi_counts, paged_kernels)}
-    emit({"phase": "serve", "baseline_tok_s": base_tps,
-          "lexi_tok_s": lexi_tps, "plan": list(plan.plan),
+            "lexi": (lexi_counts, paged_kernels),
+            "lexi_eager": (eager_lexi_counts, paged_kernels),
+            "mixed": (mix_counts, paged_kernels)}
+    emit({"phase": "serve", "baseline_tok_s": base_rec["tok_s"],
+          "lexi_tok_s": lexi_rec["tok_s"], "plan": list(plan.plan),
           "budget": budget, "optimize_s": opt_s,
-          "baseline_stats": {k: base_stats[k] for k in (
-              "prefill_tokens", "decode_tokens", "steps", "preemptions",
-              "wall_s")},
-          "lexi_stats": {k: eng.stats[k] for k in (
-              "prefill_tokens", "decode_tokens", "steps", "preemptions",
-              "wall_s")},
+          "warmup_stats": warm, "baseline_stats": base_rec,
+          "baseline_eager_stats": eager_base, "lexi_warmup_stats": lexi_warm,
+          "lexi_stats": lexi_rec,
+          "lexi_eager_stats": eager_lexi,
+          "tokens_equal_graphed_vs_eager": True,
           "launches": {"baseline": base_counts, "optimize": opt_counts,
                        "lexi": lexi_counts},
+          "seconds_total": time.perf_counter() - t_start})
+    emit({"phase": "serve_mixed", "plans": mix, "warmup_stats": mix_warm,
+          "stats": mix_rec,
+          "bucket_keys": [list(map(str, k)) for k in buckets],
+          "tokens_equal_single_plan_serves": True, "launches": mix_counts,
           "seconds_total": time.perf_counter() - t_start})
     del eng
 
     # ---- phase 4: the paper's forward comparison ------------------------
-    rec, fwd_counts = forward_phase(params, cfg, plan, device)
+    rec, fwd_counts = forward_phase(params, cfg, plan, device,
+                                    eager_too=True)
     need["forward"] = (fwd_counts, ("moe_ffn", "moe_gmm", "flash_attention"))
     emit(dict(rec, launches=fwd_counts,
               seconds_total=time.perf_counter() - t_start))
 
     # ---- phase 5: contiguous layout, whole-prompt prefill ---------------
-    eng = Engine(cfg_gmm, params, max_batch=8, max_len=512,
-                 cache_layout="contiguous", prefill_chunk=0,
-                 use_moe_decode=True, opts=models.ModelOpts(
-                     use_flash=True, use_flash_decode=True,
-                     use_moe_kernel=True), device=device)
+    def contiguous_engine(graphs=True):
+        return Engine(cfg_gmm, params, max_batch=8, max_len=512,
+                      cache_layout="contiguous", prefill_chunk=0,
+                      use_moe_decode=True, opts=models.ModelOpts(
+                          use_flash=True, use_flash_decode=True,
+                          use_moe_kernel=True), device=device, graphs=graphs)
+    eng = contiguous_engine()
     eng.serve(requests(cfg, seed=0, n=2, max_new=4))      # warm-up wave
     eng.add_plan("lexi", plan)
     contiguous_kernels = ("moe_gmm", "moe_decode", "flash_attention",
@@ -1476,9 +1637,13 @@ def main() -> int:
         check_results(f"contiguous {tag}", res, cfg, max_new)
         need[f"contiguous_{tag}"] = (counts, contiguous_kernels)
         rec[f"{tag}_tok_s"] = eng.throughput()
-        rec[f"{tag}_stats"] = {k: eng.stats[k] for k in (
-            "prefill_tokens", "decode_tokens", "steps", "wall_s")}
+        rec[f"{tag}_stats"] = serve_record(eng)
         rec.setdefault("launches", {})[tag] = counts
+        if tag == "baseline":
+            rec["baseline_eager_stats"], c = eager_twin(
+                "contiguous baseline", contiguous_engine,
+                requests(cfg, seed=0), res, counts)
+            need["contiguous_baseline_eager"] = (c, contiguous_kernels)
     emit(dict(rec, seconds_total=time.perf_counter() - t_start))
     del eng
     torch.cuda.empty_cache()
@@ -1515,9 +1680,7 @@ def main() -> int:
                                          f"ran {counts[n]} times")
             need[f"{dt}_{tag}"] = (counts, quant_kernels)
             rec[f"{tag}_tok_s"] = eng.throughput()
-            rec[f"{tag}_stats"] = {k: eng.stats[k] for k in (
-                "prefill_tokens", "decode_tokens", "steps", "preemptions",
-                "wall_s")}
+            rec[f"{tag}_stats"] = serve_record(eng)
             rec.setdefault("launches", {})[tag] = counts
         emit(dict(rec, seconds_total=time.perf_counter() - t_start))
         del eng, moe
@@ -1563,6 +1726,8 @@ def main() -> int:
                 raise AssertionError(f"{step}: kernel {n} was never launched")
     for n, r in rows.items():
         r["launches"] = sum(c[n] for c, _ in need.values())
+    emit({"phase": "done", "steps_checked": len(need),
+          "seconds_total": time.perf_counter() - t_start})
     emit({"kernels": list(rows.values())})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -34,6 +34,11 @@ plan searched (or loaded) for the model -- on the card by default.
         --max-new 8 --max-len 96 --lexi-budget-frac 0.5 --use-kernel \
         --use-moe-decode --use-moe-kernel
 
+On the card every chunk and decode step replays a CUDA graph captured for
+its specialization key; ``--eager`` runs the same steps eagerly, the
+oracle.  Each report line prints the graphs the serve captured and
+replayed, and the wall time per decode step.
+
 Flag names follow ``repro.launch.serve`` for the features the port has.
 The MoE layers run the config's own dispatch, as the reference launcher
 does: the capacity-buffer ``dense`` impl (``moe_ffn`` under
@@ -73,12 +78,18 @@ def _report(tag: str, eng: Engine) -> float:
     s = eng.stats
     pre = (f"preempt={s['preemptions']} recompute={s['recompute_tokens']} "
            if s.get("preemptions") else "")
+    steps = max(s["steps"], 1)
     print(f"{tag}: {tput:,.1f} tok/s  "
           f"(prefill={s['prefill_tokens']} decode={s['decode_tokens']} "
           f"steps={s['steps']} {pre}"
           f"ttft_p50={s.get('ttft_p50_s', float('nan')) * 1e3:.0f}ms "
           f"ttft_p95={s.get('ttft_p95_s', float('nan')) * 1e3:.0f}ms "
-          f"decode_tps_p50={s.get('decode_tps_p50', float('nan')):.1f})")
+          f"decode_tps_p50={s.get('decode_tps_p50', float('nan')):.1f} "
+          f"decode_step={s['decode_s'] / steps * 1e3:.2f}ms "
+          f"host={s['decode_host_s'] / steps * 1e3:.2f}ms "
+          f"graphs={eng.runner.stats['graphs']} "
+          f"captured={s['graphs_captured']} ({s['capture_s']:.2f}s) "
+          f"replays={s['graph_replays']})")
     return tput
 
 
@@ -174,6 +185,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace each serve with torch.profiler and print "
                          "device time by kernel and the device's idle share")
+    ap.add_argument("--eager", action="store_true",
+                    help="run every step eagerly on the card (the oracle "
+                         "the CUDA graphs are held to)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -196,14 +210,14 @@ def main(argv=None) -> int:
                  use_kernel=args.use_kernel or None,
                  use_moe_decode=args.use_moe_decode or None,
                  expert_dtype=args.expert_dtype, opts=opts, seed=args.seed,
-                 device=args.device)
+                 device=args.device, graphs=not args.eager)
     print(f"arch={cfg.name} baseline top-k={cfg.moe_top_k or 'n/a'} "
           f"device={eng.device} layout={eng.kv.layout} "
           f"chunk={eng.prefill_chunk} moe={cfg.moe_impl} "
-          f"experts={args.expert_dtype}")
-    if args.profile:                    # first calls build and warm up
-        eng.serve(synth_requests(2, cfg.vocab_size, **dict(req_kw,
-                                                            max_new=2)))
+          f"experts={args.expert_dtype} "
+          f"steps={'eager' if args.eager else 'graphs'}")
+    if args.profile:    # first calls build, warm up and capture each key
+        eng.serve(synth_requests(args.requests, cfg.vocab_size, **req_kw))
     _, prof = _profiled(lambda: eng.serve(
         synth_requests(args.requests, cfg.vocab_size, **req_kw)),
         args.profile)
@@ -230,6 +244,9 @@ def main(argv=None) -> int:
     if plan is not None:
         eng.add_plan("lexi", plan)      # same runner, same weights
         print(f"LExI plan (B={plan.budget}): {plan.plan}")
+        if args.profile:
+            eng.serve(synth_requests(args.requests, cfg.vocab_size,
+                                     **req_kw), plan="lexi")
         _, prof = _profiled(lambda: eng.serve(
             synth_requests(args.requests, cfg.vocab_size, **req_kw),
             plan="lexi"), args.profile)

@@ -76,8 +76,11 @@ def apply_block(
     opts: ModelOpts = DEFAULT_OPTS,
     block_tables=None,
     kernel_blocks: Optional[int] = None,
+    k_budget: Optional[torch.Tensor] = None,
 ):
-    """Returns (x, cache, aux_loss)."""
+    """Returns (x, cache, aux_loss).  ``k_budget`` [B] int32 caps each
+    batch row's active experts below ``spec.moe_top_k`` (every token of
+    the row takes the row's cap)."""
     _check_kind(spec)
     attn_kw = {"block_tables": block_tables,
                "use_paged_kernel": opts.use_paged_kernel,
@@ -95,12 +98,16 @@ def apply_block(
     h2 = apply_norm(params["norm2"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "attn_moe":
+        kb_tok = None
+        if k_budget is not None:
+            b, s, _ = h2.shape
+            kb_tok = k_budget.to(torch.int32)[:, None].expand(b, s).reshape(-1)
         y, aux = moe_mod.moe(
             params["moe"], cfg, h2, spec.moe_top_k,
             impl=opts.moe_impl or cfg.moe_impl,
             use_kernel=opts.use_moe_kernel,
             decode_kernel=opts.use_moe_decode_kernel and mode == "decode",
-            expert_dtype=opts.expert_dtype)
+            expert_dtype=opts.expert_dtype, k_budget=kb_tok)
         x = x + y
     else:
         x = x + mlp(params["mlp"], h2)
@@ -128,13 +135,26 @@ def init_stack_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
 
 def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
                 mode: str, caches=None, opts: ModelOpts = DEFAULT_OPTS,
-                block_tables=None, kernel_blocks: Optional[int] = None):
-    """Run every layer.  Returns (x, caches, total_aux)."""
+                block_tables=None, kernel_blocks: Optional[int] = None,
+                k_budgets=None):
+    """Run every layer.  Returns (x, caches, total_aux).
+
+    ``k_budgets`` [B, n_moe] int32 gives each batch row a per-MoE-layer
+    active-expert cap below the pattern's per-layer top-k (per-request
+    LExI plans): MoE layer i takes column i, counted over the MoE layers
+    only, as the reference's running index does."""
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    moe_i = 0
     for li, spec in enumerate(cfg.pattern()):
+        kb = None
+        if spec.kind == "attn_moe":
+            if k_budgets is not None:
+                kb = k_budgets[:, moe_i]
+            moe_i += 1
         x, _, aux = apply_block(
             layers[li], cfg, spec, x, positions, mode=mode,
             cache=caches[li] if caches is not None else None, opts=opts,
-            block_tables=block_tables, kernel_blocks=kernel_blocks)
+            block_tables=block_tables, kernel_blocks=kernel_blocks,
+            k_budget=kb)
         total_aux = total_aux + aux
     return x, caches, total_aux

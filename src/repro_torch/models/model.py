@@ -48,16 +48,20 @@ def prefill_fn(params, cfg: ModelConfig, batch, caches, *,
 
 def chunk_prefill_fn(params, cfg: ModelConfig, tokens, positions, caches, *,
                      last_index=None, block_tables=None,
-                     opts: ModelOpts = DEFAULT_OPTS):
-    """One fixed-width chunked-prefill step (decoder-only LMs)."""
+                     opts: ModelOpts = DEFAULT_OPTS, k_budgets=None):
+    """One fixed-width chunked-prefill step (decoder-only LMs).
+    ``k_budgets`` [B, n_moe] int32 caps each row's active experts per MoE
+    layer below the config's k (a mixed-plan step)."""
     return tf_mod.chunk_prefill(params, cfg, tokens, caches,
                                 positions=positions, last_index=last_index,
-                                block_tables=block_tables, opts=opts)
+                                block_tables=block_tables, opts=opts,
+                                k_budgets=k_budgets)
 
 
 def decode_fn(params, cfg: ModelConfig, tokens, pos, caches, *,
               opts: ModelOpts = DEFAULT_OPTS, block_tables=None,
-              kernel_blocks=None):
+              kernel_blocks=None, k_budgets=None):
     return tf_mod.decode_step(params, cfg, tokens, pos, caches, opts=opts,
                               block_tables=block_tables,
-                              kernel_blocks=kernel_blocks)
+                              kernel_blocks=kernel_blocks,
+                              k_budgets=k_budgets)

@@ -53,9 +53,9 @@ def resolve_impl(impl: str, n_tokens: int, decode_kernel: bool = False) -> str:
 
 
 def _dense(params, cfg, x2d, top_k, use_kernel=False, *,
-           expert_dtype="bf16"):
+           expert_dtype="bf16", k_budget=None):
     _require_bf16("dense", expert_dtype)
-    return moe_dense(params, cfg, x2d, top_k, use_kernel)
+    return moe_dense(params, cfg, x2d, top_k, use_kernel, k_budget=k_budget)
 
 
 _IMPLS: Dict[str, Callable] = {"dense": _dense, "gmm": moe_gmm,
@@ -64,13 +64,16 @@ _IMPLS: Dict[str, Callable] = {"dense": _dense, "gmm": moe_gmm,
 
 def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
         impl: Optional[str] = None, use_kernel: bool = False,
-        decode_kernel: bool = False, expert_dtype: str = "bf16"):
+        decode_kernel: bool = False, expert_dtype: str = "bf16",
+        k_budget=None):
     """x [B, S, D] -> (y [B, S, D], aux_loss scalar).
 
     ``impl`` overrides ``cfg.moe_impl``; ``decode_kernel=True`` opts
     decode-shaped gmm calls into the fused routed-expert path.
     ``expert_dtype`` != "bf16" expects params quantized at load
     (``quantize_expert_params``) and is served by gmm/decode only.
+    ``k_budget`` [B*S] int32 caps active experts per token below ``top_k``
+    (``route`` zero-weights the surplus routed slots).
     """
     b, s, d = x.shape
     impl = resolve_impl(impl or cfg.moe_impl, b * s, decode_kernel)
@@ -82,5 +85,6 @@ def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
     if impl not in _IMPLS:
         raise ValueError(f"unknown moe impl {impl!r}; have {sorted(_IMPLS)}")
     y2d, aux = _IMPLS[impl](params, cfg, x.reshape(b * s, d), top_k,
-                            use_kernel, expert_dtype=expert_dtype)
+                            use_kernel, expert_dtype=expert_dtype,
+                            k_budget=k_budget)
     return y2d.reshape(b, s, d), aux

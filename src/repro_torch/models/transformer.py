@@ -43,13 +43,16 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Dict, cfg: ModelConfig, tokens, positions, *,
             mode: str = "train", caches=None, opts: ModelOpts = DEFAULT_OPTS,
-            block_tables=None, kernel_blocks=None):
+            block_tables=None, kernel_blocks=None, k_budgets=None):
     """tokens [B,S]; positions [B,S] (train/chunk) or [B] (decode).
-    Returns (hidden [B,S,D], caches, aux_loss)."""
+    ``k_budgets`` [B, n_moe] int32: each row's active-expert cap per MoE
+    layer (per-request plans).  Returns (hidden [B,S,D], caches,
+    aux_loss)."""
     x = embed_tokens(params, cfg, tokens)
     return blocks_mod.apply_stack(
         params["layers"], cfg, x, positions, mode=mode, caches=caches,
-        opts=opts, block_tables=block_tables, kernel_blocks=kernel_blocks)
+        opts=opts, block_tables=block_tables, kernel_blocks=kernel_blocks,
+        k_budgets=k_budgets)
 
 
 # --------------------------------------------------------------------------- #
@@ -111,14 +114,15 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
 @torch.no_grad()
 def chunk_prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
                   positions, last_index=None, block_tables=None,
-                  opts: ModelOpts = DEFAULT_OPTS):
+                  opts: ModelOpts = DEFAULT_OPTS, k_budgets=None):
     """One chunked-prefill step over all slots -> (logits [B,V], caches).
 
     tokens / positions [B, C] (position -1 = pad or idle row); the
     returned logits are taken at ``last_index`` per row (clipped)."""
     hidden, caches, _ = forward(params, cfg, tokens, positions, mode="chunk",
                                 caches=caches, opts=opts,
-                                block_tables=block_tables)
+                                block_tables=block_tables,
+                                k_budgets=k_budgets)
     if last_index is None:
         sel = hidden[:, -1]
     else:
@@ -130,11 +134,12 @@ def chunk_prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
 @torch.no_grad()
 def decode_step(params: Dict, cfg: ModelConfig, tokens, pos, caches, *,
                 opts: ModelOpts = DEFAULT_OPTS, block_tables=None,
-                kernel_blocks: Optional[int] = None):
+                kernel_blocks: Optional[int] = None, k_budgets=None):
     """One decode step -> (logits [B,V] f32, caches).  ``kernel_blocks``
     bounds the paged kernel's table walk to the live-page bucket."""
     hidden, caches, _ = forward(params, cfg, tokens[:, None], pos,
                                 mode="decode", caches=caches, opts=opts,
                                 block_tables=block_tables,
-                                kernel_blocks=kernel_blocks)
+                                kernel_blocks=kernel_blocks,
+                                k_budgets=k_budgets)
     return lm_logits(params, cfg, hidden)[:, 0], caches

@@ -26,8 +26,16 @@ and resumed token-exactly when pages free up.
 ``submit`` enqueues a request, ``step`` advances every live slot one
 iteration, ``drain`` steps until the system is empty and ``serve`` wraps
 them for a closed-loop workload.  ``serve(reqs, plan=name)`` after
-``add_plan`` serves a LExI plan from the same runner and weights; one wave
-serves one plan.  Not ported yet (ROADMAP.md): mixed-plan steps (A3), the
+``add_plan`` serves a LExI plan from the same runner and weights, and a
+request's own ``plan`` serves it under that plan whatever its batchmates
+run (DESIGN.md §10): a step whose live slots share one plan runs that
+plan's step; a mixed step runs the bucketed-k step for the batch's
+per-layer largest k, each row capped at its own plan's k
+(``_plan_batch``, counted in ``stats["mixed_plan_steps"]``).
+
+On the card every chunk and decode step replays a CUDA graph captured for
+its specialization key (``serving/runner.py``); ``Engine(graphs=False)``
+runs the same steps eagerly, the oracle.  Not ported yet (ROADMAP.md): the
 prefix cache and the plan-degradation ladder (A5), the other admission
 policies, whole-lifetime reservation on the paged pool, the sjf scheduler
 policy and open-loop arrival times (A6), chunked prefill on the
@@ -42,6 +50,7 @@ quantized weights.
 
 from __future__ import annotations
 
+import time
 from dataclasses import replace
 from typing import Dict, List, Optional, Sequence
 
@@ -73,7 +82,8 @@ class Engine:
                  use_moe_decode: Optional[bool] = None,
                  expert_dtype: Optional[str] = None,
                  eos_id: Optional[int] = None, opts: ModelOpts = DEFAULT_OPTS,
-                 clock: Optional[Clock] = None, seed: int = 0, device=None):
+                 clock: Optional[Clock] = None, seed: int = 0, device=None,
+                 graphs: bool = True):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -138,7 +148,7 @@ class Engine:
         opts = replace(opts, use_paged_kernel=self.use_kernel,
                        use_moe_decode_kernel=self.use_moe_decode,
                        expert_dtype=ed)
-        self.runner = ModelRunner(cfg, params, opts=opts)
+        self.runner = ModelRunner(cfg, params, opts=opts, graphs=graphs)
         self.plan_name = BASE_PLAN
         self.kv = KVCache(self.cfg, max_batch, max_len, layout=cache_layout,
                           page_size=page_size, num_pages=num_pages,
@@ -156,9 +166,13 @@ class Engine:
         # prefill_tokens counts each prompt position once (useful work);
         # positions re-prefilled when a preempted request resumes land in
         # recompute_tokens, so throughput() reflects useful tokens
+        # decode_s / decode_host_s: wall seconds of the decode steps, and
+        # of their host part up to the step's return (before sampling
+        # waits for the device)
         return {"prefill_tokens": 0, "decode_tokens": 0,
                 "recompute_tokens": 0, "steps": 0, "preemptions": 0,
-                "live_peak": 0}
+                "live_peak": 0, "mixed_plan_steps": 0, "decode_s": 0.0,
+                "decode_host_s": 0.0}
 
     # ------------------------------------------------------------------ #
     # Plans
@@ -271,13 +285,27 @@ class Engine:
         k = f"plan_requests:{t.served_plan}"
         self.stats[k] = self.stats.get(k, 0) + 1
 
-    def _plan_of(self, live: List[Tracked]) -> str:
+    def _plan_batch(self, live: List[Tracked]):
+        """-> (plan, bucket, k_budgets) for one batched model step.
+
+        All live slots on one plan: that plan's own step, no budgets.
+        Mixed plans: the bucketed-k step for the batch's per-layer max k
+        (power-of-two roundup), with each slot's own per-layer budget --
+        surplus routed slots are zero-weighted in ``route``, so every row
+        computes what its own plan's step computes."""
         names = {t.served_plan for t in live}
-        if len(names) != 1:
-            raise NotImplementedError(
-                f"a step mixing plans {sorted(names)} needs the bucketed-k "
-                "path, not ported yet (ROADMAP.md A3); serve one plan a wave")
-        return names.pop()
+        if len(names) == 1:
+            return names.pop(), None, None
+        ks = self.runner.plan_ks
+        n_moe = len(ks[BASE_PLAN])
+        maxk = tuple(max(ks[t.served_plan][l] for t in live)
+                     for l in range(n_moe))
+        bucket = self.runner.bucket_for(maxk)
+        budgets = np.tile(np.asarray(bucket, np.int32), (self.max_batch, 1))
+        for t in live:
+            budgets[t.slot] = ks[t.served_plan]
+        self.stats["mixed_plan_steps"] += 1
+        return BASE_PLAN, bucket, budgets
 
     def _chunk_prefill_step(self, prefilling: List[Tracked]) -> None:
         """Advance every prefilling slot by one fixed-width chunk; fresh and
@@ -312,12 +340,11 @@ class Engine:
                 else:
                     last_idx[t.slot] = n - 1
                     sampling.append(t)
-        dev = self.device
+        plan, bucket, budgets = self._plan_batch(prefilling)
         logits, self.kv.caches = self.runner.chunk_prefill(
-            torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(positions).to(dev),
-            torch.from_numpy(last_idx).to(dev), self.kv.caches,
-            self.kv.block_tables(), plan=self._plan_of(prefilling))
+            tokens, positions, last_idx, self.kv.caches,
+            self.kv.block_tables(), plan=plan, bucket=bucket,
+            k_budgets=budgets)
         if sampling:
             nxt = self._sample(logits)
             for t in sampling:
@@ -373,6 +400,7 @@ class Engine:
         return self.sched.in_state(DECODE)
 
     def _decode_step(self, decoding: List[Tracked]) -> None:
+        t0 = time.perf_counter()
         if not self.contiguous:
             decoding = self._grow_or_preempt(decoding)
             if not decoding:
@@ -383,13 +411,16 @@ class Engine:
             tokens[t.slot] = self.slot_last[t.slot]
             pos[t.slot] = self.slot_pos[t.slot]
         kernel_blocks = self.kv.live_blocks(pos) if self.use_kernel else None
-        dev = self.device
+        plan, bucket, budgets = self._plan_batch(decoding)
         logits, self.kv.caches = self.runner.decode(
-            torch.from_numpy(tokens).to(dev), torch.from_numpy(pos).to(dev),
-            self.kv.caches,
+            tokens, pos, self.kv.caches,
             None if self.contiguous else self.kv.block_tables(),
-            plan=self._plan_of(decoding), kernel_blocks=kernel_blocks)
+            plan=plan, kernel_blocks=kernel_blocks, bucket=bucket,
+            k_budgets=budgets)
+        t1 = time.perf_counter()
         nxt = self._sample(logits)
+        self.stats["decode_host_s"] += t1 - t0
+        self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["steps"] += 1
         for t in decoding:
             self.slot_pos[t.slot] += 1
@@ -472,6 +503,7 @@ class Engine:
             raise duplicate_uid_error(
                 next(u for u in uids if u in seen or seen.add(u)))
         self.reset_stats()
+        g0 = dict(self.runner.stats)
         t0 = self.clock.now()
         for r in requests:
             self.submit(r)
@@ -479,6 +511,12 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats["wall_s"] = max(self.clock.now() - t0, 0.0)
+        # this serve's CUDA graphs: captured (and their host seconds) and
+        # replayed; 0 where the steps ran eagerly
+        g = self.runner.stats
+        self.stats.update(graphs_captured=g["graphs"] - g0["graphs"],
+                          capture_s=g["capture_s"] - g0["capture_s"],
+                          graph_replays=g["replays"] - g0["replays"])
         self.stats.update(self.sched.percentiles())
         return self.sched.results()
 

@@ -19,6 +19,11 @@ accounting, as ``repro.serving.kv_cache`` does.  Two layouts:
     prefill writes into ``[1, ...]`` views of its row.  The page accounting
     (``pages_needed``, ``free_pages``, ``fits_ever``, ``live_blocks``,
     ``block_tables``) belongs to the paged layout only.
+
+The paged layout's device block table is one tensor for the manager's
+whole life, refreshed in place when the host table changed: a step
+captured as a CUDA graph reads the table at the address it was captured
+at.
 """
 
 from __future__ import annotations
@@ -66,7 +71,12 @@ class KVCache:
         self.table = np.full((max_batch, self.blocks_per_slot), TRASH_PAGE,
                              np.int32)
         self._owned: List[List[int]] = [[] for _ in range(max_batch)]
-        self._table_dev: Optional[torch.Tensor] = None   # refreshed lazily
+        #: the device table, refreshed in place (``block_tables``) when
+        #: ``_table_dirty``; on the card through pinned staging
+        self._table_dev = torch.from_numpy(self.table.copy()).to(device)
+        self._table_dirty = False
+        self._staging: Optional[torch.Tensor] = None
+        self._copied = None
         self.stats = {"pages_in_use": 0, "pages_peak": 0,
                       "free_low_watermark": self.free_pages()}
 
@@ -130,7 +140,7 @@ class KVCache:
         have = len(self._owned[slot])
         self._owned[slot].extend(pages)
         self.table[slot, have:have + need] = pages
-        self._table_dev = None
+        self._table_dirty = True
         self.stats["pages_in_use"] += need
         self.stats["pages_peak"] = max(self.stats["pages_peak"],
                                        self.stats["pages_in_use"])
@@ -152,18 +162,32 @@ class KVCache:
         self.stats["pages_in_use"] -= len(pages)
         self._owned[slot] = []
         self.table[slot] = TRASH_PAGE
-        self._table_dev = None
+        self._table_dirty = True
 
     def slot_pages(self, slot: int) -> List[int]:
         """The physical pages backing ``slot``, in block order."""
         return self._owned[slot]
 
     def block_tables(self) -> torch.Tensor:
-        """Device block-table array, cached between allocations so
-        steady-state decode steps pay no host-to-device copy."""
-        if self._table_dev is None:
-            self._table_dev = torch.from_numpy(self.table.copy()).to(
-                self.device)
+        """The device block table [max_batch, blocks_per_slot] int32: one
+        tensor across allocations, refreshed in place from the host table
+        when that changed, so steady-state decode steps pay no copy.  On the
+        card the refresh is asynchronous, through pinned staging that is
+        rewritten only once its last copy has run (no host sync)."""
+        if self._table_dirty:
+            src = torch.from_numpy(self.table)
+            if self._table_dev.is_cuda:
+                if self._staging is None:
+                    self._staging = torch.empty(src.shape, dtype=src.dtype,
+                                                pin_memory=True)
+                    self._copied = torch.cuda.Event()
+                self._copied.synchronize()
+                self._staging.copy_(src)
+                self._table_dev.copy_(self._staging, non_blocking=True)
+                self._copied.record()
+            else:
+                self._table_dev.copy_(src)
+            self._table_dirty = False
         return self._table_dev
 
     def _reset_pages(self, pages: List[int]) -> None:

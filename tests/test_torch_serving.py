@@ -5,6 +5,10 @@ run on the CPU).  Tokens must be equal -- for the base config, for a LExI
 plan registered on the same engine, and under a half-size KV pool where
 both engines preempt (the same number of times) and recompute.
 
+A wave whose requests carry different plans (base and two LExI plans)
+steps through the bucketed-k mixed-plan steps on both sides and is held
+to the reference's tokens the same way.
+
 Quantized experts (``expert_dtype="int8"`` and ``"int4"``, quantized at
 load by each engine from the same weights) are held to the reference's
 quantized engine the same way.
@@ -39,11 +43,12 @@ def setup():
     return cfg_j, cfg_t, pj, pt
 
 
-def _requests(mod, n, lo, hi, max_new, seed=0):
+def _requests(mod, n, lo, hi, max_new, seed=0, plans=None):
     rng = np.random.default_rng(seed)
     return [mod.Request(uid=i, prompt=rng.integers(
         0, 256, rng.integers(lo, hi)).astype(np.int32),
-        max_new_tokens=max_new) for i in range(n)]
+        max_new_tokens=max_new, plan=plans[i] if plans else None)
+        for i in range(n)]
 
 
 def _engines(setup, **kw):
@@ -58,11 +63,11 @@ def _engines(setup, **kw):
                     device="cpu", **common))
 
 
-def _serve_both(ej, et, n, lo, hi, max_new, plan=None):
+def _serve_both(ej, et, n, lo, hi, max_new, plan=None, plans=None):
     from repro import serving as js
     from repro_torch import serving as ts
-    rj = ej.serve(_requests(js, n, lo, hi, max_new), plan=plan)
-    rt = et.serve(_requests(ts, n, lo, hi, max_new), plan=plan)
+    rj = ej.serve(_requests(js, n, lo, hi, max_new, plans=plans), plan=plan)
+    rt = et.serve(_requests(ts, n, lo, hi, max_new, plans=plans), plan=plan)
     assert [r.uid for r in rj] == [r.uid for r in rt]
     for a, b in zip(rj, rt):
         assert b.tokens == a.tokens, (a.uid, a.tokens, b.tokens)
@@ -132,15 +137,19 @@ def test_quant_engine_options_are_checked(setup):
     assert eng.runner.opts.expert_dtype == "int8"
 
 
-def test_mixed_plan_step_raises(setup):
-    from repro_torch.serving import Request
-    _, et = _engines(setup, max_batch=2)
-    et.add_plan("lexi", (1, 1, 1, 1))
-    reqs = _requests(__import__("repro_torch.serving").serving, 2, 5, 8, 2)
-    reqs[1] = Request(uid=1, prompt=reqs[1].prompt, max_new_tokens=2,
-                      plan="lexi")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        et.serve(reqs)
+def test_mixed_plan_greedy_tokens_match_reference(setup):
+    """Four requests over base and two LExI plans in one wave: the mixed
+    steps run the bucketed-k step on both sides, and each request's tokens
+    equal the reference's."""
+    ej, et = _engines(setup, max_batch=4)
+    for name, plan in (("lexi", (2, 1, 1, 2)), ("k1", (1, 1, 1, 1))):
+        ej.add_plan(name, plan)
+        et.add_plan(name, plan)
+    _serve_both(ej, et, 4, 5, 30, 6, plans=["base", "lexi", "k1", "lexi"])
+    assert et.stats["mixed_plan_steps"] == ej.stats["mixed_plan_steps"] > 0
+    assert ("bucket", 2, 2, 2, 2) in {
+        k[0] for k in et.runner.compiled_specializations()}
+    assert et.plan_stats() == ej.plan_stats()
 
 
 def test_sample_per_slot_greedy_rows_exact_and_topk_cap():

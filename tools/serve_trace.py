@@ -2,19 +2,23 @@
 """Trace a serve of one checkout with torch.profiler and sum the decode
 attention kernels' device time, on one NVIDIA GPU.
 
-    python3 tools/serve_trace.py [--root DIR] [--tag NAME] -- SERVE_ARGS
+    python3 tools/serve_trace.py [--root DIR] [--tag NAME] \\
+        [--modes graphs,eager] -- SERVE_ARGS
 
 Runs ``repro_torch.launch.serve`` of ``DIR/src`` (default: this checkout)
-with ``SERVE_ARGS`` and ``--profile``: the launcher prints its own lines
-(report, device busy and idle share, top kernels), and this tool adds one
-JSON line per traced serve with every CUDA kernel's device time and call
-count whose name starts with one of ATTENTION (the contiguous and the
-paged GQA kernels, and the MLA kernels of either design: one launch or a
-partial and a merge pass) and their sum.  Run it on two checkouts in one
-call on one card to compare their serves, e.g. the paged OLMoE bf16 serve
-of PERF.md §5 (``--cache-layout contiguous --prefill-chunk 0 --use-flash
---use-flash-decode`` in place of ``--prefill-chunk 64 --use-kernel`` for
-the contiguous one):
+with ``SERVE_ARGS`` and ``--profile``, once for each of ``--modes`` in
+turn: ``graphs`` (the launcher's default: every step a CUDA graph replay),
+``eager`` (adds ``--eager``), or ``default`` (the launcher's default for a
+checkout that has no ``--eager``, where every step is eager).  The
+launcher prints its own lines (report, device busy and idle share, top
+kernels), and this tool adds one JSON line per traced serve with every
+CUDA kernel's device time and call count whose name starts with one of
+ATTENTION (the contiguous and the paged GQA kernels, and the MLA kernels
+of either design: one launch or a partial and a merge pass) and their sum.
+Run it on two checkouts in one call on one card to compare their serves,
+e.g. the paged OLMoE bf16 serve of PERF.md §5 (``--cache-layout
+contiguous --prefill-chunk 0 --use-flash --use-flash-decode`` in place of
+``--prefill-chunk 64 --use-kernel`` for the contiguous one):
 
     python3 tools/serve_trace.py -- --arch olmoe-1b-7b --requests 8 \\
         --max-new 32 --max-batch 8 --max-len 512 --prompt-lo 32 \\
@@ -39,6 +43,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--modes", default="graphs,eager",
+                    help="comma list of graphs, eager, default: the serves "
+                         "traced, in this order")
     ap.add_argument("serve_args", nargs=argparse.REMAINDER)
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
@@ -50,6 +57,7 @@ def main() -> int:
     import repro_torch.launch.serve as serve
 
     breakdown = serve._device_breakdown
+    mode = {"now": ""}
 
     def with_attention(tag, prof, wall_s, top=10):
         breakdown(tag, prof, wall_s, top)
@@ -63,13 +71,25 @@ def main() -> int:
                     and name.startswith(ATTENTION):
                 rows[e.key[:90]] = {"ms": t / 1e3, "calls": e.count}
         print(json.dumps({"attention": tag, "tag": args.tag,
+                          "mode": mode["now"],
                           "root": os.path.abspath(args.root),
                           "ms": sum(r["ms"] for r in rows.values()),
                           "kernels": rows}), flush=True)
 
     serve._device_breakdown = with_attention
     rest = [a for a in args.serve_args if a != "--"]
-    return serve.main(rest + ["--profile"]) or 0
+    for m in args.modes.split(","):
+        if m not in ("graphs", "eager", "default"):
+            raise SystemExit(f"serve_trace: unknown mode {m!r}")
+        mode["now"] = m
+        print(json.dumps({"serve_trace": m, "tag": args.tag,
+                          "root": os.path.abspath(args.root)}), flush=True)
+        rc = serve.main(rest + ["--profile"]
+                        + (["--eager"] if m == "eager" else []))
+        torch.cuda.empty_cache()
+        if rc:
+            return rc
+    return 0
 
 
 if __name__ == "__main__":

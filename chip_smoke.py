@@ -51,6 +51,25 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               and the plan, in one wave through the bucketed-k mixed-plan
               steps, twice (the first captures the bucket keys) -- each
               request's tokens equal its single-plan serve's.
+3b. serve_prefix -- 16 requests on one 192-token head (12 full pages, 3
+              whole chunks), 14 with a suffix of 1-15 tokens and two whose
+              prompt is the head, served with the prefix cache off, then
+              cold and warm on one engine with it on: the aligned hits'
+              tokens equal in all three, the head-only requests' hits (191,
+              through a copy-on-write) give first-token logits rows within
+              ROW_TOL of the cache-off rows; the warm serve captures no
+              graph, copies 2 pages and its host counts (hits, copies,
+              prefill) equal the CPU rehearsal's (PREFIX_COUNTS); an eager
+              twin of it; a serve on a PRESSURE_PAGES pool that preempts
+              and evicts, with its eager twin; the pool drained after
+              each; then the copy-on-write device check (a copied page bit
+              for bit in every leaf, ``posp`` masked past ``keep_below``).
+3c. serve_ladder -- 16 requests asking for base under the ladder base ->
+              lexi with ``degrade_under_pressure``: each request's tokens
+              equal its served plan's single-plan serve's; an eager twin.
+3d. serve_open_loop -- the 16 requests arriving at steps 0, 2, 4, ... on a
+              VirtualClock: tokens equal the closed-loop serve's and the
+              eager twin's; TTFT p50 / p95 in steps.
 4. forward -- the paper's Fig. 4 comparison at full width: ``loss_fn``
               through ``flash_attention`` and the config's own ``dense``
               MoE (``moe_ffn``) on 4 x 512 tokens for the baseline, the
@@ -64,6 +83,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               the contiguous layout with whole-prompt prefill
               (``flash_attention``, ``moe_gmm``) and decode
               (``flash_decode``, ``moe_decode``).
+5b. serve_contiguous_chunked -- the same requests on the contiguous layout
+              with chunked prefill (chunk 64): the chunk steps replay a
+              CUDA graph, ``flash_attention`` never launches, tokens equal
+              the eager twin's, first-token logits rows within ROW_TOL of
+              the paged serve's.
 6. serve_quant -- the same 8 requests on the paged pool with the routed
               experts quantized at load, ``Engine(expert_dtype="int8")``
               and then ``"int4"``, baseline and LExI plan each: every step
@@ -85,8 +109,11 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               ``dense``), then the same 8 requests on
               the paged pool (``flash_decode_paged_mla``, 27 launches a
               decode step, ``moe_gmm``, ``moe_decode``; no GQA attention
-              kernel), a LExI plan searched on the card at budget
-              0.5 x 26 x 6 and served, and the baseline again on the
+              kernel), the prefix workload with the cache off and warm
+              (the aligned hits' tokens equal, ``flash_decode_paged_mla``
+              still 27 launches a decode step), a LExI plan searched on
+              the card at budget 0.5 x 26 x 6 and served, and the
+              baseline again on the
               contiguous layout with whole-prompt prefill (``moe_gmm``,
               ``moe_decode``; no attention kernel: MLA's contiguous decode
               is plain PyTorch, as in the reference).
@@ -123,6 +150,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 
 import numpy as np
@@ -1118,6 +1146,415 @@ def reference_check(params, cfg, device):
 
 
 # --------------------------------------------------------------------------- #
+# phases 3b-3d: the prefix cache, the plan ladder, open-loop arrivals
+# --------------------------------------------------------------------------- #
+
+#: the prefix workload: one shared head of 12 full pages (3 whole chunks of
+#: 64), a random suffix of 1-15 tokens, and two requests whose prompt is
+#: exactly the head
+PREFIX_HEAD = 192
+HEAD_ONLY = (7, 15)
+#: the pool of the pressure serve, in pages (8 slots of up to 15 pages
+#: each would need 120)
+PRESSURE_PAGES = 48
+#: host accounting of the prefix serves, from a CPU rehearsal of
+#: serve_prefix on the reduced config (the counts depend only on the
+#: prompt lengths and the engine's settings, never on the weights, so the
+#: card must give the same ones)
+PREFIX_COUNTS = {
+    "warm": {"prefix_hit_tokens": 3070, "cow_copies": 2,
+             "prefill_tokens": 114},
+    "pressure": {"prefix_hit_tokens": 3342, "cow_copies": 2,
+                 "prefill_tokens": 818, "recompute_tokens": 74,
+                 "preemptions": 5, "cache_evictions": 16},
+}
+
+
+def prefix_requests(cfg, seed: int, n: int = 16, max_new: int = 32,
+                    head_only=HEAD_ONLY):
+    """``n`` requests on one ``PREFIX_HEAD``-token head, each with a random
+    suffix of 1-15 tokens except ``head_only``, whose prompt is the head.
+    The lengths are drawn first, so they do not depend on the vocabulary."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 16, n)
+    head = rng.integers(0, cfg.vocab_size, PREFIX_HEAD)
+    reqs = []
+    for i in range(n):
+        suffix = rng.integers(0, cfg.vocab_size, lens[i])
+        prompt = head if i in head_only else np.concatenate([head, suffix])
+        reqs.append(Request(uid=i, prompt=prompt.astype(np.int32),
+                            max_new_tokens=max_new))
+    return reqs
+
+
+@contextmanager
+def first_token_rows(eng):
+    """Record {uid: the logits row its first token was sampled from} while
+    ``eng`` serves (wraps the instance's ``_sample`` and ``_first_token``;
+    the engine itself has no hook)."""
+    rows, last = {}, {}
+    sample, first = eng._sample, eng._first_token
+
+    def sampling(logits):
+        last["logits"] = logits
+        return sample(logits)
+
+    def first_token(t, tok):
+        rows[t.req.uid] = last["logits"][t.slot].float().clone()
+        first(t, tok)
+    eng._sample, eng._first_token = sampling, first_token
+    try:
+        yield rows
+    finally:
+        del eng._sample, eng._first_token
+
+
+def drained(tag, eng) -> None:
+    """After a drain every page is free again: none in use, no refcount
+    held, the free list plus the LRU the whole pool but the trash page."""
+    kv = eng.kv
+    if (kv.stats["pages_in_use"] or int(kv.ref.sum())
+            or kv.free_pages() != kv.num_pages - 1):
+        raise AssertionError(f"{tag}: after the drain {kv.stats}, ref sum "
+                             f"{int(kv.ref.sum())}, {kv.free_pages()} of "
+                             f"{kv.num_pages - 1} pages free")
+
+
+def only(results, uids):
+    return [r for r in results if r.uid in uids]
+
+
+def agreement(got, want) -> dict:
+    """Tokens equal position by position, over all requests."""
+    same = sum(a == b for g, w in zip(got, want)
+               for a, b in zip(g.tokens, w.tokens))
+    return {"equal_tokens": same,
+            "tokens": sum(len(w.tokens) for w in want),
+            "equal_requests": sum(g.tokens == w.tokens
+                                  for g, w in zip(got, want))}
+
+
+def host_counts(stats, keys) -> dict:
+    return {k: int(stats[k]) for k in keys}
+
+
+def check_counts(tag, stats, want) -> dict:
+    """The serve's host accounting must equal the CPU rehearsal's."""
+    got = host_counts(stats, want)
+    if got != want:
+        raise AssertionError(f"{tag}: host counts {got} against the "
+                             f"rehearsal's {want}")
+    return got
+
+
+def check_cow_pages(cfg, device) -> dict:
+    """Copy-on-write's device half: every leaf of every layer filled with
+    random bytes (``posp`` with the positions a page holds), three pages
+    registered, then adopted by another slot with ``keep_below`` in the
+    middle of the third.  The private copy must hold the source's bytes
+    bit for bit in every leaf, its ``posp`` -1 at and past ``keep_below``,
+    and the source page must be untouched."""
+    from repro_torch.serving import KVCache
+    kv = KVCache(cfg, 2, 512, page_size=16, num_pages=8, prefix_cache=True,
+                 device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    for layer in kv.caches:
+        for name, leaf in layer.items():
+            if name == "posp":      # page p as block p - 1 of a sequence
+                leaf.copy_(torch.arange(leaf.numel(), dtype=torch.int32,
+                                        device=device).view_as(leaf) - 16)
+            else:
+                b = leaf.view(torch.uint8)
+                b.copy_(torch.randint(0, 256, b.shape, generator=gen,
+                                      device=device, dtype=torch.uint8))
+    salt, keep = ("base", "bf16"), 40
+    toks = np.arange(48, dtype=np.int32)
+    assert kv.allocate(0, 48)
+    chain = kv.prefix_root(salt)
+    for j, page in enumerate(kv.slot_pages(0)):
+        chain = kv.register_page(chain, toks[16 * j:16 * j + 16], page)
+    src = kv.slot_pages(0)[2]
+    before = [{n: t[src].clone() for n, t in layer.items()}
+              for layer in kv.caches]
+    pages, hit, _ = kv.match_prefix(salt, toks, keep)
+    if hit != keep or not kv.allocate(1, 48, shared=pages, keep_below=hit):
+        raise AssertionError(f"cow check: hit {hit}, pages {pages}")
+    dst = kv.slot_pages(1)[2]
+    if dst == src or kv.slot_pages(1)[:2] != kv.slot_pages(0)[:2]:
+        raise AssertionError(f"cow check: slot pages {kv.slot_pages(0)} "
+                             f"and {kv.slot_pages(1)}")
+    nbytes = 0
+    as_bytes = lambda t: t.contiguous().view(torch.uint8)   # NaN bits too
+    for layer, old in zip(kv.caches, before):
+        for name, leaf in layer.items():
+            if not torch.equal(as_bytes(leaf[src]), as_bytes(old[name])):
+                raise AssertionError(f"cow check: source page {name} moved")
+            if name == "posp":
+                want = torch.where(old[name] < keep, old[name], -1)
+                ok = (torch.equal(leaf[dst], want)
+                      and bool((leaf[dst][keep - 32:] == -1).all())
+                      and leaf[dst][:keep - 32].tolist()
+                      == list(range(32, keep)))
+            else:
+                ok = torch.equal(as_bytes(leaf[dst]), as_bytes(old[name]))
+            if not ok:
+                raise AssertionError(f"cow check: {name} of the copy")
+            nbytes += leaf[dst].numel() * leaf.element_size()
+    table = kv.block_tables().cpu().numpy()
+    if not np.array_equal(table, kv.table):
+        raise AssertionError("cow check: the device table is stale")
+    rec = {"check": "cow_device_copy", "src": src, "dst": dst,
+           "keep_below": keep, "bytes_compared": nbytes,
+           "bitwise_equal": True, "posp_masked": True}
+    emit(rec)
+    return rec
+
+
+def serve_prefix(params, cfg, eng_off, device, t_start):
+    """Phase 3b: the prefix workload served (a) on ``eng_off`` (the cache
+    off), (b) cold and (c) warm on one engine with the cache on, (d) by an
+    eager twin of (c) warmed the same way, then on a pool of
+    PRESSURE_PAGES with its eager twin, then the copy-on-write device
+    check.  Returns {step: (counts, kernels the step must launch)}."""
+    from repro_torch import models
+    from repro_torch.serving import Engine
+    paged_kernels = ("moe_gmm", "moe_decode", "flash_decode_paged")
+    aligned = [i for i in range(16) if i not in HEAD_ONLY]
+    rec, need = {"phase": "serve_prefix"}, {}
+
+    def make(graphs=True, **kw):
+        return Engine(cfg, params, max_batch=8, max_len=512,
+                      prefill_chunk=64, use_kernel=True, use_moe_decode=True,
+                      prefix_cache=True,
+                      opts=models.ModelOpts(use_moe_kernel=True),
+                      device=device, graphs=graphs, **kw)
+
+    def warm_up(eng):       # captures the keys; a head of another seed
+        eng.serve(prefix_requests(cfg, seed=2, n=2, max_new=4))
+
+    def serve(tag, eng):
+        res, counts = counted(lambda: eng.serve(prefix_requests(cfg, 1)))
+        check_results(f"prefix {tag}", res, cfg, 32)
+        rec[f"{tag}_stats"] = dict(serve_record(eng), **host_counts(
+            eng.stats, ("prefix_hit_tokens", "cow_copies",
+                        "cache_evictions")),
+            prefix_hit_rate=eng.stats["prefix_hit_rate"])
+        need[f"prefix_{tag}"] = (counts, paged_kernels)
+        if eng.prefix_cache:
+            drained(f"prefix {tag}", eng)
+        return res, counts
+
+    with first_token_rows(eng_off) as rows_off:
+        res_off, _ = serve("off", eng_off)
+    eng = make()
+    warm_up(eng)
+    drained("prefix warm-up", eng)
+    res_cold, _ = serve("cold", eng)
+    with first_token_rows(eng) as rows_warm:
+        res_warm, warm_counts = serve("warm", eng)
+    for tag, res in (("cold", res_cold), ("warm", res_warm)):
+        same_tokens(f"prefix {tag} vs off (aligned hits)",
+                    only(res, aligned), only(res_off, aligned))
+    warm = rec["warm_stats"]
+    if warm["graphs_captured"] or warm["cow_copies"] != 2:
+        raise AssertionError(f"prefix warm: {warm}")
+    rec["warm_counts"] = check_counts("prefix warm", eng.stats,
+                                      PREFIX_COUNTS["warm"])
+    rec["warm_hits"] = {r.uid: r.prefix_hit_tokens for r in res_warm}
+    for uid in HEAD_ONLY:
+        if res_warm[uid].prefix_hit_tokens != PREFIX_HEAD - 1:
+            raise AssertionError(f"prefix warm: request {uid} hit "
+                                 f"{res_warm[uid].prefix_hit_tokens}")
+    compare_rows("prefix_head_only_first_token_rows",
+                 torch.stack([rows_warm[u] for u in HEAD_ONLY]),
+                 torch.stack([rows_off[u] for u in HEAD_ONLY]),
+                 uids=list(HEAD_ONLY))
+    rec["head_only_agreement"] = agreement(only(res_warm, HEAD_ONLY),
+                                           only(res_off, HEAD_ONLY))
+    del eng
+
+    eng = make(graphs=False)
+    warm_up(eng)
+    eng.serve(prefix_requests(cfg, 1))
+    res, counts = counted(lambda: eng.serve(prefix_requests(cfg, 1)))
+    drained("prefix warm eager", eng)
+    same_tokens("prefix warm graphed vs eager", res_warm, res)
+    if counts != warm_counts:
+        raise AssertionError(f"prefix warm: eager launches {counts} "
+                             f"against {warm_counts}")
+    need["prefix_warm_eager"] = (counts, paged_kernels)
+    rec["warm_eager_stats"] = serve_record(eng)
+    del eng
+
+    for graphs in (True, False):
+        eng = make(graphs=graphs, num_pages=PRESSURE_PAGES)
+        warm_up(eng)
+        tag = "pressure" if graphs else "pressure_eager"
+        res, counts = serve(tag, eng)
+        s = eng.stats
+        if s["preemptions"] <= 0 or s["cache_evictions"] <= 0:
+            raise AssertionError(f"prefix {tag}: {s['preemptions']} "
+                                 f"preemptions, {s['cache_evictions']} "
+                                 "evictions")
+        rec[f"{tag}_counts"] = check_counts(f"prefix {tag}", s,
+                                            PREFIX_COUNTS["pressure"])
+        if graphs:
+            res_p, counts_p = res, counts
+        else:
+            same_tokens("prefix pressure graphed vs eager", res_p, res)
+            if counts != counts_p:
+                raise AssertionError(f"prefix pressure: eager launches "
+                                     f"{counts} against {counts_p}")
+        del eng
+    rec["pressure_vs_off"] = agreement(res_p, res_off)
+    rec["cow_check"] = check_cow_pages(cfg, device)
+    rec["tokens_equal"] = {"aligned_off_cold_warm": True,
+                           "warm_graphed_vs_eager": True,
+                           "pressure_graphed_vs_eager": True}
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return need
+
+
+def serve_ladder(params, cfg, eng, plan, device, t_start):
+    """Phase 3c: 16 requests asking for base, under the ladder base -> lexi
+    with ``degrade_under_pressure``; their single-plan serves (base, lexi)
+    on ``eng`` first.  Returns (the base serve's results, need)."""
+    from repro_torch import models
+    from repro_torch.serving import Engine
+    paged_kernels = ("moe_gmm", "moe_decode", "flash_decode_paged")
+    reqs = lambda: requests(cfg, seed=0, n=16)
+    res_base = eng.serve(reqs())
+    base_rec = serve_record(eng)
+    res_lexi = eng.serve(reqs(), plan="lexi")
+    lexi_rec = serve_record(eng)
+
+    def make(graphs=True):
+        e = Engine(cfg, params, max_batch=8, max_len=512, prefill_chunk=64,
+                   use_kernel=True, use_moe_decode=True,
+                   degrade_under_pressure=True,
+                   opts=models.ModelOpts(use_moe_kernel=True), device=device,
+                   graphs=graphs)
+        e.add_plan("lexi", plan)
+        e.set_plan_ladder(["base", "lexi"])
+        return e
+    lad = make()
+    lad.serve(reqs())                               # captures the buckets
+    res, counts = counted(lambda: lad.serve(reqs()))
+    check_results("ladder", res, cfg, 32)
+    rec = {"phase": "serve_ladder", "stats": serve_record(lad),
+           "base_stats": base_rec, "lexi_stats": lexi_rec,
+           "plan_degradations": lad.stats["plan_degradations"],
+           "degraded": [r.uid for r in res if r.plan_degradations]}
+    if rec["plan_degradations"] <= 0 or rec["stats"]["mixed_plan_steps"] <= 0:
+        raise AssertionError(f"ladder: {rec}")
+    for r in res:
+        want = res_lexi if r.plan_degradations else res_base
+        if (r.plan_degradations > 1 or r.served_plan
+                != ("lexi" if r.plan_degradations else "base")):
+            raise AssertionError(f"ladder: request {r.uid} {r}")
+        same_tokens(f"ladder request {r.uid} ({r.served_plan})", [r],
+                    [want[r.uid]])
+    need = {"ladder": (counts, paged_kernels)}
+    del lad
+    rec["eager_stats"], c = eager_twin("ladder", make, reqs(), res, counts)
+    need["ladder_eager"] = (c, paged_kernels)
+    rec.update(launches=counts, tokens_equal_single_plan_serves=True,
+               tokens_equal_graphed_vs_eager=True)
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return res_base, need
+
+
+def serve_open_loop(params, cfg, res_closed, device, t_start):
+    """Phase 3d: the 16 requests arriving at steps 0, 2, 4, ... on a
+    VirtualClock (one tick a step): tokens equal to the closed-loop serve's
+    ``res_closed`` and to the eager twin's."""
+    from repro_torch import models
+    from repro_torch.serving import Engine, VirtualClock
+    paged_kernels = ("moe_gmm", "moe_decode", "flash_decode_paged")
+    arrivals = [2.0 * i for i in range(16)]
+
+    def make(graphs=True):
+        return Engine(cfg, params, max_batch=8, max_len=512,
+                      prefill_chunk=64, use_kernel=True, use_moe_decode=True,
+                      opts=models.ModelOpts(use_moe_kernel=True),
+                      clock=VirtualClock(tick=1.0), device=device,
+                      graphs=graphs)
+    out = {}
+    for graphs in (True, False):
+        eng = make(graphs)
+        if graphs:                      # the warm-up captures every key
+            eng.serve(requests(cfg, seed=0, n=16), arrival_times=arrivals)
+        res, counts = counted(lambda: eng.serve(
+            requests(cfg, seed=0, n=16), arrival_times=arrivals))
+        check_results("open loop", res, cfg, 32)
+        out[graphs] = (res, counts, dict(eng.stats))
+        del eng
+    res, counts, stats = out[True]
+    same_tokens("open loop vs closed loop", res, res_closed)
+    same_tokens("open loop graphed vs eager", res, out[False][0])
+    if out[False][1] != counts:
+        raise AssertionError(f"open loop: eager launches {out[False][1]} "
+                             f"against {counts}")
+    rec = {"phase": "serve_open_loop", "arrival_steps": arrivals,
+           "ttft_p50_steps": stats["ttft_p50_s"],
+           "ttft_p95_steps": stats["ttft_p95_s"],
+           "engine_steps_wall": stats["wall_s"], "launches": counts,
+           "graphs_captured": stats["graphs_captured"],
+           "graph_replays": stats["graph_replays"],
+           "tokens_equal_closed_loop": True,
+           "tokens_equal_graphed_vs_eager": True}
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return {"open_loop": (counts, paged_kernels),
+            "open_loop_eager": (out[False][1], paged_kernels)}
+
+
+def serve_contiguous_chunked(params, cfg, rows_paged, res_paged, device,
+                             t_start):
+    """Phase 5b: the 8 requests on the contiguous layout with chunked
+    prefill (chunk 64) and ``flash_decode``: the chunk steps replay a CUDA
+    graph, ``flash_attention`` never launches, tokens equal the eager
+    twin's, and the first-token logits rows lie within ROW_TOL of the paged
+    chunked serve's (``rows_paged``)."""
+    from repro_torch import models
+    from repro_torch.serving import Engine
+    kernels_ = ("moe_gmm", "moe_decode", "flash_decode")
+
+    def make(graphs=True):
+        return Engine(cfg, params, max_batch=8, max_len=512,
+                      cache_layout="contiguous", prefill_chunk=64,
+                      use_moe_decode=True, opts=models.ModelOpts(
+                          use_flash=True, use_flash_decode=True,
+                          use_moe_kernel=True), device=device, graphs=graphs)
+    eng = make()
+    eng.serve(requests(cfg, seed=0))        # the warm-up captures each key
+    with first_token_rows(eng) as rows:
+        res, counts = counted(lambda: eng.serve(requests(cfg, seed=0)))
+    check_results("contiguous chunked", res, cfg, 32)
+    stats = serve_record(eng)
+    chunk_key = ("base", "chunk", 64, "bf16")
+    if (counts["flash_attention"] or stats["graphs_captured"]
+            or not stats["graph_replays"]
+            or eng.runner._steps.get(chunk_key) is None):
+        raise AssertionError(f"contiguous chunked: launches {counts}, "
+                             f"stats {stats}")
+    uids = sorted(rows)
+    compare_rows("contiguous_chunked_first_token_rows",
+                 torch.stack([rows[u] for u in uids]),
+                 torch.stack([rows_paged[u] for u in uids]))
+    rec = {"phase": "serve_contiguous_chunked", "stats": stats,
+           "launches": counts, "vs_paged": agreement(res, res_paged)}
+    del eng
+    rec["eager_stats"], c = eager_twin("contiguous chunked", make,
+                                       requests(cfg, seed=0), res, counts)
+    rec["tokens_equal_graphed_vs_eager"] = True
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return {"contiguous_chunked": (counts, kernels_),
+            "contiguous_chunked_eager": (c, kernels_)}
+
+
+# --------------------------------------------------------------------------- #
 # phase 4: the paper's forward comparison
 # --------------------------------------------------------------------------- #
 
@@ -1360,16 +1797,46 @@ def serve_mla(params, cfg, device, t_start):
         rec[f"{tag}_stats"] = serve_record(eng)
         return res, counts
 
-    def paged(graphs=True):
+    def paged(graphs=True, **kw):
         return Engine(cfg, params, max_batch=8, max_len=512,
                       prefill_chunk=64, use_kernel=True, use_moe_decode=True,
-                      opts=opts, device=device, graphs=graphs)
+                      opts=opts, device=device, graphs=graphs, **kw)
     eng = paged()
     eng.serve(requests(cfg, seed=0))    # warm-up: every key of the serve
     res, counts = serve(eng, "baseline", paged_kernels)
     rec["baseline_eager_stats"], c = eager_twin(
         "mla baseline", paged, requests(cfg, seed=0), res, counts)
     need["mla_baseline_eager"] = (c, paged_kernels)
+
+    # the prefix workload, the cache off and then warm (the cold serve on
+    # the cache-on engine captures its keys): the aligned hits' tokens
+    # equal; B7 still once a layer in every decode step
+    aligned = [i for i in range(16) if i not in HEAD_ONLY]
+    prefix = {}
+    pc = paged(prefix_cache=True)
+    pc.serve(prefix_requests(cfg, 1))
+    for tag, e in (("prefix_off", eng), ("prefix_warm", pc)):
+        res_p, counts = counted(lambda: e.serve(prefix_requests(cfg, 1)))
+        check_results(f"mla {tag}", res_p, cfg, max_new)
+        need[f"mla_{tag}"] = (counts, paged_kernels)
+        rec[f"{tag}_stats"] = dict(
+            serve_record(e), prefix_hit_tokens=e.stats["prefix_hit_tokens"],
+            cow_copies=e.stats["cow_copies"])
+        if counts["flash_decode_paged_mla"] != (cfg.num_layers
+                                                * e.stats["steps"]):
+            raise AssertionError(f"mla {tag}: {counts} over "
+                                 f"{e.stats['steps']} decode steps")
+        prefix[tag] = res_p
+    drained("mla prefix warm", pc)
+    if rec["prefix_warm_stats"]["graphs_captured"]:
+        raise AssertionError(f"mla prefix warm: {rec['prefix_warm_stats']}")
+    same_tokens("mla prefix warm vs off (aligned hits)",
+                only(prefix["prefix_warm"], aligned),
+                only(prefix["prefix_off"], aligned))
+    rec["prefix_head_only_agreement"] = agreement(
+        only(prefix["prefix_warm"], HEAD_ONLY),
+        only(prefix["prefix_off"], HEAD_ONLY))
+    del pc
     budget = int(0.5 * cfg.num_moe_layers * cfg.moe_top_k)
     t0 = time.perf_counter()
     plan, counts = counted(lambda: optimize(
@@ -1391,7 +1858,8 @@ def serve_mla(params, cfg, device, t_start):
     del eng
     torch.cuda.empty_cache()
 
-    for step in ("mla_baseline", "mla_baseline_eager", "mla_lexi"):
+    for step in ("mla_baseline", "mla_baseline_eager", "mla_lexi",
+                 "mla_prefix_off", "mla_prefix_warm"):
         c = need[step][0]
         if (any(c[n] for n in GQA_ATTENTION)
                 or c["flash_decode_paged_mla"] % cfg.num_layers):
@@ -1539,7 +2007,9 @@ def main() -> int:
     # serve replays a graph captured for every key it steps through
     eng.serve(requests(cfg, seed=0))
     warm = serve_record(eng)
-    res_base, base_counts = counted(lambda: eng.serve(requests(cfg, seed=0)))
+    with first_token_rows(eng) as rows_base:
+        res_base, base_counts = counted(
+            lambda: eng.serve(requests(cfg, seed=0)))
     check_results("baseline", res_base, cfg, max_new)
     base_rec = serve_record(eng)
     eager_base, eager_base_counts = eager_twin(
@@ -1609,7 +2079,15 @@ def main() -> int:
           "bucket_keys": [list(map(str, k)) for k in buckets],
           "tokens_equal_single_plan_serves": True, "launches": mix_counts,
           "seconds_total": time.perf_counter() - t_start})
+
+    # ---- phases 3b-3d: prefix cache, plan ladder, open-loop arrivals -----
+    need.update(serve_prefix(params, cfg_gmm, eng, device, t_start))
+    res_base16, ladder_need = serve_ladder(params, cfg_gmm, eng, plan,
+                                           device, t_start)
+    need.update(ladder_need)
     del eng
+    need.update(serve_open_loop(params, cfg_gmm, res_base16, device,
+                                t_start))
 
     # ---- phase 4: the paper's forward comparison ------------------------
     rec, fwd_counts = forward_phase(params, cfg, plan, device,
@@ -1646,6 +2124,11 @@ def main() -> int:
             need["contiguous_baseline_eager"] = (c, contiguous_kernels)
     emit(dict(rec, seconds_total=time.perf_counter() - t_start))
     del eng
+    torch.cuda.empty_cache()
+
+    # ---- phase 5b: contiguous layout, chunked prefill -------------------
+    need.update(serve_contiguous_chunked(params, cfg_gmm, rows_base,
+                                         res_base, device, t_start))
     torch.cuda.empty_cache()
 
     # ---- phase 6: quantized experts on the paged pool -------------------

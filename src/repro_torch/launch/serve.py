@@ -27,6 +27,21 @@ plan searched (or loaded) for the model -- on the card by default.
         --use-flash-decode --use-moe-decode --use-moe-kernel \
         --lexi-budget-frac 0.5
 
+    # the contiguous layout with chunked prefill (the default there;
+    # flash_decode in decode, the chunk steps replayed as CUDA graphs)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --reduced --device cpu --requests 4 --max-new 8 --max-len 96 \
+        --cache-layout contiguous --prefill-chunk 16 --use-flash-decode \
+        --use-moe-decode --use-moe-kernel
+
+    # prefix caching, open-loop Poisson arrivals, and a degradation
+    # ladder serve where every request asks for base and admissions under
+    # pool / queue pressure move it one rung down (DESIGN.md §8, §9, §10)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --reduced --device cpu --requests 8 --max-batch 2 --max-new 8 \
+        --max-len 96 --moe-impl gmm --lexi-budget-frac 0.5 --prefix-cache \
+        --open-loop-rate 50 --plan-ladder base,lexi --degrade-under-pressure
+
     # DeepSeek-V2-Lite: MLA attention (flash_decode_paged_mla in paged
     # decode under --use-kernel), a dense first layer, shared experts
     PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -78,6 +93,10 @@ def _report(tag: str, eng: Engine) -> float:
     s = eng.stats
     pre = (f"preempt={s['preemptions']} recompute={s['recompute_tokens']} "
            if s.get("preemptions") else "")
+    if eng.prefix_cache:
+        pre += (f"prefix_hit={s['prefix_hit_tokens']} "
+                f"({s['prefix_hit_rate']:.0%}) cow={s['cow_copies']} "
+                f"evictions={s['cache_evictions']} ")
     steps = max(s["steps"], 1)
     print(f"{tag}: {tput:,.1f} tok/s  "
           f"(prefill={s['prefill_tokens']} decode={s['decode_tokens']} "
@@ -90,6 +109,18 @@ def _report(tag: str, eng: Engine) -> float:
           f"graphs={eng.runner.stats['graphs']} "
           f"captured={s['graphs_captured']} ({s['capture_s']:.2f}s) "
           f"replays={s['graph_replays']})")
+    # per-plan breakdown, straight off the flat stats counters
+    per_plan = eng.plan_stats()
+    if len(per_plan) > 1 or s.get("plan_degradations"):
+        for name, d in sorted(per_plan.items()):
+            print(f"  plan {name:<10} requests="
+                  f"{int(d.get('plan_requests', 0)):3d}  decode_tokens="
+                  f"{int(d.get('plan_decode_tokens', 0))}")
+        if s.get("mixed_plan_steps"):
+            print(f"  mixed-plan steps (bucketed-k): "
+                  f"{int(s['mixed_plan_steps'])}")
+        print(f"  plan degradations: {int(s['plan_degradations'])} "
+              f"(rung moves, always at the prefill boundary)")
     return tput
 
 
@@ -147,7 +178,32 @@ def main(argv=None) -> int:
                     default=None, help="KV layout (default: paged)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="KV pool size in pages (default: worst-case "
-                         "max_batch x max_len)")
+                         "max_batch x max_len; smaller pools admit on "
+                         "demand and preempt under pressure)")
+    ap.add_argument("--preemption", action=argparse.BooleanOptionalAction,
+                    default=None,
+                    help="on-demand page allocation + preempt-and-recompute "
+                         "(default: on for the paged layout); "
+                         "--no-preemption reserves prompt+max_new pages for "
+                         "a request's whole lifetime at admission")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="hash-cons full KV pages so requests sharing a "
+                         "prompt prefix reuse already-computed pages "
+                         "(refcounted, copy-on-write at the boundary; "
+                         "paged layout + preemption only)")
+    ap.add_argument("--scheduler", choices=["fifo", "sjf"], default="fifo")
+    ap.add_argument("--admission", default="headroom",
+                    help="admission gate for on-demand paged pools: headroom "
+                         "(1 free page per decoding slot), watermark (static "
+                         "free-page reserve), lookahead (exact pages decoding "
+                         "slots claim within the next page worth of steps), "
+                         "or greedy (no gate; thrash baseline)")
+    ap.add_argument("--open-loop-rate", type=float, default=0.0,
+                    help="offered load in requests/s: requests arrive on a "
+                         "Poisson process at this rate instead of all at "
+                         "t=0, and the engine admits them mid-flight "
+                         "(0 = closed loop); tok/s then includes the "
+                         "arrival gaps")
     ap.add_argument("--use-kernel", action="store_true",
                     help="paged decode attends pages in-kernel "
                          "(flash_decode_paged, or flash_decode_paged_mla "
@@ -182,6 +238,17 @@ def main(argv=None) -> int:
     ap.add_argument("--plan", default=None,
                     help="path to a saved LexiPlan JSON to serve")
     ap.add_argument("--save-plan", default=None)
+    ap.add_argument("--plan-ladder", default=None, metavar="NAME,NAME,...",
+                    help="degradation ladder over registered plans, most "
+                         "expensive rung first (e.g. base,lexi with "
+                         "--lexi-budget-frac or --plan); adds a ladder "
+                         "serve where every request asks for base but "
+                         "admissions under KV-pool/queue pressure move "
+                         "non-priority requests one rung down, always at "
+                         "the prefill boundary")
+    ap.add_argument("--degrade-under-pressure", action="store_true",
+                    help="enable the ladder policy (without it the ladder "
+                         "is declared but inert)")
     ap.add_argument("--profile", action="store_true",
                     help="trace each serve with torch.profiler and print "
                          "device time by kernel and the device's idle share")
@@ -209,18 +276,31 @@ def main(argv=None) -> int:
                  cache_layout=args.cache_layout, num_pages=args.num_pages,
                  use_kernel=args.use_kernel or None,
                  use_moe_decode=args.use_moe_decode or None,
-                 expert_dtype=args.expert_dtype, opts=opts, seed=args.seed,
-                 device=args.device, graphs=not args.eager)
+                 expert_dtype=args.expert_dtype,
+                 preemption=args.preemption, prefix_cache=args.prefix_cache,
+                 scheduler=args.scheduler, admission=args.admission,
+                 degrade_under_pressure=args.degrade_under_pressure,
+                 opts=opts, seed=args.seed, device=args.device,
+                 graphs=not args.eager)
+    serve_kw = {}
+    if args.open_loop_rate > 0:
+        rng = np.random.default_rng(args.seed + 1)
+        serve_kw["arrival_times"] = list(np.cumsum(rng.exponential(
+            1.0 / args.open_loop_rate, args.requests)))
+        print(f"open loop: Poisson arrivals at {args.open_loop_rate:g} "
+              f"req/s over {serve_kw['arrival_times'][-1]:.2f}s")
     print(f"arch={cfg.name} baseline top-k={cfg.moe_top_k or 'n/a'} "
           f"device={eng.device} layout={eng.kv.layout} "
-          f"chunk={eng.prefill_chunk} moe={cfg.moe_impl} "
+          f"chunk={eng.prefill_chunk or 'whole'} moe={cfg.moe_impl} "
           f"experts={args.expert_dtype} "
           f"steps={'eager' if args.eager else 'graphs'}")
+
+    def wave(**kw):
+        return eng.serve(synth_requests(args.requests, cfg.vocab_size,
+                                        **req_kw), **serve_kw, **kw)
     if args.profile:    # first calls build, warm up and capture each key
-        eng.serve(synth_requests(args.requests, cfg.vocab_size, **req_kw))
-    _, prof = _profiled(lambda: eng.serve(
-        synth_requests(args.requests, cfg.vocab_size, **req_kw)),
-        args.profile)
+        wave()
+    _, prof = _profiled(wave, args.profile)
     tput = _report("baseline", eng)
     if prof is not None:
         _device_breakdown("baseline", prof, eng.stats["wall_s"])
@@ -245,16 +325,24 @@ def main(argv=None) -> int:
         eng.add_plan("lexi", plan)      # same runner, same weights
         print(f"LExI plan (B={plan.budget}): {plan.plan}")
         if args.profile:
-            eng.serve(synth_requests(args.requests, cfg.vocab_size,
-                                     **req_kw), plan="lexi")
-        _, prof = _profiled(lambda: eng.serve(
-            synth_requests(args.requests, cfg.vocab_size, **req_kw),
-            plan="lexi"), args.profile)
+            wave(plan="lexi")
+        _, prof = _profiled(lambda: wave(plan="lexi"), args.profile)
         tput2 = _report("LExI", eng)
         if prof is not None:
             _device_breakdown("lexi", prof, eng.stats["wall_s"])
         print(f"speedup: {tput2 / tput:.2f}x at "
               f"{plan.active_fraction():.0%} active experts")
+
+    if args.plan_ladder:
+        ladder = args.plan_ladder.split(",")
+        eng.set_plan_ladder(ladder)     # raises on unregistered names
+        if args.profile:
+            wave()
+        _, prof = _profiled(wave, args.profile)   # every request asks base
+        _report(f"ladder {'->'.join(ladder)}"
+                + ("" if args.degrade_under_pressure else " (inert)"), eng)
+        if prof is not None:
+            _device_breakdown("ladder", prof, eng.stats["wall_s"])
     return 0
 
 

@@ -22,8 +22,8 @@ per step).
 
 Modes: ``"train"`` (whole sequence, no cache), ``"prefill"`` (whole
 sequence, written to a contiguous cache), ``"chunk"`` (chunked prefill on
-the paged cache: attend the pre-write cache plus the chunk, then commit
-the chunk) and ``"decode"`` (one token per row).  Train and prefill run
+either cache: attend the pre-write cache plus the chunk, then commit the
+chunk) and ``"decode"`` (one token per row).  Train and prefill run
 the ``flash_attention`` kernel under ``use_flash``; decode attends the
 pages in place through ``flash_decode_paged`` under ``use_paged_kernel``
 (walking the first ``kernel_blocks`` table columns), else reads a
@@ -326,26 +326,32 @@ def gqa_attention(
             bias = _mask_bias(pos_s, kv_pos, cfg.sliding_window, True)
             out = _sdpa(q, k_all, v_all, bias, scale, compute_dtype)
     elif mode == "chunk":
-        if "kp" not in cache:
-            raise NotImplementedError(
-                "chunked prefill on the contiguous cache is not ported yet "
-                "(ROADMAP.md A7); use whole-prompt prefill (mode='prefill')")
         # attend against the PRE-write cache plus the in-chunk keys, then
-        # commit the chunk (the reference's order: right under a
-        # sliding-window ring, and exact against whole-prompt prefill)
+        # commit the chunk (the reference's order: writing first would
+        # evict, on a sliding-window ring, positions still inside the
+        # window of the chunk's own earlier queries; and exact against
+        # whole-prompt prefill)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        k_old = _paged_read(cache["kp"], block_tables)
-        v_old = _paged_read(cache["vp"], block_tables)
-        pos_old = _paged_read(cache["posp"], block_tables)
+        if "kp" in cache:
+            k_old = _paged_read(cache["kp"], block_tables)
+            v_old = _paged_read(cache["vp"], block_tables)
+            pos_old = _paged_read(cache["posp"], block_tables)
+        else:
+            k_old, v_old, pos_old = cache["k"], cache["v"], cache["pos"]
         k_all = torch.cat([k_old, k.to(k_old.dtype)], dim=1)
         v_all = torch.cat([v_old, v.to(v_old.dtype)], dim=1)
         kv_pos = torch.cat([pos_old, positions.to(pos_old.dtype)], dim=1)
         bias = _mask_bias(positions, kv_pos, cfg.sliding_window, True)
         out = _sdpa(q, k_all, v_all, bias, scale, compute_dtype)
-        _paged_write(cache["kp"], k, positions, block_tables)
-        _paged_write(cache["vp"], v, positions, block_tables)
-        _paged_write(cache["posp"], positions, positions, block_tables)
+        if "kp" in cache:
+            _paged_write(cache["kp"], k, positions, block_tables)
+            _paged_write(cache["vp"], v, positions, block_tables)
+            _paged_write(cache["posp"], positions, positions, block_tables)
+        else:
+            _write_seq(cache["k"], k, positions)
+            _write_seq(cache["v"], v, positions)
+            _write_seq(cache["pos"], positions, positions)
     elif mode in ("train", "prefill"):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)

@@ -1,45 +1,64 @@
 """Serving engine facade: Scheduler -> KVCache -> ModelRunner composition.
 
-The port of ``repro.serving.engine`` on two paths.  The default is the
-paged block-table KV pool with fixed-width chunked prefill, and per
+The port of ``repro.serving.engine``.  Every prompt runs through one
+fixed-width chunked-prefill step by default, on either layout, and per
 iteration
 
     admit -> one [B, chunk] chunked-prefill step -> one [B] decode step
 
-so every prompt runs through one prefill shape, concurrent prefills batch
-together, and decode advances all live slots at once.  The other is
-``cache_layout="contiguous", prefill_chunk=0``: one cache row per slot,
-reserved for the request's whole lifetime, and each admitted prompt
-prefilled whole, ``[1, L]`` at its own length (no padding: eager PyTorch
-needs no graph per padded length, and the ``flash_attention`` kernel masks
-by index, so it must never see a pad), then
+so concurrent prefills batch together and decode advances all live slots
+at once.  The default layout is the paged block-table KV pool; the other is
+``cache_layout="contiguous"``, one cache row per slot, reserved for the
+request's whole lifetime.  There ``prefill_chunk=0`` prefills each admitted
+prompt whole instead, ``[1, L]`` at its own length (no padding: eager
+PyTorch needs no graph per padded length, and the ``flash_attention``
+kernel masks by index, so it must never see a pad):
 
     admit + whole prefill of each admitted prompt -> one [B] decode step
 
-On the paged path pages are reserved on demand: admission takes only the
-pages the prefill writes (gated to leave one free page per decoding slot,
-the reference's ``headroom`` policy), decode grows a slot page by page, and
-a dry pool preempts the last-admitted live request: its pages are released
-and it re-queues PREEMPTED, to be re-prefilled (prompt + generated-so-far)
-and resumed token-exactly when pages free up.
+Under the default on-demand reservation on the paged pool
+(``preemption=None`` or True) admission takes only the pages the prefill
+writes, gated to leave what the ``admission`` policy reserves for the
+decoding slots (``_admission_headroom``), decode grows a slot page by page,
+and a dry pool preempts the last-admitted live request: its pages are
+released and it re-queues PREEMPTED, to be re-prefilled (prompt +
+generated-so-far) and resumed token-exactly when pages free up.
+``preemption=False`` reserves prompt + max_new up front instead; nothing
+is ever evicted.
 
-``submit`` enqueues a request, ``step`` advances every live slot one
-iteration, ``drain`` steps until the system is empty and ``serve`` wraps
-them for a closed-loop workload.  ``serve(reqs, plan=name)`` after
-``add_plan`` serves a LExI plan from the same runner and weights, and a
-request's own ``plan`` serves it under that plan whatever its batchmates
-run (DESIGN.md §10): a step whose live slots share one plan runs that
-plan's step; a mixed step runs the bucketed-k step for the batch's
-per-layer largest k, each row capped at its own plan's k
-(``_plan_batch``, counted in ``stats["mixed_plan_steps"]``).
+With ``prefix_cache=True`` (paged, on-demand, no sliding-window ring) full
+KV pages are indexed by their token chain and the request's salt
+(``_salt_for``: its served plan and the expert dtype); an admission maps
+the longest cached prefix into the slot's table (copy-on-write of a
+boundary page it must rewrite) and prefills from the first uncached
+position, and a preempted request whose whole fill is still cached
+resumes straight to DECODE.
+
+The loop is continuous and arrival-aware: ``submit(req, arrival_time=)``
+puts a request on a time-ordered arrival queue, ``step`` releases due
+arrivals and advances every live slot one iteration (returning the
+requests that completed in it), ``drain`` steps until the system is empty
+(idling the clock toward the next arrival), ``cancel`` aborts a request
+wherever it is and ``pop_finished`` retires finished records mid-flight.
+``serve`` wraps them for a workload, closed loop or at ``arrival_times``.
+Time comes from one injected clock: the wall clock, or a ``VirtualClock``
+(one tick a step) for scripted arrivals.
+
+``serve(reqs, plan=name)`` after ``add_plan`` serves a LExI plan from the
+same runner and weights, and a request's own ``plan`` serves it under that
+plan whatever its batchmates run (DESIGN.md §10): a step whose live slots
+share one plan runs that plan's step; a mixed step runs the bucketed-k step
+for the batch's per-layer largest k, each row capped at its own plan's k
+(``_plan_batch``, counted in ``stats["mixed_plan_steps"]``).  Under pool or
+queue pressure, ``set_plan_ladder`` + ``degrade_under_pressure=True`` move
+a non-priority request one rung down the ladder per (re-)admission, always
+at the prefill boundary.
 
 On the card every chunk and decode step replays a CUDA graph captured for
 its specialization key (``serving/runner.py``); ``Engine(graphs=False)``
-runs the same steps eagerly, the oracle.  Not ported yet (ROADMAP.md): the
-prefix cache and the plan-degradation ladder (A5), the other admission
-policies, whole-lifetime reservation on the paged pool, the sjf scheduler
-policy and open-loop arrival times (A6), chunked prefill on the
-contiguous layout (A7) and router lookahead (A8).
+runs the same steps eagerly, the oracle.  Not ported yet (ROADMAP.md):
+router lookahead (A8), incremental detokenization and the HTTP front end
+(A9), and the mamba / encoder-decoder stacks (A13).
 
 ``Engine(expert_dtype="int8" | "int4")`` quantizes the routed experts at
 load (``quantize_expert_params``) and serves them through the
@@ -50,6 +69,8 @@ quantized weights.
 
 from __future__ import annotations
 
+import heapq
+import math
 import time
 from dataclasses import replace
 from typing import Dict, List, Optional, Sequence
@@ -71,6 +92,11 @@ from repro_torch.serving.scheduler import DECODE, DONE, PREFILL, Scheduler, \
 
 _CHUNKABLE_KINDS = ("attn_mlp", "attn_moe")
 
+#: admission-gate policies for on-demand paged admission (DESIGN.md §11):
+#: how many free pages an admission must leave for the slots already
+#: decoding, so that a newcomer is not preempted right back out
+ADMISSION_POLICIES = ("headroom", "watermark", "lookahead", "greedy")
+
 
 class Engine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
@@ -81,6 +107,14 @@ class Engine:
                  use_kernel: Optional[bool] = None,
                  use_moe_decode: Optional[bool] = None,
                  expert_dtype: Optional[str] = None,
+                 preemption: Optional[bool] = None,
+                 prefix_cache: bool = False,
+                 scheduler: str = "fifo",
+                 admission: str = "headroom",
+                 admission_watermark: float = 0.25,
+                 truncate_prompts: bool = False,
+                 degrade_under_pressure: bool = False,
+                 degrade_watermark: float = 0.25,
                  eos_id: Optional[int] = None, opts: ModelOpts = DEFAULT_OPTS,
                  clock: Optional[Clock] = None, seed: int = 0, device=None,
                  graphs: bool = True):
@@ -94,7 +128,10 @@ class Engine:
                 "only (ROADMAP.md A13)")
         self.max_batch = max_batch
         self.max_len = max_len
+        self.prefill_pad = prefill_pad
+        # engine-wide default stop token; a Request.eos_id overrides it
         self.eos_id = eos_id
+        self.truncate_prompts = truncate_prompts
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.clock = clock if clock is not None else WallClock()
@@ -102,22 +139,13 @@ class Engine:
             cache_layout = "paged"
         if cache_layout not in ("paged", "contiguous"):
             raise ValueError(f"unknown cache layout {cache_layout!r}")
-        # paged: chunked prefill, on-demand pages and preemption;
-        # contiguous: whole-prompt [1, L] prefill (prefill_chunk=0) into a
-        # row reserved for the request's whole lifetime
         self.contiguous = cache_layout == "contiguous"
-        if not self.contiguous and prefill_chunk == 0:
+        # prefill_chunk=0: whole-prompt [1, L] prefill into the slot row
+        # (contiguous only); anything else chunks, on either layout
+        self.chunked = prefill_chunk != 0
+        if not self.contiguous and not self.chunked:
             raise ValueError("whole-prompt prefill (prefill_chunk=0) writes "
                              "a slot row; use cache_layout='contiguous'")
-        if self.contiguous and prefill_chunk != 0:
-            raise NotImplementedError(
-                "chunked prefill on the contiguous layout is not ported yet "
-                "(ROADMAP.md A7); pass prefill_chunk=0")
-        # cap at the ring size: a chunk wider than the window would scatter
-        # two positions into one ring slot within a single write
-        self.prefill_chunk = (0 if self.contiguous else
-                              min(prefill_chunk or prefill_pad,
-                                  cache_buf_len(cfg, max_len)))
         # in-kernel paged decode and the fused decode-regime MoE path; the
         # gather / gmm paths stay the equivalence oracles when False
         self.use_kernel = (opts.use_paged_kernel if use_kernel is None
@@ -128,6 +156,47 @@ class Engine:
         self.use_moe_decode = (opts.use_moe_decode_kernel
                                if use_moe_decode is None
                                else bool(use_moe_decode))
+        # on-demand page reservation + preemption (None -> on for paged);
+        # False reserves prompt + max_new for the request's whole life
+        if preemption is None:
+            preemption = cache_layout == "paged"
+        if preemption and cache_layout != "paged":
+            raise ValueError("preemption manages the paged pool; it needs "
+                             "cache_layout='paged'")
+        self.ondemand = bool(preemption)
+        if admission not in ADMISSION_POLICIES:
+            raise ValueError(f"admission={admission!r}; "
+                             f"want one of {ADMISSION_POLICIES}")
+        if admission != "headroom" and not self.ondemand:
+            raise ValueError("admission policies gate on-demand paged "
+                             "admission; they need preemption=True "
+                             "(whole-lifetime reservation never over-admits)")
+        self.admission = admission
+        self.admission_watermark = float(admission_watermark)
+        # prefix caching needs the paged layout (a page is the sharing
+        # unit), the on-demand discipline (whole-lifetime reservation never
+        # releases pages early enough to share) and no ring wrap (a
+        # sliding-window ring rewrites pages in place, so a cached page
+        # would stop being the pure function of its token prefix)
+        self.prefix_cache = bool(prefix_cache)
+        if self.prefix_cache:
+            if cache_layout != "paged":
+                raise ValueError("prefix_cache shares pages; it needs "
+                                 "cache_layout='paged'")
+            if not self.ondemand:
+                raise ValueError("prefix_cache needs the on-demand "
+                                 "reservation discipline (preemption=True)")
+            if cache_buf_len(cfg, max_len) < max_len:
+                raise ValueError(
+                    "prefix_cache cannot serve a sliding-window ring "
+                    f"(cache_buf_len={cache_buf_len(cfg, max_len)} < "
+                    f"max_len={max_len}): wrapped pages are rewritten in "
+                    "place, so cached content would go stale")
+        # cap at the ring size: a chunk wider than the window would scatter
+        # two positions into one ring slot within a single write
+        self.prefill_chunk = (min(prefill_chunk or prefill_pad,
+                                  cache_buf_len(cfg, max_len))
+                              if self.chunked else 0)
         # quantized expert tiles: quantize at load, so the engine never
         # holds both weight copies (every non-expert tensor is shared with
         # the caller's params)
@@ -150,10 +219,23 @@ class Engine:
                        expert_dtype=ed)
         self.runner = ModelRunner(cfg, params, opts=opts, graphs=graphs)
         self.plan_name = BASE_PLAN
+        # pressure-adaptive plan degradation (DESIGN.md §10): an ordered
+        # expensive -> cheap ladder of plan names; under pressure an
+        # admission moves a non-priority request one rung down, always at
+        # the prefill boundary (the salt change makes the old rung's
+        # cached prefix a miss, and a live slot's cache is never touched)
+        self.plan_ladder: tuple = ()
+        self.degrade_under_pressure = bool(degrade_under_pressure)
+        self.degrade_watermark = float(degrade_watermark)
         self.kv = KVCache(self.cfg, max_batch, max_len, layout=cache_layout,
                           page_size=page_size, num_pages=num_pages,
-                          device=self.device)
-        self.sched = Scheduler(max_batch, clock=self.clock)
+                          prefix_cache=self.prefix_cache, device=self.device)
+        self.sched = Scheduler(max_batch, policy=scheduler, clock=self.clock)
+        # time-ordered arrival queue: a request submitted for a future
+        # arrival_time waits here until the clock reaches it
+        self._pending: List = []        # heap of (arrival_time, seq, Request)
+        self._pending_seq = 0
+        self._pending_uids: set = set()
         self.slot_pos = np.full(max_batch, -1, np.int32)    # next write pos
         self.slot_last = np.zeros(max_batch, np.int32)      # last sampled tok
         self.slot_budget = np.zeros(max_batch, np.int32)
@@ -163,16 +245,18 @@ class Engine:
 
     @staticmethod
     def _fresh_stats() -> Dict[str, float]:
-        # prefill_tokens counts each prompt position once (useful work);
-        # positions re-prefilled when a preempted request resumes land in
-        # recompute_tokens, so throughput() reflects useful tokens
+        # prefill_tokens counts each prompt position computed once (useful
+        # work); positions re-prefilled when a preempted request resumes
+        # land in recompute_tokens, and positions served from cached pages
+        # in prefix_hit_tokens, so throughput() reflects useful tokens.
         # decode_s / decode_host_s: wall seconds of the decode steps, and
         # of their host part up to the step's return (before sampling
         # waits for the device)
         return {"prefill_tokens": 0, "decode_tokens": 0,
                 "recompute_tokens": 0, "steps": 0, "preemptions": 0,
-                "live_peak": 0, "mixed_plan_steps": 0, "decode_s": 0.0,
-                "decode_host_s": 0.0}
+                "live_peak": 0, "prefix_hit_tokens": 0, "cow_copies": 0,
+                "plan_degradations": 0, "mixed_plan_steps": 0,
+                "decode_s": 0.0, "decode_host_s": 0.0}
 
     # ------------------------------------------------------------------ #
     # Plans
@@ -184,6 +268,48 @@ class Engine:
     def add_plan(self, name: str, plan) -> ModelConfig:
         """Register a LExI plan; weights stay shared with the base config."""
         return self.runner.add_plan(name, plan)
+
+    def set_plan_ladder(self, names: Sequence[str]) -> None:
+        """Declare the degradation ladder, most expensive rung first; every
+        name must already be registered (``add_plan`` / "base")."""
+        for n in names:
+            if n not in self.runner.plans:
+                raise ValueError(f"unknown plan {n!r} in ladder; "
+                                 f"have {sorted(self.runner.plans)}")
+        self.plan_ladder = tuple(names)
+
+    def _under_pressure(self) -> bool:
+        """Compute pressure (more requests queued than slots free) or
+        KV-pool pressure (free pages below the watermark share)."""
+        if len(self.sched.waiting) > len(self.sched.free_slots()):
+            return True
+        if not self.contiguous:
+            total = self.kv.num_pages - 1       # minus the trash page
+            return total > 0 and (self.kv.free_pages()
+                                  < self.degrade_watermark * total)
+        return False
+
+    def _degraded_rung(self, t: Tracked) -> str:
+        """The plan to try admitting ``t`` under: its current rung, or one
+        rung cheaper when the policy is on, the request is degradable
+        (priority 0, on the ladder, not at the bottom) and the system is
+        under pressure.  Committed only if the allocation succeeds."""
+        cur = t.served_plan
+        if (not self.degrade_under_pressure or not self.plan_ladder
+                or t.req.priority > 0 or cur not in self.plan_ladder):
+            return cur
+        i = self.plan_ladder.index(cur)
+        if i + 1 >= len(self.plan_ladder) or not self._under_pressure():
+            return cur
+        return self.plan_ladder[i + 1]
+
+    def _commit_plan(self, t: Tracked, served: str) -> None:
+        """Record a successful admission's (possibly degraded) rung."""
+        if served != t.served_plan:
+            t.served_plan = served
+            t.result.served_plan = served
+            t.result.plan_degradations += 1
+            self.stats["plan_degradations"] += 1
 
     def set_plan(self, name: str) -> None:
         """Switch the serving plan (between workloads only)."""
@@ -197,11 +323,35 @@ class Engine:
     # ------------------------------------------------------------------ #
     # Submission
     # ------------------------------------------------------------------ #
-    def submit(self, req: Request) -> Tracked:
-        """Enqueue a request now.  Validation (prompt length, KV capacity,
-        plan name) produces a rejected ``Result`` rather than an
-        exception."""
-        t = self.sched.submit(req)
+    def submit(self, req: Request, *,
+               arrival_time: Optional[float] = None) -> None:
+        """Enqueue a request for admission at ``arrival_time`` (clock
+        units; None = now), also while others are mid-prefill or
+        mid-decode.  Validation (prompt length, KV capacity, plan name)
+        happens at release and produces a rejected ``Result`` rather than
+        an exception."""
+        if req.uid in self._pending_uids or req.uid in self.sched._uids:
+            raise duplicate_uid_error(req.uid)
+        t = self.clock.now() if arrival_time is None else float(arrival_time)
+        heapq.heappush(self._pending, (t, self._pending_seq, req))
+        self._pending_seq += 1
+        self._pending_uids.add(req.uid)
+
+    def _release_arrivals(self) -> None:
+        """Move every due arrival into the scheduler (arrival order)."""
+        while self._pending and self._pending[0][0] <= self.clock.now():
+            t_arr, _, req = heapq.heappop(self._pending)
+            self._pending_uids.discard(req.uid)
+            self._submit(req, t_arrival=t_arr)
+
+    def next_arrival(self) -> Optional[float]:
+        """Earliest scheduled arrival still pending (None when empty)."""
+        return self._pending[0][0] if self._pending else None
+
+    def _submit(self, req: Request,
+                t_arrival: Optional[float] = None) -> Tracked:
+        t = self.sched.submit(req, t_submit=t_arrival)
+        # a per-request plan wins, else the serve / engine default
         t.plan = t.served_plan = (req.plan if req.plan is not None
                                   else self.plan_name)
         t.result.plan = t.result.served_plan = t.plan
@@ -209,7 +359,12 @@ class Engine:
         if t.prompt_len == 0:
             self.sched.reject(t, "rejected_empty_prompt")
         elif t.prompt_len > limit:
-            self.sched.reject(t, "rejected_prompt_too_long")
+            if self.truncate_prompts:
+                t.prompt = t.prompt[-limit:]
+                t.result.truncated = True
+                t.result.prompt_len = limit
+            else:
+                self.sched.reject(t, "rejected_prompt_too_long")
         if t.state != DONE and t.plan not in self.runner.plans:
             self.sched.reject(t, "rejected_unknown_plan")
         if (t.state != DONE and not self.contiguous
@@ -221,19 +376,76 @@ class Engine:
     # ------------------------------------------------------------------ #
     # Step phases
     # ------------------------------------------------------------------ #
+    def _salt_for(self, served_plan: str):
+        """Prefix-cache chain root key: what, beyond the tokens, changes
+        the K/V a prefill writes -- the served plan (per-layer expert
+        budgets) and the expert storage dtype.  A degraded resume thus
+        misses the old rung's pages and recomputes under the new plan."""
+        return (served_plan, self.expert_dtype)
+
+    def _admission_headroom(self) -> int:
+        """Free pages an on-demand admission must leave for the slots
+        already decoding, per the ``admission`` policy: ``headroom`` one
+        page a decoding slot; ``watermark`` a static share of the pool;
+        ``lookahead`` the pages each decoding slot claims within the next
+        ``page_size`` steps, bounded by its remaining budget; ``greedy``
+        none (the thrash baseline)."""
+        if self.admission == "greedy":
+            return 0
+        decoding = self.sched.in_state(DECODE)
+        if self.admission == "headroom":
+            return len(decoding)
+        if self.admission == "watermark":
+            total = self.kv.num_pages - 1       # minus the trash page
+            return math.ceil(self.admission_watermark * total)
+        need = 0                                # "lookahead"
+        for t in decoding:
+            have = int(self.slot_pos[t.slot]) + 1   # positions covered now
+            horizon = min(self.kv.page_size,
+                          max(int(self.slot_budget[t.slot]), 0))
+            need += (self.kv.pages_needed(have + horizon)
+                     - self.kv.pages_needed(have))
+        return need
+
     def _admit(self) -> None:
         def can_allocate(slot: int, t: Tracked) -> bool:
-            if self.contiguous:             # the whole row, for life
-                return self.kv.allocate(slot)
+            served = self._degraded_rung(t)
+            if not self.ondemand:       # the whole lifetime, up front
+                if not self.kv.allocate(slot, t.prompt_len
+                                        + t.req.max_new_tokens):
+                    return False
+                self._commit_plan(t, served)
+                return True
             # reserve only what this admission's prefill writes: the
             # prompt, plus generated-so-far minus the pending token on
-            # resume; leave one free page per decoding slot (each may
-            # cross a page boundary within page_size steps)
-            n = t.prompt_len + max(len(t.result.tokens) - 1, 0)
-            headroom = len(self.sched.in_state(DECODE))
-            if self.kv.free_pages() < self.kv.pages_needed(n) + headroom:
+            # resume
+            gen = t.result.tokens
+            fill = (np.concatenate([t.prompt, np.asarray(gen[:-1], np.int32)])
+                    if gen else t.prompt)
+            n = len(fill)
+            shared: List[int] = []
+            hit = chain = 0
+            if self.prefix_cache:
+                # a fresh request computes >= 1 position (its logits come
+                # from the last prompt token); a resume may reuse all
+                cap = n if gen else n - 1
+                shared, hit, chain = self.kv.match_prefix(
+                    self._salt_for(served), fill, cap)
+            # gate on the private need: hit pages already live cost
+            # nothing, an rc-0 LRU page or a COW copy costs one
+            cow = 1 if hit % self.kv.page_size else 0
+            cost = (self.kv.pages_needed(n)
+                    - self.kv.live_count(shared[:len(shared) - cow]))
+            if self.kv.free_pages() < cost + self._admission_headroom():
                 return False
-            return self.kv.allocate(slot, n)
+            if not self.kv.allocate(slot, n, shared=shared, keep_below=hit):
+                return False
+            if self.prefix_cache:
+                t.hit_len = hit
+                t.chain = chain
+                t.hashed_pages = hit // self.kv.page_size
+            self._commit_plan(t, served)
+            return True
 
         for t in self.sched.admit(can_allocate):
             self.slot_temp[t.slot] = t.req.temperature
@@ -247,7 +459,23 @@ class Engine:
                 t.fill = t.prompt
             self.slot_budget[t.slot] = t.req.max_new_tokens - len(gen)
             self.slot_pos[t.slot] = -1
-            if self.contiguous:
+            if t.hit_len:
+                # mapped-in pages cover [0, hit_len): chunked prefill
+                # starts at the first uncached position
+                self.stats["prefix_hit_tokens"] += t.hit_len
+                t.result.prefix_hit_tokens += t.hit_len
+                if t.hit_len % self.kv.page_size:
+                    self.stats["cow_copies"] += 1
+                    t.result.cow_copies += 1
+                t.consumed = t.hit_len
+                if t.consumed == t.fill_len:
+                    # a resume whose whole fill is still cached: straight
+                    # to DECODE, nothing recomputed
+                    assert t.resuming
+                    t.state = DECODE
+                    self.slot_pos[t.slot] = t.fill_len
+                    self.slot_last[t.slot] = t.result.tokens[-1]
+            if not self.chunked:
                 self._whole_prefill(t)
 
     def _eos_of(self, t: Tracked) -> Optional[int]:
@@ -307,9 +535,34 @@ class Engine:
         self.stats["mixed_plan_steps"] += 1
         return BASE_PLAN, bucket, budgets
 
+    def _seq_tokens(self, t: Tracked, a: int, b: int) -> np.ndarray:
+        """Token content at positions [a, b): the prompt, then generated
+        tokens (position i >= prompt_len holds ``result.tokens[i - L]``)."""
+        lo = t.prompt[a:b]
+        if b <= t.prompt_len:
+            return lo
+        gen = np.asarray(t.result.tokens[max(a - t.prompt_len, 0):
+                                         b - t.prompt_len], np.int32)
+        return np.concatenate([lo, gen]) if len(lo) else gen
+
+    def _register_pages(self, t: Tracked, written: int) -> None:
+        """Index every newly full page of ``t``'s slot (content below
+        ``written`` is committed).  A duplicate stays private (first wins
+        in the index); the chain id advances either way."""
+        if not self.prefix_cache:
+            return
+        p = self.kv.page_size
+        while (t.hashed_pages + 1) * p <= written:
+            j = t.hashed_pages
+            page = self.kv.slot_pages(t.slot)[j]
+            t.chain = self.kv.register_page(
+                t.chain, self._seq_tokens(t, j * p, (j + 1) * p), page)
+            t.hashed_pages += 1
+
     def _chunk_prefill_step(self, prefilling: List[Tracked]) -> None:
         """Advance every prefilling slot by one fixed-width chunk; fresh and
-        resuming requests ride the same step (resume is recompute)."""
+        resuming requests ride the same step (resume is recompute).  With a
+        prefix hit a slot's chunks start at ``hit_len``."""
         c = self.prefill_chunk
         tokens = np.zeros((self.max_batch, c), np.int32)
         positions = np.full((self.max_batch, c), -1, np.int32)
@@ -319,6 +572,7 @@ class Engine:
             n = min(c, t.fill_len - t.consumed)
             tokens[t.slot, :n] = t.fill[t.consumed:t.consumed + n]
             positions[t.slot, :n] = np.arange(t.consumed, t.consumed + n)
+            self.kv.assert_private(t.slot, t.consumed, t.consumed + n)
             t.consumed += n
             if t.resuming:
                 self.stats["recompute_tokens"] += n
@@ -343,8 +597,10 @@ class Engine:
         plan, bucket, budgets = self._plan_batch(prefilling)
         logits, self.kv.caches = self.runner.chunk_prefill(
             tokens, positions, last_idx, self.kv.caches,
-            self.kv.block_tables(), plan=plan, bucket=bucket,
-            k_budgets=budgets)
+            None if self.contiguous else self.kv.block_tables(),
+            plan=plan, bucket=bucket, k_budgets=budgets)
+        for t in prefilling:    # chunk writes are committed: index them
+            self._register_pages(t, t.consumed)
         if sampling:
             nxt = self._sample(logits)
             for t in sampling:
@@ -401,7 +657,7 @@ class Engine:
 
     def _decode_step(self, decoding: List[Tracked]) -> None:
         t0 = time.perf_counter()
-        if not self.contiguous:
+        if self.ondemand:
             decoding = self._grow_or_preempt(decoding)
             if not decoding:
                 return
@@ -410,6 +666,9 @@ class Engine:
         for t in decoding:
             tokens[t.slot] = self.slot_last[t.slot]
             pos[t.slot] = self.slot_pos[t.slot]
+            # past the shared prefix by construction (COW at admission)
+            self.kv.assert_private(t.slot, int(pos[t.slot]),
+                                   int(pos[t.slot]) + 1)
         kernel_blocks = self.kv.live_blocks(pos) if self.use_kernel else None
         plan, bucket, budgets = self._plan_batch(decoding)
         logits, self.kv.caches = self.runner.decode(
@@ -431,6 +690,9 @@ class Engine:
             self.stats["decode_tokens"] += 1
             k = f"plan_decode_tokens:{t.served_plan}"
             self.stats[k] = self.stats.get(k, 0) + 1
+            # register before any finish: a finishing request's pages then
+            # park in the LRU, content intact, instead of the free list
+            self._register_pages(t, int(self.slot_pos[t.slot]))
             eos = self._eos_of(t)
             done_eos = eos is not None and tok == eos
             done_len = (self.slot_budget[t.slot] <= 0
@@ -439,32 +701,18 @@ class Engine:
                 self._finish(t, "eos" if done_eos else "length")
 
     def _abort(self, reason: str) -> None:
-        """Drain every live and queued request so a failed drain cannot
-        wedge the engine."""
+        """Drain every live, queued and not-yet-arrived request so a failed
+        drain cannot wedge the engine."""
         for t in [x for x in self.sched.slots if x is not None]:
             self._finish(t, reason)
         for t in list(self.sched.waiting):
             self.sched.reject(t, reason)
+        while self._pending:    # future arrivals reject without admission
+            _, _, req = heapq.heappop(self._pending)
+            self._pending_uids.discard(req.uid)
+            self.sched.reject(self.sched.submit(req), reason)
 
-    # ------------------------------------------------------------------ #
-    # Public API
-    # ------------------------------------------------------------------ #
-    def idle(self) -> bool:
-        """Nothing live or queued."""
-        return self.sched.done()
-
-    def reset_stats(self) -> None:
-        """Start a fresh workload: zero the counters and drop the previous
-        workload's finished records (releasing their uid claims)."""
-        if not self.idle():
-            raise RuntimeError("cannot reset stats with requests in flight")
-        self.stats = self._fresh_stats()
-        self.sched.clear_finished()
-
-    def step(self) -> List[Result]:
-        """One engine iteration: admit, one chunked-prefill step, one
-        decode step.  Returns the requests that completed this step."""
-        n0 = len(self.sched.finished)
+    def _step(self) -> None:
         self._admit()
         live = sum(t is not None for t in self.sched.slots)
         self.stats["live_peak"] = max(self.stats["live_peak"], live)
@@ -474,43 +722,123 @@ class Engine:
         decoding = self.sched.in_state(DECODE)
         if decoding:
             self._decode_step(decoding)
+
+    # ------------------------------------------------------------------ #
+    # Public API
+    # ------------------------------------------------------------------ #
+    def idle(self) -> bool:
+        """Nothing live, queued or scheduled to arrive."""
+        return not self._pending and self.sched.done()
+
+    def reset_stats(self) -> None:
+        """Start a fresh workload: zero the counters and drop the previous
+        workload's finished records (releasing their uid claims)."""
+        if not self.idle():
+            raise RuntimeError("cannot reset stats with requests in flight")
+        self.stats = self._fresh_stats()
+        self.sched.clear_finished()
+
+    def pop_finished(self) -> List[Result]:
+        """Retire the finished records: return their results and release
+        the records and uid claims; works mid-flight (the counters are
+        untouched)."""
+        return self.sched.pop_finished()
+
+    def cancel(self, uid, *, reason: str = "cancelled") -> bool:
+        """Abort one request wherever it is: not yet arrived (off the
+        arrival heap), queued (rejected) or live in a slot (finished, its
+        pages released).  It retires as a finished record with
+        ``finished_reason=reason``.  False when the uid is unknown or
+        already finished."""
+        for i, (t_arr, _, req) in enumerate(self._pending):
+            if req.uid == uid:
+                del self._pending[i]
+                heapq.heapify(self._pending)
+                self._pending_uids.discard(uid)
+                self.sched.reject(self.sched.submit(req, t_submit=t_arr),
+                                  reason)
+                return True
+        for t in list(self.sched.waiting):
+            if t.req.uid == uid:
+                self.sched.reject(t, reason)
+                return True
+        for t in self.sched.slots:
+            if t is not None and t.req.uid == uid:
+                self._finish(t, reason)
+                return True
+        return False
+
+    def step(self) -> List[Result]:
+        """One engine iteration: release due arrivals, admit, one
+        chunked-prefill step, one decode step, tick the clock.  Returns the
+        requests that completed this step."""
+        n0 = len(self.sched.finished)
+        self._release_arrivals()
+        self._step()
         self.clock.on_step()
         return [t.result for t in self.sched.finished[n0:]]
 
     def drain(self, *, max_steps: Optional[int] = None) -> List[Result]:
-        """Step until the system is empty; ``max_steps`` bounds the loop
-        (exceeding it aborts everything in flight and raises)."""
+        """Step until the system is empty (slots, queue and arrival heap);
+        while nothing is runnable the clock idles toward the next arrival.
+        ``max_steps`` bounds the loop (exceeding it aborts everything in
+        flight and raises)."""
         out: List[Result] = []
         n_steps = 0
         while not self.idle():
             if max_steps is not None and n_steps >= max_steps:
+                queued, live = (len(self.sched.waiting),
+                                sum(t is not None for t in self.sched.slots))
                 self._abort("aborted_max_steps")
-                raise RuntimeError(f"drain() exceeded max_steps={max_steps}")
+                raise RuntimeError(
+                    f"drain() exceeded max_steps={max_steps}: {queued} "
+                    f"queued, {live} live ({self.stats['preemptions']} "
+                    "preemptions so far)")
+            if (self._pending and self.sched.done()
+                    and self._pending[0][0] > self.clock.now()):
+                self.clock.sleep_until(self._pending[0][0])
             out.extend(self.step())
             n_steps += 1
         return out
 
     def serve(self, requests: Sequence[Request], *,
               plan: Optional[str] = None,
-              max_steps: Optional[int] = None) -> List[Result]:
-        """Run a closed-loop workload with continuous batching; returns all
-        results sorted by uid.  ``plan=`` serves the wave under a
-        registered plan (omitted: the base config)."""
+              max_steps: Optional[int] = None,
+              arrival_times: Optional[Sequence[float]] = None
+              ) -> List[Result]:
+        """Run a workload with continuous batching; returns all results
+        sorted by uid.  Every request is submitted up front, at now
+        (closed loop) or at ``now + arrival_times[i]`` (open loop, clock
+        units).  ``plan=`` is this serve's default plan (omitted: the base
+        config)."""
         self.set_plan(plan if plan is not None else BASE_PLAN)
         uids = [r.uid for r in requests]
         if len(set(uids)) != len(uids):
             seen: set = set()
             raise duplicate_uid_error(
                 next(u for u in uids if u in seen or seen.add(u)))
+        if arrival_times is not None and len(arrival_times) != len(requests):
+            raise ValueError(f"{len(arrival_times)} arrival_times for "
+                             f"{len(requests)} requests")
         self.reset_stats()
         g0 = dict(self.runner.stats)
+        ev0 = self.kv.stats.get("cache_evictions", 0)
         t0 = self.clock.now()
-        for r in requests:
-            self.submit(r)
+        for i, r in enumerate(requests):
+            off = arrival_times[i] if arrival_times is not None else 0.0
+            self.submit(r, arrival_time=t0 + off)
         self.drain(max_steps=max_steps)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.stats["wall_s"] = max(self.clock.now() - t0, 0.0)
+        # share of prefill-source positions served from cached pages
+        hit = self.stats["prefix_hit_tokens"]
+        denom = (hit + self.stats["prefill_tokens"]
+                 + self.stats["recompute_tokens"])
+        self.stats["prefix_hit_rate"] = hit / denom if denom else 0.0
+        # cached pages this serve evicted from the LRU to make room
+        self.stats["cache_evictions"] = (
+            self.kv.stats.get("cache_evictions", 0) - ev0)
         # this serve's CUDA graphs: captured (and their host seconds) and
         # replayed; 0 where the steps ran eagerly
         g = self.runner.stats

@@ -15,20 +15,34 @@ accounting, as ``repro.serving.kv_cache`` does.  Two layouts:
 ``contiguous``
     One ``[max_len]`` row per slot, reserved for a request's whole
     lifetime: ``allocate`` and ``release`` only reset the row's ``pos`` to
-    -1 (the k / v bytes left behind are masked by it), and a whole-prompt
-    prefill writes into ``[1, ...]`` views of its row.  The page accounting
+    -1 (the k / v bytes left behind are masked by it).  The page accounting
     (``pages_needed``, ``free_pages``, ``fits_ever``, ``live_blocks``,
     ``block_tables``) belongs to the paged layout only.
 
-The paged layout's device block table is one tensor for the manager's
-whole life, refreshed in place when the host table changed: a step
-captured as a CUDA graph reads the table at the address it was captured
-at.
+With ``prefix_cache=True`` (paged only) pages are refcounted (``ref``) and
+may be shared across slots (DESIGN.md §8): admission adopts already
+computed pages into a new slot's table through ``allocate(...,
+shared=...)``, a partly reused boundary page is copied before any write
+(copy-on-write: no write may land in a page with refcount > 1), and a
+released page whose content the ``PrefixIndex`` holds parks, content
+intact, in an LRU of evictable cached pages instead of the free list.  The
+free pool is then the free list plus the LRU: ``_pop_pages`` evicts the
+oldest cached pages (unregistered, ``posp`` reset) only when the free list
+runs dry.  ``pages_in_use`` moves only on refcount 0 <-> 1 transitions, so
+a shared page counts once.
+
+Every device write is in place, on the tensors the caches hold for the
+manager's whole life (the reference rebinds its cache pytree instead): a
+step captured as a CUDA graph reads and writes them, and the block table,
+at the addresses it was captured at.  The device block table is refreshed
+in place from the host table when an allocation, adoption, copy-on-write
+or release changed it.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from collections import OrderedDict
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +50,7 @@ import torch
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import TRASH_PAGE, cache_buf_len
+from repro_torch.serving.prefix_cache import PrefixIndex
 
 
 class KVCache:
@@ -43,15 +58,19 @@ class KVCache:
 
     def __init__(self, cfg: ModelConfig, max_batch: int, max_len: int, *,
                  layout: str = "paged", page_size: int = 16,
-                 num_pages: Optional[int] = None, device):
+                 num_pages: Optional[int] = None, prefix_cache: bool = False,
+                 device):
         if layout not in ("paged", "contiguous"):
             raise ValueError(f"unknown cache layout {layout!r}")
+        if prefix_cache and layout != "paged":
+            raise ValueError("prefix_cache requires the paged layout")
         self.cfg = cfg
         self.layout = layout
         self.max_batch = max_batch
         self.max_len = max_len
         self.device = device
         self.s_buf = cache_buf_len(cfg, max_len)
+        self.prefix_cache = prefix_cache
         if layout == "contiguous":
             self.caches = models.init_caches(cfg, max_batch, max_len,
                                              layout="contiguous",
@@ -71,6 +90,11 @@ class KVCache:
         self.table = np.full((max_batch, self.blocks_per_slot), TRASH_PAGE,
                              np.int32)
         self._owned: List[List[int]] = [[] for _ in range(max_batch)]
+        self.ref = np.zeros(self.num_pages, np.int32)
+        # rc-0 pages whose content is still indexed, oldest first: free
+        # (evictable), yet reusable without recompute
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self.index = PrefixIndex(page_size) if prefix_cache else None
         #: the device table, refreshed in place (``block_tables``) when
         #: ``_table_dirty``; on the card through pinned staging
         self._table_dev = torch.from_numpy(self.table.copy()).to(device)
@@ -78,7 +102,8 @@ class KVCache:
         self._staging: Optional[torch.Tensor] = None
         self._copied = None
         self.stats = {"pages_in_use": 0, "pages_peak": 0,
-                      "free_low_watermark": self.free_pages()}
+                      "free_low_watermark": self.free_pages(),
+                      "cache_evictions": 0, "cow_copies": 0}
 
     # ------------------------------------------------------------------ #
     # Capacity accounting
@@ -89,10 +114,14 @@ class KVCache:
         return -(-min(total_tokens, self.s_buf) // self.page_size)
 
     def free_pages(self) -> int:
-        return len(self._free)
+        """Pages a new allocation can take: the free list plus the cached
+        rc-0 pages the LRU would surrender."""
+        return len(self._free) + len(self._lru)
 
     def fits_ever(self, total_tokens: int) -> bool:
-        """Could this request ever be admitted (even on an empty pool)?"""
+        """Could this request ever be admitted (even on an empty pool)?
+        Prefix hits are ignored: cached pages can be evicted before the
+        request completes."""
         return self.pages_needed(total_tokens) <= self.num_pages - 1
 
     def live_blocks(self, slot_pos) -> int:
@@ -108,18 +137,46 @@ class KVCache:
             bucket *= 2
         return min(bucket, self.blocks_per_slot)
 
+    def live_count(self, pages: Sequence[int]) -> int:
+        """How many of ``pages`` are pinned live (refcount >= 1) now:
+        adopting a live page costs no pool capacity, adopting an rc-0 LRU
+        page costs one (the admission gate prices a hit with this)."""
+        return sum(1 for p in pages if self.ref[p] > 0)
+
     # ------------------------------------------------------------------ #
     # Slot lifecycle
     # ------------------------------------------------------------------ #
-    def allocate(self, slot: int, total_tokens: int = 0) -> bool:
+    def allocate(self, slot: int, total_tokens: int = 0, *,
+                 shared: Sequence[int] = (), keep_below: int = 0) -> bool:
         """Reserve pages covering positions [0, total_tokens); False (pool
         untouched) if the pool cannot.  A contiguous slot row is always
-        free for its whole lifetime: its positions are cleared."""
+        free for its whole lifetime: its positions are cleared.
+
+        ``shared`` maps already computed prefix pages into the slot's
+        leading table columns (refcount +1 each) before fresh pages are
+        taken.  ``keep_below`` is how many leading positions their content
+        covers: if it ends mid-page, the boundary page is first copied into
+        a private page (copy-on-write) with the positions >= ``keep_below``
+        masked to -1, so the chunk that recomputes them never sees a
+        position both in the pre-write cache and in the chunk.  A failed
+        reservation rolls back every page taken or adopted."""
         if self.layout != "paged":
             self._clear_slot(slot)
             return True
         assert not self._owned[slot], f"slot {slot} already allocated"
-        return self._take(slot, self.pages_needed(total_tokens))
+        if shared:
+            assert self.prefix_cache, "shared pages need prefix_cache=True"
+            self._adopt(slot, list(shared))
+            if keep_below < len(shared) * self.page_size:
+                if not self._cow_boundary(slot, keep_below):
+                    self.release(slot)
+                    return False
+        if not self._take(slot, self.pages_needed(total_tokens)
+                          - len(self._owned[slot])):
+            if self._owned[slot]:
+                self.release(slot)
+            return False
+        return True
 
     def allocate_append(self, slot: int, total_tokens: int) -> bool:
         """Grow an allocated slot to cover positions [0, total_tokens); a
@@ -130,36 +187,119 @@ class KVCache:
         return self._take(slot, self.pages_needed(total_tokens)
                           - len(self._owned[slot]))
 
+    def _pop_pages(self, need: int) -> Optional[List[int]]:
+        """Pop ``need`` reusable pages: the free list first, then LRU
+        eviction (oldest cached page: unregistered, ``posp`` reset).  All
+        or nothing: on a shortfall every popped page returns to the free
+        list (an evicted one has lost its index entry; free_pages() is
+        unchanged)."""
+        pages: List[int] = []
+        evicted: List[int] = []
+        while len(pages) < need and self._free:
+            pages.append(self._free.pop())
+        while len(pages) < need and self._lru:
+            page, _ = self._lru.popitem(last=False)
+            self.index.unregister(page)
+            self.stats["cache_evictions"] += 1
+            evicted.append(page)
+            pages.append(page)
+        if evicted:
+            self._reset_pages(evicted)
+        if len(pages) < need:
+            self._free.extend(reversed(pages[:len(pages) - len(evicted)]))
+            self._free.extend(evicted)
+            return None
+        return pages
+
     def _take(self, slot: int, need: int) -> bool:
-        """Append ``need`` pages to ``slot`` (all or nothing)."""
+        """Append ``need`` private pages to ``slot`` (all or nothing)."""
         if need <= 0:
             return True
-        if need > len(self._free):
+        pages = self._pop_pages(need)
+        if pages is None:
             return False
-        pages = [self._free.pop() for _ in range(need)]
+        for p in pages:
+            self.ref[p] = 1
         have = len(self._owned[slot])
         self._owned[slot].extend(pages)
         self.table[slot, have:have + need] = pages
         self._table_dirty = True
         self.stats["pages_in_use"] += need
-        self.stats["pages_peak"] = max(self.stats["pages_peak"],
-                                       self.stats["pages_in_use"])
-        self.stats["free_low_watermark"] = min(
-            self.stats["free_low_watermark"], self.free_pages())
+        self._note_levels()
         return True
 
+    def _adopt(self, slot: int, shared: List[int]) -> None:
+        """Map shared prefix pages into ``slot``'s leading table columns,
+        refcount +1 each; an rc-0 page parked in the LRU is pinned live
+        again, its content reused without recompute."""
+        for p in shared:
+            if self.ref[p] == 0:
+                self._lru.pop(p)
+                self.stats["pages_in_use"] += 1
+            self.ref[p] += 1
+        have = len(self._owned[slot])
+        self._owned[slot].extend(shared)
+        self.table[slot, have:have + len(shared)] = shared
+        self._table_dirty = True
+        self._note_levels()
+
+    def _cow_boundary(self, slot: int, keep_below: int) -> bool:
+        """Copy-on-write the slot's last adopted page into a private page
+        (device copy, ``posp`` >= ``keep_below`` masked to -1); the source
+        keeps its other owners, or parks in the LRU if this adoption was
+        its only pin."""
+        got = self._pop_pages(1)
+        if got is None:
+            return False
+        dst = got[0]
+        j = len(self._owned[slot]) - 1
+        src = self._owned[slot][j]
+        self._copy_page(src, dst, keep_below)
+        self.ref[dst] = 1
+        self.stats["pages_in_use"] += 1
+        self.stats["cow_copies"] += 1
+        self._owned[slot][j] = dst
+        self.table[slot, j] = dst
+        self._table_dirty = True
+        self._drop_ref(src, batch=None)
+        self._note_levels()
+        return True
+
+    def _drop_ref(self, page: int, batch: Optional[List[int]]) -> None:
+        """Refcount -1; on 1 -> 0 the page leaves the live set: an indexed
+        page parks (content intact) at the young end of the LRU, any other
+        is reset and freed (appended to ``batch`` when the caller batches
+        the device reset)."""
+        self.ref[page] -= 1
+        assert self.ref[page] >= 0, f"page {page} over-released"
+        if self.ref[page] > 0:
+            return
+        self.stats["pages_in_use"] -= 1
+        if self.index is not None and self.index.is_indexed(page):
+            self._lru[page] = None
+        elif batch is not None:
+            batch.append(page)
+        else:
+            self._reset_pages([page])
+            self._free.append(page)
+
     def release(self, slot: int) -> None:
-        """Return a slot's pages to the pool, their ``posp`` reset (paged),
-        or clear the slot row's positions (contiguous)."""
+        """Return a slot's pages to the pool (paged) or clear the slot
+        row's positions (contiguous).  A shared page only drops a
+        refcount; the last owner's release parks indexed pages in the LRU
+        and resets and frees the rest."""
         if self.layout != "paged":
             self._clear_slot(slot)
             return
         pages = self._owned[slot]
         if not pages:
             return
-        self._reset_pages(pages)
-        self._free.extend(reversed(pages))
-        self.stats["pages_in_use"] -= len(pages)
+        dead: List[int] = []
+        for p in pages:
+            self._drop_ref(p, batch=dead)
+        if dead:
+            self._reset_pages(dead)
+            self._free.extend(reversed(dead))
         self._owned[slot] = []
         self.table[slot] = TRASH_PAGE
         self._table_dirty = True
@@ -167,6 +307,16 @@ class KVCache:
     def slot_pages(self, slot: int) -> List[int]:
         """The physical pages backing ``slot``, in block order."""
         return self._owned[slot]
+
+    def assert_private(self, slot: int, lo: int, hi: int) -> None:
+        """Before a write: every page covering positions [lo, hi) of
+        ``slot`` must be exclusively owned (refcount 1)."""
+        if self.layout != "paged" or hi <= lo:
+            return
+        for j in {(p % self.s_buf) // self.page_size for p in range(lo, hi)}:
+            p = self._owned[slot][j]
+            assert self.ref[p] == 1, \
+                f"write into shared page {p} (rc={self.ref[p]}) slot {slot}"
 
     def block_tables(self) -> torch.Tensor:
         """The device block table [max_batch, blocks_per_slot] int32: one
@@ -190,11 +340,68 @@ class KVCache:
             self._table_dirty = False
         return self._table_dev
 
+    def _note_levels(self) -> None:
+        self.stats["pages_peak"] = max(self.stats["pages_peak"],
+                                       self.stats["pages_in_use"])
+        self.stats["free_low_watermark"] = min(
+            self.stats["free_low_watermark"], self.free_pages())
+
+    # ------------------------------------------------------------------ #
+    # Prefix cache index
+    # ------------------------------------------------------------------ #
+    def match_prefix(self, salt: Tuple, tokens,
+                     max_tokens: int) -> Tuple[List[int], int, int]:
+        """Longest reusable cached prefix of ``tokens`` under ``salt`` ->
+        ``(pages, hit_len, chain)``: the pages to adopt
+        (``ceil(hit_len / page_size)``; the last is the copy-on-write
+        boundary when ``hit_len`` ends mid-page), how many leading
+        positions they cover (capped at ``max_tokens``), and the chain id
+        after the last fully reused page, which the owner's next full page
+        registers under."""
+        if self.index is None:
+            return [], 0, 0
+        pages, chains = self.index.match(salt, tokens)
+        hit = min(len(pages) * self.page_size, max_tokens)
+        if hit <= 0:
+            return [], 0, self.index.root(salt)
+        keep = -(-hit // self.page_size)
+        full = hit // self.page_size
+        chain = chains[full - 1] if full else self.index.root(salt)
+        return pages[:keep], hit, chain
+
+    def register_page(self, chain: int, tokens, page: int) -> int:
+        """Index slot-private page ``page`` as holding ``tokens`` after
+        prefix ``chain``; returns the chain id after it (first wins: a
+        duplicate keeps the existing entry and this page stays private)."""
+        assert self.ref[page] == 1, f"registering shared page {page}"
+        return self.index.register(chain, tokens, page)
+
+    def prefix_root(self, salt: Tuple) -> int:
+        """Chain id of the empty prefix under ``salt``."""
+        return self.index.root(salt) if self.index is not None else 0
+
+    # ------------------------------------------------------------------ #
+    # Device-side hygiene, in place
+    # ------------------------------------------------------------------ #
     def _reset_pages(self, pages: List[int]) -> None:
         """posp = -1 on recycled pages so stale entries can't pass the mask."""
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         for layer in self.caches:
             layer["posp"][idx] = -1
+
+    def _copy_page(self, src: int, dst: int, keep_below: int) -> None:
+        """Copy page ``src`` into ``dst`` in every paged leaf of every
+        layer (``kp`` / ``vp`` / ``posp``, or ``ckvp`` / ``kropep`` /
+        ``posp``), with ``posp`` entries >= ``keep_below`` masked to -1
+        (the K/V bytes past the boundary are copied but dead until
+        rewritten)."""
+        for layer in self.caches:
+            for name, leaf in layer.items():
+                if name == "posp":
+                    row = leaf[src]
+                    leaf[dst] = torch.where(row < keep_below, row, -1)
+                else:
+                    leaf[dst] = leaf[src]
 
     def _clear_slot(self, slot: int) -> None:
         """pos = -1 on a slot row (the k / v bytes are masked by it)."""

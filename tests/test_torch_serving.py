@@ -216,9 +216,16 @@ def test_cache_layout_options_are_checked(setup):
                use_kernel=True, device="cpu")
     with pytest.raises(ValueError, match="layout"):
         Engine(cfg_t, pt, cache_layout="ring", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg_t, pt, cache_layout="contiguous", prefill_chunk=16,
+    # the prefix cache needs the paged pool, on-demand pages and no ring
+    with pytest.raises(ValueError, match="paged"):
+        Engine(cfg_t, pt, cache_layout="contiguous", prefix_cache=True,
                device="cpu")
+    with pytest.raises(ValueError, match="on-demand"):
+        Engine(cfg_t, pt, cache_layout="paged", preemption=False,
+               prefix_cache=True, device="cpu")
+    with pytest.raises(ValueError, match="sliding-window"):
+        Engine(cfg_t.with_(sliding_window=8), pt, max_len=64,
+               prefix_cache=True, device="cpu")
 
 
 @pytest.mark.parametrize("layout_args", [

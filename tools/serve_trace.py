@@ -3,13 +3,17 @@
 attention kernels' device time, on one NVIDIA GPU.
 
     python3 tools/serve_trace.py [--root DIR] [--tag NAME] \\
-        [--modes graphs,eager] -- SERVE_ARGS
+        [--modes graphs,eager] [--prefix-cache] -- SERVE_ARGS
 
 Runs ``repro_torch.launch.serve`` of ``DIR/src`` (default: this checkout)
 with ``SERVE_ARGS`` and ``--profile``, once for each of ``--modes`` in
 turn: ``graphs`` (the launcher's default: every step a CUDA graph replay),
 ``eager`` (adds ``--eager``), or ``default`` (the launcher's default for a
-checkout that has no ``--eager``, where every step is eager).  The
+checkout that has no ``--eager``, where every step is eager).  With
+``--prefix-cache`` each mode runs twice in turn: as given (the cache off),
+then with the launcher's ``--prefix-cache`` added, where the launcher's
+warm-up wave fills the cache and the traced wave, the same requests, is a
+warm prefix serve (every full page of each prompt mapped in).  The
 launcher prints its own lines (report, device busy and idle share, top
 kernels), and this tool adds one JSON line per traced serve with every
 CUDA kernel's device time and call count whose name starts with one of
@@ -46,6 +50,9 @@ def main() -> int:
     ap.add_argument("--modes", default="graphs,eager",
                     help="comma list of graphs, eager, default: the serves "
                          "traced, in this order")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="trace each mode with the cache off, then warm "
+                         "(the launcher's --prefix-cache), in turns")
     ap.add_argument("serve_args", nargs=argparse.REMAINDER)
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(os.path.abspath(args.root), "src"))
@@ -57,7 +64,7 @@ def main() -> int:
     import repro_torch.launch.serve as serve
 
     breakdown = serve._device_breakdown
-    mode = {"now": ""}
+    mode = {"now": "", "prefix_cache": False}
 
     def with_attention(tag, prof, wall_s, top=10):
         breakdown(tag, prof, wall_s, top)
@@ -72,6 +79,7 @@ def main() -> int:
                 rows[e.key[:90]] = {"ms": t / 1e3, "calls": e.count}
         print(json.dumps({"attention": tag, "tag": args.tag,
                           "mode": mode["now"],
+                          "prefix_cache": mode["prefix_cache"],
                           "root": os.path.abspath(args.root),
                           "ms": sum(r["ms"] for r in rows.values()),
                           "kernels": rows}), flush=True)
@@ -81,14 +89,18 @@ def main() -> int:
     for m in args.modes.split(","):
         if m not in ("graphs", "eager", "default"):
             raise SystemExit(f"serve_trace: unknown mode {m!r}")
-        mode["now"] = m
-        print(json.dumps({"serve_trace": m, "tag": args.tag,
-                          "root": os.path.abspath(args.root)}), flush=True)
-        rc = serve.main(rest + ["--profile"]
-                        + (["--eager"] if m == "eager" else []))
-        torch.cuda.empty_cache()
-        if rc:
-            return rc
+        for pc in (False, True) if args.prefix_cache else (False,):
+            mode.update(now=m, prefix_cache=pc)
+            print(json.dumps({"serve_trace": m, "prefix_cache": pc,
+                              "tag": args.tag,
+                              "root": os.path.abspath(args.root)}),
+                  flush=True)
+            rc = serve.main(rest + ["--profile"]
+                            + (["--eager"] if m == "eager" else [])
+                            + (["--prefix-cache"] if pc else []))
+            torch.cuda.empty_cache()
+            if rc:
+                return rc
     return 0
 
 

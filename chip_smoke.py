@@ -70,12 +70,39 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 3d. serve_open_loop -- the 16 requests arriving at steps 0, 2, 4, ... on a
               VirtualClock: tokens equal the closed-loop serve's and the
               eager twin's; TTFT p50 / p95 in steps.
+3e. api_server check -- an ``ApiServer`` over the paged engine, the plan
+              registered as "lexi": four completions one at a time (base
+              and lexi, streamed and blocking) equal, in tokens and text,
+              the same engine's solo ``serve([req], detok=True)``; eight
+              client threads at once (mixed plans, priorities, streams):
+              every stream's deltas make its text, the text is the detok
+              of the tokens, the plan is as asked, and the count of
+              results equal to their solo serves is printed with the first
+              differing position of any other; ``/v1/stats`` finite while
+              they run; a client gone mid-stream returns every page and
+              the uid and the next completion equals its solo serve; the
+              engine handed back drained.  TTFT p50 / p95, a decode step's
+              wall and host ms behind the server, the pump's captures.
+3f. serve_lookahead -- serve's 8 requests with ``router_lookahead=True``
+              against it off, bf16 (``moe_decode``) and int8
+              (``moe_decode_quant``, ``moe_gmm_quant``): equal tokens,
+              every live decode logits row bitwise equal, equal launches;
+              the decode step's ms on and off, timed in turns.
+3g. api_server -- the port's server entry point
+              (``repro_torch.launch.api_server.main``, ``--smoke``) in
+              this process at full width over a localhost socket, with
+              every kernel's plain version forbidden on the card: the
+              kernel options on, ``moe_decode`` and ``flash_decode_paged``
+              once a layer in every decode step, ``moe_gmm`` launched, and
+              the engine and its weights freed when ``main`` returns.
 4. forward -- the paper's Fig. 4 comparison at full width: ``loss_fn``
               through ``flash_attention`` and the config's own ``dense``
               MoE (``moe_ffn``) on 4 x 512 tokens for the baseline, the
               LExI plan (``apply_plan_params``), and the ``inter_prune`` /
               ``intra_prune`` baselines at 0.25 (each pruned copy freed
-              before the next is built), and the baseline and the plan on
+              before the next is built), NAEE dynamic skipping at tau 0.3
+              (``dyn_skip``: its ms against the baseline's and its
+              expected skip rate), and the baseline and the plan on
               ``gmm`` (``moe_gmm``) too; median forward ms over interleaved
               repeats, and the cross-entropy of each; each forward a CUDA
               graph, then the same forwards eagerly (their medians beside).
@@ -1555,6 +1582,431 @@ def serve_contiguous_chunked(params, cfg, rows_paged, res_paged, device,
 
 
 # --------------------------------------------------------------------------- #
+# phases 3e-3g: the HTTP front end, router lookahead
+# --------------------------------------------------------------------------- #
+
+#: the completions of api_server_checks (request i of serve's draw):
+#: (plan, priority, stream); the first four also run one at a time
+API_SPECS = [("base", 0, True), ("lexi", 0, False), ("base", 1, False),
+             ("lexi", 1, True), ("base", 0, False), ("lexi", 0, True),
+             ("base", 1, True), ("lexi", 1, False)]
+
+
+def api_post(api, body, timeout=600):
+    """One completion over a localhost socket -> (status, events): the
+    NDJSON lines of a streamed answer, or [the JSON object]."""
+    import http.client
+    conn = http.client.HTTPConnection(api.host, api.port, timeout=timeout)
+    try:
+        conn.request("POST", "/v1/completions", body=json.dumps(body))
+        resp = conn.getresponse()
+        raw = resp.read().decode()
+        if resp.status == 200 and body.get("stream"):
+            return 200, [json.loads(ln) for ln in raw.splitlines()]
+        return resp.status, [json.loads(raw)]
+    finally:
+        conn.close()
+
+
+def api_result(tag, status, events, stream, plan):
+    """The final result of one completion, after the stream's checks:
+    deltas concatenate to the text, the text is the detok of the tokens,
+    the plan served is the one asked for."""
+    from repro_torch.serving import default_decode
+    if status != 200:
+        raise AssertionError(f"{tag}: HTTP {status} {events}")
+    res = events[-1]["result"] if stream else events[-1]
+    if stream:
+        if not events[-1].get("done") or not all(
+                "delta" in ev for ev in events[:-1]):
+            raise AssertionError(f"{tag}: stream events {events[-1]}")
+        if "".join(ev["delta"] for ev in events[:-1]) != res["text"]:
+            raise AssertionError(f"{tag}: deltas do not make the text")
+    if res["text"] != default_decode(res["tokens"]):
+        raise AssertionError(f"{tag}: text is not the detok of the tokens")
+    if res["served_plan"] != plan or res["finished_reason"] != "length":
+        raise AssertionError(f"{tag}: served {res['served_plan']!r}, ended "
+                             f"{res['finished_reason']!r}")
+    return res
+
+
+def first_difference(got, want):
+    """The first position where two token lists differ (None: equal)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def finite_tree(x) -> bool:
+    if isinstance(x, dict):
+        return all(finite_tree(v) for v in x.values())
+    return not isinstance(x, float) or np.isfinite(x)
+
+
+def api_server_checks(eng, cfg, device, t_start):
+    """Phase 3e: an ``ApiServer`` over the paged ``gmm`` engine (the plan
+    registered as "lexi").  Solo oracles first: each of API_SPECS served
+    alone by ``eng.serve([req], detok=True)``.  (a) four completions one at
+    a time equal their oracles in tokens and text; (b) eight client threads
+    at once: every result's checks (``api_result``), and how many equal
+    their oracles, with the first differing position of any that does not;
+    (c) a client that walks away mid-stream: the pool's free pages and the
+    uid come back, and the next completion equals its oracle; (d)
+    ``/v1/stats`` finite while the wave runs; after ``close()``
+    ``requests_total`` counts every completion and none is open; (e) the
+    engine drained.  Returns need."""
+    import socket
+    import threading
+    from repro_torch.serving import ApiServer
+    paged_kernels = ("moe_gmm", "moe_decode", "flash_decode_paged")
+    reqs = requests(cfg, seed=0)
+    oracles = []
+    for i, (plan, prio, _) in enumerate(API_SPECS):
+        r = replace(reqs[i], plan=plan, priority=prio)
+        (res,) = eng.serve([r], detok=True)
+        oracles.append(res)
+    body = lambda i: {"prompt": reqs[i].prompt.tolist(),      # noqa: E731
+                      "max_new_tokens": reqs[i].max_new_tokens,
+                      "plan": API_SPECS[i][0], "priority": API_SPECS[i][1],
+                      "stream": API_SPECS[i][2]}
+    free0 = eng.kv.free_pages()
+    s0 = dict(eng.stats)
+    g0 = eng.runner.stats["graphs"]
+    rec = {"check": "api_server"}
+
+    def exact(tag, i, res):
+        o = oracles[i]
+        if res["tokens"] != o.tokens or res["text"] != o.text:
+            raise AssertionError(
+                f"{tag}: completion {i} differs from its solo serve at "
+                f"token {first_difference(res['tokens'], o.tokens)}")
+
+    def run(step):
+        with ApiServer(eng) as api:
+            out = step(api)
+        if api.error is not None:
+            raise AssertionError(f"pump error {api.error!r}")
+        return api, out
+
+    def sequential(api):
+        walls = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            status, ev = api_post(api, body(i))
+            walls.append(time.perf_counter() - t0)
+            exact("sequential", i, api_result(
+                f"sequential {i}", status, ev, API_SPECS[i][2],
+                API_SPECS[i][0]))
+        return walls
+
+    api, walls = counted(lambda: run(sequential))[0]
+    rec["sequential_wall_s"] = walls
+    rec["sequential_equal_solo"] = 4
+
+    def wave(api):
+        got = [None] * len(API_SPECS)
+        scrapes, bad = [0], []
+        stop = threading.Event()
+
+        def client(i):
+            got[i] = api_post(api, body(i))
+
+        def scraper():
+            import http.client
+            conn = http.client.HTTPConnection(api.host, api.port,
+                                              timeout=60)
+            while not stop.is_set():
+                conn.request("GET", "/v1/stats")
+                stats = json.loads(conn.getresponse().read())
+                scrapes[0] += 1
+                if not finite_tree(stats):
+                    bad.append(stats)
+                time.sleep(0.005)
+            conn.close()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(API_SPECS))]
+        sc = threading.Thread(target=scraper)
+        t0 = time.perf_counter()
+        sc.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        stop.set()
+        sc.join(timeout=60)
+        if any(t.is_alive() for t in threads) or sc.is_alive():
+            raise AssertionError("api wave: a client thread hung")
+        if bad or not scrapes[0]:
+            raise AssertionError(f"api wave: {scrapes[0]} scrapes, "
+                                 f"not finite: {bad[:1]}")
+        return got, wall, scrapes[0]
+
+    (api, (got, wall, n_scrapes)), wave_counts = counted(lambda: run(wave))
+    s1 = dict(eng.stats)
+    results = [api_result(f"wave {i}", *got[i], API_SPECS[i][2],
+                          API_SPECS[i][0]) for i in range(len(API_SPECS))]
+    diff = {i: first_difference(r["tokens"], oracles[i].tokens)
+            for i, r in enumerate(results)}
+    ttft = [r["ttft_s"] * 1e3 for r in results]
+    steps = max(s1["steps"] - s0["steps"], 1)
+    rec.update(
+        wave_wall_s=wall, wave_stats_scrapes=n_scrapes,
+        wave_equal_solo=sum(d is None for d in diff.values()),
+        wave_first_difference={i: d for i, d in diff.items()
+                               if d is not None},
+        ttft_p50_ms=float(np.percentile(ttft, 50)),
+        ttft_p95_ms=float(np.percentile(ttft, 95)),
+        decode_steps=s1["steps"] - s0["steps"],
+        decode_step_ms=(s1["decode_s"] - s0["decode_s"]) / steps * 1e3,
+        decode_host_ms=(s1["decode_host_s"] - s0["decode_host_s"])
+        / steps * 1e3,
+        mixed_plan_steps=s1["mixed_plan_steps"] - s0["mixed_plan_steps"])
+    stats_after = api.stats()
+    if (stats_after["server"]["requests_total"] != len(API_SPECS)
+            or stats_after["server"]["open_completions"]):
+        raise AssertionError(f"api stats after close: "
+                             f"{stats_after['server']}")
+
+    def disconnect(api):
+        data = json.dumps({"prompt": reqs[4].prompt.tolist()[:16],
+                           "max_new_tokens": 400, "stream": True}).encode()
+        s = socket.create_connection((api.host, api.port), timeout=60)
+        s.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                  b"Content-Length: " + str(len(data)).encode()
+                  + b"\r\n\r\n" + data)
+        s.recv(4096)                # the headers, perhaps a first delta
+        s.close()                   # gone mid-stream
+        deadline = time.monotonic() + 60
+        while True:
+            with api.control():
+                clean = (not api._live and eng.sched.done()
+                         and not eng.sched._uids
+                         and eng.kv.free_pages() == free0)
+                generated = eng.stats["decode_tokens"]
+            if clean:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError("disconnect: pages or uid not released")
+            time.sleep(0.01)
+        status, ev = api_post(api, body(0))
+        exact("after the disconnect", 0, api_result(
+            "after the disconnect", status, ev, API_SPECS[0][2],
+            API_SPECS[0][0]))
+        return generated
+
+    api, generated = counted(lambda: run(disconnect))[0]
+    rec["disconnect_released"] = True
+    rec["disconnect_decode_tokens_before_release"] = (
+        generated - s1["decode_tokens"])
+    rec["next_completion_equal_solo"] = True
+    if eng.sched.slots.count(None) != eng.max_batch or eng.sched._uids:
+        raise AssertionError("api_server: the engine was not handed back "
+                             "drained")
+    drained("api_server", eng)
+    rec.update(graphs_captured_by_pump=eng.runner.stats["graphs"] - g0,
+               launches=wave_counts, engine_drained=True,
+               seconds_total=time.perf_counter() - t_start)
+    emit(rec)
+    return {"api_server_wave": (wave_counts, paged_kernels)}
+
+
+@contextmanager
+def decode_rows(eng):
+    """Record the logits of every live row of each decode step while
+    ``eng`` serves (a device copy, taken before the step's graph output is
+    overwritten), as [(positions, logits of the live rows)]."""
+    rows = []
+    dec = eng.runner.decode
+
+    def decode(tokens, pos, *a, **kw):
+        logits, caches = dec(tokens, pos, *a, **kw)
+        live = torch.from_numpy(np.flatnonzero(np.asarray(pos) >= 0))
+        rows.append((np.array(pos), logits[live.to(logits.device)].clone()))
+        return logits, caches
+    eng.runner.decode = decode
+    try:
+        yield rows
+    finally:
+        del eng.runner.decode
+
+
+def serve_lookahead(params, cfg, eng, device, t_start):
+    """Phase 3f: serve's 8 requests with ``router_lookahead=True`` against
+    the same engine settings with it off, in bf16 (``eng``; B3) and int8
+    (B5, B6): equal tokens, every decode step's live logits rows bitwise
+    equal (the kernels ignore the hint, and it touches no other value);
+    the decode step's wall ms on and off, timed serves interleaved.
+    Returns need."""
+    from repro_torch import models
+    from repro_torch.serving import Engine
+    kernels_of = {"bf16": ("moe_gmm", "moe_decode", "flash_decode_paged"),
+                  "int8": ("moe_gmm_quant", "moe_decode_quant",
+                           "flash_decode_paged")}
+
+    def make(dt, lookahead):
+        return Engine(cfg, params, max_batch=8, max_len=512,
+                      prefill_chunk=64, use_kernel=True, use_moe_decode=True,
+                      expert_dtype=dt, router_lookahead=lookahead,
+                      opts=models.ModelOpts(use_moe_kernel=True),
+                      device=device)
+    rec, need = {"phase": "serve_lookahead"}, {}
+    for dt in ("bf16", "int8"):
+        engines = {False: eng if dt == "bf16" else make(dt, False),
+                   True: make(dt, True)}
+        for e in engines.values():
+            e.serve(requests(cfg, seed=0))          # captures every key
+        step_ms, host_ms, res, rows, counts = {}, {}, {}, {}, {}
+        for on in (False, True, True, False):       # timed, in turns
+            e = engines[on]
+            e.serve(requests(cfg, seed=0))
+            r = serve_record(e)
+            step_ms.setdefault(on, []).append(r["decode_step_ms"])
+            host_ms.setdefault(on, []).append(r["decode_host_ms"])
+        for on, e in engines.items():
+            with decode_rows(e) as rows[on]:
+                res[on], counts[on] = counted(
+                    lambda: e.serve(requests(cfg, seed=0)))
+            check_results(f"lookahead {dt} {on}", res[on], cfg, 32)
+            need[f"lookahead_{dt}_{'on' if on else 'off'}"] = (
+                counts[on], kernels_of[dt])
+        same_tokens(f"lookahead {dt} on vs off", res[True], res[False])
+        if len(rows[True]) != len(rows[False]):
+            raise AssertionError(f"lookahead {dt}: {len(rows[True])} "
+                                 f"decode steps against {len(rows[False])}")
+        for (p1, l1), (p0, l0) in zip(rows[True], rows[False]):
+            if not (np.array_equal(p1, p0) and torch.equal(l1, l0)):
+                raise AssertionError(f"lookahead {dt}: decode logits differ "
+                                     f"at positions {p1}")
+        if counts[True] != counts[False]:
+            raise AssertionError(f"lookahead {dt}: launches {counts[True]} "
+                                 f"against {counts[False]}")
+        on_ms = statistics.mean(step_ms[True])
+        off_ms = statistics.mean(step_ms[False])
+        rec[dt] = {"decode_step_ms_on": step_ms[True],
+                   "decode_step_ms_off": step_ms[False],
+                   "decode_host_ms_on": host_ms[True],
+                   "decode_host_ms_off": host_ms[False],
+                   "hint_cost_per_step_ms": on_ms - off_ms,
+                   "hint_cost_share": on_ms / off_ms - 1.0,
+                   "decode_steps": len(rows[True]),
+                   "tokens_equal": True, "decode_logits_bitwise": True,
+                   "launches": counts[True]}
+        engines.pop(False)
+        del engines, e
+        torch.cuda.empty_cache()
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return need
+
+
+@contextmanager
+def forbid_plain():
+    """Make every kernel's plain version raise on a tensor on the card
+    while the block runs: the kernels' wrappers and the model's plain paths
+    look them up by module attribute at each call."""
+    import importlib
+    from repro_torch import kernels
+    saved = []
+    for name in ("flash_attention", "flash_decode", "flash_decode_paged",
+                 "moe_decode", "moe_ffn", "moe_gmm"):
+        mod = importlib.import_module(f"{kernels.__name__}.{name}")
+        for attr in dir(mod):
+            fn = getattr(mod, attr)
+            if attr.endswith("_plain") and callable(fn):
+                def guard(*a, _fn=fn, _attr=attr, **kw):
+                    if any(isinstance(t, torch.Tensor) and t.is_cuda
+                           for t in list(a) + list(kw.values())):
+                        raise AssertionError(f"{_attr} ran on the card")
+                    return _fn(*a, **kw)
+                saved.append((mod, attr, fn))
+                setattr(mod, attr, guard)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def api_server_phase(cfg, device, t_start):
+    """Phase 3g: the port's server entry point,
+    ``repro_torch.launch.api_server.main``, in this process at full OLMoE
+    width over a localhost socket (``--smoke``: a blocking, a streamed and
+    a "lexi" completion and a stats scrape), with every kernel's plain
+    version forbidden on the card.  The engine it builds must run the
+    kernel options, launch B3 and B4 once a layer in every decode step
+    (B1 in its chunks and plan search), and be freed, weights and graphs
+    included, before ``main`` returns.  Returns need."""
+    import gc
+    import io
+    import weakref
+    from contextlib import redirect_stdout
+    from repro_torch.launch import api_server
+    seen = {}
+    build, smoke = api_server.build_engine, api_server._smoke
+
+    def build_engine(args):
+        eng = build(args)
+        seen.update(opts=eng.runner.opts, engine=weakref.ref(eng),
+                    weights=weakref.ref(eng.runner.params["embed"]),
+                    moe_layers=sum(s.kind == "attn_moe"
+                                   for s in eng.cfg.pattern()),
+                    layers=len(eng.cfg.pattern()))
+        return eng
+
+    def smoke_(api, vocab):
+        seen["stats"] = smoke(api, vocab)
+        seen["runner"] = dict(api.engine.runner.stats)
+        return seen["stats"]
+    argv = ["--arch", cfg.name, "--smoke", "--port", "0", "--host",
+            "127.0.0.1", "--device", str(device), "--moe-impl", "gmm",
+            "--use-kernel",
+            "--use-moe-decode", "--use-moe-kernel", "--lexi-budget-frac",
+            "0.5", "--max-batch", "8", "--max-len", "512"]
+    api_server.build_engine, api_server._smoke = build_engine, smoke_
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with forbid_plain(), redirect_stdout(out):
+            rc, counts = counted(lambda: api_server.main(argv))
+    finally:
+        api_server.build_engine, api_server._smoke = build, smoke
+    wall = time.perf_counter() - t0
+    gc.collect()
+    if rc != 0 or "smoke ok" not in out.getvalue():
+        raise AssertionError(f"api_server main returned {rc}: "
+                             f"{out.getvalue()[-2000:]}")
+    opts = seen["opts"]
+    if not (opts.use_moe_kernel and opts.use_paged_kernel
+            and opts.use_moe_decode_kernel):
+        raise AssertionError(f"api_server: kernel options off: {opts}")
+    if seen["engine"]() is not None or seen["weights"]() is not None:
+        raise AssertionError("api_server: the engine or its weights outlived "
+                             "main()")
+    eng_stats = seen["stats"]["engine"]
+    steps = int(eng_stats["steps"])
+    per_step = {n: counts[n] for n in ("moe_decode", "flash_decode_paged")}
+    if steps <= 0 or any(c != steps * (seen["moe_layers"] if n ==
+                                       "moe_decode" else seen["layers"])
+                         for n, c in per_step.items()):
+        raise AssertionError(f"api_server: {per_step} launches over "
+                             f"{steps} decode steps")
+    emit({"phase": "api_server", "argv": argv, "wall_s": wall,
+          "decode_steps": steps,
+          "decode_step_ms": eng_stats["decode_s"] / steps * 1e3,
+          "decode_host_ms": eng_stats["decode_host_s"] / steps * 1e3,
+          "graphs_captured": seen["runner"]["graphs"],
+          "capture_s": seen["runner"]["capture_s"],
+          "throughput_tok_per_s": seen["stats"]["throughput_tok_per_s"],
+          "requests_total": seen["stats"]["server"]["requests_total"],
+          "launches": counts, "plain_on_card": 0, "engine_freed": True,
+          "stdout": out.getvalue().splitlines(),
+          "seconds_total": time.perf_counter() - t_start})
+    return {"api_server": (counts, ("moe_gmm", "moe_decode",
+                                    "flash_decode_paged"))}
+
+
+# --------------------------------------------------------------------------- #
 # phase 4: the paper's forward comparison
 # --------------------------------------------------------------------------- #
 
@@ -1587,6 +2039,16 @@ def forward_phase(params, cfg, plan, device, eager_too: bool = False):
                                      f"{e['xent']} against graphed "
                                      f"{out[name]['xent']}")
         rec["eager_ms_median"] = {n: e["ms_median"] for n, e in eager.items()}
+    for name, m in out.items():         # NAEE dynamic skipping's row
+        if name.startswith("dyn_skip"):
+            rec["dyn_skip"] = {
+                "name": name, "ms_median": m["ms_median"],
+                "ratio_to_baseline": (m["ms_median"]
+                                      / out["baseline"]["ms_median"]),
+                "expected_skip_rate": m["expected_skip_rate"],
+                "xent": m["xent"]}
+    if "dyn_skip" not in rec:
+        raise AssertionError(f"forward: no dyn_skip row in {sorted(out)}")
     return rec, counts
 
 
@@ -2085,9 +2547,15 @@ def main() -> int:
     res_base16, ladder_need = serve_ladder(params, cfg_gmm, eng, plan,
                                            device, t_start)
     need.update(ladder_need)
-    del eng
     need.update(serve_open_loop(params, cfg_gmm, res_base16, device,
                                 t_start))
+
+    # ---- phases 3e-3g: the HTTP front end, router lookahead -------------
+    need.update(api_server_checks(eng, cfg_gmm, device, t_start))
+    need.update(serve_lookahead(params, cfg_gmm, eng, device, t_start))
+    del eng
+    torch.cuda.empty_cache()
+    need.update(api_server_phase(cfg, device, t_start))
 
     # ---- phase 4: the paper's forward comparison ------------------------
     rec, fwd_counts = forward_phase(params, cfg, plan, device,

@@ -8,3 +8,5 @@ from repro_torch.core.search import SearchResult, dp_optimal, \
 from repro_torch.core.sensitivity import SensitivityTable, \
     iter_moe_layer_params, layer_deltas, profile_sensitivity  # noqa: F401
 from repro_torch.core.pruning import inter_prune, intra_prune  # noqa: F401
+from repro_torch.core.skipping import expected_skip_rate, \
+    with_dynamic_skipping  # noqa: F401

@@ -26,21 +26,42 @@ from repro_torch.kernels._checks import expect, expect_quant, on_card
 from repro_torch.models.moe.params import QUANT_DTYPES, unpack_int4
 
 
-def moe_decode_plain(x, w1, w2, idx, weights):
+def _gather(w, idx, pred_idx=None):
+    """w [E, ...] at ids idx [B, k] -> [B, k, ...].
+
+    With a router-lookahead hint ``pred_idx`` [B, k] (ids predicted one
+    layer ahead from the previous layer's pre-FFN hidden), a staged gather
+    on the prediction is hit-selected against a fresh gather on the true
+    ids: where ``pred == idx`` the select returns the staged block, bitwise
+    the fresh one, so the result is exactly the plain gather whatever the
+    hit rate (numerically a no-op)."""
+    fresh = w[idx.long()]
+    if pred_idx is None:
+        return fresh
+    staged = w[pred_idx.long()]
+    hit = (pred_idx == idx).reshape(idx.shape + (1,) * (w.ndim - 1))
+    return torch.where(hit, staged, fresh)
+
+
+def moe_decode_plain(x, w1, w2, idx, weights, pred_idx=None):
     """The kernel's function in plain PyTorch: gather the k routed experts'
-    weights per token and contract in f32."""
+    weights per token and contract in f32.  ``pred_idx`` (router lookahead)
+    stages the gathers on the predicted ids (``_gather``)."""
     f = w2.shape[1]
-    ix = idx.long()
-    hg = torch.einsum("bd,bkdf->bkf", x.float(), w1[ix].float())
+    hg = torch.einsum("bd,bkdf->bkf", x.float(),
+                      _gather(w1, idx, pred_idx).float())
     h = F_.silu(hg[..., :f]) * hg[..., f:]                   # [B, k, F]
-    y = torch.einsum("bkf,bkfd,bk->bd", h, w2[ix].float(), weights.float())
+    y = torch.einsum("bkf,bkfd,bk->bd", h,
+                     _gather(w2, idx, pred_idx).float(), weights.float())
     return y.to(x.dtype)
 
 
-def moe_decode(x, w1, w2, idx, weights):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+def moe_decode(x, w1, w2, idx, weights, pred_idx=None):
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors.
+    The kernel ignores ``pred_idx``, as the reference's kernel path does:
+    it reads each routed expert by the true ids."""
     if not on_card("moe_decode", x, w1, w2, idx, weights):
-        return moe_decode_plain(x, w1, w2, idx, weights)
+        return moe_decode_plain(x, w1, w2, idx, weights, pred_idx)
     b, d = x.shape
     e, f = w2.shape[0], w2.shape[1]
     k = idx.shape[1]
@@ -73,32 +94,37 @@ def moe_decode(x, w1, w2, idx, weights):
 moe_decode.launches = 0
 
 
-def moe_decode_quant_plain(x, w1q, w2q, s1, s2, idx, weights, *, dtype: str):
+def moe_decode_quant_plain(x, w1q, w2q, s1, s2, idx, weights, *, dtype: str,
+                           pred_idx=None):
     """The quantized kernel's function in plain PyTorch (the reference's
     ``moe_decode_routed_quant_jnp``): gather the routed experts' int8
-    weights and scale rows, dequantize where the kernel does -- s1 after
-    the first product, s2 folded into ``h`` -- and contract in f32."""
+    weights and scale rows (staged on ``pred_idx`` when given), dequantize
+    where the kernel does -- s1 after the first product, s2 folded into
+    ``h`` -- and contract in f32."""
     b = x.shape[0]
     f = w2q.shape[1]
-    ix = idx.long()
-    w1g, w2g = w1q[ix], w2q[ix]             # [B, k, D(p), 2F], [B, k, F, D(p)]
+    # [B, k, D(p), 2F], [B, k, F, D(p)] int8; [B, k, 2, F], [B, k, F] f32
+    w1g, w2g, s1g, s2g = (_gather(w, idx, pred_idx)
+                          for w in (w1q, w2q, s1, s2))
     if dtype == "int4":
         w1g, w2g = unpack_int4(w1g, 2), unpack_int4(w2g, 3)
     hg = torch.einsum("bd,bkdf->bkf", x.float(), w1g.float())
-    hg = hg.reshape(b, -1, 2, f) * s1[ix]                     # [B, k, 2, F]
-    h = F_.silu(hg[:, :, 0]) * hg[:, :, 1] * s2[ix]           # [B, k, F]
+    hg = hg.reshape(b, -1, 2, f) * s1g                        # [B, k, 2, F]
+    h = F_.silu(hg[:, :, 0]) * hg[:, :, 1] * s2g              # [B, k, F]
     y = torch.einsum("bkf,bkfd,bk->bd", h, w2g.float(), weights.float())
     return y.to(x.dtype)
 
 
-def moe_decode_quant(x, w1q, w2q, s1, s2, idx, weights, *, dtype: str):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+def moe_decode_quant(x, w1q, w2q, s1, s2, idx, weights, pred_idx=None, *,
+                     dtype: str):
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors,
+    which ignores ``pred_idx`` as ``moe_decode`` does."""
     if dtype not in QUANT_DTYPES:
         raise ValueError(f"moe_decode_quant: expert dtype {dtype!r} not in "
                          f"{QUANT_DTYPES}")
     args = (x, w1q, w2q, s1, s2, idx, weights)
     if not on_card("moe_decode_quant", *args):
-        return moe_decode_quant_plain(*args, dtype=dtype)
+        return moe_decode_quant_plain(*args, dtype=dtype, pred_idx=pred_idx)
     b, d = x.shape
     f = w2q.shape[1]
     k = idx.shape[1]

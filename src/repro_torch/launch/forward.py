@@ -1,13 +1,14 @@
 """The paper's Fig. 4 comparison on the card: the full-model forward
-(``loss_fn``) of the baseline, a LExI plan and the inter / intra pruning
-baselines -- median forward ms over interleaved repeats, and the
-cross-entropy of each.  The throughput side of
+(``loss_fn``) of the baseline, a LExI plan, the inter / intra pruning
+baselines and NAEE dynamic skipping -- median forward ms over interleaved
+repeats, and the cross-entropy of each.  The throughput side of
 ``benchmarks/bench_lexi_vs_pruning.py``; its quality side needs the
 model's real weights (random weights, drawn from ``--seed``, only show the
 path ran).
 
     PYTHONPATH=src python -m repro_torch.launch.forward --arch olmoe-1b-7b \
-        --batch 4 --seq 512 --lexi-budget-frac 0.5 --prune-frac 0.25
+        --batch 4 --seq 512 --lexi-budget-frac 0.5 --prune-frac 0.25 \
+        --skip-tau 0.3
 
     # the plain PyTorch path on the CPU, at test size
     PYTHONPATH=src python -m repro_torch.launch.forward --arch olmoe-1b-7b \
@@ -27,9 +28,14 @@ Every model runs the config's own MoE dispatch, the capacity-buffer
 ``dense`` impl (``moe_ffn``); the baseline and the plan run again on the
 dropless ``gmm`` dispatch (``moe_gmm``), as the reference benchmark's
 ``fig4/<name>~gmm`` rows: capacity drops change the dense numbers of a
-reduced-k plan.  Attention runs ``flash_attention`` on a GQA model (an MLA
-model, ``--arch deepseek-v2-lite``, attends through the plain masked
-softmax in train mode, as the reference).  The plan is profiled on
+reduced-k plan.  The ``dyn_skip_tau<tau>`` row is the baseline's weights
+with ``with_dynamic_skipping`` (``--skip-tau``; 0 leaves it out): its skip
+decision is data-dependent and its shapes static, so its forward should
+cost what the baseline's does; the row carries ``expected_skip_rate``, the
+mean over the MoE layers of each layer's Monte-Carlo skip share.
+Attention runs ``flash_attention`` on a GQA model (an MLA model, ``--arch
+deepseek-v2-lite``, attends through the plain masked softmax in train
+mode, as the reference).  The plan is profiled on
 ``gmm``, as the reference's Alg. 1.  Each pruned copy of the experts is
 built, timed in turns with the others, and freed before the next.
 
@@ -54,7 +60,8 @@ import torch
 from repro_torch import models
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import apply_plan_params, inter_prune, intra_prune
+from repro_torch.core import apply_plan_params, expected_skip_rate, \
+    inter_prune, intra_prune, iter_moe_layer_params, with_dynamic_skipping
 
 
 def make_batch(cfg: ModelConfig, batch: int, seq: int, seed: int,
@@ -107,15 +114,17 @@ def graph_context(device, graphs: bool = True):
 
 
 def compare(params, cfg: ModelConfig, plan, batch, *,
-            prune_frac: float = 0.25, reps: int = 5,
+            prune_frac: float = 0.25, skip_tau: float = 0.3, reps: int = 5,
             opts: models.ModelOpts = models.ModelOpts(
                 use_flash=True, use_moe_kernel=True),
             graphs: bool = True) -> Dict[str, Dict]:
     """Forward ms (each call ended by a device sync) and cross-entropy of
-    the baseline, ``plan`` and both pruning baselines at ``prune_frac`` on
-    ``cfg.moe_impl``, and -- unless that is ``gmm`` -- of the baseline and
-    ``plan`` on ``gmm`` too (``baseline~gmm``, ``lexi~gmm``): per model the
-    median, every timed call, and the MoE shape and impl it ran.  On the
+    the baseline, ``plan``, both pruning baselines at ``prune_frac`` and
+    dynamic skipping at ``skip_tau`` (where top-k >= 2 and ``skip_tau`` >
+    0; its row adds ``expected_skip_rate``) on ``cfg.moe_impl``, and --
+    unless that is ``gmm`` -- of the baseline and ``plan`` on ``gmm`` too
+    (``baseline~gmm``, ``lexi~gmm``): per model the median, every timed
+    call, and the MoE shape and impl it ran.  On the
     card each model's forward is a CUDA graph (``Forward``), captured by
     its untimed warm-up call and freed with the model; ``graphs=False``
     times them eagerly."""
@@ -126,6 +135,14 @@ def compare(params, cfg: ModelConfig, plan, batch, *,
     if cfg.moe_impl != "gmm":
         live["baseline~gmm"] = (params, cfg.with_(moe_impl="gmm"))
         live["lexi~gmm"] = (params_l, cfg_l.with_(moe_impl="gmm"))
+    skip = {}
+    if skip_tau > 0 and cfg.moe_top_k >= 2:
+        name = f"dyn_skip_tau{skip_tau:g}"
+        live[name] = (params, with_dynamic_skipping(cfg, skip_tau))
+        rates = [expected_skip_rate(mp, cfg, skip_tau)
+                 for _, mp in iter_moe_layer_params(params, cfg)]
+        skip[name] = {"expected_skip_rate": float(np.mean(rates)),
+                      "tau": skip_tau}
     live = {n: (p, c, Forward(p, c, batch, opts, ctx))
             for n, (p, c) in live.items()}
     every = list(live)
@@ -166,6 +183,7 @@ def compare(params, cfg: ModelConfig, plan, batch, *,
     for name, rec in out.items():
         rec["ms_median"] = statistics.median(times[name])
         rec["ms"] = times[name]
+        rec.update(skip.get(name, {}))
     return out
 
 
@@ -182,6 +200,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lexi-budget-frac", type=float, default=0.5,
                     help="active-expert budget of the plan searched inline")
     ap.add_argument("--prune-frac", type=float, default=0.25)
+    ap.add_argument("--skip-tau", type=float, default=0.3,
+                    help="NAEE dynamic-skipping threshold of the "
+                         "dyn_skip_tau<tau> row (0 leaves the row out)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profile", action="store_true",
                     help="then trace one forward of the baseline and the "
@@ -207,7 +228,8 @@ def main(argv=None) -> int:
                     device=device, use_kernel=True)
     batch = make_batch(cfg, args.batch, args.seq, args.seed, device)
     res = compare(params, cfg, plan, batch, prune_frac=args.prune_frac,
-                  reps=args.reps, opts=opts, graphs=not args.eager)
+                  skip_tau=args.skip_tau, reps=args.reps, opts=opts,
+                  graphs=not args.eager)
     print(json.dumps({"arch": cfg.name, "device": str(device),
                       "batch": [args.batch, args.seq], "plan": plan.plan,
                       "budget": budget, "graphs": not args.eager,

@@ -42,6 +42,11 @@ plan searched (or loaded) for the model -- on the card by default.
         --max-len 96 --moe-impl gmm --lexi-budget-frac 0.5 --prefix-cache \
         --open-loop-rate 50 --plan-ladder base,lexi --degrade-under-pressure
 
+    # router lookahead on the decode steps (the same tokens as without)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --reduced --device cpu --requests 4 --max-new 8 --max-len 96 \
+        --moe-impl gmm --use-moe-decode --router-lookahead
+
     # DeepSeek-V2-Lite: MLA attention (flash_decode_paged_mla in paged
     # decode under --use-kernel), a dense first layer, shared experts
     PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -231,6 +236,11 @@ def main(argv=None) -> int:
     ap.add_argument("--use-flash-decode", action="store_true",
                     help="decode attention over a contiguous view through "
                          "the flash_decode kernel")
+    ap.add_argument("--router-lookahead", action="store_true",
+                    help="on decode steps predict each MoE layer's expert "
+                         "ids from the previous layer's pre-FFN hidden and "
+                         "stage the plain path's weight gathers on them "
+                         "(a numeric no-op; the CUDA kernels ignore it)")
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--lexi-budget-frac", type=float, default=None,
@@ -277,6 +287,7 @@ def main(argv=None) -> int:
                  use_kernel=args.use_kernel or None,
                  use_moe_decode=args.use_moe_decode or None,
                  expert_dtype=args.expert_dtype,
+                 router_lookahead=args.router_lookahead or None,
                  preemption=args.preemption, prefix_cache=args.prefix_cache,
                  scheduler=args.scheduler, admission=args.admission,
                  degrade_under_pressure=args.degrade_under_pressure,
@@ -293,6 +304,7 @@ def main(argv=None) -> int:
           f"device={eng.device} layout={eng.kv.layout} "
           f"chunk={eng.prefill_chunk or 'whole'} moe={cfg.moe_impl} "
           f"experts={args.expert_dtype} "
+          f"lookahead={eng.router_lookahead} "
           f"steps={'eager' if args.eager else 'graphs'}")
 
     def wave(**kw):

@@ -77,11 +77,22 @@ def apply_block(
     block_tables=None,
     kernel_blocks: Optional[int] = None,
     k_budget: Optional[torch.Tensor] = None,
+    lookahead_h2: Optional[torch.Tensor] = None,
 ):
-    """Returns (x, cache, aux_loss).  ``k_budget`` [B] int32 caps each
-    batch row's active experts below ``spec.moe_top_k`` (every token of
-    the row takes the row's cap)."""
+    """Returns (x, cache, aux_loss, h2), ``h2`` the block's pre-FFN hidden.
+    ``k_budget`` [B] int32 caps each batch row's active experts below
+    ``spec.moe_top_k`` (every token of the row takes the row's cap).
+
+    ``lookahead_h2`` (router lookahead) is the previous layer's pre-FFN
+    hidden, from which this block predicts its top-k expert ids before its
+    own attention runs; the MoE's plain decode path stages its weight
+    gathers on the prediction, and no output depends on it."""
     _check_kind(spec)
+    pred_idx = None
+    if lookahead_h2 is not None and spec.kind == "attn_moe":
+        d = lookahead_h2.shape[-1]
+        pred_idx = moe_mod.route_lookahead(
+            params["moe"], cfg, lookahead_h2.reshape(-1, d), spec.moe_top_k)
     attn_kw = {"block_tables": block_tables,
                "use_paged_kernel": opts.use_paged_kernel,
                "kernel_blocks": kernel_blocks}
@@ -107,11 +118,12 @@ def apply_block(
             impl=opts.moe_impl or cfg.moe_impl,
             use_kernel=opts.use_moe_kernel,
             decode_kernel=opts.use_moe_decode_kernel and mode == "decode",
-            expert_dtype=opts.expert_dtype, k_budget=kb_tok)
+            expert_dtype=opts.expert_dtype, pred_idx=pred_idx,
+            k_budget=kb_tok)
         x = x + y
     else:
         x = x + mlp(params["mlp"], h2)
-    return x, cache, aux
+    return x, cache, aux, h2
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, device) -> List[Dict]:
@@ -142,8 +154,15 @@ def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
     ``k_budgets`` [B, n_moe] int32 gives each batch row a per-MoE-layer
     active-expert cap below the pattern's per-layer top-k (per-request
     LExI plans): MoE layer i takes column i, counted over the MoE layers
-    only, as the reference's running index does."""
+    only, as the reference's running index does.
+
+    With ``opts.router_lookahead`` a decode step carries each layer's
+    pre-FFN hidden to the next (``h2_prev``), from which that layer
+    predicts its expert ids; zeros feed the first layer, whose staged loads
+    then just miss."""
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    lookahead = opts.router_lookahead and mode == "decode"
+    h2_prev = torch.zeros_like(x) if lookahead else None
     moe_i = 0
     for li, spec in enumerate(cfg.pattern()):
         kb = None
@@ -151,10 +170,12 @@ def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
             if k_budgets is not None:
                 kb = k_budgets[:, moe_i]
             moe_i += 1
-        x, _, aux = apply_block(
+        x, _, aux, h2 = apply_block(
             layers[li], cfg, spec, x, positions, mode=mode,
             cache=caches[li] if caches is not None else None, opts=opts,
             block_tables=block_tables, kernel_blocks=kernel_blocks,
-            k_budget=kb)
+            k_budget=kb, lookahead_h2=h2_prev)
+        if lookahead:
+            h2_prev = h2
         total_aux = total_aux + aux
     return x, caches, total_aux

@@ -34,4 +34,5 @@ from repro_torch.models.moe.registry import (  # noqa: F401
     moe,
     resolve_impl,
 )
-from repro_torch.models.moe.router import capacity, route  # noqa: F401
+from repro_torch.models.moe.router import capacity, route, \
+    route_lookahead  # noqa: F401

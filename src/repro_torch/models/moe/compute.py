@@ -44,13 +44,18 @@ def grouped_ffn(w1, w2, xs, plan: SortPlan, use_kernel: bool = False):
     return torch.bmm(h, w2[te]).reshape(m, d)
 
 
-def routed_ffn(w1, w2, x2d, idx, weights, use_kernel: bool = False):
-    """x2d [T, D] + routing (idx, weights) [T, k] -> combined [T, D]."""
+def routed_ffn(w1, w2, x2d, idx, weights, use_kernel: bool = False,
+               pred_idx=None):
+    """x2d [T, D] + routing (idx, weights) [T, k] -> combined [T, D].
+
+    ``pred_idx`` [T, k] (router lookahead) stages the plain path's weight
+    gathers on the predicted ids, hit-selected against the true ids; the
+    CUDA kernel ignores it.  The output never depends on it."""
     if use_kernel:
         from repro_torch.kernels import moe_decode
-        return moe_decode(x2d, w1, w2, idx, weights)
+        return moe_decode(x2d, w1, w2, idx, weights, pred_idx)
     from repro_torch.kernels.moe_decode import moe_decode_plain
-    return moe_decode_plain(x2d, w1, w2, idx, weights)
+    return moe_decode_plain(x2d, w1, w2, idx, weights, pred_idx)
 
 
 def quant_leaves(params: Dict, expert_dtype: str):
@@ -67,17 +72,19 @@ def quant_leaves(params: Dict, expert_dtype: str):
 
 
 def routed_ffn_quant(params: Dict, x2d, idx, weights,
-                     use_kernel: bool = False, *, expert_dtype: str):
+                     use_kernel: bool = False, *, expert_dtype: str,
+                     pred_idx=None):
     """``routed_ffn`` over int8-stored expert tiles (in-kernel dequant on
-    the kernel path, dequant-after-gather on the plain path)."""
+    the kernel path, dequant-after-gather on the plain path, whose gathers
+    stage on ``pred_idx`` when given)."""
     w1q, w2q, s1, s2 = quant_leaves(params, expert_dtype)
     if use_kernel:
         from repro_torch.kernels import moe_decode_quant
         return moe_decode_quant(x2d, w1q, w2q, s1, s2, idx, weights,
-                                dtype=expert_dtype)
+                                pred_idx, dtype=expert_dtype)
     from repro_torch.kernels.moe_decode import moe_decode_quant_plain
     return moe_decode_quant_plain(x2d, w1q, w2q, s1, s2, idx, weights,
-                                  dtype=expert_dtype)
+                                  dtype=expert_dtype, pred_idx=pred_idx)
 
 
 def grouped_ffn_quant(params: Dict, xs, plan: SortPlan,

@@ -53,19 +53,29 @@ def resolve_impl(impl: str, n_tokens: int, decode_kernel: bool = False) -> str:
 
 
 def _dense(params, cfg, x2d, top_k, use_kernel=False, *,
-           expert_dtype="bf16", k_budget=None):
+           expert_dtype="bf16", pred_idx=None, k_budget=None):
+    del pred_idx
     _require_bf16("dense", expert_dtype)
     return moe_dense(params, cfg, x2d, top_k, use_kernel, k_budget=k_budget)
 
 
-_IMPLS: Dict[str, Callable] = {"dense": _dense, "gmm": moe_gmm,
+def _gmm(params, cfg, x2d, top_k, use_kernel=False, *,
+         expert_dtype="bf16", pred_idx=None, k_budget=None):
+    del pred_idx
+    return moe_gmm(params, cfg, x2d, top_k, use_kernel,
+                   expert_dtype=expert_dtype, k_budget=k_budget)
+
+
+#: every impl takes the router-lookahead hint ``pred_idx``; only the fused
+#: ``decode`` path reads it (the others drop it, as in the reference)
+_IMPLS: Dict[str, Callable] = {"dense": _dense, "gmm": _gmm,
                                "decode": moe_decode}
 
 
 def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
         impl: Optional[str] = None, use_kernel: bool = False,
         decode_kernel: bool = False, expert_dtype: str = "bf16",
-        k_budget=None):
+        pred_idx=None, k_budget=None):
     """x [B, S, D] -> (y [B, S, D], aux_loss scalar).
 
     ``impl`` overrides ``cfg.moe_impl``; ``decode_kernel=True`` opts
@@ -73,7 +83,9 @@ def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
     ``expert_dtype`` != "bf16" expects params quantized at load
     (``quantize_expert_params``) and is served by gmm/decode only.
     ``k_budget`` [B*S] int32 caps active experts per token below ``top_k``
-    (``route`` zero-weights the surplus routed slots).
+    (``route`` zero-weights the surplus routed slots).  ``pred_idx``
+    [B*S, k] is the router-lookahead hint for the fused decode path; the
+    other impls drop it.
     """
     b, s, d = x.shape
     impl = resolve_impl(impl or cfg.moe_impl, b * s, decode_kernel)
@@ -86,5 +98,5 @@ def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
         raise ValueError(f"unknown moe impl {impl!r}; have {sorted(_IMPLS)}")
     y2d, aux = _IMPLS[impl](params, cfg, x.reshape(b * s, d), top_k,
                             use_kernel, expert_dtype=expert_dtype,
-                            k_budget=k_budget)
+                            pred_idx=pred_idx, k_budget=k_budget)
     return y2d.reshape(b, s, d), aux

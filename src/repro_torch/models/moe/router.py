@@ -54,6 +54,27 @@ def route(params: Dict, cfg: ModelConfig, x2d: torch.Tensor, top_k: int,
     return weights, idx.to(torch.int32), aux
 
 
+def route_lookahead(params: Dict, cfg: ModelConfig, x2d: torch.Tensor,
+                    top_k: int) -> torch.Tensor:
+    """Predict this layer's top-k expert ids from the *previous* layer's
+    pre-FFN hidden state -> pred_idx [T, k] int32.
+
+    The hint scores the previous layer's pre-FFN hidden through *this*
+    layer's router: residual streams change slowly across adjacent layers,
+    so the top-k sets usually agree.  Only the id selection of ``route`` is
+    replicated (the same scoring function, the same ``torch.topk``
+    tie-breaking); weights, NAEE skipping and the aux loss stay with
+    ``route`` on the true input.  Consumers hit-select staged loads against
+    the true ids, so a miss costs a fallback load, never an output change.
+    """
+    logits = x2d.float() @ params["router"].float()              # [T, E]
+    if cfg.router_type == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    return torch.topk(scores, top_k, dim=-1)[1].to(torch.int32)
+
+
 def capacity(t: int, top_k: int, num_experts: int, factor: float) -> int:
     """Per-expert buffer rows for the capacity-buffer dispatch: at least 4,
     padded to a multiple of 4."""

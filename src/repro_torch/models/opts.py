@@ -45,6 +45,11 @@ class ModelOpts:
     #: attention score math: "f32" casts K/V to f32; "bf16_accum32" keeps
     #: the storage dtype for the products
     attn_compute_dtype: str = "f32"
+    #: router lookahead: on decode steps, predict layer i's top-k ids from
+    #: layer i-1's pre-FFN hidden and stage the expert-weight gathers of the
+    #: plain routed path on the prediction, hit-selected against the true
+    #: ids -- numerically a no-op (the CUDA kernels ignore the hint)
+    router_lookahead: bool = False
 
 
 DEFAULT_OPTS = ModelOpts()

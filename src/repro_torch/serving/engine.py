@@ -56,9 +56,14 @@ at the prefill boundary.
 
 On the card every chunk and decode step replays a CUDA graph captured for
 its specialization key (``serving/runner.py``); ``Engine(graphs=False)``
-runs the same steps eagerly, the oracle.  Not ported yet (ROADMAP.md):
-router lookahead (A8), incremental detokenization and the HTTP front end
-(A9), and the mamba / encoder-decoder stacks (A13).
+runs the same steps eagerly, the oracle.  ``Engine(router_lookahead=True)``
+predicts each MoE layer's expert ids one layer ahead on decode steps
+(numerically a no-op; the CUDA kernels ignore the hint), fixed for the
+engine's life, so every graph it captures carries it.  ``submit(req,
+detok=)`` / ``serve(..., detok=)`` stream incremental-detok text deltas
+(``serving/detok.py``); ``serving/http.py`` puts the engine behind an HTTP
+front end.  Not ported yet (ROADMAP.md): the mamba / encoder-decoder
+stacks (A13).
 
 ``Engine(expert_dtype="int8" | "int4")`` quantizes the routed experts at
 load (``quantize_expert_params``) and serves them through the
@@ -73,7 +78,7 @@ import heapq
 import math
 import time
 from dataclasses import replace
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -83,6 +88,7 @@ from repro_torch.models.attention import cache_buf_len
 from repro_torch.models.common import resolve_device
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
 from repro_torch.serving.clock import Clock, WallClock
+from repro_torch.serving.detok import IncrementalDetok
 from repro_torch.serving.kv_cache import KVCache
 from repro_torch.serving.request import Request, Result
 from repro_torch.serving.runner import BASE_PLAN, ModelRunner
@@ -107,6 +113,7 @@ class Engine:
                  use_kernel: Optional[bool] = None,
                  use_moe_decode: Optional[bool] = None,
                  expert_dtype: Optional[str] = None,
+                 router_lookahead: Optional[bool] = None,
                  preemption: Optional[bool] = None,
                  prefix_cache: bool = False,
                  scheduler: str = "fifo",
@@ -214,9 +221,17 @@ class Engine:
                     f"impls only (cfg {cfg.name!r} resolves to {impl!r})")
             params = quantize_expert_params(params, cfg, ed)
         self.expert_dtype = ed
+        # router lookahead is fixed for the engine's life: every step (and
+        # on the card every CUDA graph) of this engine carries it
+        rl = (opts.router_lookahead if router_lookahead is None
+              else bool(router_lookahead))
+        if rl and any(b.kind == "mamba" for b in cfg.pattern()):
+            raise ValueError("router_lookahead carries the pre-FFN hidden "
+                             "across layers; mamba blocks have none")
+        self.router_lookahead = rl
         opts = replace(opts, use_paged_kernel=self.use_kernel,
                        use_moe_decode_kernel=self.use_moe_decode,
-                       expert_dtype=ed)
+                       expert_dtype=ed, router_lookahead=rl)
         self.runner = ModelRunner(cfg, params, opts=opts, graphs=graphs)
         self.plan_name = BASE_PLAN
         # pressure-adaptive plan degradation (DESIGN.md §10): an ordered
@@ -232,8 +247,9 @@ class Engine:
                           prefix_cache=self.prefix_cache, device=self.device)
         self.sched = Scheduler(max_batch, policy=scheduler, clock=self.clock)
         # time-ordered arrival queue: a request submitted for a future
-        # arrival_time waits here until the clock reaches it
-        self._pending: List = []        # heap of (arrival_time, seq, Request)
+        # arrival_time waits here until the clock reaches it; a heap of
+        # (arrival_time, seq, Request, detok default)
+        self._pending: List = []
         self._pending_seq = 0
         self._pending_uids: set = set()
         self.slot_pos = np.full(max_batch, -1, np.int32)    # next write pos
@@ -324,37 +340,46 @@ class Engine:
     # Submission
     # ------------------------------------------------------------------ #
     def submit(self, req: Request, *,
-               arrival_time: Optional[float] = None) -> None:
+               arrival_time: Optional[float] = None,
+               detok: Union[bool, Callable] = False) -> None:
         """Enqueue a request for admission at ``arrival_time`` (clock
         units; None = now), also while others are mid-prefill or
         mid-decode.  Validation (prompt length, KV capacity, plan name)
         happens at release and produces a rejected ``Result`` rather than
-        an exception."""
+        an exception.  ``detok`` is the workload-default incremental-detok
+        mode (True: ``default_decode``, or an ``ids -> text`` callable),
+        applied only when the request did not opt in itself; it lands on
+        the engine's ``Tracked`` record, never on the caller's ``Request``."""
         if req.uid in self._pending_uids or req.uid in self.sched._uids:
             raise duplicate_uid_error(req.uid)
         t = self.clock.now() if arrival_time is None else float(arrival_time)
-        heapq.heappush(self._pending, (t, self._pending_seq, req))
+        heapq.heappush(self._pending, (t, self._pending_seq, req, detok))
         self._pending_seq += 1
         self._pending_uids.add(req.uid)
 
     def _release_arrivals(self) -> None:
         """Move every due arrival into the scheduler (arrival order)."""
         while self._pending and self._pending[0][0] <= self.clock.now():
-            t_arr, _, req = heapq.heappop(self._pending)
+            t_arr, _, req, detok = heapq.heappop(self._pending)
             self._pending_uids.discard(req.uid)
-            self._submit(req, t_arrival=t_arr)
+            self._submit(req, t_arrival=t_arr, detok_default=detok)
 
     def next_arrival(self) -> Optional[float]:
         """Earliest scheduled arrival still pending (None when empty)."""
         return self._pending[0][0] if self._pending else None
 
-    def _submit(self, req: Request,
-                t_arrival: Optional[float] = None) -> Tracked:
+    def _submit(self, req: Request, t_arrival: Optional[float] = None,
+                detok_default: Union[bool, Callable] = False) -> Tracked:
         t = self.sched.submit(req, t_submit=t_arrival)
         # a per-request plan wins, else the serve / engine default
         t.plan = t.served_plan = (req.plan if req.plan is not None
                                   else self.plan_name)
         t.result.plan = t.result.served_plan = t.plan
+        # likewise the request's own detok opt-in, else the workload's
+        detok = req.detok if req.detok else detok_default
+        if detok:
+            t.detok = (IncrementalDetok(detok) if callable(detok)
+                       else IncrementalDetok())
         limit = self.max_len - 1
         if t.prompt_len == 0:
             self.sched.reject(t, "rejected_empty_prompt")
@@ -708,7 +733,7 @@ class Engine:
         for t in list(self.sched.waiting):
             self.sched.reject(t, reason)
         while self._pending:    # future arrivals reject without admission
-            _, _, req = heapq.heappop(self._pending)
+            _, _, req, _ = heapq.heappop(self._pending)
             self._pending_uids.discard(req.uid)
             self.sched.reject(self.sched.submit(req), reason)
 
@@ -750,7 +775,7 @@ class Engine:
         pages released).  It retires as a finished record with
         ``finished_reason=reason``.  False when the uid is unknown or
         already finished."""
-        for i, (t_arr, _, req) in enumerate(self._pending):
+        for i, (t_arr, _, req, _) in enumerate(self._pending):
             if req.uid == uid:
                 del self._pending[i]
                 heapq.heapify(self._pending)
@@ -803,6 +828,7 @@ class Engine:
 
     def serve(self, requests: Sequence[Request], *,
               plan: Optional[str] = None,
+              detok: Union[bool, Callable] = False,
               max_steps: Optional[int] = None,
               arrival_times: Optional[Sequence[float]] = None
               ) -> List[Result]:
@@ -810,7 +836,9 @@ class Engine:
         sorted by uid.  Every request is submitted up front, at now
         (closed loop) or at ``now + arrival_times[i]`` (open loop, clock
         units).  ``plan=`` is this serve's default plan (omitted: the base
-        config)."""
+        config); ``detok=`` turns on incremental detokenization for every
+        request that did not opt in itself (True: ``default_decode``, or
+        an ``ids -> text`` callable) without touching the requests."""
         self.set_plan(plan if plan is not None else BASE_PLAN)
         uids = [r.uid for r in requests]
         if len(set(uids)) != len(uids):
@@ -826,7 +854,7 @@ class Engine:
         t0 = self.clock.now()
         for i, r in enumerate(requests):
             off = arrival_times[i] if arrival_times is not None else 0.0
-            self.submit(r, arrival_time=t0 + off)
+            self.submit(r, arrival_time=t0 + off, detok=detok)
         self.drain(max_steps=max_steps)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Union
 
 import numpy as np
 
@@ -21,7 +21,8 @@ class Request:
     #: checked per slot, so requests with different stop tokens -- or
     #: none -- share a batch
     eos_id: Optional[int] = None
-    #: streaming callback, called as ``stream(uid, token)`` per new token
+    #: streaming callback, called as ``stream(uid, token)`` per new token,
+    #: or as ``stream(uid, text_delta)`` when ``detok`` is set
     stream: Optional[Callable[[int, int], None]] = None
     #: LExI plan (by engine-registered name) to serve this request under;
     #: None = whatever the serve/engine default plan is.  Requests with
@@ -30,6 +31,10 @@ class Request:
     #: requests with priority > 0 are exempt from pressure-adaptive plan
     #: degradation (they always keep their requested plan)
     priority: int = 0
+    #: opt-in incremental detokenization: ``True`` uses the default
+    #: synthetic detokenizer, or pass ``ids -> text`` directly.  Streams
+    #: text deltas instead of token ids and fills ``Result.text``.
+    detok: Union[bool, Callable[[List[int]], str]] = False
 
 
 @dataclass
@@ -53,3 +58,6 @@ class Result:
     served_plan: str = ""
     #: times this request was moved one rung down the plan ladder
     plan_degradations: int = 0
+    #: detokenized output text (filled only when detok is on for the
+    #: request; always equals the concatenation of the streamed deltas)
+    text: str = ""

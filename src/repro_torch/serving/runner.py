@@ -44,6 +44,11 @@ length, so a graph per length would buy nothing, and the reference's
 padded ``[1, L]`` graph attends its pads under ``use_flash`` (ROADMAP.md
 C, second caveat).
 
+Options fixed when the engine is built live in ``opts``, so every step
+and every CUDA graph of a runner carries them.  ``router_lookahead`` is
+one: an engine's graphs are all captured with it on or all with it off,
+and no key carries it, as in the reference's jit table.
+
 Every serving config is a per-layer split of the pattern
 (``split_pattern``), as in the reference, and all plans share one set of
 weights.

@@ -33,6 +33,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from repro_torch.serving.clock import Clock, WallClock
+from repro_torch.serving.detok import IncrementalDetok
 from repro_torch.serving.request import Request, Result
 
 WAITING, PREFILL, DECODE, DONE = "waiting", "prefill", "decode", "done"
@@ -95,6 +96,9 @@ class Tracked:
     t_admit: float = -1.0      # first admission (preserved on resume)
     t_first: float = -1.0      # first sampled token
     t_done: float = -1.0
+    #: incremental detokenizer state (None unless detok is on for the
+    #: request: its own ``Request.detok`` or the workload's default)
+    detok: Optional[IncrementalDetok] = None
 
     @property
     def prompt_len(self) -> int:
@@ -234,7 +238,14 @@ class Scheduler:
         if not t.result.tokens:
             t.t_first = self.clock.now()
         t.result.tokens.append(token)
-        if t.req.stream is not None:
+        if t.detok is not None:
+            # incremental detok: stream the text *delta* instead of the
+            # raw token id; Result.text is the running concatenation
+            delta = t.detok.push(token)
+            t.result.text = t.detok.text
+            if t.req.stream is not None:
+                t.req.stream(t.req.uid, delta)
+        elif t.req.stream is not None:
             t.req.stream(t.req.uid, token)
 
     def _record_latency(self, t: Tracked) -> None:

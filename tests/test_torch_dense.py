@@ -328,7 +328,8 @@ def test_launchers_run_dense_on_cpu(capsys):
     impls = {n: m["moe_impl"] for n, m in rec["models"].items()}
     assert impls == {"baseline": "dense", "lexi": "dense",
                      "baseline~gmm": "gmm", "lexi~gmm": "gmm",
-                     "inter_prune_0.25": "dense", "intra_prune_0.25": "dense"}
+                     "inter_prune_0.25": "dense", "intra_prune_0.25": "dense",
+                     "dyn_skip_tau0.3": "dense"}
     assert all(np.isfinite(m["xent"]) for m in rec["models"].values())
 
 

@@ -26,6 +26,10 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 assert len(names) > 30, names
+# the server, detok and NAEE modules are walked like every other
+for m in ("repro_torch.serving.http", "repro_torch.serving.detok",
+          "repro_torch.launch.api_server", "repro_torch.core.skipping"):
+    assert m in names, m
 import torch
 if not torch.cuda.is_available():
     from repro_torch.configs import get_config

@@ -207,7 +207,7 @@ def test_forward_launcher_runs_on_cpu(capsys):
     # the config's own dense impl, and the baseline and plan on gmm too
     assert set(rec["models"]) == {"baseline", "lexi", "inter_prune_0.25",
                                   "intra_prune_0.25", "baseline~gmm",
-                                  "lexi~gmm"}
+                                  "lexi~gmm", "dyn_skip_tau0.3"}
     assert rec["models"]["inter_prune_0.25"]["experts"] == 6
     assert rec["models"]["intra_prune_0.25"]["moe_d_ff"] == 48
     assert all(np.isfinite(m["xent"]) for m in rec["models"].values())

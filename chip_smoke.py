@@ -147,6 +147,35 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 9. forward_mla -- phase 4 on DeepSeek-V2-Lite (``moe_ffn`` and
               ``moe_gmm``; MLA's train mode attends through the plain
               masked softmax).
+10. train  -- the DeepSeek weights freed, OLMoE-1B-7B at full width and
+              half depth (TRAIN_LAYERS: 16 layers of train state would
+              not fit), bf16, random weights from seed 0, trained
+              ``training.train`` on its own ``dense`` impl through the
+              plain paths: 6 AdamW steps on 4 x 512 tokens of the
+              Zipf-Markov stream (loss, grad norm and wall ms each);
+              forward+backward and the optimizer timed apart on the
+              device, tokens/s, the data pipeline's seconds a batch, peak
+              memory against 12 B a parameter; a step with
+              ``use_moe_kernel`` refused (no kernel has a backward);
+              held-out perplexity on the trained weights through
+              ``moe_ffn`` and ``flash_attention`` within LOG_PPL_TOL (log
+              ppl) of the plain paths' -- this phase's kernel path; one
+              step under ``remat="full"`` from the same init: the first
+              step's loss bit for bit, its forward+backward at a lower
+              peak.
+11. train_quality -- ``launch/serve_lexi.py``'s recipe (a 4-layer
+              OLMoE-family model, f32, plain paths) trained 200 steps:
+              held-out ppl of the untrained model, the baseline, the LExI
+              plan at a 50 % budget, ``inter_prune`` and ``intra_prune``
+              at 0.25 (Fig. 4's quality side on trained weights); the
+              trained baseline below 0.8x the untrained ppl; baseline and
+              plan served through one graphed engine (tok/s).
+12. train_resume -- in a child process with deterministic algorithms:
+              the recipe for 20 steps, checkpointed every 5, killed at
+              step 12 and resumed, equals the uninterrupted run bit for
+              bit; then ``python -m repro_torch.launch.train --arch
+              olmoe-1b-7b --reduced --steps 20 --eval --device cuda``
+              exits 0.
 
 Every serve and forward runs its steps as CUDA graphs, captured for each
 specialization key of the runner (``serving/runner.py``) or each forward
@@ -159,7 +188,7 @@ wall time, tok/s, the wall and host time of a decode step, and the graphs
 held, captured (with their host seconds) and replayed.
 
 Every kernel's launch counter is zeroed just before and read just after
-each step of phases 3-9; each step must launch the kernels it runs.  A
+each step of phases 3-10; each step must launch the kernels it runs.  A
 small reference check holds the kernel paths' logits against the plain
 paths' on the same inputs, row by row, with bf16 experts on ``gmm`` and
 on ``dense``, with int8 and int4 experts, and on DeepSeek-V2-Lite.  Then
@@ -2336,6 +2365,354 @@ def serve_mla(params, cfg, device, t_start):
     return plan, need
 
 
+# --------------------------------------------------------------------------- #
+# phases 10-12: training and held-out evaluation
+# --------------------------------------------------------------------------- #
+
+#: the full-width trainer's depth: at OLMoE's 16 layers the train state
+#: alone (bf16 params and grads, f32 AdamW moments: 12 B a parameter) is
+#: 83 GB, more than the card's 80
+TRAIN_LAYERS = 8
+TRAIN_STEPS = 6
+#: held-out log ppl through moe_ffn and flash_attention against the plain
+#: paths' on the same trained weights (bf16 rounding of the kernels'
+#: hidden and of P moves a token's log-likelihood by about 1e-3)
+LOG_PPL_TOL = 1e-2
+
+
+def _reset_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak_gb(device):
+    """Peak device memory since the last reset (None off the card)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def _timed(fn, device):
+    """-> (fn's result, ms): CUDA events around it on the card, the host
+    clock in a CPU rehearsal."""
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _saved_gb(cfg, params, batch, opts, device):
+    """Device GB a forward keeps for its backward: allocated after the loss
+    less allocated before (None off the card)."""
+    if device.type != "cuda":
+        return None
+    from repro_torch import models
+    from repro_torch.tree import leaves, unflatten
+    live = [p.detach().requires_grad_() for p in leaves(params)]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    with torch.enable_grad():
+        loss, _ = models.loss_fn(unflatten(params, live), cfg, batch,
+                                 opts=opts)
+    torch.cuda.synchronize()
+    saved = (torch.cuda.memory_allocated(device) - before) / 1e9
+    del loss
+    return saved
+
+
+def train_phase(cfg, device, t_start, steps: int = TRAIN_STEPS,
+                batch: int = 4, seq: int = 512):
+    """``train`` on the plain paths (the config's own ``dense`` impl) for
+    ``steps`` AdamW steps of ``batch`` x ``seq`` Zipf-Markov tokens; then,
+    on the trained state, forward+backward and the optimizer timed apart
+    (3 more steps); a train step with ``use_moe_kernel`` refused; held-out
+    perplexity through ``moe_ffn`` and ``flash_attention`` within
+    LOG_PPL_TOL of the plain paths'; one step from the same init under
+    ``remat="full"``: the first step's loss bit for bit, its
+    forward+backward at a lower peak, and fewer activations kept by its
+    forward for the backward than without (``dots`` read beside them).
+    Returns the launch needs of the kernel eval."""
+    import gc
+    import math
+    from repro_torch.data import DataConfig, sample_batch, to_device
+    from repro_torch.models import ModelOpts
+    from repro_torch.optim import AdamW
+    from repro_torch.training import eval_perplexity, init_state, \
+        make_train_step, train, value_and_grad
+    from repro_torch.tree import leaves
+    dc = DataConfig(cfg.vocab_size, seq, batch, seed=0)
+    opt = AdamW(total_steps=steps, warmup_steps=2)
+    _reset_peak(device)
+    t0 = time.perf_counter()
+    res = train(cfg, dc, total_steps=steps, optimizer=opt, seed=0,
+                device=device)
+    train_s = time.perf_counter() - t0
+    peak = _peak_gb(device)
+    if not (np.isfinite(res.losses).all() and np.isfinite(res.grad_norms)
+            .all() and len(res.losses) == steps):
+        raise AssertionError(f"train: losses {res.losses}, grad norms "
+                             f"{res.grad_norms}")
+    n_params = sum(p.numel() for p in leaves(res.state.params))
+    state = res.state
+    step_ms = [t * 1e3 for t in res.step_times]
+    first_loss = res.losses[0]
+    rec = {"phase": "train", "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "experts": cfg.num_experts,
+           "top_k": cfg.moe_top_k, "impl": cfg.moe_impl, "dtype": cfg.dtype,
+           "batch": [batch, seq], "params_b": n_params / 1e9,
+           "steps": [{"loss": l, "grad_norm": g, "wall_ms": t}
+                     for l, g, t in zip(res.losses, res.grad_norms,
+                                        step_ms)],
+           "train_s": train_s,
+           "data_s_per_batch": res.data_s_per_batch}
+    del res
+
+    # the step in two parts, each timed on the device, on the trained state
+    grads_of = value_and_grad(cfg)
+
+    def split_step(state, i):
+        b = to_device(sample_batch(dc, i), device)
+        _reset_peak(device)
+        (_, _, grads), fb = _timed(lambda: grads_of(state.params, b), device)
+        peak_fb = _peak_gb(device)
+        new_opt, om = _timed(lambda: opt.step_(grads, state.opt,
+                                               state.params), device)
+        return state._replace(opt=new_opt), b, fb, om, peak_fb
+
+    fb_ms, opt_ms = [], []
+    for i in range(3):
+        state, b, fb, om, peak_fb = split_step(state, steps + i)
+        fb_ms.append(fb)
+        opt_ms.append(om)
+    med_step = statistics.median(step_ms[1:])
+    rec.update(step_ms_median=med_step,
+               fwd_bwd_ms_median=statistics.median(fb_ms),
+               optimizer_ms_median=statistics.median(opt_ms),
+               fwd_bwd_ms=fb_ms, optimizer_ms=opt_ms,
+               tokens_per_s=batch * seq / (med_step / 1e3),
+               data_s_per_step_s=rec["data_s_per_batch"] / (med_step / 1e3),
+               peak_gb=peak, fwd_bwd_peak_gb=peak_fb,
+               state_gb_12b=12 * n_params / 1e9)
+
+    # no kernel under autograd
+    try:
+        make_train_step(cfg, opt, opts=ModelOpts(use_moe_kernel=True))(
+            state, b)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        rec["guard"] = str(e).split(":")[0]
+    else:
+        raise AssertionError("train: a step with use_moe_kernel ran")
+
+    # held-out perplexity through the kernels against the plain paths
+    kern = ModelOpts(use_flash=True, use_moe_kernel=True)
+    ppl_k, counts = counted(lambda: eval_perplexity(
+        state.params, cfg, dc, steps=2, opts=kern))
+    ppl_p = eval_perplexity(state.params, cfg, dc, steps=2)
+    dlog = abs(math.log(ppl_k) - math.log(ppl_p))
+    if not dlog <= LOG_PPL_TOL:
+        raise AssertionError(f"train eval: ppl {ppl_k} through the kernels "
+                             f"against {ppl_p} plain")
+    rec.update(eval_ppl_kernels=ppl_k, eval_ppl_plain=ppl_p,
+               eval_log_ppl_diff=dlog, eval_launches=counts)
+    del state, b
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # the first step again from the same init, under remat="full": the
+    # forward+backward's peak (the step's own peak is the optimizer's, on
+    # top of the whole train state, and remat does not move it)
+    st = init_state(cfg, opt, 0, device=device)
+    b = to_device(sample_batch(dc, 0), device)
+    saved = {r: _saved_gb(cfg, st.params, b, ModelOpts(remat=r), device)
+             for r in ("none", "full", "dots")}
+    _reset_peak(device)
+    loss, _, grads = value_and_grad(cfg, opts=ModelOpts(remat="full"))(
+        st.params, b)
+    peak_full = _peak_gb(device)
+    opt.step_(grads, st.opt, st.params)
+    loss_full = float(loss)
+    del st, b, grads
+    if loss_full != first_loss:
+        raise AssertionError(f"train remat=full: loss {loss_full!r} against "
+                             f"{first_loss!r}")
+    if peak_fb is not None and not (peak_full < peak_fb
+                                    and saved["full"] < saved["none"]):
+        raise AssertionError(f"train remat=full: forward+backward peak "
+                             f"{peak_full} GB against {peak_fb} GB; saved "
+                             f"activations {saved}")
+    rec.update(remat_full_loss_equal=True,
+               remat_full_fwd_bwd_peak_gb=peak_full, saved_gb=saved,
+               seconds_total=time.perf_counter() - t_start)
+    emit(rec)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"train_eval": (counts, ("moe_ffn", "flash_attention"))}
+
+
+QUALITY_STEPS = 200
+
+
+def train_quality_phase(device, t_start, steps: int = QUALITY_STEPS,
+                        requests: int = 12):
+    """``launch/serve_lexi.py``'s recipe on the card: the tiny OLMoE-family
+    model trained ``steps`` steps; held-out ppl (6 eval batches) of the
+    untrained model, the baseline, the LExI plan at a 50 % budget (DP,
+    n_iter 8, profiled at 2 x 32), ``inter_prune(0.25)`` and
+    ``intra_prune(0.25)``, all on the dropless ``gmm``; the trained
+    baseline must be below 0.8x the untrained ppl.  Then the baseline and
+    the plan served through one graphed engine (12 requests of 16 prompt
+    and 16 new tokens, a warm-up wave first)."""
+    from repro_torch import models
+    from repro_torch.core import apply_plan_params, inter_prune, \
+        intra_prune, optimize
+    from repro_torch.launch.serve_lexi import trained_tiny_moe
+    from repro_torch.models import ModelOpts
+    from repro_torch.serving import Engine, Request
+    from repro_torch.training import eval_perplexity
+    t0 = time.perf_counter()
+    cfg, params, dc, res = trained_tiny_moe(steps, device=device)
+    train_s = time.perf_counter() - t0
+    gmm = cfg.with_(moe_impl="gmm")
+    opts = ModelOpts(moe_impl="gmm")
+
+    def ppl(p, c):
+        return eval_perplexity(p, c, dc, steps=6, opts=opts)
+
+    untrained = ppl(models.init_params(cfg, 0, device=device), gmm)
+    budget = gmm.num_moe_layers * gmm.moe_top_k // 2
+    plan = optimize(params, gmm, budget, method="dp", n_iter=8,
+                    profile_batch=2, profile_seq=32, device=device,
+                    use_kernel=False)
+    cfg_l, params_l = apply_plan_params(params, gmm, plan)
+    rows = {"baseline": ppl(params, gmm), "lexi": ppl(params_l, cfg_l)}
+    for name, prune in (("inter_prune_0.25", inter_prune),
+                        ("intra_prune_0.25", intra_prune)):
+        rows[name] = ppl(*prune(params, gmm, 0.25))
+    if not all(np.isfinite(v) for v in rows.values()):
+        raise AssertionError(f"train_quality: ppl {rows}")
+    if not rows["baseline"] < 0.8 * untrained:
+        raise AssertionError(f"train_quality: trained ppl "
+                             f"{rows['baseline']} against untrained "
+                             f"{untrained}")
+
+    def reqs():
+        return [Request(uid=i, prompt=np.random.default_rng(i).integers(
+            0, cfg.vocab_size, 16).astype(np.int32), max_new_tokens=16)
+            for i in range(requests)]
+
+    eng = Engine(gmm, params, max_batch=4, max_len=128, prefill_pad=16,
+                 device=device)
+    eng.add_plan("lexi", plan)
+    tok_s = {}
+    for name in ("base", "lexi"):
+        eng.serve(reqs(), plan=name)               # captures its keys
+        check_results(f"train_quality {name}", eng.serve(reqs(), plan=name),
+                      gmm, 16)
+        tok_s[name] = eng.throughput()
+    emit({"phase": "train_quality", "config": {
+              "layers": cfg.num_layers, "d_model": cfg.d_model,
+              "experts": cfg.num_experts, "top_k": cfg.moe_top_k,
+              "moe_d_ff": cfg.moe_d_ff, "vocab": cfg.vocab_size,
+              "dtype": cfg.dtype, "batch": [dc.global_batch, dc.seq_len]},
+          "steps": steps, "train_s": train_s,
+          "train_step_ms_median": statistics.median(res.step_times[1:]) * 1e3,
+          "final_loss": res.losses[-1], "plan": list(plan.plan),
+          "budget": budget, "ppl_untrained": untrained, "ppl": rows,
+          "serve_tok_s": tok_s,
+          "seconds_total": time.perf_counter() - t_start})
+    del eng, params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+RESUME_FLAG = "--train-resume"
+
+
+def train_resume_child(device) -> int:
+    """The tiny recipe for 20 steps, checkpointed every 5 and killed at step
+    12, then resumed; its params, moments and losses must equal an
+    uninterrupted run's bit for bit.  Run in a process of its own
+    (``chip_smoke.py --train-resume``) with deterministic algorithms, which
+    the backward of a gather needs on the card and which no other phase
+    should run under."""
+    import tempfile
+    from repro_torch.launch.serve_lexi import tiny_moe_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamW
+    from repro_torch.training import train
+    from repro_torch.tree import leaves
+    torch.use_deterministic_algorithms(True)
+    cfg = tiny_moe_config()
+    dc = DataConfig(cfg.vocab_size, seq_len=64, global_batch=16, seed=0)
+    kw = dict(total_steps=20, device=device,
+              optimizer=AdamW(peak_lr=2e-3, total_steps=20, warmup_steps=5))
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            train(cfg, dc, ckpt_dir=d, ckpt_every=5, crash_at_step=12, **kw)
+        except RuntimeError as e:
+            if "injected crash" not in str(e):
+                raise
+        else:
+            raise AssertionError("train_resume: no crash at step 12")
+        resumed = train(cfg, dc, ckpt_dir=d, ckpt_every=5, **kw)
+    clean = train(cfg, dc, **kw)
+    same = [torch.equal(a, b) for a, b in zip(leaves(clean.state),
+                                              leaves(resumed.state))
+            if isinstance(a, torch.Tensor)]
+    ok = (resumed.resumed_from == 10 and all(same)
+          and resumed.losses == clean.losses[10:])
+    emit({"resumed_from": resumed.resumed_from, "leaves": len(same),
+          "leaves_equal": sum(same),
+          "losses_equal": resumed.losses == clean.losses[10:],
+          "final_loss": clean.losses[-1]})
+    return 0 if ok else 1
+
+
+def train_resume_phase(t_start):
+    """``train_resume_child`` in a child process whose failure fails the
+    run; then ``python -m repro_torch.launch.train --arch olmoe-1b-7b
+    --reduced --steps 20 --eval --device cuda`` must exit 0."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    rec = {"phase": "train_resume"}
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        RESUME_FLAG], env=env, capture_output=True,
+                       text=True, timeout=600, cwd=ROOT)
+    if r.returncode:
+        raise AssertionError(f"train_resume child exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    rec.update(json.loads(r.stdout.strip().splitlines()[-1]),
+               child_s=time.perf_counter() - t0)
+    src = os.path.join(ROOT, "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = ["-m", "repro_torch.launch.train", "--arch", "olmoe-1b-7b",
+           "--reduced", "--steps", "20", "--eval", "--device", "cuda"]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *cmd], env=env, capture_output=True,
+                       text=True, timeout=600, cwd=ROOT)
+    out = r.stdout.strip().splitlines()
+    if r.returncode or not out or "held-out perplexity" not in out[-1]:
+        raise AssertionError(f"launch.train exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    rec.update(launcher=" ".join(["python"] + cmd), launcher_exit=0,
+               launcher_last_lines=out[-2:],
+               launcher_s=time.perf_counter() - t0,
+               seconds_total=time.perf_counter() - t_start)
+    emit(rec)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2347,10 +2724,13 @@ def main() -> int:
     from repro_torch.core import optimize
     from repro_torch.kernels import _build
     from repro_torch.serving import Engine
+    from repro_torch.tree import leaves
 
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == [RESUME_FLAG]:
+        return train_resume_child(device)
     t_start = time.perf_counter()
 
     # ---- phase 1: build -------------------------------------------------
@@ -2377,7 +2757,7 @@ def main() -> int:
           "experts": cfg.num_experts, "top_k": cfg.moe_top_k,
           "params_gb": sum(t.numel() * t.element_size()
                            for lp in params["layers"] for t in
-                           _leaves(lp)) / 1e9})
+                           leaves(lp)) / 1e9})
 
     # ---- phase 2: kernels against their plain versions ------------------
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
@@ -2652,7 +3032,7 @@ def main() -> int:
           "kinds": [s.kind for s in cfg_mla.pattern()[:2]],
           "experts": cfg_mla.num_experts, "top_k": cfg_mla.moe_top_k,
           "params_gb": sum(t.numel() * t.element_size()
-                           for t in _leaves(params)) / 1e9,
+                           for t in leaves(params)) / 1e9,
           "kv_bytes_per_token": cfg_mla.num_layers * 2 * (
               cfg_mla.kv_lora_rank + cfg_mla.qk_rope_head_dim),
           "olmoe_kv_bytes_per_token": cfg.num_layers * 2 * 2 * (
@@ -2670,6 +3050,12 @@ def main() -> int:
               seconds_total=time.perf_counter() - t_start))
     del params
     torch.cuda.empty_cache()
+
+    # ---- phases 10-12: training and held-out evaluation -----------------
+    need.update(train_phase(cfg.with_(num_layers=TRAIN_LAYERS), device,
+                            t_start))
+    train_quality_phase(device, t_start)
+    train_resume_phase(t_start)
 
     for step, (counts, names) in need.items():
         for n in names:
@@ -2690,15 +3076,6 @@ def main() -> int:
                                  "count": torch.cuda.device_count()}})
     return 0
 
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""Weight bridge: the reference's params pytree -> the port's tensors.
+"""Weight bridge: the reference's params pytree (and train state) -> the
+port's tensors.
 
 The reference stores the layer stack grouped: ``params["stack"]["groups"]
 [gi]`` holds one dict per run of identical layers (``blocks.group_pattern``
@@ -19,12 +20,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import group_pattern
 from repro_torch.models.common import resolve_device
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+from repro_torch.optim import AdamWState
+from repro_torch.training.step import TrainState
+from repro_torch.tree import map_tree
 
 
 def split_stack(stack: Dict, cfg: ModelConfig) -> List[Dict]:
@@ -35,7 +33,8 @@ def split_stack(stack: Dict, cfg: ModelConfig) -> List[Dict]:
         if g.count == 1:
             layers.append(gp)
         else:
-            layers.extend(_map(gp, lambda a, i=i: a[i]) for i in range(g.count))
+            layers.extend(map_tree(lambda a, i=i: a[i], gp)
+                          for i in range(g.count))
     return layers
 
 
@@ -50,7 +49,22 @@ def convert_params(params: Dict, cfg: ModelConfig, *, device=None) -> Dict:
                 dev, torch.bfloat16)
         return torch.from_numpy(np.array(a)).to(dev)
 
-    out = {k: _map(v, to_tensor) for k, v in params.items() if k != "stack"}
-    out["layers"] = [_map(lp, to_tensor)
+    out = {k: map_tree(to_tensor, v) for k, v in params.items()
+           if k != "stack"}
+    out["layers"] = [map_tree(to_tensor, lp)
                      for lp in split_stack(params["stack"], cfg)]
     return out
+
+
+def convert_train_state(state, cfg: ModelConfig, *, device=None):
+    """The reference's ``TrainState`` (numpy leaves, e.g. after
+    ``jax.tree.map(np.asarray, state)``) -> the port's: params, AdamW
+    moments and the compression error state split per layer as the
+    params, and the step count."""
+    def tree(t):
+        return None if t is None else convert_params(t, cfg, device=device)
+
+    opt = AdamWState(step=int(np.asarray(state.opt.step)),
+                     mu=tree(state.opt.mu), nu=tree(state.opt.nu))
+    return TrainState(params=tree(state.params), opt=opt,
+                      err=tree(state.err))

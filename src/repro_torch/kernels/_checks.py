@@ -5,6 +5,18 @@ from __future__ import annotations
 import torch
 
 
+def no_grad_through(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record the call: no kernel has a backward
+    (nor has its Pallas reference), so a gradient through one would be
+    cut silently.  Checked before the device branch, so that the CPU and
+    the card behave alike."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the kernel has no backward "
+            "(as its Pallas reference has none); training runs the plain "
+            "paths (ModelOpts use_flash=False, use_moe_kernel=False)")
+
+
 def on_card(name: str, *tensors: torch.Tensor) -> bool:
     """True when the kernel must launch (every tensor on one CUDA device),
     False when the plain version runs (the inputs lie on the CPU)."""

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import expect, on_card
+from repro_torch.kernels._checks import expect, no_grad_through, on_card
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
@@ -46,6 +46,7 @@ def flash_attention_plain(q, k, v, *, window: Optional[int] = None):
 def flash_attention(q, k, v, *, window: Optional[int] = None):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
     name = "flash_attention"
+    no_grad_through(name, q, k, v)
     if not on_card(name, q, k, v):
         return flash_attention_plain(q, k, v, window=window)
     b, hq, s, hd = q.shape

@@ -22,7 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import expect, on_card
+from repro_torch.kernels._checks import expect, no_grad_through, on_card
 
 NEG_INF = -1e30
 
@@ -76,6 +76,7 @@ def flash_decode_plain(q, k, v, pos, cur_pos, *,
 def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
     name = "flash_decode"
+    no_grad_through(name, q, k, v)
     if not on_card(name, q, k, v, pos, cur_pos):
         return flash_decode_plain(q, k, v, pos, cur_pos, window=window)
     b, hq, hd = q.shape

@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import expect, on_card
+from repro_torch.kernels._checks import expect, no_grad_through, on_card
 from repro_torch.kernels.flash_decode import NEG_INF, _counters, \
     flash_decode_plain
 
@@ -55,6 +55,7 @@ def flash_decode_paged_plain(q, kp, vp, posp, block_tables, cur_pos, *,
 def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
                        window: Optional[int] = None):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    no_grad_through("flash_decode_paged", q, kp, vp)
     if not on_card("flash_decode_paged", q, kp, vp, posp, block_tables,
                    cur_pos):
         return flash_decode_paged_plain(q, kp, vp, posp, block_tables,
@@ -139,6 +140,7 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
     (kernel: ``csrc/flash_decode_paged_mla.cu``).  Plain version for CPU
     tensors; the CUDA kernel for CUDA tensors."""
     name = "flash_decode_paged_mla"
+    no_grad_through(name, q_lat, q_rope, ckvp, kropep)
     if not on_card(name, q_lat, q_rope, ckvp, kropep, posp, block_tables,
                    cur_pos):
         return flash_decode_paged_mla_plain(q_lat, q_rope, ckvp, kropep,

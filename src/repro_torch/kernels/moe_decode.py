@@ -22,7 +22,8 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import expect, expect_quant, on_card
+from repro_torch.kernels._checks import expect, expect_quant, \
+    no_grad_through, on_card
 from repro_torch.models.moe.params import QUANT_DTYPES, unpack_int4
 
 
@@ -60,6 +61,7 @@ def moe_decode(x, w1, w2, idx, weights, pred_idx=None):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors.
     The kernel ignores ``pred_idx``, as the reference's kernel path does:
     it reads each routed expert by the true ids."""
+    no_grad_through("moe_decode", x, w1, w2, weights)
     if not on_card("moe_decode", x, w1, w2, idx, weights):
         return moe_decode_plain(x, w1, w2, idx, weights, pred_idx)
     b, d = x.shape
@@ -119,6 +121,7 @@ def moe_decode_quant(x, w1q, w2q, s1, s2, idx, weights, pred_idx=None, *,
                      dtype: str):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors,
     which ignores ``pred_idx`` as ``moe_decode`` does."""
+    no_grad_through("moe_decode_quant", x, s1, s2, weights)
     if dtype not in QUANT_DTYPES:
         raise ValueError(f"moe_decode_quant: expert dtype {dtype!r} not in "
                          f"{QUANT_DTYPES}")

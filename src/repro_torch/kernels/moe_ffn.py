@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import expect, on_card
+from repro_torch.kernels._checks import expect, no_grad_through, on_card
 
 
 def moe_ffn_plain(xe, w1, w2):
@@ -29,6 +29,7 @@ def moe_ffn_plain(xe, w1, w2):
 
 def moe_ffn(xe, w1, w2):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    no_grad_through("moe_ffn", xe, w1, w2)
     if not on_card("moe_ffn", xe, w1, w2):
         return moe_ffn_plain(xe, w1, w2)
     e, c, d = xe.shape

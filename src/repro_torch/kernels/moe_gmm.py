@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._checks import expect, expect_quant, on_card
+from repro_torch.kernels._checks import expect, expect_quant, \
+    no_grad_through, on_card
 from repro_torch.models.moe.params import QUANT_DTYPES, unpack_int4
 
 
@@ -44,6 +45,7 @@ def moe_gmm_plain(xs, w1, w2, tile_expert, tile_valid, block_m: int):
 
 def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    no_grad_through("moe_gmm", xs, w1, w2)
     if not on_card("moe_gmm", xs, w1, w2, tile_expert, tile_valid):
         return moe_gmm_plain(xs, w1, w2, tile_expert, tile_valid, block_m)
     m, d = xs.shape
@@ -105,6 +107,7 @@ def moe_gmm_quant_plain(xs, w1q, w2q, s1, s2, tile_expert, tile_valid,
 def moe_gmm_quant(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, *,
                   dtype: str, block_m: int):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    no_grad_through("moe_gmm_quant", xs, s1, s2)
     if dtype not in QUANT_DTYPES:
         raise ValueError(f"moe_gmm_quant: expert dtype {dtype!r} not in "
                          f"{QUANT_DTYPES}")

@@ -9,9 +9,12 @@ to split the reference's stacked groups.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from functools import partial
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -126,6 +129,27 @@ def apply_block(
     return x, cache, aux, h2
 
 
+#: matmuls with no batch dims, whose outputs ``remat="dots"`` keeps (the
+#: reference's ``checkpoint_dots_with_no_batch_dims``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` under activation checkpointing: its backward recomputes the
+    whole forward ("full") or all but the kept matmul outputs ("dots")."""
+    if remat == "full":
+        return partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return partial(checkpoint, fn, use_reentrant=False, context_fn=partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat={remat!r}; want 'none', 'full' or 'dots'")
+
+
 def init_stack(gen: torch.Generator, cfg: ModelConfig, device) -> List[Dict]:
     """One parameter dict per layer."""
     return [init_block(gen, cfg, spec, device) for spec in cfg.pattern()]
@@ -159,7 +183,10 @@ def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
     With ``opts.router_lookahead`` a decode step carries each layer's
     pre-FFN hidden to the next (``h2_prev``), from which that layer
     predicts its expert ids; zeros feed the first layer, whose staged loads
-    then just miss."""
+    then just miss.
+
+    In train mode ``opts.remat`` checkpoints each layer (``_remat``)."""
+    remat = opts.remat if mode == "train" else "none"
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     lookahead = opts.router_lookahead and mode == "decode"
     h2_prev = torch.zeros_like(x) if lookahead else None
@@ -170,11 +197,14 @@ def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
             if k_budgets is not None:
                 kb = k_budgets[:, moe_i]
             moe_i += 1
-        x, _, aux, h2 = apply_block(
-            layers[li], cfg, spec, x, positions, mode=mode,
-            cache=caches[li] if caches is not None else None, opts=opts,
-            block_tables=block_tables, kernel_blocks=kernel_blocks,
-            k_budget=kb, lookahead_h2=h2_prev)
+        layer = partial(
+            apply_block, layers[li], cfg, spec, positions=positions,
+            mode=mode, cache=caches[li] if caches is not None else None,
+            opts=opts, block_tables=block_tables,
+            kernel_blocks=kernel_blocks, k_budget=kb, lookahead_h2=h2_prev)
+        if remat != "none":
+            layer = _remat(layer, remat)
+        x, _, aux, h2 = layer(x)
         if lookahead:
             h2_prev = h2
         total_aux = total_aux + aux

@@ -1,6 +1,6 @@
 """Runtime model options (orthogonal to ModelConfig: how, not what).
 
-Only the fields the port's serving slice reads are carried over from
+Only the fields the port reads are carried over from
 ``repro.models.opts``.
 """
 
@@ -50,6 +50,10 @@ class ModelOpts:
     #: plain routed path on the prediction, hit-selected against the true
     #: ids -- numerically a no-op (the CUDA kernels ignore the hint)
     router_lookahead: bool = False
+    #: activation rematerialization in train mode, a layer at a time:
+    #: "none" | "full" (recompute the whole layer in the backward) |
+    #: "dots" (keep the outputs of 2-D matmuls, recompute the rest)
+    remat: str = "none"
 
 
 DEFAULT_OPTS = ModelOpts()

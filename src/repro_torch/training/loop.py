@@ -1,0 +1,155 @@
+"""Fault-tolerant training loop and held-out evaluation (the port's
+counterpart of ``repro.training.loop``).
+
+Responsibilities:
+  * auto-resume from the latest checkpoint (params, optimizer, data position);
+  * periodic atomic checkpoints (async writer -- no step stall);
+  * a step-time watchdog for straggler detection: steps slower than
+    ``straggler_factor`` x the running median are counted and returned;
+  * deterministic restart: the data pipeline replays from the checkpointed
+    step, so crash + resume reproduces the uninterrupted run exactly (bit
+    for bit on the CPU; on the card with deterministic algorithms on,
+    since the backward of a gather accumulates with atomics otherwise).
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+from dataclasses import dataclass, field
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import models
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import Pipeline, to_device
+from repro_torch.data.synthetic import DataConfig, sample_batch
+from repro_torch.models.common import resolve_device
+from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
+from repro_torch.optim import AdamW
+from repro_torch.training.step import init_state, make_train_step
+
+
+@dataclass
+class TrainResult:
+    steps_run: int
+    final_step: int
+    losses: List[float]
+    step_times: List[float]
+    straggler_steps: int
+    resumed_from: Optional[int]
+    state: Any = field(repr=False, default=None)
+    grad_norms: List[float] = field(default_factory=list)
+    #: host seconds the data pipeline took to make one batch
+    data_s_per_batch: float = 0.0
+
+
+def train(
+    cfg: ModelConfig,
+    dc: DataConfig,
+    *,
+    total_steps: int,
+    optimizer: Optional[AdamW] = None,
+    opts: ModelOpts = DEFAULT_OPTS,
+    seed: int = 0,
+    ckpt_dir: Optional[str] = None,
+    ckpt_every: int = 50,
+    ckpt_async: bool = True,
+    resume: bool = True,
+    microbatches: int = 1,
+    compression: bool = False,
+    straggler_factor: float = 2.0,
+    log_every: int = 10,
+    crash_at_step: Optional[int] = None,   # fault-injection for tests
+    verbose: bool = False,
+    device=None,
+) -> TrainResult:
+    """Train on the card unless ``device`` asks for the CPU."""
+    dev = resolve_device(device)
+    optimizer = optimizer or AdamW(total_steps=total_steps)
+    step_fn = make_train_step(cfg, optimizer, opts=opts,
+                              microbatches=microbatches,
+                              compression=compression)
+
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start_step = 0
+    resumed_from = None
+    state = init_state(cfg, optimizer, seed, compression=compression,
+                       device=dev)
+    if mgr and resume and mgr.latest_step() is not None:
+        state, meta = mgr.restore(state)
+        start_step = meta["step"]
+        resumed_from = start_step
+        if verbose:
+            print(f"[resume] restored step {start_step} from {ckpt_dir}")
+
+    losses: List[float] = []
+    gnorms: List[float] = []
+    times: List[float] = []
+    stragglers = 0
+
+    with Pipeline(dc, start_step=start_step) as pipe:
+        step = start_step
+        for batch in pipe:
+            if step >= total_steps:
+                break
+            t0 = time.time()
+            state, metrics = step_fn(state, to_device(batch, dev))
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            times.append(dt)
+            step += 1
+
+            # straggler watchdog
+            if len(times) >= 5:
+                med = statistics.median(times[-50:])
+                if dt > straggler_factor * med:
+                    stragglers += 1
+                    if verbose:
+                        print(f"[watchdog] step {step} took {dt:.3f}s "
+                              f"(median {med:.3f}s) -- straggler")
+
+            if verbose and step % log_every == 0:
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"gnorm {gnorms[-1]:.3f} "
+                      f"lr {float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
+
+            if mgr and step % ckpt_every == 0:
+                mgr.save(step, state, blocking=not ckpt_async,
+                         extra={"loss": loss})
+
+            if crash_at_step is not None and step == crash_at_step:
+                mgr and mgr.wait()
+                raise RuntimeError(f"injected crash at step {step}")
+        data_s = pipe.seconds_per_batch()
+
+    if mgr:
+        mgr.save(step, state, blocking=True, extra={"final": True})
+        mgr.wait()
+
+    return TrainResult(steps_run=step - start_step, final_step=step,
+                       losses=losses, step_times=times,
+                       straggler_steps=stragglers, resumed_from=resumed_from,
+                       state=state, grad_norms=gnorms,
+                       data_s_per_batch=data_s)
+
+
+@torch.no_grad()
+def eval_perplexity(state_or_params, cfg: ModelConfig, dc: DataConfig, *,
+                    steps: int = 8, start_step: int = 10_000,
+                    opts: ModelOpts = DEFAULT_OPTS) -> float:
+    """Held-out perplexity on fresh synthetic batches (quality proxy), on
+    the device the params live on."""
+    params = getattr(state_or_params, "params", state_or_params)
+    dev = params["embed"].device
+    tot = 0.0
+    for i in range(steps):
+        batch = to_device(sample_batch(dc, start_step + i), dev)
+        _, m = models.loss_fn(params, cfg, batch, opts=opts)
+        tot += float(m["xent"])
+    return float(np.exp(tot / steps))

@@ -26,9 +26,13 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 assert len(names) > 30, names
-# the server, detok and NAEE modules are walked like every other
+# the server, detok and NAEE modules, and the training ones, are walked
+# like every other
 for m in ("repro_torch.serving.http", "repro_torch.serving.detok",
-          "repro_torch.launch.api_server", "repro_torch.core.skipping"):
+          "repro_torch.launch.api_server", "repro_torch.core.skipping",
+          "repro_torch.training.loop", "repro_torch.checkpoint.manager",
+          "repro_torch.data.pipeline", "repro_torch.launch.train",
+          "repro_torch.launch.serve_lexi"):
     assert m in names, m
 import torch
 if not torch.cuda.is_available():

@@ -26,7 +26,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               chunk boundary, ``flash_decode_paged_mla`` also on one row
               of 512 positions, each held bit for bit row by row: a row
               alone at its own live-page width against the batch at a
-              64-column table view;
+              64-column table view; the four attention kernels also at
+              the families' head shapes (FAMILY_DECODE: B4 and B8 at g 16,
+              5 and 8 with hd 128 and at g 4 with hd 80 under a window;
+              B2 at danube's hd 80; B7 at MiniCPM3's 40 heads, r 256, dr
+              32), every row of each held bit for bit alone against the
+              batch; every check prints a sha256 digest of its output
+              (``digest``: equal digests across checkouts mean equal
+              bits; see ``--digests`` below);
               the attention kernels, ``moe_ffn``, ``moe_decode`` and the
               quantized expert kernels, in int8 and int4, row by row, to
               ROW_TOL;
@@ -147,6 +154,26 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 9. forward_mla -- phase 4 on DeepSeek-V2-Lite (``moe_ffn`` and
               ``moe_gmm``; MLA's train mode attends through the plain
               masked softmax).
+9b. families -- the DeepSeek weights freed, each of
+              ``repro_torch.configs.FAMILIES`` in turn at full width, bf16,
+              random weights drawn on the card (qwen3-moe-235b-a22b and
+              llama4-scout-17b-a16e cut to FAMILY_LAYERS = 8 layers;
+              qwen3-32b, h2o-danube-1.8b and minicpm3-4b at full depth),
+              its weights, engines and graphs freed before the next: B1,
+              B3 and B9 at the MoE configs' expert shapes (sub-entries of
+              their rows); the kernel paths' logits against the plain
+              paths' (``family_reference``: a chunk and a decode step on
+              the paged pool, for GQA a whole prompt and a decode step on
+              the contiguous cache); the 8 requests (FAMILY_NEW tokens
+              each) on the paged pool through the config's own ``dense``,
+              graphed, with an eager twin; danube (its window cut to
+              FAMILY_WINDOW, under the prompts) and qwen3-32b on the
+              contiguous layout too (``flash_attention``,
+              ``flash_decode``); qwen3-moe's LExI plan at a 50 % budget
+              served and a mixed wave, each with an eager twin of the same
+              history; llama4-scout's plan asserted to be (1,) * 8.  One
+              ``families`` line a config (layers, params_gb,
+              kv_bytes_per_token, peak_gb, launches).
 10. train  -- the DeepSeek weights freed, OLMoE-1B-7B at full width and
               half depth (TRAIN_LAYERS: 16 layers of train state would
               not fit), bf16, random weights from seed 0, trained
@@ -196,10 +223,23 @@ it prints the
 ``kernels`` summary line (launches summed over every step), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.  Without a CUDA device it exits 1 and prints no result.
+
+    python3 chip_smoke.py --digests [DIR]
+
+runs only the four attention kernels' checks of phase 2 (B2, B8 and B4 on
+OLMoE-1B-7B's widths and the families', B7 on DeepSeek-V2-Lite's and
+MiniCPM3-4B's), untimed, on the ``repro_torch`` of ``DIR/src`` (default:
+this checkout; its kernels build into ``DIR/build``), and prints as its
+last line ``{"digests": {check: digest}, "refused": {check function:
+message}}``.  Each kernel's newer shapes come after its older ones, so a
+package that refuses a shape (an older checkout) has digested every shape
+it takes; equal digests of a check under two packages mean equal bits.
 """
 
 from __future__ import annotations
 
+import gc
+import hashlib
 import json
 import os
 import statistics
@@ -269,7 +309,9 @@ def _time_once(fn, flush) -> float:
 def time_calls(fns, flush, reps: int = 15):
     """Median per-call device ms of each of ``fns``, interleaved (the order
     rotates every repeat) after one warm-up of each; the L2 is flushed
-    before every call."""
+    before every call.  No ``flush`` (``--digests``): untimed, Nones."""
+    if flush is None:
+        return [None] * len(fns)
     for fn in fns:
         fn()
     torch.cuda.synchronize()
@@ -281,14 +323,28 @@ def time_calls(fns, flush, reps: int = 15):
     return [statistics.median(t) for t in times]
 
 
+#: every check's output digest, by check name (``--digests`` prints them)
+DIGESTS: dict = {}
+
+
+def digest(t: torch.Tensor) -> str:
+    """sha256 (16 hex digits) of a tensor's bytes: equal digests of one
+    check's output on two checkouts mean equal bits (the inputs come from
+    fixed seeds)."""
+    return hashlib.sha256(t.detach().contiguous().view(-1).view(torch.uint8)
+                          .cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, **extra):
+    dig = DIGESTS[name] = digest(got)
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: kernel output is not finite")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
     rec = {"check": name, "max_abs_err": err, "max_abs_ref": scale,
-           "rel_err": err / max(scale, 1e-30), "tol": TOL, **extra}
+           "rel_err": err / max(scale, 1e-30), "tol": TOL, "digest": dig,
+           **extra}
     emit(rec)
     if err > TOL * scale:
         raise AssertionError(f"{name}: max abs err {err} > {TOL} x {scale}")
@@ -315,7 +371,8 @@ def compare_rows(name: str, got: torch.Tensor, want: torch.Tensor, **extra):
            "max_abs_err": (got.float() - want.float()).abs().max().item(),
            "max_row_rel_err": rel.max().item(),
            "median_row_rel_err": rel.median().item(), "tol": ROW_TOL,
-           **extra}
+           "digest": digest(got), **extra}
+    DIGESTS[name] = rec["digest"]
     emit(rec)
     if rec["max_row_rel_err"] > ROW_TOL:
         raise AssertionError(f"{name}: a row's relative error "
@@ -702,12 +759,26 @@ FDP_SHAPES = {
     "one_row_512": ([512], 16, None, 32),
     "past_chunk_boundary": ([80, 33, 272, 17], 16, None, 32),
 }
+#: the decode shapes of the families (query heads, kv heads, hd, window):
+#: qwen3-moe g 16, llama4-scout g 5 and qwen3-32b g 8 at hd 128 (a group
+#: split over the grid: 4 x 4, 5 whole, 2 x 4 query heads a block), and
+#: h2o-danube g 4 at hd 80 (computed padded to 128) under a window; B4 and
+#: B8 take them over the lens of the OLMoE check, every row held bit for
+#: bit alone against the batch
+FAMILY_DECODE = {
+    "qwen3_moe_g16": (64, 4, 128, None),
+    "llama4_g5": (40, 8, 128, None),
+    "qwen3_32b_g8": (64, 8, 128, None),
+    "danube_g4_hd80_window": (32, 8, 80, 150),
+}
+FAMILY_LENS = [512, 511, 480, 300, 129, 64, 16, 0]
 
 
 def check_flash_decode_paged(cfg, flush, device):
     """B4 at OLMoE's widths (16 query heads of 128, pages of 16) on each of
-    FDP_SHAPES, a 64-column table walked through a narrower view, each
-    (row, head) held to ROW_TOL; then each row of the check and the GQA
+    FDP_SHAPES, then at each of FAMILY_DECODE's widths over FAMILY_LENS, a
+    64-column table walked through a narrower view, each (row, head) held
+    to ROW_TOL; then each row of the check, the GQA shape and every family
     shape alone at its own live-page width against the batch at the full
     64 columns, bit for bit.  No single PyTorch call takes a block table:
     library_ms null."""
@@ -716,9 +787,13 @@ def check_flash_decode_paged(cfg, flush, device):
         flash_decode_paged_plain
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    hd, p, hq, n_blk = cfg.head_dim_, 16, cfg.num_heads, 64
+    p, n_blk = 16, 64
+    shapes = {tag: (lens, cfg.num_heads, hkv, cfg.head_dim_, window, live)
+              for tag, (lens, hkv, window, live) in FDP_SHAPES.items()}
+    shapes.update({tag: (FAMILY_LENS, hq, hkv, hd, window, 32) for tag,
+                   (hq, hkv, hd, window) in FAMILY_DECODE.items()})
     per = {}
-    for tag, (lens, hkv, window, live) in FDP_SHAPES.items():
+    for tag, (lens, hq, hkv, hd, window, live) in shapes.items():
         b = len(lens)
         n = b * 32 + 1
         kp, vp = (torch.randn((n, p, hkv, hd), generator=gen, device=device,
@@ -733,7 +808,7 @@ def check_flash_decode_paged(cfg, flush, device):
                            flash_decode_paged_plain(*args, window=window),
                            batch=b, heads=[hq, hkv], window=window,
                            live_positions=sum(lens), table_cols=live)
-        if tag in ("olmoe_b8", "gqa_window"):
+        if tag in ("olmoe_b8", "gqa_window") or tag in FAMILY_DECODE:
             bitwise_rows(
                 f"flash_decode_paged_{tag}_rows",
                 lambda *a: flash_decode_paged(*a, window=window), lens,
@@ -756,6 +831,10 @@ FDPM_SHAPES = {
     "deepseek_b8": ([512, 511, 480, 300, 129, 64, 16, 0], 32),
     "one_row_512": ([512], 32),
 }
+#: B7 at MiniCPM3-4B's widths (heads, r, dr, the model's qk dims dn + dr
+#: for the scale): 40 heads in three tiles of 16 (the last partial), r 256,
+#: dr 32, over the DeepSeek check's lens
+FDPM_FAMILY = {"minicpm3_h40": (40, 256, 32, 64 + 32)}
 
 
 def check_flash_decode_paged_mla(cfg, flush, device):
@@ -771,11 +850,16 @@ def check_flash_decode_paged_mla(cfg, flush, device):
         flash_decode_paged_mla_plain
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
-    h, p, n_blk = cfg.num_heads, 16, 64
-    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
-    scale = 1.0 / (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** 0.5
+    p, n_blk = 16, 64
+    shapes = {tag: (lens, live, cfg.num_heads, cfg.kv_lora_rank,
+                    cfg.qk_rope_head_dim,
+                    cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+              for tag, (lens, live) in FDPM_SHAPES.items()}
+    shapes.update({tag: (FDPM_SHAPES["deepseek_b8"][0], 32, *v)
+                   for tag, v in FDPM_FAMILY.items()})
     per = {}
-    for tag, (lens, live) in FDPM_SHAPES.items():
+    for tag, (lens, live, h, r, dr, qk) in shapes.items():
+        scale = 1.0 / qk ** 0.5
         b = len(lens)
         n = b * 32 + 1
         ckvp, kropep = (torch.randn((n, p, w), generator=gen, device=device,
@@ -789,7 +873,7 @@ def check_flash_decode_paged_mla(cfg, flush, device):
                            flash_decode_paged_mla_plain(*args, scale=scale),
                            batch=b, heads=h, latent=[r, dr],
                            live_positions=sum(lens), table_cols=live)
-        if tag == "deepseek_b8":
+        if tag == "deepseek_b8" or tag in FDPM_FAMILY:
             bitwise_rows(
                 f"flash_decode_paged_mla_{tag}_rows",
                 lambda *a: flash_decode_paged_mla(*a, scale=scale), lens,
@@ -817,13 +901,19 @@ def _causal_pairs(s: int, window) -> int:
 
 
 def check_flash_attention(cfg, flush, device):
+    """B2 at OLMoE's widths (16 heads of 128) on the forward's shape and the
+    edges of its tiling, then at h2o-danube's (32 query heads, 8 kv heads
+    of 80): its forward's strided views under its 4096 window, a window
+    inside the sequence, a ragged S; every (row, head) held to ROW_TOL.
+    The OLMoE and danube forwards are timed against the plain version and
+    SDPA (is_causal; GQA through ``enable_gqa``).  Returns {shape:
+    numbers}."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import flash_attention_plain
     gen = torch.Generator(device=device)
     gen.manual_seed(4)
-    hq, hd = cfg.num_heads, cfg.head_dim_
 
-    def qkv(b, hkv, s, hd, strided):
+    def qkv(b, hq, hkv, s, hd, strided):
         if strided:                      # the model's [B, S, H, hd] views
             return [torch.randn((b, s, h, hd), generator=gen, device=device,
                                 dtype=torch.bfloat16).transpose(1, 2)
@@ -836,34 +926,46 @@ def check_flash_attention(cfg, flush, device):
     # the forward's shape, a ragged whole-prompt prefill, GQA g=4 with a
     # sliding window (OLMoE is MHA without one), and the edges of the
     # tiling: hd 64, a ragged S inside one tile and across several, and
-    # strided views of [B, S, H, hd] activations
-    shapes = {"forward": (4, cfg.num_kv_heads, 512, None, hd, False),
-              "prefill_ragged": (1, cfg.num_kv_heads, 200, None, hd, False),
-              "gqa_window": (2, hq // 4, 384, 100, hd, False),
-              "hd64_forward": (4, cfg.num_kv_heads, 512, None, 64, False),
-              "hd64_s37_gqa_window": (1, hq // 4, 37, 16, 64, False),
-              "strided_s200_gqa_window": (2, hq // 4, 200, 100, hd, True)}
-    errs = []
-    for tag, (b, hkv, s, window, hd, strided) in shapes.items():
-        args = qkv(b, hkv, s, hd, strided)
+    # strided views of [B, S, H, hd] activations; then danube's hd 80
+    hq, hd = cfg.num_heads, cfg.head_dim_
+    shapes = {"forward": (4, hq, cfg.num_kv_heads, 512, None, hd, False),
+              "prefill_ragged": (1, hq, cfg.num_kv_heads, 200, None, hd,
+                                 False),
+              "gqa_window": (2, hq, hq // 4, 384, 100, hd, False),
+              "hd64_forward": (4, hq, cfg.num_kv_heads, 512, None, 64, False),
+              "hd64_s37_gqa_window": (1, hq, hq // 4, 37, 16, 64, False),
+              "strided_s200_gqa_window": (2, hq, hq // 4, 200, 100, hd, True),
+              "danube_forward_hd80": (4, 32, 8, 512, 4096, 80, True),
+              "danube_hd80_window": (2, 32, 8, 384, 100, 80, False),
+              "danube_hd80_s37_window": (1, 32, 8, 37, 16, 80, True)}
+    errs = {}
+    for tag, (b, hq_, hkv, s, window, hd_, strided) in shapes.items():
+        args = qkv(b, hq_, hkv, s, hd_, strided)
         got = flash_attention(*args, window=window)
         if got.stride() != args[0].stride():
             raise AssertionError(f"flash_attention_{tag}: output strides "
                                  f"{got.stride()} != q's {args[0].stride()}")
-        errs.append(compare_rows(f"flash_attention_{tag}", got,
+        errs[tag] = compare_rows(f"flash_attention_{tag}", got,
                                  flash_attention_plain(*args, window=window),
-                                 shape=[b, hq, hkv, s, hd], window=window,
-                                 strided=strided))
-    b, hkv, s, _, hd, _ = shapes["forward"]
-    q, k, v = qkv(b, hkv, s, hd, False)
+                                 shape=[b, hq_, hkv, s, hd_], window=window,
+                                 strided=strided)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ms, plain_ms, lib_ms = time_calls(
-        (lambda: flash_attention(q, k, v),
-         lambda: flash_attention_plain(q, k, v),
-         lambda: sdpa(q, k, v, is_causal=True)), flush)
-    nbytes = (2 * b * hq * s * hd + 2 * b * hkv * s * hd) * 2
-    flops = 4 * b * hq * hd * _causal_pairs(s, None)
-    return max(errs), ms, plain_ms, nbytes, flops, lib_ms
+    per = {}
+    for tag, key in (("olmoe_forward", "forward"),
+                     ("danube_forward_hd80", "danube_forward_hd80")):
+        b, hq_, hkv, s, window, hd_, strided = shapes[key]
+        q, k, v = qkv(b, hq_, hkv, s, hd_, strided)
+        gqa = {"enable_gqa": True} if hkv != hq_ else {}
+        ms, plain_ms, lib_ms = time_calls(
+            (lambda: flash_attention(q, k, v, window=window),
+             lambda: flash_attention_plain(q, k, v, window=window),
+             lambda: sdpa(q, k, v, is_causal=True, **gqa)), flush)
+        nbytes = (2 * b * hq_ * s * hd_ + 2 * b * hkv * s * hd_) * 2
+        flops = 4 * b * hq_ * hd_ * _causal_pairs(s, window)
+        err = max(e for t, e in errs.items()
+                  if t.startswith("danube_") == (tag != "olmoe_forward"))
+        per[tag] = (err, ms, plain_ms, nbytes, flops, lib_ms)
+    return per
 
 
 def _decode_cache(gen, device, lens, s_buf, hkv, hd):
@@ -894,19 +996,28 @@ FD_SHAPES = {
 
 def check_flash_decode(cfg, flush, device):
     """B8 at OLMoE's widths (16 query heads of 128) on each of FD_SHAPES,
-    each (row, head) held to ROW_TOL; then each row of the check and of the
-    GQA shape alone against the same row in the batch, bit for bit.  Timed
-    against the plain version and, on the MHA shapes, the library's
-    attention with a boolean mask built from pos (library_ms)."""
+    then at each of FAMILY_DECODE's widths over FAMILY_LENS on a 512-slot
+    cache (danube's on a 200-slot ring under its window: rows longer than
+    200 have wrapped), each
+    (row, head) held to ROW_TOL; then each row of the check, of the GQA
+    shape and of every family shape alone against the same row in the
+    batch, bit for bit.  Timed against the plain version and, on the MHA
+    and family shapes, the library's attention with a boolean mask built
+    from pos (library_ms; GQA through ``enable_gqa``)."""
     from repro_torch.kernels import flash_decode
     from repro_torch.kernels.flash_decode import flash_decode_plain
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
-    hq, hd = cfg.num_heads, cfg.head_dim_
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = {tag: (lens, s_buf, cfg.num_heads, cfg.num_heads // group,
+                    cfg.head_dim_, window)
+              for tag, (lens, s_buf, group, window) in FD_SHAPES.items()}
+    shapes.update({tag: (FAMILY_LENS, 200 if window else 512, hq, hkv, hd,
+                         window)
+                   for tag, (hq, hkv, hd, window) in FAMILY_DECODE.items()})
     per = {}
-    for tag, (lens, s_buf, group, window) in FD_SHAPES.items():
-        b, hkv = len(lens), hq // group
+    for tag, (lens, s_buf, hq, hkv, hd, window) in shapes.items():
+        b = len(lens)
         q = torch.randn((b, hq, hd), generator=gen, device=device,
                         dtype=torch.bfloat16)
         k, v, pos, cur = _decode_cache(gen, device, lens, s_buf, hkv, hd)
@@ -916,7 +1027,7 @@ def check_flash_decode(cfg, flush, device):
                            flash_decode_plain(*args, window=window),
                            batch=b, heads=[hq, hkv], slots=s_buf,
                            window=window, live_positions=sum(lens))
-        if tag in ("olmoe_b8", "gqa_window"):
+        if tag in ("olmoe_b8", "gqa_window") or tag in FAMILY_DECODE:
             bitwise_rows(
                 f"flash_decode_{tag}_rows",
                 lambda *a: flash_decode(*a, window=window), lens,
@@ -926,10 +1037,11 @@ def check_flash_decode(cfg, flush, device):
             valid &= pos > cur[:, None] - window
         fns = [lambda: flash_decode(*args, window=window),
                lambda: flash_decode_plain(*args, window=window)]
-        if hkv == hq:
+        if hkv == hq or tag in FAMILY_DECODE:
             qm, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
             mask = valid[:, None, None, :]
-            fns.append(lambda: sdpa(qm, kt, vt, attn_mask=mask))
+            gqa = {"enable_gqa": True} if hkv != hq else {}
+            fns.append(lambda: sdpa(qm, kt, vt, attn_mask=mask, **gqa))
         ms, plain_ms, *lib = time_calls(fns, flush)
         live = int(valid.sum())           # the slots the function must read
         nbytes = (live * hkv * hd * 2 * 2 + live * 4 + 2 * b * hq * hd * 2
@@ -2366,6 +2478,288 @@ def serve_mla(params, cfg, device, t_start):
 
 
 # --------------------------------------------------------------------------- #
+# phase 9b: five more architectures at full width
+# --------------------------------------------------------------------------- #
+
+#: the families phase's depth a config: 8 of qwen3-moe's 94 layers (2.49 B
+#: parameters a layer) and of llama4-scout's 48 (2.20 B), so their bf16
+#: weights (42.3 and 39.4 GB) leave room on the 80 GB card; the others
+#: run at full depth (qwen3-32b 65.5 GB)
+FAMILY_LAYERS = {"qwen3-moe-235b-a22b": 8, "llama4-scout-17b-a16e": 8}
+#: danube's window on its contiguous serve: under the prompts' 32-256
+#: tokens, so the ring wraps and every kernel applies the window (its own
+#: 4096 exceeds the serve's max_len of 512)
+FAMILY_WINDOW = 128
+#: tokens each request decodes in the families phase (the serve phases'
+#: 32 halved, to keep the phase short)
+FAMILY_NEW = 16
+#: the short name of a family in step and check names
+FAMILY_SHORT = {"qwen3-moe-235b-a22b": "qwen3_moe",
+                "llama4-scout-17b-a16e": "llama4",
+                "qwen3-32b": "qwen3_32b", "h2o-danube-1.8b": "danube",
+                "minicpm3-4b": "minicpm3"}
+
+
+def family_expert_checks(layer, cfg, short, device, rows):
+    """B1, B3 and B9 at a family's expert shapes (the first MoE layer's
+    router and experts): B1 on 512 tokens, B3 on 8 tokens at top-k and at
+    k 2, B9 on a decode step's capacity buffers (8 tokens), each held to
+    its plain version; each a sub-entry of its kernel's row."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(9)
+    x = torch.randn((512, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    x8 = x[:8].contiguous()
+    f = cfg.moe_d_ff
+    shapes = {"moe_gmm": {f"{short}_f{f}": kernel_row(
+        "moe_gmm", "", "", *check_moe_gmm(layer, cfg, x, flush,
+                                          tag=f"_{short}"))}}
+    shapes["moe_decode"] = {
+        f"{short}_f{f}_{key}": kernel_row("moe_decode", "", "", *v)
+        for key, v in check_moe_decode(layer, cfg, x8, flush,
+                                       f"_{short}").items()}
+    sh = f"{short}_decode_f{f}"
+    shapes["moe_ffn"] = {sh: kernel_row(
+        "moe_ffn", "", "", *check_moe_ffn(layer, cfg, x8, flush, sh))}
+    for name, per in shapes.items():
+        rows[name].setdefault("shapes", {}).update(
+            {k: {n: r[n] for n in NESTED_KEYS if n in r}
+             for k, r in per.items()})
+    return shapes
+
+
+def family_reference(params, cfg, device):
+    """The kernel paths' logits against the plain paths' on the same
+    weights, through the model cut to its first layer: a chunk step and a
+    decode step on the paged pool (``paged_logits``; the MoE configs on a
+    ``gmm`` copy, so ``moe_gmm`` and ``moe_decode`` run), and for GQA a
+    whole-prompt prefill on the contiguous cache and a decode step
+    (``flash_attention``, ``flash_decode``), each row within LOGITS_TOL.
+    Returns the kernel side's launch counts."""
+    from repro_torch import models
+    cfg1 = cfg.with_(num_layers=1)
+    if cfg.is_moe:
+        cfg1 = cfg1.with_(moe_impl="gmm")
+    p1 = dict(params, layers=params["layers"][:1])
+    dev = ref_inputs(cfg1, device)
+    b, c = dev["tokens"].shape
+    kern = models.ModelOpts(use_moe_kernel=True, use_paged_kernel=True,
+                            use_moe_decode_kernel=True, use_flash=True,
+                            use_flash_decode=True)
+    plain = models.ModelOpts(use_moe_decode_kernel=True)
+
+    def contiguous(opts):
+        caches = models.init_caches(cfg1, b, 2 * c, layout="contiguous",
+                                    device=device)
+        lg1, caches = models.prefill_fn(p1, cfg1, {"tokens": dev["tokens"]},
+                                        caches, opts=opts)
+        lg2, _ = models.decode_fn(p1, cfg1, dev["nxt"], dev["pos_c"], caches,
+                                  opts=opts)
+        return lg1.float(), lg2.float()
+
+    def both():
+        out = {"paged": paged_logits(p1, cfg1, kern, dev)}
+        if cfg.attention == "gqa":
+            out["contiguous"] = contiguous(kern)
+        return out
+    got, counts = counted(both)
+    for layout, lg in got.items():
+        want = (paged_logits(p1, cfg1, plain, dev) if layout == "paged"
+                else contiguous(plain))
+        gate_logits(f"reference_logits_{cfg.name}_{layout}", lg, want,
+                    launches={n: v for n, v in counts.items() if v})
+    return counts
+
+
+def family_phase(name, cfg, device, t_start, rows):
+    """One architecture at full width on the card (its depth cut per
+    FAMILY_LAYERS): init, the expert kernels at its shapes (MoE), the
+    reference check, the 8 requests served on the paged pool through its
+    own ``dense`` impl (graphed; an eager twin's greedy tokens and launches
+    equal; then the wave again, every step a replay: the steady numbers),
+    the contiguous layout for a windowed or a dense GQA config
+    (danube under FAMILY_WINDOW, qwen3-32b: whole prompts through
+    ``flash_attention``, decode through ``flash_decode``); for a MoE config
+    with top-k above 1 a LExI plan profiled at a 50 % budget and served,
+    then a mixed wave of baseline and plan requests through the bucketed-k
+    steps, each wave's tokens and launches equal to an eager twin's that
+    served the same waves before it (on ``dense`` the capacity drops
+    follow the pool's past; the mixed wave's agreement with the
+    single-plan serves is printed, not gated: rows of other plans compete
+    for capacity);
+    for a top-1 config the identity plan asserted.  Returns {step: (launch
+    counts, kernels the step must launch)}."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.core import optimize
+    from repro_torch.serving import Engine
+    from repro_torch.tree import leaves
+    short = FAMILY_SHORT.get(name, name)
+    attn = ("flash_decode_paged_mla",) if cfg.attention == "mla" else \
+        ("flash_decode_paged",)
+    moe = ("moe_ffn",) if cfg.is_moe else ()
+    need, rec = {}, {"phase": "families", "arch": name,
+                     "layers": cfg.num_layers,
+                     "full_layers": get_config(name).num_layers}
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    hd = cfg.head_dim_
+    rec.update(init_s=time.perf_counter() - t0,
+               params_gb=sum(t.numel() * t.element_size()
+                             for t in leaves(params)) / 1e9,
+               kv_bytes_per_token=cfg.num_layers * 2 * (
+                   cfg.kv_lora_rank + cfg.qk_rope_head_dim
+                   if cfg.attention == "mla"
+                   else 2 * cfg.num_kv_heads * hd),
+               heads=[cfg.num_heads, cfg.num_kv_heads, hd])
+    if cfg.is_moe:
+        moe_layer = next(lp["moe"] for lp in params["layers"] if "moe" in lp)
+        family_expert_checks(moe_layer, cfg, short, device, rows)
+        del moe_layer
+
+    counts = family_reference(params, cfg, device)
+    ref_names = attn + (("moe_gmm", "moe_decode") if cfg.is_moe else ())
+    if cfg.attention == "gqa":
+        ref_names += ("flash_attention", "flash_decode")
+    need[f"{short}_reference"] = (counts, ref_names)
+
+    def reqs(plans=None):
+        return requests(cfg, seed=0, max_new=FAMILY_NEW, plans=plans)
+
+    def paged(graphs=True):
+        return Engine(cfg, params, max_batch=8, max_len=512,
+                      prefill_chunk=64, use_kernel=True, use_moe_decode=True,
+                      opts=models.ModelOpts(use_moe_kernel=True),
+                      device=device, graphs=graphs)
+    eng = paged()
+    res_base, c = counted(lambda: eng.serve(reqs()))
+    check_results(f"{name} serve", res_base, cfg, FAMILY_NEW)
+    need[f"{short}_serve"] = (c, attn + moe)
+    rec["serve_stats"] = serve_record(eng)
+    rec["serve_launches"] = {n: v for n, v in c.items() if v}
+    rec["serve_eager_stats"], c = eager_twin(f"{name} serve", paged, reqs(),
+                                             res_base, c)
+    need[f"{short}_serve_eager"] = (c, attn + moe)
+    # the same wave again: every step a replay (the first serve captured
+    # its keys), the steady graphed numbers
+    res, c = counted(lambda: eng.serve(reqs()))
+    check_results(f"{name} serve steady", res, cfg, FAMILY_NEW)
+    need[f"{short}_serve_steady"] = (c, attn + moe)
+    rec["serve_steady_stats"] = serve_record(eng)
+    if rec["serve_steady_stats"]["graphs_captured"]:
+        raise AssertionError(f"{name}: the steady serve captured a graph")
+
+    if cfg.is_moe and cfg.moe_top_k > 1:
+        budget = int(0.5 * cfg.num_moe_layers * cfg.moe_top_k)
+        t0 = time.perf_counter()
+        plan, c = counted(lambda: optimize(
+            params, cfg.with_(moe_impl="gmm"), budget, method="dp",
+            n_iter=2, profile_batch=2, profile_seq=32, seed=0,
+            device=device, use_kernel=True))
+        need[f"{short}_optimize"] = (c, ("moe_gmm",))
+        rec.update(plan=list(plan.plan), budget=budget,
+                   optimize_s=time.perf_counter() - t0)
+        if sum(plan.plan) != budget:
+            raise AssertionError(f"{name}: plan {plan.plan} at {budget}")
+        eng.add_plan("lexi", plan)
+        res_lexi, c = counted(lambda: eng.serve(reqs(), plan="lexi"))
+        check_results(f"{name} lexi", res_lexi, cfg, FAMILY_NEW)
+        need[f"{short}_lexi"] = (c, attn + moe)
+        rec["lexi_stats"] = serve_record(eng)
+
+        # the eager twin walks the same history (the baseline waves, then
+        # the plan's, then the mixed one): on dense a pad row attends the
+        # stale bytes of its recycled pages, so its routing, and the copies
+        # it drops, follow the pool's past
+        twin = paged(graphs=False)
+        twin.add_plan("lexi", plan)
+        twin.serve(reqs())
+        twin.serve(reqs())
+        res, c2 = counted(lambda: twin.serve(reqs(), plan="lexi"))
+        same_tokens(f"{name} lexi graphed vs eager", res_lexi, res)
+        if c2 != c:
+            raise AssertionError(f"{name} lexi: eager launches {c2} against "
+                                 f"the graphed serve's {c}")
+        rec["lexi_eager_stats"] = serve_record(twin)
+        mix = ["base" if i % 2 == 0 else "lexi" for i in range(8)]
+        res_mix, c = counted(lambda: eng.serve(reqs(plans=mix)))
+        check_results(f"{name} mixed", res_mix, cfg, FAMILY_NEW)
+        need[f"{short}_mixed"] = (c, attn + moe)
+        rec["mixed_stats"] = serve_record(eng)
+        res, c2 = counted(lambda: twin.serve(reqs(plans=mix)))
+        same_tokens(f"{name} mixed graphed vs eager", res_mix, res)
+        if c2 != c:
+            raise AssertionError(f"{name} mixed: eager launches {c2} against "
+                                 f"the graphed serve's {c}")
+        rec["mixed_agreement_with_single_plan"] = agreement(
+            res_mix, [(res_base if p == "base" else res_lexi)[i]
+                      for i, p in enumerate(mix)])
+        del twin
+        if rec["mixed_stats"]["mixed_plan_steps"] <= 0:
+            raise AssertionError(f"{name}: no mixed-plan step")
+    elif cfg.is_moe:
+        plan = optimize(params, cfg, cfg.num_moe_layers, method="dp",
+                        device=device)
+        if tuple(plan.plan) != (1,) * cfg.num_moe_layers:
+            raise AssertionError(f"{name}: top-1 plan {plan.plan}")
+        rec["plan"] = list(plan.plan)
+    drained(f"{name} serve", eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    if cfg.attention == "gqa" and (cfg.sliding_window or not cfg.is_moe):
+        cfg_c = cfg.with_(sliding_window=FAMILY_WINDOW) \
+            if cfg.sliding_window else cfg
+
+        def contiguous(graphs=True):
+            return Engine(cfg_c, params, max_batch=8, max_len=512,
+                          cache_layout="contiguous", prefill_chunk=0,
+                          use_moe_decode=True, opts=models.ModelOpts(
+                              use_flash=True, use_flash_decode=True,
+                              use_moe_kernel=True), device=device,
+                          graphs=graphs)
+        eng = contiguous()
+        res, c = counted(lambda: eng.serve(reqs()))
+        check_results(f"{name} contiguous", res, cfg, FAMILY_NEW)
+        need[f"{short}_contiguous"] = (c, ("flash_attention", "flash_decode")
+                                       + moe)
+        rec.update(contiguous_window=cfg_c.sliding_window,
+                   contiguous_stats=serve_record(eng),
+                   contiguous_launches={n: v for n, v in c.items() if v})
+        rec["contiguous_eager_stats"], _ = eager_twin(
+            f"{name} contiguous", contiguous, reqs(), res, c)
+        res, c = counted(lambda: eng.serve(reqs()))
+        check_results(f"{name} contiguous steady", res, cfg, FAMILY_NEW)
+        need[f"{short}_contiguous_steady"] = (
+            c, ("flash_attention", "flash_decode") + moe)
+        rec["contiguous_steady_stats"] = serve_record(eng)
+        del eng
+    del params
+    gc.collect()                      # a runner's graphs, pools and caches
+    torch.cuda.empty_cache()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    rec["launches"] = {k[len(short) + 1:]: {n: v for n, v in c.items() if v}
+                       for k, (c, _) in need.items()}
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return need
+
+
+def families_phase(device, t_start, rows):
+    """Phase 9b: each of ``repro_torch.configs.FAMILIES`` in turn, its
+    weights and engines freed before the next."""
+    from repro_torch.configs import FAMILIES, get_config
+    need = {}
+    for name in FAMILIES:
+        cfg = get_config(name)
+        cfg = cfg.with_(num_layers=FAMILY_LAYERS.get(name, cfg.num_layers))
+        need.update(family_phase(name, cfg, device, t_start, rows))
+    return need
+
+
+# --------------------------------------------------------------------------- #
 # phases 10-12: training and held-out evaluation
 # --------------------------------------------------------------------------- #
 
@@ -2636,6 +3030,25 @@ def train_quality_phase(device, t_start, steps: int = QUALITY_STEPS,
 
 
 RESUME_FLAG = "--train-resume"
+DIGESTS_FLAG = "--digests"
+
+
+def digests_main(device) -> int:
+    """``--digests [DIR]``: the attention checks, untimed, on the package
+    already imported (DIR's); prints the digests and the refusals."""
+    from repro_torch.configs import get_config
+    cfg, cfg_mla = get_config("olmoe-1b-7b"), get_config("deepseek-v2-lite")
+    refused = {}
+    for check, c in ((check_flash_attention, cfg), (check_flash_decode, cfg),
+                     (check_flash_decode_paged, cfg),
+                     (check_flash_decode_paged_mla, cfg_mla)):
+        try:
+            check(c, None, device)
+        except ValueError as e:          # a shape the wrappers refuse
+            refused[check.__name__] = str(e)
+    torch.cuda.synchronize()
+    emit({"digests": DIGESTS, "refused": refused})
+    return 0
 
 
 def train_resume_child(device) -> int:
@@ -2718,7 +3131,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    argv = sys.argv[1:]
+    digests = argv[:1] == [DIGESTS_FLAG]
+    package = os.path.abspath(argv[1]) if digests and argv[1:] else ROOT
+    sys.path.insert(0, os.path.join(package, "src"))
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.core import optimize
@@ -2729,8 +3145,10 @@ def main() -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if sys.argv[1:] == [RESUME_FLAG]:
+    if argv == [RESUME_FLAG]:
         return train_resume_child(device)
+    if digests:
+        return digests_main(device)
     t_start = time.perf_counter()
 
     # ---- phase 1: build -------------------------------------------------
@@ -2789,10 +3207,13 @@ def main() -> int:
             "flash_decode_paged", "src/repro_torch/csrc/flash_decode_paged.cu",
             "src/repro/kernels/flash_decode_paged.py:107",
             check_flash_decode_paged(cfg, flush, device), "shapes"),
-        "flash_attention": kernel_row(
+        # the OLMoE forward first (its error the largest of the six OLMoE
+        # shapes'), then danube's forward at hd 80 (the largest of its
+        # three); the row's error is the larger of the two
+        "flash_attention": nested_row(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:74",
-            *check_flash_attention(cfg, flush, device)),
+            check_flash_attention(cfg, flush, device), "shapes"),
         # the OLMoE check first, then GQA under a window, one row of 512
         # positions, rows at the edges of the 32-slot chunks
         "flash_decode": nested_row(
@@ -3049,6 +3470,10 @@ def main() -> int:
     emit(dict(rec, phase="forward_mla", launches=fwd_counts,
               seconds_total=time.perf_counter() - t_start))
     del params
+    torch.cuda.empty_cache()
+
+    # ---- phase 9b: five more architectures at full width -----------------
+    need.update(families_phase(device, t_start, rows))
     torch.cuda.empty_cache()
 
     # ---- phases 10-12: training and held-out evaluation -----------------

@@ -1,6 +1,7 @@
 """LExI core: profile (Alg. 1), search (Alg. 2), plan, and the pruning
 baselines the paper compares against."""
-from repro_torch.core.apply import apply_plan_params, optimize  # noqa: F401
+from repro_torch.core.apply import apply_plan_params, lexi_config, \
+    optimize  # noqa: F401
 from repro_torch.core.plan import LexiPlan, apply_plan, uniform_plan, \
     validate_plan  # noqa: F401
 from repro_torch.core.search import SearchResult, dp_optimal, \

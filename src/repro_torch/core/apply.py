@@ -4,6 +4,8 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plan import LexiPlan, apply_plan
 from repro_torch.core.search import SearchResult, dp_optimal, \
@@ -33,7 +35,20 @@ def optimize(
     ``budget`` is the total number of active experts across all MoE layers
     (paper's B).  Stage 1 profiles on ``device`` (the card unless the
     caller asks for the CPU); pass a precomputed ``table`` to skip it.
+    A top-1 config has one plan, the identity ``(1,) * n_moe``: its table
+    is all zeros, with no profiling (the reference's Stage 1 refuses such
+    a config; given that table, its search returns the same plan).
     """
+    if table is None and cfg.is_moe and cfg.moe_top_k == 1:
+        # top-1 routing (llama4-scout) leaves no k below the baseline:
+        # every layer's one choice is k = 1, which perturbs nothing, and
+        # Stage 1 (which refuses such a config) has nothing to measure
+        n = cfg.num_moe_layers
+        table = SensitivityTable(
+            arch=cfg.name, k_base=1,
+            moe_layer_indices=tuple(i for i, b in enumerate(cfg.pattern())
+                                    if b.kind == "attn_moe"),
+            target_topks=(1,), n_iter=0, values=np.zeros((n, 1)))
     if table is None:
         table = profile_sensitivity(
             params, cfg, n_iter=n_iter, batch=profile_batch, seq=profile_seq,
@@ -47,6 +62,13 @@ def optimize(
         raise ValueError(f"unknown method {method!r}")
     return LexiPlan(arch=cfg.name, budget=budget, plan=res.plan,
                     fitness=res.fitness, method=method, k_base=cfg.moe_top_k)
+
+
+def lexi_config(params: Dict, cfg: ModelConfig, budget: int,
+                **kw) -> ModelConfig:
+    """Convenience: the config with the optimized per-layer plan applied
+    (``kw`` go to ``optimize``)."""
+    return apply_plan(cfg, optimize(params, cfg, budget, **kw))
 
 
 def apply_plan_params(params: Dict, cfg: ModelConfig, plan: LexiPlan):

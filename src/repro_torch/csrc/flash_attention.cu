@@ -43,7 +43,10 @@
 // the sequence's end evaluate the mask.  A ragged last q or kv tile is
 // zero-filled on load and masked, so any S runs.  The output is staged in
 // the Q tile's rows (each warp its own) and stored as 16-byte rows.  hd is
-// a template parameter, 64 or 128.  The tile shape, BQ 64 on 4 warps with
+// a template parameter, 64, 80 or 128: the mma's k-dimension takes 80 as
+// five steps of 16 (Q K^T) and P V's n-dimension as ten n8 tiles, and a
+// row of 80 padded to 88 in shared memory (176 B, 11 x 16) still puts the
+// eight rows of an 8x8 matrix in distinct banks.  The tile shape, BQ 64 on 4 warps with
 // 64-row kv tiles and two blocks an SM, measured fastest at the forward's
 // shape among eight tried (PERF.md: 128-row tiles on 8 warps spill at the
 // two-block register cap; two slices a warp need 255 registers).
@@ -370,7 +373,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace fa
 
 // Returns cudaGetLastError() after launch (cudaErrorInvalidValue for a
-// head size other than 64 or 128, or a row stride that breaks 16-byte
+// head size other than 64, 80 or 128, or a row stride that breaks 16-byte
 // loads).  window <= 0: none.  (qsb, qsh, qss), (ksb, ksh, kss) and (osb,
 // osh, oss) are the batch, head and row strides of q, of k and v, and of
 // out, in elements; the caller also keeps the base pointers 16-byte
@@ -389,6 +392,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return fa::launch<64>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
+    case 80: return fa::launch<80>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
     case 128: return fa::launch<128>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -33,7 +33,10 @@
 // with one live chunk has that block write the output, otherwise the last
 // of its blocks to arrive merges the chunks' (m, l, acc) in chunk order,
 // skipping a chunk with no valid slot exactly.  Each step's order is fixed
-// by the chunk index and the thread.  The arrival counters are the
+// by the chunk index and the thread.  Head groups and head sizes are as
+// B4's: a block takes G of a kv head's query heads (fd_block_group, the
+// grid's x axis (kv head, sub-group)), hd 32, 64, 80 (padded to 128 in
+// the block), 128 or 256.  The arrival counters are the
 // buffer B4 uses (kernels/flash_decode.py::_counters): kernels on one
 // stream run one after another and each leaves every counter at zero.
 //
@@ -83,14 +86,15 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ pos,
                     const int* __restrict__ cur_pos, bf16* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counters,
-                    int Hkv, int S, int window, float scale_log2) {
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+                    int Hkv, int nsub, int S, int window, float scale_log2) {
+  // x: (kv head, sub-group), as in flash_decode_paged.cu
+  const int h = blockIdx.x / nsub, c = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x;
   const int cur = cur_pos[b];
   const int n = cur < 0 ? 0 : window > 0 ? S : min(S, cur + 1);
   const int nlive = max(1, (n + CHUNK_SLOTS - 1) / CHUNK_SLOTS);
   if (c >= nlive) return;            // past the row's walk
-  const size_t o_off = ((size_t)b * Hkv + h) * G * HD;
+  const size_t o_off = ((size_t)b * gridDim.x + blockIdx.x) * G * HD;
   if (n == 0) {                      // no valid slot: chunk 0 writes zeros
     sd_zeros<G, HD>(out + o_off, t);
     return;
@@ -108,20 +112,20 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   out + o_off, part, counters);
 }
 
-template <int G, int DPL>
+template <int G, int HD>
 struct Launch {
   static int run(dim3 grid, cudaStream_t s, const void* q, const void* k,
                  const void* v, const void* pos, const void* cur_pos,
-                 void* out, void* part, void* counters, int Hkv, int S,
-                 int window, float scale_log2) {
-    // registers and the static shared memory hold G * DPL <= 16
-    if constexpr (G * DPL <= 16) {
-      flash_decode_kernel<G, 32 * DPL><<<grid, SD_NT, 0, s>>>(
+                 void* out, void* part, void* counters, int Hkv, int nsub,
+                 int S, int window, float scale_log2) {
+    // registers and the static shared memory hold G heads at sd_pad(HD)
+    if constexpr (G * sd_pad(HD) / 32 <= FD_GROUP_CAP) {
+      flash_decode_kernel<G, HD><<<grid, SD_NT, 0, s>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const int*>(pos),
           static_cast<const int*>(cur_pos), static_cast<bf16*>(out),
-          static_cast<float*>(part), static_cast<int*>(counters), Hkv, S,
-          window, scale_log2);
+          static_cast<float*>(part), static_cast<int*>(counters), Hkv, nsub,
+          S, window, scale_log2);
       return 0;
     } else {
       return (int)cudaErrorInvalidValue;
@@ -130,25 +134,25 @@ struct Launch {
 };
 
 // part: scratch of B * Hkv * n_chunks * (Hq / Hkv) * (hd + 2) floats;
-// counters: B * Hkv int32, zero before the first call (each call leaves
+// counters: B * Hq int32, zero before the first call (each call leaves
 // them zero); n_chunks = ceil(S / CHUNK_SLOTS).  Returns
-// cudaGetLastError() after launch (cudaErrorInvalidValue for a head group
-// or head size without an instantiation, or another n_chunks).
-// window <= 0: none.
+// cudaGetLastError() after launch (cudaErrorInvalidValue for a head size
+// without an instantiation, or another n_chunks).  window <= 0: none.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* pos,
                                    const void* cur_pos, void* out,
                                    void* part, void* counters, int B, int Hq,
                                    int Hkv, int hd, int S, int window,
                                    int n_chunks, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || hd % 32 != 0 || S <= 0 ||
+  if (Hkv <= 0 || Hq % Hkv != 0 || !fd_head_size(hd) || S <= 0 ||
       n_chunks != (S + CHUNK_SLOTS - 1) / CHUNK_SLOTS)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = PD_LOG2E / sqrtf((float)hd);
+  const int g = Hq / Hkv, G = fd_block_group(g, sd_pad(hd));
   const int err = fd_dispatch<Launch>(
-      Hq / Hkv, hd / 32, dim3(Hkv, n_chunks, B),
+      G, hd, dim3(Hkv * (g / G), n_chunks, B),
       reinterpret_cast<cudaStream_t>(stream), q, k, v, pos, cur_pos, out,
-      part, counters, Hkv, S, window, scale_log2);
+      part, counters, Hkv, g / G, S, window, scale_log2);
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// What the decode attention launchers over K/V rows share: the bf16 type
-// and the dispatch over the instantiated head groups and head sizes
-// (flash_decode.cu over a contiguous cache, flash_decode_paged.cu over a
-// paged pool; their common block body is split_decode.cuh).
+// What the decode attention launchers over K/V rows share: the bf16 type,
+// how a kv head's query group is split over the grid, and the dispatch
+// over the instantiated head groups and head sizes (flash_decode.cu over a
+// contiguous cache, flash_decode_paged.cu over a paged pool; their common
+// block body is split_decode.cuh).
 
 #pragma once
 
@@ -11,28 +12,53 @@
 
 typedef __nv_bfloat16 bf16;
 
-// Dispatch a kernel launcher templated on <G, DPL> over the instantiated
-// head groups; returns cudaErrorInvalidValue for one with no instantiation.
-// LAUNCH is a template struct with `template <int G, int DPL> static int
-// run(Args...)`.
+// the head sizes with an instantiation; a block computes at sd_pad(hd)
+__host__ __device__ constexpr bool fd_head_size(int hd) {
+  return hd == 32 || hd == 64 || hd == 80 || hd == 128 || hd == 256;
+}
+
+// a block's shared memory and registers hold G query heads at a padded
+// head size HDP while G * HDP / 32 <= FD_GROUP_CAP
+#define FD_GROUP_CAP 20
+
+// The query heads a block takes (G): the largest instantiated group that
+// divides the kv head's g and fits the cap at padded head size hdp.  A
+// group g > G is split into g / G sub-groups along the grid's x axis, each
+// block re-reading its kv head's K / V (from the L2 after the first).  A
+// group that fits is never split (G == g): g in {1, 2, 4, 8} at g * hdp /
+// 32 <= 16 keeps the one-block-a-group grid and its bits.
+static inline int fd_block_group(int g, int hdp) {
+  const int cands[5] = {8, 5, 4, 2, 1};
+  for (int i = 0; i < 5; ++i)
+    if (g % cands[i] == 0 && cands[i] * hdp / 32 <= FD_GROUP_CAP)
+      return cands[i];
+  return 1;
+}
+
+// Dispatch a kernel launcher templated on <G, HD> over the instantiated
+// groups and head sizes; returns cudaErrorInvalidValue for one with no
+// instantiation.  LAUNCH is a template struct with `template <int G, int
+// HD> static int run(Args...)`.
 template <template <int, int> class LAUNCH, int G, typename... Args>
-static int fd_dispatch_dpl(int dpl, Args... args) {
-  switch (dpl) {
-    case 1: return LAUNCH<G, 1>::run(args...);
-    case 2: return LAUNCH<G, 2>::run(args...);
-    case 4: return LAUNCH<G, 4>::run(args...);
-    case 8: return LAUNCH<G, 8>::run(args...);
+static int fd_dispatch_hd(int hd, Args... args) {
+  switch (hd) {
+    case 32: return LAUNCH<G, 32>::run(args...);
+    case 64: return LAUNCH<G, 64>::run(args...);
+    case 80: return LAUNCH<G, 80>::run(args...);
+    case 128: return LAUNCH<G, 128>::run(args...);
+    case 256: return LAUNCH<G, 256>::run(args...);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <template <int, int> class LAUNCH, typename... Args>
-static int fd_dispatch(int g, int dpl, Args... args) {
+static int fd_dispatch(int g, int hd, Args... args) {
   switch (g) {
-    case 1: return fd_dispatch_dpl<LAUNCH, 1>(dpl, args...);
-    case 2: return fd_dispatch_dpl<LAUNCH, 2>(dpl, args...);
-    case 4: return fd_dispatch_dpl<LAUNCH, 4>(dpl, args...);
-    case 8: return fd_dispatch_dpl<LAUNCH, 8>(dpl, args...);
+    case 1: return fd_dispatch_hd<LAUNCH, 1>(hd, args...);
+    case 2: return fd_dispatch_hd<LAUNCH, 2>(hd, args...);
+    case 4: return fd_dispatch_hd<LAUNCH, 4>(hd, args...);
+    case 5: return fd_dispatch_hd<LAUNCH, 5>(hd, args...);
+    case 8: return fd_dispatch_hd<LAUNCH, 8>(hd, args...);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -32,9 +32,13 @@
 // its blocks to arrive (an arrival counter in a persistent buffer, reset
 // by that block), skipping a chunk with no valid slot exactly.  Each
 // step's order is fixed by the chunk index and the thread, so the output
-// depends only on the row's own table columns.  G (query heads per kv
-// head) in {1, 2, 4, 8} and hd in {32, 64, 128, 256} are template
-// parameters, G * hd / 32 <= 16.
+// depends only on the row's own table columns.  Any head group runs: a
+// block takes G of a kv head's g query heads (fd_block_group: G = g
+// where g is in {1, 2, 4, 8} and fits the block, else the largest of
+// {8, 5, 4, 2, 1} that divides g and fits, the g / G sub-groups then
+// spread along the grid's x axis, each re-reading the kv head's pages
+// from the L2); hd in {32, 64, 80, 128, 256} (80 padded to 128 inside
+// the block).
 //
 // On the H100 at the check (8 rows, 127 pages) a call takes about 0.019 ms
 // against the one-block-a-row design's 0.033, and 0.012 at one row of 512
@@ -116,11 +120,13 @@ flash_decode_paged_kernel(const bf16* __restrict__ q,
                           const int* __restrict__ bt, int bt_stride,
                           const int* __restrict__ cur_pos,
                           bf16* __restrict__ out, float* __restrict__ part,
-                          int* __restrict__ counters, int Hkv, int P,
-                          int n_blk, int window, float scale_log2) {
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+                          int* __restrict__ counters, int Hkv, int nsub,
+                          int P, int n_blk, int window, float scale_log2) {
+  // x: (kv head, sub-group); the block's G query heads are q's heads
+  // blockIdx.x * G .. + G - 1, and kv head h's K / V rows serve them
+  const int h = blockIdx.x / nsub, c = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x, lane = t % 32;
-  const size_t o_off = ((size_t)b * Hkv + h) * G * HD;
+  const size_t o_off = ((size_t)b * gridDim.x + blockIdx.x) * G * HD;
 
   // loads that need no table entry go first, to overlap the table's
   const int cur = cur_pos[b];
@@ -162,21 +168,21 @@ flash_decode_paged_kernel(const bf16* __restrict__ q,
                   out + o_off, part, counters);
 }
 
-template <int G, int DPL>
+template <int G, int HD>
 struct Launch {
   static int run(dim3 grid, cudaStream_t s, const void* q, const void* kp,
                  const void* vp, const void* posp, const void* bt,
                  int bt_stride, const void* cur_pos, void* out, void* part,
-                 void* counters, int Hkv, int P, int n_blk, int window,
-                 float scale_log2) {
-    if constexpr (G * DPL <= 16) {
-      flash_decode_paged_kernel<G, 32 * DPL><<<grid, SD_NT, 0, s>>>(
+                 void* counters, int Hkv, int nsub, int P, int n_blk,
+                 int window, float scale_log2) {
+    if constexpr (G * sd_pad(HD) / 32 <= FD_GROUP_CAP) {
+      flash_decode_paged_kernel<G, HD><<<grid, SD_NT, 0, s>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
           static_cast<const bf16*>(vp), static_cast<const int*>(posp),
           static_cast<const int*>(bt), bt_stride,
           static_cast<const int*>(cur_pos), static_cast<bf16*>(out),
-          static_cast<float*>(part), static_cast<int*>(counters), Hkv, P,
-          n_blk, window, scale_log2);
+          static_cast<float*>(part), static_cast<int*>(counters), Hkv, nsub,
+          P, n_blk, window, scale_log2);
       return 0;
     } else {
       return (int)cudaErrorInvalidValue;
@@ -185,11 +191,10 @@ struct Launch {
 };
 
 // part: scratch of B * Hkv * n_chunks * (Hq / Hkv) * (hd + 2) floats;
-// counters: B * Hkv int32, zero before the first call (each call leaves
+// counters: B * Hq int32, zero before the first call (each call leaves
 // them zero); n_chunks = ceil(n_blk / CHUNK_PAGES), at least 1.  Returns
-// cudaGetLastError() after launch (cudaErrorInvalidValue for a head group
-// or head size without an instantiation, or another n_chunks).
-// window <= 0: none.
+// cudaGetLastError() after launch (cudaErrorInvalidValue for a head size
+// without an instantiation, or another n_chunks).  window <= 0: none.
 extern "C" int flash_decode_paged_launch(const void* q, const void* kp,
                                          const void* vp, const void* posp,
                                          const void* bt, const void* cur_pos,
@@ -198,14 +203,17 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* kp,
                                          int Hkv, int hd, int P, int n_blk,
                                          int bt_stride, int window,
                                          int n_chunks, void* stream) {
-  if (Hkv <= 0 || Hq % Hkv != 0 || hd % 32 != 0 || P < 1 || n_blk < 0 ||
+  if (Hkv <= 0 || Hq % Hkv != 0 || !fd_head_size(hd) || P < 1 ||
+      n_blk < 0 ||
       n_chunks != max(1, (n_blk + CHUNK_PAGES - 1) / CHUNK_PAGES))
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = PD_LOG2E / sqrtf((float)hd);
+  const int g = Hq / Hkv, G = fd_block_group(g, sd_pad(hd));
   const int err = fd_dispatch<Launch>(
-      Hq / Hkv, hd / 32, dim3(Hkv, n_chunks, B),
+      G, hd, dim3(Hkv * (g / G), n_chunks, B),
       reinterpret_cast<cudaStream_t>(stream), q, kp, vp, posp, bt, bt_stride,
-      cur_pos, out, part, counters, Hkv, P, n_blk, window, scale_log2);
+      cur_pos, out, part, counters, Hkv, g / G, P, n_blk, window,
+      scale_log2);
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,11 @@
 // folds W_kv_b(v) in).  s = (q_lat . ckv + q_rope . krope) * scale over the
 // slots with 0 <= posp <= cur_pos, softmax, out = p . ckv.  Table entries
 // equal to the trash page 0 are skipped; a row with no valid slot (an idle
-// batch row) gets zeros.  R = 512, DR = 64, H <= 16 (DeepSeek-V2-Lite:
-// kv_lora_rank 512, qk_rope_head_dim 64, 16 heads).  A row's output is
+// batch row) gets zeros.  (R, DR) is (512, 64) (DeepSeek-V2-Lite:
+// kv_lora_rank 512, qk_rope_head_dim 64, 16 heads) or (256, 32)
+// (MiniCPM3-4B: 40 heads), template parameters; any H, in tiles of 16
+// heads along the grid's z axis (the last tile partial, its missing heads'
+// rows zero and never stored; at H <= 16 one tile).  A row's output is
 // bitwise the same whatever the other rows of the batch are and whatever
 // the table view's width n_blk.
 //
@@ -43,7 +46,10 @@
 // (m, l, acc) in its shared memory, and rank r merges latent columns
 // [64 r, 64 r + 64) of every head over the cluster's blocks in rank order
 // through distributed shared memory (every rank's state loaded at once,
-// then folded in order), skipping a block with no valid slot exactly.  No
+// then folded in order), skipping a block with no valid slot exactly.
+// At R 256 the shapes halve where they follow R: a warp owns 32 latent
+// columns, a rank merges 32, and the 18 k-steps of the scores split 4, 5,
+// 4, 5 over the four k-quarters (at R 512: 9 each).  No
 // scratch in device memory, no second launch.  On the H100 at the check
 // (8 rows, 127 pages) a call takes about 0.016 ms against the two-pass
 // design's 0.025; each tile a rank walks adds about 1.3 us, and the
@@ -59,24 +65,37 @@ namespace cg = cooperative_groups;
 #define MLA_CL 8               // blocks a row (cluster size, rank stride)
 #define MLA_H 16               // heads a block holds (rows of the mma tiles)
 #define MLA_TILE 16            // slots a tile
-#define MLA_R 512
-#define MLA_DR 64
-#define MLA_K (MLA_R + MLA_DR)
-#define MLA_ROW (MLA_K + 8)    // bf16 a shared row (1168 B: ldmatrix rows
-                               // land on distinct banks)
 #define MLA_PROW 24            // bf16 a probability row (48 B)
 #define MLA_STAGES 4           // tiles in flight (a block's four pages at
                                // the check's longest row)
-#define MLA_QN (MLA_H * (MLA_K / 4) / MLA_NT)   // q float4s a thread
-
-// shared memory (bytes): q hi, q lo, the latent stages, then small arrays
-#define MLA_Q_BYTES (MLA_H * MLA_ROW * 2)
-#define MLA_T_BYTES (MLA_TILE * MLA_ROW * 2)
-#define MLA_FIXED_BYTES                                                   \
-  (2 * MLA_Q_BYTES + MLA_STAGES * MLA_T_BYTES + MLA_STAGES * MLA_TILE * 4 + \
-   4 * MLA_H * MLA_TILE * 4 + 2 * MLA_H * MLA_PROW * 2 + MLA_H * 4 +      \
-   2 * MLA_H * 4 + 16)
 #define MLA_SMEM_MAX (200 * 1024)
+
+// the shapes that follow the latent width R and the rope width DR
+template <int R, int DR>
+struct MlaShape {
+  static constexpr int K = R + DR;
+  // bf16 a shared row (R 512: 1168 B, R 256: 592 B; both put the eight
+  // 16-byte rows of an ldmatrix on distinct banks)
+  static constexpr int ROW = K + 8;
+  static constexpr int QF = MLA_H * (K / 4);             // q float4s
+  static constexpr int QN = (QF + MLA_NT - 1) / MLA_NT;  // a thread's
+  static constexpr int KS = K / 16;                      // score k-steps
+  static constexpr int KQ = (KS + 3) / 4;                // a quarter's most
+  static constexpr int WC = R / 8;       // latent columns a P.V warp owns
+  static constexpr int NJ = WC / 16;     // its 16-column steps
+  static constexpr int CW = R / MLA_CL;  // latent columns a rank merges
+  static constexpr int TPH = CW / 4;     // merge threads a head
+  // shared memory (bytes): q hi, q lo, the latent stages, small arrays
+  static constexpr int Q_BYTES = MLA_H * ROW * 2;
+  static constexpr int T_BYTES = MLA_TILE * ROW * 2;
+  static constexpr int FIXED_BYTES =
+      2 * Q_BYTES + MLA_STAGES * T_BYTES + MLA_STAGES * MLA_TILE * 4 +
+      4 * MLA_H * MLA_TILE * 4 + 2 * MLA_H * MLA_PROW * 2 + MLA_H * 4 +
+      2 * MLA_H * 4 + 16;
+  static_assert(R % 128 == 0 && DR % 16 == 0, "whole mma and ldmatrix tiles");
+  static_assert(MLA_NT / TPH >= MLA_H, "a merge pass covers the tile's heads");
+  static_assert(MLA_H * R * 4 <= 2 * Q_BYTES, "acc fits over q");
+};
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -112,6 +131,7 @@ __device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi,
   lo = __float2bfloat16(x - __bfloat162float(hi));
 }
 
+template <int R, int DR>
 __global__ void __cluster_dims__(MLA_CL, 1, 1) __launch_bounds__(MLA_NT, 1)
 mla_decode_kernel(const float* __restrict__ q_lat,
                   const float* __restrict__ q_rope,
@@ -121,11 +141,13 @@ mla_decode_kernel(const float* __restrict__ q_lat,
                   int bt_stride, const int* __restrict__ cur_pos,
                   float* __restrict__ out, int H, int P, int n_blk,
                   float scale_log2) {
+  using S = MlaShape<R, DR>;
+  constexpr int K = S::K, ROW = S::ROW;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* qhi = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* qlo = qhi + MLA_H * MLA_ROW;
-  __nv_bfloat16* tiles = qlo + MLA_H * MLA_ROW;   // [STAGES][TILE][ROW]
-  int* pos_s = reinterpret_cast<int*>(tiles + MLA_STAGES * MLA_TILE * MLA_ROW);
+  __nv_bfloat16* qlo = qhi + MLA_H * ROW;
+  __nv_bfloat16* tiles = qlo + MLA_H * ROW;       // [STAGES][TILE][ROW]
+  int* pos_s = reinterpret_cast<int*>(tiles + MLA_STAGES * MLA_TILE * ROW);
   float* sc = reinterpret_cast<float*>(pos_s + MLA_STAGES * MLA_TILE);
                                                   // [4][H][TILE]
   __nv_bfloat16* phi =
@@ -134,29 +156,30 @@ mla_decode_kernel(const float* __restrict__ q_lat,
   float* alpha_s = reinterpret_cast<float*>(plo + MLA_H * MLA_PROW);
   float* ml = alpha_s + MLA_H;                    // [H][2]: m, l
   int* n_pages_s = reinterpret_cast<int*>(ml + 2 * MLA_H);
-  int* list = reinterpret_cast<int*>(smem + MLA_FIXED_BYTES);
+  int* list = reinterpret_cast<int*>(smem + S::FIXED_BYTES);
   float* acc_s = reinterpret_cast<float*>(smem);  // [H][R], over q at the end
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), b = blockIdx.y;
+  const int h0 = MLA_H * blockIdx.z;              // the tile's first head
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const int cur = cur_pos[b];
   const int tpp = (P + MLA_TILE - 1) / MLA_TILE;  // tiles a page
 
   // q first (it needs no table entry): float4 k of this thread holds
-  // head idx / (K / 4), columns 4 (idx % (K / 4)) .. + 3, idx = t + k NT
-  float4 qr[MLA_QN];
+  // tile head idx / (K / 4), columns 4 (idx % (K / 4)) .. + 3,
+  // idx = t + k NT
+  float4 qr[S::QN];
 #pragma unroll
-  for (int k = 0; k < MLA_QN; ++k) {
+  for (int k = 0; k < S::QN; ++k) {
     const int idx = t + k * MLA_NT;
-    const int h = idx / (MLA_K / 4), c = 4 * (idx % (MLA_K / 4));
+    const int h = idx / (K / 4), c = 4 * (idx % (K / 4));
+    const size_t hb = (size_t)b * H + h0 + h;
     qr[k] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (h < H)
-      qr[k] = c < MLA_R
-                  ? *reinterpret_cast<const float4*>(
-                        q_lat + ((size_t)b * H + h) * MLA_R + c)
-                  : *reinterpret_cast<const float4*>(
-                        q_rope + ((size_t)b * H + h) * MLA_DR + c - MLA_R);
+    if (idx < S::QF && h0 + h < H)
+      qr[k] = c < R ? *reinterpret_cast<const float4*>(q_lat + hb * R + c)
+                    : *reinterpret_cast<const float4*>(q_rope + hb * DR +
+                                                       c - R);
   }
 
   // the block's pages: columns rank, rank + CL, ...; trash left out
@@ -183,14 +206,14 @@ mla_decode_kernel(const float* __restrict__ q_lat,
     const int page = list[it / tpp], p0 = (it % tpp) * MLA_TILE;
     const int ns = min(MLA_TILE, P - p0);
     const size_t row0 = (size_t)page * P + p0;
-    __nv_bfloat16* dst = tiles + st * MLA_TILE * MLA_ROW;
-    for (int idx = t; idx < MLA_TILE * (MLA_K / 8); idx += MLA_NT) {
-      const int r = idx / (MLA_K / 8), c = idx % (MLA_K / 8);
+    __nv_bfloat16* dst = tiles + st * MLA_TILE * ROW;
+    for (int idx = t; idx < MLA_TILE * (K / 8); idx += MLA_NT) {
+      const int r = idx / (K / 8), c = idx % (K / 8);
       const bool ok = r < ns;
       const __nv_bfloat16* src =
-          c < MLA_R / 8 ? ckvp + (row0 + r) * MLA_R + 8 * c
-                        : kropep + (row0 + r) * MLA_DR + 8 * (c - MLA_R / 8);
-      pd_cp_async16(dst + r * MLA_ROW + 8 * c, ok ? src : ckvp, ok);
+          c < R / 8 ? ckvp + (row0 + r) * R + 8 * c
+                    : kropep + (row0 + r) * DR + 8 * (c - R / 8);
+      pd_cp_async16(dst + r * ROW + 8 * c, ok ? src : ckvp, ok);
     }
     if (t < MLA_TILE)
       pd_cp_async4(pos_s + st * MLA_TILE + t,
@@ -205,29 +228,33 @@ mla_decode_kernel(const float* __restrict__ q_lat,
 
   // q, scaled to base 2, split into bf16 hi + lo rows; heads >= H are zero
 #pragma unroll
-  for (int k = 0; k < MLA_QN; ++k) {
+  for (int k = 0; k < S::QN; ++k) {
     const int idx = t + k * MLA_NT;
-    const int h = idx / (MLA_K / 4), c = 4 * (idx % (MLA_K / 4));
+    const int h = idx / (K / 4), c = 4 * (idx % (K / 4));
     const float x[4] = {qr[k].x, qr[k].y, qr[k].z, qr[k].w};
+    if (idx < S::QF) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      split_bf16(x[e] * scale_log2, qhi[h * MLA_ROW + c + e],
-                 qlo[h * MLA_ROW + c + e]);
+      for (int e = 0; e < 4; ++e)
+        split_bf16(x[e] * scale_log2, qhi[h * ROW + c + e],
+                   qlo[h * ROW + c + e]);
+    }
   }
 
-  // softmax state of head t / 16 (its 16 threads hold copies); acc: this
-  // warp's latent columns 64 warp + 8 n + (2 (lane % 4), + 1), heads
+  // softmax state of tile head t / 16 (its 16 threads hold copies); acc:
+  // this warp's latent columns WC warp + 8 n + (2 (lane % 4), + 1), heads
   // lane / 4 (acc[n][0..1]) and lane / 4 + 8 (acc[n][2..3])
   float m = PD_NEG_INF, l = 0.f;
-  float acc[8][4];
+  float acc[2 * S::NJ][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < 2 * S::NJ; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   const int g = lane / 4, tq = lane % 4;
   // ldmatrix addressing: A (row major, 16 x 16) and B (8 slots x 16)
   const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
   const int nh = warp & 1, kq = warp >> 1;   // score warp: slot half, k-quarter
+  // the quarter's k-steps [ks0, ks1)
+  const int ks0 = kq * S::KS / 4, ks1 = (kq + 1) * S::KS / 4;
   const int b_row = 8 * nh + (lane & 7), b_col = 8 * ((lane >> 3) & 1);
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -237,7 +264,7 @@ mla_decode_kernel(const float* __restrict__ q_lat,
     pd_cp_async_commit();
     pd_cp_async_wait<MLA_STAGES - 1>();   // tile it landed
     __syncthreads();
-    const __nv_bfloat16* tile = tiles + st * MLA_TILE * MLA_ROW;
+    const __nv_bfloat16* tile = tiles + st * MLA_TILE * ROW;
 
     // partial scores of (16 heads, slot half nh) over k-quarter kq
     {
@@ -249,12 +276,13 @@ mla_decode_kernel(const float* __restrict__ q_lat,
 #pragma unroll
         for (int e = 0; e < 4; ++e) sa[j][e] = 0.f;
 #pragma unroll
-      for (int i = 0; i < MLA_K / 16 / 4; ++i) {
-        const int k0 = 16 * (kq * (MLA_K / 16 / 4) + i);
+      for (int i = 0; i < S::KQ; ++i) {
+        if (ks0 + i >= ks1) break;             // uniform in the warp
+        const int k0 = 16 * (ks0 + i);
         uint32_t ah[4], al[4], kb[2];
-        ldsm_x4(ah, qhi + a_row * MLA_ROW + k0 + a_col);
-        ldsm_x4(al, qlo + a_row * MLA_ROW + k0 + a_col);
-        ldsm_x2(kb, tile + b_row * MLA_ROW + k0 + b_col);
+        ldsm_x4(ah, qhi + a_row * ROW + k0 + a_col);
+        ldsm_x4(al, qlo + a_row * ROW + k0 + a_col);
+        ldsm_x2(kb, tile + b_row * ROW + k0 + b_col);
         mma16816(sa[2 * (i & 1)], ah, kb[0], kb[1]);
         mma16816(sa[2 * (i & 1) + 1], al, kb[0], kb[1]);
       }
@@ -300,7 +328,7 @@ mla_decode_kernel(const float* __restrict__ q_lat,
     {
       const float a0 = alpha_s[g], a1 = alpha_s[g + 8];
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int n = 0; n < 2 * S::NJ; ++n) {
         acc[n][0] *= a0; acc[n][1] *= a0;
         acc[n][2] *= a1; acc[n][3] *= a1;
       }
@@ -308,10 +336,10 @@ mla_decode_kernel(const float* __restrict__ q_lat,
       ldsm_x4(ph, phi + a_row * MLA_PROW + a_col);
       ldsm_x4(pl, plo + a_row * MLA_PROW + a_col);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d0 = 64 * warp + 16 * j;
+      for (int j = 0; j < S::NJ; ++j) {
+        const int d0 = S::WC * warp + 16 * j;
         uint32_t vb[4];
-        ldsm_x4_t(vb, tile + a_row * MLA_ROW + d0 + a_col);
+        ldsm_x4_t(vb, tile + a_row * ROW + d0 + a_col);
         mma16816(acc[2 * j], ph, vb[0], vb[1]);
         mma16816(acc[2 * j + 1], ph, vb[2], vb[3]);
         mma16816(acc[2 * j], pl, vb[0], vb[1]);
@@ -325,11 +353,11 @@ mla_decode_kernel(const float* __restrict__ q_lat,
 
   // this block's state into its shared memory (acc over the q rows)
 #pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    const int col = 64 * warp + 8 * n + 2 * tq;
-    *reinterpret_cast<float2*>(acc_s + g * MLA_R + col) =
+  for (int n = 0; n < 2 * S::NJ; ++n) {
+    const int col = S::WC * warp + 8 * n + 2 * tq;
+    *reinterpret_cast<float2*>(acc_s + g * R + col) =
         make_float2(acc[n][0], acc[n][1]);
-    *reinterpret_cast<float2*>(acc_s + (g + 8) * MLA_R + col) =
+    *reinterpret_cast<float2*>(acc_s + (g + 8) * R + col) =
         make_float2(acc[n][2], acc[n][3]);
   }
   if (t % MLA_TILE == 0) {
@@ -338,13 +366,12 @@ mla_decode_kernel(const float* __restrict__ q_lat,
   }
   cluster.sync();
 
-  // rank r: columns [64 r, 64 r + 64) of every head, over the ranks in
-  // order; thread (head t / 16, 4 columns, one 16-byte load a rank).
+  // rank r: columns [CW r, CW r + CW) of every head, over the ranks in
+  // order; thread (head t / TPH, 4 columns, one 16-byte load a rank).
   // Every rank's (m, l) and columns are loaded together, then folded in
   // rank order.
-  {
-    static_assert(MLA_R == 64 * MLA_CL, "4 columns a thread");
-    const int hh = t / 16, c0 = 64 * rank + 4 * (t % 16);
+  if (t / S::TPH < MLA_H) {
+    const int hh = t / S::TPH, c0 = S::CW * rank + 4 * (t % S::TPH);
     float mr[MLA_CL], lr[MLA_CL];
     float4 vr[MLA_CL];
 #pragma unroll
@@ -353,7 +380,7 @@ mla_decode_kernel(const float* __restrict__ q_lat,
       mr[r] = rml[2 * hh];
       lr[r] = rml[2 * hh + 1];
       vr[r] = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(acc_s, r) + hh * MLA_R + c0);
+          cluster.map_shared_rank(acc_s, r) + hh * R + c0);
     }
     float mx = PD_NEG_INF;
 #pragma unroll
@@ -369,38 +396,34 @@ mla_decode_kernel(const float* __restrict__ q_lat,
       A.x += w * vr[r].x; A.y += w * vr[r].y;
       A.z += w * vr[r].z; A.w += w * vr[r].w;
     }
-    if (hh < H) {
+    if (h0 + hh < H) {
       const float inv = 1.f / fmaxf(L, 1e-30f);
-      *reinterpret_cast<float4*>(out + ((size_t)b * H + hh) * MLA_R + c0) =
+      *reinterpret_cast<float4*>(out + ((size_t)b * H + h0 + hh) * R + c0) =
           make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
     }
   }
   cluster.sync();                     // the others have read this block
 }
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// a shape without an instantiation, or a table too wide for the page
-// list).  One launch; no scratch.
-extern "C" int flash_decode_paged_mla_launch(
-    const void* q_lat, const void* q_rope, const void* ckvp,
-    const void* kropep, const void* posp, const void* bt, const void* cur_pos,
-    void* out, int B, int H, int P, int n_blk, int bt_stride, float scale,
-    void* stream) {
-  if (H < 1 || H > MLA_H || P < 1 || n_blk < 0 || B < 1)
-    return (int)cudaErrorInvalidValue;
+template <int R, int DR>
+static int mla_launch(const void* q_lat, const void* q_rope,
+                      const void* ckvp, const void* kropep, const void* posp,
+                      const void* bt, const void* cur_pos, void* out, int B,
+                      int H, int P, int n_blk, int bt_stride, float scale,
+                      cudaStream_t stream) {
   const size_t list_bytes = 4 * (size_t)((n_blk + MLA_CL - 1) / MLA_CL + 1);
-  const size_t smem = MLA_FIXED_BYTES + list_bytes;
+  const size_t smem = MlaShape<R, DR>::FIXED_BYTES + list_bytes;
   if (smem > MLA_SMEM_MAX) return (int)cudaErrorInvalidValue;
-  static bool configured = false;
+  static bool configured = false;        // one flag an instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mla_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mla_decode_kernel<R, DR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         MLA_SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  mla_decode_kernel<<<dim3(MLA_CL, B), MLA_NT, smem,
-                      reinterpret_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(MLA_CL, B, (H + MLA_H - 1) / MLA_H);
+  mla_decode_kernel<R, DR><<<grid, MLA_NT, smem, stream>>>(
       static_cast<const float*>(q_lat), static_cast<const float*>(q_rope),
       static_cast<const __nv_bfloat16*>(ckvp),
       static_cast<const __nv_bfloat16*>(kropep),
@@ -408,4 +431,27 @@ extern "C" int flash_decode_paged_mla_launch(
       static_cast<const int*>(cur_pos), static_cast<float*>(out), H, P, n_blk,
       PD_LOG2E * scale);
   return (int)cudaGetLastError();
+}
+
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// an (R, DR) without an instantiation, a batch or head count past the
+// grid, or a table too wide for the page list).  One launch; no scratch.
+extern "C" int flash_decode_paged_mla_launch(
+    const void* q_lat, const void* q_rope, const void* ckvp,
+    const void* kropep, const void* posp, const void* bt, const void* cur_pos,
+    void* out, int B, int H, int R, int DR, int P, int n_blk, int bt_stride,
+    float scale, void* stream) {
+  if (H < 1 || H > 65535 * MLA_H || P < 1 || n_blk < 0 || B < 1 ||
+      B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (R == 512 && DR == 64)
+    return mla_launch<512, 64>(q_lat, q_rope, ckvp, kropep, posp, bt,
+                               cur_pos, out, B, H, P, n_blk, bt_stride, scale,
+                               s);
+  if (R == 256 && DR == 32)
+    return mla_launch<256, 32>(q_lat, q_rope, ckvp, kropep, posp, bt,
+                               cur_pos, out, B, H, P, n_blk, bt_stride, scale,
+                               s);
+  return (int)cudaErrorInvalidValue;
 }

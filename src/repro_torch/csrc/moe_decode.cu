@@ -43,7 +43,12 @@
 // to the count); an expert with more slots is streamed once per 8 of them,
 // the later passes mostly from the L2.  F may be any multiple of 32 (an
 // intra-pruned DeepSeek-V2-Lite expert has F = 1056): in a ragged last
-// column block the lanes past F load nothing and store nothing.
+// column block the lanes past F load nothing and store nothing.  Pass 2
+// stages the slots' h rows [F][R] f32 in shared memory FC rows (128 KB) at
+// a time, each thread's sums kept in registers across chunks.  The chunks
+// start at multiples of a thread's row stride, so every sum takes its rows
+// in the same order whatever the chunking (llama4-scout's F = 8192 needs
+// two chunks; every F up to 4096 is one).
 
 #include "decode_slots.cuh"
 
@@ -55,6 +60,7 @@ constexpr int GROUPS = NT / 16;   // row groups of 16 threads
 constexpr int R = 8;              // slots served by one pass over the weights
 constexpr int FT = 64;            // gate (and up) columns of a pass-1 block
 constexpr int DT = 128;           // output columns of a pass-2 block
+constexpr int FC = 4096;          // h rows pass 2 stages at once
 // weight loads a thread keeps in flight, fewer when it keeps sums of more
 // than 4 slots; blocks an SM (the launch bound); tools/
 // expert_kernel_variants.py times other values
@@ -73,31 +79,31 @@ __host__ __device__ constexpr int unroll(int m) {
 // of a 16-byte column group at W (row stride ld elements); a[r] of row
 // ``row`` is read by ``operand(row, a)`` (M values); then the two row
 // groups of each warp are summed by a shuffle.
+// stream_rows_range adds rows [r0, r1) to acc without zeroing it or
+// summing the groups: r0 a multiple of GROUPS * UNROLL keeps each thread's
+// rows in stream_rows' order.
 template <int M, class Operand>
-__device__ __forceinline__ void stream_rows(float (&acc)[M][8],
-                                            const bf16* __restrict__ W,
-                                            size_t ld, int n_rows, bool live,
-                                            Operand operand) {
+__device__ __forceinline__ void stream_rows_range(float (&acc)[M][8],
+                                                  const bf16* __restrict__ W,
+                                                  size_t ld, int r0, int r1,
+                                                  bool live,
+                                                  Operand operand) {
   constexpr int UNROLL = unroll(M);
   const int g = threadIdx.x / 16;
-#pragma unroll
-  for (int r = 0; r < M; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
   if (live) {
-    for (int row0 = g; row0 < n_rows; row0 += GROUPS * UNROLL) {
+    for (int row0 = r0 + g; row0 < r1; row0 += GROUPS * UNROLL) {
       uint4 w[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int row = row0 + u * GROUPS;
-        w[u] = row < n_rows
+        w[u] = row < r1
                    ? __ldg(reinterpret_cast<const uint4*>(W + row * ld))
                    : make_uint4(0u, 0u, 0u, 0u);
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int row = row0 + u * GROUPS;
-        if (row < n_rows) {
+        if (row < r1) {
           float wf[8], a[M];
           unpack8(w[u], wf);
           operand(row, a);
@@ -110,11 +116,34 @@ __device__ __forceinline__ void stream_rows(float (&acc)[M][8],
       }
     }
   }
+}
+
+template <int M>
+__device__ __forceinline__ void zero_acc(float (&acc)[M][8]) {
+#pragma unroll
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+}
+
+// the two row groups of each warp summed by a shuffle
+template <int M>
+__device__ __forceinline__ void pair_groups(float (&acc)[M][8]) {
 #pragma unroll
   for (int r = 0; r < M; ++r)
 #pragma unroll
     for (int c = 0; c < 8; ++c)
       acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 16);
+}
+
+template <int M, class Operand>
+__device__ __forceinline__ void stream_rows(float (&acc)[M][8],
+                                            const bf16* __restrict__ W,
+                                            size_t ld, int n_rows, bool live,
+                                            Operand operand) {
+  zero_acc<M>(acc);
+  stream_rows_range<M>(acc, W, ld, 0, n_rows, live, operand);
+  pair_groups<M>(acc);
 }
 
 // Lanes 0-15 of each warp write their sums to red[warp][r][q * 8 + c].
@@ -149,20 +178,38 @@ __device__ void up_rows(const bf16* __restrict__ w1e, const bf16* xs,
   to_red<M>(acc, red);
 }
 
-// Pass 2 over M slots staged in hs [F][R] f32: 128 columns from d0.
+// Pass 2 over M slots (slots: their slot indices), 128 columns from d0: their
+// h rows staged in hs [FC][R] f32 a chunk at a time.
 template <int M>
-__device__ void down_rows(const bf16* __restrict__ w2e, const float* hs,
-                          float* red, int D, int F, int d0) {
+__device__ void down_rows(const bf16* __restrict__ w2e,
+                          const float* __restrict__ h, const int* slots,
+                          float* hs, float* red, int D, int F, int d0) {
   const int q = threadIdx.x % 16;
   const int col = d0 + 8 * q;
   float acc[M][8];
-  stream_rows<M>(acc, w2e + col, (size_t)D, F, col < D,
-                 [&](int f, float (&a)[M]) {
+  zero_acc<M>(acc);
+  for (int c0 = 0; c0 < F; c0 += FC) {
+    const int c1 = min(F, c0 + FC);
+    __syncthreads();                    // the previous chunk is consumed
+    for (int i = threadIdx.x; i < M * (c1 - c0); i += NT) {
+      const int r = i / (c1 - c0), f = i % (c1 - c0);
+      hs[f * R + r] = h[(size_t)slots[r] * F + c0 + f];
+    }
+    __syncthreads();
+    stream_rows_range<M>(acc, w2e + col, (size_t)D, c0, c1, col < D,
+                         [&](int f, float (&a)[M]) {
 #pragma unroll
-                   for (int r = 0; r < M; ++r) a[r] = hs[f * R + r];
-                 });
+                           for (int r = 0; r < M; ++r)
+                             a[r] = hs[(f - c0) * R + r];
+                         });
+  }
+  pair_groups<M>(acc);
   to_red<M>(acc, red);
 }
+
+static_assert(FC % (GROUPS * UNROLL_FEW) == 0 &&
+                  FC % (GROUPS * UNROLL_MANY) == 0,
+              "a chunk starts where a thread's row stride does");
 
 // the warps' sums, red [NW][R][128] f32, in shared memory
 constexpr size_t RED_BYTES = (size_t)NW * R * 128 * 4;
@@ -234,20 +281,16 @@ decode_down_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
   wait_for_previous();                  // h of pass 1
   for (int s0 = 0; s0 < n; s0 += R) {
     const int m = min(R, n - s0);
-    for (int i = threadIdx.x; i < m * F; i += NT) {
-      const int r = i / F, f = i % F;
-      hs[f * R + r] = h[(size_t)slots[s0 + r] * F + f];
-    }
-    __syncthreads();
+    const int* sl = slots + s0;
     switch (m) {
-      case 1: down_rows<1>(w2e, hs, red, D, F, d0); break;
-      case 2: down_rows<2>(w2e, hs, red, D, F, d0); break;
-      case 3: down_rows<3>(w2e, hs, red, D, F, d0); break;
-      case 4: down_rows<4>(w2e, hs, red, D, F, d0); break;
-      case 5: down_rows<5>(w2e, hs, red, D, F, d0); break;
-      case 6: down_rows<6>(w2e, hs, red, D, F, d0); break;
-      case 7: down_rows<7>(w2e, hs, red, D, F, d0); break;
-      default: down_rows<8>(w2e, hs, red, D, F, d0); break;
+      case 1: down_rows<1>(w2e, h, sl, hs, red, D, F, d0); break;
+      case 2: down_rows<2>(w2e, h, sl, hs, red, D, F, d0); break;
+      case 3: down_rows<3>(w2e, h, sl, hs, red, D, F, d0); break;
+      case 4: down_rows<4>(w2e, h, sl, hs, red, D, F, d0); break;
+      case 5: down_rows<5>(w2e, h, sl, hs, red, D, F, d0); break;
+      case 6: down_rows<6>(w2e, h, sl, hs, red, D, F, d0); break;
+      case 7: down_rows<7>(w2e, h, sl, hs, red, D, F, d0); break;
+      default: down_rows<8>(w2e, h, sl, hs, red, D, F, d0); break;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < m * DT; i += NT) {
@@ -276,7 +319,8 @@ extern "C" int moe_decode_launch(const void* x, const void* w1, const void* w2,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int n_slots = B * k;
   const size_t smem1 = operand_offset(n_slots, RED_BYTES) + (size_t)D * R * 2;
-  const size_t smem2 = operand_offset(n_slots, RED_BYTES) + (size_t)F * R * 4;
+  const size_t smem2 =
+      operand_offset(n_slots, RED_BYTES) + (size_t)min(F, FC) * R * 4;
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(decode_up_kernel,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -28,8 +28,14 @@
 //   n_units()         the chunk indices the merge scans, [0, n_units())
 //   live_mask(c0, l)  bit BIT * i: chunk c0 + i stored a partial (every
 //                     lane of the calling warp gets the same mask)
-// G (query heads per kv head) in {1, 2, 4, 8} and HD in {32, 64, 128,
-// 256} are template parameters, G * HD / 32 <= 16.
+// G (the query heads a block takes: a kv head's whole group, or a
+// sub-group of it when the launcher splits the group over the grid's x
+// axis) in {1, 2, 4, 5, 8} and HD in {32, 64, 80, 128, 256} are template
+// parameters, G * HDP / 32 <= 20.  A head size that is not a power of two
+// is padded to HDP (sd_pad: 80 -> 128) in shared memory and registers
+// only: its K / V rows are loaded at their own 16-byte width and the pad
+// is zero-filled, so the scores and P.V sum exact zeros there, and only
+// the HD real dims are stored.  At HD == HDP every step is as it was.
 
 #pragma once
 
@@ -40,6 +46,11 @@
 #define SD_NW (SD_NT / 32)
 #define SD_TILE 32                   // slots a tile: one lane each for scores
 #define SD_PAD 8                     // bf16 of padding a shared-memory row
+
+// the head size a block computes at: the power of two that holds hd
+__host__ __device__ constexpr int sd_pad(int hd) {
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+}
 
 template <int G, int HD>
 struct SdShape {
@@ -75,19 +86,21 @@ __device__ __forceinline__ void sd_chunk(
     const bf16* __restrict__ kp, const bf16* __restrict__ vp, int cur,
     int window, float scale_log2, int nlive, bf16* __restrict__ out_group,
     float* __restrict__ part, int* __restrict__ counters) {
-  constexpr int ROW = HD + SD_PAD;
-  constexpr int CPR = HD / 8;        // 16-byte pieces of a K or V row
-  constexpr int NSG = 256 / HD;      // slot groups of the P.V pass
-  constexpr int QD = HD / SD_NW;     // head dims of a score warp
+  constexpr int HDP = sd_pad(HD);   // the padded head size (= HD or 128)
+  constexpr int ROW = HDP + SD_PAD;
+  constexpr int CPR = HDP / 8;       // 16-byte pieces of a K or V row
+  constexpr int NSG = 256 / HDP;     // slot groups of the P.V pass
+  constexpr int QD = HDP / SD_NW;    // head dims of a score warp
   constexpr int QPT = SdShape<G, HD>::QPT;
+  static_assert(HD % 16 == 0 && HD <= HDP, "16-byte K / V pieces");
   __shared__ __align__(16) bf16 ks[SD_TILE * ROW];
   __shared__ __align__(16) bf16 vs[SD_TILE * ROW];
-  __shared__ __align__(16) float qs[G * HD];
+  __shared__ __align__(16) float qs[G * HDP];
   __shared__ float sp[SD_NW][G][SD_TILE];    // partial scores by quarter
   __shared__ float pr[G][SD_TILE];           // probabilities
   __shared__ int valid_s[SD_TILE];
   __shared__ float alpha_s[G], m_s[G], l_s[G];
-  __shared__ float red[NSG][G][HD];          // the slot groups' acc
+  __shared__ float red[NSG][G][HDP];         // the slot groups' acc
   __shared__ int last_s;
 
   const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
@@ -96,7 +109,7 @@ __device__ __forceinline__ void sd_chunk(
   float acc[G][2];
 #pragma unroll
   for (int g = 0; g < G; ++g) acc[g][0] = acc[g][1] = 0.f;
-  const int dp = t % (HD / 2), sg = t / (HD / 2);
+  const int dp = t % (HDP / 2), sg = t / (HDP / 2);
   const int n_slots = ch.n_slots();
 
   for (int s0 = 0; s0 < n_slots; s0 += SD_TILE) {
@@ -108,8 +121,10 @@ __device__ __forceinline__ void sd_chunk(
       const int s = idx / CPR, cc = (idx % CPR) * 8;
       bool ok;
       const size_t row = ch.row(s0 + s, ok);
-      pd_cp_async16(ks + s * ROW + cc, kp + row + cc, ok);
-      pd_cp_async16(vs + s * ROW + cc, vp + row + cc, ok);
+      const bool in = cc < HD;       // past it: the pad, zero-filled
+      const size_t at = row + (in ? cc : 0);
+      pd_cp_async16(ks + s * ROW + cc, kp + at, ok && in);
+      pd_cp_async16(vs + s * ROW + cc, vp + at, ok && in);
     }
     pd_cp_async_commit();
     if (t < SD_TILE) {
@@ -119,9 +134,14 @@ __device__ __forceinline__ void sd_chunk(
     }
     if (s0 == 0) {                   // q (loaded earlier), while K, V land
 #pragma unroll
-      for (int k = 0; k < QPT; ++k)
-        if (t + k * SD_NT < G * HD)
-          qs[t + k * SD_NT] = __bfloat162float(qv[k]) * scale_log2;
+      for (int k = 0; k < QPT; ++k) {
+        const int i = t + k * SD_NT;
+        if (i < G * HD)
+          qs[(i / HD) * HDP + i % HD] = __bfloat162float(qv[k]) * scale_log2;
+      }
+      if constexpr (HDP != HD)
+        for (int i = t; i < G * (HDP - HD); i += SD_NT)
+          qs[(i / (HDP - HD)) * HDP + HD + i % (HDP - HD)] = 0.f;
       if (t < G) { m_s[t] = PD_NEG_INF; l_s[t] = 0.f; }
     }
     pd_cp_async_wait<0>();
@@ -140,7 +160,7 @@ __device__ __forceinline__ void sd_chunk(
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float4* qq = reinterpret_cast<const float4*>(
-              qs + g * HD + warp * QD + 8 * u);
+              qs + g * HDP + warp * QD + 8 * u);
           const float4 a = qq[0], e = qq[1];
           sc[g] += a.x * f[0] + a.y * f[1] + a.z * f[2] + a.w * f[3] +
                    e.x * f[4] + e.y * f[5] + e.z * f[6] + e.w * f[7];
@@ -248,11 +268,12 @@ __device__ __forceinline__ void sd_chunk(
   // the last block: merge the live chunks in chunk order, MG at a time
   // (their loads in flight together; the groups are fixed by the chunk
   // index, so any batch or table width folds a row's chunks alike);
-  // G * HD is a multiple of 32, so a warp is either all in the loop or all
-  // out
+  // G * HDP is a multiple of 32, so a warp is either all in the loop or
+  // all out (a pad dim loads nothing and stores nothing)
   constexpr int MG = CHUNK::PER_MASK < 8 ? CHUNK::PER_MASK : 8;
-  for (int i = t; i < G * HD; i += SD_NT) {
-    const int g = i / HD, d = i % HD;
+  for (int i = t; i < G * HDP; i += SD_NT) {
+    const int g = i / HDP, d = i % HDP;
+    const bool in = d < HD;
     float m = PD_NEG_INF, L = 0.f, A = 0.f;
     for (int c0 = 0; c0 < ch.n_units(); c0 += CHUNK::PER_MASK) {
       const unsigned cm = ch.live_mask(c0, lane);
@@ -266,7 +287,7 @@ __device__ __forceinline__ void sd_chunk(
           const size_t u = (head0 + c0 + g0 + k) * G + g;
           mc[k] = live ? __ldcg(part_ml + 2 * u) : PD_NEG_INF;
           lc[k] = live ? __ldcg(part_ml + 2 * u + 1) : 0.f;
-          ac[k] = live ? __ldcg(part_acc + u * HD + d) : 0.f;
+          ac[k] = live && in ? __ldcg(part_acc + u * HD + d) : 0.f;
         }
         float gm = PD_NEG_INF;
 #pragma unroll
@@ -286,6 +307,6 @@ __device__ __forceinline__ void sd_chunk(
         m = m_new;
       }
     }
-    out_group[i] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    if (in) out_group[g * HD + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
   }
 }

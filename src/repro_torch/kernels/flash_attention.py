@@ -24,7 +24,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, no_grad_through, on_card
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 
 
 def flash_attention_plain(q, k, v, *, window: Optional[int] = None):

@@ -7,7 +7,11 @@ iff ``0 <= pos <= cur_pos`` (and ``pos > cur_pos - window`` with a
 window).  A query with no valid slot gets zeros (the TPU kernel returns
 the mean of V there; the row is never read).
 
-The kernel splits a row's slots into chunks of ``CHUNK_SLOTS`` and merges
+Any head group runs (``csrc/flash_decode_common.cuh::fd_block_group``: a
+group too large for one block, g 16 or 8 at hd 128, is split into
+sub-groups along the grid, each re-reading its kv head's K / V from the
+L2); hd is one of ``HEAD_DIMS`` (80 computed padded to 128).  The kernel
+splits a row's slots into chunks of ``CHUNK_SLOTS`` and merges
 them inside the one launch in chunk order (the block body it shares with
 ``flash_decode_paged``), so a row's output is bitwise the same whatever
 the batch around it.  On the H100 it is bound by the bytes of K and V:
@@ -25,6 +29,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, no_grad_through, on_card
 
 NEG_INF = -1e30
+#: head sizes with a kernel instantiation (80 is computed padded to 128);
+#: any head group runs (a group too large for one block is split over the
+#: grid: ``csrc/flash_decode_common.cuh::fd_block_group``)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 
 #: slots a chunk takes (``CHUNK_SLOTS`` in the kernel source); a row walks
 #: its first max(1, ceil(n / CHUNK_SLOTS)) chunks, n following from its
@@ -39,7 +47,8 @@ def n_chunks(s: int) -> int:
 
 
 #: per (device, stream): the split decode kernels' arrival counters, one
-#: int32 per (batch row, kv head), zero between calls (the last block of
+#: int32 per (batch row, block group of query heads: at most Hq), zero
+#: between calls (the last block of
 #: each row and head resets its own), so no call pays a launch to clear
 #: them; flash_decode and flash_decode_paged share them, since kernels on
 #: one stream run one after another
@@ -88,11 +97,10 @@ def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
     expect(name, pos, "pos", torch.int32, (b, s))
     expect(name, cur_pos, "cur_pos", torch.int32, (b,))
     g = hq // hkv if hkv and hq % hkv == 0 else 0
-    if g not in (1, 2, 4, 8) or hd % 32 or hd // 32 not in (1, 2, 4, 8) \
-            or g * (hd // 32) > 16 or s == 0:
+    if g == 0 or hd not in HEAD_DIMS or s == 0:
         raise ValueError(f"{name}: no kernel for Hq={hq}, Hkv={hkv}, hd={hd}, "
-                         f"S={s} (needs Hq/Hkv in 1,2,4,8, hd in 32..256, "
-                         "Hq/Hkv * hd/32 <= 16, S > 0)")
+                         f"S={s} (needs Hkv dividing Hq, hd in {HEAD_DIMS}, "
+                         "S > 0)")
     if window is not None and window <= 0:
         raise ValueError(f"{name}: window={window} must be positive")
     for arg, t in (("k", k), ("v", v)):          # 16-byte async copies
@@ -105,7 +113,7 @@ def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
     part = torch.empty(b * hkv * nc * g * (hd + 2), dtype=torch.float32,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _counters(q.device, stream, b * hkv)
+    counters = _counters(q.device, stream, b * hq)
     fn = _build.function(name, "flash_decode_launch", 8, 7)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
              cur_pos.data_ptr(), out.data_ptr(), part.data_ptr(),

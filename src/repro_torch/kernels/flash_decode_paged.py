@@ -13,7 +13,9 @@ Both kernels split a row's table columns by constants -- GQA into chunks
 of ``CHUNK_PAGES`` columns, MLA over a cluster of 8 blocks at that rank
 stride -- and merge the pieces in a fixed order inside the one launch, so a
 row's output is bitwise the same whatever the batch around it and whatever
-the table view's width.
+the table view's width.  The GQA kernel takes any head group and hd in
+``HEAD_DIMS`` (as ``flash_decode``); the MLA kernel any head count, in
+tiles of 16 heads along its grid, at the (r, dr) of ``MLA_SHAPES``.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, no_grad_through, on_card
-from repro_torch.kernels.flash_decode import NEG_INF, _counters, \
-    flash_decode_plain
+from repro_torch.kernels.flash_decode import HEAD_DIMS, NEG_INF, \
+    _counters, flash_decode_plain
 
 
 #: table columns a GQA chunk takes (``CHUNK_PAGES`` in the kernel source);
@@ -70,12 +72,10 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
     expect(name, vp, "vp", bf16, (n, p, hkv, hd))
     expect(name, posp, "posp", torch.int32, (n, p))
     expect(name, cur_pos, "cur_pos", torch.int32, (b,))
-    g = hq // hkv if hq % hkv == 0 else 0
-    if g not in (1, 2, 4, 8) or hd % 32 or hd // 32 not in (1, 2, 4, 8) \
-            or g * (hd // 32) > 16:
+    g = hq // hkv if hkv and hq % hkv == 0 else 0
+    if g == 0 or hd not in HEAD_DIMS:
         raise ValueError(f"{name}: no kernel for Hq={hq}, Hkv={hkv}, hd={hd} "
-                         "(needs Hq/Hkv in 1,2,4,8, hd in 32..256, "
-                         "Hq/Hkv * hd/32 <= 16)")
+                         f"(needs Hkv dividing Hq, hd in {HEAD_DIMS})")
     if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
             or block_tables.shape[0] != b or block_tables.stride(1) != 1):
         raise ValueError(f"{name}: block_tables must be int32 [B, n_blk] "
@@ -92,7 +92,7 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
     part = torch.empty(b * hkv * nc * g * (hd + 2), dtype=torch.float32,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    counters = _counters(q.device, stream, b * hkv)
+    counters = _counters(q.device, stream, b * hq)
     fn = _build.function(name, "flash_decode_paged_launch", 9, 9)
     err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), posp.data_ptr(),
              block_tables.data_ptr(), cur_pos.data_ptr(), out.data_ptr(),
@@ -109,6 +109,11 @@ flash_decode_paged.launches = 0
 # --------------------------------------------------------------------------- #
 # MLA: weight-absorbed latent decode
 # --------------------------------------------------------------------------- #
+
+#: (latent width r, rope width dr) pairs with an MLA kernel instantiation:
+#: DeepSeek-V2-Lite's and MiniCPM3-4B's; any head count (tiles of 16)
+MLA_SHAPES = ((512, 64), (256, 32))
+
 
 def flash_decode_paged_mla_plain(q_lat, q_rope, ckvp, kropep, posp,
                                  block_tables, cur_pos, *, scale: float):
@@ -156,9 +161,10 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
     expect(name, kropep, "kropep", bf16, (n, p, dr))
     expect(name, posp, "posp", torch.int32, (n, p))
     expect(name, cur_pos, "cur_pos", torch.int32, (b,))
-    if r != 512 or dr != 64 or not 1 <= h <= 16:
-        raise ValueError(f"{name}: no kernel for H={h}, r={r}, dr={dr} "
-                         "(needs r 512, dr 64, H <= 16)")
+    if (r, dr) not in MLA_SHAPES or h < 1 or not 1 <= b <= 65535:
+        raise ValueError(f"{name}: no kernel for B={b}, H={h}, r={r}, "
+                         f"dr={dr} (needs (r, dr) in {MLA_SHAPES}, H >= 1, "
+                         "0 < B <= 65535)")
     if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
             or block_tables.shape[0] != b or block_tables.stride(1) != 1):
         raise ValueError(f"{name}: block_tables must be int32 [B, n_blk] "
@@ -168,10 +174,10 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
     out = torch.empty((b, h, r), dtype=f32, device=q_lat.device)
-    fn = _build.function(name, "flash_decode_paged_mla_launch", 8, 5, 1)
+    fn = _build.function(name, "flash_decode_paged_mla_launch", 8, 7, 1)
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckvp.data_ptr(),
              kropep.data_ptr(), posp.data_ptr(), block_tables.data_ptr(),
-             cur_pos.data_ptr(), out.data_ptr(), b, h, p, n_blk,
+             cur_pos.data_ptr(), out.data_ptr(), b, h, r, dr, p, n_blk,
              block_tables.stride(0), scale,
              torch.cuda.current_stream(q_lat.device).cuda_stream)
     _build.check(name, err)

@@ -4,6 +4,7 @@ from repro_torch.models.model import (  # noqa: F401
     init_caches,
     init_params,
     loss_fn,
+    make_train_batch,
     prefill_fn,
 )
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts  # noqa: F401

@@ -193,6 +193,11 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     }
 
 
+def is_paged(cache: Optional[Dict]) -> bool:
+    """A layer's cache is a paged pool (``posp``), not a contiguous row."""
+    return cache is not None and "posp" in cache
+
+
 def _paged_write(pages: torch.Tensor, values: torch.Tensor,
                  positions: torch.Tensor, block_tables: torch.Tensor) -> None:
     """Scatter [B, S, ...] values into a page pool through the block table,

@@ -29,6 +29,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def count_params(params) -> int:
+    """Elements over every tensor of a param tree."""
+    from repro_torch.tree import leaves
+    return sum(int(x.numel()) for x in leaves(params))
+
+
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 

@@ -21,6 +21,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict:
     return tf_mod.init_lm(gen, cfg, dev)
 
 
+def make_train_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
+                     seq: int, *, device=None) -> Dict:
+    """A random batch for smoke tests and examples: tokens and targets
+    drawn from ``gen`` (a ``torch.Generator`` in place of the reference's
+    key, so other numbers from the same seed) on ``device``, every target
+    counted.  The encoder-decoder and prefix-embedding families' extra
+    inputs are not ported (ROADMAP.md A13)."""
+    if cfg.is_encoder_decoder or cfg.prefix_embed_len:
+        raise NotImplementedError(
+            f"{cfg.name}: batches with frames or prefix embeddings are not "
+            "ported (ROADMAP.md A13)")
+    dev = resolve_device(device)
+    draw = lambda: torch.randint(0, cfg.vocab_size, (batch, seq),
+                                 generator=gen, device=gen.device).to(dev)
+    tokens, targets = draw(), draw()
+    return {"tokens": tokens.int(), "targets": targets.int(),
+            "mask": torch.ones((batch, seq), dtype=torch.int32, device=dev)}
+
+
 def loss_fn(params, cfg: ModelConfig, batch, *,
             opts: ModelOpts = DEFAULT_OPTS):
     """batch: tokens, targets, mask [B,S] -> (loss, {"xent", "aux"})."""

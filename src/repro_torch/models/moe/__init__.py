@@ -31,7 +31,9 @@ from repro_torch.models.moe.params import (  # noqa: F401
 )
 from repro_torch.models.moe.registry import (  # noqa: F401
     DECODE_TOKEN_THRESHOLD,
+    available_impls,
     moe,
+    register_impl,
     resolve_impl,
 )
 from repro_torch.models.moe.router import capacity, route, \

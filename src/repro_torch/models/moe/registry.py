@@ -18,7 +18,7 @@ other impl raises rather than read int8 tiles as weights.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.moe.decode import moe_decode
@@ -70,6 +70,28 @@ def _gmm(params, cfg, x2d, top_k, use_kernel=False, *,
 #: ``decode`` path reads it (the others drop it, as in the reference)
 _IMPLS: Dict[str, Callable] = {"dense": _dense, "gmm": _gmm,
                                "decode": moe_decode}
+
+
+def register_impl(name: str, *, needs_mesh: bool = False):
+    """Register a dispatch pipeline under ``cfg.moe_impl`` name ``name``
+    (a decorator, as the reference's).  The port has no device mesh yet, so
+    an impl that needs one is refused (ROADMAP.md A14)."""
+    if needs_mesh:
+        raise NotImplementedError(
+            f"moe impl {name!r} needs a device mesh, which the port does "
+            "not have yet (ROADMAP.md A14)")
+
+    def deco(fn: Callable):
+        _IMPLS[name] = fn
+        _NOT_PORTED.pop(name, None)
+        return fn
+    return deco
+
+
+def available_impls() -> Tuple[str, ...]:
+    """The registered impls, sorted (the reference's also lists the
+    expert-parallel ``ep_a2a`` / ``ep_psum``, not ported yet)."""
+    return tuple(sorted(_IMPLS))
 
 
 def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,

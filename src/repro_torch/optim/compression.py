@@ -6,15 +6,23 @@ accumulator: the quantization residual is carried into the next step, so
 compression bias vanishes and convergence tracks the uncompressed run.  The
 quantize / dequantize pair runs inside the step, so the numerics are what a
 compressed data-parallel all-reduce would produce.
+
+The scales follow the reference's tree, which stacks each run of identical
+layers (``models/blocks.py::group_pattern`` over ``cfg.pattern()``) into one
+leaf: given ``cfg``, a layer tensor shares its scale with the same tensor of
+every other layer of its group.  A LExI plan splits the runs, so a planned
+stack has more scales.  Without ``cfg`` every leaf is scaled alone.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.tree import leaves, map_tree, unflatten
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.blocks import group_pattern
+from repro_torch.tree import flatten_with_paths, leaves, map_tree, unflatten
 
 
 def init_error_state(params) -> Any:
@@ -22,28 +30,51 @@ def init_error_state(params) -> Any:
                                           device=p.device), params)
 
 
-def _quantize(g: torch.Tensor):
-    scale = g.abs().max().clamp(min=1e-12) / 127.0
-    q = (g / scale).round().clamp(-127, 127).to(torch.int8)
-    return q, scale
+def scale_groups(tree, cfg: Optional[ModelConfig] = None) -> List[List[int]]:
+    """The leaves (indices into ``leaves(tree)``) that share one scale: a
+    path ``layers/<i>/<rest>`` joins the same ``rest`` of the other layers
+    of layer i's group under ``cfg``; any other leaf is alone."""
+    group_of: Dict[int, int] = {}
+    if cfg is not None:
+        for gi, g in enumerate(group_pattern(cfg.pattern())):
+            for i in range(g.start, g.start + g.count):
+                group_of[i] = gi
+    keys: Dict[Tuple, List[int]] = {}
+    for n, (path, _) in enumerate(flatten_with_paths(tree)):
+        parts = path.split("/", 2)
+        key: Tuple = (path,)
+        if parts[0] == "layers" and len(parts) == 3 and group_of:
+            key = ("layers", group_of[int(parts[1])], parts[2])
+        keys.setdefault(key, []).append(n)
+    return list(keys.values())
 
 
 @torch.no_grad()
-def compress_grads(grads, err_state) -> Tuple[Any, Any]:
+def compress_grads(grads, err_state, cfg: Optional[ModelConfig] = None
+                   ) -> Tuple[Any, Any]:
     """Returns (dequantized grads as seen after the all-reduce, new error
-    state)."""
-    deq, err = [], []
-    for g, e in zip(leaves(grads), leaves(err_state)):
-        g32 = g.float() + e                      # apply error feedback
-        q, scale = _quantize(g32)
-        d = q.float() * scale                    # what the collective carries
-        deq.append(d.to(g.dtype))
-        err.append(g32 - d)                      # residual -> next step
+    state); one scale per leaf of the reference's stacked tree for ``cfg``
+    (``scale_groups``)."""
+    gs, es = leaves(grads), leaves(err_state)
+    deq: List[Any] = [None] * len(gs)
+    err: List[Any] = [None] * len(gs)
+    for idx in scale_groups(grads, cfg):
+        # the group's scale first, then each leaf again: one leaf's f32
+        # copy at a time, not the whole group's
+        amax = torch.stack([(gs[i].float() + es[i]).abs().max()
+                            for i in idx]).max()
+        scale = amax.clamp(min=1e-12) / 127.0
+        for i in idx:
+            g = gs[i].float() + es[i]            # apply error feedback
+            q = (g / scale).round().clamp(-127, 127).to(torch.int8)
+            d = q.float() * scale                # what the collective carries
+            deq[i] = d.to(gs[i].dtype)
+            err[i] = g - d                       # residual -> next step
     return unflatten(grads, deq), unflatten(err_state, err)
 
 
-def compression_bytes_saved(params) -> int:
-    """All-reduce byte reduction per step (f32 -> i8 + per-tensor scale)."""
-    ls = leaves(params)
-    total = sum(p.numel() for p in ls)
-    return total * 4 - (total + 4 * len(ls))
+def compression_bytes_saved(params, cfg: Optional[ModelConfig] = None) -> int:
+    """All-reduce byte reduction per step (f32 -> i8 + a scale per leaf of
+    the reference's stacked tree)."""
+    total = sum(p.numel() for p in leaves(params))
+    return total * 4 - (total + 4 * len(scale_groups(params, cfg)))

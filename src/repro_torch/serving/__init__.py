@@ -7,5 +7,6 @@ from repro_torch.serving.kv_cache import KVCache  # noqa: F401
 from repro_torch.serving.prefix_cache import PrefixIndex  # noqa: F401
 from repro_torch.serving.request import Request, Result  # noqa: F401
 from repro_torch.serving.runner import ModelRunner  # noqa: F401
-from repro_torch.serving.sampling import sample_per_slot  # noqa: F401
+from repro_torch.serving.sampling import sample, \
+    sample_per_slot  # noqa: F401
 from repro_torch.serving.scheduler import Scheduler  # noqa: F401

@@ -7,6 +7,22 @@ from typing import Optional
 import torch
 
 
+def sample(logits: torch.Tensor, gen: Optional[torch.Generator] = None, *,
+           temperature: float = 0.0, top_k: int = 0) -> torch.Tensor:
+    """logits [B, V] -> tokens [B] int32: the argmax when ``temperature``
+    is 0 (first index on ties), else a draw from ``gen`` over the logits
+    divided by the temperature, values strictly below the ``top_k``-th
+    largest dropped when ``top_k`` > 0 (ties with it kept)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = logits.float() / temperature
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+
+
 def sample_per_slot(logits: torch.Tensor, gen: torch.Generator,
                     temperatures: torch.Tensor,
                     top_ks: Optional[torch.Tensor] = None) -> torch.Tensor:

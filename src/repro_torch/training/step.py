@@ -105,7 +105,7 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
         loss, metrics, grads = grads_of(state.params, batch)
         err = state.err
         if compression:
-            grads, err = compress_grads(grads, err)
+            grads, err = compress_grads(grads, err, cfg)
         gnorm = _global_norm(grads)
         opt = optimizer.step_(grads, state.opt, state.params)
         metrics = dict(metrics)

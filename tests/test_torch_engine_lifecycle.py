@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: F401,E402
+
 
 MAX_LEN = 64
 STEPS = 800

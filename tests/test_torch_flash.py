@@ -31,6 +31,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: F401,E402
+
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 ROW_TOL = 1e-2

@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: F401,E402
+
 
 MAX_NEW = 6
 #: (prompt_len, plan, priority, stream), as the reference's HTTP test

@@ -10,6 +10,8 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: F401,E402
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,13 +28,19 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
 assert len(names) > 30, names
-# the server, detok and NAEE modules, and the training ones, are walked
-# like every other
+# the server, detok and NAEE modules, the training ones, the examples'
+# launchers and the five family configs are walked like every other
 for m in ("repro_torch.serving.http", "repro_torch.serving.detok",
           "repro_torch.launch.api_server", "repro_torch.core.skipping",
           "repro_torch.training.loop", "repro_torch.checkpoint.manager",
           "repro_torch.data.pipeline", "repro_torch.launch.train",
-          "repro_torch.launch.serve_lexi"):
+          "repro_torch.launch.serve_lexi", "repro_torch.launch.quickstart",
+          "repro_torch.launch.lexi_optimize",
+          "repro_torch.configs.qwen3_moe_235b_a22b",
+          "repro_torch.configs.llama4_scout_17b_a16e",
+          "repro_torch.configs.qwen3_32b",
+          "repro_torch.configs.h2o_danube_1_8b",
+          "repro_torch.configs.minicpm3_4b"):
     assert m in names, m
 import torch
 if not torch.cuda.is_available():

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: F401,E402
+
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -33,6 +33,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: F401,E402
+
 
 SALT = ("base", "bf16")
 MAX_LEN = 64

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: F401,E402
+
 
 #: the model's logits, graphed against eager, per row (one token's
 #: logits): ||graphed - eager|| <= LOGITS_TOL * ||eager|| (chip_smoke's)

@@ -17,8 +17,9 @@
   (``convert_train_state``) have losses within 1e-3 relative.
 * Four microbatches against the reference's (loss, grad norm) and
   against one batch on the dropless ``gmm``; compression against the
-  reference's ``compress_grads`` on the same grads (one quantum apart
-  where a value rounds either way); ``eval_perplexity`` against the
+  reference's ``compress_grads`` on its own stacked tree, converted, for a
+  plain and a LExI-planned stack (one quantum apart where a value rounds
+  either way); ``eval_perplexity`` against the
   reference's; the loss falls over 30 steps; remat ``full`` and ``dots``
   give the loss and grads of ``none``; ``launch/train.py`` runs on
   ``--device cpu``.
@@ -33,20 +34,10 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: F401,E402
 
 TINY = dict(num_layers=2, d_model=64, num_experts=4, moe_top_k=2,
             vocab_size=128, dtype="float32")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tiny models gain nothing from intra-op threads, and the suite runs
-    several workers on the host's cores: oversubscribed, torch's threads
-    made these tests ten times slower under load."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch):
@@ -188,33 +179,52 @@ def test_adamw_update_matches_reference(at):
         assert torch.equal(a, b)
 
 
-def test_compression_matches_reference(family):
-    """The same grads and error state on both sides, in the port's layout
-    (a scale per layer's tensor; the reference's own tree stacks a group's
-    layers under one scale); a value may land one quantum (the tensor's
-    scale) off where ``g / scale`` rounds either way."""
+@pytest.mark.parametrize("planned", [False, True], ids=["stack", "planned"])
+def test_compression_matches_reference(family, planned):
+    """The reference's ``compress_grads`` on its own stacked tree (one
+    scale per stacked group; a LExI plan splits OLMoE's one group of two
+    layers into two), converted, against the port's on the same grads and
+    error state in its per-layer layout; a value may land one quantum (the
+    group's scale) off where ``g / scale`` rounds either way."""
     import jax
+    from repro.models.blocks import regroup_stack
     from repro.optim.compression import compress_grads as jcompress
     from repro_torch.convert import convert_params
     from repro_torch.optim.compression import compress_grads, \
-        compression_bytes_saved, init_error_state
-    from repro_torch.tree import flatten_with_paths, leaves, map_tree
-    _, cfg_t, _, pt, _, _, grads = family
-    g_t = convert_params(grads, cfg_t, device="cpu")
-    err_t = map_tree(lambda e: e + 1e-3, init_error_state(pt))
-    as_numpy = lambda t: map_tree(lambda x: x.numpy(), t)
-    deq_j, err2_j = jax.jit(jcompress)(as_numpy(g_t), as_numpy(err_t))
-    deq_t, err2_t = compress_grads(g_t, err_t)
-    deq_j = dict(flatten_with_paths(jax.tree.map(np.asarray, deq_j)))
-    err2_j = dict(flatten_with_paths(jax.tree.map(np.asarray, err2_j)))
+        compression_bytes_saved
+    from repro_torch.tree import flatten_with_paths, leaves
+    cfg_j, cfg_t, _, _, _, _, grads = family
+    if planned:
+        plan = tuple(max(1, cfg_j.moe_top_k - i % 2)
+                     for i in range(cfg_j.num_moe_layers))
+        cfg_jp, cfg_t = cfg_j.with_lexi_plan(plan), cfg_t.with_lexi_plan(plan)
+        grads = dict(grads, stack=regroup_stack(
+            grads["stack"], cfg_j.pattern(), cfg_jp.pattern()))
+        grads = jax.tree.map(np.asarray, grads)
+    rng = np.random.default_rng(3)
+    err = jax.tree.map(
+        lambda g: 1e-3 * rng.standard_normal(g.shape).astype(np.float32),
+        grads)
+    deq_j, err2_j = jax.tree.map(np.asarray, jax.jit(jcompress)(grads, err))
+    quantum = jax.tree.map(lambda d: np.full(d.shape, np.abs(d).max() / 127,
+                                             np.float32), deq_j)
+    conv = lambda t: dict(flatten_with_paths(
+        convert_params(t, cfg_t, device="cpu")))
+    deq_j, err2_j, quantum = conv(deq_j), conv(err2_j), conv(quantum)
+    deq_t, err2_t = compress_grads(convert_params(grads, cfg_t, device="cpu"),
+                                   convert_params(err, cfg_t, device="cpu"),
+                                   cfg_t)
     for got, want in ((deq_t, deq_j), (err2_t, err2_j)):
-        for key, g in flatten_with_paths(got):
-            quantum = np.abs(deq_j[key]).max() / 127
-            off = np.abs(g.numpy() - want[key])
-            assert off.max() <= 1.001 * quantum + 1e-12, key
-            assert (off > 1e-3 * quantum).mean() <= 0.02, key
-    n = sum(p.numel() for p in leaves(pt))
-    assert compression_bytes_saved(pt) == n * 4 - (n + 4 * len(leaves(pt)))
+        got = dict(flatten_with_paths(got))
+        assert got.keys() == want.keys()
+        for key, g in got.items():
+            q = quantum[key].numpy()
+            off = np.abs(g.numpy() - want[key].numpy())
+            assert (off <= 1.001 * q + 1e-12).all(), key
+            assert (off > 1e-3 * q).mean() <= 0.02, key
+    n = sum(int(np.prod(g.shape)) for g in jax.tree.leaves(grads))
+    assert compression_bytes_saved(deq_t, cfg_t) == \
+        n * 4 - (n + 4 * len(jax.tree.leaves(grads)))
 
 
 # --------------------------------------------------------------------------- #

@@ -28,7 +28,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               alone at its own live-page width against the batch at a
               64-column table view; the four attention kernels also at
               the families' head shapes (FAMILY_DECODE: B4 and B8 at g 16,
-              5 and 8 with hd 128 and at g 4 with hd 80 under a window;
+              5 and 8 with hd 128, at g 4 with hd 80 under a window and
+              at zamba2's 32 heads of 64;
               B2 at danube's hd 80; B7 at MiniCPM3's 40 heads, r 256, dr
               32), every row of each held bit for bit alone against the
               batch; every check prints a sha256 digest of its output
@@ -158,7 +159,8 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               ``repro_torch.configs.FAMILIES`` in turn at full width, bf16,
               random weights drawn on the card (qwen3-moe-235b-a22b and
               llama4-scout-17b-a16e cut to FAMILY_LAYERS = 8 layers;
-              qwen3-32b, h2o-danube-1.8b and minicpm3-4b at full depth),
+              qwen3-32b, h2o-danube-1.8b, minicpm3-4b, olmo-1b and
+              pixtral-12b at full depth),
               its weights, engines and graphs freed before the next: B1,
               B3 and B9 at the MoE configs' expert shapes (sub-entries of
               their rows); the kernel paths' logits against the plain
@@ -167,13 +169,41 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               the contiguous cache); the 8 requests (FAMILY_NEW tokens
               each) on the paged pool through the config's own ``dense``,
               graphed, with an eager twin; danube (its window cut to
-              FAMILY_WINDOW, under the prompts) and qwen3-32b on the
-              contiguous layout too (``flash_attention``,
-              ``flash_decode``); qwen3-moe's LExI plan at a 50 % budget
+              FAMILY_WINDOW, under the prompts), qwen3-32b, olmo and
+              pixtral on the contiguous layout too (``flash_attention``,
+              ``flash_decode``, no plain attention); pixtral's VLM path at
+              full depth (``prefix_check``: 1024 random patch embeddings
+              and a 64-token prompt prefilled through ``flash_attention``,
+              a decode step through ``flash_decode``, against the plain
+              paths: at full depth within WITNESS_RATIO of an f32
+              witness, through the first layer within LOGITS_TOL);
+              qwen3-moe's LExI plan at a 50 % budget
               served and a mixed wave, each with an eager twin of the same
               history; llama4-scout's plan asserted to be (1,) * 8.  One
               ``families`` line a config (layers, params_gb,
               kv_bytes_per_token, peak_gb, launches).
+9c. ssm_encdec -- mamba2-780m (48 Mamba2 layers), zamba2-1.2b (32 Mamba2
+              layers and one shared attention block applied 6 times) and
+              whisper-base (6 + 6 layers, 1500 frames) in turn at full
+              width and depth, bf16, random weights drawn on the card,
+              each freed before the next: for the two SSM stacks,
+              prefill-then-decode logits against a train-mode forward
+              (``ssm_reference``: at full depth within WITNESS_RATIO of
+              an f32 witness, through the first 6 layers within
+              LOGITS_TOL), then the 8 requests (32-256 prompt
+              tokens: never over the SSD chunk) on the contiguous engine,
+              whole prompts, graphed, with an eager twin (tokens, launches
+              and every decode logits row bit for bit equal) and a steady
+              wave; zamba2's shared attention through ``flash_attention``
+              (6 a prefill) and ``flash_decode`` (6 a decode step), no
+              plain attention; mamba2 launches no kernel.  For whisper,
+              ``prefill_fn`` of 8 rows of 1500 random frames and 4 prompt
+              tokens, 16 greedy ``decode_fn`` steps eagerly and from one
+              CUDA graph (bit for bit), held to a train-mode decoder pass;
+              no kernel (the reference runs none there).  One
+              ``ssm_encdec`` line a config (layers, params_gb, state or
+              KV bytes, peak_gb, decode step ms graphed and eager,
+              launches).
 10. train  -- the DeepSeek weights freed, OLMoE-1B-7B at full width and
               half depth (TRAIN_LAYERS: 16 layers of train state would
               not fit), bf16, random weights from seed 0, trained
@@ -215,7 +245,8 @@ wall time, tok/s, the wall and host time of a decode step, and the graphs
 held, captured (with their host seconds) and replayed.
 
 Every kernel's launch counter is zeroed just before and read just after
-each step of phases 3-10; each step must launch the kernels it runs.  A
+each step of phases 3-10 (9c included); each step must launch the kernels
+it runs.  A
 small reference check holds the kernel paths' logits against the plain
 paths' on the same inputs, row by row, with bf16 experts on ``gmm`` and
 on ``dense``, with int8 and int4 experts, and on DeepSeek-V2-Lite.  Then
@@ -762,14 +793,16 @@ FDP_SHAPES = {
 #: the decode shapes of the families (query heads, kv heads, hd, window):
 #: qwen3-moe g 16, llama4-scout g 5 and qwen3-32b g 8 at hd 128 (a group
 #: split over the grid: 4 x 4, 5 whole, 2 x 4 query heads a block), and
-#: h2o-danube g 4 at hd 80 (computed padded to 128) under a window; B4 and
-#: B8 take them over the lens of the OLMoE check, every row held bit for
-#: bit alone against the batch
+#: h2o-danube g 4 at hd 80 (computed padded to 128) under a window, and
+#: zamba2's shared attention, 32 heads of 64 (MHA); B4 and B8 take them
+#: over the lens of the OLMoE check, every row held bit for bit alone
+#: against the batch
 FAMILY_DECODE = {
     "qwen3_moe_g16": (64, 4, 128, None),
     "llama4_g5": (40, 8, 128, None),
     "qwen3_32b_g8": (64, 8, 128, None),
     "danube_g4_hd80_window": (32, 8, 80, 150),
+    "zamba2_hd64": (32, 32, 64, None),
 }
 FAMILY_LENS = [512, 511, 480, 300, 129, 64, 16, 0]
 
@@ -1211,6 +1244,97 @@ def gate_logits(check, got_all, want_all, **extra):
     if not all(rec[f"{s}_finite"] and rec[f"{s}_max_row_rel_err"] <= LOGITS_TOL
                for s in ("prefill", "decode")):
         raise AssertionError(f"reference check failed: {rec}")
+
+
+#: the full-depth gate: the kernel path's logits may lie at most this many
+#: times as far (largest row error) from an f32 witness as the bf16 plain
+#: path's.  Both paths keep a bf16 residual stream, which moves them from
+#: the exact answer by about the same amount over the layers; the kernels
+#: round the softmax weights to bf16 once more a layer.  A wrong kernel
+#: moves its rows by their own size, far past twice that
+WITNESS_RATIO = 2.0
+
+
+@contextmanager
+def as_f32(params):
+    """The bf16 weights cast to f32 in place while the block runs, and back
+    after (bf16 -> f32 -> bf16 is exact): the witness holds one copy of the
+    model on the card, pixtral's 24.5 GB as 49 GB and not 73.5."""
+    from repro_torch.tree import leaves
+    cast = list({id(t): t for t in leaves(params)
+                 if isinstance(t, torch.Tensor)
+                 and t.dtype == torch.bfloat16}.values())
+    for t in cast:
+        t.data = t.data.float()
+    try:
+        yield
+    finally:
+        for t in cast:
+            t.data = t.data.to(torch.bfloat16)
+        torch.cuda.empty_cache()
+
+
+def witness_gate(check, got_all, plain_all, exact_all, **extra):
+    """Print the (prefill, decode) logits' distance (largest row error) of
+    the kernel path and of the bf16 plain path from the f32 witness, and
+    the kernel path's from the plain path; fail unless every value is
+    finite and the kernel path lies within WITNESS_RATIO times the plain
+    path's distance."""
+    rec = {"check": check, "witness": "f32", "ratio_limit": WITNESS_RATIO}
+    ok = True
+    for i, step in enumerate(("prefill", "decode")):
+        got, plain, exact = got_all[i], plain_all[i], exact_all[i]
+        k, pl = (row_rel_err(x, exact).max().item() for x in (got, plain))
+        rec.update({f"{step}_kernel_vs_f32": k, f"{step}_plain_vs_f32": pl,
+                    f"{step}_kernel_vs_plain":
+                        row_rel_err(got, plain).max().item(),
+                    f"{step}_finite": bool(torch.isfinite(got).all())})
+        ok &= rec[f"{step}_finite"] and k <= WITNESS_RATIO * pl
+    rec.update(extra)
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"witness check failed: {rec}")
+
+
+def depth_gate(check, params, cfg, kernel, plain, layers, guard=True,
+               witness=True, **extra):
+    """The kernel paths' logits against the plain paths' on the same
+    weights.  ``kernel(p, c)`` and ``plain(p, c)`` each return {key:
+    (prefill, decode) logits}; the kernel side is counted and, with
+    ``guard``, runs with no plain attention and no kernel's plain version
+    on the card.  With ``witness``, first at full depth: the plain side
+    once more on the weights cast to f32 (``as_f32``, a config of dtype
+    float32), each key's kernel rows held to it by ``witness_gate``.
+    Then through the model cut to its first ``layers`` layers, each key's
+    rows within LOGITS_TOL of the plain side's (``gate_logits``).  Checks
+    are named ``{check}_{key}``.  Returns the cut model's kernel-side
+    launch counts (all keys')."""
+    def kernel_side(p, c):
+        if not guard:
+            return counted(lambda: kernel(p, c))
+        with forbid_sdpa(), forbid_plain():
+            return counted(lambda: kernel(p, c))
+
+    def launched(counts):
+        return {n: v for n, v in counts.items() if v}
+    if witness:
+        got, counts = kernel_side(params, cfg)
+        want = plain(params, cfg)
+        with as_f32(params):
+            exact = plain(params, cfg.with_(dtype="float32"))
+        for key, lg in got.items():
+            witness_gate(f"{check}_{key}_full_depth", lg, want[key],
+                         exact[key], layers=cfg.num_layers,
+                         launches=launched(counts), **extra)
+        del got, want, exact
+    cut = cfg.with_(num_layers=layers)
+    p_cut = dict(params, layers=params["layers"][:layers])
+    got, counts = kernel_side(p_cut, cut)
+    want = plain(p_cut, cut)
+    for key, lg in got.items():
+        gate_logits(f"{check}_{key}", lg, want[key], layers=layers,
+                    launches=launched(counts), **extra)
+    return counts
 
 
 def reference_check(params, cfg, device):
@@ -2497,7 +2621,70 @@ FAMILY_NEW = 16
 FAMILY_SHORT = {"qwen3-moe-235b-a22b": "qwen3_moe",
                 "llama4-scout-17b-a16e": "llama4",
                 "qwen3-32b": "qwen3_32b", "h2o-danube-1.8b": "danube",
-                "minicpm3-4b": "minicpm3"}
+                "minicpm3-4b": "minicpm3", "olmo-1b": "olmo",
+                "pixtral-12b": "pixtral", "mamba2-780m": "mamba2",
+                "zamba2-1.2b": "zamba2", "whisper-base": "whisper"}
+
+
+@contextmanager
+def forbid_sdpa():
+    """Make the model's plain masked-softmax attention raise on the card
+    while the block runs (``gqa_attention`` looks ``_sdpa`` up at each
+    call): every attention of the block must go through a kernel."""
+    from repro_torch.models import attention
+    plain = attention._sdpa
+
+    def guard(q, *a, **kw):
+        if q.is_cuda:
+            raise AssertionError("the plain attention ran on the card")
+        return plain(q, *a, **kw)
+    attention._sdpa = guard
+    try:
+        yield
+    finally:
+        attention._sdpa = plain
+
+
+def prefix_check(params, cfg, device):
+    """Pixtral's VLM path: a whole prefill of ``prefix_embed_len`` (1024)
+    random patch embeddings plus a 64-token prompt, 2 rows, through
+    ``flash_attention``, then a decode step at position 1024 + 64 through
+    ``flash_decode``, with no plain attention on the kernel side, one
+    launch of each a layer, held by ``depth_gate``: at full depth to an f32
+    witness, and through the model cut to its first layer, as
+    ``family_reference`` holds every family, to the plain paths within
+    LOGITS_TOL.  Returns the cut model's kernel-side launch counts."""
+    from repro_torch import kernels, models
+    b, s, plen = 2, 64, cfg.prefix_embed_len
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(4)
+    pre = torch.randn((b, plen, cfg.d_model), generator=gen).to(device)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    nxt = torch.randint(0, cfg.vocab_size, (b,), generator=gen).int()
+    tokens, nxt = tokens.to(device), nxt.to(device)
+    pos = torch.full((b,), plen + s, dtype=torch.int32, device=device)
+
+    def run(p, c, opts):
+        caches = models.init_caches(c, b, plen + s + 8,
+                                    layout="contiguous", device=device)
+        lg1, caches = models.prefill_fn(
+            p, c, {"tokens": tokens, "prefix_embeds": pre}, caches,
+            opts=opts)
+        lg2, _ = models.decode_fn(p, c, nxt, pos, caches, opts=opts)
+        return {"prefix": (lg1.float(), lg2.float())}
+
+    def kernel(p, c):             # counted: the counts start at 0 here
+        got = run(p, c, models.ModelOpts(use_flash=True,
+                                          use_flash_decode=True))
+        counts = kernels.launch_counts()
+        for n in ("flash_attention", "flash_decode"):
+            if counts[n] != c.num_layers:
+                raise AssertionError(f"{c.name} prefix: {n} {counts[n]} "
+                                     "launches, want one a layer")
+        return got
+    return depth_gate(f"reference_logits_{cfg.name}", params, cfg, kernel,
+                      lambda p, c: run(p, c, models.ModelOpts()), 1,
+                      prefix=plen, prompt=s)
 
 
 def family_expert_checks(layer, cfg, short, device, rows):
@@ -2531,45 +2718,41 @@ def family_expert_checks(layer, cfg, short, device, rows):
 
 def family_reference(params, cfg, device):
     """The kernel paths' logits against the plain paths' on the same
-    weights, through the model cut to its first layer: a chunk step and a
-    decode step on the paged pool (``paged_logits``; the MoE configs on a
-    ``gmm`` copy, so ``moe_gmm`` and ``moe_decode`` run), and for GQA a
-    whole-prompt prefill on the contiguous cache and a decode step
-    (``flash_attention``, ``flash_decode``), each row within LOGITS_TOL.
-    Returns the kernel side's launch counts."""
+    weights, through the model cut to its first layer (``depth_gate``, no
+    full-depth witness): a chunk step and a decode step on the paged pool
+    (``paged_logits``; the MoE configs on a ``gmm`` copy, so ``moe_gmm``
+    and ``moe_decode`` run), and for GQA a whole-prompt prefill on the
+    contiguous cache and a decode step (``flash_attention``,
+    ``flash_decode``), each row within LOGITS_TOL.  Returns the kernel
+    side's launch counts."""
     from repro_torch import models
-    cfg1 = cfg.with_(num_layers=1)
     if cfg.is_moe:
-        cfg1 = cfg1.with_(moe_impl="gmm")
-    p1 = dict(params, layers=params["layers"][:1])
-    dev = ref_inputs(cfg1, device)
+        cfg = cfg.with_(moe_impl="gmm")
+    dev = ref_inputs(cfg, device)
     b, c = dev["tokens"].shape
     kern = models.ModelOpts(use_moe_kernel=True, use_paged_kernel=True,
                             use_moe_decode_kernel=True, use_flash=True,
                             use_flash_decode=True)
     plain = models.ModelOpts(use_moe_decode_kernel=True)
 
-    def contiguous(opts):
-        caches = models.init_caches(cfg1, b, 2 * c, layout="contiguous",
+    def contiguous(p, cut, opts):
+        caches = models.init_caches(cut, b, 2 * c, layout="contiguous",
                                     device=device)
-        lg1, caches = models.prefill_fn(p1, cfg1, {"tokens": dev["tokens"]},
+        lg1, caches = models.prefill_fn(p, cut, {"tokens": dev["tokens"]},
                                         caches, opts=opts)
-        lg2, _ = models.decode_fn(p1, cfg1, dev["nxt"], dev["pos_c"], caches,
+        lg2, _ = models.decode_fn(p, cut, dev["nxt"], dev["pos_c"], caches,
                                   opts=opts)
         return lg1.float(), lg2.float()
 
-    def both():
-        out = {"paged": paged_logits(p1, cfg1, kern, dev)}
-        if cfg.attention == "gqa":
-            out["contiguous"] = contiguous(kern)
-        return out
-    got, counts = counted(both)
-    for layout, lg in got.items():
-        want = (paged_logits(p1, cfg1, plain, dev) if layout == "paged"
-                else contiguous(plain))
-        gate_logits(f"reference_logits_{cfg.name}_{layout}", lg, want,
-                    launches={n: v for n, v in counts.items() if v})
-    return counts
+    def both(opts):
+        def run(p, cut):
+            out = {"paged": paged_logits(p, cut, opts, dev)}
+            if cfg.attention == "gqa":
+                out["contiguous"] = contiguous(p, cut, opts)
+            return out
+        return run
+    return depth_gate(f"reference_logits_{cfg.name}", params, cfg,
+                      both(kern), both(plain), 1, guard=False, witness=False)
 
 
 def family_phase(name, cfg, device, t_start, rows):
@@ -2625,6 +2808,9 @@ def family_phase(name, cfg, device, t_start, rows):
     if cfg.attention == "gqa":
         ref_names += ("flash_attention", "flash_decode")
     need[f"{short}_reference"] = (counts, ref_names)
+    if cfg.prefix_embed_len:
+        need[f"{short}_prefix"] = (prefix_check(params, cfg, device),
+                                   ("flash_attention", "flash_decode"))
 
     def reqs(plans=None):
         return requests(cfg, seed=0, max_new=FAMILY_NEW, plans=plans)
@@ -2722,7 +2908,8 @@ def family_phase(name, cfg, device, t_start, rows):
                               use_moe_kernel=True), device=device,
                           graphs=graphs)
         eng = contiguous()
-        res, c = counted(lambda: eng.serve(reqs()))
+        with forbid_sdpa():       # whole prompts and decode: kernels only
+            res, c = counted(lambda: eng.serve(reqs()))
         check_results(f"{name} contiguous", res, cfg, FAMILY_NEW)
         need[f"{short}_contiguous"] = (c, ("flash_attention", "flash_decode")
                                        + moe)
@@ -2756,6 +2943,270 @@ def families_phase(device, t_start, rows):
         cfg = get_config(name)
         cfg = cfg.with_(num_layers=FAMILY_LAYERS.get(name, cfg.num_layers))
         need.update(family_phase(name, cfg, device, t_start, rows))
+    return need
+
+
+# --------------------------------------------------------------------------- #
+# phase 9c: the stateful stacks and the encoder-decoder at full width
+# --------------------------------------------------------------------------- #
+
+#: the SSM stacks' serve: 8 requests of 32-256 prompt tokens (never over
+#: the SSD chunk of 256, so every length is one the SSD takes) and
+#: FAMILY_NEW tokens each
+SSM_STACKS = ("mamba2-780m", "zamba2-1.2b")
+#: whisper: rows, decoder prompt tokens and greedy decode steps
+WHISPER_ROWS, WHISPER_PROMPT, WHISPER_STEPS = 8, 4, 16
+
+
+#: the SSM reference check's cut: zamba2's first 6 layers hold 5 Mamba2
+#: blocks and its first shared attention block
+SSM_REF_LAYERS = 6
+
+
+def ssm_reference(params, cfg, device):
+    """Prefill of 63 tokens then one decode step, 2 rows, through the
+    kernel options (zamba2's shared attention: ``flash_attention``,
+    ``flash_decode``; no plain attention), against a train-mode forward of
+    the 64 tokens on the plain paths: the prefill logits at position 62
+    and the decode logits at 63, held by ``depth_gate``: at full depth to
+    an f32 witness (the train-mode forward in f32), and through the model
+    cut to its first SSM_REF_LAYERS layers to the bf16 forward within
+    LOGITS_TOL.  Returns the cut model's kernel-side launch counts."""
+    from repro_torch import models
+    from repro_torch.models import transformer
+    tokens = ref_inputs(cfg, device)["tokens"]
+    b, s = tokens.shape
+    key = "prefill_decode_vs_train"
+
+    def kernel(p, c):
+        caches = models.init_caches(c, b, 2 * s, layout="contiguous",
+                                    device=device)
+        opts = models.ModelOpts(use_flash=True, use_flash_decode=True)
+        lg1, caches = models.prefill_fn(p, c, {"tokens": tokens[:, :-1]},
+                                        caches, opts=opts)
+        lg2, _ = models.decode_fn(p, c, tokens[:, -1].int(),
+                                  torch.full((b,), s - 1, dtype=torch.int32,
+                                             device=device), caches,
+                                  opts=opts)
+        return {key: (lg1.float(), lg2.float())}
+
+    def train(p, c):
+        with torch.no_grad():
+            pos = torch.arange(s, dtype=torch.int32,
+                               device=device).expand(b, s)
+            hid, _, _ = transformer.forward(p, c, tokens, pos)
+            full = transformer.lm_logits(p, c, hid[:, -2:]).float()
+        return {key: (full[:, 0], full[:, 1])}
+    return depth_gate(f"reference_logits_{cfg.name}", params, cfg, kernel,
+                      train, SSM_REF_LAYERS)
+
+
+def ssm_stack_phase(name, device, t_start):
+    """One stack with mamba blocks at full width and depth, bf16, random
+    weights drawn on the card: the reference check (``ssm_reference``),
+    then the 8 requests on the contiguous engine (whole prompts, its
+    default and only layout), graphed, with an eager twin whose tokens,
+    launches and every decode logits row (bit for bit) are equal, then the
+    wave again, every step a replay.  zamba2's shared attention runs
+    ``flash_attention`` once an occurrence in each whole prefill and
+    ``flash_decode`` once an occurrence in each decode step (6 at full
+    depth), and no plain attention; mamba2 launches no kernel.  Returns
+    {step: (launch counts, kernels the step must launch)}."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import _dims
+    from repro_torch.serving import Engine
+    from repro_torch.tree import leaves
+    cfg = get_config(name)
+    short = FAMILY_SHORT[name]
+    kinds = [sp.kind for sp in cfg.pattern()]
+    n_attn, n_mamba = kinds.count("shared_attn"), kinds.count("mamba")
+    d_in, h, p, n, cc = _dims(cfg)
+    attn = ("flash_attention", "flash_decode") if n_attn else ()
+    need, rec = {}, {"phase": "ssm_encdec", "arch": name,
+                     "layers": cfg.num_layers, "mamba_layers": n_mamba,
+                     "shared_attn_layers": n_attn,
+                     # conv rows (bf16) and the f32 SSM state, a slot
+                     "state_bytes_per_slot": n_mamba * (
+                         (cfg.ssm_conv_width - 1) * cc * 2 + h * p * n * 4),
+                     "kv_bytes_per_token": n_attn * 2 * 2 * (
+                         cfg.num_kv_heads * cfg.head_dim_)}
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    rec.update(init_s=time.perf_counter() - t0,
+               params_gb=sum(t.numel() * t.element_size()
+                             for t in leaves(params)) / 1e9)
+    need[f"{short}_reference"] = (ssm_reference(params, cfg, device), attn)
+
+    def reqs():
+        return requests(cfg, seed=0, max_new=FAMILY_NEW)
+    if max(len(r.prompt) for r in reqs()) > cfg.ssm_chunk:
+        raise AssertionError(f"{name}: a prompt over the SSD chunk")
+
+    def engine(graphs=True):
+        return Engine(cfg, params, max_batch=8, max_len=512,
+                      opts=models.ModelOpts(use_flash=True,
+                                            use_flash_decode=True),
+                      device=device, graphs=graphs)
+
+    def serve(eng):
+        with forbid_sdpa(), forbid_plain(), decode_rows(eng) as rows:
+            res, c = counted(lambda: eng.serve(reqs()))
+        check_results(f"{name} serve", res, cfg, FAMILY_NEW)
+        steps = eng.stats["steps"]
+        want = {"flash_attention": n_attn * len(res),
+                "flash_decode": n_attn * steps}
+        got = {k: c[k] for k in want}
+        if got != want or sum(c.values()) != sum(want.values()):
+            raise AssertionError(f"{name}: launches {c}, want {want}")
+        return res, c, rows
+    eng = engine()
+    if eng.kv.layout != "contiguous" or eng.chunked:
+        raise AssertionError(f"{name}: engine {eng.kv.layout}, chunked "
+                             f"{eng.chunked}")
+    res, c, rows_g = serve(eng)
+    need[f"{short}_serve"] = (c, attn)
+    rec.update(serve_stats=serve_record(eng),
+               serve_launches={k: v for k, v in c.items() if v})
+    twin = engine(graphs=False)
+    res_e, c_e, rows_e = serve(twin)
+    same_tokens(f"{name} graphed vs eager", res, res_e)
+    if c_e != c:
+        raise AssertionError(f"{name}: eager launches {c_e} against {c}")
+    if len(rows_g) != len(rows_e) or not all(
+            np.array_equal(pg, pe) and torch.equal(lg, le)
+            for (pg, lg), (pe, le) in zip(rows_g, rows_e)):
+        raise AssertionError(f"{name}: graphed and eager decode logits "
+                             "differ")
+    need[f"{short}_serve_eager"] = (c_e, attn)
+    rec.update(serve_eager_stats=serve_record(twin),
+               decode_rows_bitwise_equal=len(rows_g))
+    del twin, rows_g, rows_e
+    res, c, _ = serve(eng)
+    need[f"{short}_serve_steady"] = (c, attn)
+    rec["serve_steady_stats"] = serve_record(eng)
+    if rec["serve_steady_stats"]["graphs_captured"]:
+        raise AssertionError(f"{name}: the steady serve captured a graph")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    rec["launches"] = {k[len(short) + 1:]: {n: v for n, v in c.items() if v}
+                       for k, (c, _) in need.items()}
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return need
+
+
+def whisper_phase(device, t_start):
+    """whisper-base at full width and depth (6 + 6 layers), bf16, random
+    weights on the card: ``prefill_fn`` of WHISPER_ROWS rows of 1500
+    random frames and WHISPER_PROMPT prompt tokens, then WHISPER_STEPS
+    greedy ``decode_fn`` steps eagerly, then the same steps replayed from
+    one CUDA graph on a copy of the prefilled caches (logits bit for bit
+    the eager steps'); the prefill and every decode logits row held to a
+    train-mode decoder pass over the same tokens within LOGITS_TOL.
+    Whisper runs no kernel (as the reference: its encoder attention is not
+    causal and its cross-attention reads encoder K/V), so nothing may
+    launch."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _graphs
+    from repro_torch.models import encdec
+    from repro_torch.tree import leaves, map_tree
+    cfg = get_config("whisper-base")
+    b, p0, steps = WHISPER_ROWS, WHISPER_PROMPT, WHISPER_STEPS
+    torch.cuda.reset_peak_memory_stats(device)
+    params = models.init_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(5)
+    frames = torch.randn((b, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen).to(device)
+    prompt = torch.randint(0, cfg.vocab_size, (b, p0), generator=gen).to(
+        device).int()
+    caches = models.init_caches(cfg, b, cfg.max_seq_len, device=device)
+
+    def eager():
+        lg, cs = models.prefill_fn(params, cfg, {"frames": frames,
+                                                 "tokens": prompt}, caches)
+        cs0 = map_tree(lambda t: t.clone(), cs)
+        torch.cuda.synchronize()
+        toks, logits, ms = [lg.argmax(-1).int()], [], []
+        for i in range(steps):
+            pos = torch.full((b,), p0 + i, dtype=torch.int32, device=device)
+            t1 = time.perf_counter()
+            lg2, cs = models.decode_fn(params, cfg, toks[-1], pos, cs)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            logits.append(lg2.float())
+            toks.append(lg2.argmax(-1).int())
+        return lg.float(), toks, torch.stack(logits, 1), ms, cs0
+    (lg_pre, toks, lg_dec, eager_ms, cs0), c = counted(eager)
+    if any(c.values()):
+        raise AssertionError(f"whisper: kernels launched {c}")
+
+    # the same steps from one graph, on the prefilled caches' copy
+    tok_s = toks[0].clone()
+    pos_s = torch.full((b,), p0, dtype=torch.int32, device=device)
+    stream = torch.cuda.Stream(device)
+    step = lambda: models.decode_fn(params, cfg, tok_s, pos_s, cs0)[0]
+    # the warm-up writes position p0 as the first step would, with the
+    # same token, so the capture and every replay find the caches as the
+    # eager steps did
+    _graphs.on_stream(step, stream)
+    graph = _graphs.capture(step, stream=stream,
+                            pool=torch.cuda.graph_pool_handle())
+    graph_ms, same = [], True
+    for i in range(steps):
+        tok_s.copy_(toks[i])
+        pos_s.fill_(p0 + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = graph.replay()
+        torch.cuda.synchronize()
+        graph_ms.append((time.perf_counter() - t1) * 1e3)
+        same = same and torch.equal(out.float(), lg_dec[:, i])
+    if not same:
+        raise AssertionError("whisper: graphed decode logits differ from "
+                             "the eager steps'")
+    with torch.no_grad():
+        seq = torch.cat([prompt] + [t[:, None] for t in toks[:-1]], dim=1)
+        enc = encdec.encode(params, cfg, frames)
+        pos = torch.arange(seq.shape[1], dtype=torch.int32,
+                           device=device).expand(b, -1)
+        full, _ = encdec._decoder(params, cfg, seq, pos, "train", None, enc,
+                                  models.DEFAULT_OPTS)
+    gate_logits("reference_logits_whisper_prefill_decode_vs_train",
+                (lg_pre, lg_dec), (full[:, p0 - 1], full[:, p0:]),
+                rows=b, frames=cfg.encoder_seq_len, steps=steps)
+    rec = {"phase": "ssm_encdec", "arch": cfg.name,
+           "layers": [cfg.encoder_layers, cfg.num_layers],
+           "params_gb": sum(t.numel() * t.element_size()
+                            for t in leaves(params)) / 1e9,
+           # self K/V a token, and the cross K/V of the 1500 frames a slot
+           "kv_bytes_per_token": cfg.num_layers * 2 * 2 * (
+               cfg.num_kv_heads * cfg.head_dim_),
+           "cross_kv_bytes_per_slot": cfg.num_layers * 2 * 2 * (
+               cfg.encoder_seq_len * cfg.num_kv_heads * cfg.head_dim_),
+           "decode_step_ms_eager": statistics.median(eager_ms),
+           "decode_step_ms_graphed": statistics.median(graph_ms),
+           "decode_logits_graphed_equal_eager": True,
+           "launches": {n: v for n, v in c.items() if v}}
+    del params, caches, cs0, graph, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+
+
+def ssm_encdec_phase(device, t_start):
+    """Phase 9c: mamba2-780m, zamba2-1.2b and whisper-base in turn, each's
+    weights freed before the next."""
+    need = {}
+    for name in SSM_STACKS:
+        need.update(ssm_stack_phase(name, device, t_start))
+    whisper_phase(device, t_start)
     return need
 
 
@@ -3472,8 +3923,12 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    # ---- phase 9b: five more architectures at full width -----------------
+    # ---- phase 9b: seven more architectures at full width ----------------
     need.update(families_phase(device, t_start, rows))
+    torch.cuda.empty_cache()
+
+    # ---- phase 9c: mamba2, zamba2 and whisper at full width --------------
+    need.update(ssm_encdec_phase(device, t_start))
     torch.cuda.empty_cache()
 
     # ---- phases 10-12: training and held-out evaluation -----------------

@@ -5,9 +5,13 @@ The reference stores the layer stack grouped: ``params["stack"]["groups"]
 [gi]`` holds one dict per run of identical layers (``blocks.group_pattern``
 of the config's pattern), with a leading layer-count axis when the run has
 more than one layer.  The port keeps one dict per layer, so the groups are
-split here.  The input is nested dicts of numpy arrays (the caller converts
-device arrays first, e.g. with ``jax.tree.map(np.asarray, params)``); this
-module imports nothing of the reference.
+split here; a shared_attn group is ``{}`` in both, and the one shared
+parameter set moves from ``params["stack"]["shared_attn"]`` to
+``params["shared_attn"]``.  The encoder-decoder's ``enc_layers`` and
+``dec_layers`` are plain lists in both trees and map leaf for leaf.  The
+input is nested dicts of numpy arrays (the caller converts device arrays
+first, e.g. with ``jax.tree.map(np.asarray, params)``); this module
+imports nothing of the reference.
 """
 
 from __future__ import annotations
@@ -51,8 +55,12 @@ def convert_params(params: Dict, cfg: ModelConfig, *, device=None) -> Dict:
 
     out = {k: map_tree(to_tensor, v) for k, v in params.items()
            if k != "stack"}
-    out["layers"] = [map_tree(to_tensor, lp)
-                     for lp in split_stack(params["stack"], cfg)]
+    if "stack" in params:
+        out["layers"] = [map_tree(to_tensor, lp)
+                         for lp in split_stack(params["stack"], cfg)]
+        if "shared_attn" in params["stack"]:
+            out["shared_attn"] = map_tree(to_tensor,
+                                          params["stack"]["shared_attn"])
     return out
 
 

@@ -11,6 +11,11 @@ Everything is a pure function of (seed, host, step), drawn with numpy
 (never torch's generator): restart-deterministic and shardable across hosts
 without coordination.  ``sample_batch`` draws the same tokens as the
 reference's algorithm, kept verbatim as ``sample_batch_plain``.
+
+For an encoder-decoder (``data_config_for`` of whisper) each batch also
+carries stub ``frames`` [B, frame_len, d_model], standard normal f32 from
+a generator of their own, so the token stream is the reference's either
+way (the reference's stream has no frames: its loop cannot train one).
 """
 
 from __future__ import annotations
@@ -34,6 +39,10 @@ class DataConfig:
     zipf_a: float = 1.2         # Zipf exponent
     num_hosts: int = 1
     host_id: int = 0
+    #: stub encoder frames a row (an encoder-decoder's encoder_seq_len x
+    #: d_model); 0: no frames
+    frame_len: int = 0
+    d_model: int = 0
 
     @property
     def local_batch(self) -> int:
@@ -91,7 +100,8 @@ def sample_batch_plain(dc: DataConfig, step: int) -> Dict[str, np.ndarray]:
 
 
 def sample_batch(dc: DataConfig, step: int) -> Dict[str, np.ndarray]:
-    """Batch for (host, step): tokens / targets / mask [B_local, S].
+    """Batch for (host, step): tokens / targets / mask [B_local, S], and
+    ``frames`` when ``dc.frame_len`` is set.
 
     The same draws as ``sample_batch_plain``: ``choice`` with ``p`` maps
     one uniform double through the CDF, and the generator hands doubles
@@ -110,7 +120,13 @@ def sample_batch(dc: DataConfig, step: int) -> Dict[str, np.ndarray]:
     for t in range(1, s + 1):
         seq[:, t] = np.where(rule[t - 1], _successor(seq[:, t - 1], v),
                              zipf[t - 1])
-    return _batch(seq)
+    out = _batch(seq)
+    if dc.frame_len:
+        frng = np.random.default_rng(
+            np.random.SeedSequence([dc.seed, dc.host_id, step, 1]))
+        out["frames"] = frng.standard_normal(
+            (b, dc.frame_len, dc.d_model), dtype=np.float32)
+    return out
 
 
 def stream(dc: DataConfig,
@@ -124,6 +140,8 @@ def stream(dc: DataConfig,
 def data_config_for(cfg: ModelConfig, *, seq_len: int, global_batch: int,
                     seed: int = 0, num_hosts: int = 1,
                     host_id: int = 0) -> DataConfig:
+    frames = (dict(frame_len=cfg.encoder_seq_len, d_model=cfg.d_model)
+              if cfg.is_encoder_decoder else {})
     return DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                       global_batch=global_batch, seed=seed,
-                      num_hosts=num_hosts, host_id=host_id)
+                      num_hosts=num_hosts, host_id=host_id, **frames)

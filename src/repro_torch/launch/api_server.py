@@ -158,7 +158,9 @@ def main(argv=None) -> int:
                     help="chunked-prefill width (0: whole-prompt prefill, "
                          "contiguous layout only)")
     ap.add_argument("--cache-layout", choices=("paged", "contiguous"),
-                    default=None, help="KV layout (default: paged)")
+                    default=None, help="KV layout (default: paged; "
+                    "contiguous for a stack with mamba blocks, which "
+                    "cannot page)")
     ap.add_argument("--use-kernel", action="store_true",
                     help="paged decode attends pages in-kernel "
                          "(flash_decode_paged / flash_decode_paged_mla)")

@@ -84,10 +84,17 @@ from repro_torch.serving import Engine, Request
 
 def synth_requests(n: int, vocab: int, *, lo: int = 8, hi: int = 48,
                    max_new: int = 32, seed: int = 0, temperature: float = 0.0,
-                   top_k: int = 0):
+                   top_k: int = 0, chunk: int = 0):
+    """``n`` random prompts of lo..hi-1 tokens; with ``chunk`` a length
+    above it is cut to a multiple of it (the only lengths a mamba stack's
+    SSD takes, ``ssm_chunk``)."""
     rng = np.random.default_rng(seed)
+
+    def length():
+        m = int(rng.integers(lo, hi))
+        return m - m % chunk if chunk and m > chunk else m
     return [Request(uid=i,
-                    prompt=rng.integers(0, vocab, rng.integers(lo, hi)).astype(np.int32),
+                    prompt=rng.integers(0, vocab, length()).astype(np.int32),
                     max_new_tokens=max_new, temperature=temperature,
                     top_k=top_k)
             for i in range(n)]
@@ -180,7 +187,9 @@ def main(argv=None) -> int:
                     help="chunked-prefill width (0: whole-prompt prefill, "
                          "contiguous layout only)")
     ap.add_argument("--cache-layout", choices=("paged", "contiguous"),
-                    default=None, help="KV layout (default: paged)")
+                    default=None, help="KV layout (default: paged; "
+                    "contiguous for a stack with mamba blocks, which "
+                    "cannot page)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="KV pool size in pages (default: worst-case "
                          "max_batch x max_len; smaller pools admit on "
@@ -281,6 +290,8 @@ def main(argv=None) -> int:
     req_kw = dict(lo=args.prompt_lo, hi=args.prompt_hi, max_new=args.max_new,
                   seed=args.seed, temperature=args.temperature,
                   top_k=args.top_k)
+    if any(s.kind == "mamba" for s in cfg.pattern()):
+        req_kw["chunk"] = cfg.ssm_chunk
     eng = Engine(cfg, params, max_batch=args.max_batch, max_len=args.max_len,
                  prefill_chunk=args.prefill_chunk,
                  cache_layout=args.cache_layout, num_pages=args.num_pages,

@@ -59,9 +59,9 @@ TRASH_PAGE = 0  # reserved page unmapped block-table entries point at
 
 
 def _check_attention(cfg: ModelConfig) -> None:
-    if cfg.attention not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"{cfg.attention!r} attention is not ported (ROADMAP.md A13)")
+    if cfg.attention not in ("gqa", "mla", "none"):
+        raise ValueError(f"unknown attention {cfg.attention!r}; the "
+                         "reference has 'gqa', 'mla' and 'none'")
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
@@ -101,6 +101,12 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
         p["q_norm"] = {"scale": torch.ones(hd, dtype=dt, device=device)}
         p["k_norm"] = {"scale": torch.ones(hd, dtype=dt, device=device)}
     return p
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig,
+                         device) -> Dict:
+    """Encoder-decoder cross attention (whisper)."""
+    return init_attention(gen, cfg, device)
 
 
 # --------------------------------------------------------------------------- #
@@ -280,19 +286,35 @@ def gqa_attention(
     use_flash_decode: bool = False,
     use_paged_kernel: bool = False,
     kernel_blocks: Optional[int] = None,
+    causal: bool = True,
+    kv_override=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x [B,S,D]; positions [B,S] (train/prefill/chunk) or [B] (decode).
 
     Returns (output [B,S,D], the cache -- updated in place -- or None).
+    ``causal=False`` attends every valid key (the encoder);
+    ``kv_override = (k, v, kv_positions)`` is cross-attention: rope-free,
+    no cache read or write, through the plain masked softmax in train,
+    prefill and decode (the reference sends neither to a kernel).
     """
     b, s, _ = x.shape
     hd = cfg.head_dim_
     scale = 1.0 / hd ** 0.5
     q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, params["q_norm"]["scale"])
+    if kv_override is not None:
+        if mode not in ("train", "prefill", "decode"):
+            raise ValueError(f"cross-attention mode {mode!r}: 'train', "
+                             "'prefill' or 'decode'")
+        k, v, kv_pos = kv_override
+        q_pos = positions[:, None] if mode == "decode" else positions
+        bias = _mask_bias(q_pos, kv_pos, cfg.sliding_window, causal)
+        out = _sdpa(q, k, v, bias, scale, compute_dtype)
+        return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"], None
     k = (x @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
     v = (x @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
-        q = rms_norm_headwise(q, params["q_norm"]["scale"])
         k = rms_norm_headwise(k, params["k_norm"]["scale"])
 
     if mode == "decode":
@@ -360,7 +382,7 @@ def gqa_attention(
     elif mode in ("train", "prefill"):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        if use_flash:
+        if use_flash and causal:
             # masks by index, as the reference kernel: positions must be
             # 0..S-1 in every row (no pads).  The kernel reads the [B,S,H,hd]
             # activations through their strides and writes its output in
@@ -370,7 +392,8 @@ def gqa_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 window=cfg.sliding_window).transpose(1, 2)
         else:
-            bias = _mask_bias(positions, positions, cfg.sliding_window, True)
+            bias = _mask_bias(positions, positions, cfg.sliding_window,
+                              causal)
             out = _sdpa(q, k, v, bias, scale, compute_dtype)
         if mode == "prefill":
             _write_seq(cache["k"], k, positions)

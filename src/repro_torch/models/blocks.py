@@ -4,6 +4,12 @@ The reference scans groups of identical layers over stacked parameters
 (``lax.scan``); the port keeps one parameter dict per layer and runs the
 stack as a Python loop.  ``group_pattern`` stays: ``convert.py`` needs it
 to split the reference's stacked groups.
+
+Zamba2-style ``shared_attn`` blocks share one parameter set, stored once
+at the top of the model's params (``params["shared_attn"]``, passed to
+``apply_stack`` as ``shared``); each occurrence's entry in the layer list
+is ``{}`` and keeps its own KV cache.  Mamba blocks carry a conv and SSM
+state instead of a KV cache, on either layout request.
 """
 
 from __future__ import annotations
@@ -19,11 +25,12 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, init_norm
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
 
-_PORTED_KINDS = ("attn_moe", "attn_mlp")
+_STACK_KINDS = ("attn_moe", "attn_mlp", "mamba", "shared_attn")
 
 
 @dataclass(frozen=True)
@@ -47,14 +54,18 @@ def group_pattern(pattern: Tuple[BlockSpec, ...]) -> List[Group]:
 
 
 def _check_kind(spec: BlockSpec) -> None:
-    if spec.kind not in _PORTED_KINDS:
+    if spec.kind not in _STACK_KINDS:
         raise NotImplementedError(
-            f"{spec.kind!r} blocks are not ported yet (ROADMAP.md A13)")
+            f"{spec.kind!r} blocks are a placeholder kind: no config of "
+            f"the reference runs one; the stack takes {_STACK_KINDS}")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
                device) -> Dict:
     _check_kind(spec)
+    if spec.kind == "mamba":
+        return {"norm1": init_norm(cfg, device),
+                "mixer": ssm_mod.init_mamba(gen, cfg, device)}
     p = {
         "norm1": init_norm(cfg, device),
         "attn": attn_mod.init_attention(gen, cfg, device),
@@ -62,7 +73,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, spec: BlockSpec,
     }
     if spec.kind == "attn_moe":
         p["moe"] = moe_mod.init_moe(gen, cfg, device)
-    else:
+    else:                                   # attn_mlp / shared_attn
         p["mlp"] = init_mlp(gen, cfg, device)
     return p
 
@@ -89,8 +100,20 @@ def apply_block(
     ``lookahead_h2`` (router lookahead) is the previous layer's pre-FFN
     hidden, from which this block predicts its top-k expert ids before its
     own attention runs; the MoE's plain decode path stages its weight
-    gathers on the prediction, and no output depends on it."""
+    gathers on the prediction, and no output depends on it.
+
+    A mamba block returns ``h2`` None; it has no chunk mode."""
     _check_kind(spec)
+    if spec.kind == "mamba":
+        if mode == "chunk":
+            raise NotImplementedError(
+                "chunked prefill needs conv/state carry across chunks; "
+                "mamba blocks use whole-prompt prefill (serving/runner.py)")
+        h, cache = ssm_mod.mamba_forward(
+            params["mixer"], cfg, apply_norm(params["norm1"], cfg, x),
+            mode=mode, cache=cache)
+        return (x + h, cache,
+                torch.zeros((), dtype=torch.float32, device=x.device), None)
     pred_idx = None
     if lookahead_h2 is not None and spec.kind == "attn_moe":
         d = lookahead_h2.shape[-1]
@@ -151,29 +174,48 @@ def _remat(fn: Callable, remat: str) -> Callable:
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig, device) -> List[Dict]:
-    """One parameter dict per layer."""
-    return [init_block(gen, cfg, spec, device) for spec in cfg.pattern()]
+    """One parameter dict per layer (``{}`` for a shared_attn occurrence:
+    its weights are ``init_shared``'s)."""
+    return [{} if spec.kind == "shared_attn"
+            else init_block(gen, cfg, spec, device)
+            for spec in cfg.pattern()]
+
+
+def init_shared(gen: torch.Generator, cfg: ModelConfig,
+                device) -> Optional[Dict]:
+    """The one parameter set of the stack's shared_attn blocks, or None
+    when the pattern has none."""
+    if not any(s.kind == "shared_attn" for s in cfg.pattern()):
+        return None
+    return init_block(gen, cfg, BlockSpec("shared_attn"), device)
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
                      layout: str = "paged", page_size: int = 16,
                      num_pages: int = 0, device) -> List[Dict]:
     """One cache per layer: a paged pool of ``num_pages`` x ``page_size``
-    positions, or ``batch`` contiguous rows for ``max_len`` positions."""
-    if layout == "paged":
-        return [attn_mod.init_paged_cache(cfg, num_pages, page_size, device)
-                for _ in cfg.pattern()]
-    if layout == "contiguous":
-        return [attn_mod.init_cache(cfg, batch, max_len, device)
-                for _ in cfg.pattern()]
-    raise ValueError(f"unknown cache layout {layout!r}")
+    positions, or ``batch`` contiguous rows for ``max_len`` positions; a
+    mamba layer's conv and SSM state (``batch`` rows) on either layout, as
+    in the reference."""
+    if layout not in ("paged", "contiguous"):
+        raise ValueError(f"unknown cache layout {layout!r}")
+
+    def one(spec):
+        if spec.kind == "mamba":
+            return ssm_mod.init_mamba_cache(cfg, batch, device)
+        if layout == "paged":
+            return attn_mod.init_paged_cache(cfg, num_pages, page_size,
+                                             device)
+        return attn_mod.init_cache(cfg, batch, max_len, device)
+    return [one(spec) for spec in cfg.pattern()]
 
 
 def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
                 mode: str, caches=None, opts: ModelOpts = DEFAULT_OPTS,
                 block_tables=None, kernel_blocks: Optional[int] = None,
-                k_budgets=None):
-    """Run every layer.  Returns (x, caches, total_aux).
+                k_budgets=None, shared: Optional[Dict] = None):
+    """Run every layer.  Returns (x, caches, total_aux).  ``shared`` is the
+    shared_attn blocks' one parameter set (``init_shared``).
 
     ``k_budgets`` [B, n_moe] int32 gives each batch row a per-MoE-layer
     active-expert cap below the pattern's per-layer top-k (per-request
@@ -183,7 +225,7 @@ def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
     With ``opts.router_lookahead`` a decode step carries each layer's
     pre-FFN hidden to the next (``h2_prev``), from which that layer
     predicts its expert ids; zeros feed the first layer, whose staged loads
-    then just miss.
+    then just miss.  The carry passes over mamba blocks unchanged.
 
     In train mode ``opts.remat`` checkpoints each layer (``_remat``)."""
     remat = opts.remat if mode == "train" else "none"
@@ -197,15 +239,18 @@ def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
             if k_budgets is not None:
                 kb = k_budgets[:, moe_i]
             moe_i += 1
+        gl = lookahead and spec.kind != "mamba"
         layer = partial(
-            apply_block, layers[li], cfg, spec, positions=positions,
+            apply_block, shared if spec.kind == "shared_attn" else layers[li],
+            cfg, spec, positions=positions,
             mode=mode, cache=caches[li] if caches is not None else None,
             opts=opts, block_tables=block_tables,
-            kernel_blocks=kernel_blocks, k_budget=kb, lookahead_h2=h2_prev)
+            kernel_blocks=kernel_blocks, k_budget=kb,
+            lookahead_h2=h2_prev if gl else None)
         if remat != "none":
             layer = _remat(layer, remat)
         x, _, aux, h2 = layer(x)
-        if lookahead:
+        if gl:
             h2_prev = h2
         total_aux = total_aux + aux
     return x, caches, total_aux

@@ -71,27 +71,35 @@ def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
-def _check_norm(cfg: ModelConfig) -> None:
-    if cfg.norm_type != "rmsnorm":
-        raise NotImplementedError(
-            f"norm_type={cfg.norm_type!r} is not ported yet (ROADMAP.md A13); "
-            "the MoE configs the port serves use rmsnorm")
-
-
 def init_norm(cfg: ModelConfig, device, d: Optional[int] = None):
-    """The params dict for one RMSNorm."""
-    _check_norm(cfg)
-    return {"scale": torch.ones(d or cfg.d_model, dtype=param_dtype(cfg),
-                                device=device)}
+    """The params dict for one norm: ``{}`` for OLMo's non-parametric
+    LayerNorm, ``scale`` and ``bias`` for LayerNorm, ``scale`` for
+    RMSNorm."""
+    d = d or cfg.d_model
+    dt = param_dtype(cfg)
+    if cfg.norm_type == "nonparam_ln":
+        return {}
+    if cfg.norm_type == "layernorm":
+        return {"scale": torch.ones(d, dtype=dt, device=device),
+                "bias": torch.zeros(d, dtype=dt, device=device)}
+    return {"scale": torch.ones(d, dtype=dt, device=device)}
 
 
 def apply_norm(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm: statistics in f32, output cast back to the input dtype."""
-    _check_norm(cfg)
+    """RMSNorm / LayerNorm / OLMo's non-parametric LayerNorm: statistics in
+    f32 (LayerNorm's variance the biased one), output cast back to the
+    input dtype."""
     xdt = x.dtype
     x = x.float()
-    var = x.square().mean(-1, keepdim=True)
-    y = x * torch.rsqrt(var + cfg.norm_eps) * params["scale"].float()
+    if cfg.norm_type == "rmsnorm":
+        var = x.square().mean(-1, keepdim=True)
+        y = x * torch.rsqrt(var + cfg.norm_eps) * params["scale"].float()
+    else:
+        mean = x.mean(-1, keepdim=True)
+        var = x.var(-1, keepdim=True, unbiased=False)
+        y = (x - mean) * torch.rsqrt(var + cfg.norm_eps)
+        if cfg.norm_type == "layernorm":
+            y = y * params["scale"].float() + params["bias"].float()
     return y.to(xdt)
 
 

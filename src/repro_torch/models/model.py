@@ -1,12 +1,15 @@
-"""Model facade: the functions the serving stack and launchers call."""
+"""Model facade: every architecture behind the same functions, which the
+serving stack and launchers call.  The encoder-decoder (whisper) goes to
+``models/encdec.py``, every other config to ``models/transformer.py``."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.common import resolve_device
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
@@ -18,6 +21,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        return encdec_mod.init_encdec(gen, cfg, dev)
     return tf_mod.init_lm(gen, cfg, dev)
 
 
@@ -26,43 +31,62 @@ def make_train_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
     """A random batch for smoke tests and examples: tokens and targets
     drawn from ``gen`` (a ``torch.Generator`` in place of the reference's
     key, so other numbers from the same seed) on ``device``, every target
-    counted.  The encoder-decoder and prefix-embedding families' extra
-    inputs are not ported (ROADMAP.md A13)."""
-    if cfg.is_encoder_decoder or cfg.prefix_embed_len:
-        raise NotImplementedError(
-            f"{cfg.name}: batches with frames or prefix embeddings are not "
-            "ported (ROADMAP.md A13)")
+    counted; plus ``frames`` [B, encoder_seq_len, D] for the
+    encoder-decoder, or ``prefix_embeds`` [B, prefix_embed_len, D] for a
+    VLM, standard normal f32."""
     dev = resolve_device(device)
     draw = lambda: torch.randint(0, cfg.vocab_size, (batch, seq),
                                  generator=gen, device=gen.device).to(dev)
     tokens, targets = draw(), draw()
-    return {"tokens": tokens.int(), "targets": targets.int(),
-            "mask": torch.ones((batch, seq), dtype=torch.int32, device=dev)}
+    out = {"tokens": tokens.int(), "targets": targets.int(),
+           "mask": torch.ones((batch, seq), dtype=torch.int32, device=dev)}
+    extra = (("frames", cfg.encoder_seq_len) if cfg.is_encoder_decoder
+             else ("prefix_embeds", cfg.prefix_embed_len))
+    if extra[1]:
+        out[extra[0]] = torch.randn((batch, extra[1], cfg.d_model),
+                                    generator=gen, device=gen.device).to(dev)
+    return out
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *,
             opts: ModelOpts = DEFAULT_OPTS):
-    """batch: tokens, targets, mask [B,S] -> (loss, {"xent", "aux"})."""
+    """batch: tokens, targets, mask [B,S] (plus frames or prefix_embeds)
+    -> (loss, {"xent", "aux"})."""
+    if cfg.is_encoder_decoder:
+        return encdec_mod.encdec_loss(params, cfg, batch, opts=opts)
     return tf_mod.lm_loss(params, cfg, batch, opts=opts)
 
 
 def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
-                layout: str = "paged", page_size: int = 16,
+                layout: Optional[str] = None, page_size: int = 16,
                 num_pages: int = 0, device=None):
-    """KV caches, one per layer: ``layout="paged"`` (the serving pool) is
-    ``num_pages`` pages of ``page_size`` positions; ``"contiguous"`` is
-    ``batch`` rows for ``max_len`` positions."""
-    return tf_mod.init_caches(cfg, batch, max_len, layout=layout,
+    """KV caches, one per layer: ``layout="paged"`` (the serving pool, the
+    default of a decoder-only LM) is ``num_pages`` pages of ``page_size``
+    positions; ``"contiguous"`` is ``batch`` rows for ``max_len``
+    positions.  A mamba layer's state has ``batch`` rows on either layout;
+    the encoder-decoder's caches are contiguous only (its default)."""
+    if cfg.is_encoder_decoder:
+        if layout not in (None, "contiguous"):
+            raise NotImplementedError("paged KV is decoder-only LM for now")
+        return encdec_mod.init_encdec_caches(cfg, batch, max_len,
+                                             resolve_device(device))
+    return tf_mod.init_caches(cfg, batch, max_len, layout=layout or "paged",
                               page_size=page_size, num_pages=num_pages,
                               device=resolve_device(device))
 
 
 def prefill_fn(params, cfg: ModelConfig, batch, caches, *,
                opts: ModelOpts = DEFAULT_OPTS):
-    """batch: {"tokens": [B,S], optional "positions": [B,S]} -> (last
+    """batch: {"tokens": [B,S], optional "positions", and "frames"
+    (encoder-decoder) or optional "prefix_embeds" [B,P,D] (VLM)} -> (last
     logits [B,V], contiguous caches)."""
+    if cfg.is_encoder_decoder:
+        return encdec_mod.encdec_prefill(params, cfg, batch["frames"],
+                                         batch["tokens"], caches, opts=opts)
     return tf_mod.prefill(params, cfg, batch["tokens"], caches,
-                          positions=batch.get("positions"), opts=opts)
+                          positions=batch.get("positions"),
+                          prefix_embeds=batch.get("prefix_embeds"),
+                          opts=opts)
 
 
 def chunk_prefill_fn(params, cfg: ModelConfig, tokens, positions, caches, *,
@@ -71,6 +95,8 @@ def chunk_prefill_fn(params, cfg: ModelConfig, tokens, positions, caches, *,
     """One fixed-width chunked-prefill step (decoder-only LMs).
     ``k_budgets`` [B, n_moe] int32 caps each row's active experts per MoE
     layer below the config's k (a mixed-plan step)."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("chunked prefill is decoder-only LM for now")
     return tf_mod.chunk_prefill(params, cfg, tokens, caches,
                                 positions=positions, last_index=last_index,
                                 block_tables=block_tables, opts=opts,
@@ -80,6 +106,10 @@ def chunk_prefill_fn(params, cfg: ModelConfig, tokens, positions, caches, *,
 def decode_fn(params, cfg: ModelConfig, tokens, pos, caches, *,
               opts: ModelOpts = DEFAULT_OPTS, block_tables=None,
               kernel_blocks=None, k_budgets=None):
+    """One decode step: tokens, pos [B] -> (logits [B,V] f32, caches)."""
+    if cfg.is_encoder_decoder:
+        return encdec_mod.encdec_decode_step(params, cfg, tokens, pos,
+                                             caches, opts=opts)
     return tf_mod.decode_step(params, cfg, tokens, pos, caches, opts=opts,
                               block_tables=block_tables,
                               kernel_blocks=kernel_blocks,

@@ -1,5 +1,11 @@
 """Decoder-only LM: embeddings, layer stack, head, the loss and the
-serving steps."""
+serving steps.
+
+The VLM variant (pixtral) takes precomputed patch embeddings (the vision
+frontend is a stub, as in the reference): ``prefix_embeds @ prefix_proj``
+goes ahead of the token embeddings in ``forward``, ``prefill`` and
+``lm_loss``, and the loss counts the token part only.  A decode step after
+such a prefill sits at position ``S + prefix_embed_len``."""
 
 from __future__ import annotations
 
@@ -15,19 +21,27 @@ from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
-    if cfg.prefix_embed_len or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: VLM / encoder-decoder stacks are not ported yet "
-            "(ROADMAP.md A13)")
+    """Decoder-only params: ``embed``, ``layers`` (one dict per layer),
+    ``final_norm``, ``lm_head`` unless tied, ``shared_attn`` for a stack
+    with shared attention blocks and ``prefix_proj`` for a VLM."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} is an encoder-decoder; "
+                         "models.init_params builds it (models/encdec.py)")
     dt = param_dtype(cfg)
     p: Dict = {
         "embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model), dt, device),
         "layers": blocks_mod.init_stack(gen, cfg, device),
         "final_norm": init_norm(cfg, device),
     }
+    shared = blocks_mod.init_shared(gen, cfg, device)
+    if shared is not None:
+        p["shared_attn"] = shared
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dt,
                                   device)
+    if cfg.prefix_embed_len:
+        p["prefix_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model), dt,
+                                      device)
     return p
 
 
@@ -42,17 +56,21 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens, positions, *,
-            mode: str = "train", caches=None, opts: ModelOpts = DEFAULT_OPTS,
-            block_tables=None, kernel_blocks=None, k_budgets=None):
-    """tokens [B,S]; positions [B,S] (train/chunk) or [B] (decode).
-    ``k_budgets`` [B, n_moe] int32: each row's active-expert cap per MoE
-    layer (per-request plans).  Returns (hidden [B,S,D], caches,
-    aux_loss)."""
+            mode: str = "train", caches=None, prefix_embeds=None,
+            opts: ModelOpts = DEFAULT_OPTS, block_tables=None,
+            kernel_blocks=None, k_budgets=None):
+    """tokens [B,S]; positions [B,S] (train/chunk; [B, P+S] with
+    ``prefix_embeds`` [B,P,D]) or [B] (decode).  ``k_budgets`` [B, n_moe]
+    int32: each row's active-expert cap per MoE layer (per-request
+    plans).  Returns (hidden [B,S,D] or [B,P+S,D], caches, aux_loss)."""
     x = embed_tokens(params, cfg, tokens)
+    if prefix_embeds is not None:
+        pre = prefix_embeds.to(x.dtype) @ params["prefix_proj"]
+        x = torch.cat([pre, x], dim=1)
     return blocks_mod.apply_stack(
         params["layers"], cfg, x, positions, mode=mode, caches=caches,
         opts=opts, block_tables=block_tables, kernel_blocks=kernel_blocks,
-        k_budgets=k_budgets)
+        k_budgets=k_budgets, shared=params.get("shared_attn"))
 
 
 # --------------------------------------------------------------------------- #
@@ -70,15 +88,18 @@ def softmax_xent(logits, targets, mask):
 
 def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, *,
             opts: ModelOpts = DEFAULT_OPTS, aux_coef: float = 0.01):
-    """batch: tokens [B,S], targets [B,S], mask [B,S] -> (loss, {"xent",
-    "aux"})."""
+    """batch: tokens [B,S], targets [B,S], mask [B,S], optional
+    prefix_embeds [B,P,D] -> (loss, {"xent", "aux"}); the loss counts the
+    token part only."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
+    pre = batch.get("prefix_embeds")
+    plen = pre.shape[1] if pre is not None else 0
+    positions = torch.arange(s + plen, dtype=torch.int32,
+                             device=tokens.device).expand(b, s + plen)
     hidden, _, aux = forward(params, cfg, tokens, positions, mode="train",
-                             opts=opts)
-    logits = lm_logits(params, cfg, hidden)
+                             prefix_embeds=pre, opts=opts)
+    logits = lm_logits(params, cfg, hidden[:, plen:])
     xent = softmax_xent(logits, batch["targets"], batch["mask"].float())
     return xent + aux_coef * aux, {"xent": xent, "aux": aux}
 
@@ -98,16 +119,20 @@ def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
 
 @torch.no_grad()
 def prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
-            positions=None, opts: ModelOpts = DEFAULT_OPTS):
-    """Write a whole prompt into contiguous caches -> (last_logits [B,V],
-    caches).  Under ``opts.use_flash`` positions must be 0..S-1 (the
-    kernel masks by index)."""
+            positions=None, prefix_embeds=None,
+            opts: ModelOpts = DEFAULT_OPTS):
+    """Write a whole prompt (after ``prefix_embeds`` [B,P,D], if given)
+    into contiguous caches -> (last_logits [B,V], caches).  Under
+    ``opts.use_flash`` positions must be 0..P+S-1 (the kernel masks by
+    index)."""
     b, s = tokens.shape
+    plen = prefix_embeds.shape[1] if prefix_embeds is not None else 0
     if positions is None:
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=tokens.device).expand(b, s)
+        positions = torch.arange(s + plen, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s + plen)
     hidden, caches, _ = forward(params, cfg, tokens, positions,
-                                mode="prefill", caches=caches, opts=opts)
+                                mode="prefill", caches=caches,
+                                prefix_embeds=prefix_embeds, opts=opts)
     return lm_logits(params, cfg, hidden[:, -1:])[:, 0], caches
 
 

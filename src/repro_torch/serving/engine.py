@@ -62,8 +62,18 @@ predicts each MoE layer's expert ids one layer ahead on decode steps
 engine's life, so every graph it captures carries it.  ``submit(req,
 detok=)`` / ``serve(..., detok=)`` stream incremental-detok text deltas
 (``serving/detok.py``); ``serving/http.py`` puts the engine behind an HTTP
-front end.  Not ported yet (ROADMAP.md): the mamba / encoder-decoder
-stacks (A13).
+front end.
+
+Stacks with mamba blocks (no position dim to page or chunk: their conv and
+SSM state carry the whole prefix) serve on the contiguous layout only, with
+whole-prompt prefill (``_supports_paging``, as in the reference); their
+default layout is contiguous, and the paged layout, chunked prefill, the
+prefix cache and router lookahead are refused.  A slot's state rows are
+zeroed when a request is admitted to it.  A prompt longer than the SSD
+chunk (``ssm_chunk``) that is not a multiple of it is rejected
+(``rejected_ragged_prompt``), since the SSD refuses such a length.  The
+encoder-decoder (whisper) is served through ``models.prefill_fn`` /
+``decode_fn``, not the engine: its prefill needs frames.
 
 ``Engine(expert_dtype="int8" | "int4")`` quantizes the routed experts at
 load (``quantize_expert_params``) and serves them through the
@@ -96,12 +106,19 @@ from repro_torch.serving.sampling import sample_per_slot
 from repro_torch.serving.scheduler import DECODE, DONE, PREFILL, Scheduler, \
     Tracked, duplicate_uid_error
 
-_CHUNKABLE_KINDS = ("attn_mlp", "attn_moe")
+_CHUNKABLE_KINDS = ("attn_mlp", "attn_moe", "shared_attn")
 
 #: admission-gate policies for on-demand paged admission (DESIGN.md §11):
 #: how many free pages an admission must leave for the slots already
 #: decoding, so that a newcomer is not preempted right back out
 ADMISSION_POLICIES = ("headroom", "watermark", "lookahead", "greedy")
+
+
+def _supports_paging(cfg: ModelConfig) -> bool:
+    """The stack can page its KV and chunk its prefill: every layer an
+    attention block (mamba state has no position dim)."""
+    return (not cfg.is_encoder_decoder
+            and all(b.kind in _CHUNKABLE_KINDS for b in cfg.pattern()))
 
 
 class Engine:
@@ -129,10 +146,11 @@ class Engine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
-        if any(b.kind not in _CHUNKABLE_KINDS for b in cfg.pattern()):
-            raise NotImplementedError(
-                f"{cfg.name}: the port serves attention + MoE/MLP stacks "
-                "only (ROADMAP.md A13)")
+        if cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: its prefill needs "
+                "frames, which the engine does not carry; serve it through "
+                "models.prefill_fn / decode_fn")
         self.max_batch = max_batch
         self.max_len = max_len
         self.prefill_pad = prefill_pad
@@ -142,14 +160,26 @@ class Engine:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.clock = clock if clock is not None else WallClock()
+        pageable = _supports_paging(cfg)
         if cache_layout is None:
-            cache_layout = "paged"
+            cache_layout = "paged" if pageable else "contiguous"
         if cache_layout not in ("paged", "contiguous"):
             raise ValueError(f"unknown cache layout {cache_layout!r}")
+        if cache_layout == "paged" and not pageable:
+            raise ValueError(
+                f"{cfg.name}: paged KV / chunked prefill need an "
+                "attention-only stack; use cache_layout='contiguous'")
+        if prefill_chunk is not None and prefill_chunk > 0 and not pageable:
+            raise ValueError(f"{cfg.name}: chunked prefill needs an "
+                             "attention-only stack")
         self.contiguous = cache_layout == "contiguous"
+        #: a mamba stack's SSD chunk (0: no mamba block): a longer prompt
+        #: must be a multiple of it
+        self.ssd_chunk = (cfg.ssm_chunk if any(b.kind == "mamba"
+                                               for b in cfg.pattern()) else 0)
         # prefill_chunk=0: whole-prompt [1, L] prefill into the slot row
         # (contiguous only); anything else chunks, on either layout
-        self.chunked = prefill_chunk != 0
+        self.chunked = pageable and prefill_chunk != 0
         if not self.contiguous and not self.chunked:
             raise ValueError("whole-prompt prefill (prefill_chunk=0) writes "
                              "a slot row; use cache_layout='contiguous'")
@@ -225,7 +255,7 @@ class Engine:
         # on the card every CUDA graph) of this engine carries it
         rl = (opts.router_lookahead if router_lookahead is None
               else bool(router_lookahead))
-        if rl and any(b.kind == "mamba" for b in cfg.pattern()):
+        if rl and self.ssd_chunk:
             raise ValueError("router_lookahead carries the pre-FFN hidden "
                              "across layers; mamba blocks have none")
         self.router_lookahead = rl
@@ -392,6 +422,10 @@ class Engine:
                 self.sched.reject(t, "rejected_prompt_too_long")
         if t.state != DONE and t.plan not in self.runner.plans:
             self.sched.reject(t, "rejected_unknown_plan")
+        q = self.ssd_chunk
+        if t.state != DONE and q and t.prompt_len > q and t.prompt_len % q:
+            # the SSD takes a length of at most one chunk or a multiple
+            self.sched.reject(t, "rejected_ragged_prompt")
         if (t.state != DONE and not self.contiguous
                 and not self.kv.fits_ever(t.prompt_len
                                           + t.req.max_new_tokens)):

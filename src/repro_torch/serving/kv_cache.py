@@ -15,7 +15,8 @@ accounting, as ``repro.serving.kv_cache`` does.  Two layouts:
 ``contiguous``
     One ``[max_len]`` row per slot, reserved for a request's whole
     lifetime: ``allocate`` and ``release`` only reset the row's ``pos`` to
-    -1 (the k / v bytes left behind are masked by it).  The page accounting
+    -1 (the k / v bytes left behind are masked by it), and zero a mamba
+    layer's conv and SSM state rows (the next prefill starts from them).  The page accounting
     (``pages_needed``, ``free_pages``, ``fits_ever``, ``live_blocks``,
     ``block_tables``) belongs to the paged layout only.
 
@@ -404,6 +405,11 @@ class KVCache:
                     leaf[dst] = leaf[src]
 
     def _clear_slot(self, slot: int) -> None:
-        """pos = -1 on a slot row (the k / v bytes are masked by it)."""
+        """pos = -1 on a slot row (the k / v bytes are masked by it); a
+        mamba layer's conv and state rows to zero."""
         for layer in self.caches:
-            layer["pos"][slot] = -1
+            if "pos" in layer:
+                layer["pos"][slot] = -1
+            else:
+                layer["conv"][slot] = 0
+                layer["state"][slot] = 0

@@ -44,6 +44,12 @@ length, so a graph per length would buy nothing, and the reference's
 padded ``[1, L]`` graph attends its pads under ``use_flash`` (ROADMAP.md
 C, second caveat).
 
+A mamba layer's cache is its conv and SSM state rows (``models/ssm.py``),
+written in place like the KV caches, so a decode graph of a mamba stack
+replays on them; the step also advances the state rows of idle slots
+(their token 0 at position -1: a mamba block has no mask), which the
+engine zeroes when it admits a request to the slot.
+
 Options fixed when the engine is built live in ``opts``, so every step
 and every CUDA graph of a runner carries them.  ``router_lookahead`` is
 one: an engine's graphs are all captured with it on or all with it off,

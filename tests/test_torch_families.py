@@ -1,12 +1,15 @@
-"""The five architectures the port serves beside the paper's MoE models,
-against the JAX reference on the CPU: qwen3-moe-235b-a22b, llama4-scout-
-17b-a16e, qwen3-32b, h2o-danube-1.8b and minicpm3-4b.
+"""The seven architectures the port serves on its paged engine beside the
+paper's MoE models, against the JAX reference on the CPU:
+qwen3-moe-235b-a22b, llama4-scout-17b-a16e, qwen3-32b, h2o-danube-1.8b,
+minicpm3-4b, olmo-1b (OLMo's non-parametric LayerNorm) and pixtral-12b (a
+VLM: patch embeddings ahead of the tokens).
 
 Each runs at ``.reduced()`` widths (d_model 128, hd 32, f32), 2 layers deep,
 with its own
 head grouping: 2 kv heads and 2g query heads, g being the config's own
-(16, 5, 8, 4), and danube's head size of 80 (its window cut to 16, under
-the prompts' lengths); minicpm3 is MLA at its reduced latent shapes.  The
+(16, 5, 8, 4, pixtral's 4), and danube's head size of 80 (its window cut to
+16, under the prompts' lengths); minicpm3 is MLA at its reduced latent
+shapes; olmo keeps the reduced 4 heads (g 1, as its own).  The
 attention kernels' widened shapes (a group split over the grid, hd 80
 padded to 128, MLA in head tiles) run only on the card; on the CPU these
 tests hold the same grouping through the plain versions.
@@ -20,6 +23,12 @@ tests hold the same grouping through the plain versions.
 * qwen3-moe: the port's plan equals the reference's ``optimize`` on the
   same sensitivity table, and the planned serve's tokens match.
 * llama4-scout routes top-1: its plan is all ones, profiled or not.
+* pixtral: a prefill of 16 patch embeddings plus the prompt, then decode
+  steps at ``S + prefix_embed_len``, and the loss with the prefix, within
+  1e-4 of the reference's.
+* The port's ``configs.shapes`` (``SHAPES``, ``cells``, ``applicability``)
+  and ``ASSIGNED`` / ``PAPER_MOES`` equal the reference's over all ten
+  assigned configs.
 
 Every JAX oracle is built once per family (module-scoped fixtures).
 """
@@ -28,6 +37,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_ref import reference_params  # noqa: E402
 from _torch_threads import one_thread  # noqa: F401,E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -41,30 +51,17 @@ FAMILIES = {
     "h2o-danube-1.8b": dict(num_heads=8, num_kv_heads=2, head_dim=80,
                             sliding_window=16),
     "minicpm3-4b": {},
+    "olmo-1b": {},
+    "pixtral-12b": dict(num_heads=8, num_kv_heads=2),
 }
-
-
-def _reference_tree(pt, cfg):
-    """The port's params as the reference's tree (``convert_params``'s
-    inverse): each run of identical layers stacked into one group."""
-    from repro_torch.models.blocks import group_pattern
-    from repro_torch.tree import map_tree
-    out = {k: map_tree(lambda t: t.numpy(), v) for k, v in pt.items()
-           if k != "layers"}
-    groups = []
-    for g in group_pattern(cfg.pattern()):
-        run = pt["layers"][g.start:g.start + g.count]
-        groups.append(map_tree(lambda *ts: np.stack([t.numpy() for t in ts])
-                               if g.count > 1 else ts[0].numpy(), *run))
-    out["stack"] = {"groups": groups}
-    return out
 
 
 @pytest.fixture(scope="module", params=list(FAMILIES))
 def fam(request):
     """(cfg_j, cfg_t, reference params, the port's copy): the port's own
     init (a torch generator, seed 0), given to the reference as its stacked
-    tree, which ``convert_params`` maps back to the same tensors."""
+    tree (``reference_params``), which ``convert_params`` maps back to the
+    same tensors."""
     from repro.configs import get_config as jget
     from repro_torch.configs import get_config as tget
     from repro_torch.convert import convert_params
@@ -76,7 +73,7 @@ def fam(request):
     if cfg_t.is_moe:
         cfg_j, cfg_t = (c.with_(moe_impl="gmm") for c in (cfg_j, cfg_t))
     pt = init_params(cfg_t, 0, device="cpu")
-    pj = _reference_tree(pt, cfg_t)
+    pj = reference_params(pt, cfg_t)
     back = dict(flatten_with_paths(convert_params(pj, cfg_t, device="cpu")))
     assert all(torch.equal(back[k], v) for k, v in flatten_with_paths(pt))
     return cfg_j, cfg_t, pj, pt
@@ -99,7 +96,7 @@ def test_loss_matches_reference(fam):
     cfg_j, cfg_t, pj, pt = fam
     if cfg_t.attention == "gqa":
         assert cfg_t.num_heads // cfg_t.num_kv_heads == \
-            {32: 16, 10: 5, 16: 8, 8: 4}[cfg_t.num_heads]
+            {32: 16, 10: 5, 16: 8, 8: 4, 4: 1}[cfg_t.num_heads]
     rng = np.random.default_rng(4)
     b, s = 2, 24
     batch = {"tokens": rng.integers(0, cfg_j.vocab_size, (b, s)),
@@ -276,3 +273,71 @@ def test_llama4_scout_plan_is_all_ones(fam):
                    n_iter=0, values=np.zeros((n, 1)))
     assert tuple(joptimize(pj, cfg_j, n, method="dp",
                            table=table).plan) == (1,) * n
+
+
+@pytest.mark.parametrize("fam", ["pixtral-12b"], indirect=True)
+def test_pixtral_prefix_prefill_and_decode_match_reference(fam):
+    """16 patch embeddings ahead of a 12-token prompt: the whole prefill
+    (the kernel options on, their plain versions here), three decode steps
+    from position S + prefix_embed_len, and the loss with the prefix."""
+    import jax
+    import jax.numpy as jnp
+    from repro import models as jm
+    from repro_torch import models as tm
+    cfg_j, cfg_t, pj, pt = fam
+    plen = cfg_t.prefix_embed_len
+    assert plen == 16 and "prefix_proj" in pt
+    rng = np.random.default_rng(5)
+    b, s = 2, 12
+    tok = rng.integers(0, cfg_t.vocab_size, (b, s)).astype(np.int32)
+    pre = rng.standard_normal((b, plen, cfg_t.d_model)).astype(np.float32)
+    kern = tm.ModelOpts(use_flash=True, use_flash_decode=True)
+    cj = jm.init_caches(cfg_j, b, 64)
+    lj, cj = jax.jit(lambda p, t, e, c: jm.prefill_fn(
+        p, cfg_j, {"tokens": t, "prefix_embeds": e}, c))(
+            pj, jnp.asarray(tok), jnp.asarray(pre), cj)
+    ct = tm.init_caches(cfg_t, b, 64, layout="contiguous", device="cpu")
+    lt, ct = tm.prefill_fn(pt, cfg_t, {"tokens": torch.from_numpy(tok),
+                                       "prefix_embeds": torch.from_numpy(pre)},
+                           ct, opts=kern)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    assert int(ct[0]["pos"].max()) == s + plen - 1
+    jdecode = jax.jit(lambda p, t, po, c: jm.decode_fn(p, cfg_j, t, po, c))
+    for i in range(3):
+        nxt = lt.numpy().argmax(-1).astype(np.int32)
+        pos = np.full((b,), s + plen + i, np.int32)
+        lj, cj = jdecode(pj, jnp.asarray(nxt), jnp.asarray(pos), cj)
+        lt, ct = tm.decode_fn(pt, cfg_t, torch.from_numpy(nxt),
+                              torch.from_numpy(pos), ct, opts=kern)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL)
+    batch = {"tokens": tok, "targets": np.roll(tok, -1, 1),
+             "mask": np.ones((b, s), np.int32), "prefix_embeds": pre}
+    lj, _ = jax.jit(lambda p, b_: jm.loss_fn(p, cfg_j, b_))(
+        pj, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        lt, _ = tm.loss_fn(pt, cfg_t, {k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
+    np.testing.assert_allclose(lt.item(), float(lj), **TOL)
+
+
+def test_shapes_and_assigned_are_the_references():
+    from dataclasses import asdict
+    from repro import configs as jc
+    from repro_torch import configs as tc
+    assert tc.ASSIGNED == jc.ASSIGNED and tc.PAPER_MOES == jc.PAPER_MOES
+    assert [asdict(x) for x in tc.SHAPES] == [asdict(x) for x in jc.SHAPES]
+    assert set(tc.SHAPE_BY_NAME) == set(jc.SHAPE_BY_NAME)
+    assert tc.SUBQUADRATIC_ARCHS == jc.shapes.SUBQUADRATIC_ARCHS
+    for name in tc.ASSIGNED:
+        assert asdict(tc.get_config(name)) == asdict(jc.get_config(name))
+    got = [(c.name, sh.name, why) for c, sh, why in tc.cells(
+        [tc.get_config(n) for n in tc.ASSIGNED])]
+    want = [(c.name, sh.name, why) for c, sh, why in jc.cells(
+        [jc.get_config(n) for n in jc.ASSIGNED])]
+    assert got == want and len(got) == 40
+    # long_500k skips the 7 quadratic archs; whisper also its two 32k cells
+    assert sum(why is None for *_, why in got) == 40 - 7 - 2
+    for n in tc.ASSIGNED:
+        for sh in tc.SHAPES:
+            assert tc.applicability(tc.get_config(n), sh) == \
+                jc.applicability(jc.get_config(n), jc.SHAPE_BY_NAME[sh.name])

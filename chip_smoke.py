@@ -233,6 +233,26 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               bit; then ``python -m repro_torch.launch.train --arch
               olmoe-1b-7b --reduced --steps 20 --eval --device cuda``
               exits 0.
+13. mesh   -- expert parallelism through the entry points on a (1, 1)
+              ("data", "model") mesh bound to a one-rank NCCL group
+              (``file://`` rendezvous; destroyed at the end of the phase),
+              full-depth OLMoE-1B-7B (16 layers, bf16, random weights from
+              seed 0), every kernel's plain version forbidden on the card:
+              B9 first at the path's new shape ([64, 160, 2048], the first
+              of two a2a chunks) against its plain version; ``loss_fn``
+              and prefill logits of 4 x 512 tokens through ``ep_a2a`` at
+              ``a2a_chunks`` 1 and 2 against ``dense`` (B9 both sides;
+              rows within ROW_TOL, digests and whether they are equal);
+              the same under phase 3's LExI plan, with the all-to-all
+              operand bytes of a forward recorded (``analysis.record``),
+              the plan's smaller; ``prefill_fn`` and MESH_DECODE_STEPS
+              ``decode_fn`` steps through ``ep_psum`` with
+              ``decode_kv_seq_shard`` against the same steps with no mesh
+              (rows within ROW_TOL, greedy tokens equal); one
+              ``make_train_step(mesh=)`` step of a depth-4 OLMoE on
+              ``ep_a2a`` against the no-mesh step (loss within
+              MESH_LOSS_TOL, every leaf within MESH_LEAF_TOL; bits
+              counted).  One ``mesh`` line, with seconds and the card.
 
 Every serve and forward runs its steps as CUDA graphs, captured for each
 specialization key of the runner (``serving/runner.py``) or each forward
@@ -245,8 +265,8 @@ wall time, tok/s, the wall and host time of a decode step, and the graphs
 held, captured (with their host seconds) and replayed.
 
 Every kernel's launch counter is zeroed just before and read just after
-each step of phases 3-10 (9c included); each step must launch the kernels
-it runs.  A
+each step of phases 3-10 (9c included) and 13; each step must launch the
+kernels it runs.  A
 small reference check holds the kernel paths' logits against the plain
 paths' on the same inputs, row by row, with bf16 experts on ``gmm`` and
 on ``dense``, with int8 and int4 experts, and on DeepSeek-V2-Lite.  Then
@@ -700,17 +720,21 @@ def capacity_buffers(layer, cfg, x):
     return _scatter(x, idx, pos, keep, e, cap), int((~keep).sum())
 
 
-def check_moe_ffn(layer, cfg, x, flush, tag: str):
-    """B9 on ``x``'s capacity buffers (``capacity_buffers``) and the
-    layer's experts scaled apart per channel (``varied_experts``), held row
-    by row; timed against the plain version and the library's bf16
-    ``bmm`` -> SwiGLU -> ``bmm`` (two cuBLAS calls and the elementwise
-    ops between them, not one call).  Every expert's weights and every
-    buffer row are read, whatever the routing."""
+def check_moe_ffn(layer, cfg, x, flush, tag: str, chunks: int = 1):
+    """B9 on ``x``'s capacity buffers (``capacity_buffers``; with
+    ``chunks``, the first of that many slices of the capacity dim, as
+    ``ep_a2a``'s ``a2a_chunks`` sends them) and the layer's experts scaled
+    apart per channel (``varied_experts``), held row by row; timed against
+    the plain version and the library's bf16 ``bmm`` -> SwiGLU -> ``bmm``
+    (two cuBLAS calls and the elementwise ops between them, not one
+    call).  Every expert's weights and every buffer row are read, whatever
+    the routing."""
     import torch.nn.functional as F_
     from repro_torch.kernels import moe_ffn
     from repro_torch.kernels.moe_ffn import moe_ffn_plain
     xe, dropped = capacity_buffers(layer, cfg, x)
+    if chunks > 1:
+        xe = xe[:, : xe.shape[1] // chunks].contiguous()
     varied = varied_experts(layer)
     w1, w2 = varied["w1"], varied["w2"]
     e, c, d = xe.shape
@@ -3480,6 +3504,274 @@ def train_quality_phase(device, t_start, steps: int = QUALITY_STEPS,
         torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: expert parallelism on a one-card mesh
+# --------------------------------------------------------------------------- #
+
+#: the mesh phase's train step against the no-mesh step: one rank sums
+#: nothing across ranks, so the same buffers reach the same plain ops and
+#: equal bits are expected; a leaf passes within one bf16 step of its
+#: largest entry, the loss within 1e-5 of itself
+MESH_LEAF_TOL = 2.0 ** -8
+MESH_LOSS_TOL = 1e-5
+#: decode steps of the context-parallel check, and its prompt length
+MESH_DECODE_STEPS = 8
+MESH_PROMPT = 256
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi: {smi.stderr.strip()}")
+
+
+def mesh_checks(mesh, device, rows, plan, rec):
+    """B9 at the mesh path's new shape, then checks (a)-(c) of
+    ``mesh_phase`` on full-depth OLMoE with the plain versions forbidden;
+    returns the launch needs."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import local_params
+    cfg = get_config("olmoe-1b-7b")
+    params = models.init_params(cfg, seed=0, device=device)
+    lp = local_params(params, cfg, mesh)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    batch = models.make_train_batch(cfg, gen, 4, 512, device=device)
+    need = {}
+
+    # B9 at the new shape, against its plain version before the plain
+    # versions are forbidden: the first of two a2a chunks of 2048 tokens'
+    # buffers (also ep_psum's prefill of 4 x 256 prompts)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    x = torch.randn((2048, cfg.d_model), generator=gen, device=device,
+                    dtype=torch.bfloat16)
+    b9 = kernel_row("moe_ffn", "", "", *check_moe_ffn(
+        params["layers"][0]["moe"], cfg, x, flush, "olmoe_ep_c160", 2))
+    rows["moe_ffn"]["shapes"]["olmoe_ep_c160"] = {
+        k: b9[k] for k in NESTED_KEYS if k in b9}
+    rows["moe_ffn"]["max_abs_err"] = max(rows["moe_ffn"]["max_abs_err"],
+                                         b9["max_abs_err"])
+    del flush, x
+    with forbid_plain(), torch.no_grad():
+        need.update(mesh_paths(mesh, device, cfg, params, lp, batch, plan,
+                               rec))
+    return need
+
+
+def mesh_paths(mesh, device, cfg, params, lp, batch, plan, rec):
+    """(a)-(c) of ``mesh_phase``; returns the launch needs."""
+    from repro_torch import models
+    from repro_torch.analysis import record
+    from repro_torch.models import ModelOpts
+    from repro_torch.sharding import Sharding, comm, local_cache_specs, \
+        local_tree, named
+    every = Sharding(mesh, (mesh.axis_names,))      # ep_a2a's token rows
+    data = Sharding(mesh, ("data",))                # ep_psum's
+    mine = {k: every.local(v) for k, v in batch.items()}
+    need = {}
+
+    def forward(c, p, opts, m, b):
+        """loss_fn and whole-prompt prefill logits on ``b``."""
+        loss, met = models.loss_fn(p, c, b, mesh=m, opts=opts)
+        caches = models.init_caches(c, b["tokens"].shape[0], 512,
+                                    layout="contiguous", device=device)
+        logits, _ = models.prefill_fn(p, c, {"tokens": b["tokens"]}, caches,
+                                      mesh=m, opts=opts)
+        del caches
+        return (torch.stack([loss, met["xent"], met["aux"]]),
+                comm.all_gather(logits, mesh, mesh.axis_names)
+                if m is not None else logits)
+
+    # (a) + (b): ep_a2a at a2a_chunks 1 and 2, and under the plan, against
+    # dense; B9 both sides
+    cfg_plan = cfg.with_lexi_plan(plan.plan)
+    dense_opts = ModelOpts(use_flash=True, use_moe_kernel=True)
+    a2a = {}
+    for tag, c in (("base", cfg), ("plan", cfg_plan)):
+        (want, want_logits), counts = counted(lambda: forward(
+            c, params, dense_opts, None, batch))
+        need[f"mesh_dense_{tag}"] = (counts, ("moe_ffn",))
+        ref_dig = digest(want_logits)
+        for chunks in ((1, 2) if tag == "base" else (1,)):
+            opts = ModelOpts(use_flash=True, use_moe_kernel=True,
+                             moe_impl="ep_a2a", a2a_chunks=chunks)
+            with record() as stats:
+                (got, got_logits), counts = counted(lambda: forward(
+                    c, lp, opts, mesh, mine))
+            key = f"ep_a2a_{tag}_c{chunks}"
+            need[f"mesh_{key}"] = (counts, ("moe_ffn",))
+            compare_rows(f"mesh_{key}_prefill_logits", got_logits,
+                         want_logits)
+            loss_err = float((got - want).abs().max() / want.abs().max())
+            if not loss_err <= ROW_TOL:
+                raise AssertionError(f"mesh {key}: loss, xent, aux {got} "
+                                     f"against dense {want}")
+            dig = digest(got_logits)
+            # two passes (loss_fn and prefill), each an a2a there and back
+            # a MoE layer and chunk
+            a2a[key] = stats.bytes_by_kind["all-to-all"] // 2
+            rec[key] = {"loss_xent_aux": got.tolist(),
+                        "dense": want.tolist(), "loss_rel_err": loss_err,
+                        "digest": dig, "dense_digest": ref_dig,
+                        "bits_equal": dig == ref_dig,
+                        "loss_bits_equal": bool(torch.equal(got, want)),
+                        "a2a_bytes_a_forward": a2a[key],
+                        "a2a_calls": stats.count_by_kind["all-to-all"],
+                        "b9_launches": counts["moe_ffn"]}
+    if not a2a["ep_a2a_plan_c1"] < a2a["ep_a2a_base_c1"]:
+        raise AssertionError(f"mesh: a2a bytes under the plan {a2a}")
+    rec["plan"] = list(plan.plan)
+    rec["a2a_bytes_plan_over_base"] = (a2a["ep_a2a_plan_c1"]
+                                       / a2a["ep_a2a_base_c1"])
+
+    # (c) prefill and decode through ep_psum with the cache rows' sequence
+    # dim sharded over `model`, against the same steps with no mesh
+    prompt = batch["tokens"][:, :MESH_PROMPT]
+    b = prompt.shape[0]
+    plain = ModelOpts(use_flash=True, use_moe_kernel=True, moe_impl="ep_psum")
+    ctx = ModelOpts(use_flash=True, use_moe_kernel=True, moe_impl="ep_psum",
+                    decode_kv_seq_shard=True)
+
+    def decode_run():
+        caches = models.init_caches(cfg, b, 512, layout="contiguous",
+                                    device=device)
+        shard = named(mesh, local_cache_specs(caches, cfg, mesh,
+                                              seq_shard=True))
+        ours = local_tree(models.init_caches(cfg, b, 512,
+                                             layout="contiguous",
+                                             device=device), shard)
+        l0, caches = models.prefill_fn(params, cfg, {"tokens": prompt},
+                                       caches, opts=plain)
+        l1, ours = models.prefill_fn(lp, cfg, {"tokens": data.local(prompt)},
+                                     ours, mesh=mesh, opts=ctx)
+        steps = [(l0, comm.all_gather(l1, mesh, "data"))]
+        tok = l0.argmax(-1).int()
+        pos = torch.full((b,), MESH_PROMPT, dtype=torch.int32, device=device)
+        for _ in range(MESH_DECODE_STEPS):
+            l0, caches = models.decode_fn(params, cfg, tok, pos, caches,
+                                          opts=plain)
+            l1, ours = models.decode_fn(lp, cfg, data.local(tok),
+                                        data.local(pos), ours, mesh=mesh,
+                                        opts=ctx)
+            steps.append((l0, comm.all_gather(l1, mesh, "data")))
+            tok, pos = l0.argmax(-1).int(), pos + 1
+        return steps
+
+    steps, counts = counted(decode_run)
+    need["mesh_ep_psum_seq_shard"] = (counts, ("moe_ffn",))
+    greedy = []
+    for i, (want, got) in enumerate(steps):
+        compare_rows(f"mesh_ctx_decode_step{i}", got, want)
+        greedy.append(bool(torch.equal(got.argmax(-1), want.argmax(-1))))
+    if not all(greedy):
+        raise AssertionError(f"mesh ctx decode: greedy tokens differ {greedy}")
+    rec["ctx_decode"] = {"prompt": [b, MESH_PROMPT],
+                         "decode_steps": MESH_DECODE_STEPS,
+                         "greedy_equal": greedy,
+                         "max_row_rel_err": max(
+                             row_rel_err(g, w).max().item()
+                             for w, g in steps),
+                         "b9_launches": counts["moe_ffn"]}
+    return need
+
+
+def mesh_train_check(mesh, device, rec):
+    """(d) one train step of a depth-4, full-width OLMoE on ``ep_a2a``
+    under the mesh against the no-mesh step on the same batch (plain
+    paths: no kernel has a backward)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelOpts
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import Sharding, local_tree
+    from repro_torch.training import init_state, make_train_step, \
+        state_shardings
+    from repro_torch.tree import leaves
+    cfg = get_config("olmoe-1b-7b").with_(num_layers=4)
+    opt = AdamW(total_steps=4, warmup_steps=1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(6)
+    batch = models.make_train_batch(cfg, gen, 4, 512, device=device)
+    want, m0 = make_train_step(cfg, opt)(init_state(cfg, opt, 0,
+                                                    device=device), batch)
+    state = init_state(cfg, opt, 0, device=device)
+    shardings = state_shardings(state, mesh)
+    state = local_tree(state, shardings)
+    every = Sharding(mesh, (mesh.axis_names,))
+    step = make_train_step(cfg, opt, mesh=mesh,
+                           opts=ModelOpts(moe_impl="ep_a2a"))
+    (got, m1), ms = _timed(lambda: step(state, {
+        k: every.local(v) for k, v in batch.items()}), device)
+    want = local_tree(want, shardings)         # the rank's block of each
+    loss0, loss1 = float(m0["loss"]), float(m1["loss"])
+    if not abs(loss1 - loss0) <= MESH_LOSS_TOL * abs(loss0):
+        raise AssertionError(f"mesh train: loss {loss1} against {loss0}")
+    worst, equal, n = 0.0, 0, 0
+    for a, w in zip(leaves(got), leaves(want)):
+        if not isinstance(a, torch.Tensor):
+            continue
+        n += 1
+        equal += bool(torch.equal(a, w))
+        err = ((a.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp(min=1e-30)).item()
+        worst = max(worst, err)
+    if not worst <= MESH_LEAF_TOL:
+        raise AssertionError(f"mesh train: a leaf's error {worst}")
+    rec["train_step"] = {"layers": cfg.num_layers, "batch": [4, 512],
+                         "loss": loss1, "no_mesh_loss": loss0,
+                         "grad_norm": float(m1["grad_norm"]),
+                         "no_mesh_grad_norm": float(m0["grad_norm"]),
+                         "leaves": n, "leaves_bits_equal": equal,
+                         "max_leaf_rel_err": worst, "tol": MESH_LEAF_TOL,
+                         "step_ms": ms}
+
+
+def mesh_phase(device, t_start, rows, plan):
+    """Expert parallelism through the port's entry points on a (1, 1)
+    ("data", "model") mesh bound to a one-rank NCCL group (``file://``
+    rendezvous in a temporary directory; the group destroyed at the end,
+    pass or fail), with every kernel's plain version forbidden on the card:
+    (a) ``loss_fn`` and prefill logits of 4 x 512 tokens of full-depth
+    OLMoE through ``ep_a2a`` at ``a2a_chunks`` 1 and 2 against ``dense``
+    (B9 both sides; logits rows within ROW_TOL, digests compared); (b) the
+    same under ``plan``, with the a2a operand bytes of a forward recorded
+    (``analysis.record``) and smaller than the baseline's; (c)
+    ``prefill_fn`` and MESH_DECODE_STEPS ``decode_fn`` steps through
+    ``ep_psum`` with ``decode_kv_seq_shard`` against the same steps with
+    no mesh (rows within ROW_TOL, greedy tokens equal); (d)
+    ``mesh_train_check``.  Returns the launch needs (B9 in every step of
+    (a)-(c))."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    rec = {"phase": "mesh", "mesh": [1, 1], "backend": "nccl"}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            d, "rendezvous"), rank=0, world_size=1)
+        try:
+            mesh = make_test_mesh((1, 1)).bind()
+            if mesh.device.type != "cuda":
+                raise AssertionError(f"mesh bound on {mesh.device}")
+            with torch.no_grad():
+                need = mesh_checks(mesh, device, rows, plan, rec)
+            gc.collect()
+            torch.cuda.empty_cache()
+            mesh_train_check(mesh, device, rec)
+        finally:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(seconds=time.perf_counter() - t0,
+               seconds_total=time.perf_counter() - t_start, card=card_line())
+    emit(rec)
+    return need
+
+
 RESUME_FLAG = "--train-resume"
 DIGESTS_FLAG = "--digests"
 
@@ -3912,6 +4204,7 @@ def main() -> int:
     mla_gmm = cfg_mla.with_(moe_impl="gmm")
     for name, per_shape in mla_checks(params, mla_gmm, device).items():
         rows[name].setdefault("shapes", {}).update(per_shape)
+    olmoe_plan = plan
     plan, mla_need = serve_mla(params, mla_gmm, device, t_start)
     need.update(mla_need)
     rec, fwd_counts = forward_phase(params, cfg_mla, plan, device)
@@ -3937,6 +4230,9 @@ def main() -> int:
     train_quality_phase(device, t_start)
     train_resume_phase(t_start)
 
+    # ---- phase 13: expert parallelism on a one-card mesh ----------------
+    need.update(mesh_phase(device, t_start, rows, olmoe_plan))
+
     for step, (counts, names) in need.items():
         for n in names:
             if counts[n] <= 0:
@@ -3946,11 +4242,7 @@ def main() -> int:
     emit({"phase": "done", "steps_checked": len(need),
           "seconds_total": time.perf_counter() - t_start})
     emit({"kernels": list(rows.values())})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -15,7 +15,10 @@ Guarantees:
     the disk;
   * **any device**: arrays are stored on the host; ``restore`` places each
     leaf on ``device`` (or the device of the matching leaf of ``like``), so
-    a checkpoint saved on the card restores on the CPU, and back.
+    a checkpoint saved on the card restores on the CPU, and back;
+  * **any mesh**: under a mesh the caller gathers the ranks' blocks and
+    one rank saves the whole arrays (``training/loop.py``); ``restore``
+    with ``shardings`` cuts each rank's block again.
 
 numpy has no bfloat16 of its own, so a bf16 leaf is stored as its raw 16
 bits (int16) and ``meta.json`` names its dtype.
@@ -34,7 +37,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten_with_paths, unflatten
+from repro_torch.tree import flatten_with_paths, leaves, unflatten
 
 _DTYPES = {str(dt).removeprefix("torch."): dt for dt in (
     torch.float32, torch.float64, torch.float16, torch.bfloat16, torch.int8,
@@ -127,11 +130,17 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, like: Any, *, step: Optional[int] = None,
-                device=None) -> Tuple[Any, Dict]:
+                device=None, shardings: Any = None) -> Tuple[Any, Dict]:
         """Restore into the structure of ``like`` -> (tree, meta).  Tensor
         leaves take the dtype of ``like``'s leaf and land on ``device``, or
         on the device of ``like``'s leaf (which may be a ``meta`` tensor
-        when ``device`` is given)."""
+        when ``device`` is given).
+
+        ``shardings``: a matching tree of ``sharding.Sharding`` on a bound
+        mesh -- each leaf becomes the rank's block of the stored whole
+        array (elastic restore: the checkpoint holds whole arrays, so
+        it resumes on any mesh shape, or none).  ``like`` holds the whole
+        shapes."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -141,8 +150,13 @@ class CheckpointManager:
         with np.load(os.path.join(d, "arrays.npz")) as z:
             arrays = {k: z[k] for k in z.files}
 
+        flat = flatten_with_paths(like)
+        shs = (leaves(shardings) if shardings is not None
+               else [None] * len(flat))
+        if len(shs) != len(flat):
+            raise ValueError(f"{len(shs)} shardings for {len(flat)} leaves")
         out = []
-        for key, leaf in flatten_with_paths(like):
+        for (key, leaf), sh in zip(flat, shs):
             if key not in arrays:
                 raise KeyError(f"checkpoint missing leaf {key}")
             arr, name = arrays[key], meta["dtypes"][key]
@@ -157,6 +171,8 @@ class CheckpointManager:
                 t = t.view(torch.bfloat16)
             elif t.dtype != _DTYPES[name]:
                 raise ValueError(f"{key}: stored {t.dtype}, meta says {name}")
+            if sh is not None and sh.sharded:
+                t = sh.local(t).clone()
             out.append(t.to(device if device is not None else leaf.device,
                             leaf.dtype))
         return unflatten(like, out), meta

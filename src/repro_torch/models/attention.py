@@ -142,35 +142,51 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> Dict:
 
 
 def _write_seq(buf: torch.Tensor, values: torch.Tensor,
-               positions: torch.Tensor) -> None:
+               positions: torch.Tensor, shard=None) -> None:
     """Scatter a [B, S, ...] sequence into a ring buffer at positions %
     S_buf, in place; only the last S_buf tokens when S > S_buf (ring
     semantics).  Positions < 0 write nothing, with no host sync: each one
     repeats its row's last valid write (the same value to the same slot,
     so the duplicate index is harmless), and a row with none writes its
-    slot 0 back unchanged."""
-    s_buf = buf.shape[1]
+    slot 0 back unchanged.
+
+    ``shard = (S_buf, lo)``: ``buf`` holds only slots [lo, lo + its
+    length) of a ring of S_buf (a context-parallel rank's block); writes
+    to other slots are skipped like negative positions."""
+    s_loc = buf.shape[1]
+    s_buf, lo = shard if shard is not None else (s_loc, 0)
     if values.shape[1] > s_buf:
         values, positions = values[:, -s_buf:], positions[:, -s_buf:]
     b, s = positions.shape
-    valid = positions >= 0
+    ring = positions.long() % s_buf
+    valid = (positions >= 0) & (ring >= lo) & (ring < lo + s_loc)
     j = torch.arange(s, device=buf.device).expand(b, s)
     last = torch.where(valid, j, -1).amax(dim=1, keepdim=True)   # [B, 1]
     src = torch.where(valid, j, last)                            # donor
     has = src >= 0
     src = src.clamp(min=0)
     bidx = torch.arange(b, device=buf.device)[:, None].expand(b, s)
-    slot = torch.where(has, positions.gather(1, src).long() % s_buf, 0)
+    slot = torch.where(has, ring.gather(1, src) - lo, 0)
     keep = has.reshape(has.shape + (1,) * (values.dim() - 2))
     buf[bidx, slot] = torch.where(keep, values[bidx, src].to(buf.dtype),
                                   buf[bidx, slot])
 
 
 def _write_step(buf: torch.Tensor, value: torch.Tensor,
-                position: torch.Tensor) -> None:
+                position: torch.Tensor, shard=None) -> None:
     """Scatter one token per row: value [B, ...], position [B] (< 0: idle
     row, nothing written)."""
-    _write_seq(buf, value[:, None], position[:, None])
+    _write_seq(buf, value[:, None], position[:, None], shard)
+
+
+def _seq_shard(mesh, cache: Dict):
+    """(S_buf, lo) of this rank's block of a sequence-sharded contiguous
+    cache (``sharding.cache_specs(seq_shard=True)``)."""
+    if is_paged(cache):
+        raise NotImplementedError(
+            "decode_kv_seq_shard requires the contiguous cache layout")
+    s_loc = cache["k"].shape[1]
+    return s_loc * mesh.shape["model"], mesh.axis_index("model") * s_loc
 
 
 # --------------------------------------------------------------------------- #
@@ -268,6 +284,60 @@ def _sdpa(q, k, v, bias, scale: float, compute_dtype: str = "f32"):
 
 
 # --------------------------------------------------------------------------- #
+# Sequence-sharded decode attention (context parallelism for the KV cache)
+# --------------------------------------------------------------------------- #
+
+
+def _decode_attend_seqshard(cfg: ModelConfig, q, k_new, v_new, pos_b, cache,
+                            shard, mesh, compute_dtype: str = "f32"):
+    """Decode attention with the contiguous cache sharded over the
+    *sequence* dim of the ``model`` axis (flash-decoding-style context
+    parallelism): q [B,1,Hq,d] and the new k / v [B,Hkv,d] of the rank's
+    rows, ``cache`` its block of S_buf / m slots -> [B,1,Hq,d].
+
+    The rank appends the new token iff its ring slot is local, computes
+    its partial (max m, sumexp l, softmax-weighted V o over its slots),
+    and the ranks merge them in log-sum-exp form:
+
+        m* = pmax(m);  w = l e^{m-m*};  out = psum(o * w / psum(w))
+
+    (the reference's psum(o l e^{m-m*}) / psum(l e^{m-m*}) with each o
+    normalized first, so that one rank's weight is exactly 1 and its
+    output the plain softmax's bits).  Masking needs no special case: it
+    is derived from the stored absolute positions (a rank with no visible
+    slot gets weight e^{-1e30 - m*} = 0).
+    """
+    from repro_torch.sharding import comm
+    _write_step(cache["k"], k_new, pos_b, shard)
+    _write_step(cache["v"], v_new, pos_b, shard)
+    _write_step(cache["pos"], pos_b, pos_b, shard)
+    k_l, v_l = cache["k"], cache["v"]
+    bias = _mask_bias(pos_b[:, None], cache["pos"], cfg.sliding_window,
+                      True)                               # [B,1,1,S_loc]
+    b, _, hq, dq = q.shape
+    hkv = k_l.shape[2]
+    qg = q.reshape(b, 1, hkv, hq // hkv, dq)   # q head h -> kv head h // g
+    scale = 1.0 / cfg.head_dim_ ** 0.5
+    # the scores and the local softmax as ``_sdpa`` computes them
+    if compute_dtype == "bf16_accum32":
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_l.to(qg.dtype)).float()
+    else:
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_l.float())
+    s = s * scale + bias[:, None]                         # [B,hkv,g,1,S_loc]
+    p = torch.softmax(s, dim=-1)
+    if compute_dtype == "bf16_accum32":
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_l.dtype), v_l).float()
+    else:
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_l.float())
+    m = s.amax(dim=-1)                                    # [B,hkv,g,1]
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    w = l * torch.exp(m - comm.pmax(m, mesh, "model"))
+    w = w / comm.psum(w, mesh, "model")                   # [B,hkv,g,1]
+    out = comm.psum(o * w.permute(0, 3, 1, 2)[..., None], mesh, "model")
+    return out.reshape(b, 1, hq, v_l.shape[-1]).to(q.dtype)
+
+
+# --------------------------------------------------------------------------- #
 # GQA forward
 # --------------------------------------------------------------------------- #
 
@@ -288,6 +358,7 @@ def gqa_attention(
     kernel_blocks: Optional[int] = None,
     causal: bool = True,
     kv_override=None,
+    seq_shard_mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x [B,S,D]; positions [B,S] (train/prefill/chunk) or [B] (decode).
 
@@ -296,6 +367,11 @@ def gqa_attention(
     ``kv_override = (k, v, kv_positions)`` is cross-attention: rope-free,
     no cache read or write, through the plain masked softmax in train,
     prefill and decode (the reference sends neither to a kernel).
+
+    ``seq_shard_mesh`` (a bound mesh) makes the contiguous cache the
+    rank's block of ``S_buf / model`` slots: prefill writes only its own
+    slots, decode attends them and merges the ranks' partials
+    (``_decode_attend_seqshard``); chunked prefill refuses it.
     """
     b, s, _ = x.shape
     hd = cfg.head_dim_
@@ -317,12 +393,21 @@ def gqa_attention(
     if cfg.qk_norm:
         k = rms_norm_headwise(k, params["k_norm"]["scale"])
 
+    shard = None
+    if seq_shard_mesh is not None and cache is not None:
+        shard = _seq_shard(seq_shard_mesh, cache)
     if mode == "decode":
         pos_s = positions[:, None]                        # [B, 1]
         q = apply_rope(q, pos_s, cfg.rope_theta)
         k = apply_rope(k, pos_s, cfg.rope_theta)
         out = None
-        if "kp" in cache:
+        if shard is not None:
+            # context-parallel decode: the plain path, as the reference's
+            # (no kernel takes a sequence block)
+            out = _decode_attend_seqshard(cfg, q, k[:, 0], v[:, 0],
+                                          positions, cache, shard,
+                                          seq_shard_mesh, compute_dtype)
+        elif "kp" in cache:
             _paged_write(cache["kp"], k, pos_s, block_tables)
             _paged_write(cache["vp"], v, pos_s, block_tables)
             _paged_write(cache["posp"], pos_s, pos_s, block_tables)
@@ -353,6 +438,10 @@ def gqa_attention(
             bias = _mask_bias(pos_s, kv_pos, cfg.sliding_window, True)
             out = _sdpa(q, k_all, v_all, bias, scale, compute_dtype)
     elif mode == "chunk":
+        if shard is not None:
+            raise NotImplementedError(
+                "decode_kv_seq_shard serves whole-prompt prefill and decode; "
+                "chunked prefill attends the whole cache row")
         # attend against the PRE-write cache plus the in-chunk keys, then
         # commit the chunk (the reference's order: writing first would
         # evict, on a sliding-window ring, positions still inside the
@@ -396,9 +485,9 @@ def gqa_attention(
                               causal)
             out = _sdpa(q, k, v, bias, scale, compute_dtype)
         if mode == "prefill":
-            _write_seq(cache["k"], k, positions)
-            _write_seq(cache["v"], v, positions)
-            _write_seq(cache["pos"], positions, positions)
+            _write_seq(cache["k"], k, positions, shard)
+            _write_seq(cache["v"], v, positions, shard)
+            _write_seq(cache["pos"], positions, positions, shard)
         else:
             cache = None
     else:

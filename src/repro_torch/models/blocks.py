@@ -92,6 +92,7 @@ def apply_block(
     kernel_blocks: Optional[int] = None,
     k_budget: Optional[torch.Tensor] = None,
     lookahead_h2: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """Returns (x, cache, aux_loss, h2), ``h2`` the block's pre-FFN hidden.
     ``k_budget`` [B] int32 caps each batch row's active experts below
@@ -102,7 +103,11 @@ def apply_block(
     own attention runs; the MoE's plain decode path stages its weight
     gathers on the prediction, and no output depends on it.
 
-    A mamba block returns ``h2`` None; it has no chunk mode."""
+    A mamba block returns ``h2`` None; it has no chunk mode.
+
+    ``mesh`` (bound) reaches the MoE's expert-parallel impls, and with
+    ``opts.decode_kv_seq_shard`` the GQA cache writes and decode attention
+    of context parallelism; x is the rank's own rows either way."""
     _check_kind(spec)
     if spec.kind == "mamba":
         if mode == "chunk":
@@ -123,11 +128,17 @@ def apply_block(
                "use_paged_kernel": opts.use_paged_kernel,
                "kernel_blocks": kernel_blocks}
     if cfg.attention == "mla":
+        if opts.decode_kv_seq_shard and mesh is not None and mode != "train":
+            raise NotImplementedError(
+                "decode_kv_seq_shard shards GQA caches only; an MLA model "
+                "decodes its whole latent cache on every rank")
         attn_kw["absorb"] = opts.mla_absorb
     else:
         attn_kw.update(use_flash=opts.use_flash,
                        compute_dtype=opts.attn_compute_dtype,
                        use_flash_decode=opts.use_flash_decode)
+        if opts.decode_kv_seq_shard and mesh is not None:
+            attn_kw["seq_shard_mesh"] = mesh
     h, cache = attn_mod.attention(
         params["attn"], cfg, apply_norm(params["norm1"], cfg, x), positions,
         mode=mode, cache=cache, **attn_kw)
@@ -139,10 +150,12 @@ def apply_block(
         if k_budget is not None:
             b, s, _ = h2.shape
             kb_tok = k_budget.to(torch.int32)[:, None].expand(b, s).reshape(-1)
+        impl = opts.moe_impl or cfg.moe_impl
+        if mode == "decode" and impl == "ep_a2a":
+            impl = "ep_psum"  # a2a dispatch is the wrong regime for decode
         y, aux = moe_mod.moe(
-            params["moe"], cfg, h2, spec.moe_top_k,
-            impl=opts.moe_impl or cfg.moe_impl,
-            use_kernel=opts.use_moe_kernel,
+            params["moe"], cfg, h2, spec.moe_top_k, impl=impl, mesh=mesh,
+            use_kernel=opts.use_moe_kernel, a2a_chunks=opts.a2a_chunks,
             decode_kernel=opts.use_moe_decode_kernel and mode == "decode",
             expert_dtype=opts.expert_dtype, pred_idx=pred_idx,
             k_budget=kb_tok)
@@ -213,9 +226,10 @@ def init_stack_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
 def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
                 mode: str, caches=None, opts: ModelOpts = DEFAULT_OPTS,
                 block_tables=None, kernel_blocks: Optional[int] = None,
-                k_budgets=None, shared: Optional[Dict] = None):
+                k_budgets=None, shared: Optional[Dict] = None, mesh=None):
     """Run every layer.  Returns (x, caches, total_aux).  ``shared`` is the
-    shared_attn blocks' one parameter set (``init_shared``).
+    shared_attn blocks' one parameter set (``init_shared``); ``mesh`` goes
+    to every block (``apply_block``).
 
     ``k_budgets`` [B, n_moe] int32 gives each batch row a per-MoE-layer
     active-expert cap below the pattern's per-layer top-k (per-request
@@ -246,7 +260,7 @@ def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
             mode=mode, cache=caches[li] if caches is not None else None,
             opts=opts, block_tables=block_tables,
             kernel_blocks=kernel_blocks, k_budget=kb,
-            lookahead_h2=h2_prev if gl else None)
+            lookahead_h2=h2_prev if gl else None, mesh=mesh)
         if remat != "none":
             layer = _remat(layer, remat)
         x, _, aux, h2 = layer(x)

@@ -112,10 +112,12 @@ def _decoder(params, cfg: ModelConfig, tokens, positions, mode: str,
     return logits, (caches if mode != "train" else None)
 
 
-def encdec_loss(params, cfg: ModelConfig, batch, *,
+def encdec_loss(params, cfg: ModelConfig, batch, *, mesh=None,
                 opts: ModelOpts = DEFAULT_OPTS):
     """batch: frames [B,T,D], tokens [B,S], targets [B,S], mask [B,S] ->
-    (xent, {"xent", "aux"})."""
+    (xent, {"xent", "aux"}).  ``mesh`` is accepted and dropped, as the
+    reference's: the model has no MoE, and a rank's batch is its own."""
+    del mesh
     from repro_torch.models.transformer import softmax_xent
     enc_out = encode(params, cfg, batch["frames"], opts=opts)
     b, s = batch["tokens"].shape
@@ -146,9 +148,10 @@ def init_encdec_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 @torch.no_grad()
 def encdec_prefill(params, cfg: ModelConfig, frames, tokens, caches, *,
-                   opts: ModelOpts = DEFAULT_OPTS):
+                   mesh=None, opts: ModelOpts = DEFAULT_OPTS):
     """Encode ``frames`` and prefill the decoder with ``tokens`` [B,S] ->
-    (last logits [B,V], caches)."""
+    (last logits [B,V], caches).  ``mesh`` is dropped (``encdec_loss``)."""
+    del mesh
     enc_out = encode(params, cfg, frames, opts=opts)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -160,8 +163,10 @@ def encdec_prefill(params, cfg: ModelConfig, frames, tokens, caches, *,
 
 @torch.no_grad()
 def encdec_decode_step(params, cfg: ModelConfig, tokens, pos, caches, *,
-                       opts: ModelOpts = DEFAULT_OPTS):
-    """tokens [B], pos [B] -> (logits [B,V], caches)."""
+                       mesh=None, opts: ModelOpts = DEFAULT_OPTS):
+    """tokens [B], pos [B] -> (logits [B,V], caches).  ``mesh`` is dropped
+    (``encdec_loss``)."""
+    del mesh
     logits, caches = _decoder(params, cfg, tokens[:, None], pos, "decode",
                               caches, None, opts)
     return logits[:, 0], caches

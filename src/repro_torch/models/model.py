@@ -26,6 +26,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> Dict:
     return tf_mod.init_lm(gen, cfg, dev)
 
 
+def abstract_params(cfg: ModelConfig) -> Dict:
+    """The param tree on the ``meta`` device: shapes and dtypes without
+    memory, for the sharding rules at full size (the reference's
+    ``eval_shape`` of ``init_params``)."""
+    gen, meta = torch.Generator(), torch.device("meta")
+    if cfg.is_encoder_decoder:
+        return encdec_mod.init_encdec(gen, cfg, meta)
+    return tf_mod.init_lm(gen, cfg, meta)
+
+
 def make_train_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
                      seq: int, *, device=None) -> Dict:
     """A random batch for smoke tests and examples: tokens and targets
@@ -48,13 +58,16 @@ def make_train_batch(cfg: ModelConfig, gen: torch.Generator, batch: int,
     return out
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *,
+def loss_fn(params, cfg: ModelConfig, batch, *, mesh=None,
             opts: ModelOpts = DEFAULT_OPTS):
     """batch: tokens, targets, mask [B,S] (plus frames or prefix_embeds)
-    -> (loss, {"xent", "aux"})."""
+    -> (loss, {"xent", "aux"}).  Under a bound ``mesh`` the batch, the
+    params and the loss are the rank's own (``sharding.local_params``;
+    the batch sharded over every axis)."""
     if cfg.is_encoder_decoder:
-        return encdec_mod.encdec_loss(params, cfg, batch, opts=opts)
-    return tf_mod.lm_loss(params, cfg, batch, opts=opts)
+        return encdec_mod.encdec_loss(params, cfg, batch, mesh=mesh,
+                                      opts=opts)
+    return tf_mod.lm_loss(params, cfg, batch, mesh=mesh, opts=opts)
 
 
 def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
@@ -75,22 +88,23 @@ def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
                               device=resolve_device(device))
 
 
-def prefill_fn(params, cfg: ModelConfig, batch, caches, *,
+def prefill_fn(params, cfg: ModelConfig, batch, caches, *, mesh=None,
                opts: ModelOpts = DEFAULT_OPTS):
     """batch: {"tokens": [B,S], optional "positions", and "frames"
     (encoder-decoder) or optional "prefix_embeds" [B,P,D] (VLM)} -> (last
     logits [B,V], contiguous caches)."""
     if cfg.is_encoder_decoder:
         return encdec_mod.encdec_prefill(params, cfg, batch["frames"],
-                                         batch["tokens"], caches, opts=opts)
+                                         batch["tokens"], caches, mesh=mesh,
+                                         opts=opts)
     return tf_mod.prefill(params, cfg, batch["tokens"], caches,
                           positions=batch.get("positions"),
                           prefix_embeds=batch.get("prefix_embeds"),
-                          opts=opts)
+                          mesh=mesh, opts=opts)
 
 
 def chunk_prefill_fn(params, cfg: ModelConfig, tokens, positions, caches, *,
-                     last_index=None, block_tables=None,
+                     last_index=None, block_tables=None, mesh=None,
                      opts: ModelOpts = DEFAULT_OPTS, k_budgets=None):
     """One fixed-width chunked-prefill step (decoder-only LMs).
     ``k_budgets`` [B, n_moe] int32 caps each row's active experts per MoE
@@ -99,18 +113,23 @@ def chunk_prefill_fn(params, cfg: ModelConfig, tokens, positions, caches, *,
         raise NotImplementedError("chunked prefill is decoder-only LM for now")
     return tf_mod.chunk_prefill(params, cfg, tokens, caches,
                                 positions=positions, last_index=last_index,
-                                block_tables=block_tables, opts=opts,
-                                k_budgets=k_budgets)
+                                block_tables=block_tables, mesh=mesh,
+                                opts=opts, k_budgets=k_budgets)
 
 
-def decode_fn(params, cfg: ModelConfig, tokens, pos, caches, *,
+def decode_fn(params, cfg: ModelConfig, tokens, pos, caches, *, mesh=None,
               opts: ModelOpts = DEFAULT_OPTS, block_tables=None,
               kernel_blocks=None, k_budgets=None):
-    """One decode step: tokens, pos [B] -> (logits [B,V] f32, caches)."""
+    """One decode step: tokens, pos [B] -> (logits [B,V] f32, caches).
+    Under a bound ``mesh``: the rank's data block of the rows (the same on
+    every ``model`` rank), the MoE through ``ep_psum`` when the impl is
+    ``ep_a2a``, and with ``opts.decode_kv_seq_shard`` the rank's sequence
+    block of each contiguous cache row."""
     if cfg.is_encoder_decoder:
         return encdec_mod.encdec_decode_step(params, cfg, tokens, pos,
-                                             caches, opts=opts)
-    return tf_mod.decode_step(params, cfg, tokens, pos, caches, opts=opts,
+                                             caches, mesh=mesh, opts=opts)
+    return tf_mod.decode_step(params, cfg, tokens, pos, caches, mesh=mesh,
+                              opts=opts,
                               block_tables=block_tables,
                               kernel_blocks=kernel_blocks,
                               k_budgets=k_budgets)

@@ -19,6 +19,12 @@ from repro_torch.models.moe.dispatch import (  # noqa: F401
     sort_combine,
     sort_dispatch,
 )
+from repro_torch.models.moe.ep import (  # noqa: F401
+    moe_ep_a2a,
+    moe_ep_a2a_local,
+    moe_ep_psum,
+    moe_ep_psum_local,
+)
 from repro_torch.models.moe.gmm import moe_gmm  # noqa: F401
 from repro_torch.models.moe.params import (  # noqa: F401
     QUANT_DTYPES,

@@ -1,7 +1,10 @@
 """Runtime model options (orthogonal to ModelConfig: how, not what).
 
 Only the fields the port reads are carried over from
-``repro.models.opts``.
+``repro.models.opts``.  Two never come: ``scan_unroll`` and
+``act_constraint`` are XLA / GSPMD levers, and the port scans no layer
+group and has no partitioner (a rank's activations are its own batch).
+``fsdp_params`` and ``remat_chunk`` wait for ROADMAP A14 step 2.
 """
 
 from __future__ import annotations
@@ -16,12 +19,20 @@ class ModelOpts:
     #: instead of the masked softmax (causal, no pads: it masks by index)
     use_flash: bool = False
     #: MoE dispatch implementation override (None -> cfg.moe_impl):
-    #: dense | gmm | decode (models/moe/registry.py)
+    #: dense | gmm | decode | ep_a2a | ep_psum (models/moe/registry.py;
+    #: the EP impls under a mesh, ``dense`` without one)
     moe_impl: Optional[str] = None
     #: run expert FFNs through the hand-written kernels (moe_ffn on the
     #: capacity buffers, moe_gmm on the sorted dropless layout, moe_decode
     #: on the routed decode layout)
     use_moe_kernel: bool = False
+    #: split the EP all-to-all's capacity dim into N chunks (``ep_a2a``)
+    a2a_chunks: int = 1
+    #: context-parallel decode under a mesh: each ``model`` rank holds
+    #: S_buf / model slots of every contiguous cache row (the rank's block
+    #: of ``sharding.cache_specs(seq_shard=True)``), and decode merges the
+    #: ranks' partial softmaxes in log-sum-exp form (GQA, contiguous only)
+    decode_kv_seq_shard: bool = False
     #: paged decode attends pages in-kernel (flash_decode_paged) instead
     #: of gathering the pool into a contiguous [B, n_blk*P] view first
     use_paged_kernel: bool = False

@@ -58,11 +58,13 @@ def lm_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params: Dict, cfg: ModelConfig, tokens, positions, *,
             mode: str = "train", caches=None, prefix_embeds=None,
             opts: ModelOpts = DEFAULT_OPTS, block_tables=None,
-            kernel_blocks=None, k_budgets=None):
+            kernel_blocks=None, k_budgets=None, mesh=None):
     """tokens [B,S]; positions [B,S] (train/chunk; [B, P+S] with
     ``prefix_embeds`` [B,P,D]) or [B] (decode).  ``k_budgets`` [B, n_moe]
     int32: each row's active-expert cap per MoE layer (per-request
-    plans).  Returns (hidden [B,S,D] or [B,P+S,D], caches, aux_loss)."""
+    plans).  Under a bound ``mesh`` the rows are the rank's own
+    (``models/moe/ep.py``).  Returns (hidden [B,S,D] or [B,P+S,D],
+    caches, aux_loss)."""
     x = embed_tokens(params, cfg, tokens)
     if prefix_embeds is not None:
         pre = prefix_embeds.to(x.dtype) @ params["prefix_proj"]
@@ -70,7 +72,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens, positions, *,
     return blocks_mod.apply_stack(
         params["layers"], cfg, x, positions, mode=mode, caches=caches,
         opts=opts, block_tables=block_tables, kernel_blocks=kernel_blocks,
-        k_budgets=k_budgets, shared=params.get("shared_attn"))
+        k_budgets=k_budgets, shared=params.get("shared_attn"), mesh=mesh)
 
 
 # --------------------------------------------------------------------------- #
@@ -86,11 +88,13 @@ def softmax_xent(logits, targets, mask):
     return nll.sum() / mask.sum().clamp(min=1.0)
 
 
-def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, *,
+def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, *, mesh=None,
             opts: ModelOpts = DEFAULT_OPTS, aux_coef: float = 0.01):
     """batch: tokens [B,S], targets [B,S], mask [B,S], optional
     prefix_embeds [B,P,D] -> (loss, {"xent", "aux"}); the loss counts the
-    token part only."""
+    token part only.  Under a mesh the batch and the loss are the
+    rank's own (``training/step.py`` weighs the ranks' losses into the
+    global one)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     pre = batch.get("prefix_embeds")
@@ -98,7 +102,7 @@ def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, *,
     positions = torch.arange(s + plen, dtype=torch.int32,
                              device=tokens.device).expand(b, s + plen)
     hidden, _, aux = forward(params, cfg, tokens, positions, mode="train",
-                             prefix_embeds=pre, opts=opts)
+                             prefix_embeds=pre, opts=opts, mesh=mesh)
     logits = lm_logits(params, cfg, hidden[:, plen:])
     xent = softmax_xent(logits, batch["targets"], batch["mask"].float())
     return xent + aux_coef * aux, {"xent": xent, "aux": aux}
@@ -120,7 +124,7 @@ def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
 @torch.no_grad()
 def prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
             positions=None, prefix_embeds=None,
-            opts: ModelOpts = DEFAULT_OPTS):
+            opts: ModelOpts = DEFAULT_OPTS, mesh=None):
     """Write a whole prompt (after ``prefix_embeds`` [B,P,D], if given)
     into contiguous caches -> (last_logits [B,V], caches).  Under
     ``opts.use_flash`` positions must be 0..P+S-1 (the kernel masks by
@@ -132,14 +136,15 @@ def prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
                                  device=tokens.device).expand(b, s + plen)
     hidden, caches, _ = forward(params, cfg, tokens, positions,
                                 mode="prefill", caches=caches,
-                                prefix_embeds=prefix_embeds, opts=opts)
+                                prefix_embeds=prefix_embeds, opts=opts,
+                                mesh=mesh)
     return lm_logits(params, cfg, hidden[:, -1:])[:, 0], caches
 
 
 @torch.no_grad()
 def chunk_prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
                   positions, last_index=None, block_tables=None,
-                  opts: ModelOpts = DEFAULT_OPTS, k_budgets=None):
+                  opts: ModelOpts = DEFAULT_OPTS, k_budgets=None, mesh=None):
     """One chunked-prefill step over all slots -> (logits [B,V], caches).
 
     tokens / positions [B, C] (position -1 = pad or idle row); the
@@ -147,7 +152,7 @@ def chunk_prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
     hidden, caches, _ = forward(params, cfg, tokens, positions, mode="chunk",
                                 caches=caches, opts=opts,
                                 block_tables=block_tables,
-                                k_budgets=k_budgets)
+                                k_budgets=k_budgets, mesh=mesh)
     if last_index is None:
         sel = hidden[:, -1]
     else:
@@ -159,12 +164,13 @@ def chunk_prefill(params: Dict, cfg: ModelConfig, tokens, caches, *,
 @torch.no_grad()
 def decode_step(params: Dict, cfg: ModelConfig, tokens, pos, caches, *,
                 opts: ModelOpts = DEFAULT_OPTS, block_tables=None,
-                kernel_blocks: Optional[int] = None, k_budgets=None):
+                kernel_blocks: Optional[int] = None, k_budgets=None,
+                mesh=None):
     """One decode step -> (logits [B,V] f32, caches).  ``kernel_blocks``
     bounds the paged kernel's table walk to the live-page bucket."""
     hidden, caches, _ = forward(params, cfg, tokens[:, None], pos,
                                 mode="decode", caches=caches, opts=opts,
                                 block_tables=block_tables,
                                 kernel_blocks=kernel_blocks,
-                                k_budgets=k_budgets)
+                                k_budgets=k_budgets, mesh=mesh)
     return lm_logits(params, cfg, hidden)[:, 0], caches

@@ -16,7 +16,7 @@ stack has more scales.  Without ``cfg`` every leaf is scaled alone.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -50,20 +50,26 @@ def scale_groups(tree, cfg: Optional[ModelConfig] = None) -> List[List[int]]:
 
 
 @torch.no_grad()
-def compress_grads(grads, err_state, cfg: Optional[ModelConfig] = None
+def compress_grads(grads, err_state, cfg: Optional[ModelConfig] = None, *,
+                   amax_reduce: Optional[Callable] = None
                    ) -> Tuple[Any, Any]:
     """Returns (dequantized grads as seen after the all-reduce, new error
     state); one scale per leaf of the reference's stacked tree for ``cfg``
-    (``scale_groups``)."""
+    (``scale_groups``).  ``amax_reduce`` maps the groups' amaxes [G] to
+    the global ones (under a mesh, a max over the ranks whose slices of a
+    leaf differ)."""
     gs, es = leaves(grads), leaves(err_state)
     deq: List[Any] = [None] * len(gs)
     err: List[Any] = [None] * len(gs)
-    for idx in scale_groups(grads, cfg):
-        # the group's scale first, then each leaf again: one leaf's f32
-        # copy at a time, not the whole group's
-        amax = torch.stack([(gs[i].float() + es[i]).abs().max()
-                            for i in idx]).max()
-        scale = amax.clamp(min=1e-12) / 127.0
+    groups = scale_groups(grads, cfg)
+    # each group's scale first, then each leaf again: one leaf's f32 copy
+    # at a time, not the whole group's
+    amax = torch.stack([torch.stack([(gs[i].float() + es[i]).abs().max()
+                                     for i in idx]).max() for idx in groups])
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    for gi, idx in enumerate(groups):
+        scale = amax[gi].clamp(min=1e-12) / 127.0
         for i in idx:
             g = gs[i].float() + es[i]            # apply error feedback
             q = (g / scale).round().clamp(-127, 127).to(torch.int8)

@@ -10,6 +10,12 @@ Responsibilities:
     step, so crash + resume reproduces the uninterrupted run exactly (bit
     for bit on the CPU; on the card with deterministic algorithms on,
     since the backward of a gather accumulates with atomics otherwise).
+
+Under a bound ``mesh`` every rank runs ``train``: the state is drawn whole
+from the seed and cut to the rank's block (``state_shardings``), each
+step takes the rank's block of the global batch over every axis, and a
+checkpoint is the whole state, gathered on every rank and written by
+rank 0, so it resumes on any mesh shape or in one process.
 """
 
 from __future__ import annotations
@@ -30,7 +36,10 @@ from repro_torch.data.synthetic import DataConfig, sample_batch
 from repro_torch.models.common import resolve_device
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
 from repro_torch.optim import AdamW
-from repro_torch.training.step import init_state, make_train_step
+from repro_torch.sharding import comm
+from repro_torch.sharding.rules import Sharding, gather_tree, local_tree
+from repro_torch.training.step import init_state, make_train_step, \
+    state_shardings
 
 
 @dataclass
@@ -66,11 +75,16 @@ def train(
     crash_at_step: Optional[int] = None,   # fault-injection for tests
     verbose: bool = False,
     device=None,
+    mesh=None,
 ) -> TrainResult:
-    """Train on the card unless ``device`` asks for the CPU."""
+    """Train on the card unless ``device`` asks for the CPU; under a bound
+    ``mesh`` (on the same device type) every rank calls this (module
+    doc)."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"train on {dev} with a mesh bound on {mesh.device}")
     optimizer = optimizer or AdamW(total_steps=total_steps)
-    step_fn = make_train_step(cfg, optimizer, opts=opts,
+    step_fn = make_train_step(cfg, optimizer, opts=opts, mesh=mesh,
                               microbatches=microbatches,
                               compression=compression)
 
@@ -79,12 +93,19 @@ def train(
     resumed_from = None
     state = init_state(cfg, optimizer, seed, compression=compression,
                        device=dev)
+    shardings = rows = None
+    if mesh is not None:
+        shardings = state_shardings(state, mesh)
+        rows = Sharding(mesh, (mesh.axis_names,))    # batch over every axis
+    whole, state = state, (state if mesh is None
+                           else local_tree(state, shardings))
     if mgr and resume and mgr.latest_step() is not None:
-        state, meta = mgr.restore(state)
+        state, meta = mgr.restore(whole, shardings=shardings)
         start_step = meta["step"]
         resumed_from = start_step
         if verbose:
             print(f"[resume] restored step {start_step} from {ckpt_dir}")
+    del whole
 
     losses: List[float] = []
     gnorms: List[float] = []
@@ -97,7 +118,10 @@ def train(
             if step >= total_steps:
                 break
             t0 = time.time()
-            state, metrics = step_fn(state, to_device(batch, dev))
+            batch = to_device(batch, dev)
+            if rows is not None:
+                batch = {k: rows.local(v) for k, v in batch.items()}
+            state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
             dt = time.time() - t0
             losses.append(loss)
@@ -120,8 +144,8 @@ def train(
                       f"lr {float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
 
             if mgr and step % ckpt_every == 0:
-                mgr.save(step, state, blocking=not ckpt_async,
-                         extra={"loss": loss})
+                _save(mgr, step, state, shardings, mesh,
+                      blocking=not ckpt_async, extra={"loss": loss})
 
             if crash_at_step is not None and step == crash_at_step:
                 mgr and mgr.wait()
@@ -129,14 +153,28 @@ def train(
         data_s = pipe.seconds_per_batch()
 
     if mgr:
-        mgr.save(step, state, blocking=True, extra={"final": True})
+        _save(mgr, step, state, shardings, mesh, blocking=True,
+              extra={"final": True})
         mgr.wait()
+        if mesh is not None:        # every rank returns after the write
+            comm.barrier(mesh)
 
     return TrainResult(steps_run=step - start_step, final_step=step,
                        losses=losses, step_times=times,
                        straggler_steps=stragglers, resumed_from=resumed_from,
                        state=state, grad_norms=gnorms,
                        data_s_per_batch=data_s)
+
+
+def _save(mgr: CheckpointManager, step: int, state, shardings, mesh, *,
+          blocking: bool, extra) -> None:
+    """One checkpoint of the whole state: under a mesh every rank gathers
+    (collective) and rank 0 writes."""
+    if mesh is not None:
+        state = gather_tree(state, shardings)
+        if mesh.axis_index(mesh.axis_names):
+            return
+    mgr.save(step, state, blocking=blocking, extra=extra)
 
 
 @torch.no_grad()

@@ -29,7 +29,8 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert len(names) > 30, names
 # the server, detok and NAEE modules, the training ones, the examples'
-# launchers and the five family configs are walked like every other
+# launchers, the five family configs and the mesh, sharding, EP and
+# collective-accounting modules are walked like every other
 for m in ("repro_torch.serving.http", "repro_torch.serving.detok",
           "repro_torch.launch.api_server", "repro_torch.core.skipping",
           "repro_torch.training.loop", "repro_torch.checkpoint.manager",
@@ -40,7 +41,11 @@ for m in ("repro_torch.serving.http", "repro_torch.serving.detok",
           "repro_torch.configs.llama4_scout_17b_a16e",
           "repro_torch.configs.qwen3_32b",
           "repro_torch.configs.h2o_danube_1_8b",
-          "repro_torch.configs.minicpm3_4b"):
+          "repro_torch.configs.minicpm3_4b",
+          "repro_torch.launch.mesh", "repro_torch.sharding",
+          "repro_torch.sharding.rules", "repro_torch.sharding.comm",
+          "repro_torch.models.moe.ep", "repro_torch.analysis",
+          "repro_torch.analysis.collectives"):
     assert m in names, m
 import torch
 if not torch.cuda.is_available():

@@ -241,9 +241,17 @@ def test_decode_reroute_and_unported_impls():
     y, aux = moe(pt, cfg_t, x, 2, impl="dense", decode_kernel=True)
     y2, aux2 = moe_dense(pt, cfg_t, x[0], 2)
     assert torch.equal(y[0], y2) and torch.equal(aux, aux2)
+    # the expert-parallel impls with no mesh run dense (the reference's
+    # single-device fallback), bf16 experts only, no k budget
     for impl in ("ep_a2a", "ep_psum"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
-            moe(pt, cfg_t, x, 2, impl=impl)
+        y3, aux3 = moe(pt, cfg_t, x, 2, impl=impl)
+        assert torch.equal(y3, y) and torch.equal(aux3, aux)
+        with pytest.raises(ValueError, match="bf16"):
+            moe(pt, cfg_t, x, 2, impl=impl, expert_dtype="int8",
+                mesh=object())
+        with pytest.raises(ValueError, match="k budget"):
+            moe(pt, cfg_t, x, 2, impl=impl, mesh=object(),
+                k_budget=torch.ones(4, dtype=torch.int32))
 
 
 # --------------------------------------------------------------------------- #

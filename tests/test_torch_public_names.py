@@ -76,8 +76,7 @@ def test_register_impl_and_available_impls_match_reference(setup):
     from repro.models.moe import registry as jreg
     from repro_torch.models.moe import available_impls, moe, register_impl
     from repro_torch.models.moe import registry as treg
-    assert available_impls() == tuple(
-        n for n in jreg.available_impls() if n not in ("ep_a2a", "ep_psum"))
+    assert available_impls() == jreg.available_impls()
     calls = []
 
     @register_impl("doubled_dense")
@@ -96,10 +95,15 @@ def test_register_impl_and_available_impls_match_reference(setup):
         y, _ = moe(lp, cfg_t, x, cfg_t.moe_top_k, impl="doubled_dense")
         y0, _ = moe(lp, cfg_t, x, cfg_t.moe_top_k, impl="dense")
         assert calls == [cfg_t.moe_top_k] and torch.equal(y, 2 * y0)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            register_impl("needs_a_mesh", needs_mesh=True)
+        # an impl that needs a mesh registers, and with no mesh ``moe``
+        # runs ``dense`` in its place, as the reference's
+        register_impl("needs_a_mesh", needs_mesh=True)(doubled)
+        assert "needs_a_mesh" in available_impls()
+        y1, _ = moe(lp, cfg_t, x, cfg_t.moe_top_k, impl="needs_a_mesh")
+        assert calls == [cfg_t.moe_top_k] and torch.equal(y1, y0)
     finally:
-        treg._IMPLS.pop("doubled_dense", None)
+        for name in ("doubled_dense", "needs_a_mesh"):
+            treg._IMPLS.pop(name, None)
         jreg._IMPLS.pop("doubled_dense", None)
 
 

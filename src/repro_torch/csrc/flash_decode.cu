@@ -86,7 +86,8 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const int* __restrict__ pos,
                     const int* __restrict__ cur_pos, bf16* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counters,
-                    int Hkv, int nsub, int S, int window, float scale_log2) {
+                    int kv_stride, int nsub, int S, int window,
+                    float scale_log2) {
   // x: (kv head, sub-group), as in flash_decode_paged.cu
   const int h = blockIdx.x / nsub, c = blockIdx.y, b = blockIdx.z;
   const int t = threadIdx.x;
@@ -104,9 +105,9 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int s0 = c * CHUNK_SLOTS;
   ContiguousChunk<HD> ch;
   ch.pos_c = pos + (size_t)b * S + s0;
-  ch.row0 = (((size_t)b * S + s0) * Hkv + h) * HD;
+  ch.row0 = (((size_t)b * S + s0) * kv_stride + h) * HD;
   ch.n_here = min(CHUNK_SLOTS, n - s0);
-  ch.Hkv = Hkv;
+  ch.Hkv = kv_stride;
   ch.nlive = nlive;
   sd_chunk<G, HD>(ch, qv, k, v, cur, window, scale_log2, nlive,
                   out + o_off, part, counters);
@@ -116,16 +117,16 @@ template <int G, int HD>
 struct Launch {
   static int run(dim3 grid, cudaStream_t s, const void* q, const void* k,
                  const void* v, const void* pos, const void* cur_pos,
-                 void* out, void* part, void* counters, int Hkv, int nsub,
-                 int S, int window, float scale_log2) {
+                 void* out, void* part, void* counters, int kv_stride,
+                 int nsub, int S, int window, float scale_log2) {
     // registers and the static shared memory hold G heads at sd_pad(HD)
     if constexpr (G * sd_pad(HD) / 32 <= FD_GROUP_CAP) {
       flash_decode_kernel<G, HD><<<grid, SD_NT, 0, s>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const int*>(pos),
           static_cast<const int*>(cur_pos), static_cast<bf16*>(out),
-          static_cast<float*>(part), static_cast<int*>(counters), Hkv, nsub,
-          S, window, scale_log2);
+          static_cast<float*>(part), static_cast<int*>(counters), kv_stride,
+          nsub, S, window, scale_log2);
       return 0;
     } else {
       return (int)cudaErrorInvalidValue;
@@ -138,21 +139,25 @@ struct Launch {
 // them zero); n_chunks = ceil(S / CHUNK_SLOTS).  Returns
 // cudaGetLastError() after launch (cudaErrorInvalidValue for a head size
 // without an instantiation, or another n_chunks).  window <= 0: none.
+// kv_stride: the kv heads a slot holds in memory (>= Hkv); k and v are
+// then heads [0, Hkv) at their base pointers, a head slice of a cache of
+// kv_stride heads.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* pos,
                                    const void* cur_pos, void* out,
                                    void* part, void* counters, int B, int Hq,
                                    int Hkv, int hd, int S, int window,
-                                   int n_chunks, void* stream) {
+                                   int n_chunks, int kv_stride,
+                                   void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || !fd_head_size(hd) || S <= 0 ||
-      n_chunks != (S + CHUNK_SLOTS - 1) / CHUNK_SLOTS)
+      kv_stride < Hkv || n_chunks != (S + CHUNK_SLOTS - 1) / CHUNK_SLOTS)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = PD_LOG2E / sqrtf((float)hd);
   const int g = Hq / Hkv, G = fd_block_group(g, sd_pad(hd));
   const int err = fd_dispatch<Launch>(
       G, hd, dim3(Hkv * (g / G), n_chunks, B),
       reinterpret_cast<cudaStream_t>(stream), q, k, v, pos, cur_pos, out,
-      part, counters, Hkv, g / G, S, window, scale_log2);
+      part, counters, kv_stride, g / G, S, window, scale_log2);
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -120,8 +120,9 @@ flash_decode_paged_kernel(const bf16* __restrict__ q,
                           const int* __restrict__ bt, int bt_stride,
                           const int* __restrict__ cur_pos,
                           bf16* __restrict__ out, float* __restrict__ part,
-                          int* __restrict__ counters, int Hkv, int nsub,
-                          int P, int n_blk, int window, float scale_log2) {
+                          int* __restrict__ counters, int kv_stride,
+                          int nsub, int P, int n_blk, int window,
+                          float scale_log2) {
   // x: (kv head, sub-group); the block's G query heads are q's heads
   // blockIdx.x * G .. + G - 1, and kv head h's K / V rows serve them
   const int h = blockIdx.x / nsub, c = blockIdx.y, b = blockIdx.z;
@@ -139,7 +140,7 @@ flash_decode_paged_kernel(const bf16* __restrict__ q,
   ch.posp = posp;
   ch.row_bt = bt + (size_t)b * bt_stride;
   ch.P = P;
-  ch.Hkv = Hkv;
+  ch.Hkv = kv_stride;
   ch.h = h;
   ch.n_blk = n_blk;
 #pragma unroll
@@ -173,7 +174,7 @@ struct Launch {
   static int run(dim3 grid, cudaStream_t s, const void* q, const void* kp,
                  const void* vp, const void* posp, const void* bt,
                  int bt_stride, const void* cur_pos, void* out, void* part,
-                 void* counters, int Hkv, int nsub, int P, int n_blk,
+                 void* counters, int kv_stride, int nsub, int P, int n_blk,
                  int window, float scale_log2) {
     if constexpr (G * sd_pad(HD) / 32 <= FD_GROUP_CAP) {
       flash_decode_paged_kernel<G, HD><<<grid, SD_NT, 0, s>>>(
@@ -181,8 +182,8 @@ struct Launch {
           static_cast<const bf16*>(vp), static_cast<const int*>(posp),
           static_cast<const int*>(bt), bt_stride,
           static_cast<const int*>(cur_pos), static_cast<bf16*>(out),
-          static_cast<float*>(part), static_cast<int*>(counters), Hkv, nsub,
-          P, n_blk, window, scale_log2);
+          static_cast<float*>(part), static_cast<int*>(counters), kv_stride,
+          nsub, P, n_blk, window, scale_log2);
       return 0;
     } else {
       return (int)cudaErrorInvalidValue;
@@ -195,6 +196,9 @@ struct Launch {
 // them zero); n_chunks = ceil(n_blk / CHUNK_PAGES), at least 1.  Returns
 // cudaGetLastError() after launch (cudaErrorInvalidValue for a head size
 // without an instantiation, or another n_chunks).  window <= 0: none.
+// kv_stride: the kv heads a pool slot holds in memory (>= Hkv); kp and vp
+// are then heads [0, Hkv) at their base pointers, a head slice of a pool
+// of kv_stride heads.
 extern "C" int flash_decode_paged_launch(const void* q, const void* kp,
                                          const void* vp, const void* posp,
                                          const void* bt, const void* cur_pos,
@@ -202,9 +206,10 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* kp,
                                          void* counters, int B, int Hq,
                                          int Hkv, int hd, int P, int n_blk,
                                          int bt_stride, int window,
-                                         int n_chunks, void* stream) {
+                                         int n_chunks, int kv_stride,
+                                         void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || !fd_head_size(hd) || P < 1 ||
-      n_blk < 0 ||
+      n_blk < 0 || kv_stride < Hkv ||
       n_chunks != max(1, (n_blk + CHUNK_PAGES - 1) / CHUNK_PAGES))
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = PD_LOG2E / sqrtf((float)hd);
@@ -212,7 +217,7 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* kp,
   const int err = fd_dispatch<Launch>(
       G, hd, dim3(Hkv * (g / G), n_chunks, B),
       reinterpret_cast<cudaStream_t>(stream), q, kp, vp, posp, bt, bt_stride,
-      cur_pos, out, part, counters, Hkv, g / G, P, n_blk, window,
+      cur_pos, out, part, counters, kv_stride, g / G, P, n_blk, window,
       scale_log2);
   if (err) return err;
   return (int)cudaGetLastError();

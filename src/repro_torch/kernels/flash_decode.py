@@ -82,8 +82,30 @@ def flash_decode_plain(q, k, v, pos, cur_pos, *,
     return out.reshape(b, hq, hd).to(q.dtype)
 
 
+def head_slice_stride(name: str, k: torch.Tensor, v: torch.Tensor) -> int:
+    """The kv heads a slot holds in memory for k / v ``[.., slots, Hkv,
+    hd]``: contiguous, or a head slice of a contiguous cache of more heads
+    (a tensor-parallel rank's heads of a whole cache, ``models/
+    attention.py``), with k and v alike."""
+    hkv, hd = k.shape[-2:]
+    st = k.stride()
+    kv_stride = st[-3] // hd if hd else 0
+    ok = (st[-1] == 1 and st[-2] == hd and st[-3] == kv_stride * hd
+          and kv_stride >= hkv and k.stride() == v.stride()
+          and all(st[i] == st[i + 1] * k.shape[i + 1]
+                  for i in range(k.dim() - 3)))
+    if not ok:
+        raise ValueError(f"{name}: k / v must be contiguous or a head slice "
+                         f"of a contiguous cache, alike; got strides "
+                         f"{k.stride()} and {v.stride()} for "
+                         f"{tuple(k.shape)}")
+    return kv_stride
+
+
 def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors.
+    k / v may be a head slice of a contiguous cache (``head_slice_stride``:
+    a tensor-parallel rank's kv heads of a cache that holds all)."""
     name = "flash_decode"
     no_grad_through(name, q, k, v)
     if not on_card(name, q, k, v, pos, cur_pos):
@@ -92,8 +114,9 @@ def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
     s, hkv = k.shape[1], k.shape[2]
     bf16 = torch.bfloat16
     expect(name, q, "q", bf16)
-    expect(name, k, "k", bf16, (b, s, hkv, hd))
-    expect(name, v, "v", bf16, (b, s, hkv, hd))
+    expect(name, k, "k", bf16, (b, s, hkv, hd), strided=True)
+    expect(name, v, "v", bf16, (b, s, hkv, hd), strided=True)
+    kv_stride = head_slice_stride(name, k, v)
     expect(name, pos, "pos", torch.int32, (b, s))
     expect(name, cur_pos, "cur_pos", torch.int32, (b,))
     g = hq // hkv if hkv and hq % hkv == 0 else 0
@@ -114,10 +137,11 @@ def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = _counters(q.device, stream, b * hq)
-    fn = _build.function(name, "flash_decode_launch", 8, 7)
+    fn = _build.function(name, "flash_decode_launch", 8, 8)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
              cur_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
-             counters.data_ptr(), b, hq, hkv, hd, s, window or 0, nc, stream)
+             counters.data_ptr(), b, hq, hkv, hd, s, window or 0, nc,
+             kv_stride, stream)
     _build.check(name, err)
     flash_decode.launches += 1
     return out

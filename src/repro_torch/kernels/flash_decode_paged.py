@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import expect, no_grad_through, on_card
 from repro_torch.kernels.flash_decode import HEAD_DIMS, NEG_INF, \
-    _counters, flash_decode_plain
+    _counters, flash_decode_plain, head_slice_stride
 
 
 #: table columns a GQA chunk takes (``CHUNK_PAGES`` in the kernel source);
@@ -56,7 +56,9 @@ def flash_decode_paged_plain(q, kp, vp, posp, block_tables, cur_pos, *,
 
 def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
                        window: Optional[int] = None):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors.
+    kp / vp may be a head slice of a contiguous pool (``flash_decode.
+    head_slice_stride``)."""
     no_grad_through("flash_decode_paged", q, kp, vp)
     if not on_card("flash_decode_paged", q, kp, vp, posp, block_tables,
                    cur_pos):
@@ -68,8 +70,9 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
     n_blk = block_tables.shape[1]
     bf16 = torch.bfloat16
     expect(name, q, "q", bf16)
-    expect(name, kp, "kp", bf16, (n, p, hkv, hd))
-    expect(name, vp, "vp", bf16, (n, p, hkv, hd))
+    expect(name, kp, "kp", bf16, (n, p, hkv, hd), strided=True)
+    expect(name, vp, "vp", bf16, (n, p, hkv, hd), strided=True)
+    kv_stride = head_slice_stride(name, kp, vp)
     expect(name, posp, "posp", torch.int32, (n, p))
     expect(name, cur_pos, "cur_pos", torch.int32, (b,))
     g = hq // hkv if hkv and hq % hkv == 0 else 0
@@ -93,11 +96,11 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
                        device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = _counters(q.device, stream, b * hq)
-    fn = _build.function(name, "flash_decode_paged_launch", 9, 9)
+    fn = _build.function(name, "flash_decode_paged_launch", 9, 10)
     err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), posp.data_ptr(),
              block_tables.data_ptr(), cur_pos.data_ptr(), out.data_ptr(),
              part.data_ptr(), counters.data_ptr(), b, hq, hkv, hd, p, n_blk,
-             block_tables.stride(0), window or 0, nc, stream)
+             block_tables.stride(0), window or 0, nc, kv_stride, stream)
     _build.check(name, err)
     flash_decode_paged.launches += 1
     return out

@@ -45,6 +45,9 @@ class Mesh:
         self.device: Optional[torch.device] = None
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._coords: Optional[Tuple[int, ...]] = None
+        #: shardings derived from a config on this mesh, memoized by
+        #: ``sharding.rules.fsdp_layout``
+        self.layouts: Dict = {}
 
     @property
     def shape(self) -> Dict[str, int]:

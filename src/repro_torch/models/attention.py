@@ -37,6 +37,16 @@ first and then attend the whole cache, either absorbed (``W_kv_b(k)``
 folded into the query, ``W_kv_b(v)`` into the output: work scales with
 ``r``) or materialized.  Paged absorbed decode under ``use_paged_kernel``
 runs the ``flash_decode_paged_mla`` kernel over the latent pages in place.
+
+Under a bound ``mesh`` both run tensor parallelism over ``model``
+(``models/tp.py``): a rank attends the heads that overlap its block of
+``wo``'s rows (``_gqa_plan``, ``_MlaHeads``), from its column blocks of
+the projections where they hold just those heads, else from the gathered
+projections; then its rows of ``wo`` and a sum over ``model``.  A GQA
+cache holds the rank's kv heads where they split over ``model``, else
+every kv head (written whole on every rank; the attention reads the
+rank's heads of it, a view); an MLA latent cache has no head dim and is
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -46,8 +56,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.common import activation_dtype, apply_rope, \
     dense_init, param_dtype, rms_norm_headwise
+from repro_torch.models.tp import TP
 
 NEG_INF = -1e30
 TRASH_PAGE = 0  # reserved page unmapped block-table entries point at
@@ -342,6 +354,36 @@ def _decode_attend_seqshard(cfg: ModelConfig, q, k_new, v_new, pos_b, cache,
 # --------------------------------------------------------------------------- #
 
 
+def _gqa_plan(cfg: ModelConfig, tp: TP, seq_shard: bool):
+    """The rank's heads under tensor parallelism, or None (no mesh, or
+    ``wo``'s rows do not split: every rank runs the layer whole).
+
+    -> (qlo, qhi, klo, khi, a, b): the rank attends q heads [qlo, qhi)
+    against kv heads [klo + a, klo + b); its cache holds kv heads
+    [klo, khi) -- its block where the kv heads split over ``model``, else
+    all of them.  q heads [qlo, qhi) cover the heads of the rank's rows of
+    ``wo``, widened to whole kv groups where those heads would map onto
+    their kv heads unevenly (the kernels' head group must be one
+    integer).  Context-parallel decode (``seq_shard``) attends every head
+    on every rank."""
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    if not tp.splits(h * hd):
+        return None
+    g = h // hkv
+    if seq_shard:
+        return 0, h, 0, hkv, 0, hkv
+    if hkv % tp.m == 0:
+        klo, n = tp.block(hkv)
+        return klo * g, (klo + n) * g, klo, klo + n, 0, n
+    qlo, qhi = tp_mod.heads_of(tp, h, hd)
+    a, b = qlo // g, (qhi - 1) // g + 1
+    nq, nk = qhi - qlo, b - a
+    if nq % nk or any((qlo + j) // g - a != j // (nq // nk)
+                      for j in range(nq)):
+        qlo, qhi = a * g, b * g
+    return qlo, qhi, 0, hkv, a, b
+
+
 def gqa_attention(
     params: Dict,
     cfg: ModelConfig,
@@ -358,7 +400,8 @@ def gqa_attention(
     kernel_blocks: Optional[int] = None,
     causal: bool = True,
     kv_override=None,
-    seq_shard_mesh=None,
+    mesh=None,
+    seq_shard: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x [B,S,D]; positions [B,S] (train/prefill/chunk) or [B] (decode).
 
@@ -368,18 +411,27 @@ def gqa_attention(
     no cache read or write, through the plain masked softmax in train,
     prefill and decode (the reference sends neither to a kernel).
 
-    ``seq_shard_mesh`` (a bound mesh) makes the contiguous cache the
-    rank's block of ``S_buf / model`` slots: prefill writes only its own
-    slots, decode attends them and merges the ranks' partials
+    ``mesh`` (bound) runs tensor parallelism (module doc);
+    ``seq_shard`` with it makes the contiguous cache the rank's block of
+    ``S_buf / model`` slots: prefill writes only its own slots, decode
+    attends them and merges the ranks' partials
     (``_decode_attend_seqshard``); chunked prefill refuses it.
     """
     b, s, _ = x.shape
     hd = cfg.head_dim_
     scale = 1.0 / hd ** 0.5
-    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
-    if cfg.qk_norm:
-        q = rms_norm_headwise(q, params["q_norm"]["scale"])
+    if kv_override is None and mesh is not None:
+        return _gqa_tp(params, cfg, x, positions, TP(mesh), mode=mode,
+                       cache=cache, compute_dtype=compute_dtype,
+                       block_tables=block_tables, use_flash=use_flash,
+                       use_flash_decode=use_flash_decode,
+                       use_paged_kernel=use_paged_kernel,
+                       kernel_blocks=kernel_blocks, causal=causal,
+                       seq_shard=seq_shard)
     if kv_override is not None:
+        q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
+        if cfg.qk_norm:
+            q = rms_norm_headwise(q, params["q_norm"]["scale"])
         if mode not in ("train", "prefill", "decode"):
             raise ValueError(f"cross-attention mode {mode!r}: 'train', "
                              "'prefill' or 'decode'")
@@ -388,14 +440,78 @@ def gqa_attention(
         bias = _mask_bias(q_pos, kv_pos, cfg.sliding_window, causal)
         out = _sdpa(q, k, v, bias, scale, compute_dtype)
         return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"], None
+    return _gqa_whole(params, cfg, x, positions, mode=mode, cache=cache,
+                      compute_dtype=compute_dtype, block_tables=block_tables,
+                      use_flash=use_flash, use_flash_decode=use_flash_decode,
+                      use_paged_kernel=use_paged_kernel,
+                      kernel_blocks=kernel_blocks, causal=causal)
+
+
+def _gqa_whole(params, cfg: ModelConfig, x, positions, *, seq_mesh=None,
+               cache=None, **kw):
+    """The whole layer on this process; ``seq_mesh`` shards the contiguous
+    cache's sequence over its ``model`` axis (context parallelism)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim_
+    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
     k = (x @ params["wk"]).reshape(b, s, cfg.num_kv_heads, hd)
     v = (x @ params["wv"]).reshape(b, s, cfg.num_kv_heads, hd)
     if cfg.qk_norm:
+        q = rms_norm_headwise(q, params["q_norm"]["scale"])
         k = rms_norm_headwise(k, params["k_norm"]["scale"])
+    shard = (_seq_shard(seq_mesh, cache)
+             if seq_mesh is not None and cache is not None else None)
+    out, cache = _gqa_core(cfg, q, k, v, positions, cache=cache, shard=shard,
+                           seq_shard_mesh=seq_mesh, **kw)
+    return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"], cache
 
-    shard = None
-    if seq_shard_mesh is not None and cache is not None:
-        shard = _seq_shard(seq_shard_mesh, cache)
+
+def _gqa_tp(params, cfg: ModelConfig, x, positions, tp: TP, *, mode, cache,
+            seq_shard: bool, **kw):
+    """``gqa_attention`` on a rank of a bound mesh (module doc)."""
+    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    shard = (_seq_shard(tp.mesh, cache)
+             if seq_shard and cache is not None else None)
+    plan = _gqa_plan(cfg, tp, shard is not None)
+    if plan is None:                       # wo whole: the layer runs whole
+        return _gqa_whole(params, cfg, x, positions, mode=mode, cache=cache,
+                          seq_mesh=tp.mesh if seq_shard else None, **kw)
+    qlo, qhi, klo, khi, a, bb = plan
+    x_f = tp.f(x)
+    q = tp_mod.heads(tp, tp_mod.project(tp, x, x_f, params["wq"], h * hd),
+                     h, hd, qlo, qhi)
+    k, v = (tp_mod.heads(tp, tp_mod.project(tp, x, x_f, params[n],
+                                            hkv * hd), hkv, hd, klo, khi)
+            for n in ("wk", "wv"))
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, tp.f(params["q_norm"]["scale"]))
+        k = rms_norm_headwise(k, tp.f(params["k_norm"]["scale"]))
+    # a view only where the rank reads part of the cache's heads: through
+    # a view of all of them the backward rounds otherwise on the card
+    whole = (a, bb) == (0, khi - klo)
+    out, cache = _gqa_core(cfg, q, k, v, positions, mode=mode, cache=cache,
+                           shard=shard, seq_shard_mesh=tp.mesh,
+                           heads=None if whole else (a, bb), **kw)
+    out = tp_mod.rows_of(tp, out, h, hd, qlo) @ params["wo"]
+    return tp.g(out), cache
+
+
+def _gqa_core(cfg: ModelConfig, q, k, v, positions, *, mode, cache,
+              compute_dtype="f32", block_tables=None, use_flash=False,
+              use_flash_decode=False, use_paged_kernel=False,
+              kernel_blocks=None, causal=True, shard=None,
+              seq_shard_mesh=None, heads=None):
+    """The attention of q [B,S,Hq,hd] over k / v [B,S,Hc,hd] (the cache's
+    kv heads) -> (out [B,S,Hq,hd], cache).  ``heads = (a, b)``: attend kv
+    heads [a, b) of the cache's (a view; all by default)."""
+    b, s = q.shape[:2]
+    hd = cfg.head_dim_
+    scale = 1.0 / hd ** 0.5
+
+    def kv(t):
+        return t if heads is None else t.narrow(2, heads[0],
+                                                heads[1] - heads[0])
+
     if mode == "decode":
         pos_s = positions[:, None]                        # [B, 1]
         q = apply_rope(q, pos_s, cfg.rope_theta)
@@ -418,17 +534,18 @@ def gqa_attention(
                 bt = (block_tables if kernel_blocks is None
                       else block_tables[:, :kernel_blocks])
                 out = flash_decode_paged(
-                    q[:, 0], cache["kp"], cache["vp"], cache["posp"], bt,
-                    positions.int(), window=cfg.sliding_window)[:, None]
+                    q[:, 0], kv(cache["kp"]), kv(cache["vp"]),
+                    cache["posp"], bt, positions.int(),
+                    window=cfg.sliding_window)[:, None]
             else:
-                k_all = _paged_read(cache["kp"], block_tables)
-                v_all = _paged_read(cache["vp"], block_tables)
+                k_all = kv(_paged_read(cache["kp"], block_tables))
+                v_all = kv(_paged_read(cache["vp"], block_tables))
                 kv_pos = _paged_read(cache["posp"], block_tables)
         else:
             _write_step(cache["k"], k[:, 0], positions)
             _write_step(cache["v"], v[:, 0], positions)
             _write_step(cache["pos"], positions, positions)
-            k_all, v_all, kv_pos = cache["k"], cache["v"], cache["pos"]
+            k_all, v_all, kv_pos = kv(cache["k"]), kv(cache["v"]), cache["pos"]
         if out is None and use_flash_decode:
             from repro_torch.kernels import flash_decode
             out = flash_decode(q[:, 0], k_all, v_all, kv_pos,
@@ -455,8 +572,8 @@ def gqa_attention(
             pos_old = _paged_read(cache["posp"], block_tables)
         else:
             k_old, v_old, pos_old = cache["k"], cache["v"], cache["pos"]
-        k_all = torch.cat([k_old, k.to(k_old.dtype)], dim=1)
-        v_all = torch.cat([v_old, v.to(v_old.dtype)], dim=1)
+        k_all = kv(torch.cat([k_old, k.to(k_old.dtype)], dim=1))
+        v_all = kv(torch.cat([v_old, v.to(v_old.dtype)], dim=1))
         kv_pos = torch.cat([pos_old, positions.to(pos_old.dtype)], dim=1)
         bias = _mask_bias(positions, kv_pos, cfg.sliding_window, True)
         out = _sdpa(q, k_all, v_all, bias, scale, compute_dtype)
@@ -478,12 +595,13 @@ def gqa_attention(
             # q's layout, so neither transpose copies
             from repro_torch.kernels import flash_attention
             out = flash_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                q.transpose(1, 2), kv(k).transpose(1, 2),
+                kv(v).transpose(1, 2),
                 window=cfg.sliding_window).transpose(1, 2)
         else:
             bias = _mask_bias(positions, positions, cfg.sliding_window,
                               causal)
-            out = _sdpa(q, k, v, bias, scale, compute_dtype)
+            out = _sdpa(q, kv(k), kv(v), bias, scale, compute_dtype)
         if mode == "prefill":
             _write_seq(cache["k"], k, positions, shard)
             _write_seq(cache["v"], v, positions, shard)
@@ -493,7 +611,6 @@ def gqa_attention(
     else:
         raise ValueError(f"attention mode {mode!r}: the port serves "
                          "'train', 'prefill', 'chunk' and 'decode'")
-    out = out.reshape(b, s, cfg.num_heads * hd) @ params["wo"]
     return out, cache
 
 
@@ -502,18 +619,18 @@ def gqa_attention(
 # --------------------------------------------------------------------------- #
 
 
-def _mla_q(params, cfg: ModelConfig, x):
-    """x [B,S,D] -> (q_nope [B,S,H,dn], q_rope [B,S,H,dr]).  The q and kv
-    norms are RMSNorms with ``cfg.norm_eps`` whatever ``cfg.norm_type`` is
-    (``rms_norm_headwise`` over the last dim is that norm)."""
-    b, s, _ = x.shape
+def _mla_q(params, cfg: ModelConfig, x, hp):
+    """x [B,S,D] -> (q_nope [B,S,H',dn], q_rope [B,S,H',dr]) for the heads
+    of ``hp`` (``_MlaHeads``).  The q and kv norms are RMSNorms with
+    ``cfg.norm_eps`` whatever ``cfg.norm_type`` is (``rms_norm_headwise``
+    over the last dim is that norm)."""
     hd_q = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     if cfg.q_lora_rank:
         cq = rms_norm_headwise(x @ params["wq_a"],
                                params["q_norm"]["scale"], cfg.norm_eps)
-        q = (cq @ params["wq_b"]).reshape(b, s, cfg.num_heads, hd_q)
+        q = hp.project(cq, params["wq_b"], hd_q)
     else:
-        q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd_q)
+        q = hp.project(x, params["wq"], hd_q)
     return q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim], dim=-1)
 
 
@@ -527,12 +644,50 @@ def _mla_latents(params, cfg: ModelConfig, x, positions):
     return ckv, krope
 
 
-def _wkv_b_split(params, cfg: ModelConfig):
-    """W_kv_b [r, H*(dn+dv)] -> (wk_b [r, H, dn], wv_b [r, H, dv])."""
-    wkv_b = params["wkv_b"].reshape(
-        cfg.kv_lora_rank, cfg.num_heads, cfg.qk_nope_head_dim + cfg.v_head_dim)
+def _wkv_b_split(params, cfg: ModelConfig, hp):
+    """W_kv_b [r, H*(dn+dv)] -> (wk_b [r, H', dn], wv_b [r, H', dv]) for
+    the heads of ``hp``."""
+    wkv_b = hp.heads(params["wkv_b"], cfg.qk_nope_head_dim + cfg.v_head_dim)
     return (wkv_b[..., :cfg.qk_nope_head_dim],
             wkv_b[..., cfg.qk_nope_head_dim:])
+
+
+class _MlaHeads:
+    """The heads an MLA layer runs on this rank: all of them without a
+    mesh; under one, those overlapping the rank's rows of ``wo``
+    (``partial`` where they split: the rank computes its part of the
+    output, summed over ``model`` after ``wo``)."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        self.tp = TP(mesh)
+        self.h = cfg.num_heads
+        self.dv = cfg.v_head_dim
+        self.lo, self.hi = tp_mod.heads_of(self.tp, self.h, self.dv)
+        self.partial = self.tp.splits(self.h * self.dv)
+
+    def heads(self, y, width: int):
+        """Heads [lo, hi) of features ``y`` (this rank's block where they
+        split, ``tp_mod.heads``)."""
+        if not self.tp.on:
+            return y.reshape(*y.shape[:-1], self.h, width)
+        return tp_mod.heads(self.tp, y, self.h, width, self.lo, self.hi,
+                            partial=self.partial)
+
+    def project(self, x, w, width: int):
+        """The heads of the column-parallel ``x @ w``."""
+        split = self.tp.splits(self.h * width)
+        return self.heads((self.tp.f(x) if split else x) @ w, width)
+
+    def shared(self, t):
+        """A tensor every rank holds whole (a latent) read by its heads."""
+        return self.tp.f(t) if self.partial else t
+
+    def out(self, o, wo):
+        """o [B,S,H',dv] -> the layer's output [B,S,D]."""
+        if not self.partial:
+            return o.reshape(*o.shape[:2], -1) @ wo
+        return self.tp.g(tp_mod.rows_of(self.tp, o, self.h, self.dv,
+                                        self.lo) @ wo)
 
 
 def mla_attention(
@@ -547,6 +702,7 @@ def mla_attention(
     block_tables=None,
     use_paged_kernel: bool = False,
     kernel_blocks: Optional[int] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Multi-head Latent Attention (DeepSeek-V2).  x [B,S,D]; positions
     [B,S] (train/prefill/chunk) or [B] (decode).
@@ -554,10 +710,11 @@ def mla_attention(
     ``use_paged_kernel`` (paged cache, decode, absorbed path only) attends
     the latent pages ``ckvp`` / ``kropep`` in place through the
     ``flash_decode_paged_mla`` kernel; every other mode and the
-    materialized path gather.  Returns (output [B,S,D], the cache --
-    updated in place -- or None)."""
+    materialized path gather.  ``mesh`` (bound) runs tensor parallelism
+    (module doc).  Returns (output [B,S,D], the cache -- updated in place
+    -- or None)."""
     b, s, _ = x.shape
-    h, dv = cfg.num_heads, cfg.v_head_dim
+    hp = _MlaHeads(cfg, mesh)
     scale = 1.0 / ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** 0.5)
 
     if mode in ("decode", "chunk"):
@@ -565,10 +722,10 @@ def mla_attention(
         # first, then attend everything the cache holds (the reference's
         # MLA order, unlike the GQA chunk path)
         q_pos = positions[:, None] if mode == "decode" else positions
-        q_nope, q_rope = _mla_q(params, cfg, x)
+        q_nope, q_rope = _mla_q(params, cfg, x, hp)
         q_rope = apply_rope(q_rope, q_pos, cfg.rope_theta)
         ckv_t, krope_t = _mla_latents(params, cfg, x, q_pos)
-        wk_b, wv_b = _wkv_b_split(params, cfg)
+        wk_b, wv_b = _wkv_b_split(params, cfg, hp)
         if "ckvp" in cache:
             _paged_write(cache["ckvp"], ckv_t, q_pos, block_tables)
             _paged_write(cache["kropep"], krope_t, q_pos, block_tables)
@@ -585,8 +742,7 @@ def mla_attention(
                     cache["kropep"], cache["posp"], bt, positions.int(),
                     scale=scale)                           # [B, H, r] f32
                 out = torch.einsum("bhr,rhv->bhv", o_lat, wv_b.float())
-                out = out.to(x.dtype).reshape(b, s, h * dv)
-                return out @ params["wo"], cache
+                return hp.out(out.to(x.dtype)[:, None], params["wo"]), cache
             ckv = _paged_read(cache["ckvp"], block_tables)
             krope = _paged_read(cache["kropep"], block_tables)
             kv_pos = _paged_read(cache["posp"], block_tables)
@@ -613,31 +769,32 @@ def mla_attention(
             s_nope = torch.einsum("bshn,bkhn->bhsk", q_nope.float(), kn)
             probs = torch.softmax((s_nope + s_rope) * scale + bias, dim=-1)
             out = torch.einsum("bhsk,bkhv->bshv", probs, vv)
-        out = out.to(x.dtype).reshape(b, s, h * dv)
-        return out @ params["wo"], cache
+        return hp.out(out.to(x.dtype), params["wo"]), cache
     if mode not in ("train", "prefill"):
         raise ValueError(f"attention mode {mode!r}: the port serves "
                          "'train', 'prefill', 'chunk' and 'decode'")
 
     # train / prefill: materialize k and v per token (q, k 192 wide, v 128)
-    q_nope, q_rope = _mla_q(params, cfg, x)
+    q_nope, q_rope = _mla_q(params, cfg, x, hp)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     ckv, krope = _mla_latents(params, cfg, x, positions)
-    wk_b, wv_b = _wkv_b_split(params, cfg)
-    kn = torch.einsum("bkr,rhn->bkhn", ckv, wk_b)
-    vv = torch.einsum("bkr,rhv->bkhv", ckv, wv_b)
+    wk_b, wv_b = _wkv_b_split(params, cfg, hp)
+    ckv_h, krope_h = hp.shared(ckv), hp.shared(krope)
+    kn = torch.einsum("bkr,rhn->bkhn", ckv_h, wk_b)
+    vv = torch.einsum("bkr,rhv->bkhv", ckv_h, wv_b)
+    nh = q_nope.shape[2]
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([kn, krope[:, :, None, :].expand(
-        b, s, h, krope.shape[-1]).to(kn.dtype)], dim=-1)
+    k = torch.cat([kn, krope_h[:, :, None, :].expand(
+        b, s, nh, krope.shape[-1]).to(kn.dtype)], dim=-1)
     bias = _mask_bias(positions, positions, None, True)
-    out = _sdpa(q, k, vv.to(q.dtype), bias, scale).reshape(b, s, h * dv)
+    out = _sdpa(q, k, vv.to(q.dtype), bias, scale)
     if mode == "prefill":
         _write_seq(cache["ckv"], ckv, positions)
         _write_seq(cache["krope"], krope, positions)
         _write_seq(cache["pos"], positions, positions)
     else:
         cache = None
-    return out @ params["wo"], cache
+    return hp.out(out, params["wo"]), cache
 
 
 def attention(params, cfg: ModelConfig, x, positions, **kw):

@@ -27,8 +27,9 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import apply_norm, init_norm
-from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.mlp import init_mlp
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
+from repro_torch.models.tp import gather_fsdp, mlp_tp
 
 _STACK_KINDS = ("attn_moe", "attn_mlp", "mamba", "shared_attn")
 
@@ -105,9 +106,13 @@ def apply_block(
 
     A mamba block returns ``h2`` None; it has no chunk mode.
 
-    ``mesh`` (bound) reaches the MoE's expert-parallel impls, and with
-    ``opts.decode_kv_seq_shard`` the GQA cache writes and decode attention
-    of context parallelism; x is the rank's own rows either way."""
+    ``mesh`` (bound): x is the rank's data block of the rows, the same on
+    every rank of ``model``, and the params the rank's blocks
+    (``sharding.local_params``); the attention, the MLP and the mamba
+    mixer run tensor parallelism over ``model`` (``models/tp.py``), the
+    MoE the impl ``moe.mesh_impl`` picks, and with
+    ``opts.decode_kv_seq_shard`` the GQA cache is the rank's sequence
+    block (context parallelism)."""
     _check_kind(spec)
     if spec.kind == "mamba":
         if mode == "chunk":
@@ -116,7 +121,7 @@ def apply_block(
                 "mamba blocks use whole-prompt prefill (serving/runner.py)")
         h, cache = ssm_mod.mamba_forward(
             params["mixer"], cfg, apply_norm(params["norm1"], cfg, x),
-            mode=mode, cache=cache)
+            mode=mode, cache=cache, mesh=mesh)
         return (x + h, cache,
                 torch.zeros((), dtype=torch.float32, device=x.device), None)
     pred_idx = None
@@ -136,12 +141,11 @@ def apply_block(
     else:
         attn_kw.update(use_flash=opts.use_flash,
                        compute_dtype=opts.attn_compute_dtype,
-                       use_flash_decode=opts.use_flash_decode)
-        if opts.decode_kv_seq_shard and mesh is not None:
-            attn_kw["seq_shard_mesh"] = mesh
+                       use_flash_decode=opts.use_flash_decode,
+                       seq_shard=opts.decode_kv_seq_shard)
     h, cache = attn_mod.attention(
         params["attn"], cfg, apply_norm(params["norm1"], cfg, x), positions,
-        mode=mode, cache=cache, **attn_kw)
+        mode=mode, cache=cache, mesh=mesh, **attn_kw)
     x = x + h
     h2 = apply_norm(params["norm2"], cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -150,9 +154,8 @@ def apply_block(
         if k_budget is not None:
             b, s, _ = h2.shape
             kb_tok = k_budget.to(torch.int32)[:, None].expand(b, s).reshape(-1)
-        impl = opts.moe_impl or cfg.moe_impl
-        if mode == "decode" and impl == "ep_a2a":
-            impl = "ep_psum"  # a2a dispatch is the wrong regime for decode
+        impl = moe_mod.mesh_impl(opts.moe_impl or cfg.moe_impl, cfg, mode,
+                                 h2.shape[0] * h2.shape[1], mesh)
         y, aux = moe_mod.moe(
             params["moe"], cfg, h2, spec.moe_top_k, impl=impl, mesh=mesh,
             use_kernel=opts.use_moe_kernel, a2a_chunks=opts.a2a_chunks,
@@ -161,7 +164,7 @@ def apply_block(
             k_budget=kb_tok)
         x = x + y
     else:
-        x = x + mlp(params["mlp"], h2)
+        x = x + mlp_tp(params["mlp"], h2, mesh, cfg.d_ff)
     return x, cache, aux, h2
 
 
@@ -226,10 +229,15 @@ def init_stack_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
 def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
                 mode: str, caches=None, opts: ModelOpts = DEFAULT_OPTS,
                 block_tables=None, kernel_blocks: Optional[int] = None,
-                k_budgets=None, shared: Optional[Dict] = None, mesh=None):
+                k_budgets=None, shared: Optional[Dict] = None, mesh=None,
+                layout=None):
     """Run every layer.  Returns (x, caches, total_aux).  ``shared`` is the
     shared_attn blocks' one parameter set (``init_shared``); ``mesh`` goes
-    to every block (``apply_block``).
+    to every block (``apply_block``).  ``layout``: the params' FSDP
+    ``Sharding`` tree (``rules.fsdp_layout``) under
+    ``opts.fsdp_params``: each layer's leaves are gathered over the data
+    axes where the layer runs (inside its remat, so the backward gathers
+    them again).
 
     ``k_budgets`` [B, n_moe] int32 gives each batch row a per-MoE-layer
     active-expert cap below the pattern's per-layer top-k (per-request
@@ -241,30 +249,82 @@ def apply_stack(layers: List[Dict], cfg: ModelConfig, x, positions, *,
     predicts its expert ids; zeros feed the first layer, whose staged loads
     then just miss.  The carry passes over mamba blocks unchanged.
 
-    In train mode ``opts.remat`` checkpoints each layer (``_remat``)."""
+    In train mode ``opts.remat`` checkpoints each layer (``_remat``); with
+    ``opts.remat_chunk`` = G > 1 a run of more than G identical layers is
+    checkpointed G layers at a time instead (its whole chunks; the
+    remainder layers each on their own), as the reference's two-level
+    remat: G times fewer stashed activations for the same recompute."""
     remat = opts.remat if mode == "train" else "none"
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     lookahead = opts.router_lookahead and mode == "decode"
     h2_prev = torch.zeros_like(x) if lookahead else None
-    moe_i = 0
-    for li, spec in enumerate(cfg.pattern()):
+    pattern = cfg.pattern()
+    moe_idx, n = [], 0
+    for spec in pattern:
+        moe_idx.append(n if spec.kind == "attn_moe" else None)
+        n += spec.kind == "attn_moe"
+
+    def layer_fn(li: int, h2_in=None) -> Callable:
+        spec = pattern[li]
         kb = None
-        if spec.kind == "attn_moe":
-            if k_budgets is not None:
-                kb = k_budgets[:, moe_i]
-            moe_i += 1
-        gl = lookahead and spec.kind != "mamba"
-        layer = partial(
-            apply_block, shared if spec.kind == "shared_attn" else layers[li],
-            cfg, spec, positions=positions,
-            mode=mode, cache=caches[li] if caches is not None else None,
-            opts=opts, block_tables=block_tables,
-            kernel_blocks=kernel_blocks, k_budget=kb,
-            lookahead_h2=h2_prev if gl else None, mesh=mesh)
+        if k_budgets is not None and moe_idx[li] is not None:
+            kb = k_budgets[:, moe_idx[li]]
+        own = spec.kind == "shared_attn"
+        lp = shared if own else layers[li]
+        lay = None
+        if layout is not None:
+            lay = layout["shared_attn"] if own else layout["layers"][li]
+
+        def run(x):
+            p = gather_fsdp(lp, lay, mesh, opts)
+            return apply_block(
+                p, cfg, spec, x, positions=positions, mode=mode,
+                cache=caches[li] if caches is not None else None, opts=opts,
+                block_tables=block_tables, kernel_blocks=kernel_blocks,
+                k_budget=kb, lookahead_h2=h2_in, mesh=mesh)
+        return run
+
+    chunks = _remat_chunks(pattern, opts.remat_chunk if remat != "none"
+                           else 0)
+    li = 0
+    while li < len(pattern):
+        if li in chunks:
+            end = chunks[li]
+            fns = [layer_fn(i) for i in range(li, end)]
+
+            def chunk(x, fns=fns):
+                auxs = []
+                for fn in fns:
+                    x, _, a, _ = fn(x)
+                    auxs.append(a)
+                return x, torch.stack(auxs)
+            x, auxs = _remat(chunk, "full")(x)
+            for aux in auxs:                # each layer's, in layer order
+                total_aux = total_aux + aux
+            li = end
+            continue
+        gl = lookahead and pattern[li].kind != "mamba"
+        layer = layer_fn(li, h2_prev if gl else None)
         if remat != "none":
             layer = _remat(layer, remat)
         x, _, aux, h2 = layer(x)
         if gl:
             h2_prev = h2
         total_aux = total_aux + aux
+        li += 1
     return x, caches, total_aux
+
+
+def _remat_chunks(pattern, size: int) -> Dict[int, int]:
+    """First layer -> end of each whole chunk of ``size`` layers in the
+    runs of identical layers longer than ``size`` (the reference's
+    ``remat_chunk`` over its stacked groups); none for ``size`` <= 1."""
+    if size <= 1:
+        return {}
+    out: Dict[int, int] = {}
+    for g in group_pattern(pattern):
+        if g.count > size:
+            for c in range(g.count // size):
+                start = g.start + c * size
+                out[start] = start + size
+    return out

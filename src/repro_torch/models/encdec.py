@@ -112,12 +112,22 @@ def _decoder(params, cfg: ModelConfig, tokens, positions, mode: str,
     return logits, (caches if mode != "train" else None)
 
 
+def _no_mesh(mesh) -> None:
+    """A mesh's params are the rank's tensor-parallel blocks
+    (``sharding.local_params``), which the encoder-decoder does not run
+    (ROADMAP A14): refuse rather than read a block as a whole weight."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the encoder-decoder runs no tensor parallelism; call it "
+            "without a mesh on whole params")
+
+
 def encdec_loss(params, cfg: ModelConfig, batch, *, mesh=None,
                 opts: ModelOpts = DEFAULT_OPTS):
     """batch: frames [B,T,D], tokens [B,S], targets [B,S], mask [B,S] ->
-    (xent, {"xent", "aux"}).  ``mesh`` is accepted and dropped, as the
-    reference's: the model has no MoE, and a rank's batch is its own."""
-    del mesh
+    (xent, {"xent", "aux"}).  No mesh: the encoder-decoder runs no
+    tensor parallelism (``_no_mesh``)."""
+    _no_mesh(mesh)
     from repro_torch.models.transformer import softmax_xent
     enc_out = encode(params, cfg, batch["frames"], opts=opts)
     b, s = batch["tokens"].shape
@@ -150,8 +160,8 @@ def init_encdec_caches(cfg: ModelConfig, batch: int, max_len: int,
 def encdec_prefill(params, cfg: ModelConfig, frames, tokens, caches, *,
                    mesh=None, opts: ModelOpts = DEFAULT_OPTS):
     """Encode ``frames`` and prefill the decoder with ``tokens`` [B,S] ->
-    (last logits [B,V], caches).  ``mesh`` is dropped (``encdec_loss``)."""
-    del mesh
+    (last logits [B,V], caches).  No mesh (``_no_mesh``)."""
+    _no_mesh(mesh)
     enc_out = encode(params, cfg, frames, opts=opts)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
@@ -164,9 +174,9 @@ def encdec_prefill(params, cfg: ModelConfig, frames, tokens, caches, *,
 @torch.no_grad()
 def encdec_decode_step(params, cfg: ModelConfig, tokens, pos, caches, *,
                        mesh=None, opts: ModelOpts = DEFAULT_OPTS):
-    """tokens [B], pos [B] -> (logits [B,V], caches).  ``mesh`` is dropped
-    (``encdec_loss``)."""
-    del mesh
+    """tokens [B], pos [B] -> (logits [B,V], caches).  No mesh
+    (``_no_mesh``)."""
+    _no_mesh(mesh)
     logits, caches = _decoder(params, cfg, tokens[:, None], pos, "decode",
                               caches, None, opts)
     return logits[:, 0], caches

@@ -38,6 +38,7 @@ from repro_torch.models.moe.params import (  # noqa: F401
 from repro_torch.models.moe.registry import (  # noqa: F401
     DECODE_TOKEN_THRESHOLD,
     available_impls,
+    mesh_impl,
     moe,
     register_impl,
     resolve_impl,

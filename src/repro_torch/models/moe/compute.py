@@ -4,6 +4,12 @@ routed layouts.
 Each has a plain path (``use_kernel=False``, the reference's jnp path)
 and a kernel path through ``repro_torch.kernels`` (whose wrappers run the
 kernel's plain version on CPU tensors).
+
+Under a bound mesh whose ``model`` axis does not split the experts but
+splits their F (``sharding.rules._moe_w1`` / ``_moe_w2``), ``dense``,
+``gmm`` and ``decode`` run each expert on the rank's F block
+(``FSlice``): the same routing on every rank, the expert input and the
+combine weights through ``f``, the combined output summed over ``model``.
 """
 
 from __future__ import annotations
@@ -14,8 +20,31 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.mlp import mlp
 from repro_torch.models.moe.dispatch import SortPlan
+from repro_torch.models.tp import TP, mlp_tp
+
+
+class FSlice:
+    """Tensor parallelism of a MoE layer whose experts hold the rank's F
+    block (module doc); a no-op without a mesh or where F stays whole."""
+
+    def __init__(self, params: Dict, cfg: ModelConfig, mesh):
+        tp = TP(mesh)
+        if tp.on and cfg.num_experts % tp.m == 0:
+            raise ValueError(
+                f"the experts split over model={tp.m} (expert parallelism): "
+                f"the rank holds {params['w1'].shape[0]} of "
+                f"{cfg.num_experts}; run ep_a2a / ep_psum "
+                "(models.moe.mesh_impl)")
+        self.tp = tp if tp.splits(cfg.moe_d_ff) else TP(None)
+
+    def inputs(self, x2d, weights):
+        """The expert input and the combine weights, through ``f``."""
+        return self.tp.f(x2d), self.tp.f(weights)
+
+    def output(self, y):
+        """The rank's partial combined output summed over ``model``."""
+        return self.tp.g(y)
 
 
 def expert_ffn(w1, w2, xe, use_kernel: bool = False):
@@ -104,8 +133,10 @@ def grouped_ffn_quant(params: Dict, xs, plan: SortPlan,
                                dtype=expert_dtype)
 
 
-def add_shared(params: Dict, cfg: ModelConfig, x2d, y):
-    """Always-on shared experts on top of the routed output."""
+def add_shared(params: Dict, cfg: ModelConfig, x2d, y, mesh=None):
+    """Always-on shared experts on top of the routed output; under a mesh
+    a tensor-parallel MLP (``models/tp.py``)."""
     if cfg.num_shared_experts:
-        y = y + mlp(params["shared"], x2d)
+        sf = cfg.shared_expert_d_ff or cfg.moe_d_ff * cfg.num_shared_experts
+        y = y + mlp_tp(params["shared"], x2d, mesh, sf)
     return y

@@ -14,22 +14,25 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.moe.compute import add_shared, expert_ffn
+from repro_torch.models.moe.compute import FSlice, add_shared, expert_ffn
 from repro_torch.models.moe.dispatch import _gather_combine, _scatter, \
     _slot_positions
 from repro_torch.models.moe.router import capacity, route
 
 
 def moe_dense(params: Dict, cfg: ModelConfig, x2d: torch.Tensor, top_k: int,
-              use_kernel: bool = False, *, k_budget=None,
+              use_kernel: bool = False, *, k_budget=None, mesh=None,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x2d [T, D] -> (y2d [T, D], aux_loss).  bf16 (unquantized) experts."""
+    """x2d [T, D] -> (y2d [T, D], aux_loss).  bf16 (unquantized) experts;
+    under a mesh the rank's F block of each (``compute.FSlice``)."""
     t, _ = x2d.shape
     e = cfg.num_experts
+    fs = FSlice(params, cfg, mesh)
     weights, idx, aux = route(params, cfg, x2d, top_k, k_budget=k_budget)
     cap = capacity(t, top_k, e, cfg.moe_capacity_factor)
     pos, keep = _slot_positions(idx, e, cap)
-    xe = _scatter(x2d, idx, pos, keep, e, cap)                    # [E, C, D]
+    xf, wf = fs.inputs(x2d, weights)
+    xe = _scatter(xf, idx, pos, keep, e, cap)                     # [E, C, D]
     ye = expert_ffn(params["w1"], params["w2"], xe, use_kernel)
-    y = _gather_combine(ye, weights, idx, pos, keep, cap).to(x2d.dtype)
-    return add_shared(params, cfg, x2d, y), aux
+    y = fs.output(_gather_combine(ye, wf, idx, pos, keep, cap)).to(x2d.dtype)
+    return add_shared(params, cfg, x2d, y, mesh), aux

@@ -13,14 +13,28 @@ partial outputs are ``psum``-reduced.  The right pattern when T (= the
 decode batch) is small.
 
 The reference's functions take the global token array under ``jit`` and
-``shard_map`` it; the port's are a per-rank program: each takes and
-returns **the rank's own tokens** (``ep_a2a``: the rank's block over
-every axis; ``ep_psum``: its data block, the same on every rank of a
-``model`` group) and the rank's ``[E / model, ...]`` expert slice
-(``sharding.local_params``) on a bound mesh.  Every rank of a ``model``
-group passes the same token count.  The aux loss is the mean of the
-ranks' own (each rank's router statistics over its tokens), as the
-reference's ``pmean``.
+``shard_map`` it; the port's are a per-rank program on a bound mesh, with
+the rank's ``[E / model, ...]`` expert slice (``sharding.local_params``).
+Both take **the rank's data block of the tokens**, the same on every rank
+of a ``model`` group, as ``sharding.batch_specs`` shards a batch, and
+return the layer's output on that block, the same on every rank of the
+group.  ``ep_a2a`` then does what GSPMD does around the reference's
+``shard_map`` with ``in_specs=P((*token_axes, model))``: it keeps the
+rank's ``1 / model`` of the rows at entry (``comm.split_to_model``) and
+all-gathers the outputs over ``model`` at exit
+(``comm.gather_from_model``), so each rank routes its own rows.  The aux
+is the mean over the ``model`` ranks of each rank's own (its router
+statistics over its rows); ``ep_psum``'s is the block's own, the same on
+every rank.  Neither reduces over the data axes: the train step weighs
+the data blocks' losses (``training/step.py``).
+
+Gradients follow tensor parallelism's rule (``models/tp.py``): the
+router, read by each rank for its own rows (``ep_a2a``) or for its own
+experts' weights (``ep_psum``), passes ``f``, as do the inputs each rank
+reads in part; shared experts run as a tensor-parallel MLP on the whole
+block.  Both refuse a mesh whose ``model`` axis does not split the
+experts, as the reference's ``shard_map`` does (``_ep_param_specs``): the
+rules shard their F there, which ``dense``, ``gmm`` and ``decode`` run.
 """
 
 from __future__ import annotations
@@ -34,12 +48,19 @@ from repro_torch.models.moe.compute import add_shared, expert_ffn
 from repro_torch.models.moe.dispatch import _gather_combine, _scatter, \
     _slot_positions
 from repro_torch.models.moe.router import capacity, route
+from repro_torch.models.tp import TP
 from repro_torch.sharding import comm
 
 
 def _local_experts(params: Dict, cfg: ModelConfig, model_size: int) -> int:
     e = cfg.num_experts
-    if e % model_size or params["w1"].shape[0] != e // model_size:
+    if e % model_size:
+        raise ValueError(
+            f"expert parallelism over model={model_size}: {e} experts do "
+            "not split (the reference's shard_map refuses it too); the "
+            "rules shard each expert's F there instead, which dense / gmm "
+            "/ decode run (ROADMAP A14)")
+    if params["w1"].shape[0] != e // model_size:
         raise ValueError(
             f"expert parallelism over model={model_size}: {e} experts, "
             f"the rank holds {params['w1'].shape[0]} (want the rank's "
@@ -47,17 +68,24 @@ def _local_experts(params: Dict, cfg: ModelConfig, model_size: int) -> int:
     return e // model_size
 
 
+def _router_f(params: Dict, mesh) -> Dict:
+    """``params`` with the router through ``f``: each rank reads it for
+    its own part, so its gradient sums over ``model``."""
+    return {**params, "router": TP(mesh).f(params["router"])}
+
+
 def moe_ep_a2a_local(params, cfg: ModelConfig, x_local, top_k: int, *,
-                     mesh, model_axis: str, model_size: int, all_axes,
+                     mesh, model_axis: str, model_size: int,
                      use_kernel: bool = False, a2a_chunks: int = 1):
-    """The rank's tokens x_local [T_loc, D]; expert params sliced
-    [E_loc, ...]."""
+    """The rank's own rows x_local [T_loc, D] (its block of the data
+    block's, ``moe_ep_a2a``); expert params sliced [E_loc, ...] -> (the
+    routed output on those rows, the rank's aux).  No shared experts."""
     e = cfg.num_experts
     e_loc = _local_experts(params, cfg, model_size)
     t_loc, d = x_local.shape
     cap = capacity(t_loc, top_k, e, cfg.moe_capacity_factor)
 
-    weights, idx, aux = route(params, cfg, x_local, top_k)
+    weights, idx, aux = route(_router_f(params, mesh), cfg, x_local, top_k)
     pos, keep = _slot_positions(idx, e, cap)
     buf = _scatter(x_local, idx, pos, keep, e, cap)               # [E,C,D]
     buf = buf.reshape(model_size, e_loc, cap, d)
@@ -82,66 +110,65 @@ def moe_ep_a2a_local(params, cfg: ModelConfig, x_local, top_k: int, *,
     ye_local = back.reshape(e, cap, d)
     y = _gather_combine(ye_local, weights, idx, pos, keep,
                         cap).to(x_local.dtype)
-    y = add_shared(params, cfg, x_local, y)
-    return y, comm.pmean(aux, mesh, all_axes)
+    return y, aux
 
 
 def moe_ep_psum_local(params, cfg: ModelConfig, x_rep, top_k: int, *,
-                      mesh, model_axis: str, model_size: int, token_axes,
+                      mesh, model_axis: str, model_size: int,
                       use_kernel: bool = False):
     """``x_rep`` [T, D] the same on every rank of the model axis; expert
-    params sliced [E_loc, ...].  Local contributions + psum."""
+    params sliced [E_loc, ...].  Local contributions + psum (Megatron's
+    *g*: the output is read whole on every rank); the shared experts
+    added on the whole block."""
     e_loc = _local_experts(params, cfg, model_size)
     midx = mesh.axis_index(model_axis)
     t, d = x_rep.shape
+    tp = TP(mesh)
 
     weights, idx, aux = route(params, cfg, x_rep, top_k)
     lo = midx * e_loc
     local = (idx >= lo) & (idx < lo + e_loc)                      # [T, k]
     idx_loc = torch.where(local, idx - lo, e_loc)                 # -> trash
-    w_loc = torch.where(local, weights, 0.0)
+    w_loc = torch.where(local, tp.f(weights), 0.0)
 
     # worst case: all T*k slots land on one local expert -> cap = T*k is
     # always safe; keep it tighter with the same global-capacity heuristic
     cap = capacity(t, top_k, e_loc, cfg.moe_capacity_factor)
     pos, keep = _slot_positions(idx_loc, e_loc + 1, cap)
     keep = keep & local
-    xe = _scatter(x_rep, idx_loc, pos, keep, e_loc + 1, cap)[:e_loc]
+    xe = _scatter(tp.f(x_rep), idx_loc, pos, keep, e_loc + 1, cap)[:e_loc]
     ye = expert_ffn(params["w1"], params["w2"], xe, use_kernel)
     ye_pad = torch.cat([ye, ye.new_zeros((1, cap, d))], dim=0)
     y = _gather_combine(ye_pad, w_loc, idx_loc, pos, keep, cap)
-    y = comm.psum(y, mesh, model_axis).to(x_rep.dtype)
-    y = add_shared(params, cfg, x_rep, y)
-    # aux is invariant over the model axis (same routing on every model
-    # rank): reduce over the token axes only
-    if token_axes:
-        aux = comm.pmean(aux, mesh, token_axes)
-    return y, aux
-
-
-def _axes(mesh):
-    all_axes = tuple(mesh.axis_names)
-    return all_axes, tuple(a for a in all_axes if a != "model")
+    y = tp.g(y).to(x_rep.dtype)
+    return add_shared(params, cfg, x_rep, y, mesh), aux
 
 
 def moe_ep_a2a(params: Dict, cfg: ModelConfig, x2d, top_k: int, *, mesh,
                use_kernel: bool = False, a2a_chunks: int = 1):
-    """``moe_ep_a2a_local`` over a bound (..., model) mesh: x2d is the
-    rank's block of the tokens sharded over every axis."""
-    all_axes, _ = _axes(mesh)
-    return moe_ep_a2a_local(params, cfg, x2d, top_k, mesh=mesh,
-                            model_axis="model",
-                            model_size=mesh.shape["model"],
-                            all_axes=all_axes, use_kernel=use_kernel,
-                            a2a_chunks=a2a_chunks)
+    """``moe_ep_a2a_local`` over a bound (..., model) mesh: x2d [T, D] is
+    the rank's data block of the tokens (T splits over ``model``); each
+    rank routes its ``T / model`` rows (module doc)."""
+    m = mesh.shape["model"]
+    _local_experts(params, cfg, m)
+    if x2d.shape[0] % m:
+        raise ValueError(f"ep_a2a over model={m}: {x2d.shape[0]} tokens do "
+                         "not split (models.moe.mesh_impl runs ep_psum for "
+                         "them)")
+    x_loc = comm.split_to_model(x2d, mesh, 0)
+    y, aux = moe_ep_a2a_local(params, cfg, x_loc, top_k, mesh=mesh,
+                              model_axis="model", model_size=m,
+                              use_kernel=use_kernel, a2a_chunks=a2a_chunks)
+    y = comm.gather_from_model(y, mesh, 0)
+    aux = comm.reduce_from_model(aux, mesh) / m
+    return add_shared(params, cfg, x2d, y, mesh), aux
 
 
 def moe_ep_psum(params: Dict, cfg: ModelConfig, x2d, top_k: int, *, mesh,
                 use_kernel: bool = False):
     """``moe_ep_psum_local`` over a bound (..., model) mesh: x2d is the
     rank's data block of the tokens, replicated over ``model``."""
-    _, token_axes = _axes(mesh)
     return moe_ep_psum_local(params, cfg, x2d, top_k, mesh=mesh,
                              model_axis="model",
                              model_size=mesh.shape["model"],
-                             token_axes=token_axes, use_kernel=use_kernel)
+                             use_kernel=use_kernel)

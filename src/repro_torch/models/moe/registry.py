@@ -17,7 +17,9 @@ pipeline registered under the name ``cfg.moe_impl`` selects, as in
 
 Impls registered here take ``(params, cfg, x2d, top_k, use_kernel, *,
 mesh, a2a_chunks, expert_dtype, pred_idx, k_budget)`` and return ``(y2d,
-aux)``.  Quantized expert tiles (``expert_dtype`` in
+aux)``.  Under a bound mesh ``mesh_impl`` picks what a block runs: the EP
+impls where the experts split over ``model``, ``dense`` / ``gmm`` /
+``decode`` on each expert's F block where they do not.  Quantized expert tiles (``expert_dtype`` in
 ``params.QUANT_DTYPES``) are served by ``gmm`` and ``decode`` only: any
 other impl raises rather than read int8 tiles as weights.  The expert-
 parallel impls serve no per-token k budget either.
@@ -48,6 +50,25 @@ def resolve_impl(impl: str, n_tokens: int, decode_kernel: bool = False) -> str:
     if (decode_kernel and impl == "gmm"
             and n_tokens <= DECODE_TOKEN_THRESHOLD):
         return "decode"
+    return impl
+
+
+def mesh_impl(impl: str, cfg: ModelConfig, mode: str, n_tokens: int,
+              mesh) -> str:
+    """The impl a block runs for ``impl`` (``opts.moe_impl`` or the
+    config's).  ``ep_a2a`` in decode, or on a token count that does not
+    split over ``model``, runs ``ep_psum`` (a2a dispatch is the wrong
+    regime for decode).  Under a bound mesh whose ``model`` axis splits
+    the experts (the rank holds its expert slice) every impl runs
+    expert-parallel: ``ep_a2a`` in train / prefill / chunk steps,
+    ``ep_psum`` in decode, as the reference's dry run picks them; where
+    the experts do not split, the impl runs as asked (the EP impls refuse
+    it, ``dense`` / ``gmm`` / ``decode`` run each expert's F block)."""
+    if mesh is not None and cfg.num_experts % mesh.shape["model"] == 0:
+        impl = "ep_a2a"
+    if impl == "ep_a2a" and (mode == "decode" or mesh is not None
+                             and n_tokens % mesh.shape["model"]):
+        return "ep_psum"
     return impl
 
 
@@ -82,26 +103,27 @@ def _no_budget(impl: str, k_budget):
 @register_impl("dense")
 def _dense(params, cfg, x2d, top_k, use_kernel=False, *, mesh=None,
            a2a_chunks=1, expert_dtype="bf16", pred_idx=None, k_budget=None):
-    del mesh, a2a_chunks, pred_idx
+    del a2a_chunks, pred_idx
     _require_bf16("dense", expert_dtype)
-    return moe_dense(params, cfg, x2d, top_k, use_kernel, k_budget=k_budget)
+    return moe_dense(params, cfg, x2d, top_k, use_kernel, k_budget=k_budget,
+                     mesh=mesh)
 
 
 @register_impl("gmm")
 def _gmm(params, cfg, x2d, top_k, use_kernel=False, *, mesh=None,
          a2a_chunks=1, expert_dtype="bf16", pred_idx=None, k_budget=None):
-    del mesh, a2a_chunks, pred_idx
+    del a2a_chunks, pred_idx
     return moe_gmm(params, cfg, x2d, top_k, use_kernel,
-                   expert_dtype=expert_dtype, k_budget=k_budget)
+                   expert_dtype=expert_dtype, k_budget=k_budget, mesh=mesh)
 
 
 @register_impl("decode")
 def _decode(params, cfg, x2d, top_k, use_kernel=False, *, mesh=None,
             a2a_chunks=1, expert_dtype="bf16", pred_idx=None, k_budget=None):
-    del mesh, a2a_chunks
+    del a2a_chunks
     return moe_decode(params, cfg, x2d, top_k, use_kernel,
                       expert_dtype=expert_dtype, pred_idx=pred_idx,
-                      k_budget=k_budget)
+                      k_budget=k_budget, mesh=mesh)
 
 
 @register_impl("ep_a2a", needs_mesh=True)
@@ -132,7 +154,8 @@ def moe(params: Dict, cfg: ModelConfig, x, top_k: int, *,
 
     ``impl`` overrides ``cfg.moe_impl``; mesh-requiring impls fall back to
     ``dense`` when no mesh is given (single-device runs of EP configs).
-    Under a mesh, x is the rank's own tokens (``models/moe/ep.py``).
+    Under a mesh, x is the rank's data block of the tokens, the same on
+    every rank of ``model`` (``models/moe/ep.py``).
     ``decode_kernel=True`` opts decode-shaped gmm calls into the fused
     routed-expert path.  ``expert_dtype`` != "bf16" expects params
     quantized at load (``quantize_expert_params``) and is served by

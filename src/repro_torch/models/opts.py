@@ -3,8 +3,8 @@
 Only the fields the port reads are carried over from
 ``repro.models.opts``.  Two never come: ``scan_unroll`` and
 ``act_constraint`` are XLA / GSPMD levers, and the port scans no layer
-group and has no partitioner (a rank's activations are its own batch).
-``fsdp_params`` and ``remat_chunk`` wait for ROADMAP A14 step 2.
+group and has no partitioner (a rank's activations are its data block's,
+its params its blocks of the rules' specs).
 """
 
 from __future__ import annotations
@@ -65,6 +65,17 @@ class ModelOpts:
     #: "none" | "full" (recompute the whole layer in the backward) |
     #: "dots" (keep the outputs of 2-D matmuls, recompute the rest)
     remat: str = "none"
+    #: under a mesh, store each leaf of at least ``fsdp_min_size`` elements
+    #: (counted as the reference stacks it) as its block over the data
+    #: axes (FSDP), all-gathered where a layer uses it (``models/tp.py``);
+    #: the params must then be cut with ``local_params(..., fsdp=True,
+    #: fsdp_min_size=...)``
+    fsdp_params: bool = False
+    #: ``rules.param_specs``' FSDP size bound (the reference's default)
+    fsdp_min_size: int = 1 << 20
+    #: two-level remat: with ``remat`` on, checkpoint runs of identical
+    #: layers N at a time instead of each layer (``blocks.apply_stack``)
+    remat_chunk: int = 0
 
 
 DEFAULT_OPTS = ModelOpts()

@@ -14,6 +14,15 @@ Prefill and decode write the cache tensors in place (``copy_``): a decode
 step captured as a CUDA graph reads and writes them at the addresses it
 was captured at.  As in the reference, prefill starts the scan from the
 cache's ``state``; the serving engine zeroes a slot's row at admission.
+
+Under a bound ``mesh`` (tensor parallelism, ``models/tp.py``): ``w_in``
+is replicated, so every rank projects and convolves every channel (the
+conv state is whole on every rank), and ``w_out`` is row-parallel over
+``d_inner``.  Where the heads split over ``model``, a rank runs the SSD
+for its heads only (its block of ``state``), and the gated RMSNorm, which
+normalizes over the whole ``d_inner``, sums its squares over ``model``;
+where they do not, every rank runs every head and keeps its channels
+after the norm.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, param_dtype
+from repro_torch.models.tp import TP
+from repro_torch.sharding import comm
 
 
 def _dims(cfg: ModelConfig):
@@ -84,26 +95,69 @@ def _split_proj(cfg: ModelConfig, zxbcdt):
             zxbcdt[..., d_in + cc:])
 
 
-def _gated_out(params, cfg: ModelConfig, y, z, eps: float = 1e-6):
-    """y, z [.., d_in]: RMSNorm(y * silu(z)) @ w_out."""
+class _MambaTP:
+    """The rank's share of a mamba mixer (module doc): ``rows`` where
+    ``w_out``'s rows split over ``model``, ``split`` where the heads do
+    too, and the rank's heads [lo, hi)."""
+
+    def __init__(self, cfg: ModelConfig, mesh):
+        d_in, h, self.p, _, _ = _dims(cfg)
+        self.tp = TP(mesh)
+        self.rows = self.tp.splits(d_in)
+        self.split = self.rows and self.tp.splits(h)
+        self.lo, self.hi = ((self.tp.r * (h // self.tp.m),
+                             (self.tp.r + 1) * (h // self.tp.m))
+                            if self.split else (0, h))
+
+    def part(self, t):
+        """A tensor every rank holds whole, read by the rank's heads."""
+        return self.tp.f(t) if self.split else t
+
+    def heads(self, t):
+        """The rank's heads of a [.., H] tensor."""
+        return self.part(t)[..., self.lo:self.hi]
+
+    def channels(self, t):
+        """The rank's heads' channels of a [.., d_inner] tensor."""
+        return self.part(t)[..., self.lo * self.p:self.hi * self.p]
+
+
+def _gated_out(params, cfg: ModelConfig, y, z, mt: _MambaTP,
+               eps: float = 1e-6):
+    """y, z [.., d_in'] (the rank's heads' channels): RMSNorm(y * silu(z))
+    @ w_out, the norm over the whole d_inner."""
     g = y.float() * F.silu(z.float())
-    var = g.square().mean(-1, keepdim=True)
-    g = g * torch.rsqrt(var + eps) * params["norm_scale"].float()
-    return g.to(y.dtype) @ params["w_out"]
+    if mt.split:
+        d_in = _dims(cfg)[0]
+        var = comm.psum(g.square().sum(-1, keepdim=True), mt.tp.mesh,
+                        "model") / d_in
+    else:
+        var = g.square().mean(-1, keepdim=True)
+    g = g * torch.rsqrt(var + eps) * mt.channels(params["norm_scale"]).float()
+    g = g.to(y.dtype)
+    if not mt.rows:
+        return g @ params["w_out"]
+    if not mt.split:                   # every head here: keep the rows
+        start, size = mt.tp.block(g.shape[-1])
+        g = mt.tp.f(g)[..., start:start + size]
+    return mt.tp.g(g @ params["w_out"])
 
 
 def mamba_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
-                  mode: str = "train", cache: Optional[Dict] = None
-                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                  mode: str = "train", cache: Optional[Dict] = None,
+                  mesh=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x [B,S,D] (train / prefill) or [B,1,D] (decode) -> (out [B,S,D],
-    the cache -- written in place in prefill and decode -- or None)."""
+    the cache -- written in place in prefill and decode -- or None).
+    ``mesh`` (bound): tensor parallelism (module doc)."""
+    mt = _MambaTP(cfg, mesh)
     if mode == "decode":
-        return _mamba_step(params, cfg, x, cache)
+        return _mamba_step(params, cfg, x, cache, mt)
     if mode not in ("train", "prefill"):
         raise ValueError(f"mamba mode {mode!r}: 'train', 'prefill' or "
                          "'decode'")
     b, s, d = x.shape
-    d_in, h, p, n, cc = _dims(cfg)
+    d_in, _, p, n, cc = _dims(cfg)
+    h = mt.hi - mt.lo
     q = min(cfg.ssm_chunk, s)
     if s % q:
         raise ValueError(f"seq {s} not divisible by ssm chunk {q}")
@@ -111,12 +165,14 @@ def mamba_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     z, xbc, dt_raw = _split_proj(cfg, x @ params["w_in"])
     xbc = F.silu(_causal_conv(xbc, params["conv_w"], params["conv_b"]))
-    xs = xbc[..., :d_in].reshape(b, s, h, p)
-    bmat = xbc[..., d_in:d_in + n]                        # [B,S,N]
-    cmat = xbc[..., d_in + n:]                            # [B,S,N]
+    xs = mt.channels(xbc[..., :d_in]).reshape(b, s, h, p)
+    bc = mt.part(xbc[..., d_in:])
+    bmat = bc[..., :n]                                    # [B,S,N]
+    cmat = bc[..., n:]                                    # [B,S,N]
 
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])  # [B,S,H]
-    a = -torch.exp(params["A_log"])                       # [H] (negative)
+    dt = F.softplus(mt.heads(dt_raw).float()
+                    + mt.heads(params["dt_bias"]))       # [B,S,H]
+    a = -torch.exp(mt.heads(params["A_log"]))             # [H] (negative)
     da = dt * a                                           # [B,S,H]
 
     # ---- chunked SSD ---- #
@@ -155,8 +211,10 @@ def mamba_forward(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     y_inter = torch.einsum("bcin,bchpn,bcih->bcihp", c_c, st_prev,
                            torch.exp(cum))
     y = (y_intra + y_inter).reshape(b, s, h, p)
-    y = y + params["D"][None, None, :, None] * xs_c.reshape(b, s, h, p)
-    out = _gated_out(params, cfg, y.to(x.dtype).reshape(b, s, d_in), z)
+    y = y + mt.heads(params["D"])[None, None, :, None] * xs_c.reshape(
+        b, s, h, p)
+    out = _gated_out(params, cfg, y.to(x.dtype).reshape(b, s, h * p),
+                     mt.channels(z), mt)
 
     if mode == "train":
         return out, None
@@ -188,26 +246,29 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device) -> Dict:
     }
 
 
-def _mamba_step(params, cfg: ModelConfig, x, cache):
+def _mamba_step(params, cfg: ModelConfig, x, cache, mt: _MambaTP):
     """Single-token recurrence: x [B,1,D]; the cache updated in place."""
     b = x.shape[0]
-    d_in, h, p, n, cc = _dims(cfg)
+    d_in, _, p, n, cc = _dims(cfg)
+    h = mt.hi - mt.lo
     z, xbc, dt_raw = _split_proj(cfg, x[:, 0, :] @ params["w_in"])
     xbc_conv, new_conv = _conv_step(xbc, cache["conv"], params["conv_w"],
                                     params["conv_b"])
     xbc_conv = F.silu(xbc_conv)
-    xs = xbc_conv[..., :d_in].reshape(b, h, p).float()
-    bmat = xbc_conv[..., d_in:d_in + n].float()           # [B,N]
-    cmat = xbc_conv[..., d_in + n:].float()               # [B,N]
+    xs = mt.channels(xbc_conv[..., :d_in]).reshape(b, h, p).float()
+    bc = mt.part(xbc_conv[..., d_in:])
+    bmat = bc[..., :n].float()                            # [B,N]
+    cmat = bc[..., n:].float()                            # [B,N]
 
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])  # [B,H]
-    da = torch.exp(dt * -torch.exp(params["A_log"]))      # [B,H]
+    dt = F.softplus(mt.heads(dt_raw).float()
+                    + mt.heads(params["dt_bias"]))       # [B,H]
+    da = torch.exp(dt * -torch.exp(mt.heads(params["A_log"])))  # [B,H]
     state = (cache["state"] * da[:, :, None, None]
              + torch.einsum("bh,bn,bhp->bhpn", dt, bmat, xs))
     y = torch.einsum("bn,bhpn->bhp", cmat, state)
-    y = y + params["D"][None, :, None] * xs
-    out = _gated_out(params, cfg, y.reshape(b, 1, d_in).to(x.dtype),
-                     z[:, None, :])
+    y = y + mt.heads(params["D"])[None, :, None] * xs
+    out = _gated_out(params, cfg, y.reshape(b, 1, h * p).to(x.dtype),
+                     mt.channels(z)[:, None, :], mt)
     cache["conv"].copy_(new_conv)
     cache["state"].copy_(state)
     return out, cache

@@ -75,6 +75,17 @@ chunk (``ssm_chunk``) that is not a multiple of it is rejected
 encoder-decoder (whisper) is served through ``models.prefill_fn`` /
 ``decode_fn``, not the engine: its prefill needs frames.
 
+``Engine(mesh=)`` serves on a bound mesh, as the reference's engine: it
+takes the rank's local params (``sharding.local_params``; whole params
+whose shapes are not those blocks are refused), each rank holds its kv
+heads of the pool (``serving/kv_cache.py``), and the runner runs every
+step eagerly with the models' tensor parallelism over ``model`` and the
+config's expert-parallel MoE (``models.moe.mesh_impl``: ``ep_a2a`` in the
+chunk steps, ``ep_psum`` in decode).  Every rank of a ``model`` group
+serves the same requests, with the same seed: the logits are whole on
+every rank, so admission, block tables and samples agree; the ranks of
+the data axes serve their own requests.
+
 ``Engine(expert_dtype="int8" | "int4")`` quantizes the routed experts at
 load (``quantize_expert_params``) and serves them through the
 ``moe_gmm_quant`` / ``moe_decode_quant`` kernels; plans registered with
@@ -121,6 +132,28 @@ def _supports_paging(cfg: ModelConfig) -> bool:
             and all(b.kind in _CHUNKABLE_KINDS for b in cfg.pattern()))
 
 
+def _check_local(cfg: ModelConfig, params, mesh, opts: ModelOpts,
+                 device) -> None:
+    """Refuse params that are not the rank's blocks of ``local_specs``
+    (under ``opts.fsdp_params``, its FSDP blocks) or a mesh bound on
+    another device type."""
+    if mesh.device is None or mesh.device.type != device.type:
+        raise ValueError(f"the engine runs on {device}; bind the mesh "
+                         f"there (it is bound on {mesh.device})")
+    from repro_torch import models
+    from repro_torch.sharding import local_shardings, local_tree
+    from repro_torch.tree import flatten_with_paths
+    whole = models.abstract_params(cfg)
+    want = dict(flatten_with_paths(local_tree(whole, local_shardings(
+        whole, cfg, mesh, opts.fsdp_params, opts.fsdp_min_size))))
+    for path, leaf in flatten_with_paths(params):
+        if path in want and tuple(leaf.shape) != tuple(want[path].shape):
+            raise ValueError(
+                f"{path}: {tuple(leaf.shape)} is not the rank's block "
+                f"{tuple(want[path].shape)} on {mesh!r}; pass "
+                "sharding.local_params(params, cfg, mesh)")
+
+
 class Engine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 8,
                  max_len: int = 512, prefill_pad: int = 64,
@@ -141,11 +174,13 @@ class Engine:
                  degrade_watermark: float = 0.25,
                  eos_id: Optional[int] = None, opts: ModelOpts = DEFAULT_OPTS,
                  clock: Optional[Clock] = None, seed: int = 0, device=None,
-                 graphs: bool = True):
+                 graphs: bool = True, mesh=None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
+        if mesh is not None:
+            _check_local(cfg, params, mesh, opts, self.device)
         if cfg.is_encoder_decoder:
             raise ValueError(
                 f"{cfg.name} is an encoder-decoder: its prefill needs "
@@ -262,7 +297,8 @@ class Engine:
         opts = replace(opts, use_paged_kernel=self.use_kernel,
                        use_moe_decode_kernel=self.use_moe_decode,
                        expert_dtype=ed, router_lookahead=rl)
-        self.runner = ModelRunner(cfg, params, opts=opts, graphs=graphs)
+        self.runner = ModelRunner(cfg, params, opts=opts, graphs=graphs,
+                                  mesh=mesh)
         self.plan_name = BASE_PLAN
         # pressure-adaptive plan degradation (DESIGN.md §10): an ordered
         # expensive -> cheap ladder of plan names; under pressure an
@@ -274,7 +310,8 @@ class Engine:
         self.degrade_watermark = float(degrade_watermark)
         self.kv = KVCache(self.cfg, max_batch, max_len, layout=cache_layout,
                           page_size=page_size, num_pages=num_pages,
-                          prefix_cache=self.prefix_cache, device=self.device)
+                          prefix_cache=self.prefix_cache, device=self.device,
+                          mesh=mesh)
         self.sched = Scheduler(max_batch, policy=scheduler, clock=self.clock)
         # time-ordered arrival queue: a request submitted for a future
         # arrival_time waits here until the clock reaches it; a heap of

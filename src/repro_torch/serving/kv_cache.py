@@ -32,6 +32,13 @@ oldest cached pages (unregistered, ``posp`` reset) only when the free list
 runs dry.  ``pages_in_use`` moves only on refcount 0 <-> 1 transitions, so
 a shared page counts once.
 
+Under a bound mesh (``mesh=``) the caches are the rank's blocks over
+``model`` of ``sharding.local_cache_specs``: the kv heads (GQA ``k`` /
+``v``, paged ``kp`` / ``vp``) and the mamba ``state`` heads where they
+split over ``model``, every head where they do not; the slots are the
+rank's own (a data rank serves its own requests, so no dim splits over
+the data axes).  The host accounting is the same on every rank.
+
 Every device write is in place, on the tensors the caches hold for the
 manager's whole life (the reference rebinds its cache pytree instead): a
 step captured as a CUDA graph reads and writes them, and the block table,
@@ -54,13 +61,36 @@ from repro_torch.models.attention import TRASH_PAGE, cache_buf_len
 from repro_torch.serving.prefix_cache import PrefixIndex
 
 
+def _rank_caches(cfg: ModelConfig, mesh, device, **kw):
+    """``models.init_caches(cfg, **kw)`` on ``device``; under a mesh the
+    rank's blocks over ``model`` of them (module doc), allocated at their
+    own shapes: the whole caches are laid out on the ``meta`` device only,
+    so a card never holds more than its blocks.  Every leaf starts at
+    zero but the position rows (``pos`` / ``posp``), at -1, as
+    ``init_caches`` makes them."""
+    if mesh is None:
+        return models.init_caches(cfg, device=device, **kw)
+    from repro_torch.sharding import Sharding, is_spec, local_cache_specs
+    from repro_torch.tree import flatten_with_paths, unflatten
+    whole = models.init_caches(cfg, device="meta", **kw)
+    specs = dict(flatten_with_paths(local_cache_specs(whole, cfg, mesh),
+                                    is_leaf=is_spec))
+    blocks = []
+    for path, t in flatten_with_paths(whole):
+        spec = tuple(e if e == "model" else None for e in specs[path])
+        shape = Sharding(mesh, spec).local(t).shape
+        fill = -1 if path.rsplit("/", 1)[-1] in ("pos", "posp") else 0
+        blocks.append(torch.full(shape, fill, dtype=t.dtype, device=device))
+    return unflatten(whole, blocks)
+
+
 class KVCache:
     """Owns the page pools + block tables for up to ``max_batch`` slots."""
 
     def __init__(self, cfg: ModelConfig, max_batch: int, max_len: int, *,
                  layout: str = "paged", page_size: int = 16,
                  num_pages: Optional[int] = None, prefix_cache: bool = False,
-                 device):
+                 device, mesh=None):
         if layout not in ("paged", "contiguous"):
             raise ValueError(f"unknown cache layout {layout!r}")
         if prefix_cache and layout != "paged":
@@ -73,9 +103,8 @@ class KVCache:
         self.s_buf = cache_buf_len(cfg, max_len)
         self.prefix_cache = prefix_cache
         if layout == "contiguous":
-            self.caches = models.init_caches(cfg, max_batch, max_len,
-                                             layout="contiguous",
-                                             device=device)
+            self.caches = _rank_caches(cfg, mesh, device, batch=max_batch,
+                                       max_len=max_len, layout="contiguous")
             self.stats = {}
             return
         self.page_size = page_size
@@ -84,9 +113,8 @@ class KVCache:
         # +1 for the reserved trash page unmapped table entries point at
         # (requests the pool can never hold are rejected via fits_ever)
         self.num_pages = (num_pages if num_pages is not None else full) + 1
-        self.caches = models.init_caches(cfg, page_size=page_size,
-                                         num_pages=self.num_pages,
-                                         device=device)
+        self.caches = _rank_caches(cfg, mesh, device, page_size=page_size,
+                                   num_pages=self.num_pages)
         self._free: List[int] = list(range(self.num_pages - 1, TRASH_PAGE, -1))
         self.table = np.full((max_batch, self.blocks_per_slot), TRASH_PAGE,
                              np.int32)

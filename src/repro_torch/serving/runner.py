@@ -58,6 +58,12 @@ and no key carries it, as in the reference's jit table.
 Every serving config is a per-layer split of the pattern
 (``split_pattern``), as in the reference, and all plans share one set of
 weights.
+
+``mesh=`` (a bound mesh, as the reference's runner takes one): the params
+are the rank's blocks (``sharding.local_params``) and every step runs the
+models' tensor and expert parallelism on them; the steps run eagerly,
+and ``graphs=True`` is refused (capturing the NCCL collectives of a step
+in a CUDA graph is ROADMAP B, held item 7).
 """
 
 from __future__ import annotations
@@ -131,7 +137,14 @@ class _Step:
 
 class ModelRunner:
     def __init__(self, cfg: ModelConfig, params, *,
-                 opts: ModelOpts = DEFAULT_OPTS, graphs: bool = True):
+                 opts: ModelOpts = DEFAULT_OPTS, graphs: bool = True,
+                 mesh=None):
+        if mesh is not None and graphs:
+            raise ValueError(
+                "a runner on a mesh runs its steps eagerly: pass "
+                "graphs=False (CUDA graphs of NCCL steps are ROADMAP B, "
+                "held item 7)")
+        self.mesh = mesh
         self.opts = opts
         self.base_cfg = cfg
         self.params = params
@@ -281,7 +294,8 @@ class ModelRunner:
         def step(tokens, pos, k_budgets=None):
             return models.decode_fn(self.params, cfg, tokens, pos, caches,
                                     opts=opts, block_tables=block_tables,
-                                    kernel_blocks=kb, k_budgets=k_budgets)[0]
+                                    kernel_blocks=kb, k_budgets=k_budgets,
+                                    mesh=self.mesh)[0]
         values = {"tokens": tokens, "pos": pos}
         if bucket is not None:
             values["k_budgets"] = k_budgets
@@ -301,7 +315,7 @@ class ModelRunner:
             return models.chunk_prefill_fn(
                 self.params, cfg, tokens, positions, caches,
                 last_index=last_index, block_tables=block_tables,
-                opts=opts, k_budgets=k_budgets)[0]
+                opts=opts, k_budgets=k_budgets, mesh=self.mesh)[0]
         values = {"tokens": tokens, "positions": positions,
                   "last_index": last_index}
         if bucket is not None:
@@ -317,4 +331,4 @@ class ModelRunner:
         return models.prefill_fn(
             self.params, self.plans[plan],
             {"tokens": tokens, "positions": positions}, caches,
-            opts=self.opts)
+            opts=self.opts, mesh=self.mesh)

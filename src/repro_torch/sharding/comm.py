@@ -11,6 +11,21 @@ of the summed per-rank losses flow across ranks as the reference's
 transposes do.  ``pmax`` is not: its one user, the log-sum-exp merge of
 context-parallel decode, runs without grad.
 
+Tensor parallelism keeps another rule for the gradients (Megatron's): an
+activation replicated over ``model`` carries the whole gradient on every
+rank, so the ranks of a ``model`` group compute one loss.  Its four
+operators over ``model`` pair a forward with the backward that rule asks
+for: ``copy_to_model`` (Megatron's *f*: identity, then a sum of the
+gradients; at the input of every column-parallel block),
+``reduce_from_model`` (*g*: a sum, then identity; after every
+row-parallel block), ``gather_from_model`` (an all-gather whose backward
+keeps the rank's block) and ``split_to_model`` (the rank's block, whose
+backward all-gathers).  ``all_gather``'s backward is a reduce-scatter: it
+serves a gathered tensor that each rank then reads only in part (the heads
+of a column block that cuts through a head) and the FSDP weights gathered
+over the data axes.  ``reduce_scatter`` is the ZeRO-1 and FSDP gradient
+step's.
+
 Each call reports its operand bytes to the open
 ``analysis.collectives.record()`` blocks.  A group of one rank still runs
 its collective (NCCL or gloo then copies), so a one-card mesh counts the
@@ -85,13 +100,10 @@ def pmax(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
 def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
                ) -> torch.Tensor:
     """The ranks' blocks of ``axes`` concatenated along ``dim``, in rank
-    order along them."""
-    n = mesh.axis_size(axes)
-    x = x.contiguous()
-    note("all-gather", _nbytes(x) * n, n)
-    with _quiet():
-        parts = _functional().all_gather(x, group=mesh.get_group(axes))
-    return torch.cat(parts, dim=dim)
+    order along them; the backward sums the gradient over the ranks and
+    keeps each its block (a reduce-scatter; torch's own autograd gather
+    addresses a subgroup's ranks as global ranks on gloo)."""
+    return _AllGather.apply(x, mesh, axes, dim)
 
 
 def barrier(mesh: Mesh) -> None:
@@ -99,3 +111,140 @@ def barrier(mesh: Mesh) -> None:
     import torch.distributed as dist
     mesh.coordinates()                       # bound
     dist.barrier(group=mesh.get_group(mesh.axis_names))
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
+                   ) -> torch.Tensor:
+    """The sum over the ranks of ``axes``, of which each rank keeps its
+    block along ``dim`` (no gradient)."""
+    import torch.distributed as dist
+    n = mesh.axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter over {axes!r} ({n} ranks): dim "
+                         f"{dim} of {tuple(x.shape)} does not split")
+    note("reduce-scatter", _nbytes(x) // n, n)
+    group = mesh.get_group(axes)
+    x = x.detach()
+    if dist.get_backend(group) == "nccl":
+        xt = x.movedim(dim, 0).contiguous()
+        out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
+                          dtype=x.dtype, device=x.device)
+        dist.reduce_scatter_tensor(out, xt, group=group)
+        return out.movedim(0, dim).contiguous()
+    # gloo has no reduce-scatter: a sum, of which the rank keeps its block
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return _block(out, mesh, axes, dim).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim), None, None,
+                None)
+
+
+# --------------------------------------------------------------------------- #
+# Tensor parallelism over ``model`` (module doc)
+# --------------------------------------------------------------------------- #
+
+
+def _all_reduce(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    import torch.distributed as dist
+    note("all-reduce", _nbytes(x), mesh.axis_size(axes))
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=mesh.get_group(axes))
+    return out
+
+
+def _gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    import torch.distributed as dist
+    n = mesh.axis_size(axes)
+    x = x.contiguous()
+    note("all-gather", _nbytes(x) * n, n)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=mesh.get_group(axes))
+    return torch.cat(parts, dim=dim)
+
+
+def _block(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    n = mesh.axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over "
+                         f"{axes!r} ({n} ranks)")
+    size = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index(axes) * size, size)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_block(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(), None,
+                None, None)
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _block(x, mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Identity; the backward sums the gradient over ``model`` (Megatron's
+    *f*, ahead of a block each rank reads only in part)."""
+    return _CopyTo.apply(x, mesh, "model")
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over ``model``; the backward passes the gradient on as it is
+    (Megatron's *g*, after a row-parallel block)."""
+    return _ReduceFrom.apply(x, mesh, "model")
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The ranks' blocks along ``dim`` concatenated in rank order, into a
+    tensor every rank then reads whole; the backward keeps the rank's
+    block of the gradient."""
+    return _GatherFrom.apply(x, mesh, "model", dim)
+
+
+def split_to_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The rank's block along ``dim`` of a tensor the same on every rank of
+    ``model``; the backward all-gathers the blocks' gradients."""
+    return _SplitTo.apply(x, mesh, "model", dim)

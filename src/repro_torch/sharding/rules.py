@@ -24,18 +24,24 @@ identical layers under a leading layer dim; the same regexes match the
 shape, so a port leaf's spec is the reference's without that leading
 entry.
 
-What runs: ``local_specs`` keeps of these specs only the expert-dim
-sharding of the MoE weights over ``model`` (expert parallelism);
-``local_params`` cuts each rank's block by it and every other leaf stays
-whole on every rank.  The tensor-parallel, FSDP and ZeRO-1 specs are
-computed here for every config but not run (ROADMAP A14 step 2).
+What runs: ``local_specs`` is ``param_specs`` (with ``fsdp=`` from
+``ModelOpts.fsdp_params``), and ``local_params`` cuts every leaf by it:
+a rank holds its tensor-parallel, expert, and FSDP blocks of the params
+(``opt_state_specs``' ZeRO-1 blocks of the moments, ``training/step.py``)
+and the models run Megatron tensor parallelism on them
+(``models/tp.py``).  A fused gate / up leaf (``w1`` ``[.., 2F]``) splits
+in pairs: the rank's block is its slice of the gate columns then the same
+slice of the up columns (``Sharding(fused=)``), so that SwiGLU runs on
+the rank's ``F / model``.  Where the experts do not split over
+``model``, ``_moe_w`` shards their F (w1's fused columns in pairs, w2's
+rows) where the reference's rule shards the last dim of each.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -94,11 +100,19 @@ def _embed(shape, m):     # [V, D]
     return ("model" if _div(shape[0], m) else None, None)
 
 
-def _moe_w(shape, m):     # [E, a, b] -> EP over experts, else feature TP
+def _moe_w1(shape, m):    # [E, D, 2F] -> EP over experts, else F (pairs)
     if _div(shape[0], m):
         return ("model", None, None)
-    if _div(shape[2], m):
+    if _div(shape[2] // 2, m):
         return (None, None, "model")
+    return (None, None, None)
+
+
+def _moe_w2(shape, m):    # [E, F, D] -> EP over experts, else F
+    if _div(shape[0], m):
+        return ("model", None, None)
+    if _div(shape[1], m):
+        return (None, "model", None)
     return (None, None, None)
 
 
@@ -112,8 +126,8 @@ _RULES = (
     (re.compile(r"\bprefix_proj$"), 2, _repl),
     # MoE (must precede generic w1/w2)
     (re.compile(r"moe.*\brouter$"), 2, _repl),
-    (re.compile(r"moe.*\bw1$"), 3, _moe_w),
-    (re.compile(r"moe.*\bw2$"), 3, _moe_w),
+    (re.compile(r"moe.*\bw1$"), 3, _moe_w1),
+    (re.compile(r"moe.*\bw2$"), 3, _moe_w2),
     (re.compile(r"shared.*\bw1$"), 2, _col),
     (re.compile(r"shared.*\bw2$"), 2, _row),
     # attention
@@ -150,9 +164,15 @@ def spec_for_param(path_str: str, shape: Tuple[int, ...], mesh) -> Spec:
 
 def _run_lengths(cfg: ModelConfig):
     """Layer index -> the length of its run of identical layers, the
-    reference's stacked dim (none for a run of one)."""
+    reference's stacked dim (none for a run of one).  A layer's top-k and
+    serving split tag do not count: every LExI plan and the serving
+    runner's per-layer split share the base config's one set of weights,
+    so they share its specs."""
+    from dataclasses import replace
     from repro_torch.models.blocks import group_pattern
-    return {i: g.count for g in group_pattern(cfg.pattern())
+    pattern = tuple(replace(s, moe_top_k=0, split_id=0)
+                    for s in cfg.pattern())
+    return {i: g.count for g in group_pattern(pattern)
             for i in range(g.start, g.start + g.count)}
 
 
@@ -322,33 +342,53 @@ class Sharding:
     """A spec on a mesh (``jax.sharding.NamedSharding``'s counterpart).
     ``local`` cuts this rank's block of a whole tensor; ``gather``
     (collective: every rank of the mesh calls it) rebuilds the whole
-    tensor from the ranks' blocks."""
+    tensor from the ranks' blocks.
 
-    def __init__(self, mesh, spec: Spec):
+    ``fused``: a dim laid out as two halves (a fused gate / up ``w1``),
+    which splits in pairs: the rank's block is its block of each half,
+    concatenated."""
+
+    def __init__(self, mesh, spec: Spec, fused: Optional[int] = None):
         self.mesh = mesh
         self.spec = tuple(spec)
+        self.fused = fused
 
     def __repr__(self) -> str:
-        return f"Sharding({self.spec})"
+        tail = "" if self.fused is None else f", fused={self.fused}"
+        return f"Sharding({self.spec}{tail})"
 
-    def _dims(self, ndim: int):
+    def _dims(self, ndim: int, axes_of=None):
         entries = list(self.spec) + [None] * (ndim - len(self.spec))
-        return [(d, _entry_axes(e)) for d, e in enumerate(entries) if e]
+        out = [(d, _entry_axes(e)) for d, e in enumerate(entries) if e]
+        if axes_of is not None:
+            out = [(d, a) for d, a in out if axes_of(a)]
+        return out
+
+    def _halves(self, d: int, ndim: int) -> int:
+        return 2 if self.fused is not None and d == self.fused % ndim else 1
 
     def local(self, t: torch.Tensor) -> torch.Tensor:
         for d, axes in self._dims(t.dim()):
-            n = self.mesh.axis_size(axes)
-            if t.shape[d] % n:
+            n, h = self.mesh.axis_size(axes), self._halves(d, t.dim())
+            if t.shape[d] % (n * h):
                 raise ValueError(f"dim {d} of {tuple(t.shape)} does not "
-                                 f"split over {axes} ({n} ranks)")
-            size = t.shape[d] // n
-            t = t.narrow(d, self.mesh.axis_index(axes) * size, size)
+                                 f"split over {axes} ({n} ranks"
+                                 f"{', in pairs' if h > 1 else ''})")
+            size = t.shape[d] // (n * h)
+            i = self.mesh.axis_index(axes)
+            parts = [half.narrow(d, i * size, size)
+                     for half in t.chunk(h, dim=d)]
+            t = parts[0] if h == 1 else torch.cat(parts, dim=d)
         return t
 
-    def gather(self, t: torch.Tensor) -> torch.Tensor:
+    def gather(self, t: torch.Tensor, axes_of=None) -> torch.Tensor:
+        """The whole tensor (collective; differentiable, a reduce-scatter
+        backward); ``axes_of(axes) -> bool`` keeps the dims to gather."""
         from repro_torch.sharding.comm import all_gather
-        for d, axes in self._dims(t.dim()):
-            t = all_gather(t, self.mesh, axes, dim=d)
+        for d, axes in self._dims(t.dim(), axes_of):
+            halves = t.chunk(self._halves(d, t.dim()), dim=d)
+            parts = [all_gather(x, self.mesh, axes, dim=d) for x in halves]
+            t = parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
         return t
 
     @property
@@ -361,62 +401,89 @@ def named(mesh, spec_tree):
 
 
 # --------------------------------------------------------------------------- #
-# What the port runs: expert parallelism
+# What the port runs
 # --------------------------------------------------------------------------- #
 
-_EXPERT = re.compile(r"moe.*\bw[12]$")
+_FUSED = re.compile(r"\bw1$")
 
 
-def is_expert_weight(path: str, leaf) -> bool:
-    """A routed expert stack ``[E, a, b]`` (``_moe_w``'s leaves): the
-    leaves expert parallelism shards."""
-    return bool(_EXPERT.search(path)) and len(leaf.shape) == 3
+def _fused_dim(path: str) -> Optional[int]:
+    """The fused gate / up dim of a ``w1`` leaf (its last), else None."""
+    return -1 if _FUSED.search(path) else None
 
 
-def local_specs(params_tree, mesh):
-    """The specs the port runs: the MoE expert weights' expert dim over
-    ``model`` (``param_specs``' EP entry), every other leaf whole.  Raises
-    when a MoE layer's experts do not split over ``model``."""
+def local_specs(params_tree, cfg: ModelConfig, mesh, fsdp: bool = False,
+                fsdp_min_size: int = 1 << 20):
+    """The specs the port runs: ``param_specs(..., fsdp=fsdp,
+    fsdp_min_size=...)`` as they are, except that a fused ``w1`` whose F
+    does not split over ``model`` (its 2F does) stays whole over
+    ``model``."""
     m = _axis(mesh, "model")
+    specs = flatten_with_paths(param_specs(params_tree, cfg, mesh, fsdp=fsdp,
+                                           fsdp_min_size=fsdp_min_size),
+                               is_leaf=is_spec)
+    shapes = dict(flatten_with_paths(params_tree))
 
-    def leaf_spec(path, leaf):
-        shape = tuple(leaf.shape)
-        if not is_expert_weight(path, leaf):
-            return (None,) * len(shape)
-        if not _div(shape[0], m):
-            raise ValueError(f"{path}: {shape[0]} experts do not split over "
-                             f"model={m} (expert parallelism)")
-        return ("model", None, None)
+    def keep(path, spec):
+        if _fused_dim(path) is None or not spec or spec[-1] != "model":
+            return spec
+        if _div(shapes[path].shape[-1] // 2, m):
+            return spec
+        return spec[:-1] + (None,)
 
-    return unflatten(params_tree, [leaf_spec(p, x) for p, x in
-                                   flatten_with_paths(params_tree)])
+    return unflatten(params_tree, [keep(p, s) for p, s in specs])
 
 
-def local_params(params, cfg: ModelConfig, mesh):
+def shardings_for(tree, spec_tree, mesh):
+    """``named`` with each fused ``w1`` leaf's pairs marked (``Sharding(
+    fused=)``); ``tree`` names the leaves (any tree of the params' paths:
+    the params, their moments or grads)."""
+    paths = [p for p, _ in flatten_with_paths(tree)]
+    specs = [s for _, s in flatten_with_paths(spec_tree, is_leaf=is_spec)]
+    return unflatten(tree, [Sharding(mesh, s, _fused_dim(p))
+                            for p, s in zip(paths, specs)])
+
+
+def local_shardings(params_tree, cfg: ModelConfig, mesh, fsdp: bool = False,
+                    fsdp_min_size: int = 1 << 20):
+    """``local_specs`` on ``mesh`` as ``Sharding`` leaves."""
+    return shardings_for(params_tree, local_specs(
+        params_tree, cfg, mesh, fsdp, fsdp_min_size), mesh)
+
+
+def local_params(params, cfg: ModelConfig, mesh, fsdp: bool = False,
+                 fsdp_min_size: int = 1 << 20):
     """The rank's block of a whole (converted) param tree under
-    ``local_specs``: each MoE layer's ``[E/model, ...]`` expert slice (a
-    copy, ``local_tree``); the rest shared with ``params``.  ``cfg`` as
-    ``param_specs`` takes it; the expert dim is read off the tree."""
-    del cfg
-    return local_tree(params, named(mesh, local_specs(params, mesh)))
+    ``local_specs``: each sharded leaf's block is a copy (``local_tree``),
+    each whole leaf is shared with ``params``."""
+    return local_tree(params, local_shardings(params, cfg, mesh, fsdp,
+                                              fsdp_min_size))
+
+
+def fsdp_layout(cfg: ModelConfig, mesh, fsdp_min_size: int = 1 << 20):
+    """The ``Sharding`` tree of ``local_specs(fsdp=True)`` for ``cfg``'s
+    params, from ``models.abstract_params`` (memoized on the mesh, per
+    config, whatever its plan or serving split): what a model gathers over
+    the data axes where a layer uses a weight (``models/tp.py``)."""
+    from dataclasses import replace
+    key = (replace(cfg, block_pattern=tuple(
+        replace(s, moe_top_k=0, split_id=0) for s in cfg.pattern()),
+        lexi_plan=None), fsdp_min_size)
+    if key not in mesh.layouts:
+        from repro_torch.models import abstract_params
+        mesh.layouts[key] = local_shardings(abstract_params(cfg), cfg, mesh,
+                                            True, fsdp_min_size)
+    return mesh.layouts[key]
 
 
 def local_cache_specs(cache_tree, cfg: ModelConfig, mesh,
                       seq_shard: bool = False):
-    """The cache specs the port runs: ``cache_specs``' batch dim over the
-    data axes and, under ``seq_shard``, the GQA sequence dim over
-    ``model`` (context-parallel decode); the head sharding over ``model``
-    is tensor parallelism, not run (every rank holds every head)."""
-    gqa = re.compile(r"(^|/)(k|v|pos)$")
-
-    def keep(path, spec):
-        return tuple(None if e == "model" and not (
-            seq_shard and d == 1 and gqa.search(path)) else e
-            for d, e in enumerate(spec))
-
-    specs = flatten_with_paths(cache_specs(cache_tree, cfg, mesh, seq_shard),
-                               is_leaf=is_spec)
-    return unflatten(cache_tree, [keep(p, s) for p, s in specs])
+    """The cache specs the port runs: ``cache_specs`` as they are -- the
+    batch dim over the data axes, the kv heads (GQA ``k`` / ``v``, paged
+    ``kp`` / ``vp``) and the mamba ``state`` heads over ``model`` where
+    they split, and under ``seq_shard`` the GQA sequence dim over
+    ``model`` in place of the heads (context-parallel decode)."""
+    return cache_specs(cache_tree, cfg, mesh, seq_shard)
 
 
 def local_tree(tree, shardings):

@@ -12,10 +12,13 @@ Responsibilities:
     since the backward of a gather accumulates with atomics otherwise).
 
 Under a bound ``mesh`` every rank runs ``train``: the state is drawn whole
-from the seed and cut to the rank's block (``state_shardings``), each
-step takes the rank's block of the global batch over every axis, and a
-checkpoint is the whole state, gathered on every rank and written by
-rank 0, so it resumes on any mesh shape or in one process.
+from the seed and cut to the rank's blocks (``state_shardings``: tensor
+parallelism, experts, ZeRO-1 moments, and FSDP under
+``opts.fsdp_params``), each step takes the rank's data block of the
+global batch (rows over the data axes, the same on every rank of a
+``model`` group), and a checkpoint is the whole state, gathered on every
+rank and written by rank 0, so it resumes on any mesh shape or in one
+process.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from repro_torch.models.common import resolve_device
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
 from repro_torch.optim import AdamW
 from repro_torch.sharding import comm
-from repro_torch.sharding.rules import Sharding, gather_tree, local_tree
+from repro_torch.sharding.rules import Sharding, data_axes, gather_tree, \
+    local_tree
 from repro_torch.training.step import init_state, make_train_step, \
     state_shardings
 
@@ -95,8 +99,8 @@ def train(
                        device=dev)
     shardings = rows = None
     if mesh is not None:
-        shardings = state_shardings(state, mesh)
-        rows = Sharding(mesh, (mesh.axis_names,))    # batch over every axis
+        shardings = state_shardings(state, cfg, mesh, opts)
+        rows = Sharding(mesh, (data_axes(mesh) or None,))  # the data block
     whole, state = state, (state if mesh is None
                            else local_tree(state, shardings))
     if mgr and resume and mgr.latest_step() is not None:

@@ -9,15 +9,23 @@ paths: a kernel wrapper handed a tensor that requires grad raises
 The step updates the state's params and moments in place.
 
 Under a bound ``mesh`` the step is a per-rank program: the batch is the
-rank's block over every axis, the state the rank's (expert slices of
-``sharding.local_specs``, every other leaf whole).  Each rank weighs its
-loss into a share -- its cross-entropy times its mask count over the
-global count, plus its aux term over the world size -- whose sum over
-the ranks is the global batch's loss; the collectives carry the
-gradients of that sum across ranks, and the step then all-reduces each
-whole leaf's gradient over the world and each expert slice's over the
-data axes.  The aux is the mean of the ranks' own, as the reference's
-EP ``pmean``.  The steps run eagerly.
+rank's data block (``sharding.batch_specs``: rows over the data axes, the
+same on every rank of a ``model`` group), the state the rank's blocks
+(``state_shardings``): the params' tensor-parallel, expert and (under
+``opts.fsdp_params``) FSDP blocks of ``sharding.local_specs``, the
+moments' ZeRO-1 blocks over the data axes (``opt_state_specs``).  The
+ranks of a ``model`` group compute one loss, the data block's; each data
+block weighs it into a share -- its cross-entropy times its mask count
+over the global count, plus its aux term over the data axes' size --
+whose sum over the data axes is the global batch's loss.  Tensor
+parallelism's collectives (``models/tp.py``) leave every replicated
+leaf's gradient whole and equal on the ranks of a ``model`` group and
+every split leaf's the gradient of its block, so the step sums each
+gradient over the data axes only (an FSDP leaf's comes out of its
+gather's reduce-scatter already summed, as its block).  Under ZeRO-1 each
+rank then updates its block of each param from its block of the summed
+gradient and its moments, and all-gathers the params over the data axes.
+The steps run eagerly.
 """
 
 from __future__ import annotations
@@ -34,8 +42,9 @@ from repro_torch.optim import AdamW, AdamWState
 from repro_torch.optim.compression import compress_grads, init_error_state
 from repro_torch.sharding import comm
 from repro_torch.sharding.rules import Sharding, data_axes, \
-    is_expert_weight, local_specs, named
-from repro_torch.tree import flatten_with_paths, leaves, unflatten
+    data_axes_size, local_shardings, local_specs, opt_state_specs, \
+    shardings_for
+from repro_torch.tree import leaves, unflatten
 
 
 class TrainState(NamedTuple):
@@ -56,14 +65,31 @@ def init_state(cfg: ModelConfig, optimizer: AdamW, seed: int = 0, *,
     )
 
 
-def state_shardings(state: TrainState, mesh) -> TrainState:
+def state_shardings(state: TrainState, cfg: ModelConfig, mesh,
+                    opts: ModelOpts = DEFAULT_OPTS) -> TrainState:
     """The shardings of a whole train state under ``mesh``: the params'
-    ``local_specs``, the same for the moments and the error state, the
-    step count whole."""
-    ps = named(mesh, local_specs(state.params, mesh))
+    ``local_specs`` (FSDP under ``opts.fsdp_params``), the moments' ZeRO-1
+    specs over the data axes (``opt_state_specs``), the error state's the
+    params', the step count whole."""
+    fsdp = (opts.fsdp_params, opts.fsdp_min_size)
+    ps = local_shardings(state.params, cfg, mesh, *fsdp)
+    specs = opt_state_specs(state.opt, local_specs(state.params, cfg, mesh,
+                                                   *fsdp), mesh)
+    ms = shardings_for(state.params, specs.mu, mesh)
     return TrainState(params=ps, opt=AdamWState(step=Sharding(mesh, ()),
-                                                mu=ps, nu=ps),
+                                                mu=ms, nu=ms),
                       err=None if state.err is None else ps)
+
+
+def whole_shardings(cfg: ModelConfig, mesh, opts: ModelOpts = DEFAULT_OPTS,
+                    compression: bool = False) -> TrainState:
+    """``state_shardings`` of a whole state of ``cfg`` without one (the
+    specs read whole shapes, ``models.abstract_params``, never a rank's
+    blocks); an error state under ``compression``."""
+    params = models.abstract_params(cfg)
+    return state_shardings(TrainState(params, AdamWState(0, params, params),
+                                      params if compression else None),
+                           cfg, mesh, opts)
 
 
 def _grads(loss: torch.Tensor, live) -> Tuple[torch.Tensor, ...]:
@@ -72,33 +98,39 @@ def _grads(loss: torch.Tensor, live) -> Tuple[torch.Tensor, ...]:
                  for g, p in zip(gs, live))
 
 
+def _psum_data(x, mesh):
+    daxes = data_axes(mesh)
+    return comm.psum(x, mesh, daxes) if daxes else x
+
+
 def _rank_share(loss, metrics, batch, mesh):
-    """-> (the rank's share of the global loss, the global loss, xent and
-    aux).  share = xent * n / N + (loss - xent) / W, with n the rank's mask
-    count, N the world's and W the world size: the shares sum to the
-    global cross-entropy plus the mean of the ranks' aux terms."""
+    """-> (the data block's share of the global loss, the global loss,
+    xent and aux).  share = xent * n / N + (loss - xent) / D, with n the
+    block's mask count, N the global one and D the data axes' size: the
+    shares sum over the data axes to the global cross-entropy plus the
+    mean of the blocks' aux terms.  Every rank of a ``model`` group
+    computes the same share."""
     n = batch["mask"].float().sum()
-    n_all = comm.psum(n, mesh, mesh.axis_names)
+    n_all = _psum_data(n, mesh)
+    d = data_axes_size(mesh)
     xent_share = metrics["xent"] * (n / n_all.clamp(min=1.0))
-    share = xent_share + (loss - metrics["xent"]) / mesh.size
-    out = comm.psum(torch.stack([share, xent_share, metrics["aux"]
-                                 / mesh.size]).detach(),
-                    mesh, mesh.axis_names)
+    share = xent_share + (loss - metrics["xent"]) / d
+    out = _psum_data(torch.stack([share, xent_share, metrics["aux"] / d])
+                     .detach(), mesh)
     return share, out[0], {"xent": out[1], "aux": out[2]}
 
 
-def expert_mask(params) -> List[bool]:
-    """Per leaf of ``params``: is it an expert slice under a mesh."""
-    return [is_expert_weight(p, x) for p, x in flatten_with_paths(params)]
+def _has_data(sh: Sharding) -> bool:
+    return any(a != "model" for e in sh.spec if e is not None
+               for a in (e if isinstance(e, tuple) else (e,)))
 
 
-def _reduce_grads(grads: List[torch.Tensor], experts: List[bool], mesh
+def _reduce_grads(grads: List[torch.Tensor], shardings, mesh
                   ) -> List[torch.Tensor]:
-    """Sum each whole leaf's gradient over the world, each expert slice's
-    over the data axes (the ranks that hold the same experts)."""
-    daxes = data_axes(mesh)
-    return [comm.psum(g, mesh, daxes if ex else mesh.axis_names)
-            if (daxes or not ex) else g for g, ex in zip(grads, experts)]
+    """Sum each gradient over the data axes, but an FSDP leaf's (its
+    gather's reduce-scatter summed it)."""
+    return [g if _has_data(sh) else _psum_data(g, mesh)
+            for g, sh in zip(grads, leaves(shardings))]
 
 
 def value_and_grad(cfg: ModelConfig, *, opts: ModelOpts = DEFAULT_OPTS,
@@ -106,7 +138,9 @@ def value_and_grad(cfg: ModelConfig, *, opts: ModelOpts = DEFAULT_OPTS,
     """-> fn(params, batch) -> (loss, metrics, grads like params).  The
     grads are in each param's dtype, or f32 sums over ``microbatches``
     divided by their count.  Under ``mesh`` the loss and metrics are the
-    global batch's and the grads reduced over the ranks (module doc)."""
+    global batch's and the grads reduced over the data axes (module
+    doc)."""
+    shardings = {}
 
     def loss_of(tree, batch):
         loss, metrics = models.loss_fn(tree, cfg, batch, mesh=mesh,
@@ -146,25 +180,48 @@ def value_and_grad(cfg: ModelConfig, *, opts: ModelOpts = DEFAULT_OPTS,
                 loss = loss / microbatches
                 metrics = {"xent": loss, "aux": torch.zeros_like(loss)}
         if mesh is not None:
-            grads = _reduce_grads(grads, expert_mask(params), mesh)
+            if "params" not in shardings:
+                shardings["params"] = whole_shardings(cfg, mesh, opts).params
+            grads = _reduce_grads(grads, shardings["params"], mesh)
         return loss, metrics, unflatten(params, grads)
 
     return fn
 
 
-def _global_norm(grads, mesh=None) -> torch.Tensor:
-    """The norm of the whole gradient: under a mesh the expert slices'
-    squares are summed over ``model`` (each rank holds its experts')."""
+def _axes_of(sh: Sharding, mesh) -> Tuple[str, ...]:
+    used = {a for e in sh.spec if e is not None
+            for a in (e if isinstance(e, tuple) else (e,))}
+    return mesh.axes(used) if used else ()
+
+
+def _global_norm(grads, mesh=None, shardings=None) -> torch.Tensor:
+    """The norm of the whole gradient: under a mesh each leaf's squares
+    are summed over the axes its block splits over."""
     sq = [torch.linalg.vector_norm(g, dtype=torch.float32).square()
           for g in leaves(grads)]
     if mesh is None:
         return torch.stack(sq).sum().sqrt()
-    ex = expert_mask(grads)
-    whole = torch.stack([q for q, e in zip(sq, ex) if not e]
-                        or [sq[0].new_zeros(())]).sum()
-    sliced = torch.stack([q for q, e in zip(sq, ex) if e]
-                         or [sq[0].new_zeros(())]).sum()
-    return (whole + comm.psum(sliced, mesh, "model")).sqrt()
+    groups: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    for q, sh in zip(sq, leaves(shardings)):
+        groups.setdefault(_axes_of(sh, mesh), []).append(q)
+    total = sq[0].new_zeros(())
+    for axes in sorted(groups):
+        part = torch.stack(groups[axes]).sum()
+        total = total + (comm.psum(part, mesh, axes) if axes else part)
+    return total.sqrt()
+
+
+def _zero1_blocks(shardings: TrainState, mesh):
+    """Per param leaf: the ``Sharding`` of its ZeRO-1 block (the data-axes
+    entries its moments add to its own spec), or None where the moments
+    split no further than the param."""
+    out = []
+    for ps, ms in zip(leaves(shardings.params), leaves(shardings.opt.mu)):
+        extra = tuple(None if e == p else e for e, p in
+                      zip(ms.spec, ps.spec + (None,) * len(ms.spec)))
+        out.append(Sharding(mesh, extra, ms.fused)
+                   if any(e is not None for e in extra) else None)
+    return out
 
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
@@ -174,21 +231,30 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
     """Returns step(state, batch) -> (state, metrics): ``loss``, ``xent``,
     ``aux``, ``grad_norm`` (device scalars) and ``lr`` (the new step's).
     Under a bound ``mesh``: the rank's batch block and state (module
-    doc); the metrics are the global batch's on every rank."""
+    doc, ``state_shardings``); the metrics are the global batch's on every
+    rank."""
     grads_of = value_and_grad(cfg, opts=opts, microbatches=microbatches,
                               mesh=mesh)
-    # a scale group's amax over the model ranks, whose expert slices
-    # differ (whole leaves are equal on every rank after the reduction)
+    # a scale group's amax over the ranks, whose blocks of a leaf differ
+    # (whole leaves are equal on every rank after the reduction)
     amax = None if mesh is None else (
-        lambda a: comm.pmax(a, mesh, "model"))
+        lambda a: comm.pmax(a, mesh, mesh.axis_names))
+    layout = {}
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         loss, metrics, grads = grads_of(state.params, batch)
         err = state.err
         if compression:
             grads, err = compress_grads(grads, err, cfg, amax_reduce=amax)
-        gnorm = _global_norm(grads, mesh)
-        opt = optimizer.step_(grads, state.opt, state.params)
+        if mesh is None:
+            gnorm = _global_norm(grads)
+            opt = optimizer.step_(grads, state.opt, state.params)
+        else:
+            if not layout:
+                layout["sh"] = whole_shardings(cfg, mesh, opts)
+                layout["zero"] = _zero1_blocks(layout["sh"], mesh)
+            gnorm = _global_norm(grads, mesh, layout["sh"].params)
+            opt = _zero1_step(optimizer, state, grads, layout["zero"])
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = gnorm
@@ -196,3 +262,18 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
         return TrainState(state.params, opt, err), metrics
 
     return step
+
+
+@torch.no_grad()
+def _zero1_step(optimizer: AdamW, state: TrainState, grads, zero):
+    """AdamW on each rank's ZeRO-1 block of every param (its moments'
+    block), then the params all-gathered over the data axes, in place."""
+    ps, gs = leaves(state.params), leaves(grads)
+    blocks = [p if z is None else z.local(p).clone() for p, z in zip(ps, zero)]
+    gblk = [g if z is None else z.local(g) for g, z in zip(gs, zero)]
+    opt = optimizer.step_(unflatten(state.params, gblk), state.opt,
+                          unflatten(state.params, blocks))
+    for p, b, z in zip(ps, blocks, zero):
+        if z is not None:
+            p.copy_(z.gather(b))
+    return opt

@@ -44,25 +44,35 @@ def decode_cfg():
         moe_capacity_factor=8.0, num_layers=2, num_kv_heads=2)
 
 
+#: FSDP's size bound in the ``*_fsdp`` runs: the tiny configs' leaves are
+#: far below the reference's 2^20 elements
+FSDP_MIN = 1024
+
+
 def train_runs():
     """tag -> (config, ``train`` options): a tiny MoE on ep_a2a, plain and
     with int8 gradient compression, and a tiny dense LM (the reference's
-    elastic restore config)."""
+    elastic restore config); each under ZeRO-1 (every mesh run), the
+    ``*_fsdp`` ones with ``fsdp_params`` too."""
     from repro_torch.configs import get_config
+    from repro_torch.models import ModelOpts
     moe = get_config("olmoe-1b-7b").reduced().with_(
         num_layers=2, dtype="float32", moe_impl="ep_a2a",
         moe_capacity_factor=8.0)
     dense = get_config("olmo-1b").reduced().with_(
         num_layers=2, d_model=64, num_heads=2, num_kv_heads=2, head_dim=32,
         d_ff=128, vocab_size=128, vocab_pad_multiple=16, dtype="float32")
+    fsdp = {"opts": ModelOpts(fsdp_params=True, fsdp_min_size=FSDP_MIN)}
     return {"moe": (moe, {}), "moe_int8": (moe, {"compression": True}),
-            "dense": (dense, {})}
+            "dense": (dense, {}), "moe_fsdp": (moe, fsdp),
+            "dense_fsdp": (dense, fsdp)}
 
 
 def one_process_microbatches(cfg) -> int:
     """The one-process run a mesh run equals: under EP each rank's aux is
-    over its own tokens, as one microbatch a rank's block; a dense LM's
-    mesh step is the step on the global batch."""
+    over its own rows (its ``model`` block of its data block), as one
+    microbatch a rank's rows; a dense LM's mesh step is the step on the
+    global batch."""
     return WORLD if cfg.moe_impl == "ep_a2a" else 1
 
 
@@ -100,16 +110,16 @@ def _moe_checks(mesh, out):
     x = moe_input(cfg)
     d = cfg.d_model
     x2d = x.reshape(-1, d)
-    every = Sharding(mesh, (AXES,))          # tokens over every axis
+    every = Sharding(mesh, (AXES,))          # a rank's own rows
     data = Sharding(mesh, ("data",))         # over data, same on model
     xa, xp = every.local(x2d), data.local(x2d)
     k = cfg.moe_top_k
     for chunks in (1, 2):
-        y, aux = moe(mpl, cfg, xa[None], k, impl="ep_a2a", mesh=mesh,
+        y, aux = moe(mpl, cfg, xp[None], k, impl="ep_a2a", mesh=mesh,
                      a2a_chunks=chunks)
-        out[f"a2a_y_c{chunks}"] = comm.all_gather(y[0], mesh, AXES)
+        out[f"a2a_y_c{chunks}"] = comm.all_gather(y[0], mesh, "data")
         out[f"a2a_aux_c{chunks}"] = aux
-    # each rank's aux over its own tokens, on the plain dense path
+    # each rank's aux over its own rows, on the plain dense path
     aux_r = moe(mp, cfg, xa[None], k, impl="dense")[1]
     out["a2a_aux_ranks"] = comm.all_gather(aux_r[None], mesh, AXES)
     y, aux = moe(mpl, cfg, xp[None], k, impl="ep_psum", mesh=mesh)
@@ -120,19 +130,19 @@ def _moe_checks(mesh, out):
     y0, aux0 = moe(mp, cfg, x, k, impl="dense")
     out["dense_y"], out["dense_aux"] = y0.reshape(-1, d), aux0
 
-    # gradients of sum(y^2) + 0.01 aux: each rank's share, the shares'
-    # gradients reduced as the train step does, the expert slices gathered
+    # gradients of sum(y^2) + 0.01 aux: each data block's share (the same
+    # on its model ranks), reduced as the train step does (over the data
+    # axes), the expert slices gathered
     live = {n: t.detach().clone().requires_grad_() for n, t in mpl.items()}
-    y, aux = moe(live, cfg, xa[None], k, impl="ep_a2a", mesh=mesh)
-    share = y.square().sum() + 0.01 * aux / mesh.size
+    y, aux = moe(live, cfg, xp[None], k, impl="ep_a2a", mesh=mesh)
+    share = y.square().sum() + 0.01 * aux / mesh.shape["data"]
     names = sorted(live)
     grads = torch.autograd.grad(share, [live[n] for n in names])
     ep = {}
     for n, g in zip(names, grads):
+        g = comm.psum(g, mesh, "data")
         if n in ("w1", "w2"):
-            g = comm.all_gather(comm.psum(g, mesh, "data"), mesh, "model")
-        else:
-            g = comm.psum(g, mesh, AXES)
+            g = comm.all_gather(g, mesh, "model")
         ep[n] = g
     out["a2a_grads"] = ep
     # the one-process side: the dense path on the same four token blocks
@@ -160,12 +170,11 @@ def _pod_checks(out):
     params = models.init_params(cfg, 0, device="cpu")
     mpl = local_params(params, cfg, mesh)["layers"][0]["moe"]
     x2d = moe_input(cfg).reshape(-1, cfg.d_model)
-    every = Sharding(mesh, (mesh.axis_names,))
     data = Sharding(mesh, (("pod", "data"),))
     k = cfg.moe_top_k
-    y, aux = moe(mpl, cfg, every.local(x2d)[None], k, impl="ep_a2a",
+    y, aux = moe(mpl, cfg, data.local(x2d)[None], k, impl="ep_a2a",
                  mesh=mesh)
-    out["pod_a2a_y"] = comm.all_gather(y[0], mesh, mesh.axis_names)
+    out["pod_a2a_y"] = comm.all_gather(y[0], mesh, ("pod", "data"))
     out["pod_a2a_aux"] = aux
     y, aux = moe(mpl, cfg, data.local(x2d)[None], k, impl="ep_psum",
                  mesh=mesh)
@@ -183,16 +192,18 @@ def _plan_checks(mesh, out):
     batch = models.make_train_batch(
         base, torch.Generator().manual_seed(BATCH_SEED), 4, 32, device="cpu")
     every = Sharding(mesh, (AXES,))
-    mine = {n: every.local(v) for n, v in batch.items()}
+    data = Sharding(mesh, ("data",))
+    block = {n: data.local(v) for n, v in batch.items()}
+    own = {n: every.local(v) for n, v in batch.items()}
     for tag, cfg in (("base", base), ("plan", planned)):
         with record() as stats:
-            loss, m = models.loss_fn(lp, cfg, mine, mesh=mesh)
+            loss, m = models.loss_fn(lp, cfg, block, mesh=mesh)
         out[f"{tag}_a2a_bytes"] = stats.bytes_by_kind["all-to-all"]
         out[f"{tag}_a2a_count"] = stats.count_by_kind["all-to-all"]
         got = torch.stack([loss, m["xent"], m["aux"]])
         out[f"{tag}_ep"] = comm.all_gather(got[None], mesh, AXES)
-        # the one-process dense path (no mesh) on each rank's row
-        l1, m1 = models.loss_fn(params, cfg, mine)
+        # the one-process dense path (no mesh) on each rank's own row
+        l1, m1 = models.loss_fn(params, cfg, own)
         out[f"{tag}_dense_rows"] = comm.all_gather(
             torch.stack([l1, m1["xent"], m1["aux"]])[None], mesh, AXES)
         out[f"{tag}_dense_full"] = models.loss_fn(params, cfg, batch)[1][
@@ -202,8 +213,8 @@ def _plan_checks(mesh, out):
 def _decode_checks(mesh, out):
     from repro_torch import models
     from repro_torch.models import ModelOpts
-    from repro_torch.sharding import Sharding, comm, local_cache_specs, \
-        local_params, local_tree, named
+    from repro_torch.sharding import Sharding, comm, gather_tree, \
+        local_cache_specs, local_params, local_tree, named
     cfg = decode_cfg()
     params = models.init_params(cfg, 0, device="cpu")
     lp = local_params(params, cfg, mesh)
@@ -233,9 +244,18 @@ def _decode_checks(mesh, out):
     prefill_block = local_tree(models.prefill_fn(
         params, cfg, {"tokens": tokens}, models.init_caches(
             cfg, b, s_max, layout="contiguous", device="cpu"))[1], shard)
+    out["prefill_cache_diff"] = comm.all_gather(torch.tensor([[max(
+        float((a[k].double() - w[k].double()).abs().max()) for k in a)
+        for a, w in zip(mine, prefill_block)]]), mesh, AXES)
+    # the sequence-sharded write is the rank's sequence block of the same
+    # mesh prefill's whole-sequence cache, bit for bit
+    heads = named(mesh, local_cache_specs(empty, cfg, mesh))
+    _, written = models.prefill_fn(lp, cfg, {"tokens": rows.local(tokens)},
+                                   local_tree(empty, heads), mesh=mesh)
+    seq_block = local_tree(gather_tree(written, heads), shard)
     out["prefill_cache_equal"] = comm.all_gather(torch.tensor([[all(
         torch.equal(a[k], w[k]) for k in a)
-        for a, w in zip(mine, prefill_block)]]), mesh, AXES)
+        for a, w in zip(mine, seq_block)]]), mesh, AXES)
     la, mine = models.decode_fn(lp, cfg, rows.local(nxt), rows.local(pos),
                                 mine, mesh=mesh, opts=opts)
     lb, mine = models.decode_fn(lp, cfg, rows.local(n2),
@@ -248,14 +268,16 @@ def _decode_checks(mesh, out):
 def _train_checks(mesh, out, ckpt_root):
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.sharding import gather_tree
-    from repro_torch.training import state_shardings, train
+    from repro_torch.training import train, whole_shardings
+    from repro_torch.models import DEFAULT_OPTS
     for tag, (cfg, kw) in train_runs().items():
         ck = os.path.join(ckpt_root, tag)
         res = train(cfg, data_cfg(cfg), total_steps=TRAIN_STEPS,
                     optimizer=optimizer(), mesh=mesh, device="cpu",
                     ckpt_dir=ck, ckpt_every=CKPT_EVERY, ckpt_async=False,
                     **kw)
-        shardings = state_shardings(res.state, mesh)
+        shardings = whole_shardings(cfg, mesh, kw.get("opts", DEFAULT_OPTS),
+                                    kw.get("compression", False))
         whole = gather_tree(res.state, shardings)
         # elastic restore on this world: each rank's block of the
         # checkpoint equals its own state
@@ -266,7 +288,15 @@ def _train_checks(mesh, out, ckpt_root):
         out[f"train_{tag}"] = {"losses": res.losses,
                                "params": whole.params,
                                "restore_step": meta["step"],
-                               "restore_equal": same}
+                               "restore_equal": same,
+                               "blocks": _blocks(res.state.params),
+                               "mu_blocks": _blocks(res.state.opt.mu)}
+
+
+def _blocks(params):
+    """Rank 0's shape of each param leaf (its blocks)."""
+    from repro_torch.tree import flatten_with_paths
+    return {p: tuple(x.shape) for p, x in flatten_with_paths(params)}
 
 
 def _tensors(tree):

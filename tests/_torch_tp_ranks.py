@@ -1,0 +1,245 @@
+"""The rank program of ``tests/test_torch_tp.py``: one process of a (1, 4)
+gloo world on the CPU (``torch.multiprocessing.spawn`` imports this
+module, which imports only torch, numpy and the port).  Every rank runs
+every check on the rank's blocks of the params (``local_params``); rank 0
+writes what the test process compares (``run``)."""
+
+import numpy as np
+import torch
+
+WORLD = 4
+SHAPE = (1, 4)
+AXES = ("data", "model")
+
+#: the batch: one sequence row a ``model`` rank, so that ``ep_a2a``'s
+#: rows of a rank are one row of the batch (``one_process_loss``)
+BATCH, SEQ = 4, 16
+#: decode steps after the prefill, and the engine's workload
+DECODE_STEPS = 2
+PROMPT_LENS, MAX_NEW = (5, 16, 9, 12), 6
+BATCH_SEED, PROMPT_SEED = 3, 4
+
+
+def configs():
+    """tag -> (port config, the reference config's overrides): reduced, f32,
+    dropless (capacity factor = the expert count).
+
+    * ``gqa_split``: q heads (6) and kv heads (2) both cut through a head
+      at ``model`` 4 (gathered projections; the rank's kv heads a view of
+      a whole cache); 8 experts split over ``model`` (``ep_a2a`` /
+      ``ep_psum``).
+    * ``gqa_aligned``: 8 q / 4 kv heads, whole heads a rank; 6 experts do
+      not split, so each runs the rank's F block (``dense``).
+    * ``fsplit_gmm``: the same on ``gmm``, its engine's decode steps on the
+      fused ``decode`` impl (each expert's F block there too).
+    * ``mla``: DeepSeek-V2-Lite's MLA, one head a rank, shared experts.
+    * ``mla_split``: 6 MLA heads, cut through by the column blocks
+      (gathered q and ``wkv_b``).
+    * ``zamba2``: mamba heads split (the gated norm's sum over ``model``),
+      shared attention blocks.
+    * ``zamba2_whole``: 2 mamba heads of 128, which do not split: every
+      rank runs every head and keeps its channels after the norm.
+    * ``tied``: OLMo with a tied embedding (the head is ``embed.T``,
+      vocab-parallel)."""
+    from repro_torch.configs import get_config
+    moe = dict(dtype="float32", num_layers=2)
+    out = {
+        "gqa_split": ("qwen3-moe-235b-a22b", dict(
+            moe, num_heads=6, num_kv_heads=2, num_experts=8,
+            moe_capacity_factor=8.0)),
+        "gqa_aligned": ("qwen3-moe-235b-a22b", dict(
+            moe, num_heads=8, num_kv_heads=4, num_experts=6,
+            moe_capacity_factor=6.0)),
+        "fsplit_gmm": ("qwen3-moe-235b-a22b", dict(
+            moe, num_heads=8, num_kv_heads=4, num_experts=6,
+            moe_capacity_factor=6.0, moe_impl="gmm")),
+        "mla": ("deepseek-v2-lite", dict(dtype="float32",
+                                         moe_capacity_factor=8.0)),
+        "mla_split": ("deepseek-v2-lite", dict(
+            dtype="float32", moe_capacity_factor=8.0, num_heads=6)),
+        "zamba2": ("zamba2-1.2b", dict(dtype="float32")),
+        "zamba2_whole": ("zamba2-1.2b", dict(dtype="float32",
+                                             ssm_head_dim=128)),
+        "tied": ("olmo-1b", dict(dtype="float32", num_layers=2,
+                                 tie_embeddings=True)),
+    }
+    return {tag: (get_config(name).reduced().with_(**kw), name, kw)
+            for tag, (name, kw) in out.items()}
+
+
+def experts_split(cfg) -> bool:
+    """The MoE runs expert-parallel (``models.moe.mesh_impl``)."""
+    return cfg.is_moe and cfg.num_experts % SHAPE[1] == 0
+
+
+def layout(cfg) -> str:
+    from repro_torch.serving.engine import _supports_paging
+    return "paged" if _supports_paging(cfg) else "contiguous"
+
+
+def batch(cfg):
+    from repro_torch import models
+    return models.make_train_batch(
+        cfg, torch.Generator().manual_seed(BATCH_SEED), BATCH, SEQ,
+        device="cpu")
+
+
+def requests(cfg):
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(PROMPT_SEED)
+    return [Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=MAX_NEW)
+        for i, n in enumerate(PROMPT_LENS)]
+
+
+def engine_kw(cfg):
+    """The engine both sides build: whole-prompt prefill where the stack
+    serves contiguous only (its prompts a multiple of the SSD chunk)."""
+    if layout(cfg) == "paged":
+        return dict(max_batch=4, max_len=64, prefill_chunk=8,
+                    use_moe_decode=cfg.moe_impl == "gmm")
+    return dict(max_batch=4, max_len=64, prefill_chunk=0,
+                cache_layout="contiguous")
+
+
+def serve_requests(cfg):
+    """``requests``, at lengths a mamba stack's whole prefill takes."""
+    reqs = requests(cfg)
+    if layout(cfg) == "contiguous":
+        for r in reqs:
+            r.prompt = np.resize(r.prompt, cfg.ssm_chunk)
+    return reqs
+
+
+def steps(params, cfg, mesh=None):
+    """Prefill of the batch's tokens, then greedy decode steps -> the
+    logits [B, V] of each (the caches contiguous, the rank's blocks under
+    a mesh)."""
+    from repro_torch import models
+    from repro_torch.sharding import local_cache_specs, local_tree, named
+    tokens = batch(cfg)["tokens"]
+    b, s = tokens.shape
+    caches = models.init_caches(cfg, b, s + DECODE_STEPS, layout="contiguous",
+                                device="cpu")
+    if mesh is not None:
+        caches = local_tree(caches, named(mesh, local_cache_specs(
+            caches, cfg, mesh)))
+    logits, caches = models.prefill_fn(params, cfg, {"tokens": tokens},
+                                       caches, mesh=mesh)
+    out = [logits]
+    pos = torch.full((b,), s, dtype=torch.int32)
+    for i in range(DECODE_STEPS):
+        nxt = out[-1].argmax(-1).int()
+        lg, caches = models.decode_fn(params, cfg, nxt, pos + i, caches,
+                                      mesh=mesh)
+        out.append(lg)
+    return out
+
+
+def serve(params, cfg, mesh=None):
+    from repro_torch.serving import Engine
+    eng = Engine(cfg, params, device="cpu", mesh=mesh, graphs=False,
+                 **engine_kw(cfg))
+    return {r.uid: list(r.tokens) for r in eng.serve(serve_requests(cfg))}
+
+
+def pool(cfg, mesh):
+    """The engine's pool on the mesh against the rank's blocks of the
+    whole pool: (every leaf equal, the rank's bytes, the whole's)."""
+    from repro_torch.serving.kv_cache import KVCache
+    from repro_torch.sharding import local_cache_specs, local_tree, named
+    from repro_torch.tree import leaves
+    kw = engine_kw(cfg)
+    args = (cfg, kw["max_batch"], kw["max_len"])
+    mine = KVCache(*args, layout=layout(cfg), device="cpu", mesh=mesh).caches
+    whole = KVCache(*args, layout=layout(cfg), device="cpu").caches
+    want = local_tree(whole, named(mesh, local_cache_specs(whole, cfg, mesh)))
+    equal = all(a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(leaves(mine), leaves(want)))
+    size = lambda tree: sum(x.numel() * x.element_size()  # noqa: E731
+                            for x in leaves(tree))
+    return equal, size(mine), size(whole)
+
+
+def _checks(mesh, out):
+    from repro_torch import models
+    from repro_torch.sharding import gather_tree, local_params, \
+        local_shardings
+    from repro_torch.training import value_and_grad
+    for tag, (cfg, _, _) in configs().items():
+        params = models.init_params(cfg, 0, device="cpu")
+        lp = local_params(params, cfg, mesh)
+        loss, m = models.loss_fn(lp, cfg, batch(cfg), mesh=mesh)
+        _, _, grads = value_and_grad(cfg, mesh=mesh)(lp, batch(cfg))
+        out[tag] = {
+            "loss": torch.stack([loss, m["xent"], m["aux"]]),
+            "grads": gather_tree(grads, local_shardings(params, cfg, mesh)),
+            "logits": steps(lp, cfg, mesh),
+            "tokens": serve(lp, cfg, mesh),
+            "pool": pool(cfg, mesh),
+            "heads": {p: tuple(x.shape) for p, x in _attn_leaves(lp)},
+        }
+
+
+def _refusals(mesh, out):
+    """What a mesh refuses, each as its error's type and message: whole
+    params to ``Engine(mesh=)``, CUDA graphs on a mesh, ``ep_a2a`` and
+    ``ep_psum`` where the experts do not split, the encoder-decoder."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_ep_a2a, moe_ep_psum
+    from repro_torch.serving import Engine
+    from repro_torch.sharding import local_params
+    got = {}
+
+    def refused(tag, fn):
+        try:
+            fn()
+        except (ValueError, NotImplementedError) as e:
+            got[tag] = (type(e).__name__, str(e))
+        else:
+            got[tag] = None
+
+    cfg, _, _ = configs()["gqa_aligned"]
+    params = models.init_params(cfg, 0, device="cpu")
+    lp = local_params(params, cfg, mesh)
+    refused("engine_whole_params", lambda: Engine(
+        cfg, params, device="cpu", mesh=mesh, graphs=False))
+    refused("engine_graphs", lambda: Engine(cfg, lp, device="cpu",
+                                            mesh=mesh))
+    x = torch.zeros((8, cfg.d_model))
+    moe = lp["layers"][0]["moe"]
+    refused("ep_a2a_unsplit", lambda: moe_ep_a2a(moe, cfg, x, 2, mesh=mesh))
+    refused("ep_psum_unsplit", lambda: moe_ep_psum(moe, cfg, x, 2,
+                                                   mesh=mesh))
+    wcfg = get_config("whisper-base").reduced()
+    wp = models.init_params(wcfg, 0, device="cpu")
+    refused("whisper", lambda: models.loss_fn(wp, wcfg, models.make_train_batch(
+        wcfg, torch.Generator().manual_seed(0), 1, 8, device="cpu"),
+        mesh=mesh))
+    out["refusals"] = got
+
+
+def _attn_leaves(params):
+    from repro_torch.tree import flatten_with_paths
+    return [(p, x) for p, x in flatten_with_paths(params)
+            if p.startswith("layers/0/attn/")]
+
+
+def run(rank: int, rendezvous: str, out_path: str) -> None:
+    """One rank: bind the (1, 4) mesh on the CPU, run every check, and
+    (rank 0) save the results."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
+                            rank=rank, world_size=WORLD)
+    try:
+        mesh = make_test_mesh(SHAPE, AXES).bind(device="cpu")
+        out = {}
+        _checks(mesh, out)
+        _refusals(mesh, out)
+        if rank == 0:
+            torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()

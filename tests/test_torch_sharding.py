@@ -256,25 +256,66 @@ def test_ep_impls_without_a_mesh_run_dense(impl):
 
 
 def test_local_specs_shard_only_the_experts():
+    """The specs the port runs are the rules' whole specs (tensor,
+    expert and FSDP entries; once the port ran only the expert entries):
+    ``local_specs`` equals ``param_specs`` (plain and FSDP) for every
+    assigned config at the production (16, 16) mesh, and every sharded
+    dim divides over its axes.  Where the experts do not split over
+    ``model``, each expert's F does (w1's fused columns, w2's rows)."""
     from repro_torch import models
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.sharding import is_spec, local_specs, param_specs
     from repro_torch.tree import flatten_with_paths
-    cfg = get_config("qwen3-moe-235b-a22b")
+    mesh = make_production_mesh()
+    for name in ASSIGNED:
+        cfg = get_config(name)
+        pt = models.abstract_params(cfg)
+        shapes = dict(flatten_with_paths(pt))
+        for fsdp in (False, True):
+            run = dict(flatten_with_paths(local_specs(pt, cfg, mesh, fsdp),
+                                          is_leaf=is_spec))
+            full = dict(flatten_with_paths(param_specs(pt, cfg, mesh,
+                                                       fsdp=fsdp),
+                                           is_leaf=is_spec))
+            assert run == full, name
+            for p, spec in run.items():
+                for dim, e in zip(shapes[p].shape, spec):
+                    axes = () if e is None else (
+                        e if isinstance(e, tuple) else (e,))
+                    n = int(np.prod([mesh.shape[a] for a in axes]))
+                    assert dim % n == 0, (name, p, spec)
+    six = get_config("qwen3-moe-235b-a22b").with_(num_experts=6)
+    _, small = _meshes()
+    run = dict(flatten_with_paths(local_specs(
+        models.abstract_params(six), six, small), is_leaf=is_spec))
+    assert run["layers/0/moe/w1"] == (None, None, "model")
+    assert run["layers/0/moe/w2"] == (None, "model", None)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "zamba2-1.2b"])
+def test_local_cache_specs_keep_the_kv_heads(name, layout):
+    """The caches the port runs keep ``cache_specs``' kv-head (and mamba
+    state-head) entries over ``model``."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import cache_specs, is_spec, local_cache_specs
+    from repro_torch.tree import flatten_with_paths
+    cfg = get_config(name).reduced()
     _, mesh = _meshes()
-    pt = models.abstract_params(cfg)
-    run = dict(flatten_with_paths(local_specs(pt, mesh),
+    if layout == "paged" and name == "zamba2-1.2b":
+        layout = "contiguous"          # a mamba stack serves contiguous
+    ct = models.init_caches(cfg, 8, 64, layout=layout, page_size=16,
+                            num_pages=10, device="meta")
+    got = dict(flatten_with_paths(local_cache_specs(ct, cfg, mesh),
                                   is_leaf=is_spec))
-    full = dict(flatten_with_paths(param_specs(pt, cfg, mesh),
-                                   is_leaf=is_spec))
-    experts = [p for p in run if p.endswith(("moe/w1", "moe/w2"))]
-    assert len(experts) == 2 * cfg.num_moe_layers
-    for p, spec in run.items():
-        want = full[p] if p in experts else (None,) * len(spec)
-        assert spec == want, (p, spec)
-    six = cfg.with_(num_experts=6)
-    with pytest.raises(ValueError, match="do not split"):
-        local_specs(models.abstract_params(six), mesh)
+    assert got == dict(flatten_with_paths(cache_specs(ct, cfg, mesh),
+                                          is_leaf=is_spec))
+    heads = [p for p, s in got.items() if "model" in s]
+    assert heads, got
+    for p in heads:
+        assert p.split("/")[-1] in ("k", "v", "kp", "vp", "state"), p
 
 
 @pytest.fixture

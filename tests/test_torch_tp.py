@@ -1,0 +1,224 @@
+"""Tensor parallelism over ``model``: the port in a (1, 4) gloo world of
+four processes on the CPU, against the port's one-process paths and the
+JAX reference.
+
+One ``torch.multiprocessing.spawn`` for the module (``_torch_tp_ranks.py``
+is the rank program; ``file://`` rendezvous, one torch thread a rank);
+while it runs, this process computes the one-process references and the
+JAX oracles, then every test reads the ranks' results.  The configs
+(``_torch_tp_ranks.configs``) cover heads that a column block cuts
+through (q and kv) and heads that align, MLA, a mamba stack, a tied
+embedding, experts split over ``model`` and experts split by F.
+
+Where the experts split, the MoE runs ``ep_a2a``, whose aux is the mean
+over the ``model`` ranks of each rank's own rows' (one batch row a rank):
+the one-process loss it equals is the mean of the rows' losses, and the
+gradients the one-process step's with one microbatch a row.  The JAX
+reference runs its dense MoE, never ``ep_a2a`` / ``ep_psum``, and is held
+on the cross-entropy and the logits.
+
+Tolerances: losses and logits 1e-5 against the port (the same products in
+other blocks and orders), 2e-4 against JAX; gradients 1e-4 relative to
+each leaf's largest entry (sums over four ranks in another order);
+greedy engine tokens equal.
+"""
+
+import time
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: F401,E402
+
+import _torch_tp_ranks as ranks  # noqa: E402
+
+#: seconds the four ranks may take (about 20 s on an idle host)
+SPAWN_TIMEOUT = 300
+PORT = dict(rtol=1e-5, atol=1e-5)
+JAX_TOL = dict(rtol=2e-4, atol=2e-4)
+TAGS = list(ranks.configs())
+#: the configs whose logits are held against JAX: heads that a column
+#: block cuts through, and MLA heads that align
+JAX_LOGITS = ("gqa_split", "mla")
+#: the configs whose pool splits heads over ``model`` 4: GQA kv heads (4,
+#: or zamba2's shared attention) or mamba state heads; ``gqa_split``'s 2
+#: kv heads and MLA's latent rows stay whole
+SPLIT_POOL = ("gqa_aligned", "fsplit_gmm", "zamba2", "zamba2_whole", "tied")
+
+
+def _join(ctx, timeout):
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"the four ranks ran past {timeout} s")
+
+
+def _one_process(cfg):
+    """The port in this process on the whole params."""
+    from repro_torch import models
+    from repro_torch.training import value_and_grad
+    params = models.init_params(cfg, 0, device="cpu")
+    b = ranks.batch(cfg)
+    if ranks.experts_split(cfg):
+        rows = [models.loss_fn(params, cfg, {k: v[i:i + 1]
+                                             for k, v in b.items()})
+                for i in range(ranks.BATCH)]
+        loss = torch.stack([torch.stack([lo, m["xent"], m["aux"]])
+                            for lo, m in rows]).mean(0)
+        micro = ranks.BATCH
+    else:
+        lo, m = models.loss_fn(params, cfg, b)
+        loss, micro = torch.stack([lo, m["xent"], m["aux"]]), 1
+    _, _, grads = value_and_grad(cfg, microbatches=micro)(params, b)
+    return {"loss": loss, "grads": grads,
+            "logits": ranks.steps(params, cfg),
+            "tokens": ranks.serve(params, cfg), "params": params}
+
+
+def _jax(cfg, name, kw, params, logits: bool):
+    import jax
+    import jax.numpy as jnp
+    from repro import models as jm
+    from repro.configs import get_config as jget
+    from _torch_ref import reference_params
+    cfg_j = jget(name).reduced().with_(
+        **dict(kw, moe_impl="dense") if cfg.is_moe else kw)
+    pj = reference_params(params, cfg)
+    b = {k: jnp.asarray(v.numpy()) for k, v in ranks.batch(cfg).items()}
+    _, m = jax.jit(lambda p, bb: jm.loss_fn(p, cfg_j, bb))(pj, b)
+    out = {"xent": float(m["xent"])}
+    if logits:
+        tokens = b["tokens"]
+        bsz, s = tokens.shape
+        caches = jm.init_caches(cfg_j, bsz, s + ranks.DECODE_STEPS)
+        lg, caches = jm.prefill_fn(pj, cfg_j, {"tokens": tokens}, caches)
+        seq = [np.asarray(lg)]
+        step = jax.jit(lambda p, t, po, c: jm.decode_fn(p, cfg_j, t, po, c))
+        pos = jnp.full((bsz,), s, jnp.int32)
+        for i in range(ranks.DECODE_STEPS):
+            nxt = jnp.argmax(jnp.asarray(seq[-1]), -1).astype(jnp.int32)
+            lg, caches = step(pj, nxt, pos + i, caches)
+            seq.append(np.asarray(lg))
+        out["logits"] = seq
+    return out
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    import torch.multiprocessing as mp
+    d = tmp_path_factory.mktemp("tp_world")
+    out_path = str(d / "out.pt")
+    ctx = mp.start_processes(ranks.run, args=(str(d / "rdv"), out_path),
+                             nprocs=ranks.WORLD, join=False,
+                             start_method="spawn")
+    try:
+        refs = {}
+        for tag, (cfg, name, kw) in ranks.configs().items():
+            refs[tag] = _one_process(cfg)
+            refs[tag]["jax"] = _jax(cfg, name, kw, refs[tag]["params"],
+                                    tag in JAX_LOGITS)
+    finally:
+        _join(ctx, SPAWN_TIMEOUT)
+    return torch.load(out_path, weights_only=False), refs
+
+
+def _close(a, b, **tol):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), **tol)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_loss_matches_one_process(world, tag):
+    out, refs = world
+    _close(out[tag]["loss"], refs[tag]["loss"], **PORT)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_grads_match_one_process(world, tag):
+    """Every leaf's gradient, gathered from the ranks' blocks: the
+    replicated leaves' (norms, the router, a replicated projection) come
+    out whole on every rank only with ``f`` at each column-parallel
+    input."""
+    from repro_torch.tree import flatten_with_paths
+    out, refs = world
+    got = dict(flatten_with_paths(out[tag]["grads"]))
+    want = dict(flatten_with_paths(refs[tag]["grads"]))
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        assert got[path].shape == w.shape, path
+        scale = float(w.abs().max())
+        _close(got[path], w, rtol=0, atol=1e-4 * scale + 1e-12)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_prefill_and_decode_logits_match_one_process(world, tag):
+    out, refs = world
+    for got, want in zip(out[tag]["logits"], refs[tag]["logits"]):
+        _close(got, want, **PORT)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_engine_tokens_match_one_process(world, tag):
+    out, refs = world
+    assert out[tag]["tokens"] == refs[tag]["tokens"]
+    assert all(len(t) == ranks.MAX_NEW for t in out[tag]["tokens"].values())
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_engine_pool_is_the_ranks_block(world, tag):
+    """``Engine(mesh=)``'s pool is allocated at the rank's blocks: each
+    leaf equals the rank's block of the one-process pool, and where heads
+    split over ``model`` the rank holds less than the whole pool."""
+    out, _ = world
+    equal, mine, whole = out[tag]["pool"]
+    assert equal
+    assert (mine < whole) == (tag in SPLIT_POOL), (mine, whole)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_xent_matches_reference(world, tag):
+    out, refs = world
+    _close(out[tag]["loss"][1], refs[tag]["jax"]["xent"], **JAX_TOL)
+
+
+@pytest.mark.parametrize("tag", JAX_LOGITS)
+def test_tp_logits_match_reference(world, tag):
+    out, refs = world
+    for got, want in zip(out[tag]["logits"], refs[tag]["jax"]["logits"]):
+        _close(got, want, **JAX_TOL)
+
+
+def test_ranks_hold_their_blocks_of_the_attention(world):
+    """Rank 0's first-layer attention leaves are its blocks of the rules'
+    specs: a quarter of every projection's features."""
+    out, refs = world
+    cfg = ranks.configs()["gqa_split"][0]
+    d, hd = cfg.d_model, cfg.head_dim_
+    heads = out["gqa_split"]["heads"]
+    assert heads["layers/0/attn/wq"] == (d, 6 * hd // 4)
+    assert heads["layers/0/attn/wk"] == (d, 2 * hd // 4)
+    assert heads["layers/0/attn/wo"] == (6 * hd // 4, d)
+    mla = out["mla"]["heads"]
+    c = ranks.configs()["mla"][0]
+    assert mla["layers/0/attn/wkv_b"] == (
+        c.kv_lora_rank, c.num_heads * (c.qk_nope_head_dim + c.v_head_dim) // 4)
+    assert mla["layers/0/attn/wkv_a"] == (
+        c.d_model, c.kv_lora_rank + c.qk_rope_head_dim)   # replicated
+
+
+@pytest.mark.parametrize("tag,match", [
+    ("engine_whole_params", "not the rank's block"),
+    ("engine_graphs", "graphs=False"),
+    ("ep_a2a_unsplit", "do not split"),
+    ("ep_psum_unsplit", "do not split"),
+    ("whisper", "no tensor parallelism"),
+])
+def test_mesh_refusals(world, tag, match):
+    """A mesh refuses whole params, CUDA graphs, the EP impls where the
+    experts do not split over ``model``, and the encoder-decoder."""
+    out, _ = world
+    got = out["refusals"][tag]
+    assert got is not None, f"{tag}: nothing raised"
+    assert match in got[1], got

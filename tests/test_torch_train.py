@@ -358,6 +358,39 @@ def test_remat_gives_the_loss_and_grads_of_none(remat):
                                                                   batch)
 
 
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_chunk_gives_the_per_layer_remat_step(remat):
+    """``remat_chunk`` = 2 over a run of five identical layers (two whole
+    chunks checkpointed as one each, the fifth layer on its own): the
+    loss and the grads of per-layer remat bit for bit, and the
+    reference's ``remat_chunk`` loss."""
+    import jax
+    import jax.numpy as jnp
+    from repro import models as jm
+    from repro_torch import models
+    from repro_torch.data import sample_batch
+    from repro_torch.models.blocks import _remat_chunks
+    from repro_torch.training import value_and_grad
+    from repro_torch.tree import leaves
+    from _torch_ref import reference_params
+    cfg_j, cfg = (c.with_(num_layers=5) for c in _cfgs("olmoe-1b-7b"))
+    assert _remat_chunks(cfg.pattern(), 2) == {0: 2, 2: 4}
+    params = models.init_params(cfg, 0, device="cpu")
+    batch = sample_batch(_dc(cfg), 0)
+    l0, _, g0 = value_and_grad(cfg, opts=models.ModelOpts(remat=remat))(
+        params, _batch_t(batch))
+    l1, _, g1 = value_and_grad(cfg, opts=models.ModelOpts(
+        remat=remat, remat_chunk=2))(params, _batch_t(batch))
+    assert torch.equal(l0, l1)
+    for a, b in zip(leaves(g0), leaves(g1)):
+        assert torch.equal(a, b)
+    lj, _ = jax.jit(lambda p, b: jm.loss_fn(p, cfg_j, b, opts=jm.ModelOpts(
+        remat=remat, remat_chunk=2)))(reference_params(params, cfg),
+                                      {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+    np.testing.assert_allclose(float(l1), float(lj), rtol=1e-4)
+
+
 def test_train_launcher_runs_on_cpu(tmp_path, capsys):
     from repro_torch.launch.train import main
     args = ["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",

@@ -263,6 +263,22 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               against their plain versions to ROW_TOL, B4 / B7 / B8 rows
               bitwise alone against the batch, timed beside their
               bounds.  One ``mesh`` line, with seconds and the card.
+14. dryrun -- the production dry run (``launch/dryrun.py``): (a) on the
+              ``meta`` device, on this host's CPU, the cells of
+              DRYRUN_CELLS at 16 x 16 (one at 2 x 16 x 16), each OK, a
+              ``dryrun_cell`` check line each with its roofline terms,
+              dominant term and peak GB a rank; (b) on a one-rank NCCL
+              (1, 1) mesh, full-depth OLMoE-1B-7B through the dry run's
+              ``build_cell``, with the serving path's kernels: a prefill of
+              4 x 512 (B2, B9) and a decode step of 8 rows over 512 slots
+              (B8, B9), each counted on ``meta`` (the mesh placed) and on
+              the card (``analysis.counters.count``): FLOPs, aten and
+              kernel bytes, collective bytes and calls by kind, and kernel
+              calls equal; the step (CUDA events, median of DRYRUN_REPS)
+              at least its bound from the meta counts; the card's peak
+              over the meta peak inside DRYRUN_PEAK_BAND; and
+              whisper-base's prefill and decode logits on the mesh bit for
+              bit its no-mesh logits.  One ``dryrun`` line.
 
 Every serve and forward runs its steps as CUDA graphs, captured for each
 specialization key of the runner (``serving/runner.py``) or each forward
@@ -275,7 +291,7 @@ wall time, tok/s, the wall and host time of a decode step, and the graphs
 held, captured (with their host seconds) and replayed.
 
 Every kernel's launch counter is zeroed just before and read just after
-each step of phases 3-10 (9c included) and 13; each step must launch the
+each step of phases 3-10 (9c included), 13 and 14; each step must launch the
 kernels it runs.  A
 small reference check holds the kernel paths' logits against the plain
 paths' on the same inputs, row by row, with bf16 experts on ``gmm`` and
@@ -4005,6 +4021,26 @@ def tp_kernel_checks(device, rows):
             for kname, shapes in per.items()}
 
 
+@contextmanager
+def one_rank_mesh():
+    """A (1, 1) ("data", "model") mesh bound to a one-rank NCCL group
+    (``file://`` rendezvous in a temporary directory; the group destroyed
+    at the end, pass or fail)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            d, "rendezvous"), rank=0, world_size=1)
+        try:
+            mesh = make_test_mesh((1, 1)).bind()
+            if mesh.device.type != "cuda":
+                raise AssertionError(f"mesh bound on {mesh.device}")
+            yield mesh
+        finally:
+            dist.destroy_process_group()
+
+
 def mesh_phase(device, t_start, rows, plan):
     """Tensor, expert and data parallelism through the port's entry points
     on a (1, 1) ("data", "model") mesh bound to a one-rank NCCL group
@@ -4015,30 +4051,206 @@ def mesh_phase(device, t_start, rows, plan):
     (d) ``tp_kernel_checks``.  At one rank every collective is a copy and
     the data axes split nothing, so (a)-(c) must give the no-mesh bits.
     Returns the launch needs (B2, B4, B9)."""
-    import tempfile
-    import torch.distributed as dist
-    from repro_torch.launch.mesh import make_test_mesh
     rec = {"phase": "mesh", "mesh": [1, 1], "backend": "nccl"}
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
-        dist.init_process_group("nccl", init_method="file://" + os.path.join(
-            d, "rendezvous"), rank=0, world_size=1)
-        try:
-            mesh = make_test_mesh((1, 1)).bind()
-            if mesh.device.type != "cuda":
-                raise AssertionError(f"mesh bound on {mesh.device}")
-            with torch.no_grad():
-                need = mesh_checks(mesh, device, rows, plan, rec)
-            gc.collect()
-            torch.cuda.empty_cache()
-            mesh_train_check(mesh, device, rec)
-        finally:
-            dist.destroy_process_group()
+    with one_rank_mesh() as mesh:
+        with torch.no_grad():
+            need = mesh_checks(mesh, device, rows, plan, rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh_train_check(mesh, device, rec)
     gc.collect()
     torch.cuda.empty_cache()
     with torch.no_grad():
         rec["tp16_kernels"] = tp_kernel_checks(device, rows)
     rec.update(seconds=time.perf_counter() - t0,
+               seconds_total=time.perf_counter() - t_start, card=card_line())
+    emit(rec)
+    return need
+
+
+# --------------------------------------------------------------------------- #
+# phase 14: the production dry run on meta, its counts held to the card
+# --------------------------------------------------------------------------- #
+
+#: (a) the dry run's cells (arch, shape, 2 x 16 x 16, ``--flash``): the
+#: reference's own system-test cell, the largest train step, a prefill
+#: through B2, a sliding-window 500k decode, the encoder-decoder's train
+#: step, and an expert-parallel decode across the pod axis
+DRYRUN_CELLS = (("olmo-1b", "decode_32k", False, False),
+                ("qwen3-moe-235b-a22b", "train_4k", False, False),
+                ("llama4-scout-17b-a16e", "prefill_32k", False, True),
+                ("h2o-danube-1.8b", "long_500k", False, False),
+                ("whisper-base", "train_4k", False, False),
+                ("qwen3-moe-235b-a22b", "decode_32k", True, False))
+#: (b) full-depth OLMoE-1B-7B on the card and on meta: a prefill of 4 x 512
+#: tokens (B2, B9) and a decode step of 8 rows over 512 slots (B8, B9)
+DRYRUN_STEPS = (("prefill", 512, 4), ("decode", 512, 8))
+#: (b) the card's peak (the inputs' bytes plus what the step allocated
+#: over them) over the meta peak must lie in this band, written in PERF.md
+#: before the first run
+DRYRUN_PEAK_BAND = (0.97, 1.03)
+#: (b) timed runs of each step (CUDA events, the median)
+DRYRUN_REPS = 11
+#: whisper's (1, 1) mesh check: rows, prompt tokens and decode steps
+WHISPER_MESH = (2, 16, 2)
+
+
+def dryrun_cells():
+    """(a): each cell of DRYRUN_CELLS through ``launch.dryrun.run_cell`` on
+    meta, status OK; one ``dryrun_cell`` check line each."""
+    from repro_torch.launch import dryrun
+    out = []
+    for arch, shape, multi, flash in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi_pod=multi,
+                              opts_kw={"use_flash": flash}, verbose=False)
+        if rec["status"] != "OK":
+            raise AssertionError(f"dryrun {arch} {shape}: {rec.get('error')}"
+                                 f"\n{rec.get('traceback')}")
+        r = rec["roofline"]
+        line = {"arch": arch, "shape": shape, "mesh": rec["mesh"],
+                "flash": flash, "rank": rec["rank"],
+                "t_compute": r["t_compute"], "t_memory": r["t_memory"],
+                "t_collective": r["t_collective"], "dominant": r["dominant"],
+                "bound_time_s": r["bound_time_s"],
+                "useful_flops_ratio": r["useful_flops_ratio"],
+                "roofline_fraction": r["roofline_fraction"],
+                "peak_gb": r["bytes_per_device"] / 1e9,
+                "kernel_calls": rec["counts"]["kernel_calls"],
+                "collective_bytes": r["collective_breakdown"],
+                "seconds": rec["total_s"]}
+        emit({"check": "dryrun_cell", **line})
+        out.append(line)
+    return out
+
+
+def dryrun_card_step(mesh, device, step_kind, seq, rows):
+    """(b) for one step: full-depth OLMoE through ``launch.dryrun.
+    build_cell``, with the serving path's kernels (``--flash``; B9 in
+    ``ep_a2a`` / ``ep_psum``), counted on meta (the (1, 1) mesh placed)
+    and on the card (``mesh``, bound); FLOPs, bytes, collectives and
+    kernel calls equal; the step timed (CUDA events, the median of
+    DRYRUN_REPS) at least the meta count's bound; the card's peak within
+    DRYRUN_PEAK_BAND of the meta peak.  Returns (line, the launches)."""
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.analysis.counters import count
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    shape = ShapeSpec(f"{step_kind}_{seq}", seq, rows, step_kind)
+    cfg = dryrun.cell_config(get_config("olmoe-1b-7b"), shape)
+    opts = dryrun.cell_opts(cfg, shape, use_flash=True)
+    step, inputs = dryrun.build_cell(cfg, shape,
+                                     make_test_mesh((1, 1)).place(0), opts)
+    with count(inputs) as dry:
+        step()
+    del step, inputs
+    report = rl.analyze_costs(rl.costs_from_counters(dry), cfg, shape,
+                              chips=1, mesh_desc="1x1",
+                              bytes_per_device=dry.peak_bytes)
+
+    step, inputs = dryrun.build_cell(cfg, shape, mesh, opts, device=device)
+    step()                          # first use: scratch buffers, handles
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with count(inputs) as real:
+        _, launches = counted(step)
+    card_peak = (dry.input_bytes + torch.cuda.max_memory_allocated(device)
+                 - base)
+    got, want = real.as_dict(), dry.as_dict()
+    for key in ("flops", "aten_flops", "kernel_flops", "bytes", "aten_bytes",
+                "kernel_bytes", "kernel_calls", "collective_bytes",
+                "collective_calls"):
+        if got[key] != want[key]:
+            raise AssertionError(f"dryrun {shape.name}: {key} on the card "
+                                 f"{got[key]} != on meta {want[key]}")
+    ms = statistics.median(_timed(step, device)[1]
+                           for _ in range(DRYRUN_REPS))
+    share = report.bound_time / (ms / 1e3)
+    if share > 1.0:
+        raise AssertionError(f"dryrun {shape.name}: the step took {ms} ms, "
+                             f"under its bound {report.bound_time * 1e3} ms")
+    ratio = card_peak / dry.peak_bytes
+    if not DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1]:
+        raise AssertionError(f"dryrun {shape.name}: card peak {card_peak} "
+                             f"over meta peak {dry.peak_bytes} = {ratio}, "
+                             f"outside {DRYRUN_PEAK_BAND}")
+    del step, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"step": shape.name, "rows": rows, "counts": want,
+            "t_compute": report.t_compute, "t_memory": report.t_memory,
+            "t_collective": report.t_collective,
+            "dominant": report.dominant, "bound_ms": report.bound_time * 1e3,
+            "ms": ms, "share_of_bound": share,
+            "useful_flops_ratio": report.useful_flops_ratio,
+            "meta_peak_gb": dry.peak_bytes / 1e9,
+            "card_peak_gb": card_peak / 1e9, "peak_ratio": ratio,
+            "input_gb": dry.input_bytes / 1e9}
+    return line, launches
+
+
+def whisper_mesh_check(mesh, device):
+    """Whisper-base at full width and depth on the (1, 1) mesh: the prefill
+    and decode logits bit for bit those of the same steps with no mesh."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-base")
+    b, p0, steps = WHISPER_MESH
+    params = models.init_params(cfg, seed=0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    frames = torch.randn((b, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen, device=device)
+    prompt = torch.randint(0, cfg.vocab_size, (b, p0), generator=gen,
+                           device=device, dtype=torch.int32)
+
+    def run(m):
+        caches = models.init_caches(cfg, b, p0 + steps, device=device)
+        lg, caches = models.prefill_fn(params, cfg, {"frames": frames,
+                                                     "tokens": prompt},
+                                       caches, mesh=m)
+        out = [lg]
+        for i in range(steps):
+            pos = torch.full((b,), p0 + i, dtype=torch.int32, device=device)
+            lg, caches = models.decode_fn(params, cfg, out[-1].argmax(-1)
+                                          .int(), pos, caches, mesh=m)
+            out.append(lg)
+        return out
+    with torch.no_grad():
+        plain, meshed = run(None), run(mesh)
+    if not all(torch.equal(a, c) for a, c in zip(plain, meshed)):
+        raise AssertionError("whisper: the (1, 1) mesh's logits differ from "
+                             "the no-mesh path's")
+    return {"rows": b, "prompt": p0, "decode_steps": steps,
+            "logits_bitwise": True}
+
+
+def dryrun_phase(device, t_start):
+    """Phase 14 (module doc): (a) ``dryrun_cells`` on meta; (b)
+    ``dryrun_card_step`` for each of DRYRUN_STEPS and
+    ``whisper_mesh_check`` on a one-rank NCCL (1, 1) mesh.  Returns the
+    launch needs (B2, B8, B9)."""
+    t0 = time.perf_counter()
+    rec = {"phase": "dryrun", "cells": dryrun_cells(),
+           "cells_seconds": time.perf_counter() - t0}
+    need = {}
+    want = {"prefill": ("flash_attention", "moe_ffn"),
+            "decode": ("flash_decode", "moe_ffn")}
+    with one_rank_mesh() as mesh, torch.no_grad():
+        rec["steps"] = []
+        for kind, seq, rows in DRYRUN_STEPS:
+            line, launches = dryrun_card_step(mesh, device, kind, seq, rows)
+            rec["steps"].append(line)
+            need[f"dryrun_{kind}"] = (launches, want[kind])
+        rec["whisper_mesh"] = whisper_mesh_check(mesh, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec.update(peak_band=DRYRUN_PEAK_BAND,
+               seconds=time.perf_counter() - t0,
                seconds_total=time.perf_counter() - t_start, card=card_line())
     emit(rec)
     return need
@@ -4504,6 +4716,9 @@ def main() -> int:
 
     # ---- phase 13: expert parallelism on a one-card mesh ----------------
     need.update(mesh_phase(device, t_start, rows, olmoe_plan))
+
+    # ---- phase 14: the production dry run on meta, held to the card -----
+    need.update(dryrun_phase(device, t_start))
 
     for step, (counts, names) in need.items():
         for n in names:

@@ -67,6 +67,9 @@ class CollectiveStats:
 
 #: the stats objects of the ``record()`` blocks open now, innermost last
 _ACTIVE: List[CollectiveStats] = []
+#: collectives running now (``transfer``); their own aten work is their
+#: transfer, which ``analysis/counters.py`` leaves out of the HBM bytes
+_DEPTH = [0]
 
 
 @contextmanager
@@ -86,3 +89,20 @@ def note(kind: str, result_bytes: int, group_size: int = 1) -> None:
     for stats in _ACTIVE:
         stats.add(kind, result_bytes, group_size)
 
+
+
+@contextmanager
+def transfer() -> Iterator[None]:
+    """Mark the body of one collective: the copies it makes into and out of
+    its buffers are the collective's bytes (``note``), not the step's HBM
+    traffic (``in_transfer``, read by ``analysis/counters.py``)."""
+    _DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _DEPTH[0] -= 1
+
+
+def in_transfer() -> bool:
+    """A collective's body is running (``transfer``)."""
+    return _DEPTH[0] > 0

@@ -2,8 +2,11 @@
 
 Each wrapper runs its plain version for a tensor that lies on the CPU and
 launches its CUDA kernel for a tensor on the card (or raises); there is no
-fallback between the two.  Each wrapper counts its kernel launches in a
-plain integer attribute, ``<wrapper>.launches``.
+fallback between the two.  On ``meta`` (the dry run) it checks what the
+card's route checks and returns empty outputs.  Each wrapper counts its
+kernel launches in a plain integer attribute, ``<wrapper>.launches``, and
+reports each launch's cost (and each ``meta`` call's) to the open
+``analysis.counters.count`` blocks (``costs.py``).
 """
 
 from repro_torch.kernels.flash_attention import flash_attention

@@ -18,15 +18,18 @@ def no_grad_through(name: str, *tensors: torch.Tensor) -> None:
 
 
 def on_card(name: str, *tensors: torch.Tensor) -> bool:
-    """True when the kernel must launch (every tensor on one CUDA device),
-    False when the plain version runs (the inputs lie on the CPU)."""
+    """True when the kernel's route runs (every tensor on one CUDA device;
+    or on ``meta``, where the wrapper checks what it checks on the card,
+    returns empty outputs and reports the launch's cost,
+    ``kernels/costs.py``), False when the plain version runs (the inputs
+    lie on the CPU)."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on several devices {sorted(map(str, devs))}")
     dev = devs.pop()
     if dev.type == "cpu":
         return False
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: no kernel for device {dev}")
     return True
 

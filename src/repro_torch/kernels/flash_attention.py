@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._checks import expect, no_grad_through, on_card
 
 NEG_INF = -1e30
@@ -44,7 +44,8 @@ def flash_attention_plain(q, k, v, *, window: Optional[int] = None):
 
 
 def flash_attention(q, k, v, *, window: Optional[int] = None):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors; on
+    ``meta`` the checks, an empty output and the launch's cost."""
     name = "flash_attention"
     no_grad_through(name, q, k, v)
     if not on_card(name, q, k, v):
@@ -67,12 +68,17 @@ def flash_attention(q, k, v, *, window: Optional[int] = None):
         raise ValueError(f"{name}: window={window} must be positive")
     out = torch.empty_like(q)          # q's layout where q is dense
     strides = [st for t in (q, k, out) for st in _row_strides(name, t)]
+    cost = costs.flash_attention(q, k, v, window)
+    if q.is_meta:
+        costs.report(name, cost)
+        return out
     fn = _build.function(name, "flash_attention_launch", 4, 15)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, hq, hkv, s, hd, window or 0, *strides,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(name, err)
     flash_attention.launches += 1
+    costs.report(name, cost)
     return out
 
 

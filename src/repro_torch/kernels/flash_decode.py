@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._checks import expect, no_grad_through, on_card
 
 NEG_INF = -1e30
@@ -103,7 +103,8 @@ def head_slice_stride(name: str, k: torch.Tensor, v: torch.Tensor) -> int:
 
 
 def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors.
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors; on
+    ``meta`` the checks, an empty output and the launch's cost.
     k / v may be a head slice of a contiguous cache (``head_slice_stride``:
     a tensor-parallel rank's kv heads of a cache that holds all)."""
     name = "flash_decode"
@@ -135,6 +136,10 @@ def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
     # [B, Hkv, nc, G, hd], then its (max, sum) [.., G, 2]
     part = torch.empty(b * hkv * nc * g * (hd + 2), dtype=torch.float32,
                        device=q.device)
+    cost = costs.flash_decode(q, k, v, pos, cur_pos)
+    if q.is_meta:
+        costs.report(name, cost)
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = _counters(q.device, stream, b * hq)
     fn = _build.function(name, "flash_decode_launch", 8, 8)
@@ -144,6 +149,7 @@ def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
              kv_stride, stream)
     _build.check(name, err)
     flash_decode.launches += 1
+    costs.report(name, cost)
     return out
 
 

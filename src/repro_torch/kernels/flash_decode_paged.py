@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._checks import expect, no_grad_through, on_card
 from repro_torch.kernels.flash_decode import HEAD_DIMS, NEG_INF, \
     _counters, flash_decode_plain, head_slice_stride
@@ -56,7 +56,8 @@ def flash_decode_paged_plain(q, kp, vp, posp, block_tables, cur_pos, *,
 
 def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
                        window: Optional[int] = None):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors.
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors; on
+    ``meta`` the checks, an empty output and the launch's cost.
     kp / vp may be a head slice of a contiguous pool (``flash_decode.
     head_slice_stride``)."""
     no_grad_through("flash_decode_paged", q, kp, vp)
@@ -94,6 +95,10 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
     # [B, Hkv, nc, G, hd], then its (max, sum) [.., G, 2]
     part = torch.empty(b * hkv * nc * g * (hd + 2), dtype=torch.float32,
                        device=q.device)
+    cost = costs.flash_decode_paged(q, kp, block_tables, cur_pos)
+    if q.is_meta:
+        costs.report(name, cost)
+        return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = _counters(q.device, stream, b * hq)
     fn = _build.function(name, "flash_decode_paged_launch", 9, 10)
@@ -103,6 +108,7 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
              block_tables.stride(0), window or 0, nc, kv_stride, stream)
     _build.check(name, err)
     flash_decode_paged.launches += 1
+    costs.report(name, cost)
     return out
 
 
@@ -146,7 +152,8 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
     in).  ``scale`` is the model's 1/sqrt(dn + dr).  Replaces
     ``repro/kernels/flash_decode_paged.py::flash_decode_paged_mla_pallas``
     (kernel: ``csrc/flash_decode_paged_mla.cu``).  Plain version for CPU
-    tensors; the CUDA kernel for CUDA tensors."""
+    tensors; the CUDA kernel for CUDA tensors; on ``meta`` the checks, an
+    empty output and the launch's cost."""
     name = "flash_decode_paged_mla"
     no_grad_through(name, q_lat, q_rope, ckvp, kropep)
     if not on_card(name, q_lat, q_rope, ckvp, kropep, posp, block_tables,
@@ -177,6 +184,11 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
     out = torch.empty((b, h, r), dtype=f32, device=q_lat.device)
+    cost = costs.flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep,
+                                        block_tables, cur_pos)
+    if q_lat.is_meta:
+        costs.report(name, cost)
+        return out
     fn = _build.function(name, "flash_decode_paged_mla_launch", 8, 7, 1)
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckvp.data_ptr(),
              kropep.data_ptr(), posp.data_ptr(), block_tables.data_ptr(),
@@ -185,6 +197,7 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
              torch.cuda.current_stream(q_lat.device).cuda_stream)
     _build.check(name, err)
     flash_decode_paged_mla.launches += 1
+    costs.report(name, cost)
     return out
 
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F_
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._checks import expect, expect_quant, \
     no_grad_through, on_card
 from repro_torch.models.moe.params import QUANT_DTYPES, unpack_int4
@@ -58,8 +58,9 @@ def moe_decode_plain(x, w1, w2, idx, weights, pred_idx=None):
 
 
 def moe_decode(x, w1, w2, idx, weights, pred_idx=None):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors.
-    The kernel ignores ``pred_idx``, as the reference's kernel path does:
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors; on
+    ``meta`` the checks, an empty output and the launch's cost.  The
+    kernel ignores ``pred_idx``, as the reference's kernel path does:
     it reads each routed expert by the true ids."""
     no_grad_through("moe_decode", x, w1, w2, weights)
     if not on_card("moe_decode", x, w1, w2, idx, weights):
@@ -83,6 +84,10 @@ def moe_decode(x, w1, w2, idx, weights, pred_idx=None):
     h = torch.empty((b, k, f), dtype=torch.float32, device=x.device)
     partial = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
     y = torch.empty((b, d), dtype=bf16, device=x.device)
+    cost = costs.moe_decode(x, w2, idx)
+    if x.is_meta:
+        costs.report("moe_decode", cost)
+        return y
     fn = _build.function("moe_decode", "moe_decode_launch", 8, 5)
     err = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), idx.data_ptr(),
              weights.data_ptr(), h.data_ptr(), partial.data_ptr(),
@@ -90,6 +95,7 @@ def moe_decode(x, w1, w2, idx, weights, pred_idx=None):
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("moe_decode", err)
     moe_decode.launches += 1
+    costs.report("moe_decode", cost)
     return y
 
 
@@ -120,7 +126,8 @@ def moe_decode_quant_plain(x, w1q, w2q, s1, s2, idx, weights, *, dtype: str,
 def moe_decode_quant(x, w1q, w2q, s1, s2, idx, weights, pred_idx=None, *,
                      dtype: str):
     """Plain version for CPU tensors; the CUDA kernel for CUDA tensors,
-    which ignores ``pred_idx`` as ``moe_decode`` does."""
+    which ignores ``pred_idx`` as ``moe_decode`` does; on ``meta`` the
+    checks, an empty output and the launch's cost."""
     no_grad_through("moe_decode_quant", x, s1, s2, weights)
     if dtype not in QUANT_DTYPES:
         raise ValueError(f"moe_decode_quant: expert dtype {dtype!r} not in "
@@ -137,12 +144,17 @@ def moe_decode_quant(x, w1q, w2q, s1, s2, idx, weights, pred_idx=None, *,
     h = torch.empty((b, k, f), dtype=torch.float32, device=x.device)
     partial = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
     y = torch.empty((b, d), dtype=torch.bfloat16, device=x.device)
+    cost = costs.moe_decode(x, w2q, idx, dtype)
+    if x.is_meta:
+        costs.report("moe_decode_quant", cost)
+        return y
     fn = _build.function("moe_decode_quant", "moe_decode_quant_launch", 10, 6)
     err = fn(*(t.data_ptr() for t in args), h.data_ptr(), partial.data_ptr(),
              y.data_ptr(), b, d, f, k, w2q.shape[0], int(dtype == "int4"),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("moe_decode_quant", err)
     moe_decode_quant.launches += 1
+    costs.report("moe_decode_quant", cost)
     return y
 
 

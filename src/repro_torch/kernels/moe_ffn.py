@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F_
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._checks import expect, no_grad_through, on_card
 
 
@@ -28,7 +28,8 @@ def moe_ffn_plain(xe, w1, w2):
 
 
 def moe_ffn(xe, w1, w2):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors; on
+    ``meta`` the checks, an empty output and the launch's cost."""
     no_grad_through("moe_ffn", xe, w1, w2)
     if not on_card("moe_ffn", xe, w1, w2):
         return moe_ffn_plain(xe, w1, w2)
@@ -47,12 +48,17 @@ def moe_ffn(xe, w1, w2):
             raise ValueError(f"moe_ffn: {arg} needs a 16-byte aligned base")
     h = torch.empty((e, c, f), dtype=bf16, device=xe.device)
     out = torch.empty((e, c, d), dtype=bf16, device=xe.device)
+    cost = costs.moe_ffn(xe, w1, w2)
+    if xe.is_meta:
+        costs.report("moe_ffn", cost)
+        return out
     fn = _build.function("moe_ffn", "moe_ffn_launch", 5, 4)
     err = fn(xe.data_ptr(), w1.data_ptr(), w2.data_ptr(), h.data_ptr(),
              out.data_ptr(), e, c, d, f,
              torch.cuda.current_stream(xe.device).cuda_stream)
     _build.check("moe_ffn", err)
     moe_ffn.launches += 1
+    costs.report("moe_ffn", cost)
     return out
 
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F_
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels._checks import expect, expect_quant, \
     no_grad_through, on_card
 from repro_torch.models.moe.params import QUANT_DTYPES, unpack_int4
@@ -44,7 +44,8 @@ def moe_gmm_plain(xs, w1, w2, tile_expert, tile_valid, block_m: int):
 
 
 def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors; on
+    ``meta`` the checks, an empty output and the launch's cost."""
     no_grad_through("moe_gmm", xs, w1, w2)
     if not on_card("moe_gmm", xs, w1, w2, tile_expert, tile_valid):
         return moe_gmm_plain(xs, w1, w2, tile_expert, tile_valid, block_m)
@@ -68,6 +69,10 @@ def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
     for arg, t in (("xs", xs), ("w1", w1), ("w2", w2)):
         if t.data_ptr() % 16:
             raise ValueError(f"moe_gmm: {arg} needs a 16-byte aligned base")
+    cost = costs.moe_gmm(xs, w2, tile_expert)
+    if xs.is_meta:
+        costs.report("moe_gmm", cost)
+        return out
     fn = _build.function("moe_gmm", "moe_gmm_launch", 7, 5)
     err = fn(xs.data_ptr(), w1.data_ptr(), w2.data_ptr(),
              tile_expert.data_ptr(), tile_valid.data_ptr(), h.data_ptr(),
@@ -75,6 +80,7 @@ def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
              torch.cuda.current_stream(xs.device).cuda_stream)
     _build.check("moe_gmm", err)
     moe_gmm.launches += 1
+    costs.report("moe_gmm", cost)
     return out
 
 
@@ -106,7 +112,8 @@ def moe_gmm_quant_plain(xs, w1q, w2q, s1, s2, tile_expert, tile_valid,
 
 def moe_gmm_quant(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, *,
                   dtype: str, block_m: int):
-    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors."""
+    """Plain version for CPU tensors; the CUDA kernel for CUDA tensors; on
+    ``meta`` the checks, an empty output and the launch's cost."""
     no_grad_through("moe_gmm_quant", xs, s1, s2)
     if dtype not in QUANT_DTYPES:
         raise ValueError(f"moe_gmm_quant: expert dtype {dtype!r} not in "
@@ -127,12 +134,17 @@ def moe_gmm_quant(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, *,
            (n_tiles,))
     h = torch.empty((m, f), dtype=torch.bfloat16, device=xs.device)
     out = torch.empty((m, d), dtype=torch.bfloat16, device=xs.device)
+    cost = costs.moe_gmm(xs, w2q, tile_expert, dtype)
+    if xs.is_meta:
+        costs.report("moe_gmm_quant", cost)
+        return out
     fn = _build.function("moe_gmm_quant", "moe_gmm_quant_launch", 9, 6)
     err = fn(*(t.data_ptr() for t in args), h.data_ptr(), out.data_ptr(),
              m, d, f, block_m, w2q.shape[0], int(dtype == "int4"),
              torch.cuda.current_stream(xs.device).cuda_stream)
     _build.check("moe_gmm_quant", err)
     moe_gmm_quant.launches += 1
+    costs.report("moe_gmm_quant", cost)
     return out
 
 

@@ -6,6 +6,12 @@ keeps their order.  An unbound mesh carries only these and serves the
 spec arithmetic of ``sharding/rules.py`` at any size (the production
 meshes below have 256 or 512 ranks and are never bound here).
 
+``place`` puts a mesh on one rank with no world at all (the dry run,
+``launch/dryrun.py``): rank r's coordinates as ``bind`` would give them,
+``axis_index`` / ``axis_size`` as on a bound mesh, but no process group
+(``get_group`` returns None) and ``bound`` False; the collectives of
+``sharding/comm.py`` then compute nothing and only count.
+
 ``bind`` ties a mesh to the initialized ``torch.distributed`` world
 through ``torch.distributed.device_mesh.init_device_mesh``: rank r sits
 at the row-major coordinates of r in ``shape``, each axis gets its
@@ -45,6 +51,8 @@ class Mesh:
         self.device: Optional[torch.device] = None
         self._groups: Dict[Tuple[str, ...], object] = {}
         self._coords: Optional[Tuple[int, ...]] = None
+        #: placed on one rank with no world (``place``)
+        self.placed = False
         #: shardings derived from a config on this mesh, memoized by
         #: ``sharding.rules.fsdp_layout``
         self.layouts: Dict = {}
@@ -60,11 +68,21 @@ class Mesh:
 
     @property
     def bound(self) -> bool:
-        return self._coords is not None
+        return self._coords is not None and not self.placed
 
     def __repr__(self) -> str:
-        state = f"bound on {self.device}" if self.bound else "unbound"
+        state = (f"bound on {self.device}" if self.bound else
+                 f"rank {self.rank} placed on {self.device}" if self.placed
+                 else "unbound")
         return f"Mesh({self.shape}, {state})"
+
+    @property
+    def rank(self) -> int:
+        """The row-major rank of this process's coordinates."""
+        r = 0
+        for size, c in zip(self.axis_sizes, self.coordinates()):
+            r = r * size + c
+        return r
 
     # ------------------------------------------------------------------ #
     # binding to the torch.distributed world
@@ -108,10 +126,30 @@ class Mesh:
         self.device = dev
         return self
 
+    def place(self, rank: int = 0, device="meta") -> "Mesh":
+        """Put this (unbound) mesh on ``rank`` with no ``torch.distributed``
+        world: the rank's row-major coordinates, no process group.  The
+        port's per-rank program then runs as rank ``rank`` would, on
+        ``device`` (``meta``: shapes only), with every collective a count
+        (``sharding/comm.py``)."""
+        if self.bound:
+            raise RuntimeError(f"{self!r} is bound to a world; place an "
+                               "unbound mesh")
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not in a mesh of {self.size}")
+        coords = []
+        for size in reversed(self.axis_sizes):
+            rank, c = divmod(rank, size)
+            coords.append(c)
+        self._coords = tuple(reversed(coords))
+        self.placed = True
+        self.device = torch.device(device)
+        return self
+
     def _need_bound(self) -> None:
-        if not self.bound:
+        if self._coords is None:
             raise RuntimeError(f"{self!r}: bind it to a process group world "
-                               "first (Mesh.bind)")
+                               "first (Mesh.bind), or place it (Mesh.place)")
 
     def axes(self, axes) -> Tuple[str, ...]:
         """``axes`` (a name or names) in mesh order."""
@@ -123,9 +161,11 @@ class Mesh:
 
     def get_group(self, axes):
         """The process group over ``axes`` (a name or names) holding this
-        rank."""
+        rank; None on a placed mesh, which has no world."""
         self._need_bound()
         key = self.axes(axes)
+        if self.placed:
+            return None
         if key not in self._groups:
             raise ValueError(f"no process group over {key}; a bound mesh "
                              f"has {sorted(self._groups)}")

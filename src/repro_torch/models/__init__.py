@@ -1,4 +1,5 @@
 from repro_torch.models.model import (  # noqa: F401
+    abstract_caches,
     abstract_params,
     chunk_prefill_fn,
     decode_fn,

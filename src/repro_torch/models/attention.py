@@ -417,10 +417,11 @@ def gqa_attention(
     attends them and merges the ranks' partials
     (``_decode_attend_seqshard``); chunked prefill refuses it.
     """
-    b, s, _ = x.shape
-    hd = cfg.head_dim_
-    scale = 1.0 / hd ** 0.5
-    if kv_override is None and mesh is not None:
+    if kv_override is not None:
+        return _cross(params, cfg, x, positions, TP(mesh), mode=mode,
+                      kv=kv_override, compute_dtype=compute_dtype,
+                      causal=causal)
+    if mesh is not None:
         return _gqa_tp(params, cfg, x, positions, TP(mesh), mode=mode,
                        cache=cache, compute_dtype=compute_dtype,
                        block_tables=block_tables, use_flash=use_flash,
@@ -428,18 +429,6 @@ def gqa_attention(
                        use_paged_kernel=use_paged_kernel,
                        kernel_blocks=kernel_blocks, causal=causal,
                        seq_shard=seq_shard)
-    if kv_override is not None:
-        q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
-        if cfg.qk_norm:
-            q = rms_norm_headwise(q, params["q_norm"]["scale"])
-        if mode not in ("train", "prefill", "decode"):
-            raise ValueError(f"cross-attention mode {mode!r}: 'train', "
-                             "'prefill' or 'decode'")
-        k, v, kv_pos = kv_override
-        q_pos = positions[:, None] if mode == "decode" else positions
-        bias = _mask_bias(q_pos, kv_pos, cfg.sliding_window, causal)
-        out = _sdpa(q, k, v, bias, scale, compute_dtype)
-        return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"], None
     return _gqa_whole(params, cfg, x, positions, mode=mode, cache=cache,
                       compute_dtype=compute_dtype, block_tables=block_tables,
                       use_flash=use_flash, use_flash_decode=use_flash_decode,
@@ -494,6 +483,65 @@ def _gqa_tp(params, cfg: ModelConfig, x, positions, tp: TP, *, mode, cache,
                            heads=None if whole else (a, bb), **kw)
     out = tp_mod.rows_of(tp, out, h, hd, qlo) @ params["wo"]
     return tp.g(out), cache
+
+
+def cross_kv(params, cfg: ModelConfig, enc_out, mesh=None):
+    """The cross-attention's keys and values of the encoder states
+    ``enc_out`` [B, T, D] -> (k, v [B, T, Hc, hd], positions [B, T]): every
+    kv head without a mesh; under one, kv heads [klo, khi) of the rank's
+    ``_gqa_plan`` (its block where they split over ``model``, as its
+    cache's ``xk`` / ``xv``, else all of them)."""
+    b, t, _ = enc_out.shape
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim_
+    tp = TP(mesh)
+    plan = _gqa_plan(cfg, tp, False)
+    if plan is None:
+        k, v = ((enc_out @ params[n]).reshape(b, t, hkv, hd)
+                for n in ("wk", "wv"))
+    else:
+        klo, khi = plan[2:4]
+        enc_f = tp.f(enc_out)
+        k, v = (tp_mod.heads(tp, tp_mod.project(tp, enc_out, enc_f,
+                                                params[n], hkv * hd),
+                             hkv, hd, klo, khi) for n in ("wk", "wv"))
+    pos = torch.arange(t, dtype=torch.int32,
+                       device=enc_out.device).expand(b, t)
+    return k, v, pos
+
+
+def _cross(params, cfg: ModelConfig, x, positions, tp: TP, *, mode, kv,
+           compute_dtype, causal):
+    """Cross-attention over ``kv`` (``cross_kv``'s, or the cache's ``xk`` /
+    ``xv`` / ``xpos``): the whole layer off a mesh (or where ``wo``'s rows
+    do not split), else the rank's q heads of ``_gqa_plan`` against its kv
+    heads, its rows of ``wo`` and a sum over ``model``."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim_
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"cross-attention mode {mode!r}: 'train', "
+                         "'prefill' or 'decode'")
+    k, v, kv_pos = kv
+    q_scale = params["q_norm"]["scale"] if cfg.qk_norm else None
+    plan = _gqa_plan(cfg, tp, False)
+    if plan is None:
+        q = (x @ params["wq"]).reshape(b, s, h, hd)
+    else:
+        qlo, qhi, klo, khi, a, bb = plan
+        q = tp_mod.heads(tp, tp_mod.project(tp, x, tp.f(x), params["wq"],
+                                            h * hd), h, hd, qlo, qhi)
+        if (a, bb) != (0, khi - klo):
+            k, v = k.narrow(2, a, bb - a), v.narrow(2, a, bb - a)
+        if cfg.qk_norm:
+            q_scale = tp.f(q_scale)
+    if cfg.qk_norm:
+        q = rms_norm_headwise(q, q_scale)
+    q_pos = positions[:, None] if mode == "decode" else positions
+    bias = _mask_bias(q_pos, kv_pos, cfg.sliding_window, causal)
+    out = _sdpa(q, k, v, bias, 1.0 / hd ** 0.5, compute_dtype)
+    if plan is None:
+        return out.reshape(b, s, h * hd) @ params["wo"], None
+    out = tp_mod.rows_of(tp, out, h, hd, qlo) @ params["wo"]
+    return tp.g(out), None
 
 
 def _gqa_core(cfg: ModelConfig, q, k, v, positions, *, mode, cache,

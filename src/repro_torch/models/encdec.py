@@ -10,8 +10,20 @@ lists (the reference does not stack them either).
 Every attention here runs the plain masked softmax, as in the reference,
 which passes no kernel option to any of them: the encoder's is not causal,
 the cross-attention's K/V come from the encoder (``kv_override``), and the
-decoder's self-attention takes the defaults.  ``opts`` is taken for the
-model API's sake and unused.
+decoder's self-attention takes the defaults.  ``opts`` is read for
+``fsdp_params`` only.
+
+Under a bound (or placed) ``mesh`` the layers run tensor parallelism over
+``model`` on the rank's blocks of the rules' specs, as the decoder-only
+LMs do (``models/tp.py``): the embedding vocab-parallel, the head
+column-parallel (logits whole on every rank), each attention on the
+rank's heads (``attention._gqa_plan``; the cross K/V from the rank's
+column blocks of ``wk`` / ``wv``, ``attention.cross_kv``), each MLP on
+the rank's F block.  The rows are the rank's data block.  At one rank
+every output is the no-mesh path's, bit for bit.  (The reference ignores
+its mesh here and lets GSPMD partition the whole program.)  Under
+``opts.fsdp_params`` every entry point gathers the params over the data
+axes first.
 """
 
 from __future__ import annotations
@@ -22,10 +34,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import tp as tp_mod
 from repro_torch.models.common import apply_norm, dense_init, embed_init, \
     init_norm, param_dtype
-from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.mlp import init_mlp
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
+from repro_torch.models.tp import TP
 
 
 def init_encdec(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
@@ -56,8 +70,9 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig, device) -> Dict:
 
 
 def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor, *,
-           opts: ModelOpts = DEFAULT_OPTS) -> torch.Tensor:
-    """frames [B, T_enc, D] (stub frontend output) -> encoder states."""
+           opts: ModelOpts = DEFAULT_OPTS, mesh=None) -> torch.Tensor:
+    """frames [B, T_enc, D] (stub frontend output) -> encoder states
+    (whole on every rank of ``model`` under a mesh)."""
     b, t, _ = frames.shape
     positions = torch.arange(t, dtype=torch.int32,
                              device=frames.device).expand(b, t)
@@ -65,76 +80,72 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor, *,
     for lp in params["enc_layers"]:
         h, _ = attn_mod.gqa_attention(
             lp["attn"], cfg, apply_norm(lp["norm1"], cfg, x), positions,
-            mode="train", causal=False)
+            mode="train", causal=False, mesh=mesh)
         x = x + h
-        x = x + mlp(lp["mlp"], apply_norm(lp["norm2"], cfg, x))
+        x = x + tp_mod.mlp_tp(lp["mlp"], apply_norm(lp["norm2"], cfg, x),
+                              mesh, cfg.d_ff)
     return apply_norm(params["enc_norm"], cfg, x)
 
 
-def _cross_kv(lp: Dict, cfg: ModelConfig, enc_out: torch.Tensor):
-    b, t, _ = enc_out.shape
-    hd = cfg.head_dim_
-    k = (enc_out @ lp["xattn"]["wk"]).reshape(b, t, cfg.num_kv_heads, hd)
-    v = (enc_out @ lp["xattn"]["wv"]).reshape(b, t, cfg.num_kv_heads, hd)
-    pos = torch.arange(t, dtype=torch.int32,
-                       device=enc_out.device).expand(b, t)
-    return k, v, pos
-
-
 def _decoder(params, cfg: ModelConfig, tokens, positions, mode: str,
-             caches, enc_out, opts: ModelOpts):
+             caches, enc_out, opts: ModelOpts = DEFAULT_OPTS, mesh=None):
     """-> (logits [B,S,V] f32, the caches or None in train mode).  In
     prefill the cross K/V are written into the caches' ``xk`` / ``xv`` /
     ``xpos`` in place; in decode they are read from there."""
-    x = params["embed"][tokens.long()]
+    tp = TP(mesh)
+    x = tp_mod.embed(tp, params["embed"], tokens, cfg.padded_vocab)
     for li, lp in enumerate(params["dec_layers"]):
         cache = caches[li] if caches is not None else None
         h, _ = attn_mod.gqa_attention(
             lp["attn"], cfg, apply_norm(lp["norm1"], cfg, x), positions,
-            mode=mode, cache=cache["self"] if cache is not None else None)
+            mode=mode, cache=cache["self"] if cache is not None else None,
+            mesh=mesh)
         x = x + h
         if cache is not None and mode == "decode":
             kv = (cache["xk"], cache["xv"], cache["xpos"])
         else:
-            kv = _cross_kv(lp, cfg, enc_out)
+            kv = attn_mod.cross_kv(lp["xattn"], cfg, enc_out, mesh)
         h, _ = attn_mod.gqa_attention(
             lp["xattn"], cfg, apply_norm(lp["norm_x"], cfg, x), positions,
-            mode=mode, causal=False, kv_override=kv)
+            mode=mode, causal=False, kv_override=kv, mesh=mesh)
         x = x + h
-        x = x + mlp(lp["mlp"], apply_norm(lp["norm2"], cfg, x))
+        x = x + tp_mod.mlp_tp(lp["mlp"], apply_norm(lp["norm2"], cfg, x),
+                              mesh, cfg.d_ff)
         if mode == "prefill":
             k, v, pos = kv
             cache["xk"].copy_(k)
             cache["xv"].copy_(v)
             cache["xpos"].copy_(pos)
     x = apply_norm(params["final_norm"], cfg, x)
-    logits = (x @ params["lm_head"]).float()
+    logits = tp_mod.logits(tp, x, params["lm_head"], cfg.padded_vocab)
     return logits, (caches if mode != "train" else None)
 
 
-def _no_mesh(mesh) -> None:
-    """A mesh's params are the rank's tensor-parallel blocks
-    (``sharding.local_params``), which the encoder-decoder does not run
-    (ROADMAP A14): refuse rather than read a block as a whole weight."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the encoder-decoder runs no tensor parallelism; call it "
-            "without a mesh on whole params")
+def _gathered(params, cfg: ModelConfig, mesh, opts: ModelOpts):
+    """The params with every FSDP leaf gathered over the data axes under
+    ``opts.fsdp_params`` on a mesh (``tp.gather_fsdp``); as given
+    otherwise."""
+    if mesh is None or not opts.fsdp_params:
+        return params
+    from repro_torch.sharding.rules import fsdp_layout
+    return tp_mod.gather_fsdp(params, fsdp_layout(cfg, mesh,
+                                                  opts.fsdp_min_size),
+                              mesh, opts)
 
 
 def encdec_loss(params, cfg: ModelConfig, batch, *, mesh=None,
                 opts: ModelOpts = DEFAULT_OPTS):
     """batch: frames [B,T,D], tokens [B,S], targets [B,S], mask [B,S] ->
-    (xent, {"xent", "aux"}).  No mesh: the encoder-decoder runs no
-    tensor parallelism (``_no_mesh``)."""
-    _no_mesh(mesh)
+    (xent, {"xent", "aux"}); under a mesh the rank's data block and its
+    blocks of the params (module doc)."""
     from repro_torch.models.transformer import softmax_xent
-    enc_out = encode(params, cfg, batch["frames"], opts=opts)
+    params = _gathered(params, cfg, mesh, opts)
+    enc_out = encode(params, cfg, batch["frames"], opts=opts, mesh=mesh)
     b, s = batch["tokens"].shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=enc_out.device).expand(b, s)
     logits, _ = _decoder(params, cfg, batch["tokens"], positions, "train",
-                         None, enc_out, opts)
+                         None, enc_out, opts, mesh)
     xent = softmax_xent(logits, batch["targets"], batch["mask"].float())
     return xent, {"xent": xent,
                   "aux": torch.zeros((), dtype=torch.float32,
@@ -160,23 +171,23 @@ def init_encdec_caches(cfg: ModelConfig, batch: int, max_len: int,
 def encdec_prefill(params, cfg: ModelConfig, frames, tokens, caches, *,
                    mesh=None, opts: ModelOpts = DEFAULT_OPTS):
     """Encode ``frames`` and prefill the decoder with ``tokens`` [B,S] ->
-    (last logits [B,V], caches).  No mesh (``_no_mesh``)."""
-    _no_mesh(mesh)
-    enc_out = encode(params, cfg, frames, opts=opts)
+    (last logits [B,V], caches); under a mesh the caches are the rank's
+    blocks (``sharding.local_cache_specs``)."""
+    params = _gathered(params, cfg, mesh, opts)
+    enc_out = encode(params, cfg, frames, opts=opts, mesh=mesh)
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     logits, caches = _decoder(params, cfg, tokens, positions, "prefill",
-                              caches, enc_out, opts)
+                              caches, enc_out, opts, mesh)
     return logits[:, -1], caches
 
 
 @torch.no_grad()
 def encdec_decode_step(params, cfg: ModelConfig, tokens, pos, caches, *,
                        mesh=None, opts: ModelOpts = DEFAULT_OPTS):
-    """tokens [B], pos [B] -> (logits [B,V], caches).  No mesh
-    (``_no_mesh``)."""
-    _no_mesh(mesh)
+    """tokens [B], pos [B] -> (logits [B,V], caches)."""
+    params = _gathered(params, cfg, mesh, opts)
     logits, caches = _decoder(params, cfg, tokens[:, None], pos, "decode",
-                              caches, None, opts)
+                              caches, None, opts, mesh)
     return logits[:, 0], caches

@@ -88,6 +88,16 @@ def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
                               device=resolve_device(device))
 
 
+def abstract_caches(cfg: ModelConfig, batch: int, max_len: int, **kw):
+    """``init_caches`` on the ``meta`` device: shapes and dtypes without
+    memory (the reference's ``eval_shape`` of its ``init_caches``), on the
+    reference's default contiguous layout unless ``layout=`` says
+    otherwise.  One cache a layer, where the reference stacks a run of
+    identical layers under a leading dim."""
+    kw.setdefault("layout", "contiguous")
+    return init_caches(cfg, batch, max_len, device="meta", **kw)
+
+
 def prefill_fn(params, cfg: ModelConfig, batch, caches, *, mesh=None,
                opts: ModelOpts = DEFAULT_OPTS):
     """batch: {"tokens": [B,S], optional "positions", and "frames"

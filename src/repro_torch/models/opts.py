@@ -76,6 +76,10 @@ class ModelOpts:
     #: two-level remat: with ``remat`` on, checkpoint runs of identical
     #: layers N at a time instead of each layer (``blocks.apply_stack``)
     remat_chunk: int = 0
+    #: gradient accumulation: the train step splits its batch into this
+    #: many microbatches, run one after another (the dry run's train cell
+    #: passes it to ``training.make_train_step(microbatches=)``)
+    microbatches: int = 1
 
 
 DEFAULT_OPTS = ModelOpts()

@@ -137,9 +137,9 @@ def _check_local(cfg: ModelConfig, params, mesh, opts: ModelOpts,
     """Refuse params that are not the rank's blocks of ``local_specs``
     (under ``opts.fsdp_params``, its FSDP blocks) or a mesh bound on
     another device type."""
-    if mesh.device is None or mesh.device.type != device.type:
+    if not mesh.bound or mesh.device.type != device.type:
         raise ValueError(f"the engine runs on {device}; bind the mesh "
-                         f"there (it is bound on {mesh.device})")
+                         f"there ({mesh!r})")
     from repro_torch import models
     from repro_torch.sharding import local_shardings, local_tree
     from repro_torch.tree import flatten_with_paths

@@ -139,6 +139,10 @@ class ModelRunner:
     def __init__(self, cfg: ModelConfig, params, *,
                  opts: ModelOpts = DEFAULT_OPTS, graphs: bool = True,
                  mesh=None):
+        if mesh is not None and not mesh.bound:
+            raise ValueError(f"a runner serves on a bound mesh, not on "
+                             f"{mesh!r} (a placed mesh only counts its "
+                             "collectives)")
         if mesh is not None and graphs:
             raise ValueError(
                 "a runner on a mesh runs its steps eagerly: pass "

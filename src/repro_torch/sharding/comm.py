@@ -27,10 +27,23 @@ over the data axes.  ``reduce_scatter`` is the ZeRO-1 and FSDP gradient
 step's.
 
 Each call reports its operand bytes to the open
-``analysis.collectives.record()`` blocks.  A group of one rank still runs
-its collective (NCCL or gloo then copies), so a one-card mesh counts the
-same calls a larger one makes.  Nothing else in the port calls
-``torch.distributed`` collectives.
+``analysis.collectives.record()`` blocks, and runs its body inside
+``analysis.collectives.transfer()`` (the copies into and out of its
+buffers are the collective's bytes, not the step's HBM traffic:
+``analysis/counters.py``).  A group of one rank still runs its collective
+(NCCL or gloo then copies), so a one-card mesh counts the same calls a
+larger one makes.  Nothing else in the port calls ``torch.distributed``
+collectives.
+
+On a placed mesh (``Mesh.place``: one rank, no world; the dry run) every
+collective computes nothing: it reports the same ``note`` as on a bound
+mesh and returns an empty tensor of its result's shape, dtype and device;
+``barrier`` does nothing.  The differentiable ones stay differentiable,
+and their backward runs what the bound path's backward runs outside this
+module (``torch.distributed.nn``'s: a copy of the gradient for a sum, a
+contiguous gradient for an all-to-all; neither notes a collective, as the
+bound one's does not) or, for the module's own autograd functions, the
+same placed collective that the bound backward would call.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ import warnings
 
 import torch
 
-from repro_torch.analysis.collectives import note
+from repro_torch.analysis.collectives import note, transfer
 from repro_torch.launch.mesh import Mesh
 
 
@@ -67,20 +80,26 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if x.shape[0] != n:
         raise ValueError(f"all_to_all over {axis!r} ({n} ranks) needs dim 0 "
                          f"of {n}, got {tuple(x.shape)}")
-    x = x.contiguous()
-    note("all-to-all", _nbytes(x), n)
-    with _quiet():
-        return _functional().all_to_all_single(
-            torch.empty_like(x), x, group=mesh.get_group(axis))
+    with transfer():
+        x = x.contiguous()
+        note("all-to-all", _nbytes(x), n)
+        if mesh.placed:
+            return _Placed.apply(x, False)
+        with _quiet():
+            return _functional().all_to_all_single(
+                torch.empty_like(x), x, group=mesh.get_group(axis))
 
 
 def psum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     """The sum over the ranks of ``axes`` (a name or names)."""
     import torch.distributed as dist
-    note("all-reduce", _nbytes(x), mesh.axis_size(axes))
-    with _quiet():
-        return _functional().all_reduce(x, op=dist.ReduceOp.SUM,
-                                        group=mesh.get_group(axes))
+    with transfer():
+        note("all-reduce", _nbytes(x), mesh.axis_size(axes))
+        if mesh.placed:
+            return _Placed.apply(x, True)
+        with _quiet():
+            return _functional().all_reduce(x, op=dist.ReduceOp.SUM,
+                                            group=mesh.get_group(axes))
 
 
 def pmean(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
@@ -91,10 +110,14 @@ def pmean(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
 def pmax(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     """The elementwise max over the ranks of ``axes``; no gradient."""
     import torch.distributed as dist
-    note("all-reduce", _nbytes(x), mesh.axis_size(axes))
-    out = x.detach().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.get_group(axes))
-    return out
+    with transfer():
+        note("all-reduce", _nbytes(x), mesh.axis_size(axes))
+        if mesh.placed:
+            return _empty(x.shape, x)
+        out = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                        group=mesh.get_group(axes))
+        return out
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
@@ -109,8 +132,9 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
 def barrier(mesh: Mesh) -> None:
     """Every rank of the mesh reaches this point before any goes on."""
     import torch.distributed as dist
-    mesh.coordinates()                       # bound
-    dist.barrier(group=mesh.get_group(mesh.axis_names))
+    mesh.coordinates()                       # bound or placed
+    if not mesh.placed:
+        dist.barrier(group=mesh.get_group(mesh.axis_names))
 
 
 def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
@@ -122,19 +146,23 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
     if x.shape[dim] % n:
         raise ValueError(f"reduce_scatter over {axes!r} ({n} ranks): dim "
                          f"{dim} of {tuple(x.shape)} does not split")
-    note("reduce-scatter", _nbytes(x) // n, n)
-    group = mesh.get_group(axes)
-    x = x.detach()
-    if dist.get_backend(group) == "nccl":
-        xt = x.movedim(dim, 0).contiguous()
-        out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        dist.reduce_scatter_tensor(out, xt, group=group)
-        return out.movedim(0, dim).contiguous()
-    # gloo has no reduce-scatter: a sum, of which the rank keeps its block
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
-    return _block(out, mesh, axes, dim).contiguous()
+    with transfer():
+        note("reduce-scatter", _nbytes(x) // n, n)
+        if mesh.placed:
+            return _empty(_resized(x.shape, dim, x.shape[dim] // n), x)
+        group = mesh.get_group(axes)
+        x = x.detach()
+        if dist.get_backend(group) == "nccl":
+            xt = x.movedim(dim, 0).contiguous()
+            out = torch.empty((xt.shape[0] // n,) + tuple(xt.shape[1:]),
+                              dtype=x.dtype, device=x.device)
+            dist.reduce_scatter_tensor(out, xt, group=group)
+            return out.movedim(0, dim).contiguous()
+        # gloo has no reduce-scatter: a sum, of which the rank keeps its
+        # block
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return _block(out, mesh, axes, dim).contiguous()
 
 
 class _AllGather(torch.autograd.Function):
@@ -156,20 +184,62 @@ class _AllGather(torch.autograd.Function):
 
 def _all_reduce(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
     import torch.distributed as dist
-    note("all-reduce", _nbytes(x), mesh.axis_size(axes))
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=mesh.get_group(axes))
-    return out
+    with transfer():
+        note("all-reduce", _nbytes(x), mesh.axis_size(axes))
+        if mesh.placed:
+            return _empty(x.shape, x)
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=mesh.get_group(axes))
+        return out
 
 
 def _gather(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
     import torch.distributed as dist
     n = mesh.axis_size(axes)
-    x = x.contiguous()
-    note("all-gather", _nbytes(x) * n, n)
-    parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x, group=mesh.get_group(axes))
-    return torch.cat(parts, dim=dim)
+    with transfer():
+        x = x.contiguous()
+        note("all-gather", _nbytes(x) * n, n)
+        if mesh.placed:
+            return _empty(_resized(x.shape, dim, x.shape[dim] * n), x)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=mesh.get_group(axes))
+        return torch.cat(parts, dim=dim)
+
+
+# --------------------------------------------------------------------------- #
+# A placed mesh's collectives (module doc)
+# --------------------------------------------------------------------------- #
+
+
+def _empty(shape, like: torch.Tensor) -> torch.Tensor:
+    """A placed collective's result: contiguous, nothing computed."""
+    return torch.empty(tuple(shape), dtype=like.dtype, device=like.device)
+
+
+def _resized(shape, dim: int, size: int):
+    out = list(shape)
+    out[dim] = size
+    return out
+
+
+class _Placed(torch.autograd.Function):
+    """The result of a placed sum (``copy_grad``) or all-to-all; the
+    backward runs the aten work of ``torch.distributed.nn``'s backward,
+    which the bound path runs outside this module: a contiguous copy of the
+    gradient for a sum, the gradient made contiguous and an output buffer
+    for an all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, copy_grad):
+        ctx.copy_grad = copy_grad
+        return _empty(x.shape, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.copy_grad:
+            return g.clone(memory_format=torch.contiguous_format), None
+        g = g.contiguous()
+        return _empty(g.shape, g), None
 
 
 def _block(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:

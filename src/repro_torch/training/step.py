@@ -140,7 +140,11 @@ def value_and_grad(cfg: ModelConfig, *, opts: ModelOpts = DEFAULT_OPTS,
     divided by their count.  Under ``mesh`` the loss and metrics are the
     global batch's and the grads reduced over the data axes (module
     doc)."""
-    shardings = {}
+    # the whole shapes' shardings, laid out here rather than in the step
+    # (``abstract_params`` draws a whole tree on ``meta``: spec
+    # arithmetic, no part of the step's work)
+    shardings = (None if mesh is None
+                 else whole_shardings(cfg, mesh, opts).params)
 
     def loss_of(tree, batch):
         loss, metrics = models.loss_fn(tree, cfg, batch, mesh=mesh,
@@ -180,9 +184,7 @@ def value_and_grad(cfg: ModelConfig, *, opts: ModelOpts = DEFAULT_OPTS,
                 loss = loss / microbatches
                 metrics = {"xent": loss, "aux": torch.zeros_like(loss)}
         if mesh is not None:
-            if "params" not in shardings:
-                shardings["params"] = whole_shardings(cfg, mesh, opts).params
-            grads = _reduce_grads(grads, shardings["params"], mesh)
+            grads = _reduce_grads(grads, shardings, mesh)
         return loss, metrics, unflatten(params, grads)
 
     return fn
@@ -239,7 +241,9 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
     # (whole leaves are equal on every rank after the reduction)
     amax = None if mesh is None else (
         lambda a: comm.pmax(a, mesh, mesh.axis_names))
-    layout = {}
+    # spec arithmetic, once (as in ``value_and_grad``)
+    whole = None if mesh is None else whole_shardings(cfg, mesh, opts)
+    zero = None if mesh is None else _zero1_blocks(whole, mesh)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         loss, metrics, grads = grads_of(state.params, batch)
@@ -250,11 +254,8 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
             gnorm = _global_norm(grads)
             opt = optimizer.step_(grads, state.opt, state.params)
         else:
-            if not layout:
-                layout["sh"] = whole_shardings(cfg, mesh, opts)
-                layout["zero"] = _zero1_blocks(layout["sh"], mesh)
-            gnorm = _global_norm(grads, mesh, layout["sh"].params)
-            opt = _zero1_step(optimizer, state, grads, layout["zero"])
+            gnorm = _global_norm(grads, mesh, whole.params)
+            opt = _zero1_step(optimizer, state, grads, zero)
         metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = gnorm

@@ -184,9 +184,8 @@ def _checks(mesh, out):
 def _refusals(mesh, out):
     """What a mesh refuses, each as its error's type and message: whole
     params to ``Engine(mesh=)``, CUDA graphs on a mesh, ``ep_a2a`` and
-    ``ep_psum`` where the experts do not split, the encoder-decoder."""
+    ``ep_psum`` where the experts do not split."""
     from repro_torch import models
-    from repro_torch.configs import get_config
     from repro_torch.models.moe import moe_ep_a2a, moe_ep_psum
     from repro_torch.serving import Engine
     from repro_torch.sharding import local_params
@@ -212,11 +211,6 @@ def _refusals(mesh, out):
     refused("ep_a2a_unsplit", lambda: moe_ep_a2a(moe, cfg, x, 2, mesh=mesh))
     refused("ep_psum_unsplit", lambda: moe_ep_psum(moe, cfg, x, 2,
                                                    mesh=mesh))
-    wcfg = get_config("whisper-base").reduced()
-    wp = models.init_params(wcfg, 0, device="cpu")
-    refused("whisper", lambda: models.loss_fn(wp, wcfg, models.make_train_batch(
-        wcfg, torch.Generator().manual_seed(0), 1, 8, device="cpu"),
-        mesh=mesh))
     out["refusals"] = got
 
 

@@ -29,8 +29,9 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert len(names) > 30, names
 # the server, detok and NAEE modules, the training ones, the examples'
-# launchers, the five family configs and the mesh, sharding, EP and
-# collective-accounting modules are walked like every other
+# launchers, the five family configs, the mesh, sharding, EP and
+# collective-accounting modules and the dry run's are walked like every
+# other
 for m in ("repro_torch.serving.http", "repro_torch.serving.detok",
           "repro_torch.launch.api_server", "repro_torch.core.skipping",
           "repro_torch.training.loop", "repro_torch.checkpoint.manager",
@@ -45,7 +46,9 @@ for m in ("repro_torch.serving.http", "repro_torch.serving.detok",
           "repro_torch.launch.mesh", "repro_torch.sharding",
           "repro_torch.sharding.rules", "repro_torch.sharding.comm",
           "repro_torch.models.moe.ep", "repro_torch.analysis",
-          "repro_torch.analysis.collectives"):
+          "repro_torch.analysis.collectives",
+          "repro_torch.analysis.counters", "repro_torch.analysis.roofline",
+          "repro_torch.kernels.costs", "repro_torch.launch.dryrun"):
     assert m in names, m
 import torch
 if not torch.cuda.is_available():

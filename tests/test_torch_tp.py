@@ -213,11 +213,11 @@ def test_ranks_hold_their_blocks_of_the_attention(world):
     ("engine_graphs", "graphs=False"),
     ("ep_a2a_unsplit", "do not split"),
     ("ep_psum_unsplit", "do not split"),
-    ("whisper", "no tensor parallelism"),
 ])
 def test_mesh_refusals(world, tag, match):
-    """A mesh refuses whole params, CUDA graphs, the EP impls where the
-    experts do not split over ``model``, and the encoder-decoder."""
+    """A mesh refuses whole params, CUDA graphs and the EP impls where the
+    experts do not split over ``model`` (the encoder-decoder runs tensor
+    parallelism: ``test_torch_dryrun.py``)."""
     out, _ = world
     got = out["refusals"][tag]
     assert got is not None, f"{tag}: nothing raised"

@@ -162,9 +162,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               qwen3-32b, h2o-danube-1.8b, minicpm3-4b, olmo-1b and
               pixtral-12b at full depth),
               its weights, engines and graphs freed before the next: B1,
-              B3 and B9 at the MoE configs' expert shapes (sub-entries of
-              their rows); the kernel paths' logits against the plain
-              paths' (``family_reference``: a chunk and a decode step on
+              B3, B9, and B5 and B6 in int8 and int4, at the MoE configs'
+              expert shapes (sub-entries of their rows); the kernel
+              paths' logits against the plain paths'
+              (``family_reference``: a chunk and a decode step on
               the paged pool, for GQA a whole prompt and a decode step on
               the contiguous cache); the 8 requests (FAMILY_NEW tokens
               each) on the paged pool through the config's own ``dense``,
@@ -179,7 +180,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               witness, through the first layer within LOGITS_TOL);
               qwen3-moe's LExI plan at a 50 % budget
               served and a mixed wave, each with an eager twin of the same
-              history; llama4-scout's plan asserted to be (1,) * 8.  One
+              history; llama4-scout's plan asserted to be (1,) * 8, and
+              its 8 requests served again with int8, then int4 experts
+              (FAMILY_QUANT: quantized at load on ``gmm``, graphed, an
+              eager twin's tokens and launches equal, ``moe_gmm_quant``
+              and ``moe_decode_quant`` launched, no bf16 expert kernel;
+              B5's pass 2 in two chunks of h rows at F 8192).  One
               ``families`` line a config (layers, params_gb,
               kv_bytes_per_token, peak_gb, launches).
 9c. ssm_encdec -- mamba2-780m (48 Mamba2 layers), zamba2-1.2b (32 Mamba2
@@ -271,14 +277,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               (1, 1) mesh, full-depth OLMoE-1B-7B through the dry run's
               ``build_cell``, with the serving path's kernels: a prefill of
               4 x 512 (B2, B9) and a decode step of 8 rows over 512 slots
-              (B8, B9), each counted on ``meta`` (the mesh placed) and on
-              the card (``analysis.counters.count``): FLOPs, aten and
-              kernel bytes, collective bytes and calls by kind, and kernel
-              calls equal; the step (CUDA events, median of DRYRUN_REPS)
-              at least its bound from the meta counts; the card's peak
-              over the meta peak inside DRYRUN_PEAK_BAND; and
-              whisper-base's prefill and decode logits on the mesh bit for
-              bit its no-mesh logits.  One ``dryrun`` line.
+              (B8, B9), then a train step of 4 x 512 at
+              DRYRUN_TRAIN_LAYERS layers (``ep_a2a``, remat on every
+              layer; plain paths), each counted on ``meta`` (the mesh
+              placed) and on the card (``analysis.counters.count``): FLOPs,
+              aten and kernel bytes, collective bytes and calls by kind
+              (the backward's included), and kernel calls equal; the train
+              step's all-to-alls three per forward call's; the step
+              (CUDA events, median of DRYRUN_REPS) at least its bound
+              from the meta counts; the card's peak over the meta peak
+              inside DRYRUN_PEAK_BAND; and whisper-base's prefill and
+              decode logits on the mesh bit for bit its no-mesh logits.
+              One ``dryrun`` line.
 
 Every serve and forward runs its steps as CUDA graphs, captured for each
 specialization key of the runner (``serving/runner.py``) or each forward
@@ -688,6 +698,8 @@ def check_moe_gmm_quant(layer, cfg, x, flush, tag: str = ""):
         out[dt] = (err, ms, plain_ms, nbytes, rows * 6 * d * f, None,
                    {"sibling_ms": sib_ms})
         del q, args
+        gc.collect()                # the plain version's f32 weights
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2667,6 +2679,10 @@ FAMILY_WINDOW = 128
 #: tokens each request decodes in the families phase (the serve phases'
 #: 32 halved, to keep the phase short)
 FAMILY_NEW = 16
+#: the families that serve the 8 requests again with int8 and int4
+#: experts (quantized at load on a ``gmm`` copy of the config):
+#: llama4-scout's F 8192 runs B5's pass 2 in two chunks of h rows
+FAMILY_QUANT = ("llama4-scout-17b-a16e",)
 #: the short name of a family in step and check names
 FAMILY_SHORT = {"qwen3-moe-235b-a22b": "qwen3_moe",
                 "llama4-scout-17b-a16e": "llama4",
@@ -2740,8 +2756,11 @@ def prefix_check(params, cfg, device):
 def family_expert_checks(layer, cfg, short, device, rows):
     """B1, B3 and B9 at a family's expert shapes (the first MoE layer's
     router and experts): B1 on 512 tokens, B3 on 8 tokens at top-k and at
-    k 2, B9 on a decode step's capacity buffers (8 tokens), each held to
-    its plain version; each a sub-entry of its kernel's row."""
+    k 2, B9 on a decode step's capacity buffers (8 tokens); B5 (8 tokens,
+    top-k and k 2) and B6 (512 tokens) on the same experts in int8 and
+    int4 (``check_moe_decode_quant``, ``check_moe_gmm_quant``: channels
+    scaled apart, quantized on the card); each held to its plain version
+    and a sub-entry of its kernel's row."""
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(9)
@@ -2759,6 +2778,21 @@ def family_expert_checks(layer, cfg, short, device, rows):
     sh = f"{short}_decode_f{f}"
     shapes["moe_ffn"] = {sh: kernel_row(
         "moe_ffn", "", "", *check_moe_ffn(layer, cfg, x8, flush, sh))}
+    # the plain versions gather every routed expert's weights in f32 (7.5
+    # GB at qwen3-moe's 512 tokens): return the cached blocks first
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes["moe_decode_quant"] = {
+        f"{short}_f{f}_{key}": kernel_row("moe_decode_quant", "", "", *v)
+        for key, v in check_moe_decode_quant(
+            layer, cfg, x8, flush, f"_{short}",
+            ks=(cfg.moe_top_k, 2)).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes["moe_gmm_quant"] = {
+        f"{short}_f{f}_{dt}": kernel_row("moe_gmm_quant", "", "", *v)
+        for dt, v in check_moe_gmm_quant(layer, cfg, x, flush,
+                                         f"_{short}").items()}
     for name, per in shapes.items():
         rows[name].setdefault("shapes", {}).update(
             {k: {n: r[n] for n in NESTED_KEYS if n in r}
@@ -2945,6 +2979,9 @@ def family_phase(name, cfg, device, t_start, rows):
     drained(f"{name} serve", eng)
     del eng
     torch.cuda.empty_cache()
+    if name in FAMILY_QUANT:
+        need.update(family_quant_serve(params, cfg, short, device, rec,
+                                       reqs))
 
     if cfg.attention == "gqa" and (cfg.sliding_window or not cfg.is_moe):
         cfg_c = cfg.with_(sliding_window=FAMILY_WINDOW) \
@@ -2981,6 +3018,54 @@ def family_phase(name, cfg, device, t_start, rows):
     rec["launches"] = {k[len(short) + 1:]: {n: v for n, v in c.items() if v}
                        for k, (c, _) in need.items()}
     emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return need
+
+
+def family_quant_serve(params, cfg, short, device, rec, reqs):
+    """The 8 requests on the paged pool with int8, then int4 experts
+    (``Engine(expert_dtype=)`` quantizes the routed experts at load on a
+    ``gmm`` copy of the config; the bf16 weights and one quantized copy
+    are held together, each quantized engine freed before the next),
+    graphed, then eagerly: tokens and launches equal, ``moe_gmm_quant``
+    and ``moe_decode_quant`` launched, no bf16 expert kernel.  Returns
+    the launch needs."""
+    from repro_torch import models
+    from repro_torch.models.moe import QUANT_DTYPES
+    from repro_torch.serving import Engine
+    cfg_q = cfg.with_(moe_impl="gmm")
+    kernels = ("moe_gmm_quant", "moe_decode_quant", "flash_decode_paged")
+    need = {}
+    for dt in QUANT_DTYPES:
+        def paged(graphs=True):
+            return Engine(cfg_q, params, max_batch=8, max_len=512,
+                          prefill_chunk=64, use_kernel=True,
+                          use_moe_decode=True, expert_dtype=dt,
+                          opts=models.ModelOpts(use_moe_kernel=True),
+                          device=device, graphs=graphs)
+        eng = paged()
+        res, c = counted(lambda: eng.serve(reqs()))
+        check_results(f"{cfg.name} {dt}", res, cfg, FAMILY_NEW)
+        for n in ("moe_gmm", "moe_decode", "moe_ffn"):
+            if c[n]:
+                raise AssertionError(f"{cfg.name} {dt}: the bf16 expert "
+                                     f"kernel {n} ran {c[n]} times")
+        moe = [lp["moe"] for lp in eng.runner.params["layers"]
+               if "moe" in lp]
+        line = {"stats": serve_record(eng),
+                "launches": {n: v for n, v in c.items() if v},
+                "expert_gb": sum(m[w].numel() * m[w].element_size()
+                                 for m in moe for w in ("w1", "w2")) / 1e9}
+        need[f"{short}_{dt}"] = (c, kernels)
+        drained(f"{cfg.name} {dt}", eng)
+        del eng, moe
+        gc.collect()
+        torch.cuda.empty_cache()
+        line["eager_stats"], c = eager_twin(f"{cfg.name} {dt}", paged,
+                                            reqs(), res, c)
+        need[f"{short}_{dt}_eager"] = (c, kernels)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec[f"serve_{dt}"] = line
     return need
 
 
@@ -4084,8 +4169,14 @@ DRYRUN_CELLS = (("olmo-1b", "decode_32k", False, False),
                 ("whisper-base", "train_4k", False, False),
                 ("qwen3-moe-235b-a22b", "decode_32k", True, False))
 #: (b) full-depth OLMoE-1B-7B on the card and on meta: a prefill of 4 x 512
-#: tokens (B2, B9) and a decode step of 8 rows over 512 slots (B8, B9)
-DRYRUN_STEPS = (("prefill", 512, 4), ("decode", 512, 8))
+#: tokens (B2, B9) and a decode step of 8 rows over 512 slots (B8, B9);
+#: then a train step of 4 x 512 tokens at DRYRUN_TRAIN_LAYERS layers
+#: (``ep_a2a``, every layer under remat; plain paths, no kernel), its
+#: backward's collectives counted
+DRYRUN_STEPS = (("prefill", 512, 4), ("decode", 512, 8), ("train", 512, 4))
+#: (b) the train step's depth: its state (params, f32 moments) and saved
+#: activations beside the card's other tenants
+DRYRUN_TRAIN_LAYERS = 4
 #: (b) the card's peak (the inputs' bytes plus what the step allocated
 #: over them) over the meta peak must lie in this band, written in PERF.md
 #: before the first run
@@ -4125,13 +4216,19 @@ def dryrun_cells():
 
 
 def dryrun_card_step(mesh, device, step_kind, seq, rows):
-    """(b) for one step: full-depth OLMoE through ``launch.dryrun.
-    build_cell``, with the serving path's kernels (``--flash``; B9 in
-    ``ep_a2a`` / ``ep_psum``), counted on meta (the (1, 1) mesh placed)
-    and on the card (``mesh``, bound); FLOPs, bytes, collectives and
-    kernel calls equal; the step timed (CUDA events, the median of
-    DRYRUN_REPS) at least the meta count's bound; the card's peak within
-    DRYRUN_PEAK_BAND of the meta peak.  Returns (line, the launches)."""
+    """(b) for one step: OLMoE (full depth; a train step at
+    DRYRUN_TRAIN_LAYERS) through ``launch.dryrun.build_cell``, with the
+    serving path's kernels (``--flash``; B9 in ``ep_a2a`` / ``ep_psum``),
+    counted on meta (the (1, 1) mesh placed) and on the card (``mesh``,
+    bound); FLOPs, bytes, collectives (the backward's too) and kernel
+    calls equal; a train step's all-to-alls three per forward call's
+    (forward, remat's rerun, backward: every layer is under remat), the
+    forward's counted on meta under no grad; the step timed (CUDA events,
+    the median of DRYRUN_REPS) at least the meta count's bound; the card's
+    peak within DRYRUN_PEAK_BAND of the meta peak.  Returns (line, the
+    launches)."""
+    from repro_torch import models
+    from repro_torch.analysis import record
     from repro_torch.analysis import roofline as rl
     from repro_torch.analysis.counters import count
     from repro_torch.configs import get_config
@@ -4139,12 +4236,32 @@ def dryrun_card_step(mesh, device, step_kind, seq, rows):
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_test_mesh
     shape = ShapeSpec(f"{step_kind}_{seq}", seq, rows, step_kind)
-    cfg = dryrun.cell_config(get_config("olmoe-1b-7b"), shape)
+    train = step_kind == "train"
+    cfg = get_config("olmoe-1b-7b")
+    if train:
+        cfg = cfg.with_(num_layers=DRYRUN_TRAIN_LAYERS)
+    cfg = dryrun.cell_config(cfg, shape)
     opts = dryrun.cell_opts(cfg, shape, use_flash=True)
-    step, inputs = dryrun.build_cell(cfg, shape,
-                                     make_test_mesh((1, 1)).place(0), opts)
+    placed = make_test_mesh((1, 1)).place(0)
+    step, inputs = dryrun.build_cell(cfg, shape, placed, opts)
     with count(inputs) as dry:
         step()
+    a2a = None
+    if train:
+        with torch.no_grad(), record() as fwd:
+            models.loss_fn(inputs["params"], cfg, inputs["batch"],
+                           mesh=placed, opts=opts)
+        a2a = {"forward_calls": fwd.count_by_kind.get("all-to-all", 0),
+               "forward_bytes": fwd.bytes_by_kind.get("all-to-all", 0),
+               "step_calls": dry.collectives.count_by_kind.get(
+                   "all-to-all", 0),
+               "step_bytes": dry.collectives.bytes_by_kind.get(
+                   "all-to-all", 0)}
+        if (a2a["forward_calls"] != 2 * cfg.num_moe_layers
+                or a2a["step_calls"] != 3 * a2a["forward_calls"]
+                or a2a["step_bytes"] != 3 * a2a["forward_bytes"]):
+            raise AssertionError(f"dryrun train: all-to-alls {a2a}, want "
+                                 "three per forward call")
     del step, inputs
     report = rl.analyze_costs(rl.costs_from_counters(dry), cfg, shape,
                               chips=1, mesh_desc="1x1",
@@ -4190,6 +4307,8 @@ def dryrun_card_step(mesh, device, step_kind, seq, rows):
             "meta_peak_gb": dry.peak_bytes / 1e9,
             "card_peak_gb": card_peak / 1e9, "peak_ratio": ratio,
             "input_gb": dry.input_bytes / 1e9}
+    if train:
+        line.update(layers=cfg.num_layers, remat=opts.remat, all_to_all=a2a)
     return line, launches
 
 
@@ -4239,14 +4358,17 @@ def dryrun_phase(device, t_start):
            "cells_seconds": time.perf_counter() - t0}
     need = {}
     want = {"prefill": ("flash_attention", "moe_ffn"),
-            "decode": ("flash_decode", "moe_ffn")}
-    with one_rank_mesh() as mesh, torch.no_grad():
+            "decode": ("flash_decode", "moe_ffn"), "train": ()}
+    with one_rank_mesh() as mesh:
         rec["steps"] = []
         for kind, seq, rows in DRYRUN_STEPS:
-            line, launches = dryrun_card_step(mesh, device, kind, seq, rows)
+            with torch.set_grad_enabled(kind == "train"):
+                line, launches = dryrun_card_step(mesh, device, kind, seq,
+                                                  rows)
             rec["steps"].append(line)
             need[f"dryrun_{kind}"] = (launches, want[kind])
-        rec["whisper_mesh"] = whisper_mesh_check(mesh, device)
+        with torch.no_grad():
+            rec["whisper_mesh"] = whisper_mesh_check(mesh, device)
     gc.collect()
     torch.cuda.empty_cache()
     rec.update(peak_band=DRYRUN_PEAK_BAND,
@@ -4260,9 +4382,17 @@ RESUME_FLAG = "--train-resume"
 DIGESTS_FLAG = "--digests"
 
 
+#: ``--digests``: the configs whose first MoE layer B5 runs on (8 tokens,
+#: top-k and k 2, int8 and int4): OLMoE's F 1024, qwen3-moe's F 1536 and
+#: llama4-scout's F 8192 (two chunks of pass 2)
+DIGEST_QUANT = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
+
+
 def digests_main(device) -> int:
-    """``--digests [DIR]``: the attention checks, untimed, on the package
-    already imported (DIR's); prints the digests and the refusals."""
+    """``--digests [DIR]``: the attention checks and B5's (DIGEST_QUANT,
+    on a two-layer cut of each config), untimed, on the package already
+    imported (DIR's); prints the digests and the refusals."""
+    from repro_torch import models
     from repro_torch.configs import get_config
     cfg, cfg_mla = get_config("olmoe-1b-7b"), get_config("deepseek-v2-lite")
     refused = {}
@@ -4273,6 +4403,23 @@ def digests_main(device) -> int:
             check(c, None, device)
         except ValueError as e:          # a shape the wrappers refuse
             refused[check.__name__] = str(e)
+    for name in DIGEST_QUANT:
+        c = get_config(name).with_(num_layers=2)
+        params = models.init_params(c, seed=0, device=device)
+        layer = next(lp["moe"] for lp in params["layers"] if "moe" in lp)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(9)
+        x8 = torch.randn((8, c.d_model), generator=gen, device=device,
+                         dtype=torch.bfloat16)
+        short = FAMILY_SHORT.get(name, name.split("-")[0])
+        try:                             # a refusal, or a failed launch
+            check_moe_decode_quant(layer, c, x8, None, f"_{short}",
+                                   ks=(c.moe_top_k, 2))
+        except (ValueError, RuntimeError) as e:
+            refused[f"moe_decode_quant_{short}"] = str(e)
+        del params, layer
+        gc.collect()
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     emit({"digests": DIGESTS, "refused": refused})
     return 0

@@ -39,11 +39,10 @@ and fuses).  A rank's FLOPs and bytes here are therefore not comparable
 with the reference's ``cost_analysis()`` numbers; the roofline built on
 them (``analysis/roofline.py``) is the port's own.
 
-The collective counts are those of ``sharding/comm.py``'s ``note``: the
-backward of ``psum`` / ``pmean`` and of ``all_to_all`` runs
-``torch.distributed.nn``'s autograd, which reports nothing, so a train
-step's collective bytes leave those out (the module's own autograd
-functions, the Megatron operators and ``all_gather``, count both ways).
+The collective counts are those of ``sharding/comm.py``'s ``note``,
+forward and backward: every differentiable collective there is the
+module's own autograd function, whose backward notes the collective it
+runs on the gradient.
 
 On ``meta`` (``launch/dryrun.py``) the same program computes nothing, and
 the counts are those of the same step on the card (``chip_smoke.py``'s

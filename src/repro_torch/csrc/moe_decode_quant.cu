@@ -51,7 +51,12 @@
 // sums are specialised to the count); an expert with more slots is
 // streamed once per 8 of them, the later passes mostly from the L2.  F
 // may be any multiple of 32: in a ragged last column block the lanes past
-// F load nothing and store nothing.
+// F load nothing and store nothing.  Pass 2 stages the slots' h rows
+// [F][R] f32 in shared memory FC rows (128 KB) at a time, as B3 does, each
+// thread's sums kept in registers across chunks; the chunks start at
+// multiples of a thread's row stride, so every sum takes its rows in the
+// same order whatever the chunking (llama4-scout's F = 8192 needs two
+// chunks; every F up to 4096 is one, with the bits it had unchunked).
 
 #include "decode_slots.cuh"
 #include "quant_common.cuh"
@@ -63,6 +68,7 @@ constexpr int NW = NT / 32;
 constexpr int R = 8;              // slots served by one pass over the weights
 constexpr int CB = 128;           // stored bytes of a row a block reads
 constexpr int FT = CB / 2;        // gate (and up) columns of a pass-1 block
+constexpr int FC = 4096;          // h rows pass 2 stages at once
 // columns a thread sums (16: 16-byte loads of int8), the weight loads of
 // a batch (one batch is in flight while the one before it is summed) for
 // up to 2 slots, up to 4 and more, and blocks an SM (the launch bound: 2
@@ -196,48 +202,69 @@ __device__ __forceinline__ void load_rows(V (&w)[U], const int8_t* W,
 }
 
 // acc[r][c] += sum over this thread's rows of a[r] * W[row][c] (16
-// columns), rows g, g + GROUPS, ... < n_rows of the thread's load at W
-// (row stride ld bytes), in batches of U loads: the next batch is in
-// flight while one is summed.  Then the row groups of each warp are summed
-// by shuffles (lanes < TPR hold them).
+// columns), rows r0 + g, r0 + g + GROUPS, ... < r1 of the thread's load at
+// W (row stride ld bytes), in batches of U loads: the next batch is in
+// flight while one is summed.  Each thread takes its rows in increasing
+// order, so ranges that start at multiples of GROUPS add them in
+// stream_rows' order.
 template <int M, bool UP, bool PACKED, class Operand>
-__device__ __forceinline__ void stream_rows(float (&acc)[M][C],
-                                            const int8_t* __restrict__ W,
-                                            size_t ld, int n_rows, bool live,
-                                            Operand operand) {
+__device__ __forceinline__ void stream_rows_range(
+    float (&acc)[M][C], const int8_t* __restrict__ W, size_t ld, int r0,
+    int r1, bool live, Operand operand) {
   typedef Geo<UP, PACKED> G;
   typedef typename Load<G::VB>::T V;
   constexpr int U = unroll<M>();
   constexpr int STEP = G::GROUPS * U;
-#pragma unroll
-  for (int r = 0; r < M; ++r)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
   if (live) {
     V w0[U], w1[U];
-    const int g = threadIdx.x / G::TPR;
-    load_rows<U, G::GROUPS>(w0, W, ld, g, n_rows);
-    for (int row0 = g; row0 < n_rows; row0 += 2 * STEP) {
-      load_rows<U, G::GROUPS>(w1, W, ld, row0 + STEP, n_rows);
+    const int g = r0 + threadIdx.x / G::TPR;
+    load_rows<U, G::GROUPS>(w0, W, ld, g, r1);
+    for (int row0 = g; row0 < r1; row0 += 2 * STEP) {
+      load_rows<U, G::GROUPS>(w1, W, ld, row0 + STEP, r1);
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (row0 + u * G::GROUPS < n_rows)
+        if (row0 + u * G::GROUPS < r1)
           fma_row<M, UP, PACKED>(acc, w0[u], row0 + u * G::GROUPS, operand);
-      load_rows<U, G::GROUPS>(w0, W, ld, row0 + 2 * STEP, n_rows);
+      load_rows<U, G::GROUPS>(w0, W, ld, row0 + 2 * STEP, r1);
 #pragma unroll
       for (int u = 0; u < U; ++u)
-        if (row0 + STEP + u * G::GROUPS < n_rows)
+        if (row0 + STEP + u * G::GROUPS < r1)
           fma_row<M, UP, PACKED>(acc, w1[u], row0 + STEP + u * G::GROUPS,
                                  operand);
     }
   }
+}
+
+template <int M>
+__device__ __forceinline__ void zero_acc(float (&acc)[M][C]) {
 #pragma unroll
-  for (int off = G::TPR; off < 32; off *= 2)
+  for (int r = 0; r < M; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.f;
+}
+
+// the row groups of each warp summed by shuffles (lanes < TPR hold them)
+template <int M, bool UP, bool PACKED>
+__device__ __forceinline__ void sum_groups(float (&acc)[M][C]) {
+#pragma unroll
+  for (int off = Geo<UP, PACKED>::TPR; off < 32; off *= 2)
 #pragma unroll
     for (int r = 0; r < M; ++r)
 #pragma unroll
       for (int c = 0; c < C; ++c)
         acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+}
+
+// acc = the sums of stream_rows_range over rows [0, n_rows), the row
+// groups of each warp summed
+template <int M, bool UP, bool PACKED, class Operand>
+__device__ __forceinline__ void stream_rows(float (&acc)[M][C],
+                                            const int8_t* __restrict__ W,
+                                            size_t ld, int n_rows, bool live,
+                                            Operand operand) {
+  zero_acc<M>(acc);
+  stream_rows_range<M, UP, PACKED>(acc, W, ld, 0, n_rows, live, operand);
+  sum_groups<M, UP, PACKED>(acc);
 }
 
 // Lanes < TPR of each warp write their sums to red[warp][r][column]: the
@@ -286,23 +313,40 @@ __device__ void up_rows(const int8_t* __restrict__ w1e, const bf16* xs,
   to_red<M, true, PACKED>(acc, red);
 }
 
-// Pass 2 over M slots staged in hs [F][R] f32: the block's 128 stored
-// columns from c0.
+// Pass 2 over M slots (slots: their slot indices), the block's 128 stored
+// columns from c0: their h rows staged in hs [FC][R] f32 a chunk at a
+// time.
 template <int M, bool PACKED>
-__device__ void down_rows(const int8_t* __restrict__ w2e, const float* hs,
-                          float* red, int Dp, int F, int c0) {
+__device__ void down_rows(const int8_t* __restrict__ w2e,
+                          const float* __restrict__ h, const int* slots,
+                          float* hs, float* red, int Dp, int F, int c0) {
   typedef Geo<false, PACKED> G;
   const int q = threadIdx.x % G::TPR;
   const int col = c0 + G::VB * q;
   float acc[M][C];
-  stream_rows<M, false, PACKED>(acc, w2e + col, (size_t)Dp, F, col < Dp,
-                                [&](int f, float (&a)[M], float (&)[M]) {
+  zero_acc<M>(acc);
+  for (int f0 = 0; f0 < F; f0 += FC) {
+    const int f1 = min(F, f0 + FC);
+    __syncthreads();                    // the previous chunk is consumed
+    for (int i = threadIdx.x; i < M * (f1 - f0); i += NT) {
+      const int r = i / (f1 - f0), f = i % (f1 - f0);
+      hs[f * R + r] = h[(size_t)slots[r] * F + f0 + f];
+    }
+    __syncthreads();
+    stream_rows_range<M, false, PACKED>(
+        acc, w2e + col, (size_t)Dp, f0, f1, col < Dp,
+        [&](int f, float (&a)[M], float (&)[M]) {
 #pragma unroll
-                                  for (int r = 0; r < M; ++r)
-                                    a[r] = hs[f * R + r];
-                                });
+          for (int r = 0; r < M; ++r) a[r] = hs[(f - f0) * R + r];
+        });
+  }
+  sum_groups<M, false, PACKED>(acc);
   to_red<M, false, PACKED>(acc, red);
 }
+
+static_assert(FC % Geo<false, false>::GROUPS == 0 &&
+                  FC % Geo<false, true>::GROUPS == 0,
+              "a chunk starts where a thread's row stride does");
 
 // the warps' sums, red [NW][R][cols] f32, in shared memory
 __host__ __device__ constexpr size_t red_bytes(int cols) {
@@ -386,20 +430,16 @@ decodeq_down_kernel(const float* __restrict__ h,
   wait_for_previous();                  // h of pass 1
   for (int s0 = 0; s0 < n; s0 += R) {
     const int m = min(R, n - s0);
-    for (int i = threadIdx.x; i < m * F; i += NT) {
-      const int r = i / F, f = i % F;
-      hs[f * R + r] = h[(size_t)slots[s0 + r] * F + f];
-    }
-    __syncthreads();
+    const int* sl = slots + s0;
     switch (m) {
-      case 1: down_rows<1, PACKED>(w2e, hs, red, Dp, F, c0); break;
-      case 2: down_rows<2, PACKED>(w2e, hs, red, Dp, F, c0); break;
-      case 3: down_rows<3, PACKED>(w2e, hs, red, Dp, F, c0); break;
-      case 4: down_rows<4, PACKED>(w2e, hs, red, Dp, F, c0); break;
-      case 5: down_rows<5, PACKED>(w2e, hs, red, Dp, F, c0); break;
-      case 6: down_rows<6, PACKED>(w2e, hs, red, Dp, F, c0); break;
-      case 7: down_rows<7, PACKED>(w2e, hs, red, Dp, F, c0); break;
-      default: down_rows<8, PACKED>(w2e, hs, red, Dp, F, c0); break;
+      case 1: down_rows<1, PACKED>(w2e, h, sl, hs, red, Dp, F, c0); break;
+      case 2: down_rows<2, PACKED>(w2e, h, sl, hs, red, Dp, F, c0); break;
+      case 3: down_rows<3, PACKED>(w2e, h, sl, hs, red, Dp, F, c0); break;
+      case 4: down_rows<4, PACKED>(w2e, h, sl, hs, red, Dp, F, c0); break;
+      case 5: down_rows<5, PACKED>(w2e, h, sl, hs, red, Dp, F, c0); break;
+      case 6: down_rows<6, PACKED>(w2e, h, sl, hs, red, Dp, F, c0); break;
+      case 7: down_rows<7, PACKED>(w2e, h, sl, hs, red, Dp, F, c0); break;
+      default: down_rows<8, PACKED>(w2e, h, sl, hs, red, Dp, F, c0); break;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < m * COLS; i += NT) {
@@ -429,7 +469,7 @@ static int launch(const void* x, const void* w1q, const void* w2q,
       (size_t)D * R * 2;
   const size_t smem2 =
       operand_offset(n_slots, red_bytes(Geo<false, PACKED>::COLS)) +
-      (size_t)F * R * 4;
+      (size_t)min(F, FC) * R * 4;
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(decodeq_up_kernel<PACKED>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,

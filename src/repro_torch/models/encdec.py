@@ -16,7 +16,8 @@ decoder's self-attention takes the defaults.  ``opts`` is read for
 Under a bound (or placed) ``mesh`` the layers run tensor parallelism over
 ``model`` on the rank's blocks of the rules' specs, as the decoder-only
 LMs do (``models/tp.py``): the embedding vocab-parallel, the head
-column-parallel (logits whole on every rank), each attention on the
+column-parallel (the logits gathered whole in prefill and decode, the
+loss vocab-parallel: ``tp.xent``), each attention on the
 rank's heads (``attention._gqa_plan``; the cross K/V from the rank's
 column blocks of ``wk`` / ``wv``, ``attention.cross_kv``), each MLP on
 the rank's F block.  The rows are the rank's data block.  At one rank
@@ -87,11 +88,11 @@ def encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor, *,
     return apply_norm(params["enc_norm"], cfg, x)
 
 
-def _decoder(params, cfg: ModelConfig, tokens, positions, mode: str,
-             caches, enc_out, opts: ModelOpts = DEFAULT_OPTS, mesh=None):
-    """-> (logits [B,S,V] f32, the caches or None in train mode).  In
-    prefill the cross K/V are written into the caches' ``xk`` / ``xv`` /
-    ``xpos`` in place; in decode they are read from there."""
+def _hidden(params, cfg: ModelConfig, tokens, positions, mode: str, caches,
+            enc_out, opts: ModelOpts = DEFAULT_OPTS, mesh=None):
+    """-> (the final-normed hidden [B,S,D], the caches or None in train
+    mode).  In prefill the cross K/V are written into the caches' ``xk``
+    / ``xv`` / ``xpos`` in place; in decode they are read from there."""
     tp = TP(mesh)
     x = tp_mod.embed(tp, params["embed"], tokens, cfg.padded_vocab)
     for li, lp in enumerate(params["dec_layers"]):
@@ -117,8 +118,17 @@ def _decoder(params, cfg: ModelConfig, tokens, positions, mode: str,
             cache["xv"].copy_(v)
             cache["xpos"].copy_(pos)
     x = apply_norm(params["final_norm"], cfg, x)
-    logits = tp_mod.logits(tp, x, params["lm_head"], cfg.padded_vocab)
-    return logits, (caches if mode != "train" else None)
+    return x, (caches if mode != "train" else None)
+
+
+def _decoder(params, cfg: ModelConfig, tokens, positions, mode: str,
+             caches, enc_out, opts: ModelOpts = DEFAULT_OPTS, mesh=None):
+    """``_hidden`` through the head -> (logits [B,S,V] f32, whole on every
+    rank of ``model``; the caches or None in train mode)."""
+    x, caches = _hidden(params, cfg, tokens, positions, mode, caches,
+                        enc_out, opts, mesh)
+    return (tp_mod.logits(TP(mesh), x, params["lm_head"], cfg.padded_vocab),
+            caches)
 
 
 def _gathered(params, cfg: ModelConfig, mesh, opts: ModelOpts):
@@ -138,15 +148,15 @@ def encdec_loss(params, cfg: ModelConfig, batch, *, mesh=None,
     """batch: frames [B,T,D], tokens [B,S], targets [B,S], mask [B,S] ->
     (xent, {"xent", "aux"}); under a mesh the rank's data block and its
     blocks of the params (module doc)."""
-    from repro_torch.models.transformer import softmax_xent
     params = _gathered(params, cfg, mesh, opts)
     enc_out = encode(params, cfg, batch["frames"], opts=opts, mesh=mesh)
     b, s = batch["tokens"].shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=enc_out.device).expand(b, s)
-    logits, _ = _decoder(params, cfg, batch["tokens"], positions, "train",
-                         None, enc_out, opts, mesh)
-    xent = softmax_xent(logits, batch["targets"], batch["mask"].float())
+    x, _ = _hidden(params, cfg, batch["tokens"], positions, "train", None,
+                   enc_out, opts, mesh)
+    xent = tp_mod.xent(TP(mesh), x, params["lm_head"], cfg.padded_vocab,
+                       batch["targets"], batch["mask"].float())
     return xent, {"xent": xent,
                   "aux": torch.zeros((), dtype=torch.float32,
                                      device=xent.device)}

@@ -16,6 +16,9 @@ replication, the layer runs it whole with no collective.
   (``comm.reduce_from_model``) sums the partial outputs.
 * The embedding is vocab-parallel: a rank looks up only the tokens of its
   rows ``[r V/m, (r+1) V/m)`` (zeros elsewhere), then ``g``.
+* The head's logits are gathered whole where a sampler reads a row
+  (``logits``); the loss keeps them vocab-parallel (``xent``: sums of
+  [B, S] over ``model``, as GSPMD partitions the reference's loss).
 
 The gradient rule is Megatron's (``sharding/comm.py``): a tensor the same
 on every rank of ``model`` carries the whole gradient on every rank, so
@@ -152,10 +155,41 @@ def embed(tp: TP, table, tokens, vocab: int):
 
 def logits(tp: TP, x, head, vocab: int):
     """``(x @ head).float()`` whole on every rank: column-parallel over the
-    vocab when it splits, the ranks' blocks all-gathered."""
+    vocab when it splits, the ranks' blocks all-gathered (the sampler
+    reads a row whole)."""
     if not tp.splits(vocab):
         return (x @ head).float()
     return tp.gather_whole((tp.f(x) @ head).float(), dim=-1)
+
+
+def xent(tp: TP, x, head, vocab: int, targets, mask):
+    """The masked mean cross-entropy of ``logits(tp, x, head, vocab)``
+    [B, S, V] against ``targets`` [B, S] (``mask`` [B, S] f32), the same
+    on every rank of ``model``.  Where the vocab splits it stays
+    vocab-parallel, as GSPMD partitions the reference's ``softmax_xent``:
+    each rank holds its block of the logits [B, S, V / m], and the whole
+    vocabulary's log-sum-exp and gold logit meet in sums of [B, S] over
+    ``model`` -- the blocks' max (no gradient), then ``g`` of the exps and
+    of the gold logit that the rank holding the target contributes (zero
+    elsewhere).  At one rank exp(0) = 1 and log(1) = 0, so the loss and
+    its gradient are the whole-vocab computation's bits."""
+    if not tp.splits(vocab):
+        lg = (x @ head).float()
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
+    else:
+        block = (tp.f(x) @ head).float()                    # [B, S, V/m]
+        start, size = tp.block(vocab)
+        lse = torch.logsumexp(block, dim=-1)
+        top = comm.pmax(lse, tp.mesh, "model")
+        logz = top + torch.log(tp.g(torch.exp(lse - top)))
+        t = targets.long() - start
+        mine = (t >= 0) & (t < size)
+        gold = torch.gather(block, -1,
+                            torch.where(mine, t, 0)[..., None])[..., 0]
+        gold = tp.g(torch.where(mine, gold, torch.zeros_like(gold)))
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp(min=1.0)
 
 
 def gather_fsdp(tree, layout, mesh, opts) -> Optional[dict]:

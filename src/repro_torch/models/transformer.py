@@ -59,11 +59,16 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor, mesh=None):
     return tp_mod.embed(TP(mesh), params["embed"], tokens, cfg.padded_vocab)
 
 
+def _head(params, cfg: ModelConfig, x: torch.Tensor):
+    """-> (the final norm of ``x``, the head: ``embed.T`` when tied)."""
+    x = apply_norm(params["final_norm"], cfg, x)
+    return x, (params["embed"].T if cfg.tie_embeddings
+               else params["lm_head"])
+
+
 def lm_logits(params, cfg: ModelConfig, x: torch.Tensor,
               mesh=None) -> torch.Tensor:
-    x = apply_norm(params["final_norm"], cfg, x)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return tp_mod.logits(TP(mesh), x, head, cfg.padded_vocab)
+    return tp_mod.logits(TP(mesh), *_head(params, cfg, x), cfg.padded_vocab)
 
 
 def _fsdp_top(params, cfg: ModelConfig, mesh, opts: ModelOpts):
@@ -116,6 +121,15 @@ def softmax_xent(logits, targets, mask):
     return nll.sum() / mask.sum().clamp(min=1.0)
 
 
+def lm_xent(params, cfg: ModelConfig, x: torch.Tensor, targets, mask,
+            mesh=None) -> torch.Tensor:
+    """``softmax_xent(lm_logits(params, cfg, x, mesh), targets, mask)``,
+    vocab-parallel under a mesh (``tp.xent``: no rank holds the whole
+    vocabulary's logits)."""
+    return tp_mod.xent(TP(mesh), *_head(params, cfg, x), cfg.padded_vocab,
+                       targets, mask)
+
+
 def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, *, mesh=None,
             opts: ModelOpts = DEFAULT_OPTS, aux_coef: float = 0.01):
     """batch: tokens [B,S], targets [B,S], mask [B,S], optional
@@ -134,8 +148,8 @@ def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, *, mesh=None,
     hidden, _, aux = forward(params, cfg, tokens, positions, mode="train",
                              prefix_embeds=pre, opts=opts, mesh=mesh,
                              layout=layout)
-    logits = lm_logits(params, cfg, hidden[:, plen:], mesh)
-    xent = softmax_xent(logits, batch["targets"], batch["mask"].float())
+    xent = lm_xent(params, cfg, hidden[:, plen:], batch["targets"],
+                   batch["mask"].float(), mesh)
     return xent + aux_coef * aux, {"xent": xent, "aux": aux}
 
 

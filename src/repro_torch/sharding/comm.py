@@ -4,12 +4,12 @@ The port's counterparts of the ``jax.lax`` collectives the reference's
 shard_map bodies call (``all_to_all``, ``psum``, ``pmax``, ``pmean``,
 ``all_gather``), as a per-rank program: each rank calls them with its own
 operand, every rank of the group in the same order.  ``all_to_all``,
-``psum``, ``pmean`` and ``all_gather`` are differentiable
-(``torch.distributed.nn.functional``: the backward of an all-to-all is the
-reverse all-to-all, of a sum the sum of the gradients), so the gradients
-of the summed per-rank losses flow across ranks as the reference's
-transposes do.  ``pmax`` is not: its one user, the log-sum-exp merge of
-context-parallel decode, runs without grad.
+``psum``, ``pmean`` and ``all_gather`` are differentiable (the backward
+of an all-to-all is the reverse all-to-all, of a sum the sum of the
+gradients), so the gradients of the summed per-rank losses flow across
+ranks as the reference's transposes do.  ``pmax`` is not: its users (the
+log-sum-exp merges of context-parallel decode and of the vocab-parallel
+cross-entropy, the compression's amax) take no gradient through it.
 
 Tensor parallelism keeps another rule for the gradients (Megatron's): an
 activation replicated over ``model`` carries the whole gradient on every
@@ -26,7 +26,7 @@ of a column block that cuts through a head) and the FSDP weights gathered
 over the data axes.  ``reduce_scatter`` is the ZeRO-1 and FSDP gradient
 step's.
 
-Each call reports its operand bytes to the open
+Each call, forward or backward, reports its operand bytes to the open
 ``analysis.collectives.record()`` blocks, and runs its body inside
 ``analysis.collectives.transfer()`` (the copies into and out of its
 buffers are the collective's bytes, not the step's HBM traffic:
@@ -38,17 +38,15 @@ collectives.
 On a placed mesh (``Mesh.place``: one rank, no world; the dry run) every
 collective computes nothing: it reports the same ``note`` as on a bound
 mesh and returns an empty tensor of its result's shape, dtype and device;
-``barrier`` does nothing.  The differentiable ones stay differentiable,
-and their backward runs what the bound path's backward runs outside this
-module (``torch.distributed.nn``'s: a copy of the gradient for a sum, a
-contiguous gradient for an all-to-all; neither notes a collective, as the
-bound one's does not) or, for the module's own autograd functions, the
-same placed collective that the bound backward would call.
+``barrier`` does nothing.  Every differentiable collective is one of
+this module's autograd functions, whose backward calls the module's own
+collective on the gradient: on a placed mesh that is the same placed
+collective, so a train step notes its backward's all-to-alls, sums and
+gathers alike on a placed mesh and on a bound one (the reference counts
+every collective of its partitioned step, forward and backward).
 """
 
 from __future__ import annotations
-
-import warnings
 
 import torch
 
@@ -60,18 +58,6 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _functional():
-    import torch.distributed.nn.functional as fn
-    return fn
-
-
-def _quiet():
-    """Newer torch marks these autograd collectives deprecated with a
-    warning a call; the functional collectives it points at are not
-    differentiable on every version the card may hold."""
-    return warnings.catch_warnings(action="ignore", category=FutureWarning)
-
-
 def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """x [n, ...] (n = the axis size): block i goes to the axis' rank i;
     the result's block j came from rank j (``jax.lax.all_to_all`` with
@@ -80,26 +66,13 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if x.shape[0] != n:
         raise ValueError(f"all_to_all over {axis!r} ({n} ranks) needs dim 0 "
                          f"of {n}, got {tuple(x.shape)}")
-    with transfer():
-        x = x.contiguous()
-        note("all-to-all", _nbytes(x), n)
-        if mesh.placed:
-            return _Placed.apply(x, False)
-        with _quiet():
-            return _functional().all_to_all_single(
-                torch.empty_like(x), x, group=mesh.get_group(axis))
+    return _AllToAll.apply(x, mesh, axis)
 
 
 def psum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
-    """The sum over the ranks of ``axes`` (a name or names)."""
-    import torch.distributed as dist
-    with transfer():
-        note("all-reduce", _nbytes(x), mesh.axis_size(axes))
-        if mesh.placed:
-            return _Placed.apply(x, True)
-        with _quiet():
-            return _functional().all_reduce(x, op=dist.ReduceOp.SUM,
-                                            group=mesh.get_group(axes))
+    """The sum over the ranks of ``axes`` (a name or names); the backward
+    sums the gradient the same way."""
+    return _Psum.apply(x, mesh, axes)
 
 
 def pmean(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
@@ -165,6 +138,28 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
         return _block(out, mesh, axes, dim).contiguous()
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _exchange(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axes), None, None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axes, dim):
@@ -190,6 +185,18 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
             return _empty(x.shape, x)
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, group=mesh.get_group(axes))
+        return out
+
+
+def _exchange(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    import torch.distributed as dist
+    with transfer():
+        x = x.contiguous()
+        note("all-to-all", _nbytes(x), mesh.axis_size(axis))
+        if mesh.placed:
+            return _empty(x.shape, x)
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=mesh.get_group(axis))
         return out
 
 
@@ -220,26 +227,6 @@ def _resized(shape, dim: int, size: int):
     out = list(shape)
     out[dim] = size
     return out
-
-
-class _Placed(torch.autograd.Function):
-    """The result of a placed sum (``copy_grad``) or all-to-all; the
-    backward runs the aten work of ``torch.distributed.nn``'s backward,
-    which the bound path runs outside this module: a contiguous copy of the
-    gradient for a sum, the gradient made contiguous and an output buffer
-    for an all-to-all."""
-
-    @staticmethod
-    def forward(ctx, x, copy_grad):
-        ctx.copy_grad = copy_grad
-        return _empty(x.shape, x)
-
-    @staticmethod
-    def backward(ctx, g):
-        if ctx.copy_grad:
-            return g.clone(memory_format=torch.contiguous_format), None
-        g = g.contiguous()
-        return _empty(g.shape, g), None
 
 
 def _block(x: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:

@@ -1,16 +1,22 @@
 """The rank program of ``tests/test_torch_dryrun.py``: one process of a
 (1, 4) gloo world on the CPU (``torch.multiprocessing.spawn`` imports this
-module, which imports only torch, numpy and the port).
+module, which imports only torch, numpy, the port and the recording
+helpers of ``_torch_tp_ranks.py``).
 
 Every rank runs each cell of ``cells()`` on its blocks of real params
 (``launch.dryrun.build_cell`` on the CPU), counted
 (``analysis.counters.count``), and writes its counts; the test process
 runs the same cells on ``meta``, the mesh placed on each rank, and holds
-the two equal.  Rank 0 also writes whisper's loss, gradients and logits
-under tensor parallelism, which the test holds to one process and to the
-JAX reference."""
+the two equal.  Every rank also writes the collectives of a reduced
+OLMoE's ``ep_a2a`` train step, with remat off and on, beside those of its
+no-grad forward (``a2a_steps``).  Rank 0 also writes whisper's loss,
+gradients and logits under tensor parallelism, which the test holds to
+one process and to the JAX reference, and the collectives its
+vocab-parallel cross-entropy notes."""
 
 import torch
+
+from _torch_tp_ranks import collectives, recorded
 
 WORLD = 4
 SHAPE = (1, 4)
@@ -63,6 +69,33 @@ def counted(cfg, shape, mesh, device):
     return out
 
 
+#: the remat settings of ``a2a_steps``: all-to-alls 2x (off: forward and
+#: backward) or 3x (on: forward, the rerun, backward) the forward's
+A2A_REMATS = ("none", "full")
+
+
+def a2a_steps(mesh, device):
+    """The ``olmoe_train`` cell's step (``launch.dryrun.build_cell``) with
+    remat off and on -> {remat: {"step": its collectives, "forward": those
+    of ``loss_fn`` on the same blocks under no grad}} (``collectives``)."""
+    from repro_torch import models
+    from repro_torch.analysis import record
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.models.opts import ModelOpts
+    cfg, shape = cells()["olmoe_train"]
+    out = {}
+    for remat in A2A_REMATS:
+        opts = ModelOpts(remat=remat)
+        step, inputs = build_cell(cfg, shape, mesh, opts, device=device)
+        with torch.no_grad(), record() as fwd:
+            models.loss_fn(inputs["params"], cfg, inputs["batch"],
+                           mesh=mesh, opts=opts)
+        with record() as full:
+            step()
+        out[remat] = {"step": collectives(full), "forward": collectives(fwd)}
+    return out
+
+
 def whisper_batch(cfg):
     from repro_torch import models
     return models.make_train_batch(
@@ -106,11 +139,13 @@ def whisper_tp(mesh):
     cfg = cells()["whisper_train"][0]
     params = models.init_params(cfg, 0, device="cpu")
     lp = local_params(params, cfg, mesh)
-    loss, m = models.loss_fn(lp, cfg, whisper_batch(cfg), mesh=mesh)
+    from repro_torch.models import tp
+    (loss, m), notes = recorded(tp, "xent", lambda: models.loss_fn(
+        lp, cfg, whisper_batch(cfg), mesh=mesh))
     _, _, grads = value_and_grad(cfg, mesh=mesh)(lp, whisper_batch(cfg))
     return {"loss": torch.stack([loss, m["xent"], m["aux"]]).detach(),
             "grads": gather_tree(grads, local_shardings(params, cfg, mesh)),
-            "logits": whisper_steps(lp, cfg, mesh)}
+            "logits": whisper_steps(lp, cfg, mesh), "xent_notes": notes}
 
 
 def run(rank: int, rendezvous: str, out_dir: str) -> None:
@@ -126,6 +161,7 @@ def run(rank: int, rendezvous: str, out_dir: str) -> None:
         mesh = make_test_mesh(SHAPE, AXES).bind(device="cpu")
         out = {"counts": {tag: counted(cfg, shape, mesh, "cpu")
                           for tag, (cfg, shape) in cells().items()},
+               "a2a": a2a_steps(mesh, "cpu"),
                "whisper": whisper_tp(mesh)}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:

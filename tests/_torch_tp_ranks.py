@@ -161,17 +161,56 @@ def pool(cfg, mesh):
     return equal, size(mine), size(whole)
 
 
+def collectives(stats):
+    """A ``CollectiveStats`` as {kind: (calls, bytes)}."""
+    return {k: (stats.count_by_kind[k], stats.bytes_by_kind[k])
+            for k in stats.count_by_kind}
+
+
+def recorded(owner, name: str, fn, axes=None):
+    """Run ``fn`` with every call of ``owner.<name>`` (over ``axes``, its
+    third argument, if given) recorded apart -> (its result,
+    ``collectives`` of what those calls noted; a backward that calls it
+    again is recorded too)."""
+    from repro_torch.analysis import record
+    plain, seen = getattr(owner, name), {}
+
+    def wrapped(*a, **kw):
+        if axes is not None and a[2] != axes:
+            return plain(*a, **kw)
+        with record() as st:
+            y = plain(*a, **kw)
+        for k, (n, b) in collectives(st).items():
+            n0, b0 = seen.get(k, (0, 0))
+            seen[k] = (n0 + n, b0 + b)
+        return y
+    setattr(owner, name, wrapped)
+    try:
+        return fn(), seen
+    finally:
+        setattr(owner, name, plain)
+
+
 def _checks(mesh, out):
     from repro_torch import models
-    from repro_torch.sharding import gather_tree, local_params, \
+    from repro_torch.models import tp
+    from repro_torch.sharding import comm, gather_tree, local_params, \
         local_shardings
     from repro_torch.training import value_and_grad
     for tag, (cfg, _, _) in configs().items():
         params = models.init_params(cfg, 0, device="cpu")
         lp = local_params(params, cfg, mesh)
-        loss, m = models.loss_fn(lp, cfg, batch(cfg), mesh=mesh)
-        _, _, grads = value_and_grad(cfg, mesh=mesh)(lp, batch(cfg))
+        (loss, m), xent = recorded(tp, "xent", lambda: models.loss_fn(
+            lp, cfg, batch(cfg), mesh=mesh))
+        with torch.no_grad():
+            _, psum_fwd = recorded(comm, "psum", lambda: models.loss_fn(
+                lp, cfg, batch(cfg), mesh=mesh), "model")
+        (_, _, grads), psum_step = recorded(
+            comm, "psum", lambda: value_and_grad(cfg, mesh=mesh)(
+                lp, batch(cfg)), "model")
         out[tag] = {
+            "xent_notes": xent, "psum_forward": psum_fwd,
+            "psum_step": psum_step,
             "loss": torch.stack([loss, m["xent"], m["aux"]]),
             "grads": gather_tree(grads, local_shardings(params, cfg, mesh)),
             "logits": steps(lp, cfg, mesh),

@@ -22,7 +22,10 @@ tensor parallelism.
   bytes and calls by kind as the same cells on ``meta`` placed on that
   rank; whisper's loss, gradients and logits under tensor parallelism
   match one process to 1e-5 (gradients: 1e-5 of each leaf's largest
-  entry) and JAX to ``test_torch_tp.py``'s 2e-4.
+  entry) and JAX to ``test_torch_tp.py``'s 2e-4, and its cross-entropy
+  stays vocab-parallel (three sums of [B, S], no gather); the OLMoE
+  ``ep_a2a`` train step notes its backward's all-to-alls (2x the
+  forward's without remat, 3x with), the same on ``meta``.
 """
 
 import os
@@ -416,6 +419,30 @@ def test_placed_collectives_count_and_compute_nothing():
     assert c.aten_bytes == (4 * n + 4) + (4 + 4) + 2 * n
 
 
+def test_placed_backward_notes_what_the_bound_backward_runs():
+    """The backward of ``all_to_all``, ``psum`` and ``pmean`` is the
+    module's own collective on the gradient: on a placed mesh it notes
+    an all-to-all or an all-reduce of the gradient's bytes, as the bound
+    one does, and its copies count as the collective's."""
+    from repro_torch.analysis.counters import count
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.sharding import comm
+    mesh = make_test_mesh((2, 4)).place(5)
+    x = torch.empty((4, 6), device="meta", requires_grad=True)
+    with count() as c:
+        y = comm.all_to_all(x, mesh, "model")
+        z = comm.pmean(comm.psum(y, mesh, "data"), mesh, "model")
+        z.sum().backward()
+    n = 4 * 6 * 4
+    assert c.collectives.count_by_kind == {"all-to-all": 2, "all-reduce": 4}
+    assert c.collectives.bytes_by_kind == {"all-to-all": 2 * n,
+                                           "all-reduce": 4 * n}
+    assert x.grad.shape == x.shape
+    # the mean's division (in, out) both ways, the sum (in, out) and the
+    # backward's seed (in, out): none of the collectives' own copies
+    assert c.aten_bytes == 2 * (n + n) + (n + 4) + (4 + 4)
+
+
 def test_counters_track_the_peak_of_live_storages():
     """The peak is the most bytes held at once: inputs, then what the step
     allocates, each freed when its last reference dies."""
@@ -525,13 +552,15 @@ def _whisper_jax(params):
 
 
 def _meta_counts():
-    """rank -> tag -> the cell's counts on ``meta``, the mesh placed."""
+    """rank -> tag -> the cell's counts on ``meta``, the mesh placed; and
+    under "a2a" the rank's ``a2a_steps`` there."""
     from repro_torch.launch.mesh import make_test_mesh
     out = {}
     for r in range(ranks.WORLD):
         mesh = make_test_mesh(ranks.SHAPE, ranks.AXES).place(r)
         out[r] = {tag: ranks.counted(cfg, shape, mesh, "meta")
                   for tag, (cfg, shape) in ranks.cells().items()}
+        out[r]["a2a"] = ranks.a2a_steps(mesh, "meta")
     return out
 
 
@@ -567,6 +596,32 @@ def test_meta_counts_equal_the_gloo_ranks(world, tag):
                                  if real[k] != dry[k]})
         assert real["flops"] > 0 and real["bytes"] > 0
         assert sum(real["collective_calls"].values()) > 0
+
+
+@pytest.mark.parametrize("remat", ranks.A2A_REMATS)
+def test_train_step_notes_the_backward_all_to_alls(world, remat):
+    """C4: per rank, the ``ep_a2a`` train step's all-to-all calls and bytes
+    are 2x (remat off: forward, backward) or 3x (on: forward, the rerun,
+    backward) its no-grad forward's, two a MoE layer (dispatch,
+    combine), and every collective of both equal on ``meta``."""
+    got, meta, _ = world
+    cfg = ranks.cells()["olmoe_train"][0]
+    times = {"none": 2, "full": 3}[remat]
+    for r in range(ranks.WORLD):
+        real, dry = got[r]["a2a"][remat], meta[r]["a2a"][remat]
+        assert real == dry, (r, real, dry)
+        calls, nbytes = real["forward"]["all-to-all"]
+        assert calls == 2 * cfg.num_moe_layers
+        assert real["step"]["all-to-all"] == (times * calls, times * nbytes)
+
+
+def test_whisper_loss_stays_vocab_parallel(world):
+    """C6: whisper's cross-entropy under tensor parallelism notes three
+    all-reduces of [B, S] f32 (the blocks' max, the exp sum, the gold
+    logit) and gathers nothing."""
+    got, _, _ = world
+    assert got[0]["whisper"]["xent_notes"] == {
+        "all-reduce": (3, 3 * ranks.BATCH * ranks.SEQ * 4)}
 
 
 def _close(a, b, **tol):

@@ -225,11 +225,16 @@ def test_quant_plain_versions_match_pallas_at_ragged_f(kernel, dtype):
 # --------------------------------------------------------------------------- #
 
 
-def _cfgs():
+#: the other MoE families whose quantized experts are held to the
+#: reference at ``.reduced()`` (llama4-scout: top-1 and a shared expert)
+FAMILIES = ("qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
+
+
+def _cfgs(arch="olmoe-1b-7b"):
     from repro.configs import get_config as jget
     from repro_torch.configs import get_config as tget
-    return (jget("olmoe-1b-7b").reduced().with_(moe_impl="gmm"),
-            tget("olmoe-1b-7b").reduced().with_(moe_impl="gmm"))
+    return (jget(arch).reduced().with_(moe_impl="gmm"),
+            tget(arch).reduced().with_(moe_impl="gmm"))
 
 
 def _quant_layers(cfg_j, dtype, seed=3):
@@ -238,20 +243,33 @@ def _quant_layers(cfg_j, dtype, seed=3):
     import jax
     from repro.models.moe import init_moe, quantize_moe_layer
     pj = quantize_moe_layer(init_moe(jax.random.PRNGKey(seed), cfg_j), dtype)
-    pt = {k: torch.from_numpy(np.array(v)) for k, v in pj.items()}
+    pt = jax.tree.map(lambda v: torch.from_numpy(np.array(v)), pj)
     return pj, pt
 
 
+LAYER_CASES = [("gmm", 24, False), ("gmm", 24, True), ("decode", 4, True),
+               ("decode", 4, False)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("impl,t,use_kernel", [("gmm", 24, False),
-                                               ("gmm", 24, True),
-                                               ("decode", 4, True),
-                                               ("decode", 4, False)])
+@pytest.mark.parametrize("impl,t,use_kernel", LAYER_CASES)
 def test_moe_layer_quant_matches_reference(dtype, impl, t, use_kernel):
+    _layer_quant_case("olmoe-1b-7b", dtype, impl, t, use_kernel)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("impl,t,use_kernel", LAYER_CASES)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_moe_layer_quant_matches_reference_families(arch, dtype, impl, t,
+                                                    use_kernel):
+    _layer_quant_case(arch, dtype, impl, t, use_kernel)
+
+
+def _layer_quant_case(arch, dtype, impl, t, use_kernel):
     import jax.numpy as jnp
     from repro.models.moe import moe as jmoe
     from repro_torch.models.moe import moe as tmoe
-    cfg_j, cfg_t = _cfgs()
+    cfg_j, cfg_t = _cfgs(arch)
     pj, pt = _quant_layers(cfg_j, dtype)
     x = np.random.default_rng(5).normal(
         size=(2, t // 2, cfg_j.d_model)).astype(np.float32)
@@ -288,12 +306,24 @@ def test_quantize_expert_params_matches_reference_and_shares(dtype):
     """Both routes across: the port's quantization of the converted
     params equals the converted reference-quantized params, bit for bit,
     and every non-expert tensor is the input's own."""
+    _quantize_params_case("olmoe-1b-7b", dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_quantize_expert_params_matches_reference_families(arch, dtype):
+    """The same at qwen3-moe's and llama4-scout's reduced configs (the
+    shared expert stays full precision, the input's own)."""
+    _quantize_params_case(arch, dtype)
+
+
+def _quantize_params_case(arch, dtype):
     import jax
     from repro import models as jm
     from repro.models.moe import quantize_expert_params as jqp
     from repro_torch.convert import convert_params
     from repro_torch.models.moe import quantize_expert_params as tqp
-    cfg_j, cfg_t = _cfgs()
+    cfg_j, cfg_t = _cfgs(arch)
     pj = jm.init_params(jax.random.PRNGKey(2), cfg_j)
     pt = convert_params(jax.tree.map(np.asarray, pj), cfg_t, device="cpu")
     qt = tqp(pt, cfg_t, dtype)
@@ -309,6 +339,42 @@ def test_quantize_expert_params_matches_reference_and_shares(dtype):
         for key in ("w1", "w2", "w1_scale", "w2_scale", "router"):
             assert _equal_bytes(lj["moe"][key].numpy(), lq["moe"][key]), \
                 (li, key)
+        for key in set(lp["moe"]) - {"w1", "w2"}:     # shared experts
+            assert lq["moe"][key] is lp["moe"][key], (li, key)
+
+
+def _meta_decode_args(b, k, e, d, f, dtype):
+    dp = d // 2 if dtype == "int4" else d
+    meta = torch.device("meta")
+    return (torch.empty((b, d), dtype=torch.bfloat16, device=meta),
+            torch.empty((e, dp, 2 * f), dtype=torch.int8, device=meta),
+            torch.empty((e, f, dp), dtype=torch.int8, device=meta),
+            torch.empty((e, 2, f), device=meta),
+            torch.empty((e, f), device=meta),
+            torch.empty((b, k), dtype=torch.int32, device=meta),
+            torch.empty((b, k), device=meta))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_decode_quant_shared_memory_is_checked_before_launch(dtype):
+    """The card route's checks, run on ``meta``: llama4-scout's experts
+    (D 5120, F 8192) fit, since pass 2 stages 4096 h rows at a time; a
+    shape whose pass would need more shared memory than a block may have
+    is refused with the figure, before any launch."""
+    from repro_torch.kernels import moe_decode_quant
+    from repro_torch.kernels.moe_decode import SMEM_MAX, quant_smem
+    s1, s2 = quant_smem(16, 5120, 8192, dtype)
+    assert s2 == quant_smem(16, 5120, 4096, dtype)[1] <= SMEM_MAX
+    assert s1 <= SMEM_MAX
+    y = moe_decode_quant(*_meta_decode_args(8, 2, 16, 5120, 8192, dtype),
+                         dtype=dtype)
+    assert y.is_meta and tuple(y.shape) == (8, 5120)
+    with pytest.raises(ValueError, match="pass 2 needs .* shared memory"):
+        moe_decode_quant(*_meta_decode_args(4096, 8, 4, 2048, 8192, dtype),
+                         dtype=dtype)
+    with pytest.raises(ValueError, match="pass 1 needs .* shared memory"):
+        moe_decode_quant(*_meta_decode_args(2, 1, 4, 16384, 64, dtype),
+                         dtype=dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -374,13 +440,16 @@ def test_moe_gmm_quant_kernel_matches_plain_on_card(card, dtype, t, k, bm, f):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("t,k,e,bm,f", [(512, 8, 64, 128, 1024),
                                         (200, 6, 16, 128, 1056),
-                                        (100, 4, 16, 40, 1024)])
+                                        (100, 4, 16, 40, 1024),
+                                        (512, 8, 128, 128, 1536),
+                                        (256, 2, 16, 128, 8192)])
 def test_moe_gmm_quant_kernel_full_width_on_card(card, dtype, t, k, e, bm, f):
     """At the served width (D 2048; 64 experts, 512 tokens x top-8 is the
     prefill check's shape): every token's first slot on expert 3, so that
     expert spans several row tiles; expert 7 gets no rows; two live tiles
     made dead between live ones, and the buffer's own dead tiles at its
-    end -- all must come out zero; F 1056 ends in a part-filled box."""
+    end -- all must come out zero; F 1056 ends in a part-filled box;
+    qwen3-moe's experts (128, F 1536) and llama4-scout's F 8192."""
     from repro_torch.kernels import moe_gmm_quant
     from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
     from repro_torch.models.moe import make_sort_plan, sort_dispatch
@@ -407,8 +476,11 @@ def test_moe_gmm_quant_kernel_full_width_on_card(card, dtype, t, k, e, bm, f):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,k,f", [(1, 1, 192), (8, 8, 192), (3, 2, 192),
-                                   (8, 8, 96), (8, 6, 1056)])
+                                   (8, 8, 96), (8, 6, 1056), (8, 8, 1536),
+                                   (8, 2, 8192), (3, 1, 8192)])
 def test_moe_decode_quant_kernel_matches_plain_on_card(card, dtype, b, k, f):
+    """F up to 4096 stages pass 2's h rows at once; llama4-scout's F 8192
+    in two chunks."""
     from repro_torch.kernels import moe_decode_quant
     from repro_torch.kernels.moe_decode import moe_decode_quant_plain
     e, d = 16, 256
@@ -428,12 +500,17 @@ def test_moe_decode_quant_kernel_matches_plain_on_card(card, dtype, b, k, f):
                                           (16, 2, 1024, 16, "two"),
                                           (16, 8, 1056, 16, "random"),
                                           (1, 8, 1024, 64, "random"),
-                                          (3, 6, 1056, 16, "random")])
+                                          (3, 6, 1056, 16, "random"),
+                                          (8, 8, 1536, 128, "random"),
+                                          (8, 2, 8192, 16, "random"),
+                                          (16, 2, 8192, 16, "two")])
 def test_moe_decode_quant_kernel_groups_slots_on_card(card, dtype, b, k, f,
                                                       e, kind):
     """At the served width (D 2048), the slots of one expert served
     together: "two" routes all 16 tokens to experts 2 and 9 (16 slots on
-    each, more than the 8 one pass over the weights serves).  Held to the
+    each, more than the 8 one pass over the weights serves; at F 8192
+    each pass of 8 slots stages its h rows in two chunks); qwen3-moe's
+    experts (128, F 1536) and llama4-scout's F 8192.  Held to the
     plain version; each row's output bitwise the same computed alone; a
     slot whose weight is 0 adds exactly nothing, whichever expert it
     names; no host sync in the call."""

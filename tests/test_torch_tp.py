@@ -17,6 +17,11 @@ gradients the one-process step's with one microbatch a row.  The JAX
 reference runs its dense MoE, never ``ep_a2a`` / ``ep_psum``, and is held
 on the cross-entropy and the logits.
 
+The loss stays vocab-parallel (each rank's block of the logits, three
+sums of [B, S] over ``model``; ``models.tp.xent``), and a sum over
+``model`` notes its backward's sum (the mamba stacks' gated norm).  At
+one rank the vocab-parallel loss is the whole-vocab one bit for bit.
+
 Tolerances: losses and logits 1e-5 against the port (the same products in
 other blocks and orders), 2e-4 against JAX; gradients 1e-4 relative to
 each leaf's largest entry (sums over four ranks in another order);
@@ -175,6 +180,76 @@ def test_tp_engine_pool_is_the_ranks_block(world, tag):
     equal, mine, whole = out[tag]["pool"]
     assert equal
     assert (mine < whole) == (tag in SPLIT_POOL), (mine, whole)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_loss_stays_vocab_parallel(world, tag):
+    """C6: the cross-entropy notes three all-reduces of [B, S] f32 (the
+    blocks' max, the exp sum, the gold logit) and gathers nothing: no rank
+    holds the whole vocabulary's logits."""
+    out, _ = world
+    assert out[tag]["xent_notes"] == {
+        "all-reduce": (3, 3 * ranks.BATCH * ranks.SEQ * 4)}
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_tp_train_step_notes_the_backward_of_each_sum(world, tag):
+    """C4: every ``psum`` over ``model`` of the train step notes a second
+    all-reduce of the same bytes in the backward; zamba2's split mamba
+    heads sum their gated norm's squares once a mamba layer."""
+    out, _ = world
+    fwd, step = out[tag]["psum_forward"], out[tag]["psum_step"]
+    assert step == {k: (2 * n, 2 * b) for k, (n, b) in fwd.items()}
+    if tag == "zamba2":
+        cfg = ranks.configs()[tag][0]
+        mamba = sum(s.kind == "mamba" for s in cfg.pattern())
+        assert mamba > 0
+        assert fwd == {"all-reduce": (mamba, mamba * ranks.BATCH
+                                      * ranks.SEQ * 4)}
+    else:
+        assert fwd == {}
+
+
+@pytest.mark.parametrize("tag", ["tied", "gqa_aligned"])
+def test_one_rank_loss_is_the_whole_vocab_loss_bit_for_bit(tag):
+    """At one rank ``tp.xent``'s max is the block's own log-sum-exp,
+    exp(0) = 1 and log(1) = 0: the loss is ``softmax_xent`` of the whole
+    logits bit for bit, and so are its gradients to the hidden and the
+    head; the model's mesh loss is the no-mesh loss bit for bit."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch import models
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.tp import TP, xent
+    from repro_torch.models.transformer import softmax_xent
+    cfg = ranks.configs()[tag][0]
+    b = ranks.batch(cfg)
+    rng = np.random.default_rng(7)
+    v = cfg.padded_vocab
+    x0 = torch.from_numpy(rng.normal(size=(4, 16, 32)).astype(np.float32))
+    h0 = torch.from_numpy(rng.normal(size=(32, v)).astype(np.float32))
+
+    def loss_and_grads(fn):
+        x, h = x0.clone().requires_grad_(), h0.clone().requires_grad_()
+        loss = fn(x, h)
+        return (loss.detach(), *torch.autograd.grad(loss, (x, h)))
+    mask = b["mask"].float()
+    want = loss_and_grads(lambda x, h: softmax_xent(
+        (x @ h).float(), b["targets"], mask))
+    params = models.init_params(cfg, 0, device="cpu")
+    plain, _ = models.loss_fn(params, cfg, b)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/rdv",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_test_mesh((1, 1)).bind(device="cpu")
+            got = loss_and_grads(lambda x, h: xent(
+                TP(mesh), x, h, v, b["targets"], mask))
+            meshed, _ = models.loss_fn(params, cfg, b, mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(meshed, plain)
 
 
 @pytest.mark.parametrize("tag", TAGS)

@@ -259,9 +259,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               of a depth-4 OLMoE with ``fsdp_params``, ZeRO-1 and
               ``remat_chunk`` 2, bit for bit equal to the no-mesh step
               with per-layer remat (loss and every leaf); (c)
-              ``Engine(mesh=)`` serving 8 requests paged, eagerly
-              (``ep_a2a`` chunks, ``ep_psum`` decode; B4, B9), greedy
-              tokens equal to the no-mesh eager engine's; (d) B2, B4, B7,
+              ``Engine(mesh=)`` with ``graphs`` at its default serving 8
+              requests paged, eagerly (the default on a mesh; no graph
+              captured; ``ep_a2a`` chunks, ``ep_psum`` decode; B4, B9),
+              greedy tokens equal to the no-mesh eager engine's; (e)
+              DeepSeek-V2-Lite at full width cut to MLA_MESH's layers: a
+              chunk prefill into a paged pool and one decode step under
+              ``decode_kv_seq_shard`` (the MLA layers attend their whole
+              latent cache: B7, ``ep_a2a`` / ``ep_psum``'s B9), bit for
+              bit the same steps with no mesh; (d) B2, B4, B7,
               B8 and B9 at the shapes a rank of a 16-way ``model`` axis
               gives them in the assigned configs (``tp_kernel_checks``:
               its heads of the projections, a head slice of a whole KV
@@ -1278,7 +1284,7 @@ def paged_logits(params, cfg, opts, dev, page_size: int = 16):
     pool, then of one decode step (the table walked 8 columns wide)."""
     from repro_torch import models
     b = dev["tokens"].shape[0]
-    caches = models.init_caches(cfg, page_size=page_size,
+    caches = models.init_caches(cfg, layout="paged", page_size=page_size,
                                 num_pages=b * 8 + 1,
                                 device=dev["tokens"].device)
     lg1, caches = models.chunk_prefill_fn(
@@ -3852,31 +3858,94 @@ MESH_NEW = 16
 
 
 def mesh_serve_check(mesh, device, cfg, params, lp, rec):
-    """(c) ``Engine(mesh=)`` on the rank's blocks serving the 8 requests
-    paged, eagerly (the runner refuses CUDA graphs on a mesh), against the
-    no-mesh eager engine on the whole params: greedy tokens equal; the
-    mesh serve launches B4 in decode and B9 in its ``ep_a2a`` chunks and
-    ``ep_psum`` decode steps.  Returns the launch needs."""
+    """(c) ``Engine(mesh=)`` on the rank's blocks, ``graphs`` at its
+    default, serving the 8 requests paged, eagerly (the default on a
+    mesh: no graph captured), against the no-mesh eager engine on the
+    whole params: greedy tokens equal; the mesh serve launches B4 in
+    decode and B9 in its ``ep_a2a`` chunks and ``ep_psum`` decode steps.
+    Returns the launch needs."""
     from repro_torch import models
     from repro_torch.serving import Engine
     opts = models.ModelOpts(use_moe_kernel=True, fsdp_params=True)
 
-    def serve(p, m):
+    def serve(p, **kw):
         eng = Engine(cfg, p, max_batch=8, max_len=512, prefill_chunk=64,
-                     use_kernel=True, opts=opts, device=device,
-                     graphs=False, mesh=m)
+                     use_kernel=True, opts=opts, device=device, **kw)
         res, counts = counted(lambda: eng.serve(
             requests(cfg, seed=0, max_new=MESH_NEW)))
         return res, counts, serve_record(eng)
 
-    want, c0, _ = serve(params, None)
-    got, c1, stats = serve(lp, mesh)
+    want, c0, _ = serve(params, graphs=False)
+    got, c1, stats = serve(lp, mesh=mesh)
+    if not stats["eager"] or stats["graphs"]:
+        raise AssertionError(f"mesh engine: graphs at their default "
+                             f"captured on a mesh ({stats})")
     check_results("mesh engine", got, cfg, MESH_NEW)
     same_tokens("mesh engine vs no mesh", got, want)
     rec["engine"] = {"requests": len(got), "max_new": MESH_NEW,
                      "tokens_equal": True, "launches": c1,
                      "no_mesh_launches": c0, **stats}
     return {"mesh_engine": (c1, ("moe_ffn", "flash_decode_paged"))}
+
+
+#: (e) DeepSeek-V2-Lite's depth in the MLA check under
+#: ``decode_kv_seq_shard``, its rows and their prompt tokens
+MLA_MESH = (4, 8, 64)
+
+
+def mesh_mla_check(mesh, device, rec):
+    """(e) C9: an MLA model decodes under ``decode_kv_seq_shard`` on the
+    mesh as the reference does, every rank attending the whole latent
+    cache (the flag shards GQA caches only): DeepSeek-V2-Lite at full
+    width cut to MLA_MESH's layers, its rows' prompts prefilled in one
+    chunk into a paged pool and one decode step, B7 in the decode
+    (``use_paged_kernel``) and B9 in ``ep_a2a`` / ``ep_psum``, against the
+    same steps with no mesh (``dense``, B9): bit for bit.  Returns the
+    launch needs."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import Sharding, comm, local_params
+    layers, b, c = MLA_MESH
+    cfg = get_config("deepseek-v2-lite").with_(num_layers=layers)
+    params = models.init_params(cfg, seed=0, device=device)
+    lp = local_params(params, cfg, mesh)
+    dev = ref_inputs(cfg, device, b=b, c=c)
+    data = Sharding(mesh, ("data",))
+    plain = models.ModelOpts(use_moe_kernel=True, use_paged_kernel=True,
+                             moe_impl="ep_a2a")
+    ctx = replace(plain, decode_kv_seq_shard=True)
+
+    def run(p, opts, m):
+        rows = {k: data.local(v) if m is not None else v
+                for k, v in dev.items()}
+        caches = models.init_caches(cfg, layout="paged", page_size=16,
+                                    num_pages=b * 8 + 1, device=device)
+        lg1, caches = models.chunk_prefill_fn(
+            p, cfg, rows["tokens"], rows["positions"], caches,
+            block_tables=rows["bt"], opts=opts, mesh=m)
+        lg2, _ = models.decode_fn(p, cfg, rows["nxt"], rows["pos_c"], caches,
+                                  block_tables=rows["bt"], opts=opts,
+                                  kernel_blocks=8, mesh=m)
+        return [lg if m is None else comm.all_gather(lg, mesh, "data")
+                for lg in (lg1, lg2)]
+
+    want, c0 = counted(lambda: run(params, plain, None))
+    got, c1 = counted(lambda: run(lp, ctx, mesh))
+    for i, (g, w) in enumerate(zip(got, want)):
+        compare_rows(f"mesh_mla_seq_shard_step{i}", g, w)
+        if not torch.equal(g, w):
+            raise AssertionError(f"mesh MLA decode_kv_seq_shard: step {i}'s "
+                                 "logits are not the no-mesh step's bits")
+    if c1["flash_decode_paged_mla"] != layers or any(
+            c1[n] for n in GQA_ATTENTION):
+        raise AssertionError(f"mesh MLA decode_kv_seq_shard launched {c1}")
+    rec["mla_seq_shard"] = {
+        "layers": layers, "rows": b, "prompt": c, "layout": "paged",
+        "kernels": ["flash_decode_paged_mla", "moe_ffn"],
+        "bits_equal": True, "digest": digest(got[1]),
+        "launches": c1, "no_mesh_launches": c0}
+    return {"mesh_mla_seq_shard": (c1, ("flash_decode_paged_mla",
+                                        "moe_ffn"))}
 
 
 # --------------------------------------------------------------------------- #
@@ -4133,14 +4202,19 @@ def mesh_phase(device, t_start, rows, plan):
     at the end, pass or fail), with every kernel's plain version forbidden
     on the card while the paths run (module doc, phase 13): (a)
     ``mesh_paths``, (b) ``mesh_train_check``, (c) ``mesh_serve_check``,
-    (d) ``tp_kernel_checks``.  At one rank every collective is a copy and
-    the data axes split nothing, so (a)-(c) must give the no-mesh bits.
-    Returns the launch needs (B2, B4, B9)."""
+    (d) ``tp_kernel_checks``, (e) ``mesh_mla_check``.  At one rank every
+    collective is a copy and the data axes split nothing, so (a)-(c) and
+    (e) must give the no-mesh bits.  Returns the launch needs (B2, B4,
+    B7, B9)."""
     rec = {"phase": "mesh", "mesh": [1, 1], "backend": "nccl"}
     t0 = time.perf_counter()
     with one_rank_mesh() as mesh:
         with torch.no_grad():
             need = mesh_checks(mesh, device, rows, plan, rec)
+        gc.collect()
+        torch.cuda.empty_cache()
+        with forbid_plain(), torch.no_grad():
+            need.update(mesh_mla_check(mesh, device, rec))
         gc.collect()
         torch.cuda.empty_cache()
         mesh_train_check(mesh, device, rec)

@@ -402,6 +402,7 @@ def gqa_attention(
     kv_override=None,
     mesh=None,
     seq_shard: bool = False,
+    rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x [B,S,D]; positions [B,S] (train/prefill/chunk) or [B] (decode).
 
@@ -410,6 +411,7 @@ def gqa_attention(
     ``kv_override = (k, v, kv_positions)`` is cross-attention: rope-free,
     no cache read or write, through the plain masked softmax in train,
     prefill and decode (the reference sends neither to a kernel).
+    ``rope=False`` leaves q and k unrotated, as the reference's flag.
 
     ``mesh`` (bound) runs tensor parallelism (module doc);
     ``seq_shard`` with it makes the contiguous cache the rank's block of
@@ -428,12 +430,12 @@ def gqa_attention(
                        use_flash_decode=use_flash_decode,
                        use_paged_kernel=use_paged_kernel,
                        kernel_blocks=kernel_blocks, causal=causal,
-                       seq_shard=seq_shard)
+                       seq_shard=seq_shard, rope=rope)
     return _gqa_whole(params, cfg, x, positions, mode=mode, cache=cache,
                       compute_dtype=compute_dtype, block_tables=block_tables,
                       use_flash=use_flash, use_flash_decode=use_flash_decode,
                       use_paged_kernel=use_paged_kernel,
-                      kernel_blocks=kernel_blocks, causal=causal)
+                      kernel_blocks=kernel_blocks, causal=causal, rope=rope)
 
 
 def _gqa_whole(params, cfg: ModelConfig, x, positions, *, seq_mesh=None,
@@ -548,13 +550,17 @@ def _gqa_core(cfg: ModelConfig, q, k, v, positions, *, mode, cache,
               compute_dtype="f32", block_tables=None, use_flash=False,
               use_flash_decode=False, use_paged_kernel=False,
               kernel_blocks=None, causal=True, shard=None,
-              seq_shard_mesh=None, heads=None):
+              seq_shard_mesh=None, heads=None, rope=True):
     """The attention of q [B,S,Hq,hd] over k / v [B,S,Hc,hd] (the cache's
     kv heads) -> (out [B,S,Hq,hd], cache).  ``heads = (a, b)``: attend kv
-    heads [a, b) of the cache's (a view; all by default)."""
+    heads [a, b) of the cache's (a view; all by default); ``rope=False``
+    leaves q and k unrotated."""
     b, s = q.shape[:2]
     hd = cfg.head_dim_
     scale = 1.0 / hd ** 0.5
+
+    def rot(t, pos):
+        return apply_rope(t, pos, cfg.rope_theta) if rope else t
 
     def kv(t):
         return t if heads is None else t.narrow(2, heads[0],
@@ -562,8 +568,8 @@ def _gqa_core(cfg: ModelConfig, q, k, v, positions, *, mode, cache,
 
     if mode == "decode":
         pos_s = positions[:, None]                        # [B, 1]
-        q = apply_rope(q, pos_s, cfg.rope_theta)
-        k = apply_rope(k, pos_s, cfg.rope_theta)
+        q = rot(q, pos_s)
+        k = rot(k, pos_s)
         out = None
         if shard is not None:
             # context-parallel decode: the plain path, as the reference's
@@ -612,8 +618,8 @@ def _gqa_core(cfg: ModelConfig, q, k, v, positions, *, mode, cache,
         # evict, on a sliding-window ring, positions still inside the
         # window of the chunk's own earlier queries; and exact against
         # whole-prompt prefill)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = rot(q, positions)
+        k = rot(k, positions)
         if "kp" in cache:
             k_old = _paged_read(cache["kp"], block_tables)
             v_old = _paged_read(cache["vp"], block_tables)
@@ -634,8 +640,8 @@ def _gqa_core(cfg: ModelConfig, q, k, v, positions, *, mode, cache,
             _write_seq(cache["v"], v, positions)
             _write_seq(cache["pos"], positions, positions)
     elif mode in ("train", "prefill"):
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q = rot(q, positions)
+        k = rot(k, positions)
         if use_flash and causal:
             # masks by index, as the reference kernel: positions must be
             # 0..S-1 in every row (no pads).  The kernel reads the [B,S,H,hd]

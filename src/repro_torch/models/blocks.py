@@ -112,7 +112,8 @@ def apply_block(
     mixer run tensor parallelism over ``model`` (``models/tp.py``), the
     MoE the impl ``moe.mesh_impl`` picks, and with
     ``opts.decode_kv_seq_shard`` the GQA cache is the rank's sequence
-    block (context parallelism)."""
+    block (context parallelism); an MLA layer attends its whole latent
+    cache on every rank under the flag too, as the reference."""
     _check_kind(spec)
     if spec.kind == "mamba":
         if mode == "chunk":
@@ -133,10 +134,6 @@ def apply_block(
                "use_paged_kernel": opts.use_paged_kernel,
                "kernel_blocks": kernel_blocks}
     if cfg.attention == "mla":
-        if opts.decode_kv_seq_shard and mesh is not None and mode != "train":
-            raise NotImplementedError(
-                "decode_kv_seq_shard shards GQA caches only; an MLA model "
-                "decodes its whole latent cache on every rank")
         attn_kw["absorb"] = opts.mla_absorb
     else:
         attn_kw.update(use_flash=opts.use_flash,
@@ -207,7 +204,7 @@ def init_shared(gen: torch.Generator, cfg: ModelConfig,
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
-                     layout: str = "paged", page_size: int = 16,
+                     layout: str = "contiguous", page_size: int = 16,
                      num_pages: int = 0, device) -> List[Dict]:
     """One cache per layer: a paged pool of ``num_pages`` x ``page_size``
     positions, or ``batch`` contiguous rows for ``max_len`` positions; a

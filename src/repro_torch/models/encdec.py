@@ -144,10 +144,12 @@ def _gathered(params, cfg: ModelConfig, mesh, opts: ModelOpts):
 
 
 def encdec_loss(params, cfg: ModelConfig, batch, *, mesh=None,
-                opts: ModelOpts = DEFAULT_OPTS):
+                opts: ModelOpts = DEFAULT_OPTS, aux_coef: float = 0.0):
     """batch: frames [B,T,D], tokens [B,S], targets [B,S], mask [B,S] ->
     (xent, {"xent", "aux"}); under a mesh the rank's data block and its
-    blocks of the params (module doc)."""
+    blocks of the params (module doc).  ``aux_coef`` is taken and dropped,
+    as the reference does: the model has no MoE, so no aux term."""
+    del aux_coef
     params = _gathered(params, cfg, mesh, opts)
     enc_out = encode(params, cfg, batch["frames"], opts=opts, mesh=mesh)
     b, s = batch["tokens"].shape

@@ -4,7 +4,7 @@ serving stack and launchers call.  The encoder-decoder (whisper) goes to
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -71,30 +71,29 @@ def loss_fn(params, cfg: ModelConfig, batch, *, mesh=None,
 
 
 def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
-                layout: Optional[str] = None, page_size: int = 16,
+                layout: str = "contiguous", page_size: int = 16,
                 num_pages: int = 0, device=None):
-    """KV caches, one per layer: ``layout="paged"`` (the serving pool, the
-    default of a decoder-only LM) is ``num_pages`` pages of ``page_size``
-    positions; ``"contiguous"`` is ``batch`` rows for ``max_len``
-    positions.  A mamba layer's state has ``batch`` rows on either layout;
-    the encoder-decoder's caches are contiguous only (its default)."""
+    """KV caches, one per layer: the default ``"contiguous"`` layout is
+    ``batch`` rows for ``max_len`` positions (the per-slot-row equivalence
+    oracle, as in the reference); ``layout="paged"`` (the serving pool) is
+    ``num_pages`` pages of ``page_size`` positions.  A mamba layer's state
+    has ``batch`` rows on either layout; the encoder-decoder's caches are
+    contiguous only."""
     if cfg.is_encoder_decoder:
-        if layout not in (None, "contiguous"):
+        if layout != "contiguous":
             raise NotImplementedError("paged KV is decoder-only LM for now")
         return encdec_mod.init_encdec_caches(cfg, batch, max_len,
                                              resolve_device(device))
-    return tf_mod.init_caches(cfg, batch, max_len, layout=layout or "paged",
+    return tf_mod.init_caches(cfg, batch, max_len, layout=layout,
                               page_size=page_size, num_pages=num_pages,
                               device=resolve_device(device))
 
 
 def abstract_caches(cfg: ModelConfig, batch: int, max_len: int, **kw):
     """``init_caches`` on the ``meta`` device: shapes and dtypes without
-    memory (the reference's ``eval_shape`` of its ``init_caches``), on the
-    reference's default contiguous layout unless ``layout=`` says
-    otherwise.  One cache a layer, where the reference stacks a run of
-    identical layers under a leading dim."""
-    kw.setdefault("layout", "contiguous")
+    memory (the reference's ``eval_shape`` of its ``init_caches``).  One
+    cache a layer, where the reference stacks a run of identical layers
+    under a leading dim."""
     return init_caches(cfg, batch, max_len, device="meta", **kw)
 
 

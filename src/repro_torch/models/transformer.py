@@ -159,7 +159,7 @@ def lm_loss(params: Dict, cfg: ModelConfig, batch: Dict, *, mesh=None,
 
 
 def init_caches(cfg: ModelConfig, batch: int = 0, max_len: int = 0, *,
-                layout: str = "paged", page_size: int = 16,
+                layout: str = "contiguous", page_size: int = 16,
                 num_pages: int = 0, device):
     return blocks_mod.init_stack_cache(cfg, batch, max_len, layout=layout,
                                        page_size=page_size,

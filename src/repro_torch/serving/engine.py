@@ -56,7 +56,8 @@ at the prefill boundary.
 
 On the card every chunk and decode step replays a CUDA graph captured for
 its specialization key (``serving/runner.py``); ``Engine(graphs=False)``
-runs the same steps eagerly, the oracle.  ``Engine(router_lookahead=True)``
+runs the same steps eagerly, the oracle, and so does an engine on a mesh
+with ``graphs`` left at its default.  ``Engine(router_lookahead=True)``
 predicts each MoE layer's expert ids one layer ahead on decode steps
 (numerically a no-op; the CUDA kernels ignore the hint), fixed for the
 engine's life, so every graph it captures carries it.  ``submit(req,
@@ -79,7 +80,8 @@ encoder-decoder (whisper) is served through ``models.prefill_fn`` /
 takes the rank's local params (``sharding.local_params``; whole params
 whose shapes are not those blocks are refused), each rank holds its kv
 heads of the pool (``serving/kv_cache.py``), and the runner runs every
-step eagerly with the models' tensor parallelism over ``model`` and the
+step eagerly (the default of ``graphs`` on a mesh; ``graphs=True`` is
+refused) with the models' tensor parallelism over ``model`` and the
 config's expert-parallel MoE (``models.moe.mesh_impl``: ``ep_a2a`` in the
 chunk steps, ``ep_psum`` in decode).  Every rank of a ``model`` group
 serves the same requests, with the same seed: the logits are whole on
@@ -174,7 +176,7 @@ class Engine:
                  degrade_watermark: float = 0.25,
                  eos_id: Optional[int] = None, opts: ModelOpts = DEFAULT_OPTS,
                  clock: Optional[Clock] = None, seed: int = 0, device=None,
-                 graphs: bool = True, mesh=None):
+                 graphs: Optional[bool] = None, mesh=None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

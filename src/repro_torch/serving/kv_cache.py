@@ -113,7 +113,8 @@ class KVCache:
         # +1 for the reserved trash page unmapped table entries point at
         # (requests the pool can never hold are rejected via fits_ever)
         self.num_pages = (num_pages if num_pages is not None else full) + 1
-        self.caches = _rank_caches(cfg, mesh, device, page_size=page_size,
+        self.caches = _rank_caches(cfg, mesh, device, layout="paged",
+                                   page_size=page_size,
                                    num_pages=self.num_pages)
         self._free: List[int] = list(range(self.num_pages - 1, TRASH_PAGE, -1))
         self.table = np.full((max_batch, self.blocks_per_slot), TRASH_PAGE,

@@ -61,9 +61,10 @@ weights.
 
 ``mesh=`` (a bound mesh, as the reference's runner takes one): the params
 are the rank's blocks (``sharding.local_params``) and every step runs the
-models' tensor and expert parallelism on them; the steps run eagerly,
-and ``graphs=True`` is refused (capturing the NCCL collectives of a step
-in a CUDA graph is ROADMAP B, held item 7).
+models' tensor and expert parallelism on them.  ``graphs`` left at its
+default resolves to eager steps on a mesh and to CUDA graphs off one; an
+explicit ``graphs=True`` with a mesh is refused (capturing the NCCL
+collectives of a step in a CUDA graph is ROADMAP B, held item 1).
 """
 
 from __future__ import annotations
@@ -137,17 +138,17 @@ class _Step:
 
 class ModelRunner:
     def __init__(self, cfg: ModelConfig, params, *,
-                 opts: ModelOpts = DEFAULT_OPTS, graphs: bool = True,
-                 mesh=None):
+                 opts: ModelOpts = DEFAULT_OPTS,
+                 graphs: Optional[bool] = None, mesh=None):
         if mesh is not None and not mesh.bound:
             raise ValueError(f"a runner serves on a bound mesh, not on "
                              f"{mesh!r} (a placed mesh only counts its "
                              "collectives)")
         if mesh is not None and graphs:
             raise ValueError(
-                "a runner on a mesh runs its steps eagerly: pass "
-                "graphs=False (CUDA graphs of NCCL steps are ROADMAP B, "
-                "held item 7)")
+                "a runner on a mesh runs its steps eagerly: leave graphs at "
+                "its default or pass graphs=False (CUDA graphs of NCCL "
+                "steps are ROADMAP B, held item 1)")
         self.mesh = mesh
         self.opts = opts
         self.base_cfg = cfg
@@ -163,8 +164,9 @@ class ModelRunner:
         #: the specialization table: key -> its captured step (None where
         #: the step runs eagerly)
         self._steps: Dict[Tuple, Optional[_Step]] = {}
-        #: capture graphs on the card (False: the eager oracle)
-        self.graphs = bool(graphs)
+        #: capture graphs on the card (False: the eager oracle); the
+        #: default is graphs off a mesh and eager steps on one
+        self.graphs = mesh is None if graphs is None else bool(graphs)
         self._graphed = self.graphs and self.device.type == "cuda"
         self._stream = self._pool = None
         if self._graphed:

@@ -233,7 +233,7 @@ def _zero1(spec: Spec, shape: Tuple[int, ...], mesh) -> Spec:
     return tuple(entries)
 
 
-def opt_state_specs(opt_state, params_specs, mesh):
+def opt_state_specs(opt_state_abstract, params_specs, mesh):
     """Specs for ``AdamWState(step, mu, nu)``: moments ZeRO-1 sharded."""
     from repro_torch.optim.adamw import AdamWState
 
@@ -242,8 +242,8 @@ def opt_state_specs(opt_state, params_specs, mesh):
                                                   mesh),
                         params_specs, tree, is_leaf=is_spec)
 
-    return AdamWState(step=(), mu=moments(opt_state.mu),
-                      nu=moments(opt_state.nu))
+    return AdamWState(step=(), mu=moments(opt_state_abstract.mu),
+                      nu=moments(opt_state_abstract.nu))
 
 
 # --------------------------------------------------------------------------- #
@@ -478,12 +478,21 @@ def fsdp_layout(cfg: ModelConfig, mesh, fsdp_min_size: int = 1 << 20):
 
 def local_cache_specs(cache_tree, cfg: ModelConfig, mesh,
                       seq_shard: bool = False):
-    """The cache specs the port runs: ``cache_specs`` as they are -- the
-    batch dim over the data axes, the kv heads (GQA ``k`` / ``v``, paged
-    ``kp`` / ``vp``) and the mamba ``state`` heads over ``model`` where
-    they split, and under ``seq_shard`` the GQA sequence dim over
-    ``model`` in place of the heads (context-parallel decode)."""
-    return cache_specs(cache_tree, cfg, mesh, seq_shard)
+    """The cache specs the port runs: ``cache_specs`` -- the batch dim
+    over the data axes, the kv heads (GQA ``k`` / ``v``, paged ``kp`` /
+    ``vp``) and the mamba ``state`` heads over ``model`` where they split,
+    and under ``seq_shard`` the GQA sequence dim over ``model`` in place
+    of the heads (context-parallel decode) -- but for an MLA model's
+    ``pos`` under ``seq_shard``, which stays whole: the MLA layer attends
+    its whole latent cache on every rank, where GSPMD gathers the
+    sequence-sharded ``pos`` for the reference (no collective here)."""
+    specs = cache_specs(cache_tree, cfg, mesh, seq_shard)
+    if not (seq_shard and cfg.attention == "mla"):
+        return specs
+    return unflatten(cache_tree, [
+        tuple(None if e == "model" else e for e in s)
+        if re.search(r"(^|/)pos$", p) else s
+        for p, s in flatten_with_paths(specs, is_leaf=is_spec)])
 
 
 def local_tree(tree, shardings):

@@ -16,6 +16,8 @@ AXES = ("data", "model")
 BATCH, SEQ = 4, 16
 #: decode steps after the prefill, and the engine's workload
 DECODE_STEPS = 2
+#: the cache length of ``seq_shard_steps``: a multiple of ``model``
+SEQ_SHARD_LEN = 20
 PROMPT_LENS, MAX_NEW = (5, 16, 9, 12), 6
 BATCH_SEED, PROMPT_SEED = 3, 4
 
@@ -111,28 +113,61 @@ def serve_requests(cfg):
     return reqs
 
 
-def steps(params, cfg, mesh=None):
+def steps(params, cfg, mesh=None, opts=None, max_len=None):
     """Prefill of the batch's tokens, then greedy decode steps -> the
-    logits [B, V] of each (the caches contiguous, the rank's blocks under
-    a mesh)."""
+    logits [B, V] of each (the caches contiguous, ``max_len`` positions or
+    just enough, the rank's blocks under a mesh: its sequence block under
+    ``opts.decode_kv_seq_shard``)."""
     from repro_torch import models
+    from repro_torch.models import DEFAULT_OPTS
     from repro_torch.sharding import local_cache_specs, local_tree, named
+    opts = DEFAULT_OPTS if opts is None else opts
     tokens = batch(cfg)["tokens"]
     b, s = tokens.shape
-    caches = models.init_caches(cfg, b, s + DECODE_STEPS, layout="contiguous",
+    caches = models.init_caches(cfg, b, max_len or s + DECODE_STEPS,
                                 device="cpu")
     if mesh is not None:
         caches = local_tree(caches, named(mesh, local_cache_specs(
-            caches, cfg, mesh)))
+            caches, cfg, mesh, seq_shard=opts.decode_kv_seq_shard)))
     logits, caches = models.prefill_fn(params, cfg, {"tokens": tokens},
-                                       caches, mesh=mesh)
+                                       caches, mesh=mesh, opts=opts)
     out = [logits]
     pos = torch.full((b,), s, dtype=torch.int32)
     for i in range(DECODE_STEPS):
         nxt = out[-1].argmax(-1).int()
         lg, caches = models.decode_fn(params, cfg, nxt, pos + i, caches,
-                                      mesh=mesh)
+                                      mesh=mesh, opts=opts)
         out.append(lg)
+    return out
+
+
+def seq_shard_steps(params, cfg, mesh):
+    """``steps`` under ``decode_kv_seq_shard`` on a cache whose length
+    splits over ``model`` -> its logits, whether the rules' ``cache_specs``
+    and the specs the port runs (``local_cache_specs``) shard ``pos`` over
+    ``model``, and the collectives of the run beside those of the same run
+    without the flag."""
+    from repro_torch import models
+    from repro_torch.analysis import record
+    from repro_torch.models import ModelOpts
+    from repro_torch.sharding import cache_specs, is_spec, local_cache_specs
+    from repro_torch.tree import flatten_with_paths
+    whole = models.init_caches(cfg, BATCH, SEQ_SHARD_LEN, device="meta")
+
+    def pos_sharded(specs):
+        return any("model" in s for p, s in flatten_with_paths(
+            specs, is_leaf=is_spec) if p.endswith("pos"))
+    out = {"rules_shard_pos": pos_sharded(cache_specs(
+        whole, cfg, mesh, seq_shard=True)),
+        "local_shards_pos": pos_sharded(local_cache_specs(
+            whole, cfg, mesh, seq_shard=True))}
+    for flag in (True, False):
+        with record() as st:
+            logits = steps(params, cfg, mesh,
+                           ModelOpts(decode_kv_seq_shard=flag), SEQ_SHARD_LEN)
+        out["collectives" if flag else "plain_collectives"] = collectives(st)
+        if flag:
+            out["logits"] = logits
     return out
 
 
@@ -218,12 +253,16 @@ def _checks(mesh, out):
             "pool": pool(cfg, mesh),
             "heads": {p: tuple(x.shape) for p, x in _attn_leaves(lp)},
         }
+        if tag == "mla":
+            out[tag]["seq_shard"] = seq_shard_steps(lp, cfg, mesh)
 
 
 def _refusals(mesh, out):
     """What a mesh refuses, each as its error's type and message: whole
-    params to ``Engine(mesh=)``, CUDA graphs on a mesh, ``ep_a2a`` and
-    ``ep_psum`` where the experts do not split."""
+    params to ``Engine(mesh=)``, CUDA graphs asked for on a mesh, ``ep_a2a``
+    and ``ep_psum`` where the experts do not split; and ``Engine(mesh=)``
+    with ``graphs`` at its default, which serves (None under its tag, its
+    tokens under ``out["engine_default"]``)."""
     from repro_torch import models
     from repro_torch.models.moe import moe_ep_a2a, moe_ep_psum
     from repro_torch.serving import Engine
@@ -243,8 +282,17 @@ def _refusals(mesh, out):
     lp = local_params(params, cfg, mesh)
     refused("engine_whole_params", lambda: Engine(
         cfg, params, device="cpu", mesh=mesh, graphs=False))
-    refused("engine_graphs", lambda: Engine(cfg, lp, device="cpu",
-                                            mesh=mesh))
+    refused("engine_graphs_explicit", lambda: Engine(
+        cfg, lp, device="cpu", mesh=mesh, graphs=True))
+    served = {}
+
+    def serve_default():
+        eng = Engine(cfg, lp, device="cpu", mesh=mesh, **engine_kw(cfg))
+        served["graphs"] = eng.runner.graphs
+        served["tokens"] = {r.uid: list(r.tokens)
+                            for r in eng.serve(serve_requests(cfg))}
+    refused("engine_default", serve_default)
+    out["engine_default"] = served
     x = torch.zeros((8, cfg.d_model))
     moe = lp["layers"][0]["moe"]
     refused("ep_a2a_unsplit", lambda: moe_ep_a2a(moe, cfg, x, 2, mesh=mesh))

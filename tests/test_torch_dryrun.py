@@ -498,6 +498,23 @@ def test_olmo_decode_32k_cell_at_16x16():
     assert rec["memory_analysis"]["peak_bytes"] >= rec["param_bytes"]
 
 
+def test_mla_decode_cell_under_seq_shard_counts_as_without():
+    """C9: an MLA model's decode cell under ``decode_kv_seq_shard`` runs
+    (it raised before) and counts what it counts without the flag: the
+    port keeps an MLA model's ``pos`` whole (``local_cache_specs``), so no
+    collective gathers it and every rank holds the whole latent cache, as
+    the reference's partitioned program does after GSPMD's gather."""
+    from repro_torch.launch import dryrun
+    recs = [dryrun.run_cell("minicpm3-4b", "decode_32k", verbose=False,
+                            opts_kw={"decode_kv_seq_shard": flag})
+            for flag in (False, True)]
+    for rec in recs:
+        assert rec["status"] == "OK", rec.get("traceback")
+    assert recs[1]["counts"] == recs[0]["counts"]
+    assert recs[1]["memory_analysis"] == recs[0]["memory_analysis"]
+    assert recs[1]["roofline"]["collective_bytes"] > 0
+
+
 # --------------------------------------------------------------------------- #
 # The (1, 4) gloo world: real counts against meta, whisper's TP
 # --------------------------------------------------------------------------- #

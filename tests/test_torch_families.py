@@ -123,7 +123,8 @@ def test_chunk_and_decode_logits_match_reference(fam):
     bt = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
     cj = jm.init_caches(cfg_j, b, 64, layout="paged", page_size=p,
                         num_pages=n)
-    ct = tm.init_caches(cfg_t, page_size=p, num_pages=n, device="cpu")
+    ct = tm.init_caches(cfg_t, layout="paged", page_size=p,
+                        num_pages=n, device="cpu")
     kern = tm.ModelOpts(use_moe_kernel=True, use_paged_kernel=True,
                         use_moe_decode_kernel=True)
     jopts = jm.ModelOpts(use_paged_kernel=True, use_moe_decode_kernel=True)

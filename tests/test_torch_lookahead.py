@@ -133,7 +133,8 @@ def test_decode_logits_with_hint_match_off_and_reference(model):
         p_, cfg_j, t, po, c_, last_index=li, block_tables=bt_))(
             pj, jnp.asarray(tok), jnp.asarray(pos), cj, jnp.asarray(last),
             jnp.asarray(bt))
-    ct = tm.init_caches(cfg_t, page_size=p, num_pages=n, device="cpu")
+    ct = tm.init_caches(cfg_t, layout="paged", page_size=p,
+                        num_pages=n, device="cpu")
     _, ct = tm.chunk_prefill_fn(pt, cfg_t, torch.from_numpy(tok),
                                 torch.from_numpy(pos), ct,
                                 last_index=torch.from_numpy(last),

@@ -265,6 +265,26 @@ def test_tp_logits_match_reference(world, tag):
         _close(got, want, **JAX_TOL)
 
 
+def test_mla_decode_under_seq_shard_matches_one_process_and_reference(
+        world):
+    """C9: DeepSeek-V2-Lite decodes under ``decode_kv_seq_shard`` as the
+    reference does: every rank attends the whole latent cache.  The rules
+    shard ``pos`` along the sequence as the reference's; the port keeps an
+    MLA model's ``pos`` whole (``local_cache_specs``), where GSPMD gathers
+    it, so the run notes the collectives of the run without the flag and
+    nothing more.  Logits within 1e-5 of one process and of JAX's
+    unsharded ``decode_fn`` in f32."""
+    out, refs = world
+    got = out["mla"]["seq_shard"]
+    assert got["rules_shard_pos"] and not got["local_shards_pos"]
+    assert got["collectives"] == got["plain_collectives"]
+    assert len(got["logits"]) == 1 + ranks.DECODE_STEPS
+    for g, w in zip(got["logits"], refs["mla"]["logits"]):
+        _close(g, w, **PORT)
+    for g, w in zip(got["logits"], refs["mla"]["jax"]["logits"]):
+        _close(g, w, **PORT)
+
+
 def test_ranks_hold_their_blocks_of_the_attention(world):
     """Rank 0's first-layer attention leaves are its blocks of the rules'
     specs: a quarter of every projection's features."""
@@ -285,15 +305,24 @@ def test_ranks_hold_their_blocks_of_the_attention(world):
 
 @pytest.mark.parametrize("tag,match", [
     ("engine_whole_params", "not the rank's block"),
-    ("engine_graphs", "graphs=False"),
+    ("engine_default", None),
+    ("engine_graphs_explicit", "graphs=False"),
     ("ep_a2a_unsplit", "do not split"),
     ("ep_psum_unsplit", "do not split"),
 ])
 def test_mesh_refusals(world, tag, match):
-    """A mesh refuses whole params, CUDA graphs and the EP impls where the
-    experts do not split over ``model`` (the encoder-decoder runs tensor
-    parallelism: ``test_torch_dryrun.py``)."""
+    """A mesh refuses whole params, CUDA graphs asked for explicitly and the
+    EP impls where the experts do not split over ``model`` (the
+    encoder-decoder runs tensor parallelism: ``test_torch_dryrun.py``);
+    ``Engine(mesh=)`` with ``graphs`` at its default serves eagerly, the
+    tokens of the ``graphs=False`` engine (``match`` None)."""
     out, _ = world
     got = out["refusals"][tag]
+    if match is None:
+        assert got is None, got
+        default = out["engine_default"]
+        assert default["graphs"] is False
+        assert default["tokens"] == out["gqa_aligned"]["tokens"]
+        return
     assert got is not None, f"{tag}: nothing raised"
     assert match in got[1], got

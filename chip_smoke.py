@@ -293,8 +293,14 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               (CUDA events, median of DRYRUN_REPS) at least its bound
               from the meta counts; the card's peak over the meta peak
               inside DRYRUN_PEAK_BAND; and whisper-base's prefill and
-              decode logits on the mesh bit for bit its no-mesh logits.
-              One ``dryrun`` line.
+              decode logits on the mesh bit for bit its no-mesh logits;
+              (b') DRYRUN_BF16_STEP, the train step in
+              ``attn_compute_dtype="bf16_accum32"``, held as (b) holds a
+              train step; (b'') ``_sdpa`` in ``"bf16_accum32"`` at
+              OLMoE's heads over SDPA_BF16_CHECK on the card (``bmm``'s
+              ``out_dtype`` form) against the CPU route on the same bf16
+              inputs, row by row to ROW_TOL (its check line carries the
+              largest absolute error).  One ``dryrun`` line.
 
 Every serve and forward runs its steps as CUDA graphs, captured for each
 specialization key of the runner (``serving/runner.py``) or each forward
@@ -4259,6 +4265,13 @@ DRYRUN_PEAK_BAND = (0.97, 1.03)
 DRYRUN_REPS = 11
 #: whisper's (1, 1) mesh check: rows, prompt tokens and decode steps
 WHISPER_MESH = (2, 16, 2)
+#: (b') DRYRUN_STEPS' train step again in ``attn_compute_dtype=
+#: "bf16_accum32"`` (the plain ``_sdpa``'s f32 products of bf16 operands,
+#: ``models.attention.f32_product``), held as (b) holds it
+DRYRUN_BF16_STEP = ("train", 512, 4)
+#: (b'') ``_sdpa`` in ``"bf16_accum32"`` at OLMoE's heads, on the card
+#: against the CPU route on the same bf16 inputs: rows x tokens, causal
+SDPA_BF16_CHECK = (4, 512)
 
 
 def dryrun_cells():
@@ -4289,7 +4302,7 @@ def dryrun_cells():
     return out
 
 
-def dryrun_card_step(mesh, device, step_kind, seq, rows):
+def dryrun_card_step(mesh, device, step_kind, seq, rows, attn="f32"):
     """(b) for one step: OLMoE (full depth; a train step at
     DRYRUN_TRAIN_LAYERS) through ``launch.dryrun.build_cell``, with the
     serving path's kernels (``--flash``; B9 in ``ep_a2a`` / ``ep_psum``),
@@ -4299,8 +4312,8 @@ def dryrun_card_step(mesh, device, step_kind, seq, rows):
     (forward, remat's rerun, backward: every layer is under remat), the
     forward's counted on meta under no grad; the step timed (CUDA events,
     the median of DRYRUN_REPS) at least the meta count's bound; the card's
-    peak within DRYRUN_PEAK_BAND of the meta peak.  Returns (line, the
-    launches)."""
+    peak within DRYRUN_PEAK_BAND of the meta peak.  ``attn``: the step's
+    ``attn_compute_dtype``.  Returns (line, the launches)."""
     from repro_torch import models
     from repro_torch.analysis import record
     from repro_torch.analysis import roofline as rl
@@ -4315,7 +4328,8 @@ def dryrun_card_step(mesh, device, step_kind, seq, rows):
     if train:
         cfg = cfg.with_(num_layers=DRYRUN_TRAIN_LAYERS)
     cfg = dryrun.cell_config(cfg, shape)
-    opts = dryrun.cell_opts(cfg, shape, use_flash=True)
+    opts = dryrun.cell_opts(cfg, shape, use_flash=True,
+                            attn_compute_dtype=attn)
     placed = make_test_mesh((1, 1)).place(0)
     step, inputs = dryrun.build_cell(cfg, shape, placed, opts)
     with count(inputs) as dry:
@@ -4383,7 +4397,54 @@ def dryrun_card_step(mesh, device, step_kind, seq, rows):
             "input_gb": dry.input_bytes / 1e9}
     if train:
         line.update(layers=cfg.num_layers, remat=opts.remat, all_to_all=a2a)
+    if attn != "f32":
+        line["attn_compute_dtype"] = attn
     return line, launches
+
+
+def sdpa_bf16_check(device):
+    """(b''): ``_sdpa`` in ``"bf16_accum32"`` at OLMoE's heads over
+    SDPA_BF16_CHECK's causal rows, on the card (``bmm``'s ``out_dtype``
+    form, which must run) against the CPU route (f32 copies) on the same
+    bf16 inputs, each (row, token, head) held to ROW_TOL (``compare_rows``'
+    check line carries the largest absolute error).  Returns its line."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.configs import get_config
+    from repro_torch.models.attention import _mask_bias, _sdpa
+    cfg = get_config("olmoe-1b-7b")
+    b, s = SDPA_BF16_CHECK
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    gen = torch.Generator().manual_seed(11)
+    q = (torch.randn((b, s, hq, hd), generator=gen) * 2).bfloat16()
+    k = (torch.randn((b, s, hkv, hd), generator=gen) * 2).bfloat16()
+    v = torch.randn((b, s, hkv, hd), generator=gen).bfloat16()
+    pos = torch.arange(s, dtype=torch.int32).expand(b, s)
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.add(func)
+            return func(*args, **(kwargs or {}))
+
+    def run(dev):
+        t = [x.to(dev) for x in (q, k, v, pos)]
+        return _sdpa(*t[:3], _mask_bias(t[3], t[3], None, True), hd ** -0.5,
+                     "bf16_accum32")
+    with torch.no_grad():
+        want = run("cpu")
+        with Ops() as ops:
+            got = run(device)
+        torch.cuda.synchronize()
+    if torch.ops.aten.bmm.dtype not in ops.seen:
+        raise AssertionError("dryrun sdpa bf16: the card's route ran no "
+                             "bmm.dtype")
+    err = compare_rows("dryrun_sdpa_bf16_accum32", got.cpu(), want,
+                       shape=[b, s, hq, hkv, hd])
+    return {"rows": b, "tokens": s, "heads": hq, "kv_heads": hkv,
+            "head_dim": hd, "max_abs_err": err, "tol": ROW_TOL}
 
 
 def whisper_mesh_check(mesh, device):
@@ -4425,8 +4486,9 @@ def whisper_mesh_check(mesh, device):
 def dryrun_phase(device, t_start):
     """Phase 14 (module doc): (a) ``dryrun_cells`` on meta; (b)
     ``dryrun_card_step`` for each of DRYRUN_STEPS and
-    ``whisper_mesh_check`` on a one-rank NCCL (1, 1) mesh.  Returns the
-    launch needs (B2, B8, B9)."""
+    ``whisper_mesh_check`` on a one-rank NCCL (1, 1) mesh; (b') the
+    DRYRUN_BF16_STEP in ``"bf16_accum32"`` there; (b'')
+    ``sdpa_bf16_check``.  Returns the launch needs (B2, B8, B9)."""
     t0 = time.perf_counter()
     rec = {"phase": "dryrun", "cells": dryrun_cells(),
            "cells_seconds": time.perf_counter() - t0}
@@ -4443,6 +4505,12 @@ def dryrun_phase(device, t_start):
             need[f"dryrun_{kind}"] = (launches, want[kind])
         with torch.no_grad():
             rec["whisper_mesh"] = whisper_mesh_check(mesh, device)
+        kind, seq, rows = DRYRUN_BF16_STEP
+        with torch.enable_grad():
+            rec["bf16_step"], launches = dryrun_card_step(
+                mesh, device, kind, seq, rows, attn="bf16_accum32")
+        need[f"dryrun_{kind}_bf16"] = (launches, ())
+    rec["sdpa_bf16"] = sdpa_bf16_check(device)
     gc.collect()
     torch.cuda.empty_cache()
     rec.update(peak_band=DRYRUN_PEAK_BAND,

@@ -6,9 +6,9 @@ that the reference reads off a compiled module (``analysis/roofline.py``).
 ``Counts``:
 
 * ``flops``: the aten matrix products (``torch.utils.flop_counter.
-  FlopCounterMode``: mm, bmm, addmm, baddbmm, einsum's products,
-  convolutions, SDPA; forward and backward) plus the FLOPs each kernel
-  launch reports (``kernels/costs.py``).
+  FlopCounterMode``: mm, bmm and its ``out_dtype`` form, addmm, baddbmm,
+  einsum's products, convolutions, SDPA; forward and backward) plus the
+  FLOPs each kernel launch reports (``kernels/costs.py``).
 * ``nbytes``: every non-view aten op's input and output bytes (a view, a
   ``reshape`` that does not copy, ``expand``, ``slice``, ``select``,
   ``transpose``, ``permute``, ``t``, ``unsqueeze``, ``squeeze``,
@@ -179,6 +179,15 @@ class _Mode(TorchDispatchMode):
         return out
 
 
+def _bmm_flop(a_shape, b_shape, out_dtype=None, *, out_shape=None,
+              **kwargs) -> int:
+    """``bmm``'s FLOPs, its ``out_dtype`` form (``bmm.dtype``) too: the
+    stock formula, registered for the whole overload packet, takes that
+    form's third argument for the output's shape and raises."""
+    n, m, k = a_shape
+    return 2 * n * m * k * b_shape[2]
+
+
 @contextmanager
 def count(inputs=None) -> Iterator[Counts]:
     """Count the step run inside the block (module doc); ``inputs``: the
@@ -190,7 +199,8 @@ def count(inputs=None) -> Iterator[Counts]:
     for t in _tensors(inputs):
         live.add(t)
     counts.input_bytes = live.now
-    flop_mode = FlopCounterMode(display=False)
+    flop_mode = FlopCounterMode(display=False,
+                                custom_mapping={_aten.bmm: _bmm_flop})
     _ACTIVE.append(counts)
     try:
         with record() as stats, flop_mode, _Mode(counts, live):

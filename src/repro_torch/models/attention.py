@@ -275,21 +275,116 @@ def _mask_bias(q_pos, kv_pos, window: Optional[int], causal: bool):
     return torch.where(valid, 0.0, NEG_INF).float()
 
 
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The batched product a [N,M,K] @ b [N,K,P] -> f32 [N,M,P], every
+    product of two operands exact and summed in f32: the reference's
+    ``preferred_element_type=jnp.float32``.  On the card and on ``meta``
+    two bf16 / f16 operands go to ``bmm``'s ``out_dtype`` form as they
+    are; the CPU has no such form and multiplies f32 copies (whose
+    products are the same exact ones).  Operands of other or mixed dtypes
+    are multiplied as f32.  Not differentiable (``bmm.dtype`` has no
+    backward): ``_ScoresF32`` and ``_ValuesF32`` are."""
+    dev = a.device.type
+    if dev not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"f32_product: no route for device {a.device}")
+    if dev != "cpu" and a.dtype == b.dtype and a.dtype in _LOW:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class _ScoresF32(torch.autograd.Function):
+    """q [N,M,d] @ kT [N,d,Sk] -> f32 scores (``f32_product``).  The
+    backward multiplies the f32 cotangent by f32 copies of the small
+    operands and casts each gradient to its operand's dtype, as the
+    reference's transpose of ``preferred_element_type`` does (the same
+    exact products, summed in f32)."""
+
+    @staticmethod
+    def forward(ctx, q, kt):
+        ctx.save_for_backward(q, kt)
+        return f32_product(q, kt)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, kt = ctx.saved_tensors
+        gq = gk = None
+        if ctx.needs_input_grad[0]:
+            gq = f32_product(g, kt.transpose(1, 2)).to(q.dtype)
+        if ctx.needs_input_grad[1]:
+            gk = f32_product(q.transpose(1, 2), g).to(kt.dtype)
+        return gq, gk
+
+
+class _ValuesF32(torch.autograd.Function):
+    """probs [N,M,Sk] (f32, cast to v's dtype here) @ v [N,Sk,dv] -> f32
+    (``f32_product``).  The backward keeps the probabilities' cotangent
+    in f32 (the reference's transpose rounds it to v's dtype and its
+    cast's transpose back to f32: a pair XLA fuses away, which eager
+    would run over the whole score tensor twice), and forms v's from the
+    output's cotangent cast to v's dtype: exact where the output is cast
+    to that dtype after the product, as the model's attention casts it
+    to q's (q, k and v share the activation dtype)."""
+
+    @staticmethod
+    def forward(ctx, probs, v):
+        p = probs.to(v.dtype)
+        ctx.save_for_backward(p, v)
+        return f32_product(p, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, v = ctx.saved_tensors
+        gp = gv = None
+        if ctx.needs_input_grad[0]:
+            gp = f32_product(g, v.transpose(1, 2))
+        if ctx.needs_input_grad[1]:
+            gv = f32_product(p.transpose(1, 2), g.to(v.dtype)).to(v.dtype)
+        return gp, gv
+
+
+def _scores_f32(qg, k):
+    """qg [B,Sq,Hkv,g,d] . k [B,Sk,Hkv,d] -> f32 scores [B,Hkv,g,Sq,Sk]
+    of the operands as stored (``_ScoresF32``)."""
+    b, sq, hkv, g, d = qg.shape
+    s = _ScoresF32.apply(
+        qg.permute(0, 2, 3, 1, 4).reshape(b * hkv, g * sq, d),
+        k.to(qg.dtype).permute(0, 2, 3, 1).reshape(b * hkv, d, k.shape[1]))
+    return s.reshape(b, hkv, g, sq, k.shape[1])
+
+
+def _values_f32(probs, v):
+    """probs [B,Hkv,g,Sq,Sk] (cast to v's dtype) . v [B,Sk,Hkv,dv] -> f32
+    [B,Sq,Hkv,g,dv] (``_ValuesF32``)."""
+    b, hkv, g, sq, sk = probs.shape
+    o = _ValuesF32.apply(
+        probs.reshape(b * hkv, g * sq, sk),
+        v.permute(0, 2, 1, 3).reshape(b * hkv, sk, v.shape[-1]))
+    return o.reshape(b, hkv, g, sq, v.shape[-1]).permute(0, 3, 1, 2, 4)
+
+
 def _sdpa(q, k, v, bias, scale: float, compute_dtype: str = "f32"):
-    """Grouped-query attention: q [B,Sq,Hq,d], k/v [B,Sk,Hkv,d]."""
+    """Grouped-query attention: q [B,Sq,Hq,d], k/v [B,Sk,Hkv,d].
+
+    ``compute_dtype="bf16_accum32"`` keeps the operands in their storage
+    dtype and forms the scores and the output in f32 (``f32_product``), as
+    the reference's ``preferred_element_type``; the probabilities are cast
+    to v's dtype for the second product."""
     b, sq, hq, dq = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     # standard GQA head mapping: q head h uses kv head h // g (kv-major)
     qg = q.reshape(b, sq, hkv, g, dq)
     if compute_dtype == "bf16_accum32":
-        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(qg.dtype)).float()
+        scores = _scores_f32(qg, k)
     else:
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
     scores = scores * scale + bias[:, None]              # [B,Hkv,g,Sq,Sk]
     probs = torch.softmax(scores, dim=-1)
     if compute_dtype == "bf16_accum32":
-        out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v).float()
+        out = _values_f32(probs, v)
     else:
         out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
     return out.reshape(b, sq, hq, v.shape[-1]).to(q.dtype)
@@ -318,6 +413,14 @@ def _decode_attend_seqshard(cfg: ModelConfig, q, k_new, v_new, pos_b, cache,
     output the plain softmax's bits).  Masking needs no special case: it
     is derived from the stored absolute positions (a rank with no visible
     slot gets weight e^{-1e30 - m*} = 0).
+
+    ``"bf16_accum32"`` casts probabilities to v's dtype before the second
+    product, so the ranks merge before it: m* and the global sum first,
+    then each rank's slots' probabilities e^{s-m*} / psum(l), cast, and
+    the products summed over ``model`` -- the probabilities ``_sdpa``
+    casts, up to the order of the f32 sums (the reference casts each
+    rank's unnormalized e^{s-m}, which rounds otherwise).  The same three
+    collectives as ``"f32"``'s.
     """
     from repro_torch.sharding import comm
     _write_step(cache["k"], k_new, pos_b, shard)
@@ -330,17 +433,19 @@ def _decode_attend_seqshard(cfg: ModelConfig, q, k_new, v_new, pos_b, cache,
     hkv = k_l.shape[2]
     qg = q.reshape(b, 1, hkv, hq // hkv, dq)   # q head h -> kv head h // g
     scale = 1.0 / cfg.head_dim_ ** 0.5
-    # the scores and the local softmax as ``_sdpa`` computes them
     if compute_dtype == "bf16_accum32":
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_l.to(qg.dtype)).float()
-    else:
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_l.float())
+        # the global softmax's probabilities of the rank's slots
+        s = _scores_f32(qg, k_l) * scale + bias[:, None]  # [B,hkv,g,1,S_loc]
+        m = comm.pmax(s.amax(dim=-1), mesh, "model")      # [B,hkv,g,1]
+        e = torch.exp(s - m[..., None])
+        l = comm.psum(e.sum(dim=-1), mesh, "model")
+        out = comm.psum(_values_f32(e / l[..., None], v_l), mesh, "model")
+        return out.reshape(b, 1, hq, v_l.shape[-1]).to(q.dtype)
+    # the scores and the local softmax as ``_sdpa`` computes them
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k_l.float())
     s = s * scale + bias[:, None]                         # [B,hkv,g,1,S_loc]
     p = torch.softmax(s, dim=-1)
-    if compute_dtype == "bf16_accum32":
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_l.dtype), v_l).float()
-    else:
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_l.float())
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_l.float())
     m = s.amax(dim=-1)                                    # [B,hkv,g,1]
     l = torch.exp(s - m[..., None]).sum(dim=-1)
     w = l * torch.exp(m - comm.pmax(m, mesh, "model"))

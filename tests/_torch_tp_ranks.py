@@ -20,6 +20,11 @@ DECODE_STEPS = 2
 SEQ_SHARD_LEN = 20
 PROMPT_LENS, MAX_NEW = (5, 16, 9, 12), 6
 BATCH_SEED, PROMPT_SEED = 3, 4
+#: ``attn_decode``'s step: rows, q heads, kv heads, head dim,
+#: each row's position (the slots before it hold its earlier tokens), the
+#: windows, and the seed of its inputs
+ATTN_ROWS, ATTN_HEADS, ATTN_KV_HEADS, ATTN_HD = 4, 8, 2, 32
+ATTN_POS, ATTN_WINDOWS, ATTN_SEED = (19, 12, 7, 3), (None, 8), 5
 
 
 def configs():
@@ -171,6 +176,57 @@ def seq_shard_steps(params, cfg, mesh):
     return out
 
 
+def attn_cfg(window):
+    """The config ``attn_decode`` reads (head dim, window)."""
+    from repro_torch.configs import get_config
+    return get_config("qwen3-moe-235b-a22b").reduced().with_(
+        num_heads=ATTN_HEADS, num_kv_heads=ATTN_KV_HEADS, head_dim=ATTN_HD,
+        sliding_window=window)
+
+
+def attn_inputs():
+    """One decode step's inputs from ``ATTN_SEED``: q [B,1,H,hd] in f32,
+    the new k / v [B,1,Hkv,hd] and a whole contiguous cache of
+    SEQ_SHARD_LEN slots in bf16 (slot i of row b holds position i below
+    the row's position, else -1), the positions [B].  q stays f32 so that
+    the output is not rounded: the two decodes' bf16 step is the cast of
+    the probabilities."""
+    rng = np.random.default_rng(ATTN_SEED)
+    b, s = ATTN_ROWS, SEQ_SHARD_LEN
+
+    def draw(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32))
+    q = draw(b, 1, ATTN_HEADS, ATTN_HD, scale=2.0)
+    k_new, v_new = (draw(b, 1, ATTN_KV_HEADS, ATTN_HD).bfloat16()
+                    for _ in range(2))
+    pos = torch.tensor(ATTN_POS, dtype=torch.int32)
+    slots = torch.arange(s, dtype=torch.int32).expand(b, s)
+    cache = {"k": draw(b, s, ATTN_KV_HEADS, ATTN_HD, scale=2.0).bfloat16(),
+             "v": draw(b, s, ATTN_KV_HEADS, ATTN_HD).bfloat16(),
+             "pos": torch.where(slots < pos[:, None], slots, -1)}
+    return q, k_new, v_new, pos, cache
+
+
+def attn_decode(window, mesh=None):
+    """``attn_inputs``' decode step in ``"bf16_accum32"`` through the
+    port's decode attention (``_gqa_core``, no rope) -> out [B,1,H,hd]:
+    on the whole cache, or under ``mesh`` on the rank's sequence block
+    (``_decode_attend_seqshard``)."""
+    from repro_torch.models.attention import _gqa_core, _seq_shard
+    q, k_new, v_new, pos, cache = attn_inputs()
+    shard = None
+    if mesh is not None:
+        m, r = mesh.shape["model"], mesh.axis_index("model")
+        n = SEQ_SHARD_LEN // m
+        cache = {k: t[:, r * n:(r + 1) * n].clone() for k, t in cache.items()}
+        shard = _seq_shard(mesh, cache)
+    out, _ = _gqa_core(attn_cfg(window), q, k_new, v_new, pos, mode="decode",
+                       cache=cache, compute_dtype="bf16_accum32",
+                       shard=shard, seq_shard_mesh=mesh, rope=False)
+    return out
+
+
 def serve(params, cfg, mesh=None):
     from repro_torch.serving import Engine
     eng = Engine(cfg, params, device="cpu", mesh=mesh, graphs=False,
@@ -255,6 +311,9 @@ def _checks(mesh, out):
         }
         if tag == "mla":
             out[tag]["seq_shard"] = seq_shard_steps(lp, cfg, mesh)
+    with torch.no_grad():
+        out["bf16_seq_shard"] = {w: attn_decode(w, mesh)
+                                 for w in ATTN_WINDOWS}
 
 
 def _refusals(mesh, out):

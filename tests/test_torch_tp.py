@@ -22,6 +22,11 @@ sums of [B, S] over ``model``; ``models.tp.xent``), and a sum over
 ``model`` notes its backward's sum (the mamba stacks' gated norm).  At
 one rank the vocab-parallel loss is the whole-vocab one bit for bit.
 
+A decode step in ``attn_compute_dtype="bf16_accum32"`` (q f32, a bf16
+cache; ``_torch_tp_ranks.attn_decode``) runs under
+``decode_kv_seq_shard`` on the ranks' sequence blocks, against the
+port's unsharded decode and the reference's, 1e-5 each.
+
 Tolerances: losses and logits 1e-5 against the port (the same products in
 other blocks and orders), 2e-4 against JAX; gradients 1e-4 relative to
 each leaf's largest entry (sums over four ranks in another order);
@@ -326,3 +331,38 @@ def test_mesh_refusals(world, tag, match):
         return
     assert got is not None, f"{tag}: nothing raised"
     assert match in got[1], got
+
+
+def _jax_attn_decode(window):
+    """``ranks.attn_decode``'s step through the reference: the new token
+    written at its slot, then ``_sdpa`` in ``"bf16_accum32"`` over the
+    whole cache."""
+    import jax.numpy as jnp
+    from repro.models.attention import _mask_bias, _sdpa
+    q, k_new, v_new, pos, cache = ranks.attn_inputs()
+    rows = np.arange(ranks.ATTN_ROWS)
+    slot = pos.numpy() % ranks.SEQ_SHARD_LEN
+    k, v, kv_pos = (cache[n].float().numpy() for n in ("k", "v", "pos"))
+    k[rows, slot], v[rows, slot] = k_new[:, 0].float(), v_new[:, 0].float()
+    kv_pos = kv_pos.astype(np.int32)
+    kv_pos[rows, slot] = pos.numpy()
+    bias = _mask_bias(jnp.asarray(pos.numpy())[:, None], jnp.asarray(kv_pos),
+                      window, True)
+    out = _sdpa(jnp.asarray(q.numpy()), jnp.asarray(k, jnp.bfloat16),
+                jnp.asarray(v, jnp.bfloat16), bias, ranks.ATTN_HD ** -0.5,
+                "bf16_accum32")
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("window", ranks.ATTN_WINDOWS)
+def test_bf16_accum32_decode_under_seq_shard(world, window):
+    """C11: a decode step in ``"bf16_accum32"`` (q f32, a bf16 cache)
+    under ``decode_kv_seq_shard`` on the four ranks within 1e-5 of the
+    port's unsharded decode: the ranks merge the max and the sum before
+    the probabilities are cast to bf16, so both cast the same ones (up to
+    the f32 sums' order); and the unsharded decode within 1e-5 of the
+    reference's, which casts the same probabilities."""
+    out, _ = world
+    one = ranks.attn_decode(window)
+    _close(out["bf16_seq_shard"][window], one, rtol=0, atol=1e-5)
+    _close(one, _jax_attn_decode(window), rtol=0, atol=1e-5)

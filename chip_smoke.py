@@ -52,7 +52,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               prefill (a warm-up wave of the same requests first, so the
               measured serve replays a graph for every step), search a
               LExI plan on the card (Alg. 1 through the ``moe_gmm`` kernel,
-              then the DP search), register it and serve again (after a
+              a CUDA graph a MoE layer, then the DP search; then Alg. 1
+              again with SENS_ITERS draws graphed, eager, graphed: one
+              ``sensitivity`` line, every table bit for bit the eager one,
+              seconds each), register it and serve again (after a
               wave that captures the plan's keys); each serve again on an
               eager engine (equal greedy tokens, equal launch counts);
               then ``serve_mixed``: the same 8 requests, alternating base
@@ -215,14 +218,21 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               not fit), bf16, random weights from seed 0, trained
               ``training.train`` on its own ``dense`` impl through the
               plain paths: 6 AdamW steps on 4 x 512 tokens of the
-              Zipf-Markov stream (loss, grad norm and wall ms each);
-              forward+backward and the optimizer timed apart on the
-              device, tokens/s, the data pipeline's seconds a batch, peak
-              memory against 12 B a parameter; a step with
-              ``use_moe_kernel`` refused (no kernel has a backward);
-              held-out perplexity on the trained weights through
-              ``moe_ffn`` and ``flash_attention`` within LOG_PPL_TOL (log
-              ppl) of the plain paths' -- this phase's kernel path; one
+              Zipf-Markov stream (loss, grad norm and wall ms each),
+              twice eagerly and once as a CUDA graph (the default: the
+              first step eager, five replays), the graphed run held to
+              the eager one by ``train_gate`` (within WITNESS_RATIO of the
+              two eager runs' distance: bits where they are equal), each
+              run's peak memory; forward+backward and the optimizer timed
+              apart on the device, eagerly and each as a graph, tokens/s,
+              the data pipeline's seconds a batch, peak memory against 12
+              B a parameter; a step with ``use_moe_kernel`` refused (no
+              kernel has a backward); held-out perplexity on the trained
+              weights through ``moe_ffn`` and ``flash_attention``,
+              graphed (one graph for the batch shape) bit for bit the
+              eager one and within LOG_PPL_TOL (log ppl) of the plain
+              paths' -- this phase's kernel path; one eval batch timed
+              graphed and eager; one
               step under ``remat="full"`` from the same init: the first
               step's loss bit for bit, its forward+backward at a lower
               peak.
@@ -258,11 +268,17 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               steps with no mesh; (b) one ``make_train_step(mesh=)`` step
               of a depth-4 OLMoE with ``fsdp_params``, ZeRO-1 and
               ``remat_chunk`` 2, bit for bit equal to the no-mesh step
-              with per-layer remat (loss and every leaf); (c)
-              ``Engine(mesh=)`` with ``graphs`` at its default serving 8
-              requests paged, eagerly (the default on a mesh; no graph
-              captured; ``ep_a2a`` chunks, ``ep_psum`` decode; B4, B9),
-              greedy tokens equal to the no-mesh eager engine's; (e)
+              with per-layer remat (loss and every leaf), then
+              MESH_TRAIN_STEPS steps eagerly and as a CUDA graph (NCCL
+              inside), held to ``train_gate``, collectives equal; (c)
+              ``Engine(mesh=)`` serving 8 requests paged in two waves
+              eagerly (``graphs=False``) and with ``graphs`` at its
+              default (CUDA graphs with their NCCL collectives: the first
+              wave captures, the second replays; ``ep_a2a`` chunks,
+              ``ep_psum`` decode; B4, B9), each wave's greedy tokens
+              equal to each other and to the no-mesh eager engine's same
+              wave, the graphed waves' collectives and launches the eager
+              waves'; (e)
               DeepSeek-V2-Lite at full width cut to MLA_MESH's layers: a
               chunk prefill into a paged pool and one decode step under
               ``decode_kv_seq_shard`` (the MLA layers attend their whole
@@ -3358,6 +3374,48 @@ def ssm_encdec_phase(device, t_start):
 
 
 # --------------------------------------------------------------------------- #
+# phase 3 (after the search): Alg. 1 graphed and eager
+# --------------------------------------------------------------------------- #
+
+#: Monte-Carlo draws a layer of the sensitivity check (the search's own
+#: profile takes 4)
+SENS_ITERS = 8
+
+
+def sensitivity_check(params, cfg, device, t_start):
+    """Alg. 1 on full-width OLMoE on ``gmm`` through B1
+    (``profile_sensitivity``, SENS_ITERS draws of 2 x 32 tokens a layer,
+    the search's profile shape) with ``graphs`` at its default (a CUDA
+    graph a MoE layer, captured in each call) and eagerly, in turns
+    (graphed, eager, graphed): every table bit for bit the eager one, the
+    launches equal; the seconds of each call.  Returns the launch
+    needs."""
+    from repro_torch.core import profile_sensitivity
+    runs = []
+    for graphs in (None, False, None):
+        t0 = time.perf_counter()
+        table, counts = counted(lambda: profile_sensitivity(
+            params, cfg, n_iter=SENS_ITERS, batch=2, seq=32, seed=0,
+            device=device, use_kernel=True, graphs=graphs))
+        runs.append((graphs, time.perf_counter() - t0, table.values,
+                     counts))
+    want = runs[1][2]
+    for graphs, _, values, counts in runs:
+        if not np.array_equal(values, want) or counts != runs[1][3]:
+            raise AssertionError(f"sensitivity graphs={graphs}: table "
+                                 f"{values} against eager {want}; launches "
+                                 f"{counts} against {runs[1][3]}")
+    emit({"phase": "sensitivity", "layers": cfg.num_layers,
+          "n_iter": SENS_ITERS, "tokens": 64,
+          "target_topks": cfg.moe_top_k, "table_bits_equal": True,
+          "graphed_s": [r[1] for r in runs if r[0] is None],
+          "eager_s": runs[1][1], "launches": runs[1][3],
+          "seconds_total": time.perf_counter() - t_start})
+    return {"sensitivity": (runs[0][3], ("moe_gmm",)),
+            "sensitivity_eager": (runs[1][3], ("moe_gmm",))}
+
+
+# --------------------------------------------------------------------------- #
 # phases 10-12: training and held-out evaluation
 # --------------------------------------------------------------------------- #
 
@@ -3370,6 +3428,8 @@ TRAIN_STEPS = 6
 #: paths' on the same trained weights (bf16 rounding of the kernels'
 #: hidden and of P moves a token's log-likelihood by about 1e-3)
 LOG_PPL_TOL = 1e-2
+#: held-out batches of the train phase's evals (one eager, two replays)
+EVAL_STEPS = 3
 
 
 def _reset_peak(device) -> None:
@@ -3382,6 +3442,13 @@ def _peak_gb(device):
     if device.type != "cuda":
         return None
     return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def _allocated_gb(device):
+    """Device memory allocated now (None off the card)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.memory_allocated(device) / 1e9
 
 
 def _timed(fn, device):
@@ -3398,6 +3465,63 @@ def _timed(fn, device):
     t0 = time.perf_counter()
     out = fn()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def graphed_against_eager(tag, fn, device, reps: int = 5) -> dict:
+    """``fn()`` (a tensor) timed eagerly and as a CUDA graph replay
+    (``reps`` each, in turns, CUDA events; the graph captured after an
+    eager call on its stream): {tag_ms, tag_eager_ms} medians; every
+    replay's output bit for bit the eager call's."""
+    from repro_torch.kernels import _graphs
+    stream = _graphs.side_stream(device)
+    want = _graphs.on_stream(fn, stream).clone()
+    graph = _graphs.capture(fn, stream=stream,
+                            pool=torch.cuda.graph_pool_handle())
+    graphed, eager = [], []
+    for _ in range(reps):
+        got, ms = _timed(graph.replay, device)
+        graphed.append(ms)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{tag}: a replay {got} against the eager "
+                                 f"call's {want}")
+        eager.append(_timed(fn, device)[1])
+    return {f"{tag}_ms": statistics.median(graphed),
+            f"{tag}_eager_ms": statistics.median(eager)}
+
+
+def graphed_split_steps(state, grads_of, opt, b, device) -> dict:
+    """Forward+backward and the optimizer of the train step, each as a
+    CUDA graph on the batch ``b`` (one memory pool, each part run once
+    eagerly on the capture stream first), timed over 3 replays each in
+    turns; the optimizer's graph reads the step's scalars from a device
+    tensor (``AdamW.scalars``) and updates the state in place."""
+    from repro_torch.kernels import _graphs
+    stream = _graphs.side_stream(device)
+    pool = torch.cuda.graph_pool_handle()
+
+    def fb():
+        return grads_of(state.params, b)
+    _graphs.on_stream(fb, stream)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    g_fb = _graphs.capture(fb, stream=stream, pool=pool)
+    grads = g_fb.output[2]
+    scalars = opt.scalars(state.opt.step + 1).to(device)
+
+    def up():
+        return opt.step_(grads, state.opt, state.params, scalars)
+    _graphs.on_stream(up, stream)
+    g_up = _graphs.capture(up, stream=stream, pool=pool)
+    fb_ms, up_ms = [], []
+    for _ in range(3):
+        fb_ms.append(_timed(g_fb.replay, device)[1])
+        up_ms.append(_timed(g_up.replay, device)[1])
+    del g_fb, g_up, grads
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    return {"graphed_fwd_bwd_ms": fb_ms, "graphed_optimizer_ms": up_ms,
+            "graphed_fwd_bwd_ms_median": statistics.median(fb_ms),
+            "graphed_optimizer_ms_median": statistics.median(up_ms)}
 
 
 def _saved_gb(cfg, params, batch, opts, device):
@@ -3419,20 +3543,50 @@ def _saved_gb(cfg, params, batch, opts, device):
     return saved
 
 
+def train_distance(losses, params, ref_losses, ref_params) -> dict:
+    """Two runs of the same steps apart: the largest loss difference, and
+    the largest error of a param leaf over that leaf's largest entry."""
+    if len(losses) != len(ref_losses) or len(params) != len(ref_params):
+        raise AssertionError(f"runs of {len(losses)} and {len(ref_losses)} "
+                             "steps")
+    leaf = 0.0
+    for a, b in zip(params, ref_params):
+        leaf = max(leaf, ((a.float() - b.float()).abs().max()
+                          / b.float().abs().max().clamp(min=1e-30)).item())
+    return {"loss": max(abs(a - b) for a, b in zip(losses, ref_losses)),
+            "leaf_rel": leaf}
+
+
+def train_gate(dist, eager_eager=None) -> bool:
+    """The gate a graphed train step is held to against the eager one:
+    within WITNESS_RATIO of ``eager_eager``, the distance between two
+    eager runs of the same steps (``train_phase`` measures it): bits where
+    they are bitwise equal, and where it was not measured."""
+    ee = eager_eager or {k: 0.0 for k in dist}
+    return all(dist[k] <= WITNESS_RATIO * ee[k] for k in dist)
+
+
 def train_phase(cfg, device, t_start, steps: int = TRAIN_STEPS,
                 batch: int = 4, seq: int = 512):
     """``train`` on the plain paths (the config's own ``dense`` impl) for
-    ``steps`` AdamW steps of ``batch`` x ``seq`` Zipf-Markov tokens; then,
+    ``steps`` AdamW steps of ``batch`` x ``seq`` Zipf-Markov tokens, twice
+    eagerly (``graphs=False``) and once with ``graphs`` at its default
+    (the first step eager, the others replays of one CUDA graph): the
+    graphed run held to the first eager one by ``train_gate``, whose
+    distance the two eager runs set; each run's step ms and peak.  Then,
     on the trained state, forward+backward and the optimizer timed apart
-    (3 more steps); a train step with ``use_moe_kernel`` refused; held-out
-    perplexity through ``moe_ffn`` and ``flash_attention`` within
-    LOG_PPL_TOL of the plain paths'; one step from the same init under
-    ``remat="full"``: the first step's loss bit for bit, its
-    forward+backward at a lower peak, and fewer activations kept by its
-    forward for the backward than without (``dots`` read beside them).
-    Returns the launch needs of the kernel eval."""
+    (3 more steps), eagerly and each as a CUDA graph; a train step with
+    ``use_moe_kernel`` refused; held-out perplexity through ``moe_ffn``
+    and ``flash_attention`` graphed bit for bit the eager one's, within
+    LOG_PPL_TOL of the plain paths'; one eval batch timed graphed and
+    eager; one step from the same init under ``remat="full"``: the first
+    step's loss bit for bit, its forward+backward at a lower peak, and
+    fewer activations kept by its forward for the backward than without
+    (``dots`` read beside them).  Returns (the launch needs of the kernel
+    eval, the two eager runs' distance)."""
     import gc
     import math
+    from repro_torch import models
     from repro_torch.data import DataConfig, sample_batch, to_device
     from repro_torch.models import ModelOpts
     from repro_torch.optim import AdamW
@@ -3441,16 +3595,44 @@ def train_phase(cfg, device, t_start, steps: int = TRAIN_STEPS,
     from repro_torch.tree import leaves
     dc = DataConfig(cfg.vocab_size, seq, batch, seed=0)
     opt = AdamW(total_steps=steps, warmup_steps=2)
-    _reset_peak(device)
-    t0 = time.perf_counter()
-    res = train(cfg, dc, total_steps=steps, optimizer=opt, seed=0,
-                device=device)
-    train_s = time.perf_counter() - t0
-    peak = _peak_gb(device)
-    if not (np.isfinite(res.losses).all() and np.isfinite(res.grad_norms)
-            .all() and len(res.losses) == steps):
-        raise AssertionError(f"train: losses {res.losses}, grad norms "
-                             f"{res.grad_norms}")
+
+    def run(graphs):
+        base = (torch.cuda.memory_allocated(device)
+                if device.type == "cuda" else 0)
+        _reset_peak(device)
+        t0 = time.perf_counter()
+        res = train(cfg, dc, total_steps=steps, optimizer=opt, seed=0,
+                    device=device, graphs=graphs)
+        secs = time.perf_counter() - t0
+        peak = _peak_gb(device)
+        if not (np.isfinite(res.losses).all() and np.isfinite(
+                res.grad_norms).all() and len(res.losses) == steps):
+            raise AssertionError(f"train: losses {res.losses}, grad norms "
+                                 f"{res.grad_norms}")
+        return res, secs, None if peak is None else peak - base / 1e9
+
+    # two eager runs (the first one's params kept), then the graphed one
+    eager, eager_s, eager_peak = run(False)
+    eager_params = leaves(eager.state.params)
+    eager_rec = {"losses": eager.losses,
+                 "step_ms": [t * 1e3 for t in eager.step_times]}
+    del eager
+    again, _, _ = run(False)
+    ee = train_distance(again.losses, leaves(again.state.params),
+                        eager_rec["losses"], eager_params)
+    del again
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    res, train_s, peak = run(None)
+    ge = train_distance(res.losses, leaves(res.state.params),
+                        eager_rec["losses"], eager_params)
+    del eager_params
+    replays = steps - 1 if device.type == "cuda" else 0
+    if res.graph_replays != replays or not train_gate(ge, ee):
+        raise AssertionError(f"train graphed: {res.graph_replays} replays, "
+                             f"distance {ge} to eager against {ee} x "
+                             f"{WITNESS_RATIO}")
     n_params = sum(p.numel() for p in leaves(res.state.params))
     state = res.state
     step_ms = [t * 1e3 for t in res.step_times]
@@ -3462,15 +3644,23 @@ def train_phase(cfg, device, t_start, steps: int = TRAIN_STEPS,
            "steps": [{"loss": l, "grad_norm": g, "wall_ms": t}
                      for l, g, t in zip(res.losses, res.grad_norms,
                                         step_ms)],
-           "train_s": train_s,
+           "train_s": train_s, "graph_replays": res.graph_replays,
+           "eager_steps_wall_ms": eager_rec["step_ms"],
+           "eager_train_s": eager_s,
+           "eager_step_ms_median": statistics.median(
+               eager_rec["step_ms"][1:]),
+           "gate": {"graphed_vs_eager": ge, "eager_vs_eager": ee,
+                    "ratio": WITNESS_RATIO},
            "data_s_per_batch": res.data_s_per_batch}
     del res
 
-    # the step in two parts, each timed on the device, on the trained state
+    # the step in two parts, each timed on the device, on the trained
+    # state: eagerly, then each part as a CUDA graph
     grads_of = value_and_grad(cfg)
 
     def split_step(state, i):
         b = to_device(sample_batch(dc, i), device)
+        rec["fwd_bwd_base_gb"] = _allocated_gb(device)
         _reset_peak(device)
         (_, _, grads), fb = _timed(lambda: grads_of(state.params, b), device)
         peak_fb = _peak_gb(device)
@@ -3490,8 +3680,10 @@ def train_phase(cfg, device, t_start, steps: int = TRAIN_STEPS,
                fwd_bwd_ms=fb_ms, optimizer_ms=opt_ms,
                tokens_per_s=batch * seq / (med_step / 1e3),
                data_s_per_step_s=rec["data_s_per_batch"] / (med_step / 1e3),
-               peak_gb=peak, fwd_bwd_peak_gb=peak_fb,
-               state_gb_12b=12 * n_params / 1e9)
+               peak_gb=peak, eager_peak_gb=eager_peak,
+               fwd_bwd_peak_gb=peak_fb, state_gb_12b=12 * n_params / 1e9)
+    if device.type == "cuda":
+        rec.update(graphed_split_steps(state, grads_of, opt, b, device))
 
     # no kernel under autograd
     try:
@@ -3504,17 +3696,33 @@ def train_phase(cfg, device, t_start, steps: int = TRAIN_STEPS,
     else:
         raise AssertionError("train: a step with use_moe_kernel ran")
 
-    # held-out perplexity through the kernels against the plain paths
+    # held-out perplexity through the kernels, graphed (the default: the
+    # first batch eager, the later ones replays) and eagerly, against the
+    # plain paths
     kern = ModelOpts(use_flash=True, use_moe_kernel=True)
     ppl_k, counts = counted(lambda: eval_perplexity(
-        state.params, cfg, dc, steps=2, opts=kern))
-    ppl_p = eval_perplexity(state.params, cfg, dc, steps=2)
+        state.params, cfg, dc, steps=EVAL_STEPS, opts=kern))
+    ppl_e, counts_e = counted(lambda: eval_perplexity(
+        state.params, cfg, dc, steps=EVAL_STEPS, opts=kern, graphs=False))
+    if ppl_k != ppl_e or counts != counts_e:
+        raise AssertionError(f"train eval: graphed ppl {ppl_k!r} against "
+                             f"eager {ppl_e!r}; launches {counts} against "
+                             f"{counts_e}")
+    ppl_p = eval_perplexity(state.params, cfg, dc, steps=EVAL_STEPS)
     dlog = abs(math.log(ppl_k) - math.log(ppl_p))
     if not dlog <= LOG_PPL_TOL:
         raise AssertionError(f"train eval: ppl {ppl_k} through the kernels "
                              f"against {ppl_p} plain")
-    rec.update(eval_ppl_kernels=ppl_k, eval_ppl_plain=ppl_p,
+    rec.update(eval_ppl_kernels=ppl_k, eval_ppl_kernels_eager=ppl_e,
+               eval_ppl_graphed_equal_eager=True, eval_ppl_plain=ppl_p,
                eval_log_ppl_diff=dlog, eval_launches=counts)
+    if device.type == "cuda":
+        eb = to_device(sample_batch(dc, 10_000), device)
+        with torch.no_grad():
+            rec.update(graphed_against_eager(
+                "eval_batch", lambda: models.loss_fn(
+                    state.params, cfg, eb, opts=kern)[1]["xent"], device))
+        del eb
     del state, b
     gc.collect()
     if device.type == "cuda":
@@ -3527,6 +3735,7 @@ def train_phase(cfg, device, t_start, steps: int = TRAIN_STEPS,
     b = to_device(sample_batch(dc, 0), device)
     saved = {r: _saved_gb(cfg, st.params, b, ModelOpts(remat=r), device)
              for r in ("none", "full", "dots")}
+    rec["remat_full_base_gb"] = _allocated_gb(device)
     _reset_peak(device)
     loss, _, grads = value_and_grad(cfg, opts=ModelOpts(remat="full"))(
         st.params, b)
@@ -3548,7 +3757,7 @@ def train_phase(cfg, device, t_start, steps: int = TRAIN_STEPS,
     emit(rec)
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    return {"train_eval": (counts, ("moe_ffn", "flash_attention"))}
+    return {"train_eval": (counts, ("moe_ffn", "flash_attention"))}, ee
 
 
 QUALITY_STEPS = 200
@@ -3640,6 +3849,8 @@ MESH_LOSS_TOL = 1e-5
 #: decode steps of the context-parallel check, and its prompt length
 MESH_DECODE_STEPS = 8
 MESH_PROMPT = 256
+#: the mesh train step's steps, eager and graphed
+MESH_TRAIN_STEPS = 3
 
 
 def card_line() -> str:
@@ -3807,13 +4018,19 @@ def mesh_paths(mesh, device, cfg, params, lp, batch, plan, rec):
     return need
 
 
-def mesh_train_check(mesh, device, rec):
-    """(b) one train step of a depth-4, full-width OLMoE under the mesh
-    with ``fsdp_params``, ZeRO-1 and ``remat_chunk`` 2 (its 4 layers in
-    two checkpointed chunks), against the no-mesh step with per-layer
-    remat on the same batch (plain paths: no kernel has a backward): the
-    loss and every leaf of the state bit for bit."""
+def mesh_train_check(mesh, device, rec, eager_eager=None):
+    """(b) train steps of a depth-4, full-width OLMoE under the mesh with
+    ``fsdp_params``, ZeRO-1 and ``remat_chunk`` 2 (its 4 layers in two
+    checkpointed chunks): the first against the no-mesh step with
+    per-layer remat on the same batch (plain paths: no kernel has a
+    backward), the loss and every leaf of the state bit for bit; then
+    MESH_TRAIN_STEPS steps eagerly and again as a CUDA graph
+    (``make_train_step(graphs=True)``: the first step eager, the later
+    ones replays, the NCCL collectives inside), held to each other by
+    ``train_gate`` on ``eager_eager`` (``train_phase``'s) and their
+    collectives equal."""
     from repro_torch import models
+    from repro_torch.analysis import record
     from repro_torch.configs import get_config
     from repro_torch.models import ModelOpts
     from repro_torch.optim import AdamW
@@ -3832,9 +4049,13 @@ def mesh_train_check(mesh, device, rec):
     shardings = whole_shardings(cfg, mesh, opts)
     state = local_tree(init_state(cfg, opt, 0, device=device), shardings)
     data = Sharding(mesh, ("data",))
+    batches = [{k: data.local(v) for k, v in b.items()} for b in
+               [batch] + [models.make_train_batch(cfg, gen, 4, 512,
+                                                  device=device)
+                          for _ in range(MESH_TRAIN_STEPS - 1)]]
     step = make_train_step(cfg, opt, mesh=mesh, opts=opts)
-    (got, m1), ms = _timed(lambda: step(state, {
-        k: data.local(v) for k, v in batch.items()}), device)
+    with record() as coll_eager:
+        (got, m1), ms = _timed(lambda: step(state, batches[0]), device)
     want = local_tree(want, shardings)         # the rank's block of each
     loss0, loss1 = float(m0["loss"]), float(m1["loss"])
     worst, equal, n = 0.0, 0, 0
@@ -3857,41 +4078,114 @@ def mesh_train_check(mesh, device, rec):
         raise AssertionError(f"mesh train: loss {loss1} against {loss0}, "
                              f"{equal} of {n} leaves bitwise equal (worst "
                              f"{worst})")
+    del want
+
+    def run(step, state, first, coll):
+        losses, times = [first], []
+        with record() as stats:
+            for b in batches[1:]:
+                (state, m), t = _timed(lambda: step(state, b), device)
+                losses.append(float(m["loss"]))
+                times.append(t)
+        for k, c in stats.count_by_kind.items():
+            coll[k] = coll.get(k, 0) + c
+        return state, losses, times
+
+    coll_eager = dict(coll_eager.count_by_kind)
+    got, eager_losses, eager_ms = run(step, got, loss1, coll_eager)
+    eager_params = leaves(got.params)
+    del got, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphed = make_train_step(cfg, opt, mesh=mesh, opts=opts, graphs=True)
+    state = local_tree(init_state(cfg, opt, 0, device=device), shardings)
+    with record() as coll_graphed:
+        state, m = graphed(state, batches[0])
+    coll_graphed = dict(coll_graphed.count_by_kind)
+    state, graphed_losses, graphed_ms = run(graphed, state, float(m["loss"]),
+                                            coll_graphed)
+    dist = train_distance(graphed_losses, leaves(state.params),
+                          eager_losses, eager_params)
+    rec["train_graphed"] = {
+        "steps": MESH_TRAIN_STEPS, "replays": graphed.stats["replays"],
+        "losses": graphed_losses, "eager_losses": eager_losses,
+        "step_ms": graphed_ms, "eager_step_ms": eager_ms,
+        "collectives": coll_graphed, "eager_collectives": coll_eager,
+        "distance": dist, "eager_eager": eager_eager}
+    replays = MESH_TRAIN_STEPS - 1 if device.type == "cuda" else 0
+    if graphed.stats["replays"] != replays or \
+            coll_graphed != coll_eager or not train_gate(dist, eager_eager):
+        raise AssertionError(f"mesh train graphed: {rec['train_graphed']}")
+    del state, graphed, eager_params
 
 
-#: the mesh engine's workload: the 8 requests, fewer new tokens (eager)
+#: the mesh engine's workload: the 8 requests, fewer new tokens (the
+#: eager oracles serve them too), in two waves
 MESH_NEW = 16
 
 
 def mesh_serve_check(mesh, device, cfg, params, lp, rec):
-    """(c) ``Engine(mesh=)`` on the rank's blocks, ``graphs`` at its
-    default, serving the 8 requests paged, eagerly (the default on a
-    mesh: no graph captured), against the no-mesh eager engine on the
-    whole params: greedy tokens equal; the mesh serve launches B4 in
-    decode and B9 in its ``ep_a2a`` chunks and ``ep_psum`` decode steps.
-    Returns the launch needs."""
+    """(c) ``Engine(mesh=)`` on the rank's blocks serving the 8 requests
+    paged in two waves, with ``graphs`` at its default (CUDA graphs, their
+    NCCL collectives inside: the first wave captures every key, the
+    second replays) and with ``graphs=False`` (eager), against the
+    no-mesh eager engine on the whole params, each engine through the
+    same two waves (a pad query attends the stale bytes of its row's
+    recycled pages, so its routing, and the capacity slots it takes,
+    follow the pool's past): each wave's greedy tokens equal on the three
+    engines, more than 0 graphs captured, each graphed wave's collectives
+    (``record()``) and launches the eager wave's; every mesh serve
+    launches B4 in decode and B9 in its ``ep_a2a`` chunks and ``ep_psum``
+    decode steps.  Returns the launch needs."""
     from repro_torch import models
+    from repro_torch.analysis import record
     from repro_torch.serving import Engine
     opts = models.ModelOpts(use_moe_kernel=True, fsdp_params=True)
 
-    def serve(p, **kw):
+    def waves(p, **kw):
         eng = Engine(cfg, p, max_batch=8, max_len=512, prefill_chunk=64,
                      use_kernel=True, opts=opts, device=device, **kw)
-        res, counts = counted(lambda: eng.serve(
-            requests(cfg, seed=0, max_new=MESH_NEW)))
-        return res, counts, serve_record(eng)
+        out = []
+        for _ in range(2):
+            with record() as stats:
+                res, counts = counted(lambda: eng.serve(
+                    requests(cfg, seed=0, max_new=MESH_NEW)))
+            out.append((res, counts, serve_record(eng),
+                        {k: (stats.count_by_kind[k], stats.bytes_by_kind[k])
+                         for k in sorted(stats.count_by_kind)}))
+        return out
 
-    want, c0, _ = serve(params, graphs=False)
-    got, c1, stats = serve(lp, mesh=mesh)
-    if not stats["eager"] or stats["graphs"]:
-        raise AssertionError(f"mesh engine: graphs at their default "
-                             f"captured on a mesh ({stats})")
-    check_results("mesh engine", got, cfg, MESH_NEW)
-    same_tokens("mesh engine vs no mesh", got, want)
-    rec["engine"] = {"requests": len(got), "max_new": MESH_NEW,
+    no_mesh = waves(params, graphs=False)
+    eager = waves(lp, mesh=mesh, graphs=False)
+    graphed = waves(lp, mesh=mesh)
+    (_, _, warm_stats, _), (got, c1, stats, coll) = graphed
+    if stats["eager"] or device.type == "cuda" and (
+            not warm_stats["graphs_captured"] or stats["graphs_captured"]
+            or not stats["graph_replays"]):
+        raise AssertionError(f"mesh engine: graphs at their default did not "
+                             f"capture and replay on the mesh (first wave "
+                             f"{warm_stats}, second {stats})")
+    for w in range(2):
+        want = no_mesh[w][0]
+        for tag, runs in (("eager", eager), ("graphed", graphed)):
+            check_results(f"mesh engine {tag} wave {w}", runs[w][0], cfg,
+                          MESH_NEW)
+            same_tokens(f"mesh engine {tag} wave {w} vs no mesh",
+                        runs[w][0], want)
+        if graphed[w][3] != eager[w][3] or graphed[w][1] != eager[w][1]:
+            raise AssertionError(
+                f"mesh engine wave {w}: graphed collectives {graphed[w][3]}"
+                f", launches {graphed[w][1]} against the eager wave's "
+                f"{eager[w][3]}, {eager[w][1]}")
+    rec["engine"] = {"requests": len(got), "max_new": MESH_NEW, "waves": 2,
                      "tokens_equal": True, "launches": c1,
-                     "no_mesh_launches": c0, **stats}
-    return {"mesh_engine": (c1, ("moe_ffn", "flash_decode_paged"))}
+                     "no_mesh_launches": no_mesh[1][1], "collectives": coll,
+                     "collectives_equal_eager": True,
+                     "first_wave_stats": warm_stats,
+                     "eager_stats": eager[1][2], **stats}
+    return {"mesh_engine": (c1, ("moe_ffn", "flash_decode_paged")),
+            "mesh_engine_eager": (eager[1][1],
+                                  ("moe_ffn", "flash_decode_paged"))}
 
 
 #: (e) DeepSeek-V2-Lite's depth in the MLA check under
@@ -4201,7 +4495,7 @@ def one_rank_mesh():
             dist.destroy_process_group()
 
 
-def mesh_phase(device, t_start, rows, plan):
+def mesh_phase(device, t_start, rows, plan, eager_eager=None):
     """Tensor, expert and data parallelism through the port's entry points
     on a (1, 1) ("data", "model") mesh bound to a one-rank NCCL group
     (``file://`` rendezvous in a temporary directory; the group destroyed
@@ -4223,7 +4517,7 @@ def mesh_phase(device, t_start, rows, plan):
             need.update(mesh_mla_check(mesh, device, rec))
         gc.collect()
         torch.cuda.empty_cache()
-        mesh_train_check(mesh, device, rec)
+        mesh_train_check(mesh, device, rec, eager_eager)
     gc.collect()
     torch.cuda.empty_cache()
     with torch.no_grad():
@@ -4801,6 +5095,7 @@ def main() -> int:
         params, cfg_gmm, budget, method="dp", n_iter=4, profile_batch=2,
         profile_seq=32, seed=0, device=device, use_kernel=True))
     opt_s = time.perf_counter() - t0
+    sens_need = sensitivity_check(params, cfg_gmm, device, t_start)
     eng.add_plan("lexi", plan)
     eng.serve(requests(cfg, seed=0), plan="lexi")     # captures its keys
     lexi_warm = serve_record(eng)
@@ -4842,6 +5137,7 @@ def main() -> int:
             "lexi": (lexi_counts, paged_kernels),
             "lexi_eager": (eager_lexi_counts, paged_kernels),
             "mixed": (mix_counts, paged_kernels)}
+    need.update(sens_need)
     emit({"phase": "serve", "baseline_tok_s": base_rec["tok_s"],
           "lexi_tok_s": lexi_rec["tok_s"], "plan": list(plan.plan),
           "budget": budget, "optimize_s": opt_s,
@@ -4998,13 +5294,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phases 10-12: training and held-out evaluation -----------------
-    need.update(train_phase(cfg.with_(num_layers=TRAIN_LAYERS), device,
-                            t_start))
+    train_need, eager_eager = train_phase(
+        cfg.with_(num_layers=TRAIN_LAYERS), device, t_start)
+    need.update(train_need)
     train_quality_phase(device, t_start)
     train_resume_phase(t_start)
 
     # ---- phase 13: expert parallelism on a one-card mesh ----------------
-    need.update(mesh_phase(device, t_start, rows, olmoe_plan))
+    need.update(mesh_phase(device, t_start, rows, olmoe_plan, eager_eager))
 
     # ---- phase 14: the production dry run on meta, held to the card -----
     need.update(dryrun_phase(device, t_start))

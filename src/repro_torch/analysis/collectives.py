@@ -2,11 +2,13 @@
 ``repro.analysis.hlo``).
 
 The reference parses the compiled, partitioned HLO text of a step for its
-collectives.  The port runs its collectives eagerly, one call at a time,
-through ``sharding/comm.py``, which reports each call here: ``record()``
-is a context manager around port code that yields a ``CollectiveStats``
-filled by every collective issued inside it.  Bytes are per rank and
-follow the reference's operand conventions (``hlo.py``):
+collectives.  The port issues its collectives one call at a time through
+``sharding/comm.py``, which reports each call here: ``record()`` is a
+context manager around port code that yields a ``CollectiveStats`` filled
+by every collective issued inside it.  A step captured as a CUDA graph
+reports its collectives at each replay, as an eager step does at each
+call (``held``).  Bytes are per rank and follow the reference's operand
+conventions (``hlo.py``):
 
     all-reduce          operand == result
     all-to-all          operand == result
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
 _COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                 "collective-permute")
@@ -67,6 +69,8 @@ class CollectiveStats:
 
 #: the stats objects of the ``record()`` blocks open now, innermost last
 _ACTIVE: List[CollectiveStats] = []
+#: the notes held back by the ``held()`` blocks open now, innermost last
+_HELD: List[List[Tuple[str, int, int]]] = []
 #: collectives running now (``transfer``); their own aten work is their
 #: transfer, which ``analysis/counters.py`` leaves out of the HBM bytes
 _DEPTH = [0]
@@ -85,9 +89,27 @@ def record() -> Iterator[CollectiveStats]:
 
 
 def note(kind: str, result_bytes: int, group_size: int = 1) -> None:
-    """Report one collective to every open ``record()`` block."""
+    """Report one collective to every open ``record()`` block, or hold it
+    back inside a ``held()`` block."""
+    if _HELD:
+        _HELD[-1].append((kind, result_bytes, group_size))
+        return
     for stats in _ACTIVE:
         stats.add(kind, result_bytes, group_size)
+
+
+@contextmanager
+def held() -> Iterator[List[Tuple[str, int, int]]]:
+    """Hold back the collectives noted inside the block and yield them, in
+    order, as ``note``'s arguments: a CUDA graph capture runs none of the
+    collectives it records, and each replay of the graph notes them again
+    (``kernels/_graphs.py``)."""
+    notes: List[Tuple[str, int, int]] = []
+    _HELD.append(notes)
+    try:
+        yield notes
+    finally:
+        _HELD.remove(notes)
 
 
 

@@ -8,6 +8,14 @@ perturbation is ``||Y_k - Y_base||_F`` averaged over ``n_iter`` draws.
 
 The per-draw work is ``layer_deltas`` (a function of X), so a test can
 feed it the reference's own X draws: the JAX and torch generators differ.
+
+The reference jits ``layer_deltas``; on the card ``profile_sensitivity``
+runs it as one CUDA graph a MoE layer, on that layer's weights: each draw
+of X comes from the seeded generator outside the graph and is copied into
+the graph's static input, so the draws, and the table's bits, are the
+eager ones (``graphs=False``, the oracle; the CPU always runs eagerly).
+The layer's first draw runs eagerly, the capture follows, and the later
+draws replay.
 """
 
 from __future__ import annotations
@@ -97,9 +105,11 @@ def profile_sensitivity(
     seed: int = 0,
     device=None,
     use_kernel: bool = True,
+    graphs: Optional[bool] = None,
 ) -> SensitivityTable:
     """Run Alg. 1 over every MoE layer; X is drawn on ``device`` from a
-    generator seeded with ``seed``."""
+    generator seeded with ``seed``.  ``graphs`` (None: True): a CUDA graph
+    a layer on the card (module doc)."""
     if not cfg.is_moe:
         raise ValueError(f"{cfg.name} has no MoE layers (LExI inapplicable)")
     if cfg.moe_top_k < 2:
@@ -111,15 +121,40 @@ def profile_sensitivity(
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    graphed = (graphs is None or bool(graphs)) and dev.type == "cuda"
+    if graphed:
+        from repro_torch.kernels import _graphs
+        stream = _graphs.side_stream(dev)
+        pool = torch.cuda.graph_pool_handle()
+        x_in = torch.empty((batch * seq, cfg.d_model),
+                           dtype=activation_dtype(cfg), device=dev)
     layer_ids: List[int] = []
     rows: List[np.ndarray] = []
+    # every layer's graph lives to the end of the call: graphs that share
+    # a memory pool replay one after another, never at once
+    kept = []
     for layer_idx, moe_params in iter_moe_layer_params(params, cfg):
         acc = torch.zeros(len(target_topks), dtype=torch.float64, device=dev)
-        for _ in range(n_iter):
+        graph = None
+
+        def deltas(x, moe_params=moe_params):
+            return layer_deltas(moe_params, cfg, x, target_topks, use_kernel)
+        for i in range(n_iter):
             x = torch.randn((batch * seq, cfg.d_model), generator=gen,
                             device=dev).to(activation_dtype(cfg))
-            acc += layer_deltas(moe_params, cfg, x, target_topks,
-                                use_kernel).double()
+            if not graphed:
+                acc += deltas(x).double()
+                continue
+            x_in.copy_(x)
+            if i == 0:
+                acc += _graphs.on_stream(lambda: deltas(x_in),
+                                         stream).double()
+                continue
+            if graph is None:
+                graph = _graphs.capture(lambda: deltas(x_in), stream=stream,
+                                        pool=pool)
+                kept.append(graph)
+            acc += graph.replay().double()
         layer_ids.append(layer_idx)
         rows.append((acc / n_iter).cpu().numpy())
     return SensitivityTable(

@@ -53,14 +53,15 @@ def scale_groups(tree, cfg: Optional[ModelConfig] = None) -> List[List[int]]:
 def compress_grads(grads, err_state, cfg: Optional[ModelConfig] = None, *,
                    amax_reduce: Optional[Callable] = None
                    ) -> Tuple[Any, Any]:
-    """Returns (dequantized grads as seen after the all-reduce, new error
+    """Returns (dequantized grads as seen after the all-reduce, the error
     state); one scale per leaf of the reference's stacked tree for ``cfg``
     (``scale_groups``).  ``amax_reduce`` maps the groups' amaxes [G] to
     the global ones (under a mesh, a max over the ranks whose slices of a
-    leaf differ)."""
+    leaf differ).  The residuals are written into ``err_state``'s tensors
+    in place (a CUDA graph of the train step reads and writes them at the
+    addresses it captured), and ``err_state`` is returned."""
     gs, es = leaves(grads), leaves(err_state)
     deq: List[Any] = [None] * len(gs)
-    err: List[Any] = [None] * len(gs)
     groups = scale_groups(grads, cfg)
     # each group's scale first, then each leaf again: one leaf's f32 copy
     # at a time, not the whole group's
@@ -75,8 +76,8 @@ def compress_grads(grads, err_state, cfg: Optional[ModelConfig] = None, *,
             q = (g / scale).round().clamp(-127, 127).to(torch.int8)
             d = q.float() * scale                # what the collective carries
             deq[i] = d.to(gs[i].dtype)
-            err[i] = g - d                       # residual -> next step
-    return unflatten(grads, deq), unflatten(err_state, err)
+            torch.sub(g, d, out=es[i])           # residual -> next step
+    return unflatten(grads, deq), err_state
 
 
 def compression_bytes_saved(params, cfg: Optional[ModelConfig] = None) -> int:

@@ -55,15 +55,14 @@ a non-priority request one rung down the ladder per (re-)admission, always
 at the prefill boundary.
 
 On the card every chunk and decode step replays a CUDA graph captured for
-its specialization key (``serving/runner.py``); ``Engine(graphs=False)``
-runs the same steps eagerly, the oracle, and so does an engine on a mesh
-with ``graphs`` left at its default.  ``Engine(router_lookahead=True)``
-predicts each MoE layer's expert ids one layer ahead on decode steps
-(numerically a no-op; the CUDA kernels ignore the hint), fixed for the
-engine's life, so every graph it captures carries it.  ``submit(req,
-detok=)`` / ``serve(..., detok=)`` stream incremental-detok text deltas
-(``serving/detok.py``); ``serving/http.py`` puts the engine behind an HTTP
-front end.
+its specialization key (``serving/runner.py``), on a mesh or off one;
+``Engine(graphs=False)`` runs the same steps eagerly, the oracle.
+``Engine(router_lookahead=True)`` predicts each MoE layer's expert ids
+one layer ahead on decode steps (numerically a no-op; the CUDA kernels
+ignore the hint), fixed for the engine's life, so every graph it captures
+carries it.  ``submit(req, detok=)`` / ``serve(..., detok=)`` stream
+incremental-detok text deltas (``serving/detok.py``);
+``serving/http.py`` puts the engine behind an HTTP front end.
 
 Stacks with mamba blocks (no position dim to page or chunk: their conv and
 SSM state carry the whole prefix) serve on the contiguous layout only, with
@@ -80,8 +79,8 @@ encoder-decoder (whisper) is served through ``models.prefill_fn`` /
 takes the rank's local params (``sharding.local_params``; whole params
 whose shapes are not those blocks are refused), each rank holds its kv
 heads of the pool (``serving/kv_cache.py``), and the runner runs every
-step eagerly (the default of ``graphs`` on a mesh; ``graphs=True`` is
-refused) with the models' tensor parallelism over ``model`` and the
+chunk and decode step (a CUDA graph on the card, NCCL collectives
+inside it) with the models' tensor parallelism over ``model`` and the
 config's expert-parallel MoE (``models.moe.mesh_impl``: ``ep_a2a`` in the
 chunk steps, ``ep_psum`` in decode).  Every rank of a ``model`` group
 serves the same requests, with the same seed: the logits are whole on

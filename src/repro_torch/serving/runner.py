@@ -61,15 +61,21 @@ weights.
 
 ``mesh=`` (a bound mesh, as the reference's runner takes one): the params
 are the rank's blocks (``sharding.local_params``) and every step runs the
-models' tensor and expert parallelism on them.  ``graphs`` left at its
-default resolves to eager steps on a mesh and to CUDA graphs off one; an
-explicit ``graphs=True`` with a mesh is refused (capturing the NCCL
-collectives of a step in a CUDA graph is ROADMAP B, held item 1).
+models' tensor and expert parallelism on them.  On the card a step on a
+mesh is captured and replayed as off one, its NCCL collectives inside the
+graph, as the reference jits its steps with a mesh and without one: the
+key's eager first step creates each group's communicator, and a replay
+notes the step's collectives again (``kernels/_graphs.py``).  Every rank
+must step through the same keys in the same order (one SPMD program):
+the runner keeps a checksum of the keys it has stepped through, and the
+ranks compare it whenever a key is stepped through for the first time
+(``sharding.comm.agree``), graphed or not; ranks out of step raise.
 """
 
 from __future__ import annotations
 
 import time
+import zlib
 from dataclasses import replace as dc_replace
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
@@ -79,6 +85,7 @@ import torch
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.opts import DEFAULT_OPTS, ModelOpts
+from repro_torch.sharding import comm
 
 BASE_PLAN = "base"
 
@@ -144,11 +151,6 @@ class ModelRunner:
             raise ValueError(f"a runner serves on a bound mesh, not on "
                              f"{mesh!r} (a placed mesh only counts its "
                              "collectives)")
-        if mesh is not None and graphs:
-            raise ValueError(
-                "a runner on a mesh runs its steps eagerly: leave graphs at "
-                "its default or pass graphs=False (CUDA graphs of NCCL "
-                "steps are ROADMAP B, held item 1)")
         self.mesh = mesh
         self.opts = opts
         self.base_cfg = cfg
@@ -164,9 +166,11 @@ class ModelRunner:
         #: the specialization table: key -> its captured step (None where
         #: the step runs eagerly)
         self._steps: Dict[Tuple, Optional[_Step]] = {}
-        #: capture graphs on the card (False: the eager oracle); the
-        #: default is graphs off a mesh and eager steps on one
-        self.graphs = mesh is None if graphs is None else bool(graphs)
+        #: capture graphs on the card (False: the eager oracle), on a mesh
+        #: or off one
+        self.graphs = True if graphs is None else bool(graphs)
+        #: checksum of the keys stepped through, in order (module doc)
+        self._trail = 0
         self._graphed = self.graphs and self.device.type == "cuda"
         self._stream = self._pool = None
         if self._graphed:
@@ -240,6 +244,11 @@ class ModelRunner:
              block_tables):
         """One step of ``key``: ``fn(**inputs)`` -> logits, where the
         inputs are ``values`` on the device."""
+        if self.mesh is not None:
+            self._trail = zlib.crc32(repr(key).encode(), self._trail)
+            if key not in self._steps:
+                comm.agree(self._trail, self.mesh, f"new step {key}: the "
+                           "checksum of the keys stepped through")
         if not self._graphed:
             self._steps.setdefault(key, None)
             return fn(**{n: torch.as_tensor(v).to(self.device)

@@ -32,8 +32,11 @@ Each call, forward or backward, reports its operand bytes to the open
 buffers are the collective's bytes, not the step's HBM traffic:
 ``analysis/counters.py``).  A group of one rank still runs its collective
 (NCCL or gloo then copies), so a one-card mesh counts the same calls a
-larger one makes.  Nothing else in the port calls ``torch.distributed``
-collectives.
+larger one makes.  A step captured as a CUDA graph runs its collectives
+at each replay and notes them there (``kernels/_graphs.py``).  Nothing
+else in the port calls ``torch.distributed`` collectives; ``agree``,
+the host's check that the ranks are in step, is bookkeeping and is not
+noted.
 
 On a placed mesh (``Mesh.place``: one rank, no world; the dry run) every
 collective computes nothing: it reports the same ``note`` as on a bound
@@ -100,6 +103,21 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axes, dim: int = 0
     keeps each its block (a reduce-scatter; torch's own autograd gather
     addresses a subgroup's ranks as global ranks on gloo)."""
     return _AllGather.apply(x, mesh, axes, dim)
+
+
+def agree(value, mesh: Mesh, what: str) -> None:
+    """Raise unless every rank of the mesh passes an equal ``value`` (a
+    host object): the ranks' check that they run the same program.  Not a
+    step's collective: nothing is noted, and a placed mesh, which has one
+    rank, checks nothing."""
+    import torch.distributed as dist
+    if mesh.placed:
+        return
+    got = [None] * mesh.size
+    dist.all_gather_object(got, value, group=mesh.get_group(mesh.axis_names))
+    if any(v != value for v in got):
+        raise RuntimeError(f"the ranks are out of step: {what} {got} (rank "
+                           f"order)")
 
 
 def barrier(mesh: Mesh) -> None:

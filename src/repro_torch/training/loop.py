@@ -19,6 +19,15 @@ global batch (rows over the data axes, the same on every rank of a
 ``model`` group), and a checkpoint is the whole state, gathered on every
 rank and written by rank 0, so it resumes on any mesh shape or in one
 process.
+
+The reference jits the train step and the held-out ``xent``; on the card
+``train`` runs the step as one CUDA graph (``training.step.GraphedStep``,
+captured at the run's first step, after any restore, its NCCL
+collectives inside on a mesh), and ``eval_perplexity`` the loss of its
+fixed ``[B, S]`` batch shape as one graph, each held-out batch copied
+into the graph's static inputs and ``xent`` read after each replay.
+``graphs=False`` runs both eagerly, the oracle the graphs are held to;
+on the CPU both always run eagerly.
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ class TrainResult:
     grad_norms: List[float] = field(default_factory=list)
     #: host seconds the data pipeline took to make one batch
     data_s_per_batch: float = 0.0
+    #: train steps that replayed a CUDA graph
+    graph_replays: int = 0
 
 
 def train(
@@ -80,17 +91,20 @@ def train(
     verbose: bool = False,
     device=None,
     mesh=None,
+    graphs: Optional[bool] = None,
 ) -> TrainResult:
     """Train on the card unless ``device`` asks for the CPU; under a bound
     ``mesh`` (on the same device type) every rank calls this (module
-    doc)."""
+    doc).  ``graphs`` (None: True): each step after the first replays a
+    CUDA graph on the card; False runs every step eagerly."""
     dev = resolve_device(device)
     if mesh is not None and mesh.device.type != dev.type:
         raise ValueError(f"train on {dev} with a mesh bound on {mesh.device}")
     optimizer = optimizer or AdamW(total_steps=total_steps)
     step_fn = make_train_step(cfg, optimizer, opts=opts, mesh=mesh,
                               microbatches=microbatches,
-                              compression=compression)
+                              compression=compression,
+                              graphs=graphs is None or bool(graphs))
 
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start_step = 0
@@ -167,7 +181,9 @@ def train(
                        losses=losses, step_times=times,
                        straggler_steps=stragglers, resumed_from=resumed_from,
                        state=state, grad_norms=gnorms,
-                       data_s_per_batch=data_s)
+                       data_s_per_batch=data_s,
+                       graph_replays=int(getattr(step_fn, "stats", {})
+                                         .get("replays", 0)))
 
 
 def _save(mgr: CheckpointManager, step: int, state, shardings, mesh, *,
@@ -184,14 +200,38 @@ def _save(mgr: CheckpointManager, step: int, state, shardings, mesh, *,
 @torch.no_grad()
 def eval_perplexity(state_or_params, cfg: ModelConfig, dc: DataConfig, *,
                     steps: int = 8, start_step: int = 10_000,
-                    opts: ModelOpts = DEFAULT_OPTS) -> float:
+                    opts: ModelOpts = DEFAULT_OPTS,
+                    graphs: Optional[bool] = None) -> float:
     """Held-out perplexity on fresh synthetic batches (quality proxy), on
-    the device the params live on."""
+    the device the params live on.  ``graphs`` (None: True): on the card
+    the first batch runs eagerly and the later ones replay one CUDA graph
+    of the loss (module doc); False runs every batch eagerly."""
     params = getattr(state_or_params, "params", state_or_params)
     dev = params["embed"].device
+
+    def xent(batch):
+        _, m = models.loss_fn(params, cfg, batch, opts=opts)
+        return m["xent"]
+
+    graphed = (graphs is None or bool(graphs)) and dev.type == "cuda"
+    if graphed:
+        from repro_torch.kernels import _graphs
+        stream = _graphs.side_stream(dev)
+    static = graph = None
     tot = 0.0
     for i in range(steps):
         batch = to_device(sample_batch(dc, start_step + i), dev)
-        _, m = models.loss_fn(params, cfg, batch, opts=opts)
-        tot += float(m["xent"])
+        if not graphed:
+            tot += float(xent(batch))
+            continue
+        if static is None:                   # the eager first batch
+            static = batch
+            tot += float(_graphs.on_stream(lambda: xent(static), stream))
+            continue
+        for k, v in batch.items():
+            static[k].copy_(v)
+        if graph is None:
+            graph = _graphs.capture(lambda: xent(static), stream=stream,
+                                    pool=torch.cuda.graph_pool_handle())
+        tot += float(graph.replay())
     return float(np.exp(tot / steps))

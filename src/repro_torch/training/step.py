@@ -25,7 +25,22 @@ gradient over the data axes only (an FSDP leaf's comes out of its
 gather's reduce-scatter already summed, as its block).  Under ZeRO-1 each
 rank then updates its block of each param from its block of the summed
 gradient and its moments, and all-gathers the params over the data axes.
-The steps run eagerly.
+
+``make_train_step(..., graphs=True)`` makes the step one CUDA graph on the
+card (``GraphedStep``), the counterpart of the reference's jitted step:
+forward, backward, the microbatch sum, compression, the global norm and
+the AdamW update (ZeRO-1's all-gather too), on a mesh or off one.  Its
+first call runs the step eagerly on the capture stream and captures it;
+each later call copies the batch into the graph's static inputs and the
+step's learning rate and bias corrections into a device tensor
+(``AdamW.scalars``), and replays.  The state is updated in place at the
+addresses the graph captured (the error-feedback state too:
+``compress_grads``); a call on a state whose tensors moved raises, so a
+restored state needs a new step (``train`` makes one a run, and captures
+at the first step after a restore).  The metrics a replay returns are the
+graph's static outputs, valid until the next call.  The eager step reads
+the same scalars from the same kind of tensor, so the graph is held to
+it.  On the CPU ``GraphedStep`` runs the step eagerly.
 """
 
 from __future__ import annotations
@@ -228,13 +243,13 @@ def _zero1_blocks(shardings: TrainState, mesh):
 
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
                     opts: ModelOpts = DEFAULT_OPTS, mesh=None,
-                    microbatches: int = 1,
-                    compression: bool = False) -> Callable:
+                    microbatches: int = 1, compression: bool = False,
+                    graphs: bool = False) -> Callable:
     """Returns step(state, batch) -> (state, metrics): ``loss``, ``xent``,
     ``aux``, ``grad_norm`` (device scalars) and ``lr`` (the new step's).
     Under a bound ``mesh``: the rank's batch block and state (module
     doc, ``state_shardings``); the metrics are the global batch's on every
-    rank."""
+    rank.  ``graphs``: a ``GraphedStep`` (module doc)."""
     grads_of = value_and_grad(cfg, opts=opts, microbatches=microbatches,
                               mesh=mesh)
     # a scale group's amax over the ranks, whose blocks of a leaf differ
@@ -245,36 +260,132 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, *,
     whole = None if mesh is None else whole_shardings(cfg, mesh, opts)
     zero = None if mesh is None else _zero1_blocks(whole, mesh)
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+    def body(state: TrainState, batch, scalars: torch.Tensor) -> Dict:
+        """The step's work on the device: the state in place -> the
+        metrics but ``lr``."""
         loss, metrics, grads = grads_of(state.params, batch)
-        err = state.err
         if compression:
-            grads, err = compress_grads(grads, err, cfg, amax_reduce=amax)
+            grads, _ = compress_grads(grads, state.err, cfg,
+                                      amax_reduce=amax)
         if mesh is None:
             gnorm = _global_norm(grads)
-            opt = optimizer.step_(grads, state.opt, state.params)
+            optimizer.step_(grads, state.opt, state.params, scalars)
         else:
             gnorm = _global_norm(grads, mesh, whole.params)
-            opt = _zero1_step(optimizer, state, grads, zero)
-        metrics = dict(metrics)
-        metrics["loss"] = loss
-        metrics["grad_norm"] = gnorm
-        metrics["lr"] = optimizer.schedule(opt.step)
-        return TrainState(state.params, opt, err), metrics
+            _zero1_step(optimizer, state, grads, zero, scalars)
+        return dict(metrics, loss=loss, grad_norm=gnorm)
+
+    def finish(state: TrainState, metrics: Dict
+               ) -> Tuple[TrainState, Dict]:
+        opt = state.opt._replace(step=state.opt.step + 1)
+        return (TrainState(state.params, opt, state.err),
+                dict(metrics, lr=optimizer.schedule(opt.step)))
+
+    if graphs:
+        return GraphedStep(body, finish, optimizer)
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        # a copy on every device, the CPU too: a step counts the same work
+        # on the CPU, on meta and on the card (``analysis/counters.py``)
+        scalars = optimizer.scalars(state.opt.step + 1).to(
+            _device_of(state), copy=True)
+        return finish(state, body(state, batch, scalars))
 
     return step
 
 
+def _device_of(state: TrainState) -> torch.device:
+    return leaves(state.params)[0].device
+
+
+def _addresses(state: TrainState) -> Tuple[int, ...]:
+    """Where the step reads and writes in place: every tensor of the
+    state."""
+    return tuple(t.data_ptr() for t in leaves((state.params, state.opt.mu,
+                                               state.opt.nu, state.err)))
+
+
+class GraphedStep:
+    """The train step as one CUDA graph on the card (module doc): ``body``
+    does the step's device work on the state in place -> its metrics,
+    ``finish`` advances the step count and adds ``lr``."""
+
+    def __init__(self, body: Callable, finish: Callable, optimizer: AdamW):
+        self._body, self._finish, self._optimizer = body, finish, optimizer
+        self.graph = None
+        #: static inputs: the batch's tensors and the step's scalars
+        self.inputs: Dict[str, torch.Tensor] = {}
+        self.scalars: Optional[torch.Tensor] = None
+        self.addresses: Tuple[int, ...] = ()
+        #: graphs captured, replays
+        self.stats: Dict[str, int] = {"graphs": 0, "replays": 0}
+
+    def _load(self, state: TrainState, batch) -> None:
+        """The call's batch and scalars into the static inputs; first wait
+        until the last copy out of the pinned staging has run."""
+        if batch.keys() != self.inputs.keys() or any(
+                tuple(v.shape) != tuple(self.inputs[k].shape)
+                for k, v in batch.items()):
+            raise ValueError(
+                "the train step's CUDA graph was captured for batch "
+                f"{ {k: tuple(v.shape) for k, v in self.inputs.items()} }, "
+                f"got { {k: tuple(v.shape) for k, v in batch.items()} }")
+        self._copied.synchronize()
+        self._staging.copy_(self._optimizer.scalars(state.opt.step + 1))
+        self.scalars.copy_(self._staging, non_blocking=True)
+        self._copied.record()
+        for k, v in batch.items():
+            self.inputs[k].copy_(v, non_blocking=True)
+
+    def __call__(self, state: TrainState, batch
+                 ) -> Tuple[TrainState, Dict]:
+        dev = _device_of(state)
+        if dev.type != "cuda":
+            scalars = self._optimizer.scalars(state.opt.step + 1)
+            return self._finish(state, self._body(state, batch, scalars))
+        from repro_torch.kernels import _graphs
+        if self.graph is not None:
+            if _addresses(state) != self.addresses:
+                raise RuntimeError(
+                    "the train step's CUDA graph updates the state it was "
+                    "captured on in place; this state's tensors live "
+                    "elsewhere (make a new step for it)")
+            self._load(state, batch)
+            self.stats["replays"] += 1
+            return self._finish(state, self.graph.replay())
+        self.inputs = {k: torch.empty_like(v, device=dev)
+                       for k, v in batch.items()}
+        host = self._optimizer.scalars(state.opt.step + 1)
+        self.scalars = torch.empty_like(host, device=dev)
+        self._staging = torch.empty_like(host).pin_memory()
+        self._copied = torch.cuda.Event()
+        self._load(state, batch)
+        stream = _graphs.side_stream(dev)
+
+        def run():
+            return self._body(state, self.inputs, self.scalars)
+        metrics = _graphs.on_stream(run, stream)
+        # the eager step's temporaries back to the card before the capture
+        # allocates the graph's own
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        self.graph = _graphs.capture(run, stream=stream,
+                                     pool=torch.cuda.graph_pool_handle())
+        self.addresses = _addresses(state)
+        self.stats["graphs"] += 1
+        return self._finish(state, metrics)
+
+
 @torch.no_grad()
-def _zero1_step(optimizer: AdamW, state: TrainState, grads, zero):
+def _zero1_step(optimizer: AdamW, state: TrainState, grads, zero, scalars):
     """AdamW on each rank's ZeRO-1 block of every param (its moments'
-    block), then the params all-gathered over the data axes, in place."""
+    block), then the params all-gathered over the data axes, copied into
+    the params in place."""
     ps, gs = leaves(state.params), leaves(grads)
     blocks = [p if z is None else z.local(p).clone() for p, z in zip(ps, zero)]
     gblk = [g if z is None else z.local(g) for g, z in zip(gs, zero)]
-    opt = optimizer.step_(unflatten(state.params, gblk), state.opt,
-                          unflatten(state.params, blocks))
+    optimizer.step_(unflatten(state.params, gblk), state.opt,
+                    unflatten(state.params, blocks), scalars)
     for p, b, z in zip(ps, blocks, zero):
         if z is not None:
             p.copy_(z.gather(b))
-    return opt

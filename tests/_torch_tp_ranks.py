@@ -318,20 +318,21 @@ def _checks(mesh, out):
 
 def _refusals(mesh, out):
     """What a mesh refuses, each as its error's type and message: whole
-    params to ``Engine(mesh=)``, CUDA graphs asked for on a mesh, ``ep_a2a``
-    and ``ep_psum`` where the experts do not split; and ``Engine(mesh=)``
-    with ``graphs`` at its default, which serves (None under its tag, its
-    tokens under ``out["engine_default"]``)."""
+    params to ``Engine(mesh=)``, ``ep_a2a`` and ``ep_psum`` where the
+    experts do not split, ranks out of step (``comm.agree``); and
+    ``Engine(mesh=)`` with ``graphs`` at its default, ``True`` and
+    ``False``, each of which serves (None under its tag; its ``graphs``,
+    tokens and keys under ``out["served"][tag]``)."""
     from repro_torch import models
     from repro_torch.models.moe import moe_ep_a2a, moe_ep_psum
     from repro_torch.serving import Engine
-    from repro_torch.sharding import local_params
+    from repro_torch.sharding import comm, local_params
     got = {}
 
     def refused(tag, fn):
         try:
             fn()
-        except (ValueError, NotImplementedError) as e:
+        except (ValueError, NotImplementedError, RuntimeError) as e:
             got[tag] = (type(e).__name__, str(e))
         else:
             got[tag] = None
@@ -341,17 +342,25 @@ def _refusals(mesh, out):
     lp = local_params(params, cfg, mesh)
     refused("engine_whole_params", lambda: Engine(
         cfg, params, device="cpu", mesh=mesh, graphs=False))
-    refused("engine_graphs_explicit", lambda: Engine(
-        cfg, lp, device="cpu", mesh=mesh, graphs=True))
     served = {}
 
-    def serve_default():
-        eng = Engine(cfg, lp, device="cpu", mesh=mesh, **engine_kw(cfg))
-        served["graphs"] = eng.runner.graphs
-        served["tokens"] = {r.uid: list(r.tokens)
-                            for r in eng.serve(serve_requests(cfg))}
-    refused("engine_default", serve_default)
-    out["engine_default"] = served
+    def serve_with(tag, **kw):
+        def fn():
+            eng = Engine(cfg, lp, device="cpu", mesh=mesh, **kw,
+                         **engine_kw(cfg))
+            served[tag] = {
+                "graphs": eng.runner.graphs,
+                "tokens": {r.uid: list(r.tokens)
+                           for r in eng.serve(serve_requests(cfg))},
+                "keys": eng.runner.compiled_specializations()}
+        refused(tag, fn)
+    serve_with("engine_default")
+    serve_with("engine_graphs_explicit", graphs=True)
+    serve_with("engine_eager", graphs=False)
+    out["served"] = served
+    # rank 0 alone passes another checksum: every rank raises
+    refused("ranks_out_of_step", lambda: comm.agree(
+        mesh.axis_index(mesh.axis_names) == 0, mesh, "a test's value"))
     x = torch.zeros((8, cfg.d_model))
     moe = lp["layers"][0]["moe"]
     refused("ep_a2a_unsplit", lambda: moe_ep_a2a(moe, cfg, x, 2, mesh=mesh))

@@ -311,26 +311,48 @@ def test_ranks_hold_their_blocks_of_the_attention(world):
 @pytest.mark.parametrize("tag,match", [
     ("engine_whole_params", "not the rank's block"),
     ("engine_default", None),
-    ("engine_graphs_explicit", "graphs=False"),
+    ("engine_graphs_explicit", None),
     ("ep_a2a_unsplit", "do not split"),
     ("ep_psum_unsplit", "do not split"),
 ])
 def test_mesh_refusals(world, tag, match):
-    """A mesh refuses whole params, CUDA graphs asked for explicitly and the
-    EP impls where the experts do not split over ``model`` (the
-    encoder-decoder runs tensor parallelism: ``test_torch_dryrun.py``);
-    ``Engine(mesh=)`` with ``graphs`` at its default serves eagerly, the
-    tokens of the ``graphs=False`` engine (``match`` None)."""
+    """A mesh refuses whole params and the EP impls where the experts do
+    not split over ``model`` (the encoder-decoder runs tensor
+    parallelism: ``test_torch_dryrun.py``); ``Engine(mesh=)`` with
+    ``graphs`` at its default (graphs) or ``graphs=True`` serves, the
+    tokens of the ``graphs=False`` engine off the mesh (``match`` None;
+    on the CPU its steps run eagerly)."""
     out, _ = world
     got = out["refusals"][tag]
     if match is None:
         assert got is None, got
-        default = out["engine_default"]
-        assert default["graphs"] is False
-        assert default["tokens"] == out["gqa_aligned"]["tokens"]
+        served = out["served"][tag]
+        assert served["graphs"] is True
+        assert served["tokens"] == out["gqa_aligned"]["tokens"]
         return
     assert got is not None, f"{tag}: nothing raised"
     assert match in got[1], got
+
+
+def test_mesh_engine_graphs_serves_the_eager_tokens(world):
+    """``Engine(mesh=, graphs=True)`` serves the tokens of
+    ``graphs=False`` on the mesh and records the same specialization keys
+    (the reference's jit table with a mesh)."""
+    out, _ = world
+    graphed, eager = (out["served"][t] for t in ("engine_graphs_explicit",
+                                                 "engine_eager"))
+    assert eager["graphs"] is False
+    assert graphed["tokens"] == eager["tokens"]
+    assert graphed["keys"] == eager["keys"] and graphed["keys"]
+
+
+def test_ranks_out_of_step_raise(world):
+    """``comm.agree``: a rank whose value differs makes every rank raise
+    (the runner's check of the keys its ranks step through)."""
+    out, _ = world
+    got = out["refusals"]["ranks_out_of_step"]
+    assert got is not None and got[0] == "RuntimeError", got
+    assert "out of step" in got[1], got
 
 
 def _jax_attn_decode(window):

@@ -45,7 +45,18 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               and time both with CUDA events (per-call medians of device
               time, L2 flushed before every call, kernel, plain and -- where
               one PyTorch call computes the same function -- that call
-              interleaved).
+              interleaved).  Then the f32 kernels (``f32_kernel_checks``,
+              C12): B1, B3 and B9 on f32 experts and B2, B8 and B4 on f32
+              q, K and V, at the reduced OLMoE config's shapes (d 128, 4
+              heads of 32, 8 experts at top-2, F 64; GQA under a window
+              too) and at full-width OLMoE's, each held elementwise to
+              its plain version at F32_TOL (the reference's own f32
+              tolerance), its cost on the card equal to its ``meta``
+              route's, B8's and B4's rows bit for bit alone against the
+              batch, timed beside the plain version, the bf16 kernel on
+              the same inputs rounded to bf16 (``sibling_ms``) and the
+              library call; the rows' ``f32_*`` sub-entries under
+              ``shapes``; and B2's bf16 body at hd 32 to ROW_TOL.
 3. serve   -- OLMoE-1B-7B at full width and depth (16 layers, d 2048, 64
               experts, top-8), bf16, random weights drawn on the card from a
               seed: serve 8 requests on the paged pool with chunked
@@ -137,6 +148,28 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               plan: no ``moe_gmm`` and no ``moe_decode`` may launch; the
               copies the capacity buffers dropped are counted on the card
               (in counters every graph adds to at each replay).
+7b. serve_f32 -- OLMoE-1B-7B at full width and depth in f32 (the bf16
+              weights cast in place, 27.7 GB; TF32 off for cuBLAS and
+              cuDNN, both flags printed): the 8 requests paged on ``gmm``
+              (B1, B3, B4), contiguous with whole prompts (B2, B8, B1,
+              B3) and paged on ``dense`` (B9, B4; every engine after the
+              same warm-up wave), each graphed, with an eager twin (equal
+              tokens and launches) and on the plain f32 paths (the
+              first-token rows' distances from the plain f32 path's
+              printed, the bf16 kernel path's of phases 3, 5 and 7
+              beside); then each serve through the first
+              F32_GATE_LAYERS layers on the f32 kernels, the plain f32
+              paths and the bf16 kernels: the f32 kernel path's
+              first-token logits within F32_LOGITS_TOL of the plain f32
+              path's and at most F32_RATIO times as far from them as the
+              bf16 kernel path's; then Fig. 4's ``gmm`` rows (baseline
+              and plan) through B1 and B2 as CUDA graphs, their
+              cross-entropy within RECIPE_TOL of the plain f32 paths'.
+    reduced_f32 -- the reduced OLMoE config (f32, hd 32) through the
+              entry points in this process: ``launch/serve.py`` on
+              ``dense`` (B9, B4), on ``gmm`` with the fused decode and a
+              plan (B1, B3, B4), contiguous with whole prompts (B2, B8,
+              B9), and ``launch/serve_lexi.py`` (B1, B2, B3, B4).
 8. serve_mla -- the OLMoE weights freed, DeepSeek-V2-Lite at full width and
               depth (27 layers, MLA with kv_lora_rank 512, a dense first
               layer, 64 experts top-6 plus 2 shared), bf16, random weights
@@ -237,12 +270,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               step's loss bit for bit, its forward+backward at a lower
               peak.
 11. train_quality -- ``launch/serve_lexi.py``'s recipe (a 4-layer
-              OLMoE-family model, f32, plain paths) trained 200 steps:
-              held-out ppl of the untrained model, the baseline, the LExI
-              plan at a 50 % budget, ``inter_prune`` and ``intra_prune``
-              at 0.25 (Fig. 4's quality side on trained weights); the
-              trained baseline below 0.8x the untrained ppl; baseline and
-              plan served through one graphed engine (tok/s).
+              OLMoE-family model, f32) trained 200 steps on the plain
+              paths: Alg. 1 through B1 and on the plain paths, the tables
+              within RECIPE_TOL and both DP plans printed; held-out ppl
+              through B1 and B2 of the untrained model, the baseline
+              (within RECIPE_TOL of the plain paths'), the LExI plan at a
+              50 % budget, ``inter_prune`` and ``intra_prune`` at 0.25
+              (Fig. 4's quality side on trained weights); the trained
+              baseline below 0.8x the untrained ppl; baseline and plan
+              served through one graphed engine on the kernels (tok/s).
 12. train_resume -- in a child process with deterministic algorithms:
               the recipe for 20 steps, checkpointed every 5, killed at
               step 12 and resumed, equals the uninterrupted run bit for
@@ -316,7 +352,10 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               OLMoE's heads over SDPA_BF16_CHECK on the card (``bmm``'s
               ``out_dtype`` form) against the CPU route on the same bf16
               inputs, row by row to ROW_TOL (its check line carries the
-              largest absolute error).  One ``dryrun`` line.
+              largest absolute error); (b-f32) the prefill and decode
+              steps of (b) in f32 at DRYRUN_F32_LAYERS layers (B2, B8, B9
+              on f32 operands), held as (b) holds a step.  One ``dryrun``
+              line.
 
 Every serve and forward runs its steps as CUDA graphs, captured for each
 specialization key of the runner (``serving/runner.py``) or each forward
@@ -343,7 +382,7 @@ name and power limit, and as the last line ``{"ok": true, "device":
 
 runs only the four attention kernels' checks of phase 2 (B2, B8 and B4 on
 OLMoE-1B-7B's widths and the families', B7 on DeepSeek-V2-Lite's and
-MiniCPM3-4B's), untimed, on the ``repro_torch`` of ``DIR/src`` (default:
+MiniCPM3-4B's; B2, B8 and B4 in f32 at OLMoE's widths), untimed, on the ``repro_torch`` of ``DIR/src`` (default:
 this checkout; its kernels build into ``DIR/build``), and prints as its
 last line ``{"digests": {check: digest}, "refused": {check function:
 message}}``.  Each kernel's newer shapes come after its older ones, so a
@@ -1091,12 +1130,12 @@ def check_flash_attention(cfg, flush, device):
     return per
 
 
-def _decode_cache(gen, device, lens, s_buf, hkv, hd):
+def _decode_cache(gen, device, lens, s_buf, hkv, hd, dtype=torch.bfloat16):
     """k, v [B, S_buf, Hkv, hd] and pos [B, S_buf] as the engine leaves
     them: row b holds positions 0..lens[b]-1 at slot pos % S_buf."""
     b = len(lens)
     k, v = (torch.randn((b, s_buf, hkv, hd), generator=gen, device=device,
-                        dtype=torch.bfloat16) for _ in range(2))
+                        dtype=dtype) for _ in range(2))
     pos = torch.full((b, s_buf), -1, dtype=torch.int32)
     for r, ln in enumerate(lens):
         p = torch.arange(max(ln - s_buf, 0), ln, dtype=torch.int32)
@@ -1573,23 +1612,34 @@ def prefix_requests(cfg, seed: int, n: int = 16, max_new: int = 32,
 @contextmanager
 def first_token_rows(eng):
     """Record {uid: the logits row its first token was sampled from} while
-    ``eng`` serves (wraps the instance's ``_sample`` and ``_first_token``;
-    the engine itself has no hook)."""
+    ``eng`` serves (wraps the instance's ``_sample`` and ``_first_token``,
+    and its runner's ``whole_prefill``, whose [1, V] logits a whole
+    prompt's first token is sampled from; the engine itself has no
+    hook)."""
     rows, last = {}, {}
     sample, first = eng._sample, eng._first_token
+    whole = eng.runner.whole_prefill
 
     def sampling(logits):
         last["logits"] = logits
         return sample(logits)
 
+    def whole_prefill(*a, **kw):
+        out = whole(*a, **kw)
+        last["whole"] = out[0]
+        return out
+
     def first_token(t, tok):
-        rows[t.req.uid] = last["logits"][t.slot].float().clone()
+        lg = last.pop("whole", None)
+        row = lg[0] if lg is not None else last["logits"][t.slot]
+        rows[t.req.uid] = row.float().clone()
         first(t, tok)
     eng._sample, eng._first_token = sampling, first_token
+    eng.runner.whole_prefill = whole_prefill
     try:
         yield rows
     finally:
-        del eng._sample, eng._first_token
+        del eng._sample, eng._first_token, eng.runner.whole_prefill
 
 
 def drained(tag, eng) -> None:
@@ -2423,7 +2473,8 @@ def serve_dense(params, cfg, plan, device, t_start):
     summed on the card into two persistent counters, zeroed in place
     before each serve: the counting is hooked in before the first step,
     so every captured graph adds to the same counters at each replay.
-    Returns {step: (counts, kernels the step must launch)}."""
+    Returns ({step: (counts, kernels the step must launch)}, the graphed
+    baseline's first-token logits rows by uid)."""
     from repro_torch import models
     from repro_torch.models.moe import dense as dense_mod
     from repro_torch.serving import Engine
@@ -2476,8 +2527,11 @@ def serve_dense(params, cfg, plan, device, t_start):
             calls.update(chunk=0, decode=0)
             for t in drops.values():
                 t.zero_()
-            res, counts = counted(
-                lambda: eng.serve(requests(cfg, seed=0), plan=plan_name))
+            with first_token_rows(eng) as first:
+                res, counts = counted(
+                    lambda: eng.serve(requests(cfg, seed=0), plan=plan_name))
+            if tag == "baseline":
+                rows = first
             check_results(f"dense {tag}", res, cfg, max_new=32)
             if (counts["moe_gmm"] or counts["moe_decode"]
                     or counts["moe_ffn"] != n * (calls["chunk"]
@@ -2505,6 +2559,575 @@ def serve_dense(params, cfg, plan, device, t_start):
         del eng
     finally:
         dense_mod._slot_positions = slot_positions
+    emit(dict(rec, seconds_total=time.perf_counter() - t_start))
+    return need, rows
+
+
+# --------------------------------------------------------------------------- #
+# phase 7b: the reference kernels' float32 contract (C12)
+# --------------------------------------------------------------------------- #
+
+#: an f32 kernel against its plain version, elementwise: |kernel - plain|
+#: <= F32_TOL |plain| + F32_TOL max(1, the row's largest |plain|), the
+#: reference's own f32 tolerance for its kernels (rtol = atol = 2e-5,
+#: tests/test_kernels.py) with atol in units of the row (one token's
+#: outputs, one head's hd values) where that row is larger than 1.  The
+#: reference's cases are O(1); OLMoE's init (w1's std 1/sqrt(E) = 1/8)
+#: makes full-width expert outputs O(100), where two f32 summation orders
+#: over D 2048 differ by about 1e-4 at an element near zero (the bits of
+#: cuBLAS's sequential sum are B1's; its split sum at C 4 differed from
+#: B9's by 1.2e-4 at a row of 82).  bf16 rounding anywhere (2^-9 a value)
+#: or TF32 (2^-12) moves a row by 30x or 8x this bound
+F32_TOL = 2e-5
+#: the full-width f32 serves: the kernel path's first-token logits rows
+#: within F32_LOGITS_TOL (each row's relative L2 error) of the plain f32
+#: path's, and at most F32_RATIO times as far from them as the bf16 kernel
+#: path's rows are (no bf16 or TF32 rounding hides in an f32 kernel)
+F32_LOGITS_TOL = 1e-3
+F32_RATIO = 0.1
+#: the trained-tiny recipe (``launch/serve_lexi.py``) through the kernels:
+#: Alg. 1's table and the held-out ppl within this relative distance of
+#: the plain paths'
+RECIPE_TOL = 1e-4
+#: the decode rows of the f32 attention checks (lens) at full width and
+#: at the reduced config's, and the reduced config's prompt rows
+F32_LENS = [512, 511, 480, 300, 129, 64, 16, 0]
+F32_REDUCED_LENS = [96, 50, 17, 7, 1, 0]
+
+
+def compare_f32(name: str, got: torch.Tensor, want: torch.Tensor, **extra):
+    """Hold an f32 kernel's output to its plain version's elementwise at
+    F32_TOL (the line also carries the ratio at an atol of 2e-5 itself,
+    ``max_err_over_unit_atol``); returns the largest absolute
+    difference."""
+    if got.dtype != torch.float32 or want.dtype != torch.float32:
+        raise AssertionError(f"{name}: outputs {got.dtype} / {want.dtype}, "
+                             "want float32")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err = (got - want).abs()
+    row = want.abs().amax(-1, keepdim=True).clamp(min=1.0)
+    bound = F32_TOL * want.abs() + F32_TOL * row
+    rec = {"check": name, "max_abs_err": err.max().item(),
+           "max_abs_ref": want.abs().max().item(),
+           "max_err_over_tol": (err / bound).max().item(), "tol": F32_TOL,
+           "max_err_over_unit_atol": (err / (F32_TOL + F32_TOL * want.abs()))
+           .max().item(), "digest": digest(got), **extra}
+    DIGESTS[name] = rec["digest"]
+    emit(rec)
+    if rec["max_err_over_tol"] > 1.0:
+        raise AssertionError(f"{name}: |kernel - plain| past {F32_TOL} "
+                             f"(|plain| + the row's scale) ({rec})")
+    return rec["max_abs_err"]
+
+
+def meta_cost_equal(name, wrapper, args, kw):
+    """The kernel's launch on the card reports the cost its ``meta`` route
+    reports for the same arguments (the dry run's count, f32 included)."""
+    from repro_torch.analysis.counters import count
+    with count() as card:
+        wrapper(*args, **kw)
+    meta_args = [a.to("meta") if isinstance(a, torch.Tensor) else a
+                 for a in args]
+    with count() as dry:
+        wrapper(*meta_args, **kw)
+    got = (card.kernel_calls, card.kernel_flops, card.kernel_bytes)
+    want = (dry.kernel_calls, dry.kernel_flops, dry.kernel_bytes)
+    if got != want or got[0] != {name: 1}:
+        raise AssertionError(f"{name} f32: the card reports {got}, meta "
+                             f"{want}")
+
+
+def f32_case(name, tag, wrapper, plain, args, kw, sibling, library, nbytes,
+             flops, flush, **extra):
+    """One f32 shape of a kernel: held to its plain version (compare_f32),
+    its cost equal on the card and on meta, then timed with the plain
+    version, the bf16 kernel on the same inputs rounded to bf16 beforehand
+    (``sibling``: a thunk) and the library call (a thunk, or None).
+    Returns the numbers ``kernel_row`` takes, f32 rates."""
+    err = compare_f32(f"{name}_f32_{tag}", wrapper(*args, **kw),
+                      plain(*args), **extra)
+    meta_cost_equal(name, wrapper, args, kw)
+    fns = [lambda: wrapper(*args, **kw), lambda: plain(*args), sibling]
+    if library is not None:
+        fns.append(library)
+    ms, plain_ms, sib_ms, *lib = time_calls(fns, flush)
+    return (err, ms, plain_ms, nbytes, flops, lib[0] if lib else None,
+            {"sibling_ms": sib_ms})
+
+
+def to_bf16(*ts):
+    """The float tensors of ``ts`` rounded to bf16: a bf16 sibling's
+    inputs."""
+    return [t.to(torch.bfloat16) if t.is_floating_point() else t
+            for t in ts]
+
+
+def f32_expert_checks(layer, cfg, x, flush, tag, per):
+    """B1, B3 and B9 in f32 on ``layer`` (f32 weights) and f32 tokens
+    ``x``: B1 on ``x``'s sorted dispatch at top-k, B3 on its first 8 tokens
+    at top-k, B9 on the capacity buffers of its first 8 tokens and of all
+    of them; the sibling is the bf16 kernel on the same inputs rounded to
+    bf16.  Adds {kernel: {f32 shape: numbers}} to ``per``."""
+    import torch.nn.functional as F_
+    from repro_torch.kernels import moe_decode, moe_ffn, moe_gmm
+    from repro_torch.kernels.moe_decode import moe_decode_plain
+    from repro_torch.kernels.moe_ffn import moe_ffn_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    from repro_torch.models.moe import default_block_m, make_sort_plan, \
+        route, sort_dispatch
+    k, e = cfg.moe_top_k, cfg.num_experts
+    d, f = cfg.d_model, cfg.moe_d_ff
+    w1, w2 = layer["w1"], layer["w2"]
+    b1, b2 = to_bf16(w1, w2)
+    _, idx, _ = route(layer, cfg, x, k)
+    plan = make_sort_plan(idx, e, default_block_m(x.shape[0] * k, floor=8))
+    xs = sort_dispatch(x, plan, k)
+    xs_b = to_bf16(xs)[0]
+    bm = plan.block_m
+    gmm_args = (xs, w1, w2, plan.tile_expert, plan.tile_valid)
+    live_e = plan.tile_expert[plan.tile_valid.bool()].long()
+    experts = int(torch.unique(live_e).numel())
+    offs = torch.cumsum(torch.bincount(live_e, minlength=e) * bm,
+                        0).to(torch.int32)
+    live = int(offs[-1])
+
+    def grouped_mm():
+        h = torch._grouped_mm(xs[:live], w1, offs=offs)
+        return torch._grouped_mm(F_.silu(h[:, :f]) * h[:, f:], w2, offs=offs)
+    try:                                  # the card's torch may refuse f32
+        grouped_mm()
+        library = grouped_mm
+    except (AttributeError, RuntimeError, ValueError) as err:
+        library = None
+        emit({"check": f"moe_gmm_f32_{tag}_grouped_mm",
+              "error": f"{type(err).__name__}: {err}"[:300]})
+    rows = x.shape[0] * k
+    per.setdefault("moe_gmm", {})[f"f32_{tag}"] = f32_case(
+        "moe_gmm", tag, lambda *a, **kw: moe_gmm(*a, **kw),
+        lambda *a: moe_gmm_plain(*a, bm), gmm_args, {"block_m": bm},
+        lambda: moe_gmm(xs_b, b1, b2, plan.tile_expert, plan.tile_valid,
+                        block_m=bm),
+        library, 2 * rows * d * 4 + experts * 3 * d * f * 4
+        + 2 * 4 * len(plan.tile_valid), rows * 6 * d * f, flush,
+        tokens=x.shape[0], k=k, block_m=bm, experts=experts)
+
+    x8 = x[:8].contiguous()
+    weights, idx8, _ = route(layer, cfg, x8, k)
+    x8_b = to_bf16(x8)[0]
+    dec_args = (x8, w1, w2, idx8, weights)
+    experts = int(torch.unique(idx8).numel())
+    per.setdefault("moe_decode", {})[f"f32_{tag}_k{k}"] = f32_case(
+        "moe_decode", f"{tag}_k{k}", moe_decode, moe_decode_plain, dec_args,
+        {}, lambda: moe_decode(x8_b, b1, b2, idx8, weights), None,
+        experts * 3 * d * f * 4 + 2 * 8 * d * 4 + 8 * k * 8,
+        8 * k * 6 * d * f, flush, batch=8, k=k, experts=experts)
+
+    for sh, xx in (("c_decode", x8), ("c_chunk", x)):
+        xe, dropped = capacity_buffers(layer, cfg, xx)
+        xe_b = to_bf16(xe)[0]
+        c = xe.shape[1]
+
+        def bmm_swiglu(xe=xe):
+            h = torch.bmm(xe, w1)
+            return torch.bmm(F_.silu(h[..., :f]) * h[..., f:], w2)
+        per.setdefault("moe_ffn", {})[f"f32_{tag}_{sh}{c}"] = f32_case(
+            "moe_ffn", f"{tag}_{sh}{c}", moe_ffn, moe_ffn_plain,
+            (xe, w1, w2), {}, lambda xe_b=xe_b: moe_ffn(xe_b, b1, b2),
+            bmm_swiglu, e * 3 * d * f * 4 + 2 * e * c * d * 4,
+            e * c * 6 * d * f, flush, capacity=c, dropped_copies=dropped)
+
+
+def f32_attention_checks(hq, hkv, hd, lens, s_buf, seq, window, device,
+                         flush, tag, per):
+    """B2, B8 and B4 in f32 at (hq, hkv, hd): B2 on 4 rows of ``seq``
+    tokens as the model's strided [B, S, H, hd] views (under ``window``),
+    B8 on a cache of ``s_buf`` slots and B4 on pages of 16 holding
+    ``lens`` positions a row (each row of both also alone against the
+    batch, bit for bit); the sibling is the bf16 kernel on the same
+    inputs rounded to bf16, the library SDPA in f32.  Adds {kernel: {f32
+    shape: numbers}} to ``per``."""
+    from repro_torch.kernels import flash_attention, flash_decode, \
+        flash_decode_paged
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.flash_decode import flash_decode_plain
+    from repro_torch.kernels.flash_decode_paged import \
+        flash_decode_paged_plain
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    gqa = {"enable_gqa": True} if hkv != hq else {}
+    b = 4
+    q, k, v = (torch.randn((b, seq, h, hd), generator=gen, device=device)
+               .transpose(1, 2) for h in (hq, hkv, hkv))
+    qkv_b = to_bf16(q, k, v)
+    got = flash_attention(q, k, v, window=window)
+    if got.is_cuda and got.stride() != q.stride():
+        raise AssertionError(f"flash_attention f32 {tag}: output strides "
+                             f"{got.stride()} != q's {q.stride()}")
+    per.setdefault("flash_attention", {})[f"f32_{tag}"] = f32_case(
+        "flash_attention", tag, flash_attention,
+        lambda *a: flash_attention_plain(*a, window=window), (q, k, v),
+        {"window": window},
+        lambda: flash_attention(*qkv_b, window=window),
+        None if window else (lambda: sdpa(q, k, v, is_causal=True, **gqa)),
+        (2 * b * hq * seq * hd + 2 * b * hkv * seq * hd) * 4,
+        4 * b * hq * hd * _causal_pairs(seq, window), flush,
+        shape=[b, hq, hkv, seq, hd], window=window)
+
+    nb = len(lens)
+    qd = torch.randn((nb, hq, hd), generator=gen, device=device)
+    kc, vc, pos, cur = _decode_cache(gen, device, lens, s_buf, hkv, hd,
+                                     dtype=torch.float32)
+    args = (qd, kc, vc, pos, cur)
+    dec_b = to_bf16(*args)
+    valid = (pos >= 0) & (pos <= cur[:, None])
+    if window is not None:
+        valid &= pos > cur[:, None] - window
+    live = int(valid.sum())
+    mask = valid[:, None, None, :]
+    per.setdefault("flash_decode", {})[f"f32_{tag}"] = f32_case(
+        "flash_decode", tag, flash_decode,
+        lambda *a: flash_decode_plain(*a, window=window), args,
+        {"window": window},
+        lambda: flash_decode(*dec_b, window=window),
+        lambda: sdpa(qd[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                     attn_mask=mask, **gqa),
+        live * hkv * hd * 4 * 2 + live * 4 + 2 * nb * hq * hd * 4 + nb * 4,
+        4 * live * hq * hd, flush, batch=nb, slots=s_buf,
+        live_positions=sum(lens))
+    bitwise_rows(f"flash_decode_f32_{tag}_rows",
+                 lambda *a: flash_decode(*a, window=window), lens,
+                 lambda r, _: tuple(t[r:r + 1] for t in args),
+                 flash_decode(*args, window=window))
+
+    p, n_blk = 16, 64
+    n = nb * 32 + 1
+    kp, vp = (torch.randn((n, p, hkv, hd), generator=gen, device=device)
+              for _ in range(2))
+    posp, table, curp = paged_positions(lens, n, p, n_blk, device)
+    view = table[:, :32]
+    args = (qd, kp, vp, posp, view, curp)
+    pg_b = to_bf16(*args)
+    pages, slots = live_work(posp, view, curp, window)
+    per.setdefault("flash_decode_paged", {})[f"f32_{tag}"] = f32_case(
+        "flash_decode_paged", tag, flash_decode_paged,
+        lambda *a: flash_decode_paged_plain(*a, window=window), args,
+        {"window": window},
+        lambda: flash_decode_paged(*pg_b, window=window), None,
+        pages * p * hkv * hd * 4 * 2 + pages * p * 4 + 2 * nb * hq * hd * 4
+        + nb * 32 * 4, 4 * slots * hq * hd, flush, batch=nb,
+        live_positions=sum(lens), table_cols=32)
+    bitwise_rows(f"flash_decode_paged_f32_{tag}_rows",
+                 lambda *a: flash_decode_paged(*a, window=window), lens,
+                 lambda r, w: (qd[r:r + 1], kp, vp, posp, table[r:r + 1, :w],
+                               curp[r:r + 1]),
+                 flash_decode_paged(qd, kp, vp, posp, table, curp,
+                                    window=window))
+
+
+def f32_kernel_checks(layer, cfg, x, device, flush):
+    """Each f32 kernel at the reduced OLMoE config's shapes (d 128, 4
+    heads of 32, 8 experts at top-2, F 64: its own first MoE layer, 128
+    tokens) and at full-width OLMoE's (``layer`` cast to f32, ``x``'s 512
+    tokens), each held to F32_TOL, its cost on the card equal to meta's,
+    timed; and B2's bf16 body at hd 32 (the reduced config's attention)
+    against its plain version row by row to ROW_TOL.  Returns {kernel:
+    {f32 shape: numbers}} for the ``kernels`` line."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    per = {}
+    rcfg = get_config("olmoe-1b-7b").reduced()
+    assert rcfg.dtype == "float32" and rcfg.head_dim_ == 32
+    rparams = models.init_params(rcfg, seed=0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    rx = torch.randn((128, rcfg.d_model), generator=gen, device=device)
+    f32_expert_checks(rparams["layers"][0]["moe"], rcfg, rx, flush,
+                      "reduced", per)
+    f32_attention_checks(rcfg.num_heads, rcfg.num_kv_heads, rcfg.head_dim_,
+                         F32_REDUCED_LENS, 128, 128, None, device, flush,
+                         "reduced", per)
+    f32_attention_checks(rcfg.num_heads, 2, rcfg.head_dim_,
+                         F32_REDUCED_LENS, 64, 128, 40, device, flush,
+                         "reduced_gqa_window", per)
+    q, k, v = (torch.randn((2, 128, h, 32), generator=gen, device=device,
+                           dtype=torch.bfloat16).transpose(1, 2)
+               for h in (4, 2, 2))
+    for window in (None, 40):
+        compare_rows(f"flash_attention_bf16_hd32_w{window}",
+                     flash_attention(q, k, v, window=window),
+                     flash_attention_plain(q, k, v, window=window),
+                     shape=[2, 4, 2, 128, 32], window=window)
+    del rparams
+    f32_layer = {n: t.float() for n, t in layer.items()}
+    f32_expert_checks(f32_layer, cfg, x.float(), flush, "olmoe", per)
+    del f32_layer
+    f32_attention_checks(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+                         F32_LENS, 512, 512, None, device, flush, "olmoe",
+                         per)
+    torch.cuda.empty_cache()
+    return per
+
+
+def f32_logits_gate(check, got, plain, bf16_rows, **extra):
+    """The f32 kernel path's first-token logits rows (uid -> row) against
+    the plain f32 path's: each row within F32_LOGITS_TOL, and the largest
+    row error at most F32_RATIO times the bf16 kernel path's largest."""
+    uids = sorted(plain)
+    if sorted(got) != uids or sorted(bf16_rows) != uids:
+        raise AssertionError(f"{check}: first-token rows of {sorted(got)} / "
+                             f"{sorted(bf16_rows)} against {uids}")
+    stack = [torch.stack([rows[u] for u in uids]) for rows in
+             (got, plain, bf16_rows)]
+    rec = {"check": check, "rows": len(uids), "tol": F32_LOGITS_TOL,
+           "ratio_limit": F32_RATIO,
+           "f32_kernel_vs_f32_plain": row_rel_err(stack[0],
+                                                   stack[1]).max().item(),
+           "bf16_kernel_vs_f32_plain": row_rel_err(stack[2],
+                                                    stack[1]).max().item(),
+           "argmax_equal": (stack[0].argmax(-1) == stack[1].argmax(-1))
+           .float().mean().item(),
+           "finite": bool(torch.isfinite(stack[0]).all()), **extra}
+    rec["ratio"] = (rec["f32_kernel_vs_f32_plain"]
+                    / max(rec["bf16_kernel_vs_f32_plain"], 1e-30))
+    emit(rec)
+    if not (rec["finite"] and rec["f32_kernel_vs_f32_plain"] <= F32_LOGITS_TOL
+            and rec["ratio"] <= F32_RATIO):
+        raise AssertionError(f"{check} failed: {rec}")
+
+
+#: the depth of the serves whose first-token logits ``f32_logits_gate``
+#: holds: through more layers a top-k near tie in any token's routing,
+#: which f32 sums in another order (1e-6) can flip, reaches the last
+#: token through attention and moves its logits by their own size (the
+#: contiguous serve at 16 layers: one row of 8 by 0.305, its argmax
+#: changed); through the first layer only the last token's own routing
+#: counts (``reference_check`` cuts to one layer for the same reason)
+F32_GATE_LAYERS = 1
+
+
+def cast_tree(x, dtype):
+    """Every float tensor of a params tree as ``dtype`` (a copy)."""
+    if isinstance(x, dict):
+        return {k: cast_tree(v, dtype) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(cast_tree(v, dtype) for v in x)
+    if isinstance(x, torch.Tensor) and x.is_floating_point():
+        return x.to(dtype)
+    return x
+
+
+def serve_f32_layout(tag, cfg32, params, make, bf16_rows, kernels_run,
+                     device, warm=False):
+    """One full-width f32 serve of the 8 requests (``make(cfg, params,
+    graphs, kernels)`` builds the engine): at full depth through the
+    kernels graphed (tokens, launches) and its eager twin (equal tokens
+    and launches), and on the plain f32 paths; the first-token rows'
+    distances at full depth printed (the kernel path's and ``bf16_rows``',
+    the bf16 kernel path's of the same serve, from the plain f32 path's);
+    then the same serve through the first F32_GATE_LAYERS layers, through
+    the f32 kernels, on the plain f32 paths and through the bf16 kernels
+    (the same weights rounded to bf16), its rows held by
+    ``f32_logits_gate``.  ``warm``: each engine serves the same warm-up
+    wave first (``dense``: a pad row's routing follows its recycled pages'
+    stale bytes, so every engine walks the same history).  Returns (record,
+    need)."""
+    def run(eng):
+        if warm:
+            eng.serve(requests(cfg32, seed=0))
+        with first_token_rows(eng) as rows:
+            res, counts = counted(lambda: eng.serve(requests(cfg32, seed=0)))
+        return res, counts, rows
+
+    def served(c, p, graphs, kernels):
+        eng = make(c, p, graphs, kernels)
+        if not warm:
+            eng.serve(requests(c, seed=0, n=2, max_new=4))   # warm-up wave
+        res, counts, rows = run(eng)
+        stats = serve_record(eng)
+        del eng
+        return res, counts, rows, stats
+    res, counts, rows, stats = served(cfg32, params, True, True)
+    check_results(f"f32 {tag}", res, cfg32, max_new=32)
+    rec = {"stats": stats, "launches": counts}
+    res_e, counts_e, _, rec["eager_stats"] = served(cfg32, params, False,
+                                                    True)
+    same_tokens(f"f32 {tag} graphed vs eager", res, res_e)
+    if counts_e != counts:
+        raise AssertionError(f"f32 {tag}: eager launches {counts_e} against "
+                             f"{counts}")
+    _, plain_counts, plain_rows, rec["plain_stats"] = served(
+        cfg32, params, True, False)
+    if any(plain_counts.values()):
+        raise AssertionError(f"f32 {tag} plain: launches {plain_counts}")
+    uids = sorted(plain_rows)
+    want = torch.stack([plain_rows[u] for u in uids])
+    rec["full_depth"] = {
+        "layers": cfg32.num_layers,
+        "f32_kernel_vs_f32_plain": row_rel_err(torch.stack(
+            [rows[u] for u in uids]), want).tolist(),
+        "bf16_kernel_vs_f32_plain": row_rel_err(torch.stack(
+            [bf16_rows[u] for u in uids]), want).tolist()}
+    n = F32_GATE_LAYERS
+    cut = cfg32.with_(num_layers=n)
+    p_cut = dict(params, layers=params["layers"][:n])
+    got = served(cut, p_cut, True, True)[2]
+    plain = served(cut, p_cut, True, False)[2]
+    b_rows = served(cut.with_(dtype="bfloat16"),
+                    cast_tree(p_cut, torch.bfloat16), True, True)[2]
+    torch.cuda.empty_cache()
+    f32_logits_gate(f"serve_f32_{tag}_first_token_logits", got, plain,
+                    b_rows, layers=n)
+    return rec, {f"f32_{tag}": (counts, kernels_run),
+                 f"f32_{tag}_eager": (counts_e, kernels_run)}
+
+
+def forward_f32(params, cfg32, plan, device):
+    """Fig. 4's rows on ``gmm`` in f32 (the baseline and the plan):
+    ``loss_fn`` on 4 x 512 tokens through B1 and B2, a CUDA graph each,
+    against the plain f32 paths eagerly; cross-entropy within RECIPE_TOL
+    relative; median ms of 3 interleaved calls each.  Returns (record,
+    the kernel forwards' launches)."""
+    from repro_torch import models
+    from repro_torch.core import apply_plan_params
+    from repro_torch.launch.forward import Forward, graph_context, make_batch
+    batch = make_batch(cfg32, 4, 512, seed=4, device=device)
+    cfg_l, params_l = apply_plan_params(params, cfg32, plan)
+    ctx = graph_context(device)
+    kern = models.ModelOpts(use_flash=True, use_moe_kernel=True)
+    fwds = {}
+    for name, (p, c) in (("baseline", (params, cfg32)),
+                         ("lexi", (params_l, cfg_l))):
+        fwds[name] = Forward(p, c, batch, kern, ctx)
+        fwds[f"{name}_plain"] = Forward(p, c, batch, models.ModelOpts())
+    times, xent = {n: [] for n in fwds}, {}
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
+    for r in range(4):
+        for n in (list(fwds) if r % 2 == 0 else list(fwds)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xent[n] = fwds[n]().item()
+            torch.cuda.synchronize()
+            if r:
+                times[n].append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    rec = {"batch": [4, 512], "models": {
+        n: {"xent": xent[n], "ms_median": statistics.median(times[n])}
+        for n in fwds}}
+    for name in ("baseline", "lexi"):
+        rel = abs(xent[name] - xent[f"{name}_plain"]) / abs(
+            xent[f"{name}_plain"])
+        rec["models"][name]["xent_rel_to_plain"] = rel
+        if not np.isfinite(xent[name]) or rel > RECIPE_TOL:
+            raise AssertionError(f"forward f32 {name}: xent {xent[name]} "
+                                 f"against plain {xent[f'{name}_plain']}")
+    del fwds
+    torch.cuda.empty_cache()
+    return rec, counts
+
+
+def serve_f32_phase(params, cfg, plan, bf16_rows, device, t_start):
+    """Phase 7b's serves (module doc): full-width, full-depth OLMoE-1B-7B
+    in f32 (the bf16 weights cast in place, ``as_f32``), served paged on
+    ``gmm`` (B1, B3, B4), contiguous with whole prompts (B2, B8, and B1 /
+    B3 on ``gmm``) and paged on ``dense`` (B9, B4), each gated by
+    ``serve_f32_layout`` against ``bf16_rows`` (the bf16 kernel path's
+    first-token rows of the same serve: "paged", "contiguous", "dense");
+    then Fig. 4's ``gmm`` rows (``forward_f32``).  Returns the launch
+    needs."""
+    from repro_torch import models
+    from repro_torch.serving import Engine
+    from repro_torch.tree import leaves
+    need = {}
+    rec = {"phase": "serve_f32", "allow_tf32": {
+        "matmul": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn": torch.backends.cudnn.allow_tf32}}
+    if rec["allow_tf32"]["matmul"] or rec["allow_tf32"]["cudnn"]:
+        raise AssertionError(f"serve_f32: TF32 is on {rec['allow_tf32']}")
+    t0 = time.perf_counter()
+    with as_f32(params):
+        gmm32 = cfg.with_(moe_impl="gmm", dtype="float32")
+        dense32 = cfg.with_(moe_impl="dense", dtype="float32")
+        rec["params_gb"] = sum(t.numel() * t.element_size()
+                               for t in leaves(params)) / 1e9
+
+        def paged(c, p, graphs, kernels):
+            return Engine(c, p, max_batch=8, max_len=512,
+                          prefill_chunk=64, use_kernel=kernels,
+                          use_moe_decode=kernels, opts=models.ModelOpts(
+                              use_moe_kernel=kernels), device=device,
+                          graphs=graphs)
+
+        def contiguous(c, p, graphs, kernels):
+            return Engine(c, p, max_batch=8, max_len=512,
+                          cache_layout="contiguous", prefill_chunk=0,
+                          use_moe_decode=kernels, opts=models.ModelOpts(
+                              use_flash=kernels, use_flash_decode=kernels,
+                              use_moe_kernel=kernels), device=device,
+                          graphs=graphs)
+        for tag, c, make, run, warm in (
+                ("paged", gmm32, paged,
+                 ("moe_gmm", "moe_decode", "flash_decode_paged"), False),
+                ("contiguous", gmm32, contiguous,
+                 ("moe_gmm", "moe_decode", "flash_attention",
+                  "flash_decode"), False),
+                ("dense", dense32, paged,
+                 ("moe_ffn", "flash_decode_paged"), True)):
+            rec[tag], n = serve_f32_layout(tag, c, params, make,
+                                           bf16_rows[tag], run, device, warm)
+            need.update(n)
+            rec[f"{tag}_seconds"] = time.perf_counter() - t0
+        rec["forward"], counts = forward_f32(params, gmm32, plan, device)
+        need["forward_f32"] = (counts, ("moe_gmm", "flash_attention"))
+    rec.update(seconds=time.perf_counter() - t0,
+               seconds_total=time.perf_counter() - t_start, card=card_line())
+    emit(rec)
+    return need
+
+
+def reduced_launchers_phase(device, t_start):
+    """The reduced OLMoE config (f32, d 128, hd 32) through the port's own
+    entry points on the card, in this process, each counted:
+    ``launch/serve.py`` on ``dense`` (B9, B4), on ``gmm`` with the fused
+    decode and a LExI plan (B1 in Alg. 1 and the chunks, B3, B4), on the
+    contiguous layout with whole prompts (B2, B8, B9), and
+    ``launch/serve_lexi.py`` (Alg. 1 through B1, held-out eval through B1
+    and B2, the engine through B1, B3 and B4).  Each must exit 0 and
+    launch its kernels.  Returns the launch needs."""
+    from repro_torch.launch import serve, serve_lexi
+    base = ["--arch", "olmoe-1b-7b", "--reduced", "--requests", "4",
+            "--max-new", "8", "--max-len", "96"]
+    runs = {
+        "serve_dense": (serve.main, base + ["--use-kernel",
+                                            "--use-moe-kernel"],
+                        ("moe_ffn", "flash_decode_paged")),
+        "serve_gmm": (serve.main, base + [
+            "--use-kernel", "--use-moe-kernel", "--moe-impl", "gmm",
+            "--use-moe-decode", "--lexi-budget-frac", "0.5"],
+            ("moe_gmm", "moe_decode", "flash_decode_paged")),
+        "serve_contiguous": (serve.main, base + [
+            "--cache-layout", "contiguous", "--prefill-chunk", "0",
+            "--use-flash", "--use-flash-decode", "--use-moe-kernel"],
+            ("flash_attention", "flash_decode", "moe_ffn")),
+        "serve_lexi": (serve_lexi.main, ["--steps", "40", "--requests", "4",
+                                         "--max-new", "6"],
+                       ("moe_gmm", "moe_decode", "flash_decode_paged",
+                        "flash_attention")),
+    }
+    rec, need = {"phase": "reduced_f32"}, {}
+    for tag, (fn, argv, kernels_run) in runs.items():
+        argv = argv + ["--device", device.type]
+        t0 = time.perf_counter()
+        rc, counts = counted(lambda: fn(argv))
+        if rc != 0:
+            raise AssertionError(f"reduced {tag} {argv}: exit {rc}")
+        rec[tag] = {"argv": argv, "exit": rc, "launches": counts,
+                    "seconds": time.perf_counter() - t0}
+        need[f"reduced_{tag}"] = (counts, kernels_run)
     emit(dict(rec, seconds_total=time.perf_counter() - t_start))
     return need
 
@@ -3766,16 +4389,20 @@ QUALITY_STEPS = 200
 def train_quality_phase(device, t_start, steps: int = QUALITY_STEPS,
                         requests: int = 12):
     """``launch/serve_lexi.py``'s recipe on the card: the tiny OLMoE-family
-    model trained ``steps`` steps; held-out ppl (6 eval batches) of the
-    untrained model, the baseline, the LExI plan at a 50 % budget (DP,
-    n_iter 8, profiled at 2 x 32), ``inter_prune(0.25)`` and
-    ``intra_prune(0.25)``, all on the dropless ``gmm``; the trained
-    baseline must be below 0.8x the untrained ppl.  Then the baseline and
-    the plan served through one graphed engine (12 requests of 16 prompt
-    and 16 new tokens, a warm-up wave first)."""
+    model (f32) trained ``steps`` steps; Alg. 1 (n_iter 8, 2 x 32) through
+    B1 and on the plain paths, the tables within RECIPE_TOL (largest
+    difference over the largest value) and each one's DP plan at a 50 %
+    budget printed, equal or not; held-out ppl (6 eval batches) of the
+    untrained model, the baseline, the kernel table's LExI plan,
+    ``inter_prune(0.25)`` and ``intra_prune(0.25)``, all on the dropless
+    ``gmm`` through B1 and B2, the baseline's within RECIPE_TOL relative
+    of the plain paths'; the trained baseline must be below 0.8x the
+    untrained ppl.  Then the baseline and the plan served through one
+    graphed engine on the kernels (12 requests of 16 prompt and 16 new
+    tokens, a warm-up wave first).  Returns the launch needs."""
     from repro_torch import models
     from repro_torch.core import apply_plan_params, inter_prune, \
-        intra_prune, optimize
+        intra_prune, optimize, profile_sensitivity
     from repro_torch.launch.serve_lexi import trained_tiny_moe
     from repro_torch.models import ModelOpts
     from repro_torch.serving import Engine, Request
@@ -3784,27 +4411,49 @@ def train_quality_phase(device, t_start, steps: int = QUALITY_STEPS,
     cfg, params, dc, res = trained_tiny_moe(steps, device=device)
     train_s = time.perf_counter() - t0
     gmm = cfg.with_(moe_impl="gmm")
-    opts = ModelOpts(moe_impl="gmm")
+    opts = ModelOpts(moe_impl="gmm", use_flash=True, use_moe_kernel=True)
 
-    def ppl(p, c):
-        return eval_perplexity(p, c, dc, steps=6, opts=opts)
+    def ppl(p, c, o=opts):
+        return eval_perplexity(p, c, dc, steps=6, opts=o)
 
     untrained = ppl(models.init_params(cfg, 0, device=device), gmm)
     budget = gmm.num_moe_layers * gmm.moe_top_k // 2
-    plan = optimize(params, gmm, budget, method="dp", n_iter=8,
-                    profile_batch=2, profile_seq=32, device=device,
-                    use_kernel=False)
+    tables, need = {}, {}
+    for name, kern in (("kernel", True), ("plain", False)):
+        tables[name], counts = counted(lambda: profile_sensitivity(
+            params, gmm, n_iter=8, batch=2, seq=32, seed=0, device=device,
+            use_kernel=kern))
+        if kern:
+            need["recipe_profile"] = (counts, ("moe_gmm",))
+        elif any(counts.values()):
+            raise AssertionError(f"train_quality: plain Alg. 1 launched "
+                                 f"{counts}")
+    want = tables["plain"].values
+    table_rel = float(np.abs(tables["kernel"].values - want).max()
+                      / np.abs(want).max())
+    plan = optimize(params, gmm, budget, method="dp",
+                    table=tables["kernel"])
+    plain_plan = optimize(params, gmm, budget, method="dp",
+                          table=tables["plain"])
     cfg_l, params_l = apply_plan_params(params, gmm, plan)
-    rows = {"baseline": ppl(params, gmm), "lexi": ppl(params_l, cfg_l)}
+    base, counts = counted(lambda: ppl(params, gmm))
+    need["recipe_eval"] = (counts, ("moe_gmm", "flash_attention"))
+    rows = {"baseline": base, "lexi": ppl(params_l, cfg_l)}
     for name, prune in (("inter_prune_0.25", inter_prune),
                         ("intra_prune_0.25", intra_prune)):
         rows[name] = ppl(*prune(params, gmm, 0.25))
+    plain_base = ppl(params, gmm, ModelOpts(moe_impl="gmm"))
+    ppl_rel = abs(base - plain_base) / plain_base
     if not all(np.isfinite(v) for v in rows.values()):
         raise AssertionError(f"train_quality: ppl {rows}")
     if not rows["baseline"] < 0.8 * untrained:
         raise AssertionError(f"train_quality: trained ppl "
                              f"{rows['baseline']} against untrained "
                              f"{untrained}")
+    if table_rel > RECIPE_TOL or ppl_rel > RECIPE_TOL:
+        raise AssertionError(f"train_quality: Alg. 1's table {table_rel}, "
+                             f"ppl {base} against plain {plain_base} "
+                             f"({ppl_rel}) past {RECIPE_TOL}")
 
     def reqs():
         return [Request(uid=i, prompt=np.random.default_rng(i).integers(
@@ -3812,13 +4461,16 @@ def train_quality_phase(device, t_start, steps: int = QUALITY_STEPS,
             for i in range(requests)]
 
     eng = Engine(gmm, params, max_batch=4, max_len=128, prefill_pad=16,
-                 device=device)
+                 use_kernel=True, use_moe_decode=True,
+                 opts=ModelOpts(use_moe_kernel=True), device=device)
     eng.add_plan("lexi", plan)
     tok_s = {}
     for name in ("base", "lexi"):
         eng.serve(reqs(), plan=name)               # captures its keys
-        check_results(f"train_quality {name}", eng.serve(reqs(), plan=name),
-                      gmm, 16)
+        res_q, counts = counted(lambda: eng.serve(reqs(), plan=name))
+        check_results(f"train_quality {name}", res_q, gmm, 16)
+        need[f"recipe_serve_{name}"] = (
+            counts, ("moe_gmm", "moe_decode", "flash_decode_paged"))
         tok_s[name] = eng.throughput()
     emit({"phase": "train_quality", "config": {
               "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -3828,12 +4480,17 @@ def train_quality_phase(device, t_start, steps: int = QUALITY_STEPS,
           "steps": steps, "train_s": train_s,
           "train_step_ms_median": statistics.median(res.step_times[1:]) * 1e3,
           "final_loss": res.losses[-1], "plan": list(plan.plan),
+          "plain_plan": list(plain_plan.plan),
+          "plans_equal": plan.plan == plain_plan.plan,
+          "table_rel_to_plain": table_rel, "ppl_plain_baseline": plain_base,
+          "ppl_rel_to_plain": ppl_rel, "tol": RECIPE_TOL,
           "budget": budget, "ppl_untrained": untrained, "ppl": rows,
           "serve_tok_s": tok_s,
           "seconds_total": time.perf_counter() - t_start})
     del eng, params
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return need
 
 
 # --------------------------------------------------------------------------- #
@@ -4566,6 +5223,10 @@ DRYRUN_BF16_STEP = ("train", 512, 4)
 #: (b'') ``_sdpa`` in ``"bf16_accum32"`` at OLMoE's heads, on the card
 #: against the CPU route on the same bf16 inputs: rows x tokens, causal
 SDPA_BF16_CHECK = (4, 512)
+#: (b-f32) DRYRUN_STEPS' prefill and decode again in f32 (B2, B8 and B9 on
+#: f32 operands) at DRYRUN_F32_LAYERS layers, held as (b) holds a step
+DRYRUN_F32_STEPS = (("prefill", 512, 4), ("decode", 512, 8))
+DRYRUN_F32_LAYERS = 4
 
 
 def dryrun_cells():
@@ -4596,7 +5257,8 @@ def dryrun_cells():
     return out
 
 
-def dryrun_card_step(mesh, device, step_kind, seq, rows, attn="f32"):
+def dryrun_card_step(mesh, device, step_kind, seq, rows, attn="f32",
+                     dtype=None):
     """(b) for one step: OLMoE (full depth; a train step at
     DRYRUN_TRAIN_LAYERS) through ``launch.dryrun.build_cell``, with the
     serving path's kernels (``--flash``; B9 in ``ep_a2a`` / ``ep_psum``),
@@ -4607,7 +5269,9 @@ def dryrun_card_step(mesh, device, step_kind, seq, rows, attn="f32"):
     forward's counted on meta under no grad; the step timed (CUDA events,
     the median of DRYRUN_REPS) at least the meta count's bound; the card's
     peak within DRYRUN_PEAK_BAND of the meta peak.  ``attn``: the step's
-    ``attn_compute_dtype``.  Returns (line, the launches)."""
+    ``attn_compute_dtype``; ``dtype``: the model's (None: the config's
+    bf16; "float32" at DRYRUN_F32_LAYERS).  Returns (line, the
+    launches)."""
     from repro_torch import models
     from repro_torch.analysis import record
     from repro_torch.analysis import roofline as rl
@@ -4621,6 +5285,8 @@ def dryrun_card_step(mesh, device, step_kind, seq, rows, attn="f32"):
     cfg = get_config("olmoe-1b-7b")
     if train:
         cfg = cfg.with_(num_layers=DRYRUN_TRAIN_LAYERS)
+    if dtype is not None:
+        cfg = cfg.with_(dtype=dtype, num_layers=DRYRUN_F32_LAYERS)
     cfg = dryrun.cell_config(cfg, shape)
     opts = dryrun.cell_opts(cfg, shape, use_flash=True,
                             attn_compute_dtype=attn)
@@ -4693,6 +5359,8 @@ def dryrun_card_step(mesh, device, step_kind, seq, rows, attn="f32"):
         line.update(layers=cfg.num_layers, remat=opts.remat, all_to_all=a2a)
     if attn != "f32":
         line["attn_compute_dtype"] = attn
+    if dtype is not None:
+        line.update(dtype=dtype, layers=cfg.num_layers)
     return line, launches
 
 
@@ -4781,8 +5449,9 @@ def dryrun_phase(device, t_start):
     """Phase 14 (module doc): (a) ``dryrun_cells`` on meta; (b)
     ``dryrun_card_step`` for each of DRYRUN_STEPS and
     ``whisper_mesh_check`` on a one-rank NCCL (1, 1) mesh; (b') the
-    DRYRUN_BF16_STEP in ``"bf16_accum32"`` there; (b'')
-    ``sdpa_bf16_check``.  Returns the launch needs (B2, B8, B9)."""
+    DRYRUN_BF16_STEP in ``"bf16_accum32"`` there; (b-f32) DRYRUN_F32_STEPS
+    in f32 there; (b'') ``sdpa_bf16_check``.  Returns the launch needs
+    (B2, B8, B9)."""
     t0 = time.perf_counter()
     rec = {"phase": "dryrun", "cells": dryrun_cells(),
            "cells_seconds": time.perf_counter() - t0}
@@ -4804,6 +5473,13 @@ def dryrun_phase(device, t_start):
             rec["bf16_step"], launches = dryrun_card_step(
                 mesh, device, kind, seq, rows, attn="bf16_accum32")
         need[f"dryrun_{kind}_bf16"] = (launches, ())
+        rec["f32_steps"] = []
+        for kind, seq, rows in DRYRUN_F32_STEPS:
+            with torch.no_grad():
+                line, launches = dryrun_card_step(mesh, device, kind, seq,
+                                                  rows, dtype="float32")
+            rec["f32_steps"].append(line)
+            need[f"dryrun_{kind}_f32"] = (launches, want[kind])
     rec["sdpa_bf16"] = sdpa_bf16_check(device)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4825,9 +5501,10 @@ DIGEST_QUANT = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
 
 
 def digests_main(device) -> int:
-    """``--digests [DIR]``: the attention checks and B5's (DIGEST_QUANT,
-    on a two-layer cut of each config), untimed, on the package already
-    imported (DIR's); prints the digests and the refusals."""
+    """``--digests [DIR]``: the attention checks (the f32 ones of B2, B8
+    and B4 at OLMoE's widths too) and B5's (DIGEST_QUANT, on a two-layer
+    cut of each config), untimed, on the package already imported (DIR's);
+    prints the digests and the refusals."""
     from repro_torch import models
     from repro_torch.configs import get_config
     cfg, cfg_mla = get_config("olmoe-1b-7b"), get_config("deepseek-v2-lite")
@@ -4839,6 +5516,12 @@ def digests_main(device) -> int:
             check(c, None, device)
         except ValueError as e:          # a shape the wrappers refuse
             refused[check.__name__] = str(e)
+    try:                                 # f32 (C12), at OLMoE's widths
+        f32_attention_checks(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+                             F32_LENS, 512, 512, None, device, None,
+                             "olmoe", {})
+    except (TypeError, ValueError) as e:
+        refused["f32_attention_checks"] = str(e)
     for name in DIGEST_QUANT:
         c = get_config(name).with_(num_layers=2)
         params = models.init_params(c, seed=0, device=device)
@@ -5058,6 +5741,15 @@ def main() -> int:
                 ("olmoe_chunk_c80", x2048[:512]),
                 ("olmoe_decode_c4", x2048[:8]))}, "shapes"),
     }
+    # the f32 kernels (C12) at the reduced config's shapes and full width
+    for name, per in f32_kernel_checks(layer, cfg, x512, device,
+                                       flush).items():
+        row = rows[name]
+        for tag, numbers in per.items():
+            r = kernel_row(name, row["source"], row["replaces"], *numbers,
+                           flop_rate=F32_FLOPS)
+            row.setdefault("shapes", {})[tag] = {
+                k: r[k] for k in NESTED_KEYS if k in r}
     del flush
     emit({"phase": "kernels", "ok": True,
           "timing": {n: {"ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -5191,8 +5883,11 @@ def main() -> int:
                           "flash_decode")
     rec = {"phase": "serve_contiguous"}
     for tag, plan_name in (("baseline", None), ("lexi", "lexi")):
-        res, counts = counted(
-            lambda: eng.serve(requests(cfg, seed=0), plan=plan_name))
+        with first_token_rows(eng) as first:
+            res, counts = counted(
+                lambda: eng.serve(requests(cfg, seed=0), plan=plan_name))
+        if tag == "baseline":
+            rows_contig = first
         check_results(f"contiguous {tag}", res, cfg, max_new)
         need[f"contiguous_{tag}"] = (counts, contiguous_kernels)
         rec[f"{tag}_tok_s"] = eng.throughput()
@@ -5251,7 +5946,15 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # ---- phase 7: the config's own dense impl on the paged pool ---------
-    need.update(serve_dense(params, cfg, plan, device, t_start))
+    dense_need, rows_dense = serve_dense(params, cfg, plan, device, t_start)
+    need.update(dense_need)
+    torch.cuda.empty_cache()
+
+    # ---- phase 7b: full-width OLMoE in f32, the reduced launchers -------
+    need.update(serve_f32_phase(
+        params, cfg, plan, {"paged": rows_base, "contiguous": rows_contig,
+                            "dense": rows_dense}, device, t_start))
+    need.update(reduced_launchers_phase(device, t_start))
     torch.cuda.empty_cache()
 
     # ---- phases 8-9: DeepSeek-V2-Lite (MLA), the OLMoE weights freed -----
@@ -5297,7 +6000,7 @@ def main() -> int:
     train_need, eager_eager = train_phase(
         cfg.with_(num_layers=TRAIN_LAYERS), device, t_start)
     need.update(train_need)
-    train_quality_phase(device, t_start)
+    need.update(train_quality_phase(device, t_start))
     train_resume_phase(t_start)
 
     # ---- phase 13: expert parallelism on a one-card mesh ----------------

@@ -54,6 +54,12 @@ __host__ __device__ constexpr size_t operand_offset(int n_slots,
   return red_offset(n_slots) + red_bytes;
 }
 
+// an output element: bf16 (rounded once) or f32
+__device__ __forceinline__ void ds_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void ds_store(float* p, float v) { *p = v; }
+
 // 8 bf16 (the staged values of up to 8 slots at one row) as f32.
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -77,10 +83,12 @@ __device__ __forceinline__ void wait_for_previous() {
 constexpr int COMBINE_NT = 256;
 
 // Pass 3, grid (B, ceil(D / COMBINE_NT)):
-// y[b, d] = sum_j weights[b, j] * partial[b * k + j, d], in slot order.
+// y[b, d] = sum_j weights[b, j] * partial[b * k + j, d], in slot order;
+// y in the activations' type T (bf16 or f32).
+template <class T>
 __global__ void __launch_bounds__(COMBINE_NT)
 decode_combine_kernel(const float* __restrict__ partial,
-                      const float* __restrict__ weights, __nv_bfloat16* __restrict__ y,
+                      const float* __restrict__ weights, T* __restrict__ y,
                       int D, int k) {
   const int b = blockIdx.x, d = blockIdx.y * COMBINE_NT + threadIdx.x;
   wait_for_previous();                  // partial of pass 2
@@ -88,7 +96,7 @@ decode_combine_kernel(const float* __restrict__ partial,
   float acc = 0.f;
   for (int j = 0; j < k; ++j)
     acc += weights[b * k + j] * partial[(size_t)(b * k + j) * D + d];
-  y[(size_t)b * D + d] = __float2bfloat16(acc);
+  ds_store(y + (size_t)b * D + d, acc);
 }
 
 // Launch a pass of ``threads`` threads a block, as a programmatic
@@ -110,11 +118,12 @@ cudaError_t launch_pass(Kernel kernel, dim3 grid, int threads, size_t smem,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// Pass 3 after pass 2 (partial [B * k, D] f32 -> y [B, D] bf16).
+// Pass 3 after pass 2 (partial [B * k, D] f32 -> y [B, D] bf16 or f32).
+template <class T>
 inline cudaError_t launch_combine(const float* partial, const float* weights,
-                                  __nv_bfloat16* y, int B, int D, int k,
+                                  T* y, int B, int D, int k,
                                   cudaStream_t s, bool dependent) {
-  return launch_pass(decode_combine_kernel,
+  return launch_pass(decode_combine_kernel<T>,
                      dim3(B, (D + COMBINE_NT - 1) / COMBINE_NT), COMBINE_NT,
                      0, s, dependent, partial, weights, y, D, k);
 }

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention_pallas.  Contract: q [B, Hq, S, hd], k, v [B, Hkv, S, hd]
-// bf16 -> out [B, Hq, S, hd] bf16, each addressed through its own (batch,
+// bf16 -> out [B, Hq, S, hd] bf16 (or all f32: the fa32 body below), each
+// addressed through its own (batch,
 // head, row) element strides with unit stride along hd, so the model's
 // [B, S, H, hd] activations are read and written in place, without
 // transposed copies; k and v share strides.  q head h reads kv head
@@ -43,7 +44,9 @@
 // the sequence's end evaluate the mask.  A ragged last q or kv tile is
 // zero-filled on load and masked, so any S runs.  The output is staged in
 // the Q tile's rows (each warp its own) and stored as 16-byte rows.  hd is
-// a template parameter, 64, 80 or 128: the mma's k-dimension takes 80 as
+// a template parameter, 32, 64, 80 or 128 (32: two k16 steps of Q K^T and
+// four n8 tiles of P V, rows padded to 40, 80 B, still eight distinct
+// banks for an 8x8 matrix's rows): the mma's k-dimension takes 80 as
 // five steps of 16 (Q K^T) and P V's n-dimension as ten n8 tiles, and a
 // row of 80 padded to 88 in shared memory (176 B, 11 x 16) still puts the
 // eight rows of an 8x8 matrix in distinct banks.  The tile shape, BQ 64 on 4 warps with
@@ -372,25 +375,241 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace fa
 
+// The f32 body: f32 operands, f32 FFMA on the CUDA cores (no tensor-core
+// product takes f32 x f32 at full precision; TF32 keeps about three
+// digits), P kept in f32.  One block of NWARP warps per (BQ-row q tile, q
+// head, batch row), the q tile walked from the end of the sequence as
+// above; each warp owns RPW rows of the tile in both products, so the
+// online-softmax state of a row lives in the registers of one warp (every
+// lane holds it).  Per BK-row kv tile in [lo, hi): K and V land in shared
+// memory (K rows at a pitch of HD + 4, so 32 lanes reading a float4 of 32
+// different rows hit distinct banks); S = Q K^T with one lane a key and
+// the warp's RPW rows in registers (q values broadcast from shared
+// memory); the max and the sum of each row by warp shuffles, in base 2;
+// P to shared memory, key-major; then O += P V with one lane a head dim
+// (and dims lane + 32 c), RPW rows each.  A ragged last q or kv tile is
+// zero-filled on load and masked; rows past S are never stored.
+namespace fa32 {
+
+constexpr int NWARP = 4;
+constexpr int RPW = 8;                 // q rows a warp
+constexpr int BQ = NWARP * RPW;        // q rows a block
+constexpr int BK = 32;                 // kv rows a tile: one lane each
+constexpr int NT = 32 * NWARP;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int HD>
+struct Smem {
+  static constexpr int KP = HD + 4;    // K's row pitch
+  // Q [BQ][HD], K [BK][KP], V [BK][HD], P [NWARP][BK][RPW]
+  static constexpr int FLOATS = BQ * HD + BK * KP + BK * HD + NWARP * BK * RPW;
+  static constexpr int BYTES = FLOATS * 4;
+};
+
+// rows [row0, row0 + ROWS) of an [S, HD] matrix (row pitch ld) into
+// shared memory at pitch P, zeros past S; float4 a thread
+template <int HD, int ROWS, int P>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int S, int ld) {
+  for (int i = threadIdx.x; i < ROWS * HD / 4; i += NT) {
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < S)
+      x = __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * ld +
+                                                c));
+    *reinterpret_cast<float4*>(dst + r * P + c) = x;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, int Hq, int Hkv, int S,
+                           int window, float scale_log2, int qsb, int qsh,
+                           int qss, int ksb, int ksh, int kss, int osb,
+                           int osh, int oss) {
+  using SM = Smem<HD>;
+  constexpr int KP = SM::KP;
+  constexpr int NC = (HD + 31) / 32;   // head dims a lane: lane + 32 c
+  extern __shared__ __align__(16) float smem_f[];
+  float* sq = smem_f;
+  float* sk = sq + BQ * HD;
+  float* sv = sk + BK * KP;
+  float* sp = sv + BK * HD;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;    // longest kv walks first
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q0 = qt * BQ, r0 = warp * RPW;
+  const float* kb = k + (size_t)b * ksb + (size_t)hk * ksh;
+  const float* vb = v + (size_t)b * ksb + (size_t)hk * ksh;
+  load_rows<HD, BQ, HD>(sq, q + (size_t)b * qsb + (size_t)h * qsh, q0, S,
+                        qss);
+
+  const int hi = min(q0 + BQ, S);
+  const int n_hi = (hi + BK - 1) / BK;
+  const int n_lo = window > 0 ? max(q0 - (window - 1), 0) / BK : 0;
+
+  float acc[RPW][NC], mx[RPW], l[RPW];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    mx[r] = -INFINITY;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+  }
+  float* pw = sp + warp * BK * RPW;            // this warp's P [BK][RPW]
+
+  for (int j = n_lo; j < n_hi; ++j) {
+    const int k0 = j * BK;
+    __syncthreads();                  // every warp is done with the tile
+    load_rows<HD, BK, KP>(sk, kb, k0, S, kss);
+    load_rows<HD, BK, HD>(sv, vb, k0, S, kss);
+    __syncthreads();
+
+    // S = Q K^T: lane = key k0 + lane, the warp's RPW rows
+    float s[RPW];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) s[r] = 0.f;
+    const float* kr = sk + lane * KP;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(sq + (r0 + r) * HD + d);
+        s[r] = fmaf(qv.x, kv.x, s[r]);
+        s[r] = fmaf(qv.y, kv.y, s[r]);
+        s[r] = fmaf(qv.z, kv.z, s[r]);
+        s[r] = fmaf(qv.w, kv.w, s[r]);
+      }
+    }
+
+    // the online softmax of each row, in base 2
+    const int jj = k0 + lane;
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int i = q0 + r0 + r;
+      const bool ok = jj <= i && jj < S && (window <= 0 || jj > i - window);
+      const float x = ok ? s[r] * scale_log2 : -INFINITY;
+      const float m_new = fmaxf(mx[r], warp_max(x));
+      // no visible key yet: l and O are 0, any finite factor will do
+      const float alpha = mx[r] == -INFINITY ? 1.f : ex2(mx[r] - m_new);
+      const float p = ok ? ex2(x - m_new) : 0.f;
+      mx[r] = m_new;
+      l[r] = l[r] * alpha + warp_sum(p);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
+      pw[lane * RPW + r] = p;
+    }
+    __syncwarp();
+
+    // O += P V: lane = head dim, the warp's RPW rows
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 pa = *reinterpret_cast<const float4*>(pw + kk * RPW);
+      const float4 pb = *reinterpret_cast<const float4*>(pw + kk * RPW + 4);
+      const float pv[RPW] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int d = lane + 32 * c;
+        if (d < HD) {
+          const float vv = sv[kk * HD + d];
+#pragma unroll
+          for (int r = 0; r < RPW; ++r) acc[r][c] = fmaf(pv[r], vv, acc[r][c]);
+        }
+      }
+    }
+    __syncwarp();                     // P is read before the next tile's
+  }
+
+  float* ob = out + (size_t)b * osb + (size_t)h * osh;
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int i = q0 + r0 + r;
+    if (i >= S) break;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d = lane + 32 * c;
+      if (d < HD) ob[(size_t)i * oss + d] = acc[r][c] * inv;
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Hq, int Hkv, int S, int window, const int (&st)[9],
+           cudaStream_t stream) {
+  auto kernel = flash_attention_f32_kernel<HD>;
+  const int n_q = (S + BQ - 1) / BQ;
+  if (B > 65535 || n_q > 65535) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<HD>::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3(Hq, B, n_q), NT, Smem<HD>::BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, S,
+      window, 1.4426950408889634f / sqrtf((float)HD), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8]);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fa32
+
 // Returns cudaGetLastError() after launch (cudaErrorInvalidValue for a
-// head size other than 64, 80 or 128, or a row stride that breaks 16-byte
-// loads).  window <= 0: none.  (qsb, qsh, qss), (ksb, ksh, kss) and (osb,
-// osh, oss) are the batch, head and row strides of q, of k and v, and of
-// out, in elements; the caller also keeps the base pointers 16-byte
-// aligned.
+// head size other than 32, 64, 80 or 128, or a row stride that breaks
+// 16-byte loads).  window <= 0: none.  (qsb, qsh, qss), (ksb, ksh, kss) and
+// (osb, osh, oss) are the batch, head and row strides of q, of k and v,
+// and of out, in elements; the caller also keeps the base pointers 16-byte
+// aligned.  f32: q, k, v and out are f32 (the fa32 body), else bf16.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Hq,
                                       int Hkv, int S, int hd, int window,
                                       int qsb, int qsh, int qss, int ksb,
                                       int ksh, int kss, int osb, int osh,
-                                      int oss, void* stream) {
+                                      int oss, int f32, void* stream) {
   const int st[9] = {qsb, qsh, qss, ksb, ksh, kss, osb, osh, oss};
   if (Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
+  const int vec = f32 ? 4 : 8;         // elements of a 16-byte load
   for (int i = 0; i < 9; ++i)
-    if (st[i] < 0 || st[i] % 8 != 0) return (int)cudaErrorInvalidValue;
+    if (st[i] < 0 || st[i] % vec != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  if (f32) {
+    switch (hd) {
+      case 32: return fa32::launch<32>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
+      case 64: return fa32::launch<64>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
+      case 80: return fa32::launch<80>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
+      case 128: return fa32::launch<128>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch (hd) {
+    case 32: return fa::launch<32>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
     case 64: return fa::launch<64>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
     case 80: return fa::launch<80>(q, k, v, out, B, Hq, Hkv, S, window, st, s);
     case 128: return fa::launch<128>(q, k, v, out, B, Hq, Hkv, S, window, st, s);

@@ -9,7 +9,10 @@
 // (an idle batch row) gets zeros; the TPU kernel returns the mean of V
 // there (a uniform softmax over -1e30 scores).  Neither value is ever read.
 // One more promise: a row's output is bitwise the same whatever the other
-// rows of the batch are.
+// rows of the batch are.  q, k, v and out are bf16 or, as the reference's
+// kernel takes any float dtype, all f32 (hd <= 128): the same block body
+// instantiated on f32 elements, f32 FFMA as in bf16, a 16-byte copy
+// carrying 4 values in place of 8.
 //
 // What bounds it on the H100: bytes.  Two dot products per cached slot and
 // head; at chip_smoke's check (8 rows over 512 slots holding 2012 live
@@ -80,11 +83,11 @@ struct ContiguousChunk {
   }
 };
 
-template <int G, int HD>
+template <int G, int HD, class T>
 __global__ void __launch_bounds__(SD_NT, 8)
-flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ pos,
-                    const int* __restrict__ cur_pos, bf16* __restrict__ out,
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ pos,
+                    const int* __restrict__ cur_pos, T* __restrict__ out,
                     float* __restrict__ part, int* __restrict__ counters,
                     int kv_stride, int nsub, int S, int window,
                     float scale_log2) {
@@ -100,7 +103,7 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     sd_zeros<G, HD>(out + o_off, t);
     return;
   }
-  bf16 qv[SdShape<G, HD>::QPT];
+  T qv[SdShape<G, HD>::QPT];
   sd_load_q<G, HD>(q + o_off, qv, t);
   const int s0 = c * CHUNK_SLOTS;
   ContiguousChunk<HD> ch;
@@ -113,18 +116,18 @@ flash_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   out + o_off, part, counters);
 }
 
-template <int G, int HD>
+template <int G, int HD, class T>
 struct Launch {
   static int run(dim3 grid, cudaStream_t s, const void* q, const void* k,
                  const void* v, const void* pos, const void* cur_pos,
                  void* out, void* part, void* counters, int kv_stride,
                  int nsub, int S, int window, float scale_log2) {
     // registers and the static shared memory hold G heads at sd_pad(HD)
-    if constexpr (G * sd_pad(HD) / 32 <= FD_GROUP_CAP) {
-      flash_decode_kernel<G, HD><<<grid, SD_NT, 0, s>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const int*>(pos),
-          static_cast<const int*>(cur_pos), static_cast<bf16*>(out),
+    if constexpr (G * sd_pad(HD) / 32 <= FD_GROUP_CAP && sd_fits<T, HD>()) {
+      flash_decode_kernel<G, HD, T><<<grid, SD_NT, 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const int*>(pos),
+          static_cast<const int*>(cur_pos), static_cast<T*>(out),
           static_cast<float*>(part), static_cast<int*>(counters), kv_stride,
           nsub, S, window, scale_log2);
       return 0;
@@ -141,21 +144,22 @@ struct Launch {
 // without an instantiation, or another n_chunks).  window <= 0: none.
 // kv_stride: the kv heads a slot holds in memory (>= Hkv); k and v are
 // then heads [0, Hkv) at their base pointers, a head slice of a cache of
-// kv_stride heads.
+// kv_stride heads.  f32: q, k, v and out are f32 (hd <= 128), else bf16.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* pos,
                                    const void* cur_pos, void* out,
                                    void* part, void* counters, int B, int Hq,
                                    int Hkv, int hd, int S, int window,
-                                   int n_chunks, int kv_stride,
+                                   int n_chunks, int kv_stride, int f32,
                                    void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || !fd_head_size(hd) || S <= 0 ||
+      (f32 && !fd_head_size_f32(hd)) ||
       kv_stride < Hkv || n_chunks != (S + CHUNK_SLOTS - 1) / CHUNK_SLOTS)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = PD_LOG2E / sqrtf((float)hd);
   const int g = Hq / Hkv, G = fd_block_group(g, sd_pad(hd));
   const int err = fd_dispatch<Launch>(
-      G, hd, dim3(Hkv * (g / G), n_chunks, B),
+      f32, G, hd, dim3(Hkv * (g / G), n_chunks, B),
       reinterpret_cast<cudaStream_t>(stream), q, k, v, pos, cur_pos, out,
       part, counters, kv_stride, g / G, S, window, scale_log2);
   if (err) return err;

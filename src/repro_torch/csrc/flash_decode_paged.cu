@@ -10,7 +10,9 @@
 // table entries equal to the trash page 0 are skipped.  A query with no
 // valid slot at all (an idle batch row) gets zeros: finite, never read.
 // One more promise: a row's output is bitwise the same whatever the other
-// rows of the batch are and whatever the table view's width n_blk.
+// rows of the batch are and whatever the table view's width n_blk.  q, kp,
+// vp and out are bf16 or, as the reference's kernel takes any float
+// dtype, all f32 (hd <= 128; the block body on f32 elements).
 //
 // What bounds it on the H100: bytes.  The work is two dot products per
 // cached position and head; at B 8, 16 kv heads, hd 128 and 2012 live
@@ -111,15 +113,15 @@ struct PagedChunk {
   }
 };
 
-template <int G, int HD>
+template <int G, int HD, class T>
 __global__ void __launch_bounds__(SD_NT, 8)
-flash_decode_paged_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ kp,
-                          const bf16* __restrict__ vp,
+flash_decode_paged_kernel(const T* __restrict__ q,
+                          const T* __restrict__ kp,
+                          const T* __restrict__ vp,
                           const int* __restrict__ posp,
                           const int* __restrict__ bt, int bt_stride,
                           const int* __restrict__ cur_pos,
-                          bf16* __restrict__ out, float* __restrict__ part,
+                          T* __restrict__ out, float* __restrict__ part,
                           int* __restrict__ counters, int kv_stride,
                           int nsub, int P, int n_blk, int window,
                           float scale_log2) {
@@ -131,7 +133,7 @@ flash_decode_paged_kernel(const bf16* __restrict__ q,
 
   // loads that need no table entry go first, to overlap the table's
   const int cur = cur_pos[b];
-  bf16 qv[SdShape<G, HD>::QPT];
+  T qv[SdShape<G, HD>::QPT];
   sd_load_q<G, HD>(q + o_off, qv, t);
 
   // the row's table, 32 columns a pass (one load a lane): the block's own
@@ -169,19 +171,19 @@ flash_decode_paged_kernel(const bf16* __restrict__ q,
                   out + o_off, part, counters);
 }
 
-template <int G, int HD>
+template <int G, int HD, class T>
 struct Launch {
   static int run(dim3 grid, cudaStream_t s, const void* q, const void* kp,
                  const void* vp, const void* posp, const void* bt,
                  int bt_stride, const void* cur_pos, void* out, void* part,
                  void* counters, int kv_stride, int nsub, int P, int n_blk,
                  int window, float scale_log2) {
-    if constexpr (G * sd_pad(HD) / 32 <= FD_GROUP_CAP) {
-      flash_decode_paged_kernel<G, HD><<<grid, SD_NT, 0, s>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
-          static_cast<const bf16*>(vp), static_cast<const int*>(posp),
+    if constexpr (G * sd_pad(HD) / 32 <= FD_GROUP_CAP && sd_fits<T, HD>()) {
+      flash_decode_paged_kernel<G, HD, T><<<grid, SD_NT, 0, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(kp),
+          static_cast<const T*>(vp), static_cast<const int*>(posp),
           static_cast<const int*>(bt), bt_stride,
-          static_cast<const int*>(cur_pos), static_cast<bf16*>(out),
+          static_cast<const int*>(cur_pos), static_cast<T*>(out),
           static_cast<float*>(part), static_cast<int*>(counters), kv_stride,
           nsub, P, n_blk, window, scale_log2);
       return 0;
@@ -198,7 +200,8 @@ struct Launch {
 // without an instantiation, or another n_chunks).  window <= 0: none.
 // kv_stride: the kv heads a pool slot holds in memory (>= Hkv); kp and vp
 // are then heads [0, Hkv) at their base pointers, a head slice of a pool
-// of kv_stride heads.
+// of kv_stride heads.  f32: q, kp, vp and out are f32 (hd <= 128), else
+// bf16.
 extern "C" int flash_decode_paged_launch(const void* q, const void* kp,
                                          const void* vp, const void* posp,
                                          const void* bt, const void* cur_pos,
@@ -207,15 +210,16 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* kp,
                                          int Hkv, int hd, int P, int n_blk,
                                          int bt_stride, int window,
                                          int n_chunks, int kv_stride,
-                                         void* stream) {
+                                         int f32, void* stream) {
   if (Hkv <= 0 || Hq % Hkv != 0 || !fd_head_size(hd) || P < 1 ||
+      (f32 && !fd_head_size_f32(hd)) ||
       n_blk < 0 || kv_stride < Hkv ||
       n_chunks != max(1, (n_blk + CHUNK_PAGES - 1) / CHUNK_PAGES))
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = PD_LOG2E / sqrtf((float)hd);
   const int g = Hq / Hkv, G = fd_block_group(g, sd_pad(hd));
   const int err = fd_dispatch<Launch>(
-      G, hd, dim3(Hkv * (g / G), n_chunks, B),
+      f32, G, hd, dim3(Hkv * (g / G), n_chunks, B),
       reinterpret_cast<cudaStream_t>(stream), q, kp, vp, posp, bt, bt_stride,
       cur_pos, out, part, counters, kv_stride, g / G, P, n_blk, window,
       scale_log2);

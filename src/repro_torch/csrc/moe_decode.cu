@@ -4,9 +4,12 @@
 // Contract (identical): x [B, D], w1 [E, D, 2F] (gate = first F columns,
 // up = next F), w2 [E, F, D], idx [B, k] int32, weights [B, k] f32 ->
 // y [B, D] with y[b] = sum_j weights[b, j] * SwiGLU(x[b]; expert idx[b, j]),
-// accumulated in f32.  Only the routed experts' weights are read, and a
-// slot with weight 0 adds exactly nothing (acc += 0 * partial), which is
-// what route()'s k_budget relies on.
+// accumulated in f32; x, w1, w2 and y are bf16 or, as the reference's
+// kernel takes any float dtype, all f32 (the same passes on f32 elements:
+// a thread's 8 weight columns are 32 bytes, half as many rows in flight).
+// Only the routed experts' weights are read, and a slot with weight 0 adds
+// exactly nothing (acc += 0 * partial), which is what route()'s k_budget
+// relies on.
 //
 // What bounds it on the H100: bytes.  At B 8, k 8, D 2048, F 1024 the work
 // is 0.2 GFLOP against 12.6 MB of weights per routed expert; the 64 slots
@@ -71,8 +74,56 @@ constexpr int MIN_BLOCKS = 2;
 // their blocks start as the earlier pass's last blocks run, find their
 // slots and wait for its results there
 constexpr bool DEPENDENT_LAUNCH = true;
+// f32 weights: half the rows in flight, as each row is twice the bytes
+template <class T>
 __host__ __device__ constexpr int unroll(int m) {
-  return m <= 4 ? UNROLL_FEW : UNROLL_MANY;
+  return (m <= 4 ? UNROLL_FEW : UNROLL_MANY) / (int)(sizeof(T) / 2);
+}
+
+// a thread's 8 columns of one weight row: 16 bytes of bf16, or 32 of f32
+template <class T>
+struct Cols8;
+template <>
+struct Cols8<bf16> {
+  uint4 w;
+  __device__ __forceinline__ void load(const bf16* p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { w = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void get(float (&f)[8]) const { unpack8(w, f); }
+};
+template <>
+struct Cols8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void zero() {
+    a = b = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __device__ __forceinline__ void get(float (&f)[8]) const {
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+};
+
+// the 8 slots' staged values at one row of xs [D][R] as f32
+__device__ __forceinline__ void staged8(const bf16* p, float (&f)[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void staged8(const float* p, float (&f)[8]) {
+  Cols8<float> c;
+  c.a = reinterpret_cast<const float4*>(p)[0];
+  c.b = reinterpret_cast<const float4*>(p)[1];
+  c.get(f);
+}
+
+// silu(g) * u; f32 operands take the precise exp, as their plain version
+template <class T>
+__device__ __forceinline__ float swiglu(float g, float u) {
+  if constexpr (sizeof(T) == 2) return g / (1.0f + __expf(-g)) * u;
+  else return g / (1.0f + expf(-g)) * u;
 }
 
 // acc[r][c] += a[r][row] * W[row][c] over rows g, g + GROUPS, ... < n_rows
@@ -82,30 +133,29 @@ __host__ __device__ constexpr int unroll(int m) {
 // stream_rows_range adds rows [r0, r1) to acc without zeroing it or
 // summing the groups: r0 a multiple of GROUPS * UNROLL keeps each thread's
 // rows in stream_rows' order.
-template <int M, class Operand>
+template <int M, class T, class Operand>
 __device__ __forceinline__ void stream_rows_range(float (&acc)[M][8],
-                                                  const bf16* __restrict__ W,
+                                                  const T* __restrict__ W,
                                                   size_t ld, int r0, int r1,
                                                   bool live,
                                                   Operand operand) {
-  constexpr int UNROLL = unroll(M);
+  constexpr int UNROLL = unroll<T>(M);
   const int g = threadIdx.x / 16;
   if (live) {
     for (int row0 = r0 + g; row0 < r1; row0 += GROUPS * UNROLL) {
-      uint4 w[UNROLL];
+      Cols8<T> w[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int row = row0 + u * GROUPS;
-        w[u] = row < r1
-                   ? __ldg(reinterpret_cast<const uint4*>(W + row * ld))
-                   : make_uint4(0u, 0u, 0u, 0u);
+        if (row < r1) w[u].load(W + row * ld);
+        else w[u].zero();
       }
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
         const int row = row0 + u * GROUPS;
         if (row < r1) {
           float wf[8], a[M];
-          unpack8(w[u], wf);
+          w[u].get(wf);
           operand(row, a);
 #pragma unroll
           for (int r = 0; r < M; ++r)
@@ -136,9 +186,9 @@ __device__ __forceinline__ void pair_groups(float (&acc)[M][8]) {
       acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], 16);
 }
 
-template <int M, class Operand>
+template <int M, class T, class Operand>
 __device__ __forceinline__ void stream_rows(float (&acc)[M][8],
-                                            const bf16* __restrict__ W,
+                                            const T* __restrict__ W,
                                             size_t ld, int n_rows, bool live,
                                             Operand operand) {
   zero_acc<M>(acc);
@@ -159,11 +209,11 @@ __device__ __forceinline__ void to_red(const float (&acc)[M][8], float* red) {
   }
 }
 
-// Pass 1 over M (1..R) slots staged in xs [D][R] bf16: gate and up sums of
-// 64 columns each into red.  Thread q = t % 16 reads gate columns
-// f0 + 8q.. (q < 8) or up columns f0 + 8(q - 8).. (q >= 8).
-template <int M>
-__device__ void up_rows(const bf16* __restrict__ w1e, const bf16* xs,
+// Pass 1 over M (1..R) slots staged in xs [D][R] (bf16 or f32): gate and
+// up sums of 64 columns each into red.  Thread q = t % 16 reads gate
+// columns f0 + 8q.. (q < 8) or up columns f0 + 8(q - 8).. (q >= 8).
+template <int M, class T>
+__device__ void up_rows(const T* __restrict__ w1e, const T* xs,
                         float* red, int D, int F, int f0) {
   const int q = threadIdx.x % 16;
   const int col = f0 + 8 * (q % 8);
@@ -171,7 +221,7 @@ __device__ void up_rows(const bf16* __restrict__ w1e, const bf16* xs,
   stream_rows<M>(acc, w1e + (q < 8 ? 0 : F) + col, 2 * (size_t)F, D,
                  col < F, [&](int d, float (&a)[M]) {
                    float xf[8];
-                   unpack8(*reinterpret_cast<const uint4*>(xs + d * R), xf);
+                   staged8(xs + d * R, xf);
 #pragma unroll
                    for (int r = 0; r < M; ++r) a[r] = xf[r];
                  });
@@ -180,8 +230,8 @@ __device__ void up_rows(const bf16* __restrict__ w1e, const bf16* xs,
 
 // Pass 2 over M slots (slots: their slot indices), 128 columns from d0: their
 // h rows staged in hs [FC][R] f32 a chunk at a time.
-template <int M>
-__device__ void down_rows(const bf16* __restrict__ w2e,
+template <int M, class T>
+__device__ void down_rows(const T* __restrict__ w2e,
                           const float* __restrict__ h, const int* slots,
                           float* hs, float* red, int D, int F, int d0) {
   const int q = threadIdx.x % 16;
@@ -207,28 +257,30 @@ __device__ void down_rows(const bf16* __restrict__ w2e,
   to_red<M>(acc, red);
 }
 
-static_assert(FC % (GROUPS * UNROLL_FEW) == 0 &&
-                  FC % (GROUPS * UNROLL_MANY) == 0,
+static_assert(FC % (GROUPS * unroll<bf16>(1)) == 0 &&
+                  FC % (GROUPS * unroll<bf16>(R)) == 0 &&
+                  FC % (GROUPS * unroll<float>(1)) == 0 &&
+                  FC % (GROUPS * unroll<float>(R)) == 0,
               "a chunk starts where a thread's row stride does");
 
 // the warps' sums, red [NW][R][128] f32, in shared memory
 constexpr size_t RED_BYTES = (size_t)NW * R * 128 * 4;
 
+template <class T>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-decode_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+decode_up_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                  const int* __restrict__ idx, float* __restrict__ h,
                  int D, int F, int k, int n_slots) {
   extern __shared__ __align__(16) uint8_t sm[];
   __shared__ int count;
   int* slots = reinterpret_cast<int*>(sm);
   float* red = reinterpret_cast<float*>(sm + red_offset(n_slots));
-  bf16* xs =
-      reinterpret_cast<bf16*>(sm + operand_offset(n_slots, RED_BYTES));
+  T* xs = reinterpret_cast<T*>(sm + operand_offset(n_slots, RED_BYTES));
   const int e = blockIdx.y, f0 = blockIdx.x * FT;
   launch_dependents();
   const int n = find_slots(idx, n_slots, e, slots, &count);
   if (n == 0) return;
-  const bf16* w1e = w1 + (size_t)e * D * 2 * F;
+  const T* w1e = w1 + (size_t)e * D * 2 * F;
   for (int s0 = 0; s0 < n; s0 += R) {
     const int m = min(R, n - s0);
     for (int i = threadIdx.x; i < m * D; i += NT) {
@@ -256,15 +308,16 @@ decode_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
           g += red[(w * R + r) * 128 + c];
           u += red[(w * R + r) * 128 + FT + c];
         }
-        h[(size_t)slots[s0 + r] * F + f0 + c] = g / (1.0f + __expf(-g)) * u;
+        h[(size_t)slots[s0 + r] * F + f0 + c] = swiglu<T>(g, u);
       }
     }
     __syncthreads();
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-decode_down_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
+decode_down_kernel(const float* __restrict__ h, const T* __restrict__ w2,
                    const int* __restrict__ idx, float* __restrict__ partial,
                    int D, int F, int n_slots) {
   extern __shared__ __align__(16) uint8_t sm[];
@@ -277,7 +330,7 @@ decode_down_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
   launch_dependents();
   const int n = find_slots(idx, n_slots, e, slots, &count);
   if (n == 0) return;
-  const bf16* w2e = w2 + (size_t)e * F * D;
+  const T* w2e = w2 + (size_t)e * F * D;
   wait_for_previous();                  // h of pass 1
   for (int s0 = 0; s0 < n; s0 += R) {
     const int m = min(R, n - s0);
@@ -306,43 +359,56 @@ decode_down_kernel(const float* __restrict__ h, const bf16* __restrict__ w2,
   }
 }
 
-// x [B, D], w1 [E, D, 2F], w2 [E, F, D], y [B, D] bf16; idx [B, k] int32;
-// weights [B, k] f32; h [B, k, F] and partial [B, k, D] f32 scratch.  Needs
-// D % 64 == 0, F % 32 == 0 and 16-byte aligned bases.  Returns
-// cudaGetLastError() after launch.
-extern "C" int moe_decode_launch(const void* x, const void* w1, const void* w2,
-                                 const void* idx, const void* weights, void* h,
-                                 void* partial, void* y, int B, int D, int F,
-                                 int k, int E, void* stream) {
-  if (D % 64 || F % 32 || B <= 0 || k <= 0 || E <= 0 || E > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+template <class T>
+static int launch(const void* x, const void* w1, const void* w2,
+                  const void* idx, const void* weights, void* h,
+                  void* partial, void* y, int B, int D, int F, int k, int E,
+                  cudaStream_t s) {
   const int n_slots = B * k;
-  const size_t smem1 = operand_offset(n_slots, RED_BYTES) + (size_t)D * R * 2;
+  const size_t smem1 =
+      operand_offset(n_slots, RED_BYTES) + (size_t)D * R * sizeof(T);
   const size_t smem2 =
       operand_offset(n_slots, RED_BYTES) + (size_t)min(F, FC) * R * 4;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(decode_up_kernel,
+  if ((err = cudaFuncSetAttribute(decode_up_kernel<T>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem1)) != cudaSuccess ||
-      (err = cudaFuncSetAttribute(decode_down_kernel,
+      (err = cudaFuncSetAttribute(decode_down_kernel<T>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem2)) != cudaSuccess)
     return (int)err;
-  decode_up_kernel<<<dim3((F + FT - 1) / FT, E), NT, smem1, s>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+  decode_up_kernel<T><<<dim3((F + FT - 1) / FT, E), NT, smem1, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const int*>(idx), static_cast<float*>(h), D, F, k, n_slots);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = launch_pass(decode_down_kernel, dim3((D + DT - 1) / DT, E), NT,
-                         smem2, s, DEPENDENT_LAUNCH,
+  if ((err = launch_pass(decode_down_kernel<T>, dim3((D + DT - 1) / DT, E),
+                         NT, smem2, s, DEPENDENT_LAUNCH,
                          static_cast<const float*>(h),
-                         static_cast<const bf16*>(w2),
+                         static_cast<const T*>(w2),
                          static_cast<const int*>(idx),
                          static_cast<float*>(partial), D, F, n_slots)) !=
       cudaSuccess)
     return (int)err;
   return (int)launch_combine(static_cast<const float*>(partial),
                              static_cast<const float*>(weights),
-                             static_cast<bf16*>(y), B, D, k, s,
+                             static_cast<T*>(y), B, D, k, s,
                              DEPENDENT_LAUNCH);
+}
+
+// x [B, D], w1 [E, D, 2F], w2 [E, F, D], y [B, D] bf16 (f32 when f32 is
+// nonzero); idx [B, k] int32;
+// weights [B, k] f32; h [B, k, F] and partial [B, k, D] f32 scratch.  Needs
+// D % 64 == 0, F % 32 == 0 and 16-byte aligned bases.  Returns
+// cudaGetLastError() after launch.
+extern "C" int moe_decode_launch(const void* x, const void* w1, const void* w2,
+                                 const void* idx, const void* weights, void* h,
+                                 void* partial, void* y, int B, int D, int F,
+                                 int k, int E, int f32, void* stream) {
+  if (D % 64 || F % 32 || B <= 0 || k <= 0 || E <= 0 || E > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return f32 ? launch<float>(x, w1, w2, idx, weights, h, partial, y, B, D, F,
+                             k, E, s)
+             : launch<bf16>(x, w1, w2, idx, weights, h, partial, y, B, D, F,
+                            k, E, s);
 }

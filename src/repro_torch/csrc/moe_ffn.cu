@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/moe_ffn.py::moe_ffn_pallas.
 // Contract (identical): xe [E, C, D], w1 [E, D, 2F] (gate = first F
-// columns, up = next F), w2 [E, F, D] -> out [E, C, D] in xe's dtype (bf16),
+// columns, up = next F), w2 [E, F, D] -> out [E, C, D] in xe's dtype (bf16,
+// or f32 with f32 weights: f32_tiles.cuh's bodies, h kept in f32),
 // out[e] = (silu(xe[e] @ w1[e][:, :F]) * (xe[e] @ w1[e][:, F:])) @ w2[e]
 // with f32 products.  It walks every expert, empty or not, and every
 // capacity row: a row no token copy filled is zero in xe, and comes out
@@ -53,9 +54,11 @@
 // multicast to them, were slower at every C measured (2-4 row tiles, with
 // or without the multicast), and are not used.
 
+#include "f32_tiles.cuh"
 #include "wgmma_tiles.cuh"
 
 using namespace wgt;
+using namespace f32t;
 
 // the launch's shape (tools/expert_kernel_variants.py times others)
 constexpr int UP_STAGES = 4;
@@ -100,15 +103,56 @@ ffn_down_kernel(const __grid_constant__ CUtensorMap tm_h,
                              F, t.col0);
 }
 
-// xe [E, C, D], w1 [E, D, 2F], w2 [E, F, D], out [E, C, D] bf16; h
-// [E, C, F] bf16 scratch.  Needs D % 64 == 0, F % 32 == 0 and 16-byte
-// aligned bases.  Returns cudaGetLastError() after launch, or the
-// error of encoding a tensor map.
+// f32 operands (f32_tiles.cuh): grid (column block, F32_TM-row tile of C,
+// expert); h stays f32 between the passes.
+__global__ void __launch_bounds__(F32_NT)
+ffn_up_f32_kernel(const float* __restrict__ xe, const float* __restrict__ w1,
+                  float* __restrict__ h, int C, int D, int F) {
+  const int e = blockIdx.z, r0 = blockIdx.y * F32_TM;
+  f32_up_tile(xe + ((size_t)e * C + r0) * D, min(F32_TM, C - r0),
+              w1 + (size_t)e * D * 2 * F, h + ((size_t)e * C + r0) * F, D, F,
+              blockIdx.x * F32_TN);
+}
+
+__global__ void __launch_bounds__(F32_NT)
+ffn_down_f32_kernel(const float* __restrict__ h,
+                    const float* __restrict__ w2, float* __restrict__ out,
+                    int C, int D, int F) {
+  const int e = blockIdx.z, r0 = blockIdx.y * F32_TM;
+  f32_down_tile(h + ((size_t)e * C + r0) * F, min(F32_TM, C - r0),
+                w2 + (size_t)e * F * D, out + ((size_t)e * C + r0) * D, D, F,
+                blockIdx.x * F32_TN);
+}
+
+static int launch_f32(const void* xe, const void* w1, const void* w2,
+                      void* h, void* out, int E, int C, int D, int F,
+                      cudaStream_t s) {
+  const int n_rt = (C + F32_TM - 1) / F32_TM;
+  if (n_rt > 65535) return (int)cudaErrorInvalidValue;
+  ffn_up_f32_kernel<<<dim3((F + F32_TN - 1) / F32_TN, n_rt, E), F32_NT, 0,
+                      s>>>(static_cast<const float*>(xe),
+                           static_cast<const float*>(w1),
+                           static_cast<float*>(h), C, D, F);
+  cudaError_t e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  ffn_down_f32_kernel<<<dim3(D / F32_TN, n_rt, E), F32_NT, 0, s>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w2),
+      static_cast<float*>(out), C, D, F);
+  return (int)cudaGetLastError();
+}
+
+// xe [E, C, D], w1 [E, D, 2F], w2 [E, F, D], out [E, C, D] bf16 (f32 when
+// f32 is nonzero); h [E, C, F] scratch of the same type.  Needs D % 64 ==
+// 0, F % 32 == 0 and 16-byte aligned bases.  Returns cudaGetLastError()
+// after launch, or the error of encoding a tensor map.
 extern "C" int moe_ffn_launch(const void* xe, const void* w1, const void* w2,
                               void* h, void* out, int E, int C, int D, int F,
-                              void* stream) {
+                              int f32, void* stream) {
   if (D % 64 || F % 32 || C <= 0 || E <= 0 || E > 65535)
     return (int)cudaErrorInvalidValue;
+  if (f32)
+    return launch_f32(xe, w1, w2, h, out, E, C, D, F,
+                      reinterpret_cast<cudaStream_t>(stream));
   CUtensorMap tx, tw1, th, tw2;
   int err;
   if ((err = activation_map(&tx, xe, E, C, D)) ||

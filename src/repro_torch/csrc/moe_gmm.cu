@@ -6,7 +6,9 @@
 // (clamped into [0, E) for dead tiles) and tile_valid[i] is 1 iff the tile
 // holds a real row.  out = SwiGLU(xs; w1[e], w2[e]) per tile, with
 // w1 [E, D, 2F] (gate = first F columns, up = next F) and w2 [E, F, D];
-// dead tiles write zeros and do no math.
+// dead tiles write zeros and do no math.  Operands bf16, or all f32 (the
+// reference's kernel takes any float dtype): f32 runs f32_tiles.cuh's
+// row-tile bodies, FFMA on the CUDA cores, h kept in f32.
 //
 // What bounds it on the H100: at the serving shapes (D 2048, F 1024, 64
 // experts, 512 tokens x top-8) every expert is routed, so one call must
@@ -44,9 +46,11 @@
 // tile's rows or zeros and never stored.  A warpgroup with no rows of the
 // tile (block_m <= 64) sits out.
 
+#include "f32_tiles.cuh"
 #include "wgmma_tiles.cuh"
 
 using namespace wgt;
+using namespace f32t;
 
 constexpr int UP_STAGES = 4;      // x box(es) + gate and up columns
 constexpr int DOWN_STAGES = 6;    // h box(es) + w2 columns
@@ -87,18 +91,90 @@ gmm_down_kernel(const __grid_constant__ CUtensorMap tm_h,
                                   out + (size_t)row0 * D, D, F, d0);
 }
 
-// xs [M, D], w1 [E, D, 2F], w2 [E, F, D], out [M, D] bf16; tile_expert,
-// tile_valid [M / block_m] int32; h [M, F] bf16 scratch.  Needs D % 64 == 0,
-// F % 32 == 0, block_m % 8 == 0 and <= 128, 16-byte aligned bases.
-// Returns cudaGetLastError() after launch, or the error of encoding a
-// tensor map.
+// f32 operands (f32_tiles.cuh): a block takes F32_TM rows of a row tile
+// (block_m > F32_TM: the tile's parts along the grid's y) by F32_TN
+// columns; h stays f32 between the passes.
+__device__ __forceinline__ int f32_part_rows(int block_m, int& tile,
+                                             int& row0) {
+  const int parts = (block_m + F32_TM - 1) / F32_TM;
+  tile = blockIdx.y / parts;
+  const int part = blockIdx.y % parts;
+  row0 = tile * block_m + part * F32_TM;
+  return min(F32_TM, block_m - part * F32_TM);
+}
+
+__global__ void __launch_bounds__(F32_NT)
+gmm_up_f32_kernel(const float* __restrict__ xs, const float* __restrict__ w1,
+                  const int* __restrict__ tile_expert,
+                  const int* __restrict__ tile_valid, float* __restrict__ h,
+                  int D, int F, int block_m) {
+  int tile, row0;
+  const int rows = f32_part_rows(block_m, tile, row0);
+  if (!tile_valid[tile]) return;                // pass 2 writes the zeros
+  f32_up_tile(xs + (size_t)row0 * D, rows,
+              w1 + (size_t)tile_expert[tile] * D * 2 * F,
+              h + (size_t)row0 * F, D, F, blockIdx.x * F32_TN);
+}
+
+__global__ void __launch_bounds__(F32_NT)
+gmm_down_f32_kernel(const float* __restrict__ h,
+                    const float* __restrict__ w2,
+                    const int* __restrict__ tile_expert,
+                    const int* __restrict__ tile_valid,
+                    float* __restrict__ out, int D, int F, int block_m) {
+  int tile, row0;
+  const int rows = f32_part_rows(block_m, tile, row0);
+  const int d0 = blockIdx.x * F32_TN;
+  if (!tile_valid[tile]) {                      // dead tile: zeros, no math
+    for (int i = threadIdx.x; i < rows * (F32_TN / 4); i += F32_NT)
+      *reinterpret_cast<float4*>(out + (size_t)(row0 + i / (F32_TN / 4)) * D +
+                                 d0 + (i % (F32_TN / 4)) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  f32_down_tile(h + (size_t)row0 * F, rows,
+                w2 + (size_t)tile_expert[tile] * F * D,
+                out + (size_t)row0 * D, D, F, d0);
+}
+
+static int launch_f32(const void* xs, const void* w1, const void* w2,
+                      const void* tile_expert, const void* tile_valid,
+                      void* h, void* out, int M, int D, int F, int block_m,
+                      cudaStream_t s) {
+  const int parts = (block_m + F32_TM - 1) / F32_TM;
+  const int blocks_y = M / block_m * parts;
+  if (blocks_y > 65535) return (int)cudaErrorInvalidValue;
+  gmm_up_f32_kernel<<<dim3((F + F32_TN - 1) / F32_TN, blocks_y), F32_NT, 0,
+                      s>>>(
+      static_cast<const float*>(xs), static_cast<const float*>(w1),
+      static_cast<const int*>(tile_expert),
+      static_cast<const int*>(tile_valid), static_cast<float*>(h), D, F,
+      block_m);
+  cudaError_t e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  gmm_down_f32_kernel<<<dim3(D / F32_TN, blocks_y), F32_NT, 0, s>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w2),
+      static_cast<const int*>(tile_expert),
+      static_cast<const int*>(tile_valid), static_cast<float*>(out), D, F,
+      block_m);
+  return (int)cudaGetLastError();
+}
+
+// xs [M, D], w1 [E, D, 2F], w2 [E, F, D], out [M, D] bf16 (f32 when f32 is
+// nonzero); tile_expert, tile_valid [M / block_m] int32; h [M, F] scratch
+// of the same type.  Needs D % 64 == 0, F % 32 == 0, block_m % 8 == 0 and
+// <= 128, 16-byte aligned bases.  Returns cudaGetLastError() after launch,
+// or the error of encoding a tensor map.
 extern "C" int moe_gmm_launch(const void* xs, const void* w1, const void* w2,
                               const void* tile_expert, const void* tile_valid,
                               void* h, void* out, int M, int D, int F,
-                              int block_m, int E, void* stream) {
+                              int block_m, int E, int f32, void* stream) {
   if (D % 64 || F % 32 || block_m % 8 || block_m > ROWS || block_m <= 0 ||
       M % block_m)
     return (int)cudaErrorInvalidValue;
+  if (f32)
+    return launch_f32(xs, w1, w2, tile_expert, tile_valid, h, out, M, D, F,
+                      block_m, reinterpret_cast<cudaStream_t>(stream));
   CUtensorMap tx, tw1, th, tw2;
   int err;
   if ((err = activation_map(&tx, xs, 1, M, D)) ||

@@ -31,7 +31,10 @@
 // G (the query heads a block takes: a kv head's whole group, or a
 // sub-group of it when the launcher splits the group over the grid's x
 // axis) in {1, 2, 4, 5, 8} and HD in {32, 64, 80, 128, 256} are template
-// parameters, G * HDP / 32 <= 20.  A head size that is not a power of two
+// parameters, G * HDP / 32 <= 20.  The element type T of q, K, V and the
+// output is bf16 or f32 (f32: HD <= 128, fd_head_size_f32); every sum is
+// f32 in both, in the same order, and a 16-byte copy carries 8 bf16 or 4
+// f32 values.  A head size that is not a power of two
 // is padded to HDP (sd_pad: 80 -> 128) in shared memory and registers
 // only: its K / V rows are loaded at their own 16-byte width and the pad
 // is zero-filled, so the scores and P.V sum exact zeros there, and only
@@ -45,7 +48,7 @@
 #define SD_NT 128                    // threads a block
 #define SD_NW (SD_NT / 32)
 #define SD_TILE 32                   // slots a tile: one lane each for scores
-#define SD_PAD 8                     // bf16 of padding a shared-memory row
+#define SD_PAD_BYTES 16              // padding a shared-memory row
 
 // the head size a block computes at: the power of two that holds hd
 __host__ __device__ constexpr int sd_pad(int hd) {
@@ -57,10 +60,43 @@ struct SdShape {
   static constexpr int QPT = (G * HD + SD_NT - 1) / SD_NT;  // q values a thread
 };
 
+// T's shared memory fits the block at HD (a static 48 KB)
+template <class T, int HD>
+__host__ __device__ constexpr bool sd_fits() {
+  return sizeof(T) == 2 || fd_head_size_f32(HD);
+}
+
+// 8 elements from shared memory as f32 (exact)
+__device__ __forceinline__ void sd_load8(const bf16* p, float (&f)[8]) {
+  pd_unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void sd_load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// 2 neighbouring V values of a slot as f32, zeros for an invalid slot
+// (whose V may hold anything)
+__device__ __forceinline__ void sd_pair(const bf16* p, bool valid,
+                                        float& v0, float& v1) {
+  uint32_t w = *reinterpret_cast<const uint32_t*>(p);
+  if (!valid) w = 0u;
+  v0 = __uint_as_float(w << 16);
+  v1 = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void sd_pair(const float* p, bool valid,
+                                        float& v0, float& v1) {
+  const float2 w = *reinterpret_cast<const float2*>(p);
+  v0 = valid ? w.x : 0.f;
+  v1 = valid ? w.y : 0.f;
+}
+
 // the block's G query rows (q_group: the first, HD apart) into registers
-template <int G, int HD>
-__device__ __forceinline__ void sd_load_q(const bf16* __restrict__ q_group,
-                                          bf16 (&qv)[SdShape<G, HD>::QPT],
+template <int G, int HD, class T>
+__device__ __forceinline__ void sd_load_q(const T* __restrict__ q_group,
+                                          T (&qv)[SdShape<G, HD>::QPT],
                                           int t) {
 #pragma unroll
   for (int k = 0; k < SdShape<G, HD>::QPT; ++k)
@@ -68,11 +104,9 @@ __device__ __forceinline__ void sd_load_q(const bf16* __restrict__ q_group,
 }
 
 // the zeros of a row with no slot to walk (out_group: its G rows)
-template <int G, int HD>
-__device__ __forceinline__ void sd_zeros(bf16* __restrict__ out_group,
-                                         int t) {
-  for (int i = t; i < G * HD; i += SD_NT)
-    out_group[i] = __float2bfloat16(0.f);
+template <int G, int HD, class T>
+__device__ __forceinline__ void sd_zeros(T* __restrict__ out_group, int t) {
+  for (int i = t; i < G * HD; i += SD_NT) fd_store(out_group + i, 0.f);
 }
 
 // One live chunk of one row and kv head: walk it, then write the output
@@ -80,21 +114,22 @@ __device__ __forceinline__ void sd_zeros(bf16* __restrict__ out_group,
 // merge.  part: acc [B, Hkv, NC, G, HD], then (m, l) [B, Hkv, NC, G, 2],
 // NC = gridDim.y; counters: one int32 a (row, kv head), zero between
 // calls.  Called by every thread of the block.
-template <int G, int HD, class CHUNK>
+template <int G, int HD, class CHUNK, class T>
 __device__ __forceinline__ void sd_chunk(
-    const CHUNK& ch, const bf16 (&qv)[SdShape<G, HD>::QPT],
-    const bf16* __restrict__ kp, const bf16* __restrict__ vp, int cur,
-    int window, float scale_log2, int nlive, bf16* __restrict__ out_group,
+    const CHUNK& ch, const T (&qv)[SdShape<G, HD>::QPT],
+    const T* __restrict__ kp, const T* __restrict__ vp, int cur,
+    int window, float scale_log2, int nlive, T* __restrict__ out_group,
     float* __restrict__ part, int* __restrict__ counters) {
   constexpr int HDP = sd_pad(HD);   // the padded head size (= HD or 128)
-  constexpr int ROW = HDP + SD_PAD;
-  constexpr int CPR = HDP / 8;       // 16-byte pieces of a K or V row
+  constexpr int EPC = 16 / (int)sizeof(T);   // elements a 16-byte piece
+  constexpr int ROW = HDP + SD_PAD_BYTES / (int)sizeof(T);
+  constexpr int CPR = HDP / EPC;     // 16-byte pieces of a K or V row
   constexpr int NSG = 256 / HDP;     // slot groups of the P.V pass
   constexpr int QD = HDP / SD_NW;    // head dims of a score warp
   constexpr int QPT = SdShape<G, HD>::QPT;
   static_assert(HD % 16 == 0 && HD <= HDP, "16-byte K / V pieces");
-  __shared__ __align__(16) bf16 ks[SD_TILE * ROW];
-  __shared__ __align__(16) bf16 vs[SD_TILE * ROW];
+  __shared__ __align__(16) T ks[SD_TILE * ROW];
+  __shared__ __align__(16) T vs[SD_TILE * ROW];
   __shared__ __align__(16) float qs[G * HDP];
   __shared__ float sp[SD_NW][G][SD_TILE];    // partial scores by quarter
   __shared__ float pr[G][SD_TILE];           // probabilities
@@ -118,7 +153,7 @@ __device__ __forceinline__ void sd_chunk(
 #pragma unroll
     for (int i = 0; i < SD_TILE * CPR / SD_NT; ++i) {
       const int idx = t + i * SD_NT;
-      const int s = idx / CPR, cc = (idx % CPR) * 8;
+      const int s = idx / CPR, cc = (idx % CPR) * EPC;
       bool ok;
       const size_t row = ch.row(s0 + s, ok);
       const bool in = cc < HD;       // past it: the pad, zero-filled
@@ -137,7 +172,7 @@ __device__ __forceinline__ void sd_chunk(
       for (int k = 0; k < QPT; ++k) {
         const int i = t + k * SD_NT;
         if (i < G * HD)
-          qs[(i / HD) * HDP + i % HD] = __bfloat162float(qv[k]) * scale_log2;
+          qs[(i / HD) * HDP + i % HD] = fd_float(qv[k]) * scale_log2;
       }
       if constexpr (HDP != HD)
         for (int i = t; i < G * (HDP - HD); i += SD_NT)
@@ -152,11 +187,11 @@ __device__ __forceinline__ void sd_chunk(
       float sc[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) sc[g] = 0.f;
-      const bf16* kr = ks + lane * ROW + warp * QD;
+      const T* kr = ks + lane * ROW + warp * QD;
 #pragma unroll
       for (int u = 0; u < QD / 8; ++u) {
         float f[8];
-        pd_unpack8(*reinterpret_cast<const uint4*>(kr + 8 * u), f);
+        sd_load8(kr + 8 * u, f);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float4* qq = reinterpret_cast<const float4*>(
@@ -207,10 +242,8 @@ __device__ __forceinline__ void sd_chunk(
     }
 #pragma unroll
     for (int s = sg; s < SD_TILE; s += NSG) {
-      uint32_t w = *reinterpret_cast<const uint32_t*>(vs + s * ROW + 2 * dp);
-      if (!valid_s[s]) w = 0u;       // an invalid slot's V may hold anything
-      const float v0 = __uint_as_float(w << 16);
-      const float v1 = __uint_as_float(w & 0xffff0000u);
+      float v0, v1;
+      sd_pair(vs + s * ROW + 2 * dp, valid_s[s], v0, v1);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = pr[g][s];
@@ -233,7 +266,7 @@ __device__ __forceinline__ void sd_chunk(
       float A = red[0][g][d];
 #pragma unroll
       for (int k = 1; k < NSG; ++k) A += red[k][g][d];
-      out_group[i] = __float2bfloat16(A / fmaxf(l_s[g], 1e-30f));
+      fd_store(out_group + i, A / fmaxf(l_s[g], 1e-30f));
     }
     return;
   }
@@ -307,6 +340,6 @@ __device__ __forceinline__ void sd_chunk(
         m = m_new;
       }
     }
-    if (in) out_group[g * HD + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+    if (in) fd_store(out_group + g * HD + d, A / fmaxf(L, 1e-30f));
   }
 }

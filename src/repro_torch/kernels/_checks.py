@@ -34,6 +34,27 @@ def on_card(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
+#: the element types of B1-B4, B8 and B9's operands (their Pallas
+#: references take any float dtype and compute in f32)
+FLOAT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def float_dtype(name: str, **operands: torch.Tensor) -> torch.dtype:
+    """The one float dtype of a launch's float operands, bf16 or f32.
+    Raises on another dtype or on a mix: an f32 operand launches the f32
+    kernel, and nothing is cast."""
+    (arg0, t0), *rest = operands.items()
+    dt = t0.dtype
+    if dt not in FLOAT_DTYPES:
+        raise TypeError(f"{name}: {arg0} must be torch.bfloat16 or "
+                        f"torch.float32, got {dt}")
+    for arg, t in rest:
+        if t.dtype != dt:
+            raise TypeError(f"{name}: {arg} is {t.dtype} but {arg0} is {dt}; "
+                            "the float operands must share one dtype")
+    return dt
+
+
 def expect(name: str, t: torch.Tensor, arg: str, dtype: torch.dtype,
            shape=None, *, strided: bool = False) -> None:
     """dtype and shape as given; contiguous, or with ``strided`` a unit

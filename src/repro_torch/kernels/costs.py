@@ -103,11 +103,14 @@ def _swiglu_flops(rows: int, d: int, f: int) -> int:
     return rows * 6 * d * f
 
 
-def _expert_bytes(experts: int, d: int, f: int, dtype: str = "bf16") -> int:
-    """``experts`` experts' w1 [D, 2F] and w2 [F, D]; quantized: int8
-    values (int4: two a byte) plus the f32 scale rows s1 [2, F], s2 [F]."""
+def _expert_bytes(experts: int, d: int, f: int, dtype: str = "bf16",
+                  elem: int = BF16) -> int:
+    """``experts`` experts' w1 [D, 2F] and w2 [F, D]: native ("bf16", the
+    weights' own dtype) at ``elem`` bytes an element (2 bf16, 4 f32);
+    quantized: int8 values (int4: two a byte) plus the f32 scale rows s1
+    [2, F], s2 [F]."""
     if dtype == "bf16":
-        return experts * 3 * d * f * BF16
+        return experts * 3 * d * f * elem
     per = 3 * d * f if dtype == "int8" else 3 * d * f // 2
     return experts * (per + 3 * f * 4)
 
@@ -118,7 +121,8 @@ def moe_gmm(xs, w2, tile_expert, dtype: str = "bf16") -> Cost:
     m, d = xs.shape
     e, f = w2.shape[0], w2.shape[1]
     n_tiles = tile_expert.shape[0]
-    io = (2 * _size(xs) + _expert_bytes(min(e, n_tiles), d, f, dtype)
+    io = (2 * _size(xs)
+          + _expert_bytes(min(e, n_tiles), d, f, dtype, w2.element_size())
           + 2 * _size(tile_expert))
     return Cost(_swiglu_flops(m, d, f), io)
 
@@ -129,7 +133,8 @@ def moe_decode(x, w2, idx, dtype: str = "bf16") -> Cost:
     b, d = x.shape
     e, f = w2.shape[0], w2.shape[1]
     slots = idx.numel()
-    io = (2 * _size(x) + _expert_bytes(min(e, slots), d, f, dtype)
+    io = (2 * _size(x)
+          + _expert_bytes(min(e, slots), d, f, dtype, w2.element_size())
           + slots * 8)                       # idx int32 + weights f32
     return Cost(_swiglu_flops(slots, d, f), io)
 

@@ -2,7 +2,9 @@
 
 Kernel: ``csrc/flash_attention.cu`` (replaces ``repro/kernels/
 flash_attention.py::flash_attention_pallas``).  q [B, Hq, S, hd], k / v
-[B, Hkv, S, hd] -> [B, Hq, S, hd] in q's dtype; q head h reads kv head
+[B, Hkv, S, hd] -> [B, Hq, S, hd] in q's dtype (q, k and v all bf16 or
+all f32; hd in ``HEAD_DIMS``; f32 runs an f32 body on the CUDA cores that
+keeps P in f32, where the bf16 body rounds it); q head h reads kv head
 h // (Hq / Hkv); key j is visible to query i iff j <= i (and
 j > i - window with a window).  Online softmax, f32 accumulation.  The
 kernel takes any strides with a unit stride along hd and 16-byte rows
@@ -21,10 +23,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, costs
-from repro_torch.kernels._checks import expect, no_grad_through, on_card
+from repro_torch.kernels._checks import expect, float_dtype, \
+    no_grad_through, on_card
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 def flash_attention_plain(q, k, v, *, window: Optional[int] = None):
@@ -52,10 +55,10 @@ def flash_attention(q, k, v, *, window: Optional[int] = None):
         return flash_attention_plain(q, k, v, window=window)
     b, hq, s, hd = q.shape
     hkv = k.shape[1]
-    bf16 = torch.bfloat16
-    expect(name, q, "q", bf16, strided=True)
-    expect(name, k, "k", bf16, (b, hkv, s, hd), strided=True)
-    expect(name, v, "v", bf16, (b, hkv, s, hd), strided=True)
+    dt = float_dtype(name, q=q, k=k, v=v)
+    expect(name, q, "q", dt, strided=True)
+    expect(name, k, "k", dt, (b, hkv, s, hd), strided=True)
+    expect(name, v, "v", dt, (b, hkv, s, hd), strided=True)
     if k.stride() != v.stride():
         raise ValueError(f"{name}: k and v must share strides, got "
                          f"{k.stride()} and {v.stride()}")
@@ -72,9 +75,10 @@ def flash_attention(q, k, v, *, window: Optional[int] = None):
     if q.is_meta:
         costs.report(name, cost)
         return out
-    fn = _build.function(name, "flash_attention_launch", 4, 15)
+    fn = _build.function(name, "flash_attention_launch", 4, 16)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, hq, hkv, s, hd, window or 0, *strides,
+             int(dt == torch.float32),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(name, err)
     flash_attention.launches += 1
@@ -89,7 +93,8 @@ def _row_strides(name: str, t: torch.Tensor):
     """(batch, head, row) element strides of a [B, H, S, hd] tensor, 0
     along a dim of size 1; each must keep 16-byte loads aligned."""
     out = [st if n > 1 else 0 for n, st in zip(t.shape[:3], t.stride()[:3])]
-    if any(st % 8 for st in out) or max(out) >= 1 << 31:
+    vec = 16 // t.element_size()             # elements of a 16-byte load
+    if any(st % vec for st in out) or max(out) >= 1 << 31:
         raise ValueError(f"{name}: strides {t.stride()} break the kernel's "
                          "16-byte rows")
     return out

@@ -2,10 +2,11 @@
 
 Kernel: ``csrc/flash_decode.cu`` (replaces ``repro/kernels/flash_decode.py::
 flash_decode_pallas``).  q [B, Hq, hd]; k / v [B, S, Hkv, hd]; pos [B, S]
-int32 (-1 = empty slot); cur_pos [B] int32 -> [B, Hq, hd].  A slot counts
-iff ``0 <= pos <= cur_pos`` (and ``pos > cur_pos - window`` with a
-window).  A query with no valid slot gets zeros (the TPU kernel returns
-the mean of V there; the row is never read).
+int32 (-1 = empty slot); cur_pos [B] int32 -> [B, Hq, hd] in q's dtype
+(q, k and v all bf16 or all f32; f32 at hd in ``F32_HEAD_DIMS``).  A
+slot counts iff ``0 <= pos <= cur_pos`` (and ``pos > cur_pos - window``
+with a window).  A query with no valid slot gets zeros (the TPU kernel
+returns the mean of V there; the row is never read).
 
 Any head group runs (``csrc/flash_decode_common.cuh::fd_block_group``: a
 group too large for one block, g 16 or 8 at hd 128, is split into
@@ -26,13 +27,23 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, costs
-from repro_torch.kernels._checks import expect, no_grad_through, on_card
+from repro_torch.kernels._checks import expect, float_dtype, \
+    no_grad_through, on_card
 
 NEG_INF = -1e30
 #: head sizes with a kernel instantiation (80 is computed padded to 128);
 #: any head group runs (a group too large for one block is split over the
 #: grid: ``csrc/flash_decode_common.cuh::fd_block_group``)
 HEAD_DIMS = (32, 64, 80, 128, 256)
+#: the head sizes of the f32 instantiations (a tile of f32 K and V rows at
+#: 256 would overflow a block's static shared memory)
+F32_HEAD_DIMS = (32, 64, 80, 128)
+
+
+def head_dims(dtype: torch.dtype):
+    """The head sizes B4's and B8's kernels take in ``dtype``."""
+    return F32_HEAD_DIMS if dtype == torch.float32 else HEAD_DIMS
+
 
 #: slots a chunk takes (``CHUNK_SLOTS`` in the kernel source); a row walks
 #: its first max(1, ceil(n / CHUNK_SLOTS)) chunks, n following from its
@@ -113,24 +124,24 @@ def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
         return flash_decode_plain(q, k, v, pos, cur_pos, window=window)
     b, hq, hd = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    bf16 = torch.bfloat16
-    expect(name, q, "q", bf16)
-    expect(name, k, "k", bf16, (b, s, hkv, hd), strided=True)
-    expect(name, v, "v", bf16, (b, s, hkv, hd), strided=True)
+    dt = float_dtype(name, q=q, k=k, v=v)
+    expect(name, q, "q", dt)
+    expect(name, k, "k", dt, (b, s, hkv, hd), strided=True)
+    expect(name, v, "v", dt, (b, s, hkv, hd), strided=True)
     kv_stride = head_slice_stride(name, k, v)
     expect(name, pos, "pos", torch.int32, (b, s))
     expect(name, cur_pos, "cur_pos", torch.int32, (b,))
     g = hq // hkv if hkv and hq % hkv == 0 else 0
-    if g == 0 or hd not in HEAD_DIMS or s == 0:
+    if g == 0 or hd not in head_dims(dt) or s == 0:
         raise ValueError(f"{name}: no kernel for Hq={hq}, Hkv={hkv}, hd={hd}, "
-                         f"S={s} (needs Hkv dividing Hq, hd in {HEAD_DIMS}, "
-                         "S > 0)")
+                         f"S={s} (needs Hkv dividing Hq, hd in "
+                         f"{head_dims(dt)} for {dt}, S > 0)")
     if window is not None and window <= 0:
         raise ValueError(f"{name}: window={window} must be positive")
     for arg, t in (("k", k), ("v", v)):          # 16-byte async copies
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
-    out = torch.empty((b, hq, hd), dtype=bf16, device=q.device)
+    out = torch.empty((b, hq, hd), dtype=dt, device=q.device)
     nc = n_chunks(s)
     # scratch for rows that span several chunks: each chunk's acc
     # [B, Hkv, nc, G, hd], then its (max, sum) [.., G, 2]
@@ -142,11 +153,11 @@ def flash_decode(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = _counters(q.device, stream, b * hq)
-    fn = _build.function(name, "flash_decode_launch", 8, 8)
+    fn = _build.function(name, "flash_decode_launch", 8, 9)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
              cur_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
              counters.data_ptr(), b, hq, hkv, hd, s, window or 0, nc,
-             kv_stride, stream)
+             kv_stride, int(dt == torch.float32), stream)
     _build.check(name, err)
     flash_decode.launches += 1
     costs.report(name, cost)

@@ -5,17 +5,19 @@ Kernel: ``csrc/flash_decode_paged.cu`` (replaces ``repro/kernels/
 flash_decode_paged.py::flash_decode_paged_pallas``).  q [B, Hq, hd];
 kp / vp [N, P, Hkv, hd]; posp [N, P] int32; block_tables [B, n_blk] int32
 (may be a column slice ``table[:, :n_live]`` of the full table); cur_pos
-[B] int32 -> [B, Hq, hd].  A slot counts iff ``0 <= posp <= cur_pos``
-(and ``posp > cur_pos - window`` with a window); trash-page entries count
-for nothing.  A query with no valid slot gets zeros.
+[B] int32 -> [B, Hq, hd] in q's dtype (q, kp and vp all bf16 or all f32).
+A slot counts iff ``0 <= posp <= cur_pos`` (and ``posp > cur_pos -
+window`` with a window); trash-page entries count for nothing.  A query
+with no valid slot gets zeros.
 
 Both kernels split a row's table columns by constants -- GQA into chunks
 of ``CHUNK_PAGES`` columns, MLA over a cluster of 8 blocks at that rank
 stride -- and merge the pieces in a fixed order inside the one launch, so a
 row's output is bitwise the same whatever the batch around it and whatever
 the table view's width.  The GQA kernel takes any head group and hd in
-``HEAD_DIMS`` (as ``flash_decode``); the MLA kernel any head count, in
-tiles of 16 heads along its grid, at the (r, dr) of ``MLA_SHAPES``.
+``HEAD_DIMS`` (f32: ``F32_HEAD_DIMS``; as ``flash_decode``); the MLA
+kernel any head count, in tiles of 16 heads along its grid, at the (r,
+dr) of ``MLA_SHAPES``.
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, costs
-from repro_torch.kernels._checks import expect, no_grad_through, on_card
-from repro_torch.kernels.flash_decode import HEAD_DIMS, NEG_INF, \
-    _counters, flash_decode_plain, head_slice_stride
+from repro_torch.kernels._checks import expect, float_dtype, \
+    no_grad_through, on_card
+from repro_torch.kernels.flash_decode import NEG_INF, _counters, \
+    flash_decode_plain, head_dims, head_slice_stride
 
 
 #: table columns a GQA chunk takes (``CHUNK_PAGES`` in the kernel source);
@@ -69,17 +72,18 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
     b, hq, hd = q.shape
     n, p, hkv = kp.shape[0], kp.shape[1], kp.shape[2]
     n_blk = block_tables.shape[1]
-    bf16 = torch.bfloat16
-    expect(name, q, "q", bf16)
-    expect(name, kp, "kp", bf16, (n, p, hkv, hd), strided=True)
-    expect(name, vp, "vp", bf16, (n, p, hkv, hd), strided=True)
+    dt = float_dtype(name, q=q, kp=kp, vp=vp)
+    expect(name, q, "q", dt)
+    expect(name, kp, "kp", dt, (n, p, hkv, hd), strided=True)
+    expect(name, vp, "vp", dt, (n, p, hkv, hd), strided=True)
     kv_stride = head_slice_stride(name, kp, vp)
     expect(name, posp, "posp", torch.int32, (n, p))
     expect(name, cur_pos, "cur_pos", torch.int32, (b,))
     g = hq // hkv if hkv and hq % hkv == 0 else 0
-    if g == 0 or hd not in HEAD_DIMS:
+    if g == 0 or hd not in head_dims(dt):
         raise ValueError(f"{name}: no kernel for Hq={hq}, Hkv={hkv}, hd={hd} "
-                         f"(needs Hkv dividing Hq, hd in {HEAD_DIMS})")
+                         f"(needs Hkv dividing Hq, hd in {head_dims(dt)} "
+                         f"for {dt})")
     if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
             or block_tables.shape[0] != b or block_tables.stride(1) != 1):
         raise ValueError(f"{name}: block_tables must be int32 [B, n_blk] "
@@ -89,7 +93,7 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
     for arg, t in (("kp", kp), ("vp", vp)):      # 16-byte async copies
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
-    out = torch.empty((b, hq, hd), dtype=bf16, device=q.device)
+    out = torch.empty((b, hq, hd), dtype=dt, device=q.device)
     nc = n_chunks(n_blk)
     # scratch for rows that span several chunks: each chunk's acc
     # [B, Hkv, nc, G, hd], then its (max, sum) [.., G, 2]
@@ -101,11 +105,12 @@ def flash_decode_paged(q, kp, vp, posp, block_tables, cur_pos, *,
         return out
     stream = torch.cuda.current_stream(q.device).cuda_stream
     counters = _counters(q.device, stream, b * hq)
-    fn = _build.function(name, "flash_decode_paged_launch", 9, 10)
+    fn = _build.function(name, "flash_decode_paged_launch", 9, 11)
     err = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), posp.data_ptr(),
              block_tables.data_ptr(), cur_pos.data_ptr(), out.data_ptr(),
              part.data_ptr(), counters.data_ptr(), b, hq, hkv, hd, p, n_blk,
-             block_tables.stride(0), window or 0, nc, kv_stride, stream)
+             block_tables.stride(0), window or 0, nc, kv_stride,
+             int(dt == torch.float32), stream)
     _build.check(name, err)
     flash_decode_paged.launches += 1
     costs.report(name, cost)

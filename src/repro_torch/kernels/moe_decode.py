@@ -2,7 +2,8 @@
 
 Kernel: ``csrc/moe_decode.cu`` (replaces ``repro/kernels/moe_decode.py::
 moe_decode_pallas``).  x [B, D], w1 [E, D, 2F], w2 [E, F, D], idx [B, k]
-int32, weights [B, k] f32 -> y [B, D]: y[b] = sum_j weights[b, j] *
+int32, weights [B, k] f32 -> y [B, D] in x's dtype (x, w1 and w2 all bf16
+or all f32): y[b] = sum_j weights[b, j] *
 SwiGLU(x[b]; expert idx[b, j]) in f32, only the routed experts read, each
 once a call: the kernel groups the slots of an expert on the device, inside
 the launch (no host sync), and combines the slots' f32 partials in slot
@@ -26,7 +27,7 @@ import torch.nn.functional as F_
 
 from repro_torch.kernels import _build, costs
 from repro_torch.kernels._checks import expect, expect_quant, \
-    no_grad_through, on_card
+    float_dtype, no_grad_through, on_card
 from repro_torch.models.moe.params import QUANT_DTYPES, unpack_int4
 
 
@@ -71,10 +72,10 @@ def moe_decode(x, w1, w2, idx, weights, pred_idx=None):
     b, d = x.shape
     e, f = w2.shape[0], w2.shape[1]
     k = idx.shape[1]
-    bf16 = torch.bfloat16
-    expect("moe_decode", x, "x", bf16)
-    expect("moe_decode", w1, "w1", bf16, (e, d, 2 * f))
-    expect("moe_decode", w2, "w2", bf16, (e, f, d))
+    dt = float_dtype("moe_decode", x=x, w1=w1, w2=w2)
+    expect("moe_decode", x, "x", dt)
+    expect("moe_decode", w1, "w1", dt, (e, d, 2 * f))
+    expect("moe_decode", w2, "w2", dt, (e, f, d))
     expect("moe_decode", idx, "idx", torch.int32, (b, k))
     expect("moe_decode", weights, "weights", torch.float32, (b, k))
     if d % 64:
@@ -86,15 +87,15 @@ def moe_decode(x, w1, w2, idx, weights, pred_idx=None):
             raise ValueError(f"moe_decode: {arg} needs a 16-byte aligned base")
     h = torch.empty((b, k, f), dtype=torch.float32, device=x.device)
     partial = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
-    y = torch.empty((b, d), dtype=bf16, device=x.device)
+    y = torch.empty((b, d), dtype=dt, device=x.device)
     cost = costs.moe_decode(x, w2, idx)
     if x.is_meta:
         costs.report("moe_decode", cost)
         return y
-    fn = _build.function("moe_decode", "moe_decode_launch", 8, 5)
+    fn = _build.function("moe_decode", "moe_decode_launch", 8, 6)
     err = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), idx.data_ptr(),
              weights.data_ptr(), h.data_ptr(), partial.data_ptr(),
-             y.data_ptr(), b, d, f, k, e,
+             y.data_ptr(), b, d, f, k, e, int(dt == torch.float32),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("moe_decode", err)
     moe_decode.launches += 1

@@ -3,10 +3,12 @@
 Kernel: ``csrc/moe_ffn.cu`` (replaces ``repro/kernels/moe_ffn.py::
 moe_ffn_pallas``).  xe [E, C, D], w1 [E, D, 2F] (gate = first F columns,
 up = next F), w2 [E, F, D] -> [E, C, D] in xe's dtype: every expert and
-every capacity row, empty or not (a zero row comes out zero).  The kernel
-reads its operands through TMA tensor maps (xe and h as 3-D [E, C, .]
-maps, encoded per call; the weights' cached per tensor in the library) and
-runs wgmma on them.
+every capacity row, empty or not (a zero row comes out zero).  xe, w1 and
+w2 are all bf16 or all f32.  On bf16 the kernel reads its operands through
+TMA tensor maps (xe and h as 3-D [E, C, .] maps, encoded per call; the
+weights' cached per tensor in the library) and runs wgmma on them; on f32
+it runs f32 FFMA on the CUDA cores (``csrc/f32_tiles.cuh``, shared with
+``moe_gmm``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import torch
 import torch.nn.functional as F_
 
 from repro_torch.kernels import _build, costs
-from repro_torch.kernels._checks import expect, no_grad_through, on_card
+from repro_torch.kernels._checks import expect, float_dtype, \
+    no_grad_through, on_card
 
 
 def moe_ffn_plain(xe, w1, w2):
@@ -35,10 +38,10 @@ def moe_ffn(xe, w1, w2):
         return moe_ffn_plain(xe, w1, w2)
     e, c, d = xe.shape
     f = w2.shape[1]
-    bf16 = torch.bfloat16
-    expect("moe_ffn", xe, "xe", bf16)
-    expect("moe_ffn", w1, "w1", bf16, (e, d, 2 * f))
-    expect("moe_ffn", w2, "w2", bf16, (e, f, d))
+    dt = float_dtype("moe_ffn", xe=xe, w1=w1, w2=w2)
+    expect("moe_ffn", xe, "xe", dt)
+    expect("moe_ffn", w1, "w1", dt, (e, d, 2 * f))
+    expect("moe_ffn", w2, "w2", dt, (e, f, d))
     if d % 64:
         raise ValueError(f"moe_ffn: D={d} must be a multiple of 64")
     if f % 32:
@@ -46,15 +49,15 @@ def moe_ffn(xe, w1, w2):
     for arg, t in (("xe", xe), ("w1", w1), ("w2", w2)):
         if t.data_ptr() % 16:
             raise ValueError(f"moe_ffn: {arg} needs a 16-byte aligned base")
-    h = torch.empty((e, c, f), dtype=bf16, device=xe.device)
-    out = torch.empty((e, c, d), dtype=bf16, device=xe.device)
+    h = torch.empty((e, c, f), dtype=dt, device=xe.device)
+    out = torch.empty((e, c, d), dtype=dt, device=xe.device)
     cost = costs.moe_ffn(xe, w1, w2)
     if xe.is_meta:
         costs.report("moe_ffn", cost)
         return out
-    fn = _build.function("moe_ffn", "moe_ffn_launch", 5, 4)
+    fn = _build.function("moe_ffn", "moe_ffn_launch", 5, 5)
     err = fn(xe.data_ptr(), w1.data_ptr(), w2.data_ptr(), h.data_ptr(),
-             out.data_ptr(), e, c, d, f,
+             out.data_ptr(), e, c, d, f, int(dt == torch.float32),
              torch.cuda.current_stream(xe.device).cuda_stream)
     _build.check("moe_ffn", err)
     moe_ffn.launches += 1

@@ -3,10 +3,13 @@
 Kernel: ``csrc/moe_gmm.cu`` (replaces ``repro/kernels/moe_gmm.py::
 moe_gmm_pallas``).  xs [M, D] (M = n_tiles * block_m) sorted by expert,
 w1 [E, D, 2F] (gate = first F columns, up = next F), w2 [E, F, D],
-tile_expert / tile_valid [n_tiles] int32 -> [M, D]; tiles with
-``tile_valid == 0`` come out zero.  The kernel reads its operands through
-TMA tensor maps (encoded per call for xs and h, cached per weight tensor
-in the library) and runs wgmma on them.
+tile_expert / tile_valid [n_tiles] int32 -> [M, D] in xs's dtype; tiles
+with ``tile_valid == 0`` come out zero.  xs, w1 and w2 are all bf16 or all
+f32, as the reference's kernel takes any float dtype.  On bf16 the kernel
+reads its operands through TMA tensor maps (encoded per call for xs and h,
+cached per weight tensor in the library) and runs wgmma on them; on f32 it
+runs f32 FFMA on the CUDA cores (``csrc/f32_tiles.cuh``, shared with
+``moe_ffn``), h kept in f32 between the passes.
 
 Quantized experts: ``csrc/moe_gmm_quant.cu`` (replaces ``moe_gmm_quant_
 pallas``) computes the same on int8 w1q / w2q (int4: two values a byte,
@@ -24,7 +27,7 @@ import torch.nn.functional as F_
 
 from repro_torch.kernels import _build, costs
 from repro_torch.kernels._checks import expect, expect_quant, \
-    no_grad_through, on_card
+    float_dtype, no_grad_through, on_card
 from repro_torch.models.moe.params import QUANT_DTYPES, unpack_int4
 
 
@@ -51,10 +54,10 @@ def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
         return moe_gmm_plain(xs, w1, w2, tile_expert, tile_valid, block_m)
     m, d = xs.shape
     e, f = w2.shape[0], w2.shape[1]
-    bf16 = torch.bfloat16
-    expect("moe_gmm", xs, "xs", bf16)
-    expect("moe_gmm", w1, "w1", bf16, (e, d, 2 * f))
-    expect("moe_gmm", w2, "w2", bf16, (e, f, d))
+    dt = float_dtype("moe_gmm", xs=xs, w1=w1, w2=w2)
+    expect("moe_gmm", xs, "xs", dt)
+    expect("moe_gmm", w1, "w1", dt, (e, d, 2 * f))
+    expect("moe_gmm", w2, "w2", dt, (e, f, d))
     if d % 64 or f % 32:
         raise ValueError(f"moe_gmm: D={d} must be a multiple of 64 and "
                          f"F={f} of 32")
@@ -64,8 +67,8 @@ def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
     n_tiles = m // block_m
     expect("moe_gmm", tile_expert, "tile_expert", torch.int32, (n_tiles,))
     expect("moe_gmm", tile_valid, "tile_valid", torch.int32, (n_tiles,))
-    h = torch.empty((m, f), dtype=bf16, device=xs.device)
-    out = torch.empty((m, d), dtype=bf16, device=xs.device)
+    h = torch.empty((m, f), dtype=dt, device=xs.device)
+    out = torch.empty((m, d), dtype=dt, device=xs.device)
     for arg, t in (("xs", xs), ("w1", w1), ("w2", w2)):
         if t.data_ptr() % 16:
             raise ValueError(f"moe_gmm: {arg} needs a 16-byte aligned base")
@@ -73,10 +76,10 @@ def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
     if xs.is_meta:
         costs.report("moe_gmm", cost)
         return out
-    fn = _build.function("moe_gmm", "moe_gmm_launch", 7, 5)
+    fn = _build.function("moe_gmm", "moe_gmm_launch", 7, 6)
     err = fn(xs.data_ptr(), w1.data_ptr(), w2.data_ptr(),
              tile_expert.data_ptr(), tile_valid.data_ptr(), h.data_ptr(),
-             out.data_ptr(), m, d, f, block_m, e,
+             out.data_ptr(), m, d, f, block_m, e, int(dt == torch.float32),
              torch.cuda.current_stream(xs.device).cuda_stream)
     _build.check("moe_gmm", err)
     moe_gmm.launches += 1

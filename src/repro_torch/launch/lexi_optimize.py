@@ -10,9 +10,10 @@ Runs Stage 1 on the reduced config (weights only, no data), compares the
 paper's evolutionary search against the exact DP optimum across budgets,
 prints the Fig. 3-style heatmap, and with ``--out`` saves the plan and the
 sensitivity table (``LexiPlan.load``, ``SensitivityTable.load``; the
-serving launcher's ``--plan``).  The reduced config is f32, so profiling
-runs the plain PyTorch paths.  A top-1 arch (llama4-scout) has no k below
-its baseline: the pipeline refuses it, as the reference does.
+serving launcher's ``--plan``).  The reduced config is f32; on the card
+profiling runs the MoE layers through the ``moe_gmm`` kernel in f32.  A
+top-1 arch (llama4-scout) has no k below its baseline: the pipeline
+refuses it, as the reference does.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def main(argv=None) -> int:
           f"{cfg.num_experts} experts, baseline top-k={cfg.moe_top_k}")
 
     table = profile_sensitivity(params, cfg, n_iter=args.n_iter, batch=2,
-                                seq=64, device=dev, use_kernel=False)
+                                seq=64, device=dev)
     heatmap(table)
 
     n, kb = table.num_layers, table.k_base

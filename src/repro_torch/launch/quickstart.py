@@ -7,11 +7,12 @@
 Builds a small OLMoE-family model, runs Stage 1 (data-free sensitivity
 profiling) and Stage 2 (budgeted allocation), applies the plan, and shows
 the per-layer top-k the model now serves with and a forward's loss under
-it.  The model is the reduced config in f32; the CUDA kernels take bf16,
-so every step runs the plain PyTorch paths.  ``--arch`` takes any config
-of the registry, always reduced; one with no MoE layer (dense, SSM,
-encoder-decoder) has nothing for LExI to plan (``optimize`` refuses it),
-so it runs only the forward.
+it.  The model is the reduced config in f32; on the card Stage 1 runs the
+MoE layers through the ``moe_gmm`` kernel, which takes f32 operands as
+its Pallas reference does.  ``--arch`` takes any config of the registry,
+always reduced; one with no MoE layer (dense, SSM, encoder-decoder) has
+nothing for LExI to plan (``optimize`` refuses it), so it runs only the
+forward.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def main(argv=None) -> int:
 
     # 2. Stage 1 -- Monte-Carlo top-k perturbation profiling (no data)
     table = profile_sensitivity(params, cfg, n_iter=args.n_iter, batch=2,
-                                seq=64, device=dev, use_kernel=False)
+                                seq=64, device=dev)
     print("\nper-layer perturbation loss (rows=layers, cols=k=1..k_base):")
     for i, row in enumerate(table.values):
         print(f"  layer {table.moe_layer_indices[i]}: "

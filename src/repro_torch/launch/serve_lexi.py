@@ -15,8 +15,13 @@ The model is the recipe of ``trained_tiny_moe``: an OLMoE-family
 ``.reduced()`` config at 4 layers, d_model 128, 4 heads of 32, 8 experts
 at top-4, moe_d_ff 128, vocab 512, f32, capacity factor 2.0, trained on
 16 x 64-token batches of the synthetic Zipf-Markov stream with AdamW at
-lr 2e-3.  The model is f32 and the CUDA kernels take bf16, so it trains,
-profiles, serves and evaluates through the plain PyTorch paths.
+lr 2e-3.  The model is f32, and the CUDA kernels take f32 operands as
+their Pallas references do: on the card Alg. 1 profiles through
+``moe_gmm``, held-out eval runs ``flash_attention`` and ``moe_gmm``, and
+the engine ``flash_decode_paged``, ``moe_gmm`` and ``moe_decode``.
+Training runs the plain paths (no kernel has a backward), and so do the
+engine and the eval with ``--expert-dtype int8`` / ``int4`` (the
+quantized expert kernels take bf16 activations).
 """
 
 from __future__ import annotations
@@ -114,7 +119,9 @@ def main(argv=None) -> int:
     # quantized runs evaluate ppl through the same quantized gmm path the
     # engine serves, so the quality number matches what is deployed
     ed = args.expert_dtype
-    ppl_opts = ModelOpts(moe_impl="gmm", expert_dtype=ed)
+    kern = ed == "bf16"
+    ppl_opts = ModelOpts(moe_impl="gmm", expert_dtype=ed, use_flash=kern,
+                         use_moe_kernel=kern)
 
     def ppl(p, c):
         if ed != "bf16":
@@ -126,7 +133,8 @@ def main(argv=None) -> int:
                  num_pages=args.num_pages, preemption=args.preemption,
                  expert_dtype=ed, prefix_cache=args.prefix_cache,
                  degrade_under_pressure=args.degrade_under_pressure,
-                 device=dev)
+                 use_kernel=kern, use_moe_decode=kern,
+                 opts=ModelOpts(use_moe_kernel=kern), device=dev)
     eng.serve(reqs())
     base_tput = eng.throughput()
     base_ppl = ppl(params, cfg)
@@ -140,8 +148,7 @@ def main(argv=None) -> int:
     # -- LExI plan at 50% budget served from the SAME runner ---------------- #
     budget = cfg.num_moe_layers * cfg.moe_top_k // 2
     plan = optimize(params, cfg, budget, method="dp", n_iter=8,
-                    profile_batch=2, profile_seq=32, device=dev,
-                    use_kernel=False)
+                    profile_batch=2, profile_seq=32, device=dev)
     eng.add_plan("lexi", plan)
     eng.serve(reqs(), plan="lexi")
     lexi_tput = eng.throughput()

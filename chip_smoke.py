@@ -46,14 +46,19 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               time, L2 flushed before every call, kernel, plain and -- where
               one PyTorch call computes the same function -- that call
               interleaved).  Then the f32 kernels (``f32_kernel_checks``,
-              C12): B1, B3 and B9 on f32 experts and B2, B8 and B4 on f32
-              q, K and V, at the reduced OLMoE config's shapes (d 128, 4
-              heads of 32, 8 experts at top-2, F 64; GQA under a window
-              too) and at full-width OLMoE's, each held elementwise to
+              C12): B1, B3 and B9 on f32 experts, B6 and B5 on f32 tokens
+              and int8 / int4 experts, and B2, B8 and B4 on f32 q, K and
+              V, at the reduced OLMoE config's shapes (d 128, 4 heads of
+              32, 8 experts at top-2, F 64; GQA under a window too) and at
+              full-width OLMoE's (B9 at C 4 also against f64 beside the
+              f32 summation bound, ``f64_witness``, C13), B6 and B5 at
+              llama4-scout's F 8192, B7 on f32 latents at the reduced
+              DeepSeek config's (4 heads, r 32, dr 16), DeepSeek-V2-Lite's
+              and MiniCPM3-4B's widths, each held elementwise to
               its plain version at F32_TOL (the reference's own f32
               tolerance), its cost on the card equal to its ``meta``
-              route's, B8's and B4's rows bit for bit alone against the
-              batch, timed beside the plain version, the bf16 kernel on
+              route's, B8's, B4's and B7's rows bit for bit alone against
+              the batch, timed beside the plain version, the bf16 kernel on
               the same inputs rounded to bf16 (``sibling_ms``) and the
               library call; the rows' ``f32_*`` sub-entries under
               ``shapes``; and B2's bf16 body at hd 32 to ROW_TOL.
@@ -152,12 +157,16 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               weights cast in place, 27.7 GB; TF32 off for cuBLAS and
               cuDNN, both flags printed): the 8 requests paged on ``gmm``
               (B1, B3, B4), contiguous with whole prompts (B2, B8, B1,
-              B3) and paged on ``dense`` (B9, B4; every engine after the
-              same warm-up wave), each graphed, with an eager twin (equal
-              tokens and launches) and on the plain f32 paths (the
+              B3), paged on ``dense`` (B9, B4; every engine after the
+              same warm-up wave) and paged on ``gmm`` with int8 and int4
+              experts (B6, B5, B4), each graphed, with an eager twin
+              (equal tokens and launches) and on the plain f32 paths (the
               first-token rows' distances from the plain f32 path's
               printed, the bf16 kernel path's of phases 3, 5 and 7
-              beside); then each serve through the first
+              beside; contiguous and dense: where the eager twin's routing
+              first splits from an eager plain serve's, warm-up waves
+              included, with the router's gap there, C13); then each
+              serve through the first
               F32_GATE_LAYERS layers on the f32 kernels, the plain f32
               paths and the bf16 kernels: the f32 kernel path's
               first-token logits within F32_LOGITS_TOL of the plain f32
@@ -165,11 +174,15 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               bf16 kernel path's; then Fig. 4's ``gmm`` rows (baseline
               and plan) through B1 and B2 as CUDA graphs, their
               cross-entropy within RECIPE_TOL of the plain f32 paths'.
-    reduced_f32 -- the reduced OLMoE config (f32, hd 32) through the
-              entry points in this process: ``launch/serve.py`` on
-              ``dense`` (B9, B4), on ``gmm`` with the fused decode and a
-              plan (B1, B3, B4), contiguous with whole prompts (B2, B8,
-              B9), and ``launch/serve_lexi.py`` (B1, B2, B3, B4).
+    reduced_f32 -- the reduced OLMoE and DeepSeek-V2-Lite configs (f32)
+              through the entry points in this process:
+              ``launch/serve.py`` on OLMoE on ``dense`` (B9, B4), on
+              ``gmm`` with the fused decode and a plan (B1, B3, B4),
+              contiguous with whole prompts (B2, B8, B9), on ``gmm`` with
+              int8 and int4 experts (B6, B5, B4), on DeepSeek paged (B1,
+              B3, B7 at r 32, dr 16) and with int4 experts (B6, B5, B7),
+              and ``launch/serve_lexi.py`` (B1, B2, B3, B4), again with
+              int8 experts (B6, B5, B4, B2).
 8. serve_mla -- the OLMoE weights freed, DeepSeek-V2-Lite at full width and
               depth (27 layers, MLA with kv_lora_rank 512, a dense first
               layer, 64 experts top-6 plus 2 shared), bf16, random weights
@@ -191,6 +204,12 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
 9. forward_mla -- phase 4 on DeepSeek-V2-Lite (``moe_ffn`` and
               ``moe_gmm``; MLA's train mode attends through the plain
               masked softmax).
+9a. serve_f32_mla -- DeepSeek-V2-Lite at full depth with every weight
+              but the routed experts cast to f32 in place and the experts
+              quantized to int8 at load: the 8 requests paged on ``gmm``
+              (B6, B5, B7 on an f32 latent pool) as phase 7b serves them,
+              gated through its dense first layer and first MoE layer;
+              the phase's peak printed.
 9b. families -- the DeepSeek weights freed, each of
               ``repro_torch.configs.FAMILIES`` in turn at full width, bf16,
               random weights drawn on the card (qwen3-moe-235b-a22b and
@@ -382,7 +401,10 @@ name and power limit, and as the last line ``{"ok": true, "device":
 
 runs only the four attention kernels' checks of phase 2 (B2, B8 and B4 on
 OLMoE-1B-7B's widths and the families', B7 on DeepSeek-V2-Lite's and
-MiniCPM3-4B's; B2, B8 and B4 in f32 at OLMoE's widths), untimed, on the ``repro_torch`` of ``DIR/src`` (default:
+MiniCPM3-4B's; B2, B8 and B4 in f32 at OLMoE's widths; B7 on f32
+latents at F32_MLA_SHAPES), B6 and B5 on f32 tokens at the reduced
+OLMoE layer and B5's at DIGEST_QUANT, untimed, on the ``repro_torch`` of
+``DIR/src`` (default:
 this checkout; its kernels build into ``DIR/build``), and prints as its
 last line ``{"digests": {check: digest}, "refused": {check function:
 message}}``.  Each kernel's newer shapes come after its older ones, so a
@@ -400,7 +422,8 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+from functools import partial
 from dataclasses import replace
 
 import numpy as np
@@ -1385,13 +1408,15 @@ WITNESS_RATIO = 2.0
 
 
 @contextmanager
-def as_f32(params):
+def as_f32(params, keep=()):
     """The bf16 weights cast to f32 in place while the block runs, and back
     after (bf16 -> f32 -> bf16 is exact): the witness holds one copy of the
-    model on the card, pixtral's 24.5 GB as 49 GB and not 73.5."""
+    model on the card, pixtral's 24.5 GB as 49 GB and not 73.5.  The
+    tensors of ``keep`` stay as they are."""
     from repro_torch.tree import leaves
+    kept = {id(t) for t in keep}
     cast = list({id(t): t for t in leaves(params)
-                 if isinstance(t, torch.Tensor)
+                 if isinstance(t, torch.Tensor) and id(t) not in kept
                  and t.dtype == torch.bfloat16}.values())
     for t in cast:
         t.data = t.data.float()
@@ -2576,8 +2601,13 @@ def serve_dense(params, cfg, plan, device, t_start):
 #: makes full-width expert outputs O(100), where two f32 summation orders
 #: over D 2048 differ by about 1e-4 at an element near zero (the bits of
 #: cuBLAS's sequential sum are B1's; its split sum at C 4 differed from
-#: B9's by 1.2e-4 at a row of 82).  bf16 rounding anywhere (2^-9 a value)
-#: or TF32 (2^-12) moves a row by 30x or 8x this bound
+#: B9's by 1.2e-4 at a row of 82).  ``f64_witness`` shows that this is
+#: summation order, not a fault: there B9 lies 1.17e-4 from the f64
+#: value (72.4) and the split sum 5.5e-6, both far inside the f32
+#: summation bound of that element (2.31; the kernel takes at most 5.2e-5
+#: of the bound anywhere in the output): B9 sums each output's K in one
+#: sequential chain.  bf16 rounding anywhere (2^-9 a value) or TF32
+#: (2^-12) moves a row by 30x or 8x this bound
 F32_TOL = 2e-5
 #: the full-width f32 serves: the kernel path's first-token logits rows
 #: within F32_LOGITS_TOL (each row's relative L2 error) of the plain f32
@@ -2643,16 +2673,17 @@ def f32_case(name, tag, wrapper, plain, args, kw, sibling, library, nbytes,
     """One f32 shape of a kernel: held to its plain version (compare_f32),
     its cost equal on the card and on meta, then timed with the plain
     version, the bf16 kernel on the same inputs rounded to bf16 beforehand
-    (``sibling``: a thunk) and the library call (a thunk, or None).
-    Returns the numbers ``kernel_row`` takes, f32 rates."""
+    (``sibling``: a thunk, or None where the shape has no bf16 instance)
+    and the library call (a thunk, or None).  Returns the numbers
+    ``kernel_row`` takes, f32 rates."""
     err = compare_f32(f"{name}_f32_{tag}", wrapper(*args, **kw),
                       plain(*args), **extra)
     meta_cost_equal(name, wrapper, args, kw)
-    fns = [lambda: wrapper(*args, **kw), lambda: plain(*args), sibling]
-    if library is not None:
-        fns.append(library)
-    ms, plain_ms, sib_ms, *lib = time_calls(fns, flush)
-    return (err, ms, plain_ms, nbytes, flops, lib[0] if lib else None,
+    fns = [lambda: wrapper(*args, **kw), lambda: plain(*args)]
+    fns += [f for f in (sibling, library) if f is not None]
+    ms, plain_ms, *more = time_calls(fns, flush)
+    sib_ms = more.pop(0) if sibling is not None else None
+    return (err, ms, plain_ms, nbytes, flops, more[0] if more else None,
             {"sibling_ms": sib_ms})
 
 
@@ -2663,12 +2694,14 @@ def to_bf16(*ts):
             for t in ts]
 
 
-def f32_expert_checks(layer, cfg, x, flush, tag, per):
+def f32_expert_checks(layer, cfg, x, flush, tag, per, witness=False):
     """B1, B3 and B9 in f32 on ``layer`` (f32 weights) and f32 tokens
     ``x``: B1 on ``x``'s sorted dispatch at top-k, B3 on its first 8 tokens
     at top-k, B9 on the capacity buffers of its first 8 tokens and of all
     of them; the sibling is the bf16 kernel on the same inputs rounded to
-    bf16.  Adds {kernel: {f32 shape: numbers}} to ``per``."""
+    bf16.  ``witness``: B9 on the first 8 tokens' buffers also against
+    f64 (``f64_witness``).  Adds {kernel: {f32 shape: numbers}} to
+    ``per``."""
     import torch.nn.functional as F_
     from repro_torch.kernels import moe_decode, moe_ffn, moe_gmm
     from repro_torch.kernels.moe_decode import moe_decode_plain
@@ -2727,6 +2760,9 @@ def f32_expert_checks(layer, cfg, x, flush, tag, per):
         xe, dropped = capacity_buffers(layer, cfg, xx)
         xe_b = to_bf16(xe)[0]
         c = xe.shape[1]
+        if witness and sh == "c_decode":
+            f64_witness(f"moe_ffn_f32_{tag}_{sh}{c}_f64", xe, w1, w2,
+                        moe_ffn(xe, w1, w2), moe_ffn_plain(xe, w1, w2))
 
         def bmm_swiglu(xe=xe):
             h = torch.bmm(xe, w1)
@@ -2736,6 +2772,175 @@ def f32_expert_checks(layer, cfg, x, flush, tag, per):
             (xe, w1, w2), {}, lambda xe_b=xe_b: moe_ffn(xe_b, b1, b2),
             bmm_swiglu, e * 3 * d * f * 4 + 2 * e * c * d * 4,
             e * c * 6 * d * f, flush, capacity=c, dropped_copies=dropped)
+
+
+#: Higham's unit roundoff of f32 (round to nearest)
+F32_U = 2.0 ** -24
+
+
+def f64_witness(check, xe, w1, w2, got, plain):
+    """C13: B9's f32 output ``got`` and its plain version's ``plain``
+    (cuBLAS's f32 ``bmm`` pair) against the same SwiGLU computed in f64,
+    beside the rounding-error bound of any f32 evaluation of it, element
+    by element (gamma_n = n u / (1 - n u), u = 2^-24): the down product's
+    gamma_F sum_f |h_f| |w2_fd|, plus the gate and up products' gamma_D
+    sum_i |x_i| |w1_if| carried through the SwiGLU's derivatives and 4u
+    |h_f| for its own roundings, summed against |w2_fd| (first order).
+    Prints the three numbers at the element where the kernel and the plain
+    version differ most, and the largest share of the bound each takes
+    over the output; fails if the kernel leaves the bound anywhere (a
+    fault, not an order of summation)."""
+    f, d = w2.shape[1], xe.shape[-1]
+    x, a1, a2 = xe.double(), w1.double(), w2.double()
+    hg = torch.bmm(x, a1)
+    g, up = hg[..., :f], hg[..., f:]
+    sig = torch.sigmoid(g)
+    silu = g * sig
+    h = silu * up
+    want = torch.bmm(h, a2)
+
+    def gamma(n):
+        return n * F32_U / (1 - n * F32_U)
+    dg = gamma(d) * torch.bmm(x.abs(), a1.abs())
+    dh = ((sig * (1 + g * (1 - sig))).abs() * up.abs() * dg[..., :f]
+          + silu.abs() * dg[..., f:] + 4 * F32_U * h.abs())
+    a2 = a2.abs()
+    bound = gamma(f) * torch.bmm(h.abs(), a2) + torch.bmm(dh, a2)
+    del hg, g, up, sig, silu, h, dg, dh, a1, a2
+    ek = (got.double() - want).abs()
+    ep = (plain.double() - want).abs()
+
+    def share(e):           # an empty capacity row: bound and error 0
+        return torch.where(bound > 0, e / bound.clamp(min=1e-300),
+                           torch.where(e > 0, float("inf"), 0.0))
+    at = np.unravel_index(int((got - plain).abs().argmax()), got.shape)
+    rec = {"check": check, "witness": "f64", "element": list(map(int, at)),
+           "kernel_vs_f64": ek[at].item(), "plain_vs_f64": ep[at].item(),
+           "kernel_vs_plain": (got - plain).abs()[at].item(),
+           "bound": bound[at].item(), "value": want[at].item(),
+           "kernel_max_share_of_bound": share(ek).max().item(),
+           "plain_max_share_of_bound": share(ep).max().item(),
+           "kernel_max_vs_f64": ek.max().item(),
+           "plain_max_vs_f64": ep.max().item()}
+    emit(rec)
+    if not rec["kernel_max_share_of_bound"] <= 1.0:
+        raise AssertionError(f"{check}: the kernel lies outside the f32 "
+                             f"summation bound ({rec})")
+
+
+#: B5 and B6 in f32 at llama4-scout-17b-a16e's F 8192 (its first MoE
+#: layer, D 5120, 16 experts, top-1)
+F32_QUANT_WIDE = "llama4-scout-17b-a16e"
+
+
+def f32_quant_checks(layer, cfg, x, flush, tag, per):
+    """B6 and B5 in f32, int8 and int4, on ``layer``'s experts scaled apart
+    (``varied_experts``) and quantized on the card, and f32 tokens ``x``:
+    B6 on ``x``'s sorted dispatch at top-k, B5 on its first 8 tokens at
+    top-k (one router weight set to zero); the sibling is the bf16
+    activations' kernel on the same routing and the same int8 weights,
+    ``x`` rounded to bf16.  Adds {kernel: {f32 shape: numbers}} to
+    ``per``."""
+    from repro_torch.kernels import moe_decode_quant, moe_gmm_quant
+    from repro_torch.kernels.moe_decode import moe_decode_quant_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
+    from repro_torch.models.moe import QUANT_DTYPES, default_block_m, \
+        make_sort_plan, quantize_moe_layer, route, sort_dispatch
+    k, d, f = cfg.moe_top_k, cfg.d_model, cfg.moe_d_ff
+    varied = varied_experts(layer)
+    _, idx, _ = route(layer, cfg, x, k)
+    plan = make_sort_plan(idx, cfg.num_experts,
+                          default_block_m(x.shape[0] * k, floor=8))
+    xs = sort_dispatch(x, plan, k)
+    xs_b = to_bf16(xs)[0]
+    bm, te, tv = plan.block_m, plan.tile_expert, plan.tile_valid
+    experts = int(torch.unique(te[tv.bool()]).numel())
+    rows = x.shape[0] * k
+    x8 = x[:8].contiguous()
+    weights, idx8, _ = route(layer, cfg, x8, k)
+    weights = weights.clone()
+    weights[0, -1] = 0.0
+    x8_b = to_bf16(x8)[0]
+    experts8 = int(torch.unique(idx8).numel())
+    for dt in QUANT_DTYPES:
+        q = quantize_moe_layer(varied, dt)
+        qw = (q["w1"], q["w2"], q["w1_scale"], q["w2_scale"])
+        per.setdefault("moe_gmm_quant", {})[f"f32_{tag}_{dt}"] = f32_case(
+            "moe_gmm_quant", f"{tag}_{dt}", moe_gmm_quant,
+            lambda *a: moe_gmm_quant_plain(*a, bm, dtype=dt),
+            (xs, *qw, te, tv), {"dtype": dt, "block_m": bm},
+            lambda: moe_gmm_quant(xs_b, *qw, te, tv, dtype=dt, block_m=bm),
+            None, 2 * rows * d * 4 + _quant_bytes(experts, d, f, dt)
+            + 2 * 4 * len(tv), rows * 6 * d * f, flush, tokens=x.shape[0],
+            k=k, block_m=bm, experts=experts)
+        per.setdefault("moe_decode_quant", {})[f"f32_{tag}_{dt}"] = f32_case(
+            "moe_decode_quant", f"{tag}_{dt}", moe_decode_quant,
+            lambda *a: moe_decode_quant_plain(*a, dtype=dt),
+            (x8, *qw, idx8, weights), {"dtype": dt},
+            lambda: moe_decode_quant(x8_b, *qw, idx8, weights, dtype=dt),
+            None, _quant_bytes(experts8, d, f, dt) + 2 * 8 * d * 4
+            + 8 * k * 8, 8 * k * 6 * d * f, flush, batch=8, k=k,
+            experts=experts8)
+        del q, qw
+        gc.collect()                # the plain versions' f32 weights
+        torch.cuda.empty_cache()
+
+
+#: B7 in f32 (heads, r, dr, the model's qk dims dn + dr for the scale):
+#: the reduced DeepSeek config's, DeepSeek-V2-Lite's and MiniCPM3-4B's
+F32_MLA_SHAPES = {"reduced": (4, 32, 16, 16 + 16),
+                  "deepseek": (16, 512, 64, 128 + 64),
+                  "minicpm3_h40": (40, 256, 32, 64 + 32)}
+
+
+def f32_mla_checks(flush, device, per):
+    """B7 on f32 latent pools at each of F32_MLA_SHAPES: the 8 rows of
+    F32_LENS (up to 512 positions, one idle) on pages of 16, a 64-column
+    table walked through a 32-column view, each row also alone at its own
+    live width against the batch at 64 columns, bit for bit; the sibling
+    is the bf16 kernel on the latents rounded to bf16 (none at (32, 16),
+    which only f32 latents take).  Adds {kernel: {f32 shape: numbers}} to
+    ``per``."""
+    from repro_torch.kernels import flash_decode_paged_mla
+    from repro_torch.kernels.flash_decode_paged import MLA_SHAPES, \
+        flash_decode_paged_mla_plain
+    gen = torch.Generator(device=device)
+    gen.manual_seed(14)
+    p, n_blk, live = 16, 64, 32
+    lens = F32_LENS
+    b = len(lens)
+    for tag, (h, r, dr, qk) in F32_MLA_SHAPES.items():
+        scale = 1.0 / qk ** 0.5
+        n = b * 32 + 1
+        ckvp, kropep = (torch.randn((n, p, w), generator=gen, device=device)
+                        for w in (r, dr))
+        q_lat, q_rope = (torch.randn((b, h, w), generator=gen, device=device)
+                         for w in (r, dr))
+        posp, table, cur = paged_positions(lens, n, p, n_blk, device)
+        args = (q_lat, q_rope, ckvp, kropep, posp, table[:, :live], cur)
+        lat_b = to_bf16(ckvp, kropep)
+        sibling = None
+        if (r, dr) in MLA_SHAPES[torch.bfloat16]:
+            def sibling():
+                return flash_decode_paged_mla(q_lat, q_rope, *lat_b, posp,
+                                              table[:, :live], cur,
+                                              scale=scale)
+        pages, slots = live_work(posp, table[:, :live], cur)
+        per.setdefault("flash_decode_paged_mla", {})[f"f32_{tag}"] = f32_case(
+            "flash_decode_paged_mla", tag, flash_decode_paged_mla,
+            lambda *a: flash_decode_paged_mla_plain(*a, scale=scale), args,
+            {"scale": scale}, sibling, None,
+            pages * p * (r + dr) * 4 + pages * p * 4 + b * h * (r + dr) * 4
+            + b * h * r * 4 + b * live * 4 + b * 4,
+            slots * h * (2 * (r + dr) + 2 * r), flush, batch=b, heads=h,
+            latent=[r, dr], live_positions=sum(lens), table_cols=live)
+        bitwise_rows(
+            f"flash_decode_paged_mla_f32_{tag}_rows",
+            lambda *a: flash_decode_paged_mla(*a, scale=scale), lens,
+            lambda i, w: (q_lat[i:i + 1], q_rope[i:i + 1], ckvp, kropep,
+                          posp, table[i:i + 1, :w], cur[i:i + 1]),
+            flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, table,
+                                   cur, scale=scale))
 
 
 def f32_attention_checks(hq, hkv, hd, lens, s_buf, seq, window, device,
@@ -2830,10 +3035,12 @@ def f32_kernel_checks(layer, cfg, x, device, flush):
     """Each f32 kernel at the reduced OLMoE config's shapes (d 128, 4
     heads of 32, 8 experts at top-2, F 64: its own first MoE layer, 128
     tokens) and at full-width OLMoE's (``layer`` cast to f32, ``x``'s 512
-    tokens), each held to F32_TOL, its cost on the card equal to meta's,
-    timed; and B2's bf16 body at hd 32 (the reduced config's attention)
-    against its plain version row by row to ROW_TOL.  Returns {kernel:
-    {f32 shape: numbers}} for the ``kernels`` line."""
+    tokens; B9 at C 4 also against f64, ``f64_witness``), B7 on f32
+    latents at F32_MLA_SHAPES, B5 and B6 also at llama4-scout's F 8192
+    (F32_QUANT_WIDE), each held to F32_TOL, its cost on the card equal to
+    meta's, timed; and B2's bf16 body at hd 32 (the reduced config's
+    attention) against its plain version row by row to ROW_TOL.  Returns
+    {kernel: {f32 shape: numbers}} for the ``kernels`` line."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention
@@ -2847,6 +3054,8 @@ def f32_kernel_checks(layer, cfg, x, device, flush):
     rx = torch.randn((128, rcfg.d_model), generator=gen, device=device)
     f32_expert_checks(rparams["layers"][0]["moe"], rcfg, rx, flush,
                       "reduced", per)
+    f32_quant_checks(rparams["layers"][0]["moe"], rcfg, rx, flush,
+                     "reduced", per)
     f32_attention_checks(rcfg.num_heads, rcfg.num_kv_heads, rcfg.head_dim_,
                          F32_REDUCED_LENS, 128, 128, None, device, flush,
                          "reduced", per)
@@ -2863,11 +3072,25 @@ def f32_kernel_checks(layer, cfg, x, device, flush):
                      shape=[2, 4, 2, 128, 32], window=window)
     del rparams
     f32_layer = {n: t.float() for n, t in layer.items()}
-    f32_expert_checks(f32_layer, cfg, x.float(), flush, "olmoe", per)
+    f32_expert_checks(f32_layer, cfg, x.float(), flush, "olmoe", per,
+                      witness=True)
+    f32_quant_checks(f32_layer, cfg, x.float(), flush, "olmoe", per)
     del f32_layer
     f32_attention_checks(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
                          F32_LENS, 512, 512, None, device, flush, "olmoe",
                          per)
+    f32_mla_checks(flush, device, per)
+    torch.cuda.empty_cache()
+    wcfg = get_config(F32_QUANT_WIDE).with_(num_layers=2)
+    wparams = models.init_params(wcfg, seed=0, device=device)
+    wlayer = cast_tree(next(lp["moe"] for lp in wparams["layers"]
+                            if "moe" in lp), torch.float32)
+    del wparams
+    wx = torch.randn((512, wcfg.d_model), generator=gen, device=device)
+    f32_quant_checks(wlayer, wcfg, wx, flush, FAMILY_SHORT[F32_QUANT_WIDE],
+                     per)
+    del wlayer, wx
+    gc.collect()
     torch.cuda.empty_cache()
     return per
 
@@ -2899,13 +3122,19 @@ def f32_logits_gate(check, got, plain, bf16_rows, **extra):
         raise AssertionError(f"{check} failed: {rec}")
 
 
-#: the depth of the serves whose first-token logits ``f32_logits_gate``
-#: holds: through more layers a top-k near tie in any token's routing,
-#: which f32 sums in another order (1e-6) can flip, reaches the last
-#: token through attention and moves its logits by their own size (the
-#: contiguous serve at 16 layers: one row of 8 by 0.305, its argmax
-#: changed); through the first layer only the last token's own routing
-#: counts (``reference_check`` cuts to one layer for the same reason)
+#: the depth (in MoE layers) of the serves whose first-token logits
+#: ``f32_logits_gate`` holds: through more layers a top-k near tie in any
+#: token's routing, which f32 sums in another order can flip, reaches the
+#: last token through attention and moves its logits by their own size
+#: (the contiguous serve at 16 layers: one row of 8 by 0.305, its argmax
+#: changed; ``first_route_split`` found the flip at layer 1, a gap of
+#: 5.4e-7 between the 8th and 9th router logits, inside the two paths'
+#: 2.8e-6 distance there); through the first layer only the last token's
+#: own routing counts (``reference_check`` cuts to one layer for the same
+#: reason).  On ``dense`` the first split is not a near tie: a decode
+#: step's idle rows attend to zeros on the kernel path and to the mean of
+#: their masked slots on the plain path (as the reference's kernel and
+#: plain paths), and take capacity slots there (ROADMAP C14)
 F32_GATE_LAYERS = 1
 
 
@@ -2920,46 +3149,117 @@ def cast_tree(x, dtype):
     return x
 
 
+@contextmanager
+def routing_log():
+    """Record every ``route`` call's router logits [T, E] (f32) and top-k
+    ids while the block runs, in call order (the MoE impls' own references
+    to ``route`` wrapped; eager steps only: a graph's replay runs no
+    Python)."""
+    import importlib
+    mods = [importlib.import_module(f"repro_torch.models.moe.{m}")
+            for m in ("dense", "gmm", "decode")]
+    log, orig = [], {m: m.route for m in mods}
+
+    def wrap(fn):
+        def logged(params, cfg, x2d, top_k, k_budget=None):
+            out = fn(params, cfg, x2d, top_k, k_budget=k_budget)
+            log.append((x2d.float() @ params["router"].float(), out[1]))
+            return out
+        return logged
+    for m in mods:
+        m.route = wrap(orig[m])
+    try:
+        yield log
+    finally:
+        for m in mods:
+            m.route = orig[m]
+
+
+#: a row whose two paths' router logits lie within this share of the
+#: row's largest logit has the same input up to f32 summation order
+SAME_INPUT = 1e-4
+
+
+def first_route_split(kernel_log, plain_log, top_k, moe_layers):
+    """C13: where the kernel path's routing first differs from the plain
+    path's (``route`` calls in order: the call, its MoE layer, a row whose
+    top-k set differs).  ``first``: the first such row at all, with
+    ``inputs_apart`` when the two paths' logits of that row lie further
+    apart than SAME_INPUT (its input already differed: not a near tie);
+    ``first_same_input``: the first such row whose input was the same up
+    to summation order.  Each with the plain path's gap between its k-th
+    and (k+1)-th logit, that gap over the k-th logit's size, and the two
+    paths' logit distance there: a flip whose gap lies inside that
+    distance is a near tie."""
+    out = {"calls": min(len(kernel_log), len(plain_log)), "first": None,
+           "first_same_input": None}
+    for i, ((lk, ik), (lp, ip)) in enumerate(zip(kernel_log, plain_log)):
+        if ik.shape != ip.shape:
+            out["shapes_differ"] = {"call": i, "shapes": [list(ik.shape),
+                                                          list(ip.shape)]}
+            break
+        split = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        dist = (lk - lp).abs().amax(-1)
+        same = dist <= SAME_INPUT * lp.abs().amax(-1)
+        for key, rows in (("first", split), ("first_same_input",
+                                             split & same)):
+            if out[key] is None and rows.any():
+                row = int(rows.nonzero()[0])
+                top = lp[row].sort(descending=True).values
+                gap = (top[top_k - 1] - top[top_k]).item()
+                out[key] = {
+                    "call": i, "layer": i % moe_layers, "row": row,
+                    "rows_split": int(split.sum()),
+                    "inputs_apart": not bool(same[row]),
+                    "logit_k": top[top_k - 1].item(), "gap": gap,
+                    "gap_rel": gap / max(abs(top[top_k - 1].item()), 1e-30),
+                    "kernel_vs_plain_logits": dist[row].item()}
+        if out["first_same_input"] is not None:
+            break
+    return out
+
+
 def serve_f32_layout(tag, cfg32, params, make, bf16_rows, kernels_run,
-                     device, warm=False):
+                     device, warm=False, routing=False):
     """One full-width f32 serve of the 8 requests (``make(cfg, params,
     graphs, kernels)`` builds the engine): at full depth through the
     kernels graphed (tokens, launches) and its eager twin (equal tokens
     and launches), and on the plain f32 paths; the first-token rows'
-    distances at full depth printed (the kernel path's and ``bf16_rows``',
-    the bf16 kernel path's of the same serve, from the plain f32 path's);
-    then the same serve through the first F32_GATE_LAYERS layers, through
-    the f32 kernels, on the plain f32 paths and through the bf16 kernels
-    (the same weights rounded to bf16), its rows held by
-    ``f32_logits_gate``.  ``warm``: each engine serves the same warm-up
-    wave first (``dense``: a pad row's routing follows its recycled pages'
-    stale bytes, so every engine walks the same history).  Returns (record,
-    need)."""
-    def run(eng):
-        if warm:
-            eng.serve(requests(cfg32, seed=0))
-        with first_token_rows(eng) as rows:
-            res, counts = counted(lambda: eng.serve(requests(cfg32, seed=0)))
-        return res, counts, rows
-
-    def served(c, p, graphs, kernels):
+    distances at full depth printed (the kernel path's and, given,
+    ``bf16_rows``', the bf16 kernel path's of the same serve, from the
+    plain f32 path's); with ``routing``, where the eager twin's routing
+    first splits from an eager plain serve's, their warm-up waves
+    included (``first_route_split``);
+    then the same serve through its first F32_GATE_LAYERS MoE layers (and
+    the dense layers before them), through the f32 kernels, on the plain
+    f32 paths and through the bf16 kernels (the same weights rounded to
+    bf16), its rows held by ``f32_logits_gate``.  ``warm``: each engine
+    serves the same warm-up wave first (``dense``: a pad row's routing
+    follows its recycled pages' stale bytes, so every engine walks the
+    same history).  Returns (record, need)."""
+    def served(c, p, graphs, kernels, log=False):
         eng = make(c, p, graphs, kernels)
-        if not warm:
-            eng.serve(requests(c, seed=0, n=2, max_new=4))   # warm-up wave
-        res, counts, rows = run(eng)
+        with routing_log() if log else nullcontext() as got_log:
+            if warm:
+                eng.serve(requests(c, seed=0))
+            else:
+                eng.serve(requests(c, seed=0, n=2, max_new=4))   # warm-up
+            with first_token_rows(eng) as rows:
+                res, counts = counted(lambda: eng.serve(requests(c, seed=0)))
         stats = serve_record(eng)
         del eng
-        return res, counts, rows, stats
-    res, counts, rows, stats = served(cfg32, params, True, True)
+        gc.collect()                    # the engine's pool and weights
+        return res, counts, rows, stats, got_log
+    res, counts, rows, stats, _ = served(cfg32, params, True, True)
     check_results(f"f32 {tag}", res, cfg32, max_new=32)
     rec = {"stats": stats, "launches": counts}
-    res_e, counts_e, _, rec["eager_stats"] = served(cfg32, params, False,
-                                                    True)
+    res_e, counts_e, _, rec["eager_stats"], k_log = served(
+        cfg32, params, False, True, routing)
     same_tokens(f"f32 {tag} graphed vs eager", res, res_e)
     if counts_e != counts:
         raise AssertionError(f"f32 {tag}: eager launches {counts_e} against "
                              f"{counts}")
-    _, plain_counts, plain_rows, rec["plain_stats"] = served(
+    _, plain_counts, plain_rows, rec["plain_stats"], _ = served(
         cfg32, params, True, False)
     if any(plain_counts.values()):
         raise AssertionError(f"f32 {tag} plain: launches {plain_counts}")
@@ -2968,10 +3268,16 @@ def serve_f32_layout(tag, cfg32, params, make, bf16_rows, kernels_run,
     rec["full_depth"] = {
         "layers": cfg32.num_layers,
         "f32_kernel_vs_f32_plain": row_rel_err(torch.stack(
-            [rows[u] for u in uids]), want).tolist(),
-        "bf16_kernel_vs_f32_plain": row_rel_err(torch.stack(
-            [bf16_rows[u] for u in uids]), want).tolist()}
-    n = F32_GATE_LAYERS
+            [rows[u] for u in uids]), want).tolist()}
+    if bf16_rows is not None:
+        rec["full_depth"]["bf16_kernel_vs_f32_plain"] = row_rel_err(
+            torch.stack([bf16_rows[u] for u in uids]), want).tolist()
+    if routing:
+        p_log = served(cfg32, params, False, False, True)[4]
+        rec["full_depth"]["first_route_split"] = first_route_split(
+            k_log, p_log, cfg32.moe_top_k, cfg32.num_moe_layers)
+        del k_log, p_log
+    n = cfg32.first_k_dense + F32_GATE_LAYERS
     cut = cfg32.with_(num_layers=n)
     p_cut = dict(params, layers=params["layers"][:n])
     got = served(cut, p_cut, True, True)[2]
@@ -3034,11 +3340,13 @@ def serve_f32_phase(params, cfg, plan, bf16_rows, device, t_start):
     """Phase 7b's serves (module doc): full-width, full-depth OLMoE-1B-7B
     in f32 (the bf16 weights cast in place, ``as_f32``), served paged on
     ``gmm`` (B1, B3, B4), contiguous with whole prompts (B2, B8, and B1 /
-    B3 on ``gmm``) and paged on ``dense`` (B9, B4), each gated by
-    ``serve_f32_layout`` against ``bf16_rows`` (the bf16 kernel path's
-    first-token rows of the same serve: "paged", "contiguous", "dense");
-    then Fig. 4's ``gmm`` rows (``forward_f32``).  Returns the launch
-    needs."""
+    B3 on ``gmm``), paged on ``dense`` (B9, B4), and paged on ``gmm`` with
+    int8 and int4 experts quantized at load (B6, B5, B4), each gated by
+    ``serve_f32_layout`` (against ``bf16_rows``, the bf16 kernel path's
+    first-token rows of the same serve where there are: "paged",
+    "contiguous", "dense"; the contiguous and dense serves also locate
+    their first routing split, C13); then Fig. 4's ``gmm`` rows
+    (``forward_f32``).  Returns the launch needs."""
     from repro_torch import models
     from repro_torch.serving import Engine
     from repro_torch.tree import leaves
@@ -3055,12 +3363,12 @@ def serve_f32_phase(params, cfg, plan, bf16_rows, device, t_start):
         rec["params_gb"] = sum(t.numel() * t.element_size()
                                for t in leaves(params)) / 1e9
 
-        def paged(c, p, graphs, kernels):
+        def paged(c, p, graphs, kernels, expert_dtype="bf16"):
             return Engine(c, p, max_batch=8, max_len=512,
                           prefill_chunk=64, use_kernel=kernels,
                           use_moe_decode=kernels, opts=models.ModelOpts(
                               use_moe_kernel=kernels), device=device,
-                          graphs=graphs)
+                          graphs=graphs, expert_dtype=expert_dtype)
 
         def contiguous(c, p, graphs, kernels):
             return Engine(c, p, max_batch=8, max_len=512,
@@ -3069,6 +3377,7 @@ def serve_f32_phase(params, cfg, plan, bf16_rows, device, t_start):
                               use_flash=kernels, use_flash_decode=kernels,
                               use_moe_kernel=kernels), device=device,
                           graphs=graphs)
+        quant = ("moe_gmm_quant", "moe_decode_quant", "flash_decode_paged")
         for tag, c, make, run, warm in (
                 ("paged", gmm32, paged,
                  ("moe_gmm", "moe_decode", "flash_decode_paged"), False),
@@ -3076,9 +3385,12 @@ def serve_f32_phase(params, cfg, plan, bf16_rows, device, t_start):
                  ("moe_gmm", "moe_decode", "flash_attention",
                   "flash_decode"), False),
                 ("dense", dense32, paged,
-                 ("moe_ffn", "flash_decode_paged"), True)):
-            rec[tag], n = serve_f32_layout(tag, c, params, make,
-                                           bf16_rows[tag], run, device, warm)
+                 ("moe_ffn", "flash_decode_paged"), True),
+                *((f"paged_{dt}", gmm32, partial(paged, expert_dtype=dt),
+                   quant, False) for dt in ("int8", "int4"))):
+            rec[tag], n = serve_f32_layout(
+                tag, c, params, make, bf16_rows.get(tag), run, device, warm,
+                routing=tag in ("contiguous", "dense"))
             need.update(n)
             rec[f"{tag}_seconds"] = time.perf_counter() - t0
         rec["forward"], counts = forward_f32(params, gmm32, plan, device)
@@ -3089,18 +3401,68 @@ def serve_f32_phase(params, cfg, plan, bf16_rows, device, t_start):
     return need
 
 
+def serve_f32_mla_phase(params, cfg, device, t_start):
+    """Phase 9a: full-depth DeepSeek-V2-Lite with f32 weights but for its
+    routed experts (cast in place, ``as_f32``), which the engine quantizes
+    to int8 at load from their bf16 values, served paged on ``gmm`` (B6,
+    B5, and B7 on an f32 latent pool) by ``serve_f32_layout``: graphed,
+    eager and plain at full depth, then gated through its dense first
+    layer and its first MoE layer.  Prints the phase's peak.  Returns the
+    launch needs."""
+    from repro_torch import models
+    from repro_torch.serving import Engine
+    gmm32 = cfg.with_(moe_impl="gmm", dtype="float32")
+    experts = [lp["moe"][w] for lp in params["layers"] if "moe" in lp
+               for w in ("w1", "w2")]
+
+    def paged(c, p, graphs, kernels):
+        return Engine(c, p, max_batch=8, max_len=512, prefill_chunk=64,
+                      use_kernel=kernels, use_moe_decode=kernels,
+                      expert_dtype="int8", opts=models.ModelOpts(
+                          use_moe_kernel=kernels), device=device,
+                      graphs=graphs)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    with as_f32(params, keep=experts):
+        rec, need = serve_f32_layout(
+            "mla_int8", gmm32, params, paged, None,
+            ("moe_gmm_quant", "moe_decode_quant", "flash_decode_paged_mla"),
+            device)
+    for step, (counts, _) in need.items():
+        if counts["moe_gmm"] or counts["moe_decode"] or any(
+                counts[n] for n in GQA_ATTENTION):
+            raise AssertionError(f"{step}: launches {counts}")
+    rec.update(peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    del experts
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_f32_mla", **rec, "layers": cfg.num_layers,
+          "seconds": time.perf_counter() - t0,
+          "seconds_total": time.perf_counter() - t_start, "card": card_line()})
+    return need
+
+
 def reduced_launchers_phase(device, t_start):
-    """The reduced OLMoE config (f32, d 128, hd 32) through the port's own
-    entry points on the card, in this process, each counted:
-    ``launch/serve.py`` on ``dense`` (B9, B4), on ``gmm`` with the fused
-    decode and a LExI plan (B1 in Alg. 1 and the chunks, B3, B4), on the
-    contiguous layout with whole prompts (B2, B8, B9), and
-    ``launch/serve_lexi.py`` (Alg. 1 through B1, held-out eval through B1
-    and B2, the engine through B1, B3 and B4).  Each must exit 0 and
-    launch its kernels.  Returns the launch needs."""
+    """The reduced OLMoE and DeepSeek-V2-Lite configs (f32, d 128; OLMoE
+    hd 32, DeepSeek MLA at r 32, dr 16) through the port's own entry
+    points on the card, in this process, each counted:
+    ``launch/serve.py`` on OLMoE on ``dense`` (B9, B4), on ``gmm`` with the
+    fused decode and a LExI plan (B1 in Alg. 1 and the chunks, B3, B4), on
+    the contiguous layout with whole prompts (B2, B8, B9), on ``gmm`` with
+    int8 and int4 experts (B6, B5, B4); on DeepSeek paged on ``gmm`` with
+    the fused decode (B1, B3, B7 on the f32 latent pool), again with int4
+    experts (B6, B5, B7); and ``launch/serve_lexi.py`` (Alg. 1 through B1,
+    held-out eval through B1 and B2, the engine through B1, B3 and B4),
+    again with int8 experts (eval through B6 and B2, the engine through
+    B6, B5 and B4).  Each must exit 0 and launch its kernels.  Returns the
+    launch needs."""
     from repro_torch.launch import serve, serve_lexi
     base = ["--arch", "olmoe-1b-7b", "--reduced", "--requests", "4",
             "--max-new", "8", "--max-len", "96"]
+    gmm = ["--use-kernel", "--use-moe-kernel", "--moe-impl", "gmm",
+           "--use-moe-decode"]
+    mla = ["--arch", "deepseek-v2-lite"] + base[2:] + gmm
+    quant = ("moe_gmm_quant", "moe_decode_quant")
     runs = {
         "serve_dense": (serve.main, base + ["--use-kernel",
                                             "--use-moe-kernel"],
@@ -3117,6 +3479,18 @@ def reduced_launchers_phase(device, t_start):
                                          "--max-new", "6"],
                        ("moe_gmm", "moe_decode", "flash_decode_paged",
                         "flash_attention")),
+        **{f"serve_gmm_{dt}": (serve.main, base + gmm + ["--expert-dtype",
+                                                         dt],
+                               quant + ("flash_decode_paged",))
+           for dt in ("int8", "int4")},
+        "serve_mla": (serve.main, mla, ("moe_gmm", "moe_decode",
+                                        "flash_decode_paged_mla")),
+        "serve_mla_int4": (serve.main, mla + ["--expert-dtype", "int4"],
+                           quant + ("flash_decode_paged_mla",)),
+        "serve_lexi_int8": (serve_lexi.main, [
+            "--steps", "40", "--requests", "4", "--max-new", "6",
+            "--expert-dtype", "int8"],
+            quant + ("flash_decode_paged", "flash_attention")),
     }
     rec, need = {"phase": "reduced_f32"}, {}
     for tag, (fn, argv, kernels_run) in runs.items():
@@ -5502,9 +5876,10 @@ DIGEST_QUANT = ("olmoe-1b-7b", "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e")
 
 def digests_main(device) -> int:
     """``--digests [DIR]``: the attention checks (the f32 ones of B2, B8
-    and B4 at OLMoE's widths too) and B5's (DIGEST_QUANT, on a two-layer
-    cut of each config), untimed, on the package already imported (DIR's);
-    prints the digests and the refusals."""
+    and B4 at OLMoE's widths too, and B7's on f32 latents), B5 and B6 on
+    f32 activations at the reduced OLMoE layer, and B5's (DIGEST_QUANT,
+    on a two-layer cut of each config), untimed, on the package already
+    imported (DIR's); prints the digests and the refusals."""
     from repro_torch import models
     from repro_torch.configs import get_config
     cfg, cfg_mla = get_config("olmoe-1b-7b"), get_config("deepseek-v2-lite")
@@ -5522,6 +5897,21 @@ def digests_main(device) -> int:
                              "olmoe", {})
     except (TypeError, ValueError) as e:
         refused["f32_attention_checks"] = str(e)
+    try:                                 # B7 on f32 latents
+        f32_mla_checks(None, device, {})
+    except (TypeError, ValueError) as e:
+        refused["f32_mla_checks"] = str(e)
+    rcfg = get_config("olmoe-1b-7b").reduced()
+    rlayer = models.init_params(rcfg, seed=0,
+                                device=device)["layers"][0]["moe"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(13)
+    try:                                 # B5 / B6 on f32 activations
+        f32_quant_checks(rlayer, rcfg, torch.randn(
+            (128, rcfg.d_model), generator=gen, device=device), None,
+            "reduced", {})
+    except (TypeError, ValueError) as e:
+        refused["f32_quant_checks"] = str(e)
     for name in DIGEST_QUANT:
         c = get_config(name).with_(num_layers=2)
         params = models.init_params(c, seed=0, device=device)
@@ -5985,7 +6375,11 @@ def main() -> int:
     need["forward_mla"] = (fwd_counts, ("moe_ffn", "moe_gmm"))
     emit(dict(rec, phase="forward_mla", launches=fwd_counts,
               seconds_total=time.perf_counter() - t_start))
+
+    # ---- phase 9a: DeepSeek-V2-Lite in f32 with int8 experts -----------
+    need.update(serve_f32_mla_phase(params, cfg_mla, device, t_start))
     del params
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- phase 9b: seven more architectures at full width ----------------

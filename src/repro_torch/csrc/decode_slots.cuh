@@ -71,6 +71,27 @@ __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
   }
 }
 
+// the 8 slots' staged values at one row of an activation stage [rows][R]
+// (bf16 or f32) as f32
+__device__ __forceinline__ void staged8(const __nv_bfloat16* p,
+                                        float (&f)[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void staged8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// silu(g) * u; f32 activations take the precise exp, as their plain
+// version does
+template <class T>
+__device__ __forceinline__ float swiglu(float g, float u) {
+  if constexpr (sizeof(T) == 2) return g / (1.0f + __expf(-g)) * u;
+  else return g / (1.0f + expf(-g)) * u;
+}
+
 // let the next kernel's blocks start; wait for the previous kernel's
 // results (both nothing unless the launch made the kernels dependent)
 __device__ __forceinline__ void launch_dependents() {

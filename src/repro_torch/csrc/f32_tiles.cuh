@@ -1,4 +1,5 @@
-// The f32 row-tile bodies of the expert kernels (moe_gmm.cu, moe_ffn.cu),
+// The f32 row-tile bodies of the expert kernels (moe_gmm.cu, moe_ffn.cu,
+// and with int8 / int4 weights widened as they are staged moe_gmm_quant.cu),
 // for f32 operands: the reference's Pallas kernels take any float dtype
 // and compute in f32, and f32 x f32 has no tensor-core form (wgmma and
 // mma.sync take bf16, fp16, fp8 or TF32, which keeps about three digits),
@@ -72,13 +73,17 @@ __device__ __forceinline__ void fma_patch(float (&acc)[4][4], float4 a,
     for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
 }
 
-// Pass 1: rows (1..F32_TM) rows of x from ``x`` (row pitch D) against
-// expert w1e [D, 2F]; dst[r * F + f0 + c] for the block's F32_TN columns.
-__device__ __forceinline__ void f32_up_tile(const float* __restrict__ x,
-                                            int rows,
-                                            const float* __restrict__ w1e,
-                                            float* __restrict__ dst, int D,
-                                            int F, int f0) {
+// Pass 1 over K = D: acc_g / acc_u += rows (1..F32_TM) rows of x (row
+// pitch D) times the gate / up columns that ``stage_w(wg, wu, k0)``
+// stages for contraction rows [k0, k0 + F32_TK) ([k][col], as
+// stage_cols); ``act(g, u, f)`` makes h[r, f] of the sums, stored at
+// dst[r * F + f0 + c] for the block's F32_TN columns.
+template <class StageW, class Act>
+__device__ __forceinline__ void f32_up_tile_with(const float* __restrict__ x,
+                                                 int rows,
+                                                 float* __restrict__ dst,
+                                                 int D, int F, int f0,
+                                                 StageW stage_w, Act act) {
   __shared__ __align__(16) float xs_t[F32_TK * F32_TM];
   __shared__ __align__(16) float wg[F32_TK * F32_TN];
   __shared__ __align__(16) float wu[F32_TK * F32_TN];
@@ -87,8 +92,7 @@ __device__ __forceinline__ void f32_up_tile(const float* __restrict__ x,
   for (int k0 = 0; k0 < D; k0 += F32_TK) {
     __syncthreads();                    // the previous step is consumed
     stage_rows(xs_t, x, D, rows, k0);
-    stage_cols(wg, w1e, 2 * (size_t)F, f0, F, k0);
-    stage_cols(wu, w1e + F, 2 * (size_t)F, f0, F, k0);
+    stage_w(wg, wu, k0);
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < F32_TK; ++k) {
@@ -108,20 +112,35 @@ __device__ __forceinline__ void f32_up_tile(const float* __restrict__ x,
     if (r >= rows) break;
     float h[4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      h[j] = ag[i][j] / (1.0f + expf(-ag[i][j])) * au[i][j];
+    for (int j = 0; j < 4; ++j) h[j] = act(ag[i][j], au[i][j], c + j);
     *reinterpret_cast<float4*>(dst + (size_t)r * F + c) =
         make_float4(h[0], h[1], h[2], h[3]);
   }
 }
 
-// Pass 2: rows of h from ``h`` (row pitch F) against expert w2e [F, D];
-// dst[r * D + d0 + c] for the block's F32_TN columns.
-__device__ __forceinline__ void f32_down_tile(const float* __restrict__ h,
-                                              int rows,
-                                              const float* __restrict__ w2e,
-                                              float* __restrict__ dst, int D,
-                                              int F, int d0) {
+// Pass 1 on f32 weights: rows of x against expert w1e [D, 2F],
+// dst[r * F + f0 + c] = silu(gate) * up.
+__device__ __forceinline__ void f32_up_tile(const float* __restrict__ x,
+                                            int rows,
+                                            const float* __restrict__ w1e,
+                                            float* __restrict__ dst, int D,
+                                            int F, int f0) {
+  f32_up_tile_with(
+      x, rows, dst, D, F, f0,
+      [=](float* wg, float* wu, int k0) {
+        stage_cols(wg, w1e, 2 * (size_t)F, f0, F, k0);
+        stage_cols(wu, w1e + F, 2 * (size_t)F, f0, F, k0);
+      },
+      [](float g, float u, int) { return g / (1.0f + expf(-g)) * u; });
+}
+
+// Pass 2 over K = F: rows of h (row pitch F) times the columns that
+// ``stage_w(ws, k0)`` stages ([k][col]); dst[r * D + d0 + c] for the
+// block's F32_TN columns.
+template <class StageW>
+__device__ __forceinline__ void f32_down_tile_with(
+    const float* __restrict__ h, int rows, float* __restrict__ dst, int D,
+    int F, int d0, StageW stage_w) {
   __shared__ __align__(16) float hs_t[F32_TK * F32_TM];
   __shared__ __align__(16) float ws[F32_TK * F32_TN];
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
@@ -129,7 +148,7 @@ __device__ __forceinline__ void f32_down_tile(const float* __restrict__ h,
   for (int k0 = 0; k0 < F; k0 += F32_TK) {
     __syncthreads();
     stage_rows(hs_t, h, F, rows, k0);
-    stage_cols(ws, w2e, D, d0, D, k0);
+    stage_w(ws, k0);
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < F32_TK; ++k)
@@ -146,6 +165,29 @@ __device__ __forceinline__ void f32_down_tile(const float* __restrict__ h,
     *reinterpret_cast<float4*>(dst + (size_t)r * D + c) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
+}
+
+// Pass 2 on f32 weights: rows of h against expert w2e [F, D].
+__device__ __forceinline__ void f32_down_tile(const float* __restrict__ h,
+                                              int rows,
+                                              const float* __restrict__ w2e,
+                                              float* __restrict__ dst, int D,
+                                              int F, int d0) {
+  f32_down_tile_with(h, rows, dst, D, F, d0, [=](float* ws, int k0) {
+    stage_cols(ws, w2e, D, d0, D, k0);
+  });
+}
+
+// A block's rows of a row tile of block_m rows: F32_TM rows a block, the
+// tile's parts along the grid's y (block_m > F32_TM); sets the tile and
+// the block's first row, returns its row count.
+__device__ __forceinline__ int f32_part_rows(int block_m, int& tile,
+                                             int& row0) {
+  const int parts = (block_m + F32_TM - 1) / F32_TM;
+  tile = blockIdx.y / parts;
+  const int part = blockIdx.y % parts;
+  row0 = tile * block_m + part * F32_TM;
+  return min(F32_TM, block_m - part * F32_TM);
 }
 
 }  // namespace f32t

@@ -4,8 +4,9 @@
 // Replaces the TPU kernel
 // src/repro/kernels/flash_decode_paged.py::flash_decode_paged_mla_pallas.
 // Contract (identical): q_lat [B, H, R] f32 (q_nope folded through
-// W_kv_b(k)); q_rope [B, H, DR] f32; ckvp [N, P, R] bf16; kropep [N, P, DR]
-// bf16; posp [N, P] int32; block_tables [B, n_blk] int32 (row pitch
+// W_kv_b(k)); q_rope [B, H, DR] f32; ckvp [N, P, R] and kropep [N, P, DR]
+// both bf16 or both f32 (the reference casts whatever latents it is given
+// to f32); posp [N, P] int32; block_tables [B, n_blk] int32 (row pitch
 // bt_stride, so a truncated view table[:, :n_live] needs no copy); cur_pos
 // [B] int32 -> out [B, H, R] f32, the latent attention output (the caller
 // folds W_kv_b(v) in).  s = (q_lat . ckv + q_rope . krope) * scale over the
@@ -13,11 +14,12 @@
 // equal to the trash page 0 are skipped; a row with no valid slot (an idle
 // batch row) gets zeros.  (R, DR) is (512, 64) (DeepSeek-V2-Lite:
 // kv_lora_rank 512, qk_rope_head_dim 64, 16 heads) or (256, 32)
-// (MiniCPM3-4B: 40 heads), template parameters; any H, in tiles of 16
+// (MiniCPM3-4B: 40 heads), and on f32 latents also (32, 16) (the reduced
+// DeepSeek config: 4 heads), template parameters; any H, in tiles of 16
 // heads along the grid's z axis (the last tile partial, its missing heads'
 // rows zero and never stored; at H <= 16 one tile).  A row's output is
 // bitwise the same whatever the other rows of the batch are and whatever
-// the table view's width n_blk.
+// the table view's width n_blk, in both instances.
 //
 // What bounds it on the H100.  Every head reads the same latent row (MQA
 // over the latents): per live slot 576 bf16 values are read once for all
@@ -54,6 +56,13 @@
 // (8 rows, 127 pages) a call takes about 0.016 ms against the two-pass
 // design's 0.025; each tile a rank walks adds about 1.3 us, and the
 // cluster merge holds much of the rest (PERF.md).
+//
+// f32 latents (mla_decode_f32_kernel, below) are not exact in bf16, so
+// its products run f32 FFMA on the CUDA cores with nothing rounded: the
+// same walk, ring (a tile of 16 f32 rows is 36.9 KB at R 512, four stages
+// 148 KB), softmax and merge, with one f32 score dot a thread and the
+// P.V sums a thread's heads x 4 columns.  Its bound is the same f32 work
+// on twice the bytes.
 
 #include <cooperative_groups.h>
 
@@ -83,8 +92,6 @@ struct MlaShape {
   static constexpr int KQ = (KS + 3) / 4;                // a quarter's most
   static constexpr int WC = R / 8;       // latent columns a P.V warp owns
   static constexpr int NJ = WC / 16;     // its 16-column steps
-  static constexpr int CW = R / MLA_CL;  // latent columns a rank merges
-  static constexpr int TPH = CW / 4;     // merge threads a head
   // shared memory (bytes): q hi, q lo, the latent stages, small arrays
   static constexpr int Q_BYTES = MLA_H * ROW * 2;
   static constexpr int T_BYTES = MLA_TILE * ROW * 2;
@@ -93,8 +100,31 @@ struct MlaShape {
       4 * MLA_H * MLA_TILE * 4 + 2 * MLA_H * MLA_PROW * 2 + MLA_H * 4 +
       2 * MLA_H * 4 + 16;
   static_assert(R % 128 == 0 && DR % 16 == 0, "whole mma and ldmatrix tiles");
-  static_assert(MLA_NT / TPH >= MLA_H, "a merge pass covers the tile's heads");
   static_assert(MLA_H * R * 4 <= 2 * Q_BYTES, "acc fits over q");
+};
+
+// The f32 instance's shapes (f32 latents): one f32 row a slot, ROW floats
+// (ROW / 4 odd, so the eight 16-byte rows a quarter warp reads at one k
+// lie on distinct banks); the P.V threads: CG float4 latent column groups,
+// TPG threads a group, each HPT heads.
+template <int R, int DR>
+struct MlaF32Shape {
+  static constexpr int K = R + DR;
+  static constexpr int ROW = K + 4;
+  static constexpr int QF = MLA_H * (K / 4);             // q float4s
+  static constexpr int CG = R / 4;
+  static constexpr int TPG = MLA_NT / CG < MLA_H ? MLA_NT / CG : MLA_H;
+  static constexpr int HPT = MLA_H / TPG;
+  static constexpr int PV_THREADS = CG * TPG;
+  static constexpr int Q_BYTES = MLA_H * ROW * 4;
+  static constexpr int T_BYTES = MLA_TILE * ROW * 4;
+  static constexpr int FIXED_BYTES =
+      Q_BYTES + MLA_STAGES * T_BYTES + MLA_STAGES * MLA_TILE * 4 +
+      MLA_H * MLA_TILE * 4 + MLA_H * 4 + 2 * MLA_H * 4 + 16;
+  static_assert(R % 32 == 0 && DR % 4 == 0 && (ROW / 4) % 2 == 1,
+                "float4 rows on distinct banks; a rank merges whole float4s");
+  static_assert(MLA_H % TPG == 0 && PV_THREADS <= MLA_NT, "P.V threads");
+  static_assert(FIXED_BYTES < MLA_SMEM_MAX, "a block's shared memory");
 };
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -129,6 +159,78 @@ __device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi,
                                            __nv_bfloat16& lo) {
   hi = __float2bfloat16(x);
   lo = __float2bfloat16(x - __bfloat162float(hi));
+}
+
+// The block's pages of a row (its table row ``row_bt``): columns rank,
+// rank + CL, ...; trash left out; into list[], their count *n_pages_s
+// (warp 0 writes them).
+__device__ __forceinline__ void mla_page_list(const int* __restrict__ row_bt,
+                                              int n_blk, int rank, int* list,
+                                              int* n_pages_s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 0) {
+    const int n_cols = n_blk > rank ? (n_blk - rank + MLA_CL - 1) / MLA_CL : 0;
+    int n = 0;
+    for (int base = 0; base < n_cols; base += 32) {
+      const int i = base + lane;
+      const int page = i < n_cols ? row_bt[rank + MLA_CL * i] : TRASH_PAGE;
+      const unsigned live = __ballot_sync(0xffffffffu, page != TRASH_PAGE);
+      if (page != TRASH_PAGE)
+        list[n + __popc(live & ((1u << lane) - 1u))] = page;
+      n += __popc(live);
+    }
+    if (lane == 0) *n_pages_s = n;
+  }
+}
+
+// The cluster's merge, after every block left its (m, l) in ml [H][2] and
+// its acc [H][R] f32 in acc_s and the cluster synced: rank r writes
+// columns [CW r, CW r + CW) of every head of the tile.
+template <int R>
+__device__ __forceinline__ void mla_merge(cg::cluster_group& cluster,
+                                          float* ml, float* acc_s,
+                                          float* __restrict__ out, int b,
+                                          int H, int h0, int rank) {
+  constexpr int CW = R / MLA_CL;         // latent columns a rank merges
+  constexpr int TPH = CW / 4;            // merge threads a head
+  static_assert(MLA_NT / TPH >= MLA_H, "a merge pass covers the tile's heads");
+  const int t = threadIdx.x;
+  // rank r: columns [CW r, CW r + CW) of every head, over the ranks in
+  // order; thread (head t / TPH, 4 columns, one 16-byte load a rank).
+  // Every rank's (m, l) and columns are loaded together, then folded in
+  // rank order.
+  if (t / TPH < MLA_H) {
+    const int hh = t / TPH, c0 = CW * rank + 4 * (t % TPH);
+    float mr[MLA_CL], lr[MLA_CL];
+    float4 vr[MLA_CL];
+#pragma unroll
+    for (int r = 0; r < MLA_CL; ++r) {
+      const float* rml = cluster.map_shared_rank(ml, r);
+      mr[r] = rml[2 * hh];
+      lr[r] = rml[2 * hh + 1];
+      vr[r] = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(acc_s, r) + hh * R + c0);
+    }
+    float mx = PD_NEG_INF;
+#pragma unroll
+    for (int r = 0; r < MLA_CL; ++r)
+      if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
+    float L = 0.f;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < MLA_CL; ++r) {
+      if (!(lr[r] > 0.f)) continue;     // no valid slot: counts for nothing
+      const float w = pd_ex2(mr[r] - mx);
+      L += lr[r] * w;
+      A.x += w * vr[r].x; A.y += w * vr[r].y;
+      A.z += w * vr[r].z; A.w += w * vr[r].w;
+    }
+    if (h0 + hh < H) {
+      const float inv = 1.f / fmaxf(L, 1e-30f);
+      *reinterpret_cast<float4*>(out + ((size_t)b * H + h0 + hh) * R + c0) =
+          make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
+    }
+  }
 }
 
 template <int R, int DR>
@@ -182,21 +284,7 @@ mla_decode_kernel(const float* __restrict__ q_lat,
                                                        c - R);
   }
 
-  // the block's pages: columns rank, rank + CL, ...; trash left out
-  if (warp == 0) {
-    const int* row_bt = bt + (size_t)b * bt_stride;
-    const int n_cols = n_blk > rank ? (n_blk - rank + MLA_CL - 1) / MLA_CL : 0;
-    int n = 0;
-    for (int base = 0; base < n_cols; base += 32) {
-      const int i = base + lane;
-      const int page = i < n_cols ? row_bt[rank + MLA_CL * i] : TRASH_PAGE;
-      const unsigned live = __ballot_sync(0xffffffffu, page != TRASH_PAGE);
-      if (page != TRASH_PAGE)
-        list[n + __popc(live & ((1u << lane) - 1u))] = page;
-      n += __popc(live);
-    }
-    if (lane == 0) *n_pages_s = n;
-  }
+  mla_page_list(bt + (size_t)b * bt_stride, n_blk, rank, list, n_pages_s);
   __syncthreads();
   const int n_tiles = *n_pages_s * tpp;
 
@@ -366,92 +454,254 @@ mla_decode_kernel(const float* __restrict__ q_lat,
   }
   cluster.sync();
 
-  // rank r: columns [CW r, CW r + CW) of every head, over the ranks in
-  // order; thread (head t / TPH, 4 columns, one 16-byte load a rank).
-  // Every rank's (m, l) and columns are loaded together, then folded in
-  // rank order.
-  if (t / S::TPH < MLA_H) {
-    const int hh = t / S::TPH, c0 = S::CW * rank + 4 * (t % S::TPH);
-    float mr[MLA_CL], lr[MLA_CL];
-    float4 vr[MLA_CL];
-#pragma unroll
-    for (int r = 0; r < MLA_CL; ++r) {
-      const float* rml = cluster.map_shared_rank(ml, r);
-      mr[r] = rml[2 * hh];
-      lr[r] = rml[2 * hh + 1];
-      vr[r] = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(acc_s, r) + hh * R + c0);
-    }
-    float mx = PD_NEG_INF;
-#pragma unroll
-    for (int r = 0; r < MLA_CL; ++r)
-      if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
-    float L = 0.f;
-    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int r = 0; r < MLA_CL; ++r) {
-      if (!(lr[r] > 0.f)) continue;     // no valid slot: counts for nothing
-      const float w = pd_ex2(mr[r] - mx);
-      L += lr[r] * w;
-      A.x += w * vr[r].x; A.y += w * vr[r].y;
-      A.z += w * vr[r].z; A.w += w * vr[r].w;
-    }
-    if (h0 + hh < H) {
-      const float inv = 1.f / fmaxf(L, 1e-30f);
-      *reinterpret_cast<float4*>(out + ((size_t)b * H + h0 + hh) * R + c0) =
-          make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
-    }
-  }
+  mla_merge<R>(cluster, ml, acc_s, out, b, H, h0, rank);
   cluster.sync();                     // the others have read this block
 }
 
+// The f32 instance: f32 latents are not exact in bf16, so the products run
+// f32 FFMA on the CUDA cores, nothing rounded.  The page walk, the tile
+// ring, the online softmax (thread (head t / 16, slot t % 16), base 2) and
+// the cluster merge are the bf16 kernel's; the scores are one f32 dot a
+// thread over the K = R + DR latent row in four interleaved sums added in
+// a fixed order, and P.V a thread's HPT heads x 4 latent columns over the
+// tile's 16 slots in order, so the row-invariance holds as above.
 template <int R, int DR>
+__global__ void __cluster_dims__(MLA_CL, 1, 1) __launch_bounds__(MLA_NT, 1)
+mla_decode_f32_kernel(const float* __restrict__ q_lat,
+                      const float* __restrict__ q_rope,
+                      const float* __restrict__ ckvp,
+                      const float* __restrict__ kropep,
+                      const int* __restrict__ posp, const int* __restrict__ bt,
+                      int bt_stride, const int* __restrict__ cur_pos,
+                      float* __restrict__ out, int H, int P, int n_blk,
+                      float scale_log2) {
+  using S = MlaF32Shape<R, DR>;
+  constexpr int K = S::K, ROW = S::ROW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);     // [H][ROW], base-2 scaled
+  float* tiles = qs + MLA_H * ROW;                // [STAGES][TILE][ROW]
+  int* pos_s = reinterpret_cast<int*>(tiles + MLA_STAGES * MLA_TILE * ROW);
+  float* ps = reinterpret_cast<float*>(pos_s + MLA_STAGES * MLA_TILE);
+                                                  // [H][TILE]
+  float* alpha_s = ps + MLA_H * MLA_TILE;
+  float* ml = alpha_s + MLA_H;                    // [H][2]: m, l
+  int* n_pages_s = reinterpret_cast<int*>(ml + 2 * MLA_H);
+  int* list = reinterpret_cast<int*>(smem + S::FIXED_BYTES);
+  float* acc_s = qs;                              // [H][R], over q at the end
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), b = blockIdx.y;
+  const int h0 = MLA_H * blockIdx.z;
+  const int t = threadIdx.x;
+  const int cur = cur_pos[b];
+  const int tpp = (P + MLA_TILE - 1) / MLA_TILE;
+
+  // q scaled to base 2, heads >= H zero
+  for (int idx = t; idx < S::QF; idx += MLA_NT) {
+    const int h = idx / (K / 4), c = 4 * (idx % (K / 4));
+    const size_t hb = (size_t)b * H + h0 + h;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (h0 + h < H)
+      v = c < R ? *reinterpret_cast<const float4*>(q_lat + hb * R + c)
+                : *reinterpret_cast<const float4*>(q_rope + hb * DR + c - R);
+    *reinterpret_cast<float4*>(qs + h * ROW + c) =
+        make_float4(v.x * scale_log2, v.y * scale_log2, v.z * scale_log2,
+                    v.w * scale_log2);
+  }
+  mla_page_list(bt + (size_t)b * bt_stride, n_blk, rank, list, n_pages_s);
+  __syncthreads();
+  const int n_tiles = *n_pages_s * tpp;
+
+  auto load_tile = [&](int it, int st) {
+    const int page = list[it / tpp], p0 = (it % tpp) * MLA_TILE;
+    const int ns = min(MLA_TILE, P - p0);
+    const size_t row0 = (size_t)page * P + p0;
+    float* dst = tiles + st * MLA_TILE * ROW;
+    for (int idx = t; idx < MLA_TILE * (K / 4); idx += MLA_NT) {
+      const int r = idx / (K / 4), c = idx % (K / 4);
+      const bool ok = r < ns;
+      const float* src = c < R / 4 ? ckvp + (row0 + r) * R + 4 * c
+                                   : kropep + (row0 + r) * DR + 4 * (c - R / 4);
+      pd_cp_async16(dst + r * ROW + 4 * c, ok ? src : ckvp, ok);
+    }
+    if (t < MLA_TILE)
+      pd_cp_async4(pos_s + st * MLA_TILE + t,
+                   t < ns ? posp + row0 + t : posp, t < ns);
+  };
+#pragma unroll
+  for (int k = 0; k < MLA_STAGES - 1; ++k) {
+    if (k < n_tiles) load_tile(k, k);
+    pd_cp_async_commit();
+  }
+
+  // softmax state of head t / 16 (its 16 threads hold copies); acc: the
+  // P.V thread's heads S::HPT * (t / CG) + i, columns 4 (t % CG) .. + 3
+  float m = PD_NEG_INF, l = 0.f;
+  const int hh = t / MLA_TILE, sl = t % MLA_TILE;
+  const bool pv = t < S::PV_THREADS;
+  const int cg4 = 4 * (t % S::CG), hp = S::HPT * (t / S::CG);
+  float acc[S::HPT][4];
+#pragma unroll
+  for (int i = 0; i < S::HPT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % MLA_STAGES;
+    const int nx = it + MLA_STAGES - 1;
+    if (nx < n_tiles) load_tile(nx, nx % MLA_STAGES);
+    pd_cp_async_commit();
+    pd_cp_async_wait<MLA_STAGES - 1>();   // tile it landed
+    __syncthreads();
+    const float* tile = tiles + st * MLA_TILE * ROW;
+
+    // the score of (head hh, slot sl), then one max, one sum and one
+    // rescale a head over its 16 lanes
+    {
+      const float* qrow = qs + hh * ROW;
+      const float* krow = tile + sl * ROW;
+      float sa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (int c = 0; c < K; c += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(qrow + c);
+        const float4 k = *reinterpret_cast<const float4*>(krow + c);
+        sa[0] = fmaf(a.x, k.x, sa[0]);
+        sa[1] = fmaf(a.y, k.y, sa[1]);
+        sa[2] = fmaf(a.z, k.z, sa[2]);
+        sa[3] = fmaf(a.w, k.w, sa[3]);
+      }
+      const float s = (sa[0] + sa[1]) + (sa[2] + sa[3]);
+      const int pos = pos_s[st * MLA_TILE + sl];
+      const int p0 = (it % tpp) * MLA_TILE;
+      const bool valid = p0 + sl < P && pos >= 0 && pos <= cur;
+      float mx = valid ? s : PD_NEG_INF;
+#pragma unroll
+      for (int d = 8; d > 0; d >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+      const float m_new = fmaxf(m, mx);
+      const float p = valid ? pd_ex2(s - m_new) : 0.f;
+      float psum = p;
+#pragma unroll
+      for (int d = 8; d > 0; d >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, d);
+      const float a = pd_ex2(m - m_new);
+      l = l * a + psum;
+      m = m_new;
+      ps[hh * MLA_TILE + sl] = p;
+      if (sl == 0) alpha_s[hh] = a;
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p . ckv over the thread's heads and columns
+    if (pv) {
+#pragma unroll
+      for (int i = 0; i < S::HPT; ++i) {
+        const float a = alpha_s[hp + i];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] *= a;
+      }
+#pragma unroll 4
+      for (int j = 0; j < MLA_TILE; ++j) {
+        const float4 v = *reinterpret_cast<const float4*>(tile + j * ROW + cg4);
+#pragma unroll
+        for (int i = 0; i < S::HPT; ++i) {
+          const float p = ps[(hp + i) * MLA_TILE + j];
+          acc[i][0] = fmaf(p, v.x, acc[i][0]);
+          acc[i][1] = fmaf(p, v.y, acc[i][1]);
+          acc[i][2] = fmaf(p, v.z, acc[i][2]);
+          acc[i][3] = fmaf(p, v.w, acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();                  // stage st and ps are consumed
+  }
+  pd_cp_async_wait<0>();
+  __syncthreads();                    // q is no longer read
+
+  if (pv) {
+#pragma unroll
+    for (int i = 0; i < S::HPT; ++i)
+      *reinterpret_cast<float4*>(acc_s + (hp + i) * R + cg4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  }
+  if (sl == 0) {
+    ml[2 * hh] = m;
+    ml[2 * hh + 1] = l;
+  }
+  cluster.sync();
+  mla_merge<R>(cluster, ml, acc_s, out, b, H, h0, rank);
+  cluster.sync();                     // the others have read this block
+}
+
+// the kernel of the latents' element type T and its shared memory past
+// the page list (only the instance of T is instantiated: bf16 has no
+// (32, 16) body)
+template <int R, int DR, class T>
+struct MlaInstance {
+  static constexpr int FIXED_BYTES = MlaShape<R, DR>::FIXED_BYTES;
+  static auto kernel() { return mla_decode_kernel<R, DR>; }
+};
+template <int R, int DR>
+struct MlaInstance<R, DR, float> {
+  static constexpr int FIXED_BYTES = MlaF32Shape<R, DR>::FIXED_BYTES;
+  static auto kernel() { return mla_decode_f32_kernel<R, DR>; }
+};
+
+// T: the latents' element type
+template <int R, int DR, class T>
 static int mla_launch(const void* q_lat, const void* q_rope,
                       const void* ckvp, const void* kropep, const void* posp,
                       const void* bt, const void* cur_pos, void* out, int B,
                       int H, int P, int n_blk, int bt_stride, float scale,
                       cudaStream_t stream) {
+  using I = MlaInstance<R, DR, T>;
+  const auto kernel = I::kernel();
   const size_t list_bytes = 4 * (size_t)((n_blk + MLA_CL - 1) / MLA_CL + 1);
-  const size_t smem = MlaShape<R, DR>::FIXED_BYTES + list_bytes;
+  const size_t smem = I::FIXED_BYTES + list_bytes;
   if (smem > MLA_SMEM_MAX) return (int)cudaErrorInvalidValue;
   static bool configured = false;        // one flag an instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mla_decode_kernel<R, DR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MLA_SMEM_MAX);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MLA_SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid(MLA_CL, B, (H + MLA_H - 1) / MLA_H);
-  mla_decode_kernel<R, DR><<<grid, MLA_NT, smem, stream>>>(
+  kernel<<<grid, MLA_NT, smem, stream>>>(
       static_cast<const float*>(q_lat), static_cast<const float*>(q_rope),
-      static_cast<const __nv_bfloat16*>(ckvp),
-      static_cast<const __nv_bfloat16*>(kropep),
+      static_cast<const T*>(ckvp), static_cast<const T*>(kropep),
       static_cast<const int*>(posp), static_cast<const int*>(bt), bt_stride,
       static_cast<const int*>(cur_pos), static_cast<float*>(out), H, P, n_blk,
       PD_LOG2E * scale);
   return (int)cudaGetLastError();
 }
 
-// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// an (R, DR) without an instantiation, a batch or head count past the
-// grid, or a table too wide for the page list).  One launch; no scratch.
+// Latents bf16, or f32 when f32 is nonzero.  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for an (R, DR) without an
+// instantiation of the latents' type, a batch or head count past the grid,
+// or a table too wide for the page list).  One launch; no scratch.
 extern "C" int flash_decode_paged_mla_launch(
     const void* q_lat, const void* q_rope, const void* ckvp,
     const void* kropep, const void* posp, const void* bt, const void* cur_pos,
     void* out, int B, int H, int R, int DR, int P, int n_blk, int bt_stride,
-    float scale, void* stream) {
+    int f32, float scale, void* stream) {
   if (H < 1 || H > 65535 * MLA_H || P < 1 || n_blk < 0 || B < 1 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (R == 512 && DR == 64)
-    return mla_launch<512, 64>(q_lat, q_rope, ckvp, kropep, posp, bt,
-                               cur_pos, out, B, H, P, n_blk, bt_stride, scale,
-                               s);
-  if (R == 256 && DR == 32)
-    return mla_launch<256, 32>(q_lat, q_rope, ckvp, kropep, posp, bt,
-                               cur_pos, out, B, H, P, n_blk, bt_stride, scale,
-                               s);
+#define MLA_CASE(r, dr, T)                                                   \
+  if (R == r && DR == dr)                                                    \
+    return mla_launch<r, dr, T>(q_lat, q_rope, ckvp, kropep, posp, bt,       \
+                                cur_pos, out, B, H, P, n_blk, bt_stride,     \
+                                scale, s);
+  if (f32) {
+    MLA_CASE(512, 64, float)
+    MLA_CASE(256, 32, float)
+    MLA_CASE(32, 16, float)
+  } else {
+    MLA_CASE(512, 64, __nv_bfloat16)
+    MLA_CASE(256, 32, __nv_bfloat16)
+  }
+#undef MLA_CASE
   return (int)cudaErrorInvalidValue;
 }

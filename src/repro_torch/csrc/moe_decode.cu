@@ -108,24 +108,6 @@ struct Cols8<float> {
   }
 };
 
-// the 8 slots' staged values at one row of xs [D][R] as f32
-__device__ __forceinline__ void staged8(const bf16* p, float (&f)[8]) {
-  unpack8(*reinterpret_cast<const uint4*>(p), f);
-}
-__device__ __forceinline__ void staged8(const float* p, float (&f)[8]) {
-  Cols8<float> c;
-  c.a = reinterpret_cast<const float4*>(p)[0];
-  c.b = reinterpret_cast<const float4*>(p)[1];
-  c.get(f);
-}
-
-// silu(g) * u; f32 operands take the precise exp, as their plain version
-template <class T>
-__device__ __forceinline__ float swiglu(float g, float u) {
-  if constexpr (sizeof(T) == 2) return g / (1.0f + __expf(-g)) * u;
-  else return g / (1.0f + expf(-g)) * u;
-}
-
 // acc[r][c] += a[r][row] * W[row][c] over rows g, g + GROUPS, ... < n_rows
 // of a 16-byte column group at W (row stride ld elements); a[r] of row
 // ``row`` is read by ``operand(row, a)`` (M values); then the two row

@@ -3,19 +3,25 @@
 //
 // Replaces the TPU kernel
 // src/repro/kernels/moe_decode.py::moe_decode_quant_pallas.  Contract
-// (identical): x [B, D] bf16, idx [B, k] int32, weights [B, k] f32,
+// (identical): x [B, D] bf16 or f32 (the reference takes any float x and
+// writes x.dtype), idx [B, k] int32, weights [B, k] f32,
 //   int8: w1q [E, D, 2F], w2q [E, F, D];
 //   int4: w1q [E, D/2, 2F] packed along D (the contraction), w2q
 //         [E, F, D/2] packed along D (the output), blocked halves
 //         (quant_common.cuh);
 //   s1 [E, 2, F] f32 (gate scales, then up scales), s2 [E, F] f32
-// -> y [B, D] bf16, y[b] = sum_j weights[b, j] * (h_bj @ w2q[e]) with
+// -> y [B, D] in x's dtype, y[b] = sum_j weights[b, j] * (h_bj @ w2q[e]) with
 // e = idx[b, j] and h_bj = silu(gate * s1[e,0]) * (up * s1[e,1]) * s2[e],
 // gate / up = x[b] @ the first / next F columns of w1q[e], all in f32:
 // s1 after the first product (constant along D), s2 folded into h before
 // the second (it varies along the F contraction).  Only the routed
 // experts' weights are read, and a slot with weight 0 adds exactly nothing
-// (acc += 0 * partial), which is what route()'s k_budget relies on.
+// (acc += 0 * partial), which is what route()'s k_budget relies on.  f32
+// x is staged as f32 (pass 1's x rows take 4 bytes an element), the
+// weights are widened to f32 in registers as for bf16 x, and every product
+// is an f32 FMA: nothing rounds to bf16 or TF32; the SiLU takes the
+// precise exp, as the f32 plain version does.  The bf16 instance is the
+// code it was, bit for bit.
 //
 // What bounds it on the H100: bytes.  At B 8, k 8, D 2048, F 1024 each
 // routed expert is 6.3 MB in int8 (3.1 MB in int4); reading each distinct
@@ -288,10 +294,11 @@ __device__ __forceinline__ void to_red(const float (&acc)[M][C], float* red) {
   }
 }
 
-// Pass 1 over M (1..R) slots staged in xs [D][R] bf16.  Thread q reads
-// gate columns f0 + C q.. (q < TPR / 2) or up columns f0 + C (q - TPR / 2)..
-template <int M, bool PACKED>
-__device__ void up_rows(const int8_t* __restrict__ w1e, const bf16* xs,
+// Pass 1 over M (1..R) slots staged in xs [D][R] (bf16 or f32).  Thread q
+// reads gate columns f0 + C q.. (q < TPR / 2) or up columns f0 + C (q -
+// TPR / 2)..
+template <int M, bool PACKED, class T>
+__device__ void up_rows(const int8_t* __restrict__ w1e, const T* xs,
                         float* red, int D, int F, int f0) {
   constexpr int HALF = Geo<true, PACKED>::TPR / 2;
   const int q = threadIdx.x % (2 * HALF);
@@ -301,11 +308,11 @@ __device__ void up_rows(const int8_t* __restrict__ w1e, const bf16* xs,
       acc, w1e + (q < HALF ? 0 : F) + col, 2 * (size_t)F, PACKED ? D / 2 : D,
       col < F, [&](int d, float (&a)[M], float (&a2)[M]) {
         float xf[8];
-        unpack8(*reinterpret_cast<const uint4*>(xs + d * R), xf);
+        staged8(xs + d * R, xf);
 #pragma unroll
         for (int r = 0; r < M; ++r) a[r] = xf[r];
         if constexpr (PACKED) {
-          unpack8(*reinterpret_cast<const uint4*>(xs + (d + D / 2) * R), xf);
+          staged8(xs + (d + D / 2) * R, xf);
 #pragma unroll
           for (int r = 0; r < M; ++r) a2[r] = xf[r];
         }
@@ -353,9 +360,9 @@ __host__ __device__ constexpr size_t red_bytes(int cols) {
   return (size_t)NW * R * cols * 4;
 }
 
-template <bool PACKED>
+template <bool PACKED, class T>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
-decodeq_up_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w1q,
+decodeq_up_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1q,
                   const float* __restrict__ s1, const float* __restrict__ s2,
                   const int* __restrict__ idx, float* __restrict__ h,
                   int D, int F, int k, int n_slots) {
@@ -364,8 +371,7 @@ decodeq_up_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w1q,
   __shared__ int count;
   int* slots = reinterpret_cast<int*>(sm);
   float* red = reinterpret_cast<float*>(sm + red_offset(n_slots));
-  bf16* xs =
-      reinterpret_cast<bf16*>(sm + operand_offset(n_slots, red_bytes(COLS)));
+  T* xs = reinterpret_cast<T*>(sm + operand_offset(n_slots, red_bytes(COLS)));
   const int e = blockIdx.y, f0 = blockIdx.x * FT;
   launch_dependents();
   const int n = find_slots(idx, n_slots, e, slots, &count);
@@ -379,14 +385,14 @@ decodeq_up_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w1q,
     }
     __syncthreads();
     switch (m) {
-      case 1: up_rows<1, PACKED>(w1e, xs, red, D, F, f0); break;
-      case 2: up_rows<2, PACKED>(w1e, xs, red, D, F, f0); break;
-      case 3: up_rows<3, PACKED>(w1e, xs, red, D, F, f0); break;
-      case 4: up_rows<4, PACKED>(w1e, xs, red, D, F, f0); break;
-      case 5: up_rows<5, PACKED>(w1e, xs, red, D, F, f0); break;
-      case 6: up_rows<6, PACKED>(w1e, xs, red, D, F, f0); break;
-      case 7: up_rows<7, PACKED>(w1e, xs, red, D, F, f0); break;
-      default: up_rows<8, PACKED>(w1e, xs, red, D, F, f0); break;
+      case 1: up_rows<1, PACKED, T>(w1e, xs, red, D, F, f0); break;
+      case 2: up_rows<2, PACKED, T>(w1e, xs, red, D, F, f0); break;
+      case 3: up_rows<3, PACKED, T>(w1e, xs, red, D, F, f0); break;
+      case 4: up_rows<4, PACKED, T>(w1e, xs, red, D, F, f0); break;
+      case 5: up_rows<5, PACKED, T>(w1e, xs, red, D, F, f0); break;
+      case 6: up_rows<6, PACKED, T>(w1e, xs, red, D, F, f0); break;
+      case 7: up_rows<7, PACKED, T>(w1e, xs, red, D, F, f0); break;
+      default: up_rows<8, PACKED, T>(w1e, xs, red, D, F, f0); break;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < m * FT; i += NT) {
@@ -401,7 +407,7 @@ decodeq_up_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w1q,
         g *= s1[(size_t)e * 2 * F + f];
         u *= s1[(size_t)e * 2 * F + F + f];
         h[(size_t)slots[s0 + r] * F + f] =
-            g / (1.0f + __expf(-g)) * u * s2[(size_t)e * F + f];
+            swiglu<T>(g, u) * s2[(size_t)e * F + f];
       }
     }
     __syncthreads();
@@ -457,7 +463,7 @@ decodeq_down_kernel(const float* __restrict__ h,
   }
 }
 
-template <bool PACKED>
+template <bool PACKED, class T>
 static int launch(const void* x, const void* w1q, const void* w2q,
                   const void* s1, const void* s2, const void* idx,
                   const void* weights, void* h, void* partial, void* y, int B,
@@ -466,20 +472,20 @@ static int launch(const void* x, const void* w1q, const void* w2q,
   const int Dp = PACKED ? D / 2 : D;
   const size_t smem1 =
       operand_offset(n_slots, red_bytes(Geo<true, PACKED>::COLS)) +
-      (size_t)D * R * 2;
+      (size_t)D * R * sizeof(T);
   const size_t smem2 =
       operand_offset(n_slots, red_bytes(Geo<false, PACKED>::COLS)) +
       (size_t)min(F, FC) * R * 4;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(decodeq_up_kernel<PACKED>,
+  if ((err = cudaFuncSetAttribute(decodeq_up_kernel<PACKED, T>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem1)) != cudaSuccess ||
       (err = cudaFuncSetAttribute(decodeq_down_kernel<PACKED>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem2)) != cudaSuccess)
     return (int)err;
-  decodeq_up_kernel<PACKED><<<dim3((F + FT - 1) / FT, E), NT, smem1, s>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(w1q),
+  decodeq_up_kernel<PACKED, T><<<dim3((F + FT - 1) / FT, E), NT, smem1, s>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(w1q),
       static_cast<const float*>(s1), static_cast<const float*>(s2),
       static_cast<const int*>(idx), static_cast<float*>(h), D, F, k, n_slots);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -493,13 +499,14 @@ static int launch(const void* x, const void* w1q, const void* w2q,
     return (int)err;
   return (int)launch_combine(static_cast<const float*>(partial),
                              static_cast<const float*>(weights),
-                             static_cast<bf16*>(y), B, D, k, s,
+                             static_cast<T*>(y), B, D, k, s,
                              DEPENDENT_LAUNCH);
 }
 
-// x [B, D] bf16, w1q / w2q int8 as above (packed != 0: int4), s1 [E, 2, F]
-// and s2 [E, F] f32, idx [B, k] int32, weights [B, k] f32, y [B, D] bf16;
-// h [B, k, F] and partial [B, k, D] f32 scratch.  Needs D % 64 == 0 (int4:
+// x [B, D] and y [B, D] bf16 (f32 when f32 is nonzero), w1q / w2q int8 as
+// above (packed != 0: int4), s1 [E, 2, F] and s2 [E, F] f32, idx [B, k]
+// int32, weights [B, k] f32; h [B, k, F] and partial [B, k, D] f32
+// scratch.  Needs D % 64 == 0 (int4:
 // (D / 2) % 64 == 0), F % 32 == 0 and 16-byte aligned bases.  Returns
 // cudaGetLastError() after launch.
 extern "C" int moe_decode_quant_launch(const void* x, const void* w1q,
@@ -508,15 +515,19 @@ extern "C" int moe_decode_quant_launch(const void* x, const void* w1q,
                                        const void* weights, void* h,
                                        void* partial, void* y, int B, int D,
                                        int F, int k, int E, int packed,
-                                       void* stream) {
+                                       int f32, void* stream) {
   const int Dp = packed ? D / 2 : D;
   if (D % 64 || Dp % 64 || F % 32 || B <= 0 || k <= 0 || E <= 0 ||
       E > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (packed)
-    return launch<true>(x, w1q, w2q, s1, s2, idx, weights, h, partial, y, B,
-                        D, F, k, E, s);
-  return launch<false>(x, w1q, w2q, s1, s2, idx, weights, h, partial, y, B, D,
-                       F, k, E, s);
+  if (f32)
+    return packed ? launch<true, float>(x, w1q, w2q, s1, s2, idx, weights, h,
+                                        partial, y, B, D, F, k, E, s)
+                  : launch<false, float>(x, w1q, w2q, s1, s2, idx, weights, h,
+                                         partial, y, B, D, F, k, E, s);
+  return packed ? launch<true, bf16>(x, w1q, w2q, s1, s2, idx, weights, h,
+                                     partial, y, B, D, F, k, E, s)
+                : launch<false, bf16>(x, w1q, w2q, s1, s2, idx, weights, h,
+                                      partial, y, B, D, F, k, E, s);
 }

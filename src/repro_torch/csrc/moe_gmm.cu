@@ -92,17 +92,8 @@ gmm_down_kernel(const __grid_constant__ CUtensorMap tm_h,
 }
 
 // f32 operands (f32_tiles.cuh): a block takes F32_TM rows of a row tile
-// (block_m > F32_TM: the tile's parts along the grid's y) by F32_TN
-// columns; h stays f32 between the passes.
-__device__ __forceinline__ int f32_part_rows(int block_m, int& tile,
-                                             int& row0) {
-  const int parts = (block_m + F32_TM - 1) / F32_TM;
-  tile = blockIdx.y / parts;
-  const int part = blockIdx.y % parts;
-  row0 = tile * block_m + part * F32_TM;
-  return min(F32_TM, block_m - part * F32_TM);
-}
-
+// (block_m > F32_TM: the tile's parts along the grid's y,
+// f32_part_rows) by F32_TN columns; h stays f32 between the passes.
 __global__ void __launch_bounds__(F32_NT)
 gmm_up_f32_kernel(const float* __restrict__ xs, const float* __restrict__ w1,
                   const int* __restrict__ tile_expert,

@@ -2,7 +2,8 @@
 // buffer, on int8- or int4-stored expert weights widened on chip.
 //
 // Replaces the TPU kernel src/repro/kernels/moe_gmm.py::moe_gmm_quant_pallas.
-// Contract (identical): xs [M, D] bf16 rows sorted by expert, each row tile
+// Contract (identical): xs [M, D] bf16 or f32 (the reference takes any
+// float xs and writes xs.dtype) rows sorted by expert, each row tile
 // of block_m rows belongs to one expert; tile_expert[i] names tile i's
 // expert and tile_valid[i] is 1 iff the tile holds a real row.
 //   int8: w1q [E, D, 2F], w2q [E, F, D];
@@ -13,8 +14,8 @@
 // out = (silu(gate * s1[e,0]) * (up * s1[e,1]) * s2[e]) @ w2q[e] per tile,
 // gate / up = xs @ the first / next F columns of w1q[e]: s1 applies after
 // the first product (constant along D), s2 folds into h before the second
-// (it varies along the F contraction), no scale after it.  Dead tiles
-// write zeros and do no math.
+// (it varies along the F contraction), no scale after it; out in xs's
+// dtype.  Dead tiles write zeros and do no math.
 //
 // What bounds it on the H100: at the serving shapes (D 2048, F 1024, 64
 // experts, 512 tokens x top-8) every expert is routed, so one call must
@@ -57,11 +58,20 @@
 // columns below F.  block_m is any multiple of 8 up to 128: N is 64 up to
 // 64 rows, else 128, and the rows past a tile are computed from the next
 // tile's rows (or zeros) and never stored.
+//
+// f32 xs (the f32 instance, below): no tensor-core form takes f32 x f32
+// without rounding an operand (wgmma's TF32 keeps about three digits), so
+// it runs B1's f32 FFMA tile bodies (f32_tiles.cuh) with a stager that
+// widens the int8 / int4 bytes to f32 as it writes them to shared memory;
+// h stays f32 between the passes, as the f32 plain version keeps it, and
+// nothing rounds to bf16 or TF32.  The bf16 instance is the code it was.
 
+#include "f32_tiles.cuh"
 #include "quant_common.cuh"
 #include "wgmma_tiles.cuh"
 
 using namespace wgt;
+using namespace f32t;
 
 constexpr int RING_BYTES = 192 * 1024;   // a pass's ring, at most
 constexpr int MAX_STAGES = 8;
@@ -318,6 +328,142 @@ gmmq_down_kernel(const __grid_constant__ CUtensorMap tm_h,
   }
 }
 
+// ---- f32 activations: f32_tiles.cuh's FFMA bodies on widened weights ----
+
+// Four int8 of a word as f32, in column order (exact).
+__device__ __forceinline__ float4 i8x4_f32(uint32_t w) {
+  const uint32_t o = w ^ 0x80808080u;
+  return make_float4(i8_f32<0>(o), i8_f32<1>(o), i8_f32<2>(o), i8_f32<3>(o));
+}
+
+// The low (hi false) or high nibbles of four packed int4 bytes as f32, in
+// column order (exact; (n ^ 8) - 8 sign-extends a nibble).
+__device__ __forceinline__ float4 i4x4_f32(uint32_t w, bool hi) {
+  const uint32_t n = hi ? w >> 4 : w;
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = (float)((int)(((n >> (8 * j)) & 0xFu) ^ 8u) - 8);
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// How a weight matrix stores its values: int8, or int4 in blocked halves
+// along the contraction (w1q: row k < K/2 in the low nibbles of stored row
+// k, row K/2 + k in the high ones) or along the columns (w2q: column c <
+// N/2 in the low nibbles of stored column c, N/2 + c in the high ones).
+enum QLayout { Q_INT8, Q_INT4_ROWS, Q_INT4_COLS };
+
+// stage_cols for quantized weights: contraction rows [k0, k0 + F32_TK),
+// columns [col0, col0 + F32_TN) (zeros past ``ncols``) of a matrix stored
+// at w with ld bytes a stored row, widened to f32 into ws[k][col];
+// ``half`` is K/2 (Q_INT4_ROWS) or N/2 (Q_INT4_COLS), a multiple of 64, so
+// no step or column block straddles the halves.
+template <QLayout L>
+__device__ __forceinline__ void stage_qcols(float* ws,
+                                            const int8_t* __restrict__ w,
+                                            size_t ld, int col0, int ncols,
+                                            int k0, int half) {
+  const int k = threadIdx.x / 16, c = (threadIdx.x % 16) * 4;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col0 + c < ncols) {
+    int row = k0 + k, col = col0 + c;
+    bool hi = false;
+    if (L == Q_INT4_ROWS) {
+      hi = row >= half;
+      row -= hi ? half : 0;
+    } else if (L == Q_INT4_COLS) {
+      hi = col >= half;
+      col -= hi ? half : 0;
+    }
+    const uint32_t word =
+        __ldg(reinterpret_cast<const uint32_t*>(w + row * ld + col));
+    v = L == Q_INT8 ? i8x4_f32(word) : i4x4_f32(word, hi);
+  }
+  *reinterpret_cast<float4*>(ws + k * F32_TN + c) = v;
+}
+
+// Pass 1 on f32 rows: h = silu(s1g gate) * (s1u up) * s2 in f32, F32_TN
+// columns of F a block.
+template <bool PACKED>
+__global__ void __launch_bounds__(F32_NT)
+gmmq_up_f32_kernel(const float* __restrict__ xs,
+                   const int8_t* __restrict__ w1q,
+                   const float* __restrict__ s1, const float* __restrict__ s2,
+                   const int* __restrict__ tile_expert,
+                   const int* __restrict__ tile_valid, float* __restrict__ h,
+                   int D, int F, int block_m) {
+  constexpr QLayout L = PACKED ? Q_INT4_ROWS : Q_INT8;
+  int tile, row0;
+  const int rows = f32_part_rows(block_m, tile, row0);
+  if (!tile_valid[tile]) return;                // pass 2 writes the zeros
+  const int e = tile_expert[tile], f0 = blockIdx.x * F32_TN;
+  const int8_t* w1e = w1q + (size_t)e * (PACKED ? D / 2 : D) * 2 * F;
+  const float* sg = s1 + (size_t)e * 2 * F;
+  const float* sd = s2 + (size_t)e * F;
+  f32_up_tile_with(
+      xs + (size_t)row0 * D, rows, h + (size_t)row0 * F, D, F, f0,
+      [=](float* wg, float* wu, int k0) {
+        stage_qcols<L>(wg, w1e, 2 * (size_t)F, f0, F, k0, D / 2);
+        stage_qcols<L>(wu, w1e + F, 2 * (size_t)F, f0, F, k0, D / 2);
+      },
+      [=](float g, float u, int f) {
+        g *= sg[f];
+        u *= sg[F + f];
+        return g / (1.0f + expf(-g)) * u * sd[f];
+      });
+}
+
+// Pass 2 on f32 h: out = h @ w2q[e], F32_TN output columns a block; dead
+// tiles write zeros.
+template <bool PACKED>
+__global__ void __launch_bounds__(F32_NT)
+gmmq_down_f32_kernel(const float* __restrict__ h,
+                     const int8_t* __restrict__ w2q,
+                     const int* __restrict__ tile_expert,
+                     const int* __restrict__ tile_valid,
+                     float* __restrict__ out, int D, int F, int block_m) {
+  int tile, row0;
+  const int rows = f32_part_rows(block_m, tile, row0);
+  const int d0 = blockIdx.x * F32_TN;
+  if (!tile_valid[tile]) {                      // dead tile: zeros, no math
+    for (int i = threadIdx.x; i < rows * (F32_TN / 4); i += F32_NT)
+      *reinterpret_cast<float4*>(out + (size_t)(row0 + i / (F32_TN / 4)) * D +
+                                 d0 + (i % (F32_TN / 4)) * 4) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  const int Dp = PACKED ? D / 2 : D;            // stored columns of w2q[e]
+  const int8_t* w2e = w2q + (size_t)tile_expert[tile] * F * Dp;
+  f32_down_tile_with(h + (size_t)row0 * F, rows, out + (size_t)row0 * D, D,
+                     F, d0, [=](float* ws, int k0) {
+                       stage_qcols<PACKED ? Q_INT4_COLS : Q_INT8>(
+                           ws, w2e, Dp, d0, D, k0, D / 2);
+                     });
+}
+
+template <bool PACKED>
+static int launch_f32(const void* xs, const void* w1q, const void* w2q,
+                      const void* s1, const void* s2, const void* tile_expert,
+                      const void* tile_valid, void* h, void* out, int M,
+                      int D, int F, int block_m, cudaStream_t s) {
+  const int parts = (block_m + F32_TM - 1) / F32_TM;
+  const int blocks_y = M / block_m * parts;
+  if (blocks_y > 65535) return (int)cudaErrorInvalidValue;
+  const int* te = static_cast<const int*>(tile_expert);
+  const int* tv = static_cast<const int*>(tile_valid);
+  gmmq_up_f32_kernel<PACKED>
+      <<<dim3((F + F32_TN - 1) / F32_TN, blocks_y), F32_NT, 0, s>>>(
+          static_cast<const float*>(xs), static_cast<const int8_t*>(w1q),
+          static_cast<const float*>(s1), static_cast<const float*>(s2), te,
+          tv, static_cast<float*>(h), D, F, block_m);
+  cudaError_t e;
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  gmmq_down_f32_kernel<PACKED><<<dim3(D / F32_TN, blocks_y), F32_NT, 0, s>>>(
+      static_cast<const float*>(h), static_cast<const int8_t*>(w2q), te, tv,
+      static_cast<float*>(out), D, F, block_m);
+  return (int)cudaGetLastError();
+}
+
 template <bool PACKED, int N>
 static int launch(const CUtensorMap& tx, const CUtensorMap& tw1,
                   const CUtensorMap& th, const CUtensorMap& tw2,
@@ -348,9 +494,10 @@ static int launch(const CUtensorMap& tx, const CUtensorMap& tw1,
   return (int)cudaGetLastError();
 }
 
-// xs [M, D] bf16, w1q / w2q int8 as above (packed != 0: int4), s1 [E, 2, F]
-// and s2 [E, F] f32, out [M, D] bf16; tile_expert, tile_valid
-// [M / block_m] int32; h [M, F] bf16 scratch.  Needs D % 64 == 0 (int4:
+// xs [M, D] and out [M, D] bf16 (f32 when f32 is nonzero), w1q / w2q int8
+// as above (packed != 0: int4), s1 [E, 2, F] and s2 [E, F] f32;
+// tile_expert, tile_valid [M / block_m] int32; h [M, F] scratch of xs's
+// type.  Needs D % 64 == 0 (int4:
 // (D / 2) % 64 == 0), F % 32 == 0, block_m % 8 == 0 and <= 128, 16-byte
 // aligned bases.  Returns cudaGetLastError() after launch, or the error
 // of encoding a tensor map.
@@ -359,13 +506,17 @@ extern "C" int moe_gmm_quant_launch(const void* xs, const void* w1q,
                                     const void* s2, const void* tile_expert,
                                     const void* tile_valid, void* h, void* out,
                                     int M, int D, int F, int block_m, int E,
-                                    int packed, void* stream) {
+                                    int packed, int f32, void* stream) {
   const int Dp = packed ? D / 2 : D;
   if (D % 64 || Dp % 64 || F % 32 || block_m % 8 || block_m > ROWS ||
       block_m <= 0 || M % block_m || E <= 0)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = M / block_m;
   if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
+  if (f32)
+    return (packed ? launch_f32<true> : launch_f32<false>)(
+        xs, w1q, w2q, s1, s2, tile_expert, tile_valid, h, out, M, D, F,
+        block_m, reinterpret_cast<cudaStream_t>(stream));
   CUtensorMap tx, tw1, th, tw2;
   int err;
   if ((err = activation_map(&tx, xs, 1, M, D)) ||

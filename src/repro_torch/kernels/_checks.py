@@ -34,8 +34,9 @@ def on_card(name: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
-#: the element types of B1-B4, B8 and B9's operands (their Pallas
-#: references take any float dtype and compute in f32)
+#: the element types of the kernels' float operands (their Pallas
+#: references take any float dtype and compute in f32): every operand of
+#: B1-B4, B8 and B9, B5 / B6's activations, B7's latent pool
 FLOAT_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -74,17 +75,19 @@ def expect(name: str, t: torch.Tensor, arg: str, dtype: torch.dtype,
 
 def expect_quant(name: str, x: torch.Tensor, w1q: torch.Tensor,
                  w2q: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
-                 dtype: str) -> None:
-    """The quantized expert kernels' operands: x [.., D] bf16, w1q int8
+                 dtype: str) -> torch.dtype:
+    """The quantized expert kernels' operands: x [.., D] bf16 or f32 (the
+    activations' dtype, returned: the output's), w1q int8
     [E, D(p), 2F], w2q int8 [E, F, D(p)] (D(p) = D/2 for int4), s1 f32
     [E, 2, F], s2 f32 [E, F]; all contiguous with 16-byte aligned bases
     (a thread loads 16 int8 or 32 int4 values at once), D a multiple of
     64, and for int4 D/2 too, and F a multiple of 32.  The weights are
-    never widened to bf16."""
+    never widened in device memory."""
     d = x.shape[-1]
     e, f = w2q.shape[0], w2q.shape[1]
     dp = d // 2 if dtype == "int4" else d
-    expect(name, x, "x", torch.bfloat16)
+    dt = float_dtype(name, x=x)
+    expect(name, x, "x", dt)
     expect(name, w1q, "w1q", torch.int8, (e, dp, 2 * f))
     expect(name, w2q, "w2q", torch.int8, (e, f, dp))
     expect(name, s1, "s1", torch.float32, (e, 2, f))
@@ -98,3 +101,4 @@ def expect_quant(name: str, x: torch.Tensor, w1q: torch.Tensor,
                    ("s2", s2)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
+    return dt

@@ -87,8 +87,9 @@ def flash_decode_paged(q, kp, block_tables, cur_pos) -> Cost:
 
 def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, block_tables,
                            cur_pos) -> Cost:
-    """B7: every latent slot of the walked columns; scores over r + dr,
-    values over r, in f32 (``mma.sync`` on bf16 parts)."""
+    """B7: every latent slot of the walked columns (latents at their own
+    element size); scores over r + dr, values over r, in f32 (bf16
+    latents: ``mma.sync`` on bf16 parts; f32 latents: FFMA)."""
     b, h, r = q_lat.shape
     dr = q_rope.shape[-1]
     slots = b * block_tables.shape[1] * ckvp.shape[1]

@@ -16,8 +16,8 @@ stride -- and merge the pieces in a fixed order inside the one launch, so a
 row's output is bitwise the same whatever the batch around it and whatever
 the table view's width.  The GQA kernel takes any head group and hd in
 ``HEAD_DIMS`` (f32: ``F32_HEAD_DIMS``; as ``flash_decode``); the MLA
-kernel any head count, in tiles of 16 heads along its grid, at the (r,
-dr) of ``MLA_SHAPES``.
+kernel bf16 or f32 latents, any head count, in tiles of 16 heads along its
+grid, at the (r, dr) of ``MLA_SHAPES`` for the latents' dtype.
 """
 
 from __future__ import annotations
@@ -124,9 +124,12 @@ flash_decode_paged.launches = 0
 # MLA: weight-absorbed latent decode
 # --------------------------------------------------------------------------- #
 
-#: (latent width r, rope width dr) pairs with an MLA kernel instantiation:
-#: DeepSeek-V2-Lite's and MiniCPM3-4B's; any head count (tiles of 16)
-MLA_SHAPES = ((512, 64), (256, 32))
+#: (latent width r, rope width dr) pairs with an MLA kernel instantiation,
+#: by the latents' dtype: DeepSeek-V2-Lite's and MiniCPM3-4B's in both, and
+#: on f32 latents the reduced DeepSeek config's (32, 16); any head count
+#: (tiles of 16)
+MLA_SHAPES = {torch.bfloat16: ((512, 64), (256, 32)),
+              torch.float32: ((512, 64), (256, 32), (32, 16))}
 
 
 def flash_decode_paged_mla_plain(q_lat, q_rope, ckvp, kropep, posp,
@@ -151,7 +154,8 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
                            cur_pos, *, scale: float):
     """Weight-absorbed MLA decode over the latent pages: q_lat [B, H, r]
     f32 (q_nope through W_kv_b(k)); q_rope [B, H, dr] f32; ckvp [N, P, r]
-    and kropep [N, P, dr] bf16; posp [N, P] int32; block_tables
+    and kropep [N, P, dr] both bf16 or both f32 (the reference casts its
+    latents to f32; a mix raises); posp [N, P] int32; block_tables
     [B, n_blk] int32 (may be a column slice of the full table); cur_pos [B]
     int32 -> the latent output [B, H, r] f32 (the caller folds W_kv_b(v)
     in).  ``scale`` is the model's 1/sqrt(dn + dr).  Replaces
@@ -169,17 +173,19 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
     b, h, r = q_lat.shape
     n, p, dr = kropep.shape
     n_blk = block_tables.shape[1]
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32 = torch.float32
+    lat = float_dtype(name, ckvp=ckvp, kropep=kropep)
     expect(name, q_lat, "q_lat", f32)
     expect(name, q_rope, "q_rope", f32, (b, h, dr))
-    expect(name, ckvp, "ckvp", bf16, (n, p, r))
-    expect(name, kropep, "kropep", bf16, (n, p, dr))
+    expect(name, ckvp, "ckvp", lat, (n, p, r))
+    expect(name, kropep, "kropep", lat, (n, p, dr))
     expect(name, posp, "posp", torch.int32, (n, p))
     expect(name, cur_pos, "cur_pos", torch.int32, (b,))
-    if (r, dr) not in MLA_SHAPES or h < 1 or not 1 <= b <= 65535:
+    shapes = MLA_SHAPES[lat]
+    if (r, dr) not in shapes or h < 1 or not 1 <= b <= 65535:
         raise ValueError(f"{name}: no kernel for B={b}, H={h}, r={r}, "
-                         f"dr={dr} (needs (r, dr) in {MLA_SHAPES}, H >= 1, "
-                         "0 < B <= 65535)")
+                         f"dr={dr} on {lat} latents (needs (r, dr) in "
+                         f"{shapes}, H >= 1, 0 < B <= 65535)")
     if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
             or block_tables.shape[0] != b or block_tables.stride(1) != 1):
         raise ValueError(f"{name}: block_tables must be int32 [B, n_blk] "
@@ -194,11 +200,11 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
     if q_lat.is_meta:
         costs.report(name, cost)
         return out
-    fn = _build.function(name, "flash_decode_paged_mla_launch", 8, 7, 1)
+    fn = _build.function(name, "flash_decode_paged_mla_launch", 8, 8, 1)
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), ckvp.data_ptr(),
              kropep.data_ptr(), posp.data_ptr(), block_tables.data_ptr(),
              cur_pos.data_ptr(), out.data_ptr(), b, h, r, dr, p, n_blk,
-             block_tables.stride(0), scale,
+             block_tables.stride(0), int(lat == f32), scale,
              torch.cuda.current_stream(q_lat.device).cuda_stream)
     _build.check(name, err)
     flash_decode_paged_mla.launches += 1

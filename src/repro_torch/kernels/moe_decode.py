@@ -11,7 +11,8 @@ order, so a row's output is bitwise the same alone or in a batch.
 
 Quantized experts: ``csrc/moe_decode_quant.cu`` (replaces ``moe_decode_
 quant_pallas``) computes the same on int8 w1q / w2q (int4: two values a
-byte, blocked halves along D; ``models/moe/params.py``) with f32 scales
+byte, blocked halves along D; ``models/moe/params.py``), x and y bf16 or
+f32 as the reference's kernel takes any float x, with f32 scales
 s1 [E, 2, F] applied after the first product and s2 [E, F] folded into
 the hidden before the second; it groups the slots of an expert as the
 bf16 kernel does, so each routed expert is read once a call, and stages
@@ -113,14 +114,15 @@ SMEM_MAX = 232448 - 16
 _NW, _R, _FC = 8, 8, 4096
 
 
-def quant_smem(n_slots: int, d: int, f: int, dtype: str):
+def quant_smem(n_slots: int, d: int, f: int, dtype: str, x_bytes: int = 2):
     """The dynamic shared memory of ``moe_decode_quant``'s passes 1 and 2
     (``launch`` in ``csrc/moe_decode_quant.cu``): the slot list, the
     warps' sums of 128 columns (pass 2 in int4: 256), then x rows [D][R]
-    bf16 (pass 1) or a chunk of h rows [min(F, FC)][R] f32 (pass 2)."""
+    at ``x_bytes`` an element (pass 1; 2 bf16, 4 f32) or a chunk of h rows
+    [min(F, FC)][R] f32 (pass 2)."""
     slots = (n_slots * 4 + 15) // 16 * 16
     cols2 = 256 if dtype == "int4" else 128
-    return (slots + _NW * _R * 128 * 4 + d * _R * 2,
+    return (slots + _NW * _R * 128 * 4 + d * _R * x_bytes,
             slots + _NW * _R * cols2 * 4 + min(f, _FC) * _R * 4)
 
 
@@ -160,14 +162,15 @@ def moe_decode_quant(x, w1q, w2q, s1, s2, idx, weights, pred_idx=None, *,
     b, d = x.shape
     f = w2q.shape[1]
     k = idx.shape[1]
-    expect_quant("moe_decode_quant", x, w1q, w2q, s1, s2, dtype)
+    dt = expect_quant("moe_decode_quant", x, w1q, w2q, s1, s2, dtype)
     expect("moe_decode_quant", idx, "idx", torch.int32, (b, k))
     expect("moe_decode_quant", weights, "weights", torch.float32, (b, k))
     e = w2q.shape[0]
     if b < 1 or k < 1 or not 1 <= e <= 65535:
         raise ValueError(f"moe_decode_quant: B={b}, k={k}, E={e} (the grid "
                          "needs B, k >= 1 and 1 <= E <= 65535)")
-    for i, smem in enumerate(quant_smem(b * k, d, f, dtype)):
+    for i, smem in enumerate(quant_smem(b * k, d, f, dtype,
+                                        x.element_size())):
         if smem > SMEM_MAX:
             raise ValueError(
                 f"moe_decode_quant: pass {i + 1} needs {smem} bytes of "
@@ -175,14 +178,15 @@ def moe_decode_quant(x, w1q, w2q, s1, s2, idx, weights, pred_idx=None, *,
                 f"block may have {SMEM_MAX}")
     h = torch.empty((b, k, f), dtype=torch.float32, device=x.device)
     partial = torch.empty((b, k, d), dtype=torch.float32, device=x.device)
-    y = torch.empty((b, d), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((b, d), dtype=dt, device=x.device)
     cost = costs.moe_decode(x, w2q, idx, dtype)
     if x.is_meta:
         costs.report("moe_decode_quant", cost)
         return y
-    fn = _build.function("moe_decode_quant", "moe_decode_quant_launch", 10, 6)
+    fn = _build.function("moe_decode_quant", "moe_decode_quant_launch", 10, 7)
     err = fn(*(t.data_ptr() for t in args), h.data_ptr(), partial.data_ptr(),
              y.data_ptr(), b, d, f, k, e, int(dtype == "int4"),
+             int(dt == torch.float32),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("moe_decode_quant", err)
     moe_decode_quant.launches += 1

@@ -15,9 +15,12 @@ Quantized experts: ``csrc/moe_gmm_quant.cu`` (replaces ``moe_gmm_quant_
 pallas``) computes the same on int8 w1q / w2q (int4: two values a byte,
 blocked halves along D; ``models/moe/params.py``) with f32 scales s1
 [E, 2, F] applied after the first product and s2 [E, F] folded into the
-hidden before the second.  Its weights travel through TMA as int8 and are
-widened to bf16 in registers (tensor maps cached per weight tensor and
-element type).
+hidden before the second; xs, h and the output bf16 or f32, as the
+reference's kernel takes any float xs.  On bf16 its weights travel
+through TMA as int8 and are widened to bf16 in registers (tensor maps
+cached per weight tensor and element type); on f32 it runs B1's f32 FFMA
+tiles (``csrc/f32_tiles.cuh``) with the int8 / int4 bytes widened to f32
+as they are staged, h kept in f32.
 """
 
 from __future__ import annotations
@@ -100,15 +103,19 @@ def moe_gmm_quant_plain(xs, w1q, w2q, s1, s2, tile_expert, tile_valid,
     m, d = xs.shape
     f = w2q.shape[1]
     te = tile_expert.long()
-    w1g, w2g = w1q[te], w2q[te]       # [tiles, D(p), 2F], [tiles, F, D(p)]
-    if dtype == "int4":
-        w1g, w2g = unpack_int4(w1g, 1), unpack_int4(w2g, 2)
+
+    def gathered(wq, axis):
+        """The tiles' experts of ``wq`` (int4 unpacked along ``axis``) as
+        f32, one weight at a time: at a model's full width a tile's copy
+        of each expert is large."""
+        w = wq[te]
+        return (unpack_int4(w, axis) if dtype == "int4" else w).float()
     xt = xs.reshape(-1, block_m, d).float()
-    hg = torch.bmm(xt, w1g.float()).reshape(-1, block_m, 2, f) \
-        * s1[te][:, None]
+    hg = torch.bmm(xt, gathered(w1q, 1)).reshape(-1, block_m, 2, f) \
+        * s1[te][:, None]                            # w1 [tiles, D, 2F]
     h = F_.silu(hg[:, :, 0]) * hg[:, :, 1] * s2[te][:, None]
     h = h.to(xs.dtype).float()
-    yt = torch.bmm(h, w2g.float())
+    yt = torch.bmm(h, gathered(w2q, 2))              # w2 [tiles, F, D]
     yt = torch.where(tile_valid.bool()[:, None, None], yt, 0.0)
     return yt.reshape(m, d).to(xs.dtype)
 
@@ -126,7 +133,7 @@ def moe_gmm_quant(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, *,
         return moe_gmm_quant_plain(*args, block_m, dtype=dtype)
     m, d = xs.shape
     f = w2q.shape[1]
-    expect_quant("moe_gmm_quant", xs, w1q, w2q, s1, s2, dtype)
+    dt = expect_quant("moe_gmm_quant", xs, w1q, w2q, s1, s2, dtype)
     if block_m % 8 or not 8 <= block_m <= 128 or m % block_m:
         raise ValueError(f"moe_gmm_quant: block_m={block_m} must be a "
                          f"multiple of 8 in [8, 128] dividing M={m}")
@@ -135,15 +142,16 @@ def moe_gmm_quant(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, *,
            (n_tiles,))
     expect("moe_gmm_quant", tile_valid, "tile_valid", torch.int32,
            (n_tiles,))
-    h = torch.empty((m, f), dtype=torch.bfloat16, device=xs.device)
-    out = torch.empty((m, d), dtype=torch.bfloat16, device=xs.device)
+    h = torch.empty((m, f), dtype=dt, device=xs.device)
+    out = torch.empty((m, d), dtype=dt, device=xs.device)
     cost = costs.moe_gmm(xs, w2q, tile_expert, dtype)
     if xs.is_meta:
         costs.report("moe_gmm_quant", cost)
         return out
-    fn = _build.function("moe_gmm_quant", "moe_gmm_quant_launch", 9, 6)
+    fn = _build.function("moe_gmm_quant", "moe_gmm_quant_launch", 9, 7)
     err = fn(*(t.data_ptr() for t in args), h.data_ptr(), out.data_ptr(),
              m, d, f, block_m, w2q.shape[0], int(dtype == "int4"),
+             int(dt == torch.float32),
              torch.cuda.current_stream(xs.device).cuda_stream)
     _build.check("moe_gmm_quant", err)
     moe_gmm_quant.launches += 1

@@ -18,10 +18,11 @@ at top-4, moe_d_ff 128, vocab 512, f32, capacity factor 2.0, trained on
 lr 2e-3.  The model is f32, and the CUDA kernels take f32 operands as
 their Pallas references do: on the card Alg. 1 profiles through
 ``moe_gmm``, held-out eval runs ``flash_attention`` and ``moe_gmm``, and
-the engine ``flash_decode_paged``, ``moe_gmm`` and ``moe_decode``.
-Training runs the plain paths (no kernel has a backward), and so do the
-engine and the eval with ``--expert-dtype int8`` / ``int4`` (the
-quantized expert kernels take bf16 activations).
+the engine ``flash_decode_paged``, ``moe_gmm`` and ``moe_decode``; with
+``--expert-dtype int8`` / ``int4`` the eval runs ``flash_attention`` and
+``moe_gmm_quant``, and the engine ``flash_decode_paged``,
+``moe_gmm_quant`` and ``moe_decode_quant`` (which take f32 activations
+too).  Training runs the plain paths (no kernel has a backward).
 """
 
 from __future__ import annotations
@@ -119,9 +120,8 @@ def main(argv=None) -> int:
     # quantized runs evaluate ppl through the same quantized gmm path the
     # engine serves, so the quality number matches what is deployed
     ed = args.expert_dtype
-    kern = ed == "bf16"
-    ppl_opts = ModelOpts(moe_impl="gmm", expert_dtype=ed, use_flash=kern,
-                         use_moe_kernel=kern)
+    ppl_opts = ModelOpts(moe_impl="gmm", expert_dtype=ed, use_flash=True,
+                         use_moe_kernel=True)
 
     def ppl(p, c):
         if ed != "bf16":
@@ -133,8 +133,8 @@ def main(argv=None) -> int:
                  num_pages=args.num_pages, preemption=args.preemption,
                  expert_dtype=ed, prefix_cache=args.prefix_cache,
                  degrade_under_pressure=args.degrade_under_pressure,
-                 use_kernel=kern, use_moe_decode=kern,
-                 opts=ModelOpts(use_moe_kernel=kern), device=dev)
+                 use_kernel=True, use_moe_decode=True,
+                 opts=ModelOpts(use_moe_kernel=True), device=dev)
     eng.serve(reqs())
     base_tput = eng.throughput()
     base_ppl = ppl(params, cfg)

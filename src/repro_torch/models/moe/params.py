@@ -73,9 +73,10 @@ def _pack_int4(q: torch.Tensor, dim: int) -> torch.Tensor:
 
 def unpack_int4(packed: torch.Tensor, axis: int) -> torch.Tensor:
     """Inverse of ``_pack_int4`` -> int32 values in [-8, 7]: the low nibble
-    sign-extends as ``(x ^ 8) - 8``, the high one by an arithmetic shift."""
-    p32 = packed.to(torch.int32)
-    return torch.cat([((p32 & 0xF) ^ 8) - 8, p32 >> 4], dim=axis)
+    sign-extends as ``(x ^ 8) - 8``, the high one by an arithmetic shift,
+    both on the int8 bytes (the temporaries stay at the packed size)."""
+    return torch.cat([((packed & 0xF) ^ 8) - 8, packed >> 4],
+                     dim=axis).to(torch.int32)
 
 
 def quantize_experts(w1: torch.Tensor, w2: torch.Tensor, dtype: str):

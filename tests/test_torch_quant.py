@@ -558,6 +558,6 @@ def test_quant_kernels_refuse_what_they_do_not_take_on_card(card):
         moe_decode_quant(x, *q, idx, w, dtype="int8")
     _, q = _card_weights(e, d, f, "int8", 0)
     with pytest.raises(TypeError, match="bfloat16"):
-        moe_decode_quant(x.float(), *q, idx, w, dtype="int8")
+        moe_decode_quant(x.half(), *q, idx, w, dtype="int8")
     with pytest.raises(TypeError, match="int8"):
         moe_decode_quant(x, q[0].bfloat16(), *q[1:], idx, w, dtype="int8")

@@ -2694,14 +2694,17 @@ def to_bf16(*ts):
             for t in ts]
 
 
-def f32_expert_checks(layer, cfg, x, flush, tag, per, witness=False):
+def f32_expert_checks(layer, cfg, x, flush, tag, per, witness=False,
+                      x_fwd=None):
     """B1, B3 and B9 in f32 on ``layer`` (f32 weights) and f32 tokens
     ``x``: B1 on ``x``'s sorted dispatch at top-k, B3 on its first 8 tokens
     at top-k, B9 on the capacity buffers of its first 8 tokens and of all
-    of them; the sibling is the bf16 kernel on the same inputs rounded to
-    bf16.  ``witness``: B9 on the first 8 tokens' buffers also against
-    f64 (``f64_witness``).  Adds {kernel: {f32 shape: numbers}} to
-    ``per``."""
+    of them (and of ``x_fwd``'s, the forward's, where given), each B9
+    buffer's rows also alone against the batch, bit for bit
+    (``ffn_rows_alone``); the sibling is the bf16 kernel on the same inputs
+    rounded to bf16.  ``witness``: B9 on the first 8 tokens' buffers and
+    on all of ``x``'s also against f64 (``f64_witness``).  Adds {kernel:
+    {f32 shape: numbers}} to ``per``."""
     import torch.nn.functional as F_
     from repro_torch.kernels import moe_decode, moe_ffn, moe_gmm
     from repro_torch.kernels.moe_decode import moe_decode_plain
@@ -2756,13 +2759,21 @@ def f32_expert_checks(layer, cfg, x, flush, tag, per, witness=False):
         experts * 3 * d * f * 4 + 2 * 8 * d * 4 + 8 * k * 8,
         8 * k * 6 * d * f, flush, batch=8, k=k, experts=experts)
 
-    for sh, xx in (("c_decode", x8), ("c_chunk", x)):
+    shapes = [("c_decode", x8), ("c_chunk", x)]
+    if x_fwd is not None:
+        shapes.append(("c_forward", x_fwd))
+    for sh, xx in shapes:
         xe, dropped = capacity_buffers(layer, cfg, xx)
         xe_b = to_bf16(xe)[0]
         c = xe.shape[1]
-        if witness and sh == "c_decode":
-            f64_witness(f"moe_ffn_f32_{tag}_{sh}{c}_f64", xe, w1, w2,
-                        moe_ffn(xe, w1, w2), moe_ffn_plain(xe, w1, w2))
+        got = moe_ffn(xe, w1, w2)
+        if witness and sh != "c_forward":
+            f64_witness(f"moe_ffn_f32_{tag}_{sh}{c}_f64", xe, w1, w2, got,
+                        moe_ffn_plain(xe, w1, w2))
+        if sh != "c_forward":
+            ffn_rows_alone(f"moe_ffn_f32_{tag}_{sh}{c}_rows", xe, w1, w2,
+                           got)
+        del got
 
         def bmm_swiglu(xe=xe):
             h = torch.bmm(xe, w1)
@@ -2772,6 +2783,54 @@ def f32_expert_checks(layer, cfg, x, flush, tag, per, witness=False):
             (xe, w1, w2), {}, lambda xe_b=xe_b: moe_ffn(xe_b, b1, b2),
             bmm_swiglu, e * 3 * d * f * 4 + 2 * e * c * d * 4,
             e * c * 6 * d * f, flush, capacity=c, dropped_copies=dropped)
+
+
+#: B9 f32's capacities at F32_QUANT_WIDE's D 5120 and F 8192: its decode
+#: body stages a row group's rows in chunks there (C 4, 8, 24), its tile
+#: body takes C 25
+F32_WIDE_CAPACITIES = (4, 8, 24, 25)
+
+
+def f32_ffn_wide(layer, x, tag):
+    """B9 in f32 on ``layer``'s experts and capacity buffers filled from
+    ``x``'s rows (the second half of each buffer empty) at
+    F32_WIDE_CAPACITIES, held to its plain version (compare_f32) and its
+    empty rows to exactly 0; not timed."""
+    from repro_torch.kernels import moe_ffn
+    from repro_torch.kernels.moe_ffn import moe_ffn_plain
+    w1, w2 = layer["w1"], layer["w2"]
+    e, d = w1.shape[0], w1.shape[1]
+    for c in F32_WIDE_CAPACITIES:
+        xe = x[: e * c].reshape(e, c, d).clone()
+        xe[:, (c + 1) // 2:] = 0
+        got = moe_ffn(xe, w1, w2)
+        compare_f32(f"moe_ffn_f32_{tag}_wide_c{c}", got,
+                    moe_ffn_plain(xe, w1, w2), capacity=c, d=d,
+                    f=w2.shape[1])
+        if (got[:, (c + 1) // 2:] != 0).any():
+            raise AssertionError(f"moe_ffn_f32_{tag}_wide_c{c}: an empty "
+                                 "capacity row is not 0")
+        del got
+
+
+def ffn_rows_alone(name, xe, w1, w2, batch_out):
+    """B9: each capacity row c alone in its buffer (every other row of
+    every expert's buffer zero) gives the bits it gives in ``batch_out``,
+    and a row that is zero in ``xe`` (no token copy filled it) comes out
+    exactly 0."""
+    from repro_torch.kernels import moe_ffn
+    empty = xe.abs().amax(-1) == 0                        # [E, C]
+    if (batch_out[empty] != 0).any():
+        raise AssertionError(f"{name}: an empty capacity row is not 0")
+    alone = torch.zeros_like(xe)
+    for c in range(xe.shape[1]):
+        alone[:, c] = xe[:, c]
+        if not torch.equal(moe_ffn(alone, w1, w2)[:, c], batch_out[:, c]):
+            raise AssertionError(f"{name}: row {c} alone differs from the "
+                                 "same row in the buffer")
+        alone[:, c] = 0
+    emit({"check": name, "bitwise_rows": xe.shape[1],
+          "empty_rows": int(empty.sum()), "ok": True})
 
 
 #: Higham's unit roundoff of f32 (round to nearest)
@@ -2948,8 +3007,8 @@ def f32_attention_checks(hq, hkv, hd, lens, s_buf, seq, window, device,
     """B2, B8 and B4 in f32 at (hq, hkv, hd): B2 on 4 rows of ``seq``
     tokens as the model's strided [B, S, H, hd] views (under ``window``),
     B8 on a cache of ``s_buf`` slots and B4 on pages of 16 holding
-    ``lens`` positions a row (each row of both also alone against the
-    batch, bit for bit); the sibling is the bf16 kernel on the same
+    ``lens`` positions a row (each row of all three also alone against
+    the batch, bit for bit); the sibling is the bf16 kernel on the same
     inputs rounded to bf16, the library SDPA in f32.  Adds {kernel: {f32
     shape: numbers}} to ``per``."""
     from repro_torch.kernels import flash_attention, flash_decode, \
@@ -2970,6 +3029,15 @@ def f32_attention_checks(hq, hkv, hd, lens, s_buf, seq, window, device,
     if got.is_cuda and got.stride() != q.stride():
         raise AssertionError(f"flash_attention f32 {tag}: output strides "
                              f"{got.stride()} != q's {q.stride()}")
+    for r in range(b):                  # a batch row alone, bit for bit
+        alone = flash_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                window=window)
+        if not torch.equal(alone[0], got[r]):
+            raise AssertionError(f"flash_attention f32 {tag}: batch row {r} "
+                                 "alone differs from the same row in the "
+                                 "batch")
+    emit({"check": f"flash_attention_f32_{tag}_rows", "bitwise_rows": b,
+          "ok": True})
     per.setdefault("flash_attention", {})[f"f32_{tag}"] = f32_case(
         "flash_attention", tag, flash_attention,
         lambda *a: flash_attention_plain(*a, window=window), (q, k, v),
@@ -3031,13 +3099,14 @@ def f32_attention_checks(hq, hkv, hd, lens, s_buf, seq, window, device,
                                     window=window))
 
 
-def f32_kernel_checks(layer, cfg, x, device, flush):
+def f32_kernel_checks(layer, cfg, x, device, flush, x_fwd=None):
     """Each f32 kernel at the reduced OLMoE config's shapes (d 128, 4
     heads of 32, 8 experts at top-2, F 64: its own first MoE layer, 128
     tokens) and at full-width OLMoE's (``layer`` cast to f32, ``x``'s 512
-    tokens; B9 at C 4 also against f64, ``f64_witness``), B7 on f32
-    latents at F32_MLA_SHAPES, B5 and B6 also at llama4-scout's F 8192
-    (F32_QUANT_WIDE), each held to F32_TOL, its cost on the card equal to
+    tokens; B9 at C 4 and C 80 also against f64, ``f64_witness``, and at
+    the forward's C 320 on ``x_fwd``'s 2048 tokens), B7 on f32
+    latents at F32_MLA_SHAPES, B5, B6 and B9 also at llama4-scout's F 8192
+    (F32_QUANT_WIDE; B9 at F32_WIDE_CAPACITIES, ``f32_ffn_wide``), each held to F32_TOL, its cost on the card equal to
     meta's, timed; and B2's bf16 body at hd 32 (the reduced config's
     attention) against its plain version row by row to ROW_TOL.  Returns
     {kernel: {f32 shape: numbers}} for the ``kernels`` line."""
@@ -3073,7 +3142,8 @@ def f32_kernel_checks(layer, cfg, x, device, flush):
     del rparams
     f32_layer = {n: t.float() for n, t in layer.items()}
     f32_expert_checks(f32_layer, cfg, x.float(), flush, "olmoe", per,
-                      witness=True)
+                      witness=True,
+                      x_fwd=None if x_fwd is None else x_fwd.float())
     f32_quant_checks(f32_layer, cfg, x.float(), flush, "olmoe", per)
     del f32_layer
     f32_attention_checks(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
@@ -3089,6 +3159,7 @@ def f32_kernel_checks(layer, cfg, x, device, flush):
     wx = torch.randn((512, wcfg.d_model), generator=gen, device=device)
     f32_quant_checks(wlayer, wcfg, wx, flush, FAMILY_SHORT[F32_QUANT_WIDE],
                      per)
+    f32_ffn_wide(wlayer, wx, FAMILY_SHORT[F32_QUANT_WIDE])
     del wlayer, wx
     gc.collect()
     torch.cuda.empty_cache()
@@ -6132,8 +6203,8 @@ def main() -> int:
                 ("olmoe_decode_c4", x2048[:8]))}, "shapes"),
     }
     # the f32 kernels (C12) at the reduced config's shapes and full width
-    for name, per in f32_kernel_checks(layer, cfg, x512, device,
-                                       flush).items():
+    for name, per in f32_kernel_checks(layer, cfg, x512, device, flush,
+                                       x_fwd=x2048).items():
         row = rows[name]
         for tag, numbers in per.items():
             r = kernel_row(name, row["source"], row["replaces"], *numbers,

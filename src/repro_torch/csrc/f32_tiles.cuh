@@ -1,5 +1,6 @@
-// The f32 row-tile bodies of the expert kernels (moe_gmm.cu, moe_ffn.cu,
-// and with int8 / int4 weights widened as they are staged moe_gmm_quant.cu),
+// The f32 row-tile bodies of the expert kernels moe_gmm.cu and, with int8
+// / int4 weights widened as they are staged, moe_gmm_quant.cu (moe_ffn.cu
+// has bodies of its own, f32_sgemm.cuh's among them),
 // for f32 operands: the reference's Pallas kernels take any float dtype
 // and compute in f32, and f32 x f32 has no tensor-core form (wgmma and
 // mma.sync take bf16, fp16, fp8 or TF32, which keeps about three digits),

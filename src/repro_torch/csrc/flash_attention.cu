@@ -377,25 +377,46 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 // The f32 body: f32 operands, f32 FFMA on the CUDA cores (no tensor-core
 // product takes f32 x f32 at full precision; TF32 keeps about three
-// digits), P kept in f32.  One block of NWARP warps per (BQ-row q tile, q
-// head, batch row), the q tile walked from the end of the sequence as
-// above; each warp owns RPW rows of the tile in both products, so the
-// online-softmax state of a row lives in the registers of one warp (every
-// lane holds it).  Per BK-row kv tile in [lo, hi): K and V land in shared
-// memory (K rows at a pitch of HD + 4, so 32 lanes reading a float4 of 32
-// different rows hit distinct banks); S = Q K^T with one lane a key and
-// the warp's RPW rows in registers (q values broadcast from shared
-// memory); the max and the sum of each row by warp shuffles, in base 2;
-// P to shared memory, key-major; then O += P V with one lane a head dim
-// (and dims lane + 32 c), RPW rows each.  A ragged last q or kv tile is
-// zero-filled on load and masked; rows past S are never stored.
+// digits), P kept in f32.  What bounds it is the FFMA rate (the causal
+// half of the two products at the forward's shape, 4.3 GFLOP, 0.064 ms
+// at 67 TFLOP/s) and the shared-memory loads that feed it, so it is
+// register-tiled.  One block of NT = 128 threads (8 x 16) per (BQ = 64-row
+// q tile, q head, batch row), the q tile walked from the end of the
+// sequence as above, over the BK = 64-key tiles in [lo, hi).  Thread
+// (ty, tx) holds rows ty 8 .. ty 8 + 7 in both products: in S = Q K^T
+// the keys tx + 16 j (j < 4), an 8 x 4 patch of S, every 4 head dims from
+// 8 + 4 LDS.128 for 128 FFMA; in O += P V the head dims tx VW + 16 VW m
+// (VW 4 at hd 64 and 128, 2 at 32, 1 at 80), an 8 x hd / 16 patch of O,
+// every key from 2 LDS.128 of P and hd / 64 of V (hd 128: 64 FFMA).  The
+// online softmax runs in base 2 (ex2.approx.ftz, as the bf16 body); the
+// 16 threads of a row share its running max by shuffles, and each keeps
+// its own part of the row's sum, summed by shuffles at the end.  P goes
+// through shared memory key-major ([key][row], 16-byte chunks swizzled by
+// the key), Q and K row-major at a pitch of hd rounded up to 32 with their
+// 16-byte chunks swizzled by the row (Q by its thread row, K by its low
+// three bits), so every load is an LDS.128 whose quarter warps hit
+// distinct banks or one broadcast address.  Q, K and V land by 16-byte
+// cp.async: K(j + 1) is in flight during tile j's softmax and P V, V(j +
+// 1) during tile j + 1's Q K^T (K and V in separate commit groups, one
+// buffer each).  Shared memory: Q 64 x P + K 64 x P + V 64 x hd + P 64 x
+// 64 floats (P = hd rounded up to 32): 112 KB at hd 128, so two blocks
+// share an SM (86 KB at 80, 64 KB at 64, 40 KB at 32).  Only the tiles
+// that cross the diagonal, the window's edge or the sequence's end
+// evaluate the mask; a ragged last q or kv tile is zero-filled on load
+// and masked; rows past S are never stored.  Every output sums its keys
+// and head dims in a fixed order, so a batch row's output does not depend
+// on the other rows of the batch.
 namespace fa32 {
 
-constexpr int NWARP = 4;
-constexpr int RPW = 8;                 // q rows a warp
-constexpr int BQ = NWARP * RPW;        // q rows a block
-constexpr int BK = 32;                 // kv rows a tile: one lane each
-constexpr int NT = 32 * NWARP;
+constexpr int NT = 128;                // 8 x 16 threads
+constexpr int BQ = 64;                 // q rows a block
+constexpr int BK = 64;                 // keys a tile
+constexpr int MIN_BLOCKS = 2;          // the launch bound's blocks an SM
+constexpr int TR = BQ / 8;             // rows a thread
+constexpr int TK = BK / 16;            // keys a thread
+constexpr int PCH = BQ / 4;            // 16-byte chunks of a key's P row
+constexpr int PSWZ = (PCH < 16 ? PCH : 16) - 1;   // their swizzle mask
+static_assert(BQ % 32 == 0 && BK % 16 == 0, "whole 8 x 16 thread tiles");
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -404,44 +425,37 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 template <int HD>
-struct Smem {
-  static constexpr int KP = HD + 4;    // K's row pitch
-  // Q [BQ][HD], K [BK][KP], V [BK][HD], P [NWARP][BK][RPW]
-  static constexpr int FLOATS = BQ * HD + BK * KP + BK * HD + NWARP * BK * RPW;
-  static constexpr int BYTES = FLOATS * 4;
+struct Cfg {
+  static constexpr int VW = HD % 64 == 0 ? 4 : HD % 32 == 0 ? 2 : 1;
+  static constexpr int NG = HD / (16 * VW);       // V groups a thread
+  static constexpr int P = (HD + 31) / 32 * 32;   // Q's and K's row pitch
+  static constexpr int K_OFF = BQ * P;
+  static constexpr int V_OFF = K_OFF + BK * P;
+  static constexpr int P_OFF = V_OFF + BK * HD;
+  static constexpr int BYTES = (P_OFF + BK * BQ) * 4;
 };
 
 // rows [row0, row0 + ROWS) of an [S, HD] matrix (row pitch ld) into
-// shared memory at pitch P, zeros past S; float4 a thread
-template <int HD, int ROWS, int P>
+// shared memory at pitch PITCH, 16-byte chunk c of row r at chunk c ^
+// swz(r); zeros past S; cp.async, not committed
+template <int HD, int ROWS, int PITCH, class Swz>
 __device__ __forceinline__ void load_rows(float* dst,
                                           const float* __restrict__ src,
-                                          int row0, int S, int ld) {
-  for (int i = threadIdx.x; i < ROWS * HD / 4; i += NT) {
-    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S)
-      x = __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * ld +
-                                                c));
-    *reinterpret_cast<float4*>(dst + r * P + c) = x;
+                                          int row0, int S, int ld, Swz swz) {
+  constexpr int CH = HD / 4;
+  static_assert(ROWS * CH % NT == 0, "row loads split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = row0 + r < S;
+    fa::cp_async16(dst + r * PITCH + (c ^ swz(r)) * 4,
+                   src + (ok ? (size_t)(row0 + r) * ld + c * 4 : 0), ok);
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 template <int HD>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
@@ -449,113 +463,205 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            int window, float scale_log2, int qsb, int qsh,
                            int qss, int ksb, int ksh, int kss, int osb,
                            int osh, int oss) {
-  using SM = Smem<HD>;
-  constexpr int KP = SM::KP;
-  constexpr int NC = (HD + 31) / 32;   // head dims a lane: lane + 32 c
+  using CF = Cfg<HD>;
+  constexpr int P = CF::P, VW = CF::VW, NG = CF::NG;
   extern __shared__ __align__(16) float smem_f[];
   float* sq = smem_f;
-  float* sk = sq + BQ * HD;
-  float* sv = sk + BK * KP;
-  float* sp = sv + BK * HD;
+  float* sk = smem_f + CF::K_OFF;
+  float* sv = smem_f + CF::V_OFF;
+  float* sp = smem_f + CF::P_OFF;
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;    // longest kv walks first
   const int hk = h / (Hq / Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q0 = qt * BQ, r0 = warp * RPW;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int q0 = qt * BQ;
   const float* kb = k + (size_t)b * ksb + (size_t)hk * ksh;
   const float* vb = v + (size_t)b * ksb + (size_t)hk * ksh;
-  load_rows<HD, BQ, HD>(sq, q + (size_t)b * qsb + (size_t)h * qsh, q0, S,
-                        qss);
+  auto q_swz = [](int r) { return (r / TR) & 7; };
+  auto k_swz = [](int r) { return r & 7; };
+  auto no_swz = [](int) { return 0; };
 
   const int hi = min(q0 + BQ, S);
   const int n_hi = (hi + BK - 1) / BK;
   const int n_lo = window > 0 ? max(q0 - (window - 1), 0) / BK : 0;
 
-  float acc[RPW][NC], mx[RPW], l[RPW];
+  // groups in flight: (Q, K(lo)), V(lo)
+  load_rows<HD, BQ, P>(sq, q + (size_t)b * qsb + (size_t)h * qsh, q0, S, qss,
+                       q_swz);
+  load_rows<HD, BK, P>(sk, kb, n_lo * BK, S, kss, k_swz);
+  fa::cp_async_commit();
+  load_rows<HD, BK, HD>(sv, vb, n_lo * BK, S, kss, no_swz);
+  fa::cp_async_commit();
+
+  float o[TR][NG * VW], mx[TR], l[TR];
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    mx[r] = -INFINITY;
-    l[r] = 0.f;
+  for (int i = 0; i < TR; ++i) {
+    mx[i] = -INFINITY;
+    l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
+    for (int d = 0; d < NG * VW; ++d) o[i][d] = 0.f;
   }
-  float* pw = sp + warp * BK * RPW;            // this warp's P [BK][RPW]
 
   for (int j = n_lo; j < n_hi; ++j) {
     const int k0 = j * BK;
-    __syncthreads();                  // every warp is done with the tile
-    load_rows<HD, BK, KP>(sk, kb, k0, S, kss);
-    load_rows<HD, BK, HD>(sv, vb, k0, S, kss);
+    fa::cp_async_wait<1>();            // K(j) (and Q) landed
     __syncthreads();
 
-    // S = Q K^T: lane = key k0 + lane, the warp's RPW rows
-    float s[RPW];
+    // S = Q K^T: rows ty 8 + i, keys tx + 16 jj
+    float s[TR][TK];
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) s[r] = 0.f;
-    const float* kr = sk + lane * KP;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+    for (int i = 0; i < TR; ++i)
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(sq + (r0 + r) * HD + d);
-        s[r] = fmaf(qv.x, kv.x, s[r]);
-        s[r] = fmaf(qv.y, kv.y, s[r]);
-        s[r] = fmaf(qv.z, kv.z, s[r]);
-        s[r] = fmaf(qv.w, kv.w, s[r]);
-      }
-    }
-
-    // the online softmax of each row, in base 2
-    const int jj = k0 + lane;
+      for (int jj = 0; jj < TK; ++jj) s[i][jj] = 0.f;
+#pragma unroll 2
+    for (int g = 0; g < HD / 4; ++g) {
+      float4 kf[TK];
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int i = q0 + r0 + r;
-      const bool ok = jj <= i && jj < S && (window <= 0 || jj > i - window);
-      const float x = ok ? s[r] * scale_log2 : -INFINITY;
-      const float m_new = fmaxf(mx[r], warp_max(x));
-      // no visible key yet: l and O are 0, any finite factor will do
-      const float alpha = mx[r] == -INFINITY ? 1.f : ex2(mx[r] - m_new);
-      const float p = ok ? ex2(x - m_new) : 0.f;
-      mx[r] = m_new;
-      l[r] = l[r] * alpha + warp_sum(p);
+      for (int jj = 0; jj < TK; ++jj)    // (tx + 16 jj) & 7 == tx & 7
+        kf[jj] = *reinterpret_cast<const float4*>(
+            sk + (tx + 16 * jj) * P + ((g ^ (tx & 7)) * 4));
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
-      pw[lane * RPW + r] = p;
-    }
-    __syncwarp();
-
-    // O += P V: lane = head dim, the warp's RPW rows
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 pa = *reinterpret_cast<const float4*>(pw + kk * RPW);
-      const float4 pb = *reinterpret_cast<const float4*>(pw + kk * RPW + 4);
-      const float pv[RPW] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+      for (int i = 0; i < TR; ++i) {
+        const float4 qf = *reinterpret_cast<const float4*>(
+            sq + (ty * TR + i) * P + ((g ^ (ty & 7)) * 4));
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = lane + 32 * c;
-        if (d < HD) {
-          const float vv = sv[kk * HD + d];
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) acc[r][c] = fmaf(pv[r], vv, acc[r][c]);
+        for (int jj = 0; jj < TK; ++jj) {
+          float a = s[i][jj];
+          a = fmaf(qf.x, kf[jj].x, a);
+          a = fmaf(qf.y, kf[jj].y, a);
+          a = fmaf(qf.z, kf[jj].z, a);
+          a = fmaf(qf.w, kf[jj].w, a);
+          s[i][jj] = a;
         }
       }
     }
-    __syncwarp();                     // P is read before the next tile's
+    __syncthreads();                   // every thread is done with K(j)
+    if (j + 1 < n_hi)
+      load_rows<HD, BK, P>(sk, kb, k0 + BK, S, kss, k_swz);
+    fa::cp_async_commit();             // an empty group keeps the count
+
+    // scale to base 2; mask by index only on tiles that need it
+    const bool full = k0 + BK - 1 <= q0 &&
+                      (window <= 0 || k0 > q0 + BQ - 1 - window);
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int row = q0 + ty * TR + i;
+#pragma unroll
+      for (int jj = 0; jj < TK; ++jj) {
+        float x = s[i][jj] * scale_log2;
+        if (!full) {
+          const int key = k0 + tx + 16 * jj;
+          const bool ok = key <= row && key < S &&
+                          (window <= 0 || key > row - window);
+          x = ok ? x : -INFINITY;
+        }
+        s[i][jj] = x;
+      }
+    }
+
+    // the online softmax of each row: the 16 threads of a row share its
+    // max by shuffles; each keeps its own part of the sum
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float tm = s[i][0];
+#pragma unroll
+      for (int jj = 1; jj < TK; ++jj) tm = fmaxf(tm, s[i][jj]);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, off));
+      const float m_new = fmaxf(mx[i], tm);
+      // no visible key yet: l and O are 0, any finite factor will do
+      const float alpha = mx[i] == -INFINITY ? 1.f : ex2(mx[i] - m_new);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      mx[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < TK; ++jj) {
+        s[i][jj] = ex2(s[i][jj] - m_use);
+        sum += s[i][jj];
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int d = 0; d < NG * VW; ++d) o[i][d] *= alpha;
+    }
+
+    // P to shared memory, [key][row]: chunk c (rows 4c..4c+3) of key kk at
+    // chunk c ^ (kk & PSWZ); this thread's rows are chunks ty TR / 4 + c
+#pragma unroll
+    for (int jj = 0; jj < TK; ++jj) {
+      float* pk = sp + (tx + 16 * jj) * BQ;
+#pragma unroll
+      for (int c = 0; c < TR / 4; ++c)
+        *reinterpret_cast<float4*>(
+            pk + (((ty * TR / 4 + c) ^ (tx & PSWZ)) * 4)) =
+            make_float4(s[4 * c][jj], s[4 * c + 1][jj], s[4 * c + 2][jj],
+                        s[4 * c + 3][jj]);
+    }
+    fa::cp_async_wait<1>();            // V(j) landed
+    __syncthreads();                   // and P is written
+
+    // O += P V: rows ty 8 + i, head dims tx VW + 16 VW m
+#pragma unroll 2
+    for (int kk = 0; kk < BK; ++kk) {
+      const float* pk = sp + kk * BQ;
+      float pv[TR];
+#pragma unroll
+      for (int c = 0; c < TR / 4; ++c) {
+        const float4 t = *reinterpret_cast<const float4*>(
+            pk + (((ty * TR / 4 + c) ^ (kk & PSWZ)) * 4));
+        pv[4 * c] = t.x, pv[4 * c + 1] = t.y, pv[4 * c + 2] = t.z,
+        pv[4 * c + 3] = t.w;
+      }
+      const float* vk = sv + kk * HD + tx * VW;
+#pragma unroll
+      for (int m = 0; m < NG; ++m) {
+        float vv[VW];
+        if constexpr (VW == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(vk + m * 16 * VW);
+          vv[0] = t.x, vv[1] = t.y, vv[2] = t.z, vv[3] = t.w;
+        } else if constexpr (VW == 2) {
+          const float2 t = *reinterpret_cast<const float2*>(vk + m * 16 * VW);
+          vv[0] = t.x, vv[1] = t.y;
+        } else {
+          vv[0] = vk[m * 16];
+        }
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int w = 0; w < VW; ++w)
+            o[i][m * VW + w] = fmaf(pv[i], vv[w], o[i][m * VW + w]);
+      }
+    }
+    __syncthreads();                   // every thread is done with V(j), P
+    if (j + 1 < n_hi)
+      load_rows<HD, BK, HD>(sv, vb, k0 + BK, S, kss, no_swz);
+    fa::cp_async_commit();
   }
+  fa::cp_async_wait<0>();              // no copy outlives the block
 
   float* ob = out + (size_t)b * osb + (size_t)h * osh;
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = q0 + r0 + r;
-    if (i >= S) break;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+  for (int i = 0; i < TR; ++i) {
+    float sum = l[i];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < HD) ob[(size_t)i * oss + d] = acc[r][c] * inv;
+    for (int off = 1; off < 16; off <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const int row = q0 + ty * TR + i;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    float* orow = ob + (size_t)row * oss + tx * VW;
+#pragma unroll
+    for (int m = 0; m < NG; ++m) {
+      const float* a = o[i] + m * VW;
+      if constexpr (VW == 4)
+        *reinterpret_cast<float4*>(orow + m * 16 * VW) =
+            make_float4(a[0] * inv, a[1] * inv, a[2] * inv, a[3] * inv);
+      else if constexpr (VW == 2)
+        *reinterpret_cast<float2*>(orow + m * 16 * VW) =
+            make_float2(a[0] * inv, a[1] * inv);
+      else
+        orow[m * 16] = a[0] * inv;
     }
   }
 }
@@ -568,9 +674,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const int n_q = (S + BQ - 1) / BQ;
   if (B > 65535 || n_q > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<HD>::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<HD>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3(Hq, B, n_q), NT, Smem<HD>::BYTES, stream>>>(
+  kernel<<<dim3(Hq, B, n_q), NT, Cfg<HD>::BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Hq, Hkv, S,
       window, 1.4426950408889634f / sqrtf((float)HD), st[0], st[1], st[2],

@@ -7,8 +7,9 @@ every capacity row, empty or not (a zero row comes out zero).  xe, w1 and
 w2 are all bf16 or all f32.  On bf16 the kernel reads its operands through
 TMA tensor maps (xe and h as 3-D [E, C, .] maps, encoded per call; the
 weights' cached per tensor in the library) and runs wgmma on them; on f32
-it runs f32 FFMA on the CUDA cores (``csrc/f32_tiles.cuh``, shared with
-``moe_gmm``).
+it runs f32 FFMA on the CUDA cores, in one of two bodies chosen by C: up
+to C 24 a decode body that streams every weight once, above it the
+register-tiled SGEMM of ``csrc/f32_sgemm.cuh``.
 """
 
 from __future__ import annotations

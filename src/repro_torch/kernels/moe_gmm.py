@@ -9,7 +9,7 @@ f32, as the reference's kernel takes any float dtype.  On bf16 the kernel
 reads its operands through TMA tensor maps (encoded per call for xs and h,
 cached per weight tensor in the library) and runs wgmma on them; on f32 it
 runs f32 FFMA on the CUDA cores (``csrc/f32_tiles.cuh``, shared with
-``moe_ffn``), h kept in f32 between the passes.
+``moe_gmm_quant``), h kept in f32 between the passes.
 
 Quantized experts: ``csrc/moe_gmm_quant.cu`` (replaces ``moe_gmm_quant_
 pallas``) computes the same on int8 w1q / w2q (int4: two values a byte,

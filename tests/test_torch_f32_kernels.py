@@ -14,8 +14,11 @@ B2 takes hd 32 in bf16 and in f32.
   ``test_moe_decode.py``, ``test_moe_dispatch.py``,
   ``test_paged_attention.py``), at its f32 tolerance ``rtol=atol=2e-5``.
 * Card tests (skipped without a GPU): each f32 kernel against its plain
-  version at ``rtol=atol=2e-5``, and B2's bf16 body at hd 32 row by row to
-  1e-2 of each row's norm, as the other bf16 attention shapes.
+  version at ``rtol=atol=2e-5`` (B9 at capacities on both sides of its
+  decode body's reach, B2 at one row and one past a tile), B9's rows and
+  B2's batch rows bit for bit alone, B9's empty rows exactly 0, and B2's
+  bf16 body at hd 32 row by row to 1e-2 of each row's norm, as the other
+  bf16 attention shapes.
 """
 
 import numpy as np
@@ -152,9 +155,15 @@ def _np(x):
     return np.asarray(x, np.float32)
 
 
+#: B9's f32 capacities on the card: C 1-24 run its decode body (C 1-4
+#: in row groups of 4, else 8), C 25 up its tile body (C 80: one tile of
+#: 80 rows, C 320: four); the CPU cases take them at small widths
+FFN_CAPACITIES = (1, 16, 17, 24, 25, 80, 320)
+
+
 @pytest.mark.parametrize("e,c,d,f", [
     (1, 8, 64, 32), (4, 64, 128, 96), (8, 16, 256, 64), (2, 128, 128, 256),
-    (3, 20, 96, 48)])
+    (3, 20, 96, 48), *((3, c, 128, 64) for c in FFN_CAPACITIES)])
 def test_moe_ffn_f32_matches_pallas(e, c, d, f):
     import jax.numpy as jnp
     from repro.kernels.moe_ffn import moe_ffn_pallas
@@ -170,10 +179,17 @@ def test_moe_ffn_f32_matches_pallas(e, c, d, f):
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
 
 
+#: B2's f32 edge shapes (b, hq, hkv, s, hd, window): one row, one row
+#: past a 64-row tile, one past two, and hd 80 under a window
+FA_EDGES = [(2, 4, 2, 1, 32, None), (2, 4, 2, 65, 64, None),
+            (1, 4, 2, 129, 32, None), (2, 8, 2, 129, 80, 50)]
+
+
 @pytest.mark.parametrize("b,hq,hkv,s,hd,window", [
     (1, 1, 1, 64, 32, None), (2, 4, 2, 128, 64, None),
     (1, 8, 1, 256, 64, None), (2, 4, 4, 96, 32, None),
-    (2, 2, 2, 128, 32, 16), (2, 2, 2, 128, 32, 64), (2, 2, 2, 128, 32, 100)])
+    (2, 2, 2, 128, 32, 16), (2, 2, 2, 128, 32, 64), (2, 2, 2, 128, 32, 100),
+    *FA_EDGES])
 def test_flash_attention_f32_matches_pallas(b, hq, hkv, s, hd, window):
     import jax.numpy as jnp
     from repro.kernels.flash_attention import flash_attention_pallas
@@ -344,7 +360,8 @@ def _gen(seed):
 
 @pytest.mark.parametrize("b,hq,hkv,s,hd,window", [
     (2, 4, 4, 64, 32, None), (1, 8, 2, 200, 32, 50), (2, 4, 2, 130, 64, None),
-    (1, 4, 4, 37, 80, None), (2, 16, 16, 512, 128, None)])
+    (1, 4, 4, 37, 80, None), (2, 16, 16, 512, 128, None),
+    (2, 4, 2, 1, 128, None), (2, 4, 2, 65, 64, None), *FA_EDGES[2:]])
 def test_flash_attention_f32_on_card(card, b, hq, hkv, s, hd, window):
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels.flash_attention import flash_attention_plain
@@ -361,6 +378,21 @@ def test_flash_attention_f32_on_card(card, b, hq, hkv, s, hd, window):
     assert got.stride() == qt.stride()
     _f32_close("flash_attention", got,
                flash_attention_plain(q, k, v, window=window))
+
+
+@pytest.mark.parametrize("hd,window", [(128, None), (80, 50), (32, 40)])
+def test_flash_attention_f32_rows_alone_on_card(card, hd, window):
+    """Each batch row of the model's [B, S, H, hd] views alone gives the
+    bits it gives in the batch."""
+    from repro_torch.kernels import flash_attention
+    g = _gen(hd)
+    q, k, v = (torch.randn((3, 129, h, hd), generator=g, device="cuda")
+               .transpose(1, 2) for h in (8, 2, 2))
+    batch = flash_attention(q, k, v, window=window)
+    for i in range(3):
+        alone = flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                window=window)
+        assert torch.equal(alone[0], batch[i])
 
 
 def test_flash_attention_bf16_hd32_on_card(card):
@@ -429,15 +461,56 @@ def _experts(e, d, f, seed):
             torch.randn((e, f, d), generator=g, device="cuda") / f ** 0.5)
 
 
-@pytest.mark.parametrize("e,c,d,f", [(8, 4, 128, 64), (8, 80, 128, 128),
-                                     (16, 130, 256, 96), (4, 4, 2048, 1024)])
+@pytest.mark.parametrize("e,c,d,f", [
+    (8, 4, 128, 64), (8, 80, 128, 128), (16, 130, 256, 96),
+    (4, 4, 2048, 1024), *((4, c, 2048, 1024) for c in FFN_CAPACITIES)])
 def test_moe_ffn_f32_on_card(card, e, c, d, f):
     from repro_torch.kernels import moe_ffn
     from repro_torch.kernels.moe_ffn import moe_ffn_plain
     w1, w2 = _experts(e, d, f, c)
     xe = torch.randn((e, c, d), generator=_gen(1), device="cuda")
-    xe[:, c // 2:] = 0                    # empty capacity rows
+    xe[:, (c + 1) // 2:] = 0              # empty capacity rows
     _f32_close("moe_ffn", moe_ffn(xe, w1, w2), moe_ffn_plain(xe, w1, w2))
+
+
+@pytest.mark.parametrize("c", [4, 8, 24, 25])
+def test_moe_ffn_f32_wide_on_card(card, c):
+    """llama4-scout's expert widths (D 5120, F 8192): the decode body
+    stages its rows in chunks there (C 4 in 2 a pass, C 8 and 24 in 3 and
+    4), the tile body takes C 25."""
+    from repro_torch.kernels import moe_ffn
+    from repro_torch.kernels.moe_ffn import moe_ffn_plain
+    w1, w2 = _experts(2, 5120, 8192, c)
+    xe = torch.randn((2, c, 5120), generator=_gen(6), device="cuda")
+    xe[:, (c + 1) // 2:] = 0              # empty capacity rows
+    got = moe_ffn(xe, w1, w2)
+    _f32_close("moe_ffn", got, moe_ffn_plain(xe, w1, w2))
+    assert (got[:, (c + 1) // 2:] == 0).all()
+
+
+@pytest.mark.parametrize("c", [4, 80])
+def test_moe_ffn_f32_rows_alone_on_card(card, c):
+    """A capacity row alone (every other row of its buffer zero) gives the
+    bits it gives among the others, in both bodies."""
+    from repro_torch.kernels import moe_ffn
+    w1, w2 = _experts(4, 2048, 1024, c)
+    xe = torch.randn((4, c, 2048), generator=_gen(4), device="cuda")
+    batch = moe_ffn(xe, w1, w2)
+    for r in range(0, c, max(1, c // 8)):
+        alone = torch.zeros_like(xe)
+        alone[:, r] = xe[:, r]
+        assert torch.equal(moe_ffn(alone, w1, w2)[:, r], batch[:, r])
+
+
+@pytest.mark.parametrize("c", [4, 24, 80])
+def test_moe_ffn_f32_empty_rows_are_zero_on_card(card, c):
+    """A capacity row that no token copy filled comes out exactly 0."""
+    from repro_torch.kernels import moe_ffn
+    w1, w2 = _experts(4, 2048, 1024, c)
+    xe = torch.randn((4, c, 2048), generator=_gen(5), device="cuda")
+    xe[:, 1::2] = 0
+    out = moe_ffn(xe, w1, w2)
+    assert (out[:, 1::2] == 0).all() and (out[:, ::2] != 0).any()
 
 
 @pytest.mark.parametrize("t,k,e,bm,d,f", [

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Time launch shapes of the expert kernels moe_ffn (B9), moe_decode (B3),
-moe_gmm_quant (B6) and moe_decode_quant (B5) on the card.
+"""Time launch shapes of the expert kernels moe_ffn (B9, bf16 and f32),
+moe_decode (B3), moe_gmm_quant (B6) and moe_decode_quant (B5) on the card.
 
     python3 tools/expert_kernel_variants.py [--reps 15] [--kernels a,b]
 
 Each kernel fixes its launch shape in constants of its source:
 ``csrc/moe_ffn.cu`` the stages of each pass's ring and pass 2's B operands
-a block; ``csrc/moe_decode.cu`` the weight loads a thread keeps in flight
+a block, and for f32 operands (``moe_ffn_f32``) the largest C its decode
+body takes, that body's warps a block (the contraction's split), weight
+loads a lane keeps in flight and blocks an SM, and the tile body's ring
+stages and depth, rows a thread at most and blocks an SM; ``csrc/moe_decode.cu`` the weight loads a thread keeps in flight
 (for up to 4 slots of an expert, and for more), the launch bound's
 blocks an SM, and whether passes 2 and 3 launch as programmatic
 dependents; ``csrc/moe_gmm_quant.cu`` the stages of its ring (and
@@ -21,12 +24,16 @@ copy of the source with those constants replaced into
 ``build/kernels/variants/`` and builds it (one ``nvcc`` each, all started
 together), holds it against the plain version, and times the variants in
 turns (L2 flushed before every call) at OLMoE-1B-7B's shapes: moe_ffn on
-capacity buffers of C 320, 80 and 4 rows, moe_decode on 8 tokens at k 8
+capacity buffers of C 320, 80 and 4 rows (f32: also the first 16, 24,
+25, 32 and 33 rows of C 80's, about the decode body's reach, on the
+layer's weights cast to f32), moe_decode on 8 tokens at k 8
 and k 2, moe_gmm_quant on the prefill check's 512 tokens x top-8 in int8
 and int4, moe_decode_quant on 8 tokens at k 8 and k 2 in int8 and int4,
 each routed by the layer's router (the quantized kernels on its experts
 scaled apart per channel, as chip_smoke.py checks them).  The first
-variant of each kernel is the source as committed.  One JSON line per
+variant of each kernel is the source as committed.  The bf16 kernels are
+held to their plain versions row by row (ROW_TOL), moe_ffn_f32
+elementwise as chip_smoke's ``compare_f32`` holds it.  One JSON line per
 (kernel, variant, shape) with the median device ms; the card's name and
 power limit first.  Needs a CUDA device.
 """
@@ -55,6 +62,14 @@ VARIANTS = {
         {},
         {"DOWN_NB": 1, "DOWN_STAGES": 6},
     ],
+    "moe_ffn_f32": [
+        {},
+        {"DEC_MAX_C": 32},
+        {"DEC_LOADS": 8},
+        {"TILE_BK": 32, "TILE_STAGES": 3},
+        {"TILE_MAX_TM": 4},
+        {"TILE_MIN_BLOCKS": 1},
+    ],
     "moe_decode": [
         {},
         {"DEPENDENT_LAUNCH": "false"},
@@ -78,9 +93,13 @@ VARIANTS = {
         {"NT": 512, "MIN_BLOCKS": 1},
     ],
 }
-#: ctypes argument counts of each launch function: pointers, ints
-ARGS = {"moe_ffn": (5, 4), "moe_decode": (8, 5), "moe_gmm_quant": (9, 6),
+#: the source of each kernel that is not named after it
+SOURCE = {"moe_ffn_f32": "moe_ffn"}
+#: ctypes argument counts of each source's launch function: pointers, ints
+ARGS = {"moe_ffn": (5, 5), "moe_decode": (8, 5), "moe_gmm_quant": (9, 6),
         "moe_decode_quant": (10, 6)}
+#: chip_smoke's f32 tolerance (``compare_f32``)
+F32_TOL = 2e-5
 
 
 def _source(kernel: str, consts: dict) -> str:
@@ -88,7 +107,8 @@ def _source(kernel: str, consts: dict) -> str:
     root of the checkout) with the variant's constants replaced."""
     consts = dict(consts)
     path = consts.pop("source", None)
-    src = (ROOT / path if path else _build.CSRC / f"{kernel}.cu").read_text()
+    name = SOURCE.get(kernel, kernel)
+    src = (ROOT / path if path else _build.CSRC / f"{name}.cu").read_text()
     for name, val in consts.items():
         src, n = re.subn(rf"constexpr (int|bool) {name} = \w+;",
                          rf"constexpr \1 {name} = {val};", src)
@@ -106,10 +126,11 @@ def _build_variants(kernels):
             if d.exists():
                 shutil.rmtree(d)
             shutil.copytree(_build.CSRC, d)
-            (d / f"{kernel}.cu").write_text(_source(kernel, consts))
-            lib = d / f"lib{kernel}.so"
+            name = SOURCE.get(kernel, kernel)
+            (d / f"{name}.cu").write_text(_source(kernel, consts))
+            lib = d / f"lib{name}.so"
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                   str(d / f"{kernel}.cu")]
+                   str(d / f"{name}.cu")]
             procs[kernel, i] = (lib, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -118,8 +139,9 @@ def _build_variants(kernels):
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed for {kernel} {i}:\n{log}")
-        fn = getattr(ctypes.CDLL(str(lib)), f"{kernel}_launch")
-        n_ptrs, n_ints = ARGS[kernel]
+        name = SOURCE.get(kernel, kernel)
+        fn = getattr(ctypes.CDLL(str(lib)), f"{name}_launch")
+        n_ptrs, n_ints = ARGS[name]
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -131,6 +153,13 @@ def _build_variants(kernels):
                               or "wgmma" in ln]}),
               flush=True)
     return fns
+
+
+def _f32_err(got, want) -> float:
+    """max |got - want| over F32_TOL (|want| + the row's largest |want|,
+    at least 1): chip_smoke's ``compare_f32`` passes at <= 1."""
+    row = want.abs().amax(-1, keepdim=True).clamp(min=1.0)
+    return ((got - want).abs() / (F32_TOL * (want.abs() + row))).max().item()
 
 
 def _check(err: int) -> None:
@@ -148,7 +177,8 @@ def _ffn(fn, xe, w1, w2):
     h = torch.empty((e, c, f), dtype=xe.dtype, device=xe.device)
     out = torch.empty_like(xe)
     _check(fn(xe.data_ptr(), w1.data_ptr(), w2.data_ptr(), h.data_ptr(),
-              out.data_ptr(), e, c, d, f, _stream()))
+              out.data_ptr(), e, c, d, f, int(xe.dtype == torch.float32),
+              _stream()))
     return out
 
 
@@ -205,6 +235,15 @@ def _cases(kernels, layer, cfg, x):
             xe, _ = cs.capacity_buffers(layer, cfg, xx)
             cases.append(("moe_ffn", f"c{c}", _ffn, moe_ffn_plain,
                           (xe, layer["w1"], layer["w2"]), ()))
+    if "moe_ffn_f32" in kernels:
+        w1, w2 = layer["w1"].float(), layer["w2"].float()
+        for c, xx in ((320, x), (80, x[:512]), (4, x[:8])):
+            xe = cs.capacity_buffers(layer, cfg, xx)[0].float()
+            rows = ((c, xe),) if c != 80 else ((80, xe), *(
+                (r, xe[:, :r].contiguous()) for r in (16, 24, 25, 32, 33)))
+            for cc, xr in rows:
+                cases.append(("moe_ffn_f32", f"c{cc}", _ffn, moe_ffn_plain,
+                              (xr, w1, w2), ()))
     if "moe_decode" in kernels:
         for k in (cfg.moe_top_k, 2):
             weights, idx, _ = route(layer, cfg, x8, k)
@@ -274,15 +313,19 @@ def main() -> None:
         errs = {}
         for key in keys:
             got = call(fns[key], *inputs, *extra).float()
-            errs[key] = cs.row_rel_err(got, want).max().item()
+            errs[key] = (_f32_err(got, want) if kernel == "moe_ffn_f32"
+                         else cs.row_rel_err(got, want).max().item())
         ms = cs.time_calls([lambda key=key: call(fns[key], *inputs, *extra)
                             for key in keys], flush, args.reps)
         for key, t in zip(keys, ms):
+            f32 = kernel == "moe_ffn_f32"
             print(json.dumps({"kernel": kernel, "shape": shape,
                               "variant": key[1],
                               "consts": VARIANTS[kernel][key[1]], "ms": t,
-                              "max_row_rel_err": errs[key],
-                              "ok": errs[key] <= cs.ROW_TOL}),
+                              "max_err_over_tol" if f32
+                              else "max_row_rel_err": errs[key],
+                              "ok": errs[key] <= (1.0 if f32
+                                                  else cs.ROW_TOL)}),
                   flush=True)
 
 

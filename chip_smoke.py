@@ -51,7 +51,9 @@ Phases, each printing one JSON line (any failure raises and exits non-zero):
               V, at the reduced OLMoE config's shapes (d 128, 4 heads of
               32, 8 experts at top-2, F 64; GQA under a window too) and at
               full-width OLMoE's (B9 at C 4 also against f64 beside the
-              f32 summation bound, ``f64_witness``, C13), B6 and B5 at
+              f32 summation bound, ``f64_witness``, C13; B1 and B6 also on
+              the first 64 tokens, with the rows each computes, B1 beside
+              the library's call on the real rows alone), B6 and B5 at
               llama4-scout's F 8192, B7 on f32 latents at the reduced
               DeepSeek config's (4 heads, r 32, dr 16), DeepSeek-V2-Lite's
               and MiniCPM3-4B's widths, each held elementwise to
@@ -1249,9 +1251,14 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
             "library_ms": library_ms, **(extra or {})}
 
 
-#: the numbers a row keeps for each of its dtypes or shapes
+#: the numbers a row keeps for each of its dtypes or shapes (B1 / B6 f32:
+#: also the real rows, the rows the kernel counts and computes, the row
+#: tile, and the library call on the real rows alone)
 NESTED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms", "sibling_ms", "experts", "bytes")
+               "library_ms", "sibling_ms", "experts", "bytes", "rows",
+               "rows_live_tiles", "rows_computed", "block_m",
+               "library_real_rows_ms",
+               "library_real_rows_align")
 
 
 def nested_row(name, source, replaces, per, nest):
@@ -2669,22 +2676,71 @@ def meta_cost_equal(name, wrapper, args, kw):
 
 
 def f32_case(name, tag, wrapper, plain, args, kw, sibling, library, nbytes,
-             flops, flush, **extra):
+             flops, flush, rows=None, **extra):
     """One f32 shape of a kernel: held to its plain version (compare_f32),
     its cost equal on the card and on meta, then timed with the plain
     version, the bf16 kernel on the same inputs rounded to bf16 beforehand
     (``sibling``: a thunk, or None where the shape has no bf16 instance)
-    and the library call (a thunk, or None).  Returns the numbers
-    ``kernel_row`` takes, f32 rates."""
+    and the library call (a thunk, or None).  ``rows`` (B1 / B6): the
+    sorted buffer's row numbers (``gmm_rows``), kept in the numbers and on
+    the check line, and its ``library_real_rows`` thunk timed in the same
+    turns.  Returns the numbers ``kernel_row`` takes, f32 rates."""
+    rows = dict(rows or {})
+    real = rows.pop("library_real_rows", None)
     err = compare_f32(f"{name}_f32_{tag}", wrapper(*args, **kw),
-                      plain(*args), **extra)
+                      plain(*args), **rows, **extra)
     meta_cost_equal(name, wrapper, args, kw)
     fns = [lambda: wrapper(*args, **kw), lambda: plain(*args)]
-    fns += [f for f in (sibling, library) if f is not None]
+    fns += [f for f in (sibling, library, real) if f is not None]
     ms, plain_ms, *more = time_calls(fns, flush)
     sib_ms = more.pop(0) if sibling is not None else None
-    return (err, ms, plain_ms, nbytes, flops, more[0] if more else None,
-            {"sibling_ms": sib_ms})
+    lib_ms = more.pop(0) if library is not None else None
+    if real is not None:
+        rows["library_real_rows_ms"] = more.pop(0)
+    return (err, ms, plain_ms, nbytes, flops, lib_ms,
+            {"sibling_ms": sib_ms, **rows})
+
+
+def gmm_rows(xs, plan, x, idx, w1=None, w2=None):
+    """B1 / B6 f32 on a sorted buffer ``xs``: the real rows (token copies),
+    the rows of its live tiles (what the contract's tiles hold), the rows
+    the kernels count and compute (``tile_rows``: each tile's up to its
+    last nonzero row), the row tile; with f32 ``w1`` / ``w2`` (B1)
+    also ``library_real_rows``, a thunk of B1's function on the real rows
+    alone (``torch._grouped_mm``, SwiGLU, ``torch._grouped_mm``, offsets
+    from the plan's group sizes): where the card's torch refuses unaligned
+    offsets, each group rounded up to 16 rows (``library_real_rows_align``
+    says which)."""
+    import torch.nn.functional as F_
+    from repro_torch.kernels.moe_gmm import tile_rows
+    from repro_torch.models.moe import make_sort_plan, sort_dispatch
+    k = idx.shape[1]
+    out = {"rows": x.shape[0] * k, "block_m": plan.block_m,
+           "rows_live_tiles": int(plan.tile_valid.sum()) * plan.block_m,
+           "rows_computed": int(tile_rows(xs, plan.tile_valid,
+                                          plan.block_m).sum())}
+    if w1 is None:
+        return out
+    e, f = w1.shape[0], w2.shape[1]
+    errors = []
+    for align in (1, 16):
+        p = make_sort_plan(idx, e, align)
+        offs = torch.cumsum(p.padded_group_sizes, 0).to(torch.int32)
+        xr = sort_dispatch(x, p, k)[:int(offs[-1])]
+
+        def real(xr=xr, offs=offs):
+            h = torch._grouped_mm(xr, w1, offs=offs)
+            return torch._grouped_mm(F_.silu(h[:, :f]) * h[:, f:], w2,
+                                     offs=offs)
+        try:
+            real()
+        except (AttributeError, RuntimeError, ValueError) as err:
+            errors.append(f"{type(err).__name__}: {err}"[:200])
+            continue
+        out.update(library_real_rows=real, library_real_rows_align=align)
+        return out
+    emit({"check": "moe_gmm_f32_grouped_mm_real_rows", "error": errors})
+    return out
 
 
 def to_bf16(*ts):
@@ -2697,7 +2753,8 @@ def to_bf16(*ts):
 def f32_expert_checks(layer, cfg, x, flush, tag, per, witness=False,
                       x_fwd=None):
     """B1, B3 and B9 in f32 on ``layer`` (f32 weights) and f32 tokens
-    ``x``: B1 on ``x``'s sorted dispatch at top-k, B3 on its first 8 tokens
+    ``x``: B1 on the sorted dispatch at top-k of ``x`` and of its first
+    F32_CHUNK tokens (``f32_gmm_case``), B3 on its first 8 tokens
     at top-k, B9 on the capacity buffers of its first 8 tokens and of all
     of them (and of ``x_fwd``'s, the forward's, where given), each B9
     buffer's rows also alone against the batch, bit for bit
@@ -2706,47 +2763,17 @@ def f32_expert_checks(layer, cfg, x, flush, tag, per, witness=False,
     on all of ``x``'s also against f64 (``f64_witness``).  Adds {kernel:
     {f32 shape: numbers}} to ``per``."""
     import torch.nn.functional as F_
-    from repro_torch.kernels import moe_decode, moe_ffn, moe_gmm
+    from repro_torch.kernels import moe_decode, moe_ffn
     from repro_torch.kernels.moe_decode import moe_decode_plain
     from repro_torch.kernels.moe_ffn import moe_ffn_plain
-    from repro_torch.kernels.moe_gmm import moe_gmm_plain
-    from repro_torch.models.moe import default_block_m, make_sort_plan, \
-        route, sort_dispatch
+    from repro_torch.models.moe import route
     k, e = cfg.moe_top_k, cfg.num_experts
     d, f = cfg.d_model, cfg.moe_d_ff
     w1, w2 = layer["w1"], layer["w2"]
     b1, b2 = to_bf16(w1, w2)
-    _, idx, _ = route(layer, cfg, x, k)
-    plan = make_sort_plan(idx, e, default_block_m(x.shape[0] * k, floor=8))
-    xs = sort_dispatch(x, plan, k)
-    xs_b = to_bf16(xs)[0]
-    bm = plan.block_m
-    gmm_args = (xs, w1, w2, plan.tile_expert, plan.tile_valid)
-    live_e = plan.tile_expert[plan.tile_valid.bool()].long()
-    experts = int(torch.unique(live_e).numel())
-    offs = torch.cumsum(torch.bincount(live_e, minlength=e) * bm,
-                        0).to(torch.int32)
-    live = int(offs[-1])
-
-    def grouped_mm():
-        h = torch._grouped_mm(xs[:live], w1, offs=offs)
-        return torch._grouped_mm(F_.silu(h[:, :f]) * h[:, f:], w2, offs=offs)
-    try:                                  # the card's torch may refuse f32
-        grouped_mm()
-        library = grouped_mm
-    except (AttributeError, RuntimeError, ValueError) as err:
-        library = None
-        emit({"check": f"moe_gmm_f32_{tag}_grouped_mm",
-              "error": f"{type(err).__name__}: {err}"[:300]})
-    rows = x.shape[0] * k
-    per.setdefault("moe_gmm", {})[f"f32_{tag}"] = f32_case(
-        "moe_gmm", tag, lambda *a, **kw: moe_gmm(*a, **kw),
-        lambda *a: moe_gmm_plain(*a, bm), gmm_args, {"block_m": bm},
-        lambda: moe_gmm(xs_b, b1, b2, plan.tile_expert, plan.tile_valid,
-                        block_m=bm),
-        library, 2 * rows * d * 4 + experts * 3 * d * f * 4
-        + 2 * 4 * len(plan.tile_valid), rows * 6 * d * f, flush,
-        tokens=x.shape[0], k=k, block_m=bm, experts=experts)
+    f32_gmm_case(layer, cfg, x, flush, tag, per, b1, b2)
+    f32_gmm_case(layer, cfg, x[:F32_CHUNK], flush, f"{tag}_t{F32_CHUNK}",
+                 per, b1, b2)
 
     x8 = x[:8].contiguous()
     weights, idx8, _ = route(layer, cfg, x8, k)
@@ -2784,6 +2811,59 @@ def f32_expert_checks(layer, cfg, x, flush, tag, per, witness=False,
             bmm_swiglu, e * 3 * d * f * 4 + 2 * e * c * d * 4,
             e * c * 6 * d * f, flush, capacity=c, dropped_copies=dropped)
 
+
+def f32_gmm_case(layer, cfg, x, flush, tag, per, b1, b2):
+    """B1 in f32 on ``x``'s sorted dispatch at top-k: held to its plain
+    version, timed with the bf16 kernel on the inputs rounded to bf16
+    (``b1``, ``b2``: the experts in bf16) and ``torch._grouped_mm``, SwiGLU,
+    ``torch._grouped_mm`` on the rows of the plan's valid tiles (padding
+    included, as B1's contract has them) and on the real rows alone
+    (``gmm_rows``); adds ``per["moe_gmm"]["f32_<tag>"]``."""
+    import torch.nn.functional as F_
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    from repro_torch.models.moe import default_block_m, make_sort_plan, \
+        route, sort_dispatch
+    k, e = cfg.moe_top_k, cfg.num_experts
+    d, f = cfg.d_model, cfg.moe_d_ff
+    w1, w2 = layer["w1"], layer["w2"]
+    _, idx, _ = route(layer, cfg, x, k)
+    plan = make_sort_plan(idx, e, default_block_m(x.shape[0] * k, floor=8))
+    xs = sort_dispatch(x, plan, k)
+    xs_b = to_bf16(xs)[0]
+    bm = plan.block_m
+    gmm_args = (xs, w1, w2, plan.tile_expert, plan.tile_valid)
+    live_e = plan.tile_expert[plan.tile_valid.bool()].long()
+    experts = int(torch.unique(live_e).numel())
+    offs = torch.cumsum(torch.bincount(live_e, minlength=e) * bm,
+                        0).to(torch.int32)
+    live = int(offs[-1])
+
+    def grouped_mm():
+        h = torch._grouped_mm(xs[:live], w1, offs=offs)
+        return torch._grouped_mm(F_.silu(h[:, :f]) * h[:, f:], w2, offs=offs)
+    try:                                  # the card's torch may refuse f32
+        grouped_mm()
+        library = grouped_mm
+    except (AttributeError, RuntimeError, ValueError) as err:
+        library = None
+        emit({"check": f"moe_gmm_f32_{tag}_grouped_mm",
+              "error": f"{type(err).__name__}: {err}"[:300]})
+    rows = x.shape[0] * k
+    per.setdefault("moe_gmm", {})[f"f32_{tag}"] = f32_case(
+        "moe_gmm", tag, lambda *a, **kw: moe_gmm(*a, **kw),
+        lambda *a: moe_gmm_plain(*a, bm), gmm_args, {"block_m": bm},
+        lambda: moe_gmm(xs_b, b1, b2, plan.tile_expert, plan.tile_valid,
+                        block_m=bm),
+        library, 2 * rows * d * 4 + experts * 3 * d * f * 4
+        + 2 * 4 * len(plan.tile_valid), rows * 6 * d * f, flush,
+        rows=gmm_rows(xs, plan, x, idx, w1, w2), tokens=x.shape[0], k=k,
+        experts=experts)
+
+
+#: B1 / B6 f32 also on the first F32_CHUNK tokens of each check (a serve
+#: chunk's prefill)
+F32_CHUNK = 64
 
 #: B9 f32's capacities at F32_QUANT_WIDE's D 5120 and F 8192: its decode
 #: body stages a row group's rows in chunks there (C 4, 8, 24), its tile
@@ -2895,7 +2975,8 @@ F32_QUANT_WIDE = "llama4-scout-17b-a16e"
 def f32_quant_checks(layer, cfg, x, flush, tag, per):
     """B6 and B5 in f32, int8 and int4, on ``layer``'s experts scaled apart
     (``varied_experts``) and quantized on the card, and f32 tokens ``x``:
-    B6 on ``x``'s sorted dispatch at top-k, B5 on its first 8 tokens at
+    B6 on the sorted dispatch at top-k of ``x`` and of its first F32_CHUNK
+    tokens (``gmm_rows``' numbers kept), B5 on its first 8 tokens at
     top-k (one router weight set to zero); the sibling is the bf16
     activations' kernel on the same routing and the same int8 weights,
     ``x`` rounded to bf16.  Adds {kernel: {f32 shape: numbers}} to
@@ -2907,14 +2988,13 @@ def f32_quant_checks(layer, cfg, x, flush, tag, per):
         make_sort_plan, quantize_moe_layer, route, sort_dispatch
     k, d, f = cfg.moe_top_k, cfg.d_model, cfg.moe_d_ff
     varied = varied_experts(layer)
-    _, idx, _ = route(layer, cfg, x, k)
-    plan = make_sort_plan(idx, cfg.num_experts,
-                          default_block_m(x.shape[0] * k, floor=8))
-    xs = sort_dispatch(x, plan, k)
-    xs_b = to_bf16(xs)[0]
-    bm, te, tv = plan.block_m, plan.tile_expert, plan.tile_valid
-    experts = int(torch.unique(te[tv.bool()]).numel())
-    rows = x.shape[0] * k
+    dispatches = []                 # (tag, x, sorted buffer, plan, numbers)
+    for sh, xx in ((tag, x), (f"{tag}_t{F32_CHUNK}", x[:F32_CHUNK])):
+        _, idx, _ = route(layer, cfg, xx, k)
+        plan = make_sort_plan(idx, cfg.num_experts,
+                              default_block_m(xx.shape[0] * k, floor=8))
+        xs = sort_dispatch(xx, plan, k)
+        dispatches.append((sh, xx, xs, plan, gmm_rows(xs, plan, xx, idx)))
     x8 = x[:8].contiguous()
     weights, idx8, _ = route(layer, cfg, x8, k)
     weights = weights.clone()
@@ -2924,14 +3004,20 @@ def f32_quant_checks(layer, cfg, x, flush, tag, per):
     for dt in QUANT_DTYPES:
         q = quantize_moe_layer(varied, dt)
         qw = (q["w1"], q["w2"], q["w1_scale"], q["w2_scale"])
-        per.setdefault("moe_gmm_quant", {})[f"f32_{tag}_{dt}"] = f32_case(
-            "moe_gmm_quant", f"{tag}_{dt}", moe_gmm_quant,
-            lambda *a: moe_gmm_quant_plain(*a, bm, dtype=dt),
-            (xs, *qw, te, tv), {"dtype": dt, "block_m": bm},
-            lambda: moe_gmm_quant(xs_b, *qw, te, tv, dtype=dt, block_m=bm),
-            None, 2 * rows * d * 4 + _quant_bytes(experts, d, f, dt)
-            + 2 * 4 * len(tv), rows * 6 * d * f, flush, tokens=x.shape[0],
-            k=k, block_m=bm, experts=experts)
+        for sh, xx, xs, plan, nums in dispatches:
+            bm, te, tv = plan.block_m, plan.tile_expert, plan.tile_valid
+            experts = int(torch.unique(te[tv.bool()]).numel())
+            rows = xx.shape[0] * k
+            xs_b = to_bf16(xs)[0]
+            per.setdefault("moe_gmm_quant", {})[f"f32_{sh}_{dt}"] = f32_case(
+                "moe_gmm_quant", f"{sh}_{dt}", moe_gmm_quant,
+                lambda *a, bm=bm: moe_gmm_quant_plain(*a, bm, dtype=dt),
+                (xs, *qw, te, tv), {"dtype": dt, "block_m": bm},
+                lambda xs_b=xs_b, bm=bm, te=te, tv=tv: moe_gmm_quant(
+                    xs_b, *qw, te, tv, dtype=dt, block_m=bm),
+                None, 2 * rows * d * 4 + _quant_bytes(experts, d, f, dt)
+                + 2 * 4 * len(tv), rows * 6 * d * f, flush, rows=nums,
+                tokens=xx.shape[0], k=k, experts=experts)
         per.setdefault("moe_decode_quant", {})[f"f32_{tag}_{dt}"] = f32_case(
             "moe_decode_quant", f"{tag}_{dt}", moe_decode_quant,
             lambda *a: moe_decode_quant_plain(*a, dtype=dt),
@@ -3103,8 +3189,9 @@ def f32_kernel_checks(layer, cfg, x, device, flush, x_fwd=None):
     """Each f32 kernel at the reduced OLMoE config's shapes (d 128, 4
     heads of 32, 8 experts at top-2, F 64: its own first MoE layer, 128
     tokens) and at full-width OLMoE's (``layer`` cast to f32, ``x``'s 512
-    tokens; B9 at C 4 and C 80 also against f64, ``f64_witness``, and at
-    the forward's C 320 on ``x_fwd``'s 2048 tokens), B7 on f32
+    tokens; B1 and B6 also on its first F32_CHUNK; B9 at C 4 and C 80
+    also against f64, ``f64_witness``, and at the forward's C 320 on
+    ``x_fwd``'s 2048 tokens), B7 on f32
     latents at F32_MLA_SHAPES, B5, B6 and B9 also at llama4-scout's F 8192
     (F32_QUANT_WIDE; B9 at F32_WIDE_CAPACITIES, ``f32_ffn_wide``), each held to F32_TOL, its cost on the card equal to
     meta's, timed; and B2's bf16 body at hd 32 (the reduced config's

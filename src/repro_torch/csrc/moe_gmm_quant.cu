@@ -61,17 +61,19 @@
 //
 // f32 xs (the f32 instance, below): no tensor-core form takes f32 x f32
 // without rounding an operand (wgmma's TF32 keeps about three digits), so
-// it runs B1's f32 FFMA tile bodies (f32_tiles.cuh) with a stager that
-// widens the int8 / int4 bytes to f32 as it writes them to shared memory;
-// h stays f32 between the passes, as the f32 plain version keeps it, and
-// nothing rounds to bf16 or TF32.  The bf16 instance is the code it was.
+// it runs f32_sgemm.cuh's register-tiled FFMA body, as B1's and B9's f32
+// instances do, on the rows each tile really holds (moe_gmm.cu), with a
+// weight stager that copies the int8 / int4 bytes into its ring and
+// widens each to f32 once, after it lands (``QCols``), and the scaled
+// SwiGLU as pass 1's epilogue; h stays f32 between the passes, as the f32
+// plain version keeps it, and nothing rounds to bf16 or TF32.  The bf16
+// instance is the code it was.
 
-#include "f32_tiles.cuh"
+#include "f32_sgemm.cuh"
 #include "quant_common.cuh"
 #include "wgmma_tiles.cuh"
 
 using namespace wgt;
-using namespace f32t;
 
 constexpr int RING_BYTES = 192 * 1024;   // a pass's ring, at most
 constexpr int MAX_STAGES = 8;
@@ -328,7 +330,15 @@ gmmq_down_kernel(const __grid_constant__ CUtensorMap tm_h,
   }
 }
 
-// ---- f32 activations: f32_tiles.cuh's FFMA bodies on widened weights ----
+// ---- f32 activations: f32_sgemm.cuh's row-tile body on widened weights ----
+
+// The launch's shape (tools/expert_kernel_variants.py times others): as
+// moe_gmm.cu's f32 instance.
+constexpr int F32_STAGES = 2;     // the cp.async ring's stages
+constexpr int F32_BK = 16;        // contraction rows a stage
+constexpr int F32_MIN_TM = 4;     // rows a thread at least past 16 rows
+constexpr int F32_MIN_BLOCKS = 2;
+constexpr bool F32_SKIP = true;   // warps past a tile's rows skip FFMAs
 
 // Four int8 of a word as f32, in column order (exact).
 __device__ __forceinline__ float4 i8x4_f32(uint32_t w) {
@@ -353,114 +363,174 @@ __device__ __forceinline__ float4 i4x4_f32(uint32_t w, bool hi) {
 // N/2 in the low nibbles of stored column c, N/2 + c in the high ones).
 enum QLayout { Q_INT8, Q_INT4_ROWS, Q_INT4_COLS };
 
-// stage_cols for quantized weights: contraction rows [k0, k0 + F32_TK),
-// columns [col0, col0 + F32_TN) (zeros past ``ncols``) of a matrix stored
-// at w with ld bytes a stored row, widened to f32 into ws[k][col];
-// ``half`` is K/2 (Q_INT4_ROWS) or N/2 (Q_INT4_COLS), a multiple of 64, so
-// no step or column block straddles the halves.
+// f32_sgemm.cuh's weight stager for quantized weights: two groups of 64
+// columns, group g's first stored column at b[g] (row 0; ld bytes a
+// stored row), n[g] of its columns existing (zeros past them, as the
+// f32 stager's), hi[g] whether its values are high nibbles (Q_INT4_COLS;
+// Q_INT4_ROWS: the stage's rows are, from ``half`` = K/2 on, a multiple
+// of 64, so no stage straddles the halves).  The stored bytes go by
+// cp.async into the ring ([BK][2 GW] bytes a stage, one a column) and are
+// widened, each once, into the one f32 stage after they land, so the later
+// stages' copies are in flight during the FFMAs (widening each word as
+// __ldg loads it stalls the stage: tools/variants/moe_gmm_quant_f32_ldg.cu).
 template <QLayout L>
-__device__ __forceinline__ void stage_qcols(float* ws,
-                                            const int8_t* __restrict__ w,
-                                            size_t ld, int col0, int ncols,
-                                            int k0, int half) {
-  const int k = threadIdx.x / 16, c = (threadIdx.x % 16) * 4;
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (col0 + c < ncols) {
-    int row = k0 + k, col = col0 + c;
-    bool hi = false;
-    if (L == Q_INT4_ROWS) {
-      hi = row >= half;
-      row -= hi ? half : 0;
-    } else if (L == Q_INT4_COLS) {
-      hi = col >= half;
-      col -= hi ? half : 0;
-    }
-    const uint32_t word =
-        __ldg(reinterpret_cast<const uint32_t*>(w + row * ld + col));
-    v = L == Q_INT8 ? i8x4_f32(word) : i4x4_f32(word, hi);
-  }
-  *reinterpret_cast<float4*>(ws + k * F32_TN + c) = v;
-}
+struct QCols {
+  static constexpr int ROW_BYTES = 2 * f32g::GW;
+  static constexpr bool WIDENS = true;
+  const int8_t* b[2];
+  int n[2];
+  size_t ld;
+  bool hi[2];
+  int half;
 
-// Pass 1 on f32 rows: h = silu(s1g gate) * (s1u up) * s2 in f32, F32_TN
-// columns of F a block.
+  // stored word (4 columns from column c of group g1) of contraction row
+  // k; the groups by selects, not b[g1]: no local copy of the stager
+  __device__ __forceinline__ const int8_t* word(bool g1, int k, int c) const {
+    if (L == Q_INT4_ROWS && k >= half) k -= half;
+    return (g1 ? b[1] : b[0]) + (size_t)k * ld + c;
+  }
+
+  __device__ __forceinline__ float4 widen(uint32_t w, bool g1, int k) const {
+    if (L == Q_INT8) return i8x4_f32(w);
+    return i4x4_f32(w, L == Q_INT4_ROWS ? k >= half : g1 ? hi[1] : hi[0]);
+  }
+
+  template <int BK>
+  __device__ __forceinline__ void load(float* ring, int k0) const {
+    constexpr int GW = f32g::GW, NT = f32g::NT;
+    uint8_t* raw = reinterpret_cast<uint8_t*>(ring);
+#pragma unroll
+    for (int i = 0; i < (BK * 2 * GW / 16 + NT - 1) / NT; ++i) {
+      const int idx = threadIdx.x + i * NT;
+      if (idx < BK * 2 * GW / 16) {
+        const int k = idx / (2 * GW / 16), cc = (idx % (2 * GW / 16)) * 16;
+        const bool g1 = cc >= GW;
+        const int c = cc - (g1 ? GW : 0);
+        const bool ok = c < (g1 ? n[1] : n[0]);
+        f32g::cp16(raw + k * 2 * GW + cc, ok ? word(g1, k0 + k, c) : b[0],
+                   ok);
+      }
+    }
+  }
+
+  template <int BK>
+  __device__ __forceinline__ const float* ready(const float* ring,
+                                                float* wide, int k0) const {
+    constexpr int GW = f32g::GW, NT = f32g::NT;
+    const uint32_t* raw = reinterpret_cast<const uint32_t*>(ring);
+#pragma unroll
+    for (int i = 0; i < BK * 2 * GW / 4 / NT; ++i) {
+      const int idx = threadIdx.x + i * NT;
+      const int k = idx / (2 * GW / 4), cc = (idx % (2 * GW / 4)) * 4;
+      *reinterpret_cast<float4*>(wide + k * 2 * GW + cc) =
+          widen(raw[idx], cc >= GW, k0 + k);
+    }
+    __syncthreads();                    // the f32 stage is whole
+    return wide;
+  }
+};
+
 template <bool PACKED>
-__global__ void __launch_bounds__(F32_NT)
+using F32QTile = f32g::Tile<f32g::MAX_TM, F32_STAGES, F32_BK,
+                            QCols<PACKED ? Q_INT4_ROWS : Q_INT8>>;
+
+// Pass 1 on f32 rows: h = silu(s1g gate) * (s1u up) * s2 in f32, 64
+// columns of F a block, the tile's counted rows (moe_gmm.cu's f32
+// instance).
+template <bool PACKED>
+__global__ void __launch_bounds__(f32g::NT, F32_MIN_BLOCKS)
 gmmq_up_f32_kernel(const float* __restrict__ xs,
                    const int8_t* __restrict__ w1q,
                    const float* __restrict__ s1, const float* __restrict__ s2,
                    const int* __restrict__ tile_expert,
-                   const int* __restrict__ tile_valid, float* __restrict__ h,
+                   const int* __restrict__ tile_rows, float* __restrict__ h,
                    int D, int F, int block_m) {
-  constexpr QLayout L = PACKED ? Q_INT4_ROWS : Q_INT8;
-  int tile, row0;
-  const int rows = f32_part_rows(block_m, tile, row0);
-  if (!tile_valid[tile]) return;                // pass 2 writes the zeros
-  const int e = tile_expert[tile], f0 = blockIdx.x * F32_TN;
+  const int tile = blockIdx.y, rows = f32g::tile_count(tile_rows, tile);
+  if (rows == 0) return;                        // pass 2 writes the zeros
+  extern __shared__ __align__(16) float fsm[];
+  const int e = tile_expert[tile], f0 = blockIdx.x * f32g::GW;
   const int8_t* w1e = w1q + (size_t)e * (PACKED ? D / 2 : D) * 2 * F;
   const float* sg = s1 + (size_t)e * 2 * F;
   const float* sd = s2 + (size_t)e * F;
-  f32_up_tile_with(
-      xs + (size_t)row0 * D, rows, h + (size_t)row0 * F, D, F, f0,
-      [=](float* wg, float* wu, int k0) {
-        stage_qcols<L>(wg, w1e, 2 * (size_t)F, f0, F, k0, D / 2);
-        stage_qcols<L>(wu, w1e + F, 2 * (size_t)F, f0, F, k0, D / 2);
-      },
-      [=](float g, float u, int f) {
-        g *= sg[f];
-        u *= sg[F + f];
-        return g / (1.0f + expf(-g)) * u * sd[f];
-      });
+  const size_t row0 = (size_t)tile * block_m;
+  const QCols<PACKED ? Q_INT4_ROWS : Q_INT8> w{
+      {w1e + f0, w1e + F + f0}, {F - f0, F - f0}, 2 * (size_t)F,
+      {false, false}, D / 2};
+  f32g::with_tile_rows<F32_MIN_TM>(rows, [&](auto tm) {
+    f32g::up_tile_with<decltype(tm)::value, F32_STAGES, F32_BK, F32_SKIP>(
+        fsm, xs + row0 * D, rows, D, w,
+        [=](float g, float u, int f) {
+          g *= sg[f];
+          u *= sg[F + f];
+          return g / (1.0f + expf(-g)) * u * sd[f];
+        },
+        h + row0 * F, F, f0);
+  });
 }
 
-// Pass 2 on f32 h: out = h @ w2q[e], F32_TN output columns a block; dead
-// tiles write zeros.
+// Pass 2 on f32 h: out = h @ w2q[e], 128 output columns a block; the rows
+// past the tile's count (all of a dead tile's) +0.
 template <bool PACKED>
-__global__ void __launch_bounds__(F32_NT)
+__global__ void __launch_bounds__(f32g::NT, F32_MIN_BLOCKS)
 gmmq_down_f32_kernel(const float* __restrict__ h,
                      const int8_t* __restrict__ w2q,
                      const int* __restrict__ tile_expert,
-                     const int* __restrict__ tile_valid,
+                     const int* __restrict__ tile_rows,
                      float* __restrict__ out, int D, int F, int block_m) {
-  int tile, row0;
-  const int rows = f32_part_rows(block_m, tile, row0);
-  const int d0 = blockIdx.x * F32_TN;
-  if (!tile_valid[tile]) {                      // dead tile: zeros, no math
-    for (int i = threadIdx.x; i < rows * (F32_TN / 4); i += F32_NT)
-      *reinterpret_cast<float4*>(out + (size_t)(row0 + i / (F32_TN / 4)) * D +
-                                 d0 + (i % (F32_TN / 4)) * 4) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
+  const int tile = blockIdx.y, rows = f32g::tile_count(tile_rows, tile);
+  const int d0 = blockIdx.x * 2 * f32g::GW;
+  extern __shared__ __align__(16) float fsm[];
+  const size_t row0 = (size_t)tile * block_m;
+  float* dst = out + row0 * D;
+  if (rows > 0) {
+    const int Dp = PACKED ? D / 2 : D;          // stored columns of w2q[e]
+    const int8_t* w2e = w2q + (size_t)tile_expert[tile] * F * Dp;
+    QCols<PACKED ? Q_INT4_COLS : Q_INT8> w{{}, {}, (size_t)Dp, {}, D / 2};
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int col = d0 + g * f32g::GW;
+      w.hi[g] = PACKED && col >= D / 2;
+      w.b[g] = w2e + col - (w.hi[g] ? D / 2 : 0);
+      w.n[g] = D - col;
+    }
+    f32g::with_tile_rows<F32_MIN_TM>(rows, [&](auto tm) {
+      f32g::down_tile_with<decltype(tm)::value, F32_STAGES, F32_BK,
+                           F32_SKIP>(
+          fsm, h + row0 * F, rows, F, w, dst, D, d0);
+    });
   }
-  const int Dp = PACKED ? D / 2 : D;            // stored columns of w2q[e]
-  const int8_t* w2e = w2q + (size_t)tile_expert[tile] * F * Dp;
-  f32_down_tile_with(h + (size_t)row0 * F, rows, out + (size_t)row0 * D, D,
-                     F, d0, [=](float* ws, int k0) {
-                       stage_qcols<PACKED ? Q_INT4_COLS : Q_INT8>(
-                           ws, w2e, Dp, d0, D, k0, D / 2);
-                     });
+  f32g::zero_rows(dst, D, rows, block_m, d0, min(2 * f32g::GW, D - d0));
 }
 
 template <bool PACKED>
 static int launch_f32(const void* xs, const void* w1q, const void* w2q,
                       const void* s1, const void* s2, const void* tile_expert,
-                      const void* tile_valid, void* h, void* out, int M,
-                      int D, int F, int block_m, cudaStream_t s) {
-  const int parts = (block_m + F32_TM - 1) / F32_TM;
-  const int blocks_y = M / block_m * parts;
-  if (blocks_y > 65535) return (int)cudaErrorInvalidValue;
+                      const void* tile_valid, void* tile_rows, void* h,
+                      void* out, int M, int D, int F, int block_m,
+                      cudaStream_t s) {
+  constexpr int smem = F32QTile<PACKED>::BYTES;
+  int err;
+  if ((err = allow_smem(gmmq_up_f32_kernel<PACKED>, smem)) ||
+      (err = allow_smem(gmmq_down_f32_kernel<PACKED>, smem)))
+    return err;
+  const int n_tiles = M / block_m;
   const int* te = static_cast<const int*>(tile_expert);
-  const int* tv = static_cast<const int*>(tile_valid);
+  int* rows = static_cast<int*>(tile_rows);
+  cudaError_t e = f32g::count_rows(
+      static_cast<const float*>(xs), static_cast<const int*>(tile_valid),
+      rows, n_tiles, D, block_m, s);
+  if (e != cudaSuccess) return (int)e;
   gmmq_up_f32_kernel<PACKED>
-      <<<dim3((F + F32_TN - 1) / F32_TN, blocks_y), F32_NT, 0, s>>>(
+      <<<dim3((F + f32g::GW - 1) / f32g::GW, n_tiles), f32g::NT, smem, s>>>(
           static_cast<const float*>(xs), static_cast<const int8_t*>(w1q),
           static_cast<const float*>(s1), static_cast<const float*>(s2), te,
-          tv, static_cast<float*>(h), D, F, block_m);
-  cudaError_t e;
+          rows, static_cast<float*>(h), D, F, block_m);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  gmmq_down_f32_kernel<PACKED><<<dim3(D / F32_TN, blocks_y), F32_NT, 0, s>>>(
-      static_cast<const float*>(h), static_cast<const int8_t*>(w2q), te, tv,
-      static_cast<float*>(out), D, F, block_m);
+  gmmq_down_f32_kernel<PACKED>
+      <<<dim3((D + 2 * f32g::GW - 1) / (2 * f32g::GW), n_tiles), f32g::NT,
+         smem, s>>>(static_cast<const float*>(h),
+                    static_cast<const int8_t*>(w2q), te, rows,
+                    static_cast<float*>(out), D, F, block_m);
   return (int)cudaGetLastError();
 }
 
@@ -497,16 +567,18 @@ static int launch(const CUtensorMap& tx, const CUtensorMap& tw1,
 // xs [M, D] and out [M, D] bf16 (f32 when f32 is nonzero), w1q / w2q int8
 // as above (packed != 0: int4), s1 [E, 2, F] and s2 [E, F] f32;
 // tile_expert, tile_valid [M / block_m] int32; h [M, F] scratch of xs's
-// type.  Needs D % 64 == 0 (int4:
+// type; f32: tile_rows [M / block_m, 8] int32 scratch (the count pass's,
+// moe_gmm.cu; bf16: unused).  Needs D % 64 == 0 (int4:
 // (D / 2) % 64 == 0), F % 32 == 0, block_m % 8 == 0 and <= 128, 16-byte
 // aligned bases.  Returns cudaGetLastError() after launch, or the error
 // of encoding a tensor map.
 extern "C" int moe_gmm_quant_launch(const void* xs, const void* w1q,
                                     const void* w2q, const void* s1,
                                     const void* s2, const void* tile_expert,
-                                    const void* tile_valid, void* h, void* out,
-                                    int M, int D, int F, int block_m, int E,
-                                    int packed, int f32, void* stream) {
+                                    const void* tile_valid, void* tile_rows,
+                                    void* h, void* out, int M, int D, int F,
+                                    int block_m, int E, int packed, int f32,
+                                    void* stream) {
   const int Dp = packed ? D / 2 : D;
   if (D % 64 || Dp % 64 || F % 32 || block_m % 8 || block_m > ROWS ||
       block_m <= 0 || M % block_m || E <= 0)
@@ -515,8 +587,8 @@ extern "C" int moe_gmm_quant_launch(const void* xs, const void* w1q,
   if (n_tiles > 65535) return (int)cudaErrorInvalidValue;
   if (f32)
     return (packed ? launch_f32<true> : launch_f32<false>)(
-        xs, w1q, w2q, s1, s2, tile_expert, tile_valid, h, out, M, D, F,
-        block_m, reinterpret_cast<cudaStream_t>(stream));
+        xs, w1q, w2q, s1, s2, tile_expert, tile_valid, tile_rows, h, out, M,
+        D, F, block_m, reinterpret_cast<cudaStream_t>(stream));
   CUtensorMap tx, tw1, th, tw2;
   int err;
   if ((err = activation_map(&tx, xs, 1, M, D)) ||

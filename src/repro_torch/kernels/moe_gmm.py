@@ -8,8 +8,13 @@ with ``tile_valid == 0`` come out zero.  xs, w1 and w2 are all bf16 or all
 f32, as the reference's kernel takes any float dtype.  On bf16 the kernel
 reads its operands through TMA tensor maps (encoded per call for xs and h,
 cached per weight tensor in the library) and runs wgmma on them; on f32 it
-runs f32 FFMA on the CUDA cores (``csrc/f32_tiles.cuh``, shared with
-``moe_gmm_quant``), h kept in f32 between the passes.
+runs f32 FFMA on the CUDA cores, through the register-tiled row-tile body
+of ``csrc/f32_sgemm.cuh`` that ``moe_gmm_quant`` and ``moe_ffn`` share,
+and only on the rows each tile really holds: a count pass finds each
+tile's last row that is not all zero (padding rows are zeros) into an
+int32 scratch (``tile_rows`` is its plain version), the two passes compute
+the rows up to it and write +0 past it, which is what a zero row's
+products give; h is kept in f32 between the passes.
 
 Quantized experts: ``csrc/moe_gmm_quant.cu`` (replaces ``moe_gmm_quant_
 pallas``) computes the same on int8 w1q / w2q (int4: two values a byte,
@@ -18,9 +23,10 @@ blocked halves along D; ``models/moe/params.py``) with f32 scales s1
 hidden before the second; xs, h and the output bf16 or f32, as the
 reference's kernel takes any float xs.  On bf16 its weights travel
 through TMA as int8 and are widened to bf16 in registers (tensor maps
-cached per weight tensor and element type); on f32 it runs B1's f32 FFMA
-tiles (``csrc/f32_tiles.cuh``) with the int8 / int4 bytes widened to f32
-as they are staged, h kept in f32.
+cached per weight tensor and element type); on f32 it runs B1's f32 body
+on the same counted rows, its weight stager copying the int8 / int4 bytes
+into the ring and widening each to f32 once after it lands, h kept in
+f32.
 """
 
 from __future__ import annotations
@@ -47,6 +53,25 @@ def moe_gmm_plain(xs, w1, w2, tile_expert, tile_valid, block_m: int):
     yt = torch.bmm(h, w2[te].float())
     yt = torch.where(tile_valid.bool()[:, None, None], yt, 0.0)
     return yt.reshape(m, d).to(xs.dtype)
+
+
+def tile_rows(xs, tile_valid, block_m: int) -> torch.Tensor:
+    """The rows of each row tile that the f32 kernels compute: 1 + the
+    tile's last row that is not all zero (a NaN is not zero), 0 for a dead
+    tile; int32 [n_tiles], as their count pass finds them on the card."""
+    nz = (xs.reshape(-1, block_m, xs.shape[-1]) != 0).any(-1)
+    pos = torch.arange(1, block_m + 1, device=xs.device)
+    last = torch.where(nz, pos, 0).amax(-1)
+    return torch.where(tile_valid.bool(), last, 0).to(torch.int32)
+
+
+def _rows_scratch(dt, n_tiles, device):
+    """The f32 count pass's int32 [n_tiles, 8] scratch, a count for each
+    16 rows of a tile (bf16: none, 0)."""
+    if dt != torch.float32:
+        return None, 0
+    rows = torch.empty((n_tiles, 8), dtype=torch.int32, device=device)
+    return rows, rows.data_ptr()
 
 
 def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
@@ -79,10 +104,12 @@ def moe_gmm(xs, w1, w2, tile_expert, tile_valid, *, block_m: int):
     if xs.is_meta:
         costs.report("moe_gmm", cost)
         return out
-    fn = _build.function("moe_gmm", "moe_gmm_launch", 7, 6)
+    rows, rows_ptr = _rows_scratch(dt, n_tiles, xs.device)
+    fn = _build.function("moe_gmm", "moe_gmm_launch", 8, 6)
     err = fn(xs.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-             tile_expert.data_ptr(), tile_valid.data_ptr(), h.data_ptr(),
-             out.data_ptr(), m, d, f, block_m, e, int(dt == torch.float32),
+             tile_expert.data_ptr(), tile_valid.data_ptr(), rows_ptr,
+             h.data_ptr(), out.data_ptr(), m, d, f, block_m, e,
+             int(dt == torch.float32),
              torch.cuda.current_stream(xs.device).cuda_stream)
     _build.check("moe_gmm", err)
     moe_gmm.launches += 1
@@ -144,13 +171,19 @@ def moe_gmm_quant(xs, w1q, w2q, s1, s2, tile_expert, tile_valid, *,
            (n_tiles,))
     h = torch.empty((m, f), dtype=dt, device=xs.device)
     out = torch.empty((m, d), dtype=dt, device=xs.device)
+    for arg, t in (("xs", xs), ("w1q", w1q), ("w2q", w2q)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"moe_gmm_quant: {arg} needs a 16-byte aligned "
+                             "base")
     cost = costs.moe_gmm(xs, w2q, tile_expert, dtype)
     if xs.is_meta:
         costs.report("moe_gmm_quant", cost)
         return out
-    fn = _build.function("moe_gmm_quant", "moe_gmm_quant_launch", 9, 7)
-    err = fn(*(t.data_ptr() for t in args), h.data_ptr(), out.data_ptr(),
-             m, d, f, block_m, w2q.shape[0], int(dtype == "int4"),
+    rows, rows_ptr = _rows_scratch(dt, n_tiles, xs.device)
+    fn = _build.function("moe_gmm_quant", "moe_gmm_quant_launch", 10, 7)
+    err = fn(*(t.data_ptr() for t in args), rows_ptr, h.data_ptr(),
+             out.data_ptr(), m, d, f, block_m, w2q.shape[0],
+             int(dtype == "int4"),
              int(dt == torch.float32),
              torch.cuda.current_stream(xs.device).cuda_stream)
     _build.check("moe_gmm_quant", err)

@@ -16,7 +16,9 @@ B2 takes hd 32 in bf16 and in f32.
 * Card tests (skipped without a GPU): each f32 kernel against its plain
   version at ``rtol=atol=2e-5`` (B9 at capacities on both sides of its
   decode body's reach, B2 at one row and one past a tile), B9's rows and
-  B2's batch rows bit for bit alone, B9's empty rows exactly 0, and B2's
+  B2's batch rows bit for bit alone, B9's empty rows exactly 0, B1's
+  counted rows (``counted_rows_on_card``: a row's bits alone in its tile,
+  the rows past a tile's count +0, nonzero padding computed), and B2's
   bf16 body at hd 32 row by row to 1e-2 of each row's norm, as the other
   bf16 attention shapes.
 """
@@ -254,36 +256,91 @@ def test_moe_decode_f32_matches_pallas(b, e, k):
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
 
 
-@pytest.mark.parametrize("e,sizes,d,f,bm", [
-    (4, (8, 0, 16, 8), 64, 32, 8), (3, (4, 5, 3), 64, 96, 8),
-    (2, (0, 0), 32, 32, 8), (5, (40, 0, 8, 1, 15), 128, 64, 16)])
-def test_moe_gmm_f32_matches_pallas(e, sizes, d, f, bm):
-    """The reference's padded tile layout (each expert's rows padded to
-    whole tiles, one dead trailing tile)."""
-    import jax.numpy as jnp
-    from repro.kernels.moe_gmm import moe_gmm_pallas
-    from repro_torch.kernels import moe_gmm
+#: (experts, rows an expert, D, F, block_m, real rows set to all zero as
+#: (expert, row) pairs, padding rows of the first padded expert set
+#: nonzero): the reference's padded layout, and the layouts the f32
+#: kernels' row count meets -- tiles of 64 and 128 rows holding a few,
+#: an all-zero real row inside a group and at its end, and padding rows
+#: a caller left nonzero, which the kernel computes as the reference does
+GMM_F32_LAYOUTS = [
+    ((4, (8, 0, 16, 8), 64, 32, 8, (), 0), "4-sizes0-64-32-8"),
+    ((3, (4, 5, 3), 64, 96, 8, (), 0), "3-sizes1-64-96-8"),
+    ((2, (0, 0), 32, 32, 8, (), 0), "2-sizes2-32-32-8"),
+    ((5, (40, 0, 8, 1, 15), 128, 64, 16, (), 0), "5-sizes3-128-64-16"),
+    ((4, (3, 0, 5, 2), 128, 64, 64, (), 0), "bm64-few-rows"),
+    ((3, (2, 7, 1), 128, 64, 128, (), 0), "bm128-few-rows"),
+    ((4, (6, 0, 9, 3), 128, 64, 64, ((0, 2), (2, 8)), 0), "bm64-zero-rows"),
+    ((3, (5, 2, 7), 128, 64, 128, (), 3), "bm128-nonzero-padding"),
+]
+
+
+def padded_layout(rng, sizes, bm, d, zero=(), pad=0):
+    """xs [n_tiles * bm, D] in the reference's padded layout (each
+    expert's ``sizes`` rows padded to whole tiles, one dead trailing tile),
+    the ``zero`` (expert, row) real rows all zero and ``pad`` padding rows
+    of the first expert with any set nonzero; with tile_expert (clamped)
+    and tile_valid."""
     sizes = np.asarray(sizes)
+    e = len(sizes)
     padded = (sizes + bm - 1) // bm * bm
     n_tiles = int(padded.sum()) // bm + 1
-    rng = np.random.default_rng(int(sizes.sum()))
-    w1 = (rng.normal(size=(e, d, 2 * f)) * 0.05).astype(np.float32)
-    w2 = (rng.normal(size=(e, f, d)) * 0.05).astype(np.float32)
     xs = np.zeros((n_tiles * bm, d), np.float32)
     starts = np.cumsum(padded) - padded
     for ei in range(e):
         xs[starts[ei]:starts[ei] + sizes[ei]] = rng.normal(
             size=(sizes[ei], d))
+    for ei, r in zero:
+        assert r < sizes[ei]
+        xs[starts[ei] + r] = 0.0
+    if pad:
+        ei = int(np.flatnonzero(padded > sizes)[0])
+        assert pad <= padded[ei] - sizes[ei]
+        r0 = starts[ei] + sizes[ei]
+        xs[r0:r0 + pad] = rng.normal(size=(pad, d))
     row0 = np.arange(n_tiles) * bm
     te = np.searchsorted(np.cumsum(padded), row0, side="right")
     te_c = np.minimum(te, e - 1).astype(np.int32)
     tv = ((te < e) & (row0 - starts[te_c] < sizes[te_c])).astype(np.int32)
+    return xs, te_c, tv
+
+
+@pytest.mark.parametrize("e,sizes,d,f,bm,zero,pad",
+                         [c for c, _ in GMM_F32_LAYOUTS],
+                         ids=[i for _, i in GMM_F32_LAYOUTS])
+def test_moe_gmm_f32_matches_pallas(e, sizes, d, f, bm, zero, pad):
+    """The reference's padded tile layout (each expert's rows padded to
+    whole tiles, one dead trailing tile), and the f32 row count's edges."""
+    import jax.numpy as jnp
+    from repro.kernels.moe_gmm import moe_gmm_pallas
+    from repro_torch.kernels import moe_gmm
+    rng = np.random.default_rng(int(np.sum(sizes)))
+    w1 = (rng.normal(size=(e, d, 2 * f)) * 0.05).astype(np.float32)
+    w2 = (rng.normal(size=(e, f, d)) * 0.05).astype(np.float32)
+    xs, te_c, tv = padded_layout(rng, sizes, bm, d, zero, pad)
     case = (xs, w1, w2, te_c, tv)
     got = moe_gmm(*map(torch.from_numpy, case), block_m=bm)
     assert got.dtype == F32
     want = moe_gmm_pallas(*map(jnp.asarray, case), block_m=bm, block_f=32,
                           interpret=True)
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("sizes,bm,zero,pad", [
+    ((8, 0, 16, 8), 8, (), 0), ((40, 0, 8, 1, 15), 16, ((0, 39),), 0),
+    ((3, 0, 5, 2), 64, ((2, 0),), 0), ((5, 2, 7), 128, (), 3),
+    ((0, 0), 8, (), 0)])
+def test_tile_rows_counts_to_each_tiles_last_nonzero_row(sizes, bm, zero,
+                                                         pad):
+    """``tile_rows``, the plain version of the f32 kernels' count pass: 1 +
+    each live tile's last row that is not all zero, 0 for a dead tile."""
+    from repro_torch.kernels.moe_gmm import tile_rows
+    xs, _, tv = padded_layout(np.random.default_rng(3), sizes, bm, 16,
+                              zero, pad)
+    want = [0 if not v else max(
+        [r + 1 for r in range(bm) if xs[t * bm + r].any()], default=0)
+        for t, v in enumerate(tv)]
+    got = tile_rows(torch.from_numpy(xs), torch.from_numpy(tv), bm)
+    assert got.dtype == I32 and got.tolist() == want
 
 
 def _paged_case(rng, lens, page_size, n_blk, hkv, hd):
@@ -513,9 +570,15 @@ def test_moe_ffn_f32_empty_rows_are_zero_on_card(card, c):
     assert (out[:, 1::2] == 0).all() and (out[:, ::2] != 0).any()
 
 
+#: B1 / B6 f32 on the card: a 64-token prefill chunk at top-8 and a top-1
+#: dispatch over 16 experts, at OLMoE's D and F, tiles of 128 rows
+GMM_F32_CARD = [(64, 8, 64, 128, 2048, 1024), (512, 1, 16, 128, 2048, 1024)]
+
+
 @pytest.mark.parametrize("t,k,e,bm,d,f", [
     (5, 2, 8, 8, 128, 64), (37, 2, 8, 40, 128, 128),
-    (512, 8, 64, 128, 256, 96), (200, 4, 16, 128, 2048, 1024)])
+    (512, 8, 64, 128, 256, 96), (200, 4, 16, 128, 2048, 1024),
+    *GMM_F32_CARD])
 def test_moe_gmm_f32_on_card(card, t, k, e, bm, d, f):
     from repro_torch.kernels import moe_gmm
     from repro_torch.kernels.moe_gmm import moe_gmm_plain
@@ -531,6 +594,63 @@ def test_moe_gmm_f32_on_card(card, t, k, e, bm, d, f):
     dead = ~plan.tile_valid.bool()
     assert (got.reshape(-1, bm, d)[dead] == 0).all()
     _f32_close("moe_gmm", got, moe_gmm_plain(*args, bm))
+
+
+def counted_rows_on_card(name, run, plain, xs, plan, gen):
+    """The f32 sorted-buffer kernels compute each tile's rows up to its
+    last row that is not all zero: (a) a row of the tile with the most
+    real rows gives the same bits alone in it (its tile-mates zero: fewer
+    rows counted, another block shape) as among them; (b) with a real row
+    of that tile set to zero, that row and every row past each tile's
+    count come out exactly +0; (c) padding rows a caller left nonzero are
+    computed, as the plain version computes them."""
+    from repro_torch.kernels.moe_gmm import tile_rows
+    bm, d = plan.block_m, xs.shape[1]
+    sizes = plan.group_sizes.long()
+    padded = plan.padded_group_sizes.long()
+    starts = torch.cumsum(padded, 0) - padded
+    ei = int(torch.argmax(sizes))
+    r0, n = int(starts[ei]), int(sizes[ei])
+    assert n >= 3
+    batch = run(xs)
+    for r in sorted({0, min(15, n - 1), min(16, n - 1), n - 1}):
+        alone = torch.zeros_like(xs)
+        alone[r0 + r] = xs[r0 + r]
+        assert torch.equal(run(alone)[r0 + r], batch[r0 + r]), r
+    xz = xs.clone()
+    xz[r0 + n // 2] = 0.0
+    out = run(xz).reshape(-1, bm, d)
+    rows = tile_rows(xz, plan.tile_valid, bm)
+    past = torch.arange(bm, device=xs.device)[None] >= rows[:, None]
+    assert int(rows.sum()) < xs.shape[0]
+    for zero in (out[past], out.reshape(-1, d)[r0 + n // 2]):
+        assert (zero == 0).all() and not torch.signbit(zero).any()
+    ep = int(torch.nonzero(padded > sizes)[0])
+    p0 = int(starts[ep] + sizes[ep])
+    pad = min(5, int(padded[ep] - sizes[ep]))
+    xp = xs.clone()
+    xp[p0:p0 + pad] = torch.randn((pad, d), generator=gen, device=xs.device)
+    got = run(xp)
+    assert (got[p0:p0 + pad] != 0).any()
+    _f32_close(name, got, plain(xp))
+
+
+@pytest.mark.parametrize("t,k,e,bm,d,f", [(37, 2, 8, 40, 128, 128),
+                                          *GMM_F32_CARD])
+def test_moe_gmm_f32_counted_rows_on_card(card, t, k, e, bm, d, f):
+    from repro_torch.kernels import moe_gmm
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    from repro_torch.models.moe import make_sort_plan, sort_dispatch
+    w1, w2 = _experts(e, d, f, t)
+    g = _gen(7)
+    x = torch.randn((t, d), generator=g, device="cuda")
+    idx = torch.randint(0, e - 1, (t, k), generator=g, device="cuda").int()
+    plan = make_sort_plan(idx, e, bm)
+    te, tv = plan.tile_expert, plan.tile_valid
+    counted_rows_on_card(
+        "moe_gmm", lambda xs: moe_gmm(xs, w1, w2, te, tv, block_m=bm),
+        lambda xs: moe_gmm_plain(xs, w1, w2, te, tv, bm),
+        sort_dispatch(x, plan, k), plan, g)
 
 
 @pytest.mark.parametrize("b,k,e,d,f", [(1, 2, 8, 128, 64), (8, 2, 8, 128, 128),

@@ -16,7 +16,8 @@ DeepSeek config's (r 32, dr 16) (its reference casts its latents to f32).
 * ``launch/serve_lexi.py`` with quantized experts keeps its kernels on.
 * Card tests (skipped without a GPU): each new f32 instance against its
   plain version at ``rtol=atol=2e-5``, at the reduced shapes and at full
-  width; B7's rows bitwise alone and in a batch at a wider table view.
+  width; B6's counted rows as B1's (``counted_rows_on_card``); B7's rows
+  bitwise alone and in a batch at a wider table view.
 """
 
 import numpy as np
@@ -24,6 +25,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from _torch_threads import one_thread  # noqa: F401,E402
+from test_torch_f32_kernels import GMM_F32_CARD, \
+    counted_rows_on_card  # noqa: E402
 from test_torch_mla import latent_pool  # noqa: E402
 
 #: the reference's f32 tolerance for its kernels (tests/test_kernels.py)
@@ -208,9 +211,26 @@ def test_moe_decode_quant_f32_matches_pallas(dtype, b, k, e):
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
 
 
+#: (tokens, k, experts, block_m, a token set to all zero (its copies are
+#: real rows that are all zero) or None, padding rows of the first padded
+#: expert set nonzero): the dispatch's layout, and the layouts the f32
+#: kernel's row count meets -- tiles of 64 and 128 rows holding a few, an
+#: all-zero real row, padding rows a caller left nonzero; the first two
+#: ids as before
+GMM_QUANT_F32_LAYOUTS = [
+    ((12, 2, 8, 8, None, 0), "12-2-8-8"),
+    ((40, 2, 8, 16, None, 0), "40-2-8-16"),
+    ((20, 2, 8, 64, None, 0), "bm64-few-rows"),
+    ((24, 1, 4, 128, 5, 0), "bm128-zero-row"),
+    ((16, 2, 6, 128, None, 3), "bm128-nonzero-padding"),
+]
+
+
 @pytest.mark.parametrize("dtype", QUANT)
-@pytest.mark.parametrize("t,k,e,bm", [(12, 2, 8, 8), (40, 2, 8, 16)])
-def test_moe_gmm_quant_f32_matches_pallas(dtype, t, k, e, bm):
+@pytest.mark.parametrize("t,k,e,bm,zero,pad",
+                         [c for c, _ in GMM_QUANT_F32_LAYOUTS],
+                         ids=[i for _, i in GMM_QUANT_F32_LAYOUTS])
+def test_moe_gmm_quant_f32_matches_pallas(dtype, t, k, e, bm, zero, pad):
     """The sorted dispatch of f32 tokens at D 128, F 64; h stays f32 on
     both sides."""
     import jax.numpy as jnp
@@ -224,7 +244,16 @@ def test_moe_gmm_quant_f32_matches_pallas(dtype, t, k, e, bm):
                     for _ in range(t)]).astype(np.int32)
     plan = make_sort_plan(torch.from_numpy(idx), e, bm)
     x = rng.normal(size=(t, d)).astype(np.float32)
+    if zero is not None:
+        x[zero] = 0.0
     xs = sort_dispatch(torch.from_numpy(x), plan, k)
+    if pad:
+        sizes = plan.group_sizes.numpy()
+        padded = plan.padded_group_sizes.numpy()
+        ei = int(np.flatnonzero(padded > sizes)[0])
+        r0 = int(padded[:ei].sum() + sizes[ei])
+        xs[r0:r0 + pad] = torch.from_numpy(
+            rng.normal(size=(pad, d)).astype(np.float32))
     got = moe_gmm_quant(xs, *q, plan.tile_expert, plan.tile_valid,
                         dtype=dtype, block_m=bm)
     assert got.dtype == F32
@@ -356,7 +385,7 @@ def test_moe_decode_quant_f32_on_card(card, dtype, b, k, e, d, f):
 @pytest.mark.parametrize("dtype", QUANT)
 @pytest.mark.parametrize("t,k,e,bm,d,f", [
     (64, 2, 8, 16, 128, 64), (37, 2, 8, 40, 128, 64),
-    (512, 8, 64, 128, 2048, 1024)])
+    (512, 8, 64, 128, 2048, 1024), *GMM_F32_CARD])
 def test_moe_gmm_quant_f32_on_card(card, dtype, t, k, e, bm, d, f):
     from repro_torch.kernels import moe_gmm_quant
     from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
@@ -371,6 +400,28 @@ def test_moe_gmm_quant_f32_on_card(card, dtype, t, k, e, bm, d, f):
     assert (got.reshape(-1, bm, d)[dead] == 0).all()
     _f32_close("moe_gmm_quant", got,
                moe_gmm_quant_plain(*args, bm, dtype=dtype))
+
+
+@pytest.mark.parametrize("dtype", QUANT)
+@pytest.mark.parametrize("t,k,e,bm,d,f", [(37, 2, 8, 40, 128, 64),
+                                          *GMM_F32_CARD])
+def test_moe_gmm_quant_f32_counted_rows_on_card(card, dtype, t, k, e, bm, d,
+                                                f):
+    """B6 f32 computes each tile's rows up to its last nonzero row, as B1
+    f32 does (``counted_rows_on_card``)."""
+    from repro_torch.kernels import moe_gmm_quant
+    from repro_torch.kernels.moe_gmm import moe_gmm_quant_plain
+    from repro_torch.models.moe import make_sort_plan, sort_dispatch
+    q, g = _card_quant(e, d, f, dtype, t + 1)
+    x = torch.randn((t, d), generator=g, device="cuda")
+    idx = torch.randint(0, e - 1, (t, k), generator=g, device="cuda").int()
+    plan = make_sort_plan(idx, e, bm)
+    te, tv = plan.tile_expert, plan.tile_valid
+    counted_rows_on_card(
+        "moe_gmm_quant",
+        lambda xs: moe_gmm_quant(xs, *q, te, tv, dtype=dtype, block_m=bm),
+        lambda xs: moe_gmm_quant_plain(xs, *q, te, tv, bm, dtype=dtype),
+        sort_dispatch(x, plan, k), plan, g)
 
 
 @pytest.mark.parametrize("h,r,dr", [(4, 32, 16), (16, 512, 64),

@@ -1253,12 +1253,12 @@ def kernel_row(name, source, replaces, err, ms, plain_ms, nbytes, flops,
 
 #: the numbers a row keeps for each of its dtypes or shapes (B1 / B6 f32:
 #: also the real rows, the rows the kernel counts and computes, the row
-#: tile, and the library call on the real rows alone)
+#: tile, and the library call on the real rows alone; B7 f32: its launch)
 NESTED_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms", "sibling_ms", "experts", "bytes", "rows",
                "rows_live_tiles", "rows_computed", "block_m",
                "library_real_rows_ms",
-               "library_real_rows_align")
+               "library_real_rows_align", "launch")
 
 
 def nested_row(name, source, replaces, per, nest):
@@ -3038,30 +3038,72 @@ F32_MLA_SHAPES = {"reduced": (4, 32, 16, 16 + 16),
                   "minicpm3_h40": (40, 256, 32, 64 + 32)}
 
 
-def f32_mla_checks(flush, device, per):
-    """B7 on f32 latent pools at each of F32_MLA_SHAPES: the 8 rows of
-    F32_LENS (up to 512 positions, one idle) on pages of 16, a 64-column
-    table walked through a 32-column view, each row also alone at its own
-    live width against the batch at 64 columns, bit for bit; the sibling
-    is the bf16 kernel on the latents rounded to bf16 (none at (32, 16),
-    which only f32 latents take).  Adds {kernel: {f32 shape: numbers}} to
-    ``per``."""
-    from repro_torch.kernels import flash_decode_paged_mla
-    from repro_torch.kernels.flash_decode_paged import MLA_SHAPES, \
-        flash_decode_paged_mla_plain
+def f32_mla_inputs(device):
+    """Yield B7's f32 inputs at each of F32_MLA_SHAPES, in order: (tag,
+    heads, r, dr, scale, (q_lat, q_rope, ckvp, kropep, posp, table at 64
+    columns, cur_pos)) for the 8 rows of F32_LENS on pages of 16 (one
+    generator, seed 14, drawn as the checks always drew it)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(14)
-    p, n_blk, live = 16, 64, 32
+    p, n_blk = 16, 64
     lens = F32_LENS
     b = len(lens)
     for tag, (h, r, dr, qk) in F32_MLA_SHAPES.items():
-        scale = 1.0 / qk ** 0.5
         n = b * 32 + 1
         ckvp, kropep = (torch.randn((n, p, w), generator=gen, device=device)
                         for w in (r, dr))
         q_lat, q_rope = (torch.randn((b, h, w), generator=gen, device=device)
                          for w in (r, dr))
         posp, table, cur = paged_positions(lens, n, p, n_blk, device)
+        yield tag, h, r, dr, 1.0 / qk ** 0.5, (q_lat, q_rope, ckvp, kropep,
+                                               posp, table, cur)
+
+
+#: check (a) of the f32 head tiles, by F32_MLA_SHAPES tag: (first head,
+#: heads) of the whole call held bit for bit against a call on those heads
+#: alone (DeepSeek's first 8 of 16; MiniCPM3's heads 16-31 of 40)
+F32_MLA_HEAD_SLICES = {"deepseek": (0, 8), "minicpm3_h40": (16, 16)}
+
+
+def f32_mla_head_slice(tag, args, scale, got, h0, nh):
+    """Heads [h0, h0 + nh) of ``got`` (the whole call on ``args``) must be
+    the bits of a call on those heads alone: a head's output depends
+    neither on its head tile nor on the other heads.  Emits the check
+    line with the slice's digest."""
+    from repro_torch.kernels import flash_decode_paged_mla
+    name = f"flash_decode_paged_mla_f32_{tag}_heads_{h0}_{h0 + nh}"
+    q_lat, q_rope, *rest = args
+    alone = flash_decode_paged_mla(
+        q_lat[:, h0:h0 + nh].contiguous(), q_rope[:, h0:h0 + nh].contiguous(),
+        *rest, scale=scale)
+    if not torch.equal(alone, got[:, h0:h0 + nh]):
+        raise AssertionError(f"{name}: heads alone differ from the same "
+                             "heads of the whole call")
+    dig = DIGESTS[name] = digest(alone)
+    emit({"check": name, "bitwise_heads": [h0, h0 + nh], "ok": True,
+          "digest": dig})
+
+
+def f32_mla_checks(flush, device, per):
+    """B7 on f32 latent pools at each of F32_MLA_SHAPES
+    (``f32_mla_inputs``): the 8 rows of F32_LENS (up to 512 positions, one
+    idle) on pages of 16, a 64-column table walked through a 32-column
+    view, each row also alone at its own live width against the batch at
+    64 columns, bit for bit, and at F32_MLA_HEAD_SLICES a slice of heads
+    alone against the whole call, bit for bit; the sibling is the bf16
+    kernel on the latents rounded to bf16 (none at (32, 16), which only
+    f32 latents take).  The line and the numbers carry the f32 instance's
+    launch (``mla_f32_launch_shape``: head tile, blocks, stages, shared
+    memory).  Adds {kernel: {f32 shape:
+    numbers}} to ``per``."""
+    from repro_torch.kernels import flash_decode_paged_mla
+    from repro_torch.kernels.flash_decode_paged import MLA_SHAPES, \
+        flash_decode_paged_mla_plain, mla_f32_launch_shape
+    p, live = 16, 32
+    lens = F32_LENS
+    b = len(lens)
+    for tag, h, r, dr, scale, full in f32_mla_inputs(device):
+        q_lat, q_rope, ckvp, kropep, posp, table, cur = full
         args = (q_lat, q_rope, ckvp, kropep, posp, table[:, :live], cur)
         lat_b = to_bf16(ckvp, kropep)
         sibling = None
@@ -3071,21 +3113,27 @@ def f32_mla_checks(flush, device, per):
                                               table[:, :live], cur,
                                               scale=scale)
         pages, slots = live_work(posp, table[:, :live], cur)
+        launch = (mla_f32_launch_shape(b, h, r, dr, live)
+                  if torch.device(device).type == "cuda" else None)
         per.setdefault("flash_decode_paged_mla", {})[f"f32_{tag}"] = f32_case(
             "flash_decode_paged_mla", tag, flash_decode_paged_mla,
             lambda *a: flash_decode_paged_mla_plain(*a, scale=scale), args,
             {"scale": scale}, sibling, None,
             pages * p * (r + dr) * 4 + pages * p * 4 + b * h * (r + dr) * 4
             + b * h * r * 4 + b * live * 4 + b * 4,
-            slots * h * (2 * (r + dr) + 2 * r), flush, batch=b, heads=h,
-            latent=[r, dr], live_positions=sum(lens), table_cols=live)
+            slots * h * (2 * (r + dr) + 2 * r), flush,
+            rows={"launch": launch}, batch=b, heads=h, latent=[r, dr],
+            live_positions=sum(lens), table_cols=live)
+        whole = flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp,
+                                       table, cur, scale=scale)
         bitwise_rows(
             f"flash_decode_paged_mla_f32_{tag}_rows",
             lambda *a: flash_decode_paged_mla(*a, scale=scale), lens,
             lambda i, w: (q_lat[i:i + 1], q_rope[i:i + 1], ckvp, kropep,
-                          posp, table[i:i + 1, :w], cur[i:i + 1]),
-            flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, table,
-                                   cur, scale=scale))
+                          posp, table[i:i + 1, :w], cur[i:i + 1]), whole)
+        if tag in F32_MLA_HEAD_SLICES:
+            f32_mla_head_slice(tag, full, scale, whole,
+                               *F32_MLA_HEAD_SLICES[tag])
 
 
 def f32_attention_checks(hq, hkv, hd, lens, s_buf, seq, window, device,

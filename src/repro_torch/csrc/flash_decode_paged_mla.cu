@@ -15,11 +15,13 @@
 // batch row) gets zeros.  (R, DR) is (512, 64) (DeepSeek-V2-Lite:
 // kv_lora_rank 512, qk_rope_head_dim 64, 16 heads) or (256, 32)
 // (MiniCPM3-4B: 40 heads), and on f32 latents also (32, 16) (the reduced
-// DeepSeek config: 4 heads), template parameters; any H, in tiles of 16
-// heads along the grid's z axis (the last tile partial, its missing heads'
-// rows zero and never stored; at H <= 16 one tile).  A row's output is
-// bitwise the same whatever the other rows of the batch are and whatever
-// the table view's width n_blk, in both instances.
+// DeepSeek config: 4 heads), template parameters; any H, in head tiles
+// along the grid's z axis (16 heads on bf16 latents; on f32 latents the
+// tile of MlaF32Tune: 8 at R 512 and 256, 4 at R 32; the last tile
+// partial, its missing heads' rows zero and never stored).  A row's
+// output is bitwise the same whatever the other rows of the batch are and
+// whatever the table view's width n_blk, and a head's whatever its tile,
+// in both instances.
 //
 // What bounds it on the H100.  Every head reads the same latent row (MQA
 // over the latents): per live slot 576 bf16 values are read once for all
@@ -59,10 +61,19 @@
 //
 // f32 latents (mla_decode_f32_kernel, below) are not exact in bf16, so
 // its products run f32 FFMA on the CUDA cores with nothing rounded: the
-// same walk, ring (a tile of 16 f32 rows is 36.9 KB at R 512, four stages
-// 148 KB), softmax and merge, with one f32 score dot a thread and the
-// P.V sums a thread's heads x 4 columns.  Its bound is the same f32 work
-// on twice the bytes.
+// same walk and ring (a tile of 16 f32 rows is 36.9 KB at R 512).  Its
+// bound is the same f32 work on twice the bytes; what holds it on the card
+// is shared memory, which hands lanes 128 B a cycle an SM against 128 FFMA
+// lanes, so every value a lane loads has to feed several FFMAs, and a
+// tile's serial phases, which other warps have to overlap.  So a block
+// holds 8 heads (the check's 8 rows fill 128 SMs); four score warps hold
+// patches of 2 heads x 2 slots (one of each output's four chains) and
+// write the chains' sums; the other four warps copy the tiles in, run the
+// online softmax and P.V (4 heads x 8 columns a lane) one tile behind the
+// scores, one barrier a tile; and each rank pushes its state into the
+// ranks that merge it, so the merge takes one cluster barrier, not two.
+// Each output's sums run in a fixed order whatever thread computes them,
+// so the launch constants below change no bit.
 
 #include <cooperative_groups.h>
 
@@ -103,28 +114,98 @@ struct MlaShape {
   static_assert(MLA_H * R * 4 <= 2 * Q_BYTES, "acc fits over q");
 };
 
+// Launch constants of the f32 instance, by latent width R
+// (tools/decode_attention_times.py --variants replaces them): the heads a
+// block holds (its head tile), the ring's stages, the blocks an SM the
+// launch bound asks for, and the P.V patch's latent columns a thread; the
+// score patch (SC_PH heads x SC_PS slots a lane, the loop unrolled
+// SC_UNROLL times) and the P.V patch's heads a thread.
+constexpr int F32_HT_512 = 8;
+constexpr int F32_HT_256 = 8;
+constexpr int F32_HT_32 = 4;
+constexpr int F32_STAGES_512 = 3;
+constexpr int F32_STAGES_256 = 3;
+constexpr int F32_STAGES_32 = 3;
+constexpr int F32_BLOCKS_512 = 1;
+constexpr int F32_BLOCKS_256 = 3;
+constexpr int F32_BLOCKS_32 = 2;
+constexpr int F32_PVC_512 = 8;
+constexpr int F32_PVC_256 = 4;
+constexpr int F32_PVC_32 = 4;
+constexpr int F32_SC_PH = 2;
+constexpr int F32_SC_PS = 2;
+constexpr int F32_SC_UNROLL = 16;
+constexpr int F32_PV_H = 4;
+
+constexpr int pow2_floor(int x) { return x < 2 ? 1 : 2 * pow2_floor(x / 2); }
+
+template <int R>
+struct MlaF32Tune {
+  static constexpr int HT =
+      R == 512 ? F32_HT_512 : R == 256 ? F32_HT_256 : F32_HT_32;
+  static constexpr int STAGES =
+      R == 512 ? F32_STAGES_512 : R == 256 ? F32_STAGES_256 : F32_STAGES_32;
+  static constexpr int BLOCKS =
+      R == 512 ? F32_BLOCKS_512 : R == 256 ? F32_BLOCKS_256 : F32_BLOCKS_32;
+  static constexpr int PVC =
+      R == 512 ? F32_PVC_512 : R == 256 ? F32_PVC_256 : F32_PVC_32;
+};
+
 // The f32 instance's shapes (f32 latents): one f32 row a slot, ROW floats
-// (ROW / 4 odd, so the eight 16-byte rows a quarter warp reads at one k
-// lie on distinct banks); the P.V threads: CG float4 latent column groups,
-// TPG threads a group, each HPT heads.
+// (ROW % 32 == 4 or 20, so the eight rows a score warp reads at one k lie
+// on distinct banks, and ROW / 4 odd for the ring's 16-byte copies).
+// Threads [0, SC_THREADS) score: lane (chain e, slot group sg, head group
+// hg), e fastest; a lane holds chain e of heads PH hg .. + PH - 1 at slots
+// sg + SG j, j < PS.  Threads
+// [SC_THREADS, MLA_NT) copy the tiles in, and the first PV_THREADS
+// of them run P.V: heads PVH (u / NCG) .. + PVH - 1 at the PVC / 4 float4
+// column groups u % NCG + NCG k (u = t - SC_THREADS), so a warp's float4
+// loads are contiguous; before it, threads u < 16 HT run a tile's online
+// softmax, one (head u / 16, slot u % 16) a thread.  The scores' chain sums
+// sc [2][4][HT][TILE] are double-buffered by tile parity.
+// recv [CL][HT][CW] and recv_ml [CL][HT][2]: every rank's state of the
+// latent columns this rank merges, written there by that rank.
 template <int R, int DR>
 struct MlaF32Shape {
+  using Tune = MlaF32Tune<R>;
+  static constexpr int HT = Tune::HT, STAGES = Tune::STAGES;
+  static constexpr int BLOCKS = Tune::BLOCKS;
   static constexpr int K = R + DR;
   static constexpr int ROW = K + 4;
-  static constexpr int QF = MLA_H * (K / 4);             // q float4s
-  static constexpr int CG = R / 4;
-  static constexpr int TPG = MLA_NT / CG < MLA_H ? MLA_NT / CG : MLA_H;
-  static constexpr int HPT = MLA_H / TPG;
-  static constexpr int PV_THREADS = CG * TPG;
-  static constexpr int Q_BYTES = MLA_H * ROW * 4;
+  static constexpr int PH = F32_SC_PH, PS = F32_SC_PS;
+  static constexpr int SG = MLA_TILE / PS;      // a head's lanes / 4
+  static constexpr int SC_THREADS = 4 * SG * (HT / PH);
+  static constexpr int LOADERS = MLA_NT - SC_THREADS;
+  static constexpr int PVH = F32_PV_H, PVC = Tune::PVC;
+  static constexpr int NCG = R / PVC;           // P.V column groups
+  static constexpr int PV_THREADS = NCG * (HT / PVH);
+  static constexpr int PROW = HT;               // p: [slot][head]
+  static constexpr int QF = HT * (K / 4);       // q float4s
+  static constexpr int CW = R / MLA_CL;         // latent columns a rank owns
+  // a tile's ckv copies: CG groups of rows a float4 column, CG the
+  // largest power of two <= LOADERS / (R / 4) and <= TILE
+  static constexpr int CG = pow2_floor(
+      LOADERS / (R / 4) < 1 ? 1
+      : LOADERS / (R / 4) > MLA_TILE ? MLA_TILE : LOADERS / (R / 4));
+  static constexpr int Q_BYTES = HT * ROW * 4;
   static constexpr int T_BYTES = MLA_TILE * ROW * 4;
+  static constexpr int RECV_BYTES = HT * R * 4 + MLA_CL * HT * 2 * 4;
   static constexpr int FIXED_BYTES =
-      Q_BYTES + MLA_STAGES * T_BYTES + MLA_STAGES * MLA_TILE * 4 +
-      MLA_H * MLA_TILE * 4 + MLA_H * 4 + 2 * MLA_H * 4 + 16;
-  static_assert(R % 32 == 0 && DR % 4 == 0 && (ROW / 4) % 2 == 1,
-                "float4 rows on distinct banks; a rank merges whole float4s");
-  static_assert(MLA_H % TPG == 0 && PV_THREADS <= MLA_NT, "P.V threads");
-  static_assert(FIXED_BYTES < MLA_SMEM_MAX, "a block's shared memory");
+      Q_BYTES + STAGES * T_BYTES + RECV_BYTES + STAGES * MLA_TILE * 4 +
+      2 * 4 * HT * MLA_TILE * 4 + MLA_TILE * PROW * 4 + HT * 4 + 16;
+  static_assert(R % 32 == 0 && DR % 4 == 0 && (ROW / 4) % 2 == 1 &&
+                    (ROW % 32 == 4 || ROW % 32 == 20),
+                "float4 rows; a score warp's rows on distinct banks");
+  static_assert(MLA_TILE % PS == 0 && HT % PH == 0 && 32 % (4 * SG) == 0 &&
+                    SC_THREADS % 32 == 0,
+                "a head group's score lanes inside one warp; whole warps");
+  static_assert(PVH % 4 == 0 && HT % PVH == 0 && PVC % 4 == 0 &&
+                    R % PVC == 0 && PV_THREADS <= LOADERS &&
+                    HT * MLA_TILE <= LOADERS && LOADERS % 32 == 0,
+                "P.V patches of whole float4s and the softmax beside the "
+                "score threads");
+  static_assert(STAGES >= 3 && FIXED_BYTES < MLA_SMEM_MAX,
+                "a tile in flight beside the two in use; shared memory");
 };
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -152,6 +233,20 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// barrier id among the n threads (whole warps) that reach it
+__device__ __forceinline__ void mla_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// the cluster's barrier in two halves: arrive (relaxed: nothing to
+// publish) and wait
+__device__ __forceinline__ void mla_cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mla_cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // x = hi + lo + (a rest below 2^-16 |x|), both bf16
@@ -183,6 +278,30 @@ __device__ __forceinline__ void mla_page_list(const int* __restrict__ row_bt,
   }
 }
 
+// One head's 4 latent columns over the cluster's ranks in rank order:
+// (m, l) and acc of each rank, a rank with no valid slot counting for
+// nothing; returns acc / l of the merged softmax.
+__device__ __forceinline__ float4 mla_fold(const float (&mr)[MLA_CL],
+                                           const float (&lr)[MLA_CL],
+                                           const float4 (&vr)[MLA_CL]) {
+  float mx = PD_NEG_INF;
+#pragma unroll
+  for (int r = 0; r < MLA_CL; ++r)
+    if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
+  float L = 0.f;
+  float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int r = 0; r < MLA_CL; ++r) {
+    if (!(lr[r] > 0.f)) continue;     // no valid slot: counts for nothing
+    const float w = pd_ex2(mr[r] - mx);
+    L += lr[r] * w;
+    A.x += w * vr[r].x; A.y += w * vr[r].y;
+    A.z += w * vr[r].z; A.w += w * vr[r].w;
+  }
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  return make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
+}
+
 // The cluster's merge, after every block left its (m, l) in ml [H][2] and
 // its acc [H][R] f32 in acc_s and the cluster synced: rank r writes
 // columns [CW r, CW r + CW) of every head of the tile.
@@ -211,25 +330,10 @@ __device__ __forceinline__ void mla_merge(cg::cluster_group& cluster,
       vr[r] = *reinterpret_cast<const float4*>(
           cluster.map_shared_rank(acc_s, r) + hh * R + c0);
     }
-    float mx = PD_NEG_INF;
-#pragma unroll
-    for (int r = 0; r < MLA_CL; ++r)
-      if (lr[r] > 0.f) mx = fmaxf(mx, mr[r]);
-    float L = 0.f;
-    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int r = 0; r < MLA_CL; ++r) {
-      if (!(lr[r] > 0.f)) continue;     // no valid slot: counts for nothing
-      const float w = pd_ex2(mr[r] - mx);
-      L += lr[r] * w;
-      A.x += w * vr[r].x; A.y += w * vr[r].y;
-      A.z += w * vr[r].z; A.w += w * vr[r].w;
-    }
-    if (h0 + hh < H) {
-      const float inv = 1.f / fmaxf(L, 1e-30f);
+    const float4 o = mla_fold(mr, lr, vr);
+    if (h0 + hh < H)
       *reinterpret_cast<float4*>(out + ((size_t)b * H + h0 + hh) * R + c0) =
-          make_float4(A.x * inv, A.y * inv, A.z * inv, A.w * inv);
-    }
+          o;
   }
 }
 
@@ -459,14 +563,25 @@ mla_decode_kernel(const float* __restrict__ q_lat,
 }
 
 // The f32 instance: f32 latents are not exact in bf16, so the products run
-// f32 FFMA on the CUDA cores, nothing rounded.  The page walk, the tile
-// ring, the online softmax (thread (head t / 16, slot t % 16), base 2) and
-// the cluster merge are the bf16 kernel's; the scores are one f32 dot a
-// thread over the K = R + DR latent row in four interleaved sums added in
-// a fixed order, and P.V a thread's HPT heads x 4 latent columns over the
-// tile's 16 slots in order, so the row-invariance holds as above.
+// f32 FFMA on the CUDA cores, nothing rounded.  The page walk is the bf16
+// kernel's; a block holds S::HT heads.  Each (head, slot) score is four
+// fmaf chains over the K = R + DR latent row, chain x over the k = x mod
+// 4, in k order, summed (0 + 1) + (2 + 3); a score lane holds one chain
+// of a register patch of PH heads x PS slots, so each q and latent value it
+// loads feeds several outputs, and writes each chain's sum to sc.  The other warps copy the tiles in and run a tile's
+// online softmax (base 2; thread (head, slot), its head's max and sum over
+// 16 lanes, slot i with i ^ 8, then ^ 4, ^ 2, ^ 1) and P.V one tile behind
+// the scores, one barrier a tile: a P.V thread holds PVH heads x PVC
+// latent columns, and each output takes the tile's alpha, then its 16
+// slots in order.  At the end each rank writes its (m, l) and the acc
+// columns rank r merges into rank r's memory, one cluster barrier, and
+// rank r folds them over the ranks in order, as mla_merge does.  No output
+// depends on which thread computes it or on the other heads of its tile,
+// so the launch constants change no bit, and the row-invariance holds as
+// above.
 template <int R, int DR>
-__global__ void __cluster_dims__(MLA_CL, 1, 1) __launch_bounds__(MLA_NT, 1)
+__global__ void __cluster_dims__(MLA_CL, 1, 1)
+__launch_bounds__(MLA_NT, MlaF32Shape<R, DR>::BLOCKS)
 mla_decode_f32_kernel(const float* __restrict__ q_lat,
                       const float* __restrict__ q_rope,
                       const float* __restrict__ ckvp,
@@ -476,175 +591,285 @@ mla_decode_f32_kernel(const float* __restrict__ q_lat,
                       float* __restrict__ out, int H, int P, int n_blk,
                       float scale_log2) {
   using S = MlaF32Shape<R, DR>;
-  constexpr int K = S::K, ROW = S::ROW;
+  constexpr int K = S::K, ROW = S::ROW, HT = S::HT, STAGES = S::STAGES;
+  constexpr int PH = S::PH, PS = S::PS, SG = S::SG;
+  constexpr int PVH = S::PVH, PVC = S::PVC, NCG = S::NCG;
+  constexpr int PROW = S::PROW;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);     // [H][ROW], base-2 scaled
-  float* tiles = qs + MLA_H * ROW;                // [STAGES][TILE][ROW]
-  int* pos_s = reinterpret_cast<int*>(tiles + MLA_STAGES * MLA_TILE * ROW);
-  float* ps = reinterpret_cast<float*>(pos_s + MLA_STAGES * MLA_TILE);
-                                                  // [H][TILE]
-  float* alpha_s = ps + MLA_H * MLA_TILE;
-  float* ml = alpha_s + MLA_H;                    // [H][2]: m, l
-  int* n_pages_s = reinterpret_cast<int*>(ml + 2 * MLA_H);
+  constexpr int CW = S::CW;
+  float* qs = reinterpret_cast<float*>(smem);     // [HT][ROW], base-2 scaled
+  float* tiles = qs + HT * ROW;                   // [STAGES][TILE][ROW]
+  float* recv = tiles + STAGES * MLA_TILE * ROW;  // [CL][HT][CW]
+  float* recv_ml = recv + HT * R;                 // [CL][HT][2]: m, l
+  int* pos_s = reinterpret_cast<int*>(recv_ml + MLA_CL * HT * 2);
+  float* sc = reinterpret_cast<float*>(pos_s + STAGES * MLA_TILE);
+                                                  // [2][4][HT][TILE]
+  float* ps = sc + 2 * 4 * HT * MLA_TILE;         // [TILE][PROW]
+  float* alpha_s = ps + MLA_TILE * PROW;          // [HT]
+  int* n_pages_s = reinterpret_cast<int*>(alpha_s + HT);
   int* list = reinterpret_cast<int*>(smem + S::FIXED_BYTES);
-  float* acc_s = qs;                              // [H][R], over q at the end
 
   cg::cluster_group cluster = cg::this_cluster();
+  mla_cluster_arrive_relaxed();     // this block has started (waited below,
+                                    // before any rank writes into another)
   const int rank = (int)cluster.block_rank(), b = blockIdx.y;
-  const int h0 = MLA_H * blockIdx.z;
+  const int h0 = HT * blockIdx.z;
   const int t = threadIdx.x;
   const int cur = cur_pos[b];
   const int tpp = (P + MLA_TILE - 1) / MLA_TILE;
 
-  // q scaled to base 2, heads >= H zero
+  // q (heads >= H zero) copied in its own group, so its read overlaps the
+  // table's and the first tiles'; each thread scales its own float4s
+  // below, once they landed
   for (int idx = t; idx < S::QF; idx += MLA_NT) {
     const int h = idx / (K / 4), c = 4 * (idx % (K / 4));
     const size_t hb = (size_t)b * H + h0 + h;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (h0 + h < H)
-      v = c < R ? *reinterpret_cast<const float4*>(q_lat + hb * R + c)
-                : *reinterpret_cast<const float4*>(q_rope + hb * DR + c - R);
-    *reinterpret_cast<float4*>(qs + h * ROW + c) =
-        make_float4(v.x * scale_log2, v.y * scale_log2, v.z * scale_log2,
-                    v.w * scale_log2);
+    const bool ok = h0 + h < H;
+    const float* src = c < R ? q_lat + hb * R + c : q_rope + hb * DR + c - R;
+    pd_cp_async16(qs + h * ROW + c, ok ? src : q_lat, ok);
   }
+  pd_cp_async_commit();
   mla_page_list(bt + (size_t)b * bt_stride, n_blk, rank, list, n_pages_s);
   __syncthreads();
   const int n_tiles = *n_pages_s * tpp;
 
+  // tile it -> stage st, by the copy threads u = t - SC_THREADS: 16 latent
+  // rows (ckv then krope, one shared row a slot), rows past the page
+  // zero-filled; the slots' positions beside
+  const int u = t - S::SC_THREADS;
   auto load_tile = [&](int it, int st) {
+    if (u < 0) return;
     const int page = list[it / tpp], p0 = (it % tpp) * MLA_TILE;
     const int ns = min(MLA_TILE, P - p0);
     const size_t row0 = (size_t)page * P + p0;
     float* dst = tiles + st * MLA_TILE * ROW;
-    for (int idx = t; idx < MLA_TILE * (K / 4); idx += MLA_NT) {
-      const int r = idx / (K / 4), c = idx % (K / 4);
-      const bool ok = r < ns;
-      const float* src = c < R / 4 ? ckvp + (row0 + r) * R + 4 * c
-                                   : kropep + (row0 + r) * DR + 4 * (c - R / 4);
-      pd_cp_async16(dst + r * ROW + 4 * c, ok ? src : ckvp, ok);
-    }
-    if (t < MLA_TILE)
-      pd_cp_async4(pos_s + st * MLA_TILE + t,
-                   t < ns ? posp + row0 + t : posp, t < ns);
-  };
+    // ckv: float4 column c, rows r0 .. r0 + TILE / CG - 1
+    for (int j = u; j < S::CG * (R / 4); j += S::LOADERS) {
+      const int c = 4 * (j % (R / 4));
+      const int r0 = (j / (R / 4)) * (MLA_TILE / S::CG);
+      const float* src = ckvp + row0 * R + c;
 #pragma unroll
-  for (int k = 0; k < MLA_STAGES - 1; ++k) {
+      for (int r = r0; r < r0 + MLA_TILE / S::CG; ++r)
+        pd_cp_async16(dst + r * ROW + c, r < ns ? src + r * R : ckvp, r < ns);
+    }
+    // krope: (row, float4 column) pairs
+    for (int j = u; j < MLA_TILE * (DR / 4); j += S::LOADERS) {
+      const int r = j / (DR / 4), c = 4 * (j % (DR / 4));
+      pd_cp_async16(dst + r * ROW + R + c,
+                    r < ns ? kropep + (row0 + r) * DR + c : kropep, r < ns);
+    }
+    if (u < MLA_TILE)
+      pd_cp_async4(pos_s + st * MLA_TILE + u,
+                   u < ns ? posp + row0 + u : posp, u < ns);
+  };
+  // the first STAGES - 2 tiles in flight, one commit group each (a stage
+  // is refilled two tiles after its own: P.V reads it one tile late)
+#pragma unroll
+  for (int k = 0; k < STAGES - 2; ++k) {
     if (k < n_tiles) load_tile(k, k);
     pd_cp_async_commit();
   }
+  pd_cp_async_wait<STAGES - 2>();                 // this thread's q landed
+  for (int idx = t; idx < S::QF; idx += MLA_NT) {
+    const int h = idx / (K / 4), c = 4 * (idx % (K / 4));
+    float4* v = reinterpret_cast<float4*>(qs + h * ROW + c);
+    const float4 x = *v;
+    *v = make_float4(x.x * scale_log2, x.y * scale_log2, x.z * scale_log2,
+                     x.w * scale_log2);
+  }
 
-  // softmax state of head t / 16 (its 16 threads hold copies); acc: the
-  // P.V thread's heads S::HPT * (t / CG) + i, columns 4 (t % CG) .. + 3
+  // score lanes: chain e, slot group sg, head group hg
+  const bool scorer = t < S::SC_THREADS;
+  const int e = t % 4, sg = (t / 4) % SG, hg = t / (4 * SG);
+  // the softmax state of head u / 16 (its 16 threads hold copies)
+  const bool smx = u >= 0 && u < HT * MLA_TILE;
+  const int hh = u / MLA_TILE, sl = u % MLA_TILE;
   float m = PD_NEG_INF, l = 0.f;
-  const int hh = t / MLA_TILE, sl = t % MLA_TILE;
-  const bool pv = t < S::PV_THREADS;
-  const int cg4 = 4 * (t % S::CG), hp = S::HPT * (t / S::CG);
-  float acc[S::HPT][4];
+  // P.V: heads hp .. hp + PVH - 1, float4 column groups colg + NCG k
+  const bool pv = u >= 0 && u < S::PV_THREADS;
+  const int colg = u % NCG, hp = PVH * (u / NCG);
+  float acc[PVH][PVC];
 #pragma unroll
-  for (int i = 0; i < S::HPT; ++i)
+  for (int i = 0; i < PVH; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int c = 0; c < PVC; ++c) acc[i][c] = 0.f;
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % MLA_STAGES;
-    const int nx = it + MLA_STAGES - 1;
-    if (nx < n_tiles) load_tile(nx, nx % MLA_STAGES);
-    pd_cp_async_commit();
-    pd_cp_async_wait<MLA_STAGES - 1>();   // tile it landed
-    __syncthreads();
-    const float* tile = tiles + st * MLA_TILE * ROW;
-
-    // the score of (head hh, slot sl), then one max, one sum and one
-    // rescale a head over its 16 lanes
+  // step it: the scores of tile it; the softmax and P.V of tile it - 1
+  for (int it = 0; it <= n_tiles; ++it) {
+    pd_cp_async_wait<STAGES - 3>();       // tile it landed
+    __syncthreads();                      // ... for all; the scores of tile
+                                          // it - 1 written; tile it - 2
+                                          // consumed
     {
-      const float* qrow = qs + hh * ROW;
-      const float* krow = tile + sl * ROW;
-      float sa[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int c = 0; c < K; c += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(qrow + c);
-        const float4 k = *reinterpret_cast<const float4*>(krow + c);
-        sa[0] = fmaf(a.x, k.x, sa[0]);
-        sa[1] = fmaf(a.y, k.y, sa[1]);
-        sa[2] = fmaf(a.z, k.z, sa[2]);
-        sa[3] = fmaf(a.w, k.w, sa[3]);
-      }
-      const float s = (sa[0] + sa[1]) + (sa[2] + sa[3]);
-      const int pos = pos_s[st * MLA_TILE + sl];
-      const int p0 = (it % tpp) * MLA_TILE;
-      const bool valid = p0 + sl < P && pos >= 0 && pos <= cur;
-      float mx = valid ? s : PD_NEG_INF;
-#pragma unroll
-      for (int d = 8; d > 0; d >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
-      const float m_new = fmaxf(m, mx);
-      const float p = valid ? pd_ex2(s - m_new) : 0.f;
-      float psum = p;
-#pragma unroll
-      for (int d = 8; d > 0; d >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, d);
-      const float a = pd_ex2(m - m_new);
-      l = l * a + psum;
-      m = m_new;
-      ps[hh * MLA_TILE + sl] = p;
-      if (sl == 0) alpha_s[hh] = a;
+      const int nx = it + STAGES - 2;     // into tile it - 2's stage
+      if (nx < n_tiles) load_tile(nx, nx % STAGES);
+      pd_cp_async_commit();
     }
-    __syncthreads();
 
-    // acc = acc * alpha + p . ckv over the thread's heads and columns
-    if (pv) {
+    if (scorer && it < n_tiles) {
+      // the patch's chains over k, each chain's sum into sc
+      const float* tile = tiles + (it % STAGES) * MLA_TILE * ROW;
+      const float* qrow = qs + PH * hg * ROW + e;
+      const float* krow = tile + sg * ROW + e;
+      float sa[PH][PS];
 #pragma unroll
-      for (int i = 0; i < S::HPT; ++i) {
-        const float a = alpha_s[hp + i];
+      for (int i = 0; i < PH; ++i)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] *= a;
+        for (int j = 0; j < PS; ++j) sa[i][j] = 0.f;
+#pragma unroll F32_SC_UNROLL
+      for (int c = 0; c < K; c += 4) {
+        float qv[PH], kv[PS];
+#pragma unroll
+        for (int i = 0; i < PH; ++i) qv[i] = qrow[i * ROW + c];
+#pragma unroll
+        for (int j = 0; j < PS; ++j) kv[j] = krow[SG * j * ROW + c];
+#pragma unroll
+        for (int i = 0; i < PH; ++i)
+#pragma unroll
+          for (int j = 0; j < PS; ++j)
+            sa[i][j] = fmaf(qv[i], kv[j], sa[i][j]);
       }
-#pragma unroll 4
-      for (int j = 0; j < MLA_TILE; ++j) {
-        const float4 v = *reinterpret_cast<const float4*>(tile + j * ROW + cg4);
+      float* s_out = sc + (it & 1) * 4 * HT * MLA_TILE;
 #pragma unroll
-        for (int i = 0; i < S::HPT; ++i) {
-          const float p = ps[(hp + i) * MLA_TILE + j];
-          acc[i][0] = fmaf(p, v.x, acc[i][0]);
-          acc[i][1] = fmaf(p, v.y, acc[i][1]);
-          acc[i][2] = fmaf(p, v.z, acc[i][2]);
-          acc[i][3] = fmaf(p, v.w, acc[i][3]);
+      for (int i = 0; i < PH; ++i)
+#pragma unroll
+        for (int j = 0; j < PS; ++j)
+          s_out[(e * HT + PH * hg + i) * MLA_TILE + sg + SG * j] = sa[i][j];
+    }
+
+    if (it > 0 && u >= 0) {
+      const int pt = it - 1;
+      // one max, one sum and one rescale a head over its 16 slots: thread
+      // (head hh, slot sl), the chains summed (0 + 1) + (2 + 3)
+      if (smx) {
+        const float* s_in = sc + (pt & 1) * 4 * HT * MLA_TILE +
+                            hh * MLA_TILE + sl;
+        const int o = HT * MLA_TILE;
+        const float s = (s_in[0] + s_in[o]) + (s_in[2 * o] + s_in[3 * o]);
+        const int pos = pos_s[(pt % STAGES) * MLA_TILE + sl];
+        const int p0 = (pt % tpp) * MLA_TILE;
+        const bool valid = p0 + sl < P && pos >= 0 && pos <= cur;
+        float mx = valid ? s : PD_NEG_INF;
+#pragma unroll
+        for (int d = 8; d > 0; d >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+        const float m_new = fmaxf(m, mx);
+        const float p = valid ? pd_ex2(s - m_new) : 0.f;
+        float psum = p;
+#pragma unroll
+        for (int d = 8; d > 0; d >>= 1)
+          psum += __shfl_xor_sync(0xffffffffu, psum, d);
+        const float a = pd_ex2(m - m_new);
+        l = l * a + psum;
+        m = m_new;
+        ps[sl * PROW + hh] = p;
+        if (sl == 0) alpha_s[hh] = a;
+      }
+      mla_bar_sync(1, S::LOADERS);        // this tile's p among these warps
+
+      // acc = acc * alpha + p . ckv over the thread's heads and columns
+      if (pv) {
+        const float* tile = tiles + (pt % STAGES) * MLA_TILE * ROW;
+#pragma unroll
+        for (int i = 0; i < PVH; ++i) {
+          const float a = alpha_s[hp + i];
+#pragma unroll
+          for (int c = 0; c < PVC; ++c) acc[i][c] *= a;
+        }
+#pragma unroll 4
+        for (int j = 0; j < MLA_TILE; ++j) {
+          float4 v[PVC / 4], p4[PVH / 4];
+#pragma unroll
+          for (int k = 0; k < PVC / 4; ++k)
+            v[k] = *reinterpret_cast<const float4*>(tile + j * ROW +
+                                                    4 * (colg + NCG * k));
+#pragma unroll
+          for (int k = 0; k < PVH / 4; ++k)
+            p4[k] = *reinterpret_cast<const float4*>(ps + j * PROW + hp +
+                                                     4 * k);
+#pragma unroll
+          for (int i = 0; i < PVH; ++i) {
+            const float4 q4 = p4[i / 4];
+            const float p = i % 4 == 0 ? q4.x : i % 4 == 1 ? q4.y
+                          : i % 4 == 2 ? q4.z : q4.w;
+#pragma unroll
+            for (int k = 0; k < PVC / 4; ++k) {
+              acc[i][4 * k] = fmaf(p, v[k].x, acc[i][4 * k]);
+              acc[i][4 * k + 1] = fmaf(p, v[k].y, acc[i][4 * k + 1]);
+              acc[i][4 * k + 2] = fmaf(p, v[k].z, acc[i][4 * k + 2]);
+              acc[i][4 * k + 3] = fmaf(p, v[k].w, acc[i][4 * k + 3]);
+            }
+          }
         }
       }
     }
-    __syncthreads();                  // stage st and ps are consumed
   }
   pd_cp_async_wait<0>();
-  __syncthreads();                    // q is no longer read
-
+  // each rank's state of the columns rank r merges into rank r's recv,
+  // once every block of the cluster has started
+  mla_cluster_wait();
   if (pv) {
 #pragma unroll
-    for (int i = 0; i < S::HPT; ++i)
-      *reinterpret_cast<float4*>(acc_s + (hp + i) * R + cg4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int k = 0; k < PVC / 4; ++k) {
+      const int c = 4 * (colg + NCG * k);
+      float* dst = cluster.map_shared_rank(recv, c / CW) + c % CW;
+#pragma unroll
+      for (int i = 0; i < PVH; ++i)
+        *reinterpret_cast<float4*>(dst + (rank * HT + hp + i) * CW) =
+            make_float4(acc[i][4 * k], acc[i][4 * k + 1], acc[i][4 * k + 2],
+                        acc[i][4 * k + 3]);
+    }
   }
-  if (sl == 0) {
-    ml[2 * hh] = m;
-    ml[2 * hh + 1] = l;
+  if (smx && sl < MLA_CL)               // head hh's (m, l) into rank sl
+    *reinterpret_cast<float2*>(cluster.map_shared_rank(recv_ml, sl) +
+                               2 * (rank * HT + hh)) = make_float2(m, l);
+  cluster.sync();                     // every rank's state has landed
+  // columns [CW rank, CW rank + CW) of every head over the ranks in order
+  // (mla_fold); nothing in another block is read, so no block waits for
+  // the others before it exits
+  {
+    constexpr int TPH = CW / 4;
+    static_assert(MLA_NT / TPH >= HT, "a merge pass covers the tile's heads");
+    if (t / TPH < HT) {
+      const int hh = t / TPH, c0 = 4 * (t % TPH);   // head, columns
+      float mr[MLA_CL], lr[MLA_CL];
+      float4 vr[MLA_CL];
+#pragma unroll
+      for (int r = 0; r < MLA_CL; ++r) {
+        mr[r] = recv_ml[2 * (r * HT + hh)];
+        lr[r] = recv_ml[2 * (r * HT + hh) + 1];
+        vr[r] = *reinterpret_cast<const float4*>(recv + (r * HT + hh) * CW +
+                                                 c0);
+      }
+      const float4 o = mla_fold(mr, lr, vr);
+      if (h0 + hh < H)
+        *reinterpret_cast<float4*>(out + ((size_t)b * H + h0 + hh) * R +
+                                   CW * rank + c0) = o;
+    }
   }
-  cluster.sync();
-  mla_merge<R>(cluster, ml, acc_s, out, b, H, h0, rank);
-  cluster.sync();                     // the others have read this block
 }
 
-// the kernel of the latents' element type T and its shared memory past
-// the page list (only the instance of T is instantiated: bf16 has no
-// (32, 16) body)
+// the kernel of the latents' element type T, its head tile and its shared
+// memory past the page list (only the instance of T is instantiated: bf16
+// has no (32, 16) body)
 template <int R, int DR, class T>
 struct MlaInstance {
+  static constexpr int HT = MLA_H;
   static constexpr int FIXED_BYTES = MlaShape<R, DR>::FIXED_BYTES;
   static auto kernel() { return mla_decode_kernel<R, DR>; }
+  static cudaError_t configure() { return cudaSuccess; }
 };
 template <int R, int DR>
 struct MlaInstance<R, DR, float> {
+  static constexpr int HT = MlaF32Shape<R, DR>::HT;
   static constexpr int FIXED_BYTES = MlaF32Shape<R, DR>::FIXED_BYTES;
   static auto kernel() { return mla_decode_f32_kernel<R, DR>; }
+  // the shared memory an SM keeps for the blocks the launch bound asks for
+  static cudaError_t configure() {
+    return cudaFuncSetAttribute(kernel(),
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  }
 };
 
 // T: the latents' element type
@@ -658,15 +883,17 @@ static int mla_launch(const void* q_lat, const void* q_rope,
   const auto kernel = I::kernel();
   const size_t list_bytes = 4 * (size_t)((n_blk + MLA_CL - 1) / MLA_CL + 1);
   const size_t smem = I::FIXED_BYTES + list_bytes;
-  if (smem > MLA_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (smem > MLA_SMEM_MAX || H > 65535 * I::HT)
+    return (int)cudaErrorInvalidValue;
   static bool configured = false;        // one flag an instantiation
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MLA_SMEM_MAX);
+    if (e == cudaSuccess) e = I::configure();
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid(MLA_CL, B, (H + MLA_H - 1) / MLA_H);
+  const dim3 grid(MLA_CL, B, (H + I::HT - 1) / I::HT);
   kernel<<<grid, MLA_NT, smem, stream>>>(
       static_cast<const float*>(q_lat), static_cast<const float*>(q_rope),
       static_cast<const T*>(ckvp), static_cast<const T*>(kropep),
@@ -674,6 +901,53 @@ static int mla_launch(const void* q_lat, const void* q_rope,
       static_cast<const int*>(cur_pos), static_cast<float*>(out), H, P, n_blk,
       PD_LOG2E * scale);
   return (int)cudaGetLastError();
+}
+
+// The f32 instance's launch shape at (R, DR) for B rows, H heads and a
+// table of n_blk columns, into out[0..7]: heads a block, blocks, ring
+// stages, shared memory bytes a block, blocks an SM its launch bound asks
+// for, score threads, P.V threads, and the clusters the card keeps
+// resident at once (cudaOccupancyMaxActiveClusters; -1 where it fails).
+// Returns cudaErrorInvalidValue for an (R, DR) without an f32 instance.
+template <int R, int DR>
+static int mla_f32_shape(int* out, int B, int H, int n_blk) {
+  using S = MlaF32Shape<R, DR>;
+  using I = MlaInstance<R, DR, float>;
+  const int smem = S::FIXED_BYTES + 4 * ((n_blk + MLA_CL - 1) / MLA_CL + 1);
+  const int tiles = (H + S::HT - 1) / S::HT;
+  out[0] = S::HT;
+  out[1] = MLA_CL * B * tiles;
+  out[2] = S::STAGES;
+  out[3] = smem;
+  out[4] = S::BLOCKS;
+  out[5] = S::SC_THREADS;
+  out[6] = S::PV_THREADS;
+  out[7] = -1;
+  const auto kernel = I::kernel();
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           MLA_SMEM_MAX) == cudaSuccess &&
+      I::configure() == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(MLA_CL, B, tiles);
+    cfg.blockDim = dim3(MLA_NT, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    int n = -1;
+    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) == cudaSuccess)
+      out[7] = n;
+  }
+  cudaGetLastError();                    // a failed query leaves no error
+  return 0;
+}
+
+extern "C" int flash_decode_paged_mla_f32_shape(void* out, int B, int H,
+                                                int R, int DR, int n_blk,
+                                                void* stream) {
+  (void)stream;
+  int* o = static_cast<int*>(out);
+  if (R == 512 && DR == 64) return mla_f32_shape<512, 64>(o, B, H, n_blk);
+  if (R == 256 && DR == 32) return mla_f32_shape<256, 32>(o, B, H, n_blk);
+  if (R == 32 && DR == 16) return mla_f32_shape<32, 16>(o, B, H, n_blk);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Latents bf16, or f32 when f32 is nonzero.  Returns cudaGetLastError()
@@ -685,8 +959,7 @@ extern "C" int flash_decode_paged_mla_launch(
     const void* kropep, const void* posp, const void* bt, const void* cur_pos,
     void* out, int B, int H, int R, int DR, int P, int n_blk, int bt_stride,
     int f32, float scale, void* stream) {
-  if (H < 1 || H > 65535 * MLA_H || P < 1 || n_blk < 0 || B < 1 ||
-      B > 65535)
+  if (H < 1 || P < 1 || n_blk < 0 || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define MLA_CASE(r, dr, T)                                                   \

@@ -16,8 +16,9 @@ stride -- and merge the pieces in a fixed order inside the one launch, so a
 row's output is bitwise the same whatever the batch around it and whatever
 the table view's width.  The GQA kernel takes any head group and hd in
 ``HEAD_DIMS`` (f32: ``F32_HEAD_DIMS``; as ``flash_decode``); the MLA
-kernel bf16 or f32 latents, any head count, in tiles of 16 heads along its
-grid, at the (r, dr) of ``MLA_SHAPES`` for the latents' dtype.
+kernel bf16 or f32 latents, any head count, in head tiles along its grid
+(16 heads on bf16 latents; on f32 the tile of ``mla_f32_launch_shape``),
+at the (r, dr) of ``MLA_SHAPES`` for the latents' dtype.
 """
 
 from __future__ import annotations
@@ -127,7 +128,7 @@ flash_decode_paged.launches = 0
 #: (latent width r, rope width dr) pairs with an MLA kernel instantiation,
 #: by the latents' dtype: DeepSeek-V2-Lite's and MiniCPM3-4B's in both, and
 #: on f32 latents the reduced DeepSeek config's (32, 16); any head count
-#: (tiles of 16)
+#: (in head tiles)
 MLA_SHAPES = {torch.bfloat16: ((512, 64), (256, 32)),
               torch.float32: ((512, 64), (256, 32), (32, 16))}
 
@@ -213,3 +214,25 @@ def flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, block_tables,
 
 
 flash_decode_paged_mla.launches = 0
+
+
+#: the fields of ``mla_f32_launch_shape``, in the kernel's order
+MLA_F32_SHAPE_FIELDS = ("head_tile", "blocks", "stages", "smem_bytes",
+                        "blocks_an_sm", "score_threads", "pv_threads",
+                        "max_active_clusters")
+
+
+def mla_f32_launch_shape(b: int, h: int, r: int, dr: int,
+                         n_blk: int) -> dict:
+    """The f32 MLA kernel's launch at B rows, H heads, (r, dr) and a table
+    view of n_blk columns, as the built kernel sets it: heads a block (its
+    head tile), blocks, ring stages, shared memory a block, the blocks an
+    SM its launch bound asks for, score and P.V threads, and the clusters
+    of 8 blocks the card keeps resident at once (-1 where the query
+    fails).  Needs the CUDA build (the GPU machine)."""
+    out = torch.zeros(len(MLA_F32_SHAPE_FIELDS), dtype=torch.int32)
+    fn = _build.function("flash_decode_paged_mla",
+                         "flash_decode_paged_mla_f32_shape", 1, 5)
+    _build.check("flash_decode_paged_mla_f32_shape",
+                 fn(out.data_ptr(), b, h, r, dr, n_blk, None))
+    return dict(zip(MLA_F32_SHAPE_FIELDS, out.tolist()))

@@ -266,21 +266,36 @@ def test_moe_gmm_quant_f32_matches_pallas(dtype, t, k, e, bm, zero, pad):
     np.testing.assert_allclose(got.numpy(), _np(want), **TOL)
 
 
-@pytest.mark.parametrize("lens,n_blk,live", [
-    ([96, 50, 17, 7, 1], 8, 8),           # the reduced check's rows
-    ([150, 20], 20, 20),                  # a row past the rank stride
-    ([60, 33, 5], 6, 4),                  # a truncated live-page view
+#: the model's qk dims (dn + dr) for B7's scale, by latent width r: the
+#: reduced DeepSeek config's, DeepSeek-V2-Lite's and MiniCPM3-4B's
+MLA_QK = {32: 16 + 16, 512: 128 + 64, 256: 64 + 32}
+
+
+@pytest.mark.parametrize("lens,n_blk,live,h,r,dr", [
+    # the reduced DeepSeek config's (r 32, dr 16), 4 heads
+    pytest.param([96, 50, 17, 7, 1], 8, 8, 4, 32, 16,
+                 id="lens0-8-8"),          # the reduced check's rows
+    pytest.param([150, 20], 20, 20, 4, 32, 16,
+                 id="lens1-20-20"),        # a row past the rank stride
+    pytest.param([60, 33, 5], 6, 4, 4, 32, 16,
+                 id="lens2-6-4"),          # a truncated live-page view
+    # full width on short rows: DeepSeek-V2-Lite's 16 heads at (512, 64),
+    # MiniCPM3-4B's 40 at (256, 32)
+    pytest.param([40, 17, 0], 4, 4, 16, 512, 64, id="deepseek-h16"),
+    pytest.param([40, 17, 0], 4, 4, 40, 256, 32, id="minicpm3-h40"),
 ])
-def test_mla_f32_plain_matches_pallas_and_ref(lens, n_blk, live):
-    """The reduced DeepSeek config's (r 32, dr 16), 4 heads, pages of 16,
-    f32 latents (``rng.normal``, not exact in bf16)."""
+def test_mla_f32_plain_matches_pallas_and_ref(lens, n_blk, live, h, r, dr):
+    """B7's plain version on f32 latents (``rng.normal``, not exact in
+    bf16), pages of 16, against the Pallas kernel in interpret mode and
+    the reference's oracle, at the reduced config's shapes and at full
+    width."""
     import jax.numpy as jnp
     from repro.kernels.flash_decode_paged import flash_decode_paged_mla_pallas
     from repro.kernels.ref import flash_decode_paged_mla_ref
     from repro_torch.kernels import flash_decode_paged_mla
     rng = np.random.default_rng(sum(lens))
-    h, r, dr, p = 4, 32, 16, 16
-    scale = 1.0 / (16 + 16) ** 0.5
+    p = 16
+    scale = 1.0 / MLA_QK[r] ** 0.5
     ckvp, kropep, posp, table = latent_pool(rng, lens, page_size=p,
                                              n_blk=n_blk, r=r, dr=dr)
     q_lat = rng.normal(size=(len(lens), h, r)).astype(np.float32)
@@ -460,3 +475,70 @@ def test_mla_f32_on_card(card, h, r, dr):
             q_lat[i:i + 1], q_rope[i:i + 1], ckvp, kropep, posp,
             table[i:i + 1, :w], cur[i:i + 1], scale=scale)
         assert torch.equal(alone[0], full[i]), i
+
+
+def _card_mla(rng, lens, h, r, dr, n_blk=40):
+    """f32 latent pool, q and cur_pos for ``lens`` on the card."""
+    ckvp, kropep, posp, table = latent_pool(rng, lens, page_size=16,
+                                             n_blk=n_blk, r=r, dr=dr)
+    dev = torch.device("cuda")
+    q_lat, q_rope = (torch.from_numpy(rng.normal(size=(len(lens), h, w))
+                                      .astype(np.float32)).to(dev)
+                     for w in (r, dr))
+    cur = torch.tensor([ln - 1 for ln in lens], dtype=I32, device=dev)
+    return [q_lat, q_rope, *(torch.from_numpy(a).to(dev) for a in
+                             (ckvp, kropep, posp, table)), cur]
+
+
+@pytest.mark.parametrize("h,r,dr,h0,nh", [(16, 512, 64, 0, 8),
+                                          (40, 256, 32, 16, 16),
+                                          (12, 32, 16, 4, 4)])
+def test_mla_f32_head_tiles_on_card(card, h, r, dr, h0, nh):
+    """Heads [h0, h0 + nh) of an h-head call are bitwise a call on those
+    heads alone: a head's output depends neither on its head tile nor on
+    the other heads (DeepSeek's first 8 of 16, MiniCPM3's 16-31 of 40,
+    the reduced width's 4-7 of 12)."""
+    from repro_torch.kernels import flash_decode_paged_mla
+    rng = np.random.default_rng(h + r)
+    q_lat, q_rope, *rest = _card_mla(rng, [512, 300, 129, 17, 0], h, r, dr)
+    whole = flash_decode_paged_mla(q_lat, q_rope, *rest, scale=0.07)
+    alone = flash_decode_paged_mla(
+        q_lat[:, h0:h0 + nh].contiguous(), q_rope[:, h0:h0 + nh].contiguous(),
+        *rest, scale=0.07)
+    assert torch.equal(alone, whole[:, h0:h0 + nh])
+
+
+@pytest.mark.parametrize("h,r,dr", [(4, 32, 16), (16, 512, 64),
+                                    (40, 256, 32)])
+def test_mla_f32_trash_and_uneven_walks_on_card(card, h, r, dr):
+    """One batch: a row whose table has trash pages between its live ones
+    (and past them), and rows whose ranks walk 4 tiles (32 pages), 0 or 1
+    (one page) and 1 or 2 (9 pages); against the plain version, and each
+    row alone at its own width bitwise the batch's at the full table."""
+    from repro_torch.kernels import flash_decode_paged_mla
+    from repro_torch.kernels.flash_decode_paged import \
+        flash_decode_paged_mla_plain
+    rng = np.random.default_rng(r + 1)
+    lens = [512, 16, 129, 0, 0]
+    q_lat, q_rope, ckvp, kropep, posp, table, cur = _card_mla(
+        rng, lens, h, r, dr)
+    # the idle row 3 gets 10 live pages spread over 34 columns, trash
+    # between and past them, positions in column order
+    cols = [0, 2, 3, 7, 8, 9, 15, 24, 31, 33]
+    free = int(table.max()) + 1
+    for j, col in enumerate(cols):
+        table[3, col] = free + j
+        posp[free + j] = torch.arange(16 * j, 16 * j + 16, dtype=I32)
+    cur[3] = 16 * len(cols) - 3
+    got = flash_decode_paged_mla(q_lat, q_rope, ckvp, kropep, posp, table,
+                                 cur, scale=0.05)
+    _f32_close("flash_decode_paged_mla", got,
+               flash_decode_paged_mla_plain(q_lat, q_rope, ckvp, kropep,
+                                            posp, table, cur, scale=0.05))
+    assert (got[4] == 0).all()
+    widths = [32, 1, 9, 34, 1]
+    for i, w in enumerate(widths):
+        alone = flash_decode_paged_mla(
+            q_lat[i:i + 1], q_rope[i:i + 1], ckvp, kropep, posp,
+            table[i:i + 1, :w], cur[i:i + 1], scale=0.05)
+        assert torch.equal(alone[0], got[i]), i

@@ -34,7 +34,8 @@ a block, the loads of a batch (for up to 2, 4 and 8 slots) and the
 blocks an SM.  For each variant in VARIANTS this writes a
 copy of the source with those constants replaced into
 ``build/kernels/variants/`` and builds it (one ``nvcc`` each, all started
-together), holds it against the plain version, and times the variants in
+together; ``tools/kernel_variants.py``), holds it against the plain
+version, and times the variants in
 turns (L2 flushed before every call) at OLMoE-1B-7B's shapes: moe_ffn on
 capacity buffers of C 320, 80 and 4 rows (f32: also the first 16, 24,
 25, 32 and 33 rows of C 80's, about the decode body's reach, on the
@@ -55,8 +56,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -67,7 +66,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(1, str(ROOT))
 import chip_smoke as cs  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+import kernel_variants  # noqa: E402
 
 VARIANTS = {
     "moe_ffn": [
@@ -138,51 +137,19 @@ F32_KERNELS = ("moe_ffn_f32", "moe_gmm_f32", "moe_gmm_quant_f32")
 F32_TOL = 2e-5
 
 
-def _source(kernel: str, consts: dict) -> str:
-    """The kernel's source (or a variant's own, ``source``: a path from the
-    root of the checkout) with the variant's constants replaced."""
-    consts = dict(consts)
-    path = consts.pop("source", None)
-    name = SOURCE.get(kernel, kernel)
-    src = (ROOT / path if path else _build.CSRC / f"{name}.cu").read_text()
-    for name, val in consts.items():
-        src, n = re.subn(rf"constexpr (int|bool) {name} = \w+;",
-                         rf"constexpr \1 {name} = {val};", src)
-        if n != 1:
-            raise RuntimeError(f"{kernel}.cu: no constant {name}")
-    return src
-
-
 def _build_variants(kernels):
-    out = _build.BUILD_DIR / "variants"
-    procs = {}
+    libs = kernel_variants.build({
+        f"{kernel}_{i}": (SOURCE.get(kernel, kernel), variant)
+        for kernel in kernels for i, variant in enumerate(VARIANTS[kernel])})
+    out = {}
     for kernel in kernels:
-        for i, consts in enumerate(VARIANTS[kernel]):
-            d = out / f"{kernel}_{i}"
-            if d.exists():
-                shutil.rmtree(d)
-            shutil.copytree(_build.CSRC, d)
-            name = SOURCE.get(kernel, kernel)
-            (d / f"{name}.cu").write_text(_source(kernel, consts))
-            lib = d / f"lib{name}.so"
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                   str(d / f"{name}.cu")]
-            procs[kernel, i] = (lib, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-    libs = {}
-    for (kernel, i), (lib, p) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {kernel} {i}:\n{log}")
-        libs[kernel, i] = ctypes.CDLL(str(lib))
-        print(json.dumps({"kernel": kernel, "variant": i,
-                          "consts": VARIANTS[kernel][i], "ptxas": [
-                              ln.strip() for ln in log.splitlines()
-                              if "registers" in ln or "spill" in ln
-                              or "wgmma" in ln]}),
-              flush=True)
-    return libs
+        for i, variant in enumerate(VARIANTS[kernel]):
+            lib, ptxas = libs[f"{kernel}_{i}"]
+            out[kernel, i] = lib
+            print(json.dumps({"kernel": kernel, "variant": i,
+                              "consts": variant, "ptxas": ptxas}),
+                  flush=True)
+    return out
 
 
 def _fn(lib, name):
